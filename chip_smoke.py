@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+1. Environment: torch, CUDA and nvcc versions, the card's name and power
+   limit, and the time to build the kernels from
+   ``stochastic_gradient_push_torch/csrc/`` (one ``nvcc`` per source,
+   started together).
+2. Every kernel against its plain PyTorch version on the card (fp32,
+   TF32 off), max |kernel - plain| <= 1e-4, with the kernel's, the plain
+   version's and one library call's times (CUDA events) and the bound.
+3. The main path at full width: ``LMEngine`` over the d768/L12/h12
+   ff3072/vocab32000 LM (random weights from seed 0) serves 48 synthetic
+   requests closed loop.  The launch counters are zeroed just before and
+   read just after; every kernel must have launched, every request must
+   complete, and the page table must be quiescent.
+4. Teacher-forced check: the engine's prefill and per-step decode logits
+   for two requests against the dense ``TransformerLM`` forward on the
+   card, max |diff| <= 1e-3.
+5. A JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
+   line, and as the last line ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, before printing any result, without a CUDA device or
+outside a checkout of the repository; any failed phase raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+TOL_KERNEL = 1e-4
+TOL_ENGINE = 1e-3
+# H100 SXM data sheet: HBM rate and fp32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
+HEAD_DIM = 64
+
+
+def _run(cmd) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True,
+                          text=True).stdout.strip()
+
+
+def _time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# -- phase 2: kernels against their plain versions ---------------------------
+
+
+def check_flash(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from stochastic_gradient_push_torch.ops.flash_attention import (
+        flash_attention_reference, flash_fwd)
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    row = None
+    for t, causal in ((8, True), (200, True), (512, True), (200, False)):
+        q, k, v = (torch.randn(1, 12, t, HEAD_DIM, device="cuda",
+                               generator=g) for _ in range(3))
+        err = _max_err(flash_fwd(q, k, v, causal=causal),
+                       flash_attention_reference(q, k, v, causal=causal))
+        if not err <= TOL_KERNEL:
+            raise AssertionError(f"flash_fwd t={t} causal={causal}: max "
+                                 f"err {err} > {TOL_KERNEL}")
+        ms = _time_ms(lambda: flash_fwd(q, k, v, causal=causal), 50)
+        plain_ms = _time_ms(
+            lambda: flash_attention_reference(q, k, v, causal=causal), 20)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), 50)
+        bh = 12
+        pairs = t * (t + 1) // 2 if causal else t * t
+        bound_ms, bound_by = _bound(4 * bh * t * HEAD_DIM * 4,
+                                    4 * bh * pairs * HEAD_DIM)
+        print(f"kernel flash_fwd b1 h12 t{t} d64 causal={causal}: max err "
+              f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}) [{card}]", flush=True)
+        if t == 512:   # the longest prompt the main path prefills
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms)
+    return row
+
+
+def _paged_case(g, hq: int, hkv: int, batch=16, page=16, max_pages=48,
+                num_pages=1024, layers=12):
+    """A full-size cache ([layers, hkv, num_pages + 1, page, d], as the
+    engine holds it), distinct random page ids per row (non-contiguous),
+    random lengths in [1, max_pages * page] including both ends."""
+    import torch
+
+    shape = (layers, hkv, num_pages + 1, page, HEAD_DIM)
+    kc = torch.randn(shape, device="cuda", generator=g)
+    vc = torch.randn(shape, device="cuda", generator=g)
+    q = torch.randn(batch, hq, HEAD_DIM, device="cuda", generator=g)
+    pi = torch.stack([torch.randperm(num_pages, device="cuda",
+                                     generator=g)[:max_pages]
+                      for _ in range(batch)]).to(torch.int32)
+    lengths = torch.randint(1, max_pages * page + 1, (batch,), device="cuda",
+                            generator=g, dtype=torch.int32)
+    lengths[0], lengths[1] = 1, max_pages * page
+    return q, kc, vc, pi, lengths
+
+
+def check_paged(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from stochastic_gradient_push_torch.serve.paged_attention import (
+        paged_attention_reference, paged_decode)
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    row = None
+    for hq, hkv in ((12, 12), (12, 6)):
+        q, kc, vc, pi, lengths = _paged_case(g, hq, hkv)
+        layers = kc.shape[0]
+        err = max(_max_err(paged_decode(q, kc[i], vc[i], pi, lengths),
+                           paged_attention_reference(q, kc[i], vc[i], pi,
+                                                     lengths))
+                  for i in range(layers))
+        if not err <= TOL_KERNEL:
+            raise AssertionError(f"paged_decode Hq{hq} Hkv{hkv}: max err "
+                                 f"{err} > {TOL_KERNEL}")
+        # each timed call reads the next layer's pool, as a decode tick
+        # does, so the 50 MB L2 does not hold the previous call's pages
+        it = iter(range(10 ** 9))
+
+        def kern():
+            i = next(it) % layers
+            paged_decode(q, kc[i], vc[i], pi, lengths)
+
+        def plain():
+            i = next(it) % layers
+            paged_attention_reference(q, kc[i], vc[i], pi, lengths)
+
+        ms = _time_ms(kern, 10 * layers)
+        plain_ms = _time_ms(plain, 2 * layers)
+        # library yardstick: SDPA over the pages gathered beforehand
+        b, t = q.shape[0], pi.shape[1] * kc.shape[3]
+        idx = pi.long()
+        kg = kc[0][:, idx].movedim(1, 0).reshape(b, hkv, t, HEAD_DIM)
+        vg = vc[0][:, idx].movedim(1, 0).reshape(b, hkv, t, HEAD_DIM)
+        if hq != hkv:
+            kg = kg.repeat_interleave(hq // hkv, dim=1)
+            vg = vg.repeat_interleave(hq // hkv, dim=1)
+        mask = (torch.arange(t, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, attn_mask=mask), 50)
+        tokens = int(lengths.sum())
+        nbytes = (2 * tokens * hkv * HEAD_DIM * 4 + 2 * q.numel() * 4
+                  + pi.numel() * 4 + lengths.numel() * 4)
+        bound_ms, bound_by = _bound(nbytes, 4 * tokens * hq * HEAD_DIM)
+        print(f"kernel paged_decode B16 Hq{hq} Hkv{hkv} d64 page16 "
+              f"max_pages48 ({tokens} cached tokens): max err {err:.3e}, "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over "
+              f"gathered pages {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}) [{card}]", flush=True)
+        if hq == hkv:   # the engine's shape: group 1
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms)
+    return row
+
+
+# -- phase 3: the main path ---------------------------------------------------
+
+
+class _TimedEngine:
+    """Host-clock totals of the engine's prefill (``start``) and decode
+    (``step``) calls; both end in a device-to-host read, so the clock
+    sees the device work."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.seconds = {"prefill": 0.0, "decode": 0.0}
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def start(self, prompt, budget_tokens):
+        t0 = time.perf_counter()
+        out = self._engine.start(prompt, budget_tokens)
+        self.seconds["prefill"] += time.perf_counter() - t0
+        return out
+
+    def step(self, slots):
+        t0 = time.perf_counter()
+        out = self._engine.step(slots)
+        self.seconds["decode"] += time.perf_counter() - t0
+        return out
+
+
+def main_path(card: str):
+    import torch
+
+    from stochastic_gradient_push_torch.models.convert import init_params
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerConfig)
+    from stochastic_gradient_push_torch.ops.flash_attention import flash_fwd
+    from stochastic_gradient_push_torch.serve.bench import (
+        run_bench, synthetic_requests)
+    from stochastic_gradient_push_torch.serve.engine import (
+        LMEngine, ServeConfig)
+    from stochastic_gradient_push_torch.serve.paged_attention import (
+        paged_decode)
+
+    cfg = TransformerConfig(vocab_size=32000, d_model=768, n_layers=12,
+                            n_heads=12, d_ff=3072)
+    t0 = time.perf_counter()
+    engine = LMEngine(init_params(cfg, seed=0), ServeConfig(
+        n_heads=12, page_size=16, num_pages=1024, max_seqs=16,
+        max_pages_per_seq=48), device="cuda")
+    torch.cuda.synchronize()
+    print(f"main: engine d{cfg.d_model} L{cfg.n_layers} h{cfg.n_heads} "
+          f"ff{cfg.d_ff} vocab{cfg.vocab_size} built in "
+          f"{time.perf_counter() - t0:.2f} s; weights "
+          f"{sum(p.numel() for p in engine.model.parameters()) * 4 / 1e9:.3f}"
+          f" GB, KV pool {2 * engine._kc.numel() * 4 / 1e9:.3f} GB", flush=True)
+    requests = synthetic_requests(48, seed=0, vocab=256,
+                                  prompt_tokens=(64, 512),
+                                  new_tokens=(16, 128))
+    timed = _TimedEngine(engine)
+    flash_fwd.launches = paged_decode.launches = 0
+    metrics, completions = run_bench(timed, requests)
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash_fwd.launches,
+                "paged_decode": paged_decode.launches}
+    print("main: summarize " + json.dumps(metrics, sort_keys=True),
+          flush=True)
+    print(f"main: launches {json.dumps(launches)}; host time prefill "
+          f"{timed.seconds['prefill']:.4f} s, decode "
+          f"{timed.seconds['decode']:.4f} s of {metrics['elapsed_s']:.4f} s "
+          f"[{card}]", flush=True)
+    by_rid = {r.rid: r for r in requests}
+    if len(completions) != len(requests):
+        raise AssertionError(f"{len(completions)} of {len(requests)} "
+                             f"requests completed")
+    for c in completions:
+        if len(c.tokens) != by_rid[c.rid].max_new_tokens:
+            raise AssertionError(f"request {c.rid}: {len(c.tokens)} tokens,"
+                                 f" wanted {by_rid[c.rid].max_new_tokens}")
+    engine.pages.assert_quiescent()
+    want = {"flash_fwd": cfg.n_layers * len(requests),
+            "paged_decode": cfg.n_layers * metrics["decode_steps"]}
+    if launches != want or min(launches.values()) <= 0:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return engine, requests, launches
+
+
+def engine_vs_dense(engine, requests, card: str) -> None:
+    """Two requests decoded side by side through the kernels, each
+    step's logits held against the dense model (plain attention) fed
+    the same tokens."""
+    import torch
+
+    worst = 0.0
+    reqs = requests[:2]
+    n_new = 16
+    runs = {}
+    for r in reqs:
+        slot, tok = engine.start(list(r.prompt), len(r.prompt) + n_new)
+        runs[slot] = (r, [tok], [engine.last_logits.clone()])
+    while any(len(toks) < n_new for _, toks, _ in runs.values()):
+        step = engine.step(sorted(runs))
+        for slot, tok in step.items():
+            runs[slot][1].append(tok)
+            runs[slot][2].append(engine.last_logits[slot].clone())
+    for slot, (r, toks, logits) in runs.items():
+        engine.finish(slot)
+        seq = list(r.prompt) + toks[:-1]
+        with torch.no_grad():
+            dense = engine.model(torch.tensor([seq], device="cuda"))[0]
+        t = len(r.prompt)
+        worst = max(worst, _max_err(logits[0], dense[:t]))
+        for j, lg in enumerate(logits[1:]):
+            worst = max(worst, _max_err(lg, dense[t + j]))
+    engine.pages.assert_quiescent()
+    print(f"engine vs dense: 2 requests x {n_new} tokens teacher-forced, "
+          f"max |logit diff| {worst:.3e} (tolerance {TOL_ENGINE}) [{card}]",
+          flush=True)
+    if not worst <= TOL_ENGINE:
+        raise AssertionError(f"engine logits off the dense model by {worst}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from stochastic_gradient_push_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
+    nvcc = _run([_build.nvcc_path(), "--version"]).splitlines()[-1]
+    print(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}, nvcc {nvcc!r}, "
+          f"{torch.cuda.device_count()} device(s), {smi}", flush=True)
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for name, info in built.items():
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build {name}: {line.strip()}", flush=True)
+
+    flash_row = check_flash(card)
+    paged_row = check_paged(card)
+    engine, requests, launches = main_path(card)
+    engine_vs_dense(engine, requests, card)
+
+    kernels = [
+        dict(name="flash_fwd", route="cuda",
+             source="stochastic_gradient_push_torch/csrc/flash_fwd.cu",
+             replaces="stochastic_gradient_push_tpu/ops/flash_attention.py"
+                      ":110",
+             launches=launches["flash_fwd"], **flash_row),
+        dict(name="paged_decode", route="cuda",
+             source="stochastic_gradient_push_torch/csrc/paged_decode.cu",
+             replaces="stochastic_gradient_push_tpu/serve/"
+                      "paged_attention.py:113",
+             launches=launches["paged_decode"], **paged_row),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,11 +15,15 @@ setup(
                  "compiled to XLA collectives"),
     packages=find_packages(
         include=["stochastic_gradient_push_tpu",
-                 "stochastic_gradient_push_tpu.*"]),
+                 "stochastic_gradient_push_tpu.*",
+                 "stochastic_gradient_push_torch",
+                 "stochastic_gradient_push_torch.*"]),
     # the native loader's C++ source ships with the package; data/native.py
     # builds it on demand (g++ + libjpeg) and falls back to PIL without it
     package_data={
         "stochastic_gradient_push_tpu.data": ["native_src/*.cc"],
+        # the PyTorch port's CUDA kernels, built with nvcc at first use
+        "stochastic_gradient_push_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=[

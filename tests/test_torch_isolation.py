@@ -1,0 +1,77 @@
+"""The port stands alone: ``stochastic_gradient_push_torch`` and
+``chip_smoke.py`` import neither jax nor the JAX package.
+
+One check runs the imports in a fresh interpreter where ``import jax``
+fails; the other reads the sources with ``ast``.
+"""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "stochastic_gradient_push_torch"
+SMOKE = REPO / "chip_smoke.py"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "stochastic_gradient_push_tpu")
+
+
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [SMOKE]
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_never_imports_jax_or_the_reference(path):
+    bad = {m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN}
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax"):
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, sys.argv[1])
+import stochastic_gradient_push_torch as port
+names = [port.__name__] + [m.name for m in pkgutil.walk_packages(
+    port.__path__, port.__name__ + ".")]
+names += ["chip_smoke"] + json.loads(sys.argv[2])
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "loaded": sorted(
+    m for m in sys.modules if m.startswith("stochastic_gradient_push"))}))
+"""
+
+
+def test_every_module_imports_with_jax_unavailable():
+    smoke_mods = sorted(m for m in _imported_modules(SMOKE)
+                        if m.startswith("stochastic_gradient_push_torch"))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(REPO), json.dumps(smoke_mods)],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    expected = {"stochastic_gradient_push_torch.serve.engine",
+                "stochastic_gradient_push_torch.serve.cli",
+                "stochastic_gradient_push_torch.ops._build",
+                "chip_smoke"}
+    assert expected <= set(result["imported"])
+    assert not [m for m in result["loaded"]
+                if m.startswith("stochastic_gradient_push_tpu")]
