@@ -9,8 +9,11 @@
    started together).
 2. Every kernel against its plain PyTorch version on the card (fp32,
    TF32 off), max |kernel - plain| <= 1e-4, with the kernel's, the plain
-   version's and one library call's times (CUDA events) and the bound.
-3. The main path at full width: ``LMEngine`` over the d768/L12/h12
+   version's and one library call's times (CUDA events) and the bound:
+   the flash forward (also its logsumexp), paged decode, and the two
+   flash backward kernels (dQ, dK/dV) at B8 H12 T1024 causal and at a
+   ragged t200, causal and full.
+3. Serving main path at full width: ``LMEngine`` over the d768/L12/h12
    ff3072/vocab32000 LM (random weights from seed 0) serves 48 synthetic
    requests closed loop.  The launch counters are zeroed just before and
    read just after; every kernel must have launched, every request must
@@ -18,7 +21,16 @@
 4. Teacher-forced check: the engine's prefill and per-step decode logits
    for two requests against the dense ``TransformerLM`` forward on the
    card, max |diff| <= 1e-3.
-5. A JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
+5. Training main path at the same width, T1024, B8, fp32: the port's
+   ``build_lm_train_step`` with SGP at world 1 over the n-peer
+   exponential graph.  One step on the kernel lane (``attn_impl=
+   "flash"``) and one from the same state on the plain lane (``"full"``)
+   must agree (loss 1e-5 relative, global grad norm 1e-4 relative,
+   params 1e-6 absolute); then 6 kernel-lane steps with the counters
+   zeroed just before: every attention forward and backward must have
+   gone through the kernels (12 launches of each per step), every loss
+   finite.  Per-step loss, median step ms and tokens/s are printed.
+6. A JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
@@ -37,6 +49,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 TOL_KERNEL = 1e-4
 TOL_ENGINE = 1e-3
+# kernel lane vs plain lane, one training step from one state
+TOL_STEP_LOSS_REL = 1e-5
+TOL_STEP_GNORM_REL = 1e-4
+TOL_STEP_PARAM = 1e-6
+TRAIN_STEPS = 6
 # H100 SXM data sheet: HBM rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
@@ -86,32 +103,108 @@ def check_flash(card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(1)
     row = None
-    for t, causal in ((8, True), (200, True), (512, True), (200, False)):
-        q, k, v = (torch.randn(1, 12, t, HEAD_DIM, device="cuda",
+    for b, t, causal in ((1, 8, True), (1, 200, True), (1, 512, True),
+                         (1, 200, False), (8, 1024, True)):
+        q, k, v = (torch.randn(b, 12, t, HEAD_DIM, device="cuda",
                                generator=g) for _ in range(3))
-        err = _max_err(flash_fwd(q, k, v, causal=causal),
-                       flash_attention_reference(q, k, v, causal=causal))
-        if not err <= TOL_KERNEL:
-            raise AssertionError(f"flash_fwd t={t} causal={causal}: max "
-                                 f"err {err} > {TOL_KERNEL}")
-        ms = _time_ms(lambda: flash_fwd(q, k, v, causal=causal), 50)
+        ref, ref_lse = flash_attention_reference(q, k, v, causal=causal,
+                                                 return_lse=True)
+        out, lse = flash_fwd(q, k, v, causal=causal, return_lse=True)
+        err = max(_max_err(flash_fwd(q, k, v, causal=causal), ref),
+                  _max_err(out, ref))
+        lse_err = _max_err(lse, ref_lse)
+        if not (err <= TOL_KERNEL and lse_err <= TOL_KERNEL):
+            raise AssertionError(f"flash_fwd b{b} t={t} causal={causal}: "
+                                 f"max err {err} (out), {lse_err} (lse) "
+                                 f"> {TOL_KERNEL}")
+        ms = _time_ms(lambda: flash_fwd(q, k, v, causal=causal), 20)
+        lse_ms = _time_ms(lambda: flash_fwd(q, k, v, causal=causal,
+                                            return_lse=True), 20)
         plain_ms = _time_ms(
-            lambda: flash_attention_reference(q, k, v, causal=causal), 20)
+            lambda: flash_attention_reference(q, k, v, causal=causal), 5)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal), 50)
-        bh = 12
+            q, k, v, is_causal=causal), 20)
+        bh = b * 12
         pairs = t * (t + 1) // 2 if causal else t * t
         bound_ms, bound_by = _bound(4 * bh * t * HEAD_DIM * 4,
                                     4 * bh * pairs * HEAD_DIM)
-        print(f"kernel flash_fwd b1 h12 t{t} d64 causal={causal}: max err "
-              f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}) [{card}]", flush=True)
-        if t == 512:   # the longest prompt the main path prefills
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=lib_ms)
+        print(f"kernel flash_fwd b{b} h12 t{t} d64 causal={causal}: max "
+              f"err {err:.3e}, lse err {lse_err:.3e}, kernel {ms:.4f} ms "
+              f"({lse_ms:.4f} ms with lse), plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+              f"[{card}]", flush=True)
+        if (b, t) == (1, 512):   # the longest prompt serving prefills
+            row = dict(max_abs_err=max(err, lse_err), ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib_ms)
     return row
+
+
+def check_flash_bwd(card: str) -> dict:
+    """Both backward kernels against their plain versions, fed the
+    forward kernel's out and lse (as the training step feeds them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stochastic_gradient_push_torch.ops.flash_attention import (
+        flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
+        flash_bwd_dq_reference, flash_fwd)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for b, t, causal in ((8, 1024, True), (1, 200, True), (1, 200, False)):
+        q, k, v, do = (torch.randn(b, 12, t, HEAD_DIM, device="cuda",
+                                   generator=g) for _ in range(4))
+        out, lse = flash_fwd(q, k, v, causal=causal, return_lse=True)
+        delta = (do * out).sum(-1)
+        args = (q, k, v, do, lse, delta, causal)
+        dq_err = _max_err(flash_bwd_dq(*args), flash_bwd_dq_reference(*args))
+        dkv_err = max(_max_err(a, r) for a, r in zip(
+            flash_bwd_dkv(*args), flash_bwd_dkv_reference(*args)))
+        if not (dq_err <= TOL_KERNEL and dkv_err <= TOL_KERNEL):
+            raise AssertionError(f"flash_bwd b{b} t={t} causal={causal}: "
+                                 f"max err dq {dq_err}, dk/dv {dkv_err} > "
+                                 f"{TOL_KERNEL}")
+        dq_ms = _time_ms(lambda: flash_bwd_dq(*args), 20)
+        dkv_ms = _time_ms(lambda: flash_bwd_dkv(*args), 20)
+        dq_plain = _time_ms(lambda: flash_bwd_dq_reference(*args), 5)
+        dkv_plain = _time_ms(lambda: flash_bwd_dkv_reference(*args), 5)
+        # library yardstick: SDPA forward + backward less its forward;
+        # one call computes dq, dk and dv together
+        qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+        def sdpa_fb():
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+            torch.autograd.grad(o, (qs, ks, vs), do)
+
+        def sdpa_f():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
+        lib_ms = _time_ms(sdpa_fb, 20) - _time_ms(sdpa_f, 20)
+        bh = b * 12
+        pairs = t * (t + 1) // 2 if causal else t * t
+        rows_in = 4 * bh * t * HEAD_DIM * 4 + 2 * bh * t * 4  # q k v do lse δ
+        row_out = bh * t * HEAD_DIM * 4
+        dq_bound = _bound(rows_in + row_out, 6 * bh * pairs * HEAD_DIM)
+        dkv_bound = _bound(rows_in + 2 * row_out, 8 * bh * pairs * HEAD_DIM)
+        print(f"kernel flash_bwd b{b} h12 t{t} d64 causal={causal}: dq max "
+              f"err {dq_err:.3e}, kernel {dq_ms:.4f} ms, plain "
+              f"{dq_plain:.4f} ms, bound {dq_bound[0]:.4f} ms "
+              f"({dq_bound[1]}); dk/dv max err {dkv_err:.3e}, kernel "
+              f"{dkv_ms:.4f} ms, plain {dkv_plain:.4f} ms, bound "
+              f"{dkv_bound[0]:.4f} ms ({dkv_bound[1]}); sdpa backward "
+              f"{lib_ms:.4f} ms [{card}]", flush=True)
+        if (b, t) == (8, 1024):   # the training main path's shape
+            rows["flash_bwd_dq"] = dict(
+                max_abs_err=dq_err, ms=dq_ms, plain_ms=dq_plain,
+                bound_ms=dq_bound[0], bound_by=dq_bound[1],
+                library_ms=lib_ms)
+            rows["flash_bwd_dkv"] = dict(
+                max_abs_err=dkv_err, ms=dkv_ms, plain_ms=dkv_plain,
+                bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+                library_ms=lib_ms)
+    return rows
 
 
 def _paged_case(g, hq: int, hkv: int, batch=16, page=16, max_pages=48,
@@ -195,7 +288,7 @@ def check_paged(card: str) -> dict:
     return row
 
 
-# -- phase 3: the main path ---------------------------------------------------
+# -- phase 3: the serving main path -----------------------------------------
 
 
 class _TimedEngine:
@@ -315,6 +408,107 @@ def engine_vs_dense(engine, requests, card: str) -> None:
         raise AssertionError(f"engine logits off the dense model by {worst}")
 
 
+# -- phase 5: the training main path ----------------------------------------
+
+
+def _train_setup(attn_impl: str):
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerConfig)
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.lm import (
+        build_lm_train_step, make_model)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+
+    cfg = TransformerConfig(vocab_size=32000, d_model=768, n_layers=12,
+                            n_heads=12, d_ff=3072, attn_impl=attn_impl)
+    alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(1)),
+              StackedTransport(1))
+    tx = sgd(momentum=0.9, weight_decay=0.0)
+    step = build_lm_train_step(
+        make_model(cfg), alg, tx, LRSchedule(3e-2, 8, 1, decay_schedule={}),
+        itr_per_epoch=1000)
+    return cfg, alg, tx, step
+
+
+def train_path(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.ops.flash_attention import (
+        flash_bwd_dkv, flash_bwd_dq, flash_fwd)
+    from stochastic_gradient_push_torch.serve.paged_attention import (
+        paged_decode)
+    from stochastic_gradient_push_torch.train.lm import init_lm_state
+
+    cfg, alg, tx, step = _train_setup("flash")
+    _, _, _, plain_step = _train_setup("full")
+    state = init_lm_state(cfg, alg, tx, 1, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, 8, 1024))).cuda() for _ in range(2))
+        for _ in range(TRAIN_STEPS + 1)]
+    n_params = sum(p[0].numel() for p in state.params.values())
+    print(f"train: SGP world 1, d{cfg.d_model} L{cfg.n_layers} "
+          f"h{cfg.n_heads} ff{cfg.d_ff} vocab{cfg.vocab_size} T1024 B8 fp32, "
+          f"{n_params / 1e6:.2f}M params", flush=True)
+
+    # one step on each lane from the same state
+    k_state, k_m = step(state, *batches[0])
+    p_state, p_m = plain_step(state, *batches[0])
+    torch.cuda.synchronize()
+    loss_k, loss_p = float(k_m["loss"][0]), float(p_m["loss"][0])
+    gn_k, gn_p = float(k_m["grad_norm"][0]), float(p_m["grad_norm"][0])
+    param_err = max(_max_err(k_state.params[n], p_state.params[n])
+                    for n in k_state.params)
+    del p_state, state
+    print(f"train: kernel lane vs plain lane, one step: loss {loss_k:.6f} "
+          f"vs {loss_p:.6f}, grad norm {gn_k:.6f} vs {gn_p:.6f}, max "
+          f"|param diff| {param_err:.3e} (tolerances {TOL_STEP_LOSS_REL} "
+          f"rel, {TOL_STEP_GNORM_REL} rel, {TOL_STEP_PARAM}) [{card}]",
+          flush=True)
+    if not (abs(loss_k - loss_p) <= TOL_STEP_LOSS_REL * abs(loss_p)
+            and abs(gn_k - gn_p) <= TOL_STEP_GNORM_REL * abs(gn_p)
+            and param_err <= TOL_STEP_PARAM):
+        raise AssertionError("kernel-lane and plain-lane steps disagree")
+
+    # the main path: kernel-lane steps, counters zeroed just before
+    state = k_state
+    flash_fwd.launches = flash_bwd_dq.launches = 0
+    flash_bwd_dkv.launches = paged_decode.launches = 0
+    losses, step_s = [], []
+    for toks, tgts in batches[1:]:
+        t0 = time.perf_counter()
+        state, m = step(state, toks, tgts)
+        losses.append(float(m["loss"][0]))   # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash_fwd.launches,
+                "flash_bwd_dq": flash_bwd_dq.launches,
+                "flash_bwd_dkv": flash_bwd_dkv.launches,
+                "paged_decode": paged_decode.launches}
+    med_ms = float(np.median(step_s)) * 1e3
+    print(f"train: {TRAIN_STEPS} steps, losses "
+          f"{json.dumps([round(x, 6) for x in losses])}, step ms "
+          f"{json.dumps([round(x * 1e3, 2) for x in step_s])}, median "
+          f"{med_ms:.2f} ms, {8 * 1024 / med_ms * 1e3:.1f} tokens/s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"[{card}]", flush=True)
+    print(f"train: launches {json.dumps(launches)}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss {losses}")
+    want = {"flash_fwd": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS, "paged_decode": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -345,20 +539,35 @@ def main() -> int:
 
     flash_row = check_flash(card)
     paged_row = check_paged(card)
+    bwd_rows = check_flash_bwd(card)
     engine, requests, launches = main_path(card)
     engine_vs_dense(engine, requests, card)
+    del engine
+    torch.cuda.empty_cache()
+    train_launches = train_path(card)
 
+    # launches: each main path's run (serving, then training) summed
+    flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
+    bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="stochastic_gradient_push_torch/csrc/flash_fwd.cu",
-             replaces="stochastic_gradient_push_tpu/ops/flash_attention.py"
-                      ":110",
-             launches=launches["flash_fwd"], **flash_row),
+             replaces=f"{flash}:110",
+             launches=launches["flash_fwd"] + train_launches["flash_fwd"],
+             **flash_row),
         dict(name="paged_decode", route="cuda",
              source="stochastic_gradient_push_torch/csrc/paged_decode.cu",
              replaces="stochastic_gradient_push_tpu/serve/"
                       "paged_attention.py:113",
              launches=launches["paged_decode"], **paged_row),
+        dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
+             replaces=f"{flash}:227",
+             launches=train_launches["flash_bwd_dq"],
+             **bwd_rows["flash_bwd_dq"]),
+        dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
+             replaces=f"{flash}:270",
+             launches=train_launches["flash_bwd_dkv"],
+             **bwd_rows["flash_bwd_dkv"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

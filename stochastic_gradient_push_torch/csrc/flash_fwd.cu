@@ -21,6 +21,11 @@
 // memory (four threads of a row read 64 contiguous bytes: no bank
 // conflicts); the row's dot product is finished with two shuffles.
 // Tensor cores (wgmma, TMA) are left for a later version.
+//
+// With a non-null `lse` the kernel also writes each row's logsumexp,
+// m + log(den) in the scaled-score units (the TPU kernel's return_lse
+// output, `lse_ref` there): the residual the backward kernels in
+// flash_bwd.cu recompute the probabilities from.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,7 +48,8 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int t, int causal, float scale) {
+                     float* __restrict__ lse, int t, int causal,
+                     float scale) {
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
@@ -136,21 +142,24 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float4*>(o + base + (size_t)qi * D + 16 * j +
                                  4 * sub) = y;
     }
+    // every row < t sees at least key 0, so den > 0 and m is finite
+    if (lse != nullptr && sub == 0)
+      lse[(size_t)blockIdx.y * t + qi] = m + logf(den);
   }
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous fp32 [bh, t, 64].  Returns cudaGetLastError()
-// after the launch (0 on success).
+// q, k, v, o: contiguous fp32 [bh, t, 64]; lse: fp32 [bh, t] or null.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int sgp_flash_fwd_f32(const void* q, const void* k, const void* v,
-                                 void* o, int bh, int t, int causal,
-                                 void* stream) {
+                                 void* o, void* lse, int bh, int t,
+                                 int causal, void* stream) {
   if (bh <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((t + BQ - 1) / BQ, bh);
   flash_fwd_f32_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), t, causal,
-      0.125f /* 64 ** -0.5 */);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), t, causal, 0.125f /* 64 ** -0.5 */);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,61 @@
+"""Language-model data: the synthetic Markov corpus and its batching.
+
+A copy of ``synthetic_lm_corpus`` and ``lm_batches`` from
+``stochastic_gradient_push_tpu/data/lm.py`` (numpy only): the same seed
+gives the same tokens, batch for batch.  ``load_corpus`` (a file corpus)
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["synthetic_lm_corpus", "lm_batches"]
+
+
+def synthetic_lm_corpus(n_tokens: int, vocab_size: int = 256,
+                        order: int = 2, seed: int = 0) -> np.ndarray:
+    """A learnable Markov corpus: each token depends on the previous
+    ``order`` tokens through a fixed random table, so a causal LM can drive
+    the loss well below the unigram entropy."""
+    g = np.random.default_rng(seed)
+    table = g.integers(0, vocab_size,
+                       size=(vocab_size,) * order).astype(np.int32)
+    noise = g.random(n_tokens)
+    toks = np.empty(n_tokens, np.int32)
+    toks[:order] = g.integers(0, vocab_size, size=order)
+    for i in range(order, n_tokens):
+        if noise[i] < 0.9:  # mostly deterministic, some noise
+            toks[i] = table[tuple(toks[i - order:i])]
+        else:
+            toks[i] = g.integers(0, vocab_size)
+    return toks
+
+
+def lm_batches(corpus: np.ndarray, dp: int, sp: int, batch: int,
+               seq_len: int, seed: int = 0):
+    """Yield ``(tokens, targets)`` of shape ``[dp, sp, batch, seq_len/sp]``.
+
+    Each (dp, batch) sequence is contiguous; its target is the sequence
+    shifted by one token (computed globally *before* sharding, so sequence
+    shards need no cross-shard shift).  The sp dimension holds contiguous
+    blocks of each sequence, matching ring attention's block layout.
+    """
+    if seq_len % sp:
+        raise ValueError(f"seq_len {seq_len} not divisible by sp {sp}")
+    block = seq_len // sp
+    span = seq_len + 1
+    n_seqs = (len(corpus) - 1) // seq_len
+    if n_seqs < dp * batch:
+        raise ValueError("corpus too small for one batch")
+    g = np.random.default_rng(seed)
+    starts_all = np.arange(n_seqs) * seq_len
+    g.shuffle(starts_all)
+    for i in range(0, len(starts_all) - dp * batch + 1, dp * batch):
+        starts = starts_all[i:i + dp * batch]
+        seqs = np.stack([corpus[s:s + span] for s in starts])  # [dp*b, L+1]
+        tokens = seqs[:, :-1].reshape(dp, batch, sp, block)
+        targets = seqs[:, 1:].reshape(dp, batch, sp, block)
+        # [dp, batch, sp, block] → [dp, sp, batch, block]
+        yield (np.ascontiguousarray(tokens.transpose(0, 2, 1, 3)),
+               np.ascontiguousarray(targets.transpose(0, 2, 1, 3)))

@@ -15,6 +15,11 @@ here; embeddings, LayerNorm scales and biases carry over as they are.
 seed (embedding N(0, 0.02), lecun-normal kernels, zero biases, unit
 LayerNorm scales: the flax initialisers' distributions, not their
 bits), so a full-width model can be made without JAX.
+
+:func:`train_state_from_jax` carries a whole rank-stacked training
+state across (params, the SGD momentum buffers, the push-sum weight, the
+phase and the step), so the port and the reference can start from one
+state.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from .transformer import TransformerConfig
 
 __all__ = ["params_from_jax", "init_params", "config_from_params",
-           "flatten_tree", "unflatten_tree"]
+           "flatten_tree", "unflatten_tree", "train_state_from_jax"]
 
 # flax leaf name -> nn.Module parameter name
 _LEAF = {"embedding": "weight", "kernel": "weight", "scale": "weight",
@@ -60,15 +65,17 @@ def unflatten_tree(flat) -> dict:
 
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """The flax tree of a ``TransformerLM`` as a ``TransformerLM``
-    ``state_dict`` of fp32 CPU tensors (kernels transposed)."""
+    ``state_dict`` of fp32 CPU tensors (kernels transposed).  Leaves may
+    carry leading dims (a rank-stacked training state): the kernels'
+    last two dims are the ones transposed."""
     state = {}
     for path, arr in flatten_tree(tree).items():
         *mods, leaf = path.split("/")
         if leaf not in _LEAF:
             raise ValueError(f"unexpected parameter leaf {path!r}")
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        if leaf == "kernel":
-            t = t.t().contiguous()
+        if leaf == "kernel":   # [..., in, out] -> [..., out, in]
+            t = t.transpose(-1, -2).contiguous()
         state[".".join([*mods, _LEAF[leaf]])] = t
     return state
 
@@ -127,3 +134,32 @@ def init_params(cfg: TransformerConfig, seed: int) -> dict:
     tree["ln_f"] = ln()
     tree["lm_head"] = dense(e, cfg.vocab_size, False)
     return tree
+
+
+def train_state_from_jax(state, device: str | torch.device = "cpu"):
+    """The reference's rank-stacked LM ``TrainState`` (leaves as numpy
+    arrays, e.g. after ``jax.device_get``) as the port's
+    :class:`~..train.state.TrainState`: params and the optimizer's trace
+    (momentum) buffers through :func:`params_from_jax`, the
+    ``GossipState`` ps-weight ``[R]`` as float32, the phase and the step
+    as ints (they are equal on every rank of a synchronous run)."""
+    from ..algorithms.api import GossipState
+    from ..train.state import TrainState
+
+    traces = [s.trace for s in state.opt_state if hasattr(s, "trace")]
+    if len(traces) != 1:
+        raise ValueError("expected one optax trace (momentum) state in "
+                         "opt_state (the reference's sgd chain)")
+
+    def to_dev(tree):
+        return {n: t.to(device) for n, t in params_from_jax(tree).items()}
+
+    def scalar(x):
+        return int(np.asarray(x).reshape(-1)[0])
+
+    ps = np.asarray(state.gossip.ps_weight, np.float32).reshape(-1)
+    return TrainState(
+        step=scalar(state.step), params=to_dev(state.params),
+        opt_state=to_dev(traces[0]),
+        gossip=GossipState(phase=scalar(state.gossip.phase),
+                           ps_weight=torch.from_numpy(ps.copy()).to(device)))

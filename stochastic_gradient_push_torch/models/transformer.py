@@ -16,9 +16,13 @@ path maps onto one module path (``models/convert.py``):
     ln_f                        nn.LayerNorm      ln_f/{scale,bias}
     lm_head                     nn.Linear, no bias  lm_head/kernel
 
-This forward is the plain oracle the serving engine is held against; the
-engine (``serve/engine.py``) reuses these modules' weights through its
-own prefill and paged decode paths.
+``attn_impl`` picks the attention: ``"full"`` is the dense causal
+softmax (the plain oracle the serving engine is held against, and the
+plain lane of a training step); ``"flash"`` routes every layer through
+``ops/flash_attention.py::flash_attention`` (the CUDA kernels, forward
+and backward, on CUDA tensors).  The engine (``serve/engine.py``)
+reuses these modules' weights through its own prefill and paged decode
+paths.
 """
 
 from __future__ import annotations
@@ -29,11 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import NEG_INF
+from ..ops.flash_attention import NEG_INF, flash_attention
 
 __all__ = ["TransformerConfig", "TransformerLM", "rope", "rope_tok"]
 
 LN_EPS = 1e-6        # flax.linen.LayerNorm default
+ATTN_IMPLS = ("full", "flash")
 ROPE_BASE = 10000.0
 
 
@@ -44,6 +49,14 @@ class TransformerConfig:
     n_layers: int = 6
     n_heads: int = 8
     d_ff: int = 2048
+    attn_impl: str = "full"     # full | flash
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise NotImplementedError(
+                f"attn_impl {self.attn_impl!r} is not ported yet (a later "
+                f"slice: blockwise, ring and ring_flash come with the "
+                f"sequence-parallel LM path); the port has {ATTN_IMPLS}")
 
     @property
     def head_dim(self) -> int:
@@ -96,6 +109,10 @@ class Attention(nn.Module):
         q = rope(self.split(self.q(x)), positions)
         k = rope(self.split(self.k(x)), positions)
         v = self.split(self.v(x))
+        if self.cfg.attn_impl == "flash":
+            out = flash_attention(q, k, v.contiguous(), causal=True)
+            b, h, t, d = out.shape
+            return self.o(out.transpose(1, 2).reshape(b, t, h * d))
         t = q.shape[2]
         mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
         s = (q @ k.transpose(-1, -2)) * self.cfg.head_dim ** -0.5

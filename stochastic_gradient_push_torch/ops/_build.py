@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
-hand (no PyTorch headers, so a build takes seconds, not minutes)::
+Each ``csrc/<name>.cu`` exposes one or more plain C entry points and is
+compiled by hand (no PyTorch headers, so a build takes seconds, not minutes)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas=-v -o build/sgp_torch_kernels/<name>-<hash>.so
@@ -34,11 +34,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# library name -> (C entry point, argtypes); the stream is the last pointer
+# library (= source) name -> {C entry point: argtypes}; the stream is the
+# last pointer
 KERNELS = {
-    "flash_fwd": ("sgp_flash_fwd_f32", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "paged_decode": ("sgp_paged_decode_f32",
-                     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "flash_fwd": {"sgp_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
+    "flash_bwd": {
+        "sgp_flash_bwd_dq_f32": (_P,) * 7 + (_I, _I, _I, _P),
+        "sgp_flash_bwd_dkv_f32": (_P,) * 8 + (_I, _I, _I, _P),
+    },
+    "paged_decode": {"sgp_paged_decode_f32":
+                     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -105,16 +110,16 @@ def build(names=None) -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``name`` with its entry point's argtypes
+    """The built library for ``name`` with its entry points' argtypes
     set (builds it first if needed)."""
     lib = _LIBS.get(name)
     if lib is None:
         path = build([name])[name]["path"]
         lib = ctypes.CDLL(path)
-        fn_name, argtypes = KERNELS[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in KERNELS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

@@ -1,0 +1,145 @@
+"""Gossip wire codecs: the single encode path for compressed payloads.
+
+Port of ``stochastic_gradient_push_tpu/parallel/wire.py``: identity
+(:data:`F32`), bfloat16 truncation (:data:`BF16`) and symmetric per-block
+int8 with float32 scales (:class:`Int8Codec`).  ``encode`` returns the
+tuple of tensors that crosses the wire; ``decode`` rebuilds the payload
+at the receiver with ``like`` as its shape/dtype template.  The
+elementwise op order of ``Int8Codec.encode/decode`` (``wire.py:175,191``
+there) is kept, and so is the rounding of the reference's *compiled*
+code (XLA on the CPU, which is how the reference's gossip round runs):
+the division by the constant 127 is a multiplication by its float32
+reciprocal, and a decode followed by an add is one fused multiply-add
+(:meth:`WireCodec.decode_add`).  Encoded bytes and decoded values are
+bit-equal to the reference's (``tests/test_torch_wire.py``).
+
+One difference of layout: the collectives hand a codec **rank-stacked**
+leaves, dim 0 indexing the ranks this process holds (all of them on the
+stacked lane, one on the ``torch.distributed`` lane).  The int8 codec
+blocks each rank's flattened leaf on its own, exactly as each rank of the
+reference does; a single payload is encoded as ``msg[None]``.
+
+Scalar leaves (the push-sum weight lane) never reach a codec: the
+collectives ship them exact.  Not ported yet: ``DecodeSpec`` /
+``kernel_spec`` (the gossip kernel lane), ``element_bytes`` pricing and
+the deprecated ``comm_dtype`` alias.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["WireCodec", "F32Codec", "BF16Codec", "Int8Codec", "F32", "BF16",
+           "WIRE_DTYPES", "DEFAULT_WIRE_BLOCK", "get_codec"]
+
+WIRE_DTYPES = ("f32", "bf16", "int8")
+DEFAULT_WIRE_BLOCK = 64
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+class WireCodec:
+    """Identity/base codec: the payload ships as-is (one wire part)."""
+
+    name = "f32"
+    lossy = False
+
+    def encode(self, msg: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return (msg,)
+
+    def decode(self, wire, like: torch.Tensor) -> torch.Tensor:
+        del like
+        return wire[0]
+
+    def decode_add(self, wire, acc: torch.Tensor) -> torch.Tensor:
+        """``acc + decode(wire)``, rounded as the reference's compiled
+        round rounds it."""
+        return acc + self.decode(wire, acc)
+
+
+class F32Codec(WireCodec):
+    """Explicit name for the identity codec (``--wire_dtype f32``)."""
+
+
+class BF16Codec(WireCodec):
+    """Truncate payloads to bfloat16 on the wire (round to nearest even,
+    as the reference's ``astype``), widen back at the receiver."""
+
+    name = "bf16"
+    lossy = True
+
+    def encode(self, msg):
+        return (msg.to(torch.bfloat16),)
+
+    def decode(self, wire, like):
+        return wire[0].to(like.dtype)
+
+
+class Int8Codec(WireCodec):
+    """Symmetric per-block int8 quantization with f32 scales.
+
+    Each rank's flattened leaf is split into ``block``-element blocks;
+    each block ships ``round(x / scale)`` as int8 with ``scale =
+    max|x| / 127`` in a float32 side lane.  Symmetric, so ``Q(0) == 0``.
+    """
+
+    name = "int8"
+    lossy = True
+
+    def __init__(self, block: int = DEFAULT_WIRE_BLOCK):
+        if block < 1:
+            raise ValueError(f"wire_block must be >= 1, got {block}")
+        self.block = int(block)
+
+    def encode(self, msg):
+        ranks = msg.shape[0]
+        n = msg[0].numel()
+        nb = -(-n // self.block)
+        flat = msg.reshape(ranks, -1).to(torch.float32)
+        if nb * self.block != n:
+            flat = torch.nn.functional.pad(flat, (0, nb * self.block - n))
+        blocks = flat.reshape(ranks, nb, self.block)
+        amax = blocks.abs().amax(dim=-1)
+        # the reference's compiled encode: XLA turns the division by the
+        # constant 127 into a multiplication by its float32 reciprocal
+        scale = amax * _INV_127
+        safe = torch.where(scale > 0.0, scale, 1.0)
+        q = torch.clamp(torch.round(blocks / safe[..., None]),
+                        -127.0, 127.0).to(torch.int8)
+        return (q, scale.to(torch.float32))
+
+    def decode(self, wire, like):
+        q, scale = wire
+        ranks = like.shape[0]
+        flat = (q.to(torch.float32) * scale[..., None]).reshape(ranks, -1)
+        return flat[:, :like[0].numel()].reshape(like.shape).to(like.dtype)
+
+    def decode_add(self, wire, acc):
+        """``acc + q * scale`` with one rounding (XLA contracts the
+        reference's decode-add into a fused multiply-add)."""
+        q, scale = wire
+        ranks, n = acc.shape[0], acc[0].numel()
+        flat = acc.reshape(ranks, -1).to(torch.float32)
+        flat = torch.nn.functional.pad(flat, (0, q[0].numel() - n))
+        out = torch.addcmul(flat.reshape(q.shape), q.to(torch.float32),
+                            scale[..., None])
+        return out.reshape(ranks, -1)[:, :n].reshape(acc.shape).to(acc.dtype)
+
+
+F32 = F32Codec()
+BF16 = BF16Codec()
+
+
+def get_codec(dtype: str | None,
+              block: int = DEFAULT_WIRE_BLOCK) -> WireCodec | None:
+    """Resolve a ``--wire_dtype`` flag value into a codec (None for
+    unset)."""
+    if dtype is None:
+        return None
+    if dtype == "f32":
+        return F32
+    if dtype == "bf16":
+        return BF16
+    if dtype == "int8":
+        return Int8Codec(block)
+    raise ValueError(f"unknown wire_dtype {dtype!r}; one of {WIRE_DTYPES}")

@@ -1,0 +1,293 @@
+"""Gossip LM CLI — decentralized transformer training on the GPU.
+
+Port of ``stochastic_gradient_push_tpu/run/gossip_lm.py`` for the flat
+data-parallel mesh: SGP (synchronous push-sum over a flat gossip graph)
+or AllReduce, the synthetic Markov corpus, torch-semantics SGD under the
+reference's LR schedule.  Run directly, every rank of ``--world_size``
+lives in this process on the stacked transport (``parallel/
+collectives.py``); on one GPU the default world is 1.  Under ``torchrun``
+(``WORLD_SIZE`` > 1 in the environment) each process holds one rank on
+the ``torch.distributed`` transport: NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``; rank 0 prints.
+
+Example (CPU, the kernels' plain twins)::
+
+    python -m stochastic_gradient_push_torch.run.gossip_lm --device cpu \\
+      --world_size 4 --vocab_size 256 --d_model 64 --n_layers 2 \\
+      --n_heads 1 --d_ff 128 --seq_len 64 --batch_size 2 --num_steps 10
+
+It runs on CUDA unless ``--device cpu``; ``--attn`` defaults to
+``flash`` (the hand-written kernels, forward and backward, on CUDA).
+Ported flags keep the reference's names and defaults.  Every other flag
+of the reference parses with its default and is refused, by name, when
+given another value: none is silently ignored.  Prints the reference's
+CSV columns (``step,loss,ppl,lr,tokens_per_sec,grad_norm``) to stdout;
+no file is written.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+__all__ = ["main", "build_parser", "UNPORTED"]
+
+# flag -> (reference default, type, what it belongs to): parsed so a
+# reference command line is accepted, refused when not at its default
+UNPORTED = {
+    "--overlap": ("False", str, "overlap (OSGP)"),
+    "--staleness": (0, int, "overlap staleness"),
+    "--bilat": ("False", str, "AD-PSGD"),
+    "--topology": (None, str, "the topology planner"),
+    "--synth_seed": (None, int, "the schedule synthesizer"),
+    "--synth_budget": (None, int, "the schedule synthesizer"),
+    "--synth_beam": (None, int, "the schedule synthesizer"),
+    "--synth_phases": (None, int, "the schedule synthesizer"),
+    "--gap_floor": (0.01, float, "the topology planner"),
+    "--global_avg_every": (None, int, "periodic global averaging"),
+    "--slice_size": (None, int, "hierarchical gossip"),
+    "--dcn_cost": (None, float, "the fabric-priced planner"),
+    "--ici_cost": (None, float, "the fabric-priced planner"),
+    "--mixing_alpha": (None, str, "self-weighted mixing"),
+    "--inject_faults": (None, str, "fault injection"),
+    "--health_every": (0, int, "consensus health"),
+    "--residual_floor": (0.01, float, "consensus health recovery"),
+    "--gossip_every": (1, int, "communication thinning"),
+    "--error_feedback": ("False", str, "error feedback"),
+    "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
+    "--gossip_kernel": ("xla", str, "the gossip kernel lane"),
+    "--gossip_buckets": (1, int, "transport buckets"),
+    "--fleet": ("False", str, "fleet supervision"),
+    "--host_id": (None, int, "fleet supervision"),
+    "--attn_block": (0, int, "the TPU attention block rule"),
+    "--attn_block_k": (0, int, "the TPU attention block rule"),
+    "--precision": ("fp32", str, "bf16 precision"),
+    "--remat": ("False", str, "rematerialization"),
+    "--sp": (1, int, "sequence parallelism"),
+    "--tp": (1, int, "tensor parallelism"),
+    "--ep": (1, int, "expert parallelism"),
+    "--pp": (1, int, "pipeline parallelism"),
+    "--n_micro": (4, int, "pipeline parallelism"),
+    "--moe_experts": (0, int, "MoE"),
+    "--moe_every": (2, int, "MoE"),
+    "--corpus_file": (None, str, "file corpora"),
+    "--checkpoint_dir": ("./checkpoints", str, "checkpoints"),
+    "--tag": ("lm_", str, "checkpoints"),
+    "--ckpt_every": (0, int, "checkpoints"),
+    "--resume": ("False", str, "checkpoints/resume"),
+    "--ckpt_backend": ("msgpack", str, "checkpoints"),
+    "--heartbeat_timeout": (300, int, "the metrics-fetch watchdog"),
+    "--val_frac": (0.0, float, "validation"),
+    "--val_every": (0, int, "validation"),
+    "--val_batches": (8, int, "validation"),
+    "--profile_dir": (None, str, "profiling windows"),
+    "--profile_start_step": (None, int, "profiling windows"),
+    "--profile_steps": (None, int, "profiling windows"),
+    "--trace_dir": (None, str, "run telemetry"),
+    "--metrics_every": (0, int, "run telemetry"),
+    "--multihost": ("auto", str, "multi-host runs"),
+    "--coordinator_address": (None, str, "multi-host runs"),
+    "--num_processes": (None, int, "multi-host runs"),
+    "--process_id": (None, int, "multi-host runs"),
+}
+ATTN_CHOICES = ("full", "blockwise", "flash", "ring", "ring_flash")
+
+
+def _str_bool(v) -> bool:
+    return str(v) == "True"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from ..parallel.wire import WIRE_DTYPES
+    from ..topology import GRAPH_TOPOLOGIES
+
+    p = argparse.ArgumentParser(description="Gossip LM on a GPU (PyTorch)")
+    p.add_argument("--all_reduce", default="False", type=str)
+    p.add_argument("--push_sum", default="True", type=str)
+    p.add_argument("--graph_type", default=5, type=int,
+                   choices=sorted(GRAPH_TOPOLOGIES))
+    p.add_argument("--peers_per_itr", default=1, type=int)
+    p.add_argument("--wire_dtype", default=None, choices=WIRE_DTYPES,
+                   help="gossip wire codec; the push-sum weight lane "
+                        "always ships exact f32")
+    p.add_argument("--wire_block", default=64, type=int,
+                   help="int8 codec block size")
+    p.add_argument("--lr", default=0.5, type=float)
+    p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--weight_decay", default=0.0, type=float)
+    p.add_argument("--nesterov", default="False", type=str)
+    p.add_argument("--warmup", default="False", type=str)
+    p.add_argument("--warmup_steps", default=None, type=int,
+                   help="linear warmup horizon (default: num_steps // 10)")
+    p.add_argument("--vocab_size", default=256, type=int)
+    p.add_argument("--d_model", default=256, type=int)
+    p.add_argument("--n_layers", default=4, type=int)
+    p.add_argument("--n_heads", default=8, type=int)
+    p.add_argument("--d_ff", default=1024, type=int)
+    p.add_argument("--seq_len", default=256, type=int)
+    p.add_argument("--attn", default="flash", choices=ATTN_CHOICES,
+                   help="flash: the CUDA kernels (plain twins on CPU); "
+                        "full: dense attention")
+    p.add_argument("--grad_accum", default=1, type=int)
+    p.add_argument("--world_size", default=None, type=int,
+                   help="gossip ranks, all held in this process "
+                        "(default 1); under torchrun, the launched "
+                        "world")
+    p.add_argument("--batch_size", default=8, type=int,
+                   help="sequences per rank per step")
+    p.add_argument("--num_steps", default=1000, type=int)
+    p.add_argument("--print_freq", default=10, type=int)
+    p.add_argument("--seed", default=47, type=int)
+    p.add_argument("--corpus_tokens", default=500_000, type=int)
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; cpu runs the "
+                        "kernels' plain twins)")
+    for flag, (default, typ, _) in UNPORTED.items():
+        p.add_argument(flag, default=default, type=typ,
+                       help=argparse.SUPPRESS)
+    return p
+
+
+def refuse_unported(args) -> None:
+    """SystemExit naming the first flag set to a feature not ported."""
+    for flag, (default, _, feature) in UNPORTED.items():
+        value = getattr(args, flag[2:])
+        if default in ("True", "False"):
+            changed = _str_bool(value) != _str_bool(default)
+        else:
+            changed = value != default
+        if changed:
+            raise SystemExit(
+                f"{flag} {value}: {feature} is not ported to "
+                f"stochastic_gradient_push_torch yet (a later slice; "
+                f"ROADMAP.md Queue 1)")
+    if args.attn not in ("full", "flash"):
+        raise SystemExit(f"--attn {args.attn} is not ported yet (it comes "
+                         f"with the sequence-parallel LM path); use flash "
+                         f"or full")
+    if not _str_bool(args.all_reduce) and not _str_bool(args.push_sum):
+        raise SystemExit("--push_sum False (D-PSGD) is not ported yet (a "
+                         "later slice; ROADMAP.md Queue 1)")
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+
+    import numpy as np
+    import torch
+
+    from ..algorithms import all_reduce, sgp
+    from ..data.lm import lm_batches, synthetic_lm_corpus
+    from ..device import resolve_device
+    from ..models.transformer import TransformerConfig
+    from ..parallel.collectives import DistTransport, StackedTransport
+    from ..parallel.wire import get_codec
+    from ..topology import GRAPH_TOPOLOGIES, build_schedule
+    from ..train.lm import build_lm_train_step, init_lm_state, make_model
+    from ..train.lr import WARMUP_EPOCHS, LRSchedule
+    from ..train.state import sgd
+
+    sb = _str_bool
+    device = resolve_device(args.device)
+    world = args.world_size or 1
+    launched = int(os.environ.get("WORLD_SIZE", "1"))
+    if launched > 1:
+        import torch.distributed as dist
+
+        if args.world_size not in (None, launched):
+            raise SystemExit(f"--world_size {args.world_size} but the "
+                             f"launcher started {launched} processes")
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        world = launched
+        transport = DistTransport()
+        rows = slice(transport.rank, transport.rank + 1)
+    else:
+        transport = StackedTransport(world)
+        rows = slice(None)
+    rank0 = launched == 1 or transport.rank == 0
+    if args.batch_size % args.grad_accum:
+        raise SystemExit(f"--batch_size {args.batch_size} not divisible "
+                         f"by --grad_accum {args.grad_accum}")
+    cfg = TransformerConfig(
+        vocab_size=args.vocab_size, d_model=args.d_model,
+        n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
+        attn_impl=args.attn)
+    if sb(args.all_reduce):
+        if args.wire_dtype is not None:
+            raise SystemExit("--wire_dtype compresses gossip payloads; it "
+                             "does not apply to --all_reduce True")
+        alg = all_reduce(transport)
+    else:
+        graph = GRAPH_TOPOLOGIES[args.graph_type](
+            world, peers_per_itr=args.peers_per_itr)
+        alg = sgp(build_schedule(graph), transport,
+                  wire=get_codec(args.wire_dtype, args.wire_block))
+    tx = sgd(momentum=args.momentum, weight_decay=args.weight_decay,
+             nesterov=sb(args.nesterov))
+    # the reference's step-based warmup horizon and LR scaling over the
+    # data-parallel ranks
+    warmup_steps = args.warmup_steps or max(args.num_steps // 10, 1)
+    itr_per_epoch = max(warmup_steps // WARMUP_EPOCHS, 1)
+    lrs = LRSchedule(ref_lr=args.lr, batch_size=args.batch_size,
+                     world_size=world, decay_schedule={},
+                     warmup=sb(args.warmup))
+    step = build_lm_train_step(make_model(cfg), alg, tx, lrs,
+                               itr_per_epoch=itr_per_epoch,
+                               grad_accum=args.grad_accum)
+    held = len(range(world)[rows])
+    state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device)
+    log = print if rank0 else (lambda *a, **k: None)
+    n_params = sum(p[0].numel() for p in state.params.values())
+    log(f"lm: world {world} ({held} in this process) on {device}; "
+        f"{n_params / 1e6:.2f}M params; attn={args.attn}; "
+        f"algorithm={alg.name}", flush=True)
+
+    def mean(x) -> float:
+        """Mean over all ranks of a per-held-rank metric (a collective
+        under torchrun: every process calls it)."""
+        return float(transport.allreduce_sum(x.reshape(-1).float())[0]
+                     / world)
+
+    corpus = synthetic_lm_corpus(args.corpus_tokens,
+                                 vocab_size=args.vocab_size, seed=args.seed)
+    tokens_per_step = world * args.batch_size * args.seq_len
+    log("step,loss,ppl,lr,tokens_per_sec,grad_norm", flush=True)
+    steps_done, epoch, losses = 0, 0, []
+    t0 = time.perf_counter()
+    while steps_done < args.num_steps:
+        for tokens, targets in lm_batches(corpus, world, 1, args.batch_size,
+                                          args.seq_len,
+                                          seed=args.seed + epoch):
+            toks, tgts = (torch.from_numpy(a[rows, 0]).to(device)
+                          for a in (tokens, targets))
+            state, metrics = step(state, toks, tgts)
+            steps_done += 1
+            if (steps_done % args.print_freq == 0
+                    or steps_done >= args.num_steps):
+                loss = mean(metrics["loss"])   # waits for the step
+                losses.append(loss)
+                tps = (tokens_per_step * steps_done
+                       / (time.perf_counter() - t0))
+                log(f"{steps_done},{loss:.4f},{mean(metrics['ppl']):.2f},"
+                    f"{float(metrics['lr']):.5f},{tps:.0f},"
+                    f"{mean(metrics['grad_norm']):.4f}", flush=True)
+            if steps_done >= args.num_steps:
+                break
+        epoch += 1
+    result = {"final_loss": losses[-1], "avg_loss": float(np.mean(losses)),
+              "tokens_per_sec": tokens_per_step * steps_done
+              / (time.perf_counter() - t0)}
+    log(json.dumps(result), flush=True)
+    if launched > 1:
+        torch.distributed.destroy_process_group()
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Language-model training with gossip data parallelism.
+
+Port of the data-parallel part of ``stochastic_gradient_push_tpu/train/
+lm.py``: :func:`lm_loss`, :func:`build_lm_train_step` (with
+``grad_accum``) and :func:`init_lm_state`.  The step keeps the
+reference's order exactly::
+
+    pre_step → eval_params → forward/backward → reduce_grads → LR
+      → numerator update → post_step → metrics (loss, ppl, lr, grad_norm)
+
+State leaves and token batches are rank-stacked: dim 0 indexes the
+ranks this process holds (all ``W`` of them on the stacked transport,
+one under ``torch.distributed``).  Each rank's forward and backward runs
+``torch.func.functional_call`` of one shared module with that rank's
+de-biased parameters; the module's own weights are never used.
+
+Not ported yet: the sequence-, tensor-, expert- and pipeline-parallel
+meshes, MoE losses, health signals and the eval step.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+from torch.func import functional_call
+
+from ..algorithms.api import GossipAlgorithm
+from ..models.convert import init_params, params_from_jax
+from ..models.transformer import TransformerConfig, TransformerLM
+from .state import TrainState
+
+__all__ = ["lm_loss", "build_lm_train_step", "init_lm_state", "make_model"]
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, written as ``logsumexp -
+    target_logit`` as in the reference."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def make_model(cfg: TransformerConfig) -> TransformerLM:
+    """The module the step calls functionally: built on the meta device,
+    so it holds no weights of its own."""
+    with torch.device("meta"):
+        return TransformerLM(cfg)
+
+
+def _global_norm(grads: dict) -> torch.Tensor:
+    """Per-rank L2 norm over all leaves ``[R]`` (the ``grad_norm``
+    metric, utils/flatten.py::global_norm there)."""
+    return torch.sqrt(sum(g.float().square().flatten(1).sum(1)
+                          for g in grads.values()))
+
+
+def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
+                        tx, lr_schedule, itr_per_epoch: int,
+                        grad_accum: int = 1) -> tp.Callable:
+    """Step ``(state, tokens, targets) -> (state, metrics)`` for token
+    batches ``[R, batch, seq]``.  ``grad_accum`` splits the batch into
+    that many microbatches whose gradients are summed, then divided, as
+    the reference's scan does."""
+    if grad_accum < 1:
+        raise ValueError("grad_accum must be >= 1")
+
+    def rank_grads(z_r: dict, toks, tgts):
+        if toks.shape[0] % grad_accum:
+            raise ValueError(f"batch {toks.shape[0]} not divisible by "
+                             f"grad_accum {grad_accum}")
+        z_r = {n: p.detach().requires_grad_(True) for n, p in z_r.items()}
+        g_sum, loss_sum = None, None
+        for xs, ys in zip(toks.chunk(grad_accum), tgts.chunk(grad_accum)):
+            loss = lm_loss(functional_call(model, z_r, (xs,)), ys)
+            g = torch.autograd.grad(loss, list(z_r.values()))
+            if g_sum is None:
+                g_sum, loss_sum = list(g), loss.detach()
+            else:
+                g_sum = [a + b for a, b in zip(g_sum, g)]
+                loss_sum = loss_sum + loss.detach()
+        if grad_accum > 1:
+            g_sum = [g / grad_accum for g in g_sum]
+            loss_sum = loss_sum / grad_accum
+        return dict(zip(z_r, g_sum)), loss_sum
+
+    def train_step(state: TrainState, tokens, targets):
+        params, gstate = algorithm.pre_step(state.params, state.gossip)
+        z = algorithm.eval_params(params, gstate)
+
+        per_rank = [rank_grads({n: p[r] for n, p in z.items()},
+                               tokens[r], targets[r])
+                    for r in range(tokens.shape[0])]
+        grads = {n: torch.stack([g[n] for g, _ in per_rank]) for n in z}
+        loss = torch.stack([l for _, l in per_rank])
+        grads = algorithm.reduce_grads(grads)
+
+        step = state.step
+        lr = lr_schedule(step // itr_per_epoch, step % itr_per_epoch,
+                         itr_per_epoch)
+        updates, opt_state = tx.update(grads, state.opt_state, params)
+        params = {n: p - float(lr) * updates[n] for n, p in params.items()}
+        params, gstate = algorithm.post_step(params, gstate)
+
+        metrics = {"loss": loss, "ppl": torch.exp(loss), "lr": lr,
+                   "grad_norm": _global_norm(grads)}
+        return TrainState(step=step + 1, params=params,
+                          opt_state=opt_state, gossip=gstate), metrics
+
+    return train_step
+
+
+def init_lm_state(cfg: TransformerConfig, algorithm: GossipAlgorithm, tx,
+                  world: int, seed: int = 0,
+                  device: str | torch.device = "cpu") -> TrainState:
+    """Fresh state for ``world`` held ranks: every rank starts from the
+    same parameters, drawn from ``seed`` with the flax init recipe
+    (``models/convert.py::init_params``), zero momentum, ps-weight 1."""
+    one = params_from_jax(init_params(cfg, seed))
+    params = {n: p.to(device)[None].expand(world, *p.shape).clone()
+              for n, p in one.items()}
+    return TrainState(step=0, params=params, opt_state=tx.init(params),
+                      gossip=algorithm.init(params))
+

@@ -6,10 +6,19 @@ have no interpret mode).  On a machine with an H100:
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 Edge shapes beyond ``chip_smoke.py``'s: ragged prompt lengths around the
-kernel's 64-row and 32-column tiles, a page size that is not a multiple of
-the kernel's 8-token step, every GQA group the kernel is built for, and
-padded page rows pointing at page 0 or at a sink page.  Tolerance: 1e-4
-max abs in fp32 (TF32 off), as in ``chip_smoke.py``.
+kernels' 64-row and 32-row tiles (forward with its logsumexp, and both
+backward kernels), a page size that is not a multiple of the kernel's
+8-token step, every GQA group the kernel is built for, and padded page
+rows pointing at page 0 or at a sink page.  Tolerance: 1e-4 max abs in
+fp32 (TF32 off), as in ``chip_smoke.py``.
+
+Beyond the kernels: the flash ``autograd.Function`` on CUDA against the
+CPU lane; a stacked world-2 SGP step on CUDA tensors against the same
+step on the CPU, and world-4 push-sum rounds on every wire, on CUDA
+against the CPU from the same inputs.  World 1 on the card never
+exercises those (device placement of the collectives' index gathers and
+weights).  Tolerances there: loss 1e-5 relative, params 1e-5 absolute
+after a step and 1e-6 after rounds, the push-sum weight exactly equal.
 """
 
 import numpy as np
@@ -90,3 +99,136 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="int32"):
         tpa.paged_decode(qd[:, :2].contiguous(), pages, pages, pi.long(),
                          lengths)
+
+
+BWD_LENGTHS = [1, 31, 32, 63, 64, 65, 129, 200, 300]
+
+
+def _fwd_bwd_case(cuda, t, seed, b=2, h=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(b, h, t, 64, device=cuda, generator=g)
+                 for _ in range(4))
+
+
+@pytest.mark.parametrize("t", BWD_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_lse_matches_plain(cuda, t, causal):
+    q, k, v, _ = _fwd_bwd_case(cuda, t, 10 + t)
+    out, lse = tfa.flash_fwd(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                                 return_lse=True)
+    assert float((out - ref).abs().max()) <= TOL
+    assert float((lse - ref_lse).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("t", BWD_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_match_plain(cuda, t, causal):
+    q, k, v, do = _fwd_bwd_case(cuda, t, 20 + t)
+    out, lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                             return_lse=True)
+    delta = (do * out).sum(-1)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (tfa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal),
+            *tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal))
+    for got, ref in zip((dq, dk, dv), want):
+        assert float((got - ref).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_on_cuda_matches_cpu_lane(cuda, causal):
+    q, k, v, do = _fwd_bwd_case(cuda, 100, 7)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        out = tfa.flash_attention(*leaves, causal=causal)
+        res.append([out.detach(),
+                    *torch.autograd.grad(out, leaves, do.to(dev))])
+    for got, ref in zip(*res):
+        assert float((got.cpu() - ref).abs().max()) <= TOL
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 2, 8, 32, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_bwd_dq(q, q, q, q, lse, lse)
+    x = torch.randn(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        tfa.flash_bwd_dkv(x, x, x, x, lse[..., :4].contiguous(), lse)
+
+
+def test_stacked_world2_sgp_step_on_cuda_matches_cpu(cuda):
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerConfig)
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, SelfWeightedMixing,
+        build_schedule)
+    from stochastic_gradient_push_torch.train.lm import (
+        build_lm_train_step, init_lm_state, make_model)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+
+    cfg = TransformerConfig(vocab_size=96, d_model=128, n_layers=2,
+                            n_heads=2, d_ff=256, attn_impl="flash")
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(2),
+                           SelfWeightedMixing(np.array([0.3, 0.6])))
+    r = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(r.integers(0, 96, (2, 2, 40)))
+                     for _ in range(2)) for _ in range(3)]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        alg = sgp(sched, StackedTransport(2))
+        tx = sgd(0.9, 1e-4)
+        step = build_lm_train_step(make_model(cfg), alg, tx,
+                                   LRSchedule(0.5, 2, 2, {}), 10)
+        state = init_lm_state(cfg, alg, tx, 2, seed=3, device=dev)
+        losses = []
+        for toks, tgts in batches:
+            state, m = step(state, toks.to(dev), tgts.to(dev))
+            losses.append(m["loss"].cpu())
+        runs.append((state, torch.stack(losses)))
+    (gs, gl), (cs, cl) = runs
+    for t in [*gs.params.values(), *gs.opt_state.values(),
+              gs.gossip.ps_weight]:
+        assert t.device.type == "cuda"
+    torch.testing.assert_close(gl, cl, rtol=1e-5, atol=0)
+    assert torch.equal(gs.gossip.ps_weight.cpu(), cs.gossip.ps_weight)
+    for n in cs.params:
+        assert float((gs.params[n].cpu() - cs.params[n]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("wire", [None, "bf16", "int8"])
+def test_push_sum_rounds_on_cuda_match_cpu(cuda, wire):
+    from stochastic_gradient_push_torch.parallel import collectives as tc
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, SelfWeightedMixing,
+        build_schedule)
+
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(4, 2),
+                           SelfWeightedMixing(np.linspace(0.3, 0.6, 4)))
+    r = np.random.default_rng(1)
+    params = {"w": torch.from_numpy(
+        r.standard_normal((4, 7, 33)).astype(np.float32))}
+    ps = torch.from_numpy((1 + r.random(4)).astype(np.float32))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p, w = {n: a.to(dev) for n, a in params.items()}, ps.to(dev)
+        for phase in range(3):
+            p, w = tc.mix_push_sum(p, w, phase, sched,
+                                   tc.StackedTransport(4),
+                                   codec=get_codec(wire, 16))
+        out.append((p["w"].cpu(), w.cpu()))
+    (gp, gw), (cp, cw) = out
+    assert torch.equal(gw, cw)
+    assert float((gp - cp).abs().max()) <= 1e-6

@@ -1,0 +1,128 @@
+"""The port's LM CLI (``stochastic_gradient_push_torch.run.gossip_lm``) on
+the CPU: a 3-step run at vocab 256 through ``main`` and through
+``python -m``, the same run under ``torchrun`` (two gloo processes, one
+rank each) printing the stacked lane's rows, the reference's flag
+surface (every flag of the JAX package's parser, with its default), and
+the refusal, by name, of every flag whose feature is not ported yet.
+"""
+
+import math
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from stochastic_gradient_push_torch.device import DeviceUnavailableError
+from stochastic_gradient_push_torch.run import gossip_lm
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = ["--device", "cpu", "--vocab_size", "256", "--d_model", "32",
+         "--n_layers", "2", "--n_heads", "1", "--d_ff", "64",
+         "--seq_len", "32", "--batch_size", "2", "--num_steps", "3",
+         "--print_freq", "1", "--corpus_tokens", "4000"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--world_size", "4"],
+    ["--world_size", "4", "--wire_dtype", "int8", "--peers_per_itr", "2",
+     "--graph_type", "0"],
+    ["--world_size", "2", "--all_reduce", "True", "--attn", "full"],
+    ["--grad_accum", "2", "--nesterov", "True", "--warmup", "True"],
+])
+def test_three_steps_on_cpu(extra, capsys):
+    result = gossip_lm.main(SMALL + extra)
+    out = capsys.readouterr().out.splitlines()
+    header = out.index("step,loss,ppl,lr,tokens_per_sec,grad_norm")
+    rows = [r.split(",") for r in out[header + 1:header + 4]]
+    assert [r[0] for r in rows] == ["1", "2", "3"]
+    assert all(math.isfinite(float(v)) for r in rows for v in r)
+    assert math.isfinite(result["final_loss"])
+    # an untrained LM sits near the uniform loss ln(256) = 5.55
+    assert 4.5 < result["final_loss"] < 7.0
+
+
+def test_module_entry_point_runs():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "stochastic_gradient_push_torch.run.gossip_lm",
+         *SMALL, "--world_size", "2"], capture_output=True, text=True,
+        env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert '"final_loss"' in proc.stdout.splitlines()[-1]
+
+
+def _rows(stdout: str) -> list[list[str]]:
+    """The CSV rows without the tokens/s column (a host timing)."""
+    lines = stdout.splitlines()
+    start = lines.index("step,loss,ppl,lr,tokens_per_sec,grad_norm") + 1
+    return [r.split(",")[:4] + r.split(",")[5:] for r in lines[start:]
+            if r and r[0].isdigit()]
+
+
+def test_torchrun_lane_prints_the_stacked_lanes_rows():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    argv = ["-m", "stochastic_gradient_push_torch.run.gossip_lm", *SMALL,
+            "--wire_dtype", "int8"]
+    stacked = subprocess.run([sys.executable, *argv, "--world_size", "2"],
+                             capture_output=True, text=True, env=env,
+                             cwd=REPO, timeout=300)
+    launched = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", *argv], capture_output=True, text=True,
+        env=env, cwd=REPO, timeout=300)
+    assert stacked.returncode == 0, stacked.stderr
+    assert launched.returncode == 0, launched.stderr
+    assert "world 2 (1 in this process)" in launched.stdout
+    assert len(_rows(stacked.stdout)) == 3
+    assert _rows(launched.stdout) == _rows(stacked.stdout)
+
+
+def test_reference_flags_parse_with_reference_defaults():
+    from stochastic_gradient_push_tpu.run.gossip_lm import build_parser
+
+    ref = {a.dest: a.default for a in build_parser()._actions
+           if a.option_strings and a.dest != "help"}
+    port = {a.dest: a.default for a in gossip_lm.build_parser()._actions
+            if a.option_strings and a.dest != "help"}
+    missing = sorted(set(ref) - set(port))
+    assert not missing, f"reference flags the port does not parse: {missing}"
+    differ = {k: (ref[k], port[k]) for k in ref
+              if k != "attn" and ref[k] != port[k]}
+    assert not differ
+    # the one deliberate default change: flash on the card by default
+    assert port["attn"] == "flash" and set(port) - set(ref) == {"device"}
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--sp", "2"), ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
+    ("--overlap", "True"), ("--bilat", "True"), ("--precision", "bf16"),
+    ("--gossip_kernel", "pallas"), ("--resume", "True"),
+    ("--checkpoint_dir", "/tmp/x"), ("--health_every", "10"),
+    ("--moe_experts", "4"), ("--gossip_every", "2"),
+    ("--error_feedback", "True"), ("--trace_dir", "/tmp/x"),
+])
+def test_unported_flags_raise_naming_the_flag(flag, value):
+    with pytest.raises(SystemExit, match=flag):
+        gossip_lm.main(SMALL + [flag, value])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--attn", "ring"], "ring"),
+    (["--attn", "blockwise"], "blockwise"),
+    (["--push_sum", "False"], "D-PSGD"),
+])
+def test_unported_modes_raise(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        gossip_lm.main(SMALL + argv)
+
+
+def test_default_device_is_cuda():
+    argv = [a for a in SMALL if a not in ("--device", "cpu")]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default resolves to it")
+    with pytest.raises(DeviceUnavailableError):
+        gossip_lm.main(argv)

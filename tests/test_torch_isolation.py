@@ -71,6 +71,12 @@ def test_every_module_imports_with_jax_unavailable():
     expected = {"stochastic_gradient_push_torch.serve.engine",
                 "stochastic_gradient_push_torch.serve.cli",
                 "stochastic_gradient_push_torch.ops._build",
+                "stochastic_gradient_push_torch.train.lm",
+                "stochastic_gradient_push_torch.run.gossip_lm",
+                "stochastic_gradient_push_torch.parallel.collectives",
+                "stochastic_gradient_push_torch.algorithms.algorithms",
+                "stochastic_gradient_push_torch.topology.graphs",
+                "stochastic_gradient_push_torch.data.lm",
                 "chip_smoke"}
     assert expected <= set(result["imported"])
     assert not [m for m in result["loaded"]

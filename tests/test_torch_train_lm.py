@@ -1,0 +1,194 @@
+"""Port parity: the LM training step (``stochastic_gradient_push_torch.
+train.lm``) against the JAX package's ``build_lm_train_step`` +
+``shard_lm_train_step`` on its CPU mesh, from one state and on the same
+numpy token batches, with ``attn_impl="flash"`` on both sides (the JAX
+side reaches its blockwise path on the CPU; the port its flash
+``autograd.Function`` with the plain forward and backward).
+
+Both start from the reference's own flax init, carried across by
+``models/convert.py::train_state_from_jax``.  Three steps at dp 1 and
+dp 4, SGP and AllReduce.  Tolerances: per-step losses within 1e-5
+relative and grad norms within 1e-4 relative (fp32 sums in another
+order); params and momentum after three steps within atol 2e-6; the
+push-sum weight and the phase exactly equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stochastic_gradient_push_torch import algorithms as talg
+from stochastic_gradient_push_torch.models.convert import (
+    params_from_jax, train_state_from_jax)
+from stochastic_gradient_push_torch.models.transformer import (
+    TransformerConfig)
+from stochastic_gradient_push_torch.parallel.collectives import (
+    StackedTransport)
+from stochastic_gradient_push_torch.topology import (
+    NPeerDynamicDirectedExponentialGraph, build_schedule)
+from stochastic_gradient_push_torch.train import lm as tlm
+from stochastic_gradient_push_torch.train.lr import LRSchedule
+from stochastic_gradient_push_torch.train.state import sgd
+
+torch.set_num_threads(1)
+
+VOCAB, D, L, H, FF, T, B = 64, 64, 2, 2, 128, 32, 2
+STEPS = 3
+LOSS_RTOL, GN_RTOL, PARAM_ATOL = 1e-5, 1e-4, 2e-6
+
+
+def _jax_run(dp, alg_name, batches, seed=0):
+    import jax
+
+    from stochastic_gradient_push_tpu import algorithms as jalg
+    from stochastic_gradient_push_tpu.models.transformer import (
+        TransformerConfig as JConfig, TransformerLM as JLM)
+    from stochastic_gradient_push_tpu.parallel.mesh import (
+        GOSSIP_AXIS, make_gossip_mesh)
+    from stochastic_gradient_push_tpu.topology import (
+        NPeerDynamicDirectedExponentialGraph as JGraph,
+        build_schedule as jbuild)
+    from stochastic_gradient_push_tpu.train import LRSchedule as JLR
+    from stochastic_gradient_push_tpu.train import sgd as jsgd
+    from stochastic_gradient_push_tpu.train.lm import (
+        build_lm_train_step, init_lm_state, shard_lm_train_step)
+
+    model = JLM(JConfig(vocab_size=VOCAB, d_model=D, n_layers=L,
+                        n_heads=H, d_ff=FF, max_len=T, attn_impl="flash"))
+    mesh = make_gossip_mesh(dp)
+    if alg_name == "sgp":
+        alg = jalg.sgp(jbuild(JGraph(dp, peers_per_itr=1)), GOSSIP_AXIS)
+    else:
+        alg = jalg.all_reduce(GOSSIP_AXIS)
+    tx = jsgd(momentum=0.9, weight_decay=1e-4, nesterov=True)
+    lrs = JLR(ref_lr=0.5, batch_size=B, world_size=dp, decay_schedule={},
+              warmup=True)
+    step = shard_lm_train_step(
+        build_lm_train_step(model, alg, tx, lrs, itr_per_epoch=2,
+                            seq_axis=None), mesh, seq_axis=None)
+    state = init_lm_state(model, mesh, alg, tx, dp=dp, sp=1, batch_size=B,
+                          block_len=T, seed=seed, seq_axis=None)
+    start = jax.device_get(state)
+    metrics = []
+    for toks, tgts in batches:
+        state, m = step(state, toks, tgts)
+        metrics.append(jax.device_get(m))
+    return start, jax.device_get(state), metrics
+
+
+def _port_run(dp, alg_name, start, batches):
+    transport = StackedTransport(dp)
+    if alg_name == "sgp":
+        alg = talg.sgp(build_schedule(
+            NPeerDynamicDirectedExponentialGraph(dp, peers_per_itr=1)),
+            transport)
+    else:
+        alg = talg.all_reduce(transport)
+    cfg = TransformerConfig(vocab_size=VOCAB, d_model=D, n_layers=L,
+                            n_heads=H, d_ff=FF, attn_impl="flash")
+    step = tlm.build_lm_train_step(
+        tlm.make_model(cfg), alg, sgd(0.9, 1e-4, nesterov=True),
+        LRSchedule(0.5, B, dp, decay_schedule={}, warmup=True),
+        itr_per_epoch=2)
+    state = train_state_from_jax(start)
+    metrics = []
+    for toks, tgts in batches:
+        state, m = step(state, torch.from_numpy(toks).long(),
+                        torch.from_numpy(tgts).long())
+        metrics.append(m)
+    return state, metrics
+
+
+def _batches(dp, seed):
+    r = np.random.default_rng(seed)
+    return [tuple(r.integers(0, VOCAB, size=(dp, B, T)).astype(np.int32)
+                  for _ in range(2)) for _ in range(STEPS)]
+
+
+@pytest.mark.parametrize("dp", [1, 4])
+@pytest.mark.parametrize("alg_name", ["sgp", "ar"])
+def test_lm_step_matches_reference(dp, alg_name):
+    batches = _batches(dp, 10 * dp + len(alg_name))
+    start, want, jm = _jax_run(dp, alg_name, batches)
+    got, tm = _port_run(dp, alg_name, start, batches)
+
+    for j, t in zip(jm, tm):
+        np.testing.assert_allclose(t["loss"].numpy(), np.asarray(j["loss"]),
+                                   rtol=LOSS_RTOL, atol=0)
+        np.testing.assert_allclose(t["ppl"].numpy(), np.asarray(j["ppl"]),
+                                   rtol=2 * LOSS_RTOL, atol=0)
+        np.testing.assert_allclose(t["grad_norm"].numpy(),
+                                   np.asarray(j["grad_norm"]),
+                                   rtol=GN_RTOL, atol=0)
+        assert np.float32(t["lr"]) == np.asarray(j["lr"]).reshape(-1)[0]
+    for name, w in params_from_jax(want.params).items():
+        np.testing.assert_allclose(got.params[name].numpy(), w.numpy(),
+                                   rtol=0, atol=PARAM_ATOL, err_msg=name)
+    trace = [s.trace for s in want.opt_state if hasattr(s, "trace")][0]
+    for name, w in params_from_jax(trace).items():
+        np.testing.assert_allclose(got.opt_state[name].numpy(), w.numpy(),
+                                   rtol=0, atol=PARAM_ATOL, err_msg=name)
+    np.testing.assert_array_equal(
+        got.gossip.ps_weight.numpy(),
+        np.asarray(want.gossip.ps_weight, np.float32).reshape(-1))
+    assert got.gossip.phase == int(np.asarray(want.gossip.phase)[0])
+    assert got.step == int(np.asarray(want.step)[0]) == STEPS
+
+
+def test_flash_and_full_lanes_give_one_step():
+    """The model's two attention lanes agree through a whole step."""
+    batches = _batches(2, 3)
+    cfgs = [TransformerConfig(vocab_size=VOCAB, d_model=D, n_layers=L,
+                              n_heads=H, d_ff=FF, attn_impl=impl)
+            for impl in ("flash", "full")]
+    out = []
+    for cfg in cfgs:
+        transport = StackedTransport(2)
+        alg = talg.sgp(build_schedule(
+            NPeerDynamicDirectedExponentialGraph(2)), transport)
+        tx = sgd(0.9, 0.0)
+        step = tlm.build_lm_train_step(tlm.make_model(cfg), alg, tx,
+                                       LRSchedule(0.5, B, 2, {}), 10)
+        state = tlm.init_lm_state(cfg, alg, tx, 2, seed=5)
+        toks, tgts = (torch.from_numpy(a).long() for a in batches[0])
+        out.append(step(state, toks, tgts))
+    (s1, m1), (s2, m2) = out
+    torch.testing.assert_close(m1["loss"], m2["loss"], rtol=1e-6, atol=0)
+    for name in s1.params:
+        torch.testing.assert_close(s1.params[name], s2.params[name],
+                                   rtol=0, atol=1e-6)
+
+
+def test_grad_accum_matches_full_batch():
+    """Two microbatches give the full batch's step (the LM has no
+    BatchNorm), within fp32 summation order."""
+    cfg = TransformerConfig(vocab_size=VOCAB, d_model=D, n_layers=L,
+                            n_heads=H, d_ff=FF, attn_impl="flash")
+    toks, tgts = (torch.from_numpy(a).long() for a in _batches(1, 4)[0])
+    res = []
+    for accum in (1, 2):
+        alg = talg.all_reduce(StackedTransport(1))
+        tx = sgd(0.9, 0.0)
+        step = tlm.build_lm_train_step(tlm.make_model(cfg), alg, tx,
+                                       LRSchedule(0.5, B, 1, {}), 10,
+                                       grad_accum=accum)
+        res.append(step(tlm.init_lm_state(cfg, alg, tx, 1, seed=1),
+                        toks, tgts))
+    (s1, m1), (s2, m2) = res
+    torch.testing.assert_close(m1["loss"], m2["loss"], rtol=1e-6, atol=0)
+    for name in s1.params:
+        torch.testing.assert_close(s1.params[name], s2.params[name],
+                                   rtol=0, atol=1e-6)
+
+
+def test_unported_attention_and_algorithm_options_raise():
+    with pytest.raises(NotImplementedError, match="ring"):
+        TransformerConfig(attn_impl="ring")
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(2))
+    for kwargs, name in (({"overlap": True}, "overlap"),
+                         ({"gossip_every": 2}, "thinning"),
+                         ({"global_avg_every": 4}, "global averaging"),
+                         ({"error_feedback": True}, "error feedback"),
+                         ({"gossip_kernel": "pallas"}, "kernel lane")):
+        with pytest.raises(NotImplementedError, match=name):
+            talg.sgp(sched, StackedTransport(2), **kwargs)
