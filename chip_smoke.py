@@ -21,6 +21,12 @@
 4. Teacher-forced check: the engine's prefill and per-step decode logits
    for two requests against the dense ``TransformerLM`` forward on the
    card, max |diff| <= 1e-3.
+   Then the gossip transport kernels, ``gossip_edge_start`` (K2) and
+   ``gossip_edge_wait`` (K1), bit-equal to their plain versions on the
+   full-width packed payload of world 4 (the d768 LM's 134.3 M f32
+   parameters per rank) for the f32, bf16 and int8 (block 64) wires at
+   one and two edges, and on ragged payloads (n 300, chunk 128, int8
+   blocks 7 and 64).
 5. Training main path at the same width, T1024, B8, fp32: the port's
    ``build_lm_train_step`` with SGP at world 1 over the n-peer
    exponential graph.  One step on the kernel lane (``attn_impl=
@@ -30,7 +36,18 @@
    zeroed just before: every attention forward and backward must have
    gone through the kernels (12 launches of each per step), every loss
    finite.  Per-step loss, median step ms and tokens/s are printed.
-6. A JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
+6. The same LM at world 4, the four ranks stacked on the card, over the
+   n-peer exponential graph with the gossip kernel lane: SGP (int8 wire,
+   one peer, one transport bucket), then OSGP (staleness 2, bf16 wire,
+   two peers, three buckets).  Each first takes steps from one state on
+   the kernel lane and on the plain transport lane (both with flash
+   attention): the push-sum weight, and the in-flight FIFO's weights,
+   bit-equal, params within 1e-6.  Then 5 kernel-lane steps with the
+   counters zeroed just before: every start and wait went through the
+   kernels (buckets per step each), every attention call too (4 ranks x
+   12 layers per step), every loss finite; losses, median step ms,
+   tokens/s and peak memory are printed.
+7. A JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
@@ -40,6 +57,7 @@ outside a checkout of the repository; any failed phase raises.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,6 +72,10 @@ TOL_STEP_LOSS_REL = 1e-5
 TOL_STEP_GNORM_REL = 1e-4
 TOL_STEP_PARAM = 1e-6
 TRAIN_STEPS = 6
+GOSSIP_WORLD = 4
+GOSSIP_STEPS = 5
+GOSSIP_CHECKS = (("f32", 1), ("f32", 2), ("bf16", 1), ("bf16", 2),
+                 ("int8", 1), ("int8", 2))
 # H100 SXM data sheet: HBM rate and fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
@@ -288,6 +310,154 @@ def check_paged(card: str) -> dict:
     return row
 
 
+def _lm_config(attn_impl: str = "full"):
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerConfig)
+
+    return TransformerConfig(vocab_size=32000, d_model=768, n_layers=12,
+                             n_heads=12, d_ff=3072, attn_impl=attn_impl)
+
+
+def _gossip_case(g, wire: str, ne: int, ranks: int, leaf_shapes=None,
+                 n: int | None = None, chunk_elems: int | None = None):
+    """Encoded parts ``[R, E, ...]`` of one transport bucket on the card:
+    every leaf of ``leaf_shapes`` packed as the kernel lane packs them
+    (int8 leaves padded to whole blocks, the bucket to the chunk
+    layout), or one ragged payload of ``n``.  Random wire values."""
+    import torch
+
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+    from stochastic_gradient_push_torch.parallel import collectives
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+
+    spec = get_codec(wire, 7 if n is not None and ne == 2 else 64
+                     ).kernel_spec()
+    lane = gk.KernelLane(chunk_elems=chunk_elems or gk.DEFAULT_CHUNK_ELEMS)
+    if n is None:
+        leaves = [torch.empty((ranks,) + s, device="meta")
+                  for s in leaf_shapes]
+        (bucket,) = collectives._transport_plan(leaves, spec, 1)
+        n, length = collectives._bucket_len(bucket, spec, lane)
+    else:
+        length = gk.padded_len(spec, n, lane.chunk_elems)
+    if wire == "int8":
+        parts = (torch.randint(-127, 128, (ranks, ne, length // spec.block,
+                                           spec.block), device="cuda",
+                               generator=g, dtype=torch.int8),
+                 torch.rand(ranks, ne, length // spec.block, device="cuda",
+                            generator=g) * 0.02)
+    else:
+        x = torch.randn(ranks, ne, length, device="cuda", generator=g)
+        parts = (x.to(torch.bfloat16) if wire == "bf16" else x,)
+    acc = torch.randn(ranks, length, device="cuda", generator=g)
+    return spec, lane, parts, acc, n
+
+
+def check_gossip(card: str) -> dict:
+    """K2 and K1 bit-equal to their plain versions on the full-width
+    packed payload at world 4 and on ragged payloads, with times."""
+    import torch
+
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.lm import make_model
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shapes = [tuple(p.shape) for p in make_model(_lm_config()).parameters()]
+    per_rank = sum(math.prod(s) for s in shapes)
+    rows = {}
+    # the full-width cases, then the ragged ones (int8 block 64 at one
+    # edge, block 7 at two)
+    for i, (wire, ne) in enumerate(GOSSIP_CHECKS * 2):
+        ragged = i >= len(GOSSIP_CHECKS)
+        dests = build_schedule(NPeerDynamicDirectedExponentialGraph(
+            GOSSIP_WORLD, peers_per_itr=ne)).perms[0]
+        if ragged:
+            spec, lane, parts, acc, n = _gossip_case(
+                g, wire, ne, GOSSIP_WORLD, n=300, chunk_elems=128)
+        else:
+            spec, lane, parts, acc, n = _gossip_case(g, wire, ne,
+                                                     GOSSIP_WORLD, shapes)
+
+        def start():
+            return gk.gossip_edge_start(parts, dests, spec, n_decoded=n,
+                                        chunk_elems=lane.chunk_elems)
+
+        handle = start()
+        chunks = tuple(p.reshape(h.shape) for p, h in zip(parts,
+                                                          handle.recv))
+        plain_landed = gk.gossip_edge_start_reference(chunks, dests)
+        out = gk.gossip_edge_wait(handle, acc)
+        _, _, _, c, nb, _, _ = handle.meta
+        plain_out = gk.gossip_edge_wait_reference(
+            acc.reshape(GOSSIP_WORLD, nb, c), handle.recv, spec.kind
+        ).reshape(acc.shape)
+        torch.cuda.synchronize()
+        label = (f"{wire}{'/block' + str(spec.block) if spec.block else ''}"
+                 f" E{ne} R{GOSSIP_WORLD} n{n}")
+        start_err = max(_max_err(a, b) for a, b in zip(handle.recv,
+                                                        plain_landed))
+        wait_err = _max_err(out, plain_out)
+        if not all(torch.equal(a, b) for a, b in zip(handle.recv,
+                                                      plain_landed)):
+            raise AssertionError(f"gossip_edge_start {label}: landed bytes "
+                                 f"differ from the plain version (max err "
+                                 f"{start_err})")
+        if not torch.equal(out, plain_out):
+            raise AssertionError(
+                f"gossip_edge_wait {label}: max err {wait_err}, want "
+                f"bit-equal")
+        if ragged:
+            print(f"kernel gossip ragged {label}: start and wait bit-equal "
+                  f"to plain [{card}]", flush=True)
+            continue
+        part_bytes = sum(p.numel() * p.element_size() for p in parts)
+        acc_bytes = acc.numel() * 4
+        start_ms = _time_ms(start, 10)
+        start_plain = _time_ms(
+            lambda: gk.gossip_edge_start_reference(chunks, dests), 3)
+        # library yardstick: one index_select over the (rank, edge) rows
+        # per wire part (one call for f32/bf16, two for int8's q and
+        # scales)
+        src = torch.tensor([int(dests[e].tolist().index(r)) * ne + e
+                            for r in range(GOSSIP_WORLD) for e in range(ne)],
+                           device="cuda")
+        start_lib = _time_ms(lambda: [p.reshape(GOSSIP_WORLD * ne, -1)
+                                      .index_select(0, src) for p in parts],
+                             10)
+        wait_ms = _time_ms(lambda: gk.gossip_edge_wait(handle, acc), 10)
+        wait_plain = _time_ms(lambda: gk.gossip_edge_wait_reference(
+            acc.reshape(GOSSIP_WORLD, nb, c), handle.recv, spec.kind), 3)
+        wait_lib = None
+        if spec.kind in ("f32", "bf16") and ne == 1:
+            recv0 = handle.recv[0].reshape(acc.shape)
+            wait_lib = _time_ms(lambda: torch.add(acc, recv0), 10)
+        sb = _bound(2 * part_bytes, 0)
+        wb = _bound(2 * acc_bytes + part_bytes,
+                    acc.numel() * ne * (2 if spec.kind == "int8" else 1))
+        print(f"kernel gossip {label}: bit-equal; start {start_ms:.4f} ms, "
+              f"plain {start_plain:.4f} ms, index_select {start_lib:.4f} "
+              f"ms, bound {sb[0]:.4f} ms ({sb[1]}); wait {wait_ms:.4f} ms, "
+              f"plain {wait_plain:.4f} ms, add "
+              f"{'n/a' if wait_lib is None else f'{wait_lib:.4f} ms'}, bound "
+              f"{wb[0]:.4f} ms ({wb[1]}) [{card}]", flush=True)
+        rows[(wire, ne)] = {
+            "gossip_edge_start": dict(
+                max_abs_err=start_err, ms=start_ms, plain_ms=start_plain,
+                bound_ms=sb[0], bound_by=sb[1],
+                library_ms=start_lib if spec.kind != "int8" else None),
+            "gossip_edge_wait": dict(
+                max_abs_err=wait_err, ms=wait_ms, plain_ms=wait_plain,
+                bound_ms=wb[0], bound_by=wb[1], library_ms=wait_lib)}
+        del handle, chunks, plain_landed, out, plain_out, parts, acc
+        torch.cuda.empty_cache()
+    if per_rank < 134_000_000:
+        raise AssertionError(f"payload {per_rank} per rank, want the d768 "
+                             f"LM's ~134.3 M")
+    return rows
+
+
 # -- phase 3: the serving main path -----------------------------------------
 
 
@@ -411,12 +581,16 @@ def engine_vs_dense(engine, requests, card: str) -> None:
 # -- phase 5: the training main path ----------------------------------------
 
 
-def _train_setup(attn_impl: str):
+def _train_setup(attn_impl: str, world: int = 1, wire=None,
+                 overlap: bool = False, staleness: int = 1, peers: int = 1,
+                 buckets: int = 1, gossip_kernel=None):
+    """The training main path: the d768/L12 LM's step with SGP (or OSGP
+    with ``overlap``) over the n-peer exponential graph at ``world``
+    ranks stacked on the card."""
     from stochastic_gradient_push_torch.algorithms import sgp
-    from stochastic_gradient_push_torch.models.transformer import (
-        TransformerConfig)
     from stochastic_gradient_push_torch.parallel.collectives import (
         StackedTransport)
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
     from stochastic_gradient_push_torch.topology import (
         NPeerDynamicDirectedExponentialGraph, build_schedule)
     from stochastic_gradient_push_torch.train.lm import (
@@ -424,13 +598,15 @@ def _train_setup(attn_impl: str):
     from stochastic_gradient_push_torch.train.lr import LRSchedule
     from stochastic_gradient_push_torch.train.state import sgd
 
-    cfg = TransformerConfig(vocab_size=32000, d_model=768, n_layers=12,
-                            n_heads=12, d_ff=3072, attn_impl=attn_impl)
-    alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(1)),
-              StackedTransport(1))
+    cfg = _lm_config(attn_impl)
+    alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(
+        world, peers_per_itr=peers)), StackedTransport(world),
+        wire=get_codec(wire), overlap=overlap, staleness=staleness,
+        gossip_kernel=gossip_kernel, gossip_buckets=buckets)
     tx = sgd(momentum=0.9, weight_decay=0.0)
     step = build_lm_train_step(
-        make_model(cfg), alg, tx, LRSchedule(3e-2, 8, 1, decay_schedule={}),
+        make_model(cfg), alg, tx, LRSchedule(3e-2, 8, world,
+                                             decay_schedule={}),
         itr_per_epoch=1000)
     return cfg, alg, tx, step
 
@@ -480,6 +656,7 @@ def train_path(card: str) -> dict:
     state = k_state
     flash_fwd.launches = flash_bwd_dq.launches = 0
     flash_bwd_dkv.launches = paged_decode.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
     for toks, tgts in batches[1:]:
         t0 = time.perf_counter()
@@ -506,6 +683,120 @@ def train_path(card: str) -> dict:
             "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS, "paged_decode": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    return launches
+
+
+def _counters():
+    from stochastic_gradient_push_torch.ops.flash_attention import (
+        flash_bwd_dkv, flash_bwd_dq, flash_fwd)
+    from stochastic_gradient_push_torch.ops.gossip_kernel import (
+        gossip_edge_start, gossip_edge_wait)
+    from stochastic_gradient_push_torch.serve.paged_attention import (
+        paged_decode)
+
+    return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "paged_decode": paged_decode,
+            "gossip_edge_start": gossip_edge_start,
+            "gossip_edge_wait": gossip_edge_wait}
+
+
+def gossip_train_path(card: str, label: str, wire: str, overlap: bool,
+                      staleness: int, peers: int, buckets: int,
+                      compare_steps: int) -> dict:
+    """World 4 stacked on the card on the gossip kernel lane: steps from
+    one state against the plain transport lane, then the main path."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+    from stochastic_gradient_push_torch.train.lm import init_lm_state
+
+    kw = dict(world=GOSSIP_WORLD, wire=wire, overlap=overlap,
+              staleness=staleness, peers=peers, buckets=buckets)
+    cfg, alg, tx, step = _train_setup("flash", gossip_kernel=KernelLane(),
+                                      **kw)
+    _, plain_alg, _, plain_step = _train_setup("flash", **kw)
+    if (alg.transport_kernel_name, plain_alg.transport_kernel_name) != (
+            "pallas", "xla"):
+        raise AssertionError("the two lanes did not resolve as asked")
+    rng = np.random.default_rng(1)
+    batches = [tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(GOSSIP_WORLD, 8, 1024))).cuda()
+        for _ in range(2)) for _ in range(compare_steps + GOSSIP_STEPS)]
+    state = init_lm_state(cfg, alg, tx, GOSSIP_WORLD, seed=0, device="cuda")
+    print(f"train {label}: world {GOSSIP_WORLD} stacked, d{cfg.d_model} "
+          f"L{cfg.n_layers} T1024 B8/rank, {wire} wire, peers {peers}, "
+          f"buckets {buckets}, overlap {overlap} staleness {staleness}",
+          flush=True)
+
+    # the kernel lane and the plain transport lane from one state
+    k_state, p_state = state, state
+    for toks, tgts in batches[:compare_steps]:
+        k_state, k_m = step(k_state, toks, tgts)
+        p_state, p_m = plain_step(p_state, toks, tgts)
+    torch.cuda.synchronize()
+    weights = [(k_state.gossip.ps_weight, p_state.gossip.ps_weight)] + [
+        (ks[1], ps[1]) for ks, ps in zip(k_state.gossip.in_flight,
+                                         p_state.gossip.in_flight)]
+    param_err = max(_max_err(k_state.params[n], p_state.params[n])
+                    for n in k_state.params)
+    fifo_err = max([_max_err(ks[0][n], ps[0][n])
+                    for ks, ps in zip(k_state.gossip.in_flight,
+                                      p_state.gossip.in_flight)
+                    for n in ks[0]] or [0.0])
+    loss_k, loss_p = k_m["loss"].tolist(), p_m["loss"].tolist()
+    print(f"train {label}: kernel lane vs plain lane, {compare_steps} "
+          f"step(s) from one state: losses {loss_k} vs {loss_p}; ps-weight "
+          f"{k_state.gossip.ps_weight.tolist()} vs "
+          f"{p_state.gossip.ps_weight.tolist()}; max |param diff| "
+          f"{param_err:.3e}, in-flight {fifo_err:.3e} (tolerance "
+          f"{TOL_STEP_PARAM}) [{card}]", flush=True)
+    if not all(torch.equal(a, b) for a, b in weights):
+        raise AssertionError(f"{label}: push-sum weights differ between "
+                             f"the lanes")
+    if not (param_err <= TOL_STEP_PARAM and fifo_err <= TOL_STEP_PARAM):
+        raise AssertionError(f"{label}: params differ between the lanes")
+    del p_state, state, plain_step
+    torch.cuda.empty_cache()
+
+    # the main path: kernel-lane steps, counters zeroed just before
+    state = k_state
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for toks, tgts in batches[compare_steps:]:
+        t0 = time.perf_counter()
+        state, m = step(state, toks, tgts)
+        losses.append(m["loss"].tolist())   # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    med_ms = float(np.median(step_s)) * 1e3
+    tokens = GOSSIP_WORLD * 8 * 1024
+    print(f"train {label}: {GOSSIP_STEPS} steps, losses per rank "
+          f"{json.dumps([[round(x, 6) for x in r] for r in losses])}, step "
+          f"ms {json.dumps([round(x * 1e3, 2) for x in step_s])}, median "
+          f"{med_ms:.2f} ms, {tokens / med_ms * 1e3:.1f} tokens/s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"[{card}]", flush=True)
+    print(f"train {label}: launches {json.dumps(launches)}", flush=True)
+    if not all(np.isfinite(losses).ravel()):
+        raise AssertionError(f"{label}: non-finite training loss {losses}")
+    # post_step waits every launched bucket once per step: the head slot
+    # it lands is the one just launched at staleness 1 (a synchronous
+    # round waits at once too); at staleness >= 2 the head slot is a
+    # plain share settled a step earlier, and the wait is the settle of
+    # the slot launched this step
+    landed = 1 if staleness == 1 else 0
+    settled = 0 if staleness == 1 else 1
+    attn = GOSSIP_WORLD * cfg.n_layers * GOSSIP_STEPS
+    want = {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+            "paged_decode": 0, "gossip_edge_start": buckets * GOSSIP_STEPS,
+            "gossip_edge_wait": buckets * (landed + settled) * GOSSIP_STEPS}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
     return launches
 
 
@@ -540,34 +831,52 @@ def main() -> int:
     flash_row = check_flash(card)
     paged_row = check_paged(card)
     bwd_rows = check_flash_bwd(card)
+    gossip_rows = check_gossip(card)
     engine, requests, launches = main_path(card)
     engine_vs_dense(engine, requests, card)
     del engine
     torch.cuda.empty_cache()
     train_launches = train_path(card)
+    torch.cuda.empty_cache()
+    sgp_launches = gossip_train_path(card, "sgp", "int8", False, 1, 1, 1, 1)
+    torch.cuda.empty_cache()
+    osgp_launches = gossip_train_path(card, "osgp", "bf16", True, 2, 2, 3, 2)
 
-    # launches: each main path's run (serving, then training) summed
+    # launches: each main path's run (serving, training at world 1, SGP
+    # and OSGP at world 4) summed
+    def total(name):
+        return sum(run.get(name, 0) for run in (
+            launches, train_launches, sgp_launches, osgp_launches))
+
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"
+    gossip = "stochastic_gradient_push_tpu/ops/gossip_kernel.py"
+    gossip_src = "stochastic_gradient_push_torch/csrc/gossip_edge.cu"
+    # the gossip rows at the OSGP main path's wire (bf16, two edges), on
+    # the whole payload in one bucket
+    gossip_row = gossip_rows[("bf16", 2)]
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="stochastic_gradient_push_torch/csrc/flash_fwd.cu",
-             replaces=f"{flash}:110",
-             launches=launches["flash_fwd"] + train_launches["flash_fwd"],
+             replaces=f"{flash}:110", launches=total("flash_fwd"),
              **flash_row),
         dict(name="paged_decode", route="cuda",
              source="stochastic_gradient_push_torch/csrc/paged_decode.cu",
              replaces="stochastic_gradient_push_tpu/serve/"
                       "paged_attention.py:113",
-             launches=launches["paged_decode"], **paged_row),
+             launches=total("paged_decode"), **paged_row),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
-             replaces=f"{flash}:227",
-             launches=train_launches["flash_bwd_dq"],
+             replaces=f"{flash}:227", launches=total("flash_bwd_dq"),
              **bwd_rows["flash_bwd_dq"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
-             replaces=f"{flash}:270",
-             launches=train_launches["flash_bwd_dkv"],
+             replaces=f"{flash}:270", launches=total("flash_bwd_dkv"),
              **bwd_rows["flash_bwd_dkv"]),
+        dict(name="gossip_edge_start", route="cuda", source=gossip_src,
+             replaces=f"{gossip}:295", launches=total("gossip_edge_start"),
+             **gossip_row["gossip_edge_start"]),
+        dict(name="gossip_edge_wait", route="cuda", source=gossip_src,
+             replaces=f"{gossip}:513", launches=total("gossip_edge_wait"),
+             **gossip_row["gossip_edge_wait"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,17 +2,29 @@
 """Where the time goes in the PyTorch port's LM training step, on one GPU.
 
     python3 scripts/torch_train_profile.py [--steps 5] [--out PATH]
+    python3 scripts/torch_train_profile.py --world_size 4 \\
+        --gossip_kernel pallas --wire_dtype int8 [--overlap True \\
+        --staleness 2 --peers_per_itr 2 --gossip_buckets 3]
 
 Builds the training main path of ``chip_smoke.py`` (the d768/L12/h12/
-ff3072/vocab32000 LM, T1024, B8, fp32 with TF32 off; SGP at world 1;
-``attn_impl="flash"``; random weights and tokens from seed 0), takes two
-warm-up steps, then measures ``--steps`` steps from one state: the
-host-clock mean per step, then the same steps under ``torch.profiler``:
-device time by kernel, the device's busy share of the window (kernel
-time / window wall time) and the flash kernels' share of the device
-time.  Prints one JSON object (also written to ``--out``) with the
-card's name and power limit.  Needs a CUDA card; exits non-zero without
-one.
+ff3072/vocab32000 LM, T1024, B8 per rank, fp32 with TF32 off; SGP or
+OSGP over the n-peer exponential graph, ``--world_size`` ranks stacked
+on the card; ``attn_impl="flash"``; random weights and tokens from seed
+0), takes two warm-up steps, then measures ``--steps`` steps from one
+state: the host-clock mean per step, then the same steps under
+``torch.profiler``: device time by kernel, the device's busy share of
+the window (kernel time / window wall time), the flash kernels' share
+and, at world > 1, the gossip kernels' share of the device time.
+
+On the kernel lane (``--gossip_kernel pallas``) it also splits one
+gossip round of the step's own state into its parts, each timed with
+CUDA events over ``--steps`` repetitions: the sender multiply and encode
+of every (edge, leaf), the pack of the encoded parts into the transport
+buckets, the start kernel (K2), the local share ``lo * x`` and its pack
+into the accumulator, the wait kernel (K1) and the unpack (views, no
+device work).  Prints one JSON object (also written to ``--out``) with
+the card's name and power limit.  Needs a CUDA card; exits non-zero
+without one.
 """
 
 from __future__ import annotations
@@ -26,9 +38,108 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _events_ms(fn, n: int) -> float:
+    """Mean device time of ``fn()`` over ``n`` calls (CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def round_split(alg, params: dict, ps_weight, n: int) -> dict:
+    """One synchronous kernel-lane round of ``alg`` at phase 0 on the
+    given state, cut into the stages ``collectives._round`` runs, each
+    stage's mean device ms over ``n`` repetitions."""
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+    from stochastic_gradient_push_torch.parallel import collectives as c
+
+    sched, transport = alg.schedule, alg.transport
+    leaves = list(params.values()) + [ps_weight]
+    codec = c._resolve_codec(alg.wire)
+    spec = c._kernel_spec(codec)
+    plan = c._transport_plan(leaves, spec, alg.gossip_buckets)
+    ne = sched.peers_per_itr
+    dests = sched.perms[0]
+    lane = alg.gossip_kernel
+    shapes = [a.shape for a in leaves]
+
+    def encode():
+        sent = {}
+        for bucket in plan:
+            for j, _, _ in bucket:
+                sent[j] = []
+                for i in range(ne):
+                    w = c._rank_weight(sched.edge_weights[0, i], transport,
+                                       leaves[j])
+                    msg = leaves[j] * w
+                    sent[j].append(codec.encode(msg) if codec else (msg,))
+        return sent
+
+    sent = encode()
+    lens = [c._bucket_len(b, spec, lane) for b in plan]
+    parts = [c._pack_bucket(b, sent, spec, ne, ln)
+             for b, (_, ln) in zip(plan, lens)]
+    handles = [gk.gossip_edge_start(p, dests, spec, n_decoded=t,
+                                    interpret=lane.interpret,
+                                    chunk_elems=lane.chunk_elems)
+               for p, (t, _) in zip(parts, lens)]
+
+    def local():
+        out = list(leaves)
+        for bucket in plan:
+            for j, _, _ in bucket:
+                lo = c._rank_weight(sched.self_weight[0], transport,
+                                    leaves[j])
+                out[j] = leaves[j] * lo
+        return out
+
+    out = local()
+    accs = [c._pack_acc(b, out, ln) for b, (_, ln) in zip(plan, lens)]
+    flats = [gk.gossip_edge_wait(h, a) for h, a in zip(handles, accs)]
+
+    def unpack():
+        tgt = list(out)
+        for b, f in zip(plan, flats):
+            c._unpack_acc(b, f, tgt, shapes)
+
+    stages = {
+        "encode_ms": encode,
+        "pack_parts_ms": lambda: [c._pack_bucket(b, sent, spec, ne, ln)
+                                  for b, (_, ln) in zip(plan, lens)],
+        "start_ms": lambda: [gk.gossip_edge_start(
+            p, dests, spec, n_decoded=t, interpret=lane.interpret,
+            chunk_elems=lane.chunk_elems) for p, (t, _) in zip(parts, lens)],
+        "local_share_ms": local,
+        "pack_acc_ms": lambda: [c._pack_acc(b, out, ln)
+                                for b, (_, ln) in zip(plan, lens)],
+        "wait_ms": lambda: [gk.gossip_edge_wait(h, a)
+                            for h, a in zip(handles, accs)],
+        "unpack_ms": unpack,
+    }
+    split = {name: _events_ms(fn, n) for name, fn in stages.items()}
+    split["buckets"] = len(plan)
+    split["payload_elems_per_rank"] = sum(t for t, _ in lens)
+    return split
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--world_size", type=int, default=1)
+    p.add_argument("--gossip_kernel", default="xla",
+                   choices=["auto", "pallas", "xla"])
+    p.add_argument("--wire_dtype", default=None,
+                   choices=["f32", "bf16", "int8"])
+    p.add_argument("--overlap", default="False")
+    p.add_argument("--staleness", type=int, default=1)
+    p.add_argument("--peers_per_itr", type=int, default=1)
+    p.add_argument("--gossip_buckets", type=int, default=1)
     p.add_argument("--out", default=os.path.join(
         "artifacts", "torch_train_profile.json"))
     args = p.parse_args(argv)
@@ -51,16 +162,21 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    cfg, alg, tx, step = _train_setup("flash")
-    state = init_lm_state(cfg, alg, tx, 1, seed=0, device="cuda")
+    world = args.world_size
+    cfg, alg, tx, step = _train_setup(
+        "flash", world=world, wire=args.wire_dtype,
+        overlap=args.overlap == "True", staleness=args.staleness,
+        peers=args.peers_per_itr, buckets=args.gossip_buckets,
+        gossip_kernel=args.gossip_kernel)
+    state = init_lm_state(cfg, alg, tx, world, seed=0, device="cuda")
     rng = np.random.default_rng(0)
     toks, tgts = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(1, 8, 1024))).cuda() for _ in range(2))
+        0, cfg.vocab_size, size=(world, 8, 1024))).cuda() for _ in range(2))
     for _ in range(2):
         step(state, toks, tgts)
     window = _window(lambda: step(state, toks, tgts), args.steps)
 
-    # the flash kernels' share of the device time, from a second window
+    # kernel shares of the device time, from a second window
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -70,14 +186,27 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     kernels = _device_kernels(prof)
     total = sum(kernels.values())
-    flash = {n: us for n, us in kernels.items() if "flash_" in n}
-    window["flash_kernels_ms_per_step"] = {
-        n[:90]: us / 1e3 / args.steps for n, us in flash.items()}
-    window["flash_share_of_device_time"] = sum(flash.values()) / total
+    for label, key in (("flash", "flash_"), ("gossip", "edge_")):
+        mine = {n: us for n, us in kernels.items() if key in n}
+        window[f"{label}_kernels_ms_per_step"] = {
+            n[:90]: us / 1e3 / args.steps for n, us in mine.items()}
+        window[f"{label}_share_of_device_time"] = sum(mine.values()) / total
     window["tokens_per_sec_host_clock"] = (
-        8 * 1024 / (window["host_ms_per_call"] / 1e3))
+        world * 8 * 1024 / (window["host_ms_per_call"] / 1e3))
+    window["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     result = {"card": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "train_step_t1024_b8": window}
+              "cuda": torch.version.cuda,
+              "config": {"world_size": world,
+                         "gossip_lane": alg.transport_kernel_name,
+                         "wire_dtype": args.wire_dtype,
+                         "overlap": args.overlap == "True",
+                         "staleness": args.staleness,
+                         "peers_per_itr": args.peers_per_itr,
+                         "gossip_buckets": args.gossip_buckets},
+              "train_step_t1024_b8": window}
+    if world > 1 and alg.transport_kernel_name == "pallas":
+        result["gossip_round_split"] = round_split(
+            alg, state.params, state.gossip.ps_weight, args.steps)
     out = json.dumps(result, indent=1, sort_keys=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

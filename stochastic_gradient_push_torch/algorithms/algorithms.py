@@ -1,24 +1,62 @@
-"""AllReduce and synchronous Stochastic Gradient Push.
+"""AllReduce, and Stochastic Gradient Push synchronous (SGP) and overlap
+(OSGP).
 
-Port of ``AllReduce`` and the synchronous path of ``PushSumGossip`` in
-``stochastic_gradient_push_tpu/algorithms/algorithms.py``, with the
-``all_reduce`` and ``sgp`` factories.  Where the reference takes a mesh
-axis name, the port takes a transport (``parallel/collectives.py``).
+Port of ``AllReduce``, ``PushSumGossip``, ``drain_in_flight`` and
+``drain_state`` in ``stochastic_gradient_push_tpu/algorithms/
+algorithms.py``, with the ``all_reduce``, ``sgp`` and ``osgp``
+factories.  Where the reference takes a mesh axis name, the port takes a
+transport (``parallel/collectives.py``).  ``gossip_kernel`` (``"xla"``,
+``"auto"``, ``"pallas"`` or a resolved ``KernelLane``) moves the payload
+through the gossip transport kernels (``ops/gossip_kernel.py``) in
+``gossip_buckets`` buckets, on the stacked transport.
 
-Not ported yet, and refused by name: overlap (OSGP), staleness,
-communication thinning (``gossip_every > 1``), periodic global
-averaging, fault injection, error feedback, the gossip kernel lane and
-transport buckets; D-PSGD (``PushPullGossip``) and AD-PSGD
+Not ported yet, and refused by name: communication thinning
+(``gossip_every > 1``), periodic global averaging, fault injection,
+error feedback, the kernel lane under ``torch.distributed`` (the
+cross-process transport kernel); D-PSGD (``PushPullGossip``) and AD-PSGD
 (``BilateralGossip``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
+from ..ops.gossip_kernel import resolve_gossip_kernel
 from ..parallel import collectives
 from ..topology.schedule import GossipSchedule
 from .api import GossipAlgorithm, GossipState
 
-__all__ = ["AllReduce", "PushSumGossip", "all_reduce", "sgp"]
+__all__ = ["AllReduce", "PushSumGossip", "all_reduce", "sgp", "osgp",
+           "drain_in_flight", "drain_state"]
+
+
+def drain_in_flight(params: dict, ps_weight: torch.Tensor, in_flight):
+    """Fold every overlap in-flight share into ``(params, ps_weight)``
+    and return the FIFO as zero slots: purely per-rank adds, each pending
+    share counted exactly once.  Slots are plain ``(params, ps_weight)``
+    pairs (the FIFO between steps).  Returns ``(params, ps_weight,
+    drained_fifo)``."""
+    for in_p, in_w in in_flight:
+        params = {n: p + in_p[n].to(p.dtype) for n, p in params.items()}
+        ps_weight = ps_weight + in_w.reshape(ps_weight.shape)
+    drained = tuple(({n: torch.zeros_like(a) for n, a in in_p.items()},
+                     torch.zeros_like(in_w)) for in_p, in_w in in_flight)
+    return params, ps_weight, drained
+
+
+def drain_state(state):
+    """A train state with its overlap FIFO drained into its params (the
+    checkpoint view); a no-op without an in-flight FIFO."""
+    fifo = getattr(getattr(state, "gossip", None), "in_flight", None)
+    if not fifo:
+        return state
+    params, ps_weight, drained = drain_in_flight(
+        state.params, state.gossip.ps_weight, fifo)
+    return dataclasses.replace(
+        state, params=params,
+        gossip=state.gossip.replace(ps_weight=ps_weight, in_flight=drained))
 
 
 class AllReduce(GossipAlgorithm):
@@ -39,11 +77,31 @@ def _not_ported(feature: str):
         f"(a later slice of the port; ROADMAP.md Queue 1)")
 
 
+def _leaves(params: dict, ps_weight: torch.Tensor) -> list:
+    return list(params.values()) + [ps_weight]
+
+
+def _tree(names, leaves) -> tuple[dict, torch.Tensor]:
+    return dict(zip(names, leaves[:-1])), leaves[-1]
+
+
 class PushSumGossip(GossipAlgorithm):
-    """Synchronous Stochastic Gradient Push: after the optimizer step, one
-    complete push-sum round mixes the parameters (the push-sum
-    numerators) and the push-sum weight jointly; the forward sees the
-    de-biased ``params / ps_weight``."""
+    """Stochastic Gradient Push, synchronous or overlap (SGP / OSGP).
+
+    Synchronous: after the optimizer step, one complete push-sum round
+    mixes the parameters (the push-sum numerators) and the push-sum
+    weight jointly; the forward sees the de-biased ``params /
+    ps_weight``.
+
+    Overlap (OSGP): ``pre_step`` launches round ``t`` at the top of the
+    step — keeps the local share ``lo * x`` and puts the incoming share
+    in the freed tail slot of the ``staleness``-slot FIFO — and
+    ``post_step`` consumes the head slot (launched ``staleness - 1``
+    steps earlier) at the bottom.  On the kernel lane the launched slot
+    is a ``collectives.PendingShares`` whose start kernels have run;
+    ``post_step`` lands it (staleness 1) or settles it into a plain share
+    (later slots), so between steps the FIFO holds plain tensors only.
+    """
 
     name = "sgp"
 
@@ -52,10 +110,6 @@ class PushSumGossip(GossipAlgorithm):
                  staleness: int = 1, global_avg_every: int = 0,
                  faults=None, wire=None, error_feedback: bool = False,
                  gossip_kernel=None, gossip_buckets: int = 1):
-        if overlap:
-            _not_ported("overlap (OSGP)")
-        if staleness != 1:
-            _not_ported("staleness")
         if gossip_every != 1:
             _not_ported("communication thinning (gossip_every > 1)")
         if global_avg_every:
@@ -64,25 +118,107 @@ class PushSumGossip(GossipAlgorithm):
             _not_ported("fault injection")
         if error_feedback:
             _not_ported("error feedback")
-        if gossip_kernel not in (None, "xla"):
-            _not_ported(f"the gossip kernel lane ({gossip_kernel!r})")
-        if gossip_buckets != 1:
-            _not_ported("transport buckets (gossip_buckets)")
+        if staleness < 1:
+            raise ValueError("staleness must be >= 1")
+        if staleness > 1 and not overlap:
+            raise ValueError("staleness is an overlap-mode knob")
+        if gossip_buckets < 1:
+            raise ValueError("gossip_buckets must be >= 1")
+        # resolved at construction, so "pallas" without a card fails here
+        # with the typed KernelBackendError before any step runs
+        lane = resolve_gossip_kernel(gossip_kernel)
+        if lane is not None and not isinstance(
+                transport, collectives.StackedTransport):
+            raise NotImplementedError(
+                "gossip_kernel='pallas' under a DistTransport: the "
+                "cross-process gossip_edge_start (one rank per GPU) is not "
+                "ported to stochastic_gradient_push_torch yet (ROADMAP.md "
+                "Queue 2); use gossip_kernel='xla' under torch.distributed")
         self.schedule = schedule
         self.transport = transport
+        self.overlap = bool(overlap)
+        self.staleness = int(staleness)
         self.wire = wire
+        self.gossip_kernel = lane
+        self.gossip_buckets = int(gossip_buckets)
+
+    @property
+    def transport_kernel_name(self) -> str:
+        """The transport lane the wire actually runs: ``"xla"`` without a
+        kernel lane or for a lossy codec with no in-kernel decode."""
+        if self.gossip_kernel is None:
+            return "xla"
+        if (self.wire is not None and self.wire.lossy
+                and self.wire.kernel_spec() is None):
+            return "xla"
+        return self.gossip_kernel.name
+
+    def init(self, params: dict) -> GossipState:
+        state = super().init(params)
+        if self.overlap:
+            state = state.replace(in_flight=tuple(
+                ({n: torch.zeros_like(p) for n, p in params.items()},
+                 torch.zeros_like(state.ps_weight))
+                for _ in range(self.staleness)))
+        return state
+
+    def _round_args(self):
+        return dict(codec=self.wire, kernel=self.gossip_kernel,
+                    buckets=self.gossip_buckets)
+
+    def pre_step(self, params: dict, state: GossipState):
+        if not self.overlap:
+            return params, state
+        names = list(params)
+        local, incoming = collectives.overlap_launch(
+            _leaves(params, state.ps_weight), state.phase, self.schedule,
+            self.transport, **self._round_args())
+        if not isinstance(incoming, collectives.PendingShares):
+            incoming = _tree(names, incoming)
+        params, ps_weight = _tree(names, local)
+        return params, state.replace(
+            ps_weight=ps_weight,
+            in_flight=state.in_flight[:-1] + (incoming,))
 
     def eval_params(self, params: dict, state: GossipState) -> dict:
         w = state.ps_weight
         return {n: p / w.reshape((-1,) + (1,) * (p.dim() - 1)).to(p.dtype)
                 for n, p in params.items()}
 
+    def val_params(self, params: dict, state: GossipState) -> dict:
+        """Validation view: every in-flight share drained first, then
+        de-biased; the training state is untouched."""
+        if not self.overlap:
+            return self.eval_params(params, state)
+        params, ps_weight, _ = drain_in_flight(params, state.ps_weight,
+                                               state.in_flight)
+        return self.eval_params(params, state.replace(ps_weight=ps_weight))
+
     def post_step(self, params: dict, state: GossipState):
-        params, ps_weight = collectives.mix_push_sum(
-            params, state.ps_weight, state.phase, self.schedule,
-            self.transport, codec=self.wire)
+        if not self.overlap:
+            params, ps_weight = collectives.mix_push_sum(
+                params, state.ps_weight, state.phase, self.schedule,
+                self.transport, **self._round_args())
+            return params, state.replace(phase=state.phase + 1,
+                                         ps_weight=ps_weight)
+        names = list(params)
+        head = state.in_flight[0]
+        if not isinstance(head, collectives.PendingShares):
+            head = [head[0][n] for n in names] + [head[1]]
+        params, ps_weight = _tree(names, collectives.land_shares(
+            _leaves(params, state.ps_weight), head))
+        # settle every slot this step does not consume: a live transport
+        # handle never outlives the step that launched it
+        settled = []
+        for slot in state.in_flight[1:]:
+            if isinstance(slot, collectives.PendingShares):
+                slot = _tree(names, collectives.settle_share(slot))
+            settled.append(slot)
+        empty = ({n: torch.zeros_like(p) for n, p in params.items()},
+                 torch.zeros_like(ps_weight))
         return params, state.replace(phase=state.phase + 1,
-                                     ps_weight=ps_weight)
+                                     ps_weight=ps_weight,
+                                     in_flight=tuple(settled) + (empty,))
 
 
 def all_reduce(transport) -> AllReduce:
@@ -91,3 +227,12 @@ def all_reduce(transport) -> AllReduce:
 
 def sgp(schedule: GossipSchedule, transport, **kwargs) -> PushSumGossip:
     return PushSumGossip(schedule, transport, **kwargs)
+
+
+def osgp(schedule: GossipSchedule, transport, staleness: int = 1,
+         gossip_kernel=None, gossip_buckets: int = 1,
+         wire=None) -> PushSumGossip:
+    return PushSumGossip(schedule, transport, overlap=True,
+                         staleness=staleness, wire=wire,
+                         gossip_kernel=gossip_kernel,
+                         gossip_buckets=gossip_buckets)

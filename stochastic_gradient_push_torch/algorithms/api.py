@@ -32,10 +32,16 @@ class GossipState:
       ps_weight: float32 ``[R]`` push-sum weights of the held ranks
         (distributed.py:134-136).  Stays exactly 1.0 for synchronous
         regular mixing.
+      in_flight: the overlap (OSGP) FIFO of ``staleness`` slots, each
+        ``(params, ps_weight)``: one round's incoming share awaiting its
+        consume.  Empty for synchronous algorithms.  Between steps every
+        slot holds plain tensors; inside a step the slot ``pre_step``
+        fills may be a ``collectives.PendingShares``.
     """
 
     phase: int
     ps_weight: torch.Tensor
+    in_flight: tuple = ()
 
     def replace(self, **changes) -> "GossipState":
         return dataclasses.replace(self, **changes)

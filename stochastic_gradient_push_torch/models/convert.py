@@ -18,8 +18,8 @@ bits), so a full-width model can be made without JAX.
 
 :func:`train_state_from_jax` carries a whole rank-stacked training
 state across (params, the SGD momentum buffers, the push-sum weight, the
-phase and the step), so the port and the reference can start from one
-state.
+phase, the step and an overlap run's in-flight FIFO), so the port and
+the reference can start from one state.
 """
 
 from __future__ import annotations
@@ -142,7 +142,9 @@ def train_state_from_jax(state, device: str | torch.device = "cpu"):
     :class:`~..train.state.TrainState`: params and the optimizer's trace
     (momentum) buffers through :func:`params_from_jax`, the
     ``GossipState`` ps-weight ``[R]`` as float32, the phase and the step
-    as ints (they are equal on every rank of a synchronous run)."""
+    as ints (they are equal on every rank), and an overlap run's
+    in-flight FIFO (each slot's params through :func:`params_from_jax`,
+    its ps-weight ``[R]``)."""
     from ..algorithms.api import GossipState
     from ..train.state import TrainState
 
@@ -157,9 +159,16 @@ def train_state_from_jax(state, device: str | torch.device = "cpu"):
     def scalar(x):
         return int(np.asarray(x).reshape(-1)[0])
 
-    ps = np.asarray(state.gossip.ps_weight, np.float32).reshape(-1)
+    def weight(x):
+        w = np.asarray(x, np.float32).reshape(-1)
+        return torch.from_numpy(w.copy()).to(device)
+
+    in_flight = tuple((to_dev(p), weight(w))
+                      for p, w in getattr(state.gossip, "in_flight", None)
+                      or ())
     return TrainState(
         step=scalar(state.step), params=to_dev(state.params),
         opt_state=to_dev(traces[0]),
         gossip=GossipState(phase=scalar(state.gossip.phase),
-                           ps_weight=torch.from_numpy(ps.copy()).to(device)))
+                           ps_weight=weight(state.gossip.ps_weight),
+                           in_flight=in_flight))

@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgp_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # library (= source) name -> {C entry point: argtypes}; the stream is the
 # last pointer
 KERNELS = {
@@ -44,6 +44,13 @@ KERNELS = {
     },
     "paged_decode": {"sgp_paged_decode_f32":
                      (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
+    "gossip_edge": {
+        "sgp_gossip_edge_start": (_P, _P, _L, _I, _P, _P, _L, _I, _P, _I, _I,
+                                  _P),
+        "sgp_gossip_edge_wait_f32": (_P, _P, _P, _L, _I, _I, _P),
+        "sgp_gossip_edge_wait_bf16": (_P, _P, _P, _L, _I, _I, _P),
+        "sgp_gossip_edge_wait_int8": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -20,22 +20,39 @@ blocks each rank's flattened leaf on its own, exactly as each rank of the
 reference does; a single payload is encoded as ``msg[None]``.
 
 Scalar leaves (the push-sum weight lane) never reach a codec: the
-collectives ship them exact.  Not ported yet: ``DecodeSpec`` /
-``kernel_spec`` (the gossip kernel lane), ``element_bytes`` pricing and
-the deprecated ``comm_dtype`` alias.
+collectives ship them exact.  :meth:`WireCodec.kernel_spec` describes a
+codec's decode to the gossip kernel lane (``ops/gossip_kernel.py``); a
+codec without one (the base default) pins the plain transport lane.
+Not ported yet: the deprecated ``comm_dtype`` alias.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["WireCodec", "F32Codec", "BF16Codec", "Int8Codec", "F32", "BF16",
-           "WIRE_DTYPES", "DEFAULT_WIRE_BLOCK", "get_codec"]
+__all__ = ["WireCodec", "F32Codec", "BF16Codec", "Int8Codec", "DecodeSpec",
+           "F32", "BF16", "WIRE_DTYPES", "DEFAULT_WIRE_BLOCK",
+           "INT8_SCALE_BYTES", "get_codec"]
 
 WIRE_DTYPES = ("f32", "bf16", "int8")
 DEFAULT_WIRE_BLOCK = 64
+# dtype size of the per-block scale lane riding beside the int8 payload
+INT8_SCALE_BYTES = 4
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeSpec:
+    """What the gossip kernel lane needs to decode a codec's wire inside
+    the wait kernel: the decode kind (``"f32"`` passthrough, ``"bf16"``
+    widen, ``"int8"`` ``q * scale``) and the int8 block."""
+
+    kind: str
+    block: int | None = None
 
 
 class WireCodec:
@@ -43,6 +60,15 @@ class WireCodec:
 
     name = "f32"
     lossy = False
+
+    def kernel_spec(self) -> DecodeSpec | None:
+        """The decode the gossip kernel lane would run; None (the base
+        default) keeps the collectives on the plain transport lane."""
+        return None
+
+    def element_bytes(self, n: int, itemsize: int = 4) -> int:
+        """Wire bytes of an ``n``-element payload of ``itemsize``."""
+        return n * itemsize
 
     def encode(self, msg: torch.Tensor) -> tuple[torch.Tensor, ...]:
         return (msg,)
@@ -60,6 +86,9 @@ class WireCodec:
 class F32Codec(WireCodec):
     """Explicit name for the identity codec (``--wire_dtype f32``)."""
 
+    def kernel_spec(self) -> DecodeSpec:
+        return DecodeSpec("f32")
+
 
 class BF16Codec(WireCodec):
     """Truncate payloads to bfloat16 on the wire (round to nearest even,
@@ -73,6 +102,13 @@ class BF16Codec(WireCodec):
 
     def decode(self, wire, like):
         return wire[0].to(like.dtype)
+
+    def element_bytes(self, n: int, itemsize: int = 4) -> int:
+        del itemsize
+        return n * 2
+
+    def kernel_spec(self) -> DecodeSpec:
+        return DecodeSpec("bf16")
 
 
 class Int8Codec(WireCodec):
@@ -124,6 +160,13 @@ class Int8Codec(WireCodec):
         out = torch.addcmul(flat.reshape(q.shape), q.to(torch.float32),
                             scale[..., None])
         return out.reshape(ranks, -1)[:, :n].reshape(acc.shape).to(acc.dtype)
+
+    def element_bytes(self, n: int, itemsize: int = 4) -> int:
+        del itemsize
+        return n + INT8_SCALE_BYTES * int(math.ceil(n / self.block))
+
+    def kernel_spec(self) -> DecodeSpec:
+        return DecodeSpec("int8", block=self.block)
 
 
 F32 = F32Codec()

@@ -16,6 +16,14 @@ Example (CPU, the kernels' plain twins)::
       --world_size 4 --vocab_size 256 --d_model 64 --n_layers 2 \\
       --n_heads 1 --d_ff 128 --seq_len 64 --batch_size 2 --num_steps 10
 
+On a GPU, ``--world_size 4 --gossip_kernel pallas`` runs the four ranks
+stacked on the card with the gossip transport kernels
+(``ops/gossip_kernel.py``); ``--overlap True --staleness 2`` makes it
+OSGP; ``--gossip_buckets`` sets the transport buckets.  ``pallas`` needs
+the card (``KernelBackendError`` on ``--device cpu``) and the stacked
+lane (refused under ``torchrun``: the cross-process transport kernel is
+not ported).
+
 It runs on CUDA unless ``--device cpu``; ``--attn`` defaults to
 ``flash`` (the hand-written kernels, forward and backward, on CUDA).
 Ported flags keep the reference's names and defaults.  Every other flag
@@ -37,8 +45,6 @@ __all__ = ["main", "build_parser", "UNPORTED"]
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
 UNPORTED = {
-    "--overlap": ("False", str, "overlap (OSGP)"),
-    "--staleness": (0, int, "overlap staleness"),
     "--bilat": ("False", str, "AD-PSGD"),
     "--topology": (None, str, "the topology planner"),
     "--synth_seed": (None, int, "the schedule synthesizer"),
@@ -57,8 +63,6 @@ UNPORTED = {
     "--gossip_every": (1, int, "communication thinning"),
     "--error_feedback": ("False", str, "error feedback"),
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
-    "--gossip_kernel": ("xla", str, "the gossip kernel lane"),
-    "--gossip_buckets": (1, int, "transport buckets"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
     "--attn_block": (0, int, "the TPU attention block rule"),
@@ -100,6 +104,7 @@ def _str_bool(v) -> bool:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from ..ops.gossip_kernel import GOSSIP_KERNELS
     from ..parallel.wire import WIRE_DTYPES
     from ..topology import GRAPH_TOPOLOGIES
 
@@ -114,6 +119,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "always ships exact f32")
     p.add_argument("--wire_block", default=64, type=int,
                    help="int8 codec block size")
+    p.add_argument("--overlap", default="False", type=str,
+                   help="OSGP: launch each round at the top of the step, "
+                        "consume it staleness-1 steps later")
+    p.add_argument("--staleness", default=0, type=int,
+                   help="overlap in-flight FIFO depth (0 = 1)")
+    p.add_argument("--gossip_kernel", default="xla",
+                   choices=list(GOSSIP_KERNELS),
+                   help="gossip transport lane: 'pallas' runs the payload "
+                        "through the CUDA start/wait kernels on the "
+                        "stacked lane, 'auto' picks them on a CUDA device, "
+                        "'xla' (default) is the plain transport")
+    p.add_argument("--gossip_buckets", default=1, type=int,
+                   help="kernel-lane transport buckets per round")
     p.add_argument("--lr", default=0.5, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--weight_decay", default=0.0, type=float)
@@ -172,6 +190,42 @@ def refuse_unported(args) -> None:
                          "later slice; ROADMAP.md Queue 1)")
 
 
+def resolve_staleness_flag(args, overlap: bool) -> None:
+    """Validate ``--staleness`` in place (the reference's rule, run/
+    gossip_sgd.py:269-283, without its ``--synch_freq`` alias):
+    non-negative and overlap-only."""
+    if args.staleness < 0:
+        raise SystemExit("--staleness must be >= 0 (0 = derive from "
+                         "--synch_freq)")
+    if args.staleness > 1 and not overlap:
+        raise SystemExit("--staleness is an overlap-mode knob")
+
+
+def resolve_kernel_flag(args, device, launched: int):
+    """The ``--gossip_kernel`` lane for this run: ``pallas`` needs the
+    stacked lane (under ``torchrun`` it is refused, naming the
+    cross-process transport) and a CUDA device (``KernelBackendError``
+    otherwise)."""
+    from ..ops.gossip_kernel import KernelBackendError, resolve_gossip_kernel
+
+    if args.gossip_buckets < 1:
+        raise SystemExit("--gossip_buckets must be >= 1, got "
+                         f"{args.gossip_buckets}")
+    if launched > 1:
+        if args.gossip_kernel == "pallas":
+            raise SystemExit(
+                "--gossip_kernel pallas under torchrun: the cross-process "
+                "gossip transport kernel (one rank per GPU) is not ported "
+                "yet (ROADMAP.md Queue 2); run the ranks stacked with "
+                "--world_size, or use --gossip_kernel xla")
+        return None
+    try:
+        return resolve_gossip_kernel(args.gossip_kernel, device=device)
+    except KernelBackendError as e:
+        raise KernelBackendError(f"--gossip_kernel {args.gossip_kernel}: "
+                                 f"{e}") from None
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     refuse_unported(args)
@@ -191,9 +245,11 @@ def main(argv=None) -> dict:
     from ..train.state import sgd
 
     sb = _str_bool
+    resolve_staleness_flag(args, sb(args.overlap))
     device = resolve_device(args.device)
     world = args.world_size or 1
     launched = int(os.environ.get("WORLD_SIZE", "1"))
+    lane = resolve_kernel_flag(args, device, launched)
     if launched > 1:
         import torch.distributed as dist
 
@@ -219,15 +275,20 @@ def main(argv=None) -> dict:
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
         attn_impl=args.attn)
     if sb(args.all_reduce):
-        if args.wire_dtype is not None:
-            raise SystemExit("--wire_dtype compresses gossip payloads; it "
-                             "does not apply to --all_reduce True")
+        if (args.wire_dtype is not None or sb(args.overlap)
+                or args.gossip_kernel != "xla" or args.gossip_buckets != 1):
+            raise SystemExit("--wire_dtype/--overlap/--gossip_kernel/"
+                             "--gossip_buckets tune the push-sum gossip; "
+                             "they do not apply to --all_reduce True")
         alg = all_reduce(transport)
     else:
         graph = GRAPH_TOPOLOGIES[args.graph_type](
             world, peers_per_itr=args.peers_per_itr)
         alg = sgp(build_schedule(graph), transport,
-                  wire=get_codec(args.wire_dtype, args.wire_block))
+                  wire=get_codec(args.wire_dtype, args.wire_block),
+                  overlap=sb(args.overlap),
+                  staleness=max(1, args.staleness), gossip_kernel=lane,
+                  gossip_buckets=args.gossip_buckets)
     tx = sgd(momentum=args.momentum, weight_decay=args.weight_decay,
              nesterov=sb(args.nesterov))
     # the reference's step-based warmup horizon and LR scaling over the
@@ -244,9 +305,15 @@ def main(argv=None) -> dict:
     state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device)
     log = print if rank0 else (lambda *a, **k: None)
     n_params = sum(p[0].numel() for p in state.params.values())
+    gossip = ""
+    if alg.name == "sgp":
+        gossip = (f"; gossip lane {alg.transport_kernel_name}, buckets "
+                  f"{alg.gossip_buckets}"
+                  + (f", overlap staleness {alg.staleness}" if alg.overlap
+                     else ""))
     log(f"lm: world {world} ({held} in this process) on {device}; "
         f"{n_params / 1e6:.2f}M params; attn={args.attn}; "
-        f"algorithm={alg.name}", flush=True)
+        f"algorithm={alg.name}{gossip}", flush=True)
 
     def mean(x) -> float:
         """Mean over all ranks of a per-held-rank metric (a collective

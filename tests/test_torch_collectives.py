@@ -202,3 +202,48 @@ def test_dist_lane_equals_stacked_lane_over_gloo(tmp_path):
             np.testing.assert_array_equal(got[n], tp[n].numpy()[r:r + 1])
             np.testing.assert_array_equal(got["mean_" + n],
                                           mean[n].numpy()[r:r + 1])
+
+
+@pytest.mark.parametrize("wire", ["none", "bf16", "int8"])
+@pytest.mark.parametrize("ppi", [1, 2])
+def test_overlap_halves_sum_to_the_round(wire, ppi):
+    """``overlap_launch``'s local and incoming shares add up to
+    ``gossip_round`` within one rounding (the round fuses the local
+    share into its first add; the split rounds it on its own), landed at
+    once (staleness 1) or settled first (later slots).  On the kernel
+    lane a share landed at once is the synchronous round bit for bit on
+    every payload leaf: both round the local share alone and fold the
+    same edges in the same order."""
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+
+    params, ps = _state(WORLD, seed=11)
+    tree = [torch.from_numpy(params[n]) for n in ("w", "b", "one")]
+    tree.append(torch.from_numpy(ps))
+    sched = _schedules(tt, WORLD, ppi, "self")
+    transport = tc.StackedTransport(WORLD)
+    codec = _codec(tw, wire)
+    lane = KernelLane(interpret=True, chunk_elems=128)
+    for phase in range(3):
+        for kernel in (None, lane):
+            kw = dict(codec=codec, kernel=kernel, buckets=2)
+            full = tc.gossip_round(tree, phase, sched, transport, **kw)
+            local, inc = tc.overlap_launch(tree, phase, sched, transport,
+                                           **kw)
+            assert isinstance(inc, tc.PendingShares) == (kernel is not None)
+            landed = tc.land_shares(local, inc)
+            settled = tc.land_shares(local, tc.settle_share(inc))
+            for j, (a, b, c) in enumerate(zip(landed, settled, full)):
+                if kernel is not None and c[0].numel() > 1:
+                    assert torch.equal(a, c)
+                assert float((a - c).abs().max()) <= 1e-6
+                assert float((b - c).abs().max()) <= 1e-6
+        tree = full
+
+
+def test_overlap_round_at_world_one_has_a_zero_incoming_share():
+    params, ps = _state(1)
+    tree = [torch.from_numpy(params["w"]), torch.from_numpy(ps)]
+    sched = tt.build_schedule(tt.NPeerDynamicDirectedExponentialGraph(1))
+    local, inc = tc.overlap_launch(tree, 0, sched, tc.StackedTransport(1))
+    assert all(a is b for a, b in zip(local, tree))
+    assert all(not t.any() for t in inc)

@@ -232,3 +232,171 @@ def test_push_sum_rounds_on_cuda_match_cpu(cuda, wire):
     (gp, gw), (cp, cw) = out
     assert torch.equal(gw, cw)
     assert float((gp - cp).abs().max()) <= 1e-6
+
+
+# -- the gossip transport kernels (K2 start, K1 wait) -----------------------
+
+
+def _gossip_parts(kind, block, ranks, ne, n, chunk, device, seed):
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows, c, nb = tgk._chunk_layout(n, block, chunk)
+    if kind == "int8":
+        return (torch.randint(-127, 128, (ranks, ne, nb * rows, block),
+                              generator=g, device=device, dtype=torch.int8),
+                torch.rand(ranks, ne, nb * rows, generator=g,
+                           device=device) * 0.02)
+    x = torch.randn(ranks, ne, n, generator=g, device=device)
+    return (x.to(torch.bfloat16) if kind == "bf16" else x,)
+
+
+@pytest.mark.parametrize("kind,block", [("f32", None), ("bf16", None),
+                                        ("int8", 7), ("int8", 64)])
+@pytest.mark.parametrize("ne", [1, 2])
+@pytest.mark.parametrize("n,chunk", [(300, 128), (33, 1 << 30), (256, 64),
+                                     (4097, 1024)])
+def test_gossip_edge_kernels_bit_equal_plain(cuda, kind, block, ne, n,
+                                             chunk):
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+    from stochastic_gradient_push_torch.parallel.wire import DecodeSpec
+
+    ranks = 4
+    spec = DecodeSpec(kind, block)
+    parts = _gossip_parts(kind, block, ranks, ne, n, chunk, cuda, n + ne)
+    dests = np.stack([np.roll(np.arange(ranks), 1 + e) for e in range(ne)])
+    starts, waits = tgk.gossip_edge_start.launches, \
+        tgk.gossip_edge_wait.launches
+    handle = tgk.gossip_edge_start(parts, dests, spec, n_decoded=n,
+                                   chunk_elems=chunk)
+    # the parts in the handle's chunk layout (dim 2 padded to NB chunks)
+    chunks = tuple(tgk._pad_rows(p, h.shape[2] * h.shape[3], 2
+                                 ).reshape(h.shape)
+                   for p, h in zip(parts, handle.recv))
+    plain = tgk.gossip_edge_start_reference(chunks, dests)
+    for got, want in zip(handle.recv, plain):
+        assert torch.equal(got, want)
+    acc = torch.randn(ranks, n, device=cuda)
+    out = tgk.gossip_edge_wait(handle, acc)
+    _, _, rows, c, nb, _, _ = handle.meta
+    want = tgk.gossip_edge_wait_reference(
+        tgk._pad_rows(acc, nb * c, 1).reshape(ranks, nb, c), plain, kind
+    ).reshape(ranks, -1)[:, :n]
+    assert torch.equal(out, want)
+    assert tgk.gossip_edge_start.launches == starts + 1
+    assert tgk.gossip_edge_wait.launches == waits + 1
+    # the same wait on the CPU's plain twin, through an interpret handle
+    cpu_handle = tgk.TransportHandle(
+        recv=tuple(t.cpu() for t in handle.recv),
+        meta=handle.meta[:-1] + (True,))
+    assert torch.equal(tgk.gossip_edge_wait(cpu_handle, acc.cpu()),
+                       out.cpu())
+
+
+def test_gossip_wrappers_refuse_the_wrong_lane(cuda):
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+    from stochastic_gradient_push_torch.ops.lanes import KernelLaneError
+    from stochastic_gradient_push_torch.parallel.wire import F32
+
+    x = torch.zeros(4, 1, 300, device=cuda)
+    dests = np.roll(np.arange(4), 1)
+    acc = x[:, 0]
+    with pytest.raises(KernelLaneError, match="plain twins on CPU"):
+        tgk.gossip_edge_wait(tgk.gossip_edge_start(
+            (x,), dests, F32.kernel_spec(), interpret=True), acc)
+    handle = tgk.gossip_edge_start((x,), dests, F32.kernel_spec())
+    with pytest.raises(ValueError, match="elements per rank"):
+        tgk.gossip_edge_wait(handle, torch.zeros(4, 299, device=cuda))
+    with pytest.raises(ValueError, match="permutation"):
+        tgk.gossip_edge_wait(tgk.gossip_edge_start(
+            (x,), [0, 0, 1, 2], F32.kernel_spec()), acc)
+
+
+@pytest.mark.parametrize("wire", [None, "bf16", "int8"])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_world4_rounds_on_the_kernel_lane_match_the_plain_lane(cuda, wire,
+                                                               overlap):
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+    from stochastic_gradient_push_torch.parallel import collectives as tc
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, SelfWeightedMixing,
+        build_schedule)
+
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(4, 2),
+                           SelfWeightedMixing(np.linspace(0.3, 0.6, 4)))
+    r = np.random.default_rng(2)
+    leaves = [torch.from_numpy(r.standard_normal(s).astype(np.float32))
+              for s in ((4, 7, 33), (4, 300))]
+    ps = torch.from_numpy((1 + r.random(4)).astype(np.float32))
+    runs = []
+    for dev, lane in ((cuda, KernelLane(chunk_elems=128)), (cuda, None),
+                      (torch.device("cpu"),
+                       KernelLane(interpret=True, chunk_elems=128))):
+        tree = [a.to(dev) for a in leaves] + [ps.to(dev)]
+        for phase in range(3):
+            kw = dict(codec=get_codec(wire, 16), kernel=lane, buckets=2)
+            if overlap:
+                local, inc = tc.overlap_launch(tree, phase, sched,
+                                               tc.StackedTransport(4), **kw)
+                tree = tc.land_shares(local, tc.settle_share(inc))
+            else:
+                tree = tc.gossip_round(tree, phase, sched,
+                                       tc.StackedTransport(4), **kw)
+        runs.append([t.cpu() for t in tree])
+    (kern, plain, interp) = runs
+    for other in (plain, interp):
+        assert torch.equal(kern[-1], other[-1])
+        for a, b in zip(kern[:-1], other[:-1]):
+            assert float((a - b).abs().max()) <= 1e-6
+    for a, b in zip(kern, interp):
+        assert torch.equal(a, b)
+
+
+def test_stacked_world4_osgp_step_on_the_kernel_lane(cuda):
+    from stochastic_gradient_push_torch.algorithms import osgp
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerConfig)
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.parallel.wire import BF16
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.lm import (
+        build_lm_train_step, init_lm_state, make_model)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+
+    cfg = TransformerConfig(vocab_size=96, d_model=128, n_layers=2,
+                            n_heads=2, d_ff=256, attn_impl="flash")
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(4, 2))
+    r = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(r.integers(0, 96, (4, 2, 40)))
+                     for _ in range(2)) for _ in range(3)]
+    runs = []
+    for dev, lane in ((cuda, tgk.KernelLane(chunk_elems=4096)), (cuda, None),
+                      (torch.device("cpu"),
+                       tgk.KernelLane(interpret=True, chunk_elems=4096))):
+        alg = osgp(sched, StackedTransport(4), staleness=2,
+                   gossip_kernel=lane, gossip_buckets=3, wire=BF16)
+        tx = sgd(0.9, 1e-4)
+        step = build_lm_train_step(make_model(cfg), alg, tx,
+                                   LRSchedule(0.5, 2, 4, {}), 10)
+        state = init_lm_state(cfg, alg, tx, 4, seed=3, device=dev)
+        before = tgk.gossip_edge_start.launches
+        losses = []
+        for toks, tgts in batches:
+            state, m = step(state, toks.to(dev), tgts.to(dev))
+            losses.append(m["loss"].cpu())
+        if dev.type == "cuda" and lane is not None:
+            assert tgk.gossip_edge_start.launches == before + 3 * 3
+        runs.append((state, torch.stack(losses)))
+    (ks, kl), (ps_, pl), (cs, cl) = runs
+    for other_state, other_loss in ((ps_, pl), (cs, cl)):
+        torch.testing.assert_close(kl, other_loss, rtol=1e-5, atol=0)
+        assert torch.equal(ks.gossip.ps_weight.cpu(),
+                           other_state.gossip.ps_weight.cpu())
+        for n in ks.params:
+            assert float((ks.params[n].cpu()
+                          - other_state.params[n].cpu()).abs().max()) <= 1e-5

@@ -4,6 +4,10 @@ the CPU: a 3-step run at vocab 256 through ``main`` and through
 rank each) printing the stacked lane's rows, the reference's flag
 surface (every flag of the JAX package's parser, with its default), and
 the refusal, by name, of every flag whose feature is not ported yet.
+The overlap (OSGP) and gossip-kernel flags: ``--overlap True
+--staleness 2`` trains on the CPU; ``--gossip_kernel pallas`` raises
+``KernelBackendError`` naming the flag on ``--device cpu`` and, under
+``torchrun``, refuses naming the cross-process transport.
 """
 
 import math
@@ -32,6 +36,10 @@ SMALL = ["--device", "cpu", "--vocab_size", "256", "--d_model", "32",
      "--graph_type", "0"],
     ["--world_size", "2", "--all_reduce", "True", "--attn", "full"],
     ["--grad_accum", "2", "--nesterov", "True", "--warmup", "True"],
+    ["--world_size", "4", "--overlap", "True", "--staleness", "2",
+     "--wire_dtype", "bf16", "--peers_per_itr", "2"],
+    ["--world_size", "4", "--gossip_kernel", "auto", "--gossip_buckets",
+     "3"],
 ])
 def test_three_steps_on_cpu(extra, capsys):
     result = gossip_lm.main(SMALL + extra)
@@ -99,8 +107,9 @@ def test_reference_flags_parse_with_reference_defaults():
 
 @pytest.mark.parametrize("flag,value", [
     ("--sp", "2"), ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
-    ("--overlap", "True"), ("--bilat", "True"), ("--precision", "bf16"),
-    ("--gossip_kernel", "pallas"), ("--resume", "True"),
+    ("--global_avg_every", "4"), ("--bilat", "True"),
+    ("--precision", "bf16"), ("--inject_faults", "drop:0->1@0:4"),
+    ("--resume", "True"),
     ("--checkpoint_dir", "/tmp/x"), ("--health_every", "10"),
     ("--moe_experts", "4"), ("--gossip_every", "2"),
     ("--error_feedback", "True"), ("--trace_dir", "/tmp/x"),
@@ -126,3 +135,31 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA card is present; the default resolves to it")
     with pytest.raises(DeviceUnavailableError):
         gossip_lm.main(argv)
+
+
+def test_pallas_on_cpu_is_a_typed_error_naming_the_flag():
+    from stochastic_gradient_push_torch.ops.gossip_kernel import (
+        KernelBackendError)
+
+    with pytest.raises(KernelBackendError, match="--gossip_kernel pallas"):
+        gossip_lm.main(SMALL + ["--world_size", "4", "--gossip_kernel",
+                                "pallas"])
+
+
+def test_pallas_under_torchrun_names_the_cross_process_transport(
+        monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="--gossip_kernel pallas under "
+                                         "torchrun.*cross-process"):
+        gossip_lm.main(SMALL + ["--gossip_kernel", "pallas"])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--staleness", "2"], "overlap-mode knob"),
+    (["--overlap", "True", "--staleness", "-1"], "staleness must be"),
+    (["--gossip_buckets", "0"], "gossip_buckets must be"),
+    (["--all_reduce", "True", "--overlap", "True"], "push-sum gossip"),
+])
+def test_overlap_and_kernel_flags_are_validated(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        gossip_lm.main(SMALL + ["--world_size", "2"] + argv)

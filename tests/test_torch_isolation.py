@@ -71,6 +71,7 @@ def test_every_module_imports_with_jax_unavailable():
     expected = {"stochastic_gradient_push_torch.serve.engine",
                 "stochastic_gradient_push_torch.serve.cli",
                 "stochastic_gradient_push_torch.ops._build",
+                "stochastic_gradient_push_torch.ops.gossip_kernel",
                 "stochastic_gradient_push_torch.train.lm",
                 "stochastic_gradient_push_torch.run.gossip_lm",
                 "stochastic_gradient_push_torch.parallel.collectives",

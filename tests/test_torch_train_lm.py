@@ -22,6 +22,7 @@ from stochastic_gradient_push_torch.models.convert import (
     params_from_jax, train_state_from_jax)
 from stochastic_gradient_push_torch.models.transformer import (
     TransformerConfig)
+from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
 from stochastic_gradient_push_torch.parallel.collectives import (
     StackedTransport)
 from stochastic_gradient_push_torch.topology import (
@@ -37,7 +38,7 @@ STEPS = 3
 LOSS_RTOL, GN_RTOL, PARAM_ATOL = 1e-5, 1e-4, 2e-6
 
 
-def _jax_run(dp, alg_name, batches, seed=0):
+def _jax_run(dp, alg_name, batches, seed=0, **alg_kw):
     import jax
 
     from stochastic_gradient_push_tpu import algorithms as jalg
@@ -58,6 +59,9 @@ def _jax_run(dp, alg_name, batches, seed=0):
     mesh = make_gossip_mesh(dp)
     if alg_name == "sgp":
         alg = jalg.sgp(jbuild(JGraph(dp, peers_per_itr=1)), GOSSIP_AXIS)
+    elif alg_name == "osgp":
+        alg = jalg.sgp(jbuild(JGraph(dp, peers_per_itr=2)), GOSSIP_AXIS,
+                       overlap=True, staleness=2)
     else:
         alg = jalg.all_reduce(GOSSIP_AXIS)
     tx = jsgd(momentum=0.9, weight_decay=1e-4, nesterov=True)
@@ -76,12 +80,18 @@ def _jax_run(dp, alg_name, batches, seed=0):
     return start, jax.device_get(state), metrics
 
 
-def _port_run(dp, alg_name, start, batches):
+def _port_run(dp, alg_name, start, batches, gossip_kernel=None,
+              gossip_buckets=1):
     transport = StackedTransport(dp)
     if alg_name == "sgp":
         alg = talg.sgp(build_schedule(
             NPeerDynamicDirectedExponentialGraph(dp, peers_per_itr=1)),
             transport)
+    elif alg_name == "osgp":
+        alg = talg.osgp(build_schedule(
+            NPeerDynamicDirectedExponentialGraph(dp, peers_per_itr=2)),
+            transport, staleness=2, gossip_kernel=gossip_kernel,
+            gossip_buckets=gossip_buckets)
     else:
         alg = talg.all_reduce(transport)
     cfg = TransformerConfig(vocab_size=VOCAB, d_model=D, n_layers=L,
@@ -135,6 +145,64 @@ def test_lm_step_matches_reference(dp, alg_name):
     assert got.step == int(np.asarray(want.step)[0]) == STEPS
 
 
+@pytest.mark.parametrize("lane", ["kernel", "plain"])
+def test_lm_osgp_steps_match_reference(lane):
+    """OSGP at dp 4 (staleness 2, two peers, the exact wire) for three
+    steps from the reference's own start state, on the port's kernel
+    lane (plain twins, three transport buckets) or its plain lane:
+    losses within 1e-5 relative, the push-sum weight and the in-flight
+    FIFO's weights exactly equal, params and the FIFO's params within
+    atol.  (A lossy wire would turn the frameworks' ~1e-7 differences
+    in summation order into whole bf16/int8 steps of a few elements; the
+    wires are held bit for bit in tests/test_torch_gossip_kernel.py.)"""
+    dp = 4
+    batches = _batches(dp, 77)
+    start, want, jm = _jax_run(dp, "osgp", batches)
+    kernel = KernelLane(interpret=True, chunk_elems=4096) \
+        if lane == "kernel" else None
+    got, tm = _port_run(dp, "osgp", start, batches, gossip_kernel=kernel,
+                        gossip_buckets=3)
+    for j, t in zip(jm, tm):
+        np.testing.assert_allclose(t["loss"].numpy(), np.asarray(j["loss"]),
+                                   rtol=LOSS_RTOL, atol=0)
+    np.testing.assert_array_equal(
+        got.gossip.ps_weight.numpy(),
+        np.asarray(want.gossip.ps_weight, np.float32).reshape(-1))
+    for name, w in params_from_jax(want.params).items():
+        np.testing.assert_allclose(got.params[name].numpy(), w.numpy(),
+                                   rtol=0, atol=PARAM_ATOL, err_msg=name)
+    assert len(got.gossip.in_flight) == len(want.gossip.in_flight) == 2
+    for (gp, gw), (wp, ww) in zip(got.gossip.in_flight,
+                                  want.gossip.in_flight):
+        np.testing.assert_array_equal(gw.numpy(), np.asarray(
+            ww, np.float32).reshape(-1))
+        for name, w in params_from_jax(wp).items():
+            np.testing.assert_allclose(gp[name].numpy(), w.numpy(), rtol=0,
+                                       atol=PARAM_ATOL, err_msg=name)
+    assert got.gossip.phase == int(np.asarray(want.gossip.phase)[0]) == STEPS
+
+
+def test_drain_state_folds_the_fifo_exactly_once():
+    """The checkpoint view: every in-flight share added into the params
+    once, the FIFO left as zero slots, total push-sum mass unchanged."""
+    dp = 4
+    batches = _batches(dp, 78)
+    start, _, _ = _jax_run(dp, "osgp", batches[:1])
+    got, _ = _port_run(dp, "osgp", start, batches[:2])
+    drained = talg.drain_state(got)
+    mass = float(got.gossip.ps_weight.sum()) + sum(
+        float(w.sum()) for _, w in got.gossip.in_flight)
+    np.testing.assert_allclose(float(drained.gossip.ps_weight.sum()), mass,
+                               rtol=1e-6)
+    for p, w in drained.gossip.in_flight:
+        assert not w.any() and not any(t.any() for t in p.values())
+    for name, p in got.params.items():
+        want = p + sum(s[name] for s, _ in got.gossip.in_flight)
+        torch.testing.assert_close(drained.params[name], want, rtol=0,
+                                   atol=1e-6)
+    assert talg.drain_state(drained).params is not got.params
+
+
 def test_flash_and_full_lanes_give_one_step():
     """The model's two attention lanes agree through a whole step."""
     batches = _batches(2, 3)
@@ -185,10 +253,16 @@ def test_unported_attention_and_algorithm_options_raise():
     with pytest.raises(NotImplementedError, match="ring"):
         TransformerConfig(attn_impl="ring")
     sched = build_schedule(NPeerDynamicDirectedExponentialGraph(2))
-    for kwargs, name in (({"overlap": True}, "overlap"),
+
+    class OneRankPerProcess:   # not the stacked transport
+        world_size, ranks = 2, np.array([0])
+
+    for kwargs, name in (({"faults": object()}, "fault injection"),
                          ({"gossip_every": 2}, "thinning"),
                          ({"global_avg_every": 4}, "global averaging"),
-                         ({"error_feedback": True}, "error feedback"),
-                         ({"gossip_kernel": "pallas"}, "kernel lane")):
+                         ({"error_feedback": True}, "error feedback")):
         with pytest.raises(NotImplementedError, match=name):
             talg.sgp(sched, StackedTransport(2), **kwargs)
+    with pytest.raises(NotImplementedError, match="cross-process"):
+        talg.sgp(sched, OneRankPerProcess(),
+                 gossip_kernel=KernelLane(interpret=True))
