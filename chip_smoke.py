@@ -12,7 +12,12 @@
    version's and one library call's times (CUDA events) and the bound:
    the flash forward (also its logsumexp), paged decode, and the two
    flash backward kernels (dQ, dK/dV) at B8 H12 T1024 causal and at a
-   ragged t200, causal and full.
+   ragged t200, causal and full.  The flash kernels' bound is the card's
+   best rate for fp32-accurate products: the tensor cores' TF32 rate
+   over the three passes of the 3xTF32 split (their share is stated
+   against it); the fp32 CUDA-core bound is printed beside it.
+   ``-Xptxas -v``'s registers and spills are printed per kernel; the
+   flash kernels must report them and must not spill.
 3. Serving main path at full width: ``LMEngine`` over the d768/L12/h12
    ff3072/vocab32000 LM (random weights from seed 0) serves 48 synthetic
    requests closed loop.  The launch counters are zeroed just before and
@@ -47,8 +52,10 @@
    kernels (buckets per step each), every attention call too (4 ranks x
    12 layers per step), every loss finite; losses, median step ms,
    tokens/s and peak memory are printed.
-7. A JSON line of per-kernel results, the ``nvidia-smi`` name/power-limit
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+7. A JSON line of per-kernel results (the flash rows also carry
+   ``bound_fp32_cores_ms``, the CUDA-core bound), the ``nvidia-smi``
+   name/power-limit line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside a checkout of the repository; any failed phase raises.
@@ -59,6 +66,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,9 +84,15 @@ GOSSIP_WORLD = 4
 GOSSIP_STEPS = 5
 GOSSIP_CHECKS = (("f32", 1), ("f32", 2), ("bf16", 1), ("bf16", 2),
                  ("int8", 1), ("int8", 2))
-# H100 SXM data sheet: HBM rate and fp32 rate outside the tensor cores
+# H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores, TF32
+# tensor-core rate (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
+# the flash kernels' 3xTF32 split: three tensor-core products per fp32 one,
+# the card's best rate for fp32-accurate products
+TF32_PASSES = 3
+PEAK_3XTF32_FLOP_PER_S = PEAK_TF32_FLOP_PER_S / TF32_PASSES
 HEAD_DIM = 64
 
 
@@ -103,14 +117,35 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound(nbytes: float, flops: float,
+           flop_rate: float = PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def report_ptxas(built: dict) -> None:
+    """Print ``-Xptxas -v``'s registers, shared memory and spills per
+    kernel (mangled names, as ptxas gives them); a flash library without
+    that report, or a flash kernel that spills, fails the run."""
+    for lib, info in built.items():
+        kernel = lib
+        if lib.startswith("flash") and "registers" not in info["log"]:
+            raise AssertionError(f"no ptxas report for {lib}")
+        for line in info["log"].splitlines():
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"build {lib} {kernel}: {line.split(':')[-1].strip()}",
+                      flush=True)
+                spills = re.findall(r"(\d+) bytes spill", line)
+                if lib.startswith("flash") and any(int(x) for x in spills):
+                    raise AssertionError(f"{kernel} spills: {line.strip()}")
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -148,17 +183,20 @@ def check_flash(card: str) -> dict:
             q, k, v, is_causal=causal), 20)
         bh = b * 12
         pairs = t * (t + 1) // 2 if causal else t * t
-        bound_ms, bound_by = _bound(4 * bh * t * HEAD_DIM * 4,
-                                    4 * bh * pairs * HEAD_DIM)
+        nbytes, flops = 4 * bh * t * HEAD_DIM * 4, 4 * bh * pairs * HEAD_DIM
+        bound_ms, bound_by = _bound(nbytes, flops, PEAK_3XTF32_FLOP_PER_S)
+        cores_ms = _bound(nbytes, flops)[0]
         print(f"kernel flash_fwd b{b} h12 t{t} d64 causal={causal}: max "
               f"err {err:.3e}, lse err {lse_err:.3e}, kernel {ms:.4f} ms "
               f"({lse_ms:.4f} ms with lse), plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-              f"[{card}]", flush=True)
+              f"{lib_ms:.4f} ms, 3xTF32 bound {bound_ms:.4f} ms ({bound_by};"
+              f" {bound_ms / ms:.1%} of it), fp32 CUDA-core bound "
+              f"{cores_ms:.4f} ms [{card}]", flush=True)
         if (b, t) == (1, 512):   # the longest prompt serving prefills
             row = dict(max_abs_err=max(err, lse_err), ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=lib_ms)
+                       bound_by=bound_by, library_ms=lib_ms,
+                       bound_fp32_cores_ms=cores_ms)
     return row
 
 
@@ -208,24 +246,30 @@ def check_flash_bwd(card: str) -> dict:
         pairs = t * (t + 1) // 2 if causal else t * t
         rows_in = 4 * bh * t * HEAD_DIM * 4 + 2 * bh * t * 4  # q k v do lse δ
         row_out = bh * t * HEAD_DIM * 4
-        dq_bound = _bound(rows_in + row_out, 6 * bh * pairs * HEAD_DIM)
-        dkv_bound = _bound(rows_in + 2 * row_out, 8 * bh * pairs * HEAD_DIM)
+        dq_work = (rows_in + row_out, 6 * bh * pairs * HEAD_DIM)
+        dkv_work = (rows_in + 2 * row_out, 8 * bh * pairs * HEAD_DIM)
+        dq_bound = _bound(*dq_work, PEAK_3XTF32_FLOP_PER_S)
+        dkv_bound = _bound(*dkv_work, PEAK_3XTF32_FLOP_PER_S)
+        dq_cores, dkv_cores = _bound(*dq_work)[0], _bound(*dkv_work)[0]
         print(f"kernel flash_bwd b{b} h12 t{t} d64 causal={causal}: dq max "
               f"err {dq_err:.3e}, kernel {dq_ms:.4f} ms, plain "
-              f"{dq_plain:.4f} ms, bound {dq_bound[0]:.4f} ms "
-              f"({dq_bound[1]}); dk/dv max err {dkv_err:.3e}, kernel "
-              f"{dkv_ms:.4f} ms, plain {dkv_plain:.4f} ms, bound "
-              f"{dkv_bound[0]:.4f} ms ({dkv_bound[1]}); sdpa backward "
-              f"{lib_ms:.4f} ms [{card}]", flush=True)
+              f"{dq_plain:.4f} ms, 3xTF32 bound {dq_bound[0]:.4f} ms "
+              f"({dq_bound[1]}; {dq_bound[0] / dq_ms:.1%} of it), fp32 "
+              f"CUDA-core bound {dq_cores:.4f} ms; dk/dv max err "
+              f"{dkv_err:.3e}, kernel {dkv_ms:.4f} ms, plain {dkv_plain:.4f} "
+              f"ms, 3xTF32 bound {dkv_bound[0]:.4f} ms ({dkv_bound[1]}; "
+              f"{dkv_bound[0] / dkv_ms:.1%} of it), fp32 CUDA-core bound "
+              f"{dkv_cores:.4f} ms; sdpa backward {lib_ms:.4f} ms [{card}]",
+              flush=True)
         if (b, t) == (8, 1024):   # the training main path's shape
             rows["flash_bwd_dq"] = dict(
                 max_abs_err=dq_err, ms=dq_ms, plain_ms=dq_plain,
                 bound_ms=dq_bound[0], bound_by=dq_bound[1],
-                library_ms=lib_ms)
+                library_ms=lib_ms, bound_fp32_cores_ms=dq_cores)
             rows["flash_bwd_dkv"] = dict(
                 max_abs_err=dkv_err, ms=dkv_ms, plain_ms=dkv_plain,
                 bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
-                library_ms=lib_ms)
+                library_ms=lib_ms, bound_fp32_cores_ms=dkv_cores)
     return rows
 
 
@@ -823,10 +867,7 @@ def main() -> int:
     built = _build.build()
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build {name}: {line.strip()}", flush=True)
+    report_ptxas(built)
 
     flash_row = check_flash(card)
     paged_row = check_paged(card)

@@ -8,7 +8,9 @@ compiled by hand (no PyTorch headers, so a build takes seconds, not minutes)::
 
 into ``build/sgp_torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``), at first use, keyed by a hash of the source and the
-flags.  :func:`build` starts one ``nvcc`` per source, all together.
+flags, with ``nvcc``'s output (``-Xptxas -v``'s registers, shared memory
+and spills) kept beside it as ``<name>-<hash>.log``.  :func:`build`
+starts one ``nvcc`` per source, all together.
 Pointers and the stream cross as ``c_void_p`` (a bare int would be cut
 to 32 bits); each entry point returns ``cudaGetLastError()`` after its
 launch and :func:`check` raises on anything but 0.  A build failure
@@ -86,16 +88,17 @@ def _lib_path(name: str) -> Path:
 def build(names=None) -> dict[str, dict]:
     """Compile every named kernel (default: all) that is not built yet,
     one ``nvcc`` per source, started together.  Returns
-    ``{name: {"path", "seconds", "log"}}`` (``seconds`` 0 and an empty log
-    for a library that was already there)."""
+    ``{name: {"path", "seconds", "log"}}`` (``seconds`` 0 and the kept
+    log for a library that was already there)."""
     names = list(KERNELS if names is None else names)
     out, procs = {}, {}
     nvcc = None
     t0 = time.perf_counter()
     for name in names:
         path = _lib_path(name)
-        if path.exists():
-            out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+        if path.exists() and path.with_suffix(".log").exists():
+            out[name] = {"path": str(path), "seconds": 0.0,
+                         "log": path.with_suffix(".log").read_text()}
             continue
         nvcc = nvcc or nvcc_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -110,6 +113,7 @@ def build(names=None) -> dict[str, dict]:
             tmp.unlink(missing_ok=True)
             raise KernelBuildError(
                 f"nvcc failed on csrc/{name}.cu (rc {proc.returncode}):\n{log}")
+        path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)   # atomic: a concurrent build sees all or none
         out[name] = {"path": str(path),
                      "seconds": time.perf_counter() - t0, "log": log}

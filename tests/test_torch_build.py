@@ -1,9 +1,10 @@
 """The kernel build plumbing of ``stochastic_gradient_push_torch.ops._build``,
 driven with a stand-in ``nvcc`` (a shell script), since the real one is
 only on a machine with the CUDA toolkit: sources are built in parallel into
-a hash-keyed library, a built library is not rebuilt, a refused source or a
-missing compiler raises ``KernelBuildError``, and a non-zero CUDA error
-from a launch raises ``KernelLaunchError``.
+a hash-keyed library, a built library is not rebuilt and still reports
+its ptxas log, a refused source or a missing compiler raises
+``KernelBuildError``, and a non-zero CUDA error from a launch raises
+``KernelLaunchError``.
 """
 
 import os
@@ -52,6 +53,8 @@ def test_builds_every_source_once_keyed_by_hash(tmp_path, monkeypatch,
                for c in calls)
     again = _build.build()
     assert all(info["seconds"] == 0.0 for info in again.values())
+    # a cached library still reports ptxas's lines
+    assert all("registers" in info["log"] for info in again.values())
     assert len((build_dir / "calls.log").read_text().splitlines()) == len(
         calls)
 

@@ -5,11 +5,16 @@ have no interpret mode).  On a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Edge shapes beyond ``chip_smoke.py``'s: ragged prompt lengths around the
-kernels' 64-row and 32-row tiles (forward with its logsumexp, and both
-backward kernels), a page size that is not a multiple of the kernel's
-8-token step, every GQA group the kernel is built for, and padded page
-rows pointing at page 0 or at a sink page.  Tolerance: 1e-4 max abs in
+Edge shapes beyond ``chip_smoke.py``'s: ragged lengths around the flash
+kernels' tiles (the forward and dK/dV kernels' 64-row tiles and 16-row
+warp slices, dQ's 32-row tiles), causal and full, for the forward with
+its logsumexp and both backward kernels; one and 96 heads; two launches
+of the forward and dK/dV kernels bit-equal (one owner block per output
+tile, no atomics); the forward and dK/dV kernels against an fp64 oracle
+at t4096 (no drift of their running sums); a page size that is not a
+multiple of the paged kernel's 8-token step, every GQA group the kernel
+is built for, and padded page rows pointing at page 0 or at a sink
+page.  Tolerance: 1e-4 max abs in
 fp32 (TF32 off), as in ``chip_smoke.py``.
 
 Beyond the kernels: the flash ``autograd.Function`` on CUDA against the
@@ -41,7 +46,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("t", [1, 31, 63, 64, 65, 129, 136, 300])
+# the tensor-core kernels' tile edges: 16-row warp slices, 64-row tiles
+TILE_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 200, 1024]
+FWD_LENGTHS = sorted({1, 31, 63, 64, 65, 129, 136, 300, *TILE_LENGTHS})
+
+
+@pytest.mark.parametrize("t", FWD_LENGTHS)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fwd_matches_plain(cuda, t, causal):
     g = torch.Generator(device=cuda).manual_seed(t)
@@ -101,7 +111,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                          lengths)
 
 
-BWD_LENGTHS = [1, 31, 32, 63, 64, 65, 129, 200, 300]
+BWD_LENGTHS = sorted({1, 31, 32, 63, 64, 65, 129, 200, 300, *TILE_LENGTHS})
 
 
 def _fwd_bwd_case(cuda, t, seed, b=2, h=3):
@@ -139,6 +149,61 @@ def test_flash_bwd_kernels_match_plain(cuda, t, causal):
             *tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal))
     for got, ref in zip((dq, dk, dv), want):
         assert float((got - ref).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("b,h,t", [(1, 1, 130), (8, 12, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_one_and_96_heads(cuda, b, h, t, causal):
+    q, k, v, do = _fwd_bwd_case(cuda, t, 30 + b * h, b=b, h=h)
+    out, lse = tfa.flash_fwd(q, k, v, causal=causal, return_lse=True)
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                                 return_lse=True)
+    delta = (do * ref).sum(-1)
+    args = (q, k, v, do, ref_lse, delta, causal)
+    got = (out, lse, tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+    want = (ref, ref_lse, tfa.flash_bwd_dq_reference(*args),
+            *tfa.flash_bwd_dkv_reference(*args))
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert float((x - y).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_are_deterministic(cuda, causal):
+    q, k, v, do = _fwd_bwd_case(cuda, 300, 40, b=2, h=4)
+    runs = []
+    for _ in range(2):
+        out, lse = tfa.flash_fwd(q, k, v, causal=causal, return_lse=True)
+        delta = (do * out).sum(-1)
+        runs.append((out, lse, *tfa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  causal=causal)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_hold_fp32_accuracy_at_long_lengths(cuda, causal):
+    # the running sums (o, dK, dV) take their products from the tensor
+    # cores a few k-steps at a time and add them in fp32: carried through
+    # the tensor cores' own accumulation, dK/dV drifted as t grew
+    t = 4096
+    q, k, v, do = _fwd_bwd_case(cuda, t, 50, b=1, h=2)
+    out, lse = tfa.flash_fwd(q, k, v, causal=causal, return_lse=True)
+    delta = (do * out).sum(-1)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    s = (q64 * 64 ** -0.5) @ k64.transpose(-1, -2)
+    if causal:
+        s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool,
+                                      device=cuda).tril(), float("-inf"))
+    p = torch.exp(s - lse.double()[..., None])   # from the kernel's lse
+    ds = p * (do64 @ v64.transpose(-1, -2) - delta.double()[..., None])
+    want = (torch.softmax(s, -1) @ v64, torch.logsumexp(s, -1),
+            ds.transpose(-1, -2) @ (q64 * 64 ** -0.5),
+            p.transpose(-1, -2) @ do64)
+    for got, ref in zip((out, lse, dk, dv), want):
+        assert float((got.double() - ref).abs().max()) <= TOL
 
 
 @pytest.mark.parametrize("causal", [True, False])

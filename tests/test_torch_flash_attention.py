@@ -7,6 +7,10 @@ The port runs its plain versions here; the CUDA kernels are held against
 them on the card.  Tolerances: atol 2e-5 for the forward (blocked online
 softmax on the JAX side vs one dense softmax on the port's), atol 1e-5
 for the lse and the gradients.
+
+The forward and dK/dV kernels compute every product on the tensor cores
+as three TF32 products of a hi/lo split (3xTF32); a numpy model of that
+arithmetic pins, here, why one TF32 pass would not do.
 """
 
 import numpy as np
@@ -228,3 +232,56 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(q, k, v, causal=True)
     assert tfa.flash_fwd.launches == before
+
+
+# the kernels' tolerance against their plain versions on the card
+# (chip_smoke.py, tests/test_torch_cuda.py)
+TOL_KERNEL = 1e-4
+
+
+def _tf32(x):
+    """fp32 -> tf32 with ``cvt.rna.tf32.f32``'s rounding (to nearest, ties
+    away from zero): add 0x1000 to the bit pattern, clear the low 13
+    bits.  The kernels' ``tf32()`` does the same."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """``a @ b`` as the kernels compute it: each operand split into
+    ``hi = tf32(x)``, ``lo = tf32(x - hi)``, then lo.hi + hi.lo + hi.hi,
+    the small terms first, summed in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _softmax(s, causal):
+    if causal:
+        t = s.shape[-1]
+        s = np.where(np.tril(np.ones((t, t), bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return p / p.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_split_keeps_fp32_accuracy(causal):
+    # d64 scores and P.V at t256 three ways: 3xTF32 (the kernels), one
+    # TF32 pass, and plain fp32, each against fp64
+    q, k, v = _qkv(600 + causal, 256, d=64)
+    qs = q * np.float32(64 ** -0.5)
+    kt = np.ascontiguousarray(np.swapaxes(k, -1, -2))
+    s64 = qs.astype(np.float64) @ kt.astype(np.float64)
+    o64 = _softmax(s64, causal) @ v.astype(np.float64)
+    s3 = _matmul_3xtf32(qs, kt)
+    o3 = _matmul_3xtf32(_softmax(s3, causal).astype(np.float32), v)
+    s1 = _tf32(qs) @ _tf32(kt)
+    s32 = qs @ kt
+    assert s3.dtype == s1.dtype == o3.dtype == np.float32
+    plain = _port(q, k, v, causal)
+    assert np.abs(s32 - s64).max() <= 1e-5
+    assert np.abs(s3 - s64).max() <= 1e-5
+    assert np.abs(o3 - o64).max() <= 1e-5
+    assert np.abs(o3 - plain).max() <= TOL_KERNEL
+    assert np.abs(s1 - s64).max() > 1e-4
