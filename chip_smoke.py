@@ -15,9 +15,13 @@
    ragged t200, causal and full.  The flash kernels' bound is the card's
    best rate for fp32-accurate products: the tensor cores' TF32 rate
    over the three passes of the 3xTF32 split (their share is stated
-   against it); the fp32 CUDA-core bound is printed beside it.
+   against it); the fp32 CUDA-core bound is printed beside it.  The
+   paged decode's ``ms`` is CUDA events around back-to-back wrapper calls
+   (the host's time included); its ``device_ms`` times the same calls,
+   one per layer, captured in a CUDA graph and replayed; its
+   ``host_ms`` is the host clock's time to issue one call.
    ``-Xptxas -v``'s registers and spills are printed per kernel; the
-   flash kernels must report them and must not spill.
+   flash and paged-decode kernels must report them and must not spill.
 3. Serving main path at full width: ``LMEngine`` over the d768/L12/h12
    ff3072/vocab32000 LM (random weights from seed 0) serves 48 synthetic
    requests closed loop.  The launch counters are zeroed just before and
@@ -53,7 +57,8 @@
    12 layers per step), every loss finite; losses, median step ms,
    tokens/s and peak memory are printed.
 7. A JSON line of per-kernel results (the flash rows also carry
-   ``bound_fp32_cores_ms``, the CUDA-core bound), the ``nvidia-smi``
+   ``bound_fp32_cores_ms``, the CUDA-core bound; the paged-decode row
+   ``device_ms`` and ``host_ms``), the ``nvidia-smi``
    name/power-limit line, and as the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -67,6 +72,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -117,6 +123,51 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _host_ms(fn, iters: int, reps: int = 5) -> float:
+    """Host time to issue one ``fn()``: the median over ``reps`` of the
+    host clock around ``iters`` calls, synced before and after but not
+    between them (the launch queue holds them, so no call waits on the
+    device)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / iters)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _graph_ms(fns, replays: int) -> float:
+    """Device time per call of ``fns``, with no host in the way: one CUDA
+    graph holds one call of each (captured after a warm-up on a side
+    stream), and CUDA events time its back-to-back replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * len(fns))
+
+
 def _bound(nbytes: float, flops: float,
            flop_rate: float = PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -130,11 +181,13 @@ def _max_err(a, b) -> float:
 
 def report_ptxas(built: dict) -> None:
     """Print ``-Xptxas -v``'s registers, shared memory and spills per
-    kernel (mangled names, as ptxas gives them); a flash library without
-    that report, or a flash kernel that spills, fails the run."""
+    kernel (mangled names, as ptxas gives them); a flash or paged-decode
+    library without that report, or a kernel of theirs that spills, fails
+    the run."""
     for lib, info in built.items():
         kernel = lib
-        if lib.startswith("flash") and "registers" not in info["log"]:
+        checked = lib.startswith("flash") or lib == "paged_decode"
+        if checked and "registers" not in info["log"]:
             raise AssertionError(f"no ptxas report for {lib}")
         for line in info["log"].splitlines():
             m = re.search(r"entry function '(\w+)'", line)
@@ -144,7 +197,7 @@ def report_ptxas(built: dict) -> None:
                 print(f"build {lib} {kernel}: {line.split(':')[-1].strip()}",
                       flush=True)
                 spills = re.findall(r"(\d+) bytes spill", line)
-                if lib.startswith("flash") and any(int(x) for x in spills):
+                if checked and any(int(x) for x in spills):
                     raise AssertionError(f"{kernel} spills: {line.strip()}")
 
 
@@ -325,6 +378,11 @@ def check_paged(card: str) -> dict:
             paged_attention_reference(q, kc[i], vc[i], pi, lengths)
 
         ms = _time_ms(kern, 10 * layers)
+        host_ms = _host_ms(kern, 10 * layers)
+        # the same calls without the host: one per layer in a CUDA graph
+        device_ms = _graph_ms([
+            lambda i=i: paged_decode(q, kc[i], vc[i], pi, lengths)
+            for i in range(layers)], 10)
         plain_ms = _time_ms(plain, 2 * layers)
         # library yardstick: SDPA over the pages gathered beforehand
         b, t = q.shape[0], pi.shape[1] * kc.shape[3]
@@ -344,11 +402,14 @@ def check_paged(card: str) -> dict:
         bound_ms, bound_by = _bound(nbytes, 4 * tokens * hq * HEAD_DIM)
         print(f"kernel paged_decode B16 Hq{hq} Hkv{hkv} d64 page16 "
               f"max_pages48 ({tokens} cached tokens): max err {err:.3e}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over "
-              f"gathered pages {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"kernel {ms:.4f} ms ({device_ms:.4f} ms device, in a CUDA "
+              f"graph; {host_ms:.4f} ms host to issue), plain "
+              f"{plain_ms:.4f} ms, sdpa over gathered pages {lib_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms "
               f"({bound_by}) [{card}]", flush=True)
         if hq == hkv:   # the engine's shape: group 1
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            row = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                       host_ms=host_ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms)
     return row

@@ -16,9 +16,7 @@
 // TF32 pass on the tensor cores keeps only ~5e-4 relative per score at
 // d64, too coarse for the 1e-4 the kernels are held to.  So every product
 // runs on the tensor cores as three TF32 products of a hi/lo split
-// (3xTF32): x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and
-// a.b ~ lo_a.hi_b + hi_a.lo_b + hi_a.hi_b, the small terms first,
-// accumulated in fp32 (mma.sync m16n8k8 tf32).  Its roof is 495/3 = 165
+// (3xTF32, the helpers in tf32_mma.cuh).  Its roof is 495/3 = 165
 // TFLOP/s of fp32-accurate products; at d64 the loop around the products
 // (splits, fragment loads, softmax) issues more instructions than the
 // products themselves, so it is bound by instruction issue well before
@@ -53,100 +51,21 @@
 // output, `lse_ref` there): the residual the backward kernels in
 // flash_bwd.cu recompute the probabilities from.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int D = 64;               // head dim
+using namespace tf32mma;
+
 constexpr int BQ = 64;              // query rows per block (16 per warp)
 constexpr int BK = 64;              // key rows per streamed tile
-constexpr int THREADS = 128;        // 4 warps
 constexpr int KS = D + 8;           // K tile row stride (floats)
 constexpr int VS = D + 4;           // V tile row stride (floats)
 constexpr int STAGE = BK * KS + BK * VS;                  // floats
 constexpr int SMEM_BYTES = 2 * STAGE * (int)sizeof(float);  // 71,680
 constexpr unsigned FULL = 0xffffffffu;
-
-// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero) of a
-// finite fp32 value, as a tf32 bit pattern (low 13 bits clear).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a.b in 3xTF32: lo.hi + hi.lo + hi.hi
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  mma(c, al, bh0, bh1);
-  mma(c, ah, bl0, bl1);
-  mma(c, ah, bh0, bh1);
-}
-
-// d = a.b in 3xTF32, from a zero accumulator.  The tensor cores' fp32
-// accumulation does not round to nearest, so a running sum carried
-// through them over all the streamed tiles drifts as t grows; the running
-// sums (o in the forward, dK and dV) take one tile's product at a time
-// from them, summed from zero, and add it in fp32.
-__device__ __forceinline__ void mma3z(float (&d)[4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4], uint32_t bh0,
-                                      uint32_t bh1, uint32_t bl0,
-                                      uint32_t bl1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(al[0]), "r"(al[1]), "r"(al[2]), "r"(al[3]), "r"(bh0), "r"(bh1),
-        "f"(0.f));
-  mma(d, ah, bl0, bl1);
-  mma(d, ah, bh0, bh1);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stage rows [r0, r0 + 64) of a [t, 64] matrix into `dst` (row stride S
-// floats), zeros past t.
-template <int S>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int t) {
-#pragma unroll
-  for (int j = 0; j < 64 * D / 4 / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int r = i >> 4, c4 = i & 15;
-    const bool ok = r0 + r < t;
-    cp_async16(dst + r * S + 4 * c4,
-               src + (size_t)(ok ? r0 + r : 0) * D + 4 * c4, ok);
-  }
-}
 
 // One block per (batch*head, 64-row query tile).  Warp w owns rows
 // q0 + 16w .. +15; lane (g = lane / 4, tq = lane % 4) holds rows g and
@@ -169,8 +88,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // causal: keys past the tile's last query row are never loaded
   const int nk = causal ? qt + 1 : (t + BK - 1) / BK;
 
-  load_tile<KS>(smem, kb, 0, t);
-  load_tile<VS>(smem + BK * KS, vb, 0, t);
+  load_rows<KS>(smem, kb, 0, t);
+  load_rows<VS>(smem + BK * KS, vb, 0, t);
   cp_async_commit();
 
   // q fragments: k-step s covers dims 8s + 2tq (k index tq) and
@@ -201,8 +120,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {  // the next tile loads while this one is used
       float* nxt = smem + ((kt + 1) & 1) * STAGE;
-      load_tile<KS>(nxt, kb, (kt + 1) * BK, t);
-      load_tile<VS>(nxt + BK * KS, vb, (kt + 1) * BK, t);
+      load_rows<KS>(nxt, kb, (kt + 1) * BK, t);
+      load_rows<VS>(nxt + BK * KS, vb, (kt + 1) * BK, t);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -326,21 +245,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Lift the kernel's dynamic shared memory above 48 KB, once per device.
+// the kernel's dynamic shared memory is lifted above 48 KB once per device
 int smem_ready[64];
-
-int allow_smem() {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem_ready[dev]) return 0;
-  err = cudaFuncSetAttribute(flash_fwd_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
-  if (err == cudaSuccess) smem_ready[dev] = 1;
-  return (int)err;
-}
 
 }  // namespace
 
@@ -352,7 +258,9 @@ extern "C" int sgp_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  int causal, void* stream) {
   const int nq = (t + BQ - 1) / BQ;
   if (bh <= 0 || t <= 0 || nq > 65535) return (int)cudaErrorInvalidValue;
-  if (int err = allow_smem()) return err;
+  if (int err = allow_dynamic_smem((const void*)flash_fwd_f32_kernel,
+                                   SMEM_BYTES, smem_ready))
+    return err;
   const dim3 grid(bh, nq);
   flash_fwd_f32_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),

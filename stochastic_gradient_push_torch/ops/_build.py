@@ -4,12 +4,15 @@ Each ``csrc/<name>.cu`` exposes one or more plain C entry points and is
 compiled by hand (no PyTorch headers, so a build takes seconds, not minutes)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas=-v -o build/sgp_torch_kernels/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas=-v -I csrc \
+         -o build/sgp_torch_kernels/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/sgp_torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``), at first use, keyed by a hash of the source and the
-flags, with ``nvcc``'s output (``-Xptxas -v``'s registers, shared memory
-and spills) kept beside it as ``<name>-<hash>.log``.  :func:`build`
+``.gitignore``), at first use, keyed by a hash of the source, the
+``csrc/`` headers it includes with ``#include "..."`` (an edit to a
+header rebuilds each library that includes it, and no other) and the
+flags, with ``nvcc``'s output (``-Xptxas -v``'s registers, shared
+memory and spills) kept beside it as ``<name>-<hash>.log``.  :func:`build`
 starts one ``nvcc`` per source, all together.
 Pointers and the stream cross as ``c_void_p`` (a bare int would be cut
 to 32 bits); each entry point returns ``cudaGetLastError()`` after its
@@ -22,13 +25,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 __all__ = ["KernelBuildError", "KernelLaunchError", "build", "check",
-           "load", "nvcc_path", "KERNELS"]
+           "load", "nvcc_path", "stream", "KERNELS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgp_torch_kernels"
@@ -45,7 +51,7 @@ KERNELS = {
         "sgp_flash_bwd_dkv_f32": (_P,) * 8 + (_I, _I, _I, _P),
     },
     "paged_decode": {"sgp_paged_decode_f32":
-                     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
+                     (_P,) * 7 + (_I,) * 7 + (_P,)},
     "gossip_edge": {
         "sgp_gossip_edge_start": (_P, _P, _L, _I, _P, _P, _L, _I, _P, _I, _I,
                                   _P),
@@ -79,10 +85,27 @@ def nvcc_path() -> str:
         "with the CUDA toolkit")
 
 
+def _local_headers(path: Path) -> list[Path]:
+    """The ``csrc/`` headers that ``path`` includes as ``#include "..."``,
+    directly or through another such header, in include order."""
+    found, todo = [], [path]
+    while todo:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                              todo.pop().read_text(), re.M):
+            header = CSRC / inc
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in _local_headers(src):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, dict]:
@@ -103,7 +126,8 @@ def build(names=None) -> dict[str, dict]:
         nvcc = nvcc or nvcc_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)
@@ -133,6 +157,13 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def stream(x: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``x``'s device,
+    the last argument of every entry point.  (``torch.cuda.
+    current_stream`` would build a ``Stream`` object on every launch.)"""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def check(rc: int, name: str) -> None:

@@ -23,11 +23,12 @@ reference's: q/k/v ``[batch, heads, seq, head_dim]``, the row logsumexp
   plain backward on CPU tensors, never one for the other.
 
 The TPU-tuned ``default_block`` rule is not carried over; the kernels'
-tiles are their own.  The forward and dK/dV kernels own 64 rows per
-block (16 per warp) and stream 64-row tiles through the tensor cores,
-fp32-accurate through a 3xTF32 split (``mma.sync`` TF32, three products
-per fp32 product); the dQ kernel owns 64 rows and streams 32-row tiles
-on the CUDA cores.  All hold their plain versions to 1e-4 on the card.
+tiles are their own.  All three kernels own 64 rows per block (16 per
+warp) and stream 64-row tiles through the tensor cores, fp32-accurate
+through a 3xTF32 split (``mma.sync`` TF32, three products per fp32
+product; the helpers are ``csrc/tf32_mma.cuh``): the forward and dQ own
+query rows and stream K/V, dK/dV owns key rows and streams q/dO.  All
+hold their plain versions to 1e-4 on the card.
 """
 
 from __future__ import annotations
@@ -155,10 +156,6 @@ def flash_attention_backward_reference(q, k, v, out, lse, do,
     return (dq, *flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal))
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def flash_fwd(q, k, v, causal: bool = False, return_lse: bool = False):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors (fp32, contiguous,
     head_dim 64, any seq); with ``return_lse`` returns ``(out, lse)``.
@@ -173,7 +170,7 @@ def flash_fwd(q, k, v, causal: bool = False, return_lse: bool = False):
         rc = lib.sgp_flash_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), bh, t, int(causal),
-            _stream(q))
+            _build.stream(q))
         flash_fwd.launches += 1
         _build.check(rc, "flash_fwd")
     return (out, lse) if return_lse else out
@@ -193,7 +190,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
         rc = lib.sgp_flash_bwd_dq_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t,
-            int(causal), _stream(q))
+            int(causal), _build.stream(q))
         flash_bwd_dq.launches += 1
         _build.check(rc, "flash_bwd_dq")
     return dq
@@ -213,7 +210,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
         rc = lib.sgp_flash_bwd_dkv_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, t, int(causal), _stream(q))
+            bh, t, int(causal), _build.stream(q))
         flash_bwd_dkv.launches += 1
         _build.check(rc, "flash_bwd_dkv")
     return dk, dv

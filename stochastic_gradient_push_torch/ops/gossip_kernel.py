@@ -277,10 +277,6 @@ def _device_table(table: np.ndarray, device) -> torch.Tensor:
     return t
 
 
-def _stream(x: torch.Tensor):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 # -- the plain twins --------------------------------------------------------
 
 
@@ -339,7 +335,7 @@ def _launch_start(chunks, landed, table: np.ndarray) -> None:
             args += [None, None, 0, 0]
     lib = _build.load("gossip_edge")
     rc = lib.sgp_gossip_edge_start(*args, dev_table.data_ptr(), ranks, ne,
-                                   _stream(chunks[0]))
+                                   _build.stream(chunks[0]))
     gossip_edge_start.launches += 1
     _build.check(rc, "gossip_edge_start")
 
@@ -417,7 +413,7 @@ def _launch_wait(kind: str, acc, recv, out, block: int) -> None:
                         f"{tuple(x.dtype for x in recv)}")
     length = acc[0].numel()
     lib = _build.load("gossip_edge")
-    stream = _stream(acc)
+    stream = _build.stream(acc)
     if kind == "int8":
         rc = lib.sgp_gossip_edge_wait_int8(
             acc.data_ptr(), recv[0].data_ptr(), recv[1].data_ptr(),

@@ -9,7 +9,9 @@ and counting the token being decoded.  GQA: ``q_heads = kv_heads *
 group``.
 
 * :func:`paged_decode` launches ``csrc/paged_decode.cu`` (CUDA, fp32,
-  head_dim 64, group 1..8);
+  head_dim 64, group 1..8): a split-sequence decode, each split of
+  :func:`split_pages` pages written as a partial ``(m, den, acc)`` to a
+  workspace, the partials folded in split order by a second kernel;
 * :func:`paged_attention_reference` gathers every named page and runs
   masked softmax attention — the CPU lane and the kernel's oracle;
 * :func:`paged_attention_decode` picks between them by device.
@@ -27,10 +29,17 @@ from ..ops.flash_attention import NEG_INF
 from ..ops.lanes import use_kernel
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
-           "paged_decode"]
+           "paged_decode", "split_pages"]
 
 HEAD_DIM = 64
 MAX_GROUP = 8      # csrc/paged_decode.cu instantiates groups 1..8
+SPLIT_TOKENS = 64  # tokens per split of the kernel's grid, in whole pages
+
+
+def split_pages(page_size: int) -> int:
+    """Pages per split of ``csrc/paged_decode.cu``: ~``SPLIT_TOKENS``
+    tokens, at least one page."""
+    return max(1, SPLIT_TOKENS // page_size)
 
 
 def _check_shapes(q, k_pages, v_pages, page_indices, lengths):
@@ -104,16 +113,25 @@ def paged_decode(q, k_pages, v_pages, page_indices, lengths):
     if not 1 <= group <= MAX_GROUP:
         raise ValueError(f"GQA group {group} outside 1..{MAX_GROUP}")
     _, num_pages, page_size, _ = k_pages.shape
-    out = torch.empty_like(q)
+    max_pages = page_indices.shape[1]
+    sp = split_pages(page_size)
+    n_splits = -(-max_pages // sp)
+    # one allocation in whole [h, d] rows: the output's b rows, then the
+    # workspace of each split's partial, acc [group, d] and (m, den)
+    # [group, 2], passed by address (a slice of it costs host time)
+    work_rows = -(-b * hkv * n_splits * group * (d + 2) // (h * d))
+    buf = torch.empty((b + work_rows, h, d), dtype=torch.float32, device=dev)
+    ptr = buf.data_ptr()
     lib = _build.load("paged_decode")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(q)
     rc = lib.sgp_paged_decode_f32(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_indices.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, hkv, group, num_pages, page_size, page_indices.shape[1], stream)
+        page_indices.data_ptr(), lengths.data_ptr(), ptr,
+        ptr + 4 * q.numel(), b, hkv, group, num_pages, page_size, max_pages,
+        sp, stream)
     paged_decode.launches += 1
     _build.check(rc, "paged_decode")
-    return out
+    return buf[:b]
 
 
 paged_decode.launches = 0

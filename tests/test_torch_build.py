@@ -2,12 +2,14 @@
 driven with a stand-in ``nvcc`` (a shell script), since the real one is
 only on a machine with the CUDA toolkit: sources are built in parallel into
 a hash-keyed library, a built library is not rebuilt and still reports
-its ptxas log, a refused source or a missing compiler raises
+its ptxas log, an edit to a shared header ``csrc/*.cuh`` rebuilds the
+libraries that include it and no other, a refused source or a missing compiler raises
 ``KernelBuildError``, and a non-zero CUDA error from a launch raises
 ``KernelLaunchError``.
 """
 
 import os
+import shutil
 import stat
 
 import pytest
@@ -80,3 +82,55 @@ def test_launch_error_code_raises():
     _build.check(0, "flash_fwd")
     with pytest.raises(_build.KernelLaunchError, match="cudaError_t 9"):
         _build.check(9, "flash_fwd")
+
+
+def test_header_edit_rebuilds_the_libraries(tmp_path, monkeypatch,
+                                            build_dir):
+    # a .cu that includes a shared .cuh builds once; after the header's
+    # bytes change the library's path changes and nvcc runs again, with
+    # -I for the sources' directory
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("CUDA_HOME", str(_fake_nvcc(tmp_path, _OK)))
+    assert '#include "tf32_mma.cuh"' in (csrc / "flash_bwd.cu").read_text()
+    first = _build.build(["flash_bwd"])["flash_bwd"]
+    again = _build.build(["flash_bwd"])["flash_bwd"]
+    assert again["seconds"] == 0.0 and again["path"] == first["path"]
+    calls = (build_dir / "calls.log").read_text().splitlines()
+    assert len(calls) == 1 and f"-I {csrc} " in calls[0]
+    header = csrc / "tf32_mma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    third = _build.build(["flash_bwd"])["flash_bwd"]
+    assert third["path"] != first["path"] and os.path.exists(third["path"])
+    assert len((build_dir / "calls.log").read_text().splitlines()) == 2
+
+
+def test_header_edit_leaves_other_libraries_alone(tmp_path, monkeypatch):
+    # only the headers a source names in `#include "..."` (and theirs)
+    # key its library: a source that includes none keeps its path
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    (csrc / "inner.cuh").write_text("// inner\n")
+    header = csrc / "tf32_mma.cuh"
+    header.write_text('#include "inner.cuh"\n' + header.read_text())
+    assert _build._local_headers(csrc / "flash_fwd.cu") == [
+        header, csrc / "inner.cuh"]
+    assert _build._local_headers(csrc / "paged_decode.cu") == []
+    before = {n: _build._lib_path(n) for n in ("flash_fwd", "paged_decode")}
+    (csrc / "inner.cuh").write_text("// inner, edited\n")
+    assert _build._lib_path("flash_fwd") != before["flash_fwd"]
+    assert _build._lib_path("paged_decode") == before["paged_decode"]
+
+
+def test_flash_sources_share_the_header_and_keep_no_copy():
+    header = (_build.CSRC / "tf32_mma.cuh").read_text()
+    helpers = ("uint32_t tf32(", "void split(", "void mma(", "void mma3(",
+               "void mma3z(", "cp.async.commit_group",
+               "cudaFuncSetAttribute")
+    assert all(h in header for h in helpers)
+    for name in ("flash_fwd", "flash_bwd"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "tf32_mma.cuh"' in src
+        assert not [h for h in helpers if h in src], name

@@ -6,16 +6,17 @@ have no interpret mode).  On a machine with an H100:
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 Edge shapes beyond ``chip_smoke.py``'s: ragged lengths around the flash
-kernels' tiles (the forward and dK/dV kernels' 64-row tiles and 16-row
-warp slices, dQ's 32-row tiles), causal and full, for the forward with
-its logsumexp and both backward kernels; one and 96 heads; two launches
-of the forward and dK/dV kernels bit-equal (one owner block per output
-tile, no atomics); the forward and dK/dV kernels against an fp64 oracle
-at t4096 (no drift of their running sums); a page size that is not a
-multiple of the paged kernel's 8-token step, every GQA group the kernel
-is built for, and padded page rows pointing at page 0 or at a sink
-page.  Tolerance: 1e-4 max abs in
-fp32 (TF32 off), as in ``chip_smoke.py``.
+kernels' tiles (64-row tiles and 16-row warp slices), causal and full,
+for the forward with its logsumexp and both backward kernels; one and 96
+heads; two launches of every flash kernel bit-equal (one owner block per
+output tile, no atomics); every flash kernel against an fp64 oracle at
+t4096 (no drift of their running sums); for the paged decode, a page
+size that is not a multiple of its 8-token step, every GQA group it is
+built for, padded page rows pointing at page 0 or at a sink page,
+lengths on its split boundaries and at ``max_pages * page_size``, two
+calls bit-equal (partials folded in split order), and calls captured in
+a CUDA graph and replayed.  Tolerance: 1e-4 max abs in fp32 (TF32 off),
+as in ``chip_smoke.py``.
 
 Beyond the kernels: the flash ``autograd.Function`` on CUDA against the
 CPU lane; a stacked world-2 SGP step on CUDA tensors against the same
@@ -91,6 +92,73 @@ def test_paged_decode_matches_plain(cuda, hq, hkv, page, pad):
     assert tpa.paged_decode.launches == before + 1
     ref = tpa.paged_attention_reference(q, kp, vp, pi, lengths)
     assert float((out - ref).abs().max()) <= TOL
+
+
+def _paged_case(cuda, seed, hq, hkv, page, lengths, num_pages=40,
+                max_pages=9):
+    r = np.random.default_rng(seed)
+    b = len(lengths)
+    kp, vp = (torch.tensor(r.standard_normal((hkv, num_pages, page, 64)),
+                           dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    q = torch.tensor(r.standard_normal((b, hq, 64)), dtype=torch.float32,
+                     device=cuda)
+    pi = torch.tensor(np.stack([r.permutation(num_pages)[:max_pages]
+                                for _ in range(b)]).astype(np.int32),
+                      device=cuda)
+    return q, kp, vp, pi, torch.tensor(lengths, dtype=torch.int32,
+                                       device=cuda)
+
+
+@pytest.mark.parametrize("page", [16, 5, 2])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+def test_paged_decode_split_boundaries(cuda, page, hq, hkv):
+    # lengths ending on each split boundary, one token either side of it,
+    # and the whole page table (max_pages * page)
+    max_pages = 9
+    span = tpa.split_pages(page) * page
+    full = max_pages * page
+    lengths = sorted({min(x, full) for x in (
+        1, span - 1, span, span + 1, 2 * span, 2 * span + 1, full - 1,
+        full)})
+    args = _paged_case(cuda, page + hq, hq, hkv, page, lengths,
+                       max_pages=max_pages)
+    out = tpa.paged_decode(*args)
+    torch.cuda.synchronize()
+    assert float((out - tpa.paged_attention_reference(*args)).abs().max()
+                 ) <= TOL
+
+
+def test_paged_decode_is_deterministic(cuda):
+    # a length of 0 has no split: its row is zeros
+    args = _paged_case(cuda, 60, 8, 4, 16, [1, 17, 64, 100, 144, 0])
+    a, b = tpa.paged_decode(*args), tpa.paged_decode(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert not a[-1].any()
+
+
+def test_paged_decode_replays_in_a_cuda_graph(cuda):
+    # the decode tick may be captured: workspace and launches inside the
+    # graph, replays against the plain version on new query values
+    q, kp, vp, pi, lengths = _paged_case(cuda, 61, 12, 12, 16,
+                                         [1, 30, 64, 65, 97, 144])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_decode(q, kp, vp, pi, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_decode(q, kp, vp, pi, lengths)
+    for seed in range(3):
+        q.copy_(torch.randn(q.shape, device=cuda,
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = tpa.paged_attention_reference(q, kp, vp, pi, lengths)
+        assert float((out - ref).abs().max()) <= TOL
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -175,8 +243,10 @@ def test_flash_kernels_are_deterministic(cuda, causal):
     for _ in range(2):
         out, lse = tfa.flash_fwd(q, k, v, causal=causal, return_lse=True)
         delta = (do * out).sum(-1)
-        runs.append((out, lse, *tfa.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                  causal=causal)))
+        runs.append((out, lse,
+                     tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+                     *tfa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                        causal=causal)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -184,13 +254,14 @@ def test_flash_kernels_are_deterministic(cuda, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_hold_fp32_accuracy_at_long_lengths(cuda, causal):
-    # the running sums (o, dK, dV) take their products from the tensor
-    # cores a few k-steps at a time and add them in fp32: carried through
+    # the running sums (o, dQ, dK, dV) take their products from the
+    # tensor cores a tile at a time and add them in fp32: carried through
     # the tensor cores' own accumulation, dK/dV drifted as t grew
     t = 4096
     q, k, v, do = _fwd_bwd_case(cuda, t, 50, b=1, h=2)
     out, lse = tfa.flash_fwd(q, k, v, causal=causal, return_lse=True)
     delta = (do * out).sum(-1)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
     q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
     s = (q64 * 64 ** -0.5) @ k64.transpose(-1, -2)
@@ -200,9 +271,10 @@ def test_flash_kernels_hold_fp32_accuracy_at_long_lengths(cuda, causal):
     p = torch.exp(s - lse.double()[..., None])   # from the kernel's lse
     ds = p * (do64 @ v64.transpose(-1, -2) - delta.double()[..., None])
     want = (torch.softmax(s, -1) @ v64, torch.logsumexp(s, -1),
+            ds @ k64 * 64 ** -0.5,
             ds.transpose(-1, -2) @ (q64 * 64 ** -0.5),
             p.transpose(-1, -2) @ do64)
-    for got, ref in zip((out, lse, dk, dv), want):
+    for got, ref in zip((out, lse, dq, dk, dv), want):
         assert float((got.double() - ref).abs().max()) <= TOL
 
 

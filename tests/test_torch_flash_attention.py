@@ -8,9 +8,10 @@ them on the card.  Tolerances: atol 2e-5 for the forward (blocked online
 softmax on the JAX side vs one dense softmax on the port's), atol 1e-5
 for the lse and the gradients.
 
-The forward and dK/dV kernels compute every product on the tensor cores
-as three TF32 products of a hi/lo split (3xTF32); a numpy model of that
-arithmetic pins, here, why one TF32 pass would not do.
+The flash kernels compute every product on the tensor cores as three
+TF32 products of a hi/lo split (3xTF32); a numpy model of that
+arithmetic pins, here, why one TF32 pass would not do, and holds the dQ
+kernel's arithmetic to fp64.
 """
 
 import numpy as np
@@ -265,10 +266,32 @@ def _softmax(s, causal):
     return p / p.sum(-1, keepdims=True)
 
 
+def _dq_3xtf32(q, k, v, do, lse, delta, causal):
+    """dQ as the dQ kernel computes it: per 64-key tile, S = q.K^T,
+    P = exp(S * d**-0.5 - lse) (0 where masked), dP = dO.V^T,
+    dS = P * (dP - delta), the tile's dS.K summed in 3xTF32 from zero and
+    added to the running dQ in fp32; d**-0.5 applied once at the end."""
+    t, d = q.shape[-2:]
+    scale = np.float32(d ** -0.5)
+    qi = np.arange(t)[:, None]
+    dq = np.zeros_like(q)
+    for k0 in range(0, t, 64):
+        kt, vt = k[..., k0:k0 + 64, :], v[..., k0:k0 + 64, :]
+        s = _matmul_3xtf32(q, np.swapaxes(kt, -1, -2))
+        p = np.exp(s * scale - lse[..., None])
+        if causal:
+            p = np.where(k0 + np.arange(kt.shape[-2]) <= qi, p, 0)
+        dp = _matmul_3xtf32(do, np.swapaxes(vt, -1, -2))
+        dq += _matmul_3xtf32((p * (dp - delta[..., None])).astype(
+            np.float32), kt)
+    return dq * scale
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_3xtf32_split_keeps_fp32_accuracy(causal):
     # d64 scores and P.V at t256 three ways: 3xTF32 (the kernels), one
-    # TF32 pass, and plain fp32, each against fp64
+    # TF32 pass, and plain fp32, each against fp64; then dQ as the dQ
+    # kernel computes it (3xTF32 products, each tile's sum added in fp32)
     q, k, v = _qkv(600 + causal, 256, d=64)
     qs = q * np.float32(64 ** -0.5)
     kt = np.ascontiguousarray(np.swapaxes(k, -1, -2))
@@ -285,3 +308,23 @@ def test_3xtf32_split_keeps_fp32_accuracy(causal):
     assert np.abs(o3 - o64).max() <= 1e-5
     assert np.abs(o3 - plain).max() <= TOL_KERNEL
     assert np.abs(s1 - s64).max() > 1e-4
+
+    do = np.random.default_rng(700 + causal).standard_normal(
+        q.shape).astype(np.float32)
+    p64 = _softmax(s64, causal)
+    sm = np.where(np.tril(np.ones((256, 256), bool)), s64,
+                  -np.inf) if causal else s64
+    lse = (np.log(np.exp(sm - sm.max(-1, keepdims=True)).sum(-1))
+           + sm.max(-1)).astype(np.float32)
+    delta = (do.astype(np.float64) * (p64 @ v.astype(np.float64))).sum(
+        -1).astype(np.float32)
+    ds64 = p64 * (do.astype(np.float64) @ np.swapaxes(v, -1, -2).astype(
+        np.float64) - delta.astype(np.float64)[..., None])
+    dq64 = ds64 @ k.astype(np.float64) * 64 ** -0.5
+    dq3 = _dq_3xtf32(q, k, v, do, lse, delta, causal)
+    assert dq3.dtype == np.float32
+    assert np.abs(dq3 - dq64).max() <= 1e-5
+    dq_plain = tfa.flash_bwd_dq_reference(
+        *(torch.from_numpy(x) for x in (q, k, v, do, lse, delta)),
+        causal=causal).numpy()
+    assert np.abs(dq3 - dq_plain).max() <= TOL_KERNEL

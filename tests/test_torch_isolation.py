@@ -1,5 +1,6 @@
-"""The port stands alone: ``stochastic_gradient_push_torch`` and
-``chip_smoke.py`` import neither jax nor the JAX package.
+"""The port stands alone: ``stochastic_gradient_push_torch``,
+``chip_smoke.py`` and the port's chip scripts (``scripts/torch_*.py``)
+import neither jax nor the JAX package.
 
 One check runs the imports in a fresh interpreter where ``import jax``
 fails; the other reads the sources with ``ast``.
@@ -32,7 +33,8 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [SMOKE]
+    return (sorted(PORT.rglob("*.py")) + [SMOKE]
+            + sorted((REPO / "scripts").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -107,3 +107,114 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tpa.paged_decode(*args)
     assert tpa.paged_decode.launches == before
+
+
+# csrc/paged_decode.cu's partition of a split: 4 warps take its pages w,
+# w + 4, ... in steps of 8 tokens
+K6_WARPS, K6_TOK = 4, 8
+
+
+def _online(m, den, acc, s, v):
+    """One online-softmax step of scores ``s [G, n]`` and values
+    ``v [n, d]`` into ``(m, den, acc)`` (fp32)."""
+    m_new = np.maximum(m, s.max(1))
+    alpha = np.exp(m - m_new)
+    p = np.exp(s - m_new[:, None])
+    return m_new, den * alpha + p.sum(1), acc * alpha[:, None] + p @ v
+
+
+def _fold(parts):
+    """Fold ``[(m, den, acc)]`` in order, relative to their max m."""
+    mx = np.max([m for m, _, _ in parts], axis=0)
+    tot = np.zeros_like(mx)
+    o = np.zeros_like(parts[0][2])
+    for m, den, acc in parts:
+        c = np.where(m == -np.inf, np.float32(0), np.exp(m - mx))
+        tot = tot + den * c
+        o = o + acc * c[:, None]
+    return mx, tot, o
+
+
+def _k6_split_and_combine(q, kp, vp, pi, lengths, split_pages):
+    """The split-sequence decode as the kernels compute it, in fp32:
+    per split, each warp's online softmax over its pages' token groups,
+    the warps folded into the split's partial; then the partials folded
+    in split order."""
+    b, hq, d = q.shape
+    hkv, num_pages, page, _ = kp.shape
+    g = hq // hkv
+    max_pages = pi.shape[1]
+    out = np.zeros_like(q)
+    with np.errstate(invalid="ignore"):
+        for bi in range(b):
+            n = int(lengths[bi])
+            n_pages = min(max(-(-n // page), 0), max_pages)
+            for h in range(hkv):
+                qg = q[bi, h * g:(h + 1) * g] * np.float32(d ** -0.5)
+                parts = []
+                for p0 in range(0, n_pages, split_pages):
+                    warps = []
+                    for w in range(K6_WARPS):
+                        st = (np.full(g, -np.inf, np.float32),
+                              np.zeros(g, np.float32),
+                              np.zeros((g, d), np.float32))
+                        for j in range(p0 + w, min(p0 + split_pages,
+                                                   n_pages), K6_WARPS):
+                            assert 0 <= pi[bi, j] < num_pages
+                            ntok = min(page, n - j * page)
+                            for t0 in range(0, ntok, K6_TOK):
+                                rows = slice(t0, min(t0 + K6_TOK, ntok))
+                                kk = kp[h, pi[bi, j], rows]
+                                st = _online(*st, qg @ kk.T,
+                                             vp[h, pi[bi, j], rows])
+                        warps.append(st)
+                    parts.append(_fold(warps))
+                if parts:
+                    _, tot, o = _fold(parts)
+                    out[bi, h * g:(h + 1) * g] = o / tot[:, None]
+    return out
+
+
+def _k6_case(seed, hkv, split_pages, page=4, max_pages=7):
+    """Rows of length 1, ending on split boundaries, and max_pages*page."""
+    q, kp, vp, pi, lengths = _case(seed, b=6, hkv=hkv, page=page,
+                                   max_pages=max_pages)
+    span = split_pages * page
+    full = max_pages * page
+    lengths[:] = [1, full, min(span, full), min(2 * span, full),
+                  min(span + 1, full), lengths[5]]
+    return q, kp, vp, pi, lengths
+
+
+K6_SPLITS = [1, 2, 3, tpa.split_pages(4)]  # one page .. over every length
+
+
+def test_split_pages_covers_about_split_tokens():
+    assert [tpa.split_pages(p) for p in (4, 5, 16, 64, 128)] == [
+        16, 12, 4, 1, 1]
+
+
+@pytest.mark.parametrize("hkv", [4, 2])
+@pytest.mark.parametrize("split_pages", K6_SPLITS)
+def test_k6_split_and_combine_matches_jax_reference(hkv, split_pages):
+    from stochastic_gradient_push_tpu.serve.paged_attention import (
+        paged_attention_reference)
+
+    args = _k6_case(10 + split_pages, hkv, split_pages)
+    want = np.asarray(paged_attention_reference(*args))
+    np.testing.assert_allclose(_k6_split_and_combine(*args, split_pages),
+                               want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("hkv", [4, 2])
+@pytest.mark.parametrize("split_pages", K6_SPLITS)
+def test_k6_split_and_combine_matches_jax_interpret_kernel(hkv,
+                                                           split_pages):
+    from stochastic_gradient_push_tpu.serve.paged_attention import (
+        paged_attention_decode)
+
+    args = _k6_case(20 + split_pages, hkv, split_pages)
+    want = np.asarray(paged_attention_decode(*args, use_pallas=True,
+                                             interpret=True))
+    np.testing.assert_allclose(_k6_split_and_combine(*args, split_pages),
+                               want, atol=ATOL, rtol=0)
