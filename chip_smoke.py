@@ -56,7 +56,24 @@
    kernels (buckets per step each), every attention call too (4 ranks x
    12 layers per step), every loss finite; losses, median step ms,
    tokens/s and peak memory are printed.
-7. A JSON line of per-kernel results (the flash rows also carry
+7. ResNet-50 at full width (224 px, 1000 classes), fp32 with TF32 off,
+   at world 4 stacked on the card, batch 32 per rank (128 images a
+   step), random weights from seed 0 and synthetic images
+   (``data/synthetic.py``, seed 0), through ``train/step.py``'s
+   ``build_train_step`` on the gossip kernel lane with thinning
+   (``gossip_every=2``) and periodic global averaging
+   (``global_avg_every=4``): SGP (f32 wire, one peer, one bucket), then
+   OSGP (staleness 2, bf16 wire, two peers, three buckets).  Each first
+   steps one state on the kernel lane and on the plain transport lane
+   under deterministic cuDNN: the push-sum weight and the FIFO's weights
+   bit-equal, params within 1e-6.  Then 8 kernel-lane steps with the
+   counters zeroed just before: a fired step launches one start and one
+   wait per bucket (the wait lands or settles the launched share), a
+   skipped step launches nothing, every loss is finite, every rank's
+   push-sum weight is exactly 1.0 after each global average (and the
+   FIFO drained); median step ms, images/s, peak memory and
+   ``replica_spread`` are printed.
+8. A JSON line of per-kernel results (the flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound; the paged-decode row
    ``device_ms`` and ``host_ms``), the ``nvidia-smi``
    name/power-limit line, and as the last line ``{"ok": true, "device":
@@ -90,6 +107,11 @@ GOSSIP_WORLD = 4
 GOSSIP_STEPS = 5
 GOSSIP_CHECKS = (("f32", 1), ("f32", 2), ("bf16", 1), ("bf16", 2),
                  ("int8", 1), ("int8", 2))
+# the ResNet phase: ResNet-50 at full width, world 4 stacked, bench.py's
+# per-chip batch of 128 split over the ranks
+RESNET = dict(model="resnet50", num_classes=1000, image=224, batch=32,
+              world=4, steps=8, gossip_every=2, global_avg_every=4,
+              dtype="fp32")
 # H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores, TF32
 # tensor-core rate (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -905,6 +927,173 @@ def gossip_train_path(card: str, label: str, wire: str, overlap: bool,
     return launches
 
 
+def _resnet_setup(cfg: dict, wire, overlap: bool, staleness: int,
+                  peers: int, buckets: int, gossip_kernel=None):
+    """ResNet SGP (or OSGP with ``overlap``) at ``cfg``'s size and
+    dtype, thinned and averaged, over the n-peer exponential graph at
+    ``cfg["world"]`` ranks stacked on the card."""
+    import torch
+
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+    from stochastic_gradient_push_torch.train.step import (
+        build_train_step, make_model)
+
+    world = cfg["world"]
+    alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(
+        world, peers_per_itr=peers)), StackedTransport(world),
+        wire=get_codec(wire), overlap=overlap, staleness=staleness,
+        gossip_kernel=gossip_kernel, gossip_buckets=buckets,
+        gossip_every=cfg["gossip_every"],
+        global_avg_every=cfg["global_avg_every"])
+    tx = sgd(momentum=0.9, weight_decay=1e-4, nesterov=True)
+    model = make_model(cfg["model"], num_classes=cfg["num_classes"],
+                       dtype={"fp32": torch.float32,
+                              "bf16": torch.bfloat16}[cfg["dtype"]])
+    step = build_train_step(
+        model, alg, tx, LRSchedule(0.1, cfg["batch"], world, warmup=True),
+        itr_per_epoch=1000, num_classes=cfg["num_classes"])
+    return model, alg, tx, step
+
+
+def resnet_train_path(card: str, label: str, wire: str, overlap: bool,
+                      staleness: int, peers: int, buckets: int,
+                      compare_steps: int) -> dict:
+    """The ResNet main path on the gossip kernel lane: steps from one
+    state against the plain transport lane, then ``cfg["steps"]``
+    kernel-lane steps with the launch counters zeroed just before."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.data.synthetic import (
+        synthetic_classification)
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+    from stochastic_gradient_push_torch.train.step import (
+        init_train_state, replica_spread)
+
+    cfg = RESNET
+    world, batch, image = cfg["world"], cfg["batch"], cfg["image"]
+    kw = dict(wire=wire, overlap=overlap, staleness=staleness, peers=peers,
+              buckets=buckets)
+    model, alg, tx, step = _resnet_setup(cfg, gossip_kernel=KernelLane(),
+                                         **kw)
+    _, plain_alg, _, plain_step = _resnet_setup(cfg, **kw)
+    if (alg.transport_kernel_name, plain_alg.transport_kernel_name) != (
+            "pallas", "xla"):
+        raise AssertionError("the two lanes did not resolve as asked")
+    images, labels = synthetic_classification(
+        world * batch, num_classes=cfg["num_classes"], image_size=image,
+        seed=0)
+    x = torch.from_numpy(images.reshape(world, batch, image, image, 3)
+                         ).cuda()
+    y = torch.from_numpy(labels.reshape(world, batch)).cuda()
+    del images
+    state = init_train_state(model, alg, tx, world, seed=0, device="cuda")
+    n_params = sum(p[0].numel() for p in state.params.values())
+    print(f"resnet {label}: {cfg['model']} {image} px, {cfg['num_classes']} "
+          f"classes, {n_params:,} params, world {world} stacked, batch "
+          f"{batch}/rank, {cfg['dtype']}, {wire} wire, peers {peers}, buckets "
+          f"{buckets}, overlap {overlap} staleness {staleness}, "
+          f"gossip_every {cfg['gossip_every']}, global_avg_every "
+          f"{cfg['global_avg_every']}", flush=True)
+
+    # the kernel lane and the plain transport lane from one state, under
+    # deterministic cuDNN so that both lanes' convolutions agree
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    k_state, p_state = state, state
+    for _ in range(compare_steps):
+        k_state, k_m = step(k_state, x, y)
+        p_state, p_m = plain_step(p_state, x, y)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    weights = [(k_state.gossip.ps_weight, p_state.gossip.ps_weight)] + [
+        (ks[1], ps[1]) for ks, ps in zip(k_state.gossip.in_flight,
+                                         p_state.gossip.in_flight)]
+    param_err = max(_max_err(k_state.params[n], p_state.params[n])
+                    for n in k_state.params)
+    fifo_err = max([_max_err(ks[0][n], ps[0][n])
+                    for ks, ps in zip(k_state.gossip.in_flight,
+                                      p_state.gossip.in_flight)
+                    for n in ks[0]] or [0.0])
+    print(f"resnet {label}: kernel lane vs plain lane, {compare_steps} "
+          f"step(s) from one state: losses {k_m['loss'].tolist()} vs "
+          f"{p_m['loss'].tolist()}; ps-weight "
+          f"{k_state.gossip.ps_weight.tolist()} vs "
+          f"{p_state.gossip.ps_weight.tolist()}; max |param diff| "
+          f"{param_err:.3e}, in-flight {fifo_err:.3e} (tolerance "
+          f"{TOL_STEP_PARAM}) [{card}]", flush=True)
+    if not all(torch.equal(a, b) for a, b in weights):
+        raise AssertionError(f"resnet {label}: push-sum weights differ "
+                             f"between the lanes")
+    if not (param_err <= TOL_STEP_PARAM and fifo_err <= TOL_STEP_PARAM):
+        raise AssertionError(f"resnet {label}: params differ between the "
+                             f"lanes")
+    del p_state, state, plain_step
+    torch.cuda.empty_cache()
+
+    # the main path: kernel-lane steps, counters zeroed just before
+    state = k_state
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start, wait = counters["gossip_edge_start"], counters["gossip_edge_wait"]
+    losses, step_s, fired, averaged = [], [], 0, 0
+    for _ in range(cfg["steps"]):
+        tick = state.gossip.phase
+        launched = (start.launches, wait.launches)
+        t0 = time.perf_counter()
+        state, m = step(state, x, y)
+        losses.append(m["loss"].tolist())   # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        fires = tick % cfg["gossip_every"] == 0
+        fired += fires
+        got = (start.launches - launched[0], wait.launches - launched[1])
+        want = (buckets, buckets) if fires else (0, 0)
+        if got != want:
+            raise AssertionError(f"resnet {label}: tick {tick} launched "
+                                 f"(start, wait) {got}, expected {want}")
+        if (tick + 1) % cfg["global_avg_every"] == 0:
+            averaged += 1
+            fifo_w = [w for _, w in state.gossip.in_flight]
+            if not (torch.equal(state.gossip.ps_weight,
+                                torch.ones_like(state.gossip.ps_weight))
+                    and not any(w.any() for w in fifo_w)):
+                raise AssertionError(
+                    f"resnet {label}: after the global average at tick "
+                    f"{tick}: ps-weight {state.gossip.ps_weight.tolist()}, "
+                    f"FIFO weights {[w.tolist() for w in fifo_w]}")
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    med_ms = float(np.median(step_s)) * 1e3
+    spread = replica_spread(state, alg)
+    print(f"resnet {label}: {cfg['steps']} steps, losses per rank "
+          f"{json.dumps([[round(v, 6) for v in r] for r in losses])}, step "
+          f"ms {json.dumps([round(v * 1e3, 2) for v in step_s])}, median "
+          f"{med_ms:.2f} ms, {world * batch / med_ms * 1e3:.1f} images/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"{fired} rounds fired, {averaged} global averages (ps-weight "
+          f"1.0 after each); replica_spread {json.dumps(spread)} [{card}]",
+          flush=True)
+    print(f"resnet {label}: launches {json.dumps(launches)}", flush=True)
+    if not all(np.isfinite(losses).ravel()):
+        raise AssertionError(f"resnet {label}: non-finite loss {losses}")
+    want = {n: 0 for n in counters}
+    want["gossip_edge_start"] = want["gossip_edge_wait"] = fired * buckets
+    if launches != want or fired == 0 or averaged == 0:
+        raise AssertionError(f"resnet {label}: launches {launches}, "
+                             f"expected {want} ({fired} fired, {averaged} "
+                             f"averages)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -943,12 +1132,17 @@ def main() -> int:
     sgp_launches = gossip_train_path(card, "sgp", "int8", False, 1, 1, 1, 1)
     torch.cuda.empty_cache()
     osgp_launches = gossip_train_path(card, "osgp", "bf16", True, 2, 2, 3, 2)
+    torch.cuda.empty_cache()
+    resnet_sgp = resnet_train_path(card, "sgp", "f32", False, 1, 1, 1, 1)
+    torch.cuda.empty_cache()
+    resnet_osgp = resnet_train_path(card, "osgp", "bf16", True, 2, 2, 3, 2)
 
     # launches: each main path's run (serving, training at world 1, SGP
-    # and OSGP at world 4) summed
+    # and OSGP at world 4, ResNet SGP and OSGP at world 4) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
-            launches, train_launches, sgp_launches, osgp_launches))
+            launches, train_launches, sgp_launches, osgp_launches,
+            resnet_sgp, resnet_osgp))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's LM training step, on one GPU.
+"""Where the time goes in the PyTorch port's training steps, on one GPU.
 
     python3 scripts/torch_train_profile.py [--steps 5] [--out PATH]
     python3 scripts/torch_train_profile.py --world_size 4 \\
         --gossip_kernel pallas --wire_dtype int8 [--overlap True \\
         --staleness 2 --peers_per_itr 2 --gossip_buckets 3]
+    python3 scripts/torch_train_profile.py --model resnet50 --world_size 4 \\
+        --gossip_kernel pallas [--dtype bf16 --batch 128]
 
 Builds the training main path of ``chip_smoke.py`` (the d768/L12/h12/
 ff3072/vocab32000 LM, T1024, B8 per rank, fp32 with TF32 off; SGP or
@@ -15,6 +17,13 @@ state: the host-clock mean per step, then the same steps under
 ``torch.profiler``: device time by kernel, the device's busy share of
 the window (kernel time / window wall time), the flash kernels' share
 and, at world > 1, the gossip kernels' share of the device time.
+
+``--model resnet50`` profiles ``chip_smoke.py``'s ResNet main path
+instead (ResNet-50, 224 px, 1000 classes, ``--batch`` images a rank,
+``--dtype`` fp32 with TF32 off or bf16, synthetic images from seed 0,
+``train/step.py``'s step, every step a fired round): the device time
+split into convolutions (cuDNN), the gossip kernels and the rest
+(BatchNorm, ReLU, pooling, SGD and the round's elementwise work).
 
 On the kernel lane (``--gossip_kernel pallas``) it also splits one
 gossip round of the step's own state into its parts, each timed with
@@ -128,6 +137,85 @@ def round_split(alg, params: dict, ps_weight, n: int) -> dict:
     return split
 
 
+# device kernels by what they do (first matching substring wins)
+RESNET_GROUPS = (("gossip", ("edge_start", "edge_wait")),
+                 ("convolution", ("conv", "cudnn", "xmma", "implicit",
+                                  "dgrad", "wgrad", "fprop", "sm90_",
+                                  "gemm", "cutlass")))
+
+
+def profile_resnet(args, smi: str) -> dict:
+    """``chip_smoke.py``'s ResNet step at ``args``' world, batch, dtype
+    and lane: host-clock and profiled windows over ``args.steps`` steps
+    from one state (each fires a round), the device time by group, and
+    on the kernel lane the round's split at ResNet-50's payload."""
+    import torch
+
+    from chip_smoke import RESNET, _resnet_setup
+    from stochastic_gradient_push_torch.data.synthetic import (
+        synthetic_classification)
+    from stochastic_gradient_push_torch.train.step import init_train_state
+    from torch_serve_profile import _device_kernels, _window
+
+    from torch.profiler import ProfilerActivity, profile
+
+    world, batch = args.world_size, args.batch
+    cfg = dict(RESNET, world=world, batch=batch, dtype=args.dtype,
+               gossip_every=1, global_avg_every=0)
+    model, alg, tx, step = _resnet_setup(
+        cfg, args.wire_dtype, args.overlap == "True", args.staleness,
+        args.peers_per_itr, args.gossip_buckets,
+        gossip_kernel=args.gossip_kernel)
+    image = cfg["image"]
+    images, labels = synthetic_classification(
+        world * batch, num_classes=cfg["num_classes"], image_size=image,
+        seed=0)
+    x = torch.from_numpy(images.reshape(world, batch, image, image, 3)
+                         ).cuda()
+    y = torch.from_numpy(labels.reshape(world, batch)).cuda()
+    state = init_train_state(model, alg, tx, world, seed=0, device="cuda")
+    for _ in range(2):
+        step(state, x, y)
+    torch.cuda.reset_peak_memory_stats()
+    window = _window(lambda: step(state, x, y), args.steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step(state, x, y)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    groups = {name: 0.0 for name, _ in RESNET_GROUPS}
+    groups["other"] = 0.0
+    for name, us in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in RESNET_GROUPS
+                      if any(k in low for k in keys)), "other")
+        groups[group] += us / 1e3 / args.steps
+    total = sum(groups.values())
+    window["device_ms_per_step_by_group"] = groups
+    window["share_of_device_time"] = {g: ms / total
+                                      for g, ms in groups.items()}
+    window["images_per_sec_host_clock"] = (
+        world * batch / (window["host_ms_per_call"] / 1e3))
+    window["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    result = {"card": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda,
+              "config": {"model": "resnet50", "world_size": world,
+                         "batch_per_rank": batch, "image": image,
+                         "dtype": args.dtype,
+                         "gossip_lane": alg.transport_kernel_name,
+                         "wire_dtype": args.wire_dtype,
+                         "overlap": args.overlap == "True",
+                         "staleness": args.staleness,
+                         "peers_per_itr": args.peers_per_itr,
+                         "gossip_buckets": args.gossip_buckets},
+              "resnet_train_step": window}
+    if world > 1 and alg.transport_kernel_name == "pallas":
+        result["gossip_round_split"] = round_split(
+            alg, state.params, state.gossip.ps_weight, args.steps)
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=5)
@@ -140,6 +228,11 @@ def main(argv=None) -> int:
     p.add_argument("--staleness", type=int, default=1)
     p.add_argument("--peers_per_itr", type=int, default=1)
     p.add_argument("--gossip_buckets", type=int, default=1)
+    p.add_argument("--model", default="lm", choices=["lm", "resnet50"])
+    p.add_argument("--batch", type=int, default=32,
+                   help="resnet50: images per rank")
+    p.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
+                   help="resnet50: compute dtype")
     p.add_argument("--out", default=os.path.join(
         "artifacts", "torch_train_profile.json"))
     args = p.parse_args(argv)
@@ -163,6 +256,15 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     world = args.world_size
+    if args.model == "resnet50":
+        result = profile_resnet(args, smi)
+        out = json.dumps(result, indent=1, sort_keys=True)
+        if args.out:
+            os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+            with open(args.out, "w") as f:
+                f.write(out + "\n")
+        print(out)
+        return 0
     cfg, alg, tx, step = _train_setup(
         "flash", world=world, wire=args.wire_dtype,
         overlap=args.overlap == "True", staleness=args.staleness,

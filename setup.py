@@ -22,8 +22,9 @@ setup(
     # builds it on demand (g++ + libjpeg) and falls back to PIL without it
     package_data={
         "stochastic_gradient_push_tpu.data": ["native_src/*.cc"],
-        # the PyTorch port's CUDA kernels, built with nvcc at first use
-        "stochastic_gradient_push_torch": ["csrc/*.cu"],
+        # the PyTorch port's CUDA kernels and the headers they include,
+        # built with nvcc at first use
+        "stochastic_gradient_push_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=[

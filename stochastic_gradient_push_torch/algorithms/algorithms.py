@@ -9,12 +9,12 @@ transport (``parallel/collectives.py``).  ``gossip_kernel`` (``"xla"``,
 ``"auto"``, ``"pallas"`` or a resolved ``KernelLane``) moves the payload
 through the gossip transport kernels (``ops/gossip_kernel.py``) in
 ``gossip_buckets`` buckets, on the stacked transport.
+``gossip_every`` thins the rounds and ``global_avg_every`` interleaves
+an exact global average (:meth:`PushSumGossip.global_average`).
 
-Not ported yet, and refused by name: communication thinning
-(``gossip_every > 1``), periodic global averaging, fault injection,
-error feedback, the kernel lane under ``torch.distributed`` (the
-cross-process transport kernel); D-PSGD (``PushPullGossip``) and AD-PSGD
-(``BilateralGossip``).
+Not ported yet, and refused by name: fault injection, error feedback,
+the kernel lane under ``torch.distributed`` (the cross-process transport
+kernel); D-PSGD (``PushPullGossip``) and AD-PSGD (``BilateralGossip``).
 """
 
 from __future__ import annotations
@@ -101,6 +101,23 @@ class PushSumGossip(GossipAlgorithm):
     is a ``collectives.PendingShares`` whose start kernels have run;
     ``post_step`` lands it (staleness 1) or settles it into a plain share
     (later slots), so between steps the FIFO holds plain tensors only.
+
+    ``gossip_every`` (communication thinning): a round fires on steps
+    with ``phase % gossip_every == 0``, at rotation ``phase //
+    gossip_every``, so the graph cycles through the peer sequence of
+    un-thinned gossip.  A synchronous non-firing step passes the state
+    through.  An overlap non-firing step launches nothing and puts a
+    zero share in the FIFO tail, so the consume clock stays uniform.
+    The reference's skip arm hands ``lax.cond`` a zero transport handle
+    on the kernel lane; here the phase is a host int and the FIFO holds
+    plain slots beside ``PendingShares``, so the zero share is a plain
+    zero ``(params, ps_weight)`` slot on every lane: a skipped step
+    launches no kernel at all.
+
+    ``global_avg_every`` (periodic global averaging, 0 = off): after
+    the step whose ``phase + 1`` is a multiple of it, every rank takes
+    :meth:`global_average`; under overlap after the FIFO's settle, and
+    the average folds the FIFO in and leaves it drained.
     """
 
     name = "sgp"
@@ -110,10 +127,6 @@ class PushSumGossip(GossipAlgorithm):
                  staleness: int = 1, global_avg_every: int = 0,
                  faults=None, wire=None, error_feedback: bool = False,
                  gossip_kernel=None, gossip_buckets: int = 1):
-        if gossip_every != 1:
-            _not_ported("communication thinning (gossip_every > 1)")
-        if global_avg_every:
-            _not_ported("periodic global averaging (global_avg_every)")
         if faults is not None:
             _not_ported("fault injection")
         if error_feedback:
@@ -124,6 +137,10 @@ class PushSumGossip(GossipAlgorithm):
             raise ValueError("staleness is an overlap-mode knob")
         if gossip_buckets < 1:
             raise ValueError("gossip_buckets must be >= 1")
+        if gossip_every < 1:
+            raise ValueError("gossip_every must be >= 1")
+        if global_avg_every < 0:
+            raise ValueError("global_avg_every must be >= 0")
         # resolved at construction, so "pallas" without a card fails here
         # with the typed KernelBackendError before any step runs
         lane = resolve_gossip_kernel(gossip_kernel)
@@ -138,6 +155,8 @@ class PushSumGossip(GossipAlgorithm):
         self.transport = transport
         self.overlap = bool(overlap)
         self.staleness = int(staleness)
+        self.gossip_every = int(gossip_every)
+        self.global_avg_every = int(global_avg_every)
         self.wire = wire
         self.gossip_kernel = lane
         self.gossip_buckets = int(gossip_buckets)
@@ -157,8 +176,7 @@ class PushSumGossip(GossipAlgorithm):
         state = super().init(params)
         if self.overlap:
             state = state.replace(in_flight=tuple(
-                ({n: torch.zeros_like(p) for n, p in params.items()},
-                 torch.zeros_like(state.ps_weight))
+                self._zero_share(params, state.ps_weight)
                 for _ in range(self.staleness)))
         return state
 
@@ -166,13 +184,24 @@ class PushSumGossip(GossipAlgorithm):
         return dict(codec=self.wire, kernel=self.gossip_kernel,
                     buckets=self.gossip_buckets)
 
+    def _zero_share(self, params: dict, ps_weight: torch.Tensor):
+        return ({n: torch.zeros_like(p) for n, p in params.items()},
+                torch.zeros_like(ps_weight))
+
     def pre_step(self, params: dict, state: GossipState):
         if not self.overlap:
             return params, state
+        tick = state.phase
+        if tick % self.gossip_every:
+            # non-firing step: nothing launches, a plain zero share rides
+            # the FIFO
+            return params, state.replace(
+                in_flight=state.in_flight[:-1]
+                + (self._zero_share(params, state.ps_weight),))
         names = list(params)
         local, incoming = collectives.overlap_launch(
-            _leaves(params, state.ps_weight), state.phase, self.schedule,
-            self.transport, **self._round_args())
+            _leaves(params, state.ps_weight), tick // self.gossip_every,
+            self.schedule, self.transport, **self._round_args())
         if not isinstance(incoming, collectives.PendingShares):
             incoming = _tree(names, incoming)
         params, ps_weight = _tree(names, local)
@@ -195,11 +224,16 @@ class PushSumGossip(GossipAlgorithm):
         return self.eval_params(params, state.replace(ps_weight=ps_weight))
 
     def post_step(self, params: dict, state: GossipState):
+        tick = state.phase
         if not self.overlap:
-            params, ps_weight = collectives.mix_push_sum(
-                params, state.ps_weight, state.phase, self.schedule,
-                self.transport, **self._round_args())
-            return params, state.replace(phase=state.phase + 1,
+            ps_weight = state.ps_weight
+            if tick % self.gossip_every == 0:
+                params, ps_weight = collectives.mix_push_sum(
+                    params, ps_weight, tick // self.gossip_every,
+                    self.schedule, self.transport, **self._round_args())
+            if self._averages_after(tick):
+                params, ps_weight = self.global_average(params, ps_weight)
+            return params, state.replace(phase=tick + 1,
                                          ps_weight=ps_weight)
         names = list(params)
         head = state.in_flight[0]
@@ -214,11 +248,42 @@ class PushSumGossip(GossipAlgorithm):
             if isinstance(slot, collectives.PendingShares):
                 slot = _tree(names, collectives.settle_share(slot))
             settled.append(slot)
-        empty = ({n: torch.zeros_like(p) for n, p in params.items()},
-                 torch.zeros_like(ps_weight))
-        return params, state.replace(phase=state.phase + 1,
-                                     ps_weight=ps_weight,
-                                     in_flight=tuple(settled) + (empty,))
+        in_flight = tuple(settled) + (self._zero_share(params, ps_weight),)
+        if self._averages_after(tick):
+            params, ps_weight, in_flight = self.global_average(
+                params, ps_weight, in_flight=in_flight)
+        return params, state.replace(phase=tick + 1, ps_weight=ps_weight,
+                                     in_flight=in_flight)
+
+    def _averages_after(self, tick: int) -> bool:
+        """Whether the step at ``tick`` ends in a global average."""
+        return (self.global_avg_every > 0
+                and (tick + 1) % self.global_avg_every == 0)
+
+    def global_average(self, params: dict, ps_weight: torch.Tensor,
+                       in_flight=None):
+        """Exact push-sum consensus now: ``x <- sum(params) /
+        sum(ps_weight)`` over every rank (``transport.allreduce_sum``),
+        and the weight resets to 1.  Mass conservation makes that ratio
+        the true parameter average under any column-stochastic mixing.
+
+        ``in_flight`` (the overlap FIFO, plain slots) is folded into
+        both sums first (:func:`drain_in_flight`: each pending share
+        counted exactly once) and returned drained.  Returns ``(params,
+        ps_weight)``, or ``(params, ps_weight, drained_fifo)`` with
+        ``in_flight``."""
+        drained = None
+        if in_flight is not None:
+            params, ps_weight, drained = drain_in_flight(params, ps_weight,
+                                                         in_flight)
+        tot_w = self.transport.allreduce_sum(ps_weight)
+        params = {n: self.transport.allreduce_sum(p)
+                  / tot_w.reshape((-1,) + (1,) * (p.dim() - 1)).to(p.dtype)
+                  for n, p in params.items()}
+        ps_weight = torch.ones_like(ps_weight)
+        if drained is None:
+            return params, ps_weight
+        return params, ps_weight, drained
 
 
 def all_reduce(transport) -> AllReduce:

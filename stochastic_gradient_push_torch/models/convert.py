@@ -20,6 +20,21 @@ bits), so a full-width model can be made without JAX.
 state across (params, the SGD momentum buffers, the push-sum weight, the
 phase, the step and an overlap run's in-flight FIFO), so the port and
 the reference can start from one state.
+
+**Vision models** (``models/resnet.py``, ``models/small.py``).
+:func:`vision_params_from_jax` maps a flax ``{"params", "batch_stats"}``
+pair onto the port's parameter and buffer names: the flax auto-names
+(``conv_init``, ``bn_init``, ``Bottleneck_{k}/Conv_{i}``,
+``.../BatchNorm_{i}``, ``conv_proj``, ``norm_proj``, ``fc``; ``Conv_{i}``,
+``BatchNorm_{i}``, ``Dense_{i}`` in the small models) become ``conv1``,
+``bn1``, ``layer{s}.{j}.conv{i+1}``, ``.downsample.{0,1}``, ``fc``.  HWIO
+convolution kernels become OIHW, Dense ``[in, out]`` becomes ``[out,
+in]``, BatchNorm ``scale``/``bias`` its weight/bias and ``batch_stats``
+``mean``/``var`` its ``running_mean``/``running_var``.  Every flax leaf
+must map and every port tensor must be fed.  :func:`init_model_params`
+draws a vision model's parameters from a seed with numpy, following the
+initializer each module carries (the reference's recipe), so a
+full-width model needs no JAX.
 """
 
 from __future__ import annotations
@@ -32,7 +47,8 @@ import torch
 from .transformer import TransformerConfig
 
 __all__ = ["params_from_jax", "init_params", "config_from_params",
-           "flatten_tree", "unflatten_tree", "train_state_from_jax"]
+           "flatten_tree", "unflatten_tree", "train_state_from_jax",
+           "vision_params_from_jax", "init_model_params"]
 
 # flax leaf name -> nn.Module parameter name
 _LEAF = {"embedding": "weight", "kernel": "weight", "scale": "weight",
@@ -136,15 +152,145 @@ def init_params(cfg: TransformerConfig, seed: int) -> dict:
     return tree
 
 
-def train_state_from_jax(state, device: str | torch.device = "cpu"):
-    """The reference's rank-stacked LM ``TrainState`` (leaves as numpy
+def _module_map(model) -> dict[str, str]:
+    """Port module name -> flax module path for a vision model."""
+    from .resnet import ResNet
+    from .small import TinyCNN, TinyMLP
+
+    if isinstance(model, TinyMLP):
+        return {"fc1": "Dense_0", "fc2": "Dense_1"}
+    if isinstance(model, TinyCNN):
+        out = {"fc": "Dense_0"}
+        for i in range(3):
+            out[f"conv{i}"], out[f"bn{i}"] = f"Conv_{i}", f"BatchNorm_{i}"
+        return out
+    if not isinstance(model, ResNet):
+        raise TypeError(f"no flax map for {type(model).__name__}")
+    out = {"conv1": "conv_init", "bn1": "bn_init", "fc": "fc"}
+    k = 0
+    for s in range(model.stages):
+        for j, block in enumerate(getattr(model, f"layer{s + 1}")):
+            flax = f"{type(block).__name__}_{k}"
+            port = f"layer{s + 1}.{j}"
+            n_conv = 3 if hasattr(block, "conv3") else 2
+            for i in range(n_conv):
+                out[f"{port}.conv{i + 1}"] = f"{flax}/Conv_{i}"
+                out[f"{port}.bn{i + 1}"] = f"{flax}/BatchNorm_{i}"
+            if block.downsample is not None:
+                out[f"{port}.downsample.0"] = f"{flax}/conv_proj"
+                out[f"{port}.downsample.1"] = f"{flax}/norm_proj"
+            k += 1
+    return out
+
+
+# flax leaf -> port leaf, per collection
+_VISION_LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",
+                ("params", "bias"): "bias",
+                ("batch_stats", "mean"): "running_mean",
+                ("batch_stats", "var"): "running_var"}
+
+
+def vision_params_from_jax(model, variables) -> tuple[dict, dict]:
+    """A vision model's flax ``{"params", "batch_stats"}`` (numpy or
+    array-like leaves, optionally with leading rank dims) as the port's
+    ``(params, batch_stats)`` dicts of fp32 CPU tensors.  Raises on a
+    flax leaf that maps to nothing and on a port tensor left unfed (of a
+    collection ``variables`` holds: a momentum tree comes as
+    ``{"params": tree}`` alone)."""
+    to_flax = _module_map(model)
+    to_port = {v: k for k, v in to_flax.items()}
+    want_p = dict(model.named_parameters())
+    want_b = dict(model.named_buffers())
+    params, stats = {}, {}
+    for coll, out in (("params", params), ("batch_stats", stats)):
+        for path, arr in flatten_tree(variables.get(coll, {})).items():
+            mod, _, leaf = path.rpartition("/")
+            if mod not in to_port or (coll, leaf) not in _VISION_LEAF:
+                raise ValueError(f"unmapped flax leaf {coll}/{path}")
+            name = f"{to_port[mod]}.{_VISION_LEAF[coll, leaf]}"
+            t = torch.from_numpy(np.array(arr, dtype=np.float32))
+            if leaf == "kernel" and name in want_p:
+                if want_p[name].dim() == 4:
+                    # [..., kh, kw, in, out] -> [..., out, in, kh, kw]
+                    t = t.movedim((-1, -2), (-4, -3))
+                else:   # [..., in, out] -> [..., out, in]
+                    t = t.transpose(-1, -2)
+                t = t.contiguous()
+            out[name] = t
+    for coll, got, want in (("params", params, want_p),
+                            ("batch_stats", stats, want_b)):
+        if coll not in variables:
+            continue
+        if set(got) != set(want):
+            raise ValueError(
+                f"flax {coll} do not cover the port's tensors: missing "
+                f"{sorted(set(want) - set(got))}, extra "
+                f"{sorted(set(got) - set(want))}")
+        for name, t in got.items():
+            if tuple(t.shape[t.dim() - want[name].dim():]) != tuple(
+                    want[name].shape):
+                raise ValueError(f"{name}: flax shape {tuple(t.shape)}, "
+                                 f"port {tuple(want[name].shape)}")
+    return params, stats
+
+
+def init_model_params(model, seed: int) -> tuple[dict, dict]:
+    """A vision model's fresh ``(params, batch_stats)`` (fp32 CPU
+    tensors, the port's names), drawn with numpy from ``seed`` with the
+    initializer each module carries: ``fan_out_normal`` (an untruncated
+    normal of variance ``2 / (out * kh * kw)``), ``lecun_normal``,
+    ``("normal", std)``; zero biases; BatchNorm scale ``scale_init`` and
+    running statistics 0 and 1.  The distributions of the flax
+    initializers, not their bits."""
+    from .resnet import BatchNorm, Conv2d, Linear
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for mod_name, mod in model.named_modules():
+        prefix = f"{mod_name}." if mod_name else ""
+        if isinstance(mod, Conv2d):
+            cout, cin, kh, kw = mod.weight.shape
+            shape = (cout, cin, kh, kw)
+            if mod.kernel_init == "fan_out_normal":
+                w = rng.standard_normal(shape, dtype=np.float32) * np.float32(
+                    np.sqrt(2.0 / (cout * kh * kw)))
+            else:
+                w = _lecun_normal(rng, cin * kh * kw, shape)
+            params[prefix + "weight"] = w
+        elif isinstance(mod, Linear):
+            cout, cin = mod.weight.shape
+            if mod.kernel_init == "lecun_normal":
+                w = _lecun_normal(rng, cin, (cout, cin))
+            else:
+                w = rng.standard_normal((cout, cin), dtype=np.float32) \
+                    * np.float32(mod.kernel_init[1])
+            params[prefix + "weight"] = w
+            params[prefix + "bias"] = np.zeros(cout, np.float32)
+        elif isinstance(mod, BatchNorm):
+            c = mod.weight.shape[0]
+            params[prefix + "weight"] = np.full(c, mod.scale_init,
+                                                np.float32)
+            params[prefix + "bias"] = np.zeros(c, np.float32)
+    missing = set(dict(model.named_parameters())) - set(params)
+    if missing:
+        raise ValueError(f"no initializer for {sorted(missing)}")
+    stats = {n: (torch.zeros if n.endswith("running_mean") else torch.ones)(
+        b.shape) for n, b in model.named_buffers()}
+    return {n: torch.from_numpy(a) for n, a in params.items()}, stats
+
+
+def train_state_from_jax(state, device: str | torch.device = "cpu",
+                         model=None):
+    """The reference's rank-stacked ``TrainState`` (leaves as numpy
     arrays, e.g. after ``jax.device_get``) as the port's
     :class:`~..train.state.TrainState`: params and the optimizer's trace
-    (momentum) buffers through :func:`params_from_jax`, the
-    ``GossipState`` ps-weight ``[R]`` as float32, the phase and the step
-    as ints (they are equal on every rank), and an overlap run's
-    in-flight FIFO (each slot's params through :func:`params_from_jax`,
-    its ps-weight ``[R]``)."""
+    (momentum) buffers, the ``GossipState`` ps-weight ``[R]`` as float32,
+    the phase and the step as ints (they are equal on every rank), and
+    an overlap run's in-flight FIFO (each slot's params mapped, its
+    ps-weight ``[R]``).  Without ``model`` the tree is the LM's
+    (:func:`params_from_jax`, no BatchNorm statistics); with a vision
+    ``model`` it goes through :func:`vision_params_from_jax` and the
+    ``batch_stats`` come along."""
     from ..algorithms.api import GossipState
     from ..train.state import TrainState
 
@@ -154,7 +300,11 @@ def train_state_from_jax(state, device: str | torch.device = "cpu"):
                          "opt_state (the reference's sgd chain)")
 
     def to_dev(tree):
-        return {n: t.to(device) for n, t in params_from_jax(tree).items()}
+        if model is None:
+            out = params_from_jax(tree)
+        else:
+            out = vision_params_from_jax(model, {"params": tree})[0]
+        return {n: t.to(device) for n, t in out.items()}
 
     def scalar(x):
         return int(np.asarray(x).reshape(-1)[0])
@@ -163,12 +313,16 @@ def train_state_from_jax(state, device: str | torch.device = "cpu"):
         w = np.asarray(x, np.float32).reshape(-1)
         return torch.from_numpy(w.copy()).to(device)
 
+    params, stats = to_dev(state.params), {}
+    if model is not None:
+        stats = {n: t.to(device) for n, t in vision_params_from_jax(
+            model, {"batch_stats": state.batch_stats})[1].items()}
     in_flight = tuple((to_dev(p), weight(w))
                       for p, w in getattr(state.gossip, "in_flight", None)
                       or ())
     return TrainState(
-        step=scalar(state.step), params=to_dev(state.params),
-        opt_state=to_dev(traces[0]),
+        step=scalar(state.step), params=params,
+        opt_state=to_dev(traces[0]), batch_stats=stats,
         gossip=GossipState(phase=scalar(state.gossip.phase),
                            ps_weight=weight(state.gossip.ps_weight),
                            in_flight=in_flight))

@@ -8,7 +8,9 @@ compiled by hand (no PyTorch headers, so a build takes seconds, not minutes)::
          -o build/sgp_torch_kernels/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/sgp_torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``), at first use, keyed by a hash of the source, the
+``.gitignore``), or for an installed package (no ``setup.py`` beside it)
+into ``sgp_torch_kernels/`` under ``$XDG_CACHE_HOME`` or ``~/.cache``
+(:func:`build_dir`), at first use, keyed by a hash of the source, the
 ``csrc/`` headers it includes with ``#include "..."`` (an edit to a
 header rebuilds each library that includes it, and no other) and the
 flags, with ``nvcc``'s output (``-Xptxas -v``'s registers, shared
@@ -33,11 +35,27 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KernelBuildError", "KernelLaunchError", "build", "check",
-           "load", "nvcc_path", "stream", "KERNELS"]
+__all__ = ["KernelBuildError", "KernelLaunchError", "build", "build_dir",
+           "check", "load", "nvcc_path", "stream", "KERNELS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgp_torch_kernels"
+
+
+def build_dir(package: Path, env=os.environ) -> Path:
+    """Where the libraries of the package at ``package`` are built: the
+    git-ignored ``build/sgp_torch_kernels`` of the checkout that holds
+    it (a directory with ``setup.py`` beside the package), else, for an
+    installed package, the per-user cache ``$XDG_CACHE_HOME`` (or
+    ``~/.cache``) ``/sgp_torch_kernels``."""
+    root = package.parent
+    if (root / "setup.py").is_file():
+        return root / "build" / "sgp_torch_kernels"
+    cache = env.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "sgp_torch_kernels"
+
+
+BUILD_DIR = build_dir(CSRC.parent)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -22,7 +22,9 @@ stacked on the card with the gossip transport kernels
 OSGP; ``--gossip_buckets`` sets the transport buckets.  ``pallas`` needs
 the card (``KernelBackendError`` on ``--device cpu``) and the stacked
 lane (refused under ``torchrun``: the cross-process transport kernel is
-not ported).
+not ported).  ``--gossip_every k`` fires a round every k-th step;
+``--global_avg_every k`` takes an exact global average every k steps
+(unset means off: the port has no topology planner).
 
 It runs on CUDA unless ``--device cpu``; ``--attn`` defaults to
 ``flash`` (the hand-written kernels, forward and backward, on CUDA).
@@ -52,7 +54,6 @@ UNPORTED = {
     "--synth_beam": (None, int, "the schedule synthesizer"),
     "--synth_phases": (None, int, "the schedule synthesizer"),
     "--gap_floor": (0.01, float, "the topology planner"),
-    "--global_avg_every": (None, int, "periodic global averaging"),
     "--slice_size": (None, int, "hierarchical gossip"),
     "--dcn_cost": (None, float, "the fabric-priced planner"),
     "--ici_cost": (None, float, "the fabric-priced planner"),
@@ -60,7 +61,6 @@ UNPORTED = {
     "--inject_faults": (None, str, "fault injection"),
     "--health_every": (0, int, "consensus health"),
     "--residual_floor": (0.01, float, "consensus health recovery"),
-    "--gossip_every": (1, int, "communication thinning"),
     "--error_feedback": ("False", str, "error feedback"),
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
     "--fleet": ("False", str, "fleet supervision"),
@@ -132,6 +132,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "'xla' (default) is the plain transport")
     p.add_argument("--gossip_buckets", default=1, type=int,
                    help="kernel-lane transport buckets per round")
+    p.add_argument("--gossip_every", default=1, type=int,
+                   help="gossip on every k-th step (communication "
+                        "thinning)")
+    p.add_argument("--global_avg_every", default=None, type=int,
+                   help="exact global average every k steps; unset or 0 "
+                        "= off (the reference's unset value lets its "
+                        "topology planner decide; the port has no planner "
+                        "yet, so unset means off)")
     p.add_argument("--lr", default=0.5, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--weight_decay", default=0.0, type=float)
@@ -211,6 +219,12 @@ def resolve_kernel_flag(args, device, launched: int):
     if args.gossip_buckets < 1:
         raise SystemExit("--gossip_buckets must be >= 1, got "
                          f"{args.gossip_buckets}")
+    if args.gossip_every < 1:
+        raise SystemExit("--gossip_every must be >= 1, got "
+                         f"{args.gossip_every}")
+    if (args.global_avg_every or 0) < 0:
+        raise SystemExit("--global_avg_every must be >= 0, got "
+                         f"{args.global_avg_every}")
     if launched > 1:
         if args.gossip_kernel == "pallas":
             raise SystemExit(
@@ -276,9 +290,11 @@ def main(argv=None) -> dict:
         attn_impl=args.attn)
     if sb(args.all_reduce):
         if (args.wire_dtype is not None or sb(args.overlap)
-                or args.gossip_kernel != "xla" or args.gossip_buckets != 1):
+                or args.gossip_kernel != "xla" or args.gossip_buckets != 1
+                or args.gossip_every != 1 or args.global_avg_every):
             raise SystemExit("--wire_dtype/--overlap/--gossip_kernel/"
-                             "--gossip_buckets tune the push-sum gossip; "
+                             "--gossip_buckets/--gossip_every/"
+                             "--global_avg_every tune the push-sum gossip; "
                              "they do not apply to --all_reduce True")
         alg = all_reduce(transport)
     else:
@@ -288,7 +304,9 @@ def main(argv=None) -> dict:
                   wire=get_codec(args.wire_dtype, args.wire_block),
                   overlap=sb(args.overlap),
                   staleness=max(1, args.staleness), gossip_kernel=lane,
-                  gossip_buckets=args.gossip_buckets)
+                  gossip_buckets=args.gossip_buckets,
+                  gossip_every=args.gossip_every,
+                  global_avg_every=args.global_avg_every or 0)
     tx = sgd(momentum=args.momentum, weight_decay=args.weight_decay,
              nesterov=sb(args.nesterov))
     # the reference's step-based warmup horizon and LR scaling over the

@@ -28,6 +28,7 @@ from torch.func import functional_call
 from ..algorithms.api import GossipAlgorithm
 from ..models.convert import init_params, params_from_jax
 from ..models.transformer import TransformerConfig, TransformerLM
+from .metrics import global_norm
 from .state import TrainState
 
 __all__ = ["lm_loss", "build_lm_train_step", "init_lm_state", "make_model"]
@@ -47,13 +48,6 @@ def make_model(cfg: TransformerConfig) -> TransformerLM:
     so it holds no weights of its own."""
     with torch.device("meta"):
         return TransformerLM(cfg)
-
-
-def _global_norm(grads: dict) -> torch.Tensor:
-    """Per-rank L2 norm over all leaves ``[R]`` (the ``grad_norm``
-    metric, utils/flatten.py::global_norm there)."""
-    return torch.sqrt(sum(g.float().square().flatten(1).sum(1)
-                          for g in grads.values()))
 
 
 def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
@@ -104,7 +98,7 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
         params, gstate = algorithm.post_step(params, gstate)
 
         metrics = {"loss": loss, "ppl": torch.exp(loss), "lr": lr,
-                   "grad_norm": _global_norm(grads)}
+                   "grad_norm": global_norm(grads)}
         return TrainState(step=step + 1, params=params,
                           opt_state=opt_state, gossip=gstate), metrics
 

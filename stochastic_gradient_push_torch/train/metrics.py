@@ -1,0 +1,57 @@
+"""Loss and accuracy metrics of the training harness.
+
+Port of ``stochastic_gradient_push_tpu/train/metrics.py``: the KLDiv
+loss of log-softmax against (possibly smoothed) one-hot targets with
+batchmean reduction, top-k precision in percent, and the gradient's
+global L2 norm per rank.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["one_hot", "kl_div_loss", "accuracy_topk", "global_norm"]
+
+
+def one_hot(labels: torch.Tensor, num_classes: int,
+            label_smoothing: float = 0.0) -> torch.Tensor:
+    """float32 one-hot targets ``[..., num_classes]``, optionally
+    smoothed: ``t * (1 - s) + s / num_classes``."""
+    targets = torch.nn.functional.one_hot(labels.long(),
+                                          num_classes).to(torch.float32)
+    if label_smoothing:
+        targets = (targets * (1.0 - label_smoothing)
+                   + label_smoothing / num_classes)
+    return targets
+
+
+def kl_div_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``KLDivLoss(reduction='batchmean')(log_softmax(logits), target)``:
+    KL(target || softmax(logits)) summed over classes, averaged over the
+    batch; a zero target contributes 0 (``0 * log 0 = 0``)."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    target = target.float()
+    pos = target > 0
+    entropy = torch.where(pos, target * torch.log(
+        torch.where(pos, target, torch.ones_like(target))),
+        torch.zeros_like(target))
+    return (entropy - target * log_probs).sum() / logits.shape[0]
+
+
+def accuracy_topk(logits: torch.Tensor, labels: torch.Tensor,
+                  topk=(1, 5)) -> tuple[torch.Tensor, ...]:
+    """Precision@k in percent for each k of ``topk``.  Ties rank as the
+    reference's reversed stable argsort ranks them (the higher class
+    index first)."""
+    maxk = max(topk)
+    idx = torch.argsort(logits, dim=-1, stable=True).flip(-1)[:, :maxk]
+    correct = idx == labels.long()[:, None]
+    return tuple(100.0 * correct[:, :k].any(-1).float().mean()
+                 for k in topk)
+
+
+def global_norm(grads: dict) -> torch.Tensor:
+    """Per-rank L2 norm over every leaf of rank-stacked gradients
+    ``[R, ...]`` (``utils/flatten.py::global_norm`` there): ``[R]``."""
+    return torch.sqrt(sum(g.float().square().flatten(1).sum(1)
+                          for g in grads.values()))

@@ -2,9 +2,9 @@
 
 Port of ``stochastic_gradient_push_tpu/train/state.py``.  The state is
 one value: the step counter, the rank-stacked parameters (the push-sum
-numerators), the optimizer's momentum buffers and the
-:class:`~..algorithms.api.GossipState`.  The LM carries no BatchNorm
-statistics, so there is no ``batch_stats`` field yet.
+numerators), the optimizer's momentum buffers, the
+:class:`~..algorithms.api.GossipState` and the BatchNorm running
+statistics (empty for the LM).
 """
 
 from __future__ import annotations
@@ -28,12 +28,16 @@ class TrainState:
         *numerator* for SGP (the optimizer steps these directly).
       opt_state: ``{name: tensor [R, ...]}`` SGD momentum buffers.
       gossip: :class:`GossipState`.
+      batch_stats: ``{buffer name: tensor [R, C]}`` BatchNorm running
+        statistics, rank-local and never gossiped (the reference keeps
+        BN buffers rank-local too); empty for models without BatchNorm.
     """
 
     step: int
     params: dict
     opt_state: dict
     gossip: GossipState
+    batch_stats: dict = dataclasses.field(default_factory=dict)
 
 
 class SGD:

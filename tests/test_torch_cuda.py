@@ -25,7 +25,13 @@ against the CPU from the same inputs.  World 1 on the card never
 exercises those (device placement of the collectives' index gathers and
 weights).  Tolerances there: loss 1e-5 relative, params 1e-5 absolute
 after a step and 1e-6 after rounds, the push-sum weight exactly equal.
+Thinned and averaged SGP/OSGP steps on the kernel lane (launches per
+fired and skipped step) against the plain and interpret lanes, and a
+ResNet-18 step on the card against the CPU (params and BatchNorm
+statistics 5e-5).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -537,3 +543,127 @@ def test_stacked_world4_osgp_step_on_the_kernel_lane(cuda):
         for n in ks.params:
             assert float((ks.params[n].cpu()
                           - other_state.params[n].cpu()).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("overlap,staleness", [(False, 1), (True, 1),
+                                               (True, 2)])
+def test_thinned_and_averaged_steps_on_the_kernel_lane(cuda, overlap,
+                                                       staleness):
+    """``gossip_every=2``, ``global_avg_every=3`` on the card: the kernel
+    lane against the plain lane and the CPU's interpret lane over 7 steps
+    of SGD on a quadratic; a fired step launches one start and one wait
+    per bucket, a skipped step none; the push-sum weight bit-equal."""
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(4, 2))
+    r = np.random.default_rng(4)
+    # two payload leaves: two transport buckets
+    x0, tg = ({n: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+               for n, s in (("a", (4, 7, 33)), ("b", (4, 300)))}
+              for _ in range(2))
+    runs = []
+    for dev, lane in ((cuda, tgk.KernelLane(chunk_elems=128)), (cuda, None),
+                      (torch.device("cpu"),
+                       tgk.KernelLane(interpret=True, chunk_elems=128))):
+        alg = sgp(sched, StackedTransport(4), overlap=overlap,
+                  staleness=staleness, gossip_every=2, global_avg_every=3,
+                  gossip_kernel=lane, gossip_buckets=2)
+        params = {n: t.to(dev) for n, t in x0.items()}
+        target = {n: t.to(dev) for n, t in tg.items()}
+        gstate = alg.init(params)
+        for tick in range(7):
+            before = (tgk.gossip_edge_start.launches,
+                      tgk.gossip_edge_wait.launches)
+            params, gstate = alg.pre_step(params, gstate)
+            z = alg.eval_params(params, gstate)
+            params = {n: p - 0.1 * (z[n] - target[n])
+                      for n, p in params.items()}
+            params, gstate = alg.post_step(params, gstate)
+            torch.cuda.synchronize()
+            if dev.type == "cuda" and lane is not None:
+                n = 2 if tick % 2 == 0 else 0
+                assert (tgk.gossip_edge_start.launches - before[0],
+                        tgk.gossip_edge_wait.launches - before[1]) == (n, n)
+        runs.append(({n: t.cpu() for n, t in params.items()},
+                     gstate.ps_weight.cpu()))
+    (kw, kp), (pw, pp), (cw, cp) = runs
+    for w, p in ((pw, pp), (cw, cp)):
+        assert torch.equal(kp, p)
+        for n in kw:
+            assert float((kw[n] - w[n]).abs().max()) <= 1e-6
+
+
+def test_resnet_step_on_cuda_matches_cpu(cuda):
+    """One SGP step of ResNet-18 (CIFAR stem, 32 px, batch 4, world 4
+    stacked, a fired round) on the card, TF32 off and cuDNN
+    deterministic, against the same step on the CPU in fp32 and in fp64:
+    losses 1e-5 relative, the push-sum weight equal, and the card's
+    params and BatchNorm statistics no farther from the fp64 step than
+    twice the CPU's fp32 step is (+1e-5).  cuDNN and the CPU sum the
+    convolutions in other orders, and the last stage's BatchNorm (64
+    values a channel) amplifies it: on an H100 the two fp32 steps'
+    params differed by up to 6.6e-5."""
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+    from stochastic_gradient_push_torch.train.step import (
+        build_train_step, init_train_state, make_model)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    r = np.random.default_rng(1)
+    x = torch.from_numpy(r.standard_normal((4, 4, 32, 32, 3)).astype(
+        np.float32))
+    y = torch.from_numpy(r.integers(0, 10, (4, 4)))
+    runs = []
+    try:
+        for dev, dtype in ((cuda, torch.float32),
+                           (torch.device("cpu"), torch.float32),
+                           (torch.device("cpu"), torch.float64)):
+            model = make_model("resnet18", num_classes=10, small_images=True,
+                               dtype=dtype)
+            alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(4)),
+                      StackedTransport(4))
+            tx = sgd(0.9, 1e-4, nesterov=True)
+            step = build_train_step(model, alg, tx,
+                                    LRSchedule(0.1, 4, 4, warmup=True), 100,
+                                    10)
+            state = init_train_state(model, alg, tx, 4, seed=2, device=dev)
+            if dtype == torch.float64:
+                def up(tree):
+                    return {n: t.double() for n, t in tree.items()}
+
+                state = dataclasses.replace(
+                    state, params=up(state.params),
+                    opt_state=up(state.opt_state),
+                    batch_stats=up(state.batch_stats),
+                    gossip=state.gossip.replace(
+                        ps_weight=state.gossip.ps_weight.double()))
+            state, m = step(state, x.to(dev, dtype), y.to(dev))
+            runs.append((state, m["loss"].cpu()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.allow_tf32 = tf32
+    (gs, gl), (cs, cl), (es, _) = runs
+    torch.testing.assert_close(gl, cl, rtol=1e-5, atol=0)
+    assert torch.equal(gs.gossip.ps_weight.cpu(), cs.gossip.ps_weight)
+
+    def err(a, b):
+        return max(float((a[n].cpu().double() - b[n]).abs().max())
+                   for n in b)
+
+    for tree in ("params", "batch_stats"):
+        g, c, e = (getattr(st, tree) for st in (gs, cs, es))
+        assert all(t.device.type == "cuda" for t in g.values())
+        assert err(g, e) <= 2 * err(c, e) + 1e-5, (tree, err(g, e),
+                                                    err(c, e))

@@ -107,11 +107,11 @@ def test_reference_flags_parse_with_reference_defaults():
 
 @pytest.mark.parametrize("flag,value", [
     ("--sp", "2"), ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
-    ("--global_avg_every", "4"), ("--bilat", "True"),
+    ("--slice_size", "2"), ("--bilat", "True"),
     ("--precision", "bf16"), ("--inject_faults", "drop:0->1@0:4"),
     ("--resume", "True"),
     ("--checkpoint_dir", "/tmp/x"), ("--health_every", "10"),
-    ("--moe_experts", "4"), ("--gossip_every", "2"),
+    ("--moe_experts", "4"), ("--mixing_alpha", "0.5"),
     ("--error_feedback", "True"), ("--trace_dir", "/tmp/x"),
 ])
 def test_unported_flags_raise_naming_the_flag(flag, value):

@@ -80,6 +80,11 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.algorithms.algorithms",
                 "stochastic_gradient_push_torch.topology.graphs",
                 "stochastic_gradient_push_torch.data.lm",
+                "stochastic_gradient_push_torch.data.synthetic",
+                "stochastic_gradient_push_torch.models.resnet",
+                "stochastic_gradient_push_torch.models.small",
+                "stochastic_gradient_push_torch.train.step",
+                "stochastic_gradient_push_torch.run.dryrun",
                 "chip_smoke"}
     assert expected <= set(result["imported"])
     assert not [m for m in result["loaded"]

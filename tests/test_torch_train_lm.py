@@ -258,8 +258,6 @@ def test_unported_attention_and_algorithm_options_raise():
         world_size, ranks = 2, np.array([0])
 
     for kwargs, name in (({"faults": object()}, "fault injection"),
-                         ({"gossip_every": 2}, "thinning"),
-                         ({"global_avg_every": 4}, "global averaging"),
                          ({"error_feedback": True}, "error feedback")):
         with pytest.raises(NotImplementedError, match=name):
             talg.sgp(sched, StackedTransport(2), **kwargs)
