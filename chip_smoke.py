@@ -73,7 +73,30 @@
    push-sum weight is exactly 1.0 after each global average (and the
    FIFO drained); median step ms, images/s, peak memory and
    ``replica_spread`` are printed.
-8. A JSON line of per-kernel results (the flash rows also carry
+8. The training CLI, ``run/gossip_sgd.py``, at ResNet-50's full width
+   (224 px, 1000 classes, fp32, TF32 off), world 4 stacked, 32 images a
+   rank, synthetic data (seed 0), two epochs of three iterations with
+   validation, each run with the counters zeroed just before:
+   - SGP and D-PSGD (``--push_sum False``) on the kernel lane
+     (``--gossip_kernel pallas``): one start and one wait per step, no
+     other kernel; the rank-averaged CSV's header and its 10 rows; one
+     checkpoint file per rank.  Their step times (the trainer's own
+     ``BT`` meter, each epoch's first step left out) are printed.
+   - D-PSGD on the kernel lane against ``--gossip_kernel xla``: two
+     steps from one state (seed 0) under deterministic cuDNN, params
+     within 1e-6 (the saved rank files).
+   - AD-PSGD through ``run/gossip_sgd_adpsgd.py`` (graph 1): no gossip
+     kernel launched; one bilateral round on ResNet-50's parameters on
+     the card equal, bit for bit, to ``(x + x[partner]) * 0.5`` gathered
+     to the host.
+   - Resume equals continue: OSGP (staleness 2) on the kernel lane for
+     two epochs straight, and for one epoch then ``--resume True`` in a
+     fresh run, under deterministic cuDNN: every rank file's params,
+     momentum, push-sum weight and FIFO exactly equal.
+   - Preemption: a subprocess run of the CLI (OSGP, ``--overlap True``)
+     gets SIGUSR1 once it is training; it must exit 75 and leave the
+     four rank files with a drained (all-zero) FIFO.
+9. A JSON line of per-kernel results (the flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound; the paged-decode row
    ``device_ms`` and ``host_ms``), the ``nvidia-smi``
    name/power-limit line, and as the last line ``{"ok": true, "device":
@@ -89,9 +112,12 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -112,6 +138,12 @@ GOSSIP_CHECKS = (("f32", 1), ("f32", 2), ("bf16", 1), ("bf16", 2),
 RESNET = dict(model="resnet50", num_classes=1000, image=224, batch=32,
               world=4, steps=8, gossip_every=2, global_avg_every=4,
               dtype="fp32")
+# the CLI phase: run/gossip_sgd.py at ResNet-50's width, world 4 stacked,
+# two epochs of three iterations (the training set is exactly three
+# world batches)
+CLI = dict(model="resnet50", image=224, num_classes=1000, world=4, batch=32,
+           epochs=2, itrs=3)
+PREEMPT_TIMEOUT_S = 300
 # H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores, TF32
 # tensor-core rate (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -928,13 +960,15 @@ def gossip_train_path(card: str, label: str, wire: str, overlap: bool,
 
 
 def _resnet_setup(cfg: dict, wire, overlap: bool, staleness: int,
-                  peers: int, buckets: int, gossip_kernel=None):
-    """ResNet SGP (or OSGP with ``overlap``) at ``cfg``'s size and
-    dtype, thinned and averaged, over the n-peer exponential graph at
-    ``cfg["world"]`` ranks stacked on the card."""
+                  peers: int, buckets: int, gossip_kernel=None,
+                  push_sum: bool = True):
+    """ResNet SGP (or OSGP with ``overlap``; D-PSGD without
+    ``push_sum``, unthinned) at ``cfg``'s size and dtype, thinned and
+    averaged, over the n-peer exponential graph at ``cfg["world"]``
+    ranks stacked on the card."""
     import torch
 
-    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.algorithms import dpsgd, sgp
     from stochastic_gradient_push_torch.parallel.collectives import (
         StackedTransport)
     from stochastic_gradient_push_torch.parallel.wire import get_codec
@@ -946,12 +980,19 @@ def _resnet_setup(cfg: dict, wire, overlap: bool, staleness: int,
         build_train_step, make_model)
 
     world = cfg["world"]
-    alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(
-        world, peers_per_itr=peers)), StackedTransport(world),
-        wire=get_codec(wire), overlap=overlap, staleness=staleness,
-        gossip_kernel=gossip_kernel, gossip_buckets=buckets,
-        gossip_every=cfg["gossip_every"],
-        global_avg_every=cfg["global_avg_every"])
+    schedule = build_schedule(NPeerDynamicDirectedExponentialGraph(
+        world, peers_per_itr=peers))
+    if push_sum:
+        alg = sgp(schedule, StackedTransport(world), wire=get_codec(wire),
+                  overlap=overlap, staleness=staleness,
+                  gossip_kernel=gossip_kernel, gossip_buckets=buckets,
+                  gossip_every=cfg["gossip_every"],
+                  global_avg_every=cfg["global_avg_every"])
+    else:
+        alg = dpsgd(schedule, StackedTransport(world), overlap=overlap,
+                    staleness=staleness, gossip_kernel=gossip_kernel,
+                    gossip_buckets=buckets,
+                    global_avg_every=cfg["global_avg_every"])
     tx = sgd(momentum=0.9, weight_decay=1e-4, nesterov=True)
     model = make_model(cfg["model"], num_classes=cfg["num_classes"],
                        dtype={"fp32": torch.float32,
@@ -1094,6 +1135,294 @@ def resnet_train_path(card: str, label: str, wire: str, overlap: bool,
     return launches
 
 
+def _cli_argv(ckpt_dir: str, *extra: str, epochs: int | None = None):
+    c = CLI
+    return ["--model", c["model"], "--image_size", str(c["image"]),
+            "--num_classes", str(c["num_classes"]), "--dataset", "synthetic",
+            "--world_size", str(c["world"]), "--batch_size", str(c["batch"]),
+            "--num_epochs", str(epochs or c["epochs"]),
+            "--num_iterations_per_training_epoch", str(c["itrs"]),
+            "--synthetic_samples", str(c["world"] * c["batch"] * c["itrs"]),
+            "--num_itr_ignore", "1", "--print_freq", "1", "--seed", "0",
+            "--verbose", "False", "--checkpoint_dir", ckpt_dir, *extra]
+
+
+def _rank_files(ckpt_dir: str) -> list[dict]:
+    import torch
+
+    return [torch.load(os.path.join(ckpt_dir, f"checkpoint_r{r}_n"
+                                    f"{CLI['world']}.ckpt"),
+                       weights_only=True)["state"]
+            for r in range(CLI["world"])]
+
+
+def _flat(row: dict) -> dict:
+    """Every tensor of a rank file's state, by a path name."""
+    out = {f"params/{n}": t for n, t in row["params"].items()}
+    out.update({f"opt_state/{n}": t for n, t in row["opt_state"].items()})
+    out.update({f"batch_stats/{n}": t
+                for n, t in row["batch_stats"].items()})
+    out["ps_weight"] = row["gossip"]["ps_weight"]
+    for k, slot in enumerate(row["gossip"]["in_flight"]):
+        out[f"in_flight{k}/ps_weight"] = slot["ps_weight"]
+        out.update({f"in_flight{k}/{n}": t
+                    for n, t in slot["params"].items()})
+    return out
+
+
+def _cli_run(label: str, argv, card: str, module=None) -> tuple[dict, dict]:
+    """One in-process run of the CLI with every counter zeroed just
+    before: its launches and its result."""
+    import torch
+
+    from stochastic_gradient_push_torch.run import gossip_sgd
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = (module or gossip_sgd).main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    bt = result["batch_meter"]
+    print(f"cli {label}: {wall:.2f} s in main (data, {CLI['epochs']} "
+          f"epochs of {CLI['itrs']} steps, validation, checkpoints); step "
+          f"(BT meter, {bt.count} timed steps) mean {bt.avg * 1e3:.2f} ms, "
+          f"std {bt.std * 1e3:.2f} ms, "
+          f"{CLI['world'] * CLI['batch'] / bt.avg:.1f} images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{json.dumps(launches)} [{card}]", flush=True)
+    return launches, result
+
+
+def _check_csv(path: str, label: str) -> None:
+    """The rank-averaged CSV: the reference's header block and, per
+    epoch, a row per iteration, the epoch's closing row and a
+    validation row."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    head = ["BEGIN-TRAINING", f"World-Size,{CLI['world']}",
+            "Num-DLWorkers,8", f"Batch-Size,{CLI['batch']}",
+            "Epoch,itr,BT(s),avg:BT(s),std:BT(s),NT(s),avg:NT(s),std:NT(s),"
+            "DT(s),avg:DT(s),std:DT(s),Loss,avg:Loss,Prec@1,avg:Prec@1,"
+            "Prec@5,avg:Prec@5,val"]
+    if lines[:5] != head:
+        raise AssertionError(f"cli {label}: CSV header {lines[:5]}")
+    rows = [r.split(",") for r in lines[5:]]
+    want = [(str(e), str(i)) for e in range(CLI["epochs"])
+            for i in [*range(CLI["itrs"]), CLI["itrs"] - 1, -1]]
+    if [tuple(r[:2]) for r in rows] != want or any(len(r) != 18
+                                                   for r in rows):
+        raise AssertionError(f"cli {label}: CSV rows {rows}")
+    for r in rows:
+        vals = [float(v) for v in r[2:]]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"cli {label}: non-finite CSV row {r}")
+        if r[1] == "-1" and not 0.0 <= vals[-1] <= 100.0:
+            raise AssertionError(f"cli {label}: validation value {r}")
+    print(f"cli {label}: CSV {os.path.basename(path)}: header and "
+          f"{len(rows)} rows as the reference writes them; last training "
+          f"row {','.join(rows[-2][11:])}; validation top-1 {rows[-1][-1]}",
+          flush=True)
+
+
+def _assert_gossip_launches(label: str, launches: dict, per_step: int):
+    steps = CLI["epochs"] * CLI["itrs"]
+    want = {n: 0 for n in launches}
+    want["gossip_edge_start"] = want["gossip_edge_wait"] = per_step * steps
+    if launches != want:
+        raise AssertionError(f"cli {label}: launches {launches}, expected "
+                             f"{want} ({per_step} start and wait a step)")
+
+
+def _bilat_round_check(card: str) -> None:
+    """One AD-PSGD round (``post_step``) on ResNet-50's parameters on the
+    card against ``(x + x[partner]) * 0.5`` computed on the host."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.algorithms import adpsgd
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.topology import (
+        DynamicBipartiteExponentialGraph, build_pairing_schedule)
+    from stochastic_gradient_push_torch.train.state import sgd
+    from stochastic_gradient_push_torch.train.step import (
+        init_train_state, make_model)
+
+    world = CLI["world"]
+    pairing = build_pairing_schedule(DynamicBipartiteExponentialGraph(world))
+    alg = adpsgd(pairing, StackedTransport(world))
+    model = make_model(CLI["model"], num_classes=CLI["num_classes"])
+    state = init_train_state(model, alg, sgd(), world, seed=0,
+                             device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = {n: p + torch.randn(p.shape, generator=g, device="cuda")
+              for n, p in state.params.items()}
+    gstate = state.gossip.replace(phase=1)
+    mixed, after = alg.post_step(params, gstate)
+    torch.cuda.synchronize()
+    row = pairing[1 % len(pairing)]
+    bad = [n for n, p in params.items()
+           if not np.array_equal(mixed[n].cpu().numpy(),
+                                 (p.cpu().numpy() + p.cpu().numpy()[row])
+                                 * np.float32(0.5))]
+    print(f"cli adpsgd: one bilateral round on {len(params)} {CLI['model']} "
+          f"tensors ({sum(p[0].numel() for p in params.values()):,} values a "
+          f"rank), partners {row.tolist()}: {len(params) - len(bad)} of "
+          f"{len(params)} bit-equal to the host's (x + x[partner]) * 0.5 "
+          f"[{card}]", flush=True)
+    if bad or after.phase != 2:
+        raise AssertionError(f"cli adpsgd: round differs in {bad[:5]}")
+
+
+def _preempt_check(tmp: str, card: str) -> None:
+    """SIGUSR1 to a subprocess CLI run once it trains: exit 75, rank
+    files with a drained FIFO."""
+    import torch
+
+    ckpt = os.path.join(tmp, "preempt")
+    argv = _cli_argv(ckpt, "--overlap", "True", "--staleness", "2",
+                     "--gossip_kernel", "pallas", epochs=50)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    log_path = os.path.join(tmp, "preempt.log")
+    csv_path = os.path.join(ckpt, f"out_r0_n{CLI['world']}.csv")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "stochastic_gradient_push_torch.run.gossip_sgd", *argv],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None:
+                if time.perf_counter() - t0 > PREEMPT_TIMEOUT_S:
+                    raise AssertionError("cli preempt: no training row")
+                if os.path.exists(csv_path):
+                    with open(csv_path) as f:
+                        if len(f.read().splitlines()) >= 7:
+                            break
+                time.sleep(0.2)
+            signalled = time.perf_counter() - t0
+            proc.send_signal(signal.SIGUSR1)
+            code = proc.wait(timeout=PREEMPT_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        tail = f.read()[-2000:]
+    if code != 75:
+        raise AssertionError(f"cli preempt: exit {code}, expected 75:\n"
+                             f"{tail}")
+    rows = _rank_files(ckpt)
+    fifo = [t for row in rows for slot in row["gossip"]["in_flight"]
+            for t in [slot["ps_weight"], *slot["params"].values()]]
+    drained = len(fifo) > 0 and not any(bool(t.any()) for t in fifo)
+    meta = json.loads(torch.load(os.path.join(
+        ckpt, f"checkpoint_r0_n{CLI['world']}.ckpt"),
+        weights_only=True)["meta"])
+    print(f"cli preempt: SIGUSR1 at {signalled:.1f} s into the run, exit "
+          f"{code} after {time.perf_counter() - t0:.1f} s; {len(rows)} rank "
+          f"files at epoch {meta['epoch']} itr {meta['itr']}, step "
+          f"{rows[0]['step']}, FIFO of {len(rows[0]['gossip']['in_flight'])} "
+          f"slots drained: {drained} [{card}]", flush=True)
+    if not drained or meta["itr"] < 1:
+        raise AssertionError("cli preempt: the FIFO on disk is not drained")
+
+
+def cli_path(card: str) -> dict:
+    """Phase 8: the training CLI at ResNet-50's width."""
+    import torch
+
+    from stochastic_gradient_push_torch.run import gossip_sgd_adpsgd
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(ROOT, "build"))
+    try:
+        print(f"cli: run/gossip_sgd.py, {CLI['model']} {CLI['image']} px, "
+              f"{CLI['num_classes']} classes, world {CLI['world']} stacked, "
+              f"batch {CLI['batch']}/rank, fp32, {CLI['epochs']} epochs of "
+              f"{CLI['itrs']} steps", flush=True)
+        main_runs = []
+        for label, extra in (("sgp", []), ("dpsgd", ["--push_sum", "False"])):
+            ckpt = os.path.join(tmp, label)
+            launches, _ = _cli_run(label, _cli_argv(
+                ckpt, "--gossip_kernel", "pallas", *extra), card)
+            _assert_gossip_launches(label, launches, 1)
+            _check_csv(os.path.join(ckpt, f"out_r0_n{CLI['world']}.csv"),
+                       label)
+            if len(_rank_files(ckpt)) != CLI["world"]:
+                raise AssertionError(f"cli {label}: rank files missing")
+            main_runs.append(launches)
+
+        # D-PSGD: the kernel lane against the plain lane, two steps from
+        # one state under deterministic cuDNN
+        torch.backends.cudnn.deterministic = True
+        try:
+            lanes = {}
+            for lane in ("pallas", "xla"):
+                ckpt = os.path.join(tmp, f"lane_{lane}")
+                _cli_run(f"dpsgd {lane} lane", _cli_argv(
+                    ckpt, "--push_sum", "False", "--gossip_kernel", lane,
+                    "--num_iterations_per_training_epoch", "2", epochs=1),
+                    card)
+                lanes[lane] = [_flat(r) for r in _rank_files(ckpt)]
+            err = max(_max_err(a[n], b[n]) for a, b in zip(
+                lanes["pallas"], lanes["xla"]) for n in a)
+            exact = all(torch.equal(a[n], b[n]) for a, b in zip(
+                lanes["pallas"], lanes["xla"]) for n in a)
+            print(f"cli dpsgd: kernel lane vs plain lane, 2 steps from one "
+                  f"state: max |diff| {err:.3e} over params, momentum and "
+                  f"statistics (tolerance {TOL_STEP_PARAM}), exactly equal: "
+                  f"{exact} [{card}]", flush=True)
+            if not err <= TOL_STEP_PARAM:
+                raise AssertionError("cli dpsgd: the lanes differ")
+
+            # AD-PSGD: no gossip kernel, and one round exact
+            launches, _ = _cli_run("adpsgd", _cli_argv(
+                os.path.join(tmp, "adpsgd"), "--graph_type", "1"), card,
+                module=gossip_sgd_adpsgd)
+            if any(launches.values()):
+                raise AssertionError(f"cli adpsgd: launches {launches}")
+            _bilat_round_check(card)
+
+            # resume equals continue: OSGP, staleness 2, kernel lane
+            osgp = ("--overlap", "True", "--staleness", "2",
+                    "--gossip_kernel", "pallas")
+            straight = os.path.join(tmp, "straight")
+            split = os.path.join(tmp, "split")
+            for label, ckpt, epochs, resume in (
+                    ("osgp straight", straight, 2, "False"),
+                    ("osgp first epoch", split, 1, "False"),
+                    ("osgp resumed", split, 2, "True")):
+                launches, _ = _cli_run(label, _cli_argv(
+                    ckpt, *osgp, "--resume", resume, epochs=epochs), card)
+                main_runs.append(launches)
+            a = [_flat(r) for r in _rank_files(straight)]
+            b = [_flat(r) for r in _rank_files(split)]
+            steps = [(r["step"], r["gossip"]["phase"])
+                     for r in _rank_files(split)]
+            err = max(_max_err(x[n], y[n]) for x, y in zip(a, b) for n in x)
+            exact = all(torch.equal(x[n], y[n]) for x, y in zip(a, b)
+                        for n in x)
+            print(f"cli osgp: resumed vs straight after {CLI['epochs']} "
+                  f"epochs (step, phase {steps[0]}): {len(a[0])} tensors a "
+                  f"rank, exactly equal: {exact}, max |diff| {err:.3e} "
+                  f"[{card}]", flush=True)
+            if not exact:
+                raise AssertionError("cli osgp: resume differs from "
+                                     "continue")
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+        _preempt_check(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {n: sum(run[n] for run in main_runs) for n in main_runs[0]}
+
+
 def main() -> int:
     import torch
 
@@ -1136,13 +1465,16 @@ def main() -> int:
     resnet_sgp = resnet_train_path(card, "sgp", "f32", False, 1, 1, 1, 1)
     torch.cuda.empty_cache()
     resnet_osgp = resnet_train_path(card, "osgp", "bf16", True, 2, 2, 3, 2)
+    torch.cuda.empty_cache()
+    cli_launches = cli_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
-    # and OSGP at world 4, ResNet SGP and OSGP at world 4) summed
+    # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
+    # D-PSGD and OSGP runs) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
-            resnet_sgp, resnet_osgp))
+            resnet_sgp, resnet_osgp, cli_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -6,7 +6,7 @@
         --gossip_kernel pallas --wire_dtype int8 [--overlap True \\
         --staleness 2 --peers_per_itr 2 --gossip_buckets 3]
     python3 scripts/torch_train_profile.py --model resnet50 --world_size 4 \\
-        --gossip_kernel pallas [--dtype bf16 --batch 128]
+        --gossip_kernel pallas [--dtype bf16 --batch 128] [--push_sum False]
 
 Builds the training main path of ``chip_smoke.py`` (the d768/L12/h12/
 ff3072/vocab32000 LM, T1024, B8 per rank, fp32 with TF32 off; SGP or
@@ -21,9 +21,10 @@ and, at world > 1, the gossip kernels' share of the device time.
 ``--model resnet50`` profiles ``chip_smoke.py``'s ResNet main path
 instead (ResNet-50, 224 px, 1000 classes, ``--batch`` images a rank,
 ``--dtype`` fp32 with TF32 off or bf16, synthetic images from seed 0,
-``train/step.py``'s step, every step a fired round): the device time
-split into convolutions (cuDNN), the gossip kernels and the rest
-(BatchNorm, ReLU, pooling, SGD and the round's elementwise work).
+``train/step.py``'s step, every step a fired round; D-PSGD with
+``--push_sum False``): the device time split into convolutions (cuDNN),
+the gossip kernels and the rest (BatchNorm, ReLU, pooling, SGD and the
+round's elementwise work).
 
 On the kernel lane (``--gossip_kernel pallas``) it also splits one
 gossip round of the step's own state into its parts, each timed with
@@ -165,7 +166,7 @@ def profile_resnet(args, smi: str) -> dict:
     model, alg, tx, step = _resnet_setup(
         cfg, args.wire_dtype, args.overlap == "True", args.staleness,
         args.peers_per_itr, args.gossip_buckets,
-        gossip_kernel=args.gossip_kernel)
+        gossip_kernel=args.gossip_kernel, push_sum=args.push_sum == "True")
     image = cfg["image"]
     images, labels = synthetic_classification(
         world * batch, num_classes=cfg["num_classes"], image_size=image,
@@ -184,6 +185,12 @@ def profile_resnet(args, smi: str) -> dict:
             step(state, x, y)
         torch.cuda.synchronize()
     kernels = _device_kernels(prof)
+    # host calls that wait for the device (a synchronising copy stalls
+    # the host's queue of launches)
+    window["cuda_runtime_calls_per_step"] = {
+        e.key: e.count / args.steps for e in prof.key_averages()
+        if e.key in ("cudaStreamSynchronize", "cudaMemcpyAsync",
+                     "cudaDeviceSynchronize")}
     groups = {name: 0.0 for name, _ in RESNET_GROUPS}
     groups["other"] = 0.0
     for name, us in kernels.items():
@@ -201,6 +208,7 @@ def profile_resnet(args, smi: str) -> dict:
     result = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "config": {"model": "resnet50", "world_size": world,
+                         "algorithm": alg.name,
                          "batch_per_rank": batch, "image": image,
                          "dtype": args.dtype,
                          "gossip_lane": alg.transport_kernel_name,
@@ -229,6 +237,8 @@ def main(argv=None) -> int:
     p.add_argument("--peers_per_itr", type=int, default=1)
     p.add_argument("--gossip_buckets", type=int, default=1)
     p.add_argument("--model", default="lm", choices=["lm", "resnet50"])
+    p.add_argument("--push_sum", default="True",
+                   help="resnet50: False runs D-PSGD")
     p.add_argument("--batch", type=int, default=32,
                    help="resnet50: images per rank")
     p.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],

@@ -1,9 +1,11 @@
-"""Decentralized data-parallel training algorithms (AllReduce, SGP and
-OSGP so far)."""
+"""Decentralized data-parallel training algorithms: AllReduce, SGP, OSGP,
+D-PSGD and AD-PSGD."""
 
 from .api import GossipAlgorithm, GossipState
-from .algorithms import (AllReduce, PushSumGossip, all_reduce, drain_in_flight,
-                         drain_state, osgp, sgp)
+from .algorithms import (AllReduce, BilateralGossip, PushPullGossip,
+                         PushSumGossip, adpsgd, all_reduce, dpsgd,
+                         drain_in_flight, drain_state, osgp, sgp)
 
 __all__ = ["GossipAlgorithm", "GossipState", "AllReduce", "PushSumGossip",
-           "all_reduce", "sgp", "osgp", "drain_in_flight", "drain_state"]
+           "PushPullGossip", "BilateralGossip", "all_reduce", "sgp", "osgp",
+           "dpsgd", "adpsgd", "drain_in_flight", "drain_state"]

@@ -1,11 +1,13 @@
-"""AllReduce, and Stochastic Gradient Push synchronous (SGP) and overlap
-(OSGP).
+"""AllReduce, Stochastic Gradient Push synchronous (SGP) and overlap
+(OSGP), D-PSGD (``PushPullGossip``) and synchronous AD-PSGD
+(``BilateralGossip``).
 
-Port of ``AllReduce``, ``PushSumGossip``, ``drain_in_flight`` and
-``drain_state`` in ``stochastic_gradient_push_tpu/algorithms/
-algorithms.py``, with the ``all_reduce``, ``sgp`` and ``osgp``
-factories.  Where the reference takes a mesh axis name, the port takes a
-transport (``parallel/collectives.py``).  ``gossip_kernel`` (``"xla"``,
+Port of ``AllReduce``, ``PushSumGossip``, ``PushPullGossip``,
+``BilateralGossip``, ``drain_in_flight`` and ``drain_state`` in
+``stochastic_gradient_push_tpu/algorithms/algorithms.py``, with the
+``all_reduce``, ``sgp``, ``osgp``, ``dpsgd`` and ``adpsgd`` factories.
+Where the reference takes a mesh axis name, the port takes a transport
+(``parallel/collectives.py``).  ``gossip_kernel`` (``"xla"``,
 ``"auto"``, ``"pallas"`` or a resolved ``KernelLane``) moves the payload
 through the gossip transport kernels (``ops/gossip_kernel.py``) in
 ``gossip_buckets`` buckets, on the stacked transport.
@@ -14,13 +16,14 @@ an exact global average (:meth:`PushSumGossip.global_average`).
 
 Not ported yet, and refused by name: fault injection, error feedback,
 the kernel lane under ``torch.distributed`` (the cross-process transport
-kernel); D-PSGD (``PushPullGossip``) and AD-PSGD (``BilateralGossip``).
+kernel).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..ops.gossip_kernel import resolve_gossip_kernel
@@ -28,7 +31,8 @@ from ..parallel import collectives
 from ..topology.schedule import GossipSchedule
 from .api import GossipAlgorithm, GossipState
 
-__all__ = ["AllReduce", "PushSumGossip", "all_reduce", "sgp", "osgp",
+__all__ = ["AllReduce", "PushSumGossip", "PushPullGossip",
+           "BilateralGossip", "all_reduce", "sgp", "osgp", "dpsgd", "adpsgd",
            "drain_in_flight", "drain_state"]
 
 
@@ -118,12 +122,20 @@ class PushSumGossip(GossipAlgorithm):
     the step whose ``phase + 1`` is a multiple of it, every rank takes
     :meth:`global_average`; under overlap after the FIFO's settle, and
     the average folds the FIFO in and leaves it drained.
+
+    ``track_weight=False`` (D-PSGD's synchronous rounds,
+    :class:`PushPullGossip`): a synchronous round mixes the parameters
+    alone (``collectives.mix_push_pull``), the weight stays 1 and the
+    forward sees the parameters undivided.  The overlap split always
+    carries the weight, since it scales the parameters by ``lo`` between
+    launch and consume.
     """
 
     name = "sgp"
 
     def __init__(self, schedule: GossipSchedule, transport,
-                 overlap: bool = False, gossip_every: int = 1,
+                 overlap: bool = False, track_weight: bool = True,
+                 gossip_every: int = 1,
                  staleness: int = 1, global_avg_every: int = 0,
                  faults=None, wire=None, error_feedback: bool = False,
                  gossip_kernel=None, gossip_buckets: int = 1):
@@ -154,6 +166,7 @@ class PushSumGossip(GossipAlgorithm):
         self.schedule = schedule
         self.transport = transport
         self.overlap = bool(overlap)
+        self.track_weight = bool(track_weight)
         self.staleness = int(staleness)
         self.gossip_every = int(gossip_every)
         self.global_avg_every = int(global_avg_every)
@@ -210,6 +223,8 @@ class PushSumGossip(GossipAlgorithm):
             in_flight=state.in_flight[:-1] + (incoming,))
 
     def eval_params(self, params: dict, state: GossipState) -> dict:
+        if not self.track_weight:
+            return params
         w = state.ps_weight
         return {n: p / w.reshape((-1,) + (1,) * (p.dim() - 1)).to(p.dtype)
                 for n, p in params.items()}
@@ -227,10 +242,14 @@ class PushSumGossip(GossipAlgorithm):
         tick = state.phase
         if not self.overlap:
             ps_weight = state.ps_weight
-            if tick % self.gossip_every == 0:
+            if tick % self.gossip_every == 0 and self.track_weight:
                 params, ps_weight = collectives.mix_push_sum(
                     params, ps_weight, tick // self.gossip_every,
                     self.schedule, self.transport, **self._round_args())
+            elif tick % self.gossip_every == 0:
+                params = collectives.mix_push_pull(
+                    params, tick // self.gossip_every, self.schedule,
+                    self.transport, **self._round_args())
             if self._averages_after(tick):
                 params, ps_weight = self.global_average(params, ps_weight)
             return params, state.replace(phase=tick + 1,
@@ -286,6 +305,57 @@ class PushSumGossip(GossipAlgorithm):
         return params, ps_weight, drained
 
 
+class PushPullGossip(PushSumGossip):
+    """D-PSGD: doubly-stochastic gossip.
+
+    Synchronous mode needs no push-sum weight: a complete doubly-
+    stochastic round keeps the mean (``collectives.mix_push_pull``).
+    Overlap mode tracks it, as the reference does: the parameters are
+    scaled by ``lo`` between launching a round and consuming it, and the
+    de-bias keeps the gradient at the right point.  An irregular schedule
+    and fault injection are refused as the reference refuses them.
+    """
+
+    name = "dpsgd"
+
+    def __init__(self, schedule: GossipSchedule, transport,
+                 overlap: bool = False, staleness: int = 1,
+                 global_avg_every: int = 0, faults=None,
+                 gossip_kernel=None, gossip_buckets: int = 1):
+        if not schedule.regular:
+            raise ValueError("D-PSGD requires a regular schedule "
+                             "(doubly-stochastic mixing)")
+        if faults is not None:
+            raise ValueError(
+                "inject_faults requires push-sum: D-PSGD's "
+                "doubly-stochastic invariant does not survive dropped "
+                "edges (use --push_sum True)")
+        super().__init__(schedule, transport, overlap=overlap,
+                         track_weight=overlap, staleness=staleness,
+                         global_avg_every=global_avg_every,
+                         gossip_kernel=gossip_kernel,
+                         gossip_buckets=gossip_buckets)
+
+
+class BilateralGossip(GossipAlgorithm):
+    """AD-PSGD in its synchronous perfect-matching form: after each
+    optimizer step every rank averages its parameters with one rotating
+    partner, ``x <- (x + x_partner) * 0.5``
+    (``collectives.mix_bilat``), the matchings from
+    ``topology.build_pairing_schedule``.  No gossip kernel runs."""
+
+    name = "adpsgd"
+
+    def __init__(self, pairing: np.ndarray, transport):
+        self.pairing = np.asarray(pairing)
+        self.transport = transport
+
+    def post_step(self, params: dict, state: GossipState):
+        params = collectives.mix_bilat(params, state.phase, self.pairing,
+                                       self.transport)
+        return params, state.replace(phase=state.phase + 1)
+
+
 def all_reduce(transport) -> AllReduce:
     return AllReduce(transport)
 
@@ -301,3 +371,17 @@ def osgp(schedule: GossipSchedule, transport, staleness: int = 1,
                          staleness=staleness, wire=wire,
                          gossip_kernel=gossip_kernel,
                          gossip_buckets=gossip_buckets)
+
+
+def dpsgd(schedule: GossipSchedule, transport, overlap: bool = False,
+          staleness: int = 1, global_avg_every: int = 0, faults=None,
+          gossip_kernel=None, gossip_buckets: int = 1) -> PushPullGossip:
+    return PushPullGossip(schedule, transport, overlap=overlap,
+                          staleness=staleness,
+                          global_avg_every=global_avg_every, faults=faults,
+                          gossip_kernel=gossip_kernel,
+                          gossip_buckets=gossip_buckets)
+
+
+def adpsgd(pairing: np.ndarray, transport) -> BilateralGossip:
+    return BilateralGossip(pairing, transport)

@@ -71,6 +71,12 @@ class GossipAlgorithm:
         (≙ ``unbias``, distributed.py:307-314)."""
         return params
 
+    def val_params(self, params: dict, state: GossipState) -> dict:
+        """Parameters for validation: :meth:`eval_params`, with an
+        overlap algorithm's in-flight shares drained first (the training
+        state is untouched)."""
+        return self.eval_params(params, state)
+
     def reduce_grads(self, grads: dict) -> dict:
         return grads
 

@@ -3,8 +3,9 @@ overlap), its gossip kernel lane, and AllReduce.
 
 Port of ``stochastic_gradient_push_tpu/parallel/collectives.py`` for flat
 schedules (``_round_fn:348``, ``gossip_round:618``, ``overlap_launch:670``,
-``mix_push_sum:812``, ``allreduce_mean:901``, the transport plan and the
-``PendingShares`` FIFO slot).  One round computes, per rank, ``lo * x +
+``mix_push_sum:812``, ``mix_push_pull:845``, ``mix_bilat:863``,
+``allreduce_mean:901``, the transport plan and the ``PendingShares`` FIFO
+slot).  One round computes, per rank, ``lo * x +
 Σ_i recv_i(w_i * x)`` with the schedule's phase tables: sender multiply
 → encode → transport → decode-add, edges folded in order ``i = 0, 1,
 …``.  On the plain transport lane the elementwise ops follow the
@@ -64,7 +65,7 @@ from . import wire as wire_mod
 
 __all__ = ["StackedTransport", "DistTransport", "PendingShares",
            "gossip_round", "overlap_launch", "land_shares", "settle_share",
-           "mix_push_sum", "allreduce_mean"]
+           "mix_push_sum", "mix_push_pull", "mix_bilat", "allreduce_mean"]
 
 
 class StackedTransport:
@@ -453,6 +454,46 @@ def mix_push_sum(params: dict, ps_weight: torch.Tensor, phase: int,
                          schedule, transport, codec=codec, kernel=kernel,
                          buckets=buckets)
     return dict(zip(names, mixed[:-1])), mixed[-1]
+
+
+def mix_push_pull(params: dict, phase: int, schedule: GossipSchedule,
+                  transport, codec=None, kernel=None,
+                  buckets: int = 1) -> dict:
+    """Doubly-stochastic (D-PSGD) round: :func:`gossip_round` over the
+    parameters alone, with no push-sum weight leaf.  Uniform mixing on a
+    regular graph is doubly stochastic, so the mean is kept without a
+    weight; an irregular schedule is refused.  On the kernel lane the
+    payload goes through the start and wait kernels as in
+    :func:`mix_push_sum`."""
+    if not schedule.regular:
+        raise ValueError("push-pull requires a regular schedule "
+                         "(doubly-stochastic mixing)")
+    names = list(params)
+    mixed = gossip_round([params[n] for n in names], phase, schedule,
+                         transport, codec=codec, kernel=kernel,
+                         buckets=buckets)
+    return dict(zip(names, mixed))
+
+
+def mix_bilat(params: dict, phase: int, pairing: np.ndarray,
+              transport) -> dict:
+    """Bilateral pairwise averaging (AD-PSGD's exchange, synchronous):
+    ``x <- (x + x_partner) * 0.5`` in each leaf's dtype, with the partner
+    ``pairing[phase % num_phases]``.  Each row of ``pairing`` is an
+    involution, so one :meth:`permute` moves both directions of every
+    pair: on the stacked transport a gather along the rank dim, under
+    ``torch.distributed`` one send to and one receive from the partner.
+    No gossip kernel runs here (the reference's is a ``ppermute``)."""
+    num_phases, world = pairing.shape
+    if transport.world_size != world:
+        raise ValueError(
+            f"pairing was built for world_size={world} but the transport "
+            f"holds world {transport.world_size}")
+    if world == 1:
+        return params
+    row = np.asarray(pairing[phase % num_phases])
+    return {n: (a + transport.permute(a, row)) * 0.5
+            for n, a in params.items()}
 
 
 def allreduce_mean(tree: dict, transport) -> dict:

@@ -1,8 +1,10 @@
 """Gossip LM CLI — decentralized transformer training on the GPU.
 
 Port of ``stochastic_gradient_push_tpu/run/gossip_lm.py`` for the flat
-data-parallel mesh: SGP (synchronous push-sum over a flat gossip graph)
-or AllReduce, the synthetic Markov corpus, torch-semantics SGD under the
+data-parallel mesh: SGP or OSGP (push-sum over a flat gossip graph),
+D-PSGD (``--push_sum False``), AD-PSGD (``--bilat True``, bilateral
+averaging over the graph's perfect matchings) or AllReduce, the
+synthetic Markov corpus, torch-semantics SGD under the
 reference's LR schedule.  Run directly, every rank of ``--world_size``
 lives in this process on the stacked transport (``parallel/
 collectives.py``); on one GPU the default world is 1.  Under ``torchrun``
@@ -47,7 +49,6 @@ __all__ = ["main", "build_parser", "UNPORTED"]
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
 UNPORTED = {
-    "--bilat": ("False", str, "AD-PSGD"),
     "--topology": (None, str, "the topology planner"),
     "--synth_seed": (None, int, "the schedule synthesizer"),
     "--synth_budget": (None, int, "the schedule synthesizer"),
@@ -110,7 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(description="Gossip LM on a GPU (PyTorch)")
     p.add_argument("--all_reduce", default="False", type=str)
-    p.add_argument("--push_sum", default="True", type=str)
+    p.add_argument("--push_sum", default="True", type=str,
+                   help="False: D-PSGD (doubly-stochastic gossip)")
+    p.add_argument("--bilat", default="False", type=str,
+                   help="AD-PSGD: bilateral perfect-matching averaging "
+                        "(synchronous formulation)")
     p.add_argument("--graph_type", default=5, type=int,
                    choices=sorted(GRAPH_TOPOLOGIES))
     p.add_argument("--peers_per_itr", default=1, type=int)
@@ -193,9 +198,6 @@ def refuse_unported(args) -> None:
         raise SystemExit(f"--attn {args.attn} is not ported yet (it comes "
                          f"with the sequence-parallel LM path); use flash "
                          f"or full")
-    if not _str_bool(args.all_reduce) and not _str_bool(args.push_sum):
-        raise SystemExit("--push_sum False (D-PSGD) is not ported yet (a "
-                         "later slice; ROADMAP.md Queue 1)")
 
 
 def resolve_staleness_flag(args, overlap: bool) -> None:
@@ -247,13 +249,14 @@ def main(argv=None) -> dict:
     import numpy as np
     import torch
 
-    from ..algorithms import all_reduce, sgp
+    from ..algorithms import adpsgd, all_reduce, dpsgd, sgp
     from ..data.lm import lm_batches, synthetic_lm_corpus
     from ..device import resolve_device
     from ..models.transformer import TransformerConfig
     from ..parallel.collectives import DistTransport, StackedTransport
     from ..parallel.wire import get_codec
-    from ..topology import GRAPH_TOPOLOGIES, build_schedule
+    from ..topology import (GRAPH_TOPOLOGIES, build_pairing_schedule,
+                            build_schedule)
     from ..train.lm import build_lm_train_step, init_lm_state, make_model
     from ..train.lr import WARMUP_EPOCHS, LRSchedule
     from ..train.state import sgd
@@ -297,6 +300,19 @@ def main(argv=None) -> dict:
                              "--global_avg_every tune the push-sum gossip; "
                              "they do not apply to --all_reduce True")
         alg = all_reduce(transport)
+    elif sb(args.bilat) or not sb(args.push_sum):
+        if args.wire_dtype not in (None, "f32") or args.gossip_every != 1:
+            raise SystemExit("gossip_every/wire_dtype are push-sum knobs")
+        graph = GRAPH_TOPOLOGIES[args.graph_type](
+            world, peers_per_itr=args.peers_per_itr)
+        if sb(args.bilat):
+            alg = adpsgd(build_pairing_schedule(graph), transport)
+        else:
+            alg = dpsgd(build_schedule(graph), transport,
+                        overlap=sb(args.overlap),
+                        staleness=max(1, args.staleness), gossip_kernel=lane,
+                        gossip_buckets=args.gossip_buckets,
+                        global_avg_every=args.global_avg_every or 0)
     else:
         graph = GRAPH_TOPOLOGIES[args.graph_type](
             world, peers_per_itr=args.peers_per_itr)
@@ -324,7 +340,7 @@ def main(argv=None) -> dict:
     log = print if rank0 else (lambda *a, **k: None)
     n_params = sum(p[0].numel() for p in state.params.values())
     gossip = ""
-    if alg.name == "sgp":
+    if alg.name in ("sgp", "dpsgd"):
         gossip = (f"; gossip lane {alg.transport_kernel_name}, buckets "
                   f"{alg.gossip_buckets}"
                   + (f", overlap staleness {alg.staleness}" if alg.overlap

@@ -11,7 +11,7 @@ from .graphs import (
     RingGraph,
 )
 from .mixing import MixingStrategy, SelfWeightedMixing, UniformMixing
-from .schedule import GossipSchedule, build_schedule
+from .schedule import GossipSchedule, build_pairing_schedule, build_schedule
 
 # the reference's integer registry (topology/__init__.py:31-39), graphs
 # 0-5; 6 (HierarchicalGraph) is not ported yet
@@ -22,6 +22,13 @@ GRAPH_TOPOLOGIES = {
     3: DynamicBipartiteLinearGraph,
     4: RingGraph,
     5: NPeerDynamicDirectedExponentialGraph,
+}
+
+# the reference's mixing registry (``--mixing_strategy``); -1 is no mixing
+# (AllReduce)
+MIXING_STRATEGIES = {
+    0: UniformMixing,
+    -1: None,
 }
 
 __all__ = [
@@ -37,5 +44,7 @@ __all__ = [
     "SelfWeightedMixing",
     "GossipSchedule",
     "build_schedule",
+    "build_pairing_schedule",
     "GRAPH_TOPOLOGIES",
+    "MIXING_STRATEGIES",
 ]

@@ -3,13 +3,15 @@
 A copy of the flat part of ``stochastic_gradient_push_tpu/topology/
 schedule.py`` (numpy only): :class:`GossipSchedule` with
 ``mixing_matrix`` and :func:`build_schedule` for the phone-book
-rotation graphs.  All phases of a time-varying graph are enumerated
-ahead of time and frozen into numpy tables; the port's collectives pick
-a phase's tables by ``phase % num_phases`` on the host.
+rotation graphs, and :func:`build_pairing_schedule`, the perfect
+matchings of bilateral (AD-PSGD) averaging.  All phases of a
+time-varying graph are enumerated ahead of time and frozen into numpy
+tables; the port's collectives pick a phase's tables by ``phase %
+num_phases`` on the host.
 
-Not ported yet: ``overlap_schedule`` (OSGP), the ``compile_schedule``
-hook of the hierarchical and synthesized topologies, and
-``build_pairing_schedule`` (AD-PSGD).
+Not ported yet: ``overlap_schedule`` (OSGP), and the
+``compile_schedule`` hook of the hierarchical and synthesized
+topologies.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 from .graphs import GraphTopology
 from .mixing import MixingStrategy, UniformMixing
 
-__all__ = ["GossipSchedule", "build_schedule"]
+__all__ = ["GossipSchedule", "build_schedule", "build_pairing_schedule"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,3 +109,72 @@ def build_schedule(graph: GraphTopology,
         peers_per_itr=graph.peers_per_itr,
         num_phases=num_phases,
     )
+
+
+def build_pairing_schedule(graph: GraphTopology) -> np.ndarray:
+    """Perfect-matching schedule for bilateral (AD-PSGD style) averaging.
+
+    Returns int32 ``(num_phases, world_size)`` where ``pairing[p, r]`` is
+    the partner of ``r`` at phase ``p``; each row is an involution
+    (``pairing[p, pairing[p, r]] == r``).
+
+    For bipartite graphs the matching is derived from the active ranks'
+    out-peers (the synchronous counterpart of the active-initiates /
+    passive-responds handshake).  For non-bipartite graphs, each hop
+    distance ``d`` in the phone book with ``d | n`` and ``n/d`` even
+    yields two block matchings (``r <-> r+d`` aligned at 0 and shifted by
+    ``d``), deduplicated and sorted as rows.
+    """
+    n = graph.world_size
+    if n == 1:
+        return np.zeros((1, 1), dtype=np.int32)
+    if not getattr(graph, "supports_pairing", True):
+        raise ValueError(
+            f"{type(graph).__name__} is unsupported for bilateral "
+            "pairing: its ranks are not interchangeable partners")
+    if n % 2:
+        raise ValueError("bilateral pairing requires an even world size")
+
+    if graph.is_bipartite_graph():
+        num_phases = graph.num_phases * graph.peers_per_itr
+        pairing = np.empty((num_phases, n), dtype=np.int32)
+        for p in range(graph.num_phases):
+            for i in range(graph.peers_per_itr):
+                row = np.full((n,), -1, dtype=np.int32)
+                for r in range(n):
+                    if graph.is_passive(r):
+                        continue
+                    d = graph.out_peers(r, p)[i]
+                    if row[r] != -1 or row[d] != -1:
+                        raise ValueError(
+                            f"phase {p} does not induce a matching")
+                    row[r], row[d] = d, r
+                if (row < 0).any():
+                    raise ValueError(f"phase {p} leaves ranks unpaired")
+                pairing[p * graph.peers_per_itr + i] = row
+    else:
+        # hop distances, forward and backward collapsed to min(d, n - d)
+        distances = []
+        for peer in graph.phone_book[0]:
+            d = min(peer % n, (n - peer) % n)
+            if d and d not in distances:
+                distances.append(d)
+        usable = [d for d in distances if n % d == 0 and (n // d) % 2 == 0]
+        if not usable:
+            raise ValueError(
+                f"{type(graph).__name__}(world_size={n}) has no hop "
+                "distance d with d | n and n/d even; no matching schedule "
+                "can be derived — use a bipartite graph for bilateral gossip")
+        rows = []
+        ranks = np.arange(n)
+        for d in usable:
+            for shift in (0, d):
+                blk = (ranks - shift) // d
+                row = np.where(blk % 2 == 0, ranks + d, ranks - d) % n
+                rows.append(row.astype(np.int32))
+        pairing = np.unique(np.stack(rows), axis=0)
+
+    for row in pairing:
+        if not np.array_equal(row[row], np.arange(n)):
+            raise AssertionError("pairing schedule is not an involution")
+    return pairing

@@ -1,0 +1,565 @@
+"""The experiment loop: epochs, meters, CSV logging, validation, resume.
+
+Port of ``TrainerConfig`` and ``Trainer`` in ``stochastic_gradient_push_
+tpu/train/loop.py`` for one process holding every rank of the world on
+the stacked transport (``parallel/collectives.py``), on one device.  The
+step is ``train/step.py::build_train_step``; the five algorithms come
+from :meth:`Trainer.make_algorithm` (AllReduce, SGP, OSGP, D-PSGD,
+AD-PSGD), one per peers-per-iteration value as the reference caches one
+compiled step per value.
+
+The CSVs are byte-compatible with the reference's in every column but
+the timing ones: the header block (``BEGIN-TRAINING``, world size,
+loader workers, batch size, the column line), a training row every
+``print_freq`` iterations and one at each epoch's end, a validation row
+after each epoch.  ``BT(s)``, ``NT(s)`` and ``DT(s)`` are host-clock
+meters: the data window is the loader and the host-to-device copy, the
+step window ends in the device-to-host read of the step's metrics, so
+it times finished work.
+
+Checkpoints (``utils/checkpoint.py``): one file per rank after every
+epoch, the overlap FIFO drained first (the live state adopts the drained
+view too, so a resumed run follows the straight one); ``resume`` reads
+them back, fast-forwards the loader to the saved iteration, and the LR
+follows from the restored step.  A SIGUSR1/SIGTERM is acted on at the
+next step boundary: save at (epoch, itr) and exit 75.
+
+Config fields of features not ported yet raise ``NotImplementedError``
+naming the feature when set away from their defaults (:data:`UNPORTED`),
+as does a multi-process world; none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+import typing as tp
+
+import numpy as np
+import torch
+
+from ..algorithms import (GossipAlgorithm, adpsgd, all_reduce, dpsgd,
+                          drain_state, sgp)
+from ..device import resolve_device
+from ..ops.gossip_kernel import resolve_gossip_kernel
+from ..parallel import collectives
+from ..parallel.wire import get_codec
+from ..topology import build_pairing_schedule, build_schedule
+from ..utils.checkpoint import REQUEUE_EXIT_CODE, ClusterManager
+from ..utils.logging import make_logger
+from ..utils.meter import Meter
+from .lr import CosineLRSchedule, LRSchedule, ppi_at_epoch
+from .state import sgd
+from .step import (build_eval_step, build_train_step, init_train_state,
+                   replica_spread)
+
+__all__ = ["TrainerConfig", "Trainer", "UNPORTED"]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """Experiment configuration, the reference's fields and defaults
+    (their meaning is documented there)."""
+
+    # algorithm selection
+    all_reduce: bool = False
+    push_sum: bool = True
+    overlap: bool = False
+    synch_freq: int = 0
+    staleness: int = 0
+    gossip_every: int = 1
+    global_avg_every: int = 0
+    plan: dict | None = None
+    wire_dtype: str | None = None
+    wire_block: int = 64
+    error_feedback: bool = False
+    gossip_comm_dtype: str | None = None
+    gossip_kernel: str = "xla"
+    gossip_buckets: int = 1
+    bilat: bool = False
+    bilat_async: bool = False
+    bilat_async_interval: float = 0.0
+    graph_class: tp.Any = None
+    mixing_class: tp.Any = None
+    ppi_schedule: dict[int, int] = dataclasses.field(
+        default_factory=lambda: {0: 1})
+
+    # optimization
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    nesterov: bool = False
+    lr_schedule: dict[int, float] = dataclasses.field(
+        default_factory=lambda: {30: 0.1, 60: 0.1, 80: 0.1})
+    warmup: bool = False
+    cosine_lr: bool = False
+    label_smoothing: float = 0.0
+    grad_accum: int = 1
+
+    # run shape
+    batch_size: int = 32
+    num_epochs: int = 90
+    num_iterations_per_training_epoch: int | None = None
+    seed: int = 47
+    num_itr_ignore: int = 10
+    print_freq: int = 10
+    train_fast: bool = False
+    verbose: bool = True
+
+    # io
+    checkpoint_dir: str = "./checkpoints"
+    trace_dir: str | None = None
+    metrics_every: int = 0
+    profile_dir: str | None = None
+    profile_start_step: int = 2
+    profile_steps: int = 3
+    tag: str = ""
+    resume: bool = False
+    checkpoint_all: bool = True
+    overwrite_checkpoints: bool = True
+    fleet: bool = False
+    host_id: int | None = None
+
+    num_classes: int = 1000
+    nprocs_per_node: int = 1
+    scan_steps: int = 1
+    num_dataloader_workers: int = 0
+    prefetch: bool = False
+    prefetch_depth: int = 2
+    heartbeat_timeout: int = 300
+    per_rank_csv: bool = False
+
+    # resilience
+    inject_faults: str | None = None
+    health_every: int = 0
+    residual_floor: float = 0.01
+
+
+# config field -> (default, the feature it belongs to): a value away from
+# the default raises, naming the feature
+UNPORTED = {
+    "plan": (None, "the topology planner's plan"),
+    "error_feedback": (False, "error feedback"),
+    "gossip_comm_dtype": (None, "the deprecated comm dtype alias"),
+    "bilat_async": (False, "wall-clock asynchronous AD-PSGD "
+                           "(train/async_bilat.py)"),
+    "bilat_async_interval": (0.0, "wall-clock asynchronous AD-PSGD "
+                                  "(train/async_bilat.py)"),
+    "trace_dir": (None, "run telemetry"),
+    "metrics_every": (0, "run telemetry"),
+    "profile_dir": (None, "profiling windows"),
+    "profile_start_step": (2, "profiling windows"),
+    "profile_steps": (3, "profiling windows"),
+    "checkpoint_all": (True, "rank-0-only checkpoints"),
+    "fleet": (False, "fleet supervision"),
+    "host_id": (None, "fleet supervision"),
+    "nprocs_per_node": (1, "hierarchical gossip (a local mesh axis)"),
+    "scan_steps": (1, "fused multi-step programs (scan_steps > 1)"),
+    "prefetch": (False, "device prefetch"),
+    "prefetch_depth": (2, "device prefetch"),
+    "heartbeat_timeout": (300, "the step watchdog"),
+    "inject_faults": (None, "fault injection"),
+    "health_every": (0, "consensus health"),
+    "residual_floor": (0.01, "consensus health recovery"),
+}
+
+
+def _refuse_unported(cfg: TrainerConfig, transport) -> None:
+    for field, (default, feature) in UNPORTED.items():
+        value = getattr(cfg, field)
+        if value != default:
+            raise NotImplementedError(
+                f"TrainerConfig.{field}={value!r}: {feature} is not ported "
+                f"to stochastic_gradient_push_torch yet (ROADMAP.md Queue 1)")
+    if not isinstance(transport, collectives.StackedTransport):
+        raise NotImplementedError(
+            "a multi-process world (one rank per process) is not ported to "
+            "the trainer yet (ROADMAP.md Queue 1 item 10); hold every rank "
+            "in one process with a StackedTransport")
+
+
+class Trainer:
+    """Drives training of ``model`` (a meta-device module from
+    ``train/step.py::make_model``) over the ranks of ``transport`` on
+    ``device`` (default CUDA) with the configured algorithm."""
+
+    def __init__(self, config: TrainerConfig, model, transport,
+                 cluster_manager: ClusterManager | None = None,
+                 device=None):
+        _refuse_unported(config, transport)
+        self.cfg = config
+        self.model = model
+        self.transport = transport
+        self.device = resolve_device(device)
+        self.world_size = transport.world_size
+        # resolved here, so "pallas" off the card fails before any step
+        self.lane = resolve_gossip_kernel(config.gossip_kernel,
+                                          device=self.device)
+        self.log = make_logger("trainer", config.verbose)
+        self.cluster = cluster_manager
+        self.tx = sgd(momentum=config.momentum,
+                      weight_decay=config.weight_decay,
+                      nesterov=config.nesterov)
+        self.lr_schedule_obj = None  # built per fit (needs itr_per_epoch)
+        self._step_cache: dict[tuple, tuple] = {}
+        self._eval_fn = None
+        self._eval_alg = None
+        self._last_val_per_rank: list[float] = []
+        self._csv_ranks = (tuple(range(self.world_size))
+                           if config.per_rank_csv else (0,))
+        self._fname = lambda r: os.path.join(
+            config.checkpoint_dir,
+            f"{config.tag}out_r{r}_n{self.world_size}.csv")
+
+    # -- algorithm / step construction ------------------------------------
+
+    def _resolve_staleness(self) -> int:
+        """The overlap FIFO depth from ``staleness`` or the
+        ``synch_freq`` alias (staleness = synch_freq + 1)."""
+        cfg = self.cfg
+        if cfg.staleness and cfg.synch_freq \
+                and cfg.staleness != cfg.synch_freq + 1:
+            raise ValueError(
+                f"staleness={cfg.staleness} conflicts with "
+                f"synch_freq={cfg.synch_freq} (staleness = synch_freq "
+                "+ 1); set one of the two")
+        staleness = cfg.staleness or (cfg.synch_freq + 1)
+        if staleness < 1:
+            raise ValueError("staleness must be >= 1")
+        if not cfg.overlap:
+            if staleness > 1:
+                self.log.warning(
+                    "staleness/synch_freq is ignored without overlap "
+                    "mode")
+            return 1
+        return staleness
+
+    def make_algorithm(self, ppi: int) -> GossipAlgorithm:
+        cfg = self.cfg
+        codec = get_codec(cfg.wire_dtype, cfg.wire_block)
+        if codec is not None and codec.lossy \
+                and (cfg.all_reduce or cfg.bilat or not cfg.push_sum):
+            raise ValueError(
+                "wire compression (wire_dtype / the deprecated "
+                "gossip_comm_dtype) applies to the push-sum family only")
+        if cfg.global_avg_every and (cfg.all_reduce or cfg.bilat):
+            raise ValueError(
+                "global_avg_every applies to the push-sum/D-PSGD gossip "
+                "family (all_reduce is already exact every step)")
+        if cfg.all_reduce:
+            return all_reduce(self.transport)
+        graph = cfg.graph_class(self.world_size, peers_per_itr=ppi)
+        if cfg.bilat:
+            return adpsgd(build_pairing_schedule(graph), self.transport)
+        mixing = cfg.mixing_class() if cfg.mixing_class else None
+        schedule = build_schedule(graph, mixing)
+        staleness = self._resolve_staleness()
+        if cfg.push_sum:
+            return sgp(schedule, self.transport, overlap=cfg.overlap,
+                       gossip_every=cfg.gossip_every, wire=codec,
+                       staleness=staleness,
+                       global_avg_every=cfg.global_avg_every,
+                       gossip_kernel=self.lane,
+                       gossip_buckets=cfg.gossip_buckets)
+        if cfg.gossip_every != 1:
+            raise ValueError("gossip_every is a push-sum knob")
+        return dpsgd(schedule, self.transport, overlap=cfg.overlap,
+                     staleness=staleness,
+                     global_avg_every=cfg.global_avg_every,
+                     gossip_kernel=self.lane,
+                     gossip_buckets=cfg.gossip_buckets)
+
+    def _train_fn(self, ppi: int, itr_per_epoch: int):
+        """``(algorithm, step)`` for a peers-per-itr value, built once
+        per (ppi, itr_per_epoch)."""
+        key = (ppi, itr_per_epoch)
+        if key not in self._step_cache:
+            alg = self.make_algorithm(ppi)
+            step = build_train_step(
+                self.model, alg, self.tx, self.lr_schedule_obj,
+                itr_per_epoch=itr_per_epoch,
+                num_classes=self.cfg.num_classes,
+                label_smoothing=self.cfg.label_smoothing,
+                grad_accum=self.cfg.grad_accum)
+            self._step_cache[key] = (alg, step)
+        return self._step_cache[key]
+
+    # -- csv logging -------------------------------------------------------
+
+    def _init_csv(self) -> None:
+        os.makedirs(self.cfg.checkpoint_dir, exist_ok=True)
+        for r in self._csv_ranks:
+            if os.path.exists(self._fname(r)):
+                continue
+            with open(self._fname(r), "w") as f:
+                print("BEGIN-TRAINING\n"
+                      f"World-Size,{self.world_size}\n"
+                      f"Num-DLWorkers,{self.cfg.num_dataloader_workers}\n"
+                      f"Batch-Size,{self.cfg.batch_size}\n"
+                      "Epoch,itr,BT(s),avg:BT(s),std:BT(s),"
+                      "NT(s),avg:NT(s),std:NT(s),"
+                      "DT(s),avg:DT(s),std:DT(s),"
+                      "Loss,avg:Loss,Prec@1,avg:Prec@1,Prec@5,avg:Prec@5,val",
+                      file=f)
+
+    def _log_row(self, epoch, itr, meters, stat_meters) -> None:
+        """One training row per CSV; ``stat_meters[r]`` carries rank r's
+        (losses, top1, top5) meters (timing is shared)."""
+        bt, nt, dt = meters
+        for r in self._csv_ranks:
+            losses, top1, top5 = stat_meters[r]
+            with open(self._fname(r), "a") as f:
+                print(f"{epoch},{itr},{bt},{nt},{dt},"
+                      f"{losses.val:.4f},{losses.avg:.4f},"
+                      f"{top1.val:.3f},{top1.avg:.3f},"
+                      f"{top5.val:.3f},{top5.avg:.3f},-1", file=f)
+
+    def _log_val_row(self, epoch, meters, vals) -> None:
+        bt, nt, dt = meters
+        for r in self._csv_ranks:
+            with open(self._fname(r), "a") as f:
+                print(f"{epoch},-1,{bt},{nt},{dt},-1,-1,-1,-1,-1,-1,"
+                      f"{vals[r]}", file=f)
+
+    # -- main entry points -------------------------------------------------
+
+    def init_state(self):
+        """Every rank starts from the same parameters, drawn from
+        ``seed`` (``train/step.py::init_train_state``)."""
+        alg = self.make_algorithm(ppi_at_epoch(self.cfg.ppi_schedule, 0))
+        return init_train_state(self.model, alg, self.tx,
+                                self.world_size, seed=self.cfg.seed,
+                                device=self.device)
+
+    def fit(self, state, train_loader, sampler,
+            val_loader=None) -> tuple[tp.Any, dict]:
+        cfg = self.cfg
+        if len(train_loader) < 1:
+            raise ValueError(
+                "train loader yields zero batches: batch_size × world_size "
+                "exceeds the dataset size")
+        # the LR derives the epoch from state.step, so the iteration
+        # count per epoch must reflect the early-exit cap
+        itr_per_epoch = len(train_loader)
+        cap = cfg.num_iterations_per_training_epoch
+        if cap not in (None, -1):
+            itr_per_epoch = min(itr_per_epoch, cap)
+        if cfg.cosine_lr:
+            self.lr_schedule_obj = CosineLRSchedule(
+                ref_lr=cfg.lr, batch_size=cfg.batch_size,
+                world_size=self.world_size, total_epochs=cfg.num_epochs,
+                warmup=cfg.warmup)
+        else:
+            self.lr_schedule_obj = LRSchedule(
+                ref_lr=cfg.lr, batch_size=cfg.batch_size,
+                world_size=self.world_size, decay_schedule=cfg.lr_schedule,
+                warmup=cfg.warmup)
+        self._init_csv()
+
+        meters = (Meter(ptag="Time"), Meter(ptag="Forward/Backward"),
+                  Meter(ptag="Data"))
+        start_epoch, start_itr, best_prec1 = 0, 0, 0.0
+        elapsed = 0.0
+        want_resume = cfg.resume and self.cluster is not None
+        if want_resume and not self.cluster.ckpt.exists():
+            worlds = self.cluster.ckpt.discover_worlds()
+            if worlds:
+                raise NotImplementedError(
+                    f"cross-world resume: {cfg.checkpoint_dir} holds "
+                    f"checkpoints of world {worlds}, not "
+                    f"{self.world_size}; resharding them "
+                    "(supervise/reshard.py) is not ported to stochastic_"
+                    "gradient_push_torch yet (ROADMAP.md Queue 1 item 10)")
+        if want_resume and self.cluster.ckpt.exists():
+            state, meta = self.cluster.ckpt.restore(state)
+            start_epoch = meta.get("epoch", 0)
+            start_itr = meta.get("itr", 0)
+            best_prec1 = meta.get("best_prec1", 0.0)
+            elapsed = meta.get("elapsed_time", 0.0)
+            for m, k in zip(meters, ("batch_meter", "nn_meter",
+                                     "data_meter")):
+                if k in meta:
+                    m.__dict__.update(meta[k])
+            self.log.info(f"resumed from epoch {start_epoch} itr {start_itr}")
+
+        begin_time = time.time() - elapsed
+        state, best_prec1, final_prec1 = self._fit_epochs(
+            state, train_loader, sampler, val_loader, itr_per_epoch,
+            meters, start_epoch, start_itr, best_prec1, begin_time)
+        if cfg.train_fast and val_loader is not None:
+            alg = self._train_fn(
+                ppi_at_epoch(cfg.ppi_schedule, cfg.num_epochs - 1)
+                if not cfg.all_reduce else 1, itr_per_epoch)[0]
+            final_prec1 = self.validate(state, alg, val_loader)
+            self.log.info(f"Test accuracy: {final_prec1}")
+        result = {"best_prec1": float(best_prec1),
+                  "final_prec1": float(final_prec1),
+                  "elapsed_time": time.time() - begin_time,
+                  "batch_meter": meters[0]}
+        return state, result
+
+    def _fit_epochs(self, state, train_loader, sampler, val_loader,
+                    itr_per_epoch, meters, start_epoch, start_itr,
+                    best_prec1, begin_time):
+        cfg = self.cfg
+        final_prec1 = 0.0
+        for epoch in range(start_epoch, cfg.num_epochs):
+            sampler.set_epoch(epoch + cfg.seed * 90)
+            ppi = (ppi_at_epoch(cfg.ppi_schedule, epoch)
+                   if not cfg.all_reduce else 1)
+            alg, _ = self._train_fn(ppi, itr_per_epoch)
+            state = self._train_epoch(
+                state, ppi, itr_per_epoch, train_loader, epoch, start_itr,
+                meters, best_prec1, begin_time)
+            start_itr = 0
+            if cfg.train_fast:
+                continue
+            spread = replica_spread(state, alg)
+            self.log.info(f"epoch {epoch}: replica spread "
+                          f"max {spread['max_spread']:.2e} "
+                          f"mean {spread['mean_spread']:.2e}")
+            prec1 = (self.validate(state, alg, val_loader)
+                     if val_loader is not None else -1.0)
+            final_prec1 = prec1
+            vals = (self._last_val_per_rank if cfg.per_rank_csv
+                    and val_loader is not None
+                    else {r: prec1 for r in self._csv_ranks})
+            self._log_val_row(epoch, meters, vals)
+            is_best = prec1 > best_prec1
+            best_prec1 = max(best_prec1, prec1)
+            if self.cluster is not None:
+                # nothing in flight on disk, and the continuing run
+                # adopts the drained view as a resumed one does
+                state = drain_state(state)
+                meta = self._ckpt_meta(epoch + 1, 0, best_prec1, begin_time,
+                                       meters)
+                self.cluster.save_checkpoint(
+                    state, meta,
+                    epoch_id=None if cfg.overwrite_checkpoints else epoch,
+                    is_best=is_best,
+                    requeue_on_signal=epoch != cfg.num_epochs - 1)
+        return state, best_prec1, final_prec1
+
+    def _ckpt_meta(self, epoch: int, itr: int, best_prec1, begin_time,
+                   meters) -> dict:
+        """Checkpoint metadata for a resume point at (epoch, itr)."""
+        batch_meter, nn_meter, data_meter = meters
+        return {"epoch": epoch, "itr": itr,
+                "best_prec1": float(best_prec1),
+                "elapsed_time": time.time() - begin_time,
+                "batch_meter": batch_meter.state_dict(),
+                "nn_meter": nn_meter.state_dict(),
+                "data_meter": data_meter.state_dict()}
+
+    def _preempt_exit(self, state, epoch, itr, meters, best_prec1,
+                      begin_time):
+        """A preemption signal arrived: the step is done, so save at
+        (epoch, itr) with the FIFO drained and exit
+        :data:`REQUEUE_EXIT_CODE` (``save_checkpoint`` raises it)."""
+        self.log.warning(
+            "preemption signal (%s): checkpointing at epoch %d itr %d "
+            "and exiting %d (requeue me)",
+            self.cluster.last_signal or "peer flag", epoch, itr,
+            REQUEUE_EXIT_CODE)
+        state = drain_state(state)
+        meta = self._ckpt_meta(epoch, itr, best_prec1, begin_time, meters)
+        self.cluster.save_checkpoint(state, meta, requeue_on_signal=True)
+        # only reachable if the flag vanished between check and save
+        raise SystemExit(REQUEUE_EXIT_CODE)
+
+    def _train_epoch(self, state, ppi, itr_per_epoch, loader, epoch,
+                     start_itr, meters, best_prec1=0.0, begin_time=None):
+        cfg = self.cfg
+        batch_meter, nn_meter, data_meter = meters
+        stat_meters = {r: (Meter(ptag="Loss"), Meter(ptag="Prec@1"),
+                           Meter(ptag="Prec@5"))
+                       for r in self._csv_ranks}
+        num_itr_ignore = cfg.num_itr_ignore
+        cap = cfg.num_iterations_per_training_epoch
+        cap = None if cap in (None, -1) else cap
+        if start_itr:
+            loader.fast_forward(start_itr)
+        _, train_fn = self._train_fn(ppi, itr_per_epoch)
+
+        it = iter(loader)
+        i = start_itr - 1
+        batch_time = time.time()
+        while cap is None or i + 1 < cap:
+            try:
+                x, y = next(it)
+            except StopIteration:
+                break
+            n = x.shape[0] * x.shape[1]
+            x = torch.from_numpy(x).to(self.device)
+            y = torch.from_numpy(y).to(self.device)
+            elapsed_data = time.time() - batch_time
+            nn_time = time.time()
+            state, metrics = train_fn(state, x, y)
+            # the device-to-host read ends the step's window on finished
+            # work
+            host = {k: metrics[k].detach().cpu().numpy()
+                    for k in ("loss", "top1", "top5", "grad_norm")}
+            elapsed_nn = time.time() - nn_time
+            elapsed_batch = time.time() - batch_time
+            i += 1
+            if num_itr_ignore == 0:
+                nn_meter.update(elapsed_nn)
+                batch_meter.update(elapsed_batch)
+                data_meter.update(elapsed_data)
+            else:
+                num_itr_ignore -= 1
+            for r in self._csv_ranks:
+                pick = ((lambda a: a[r]) if cfg.per_rank_csv
+                        else (lambda a: a.mean()))
+                for meter, k in zip(stat_meters[r], ("loss", "top1",
+                                                     "top5")):
+                    meter.update(float(pick(host[k])), n)
+            if i % cfg.print_freq == 0:
+                self._log_row(epoch, i, meters, stat_meters)
+                if cfg.verbose:
+                    self.log.info(f"epoch {epoch} itr {i}: grad_norm "
+                                  f"{float(host['grad_norm'].mean()):.4f}")
+            if self.cluster is not None \
+                    and self.cluster.any_rank_signalled():
+                self._preempt_exit(state, epoch, i + 1, meters, best_prec1,
+                                   begin_time if begin_time is not None
+                                   else time.time())
+            batch_time = time.time()
+
+        self._log_row(epoch, i, meters, stat_meters)
+        return state
+
+    @torch.no_grad()
+    def validate(self, state, algorithm, val_loader) -> float:
+        """Every rank evaluates its shard of the val set; returns the
+        sample-weighted mean top-1 over ranks and batches."""
+        if self._eval_fn is None or self._eval_alg is not algorithm:
+            self._eval_fn = build_eval_step(self.model, algorithm,
+                                            self.cfg.num_classes)
+            self._eval_alg = algorithm
+        losses = Meter(ptag="Loss")
+        top1 = Meter(ptag="Prec@1")
+        top5 = Meter(ptag="Prec@5")
+        rank_top1 = np.zeros(self.world_size)
+        n_batches, n_samples = 0, 0
+        for x, y in val_loader:
+            n = x.shape[0] * x.shape[1]
+            m = self._eval_fn(state, torch.from_numpy(x).to(self.device),
+                              torch.from_numpy(y).to(self.device))
+            m = {k: v.cpu().numpy() for k, v in m.items()}
+            losses.update(float(np.mean(m["loss"])), n)
+            top1.update(float(np.mean(m["top1"])), n)
+            top5.update(float(np.mean(m["top5"])), n)
+            rank_top1 += m["top1"].reshape(self.world_size) * n
+            n_samples += n
+            n_batches += 1
+        if n_batches == 0:
+            self.log.warning(
+                "validation loader yielded no batches (dataset smaller "
+                "than one world batch?) — reporting -1")
+            self._last_val_per_rank = [-1.0] * self.world_size
+            return -1.0
+        self._last_val_per_rank = (rank_top1 / n_samples).tolist()
+        self.log.info(f" * Prec@1 {top1.avg:.3f} Prec@5 {top5.avg:.3f}")
+        return top1.avg

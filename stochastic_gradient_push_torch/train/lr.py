@@ -1,20 +1,34 @@
-"""Learning-rate schedule (the reference recipe, gossip_sgd.py:508-536).
+"""Learning-rate and peers-per-iteration schedules (the reference recipe,
+gossip_sgd.py:497-536).
 
-Port of ``LRSchedule`` in ``stochastic_gradient_push_tpu/train/lr.py``:
+Port of ``LRSchedule``, ``CosineLRSchedule`` and ``ppi_at_epoch`` in
+``stochastic_gradient_push_tpu/train/lr.py``:
 
 1. target_lr = ref_lr · global_batch / 256 ("ImageNet in 1hr" scaling)
 2. optional linear warmup from ref_lr to target_lr over the first 5 epochs
-3. piecewise exponential decay: lr ·= factor at each schedule epoch
+3. piecewise exponential decay: lr ·= factor at each schedule epoch, or
+   a cosine decay to zero over the run (``CosineLRSchedule``)
 
-Evaluated on the host in float32 with the reference's op order, so the
-rate matches the reference's float32 value.
+Evaluated on the host in float32 in the form the reference's compiled
+step computes, so the rate is bit-equal to the one it trains with
+(``tests/test_torch_trainer.py``): XLA on the CPU turns a division by a
+compile-time constant (``itr_per_epoch``, ``total_epochs``) into a
+multiplication by its float32 reciprocal, folds constant factors
+together, and contracts a multiply feeding an add into one fused
+multiply-add (:func:`_fma`); its ``cos`` is the C library's ``cosf``,
+which the port calls too.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
+
 import numpy as np
 
-__all__ = ["LRSchedule", "WARMUP_EPOCHS"]
+__all__ = ["LRSchedule", "CosineLRSchedule", "ppi_at_epoch",
+           "WARMUP_EPOCHS"]
 
 WARMUP_EPOCHS = 5
 
@@ -54,7 +68,76 @@ class LRSchedule:
             if self.target_lr <= self.ref_lr:
                 lr = f32(self.target_lr)
             else:
-                count = epoch * itr_per_epoch + itr + f32(1.0)
-                lr = f32(self.ref_lr) + f32(self.target_lr - self.ref_lr) * (
-                    count / (f32(WARMUP_EPOCHS) * itr_per_epoch))
+                lr = _warmup_ramp(self, epoch, itr, itr_per_epoch)
         return f32(lr)
+
+
+def _fma(a, b, c) -> np.float32:
+    """``a * b + c`` rounded once to float32: the product of two float32
+    values is exact in float64, and so is the sum unless the exponents
+    lie far apart."""
+    return np.float32(float(a) * float(b) + float(c))
+
+
+def _warmup_ramp(sched, epoch, itr, itr_per_epoch) -> np.float32:
+    """Linear ramp ref_lr -> target_lr over WARMUP_EPOCHS epochs, as the
+    compiled step computes it: ``count * ((target - ref) * (1 / (5 *
+    itr_per_epoch))) + ref`` in one fused multiply-add."""
+    f32 = np.float32
+    count = epoch * itr_per_epoch + itr + f32(1.0)
+    slope = f32(sched.target_lr - sched.ref_lr) * (
+        f32(1.0) / (f32(WARMUP_EPOCHS) * itr_per_epoch))
+    return _fma(count, slope, f32(sched.ref_lr))
+
+
+@functools.cache
+def _cosf():
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    libm.cosf.restype = ctypes.c_float
+    libm.cosf.argtypes = [ctypes.c_float]
+    return libm.cosf
+
+
+class CosineLRSchedule:
+    """Cosine decay to zero over ``total_epochs`` with the same linear
+    warmup and global-batch scaling as :class:`LRSchedule` (the warmup
+    ramp caps the cosine over the first 5 epochs when ``target_lr >
+    ref_lr``)."""
+
+    def __init__(self, ref_lr: float, batch_size: int, world_size: int,
+                 total_epochs: int, warmup: bool = True,
+                 scale: float = 1.0):
+        self.ref_lr = float(ref_lr)
+        self.target_lr = float(
+            ref_lr * batch_size * scale * world_size / 256.0)
+        self.warmup = bool(warmup)
+        self.total_epochs = int(total_epochs)
+
+    def __call__(self, epoch, itr, itr_per_epoch) -> np.float32:
+        f32 = np.float32
+        epoch, itr, ipe = f32(epoch), f32(itr), f32(itr_per_epoch)
+        progress = _fma(itr, f32(1.0) / ipe, epoch) * (
+            f32(1.0) / f32(self.total_epochs))
+        progress = min(max(progress, f32(0.0)), f32(1.0))
+        cos = f32(_cosf()(float(progress * f32(np.pi))))
+        lr = (cos + f32(1.0)) * f32(self.target_lr * 0.5)
+        if (self.warmup and self.target_lr > self.ref_lr
+                and epoch < WARMUP_EPOCHS):
+            lr = min(_warmup_ramp(self, epoch, itr, ipe), lr)
+        return f32(lr)
+
+
+def ppi_at_epoch(ppi_schedule: dict[int, int], epoch: int) -> int:
+    """Peers-per-itr in effect at ``epoch``: the value of the latest
+    schedule epoch not after ``epoch``.  Each value selects its own
+    algorithm (its schedule tables have a different shape)."""
+    ppi, e_max = None, -1
+    for e, v in ppi_schedule.items():
+        if e_max <= e <= epoch:
+            e_max = e
+            ppi = v
+    if ppi is None:
+        raise ValueError(
+            f"ppi_schedule {ppi_schedule} has no entry for epoch {epoch}; "
+            "an epoch-0 entry is required")
+    return ppi

@@ -28,7 +28,10 @@ after a step and 1e-6 after rounds, the push-sum weight exactly equal.
 Thinned and averaged SGP/OSGP steps on the kernel lane (launches per
 fired and skipped step) against the plain and interpret lanes, and a
 ResNet-18 step on the card against the CPU (params and BatchNorm
-statistics 5e-5).
+statistics 5e-5).  D-PSGD steps on the kernel lane (sync and overlap)
+against the plain and interpret lanes (params 1e-6, weight exact),
+bilateral rounds on the card bit-equal to the CPU's, and the training
+CLI with D-PSGD on the kernel lane against the CPU run (params 1e-5).
 """
 
 import dataclasses
@@ -667,3 +670,110 @@ def test_resnet_step_on_cuda_matches_cpu(cuda):
         assert all(t.device.type == "cuda" for t in g.values())
         assert err(g, e) <= 2 * err(c, e) + 1e-5, (tree, err(g, e),
                                                     err(c, e))
+
+
+@pytest.mark.parametrize("overlap,staleness", [(False, 1), (True, 1),
+                                               (True, 2)])
+def test_dpsgd_steps_on_the_kernel_lane(cuda, overlap, staleness):
+    """D-PSGD on the card: the kernel lane against the plain lane and the
+    CPU's interpret lane over 6 steps of SGD on a quadratic; one start
+    and one wait per bucket a step; sync rounds carry no weight (it
+    stays 1), overlap rounds carry it bit-equal across the lanes."""
+    from stochastic_gradient_push_torch.algorithms import dpsgd
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(4, 2))
+    r = np.random.default_rng(5)
+    x0, tg = ({n: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+               for n, s in (("a", (4, 7, 33)), ("b", (4, 300)))}
+              for _ in range(2))
+    runs = []
+    for dev, lane in ((cuda, tgk.KernelLane(chunk_elems=128)), (cuda, None),
+                      (torch.device("cpu"),
+                       tgk.KernelLane(interpret=True, chunk_elems=128))):
+        alg = dpsgd(sched, StackedTransport(4), overlap=overlap,
+                    staleness=staleness, gossip_kernel=lane,
+                    gossip_buckets=2)
+        params = {n: t.to(dev) for n, t in x0.items()}
+        target = {n: t.to(dev) for n, t in tg.items()}
+        gstate = alg.init(params)
+        for _ in range(6):
+            before = (tgk.gossip_edge_start.launches,
+                      tgk.gossip_edge_wait.launches)
+            params, gstate = alg.pre_step(params, gstate)
+            z = alg.eval_params(params, gstate)
+            params = {n: p - 0.1 * (z[n] - target[n])
+                      for n, p in params.items()}
+            params, gstate = alg.post_step(params, gstate)
+            torch.cuda.synchronize()
+            if dev.type == "cuda" and lane is not None:
+                assert (tgk.gossip_edge_start.launches - before[0],
+                        tgk.gossip_edge_wait.launches - before[1]) == (2, 2)
+        runs.append(({n: t.cpu() for n, t in params.items()},
+                     gstate.ps_weight.cpu()))
+    (kw, kp), (pw, pp), (cw, cp) = runs
+    if not overlap:
+        assert torch.equal(kp, torch.ones(4))
+    for w, p in ((pw, pp), (cw, cp)):
+        assert torch.equal(kp, p)
+        for n in kw:
+            assert float((kw[n] - w[n]).abs().max()) <= 1e-6
+
+
+def test_bilat_rounds_on_cuda_match_cpu(cuda):
+    from stochastic_gradient_push_torch.parallel import collectives as tc
+    from stochastic_gradient_push_torch.topology import (
+        DynamicBipartiteExponentialGraph, build_pairing_schedule)
+
+    pairing = build_pairing_schedule(DynamicBipartiteExponentialGraph(8, 2))
+    r = np.random.default_rng(6)
+    base = {"a": torch.from_numpy(r.standard_normal((8, 5, 9))
+                                  .astype(np.float32)),
+            "b": torch.from_numpy(r.standard_normal((8, 1))
+                                  .astype(np.float32))}
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = {n: t.to(dev) for n, t in base.items()}
+        for phase in range(len(pairing) + 1):
+            params = tc.mix_bilat(params, phase, pairing,
+                                  tc.StackedTransport(8))
+        runs.append({n: t.cpu() for n, t in params.items()})
+    for n in base:
+        assert torch.equal(runs[0][n], runs[1][n])
+
+
+def test_gossip_sgd_cli_on_cuda_matches_cpu(cuda, tmp_path):
+    """The training CLI with D-PSGD on the kernel lane on the card
+    against the same command on the CPU (plain lane): the saved rank
+    files' params within 1e-5, the push-sum weight equal, and the CSVs'
+    header and epochs/iterations equal."""
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+    from stochastic_gradient_push_torch.run import gossip_sgd
+
+    argv = ["--dataset", "synthetic", "--model", "tiny_mlp", "--image_size",
+            "8", "--num_classes", "4", "--batch_size", "4", "--world_size",
+            "4", "--num_epochs", "2", "--num_iterations_per_training_epoch",
+            "3", "--push_sum", "False", "--verbose", "False"]
+    before = tgk.gossip_edge_start.launches
+    gossip_sgd.main(argv + ["--gossip_kernel", "pallas", "--checkpoint_dir",
+                            str(tmp_path / "gpu")])
+    assert tgk.gossip_edge_start.launches - before == 6
+    gossip_sgd.main(argv + ["--device", "cpu", "--checkpoint_dir",
+                            str(tmp_path / "cpu")])
+    for r in range(4):
+        got, want = (torch.load(tmp_path / d / f"checkpoint_r{r}_n4.ckpt",
+                                weights_only=True)["state"]
+                     for d in ("gpu", "cpu"))
+        assert got["step"] == want["step"] == 6
+        assert torch.equal(got["gossip"]["ps_weight"],
+                           want["gossip"]["ps_weight"])
+        for n, t in want["params"].items():
+            assert float((got["params"][n] - t).abs().max()) <= 1e-5
+    rows = [[line.split(",")[:2] for line in open(
+        tmp_path / d / "out_r0_n4.csv").read().splitlines()]
+        for d in ("gpu", "cpu")]
+    assert rows[0] == rows[1]

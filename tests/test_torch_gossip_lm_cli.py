@@ -107,7 +107,7 @@ def test_reference_flags_parse_with_reference_defaults():
 
 @pytest.mark.parametrize("flag,value", [
     ("--sp", "2"), ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
-    ("--slice_size", "2"), ("--bilat", "True"),
+    ("--slice_size", "2"), ("--remat", "True"),
     ("--precision", "bf16"), ("--inject_faults", "drop:0->1@0:4"),
     ("--resume", "True"),
     ("--checkpoint_dir", "/tmp/x"), ("--health_every", "10"),
@@ -122,7 +122,7 @@ def test_unported_flags_raise_naming_the_flag(flag, value):
 @pytest.mark.parametrize("argv,match", [
     (["--attn", "ring"], "ring"),
     (["--attn", "blockwise"], "blockwise"),
-    (["--push_sum", "False"], "D-PSGD"),
+    (["--attn", "ring_flash"], "ring_flash"),
 ])
 def test_unported_modes_raise(argv, match):
     with pytest.raises(SystemExit, match=match):

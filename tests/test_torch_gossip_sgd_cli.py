@@ -1,0 +1,312 @@
+"""The port's training CLI (``stochastic_gradient_push_torch.run.
+gossip_sgd`` and ``run.gossip_sgd_adpsgd``) on the CPU.
+
+* End to end at ``--device cpu`` (TinyCNN/TinyMLP, 8–16 px, world 4):
+  every algorithm (AllReduce, SGP, OSGP, D-PSGD sync and overlap,
+  AD-PSGD) and the options around them (int8 wire, the ``auto`` kernel
+  lane, cosine LR with warmup, ``grad_accum``, label smoothing, bf16,
+  per-rank CSVs, kept epochs), writing the reference's CSV header and
+  rows and one checkpoint file per rank; through ``main`` and through
+  ``python -m``.
+* The reference's flag surface: every flag of its parser, with its
+  default; every flag of a feature not ported refused by name (one
+  parametrised test), as is ``--dataset imagefolder``, graph 6,
+  ``--bilat_async``, and every unported ``TrainerConfig`` field.
+* ``--gossip_kernel pallas`` on the CPU raises ``KernelBackendError``
+  naming the flag; with no ``--device`` the CLI runs on CUDA or raises
+  ``DeviceUnavailableError``.
+* Resume: one epoch, then ``--resume True`` to two, equals two epochs
+  straight (every rank file's tensors equal) and continues the CSV;
+  checkpoints of another world are refused by name.
+* SIGUSR1 to a subprocess run: exit 75, four rank files, the overlap
+  FIFO on disk drained.
+"""
+
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+from stochastic_gradient_push_torch.device import DeviceUnavailableError
+from stochastic_gradient_push_torch.ops.gossip_kernel import (
+    KernelBackendError)
+from stochastic_gradient_push_torch.run import gossip_sgd, gossip_sgd_adpsgd
+from stochastic_gradient_push_torch.train import loop as tloop
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = 4
+SMALL = ["--device", "cpu", "--dataset", "synthetic", "--model", "tiny_cnn",
+         "--image_size", "16", "--num_classes", "10", "--batch_size", "4",
+         "--world_size", str(WORLD), "--num_epochs", "2",
+         "--num_iterations_per_training_epoch", "3", "--num_itr_ignore",
+         "1", "--print_freq", "1", "--verbose", "False"]
+HEADER = ("Epoch,itr,BT(s),avg:BT(s),std:BT(s),NT(s),avg:NT(s),std:NT(s),"
+          "DT(s),avg:DT(s),std:DT(s),Loss,avg:Loss,Prec@1,avg:Prec@1,"
+          "Prec@5,avg:Prec@5,val")
+
+
+def _rows(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    assert lines[:5] == ["BEGIN-TRAINING", f"World-Size,{WORLD}",
+                         "Num-DLWorkers,8", "Batch-Size,4", HEADER]
+    return [line.split(",") for line in lines[5:]]
+
+
+def _rank_files(path, tag=""):
+    return [torch.load(os.path.join(path, f"{tag}checkpoint_r{r}_n{WORLD}"
+                                          ".ckpt"), weights_only=True)
+            for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("extra,module,name", [
+    (["--all_reduce", "True", "--graph_type", "-1"], gossip_sgd, "ar"),
+    ([], gossip_sgd, "sgp"),
+    (["--overlap", "True", "--staleness", "2", "--gossip_kernel", "auto"],
+     gossip_sgd, "sgp"),
+    (["--overlap", "True", "--synch_freq", "1", "--wire_dtype", "int8",
+      "--wire_block", "16", "--gossip_buckets", "2"], gossip_sgd, "sgp"),
+    (["--push_sum", "False"], gossip_sgd, "dpsgd"),
+    (["--push_sum", "False", "--overlap", "True", "--staleness", "2",
+      "--global_avg_every", "2"], gossip_sgd, "dpsgd"),
+    ([], gossip_sgd_adpsgd, "adpsgd"),
+    (["--graph_type", "0", "--num_peers", "2"], gossip_sgd_adpsgd,
+     "adpsgd"),
+    (["--cosine_lr", "True", "--warmup", "True", "--grad_accum", "2",
+      "--label_smoothing", "0.1", "--nesterov", "True",
+      "--peers_per_itr_schedule", "0", "1", "1", "2", "--graph_type", "0"],
+     gossip_sgd, "sgp"),
+    (["--precision", "bf16", "--gossip_every", "2"], gossip_sgd, "sgp"),
+    (["--model", "tiny_mlp", "--image_size", "8", "--per_rank_csv", "True",
+      "--overwrite_checkpoints", "False", "--tag", "t_"], gossip_sgd, "sgp"),
+])
+def test_cli_trains_end_to_end_on_cpu(tmp_path, capsys, extra, module,
+                                      name):
+    result = module.main(SMALL + ["--checkpoint_dir", str(tmp_path)] + extra)
+    assert f"algorithm {name}" in capsys.readouterr().out
+    tag = "t_" if "--tag" in extra else ""
+    csv_ranks = range(WORLD) if "--per_rank_csv" in extra else [0]
+    for r in csv_ranks:
+        rows = _rows(tmp_path / f"{tag}out_r{r}_n{WORLD}.csv")
+        assert [row[:2] for row in rows] == [
+            [str(e), str(i)] for e in range(2) for i in (0, 1, 2, 2, -1)]
+        assert all(len(row) == 18 for row in rows)
+        assert all(row[-1] == "-1" for row in rows if row[1] != "-1")
+    files = _rank_files(tmp_path, tag)
+    assert [f["state"]["step"] for f in files] == [6] * WORLD
+    assert all("best_prec1" in f["meta"] and '"epoch": 2' in f["meta"]
+               for f in files)
+    if "--overwrite_checkpoints" in extra:
+        assert (tmp_path / f"ep0_{tag}checkpoint_r3_n{WORLD}.ckpt").is_file()
+    for f in files:
+        for slot in f["state"]["gossip"]["in_flight"]:
+            assert not slot["ps_weight"].any()
+    assert 0.0 <= result["best_prec1"] <= 100.0
+
+
+def test_module_entry_point_runs(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "stochastic_gradient_push_torch.run.gossip_sgd",
+         *SMALL, "--checkpoint_dir", str(tmp_path), "--push_sum", "False"],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "done:" in proc.stdout.splitlines()[-1]
+    assert len(_rows(tmp_path / f"out_r0_n{WORLD}.csv")) == 10
+
+
+def test_reference_flags_parse_with_reference_defaults():
+    from stochastic_gradient_push_tpu.run.gossip_sgd import build_parser
+
+    ref = {a.dest: a.default for a in build_parser()._actions
+           if a.option_strings and a.dest != "help"}
+    port = {a.dest: a.default for a in gossip_sgd.build_parser()._actions
+            if a.option_strings and a.dest != "help"}
+    missing = sorted(set(ref) - set(port))
+    assert not missing, f"reference flags the port does not parse: {missing}"
+    assert {k: (ref[k], port[k]) for k in ref if ref[k] != port[k]} == {}
+    assert set(port) - set(ref) == {"device"}
+
+
+# one value per unported flag, each away from its default
+UNPORTED_VALUES = {
+    "--prefetch": "True", "--data_backend": "pil", "--stem_s2d": "True",
+    "--data_output": "uint8", "--topology": "auto", "--synth_seed": "1",
+    "--synth_budget": "10", "--synth_beam": "2", "--synth_phases": "3",
+    "--gap_floor": "0.1", "--slice_size": "2", "--dcn_cost": "4",
+    "--ici_cost": "2", "--mixing_alpha": "0.5",
+    "--inject_faults": "drop:0->1@0:4", "--health_every": "5",
+    "--residual_floor": "0.1", "--error_feedback": "True",
+    "--gossip_comm_dtype": "bf16", "--checkpoint_all": "False",
+    "--nprocs_per_node": "2", "--scan_steps": "2", "--multihost": "True",
+    "--coordinator_address": "localhost:1", "--num_processes": "2",
+    "--process_id": "1", "--heartbeat_timeout": "60",
+    "--ckpt_backend": "orbax", "--trace_dir": "/nonexistent",
+    "--metrics_every": "5", "--profile_dir": "/nonexistent",
+    "--profile_start_step": "1", "--profile_steps": "1", "--fleet": "True",
+    "--host_id": "0",
+}
+
+
+@pytest.mark.parametrize("flag", sorted(gossip_sgd.UNPORTED))
+def test_unported_flags_raise_naming_the_flag(tmp_path, flag):
+    with pytest.raises(SystemExit, match=flag):
+        gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path), flag,
+                                 UNPORTED_VALUES[flag]])
+
+
+def test_every_unported_flag_has_a_test_value():
+    assert set(UNPORTED_VALUES) == set(gossip_sgd.UNPORTED)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--dataset", "imagefolder"], "ImageFolder"),
+    (["--graph_type", "6"], "hierarchical"),
+    (["--multihost", "False"], None),
+    (["--model", "vit"], "unknown model"),
+    (["--staleness", "2"], "overlap-mode knob"),
+    (["--overlap", "True", "--staleness", "3", "--synch_freq", "1"],
+     "conflicts"),
+    (["--push_sum", "False", "--wire_dtype", "int8"], "push-sum knobs"),
+    (["--all_reduce", "True"], "graph_type -1"),
+    (["--graph_type", "-1"], "graph_type >= 0"),
+    (["--peers_per_itr_schedule", "1", "2"], "epoch 0"),
+    (["--schedule", "30"], "pairs"),
+    (["--gossip_buckets", "0"], "gossip_buckets"),
+])
+def test_flags_are_validated(tmp_path, argv, match):
+    argv = SMALL + ["--checkpoint_dir", str(tmp_path),
+                    "--num_epochs", "1"] + argv
+    if match is None:       # accepted: the feature stays off
+        gossip_sgd.main(argv)
+        return
+    with pytest.raises(SystemExit, match=match):
+        gossip_sgd.main(argv)
+
+
+@pytest.mark.parametrize("flag", ["--bilat_async", "--bilat_async_interval"])
+def test_async_adpsgd_is_refused_by_name(tmp_path, flag):
+    value = "True" if flag == "--bilat_async" else "0.5"
+    with pytest.raises(SystemExit, match=flag):
+        gossip_sgd_adpsgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
+                                        flag, value])
+
+
+@pytest.mark.parametrize("field", sorted(tloop.UNPORTED))
+def test_unported_trainer_fields_raise_naming_the_feature(field):
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.train.step import make_model
+
+    default, feature = tloop.UNPORTED[field]
+    value = {bool: not default, int: 7, float: 0.25}.get(type(default),
+                                                         "x")
+    if field == "plan":
+        value = {"topology": "ring"}
+    cfg = tloop.TrainerConfig(**{field: value})
+    with pytest.raises(NotImplementedError, match=feature.split(" (")[0]):
+        tloop.Trainer(cfg, make_model("tiny_cnn"), StackedTransport(2),
+                      device="cpu")
+
+
+def test_multi_process_world_is_refused():
+    from stochastic_gradient_push_torch.train.step import make_model
+
+    class OneRankTransport:
+        world_size = 2
+
+    with pytest.raises(NotImplementedError, match="multi-process world"):
+        tloop.Trainer(tloop.TrainerConfig(), make_model("tiny_cnn"),
+                      OneRankTransport(), device="cpu")
+
+
+def test_pallas_on_cpu_is_a_typed_error_naming_the_flag(tmp_path):
+    with pytest.raises(KernelBackendError, match="--gossip_kernel pallas"):
+        gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
+                                 "--gossip_kernel", "pallas"])
+
+
+def test_default_device_is_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default resolves to it")
+    argv = [a for a in SMALL if a not in ("--device", "cpu")]
+    with pytest.raises(DeviceUnavailableError):
+        gossip_sgd.main(argv + ["--checkpoint_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("extra", [[], ["--overlap", "True", "--staleness",
+                                        "2", "--push_sum", "False"]])
+def test_resume_equals_continue(tmp_path, extra):
+    gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path / "a")]
+                    + extra)
+    gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path / "b"),
+                             "--num_epochs", "1"] + extra)
+    gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path / "b"),
+                             "--resume", "True"] + extra)
+    for a, b in zip(_rank_files(tmp_path / "a"), _rank_files(tmp_path / "b")):
+        sa, sb = a["state"], b["state"]
+        assert sa["step"] == sb["step"] == 6
+        assert sa["gossip"]["phase"] == sb["gossip"]["phase"]
+        assert torch.equal(sa["gossip"]["ps_weight"], sb["gossip"]["ps_weight"])
+        for tree in ("params", "opt_state", "batch_stats"):
+            for n, t in sa[tree].items():
+                assert torch.equal(sb[tree][n], t), (tree, n)
+        for x, y in zip(sa["gossip"]["in_flight"], sb["gossip"]["in_flight"]):
+            assert torch.equal(x["ps_weight"], y["ps_weight"])
+    rows_a = _rows(tmp_path / "a" / f"out_r0_n{WORLD}.csv")
+    rows_b = _rows(tmp_path / "b" / f"out_r0_n{WORLD}.csv")
+    # the resumed run appends to the CSV: the same epochs and iterations,
+    # and the same losses and accuracies
+    assert [r[:2] + r[11:] for r in rows_b] == [r[:2] + r[11:]
+                                                for r in rows_a]
+
+
+def test_cross_world_resume_is_refused_by_name(tmp_path):
+    gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
+                             "--num_epochs", "1"])
+    with pytest.raises(NotImplementedError, match="cross-world resume"):
+        gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
+                                 "--world_size", "2", "--resume", "True"])
+
+
+def test_sigusr1_exits_75_with_drained_rank_files(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "stochastic_gradient_push_torch.run.gossip_sgd",
+         *SMALL, "--num_epochs", "1000", "--overlap", "True", "--staleness",
+         "2", "--checkpoint_dir", str(tmp_path)], env=env, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    csv_path = tmp_path / f"out_r0_n{WORLD}.csv"
+    try:
+        deadline = time.monotonic() + 240
+        while time.monotonic() < deadline and proc.poll() is None:
+            if csv_path.exists() and len(csv_path.read_text()
+                                         .splitlines()) >= 7:
+                break
+            time.sleep(0.1)
+        assert proc.poll() is None, proc.stdout.read()
+        proc.send_signal(signal.SIGUSR1)
+        out, _ = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 75, out
+    # saved at the next step boundary, or by the epoch's own save when
+    # the signal lands during validation
+    assert "Received SIGUSR1" in out
+    files = _rank_files(tmp_path)
+    assert len(files) == WORLD
+    for f in files:
+        slots = f["state"]["gossip"]["in_flight"]
+        assert len(slots) == 2
+        for slot in slots:
+            assert not slot["ps_weight"].any()
+            assert not any(t.any() for t in slot["params"].values())
+    assert '"itr": ' in files[0]["meta"]

@@ -85,6 +85,15 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.models.small",
                 "stochastic_gradient_push_torch.train.step",
                 "stochastic_gradient_push_torch.run.dryrun",
+                "stochastic_gradient_push_torch.run.gossip_sgd",
+                "stochastic_gradient_push_torch.run.gossip_sgd_adpsgd",
+                "stochastic_gradient_push_torch.train.loop",
+                "stochastic_gradient_push_torch.train.lr",
+                "stochastic_gradient_push_torch.utils.checkpoint",
+                "stochastic_gradient_push_torch.utils.logging",
+                "stochastic_gradient_push_torch.utils.meter",
+                "stochastic_gradient_push_torch.data.pipeline",
+                "stochastic_gradient_push_torch.topology.schedule",
                 "chip_smoke"}
     assert expected <= set(result["imported"])
     assert not [m for m in result["loaded"]
