@@ -96,7 +96,28 @@
    - Preemption: a subprocess run of the CLI (OSGP, ``--overlap True``)
      gets SIGUSR1 once it is training; it must exit 75 and leave the
      four rank files with a drained (all-zero) FIFO.
-9. A JSON line of per-kernel results (the flash rows also carry
+9. Error feedback, faults, health and recovery at ResNet-50's width
+   (224 px, fp32, TF32 off, world 4 stacked, 32 images a rank):
+   - 9a: SGP on the int8 wire with error feedback and the fault plan
+     ``drop:0->1@0:2;seed:5``, two steps from one state on the kernel
+     lane and on the plain lane under deterministic cuDNN: ps-weight
+     bit-equal, params and the EF residual within 1e-6 (exact equality
+     printed), one K2 and one K1 a step;
+   - 9b: ``run/gossip_sgd.py`` OSGP at staleness 2, ``--wire_dtype int8
+     --error_feedback True --inject_faults "drop:0->1@1:4;seed:5"
+     --health_every 3 --residual_floor 1e-9 --gossip_kernel pallas``,
+     two epochs of three steps: one K2 and one K1 a step (as without
+     faults), every ``gossip health:`` line with a finite
+     ``ef_residual_rms`` under 0.1, no ``push-sum-mass-leak``, a
+     ``gossip recovery:`` global average, rank files with a non-zero
+     EF residual and a drained FIFO, the reference's CSV;
+   - 9c: ``make_recovery_fn`` on 9b's saved state (with a FIFO of
+     pending shares) on the card: every rank exactly equal, ``Σx/Σw``
+     kept to 1e-6 against float64, the weights 1, the FIFO drained;
+   - 9d: K2 and K1 against their plain twins at ResNet-50's payload
+     with a NaN-poisoned rank and dropped edges (int8 and bf16): bit
+     for bit, NaN positions included, the dropped edges landing 0.
+10. A JSON line of per-kernel results (the flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound; the paged-decode row
    ``device_ms`` and ``host_ms``), the ``nvidia-smi``
    name/power-limit line, and as the last line ``{"ok": true, "device":
@@ -144,6 +165,16 @@ RESNET = dict(model="resnet50", num_classes=1000, image=224, batch=32,
 CLI = dict(model="resnet50", image=224, num_classes=1000, world=4, batch=32,
            epochs=2, itrs=3)
 PREEMPT_TIMEOUT_S = 300
+# phase 9: ResNet-50 at the ResNet phase's width, unthinned and without
+# periodic averaging, on the int8 wire with error feedback and faults
+RESIL = dict(RESNET, gossip_every=1, global_avg_every=0)
+RESIL_STEPS = 2
+RESIL_FAULTS_LANES = "drop:0->1@0:2;seed:5"
+RESIL_FAULTS_CLI = "drop:0->1@1:4;seed:5"
+# ResNet-50's parameters a rank (torchvision's count)
+RESIL_PAYLOAD = 25_557_032
+# make_recovery_fn against a float64 Σx/Σw
+TOL_RECOVERY = 1e-6
 # H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores, TF32
 # tensor-core rate (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -961,11 +992,13 @@ def gossip_train_path(card: str, label: str, wire: str, overlap: bool,
 
 def _resnet_setup(cfg: dict, wire, overlap: bool, staleness: int,
                   peers: int, buckets: int, gossip_kernel=None,
-                  push_sum: bool = True):
+                  push_sum: bool = True, error_feedback: bool = False,
+                  faults: str | None = None):
     """ResNet SGP (or OSGP with ``overlap``; D-PSGD without
     ``push_sum``, unthinned) at ``cfg``'s size and dtype, thinned and
     averaged, over the n-peer exponential graph at ``cfg["world"]``
-    ranks stacked on the card."""
+    ranks stacked on the card; SGP may carry error feedback and a fault
+    plan (``faults``, the ``--inject_faults`` grammar)."""
     import torch
 
     from stochastic_gradient_push_torch.algorithms import dpsgd, sgp
@@ -979,15 +1012,20 @@ def _resnet_setup(cfg: dict, wire, overlap: bool, staleness: int,
     from stochastic_gradient_push_torch.train.step import (
         build_train_step, make_model)
 
+    from stochastic_gradient_push_torch.resilience import parse_fault_spec
+
     world = cfg["world"]
     schedule = build_schedule(NPeerDynamicDirectedExponentialGraph(
         world, peers_per_itr=peers))
     if push_sum:
+        masks = None if faults is None else parse_fault_spec(
+            faults).build_masks(schedule, gossip_every=cfg["gossip_every"])
         alg = sgp(schedule, StackedTransport(world), wire=get_codec(wire),
                   overlap=overlap, staleness=staleness,
                   gossip_kernel=gossip_kernel, gossip_buckets=buckets,
                   gossip_every=cfg["gossip_every"],
-                  global_avg_every=cfg["global_avg_every"])
+                  global_avg_every=cfg["global_avg_every"],
+                  error_feedback=error_feedback, faults=masks)
     else:
         alg = dpsgd(schedule, StackedTransport(world), overlap=overlap,
                     staleness=staleness, gossip_kernel=gossip_kernel,
@@ -1423,6 +1461,300 @@ def cli_path(card: str) -> dict:
     return {n: sum(run[n] for run in main_runs) for n in main_runs[0]}
 
 
+# -- phase 9: error feedback, faults, health and recovery --------------------
+
+
+def _nan_equal(a, b) -> bool:
+    """Bit for bit outside NaN, NaN at the same positions."""
+    import torch
+
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan], b[~nan]))
+
+
+def check_gossip_faults(card: str) -> None:
+    """Phase 9d: K2 and K1 against their plain twins on ResNet-50's
+    payload with a NaN-poisoned rank and dropped edges (masked as the
+    round masks them), int8 and bf16."""
+    import torch
+
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    world, n = RESIL["world"], RESIL_PAYLOAD
+    dests = build_schedule(NPeerDynamicDirectedExponentialGraph(
+        world)).perms[0]    # [1 edge, world]
+    row = dests[0]
+    corrupt = torch.tensor([0.0, 1.0, 0.0, 1.0], device="cuda")[:, None]
+    keep = torch.tensor([1.0, 1.0, 0.0, 0.0], device="cuda")[:, None]
+    for wire in ("int8", "bf16"):
+        codec = get_codec(wire, 64)
+        spec = codec.kernel_spec()
+        msg = torch.randn(world, n, device="cuda", generator=g) * 0.05
+        msg = msg.masked_fill(corrupt > 0, float("nan"))
+        msg = msg.masked_fill(keep <= 0, 0.0)
+        parts = tuple(p[:, None] for p in codec.encode(msg))
+        handle = gk.gossip_edge_start(parts, dests, spec, n_decoded=n)
+        _, _, rows, c, nb, _, _ = handle.meta
+        # the parts in the chunk layout the start kernel moved
+        if wire == "int8":
+            chunked = (gk._pad_rows(parts[0], nb * rows, 2),
+                       gk._pad_rows(parts[1], nb * rows, 2))
+        else:
+            chunked = (gk._pad_rows(parts[0], nb * c, 2),)
+        chunked = tuple(p.reshape(h.shape)
+                        for p, h in zip(chunked, handle.recv))
+        plain_landed = gk.gossip_edge_start_reference(chunked, dests)
+        acc = torch.randn(world, n, device="cuda", generator=g)
+        out = gk.gossip_edge_wait(handle, acc)
+        plain = gk.gossip_edge_wait_reference(
+            gk._pad_rows(acc, nb * c, 1).reshape(world, nb, c), handle.recv,
+            spec.kind).reshape(world, nb * c)[:, :n]
+        torch.cuda.synchronize()
+        landed_ok = all(_nan_equal(a, b)
+                        for a, b in zip(handle.recv, plain_landed))
+        wait_ok = _nan_equal(out, plain)
+        raw = torch.equal(out.view(torch.int32), plain.view(torch.int32))
+        recv_of = {int(row[r]): r for r in range(world)}
+        nan_rows = [int(torch.isnan(out[d]).sum()) for d in range(world)]
+        zero_ok = all(torch.equal(out[d], acc[d]) for d in range(world)
+                      if recv_of[d] in (2, 3))
+        print(f"kernel gossip faults {wire} E1 R{world} n{n}: rank 1 "
+              f"NaN-poisoned, ranks 2 and 3 dropped (3 also poisoned): "
+              f"start {'bit-equal' if landed_ok else 'DIFFERS'}, wait "
+              f"{'bit-equal, NaN positions included' if wait_ok else 'DIFFERS'}"
+              f" (NaN bits equal: {raw}); NaN per receiver {nan_rows}; "
+              f"receivers of the dropped edges get exactly 0: {zero_ok} "
+              f"[{card}]", flush=True)
+        if not (landed_ok and wait_ok and zero_ok):
+            raise AssertionError(f"gossip faults {wire}: the kernels differ "
+                                 f"from their plain twins")
+        # the kernels' times at this payload, and their bytes bounds
+        part_bytes = sum(p.numel() * p.element_size() for p in parts)
+        start_ms = _time_ms(lambda: gk.gossip_edge_start(
+            parts, dests, spec, n_decoded=n), 10)
+        wait_ms = _time_ms(lambda: gk.gossip_edge_wait(handle, acc), 10)
+        sb = _bound(2 * part_bytes, 0)
+        wb = _bound(2 * acc.numel() * 4 + part_bytes,
+                    acc.numel() * (2 if wire == "int8" else 1))
+        print(f"kernel gossip faults {wire} E1 R{world} n{n}: start "
+              f"{start_ms:.4f} ms (bound {sb[0]:.4f} ms, {sb[1]}), wait "
+              f"{wait_ms:.4f} ms (bound {wb[0]:.4f} ms, {wb[1]}) [{card}]",
+              flush=True)
+        if nan_rows[int(row[1])] == 0 or any(
+                nan_rows[d] for d in range(world) if recv_of[d] != 1):
+            raise AssertionError(f"gossip faults {wire}: NaN landed at "
+                                 f"{nan_rows}, expected at rank "
+                                 f"{int(row[1])} only")
+        del msg, parts, handle, chunked, plain_landed, acc, out, plain
+        torch.cuda.empty_cache()
+
+
+def resilience_lanes(card: str) -> dict:
+    """Phase 9a: SGP on the int8 wire with error feedback and a fault
+    plan at ResNet-50's width, two steps from one state on the kernel
+    lane and on the plain lane under deterministic cuDNN."""
+    import torch
+
+    from stochastic_gradient_push_torch.data.synthetic import (
+        synthetic_classification)
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+    from stochastic_gradient_push_torch.train.step import init_train_state
+
+    cfg = RESIL
+    world, batch, image = cfg["world"], cfg["batch"], cfg["image"]
+    kw = dict(wire="int8", overlap=False, staleness=1, peers=1, buckets=1,
+              error_feedback=True, faults=RESIL_FAULTS_LANES)
+    model, alg, tx, step = _resnet_setup(cfg, gossip_kernel=KernelLane(),
+                                         **kw)
+    _, plain_alg, _, plain_step = _resnet_setup(cfg, **kw)
+    images, labels = synthetic_classification(
+        world * batch, num_classes=cfg["num_classes"], image_size=image,
+        seed=0)
+    x = torch.from_numpy(images.reshape(world, batch, image, image, 3)
+                         ).cuda()
+    y = torch.from_numpy(labels.reshape(world, batch)).cuda()
+    del images
+    state = init_train_state(model, alg, tx, world, seed=0, device="cuda")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        p_state = state
+        for _ in range(RESIL_STEPS):
+            p_state, _ = plain_step(p_state, x, y)
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        k_state = state
+        for _ in range(RESIL_STEPS):
+            k_state, k_m = step(k_state, x, y)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    kg, pg = k_state.gossip, p_state.gossip
+    param_err = max(_max_err(k_state.params[n], p_state.params[n])
+                    for n in k_state.params)
+    res_err = max(_max_err(kg.ef_residual[n], pg.ef_residual[n])
+                  for n in kg.ef_residual)
+    exact = {
+        "params": all(torch.equal(k_state.params[n], p_state.params[n])
+                      for n in k_state.params),
+        "residual": all(torch.equal(kg.ef_residual[n], pg.ef_residual[n])
+                        for n in kg.ef_residual)}
+    res_rms = math.sqrt(sum(float((r.float() ** 2).sum())
+                            for r in kg.ef_residual.values())
+                        / (world * sum(r[0].numel()
+                                       for r in kg.ef_residual.values())))
+    print(f"resilience lanes: {cfg['model']} {image} px, world {world}, "
+          f"batch {batch}/rank, SGP int8 + error feedback, faults "
+          f"{RESIL_FAULTS_LANES!r}, {RESIL_STEPS} steps from one state: "
+          f"losses {k_m['loss'].tolist()}; ps-weight {kg.ps_weight.tolist()} "
+          f"vs {pg.ps_weight.tolist()}; max |param diff| {param_err:.3e}, "
+          f"max |residual diff| {res_err:.3e} (tolerance {TOL_STEP_PARAM}); "
+          f"exactly equal: {json.dumps(exact)}; residual rms {res_rms:.3e}; "
+          f"launches {json.dumps(launches)} [{card}]", flush=True)
+    if not torch.equal(kg.ps_weight, pg.ps_weight):
+        raise AssertionError("resilience lanes: push-sum weights differ")
+    if not (param_err <= TOL_STEP_PARAM and res_err <= TOL_STEP_PARAM):
+        raise AssertionError("resilience lanes: params or residual differ")
+    if not 0.0 < res_rms < 0.1:
+        raise AssertionError(f"resilience lanes: residual rms {res_rms}")
+    want = {n: 0 for n in launches}
+    want["gossip_edge_start"] = want["gossip_edge_wait"] = RESIL_STEPS
+    if launches != want:
+        raise AssertionError(f"resilience lanes: launches {launches}, "
+                             f"expected {want}")
+    return launches
+
+
+def resilience_cli(card: str, tmp: str) -> tuple[dict, str]:
+    """Phase 9b: the CLI with OSGP, the int8 wire, error feedback, a
+    fault plan, health lines and recovery at ResNet-50's width."""
+    import contextlib
+    import io
+
+    ckpt = os.path.join(tmp, "resilience")
+    argv = _cli_argv(ckpt, "--overlap", "True", "--staleness", "2",
+                     "--wire_dtype", "int8", "--error_feedback", "True",
+                     "--inject_faults", RESIL_FAULTS_CLI,
+                     "--health_every", "3", "--residual_floor", "1e-9",
+                     "--gossip_kernel", "pallas", "--verbose", "True")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launches, _ = _cli_run("resilience", argv, card)
+    out = buf.getvalue()
+    print("\n".join(line for line in out.splitlines()
+                    if line.startswith("cli ") or "gossip " in line),
+          flush=True)
+    _assert_gossip_launches("resilience", launches, 1)
+    health = [json.loads(line.split("gossip health: ", 1)[1])
+              for line in out.splitlines() if "gossip health: " in line]
+    recover = [json.loads(line.split("gossip recovery: ", 1)[1])
+               for line in out.splitlines() if "gossip recovery: " in line]
+    faults = [line.split("gossip faults: ", 1)[1]
+              for line in out.splitlines() if "gossip faults: " in line]
+    rms = [h.get("ef_residual_rms") for h in health]
+    print(f"cli resilience: {len(health)} health lines, ef_residual_rms "
+          f"{rms}, ps_mass_err {[h['ps_mass_err'] for h in health]}, "
+          f"consensus_residual "
+          f"{[h['consensus_residual'] for h in health]}; {len(recover)} "
+          f"recovery lines {json.dumps(recover)}; faults {faults} [{card}]",
+          flush=True)
+    if not health or not all(r is not None and math.isfinite(r)
+                             and r < 0.1 for r in rms):
+        raise AssertionError(f"cli resilience: ef_residual_rms {rms}")
+    if "push-sum-mass-leak" in out:
+        raise AssertionError("cli resilience: a push-sum mass leak")
+    if not any(e["action"] == "global-average" for e in recover):
+        raise AssertionError("cli resilience: no global-average recovery")
+    if len(faults) != 1:
+        raise AssertionError(f"cli resilience: faults lines {faults}")
+    rows = _rank_files(ckpt)
+    res_nonzero = all(any(bool(t.any()) for t in
+                          r["gossip"]["ef_residual"].values()) for r in rows)
+    fifo = [t for r in rows for slot in r["gossip"]["in_flight"]
+            for t in [slot["ps_weight"], *slot["params"].values()]]
+    drained = len(fifo) > 0 and not any(bool(t.any()) for t in fifo)
+    print(f"cli resilience: {len(rows)} rank files, non-zero ef_residual: "
+          f"{res_nonzero}, FIFO drained: {drained} [{card}]", flush=True)
+    if not (res_nonzero and drained):
+        raise AssertionError("cli resilience: rank files")
+    _check_csv(os.path.join(ckpt, f"out_r0_n{CLI['world']}.csv"),
+               "resilience")
+    return launches, ckpt
+
+
+def resilience_recovery(card: str, ckpt: str) -> None:
+    """Phase 9c: ``make_recovery_fn`` on the CLI run's saved state on the
+    card: every rank equal, the de-biased mean kept."""
+    import torch
+
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.resilience import make_recovery_fn
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+
+    rows = _rank_files(ckpt)
+    world = len(rows)
+
+    def stack(get):
+        return torch.stack([get(r) for r in rows]).cuda()
+
+    params = {n: stack(lambda r, n=n: r["params"][n])
+              for n in rows[0]["params"]}
+    ps = stack(lambda r: r["gossip"]["ps_weight"])
+    # a pending share in the FIFO (the saved one is drained): a quarter
+    # of each rank's weight and params in flight
+    fifo = tuple(({n: p * 0.25 for n, p in params.items()}, ps * 0.25)
+                 for _ in rows[0]["gossip"]["in_flight"])
+    alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(world)),
+              StackedTransport(world), overlap=True, staleness=len(fifo))
+    tot_w = ps.double().sum() + sum(w.double().sum() for _, w in fifo)
+    want = {n: (p.double().sum(0) + sum(f[n].double().sum(0)
+                                        for f, _ in fifo)) / tot_w
+            for n, p in params.items()}
+    out, w, drained = make_recovery_fn(alg)(params, ps, fifo)
+    torch.cuda.synchronize()
+    spread = max(float((p - p[:1]).abs().max()) for p in out.values())
+    err = max(float((out[n][0].double() - want[n]).abs().max()
+                    / max(1.0, float(want[n].abs().max()))) for n in out)
+    ones = bool(torch.equal(w, torch.ones_like(w)))
+    empty = not any(bool(t.any()) for f, fw in drained
+                    for t in [fw, *f.values()])
+    print(f"resilience recovery: make_recovery_fn on the CLI run's state "
+          f"(world {world}, {len(out)} tensors, a FIFO of {len(fifo)} "
+          f"pending shares): replica spread {spread}, max |Σx/Σw - mean| "
+          f"{err:.3e} (tolerance {TOL_RECOVERY}), ps-weight 1: {ones}, FIFO "
+          f"drained: {empty} [{card}]", flush=True)
+    if spread != 0.0 or not err <= TOL_RECOVERY or not ones or not empty:
+        raise AssertionError("resilience recovery: not the exact average")
+
+
+def resilience_path(card: str) -> dict:
+    """Phase 9: error feedback, faults, health and recovery."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_resil_", dir=os.path.join(ROOT,
+                                                                  "build"))
+    try:
+        t0 = time.perf_counter()
+        lanes = resilience_lanes(card)
+        cli, ckpt = resilience_cli(card, tmp)
+        resilience_recovery(card, ckpt)
+        check_gossip_faults(card)
+        print(f"resilience: phase 9 in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {n: lanes[n] + cli[n] for n in lanes}
+
+
 def main() -> int:
     import torch
 
@@ -1467,14 +1799,17 @@ def main() -> int:
     resnet_osgp = resnet_train_path(card, "osgp", "bf16", True, 2, 2, 3, 2)
     torch.cuda.empty_cache()
     cli_launches = cli_path(card)
+    torch.cuda.empty_cache()
+    resil_launches = resilience_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
-    # D-PSGD and OSGP runs) summed
+    # D-PSGD and OSGP runs, phase 9's kernel-lane steps and CLI run)
+    # summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
-            resnet_sgp, resnet_osgp, cli_launches))
+            resnet_sgp, resnet_osgp, cli_launches, resil_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -7,6 +7,7 @@
         --staleness 2 --peers_per_itr 2 --gossip_buckets 3]
     python3 scripts/torch_train_profile.py --model resnet50 --world_size 4 \\
         --gossip_kernel pallas [--dtype bf16 --batch 128] [--push_sum False]
+        [--wire_dtype int8 --error_feedback True --inject_faults SPEC]
 
 Builds the training main path of ``chip_smoke.py`` (the d768/L12/h12/
 ff3072/vocab32000 LM, T1024, B8 per rank, fp32 with TF32 off; SGP or
@@ -31,8 +32,10 @@ gossip round of the step's own state into its parts, each timed with
 CUDA events over ``--steps`` repetitions: the sender multiply and encode
 of every (edge, leaf), the pack of the encoded parts into the transport
 buckets, the start kernel (K2), the local share ``lo * x`` and its pack
-into the accumulator, the wait kernel (K1) and the unpack (views, no
-device work).  Prints one JSON object (also written to ``--out``) with
+into the accumulator, the wait kernel (K1) and the unpack (views; on the
+int8 wire the conv and Dense kernels are packed in the reference's
+layout and copied back, and the same packs in the port's layout are
+timed beside them).  Prints one JSON object (also written to ``--out``) with
 the card's name and power limit.  Needs a CUDA card; exits non-zero
 without one.
 """
@@ -65,12 +68,16 @@ def _events_ms(fn, n: int) -> float:
 def round_split(alg, params: dict, ps_weight, n: int) -> dict:
     """One synchronous kernel-lane round of ``alg`` at phase 0 on the
     given state, cut into the stages ``collectives._round`` runs, each
-    stage's mean device ms over ``n`` repetitions."""
+    stage's mean device ms over ``n`` repetitions.  A blocked codec
+    (int8) packs and unpacks each leaf in the reference's layout
+    (``alg.layout``, bound by the step builder); the same packs in the
+    port's own layout are timed beside them."""
     from stochastic_gradient_push_torch.ops import gossip_kernel as gk
     from stochastic_gradient_push_torch.parallel import collectives as c
 
     sched, transport = alg.schedule, alg.transport
-    leaves = list(params.values()) + [ps_weight]
+    names = list(params)
+    leaves = [params[k] for k in names] + [ps_weight]
     codec = c._resolve_codec(alg.wire)
     spec = c._kernel_spec(codec)
     plan = c._transport_plan(leaves, spec, alg.gossip_buckets)
@@ -78,6 +85,9 @@ def round_split(alg, params: dict, ps_weight, n: int) -> dict:
     dests = sched.perms[0]
     lane = alg.gossip_kernel
     shapes = [a.shape for a in leaves]
+    perms = (alg._perms(names) if codec is not None and codec.blocked
+             else None)
+    lo, w = c._phase_tables(sched, 0, transport, ps_weight.device)
 
     def encode():
         sent = {}
@@ -85,9 +95,8 @@ def round_split(alg, params: dict, ps_weight, n: int) -> dict:
             for j, _, _ in bucket:
                 sent[j] = []
                 for i in range(ne):
-                    w = c._rank_weight(sched.edge_weights[0, i], transport,
-                                       leaves[j])
-                    msg = leaves[j] * w
+                    msg = c._to_ref(leaves[j] * c._col(w[i], leaves[j]),
+                                    perms[j] if perms else None)
                     sent[j].append(codec.encode(msg) if codec else (msg,))
         return sent
 
@@ -104,19 +113,18 @@ def round_split(alg, params: dict, ps_weight, n: int) -> dict:
         out = list(leaves)
         for bucket in plan:
             for j, _, _ in bucket:
-                lo = c._rank_weight(sched.self_weight[0], transport,
-                                    leaves[j])
-                out[j] = leaves[j] * lo
+                out[j] = leaves[j] * c._col(lo, leaves[j])
         return out
 
     out = local()
-    accs = [c._pack_acc(b, out, ln) for b, (_, ln) in zip(plan, lens)]
+    accs = [c._pack_acc(b, out, ln, perms=perms)
+            for b, (_, ln) in zip(plan, lens)]
     flats = [gk.gossip_edge_wait(h, a) for h, a in zip(handles, accs)]
 
-    def unpack():
+    def unpack(layout):
         tgt = list(out)
         for b, f in zip(plan, flats):
-            c._unpack_acc(b, f, tgt, shapes)
+            c._unpack_acc(b, f, tgt, shapes, layout)
 
     stages = {
         "encode_ms": encode,
@@ -126,15 +134,23 @@ def round_split(alg, params: dict, ps_weight, n: int) -> dict:
             p, dests, spec, n_decoded=t, interpret=lane.interpret,
             chunk_elems=lane.chunk_elems) for p, (t, _) in zip(parts, lens)],
         "local_share_ms": local,
-        "pack_acc_ms": lambda: [c._pack_acc(b, out, ln)
+        "pack_acc_ms": lambda: [c._pack_acc(b, out, ln, perms=perms)
                                 for b, (_, ln) in zip(plan, lens)],
         "wait_ms": lambda: [gk.gossip_edge_wait(h, a)
                             for h, a in zip(handles, accs)],
-        "unpack_ms": unpack,
+        "unpack_ms": lambda: unpack(perms),
     }
+    if perms is not None:
+        # the same packs in the port's own layout: what the permutation
+        # to the reference's layout costs
+        stages["pack_acc_port_layout_ms"] = lambda: [
+            c._pack_acc(b, out, ln) for b, (_, ln) in zip(plan, lens)]
+        stages["unpack_port_layout_ms"] = lambda: unpack(None)
     split = {name: _events_ms(fn, n) for name, fn in stages.items()}
     split["buckets"] = len(plan)
     split["payload_elems_per_rank"] = sum(t for t, _ in lens)
+    split["reference_layout_leaves"] = (
+        sum(p is not None for p in perms) if perms else 0)
     return split
 
 
@@ -166,7 +182,9 @@ def profile_resnet(args, smi: str) -> dict:
     model, alg, tx, step = _resnet_setup(
         cfg, args.wire_dtype, args.overlap == "True", args.staleness,
         args.peers_per_itr, args.gossip_buckets,
-        gossip_kernel=args.gossip_kernel, push_sum=args.push_sum == "True")
+        gossip_kernel=args.gossip_kernel, push_sum=args.push_sum == "True",
+        error_feedback=args.error_feedback == "True",
+        faults=args.inject_faults)
     image = cfg["image"]
     images, labels = synthetic_classification(
         world * batch, num_classes=cfg["num_classes"], image_size=image,
@@ -216,7 +234,9 @@ def profile_resnet(args, smi: str) -> dict:
                          "overlap": args.overlap == "True",
                          "staleness": args.staleness,
                          "peers_per_itr": args.peers_per_itr,
-                         "gossip_buckets": args.gossip_buckets},
+                         "gossip_buckets": args.gossip_buckets,
+                         "error_feedback": args.error_feedback == "True",
+                         "inject_faults": args.inject_faults},
               "resnet_train_step": window}
     if world > 1 and alg.transport_kernel_name == "pallas":
         result["gossip_round_split"] = round_split(
@@ -239,6 +259,10 @@ def main(argv=None) -> int:
     p.add_argument("--model", default="lm", choices=["lm", "resnet50"])
     p.add_argument("--push_sum", default="True",
                    help="resnet50: False runs D-PSGD")
+    p.add_argument("--error_feedback", default="False",
+                   help="resnet50: error feedback (needs a lossy wire)")
+    p.add_argument("--inject_faults", default=None,
+                   help="resnet50: a fault plan (--inject_faults grammar)")
     p.add_argument("--batch", type=int, default=32,
                    help="resnet50: images per rank")
     p.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],

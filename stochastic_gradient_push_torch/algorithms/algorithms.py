@@ -13,10 +13,12 @@ through the gossip transport kernels (``ops/gossip_kernel.py``) in
 ``gossip_buckets`` buckets, on the stacked transport.
 ``gossip_every`` thins the rounds and ``global_avg_every`` interleaves
 an exact global average (:meth:`PushSumGossip.global_average`).
+``faults`` (``resilience/faults.py``) masks the rounds and
+``error_feedback`` carries each round's quantization error into the
+next (``GossipState.ef_residual``).
 
-Not ported yet, and refused by name: fault injection, error feedback,
-the kernel lane under ``torch.distributed`` (the cross-process transport
-kernel).
+Not ported yet, and refused by name: the kernel lane under
+``torch.distributed`` (the cross-process transport kernel).
 """
 
 from __future__ import annotations
@@ -75,12 +77,6 @@ class AllReduce(GossipAlgorithm):
         return collectives.allreduce_mean(grads, self.transport)
 
 
-def _not_ported(feature: str):
-    raise NotImplementedError(
-        f"{feature} is not ported to stochastic_gradient_push_torch yet "
-        f"(a later slice of the port; ROADMAP.md Queue 1)")
-
-
 def _leaves(params: dict, ps_weight: torch.Tensor) -> list:
     return list(params.values()) + [ps_weight]
 
@@ -123,6 +119,14 @@ class PushSumGossip(GossipAlgorithm):
     :meth:`global_average`; under overlap after the FIFO's settle, and
     the average folds the FIFO in and leaves it drained.
 
+    ``faults`` (a ``resilience.faults.FaultMasks`` built for this
+    ``gossip_every``) masks every round with the rows of its tick: the
+    step clock (the launch tick under overlap), so a fault window counts
+    wall steps whatever the rotation.  ``error_feedback`` (a lossy
+    ``wire``) keeps ``GossipState.ef_residual``: each round sends ``Q(w_0
+    x + r)`` and keeps the error; an idle (thinned) step and a global
+    average leave the residual as it is.
+
     ``track_weight=False`` (D-PSGD's synchronous rounds,
     :class:`PushPullGossip`): a synchronous round mixes the parameters
     alone (``collectives.mix_push_pull``), the weight stays 1 and the
@@ -139,10 +143,25 @@ class PushSumGossip(GossipAlgorithm):
                  staleness: int = 1, global_avg_every: int = 0,
                  faults=None, wire=None, error_feedback: bool = False,
                  gossip_kernel=None, gossip_buckets: int = 1):
-        if faults is not None:
-            _not_ported("fault injection")
+        if faults is not None and faults.gossip_every != gossip_every:
+            # fault rows are resolved against the rotation active at each
+            # tick, which depends on thinning
+            raise ValueError(
+                f"fault masks were compiled for gossip_every="
+                f"{faults.gossip_every} but the algorithm runs "
+                f"gossip_every={gossip_every}; rebuild the masks with "
+                "the matching thinning factor")
         if error_feedback:
-            _not_ported("error feedback")
+            if wire is None or not wire.lossy:
+                raise ValueError(
+                    "error_feedback needs a lossy wire codec "
+                    "(wire_dtype bf16/int8); exact wires have no "
+                    "quantization error to feed back")
+            if not track_weight:
+                raise ValueError(
+                    "error_feedback rides the push-sum wire "
+                    "(track_weight=True); the push-pull path carries "
+                    "no residual state")
         if staleness < 1:
             raise ValueError("staleness must be >= 1")
         if staleness > 1 and not overlap:
@@ -171,8 +190,11 @@ class PushSumGossip(GossipAlgorithm):
         self.gossip_every = int(gossip_every)
         self.global_avg_every = int(global_avg_every)
         self.wire = wire
+        self.faults = faults
+        self.error_feedback = bool(error_feedback)
         self.gossip_kernel = lane
         self.gossip_buckets = int(gossip_buckets)
+        self.layout = None
 
     @property
     def transport_kernel_name(self) -> str:
@@ -185,8 +207,18 @@ class PushSumGossip(GossipAlgorithm):
             return "xla"
         return self.gossip_kernel.name
 
+    def bind_layout(self, layout) -> None:
+        """Keep the model's reference layout: the int8 wire blocks each
+        leaf as the reference does."""
+        self.layout = layout
+
     def init(self, params: dict) -> GossipState:
         state = super().init(params)
+        if self.error_feedback:
+            # pending quantization error starts at zero; it mirrors the
+            # params, never the ps-weight
+            state = state.replace(ef_residual={
+                n: torch.zeros_like(p) for n, p in params.items()})
         if self.overlap:
             state = state.replace(in_flight=tuple(
                 self._zero_share(params, state.ps_weight)
@@ -196,6 +228,22 @@ class PushSumGossip(GossipAlgorithm):
     def _round_args(self):
         return dict(codec=self.wire, kernel=self.gossip_kernel,
                     buckets=self.gossip_buckets)
+
+    def _perms(self, names):
+        return collectives._leaf_perms(names, self.layout, 1)
+
+    def _mix(self, params: dict, ps_weight, rotation: int, tick: int,
+             residual):
+        """One synchronous round: ``(params, ps_weight, residual)``."""
+        if not self.track_weight:
+            return collectives.mix_push_pull(
+                params, rotation, self.schedule, self.transport,
+                layout=self.layout, **self._round_args()), ps_weight, None
+        out = collectives.mix_push_sum(
+            params, ps_weight, rotation, self.schedule, self.transport,
+            faults=self.faults, tick=tick, ef_residual=residual,
+            layout=self.layout, **self._round_args())
+        return out if residual is not None else (*out, None)
 
     def _zero_share(self, params: dict, ps_weight: torch.Tensor):
         return ({n: torch.zeros_like(p) for n, p in params.items()},
@@ -212,14 +260,21 @@ class PushSumGossip(GossipAlgorithm):
                 in_flight=state.in_flight[:-1]
                 + (self._zero_share(params, state.ps_weight),))
         names = list(params)
-        local, incoming = collectives.overlap_launch(
+        res = state.ef_residual
+        out = collectives.overlap_launch(
             _leaves(params, state.ps_weight), tick // self.gossip_every,
-            self.schedule, self.transport, **self._round_args())
+            self.schedule, self.transport, faults=self.faults, tick=tick,
+            ef_residual=(None if res is None else _leaves(
+                res, torch.zeros_like(state.ps_weight))),
+            perms=self._perms(names), **self._round_args())
+        local, incoming = out[0], out[1]
+        if res is not None:
+            res = _tree(names, out[2])[0]
         if not isinstance(incoming, collectives.PendingShares):
             incoming = _tree(names, incoming)
         params, ps_weight = _tree(names, local)
         return params, state.replace(
-            ps_weight=ps_weight,
+            ps_weight=ps_weight, ef_residual=res,
             in_flight=state.in_flight[:-1] + (incoming,))
 
     def eval_params(self, params: dict, state: GossipState) -> dict:
@@ -241,19 +296,16 @@ class PushSumGossip(GossipAlgorithm):
     def post_step(self, params: dict, state: GossipState):
         tick = state.phase
         if not self.overlap:
-            ps_weight = state.ps_weight
-            if tick % self.gossip_every == 0 and self.track_weight:
-                params, ps_weight = collectives.mix_push_sum(
-                    params, ps_weight, tick // self.gossip_every,
-                    self.schedule, self.transport, **self._round_args())
-            elif tick % self.gossip_every == 0:
-                params = collectives.mix_push_pull(
-                    params, tick // self.gossip_every, self.schedule,
-                    self.transport, **self._round_args())
+            ps_weight, res = state.ps_weight, state.ef_residual
+            if tick % self.gossip_every == 0:
+                # an idle step keeps the residual pending
+                params, ps_weight, res = self._mix(
+                    params, ps_weight, tick // self.gossip_every, tick, res)
             if self._averages_after(tick):
                 params, ps_weight = self.global_average(params, ps_weight)
             return params, state.replace(phase=tick + 1,
-                                         ps_weight=ps_weight)
+                                         ps_weight=ps_weight,
+                                         ef_residual=res)
         names = list(params)
         head = state.in_flight[0]
         if not isinstance(head, collectives.PendingShares):
@@ -366,9 +418,11 @@ def sgp(schedule: GossipSchedule, transport, **kwargs) -> PushSumGossip:
 
 def osgp(schedule: GossipSchedule, transport, staleness: int = 1,
          gossip_kernel=None, gossip_buckets: int = 1,
-         wire=None) -> PushSumGossip:
+         wire=None, faults=None,
+         error_feedback: bool = False) -> PushSumGossip:
     return PushSumGossip(schedule, transport, overlap=True,
-                         staleness=staleness, wire=wire,
+                         staleness=staleness, wire=wire, faults=faults,
+                         error_feedback=error_feedback,
                          gossip_kernel=gossip_kernel,
                          gossip_buckets=gossip_buckets)
 

@@ -37,11 +37,16 @@ class GossipState:
         consume.  Empty for synchronous algorithms.  Between steps every
         slot holds plain tensors; inside a step the slot ``pre_step``
         fills may be a ``collectives.PendingShares``.
+      ef_residual: ``{name: tensor [R, ...]}`` mirroring the params: the
+        pending quantization error of error feedback (a lossy wire codec
+        with ``error_feedback=True``), re-injected into the next round's
+        send.  None without error feedback.
     """
 
     phase: int
     ps_weight: torch.Tensor
     in_flight: tuple = ()
+    ef_residual: dict | None = None
 
     def replace(self, **changes) -> "GossipState":
         return dataclasses.replace(self, **changes)
@@ -62,6 +67,11 @@ class GossipAlgorithm:
         ranks, device = _ranks_of(params)
         return GossipState(phase=0, ps_weight=torch.ones(
             ranks, dtype=torch.float32, device=device))
+
+    def bind_layout(self, layout) -> None:
+        """Told by the step builder where the reference keeps each of the
+        model's leaves (``models/convert.py::reference_layout``); the
+        base algorithm has no wire and ignores it."""
 
     def pre_step(self, params: dict, state: GossipState):
         return params, state

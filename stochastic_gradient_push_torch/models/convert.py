@@ -35,6 +35,14 @@ must map and every port tensor must be fed.  :func:`init_model_params`
 draws a vision model's parameters from a seed with numpy, following the
 initializer each module carries (the reference's recipe), so a
 full-width model needs no JAX.
+
+**Reference layout.**  :func:`reference_layout` records, for each of a
+model's port parameters, where the reference keeps it: the reference's
+leaf order (JAX flattens a dict in sorted-key order) and the dims
+permutation that turns the port's tensor into the reference's layout
+(HWIO and ``[in, out]`` kernels).  The int8 wire blocks each leaf in that
+layout and the health probe reads it (``parallel/wire.py::
+ReferenceLayout``).
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ from .transformer import TransformerConfig
 
 __all__ = ["params_from_jax", "init_params", "config_from_params",
            "flatten_tree", "unflatten_tree", "train_state_from_jax",
-           "vision_params_from_jax", "init_model_params"]
+           "vision_params_from_jax", "init_model_params",
+           "reference_layout"]
 
 # flax leaf name -> nn.Module parameter name
 _LEAF = {"embedding": "weight", "kernel": "weight", "scale": "weight",
@@ -326,3 +335,48 @@ def train_state_from_jax(state, device: str | torch.device = "cpu",
         gossip=GossipState(phase=scalar(state.gossip.phase),
                            ps_weight=weight(state.gossip.ps_weight),
                            in_flight=in_flight))
+
+
+# per-rank dims permutation, port layout -> the reference's
+_TO_FLAX = {4: (2, 3, 1, 0),   # OIHW -> HWIO
+            2: (1, 0)}         # [out, in] -> [in, out]
+
+
+def reference_layout(model):
+    """A model's :class:`~..parallel.wire.ReferenceLayout`: its port
+    parameter names in the reference's flatten order, and the dims
+    permutation of each kernel the port transposes (conv OIHW -> HWIO,
+    Dense ``[out, in]`` -> ``[in, out]``).  ``model`` is a
+    ``TransformerLM`` or a vision model of ``models/resnet.py`` /
+    ``models/small.py`` (a meta-device module will do)."""
+    from ..parallel.wire import ReferenceLayout
+    from .transformer import TransformerLM
+
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    if isinstance(model, TransformerLM):
+        to_flax = None
+    else:
+        to_flax = _module_map(model)
+    paths, perms = {}, {}
+    for name, shape in shapes.items():
+        mod, _, leaf = name.rpartition(".")
+        last = mod.rpartition(".")[2]
+        if to_flax is None:
+            flax_mod = mod.split(".")
+            if last == "embed":
+                kind = "embedding"
+            elif last.startswith("ln"):
+                kind = "scale" if leaf == "weight" else "bias"
+            else:
+                kind = "kernel" if leaf == "weight" else "bias"
+        else:
+            flax_mod = to_flax[mod].split("/")
+            if leaf == "bias":
+                kind = "bias"
+            else:
+                kind = "kernel" if len(shape) in _TO_FLAX else "scale"
+        paths[name] = tuple(flax_mod) + (kind,)
+        if kind == "kernel":
+            perms[name] = _TO_FLAX[len(shape)]
+    return ReferenceLayout(order=tuple(sorted(paths, key=paths.get)),
+                           perms=perms)

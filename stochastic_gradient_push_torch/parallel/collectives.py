@@ -22,7 +22,11 @@ the (edge, leaf) loop only encodes and buffers, then each bucket is one
 :func:`~..ops.gossip_kernel.gossip_edge_wait` into the packed
 accumulator.  There the local share ``lo * x`` is rounded on its own and
 the wait kernel adds the decoded edges to it, as the reference's kernel
-lane does: params agree with the plain lane to ~1 ulp, not bit for bit.
+lane does: params agree with the plain lane to ~1 ulp, not bit for bit
+(exactly where ``lo * x`` is exact, as at one peer under uniform
+mixing).  A fault's reabsorbed weight is added after the wait, where
+the plain lane adds it after the received edge (the reference's kernel
+lane adds it before the wait, a rounding apart).
 The push-sum weight keeps the plain lane's code on both lanes, so it is
 bit-identical across them.
 
@@ -50,8 +54,26 @@ Scalar leaves (per-rank size 1: the push-sum weight) never go through a
 codec, so the weight lane stays exact f32.  At world 1 a round returns
 its input, as the reference does at ``:764``.
 
-Not ported yet: error feedback, fault masks, thinning's
-``empty_incoming``, and the hierarchical and synthesized rounds.
+**Error feedback** (``ef_residual``): round ``t`` sends ``Q(w_0·x + r)``
+on edge 0 of ranks that send (``w_0 > 0``) and returns the round's total
+quantization error as the new residual, computed from the same encoded
+parts both lanes ship; a residual whose edge was dropped stays pending.
+**Faults** (``faults``, ``resilience/faults.py``): a corrupted rank's
+payloads become NaN, a dropped edge ships zero (``where``, never
+``0·NaN``) and its weight is reabsorbed into the sender's local share,
+so the mean is kept.  Both run on both lanes and in the overlap split,
+the fault rows read at the launch tick.  A round's weights and fault
+rows are device tables made once (per schedule phase, per fault table),
+so a round copies nothing from the host.
+
+**Layout**: a blocked codec (int8) encodes each leaf in the reference's
+layout (``perms``, from ``models/convert.py::reference_layout``), so
+its blocks and scales are the reference's; the decode, the kernel
+lane's packed accumulator and the residual come back through the
+inverse permutation.
+
+Not ported yet: thinning's ``empty_incoming``, and the hierarchical and
+synthesized rounds.
 """
 
 from __future__ import annotations
@@ -86,6 +108,12 @@ class StackedTransport:
     def allreduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         return x.sum(0, keepdim=True).expand_as(x).clone()
 
+    def allreduce_min(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amin(0, keepdim=True).expand_as(x).clone()
+
+    def allreduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amax(0, keepdim=True).expand_as(x).clone()
+
 
 class DistTransport:
     """One rank per process of the default ``torch.distributed`` group;
@@ -112,21 +140,45 @@ class DistTransport:
         return recv[None]
 
     def allreduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, self._dist.ReduceOp.SUM)
+
+    def allreduce_min(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, self._dist.ReduceOp.MIN)
+
+    def allreduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, self._dist.ReduceOp.MAX)
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         out = x.clone()
-        self._dist.all_reduce(out)
+        self._dist.all_reduce(out, op=op)
         return out
 
 
-def _rank_weight(table: np.ndarray, transport, like: torch.Tensor):
-    """The held ranks' weights from a per-rank table, shaped to broadcast
-    over ``like``'s rank-stacked leaves: a scalar when all ranks share
-    one value (as the reference constant-folds it), else ``[R, 1, …]``.
-    float32, as the reference's weights are without x64."""
-    if np.all(table == table[0]):
-        return torch.tensor(np.float32(table[0]), device=like.device)
-    w = torch.as_tensor(np.asarray(table, np.float32)[transport.ranks],
-                        device=like.device)
-    return w.reshape((-1,) + (1,) * (like.dim() - 1))
+_PHASE_TABLES: dict = {}
+
+
+def _phase_tables(schedule: GossipSchedule, p: int, transport, device):
+    """The held ranks' weights of phase ``p`` on ``device``: ``lo``
+    float32 ``[R]`` and ``w`` float32 ``[E, R]`` (float32, as the
+    reference's weights are without x64).  Built once per (schedule,
+    phase, ranks, device) and reused, so a round copies nothing from the
+    host."""
+    key = (id(schedule), p, tuple(transport.ranks), str(device))
+    hit = _PHASE_TABLES.get(key)
+    if hit is None or hit[0] is not schedule:
+        ranks = np.asarray(transport.ranks)
+        lo = np.asarray(schedule.self_weight[p], np.float32)[ranks]
+        w = np.asarray(schedule.edge_weights[p], np.float32)[:, ranks]
+        hit = (schedule, torch.from_numpy(lo).to(device),
+               torch.from_numpy(np.ascontiguousarray(w)).to(device))
+        _PHASE_TABLES[key] = hit
+    return hit[1], hit[2]
+
+
+def _col(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-rank ``[R]`` table as a view broadcasting over ``like``'s
+    rank-stacked leaves, in ``like``'s dtype."""
+    return v.reshape((-1,) + (1,) * (like.dim() - 1)).to(like.dtype)
 
 
 def _is_payload(a: torch.Tensor) -> bool:
@@ -225,11 +277,30 @@ def _pack_bucket(bucket, sent, spec, ne, length):
     return (v,)
 
 
-def _pack_acc(bucket, acc, length, like=None):
+def _to_ref(x: torch.Tensor, perm) -> torch.Tensor:
+    """A rank-stacked leaf viewed in the reference's layout (``perm``
+    permutes the per-rank dims; None is the identity)."""
+    if perm is None:
+        return x
+    return x.permute(0, *(d + 1 for d in perm))
+
+
+def _from_ref(x: torch.Tensor, perm) -> torch.Tensor:
+    """Inverse of :func:`_to_ref`, made contiguous in the port's
+    layout."""
+    if perm is None:
+        return x
+    inv = np.argsort(perm)
+    return x.permute(0, *(int(d) + 1 for d in inv)).contiguous()
+
+
+def _pack_acc(bucket, acc, length, like=None, perms=None):
     """One bucket's packed accumulator ``[R, length]``: each leaf raveled
-    into its segment, zero in the pad lanes (they receive decode(0) == 0
-    and are sliced away).  ``acc`` None packs zeros shaped by ``like``
-    (a ``[R, ...]`` tensor giving ranks, dtype and device)."""
+    into its segment, in the reference's layout where ``perms[j]`` says
+    (the int8 blocks of the encoded parts were cut there), zero in the
+    pad lanes (they receive decode(0) == 0 and are sliced away).
+    ``acc`` None packs zeros shaped by ``like`` (a ``[R, ...]`` tensor
+    giving ranks, dtype and device)."""
     if acc is None:
         return like.new_zeros((like.shape[0], length))
     first = acc[bucket[0][0]]
@@ -237,19 +308,28 @@ def _pack_acc(bucket, acc, length, like=None):
     flat = first.new_empty((ranks, length))
     off = 0
     for j, n, padded in bucket:
-        flat[:, off:off + n] = acc[j].reshape(ranks, n)
+        perm = perms[j] if perms is not None else None
+        src = _to_ref(acc[j], perm)
+        flat[:, off:off + n].view(src.shape).copy_(src)
         flat[:, off + n:off + padded] = 0
         off += padded
     flat[:, off:] = 0
     return flat
 
 
-def _unpack_acc(bucket, flat, acc, shapes):
+def _unpack_acc(bucket, flat, acc, shapes, perms=None):
     """Scatter a waited bucket back into the accumulator leaves (inverse
-    of :func:`_pack_acc`), as views of ``flat``; mutates ``acc``."""
+    of :func:`_pack_acc`): views of ``flat``, or, for a leaf packed in
+    the reference's layout, one copy back into the port's; mutates
+    ``acc``."""
     off = 0
     for j, n, padded in bucket:
-        acc[j] = flat[:, off:off + n].reshape(shapes[j])
+        perm = perms[j] if perms is not None else None
+        if perm is None:
+            acc[j] = flat[:, off:off + n].reshape(shapes[j])
+        else:
+            ref = (shapes[j][0],) + tuple(shapes[j][1 + d] for d in perm)
+            acc[j] = _from_ref(flat[:, off:off + n].reshape(ref), perm)
         off += padded
 
 
@@ -259,16 +339,18 @@ class PendingShares:
     ``inc`` holds the leaves the plain lane carried (the exact ps-weight
     lane; ``None`` at bucketed slots), ``handles`` one live
     :class:`~..ops.gossip_kernel.TransportHandle` per transport bucket,
-    ``plan`` the static bucket layout (:func:`_transport_plan`) and
-    ``shapes`` every leaf's shape.  Consume it exactly once —
+    ``plan`` the static bucket layout (:func:`_transport_plan`),
+    ``shapes`` every leaf's shape and ``perms`` each leaf's reference
+    layout (None: the port's).  Consume it exactly once —
     :func:`land_shares` into the target leaves, or :func:`settle_share`
     to a plain share — to preserve push-sum mass."""
 
-    def __init__(self, inc, handles, plan, shapes):
+    def __init__(self, inc, handles, plan, shapes, perms=None):
         self.inc = list(inc)
         self.handles = tuple(handles)
         self.plan = plan
         self.shapes = tuple(shapes)
+        self.perms = perms
 
 
 def _land_buckets(incoming: PendingShares, out, zeros_like=None):
@@ -276,9 +358,9 @@ def _land_buckets(incoming: PendingShares, out, zeros_like=None):
     for handle, bucket in zip(incoming.handles, incoming.plan):
         _, n, _, c, nb, _, _ = handle.meta
         acc = _pack_acc(bucket, None if zeros_like is not None else out,
-                        nb * c, like=zeros_like)
+                        nb * c, like=zeros_like, perms=incoming.perms)
         _unpack_acc(bucket, gk.gossip_edge_wait(handle, acc), out,
-                    incoming.shapes)
+                    incoming.shapes, incoming.perms)
     return out
 
 
@@ -312,38 +394,143 @@ def settle_share(incoming):
     return _land_buckets(incoming, out, zeros_like=zeros)
 
 
+def _decode(codec, wire, msg_ref, perm):
+    """The received payload in the port's layout (decoded where the
+    codec's blocks were cut)."""
+    return _from_ref(codec.decode(wire, msg_ref), perm)
+
+
+def _decode_add(codec, wire, acc, perm):
+    """``acc + decode(wire)`` with the codec's rounding, in the port's
+    layout."""
+    return _from_ref(codec.decode_add(wire, _to_ref(acc, perm)), perm)
+
+
+def _shared_product(schedule, p: int, send_codec, keep_t, corrupt_t,
+                    ef: bool):
+    """Where the reference's compiled round rounds edge 0's error-feedback
+    message ``w_0·x + r`` in two steps for its quantization error: when
+    a later edge has edge 0's weight table, XLA computes ``w_0·x`` once
+    for both, and a product with two uses is not fused into the add.
+    For an elementwise codec without corruption the fusion is
+    specialised per rank on the later edge's keep row, so the two-step
+    rounding holds only where that edge sends.  None: nowhere; True: on
+    every rank; else a float ``[R]`` mask."""
+    if not ef:
+        return None
+    w = np.asarray(schedule.edge_weights[p], np.float32)
+    later = [i for i in range(1, schedule.peers_per_itr)
+             if np.array_equal(w[0], w[i])]
+    if not later:
+        return None
+    if keep_t is None or corrupt_t is not None or send_codec.blocked:
+        return True
+    return (keep_t[later] > 0).any(0).float()
+
+
 def _round(leaves, p: int, schedule: GossipSchedule, transport, send_codec,
-           split: bool, kernel, buckets: int):
-    """One round at phase ``p``: the mixed leaves, or with ``split`` the
-    pair ``(local, incoming)`` whose sum is the mixed leaves."""
-    lo_table = schedule.self_weight[p]
+           split: bool, kernel, buckets: int, faults=None, tick: int = 0,
+           residual=None, perms=None):
+    """One round at phase ``p``: ``(mixed, new_residual)``, or with
+    ``split`` ``((local, incoming), new_residual)`` whose sum is the
+    mixed leaves; ``new_residual`` is None without error feedback.
+
+    The reference's ``_round_fn`` (``parallel/collectives.py:348``):
+    per edge, the sender multiply ``w_i * x`` (plus the pending residual
+    on edge 0, gated by ``w_0 > 0``), NaN corruption of real payloads,
+    the keep mask (``where``, so a dropped corrupted message is 0), the
+    encode, and the quantization error of the parts the transport ships;
+    after each edge the sender reabsorbs a dropped edge's weight into
+    its local share.  The rounding follows the reference's compiled
+    round (``torch.addcmul`` where XLA fuses a multiply-add; see
+    ``tests/test_torch_faults.py``)."""
+    lo_t, w_t = _phase_tables(schedule, p, transport, leaves[0].device)
+    keep_t = corrupt_t = None
+    if faults is not None:
+        keep_t, corrupt_t = faults.rows_on(tick, leaves[0].device)
+        if len(transport.ranks) != schedule.world_size:
+            keep_t = keep_t[:, transport.ranks]
+            corrupt_t = (None if corrupt_t is None
+                         else corrupt_t[transport.ranks])
+    reabsorb = keep_t is not None and faults.reabsorb
     ne = schedule.peers_per_itr
     spec = _kernel_spec(send_codec) if kernel is not None else None
     plan = _transport_plan(leaves, spec, buckets) if spec is not None else ()
     bucketed = {j for bucket in plan for j, _, _ in bucket}
     sent = {j: [] for j in bucketed}
+    if perms is None or send_codec is None or not send_codec.blocked:
+        perms = [None] * len(leaves)
+    err = list(residual) if residual is not None else None
+    shared = _shared_product(schedule, p, send_codec, keep_t, corrupt_t,
+                             residual is not None)
     out = list(leaves)
     inc = [None] * len(leaves)
-    for j, a in enumerate(leaves):
-        if split or j in bucketed:
-            # the local share on its own rounding: the split's kept half,
-            # and the kernel lane's accumulator
-            lo = _rank_weight(lo_table, transport, a)
-            out[j] = a * lo.to(a.dtype)
+    first = {}
+    # the local share of the split's kept half and of the kernel lane's
+    # accumulator: rounded on its own, or in the split fused with the
+    # first reabsorption (the reference's compiled rounding).  A
+    # synchronous kernel-lane leaf takes its reabsorbed weight after the
+    # wait, as the plain lane folds it after the received edge
+    local = [j for j in range(len(leaves)) if split or j in bucketed]
+    defer = set() if split else bucketed
+    drop_ws = []
+    for j in local:
+        if not reabsorb or j in defer:
+            out[j] = leaves[j] * _col(lo_t, leaves[j])
     for i in range(ne):
         dests = schedule.perms[p, i]
+        w_i, keep_i = w_t[i], (keep_t[i] if keep_t is not None else None)
+        gate = (w_i > 0).float() if residual is not None and i == 0 \
+            else None
         for j, a in enumerate(leaves):
-            w_i = _rank_weight(schedule.edge_weights[p, i], transport, a)
-            msg = a * w_i.to(a.dtype)
-            coded = send_codec is not None and _is_payload(msg)
+            payload = _is_payload(a)
+            inject = gate is not None and payload
+            msg_err = None
+            if inject:
+                # error feedback: the pending residual rides the first
+                # outgoing message of ranks that send
+                r = residual[j].to(a.dtype)
+                msg = torch.addcmul(r * _col(gate, a), a, _col(w_i, a))
+                if shared is not None:
+                    # the reference's error fusion shares w_0 * x with a
+                    # later edge's message and rounds it there alone
+                    msg_err = a * _col(w_i, a) + r * _col(gate, a)
+                    if shared is not True:
+                        msg_err = torch.where(_col(shared, a) > 0, msg_err,
+                                              msg)
+            else:
+                msg = a * _col(w_i, a)
+            msgs = [msg] if msg_err is None else [msg, msg_err]
+            if corrupt_t is not None and payload:
+                msgs = [m.masked_fill(_col(corrupt_t, a) > 0, float("nan"))
+                        for m in msgs]
+            if keep_i is not None:
+                msgs = [m.masked_fill(_col(keep_i, a) <= 0, 0.0)
+                        for m in msgs]
+            msg = msgs[0]
+            coded = send_codec is not None and payload
+            if coded:
+                ref = _to_ref(msg, perms[j])
+                parts = send_codec.encode(ref)
+                if err is not None:
+                    # the quantization error of the parts both lanes ship
+                    q_err = _from_ref(send_codec.error(
+                        parts, _to_ref(msgs[-1], perms[j])), perms[j])
+                    if inject:
+                        # carry rule: a residual that did not go out (w_0
+                        # == 0, or the edge dropped) stays pending
+                        attempt = (gate if keep_i is None
+                                   else gate * keep_i)
+                        err[j] = q_err + r * _col(1.0 - attempt, a)
+                    else:
+                        err[j] = err[j] + q_err
             if j in bucketed:
                 # kernel lane: encode and buffer; the bucket's start
                 # kernel moves every edge at once after the loop
-                sent[j].append(send_codec.encode(msg) if coded else (msg,))
+                sent[j].append(parts if coded else (msg,))
                 continue
             if coded:
-                wire = tuple(transport.permute(x, dests)
-                             for x in send_codec.encode(msg))
+                wire = tuple(transport.permute(x, dests) for x in parts)
             else:
                 # exact lane: payloads without a codec and every scalar
                 # (ps-weight) leaf, codec or not
@@ -353,22 +540,43 @@ def _round(leaves, p: int, schedule: GossipSchedule, transport, send_codec,
                 # (the reference's 0 + recv folds to recv), later edges
                 # add with the plain lane's rounding
                 if i == 0:
-                    inc[j] = send_codec.decode(wire, msg) if coded else wire
+                    inc[j] = (_decode(send_codec, wire, ref, perms[j])
+                              if coded else wire)
+                    first[j] = wire
+                elif coded and i == 1:
+                    # XLA fuses edge 0's decode into the add: edge 1
+                    # rounds on its own
+                    inc[j] = _decode_add(send_codec, first.pop(j),
+                                         _decode(send_codec, wire, ref,
+                                                 perms[j]), perms[j])
                 elif coded:
-                    inc[j] = send_codec.decode_add(wire, inc[j])
+                    inc[j] = _decode_add(send_codec, wire, inc[j], perms[j])
                 else:
                     inc[j] = inc[j] + wire
             # the fold rounds as the reference's compiled round does:
             # edge 0 is one fused multiply-add lo * x + recv, later edges
             # add (an int8 decode-add is itself fused, see wire.py)
             elif i == 0:
-                recv = send_codec.decode(wire, msg) if coded else wire
-                lo = _rank_weight(schedule.self_weight[p], transport, a)
-                out[j] = torch.addcmul(recv, a, lo.to(a.dtype))
+                recv = (_decode(send_codec, wire, ref, perms[j])
+                        if coded else wire)
+                out[j] = torch.addcmul(recv, a, _col(lo_t, a))
             elif coded:
-                out[j] = send_codec.decode_add(wire, out[j])
+                out[j] = _decode_add(send_codec, wire, out[j], perms[j])
             else:
                 out[j] = out[j] + wire
+        if reabsorb:
+            # the sender keeps a dropped edge's weight: every column of
+            # the effective matrix still sums to 1
+            drop_w = w_i * (1.0 - keep_i)
+            drop_ws.append(drop_w)
+            for j, a in enumerate(leaves):
+                if j in defer:
+                    continue
+                if i == 0 and j in local:
+                    out[j] = torch.addcmul(a * _col(drop_w, a), a,
+                                           _col(lo_t, a))
+                else:
+                    out[j] = torch.addcmul(out[j], a, _col(drop_w, a))
     handles = []
     if plan:
         dests = np.stack([schedule.perms[p, i] for i in range(ne)])
@@ -387,20 +595,31 @@ def _round(leaves, p: int, schedule: GossipSchedule, transport, send_codec,
                 # waits it at the bottom of the step
                 handles.append(handle)
             else:
-                flat = gk.gossip_edge_wait(handle,
-                                           _pack_acc(bucket, out, length))
-                _unpack_acc(bucket, flat, out, shapes)
+                flat = gk.gossip_edge_wait(
+                    handle, _pack_acc(bucket, out, length, perms=perms))
+                _unpack_acc(bucket, flat, out, shapes, perms)
+                for j, _, _ in bucket:
+                    for drop_w in drop_ws:
+                        out[j] = torch.addcmul(out[j], leaves[j],
+                                               _col(drop_w, leaves[j]))
         if split:
-            return out, PendingShares(inc, handles, plan, shapes)
+            return (out, PendingShares(inc, handles, plan, shapes,
+                                       perms)), err
     if split:
-        return out, inc
-    return out
+        return (out, inc), err
+    return out, err
 
 
 def _apply_round(tree, phase: int, schedule: GossipSchedule, transport,
-                 codec, split: bool, kernel, buckets: int):
+                 codec, split: bool, kernel, buckets: int, faults=None,
+                 tick=None, residual=None, perms=None):
     if buckets < 1:
         raise ValueError("buckets must be >= 1")
+    send_codec = _resolve_codec(codec)
+    if residual is not None and send_codec is None:
+        raise ValueError(
+            "error feedback needs a lossy wire codec (bf16/int8); exact "
+            "wires have no quantization error to feed back")
     if transport.world_size != schedule.world_size:
         raise ValueError(
             f"schedule was built for world_size={schedule.world_size} but "
@@ -413,52 +632,98 @@ def _apply_round(tree, phase: int, schedule: GossipSchedule, transport,
             "ported to stochastic_gradient_push_torch yet (ROADMAP.md "
             "Queue 2); use gossip_kernel='xla' under torch.distributed")
     leaves = list(tree)
+    if residual is not None:
+        residual = list(residual)
+        if len(residual) != len(leaves):
+            raise ValueError(
+                "ef residual tree does not mirror the mixed tree "
+                f"({len(residual)} vs {len(leaves)} leaves)")
     if schedule.world_size == 1:
         if split:
-            return leaves, [torch.zeros_like(a) for a in leaves]
-        return leaves
+            return (leaves, [torch.zeros_like(a) for a in leaves]), residual
+        return leaves, residual
     return _round(leaves, phase % schedule.num_phases, schedule, transport,
-                  _resolve_codec(codec), split, kernel, buckets)
+                  send_codec, split, kernel, buckets, faults=faults,
+                  tick=phase if tick is None else int(tick),
+                  residual=residual, perms=perms)
 
 
 def gossip_round(tree, phase: int, schedule: GossipSchedule, transport,
-                 codec=None, kernel=None, buckets: int = 1):
+                 codec=None, kernel=None, buckets: int = 1, faults=None,
+                 tick=None, ef_residual=None, perms=None):
     """One synchronous gossip round over a list of rank-stacked leaves:
     ``lo * x + Σ_i permute_i(w_i * x)`` at ``phase % num_phases``.
     ``kernel`` (a :class:`~..ops.gossip_kernel.KernelLane`) moves the
     payload leaves through the start/wait kernels in ``buckets``
-    transport buckets; None is the plain transport lane."""
-    return _apply_round(tree, phase, schedule, transport, codec, False,
-                        kernel, buckets)
+    transport buckets; None is the plain transport lane.
+
+    ``faults`` (a :class:`~..resilience.faults.FaultMasks`) masks the
+    round with its rows at ``tick`` (default ``phase``; the step clock
+    under thinning), the dropped weight reabsorbed by the sender.
+    ``ef_residual`` (leaves mirroring ``tree``) turns on error feedback
+    with a lossy codec; the call then returns ``(mixed, new_residual)``.
+    ``perms`` (one per leaf, None for the identity) is the reference's
+    layout of each leaf, where a blocked codec (int8) cuts its blocks."""
+    mixed, new_res = _apply_round(tree, phase, schedule, transport, codec,
+                                  False, kernel, buckets, faults, tick,
+                                  ef_residual, perms)
+    return mixed if ef_residual is None else (mixed, new_res)
 
 
 def overlap_launch(tree, phase: int, schedule: GossipSchedule, transport,
-                   codec=None, kernel=None, buckets: int = 1):
+                   codec=None, kernel=None, buckets: int = 1, faults=None,
+                   tick=None, ef_residual=None, perms=None):
     """Launch half of the overlap round: ``(local, incoming)``, the kept
-    share ``lo * x`` and the received share, whose sum is
-    :func:`gossip_round`.  ``incoming`` is a list of leaves on the plain
-    lane and a :class:`PendingShares` on the kernel lane (the start
-    kernels have run; the waits happen where it is consumed)."""
-    return _apply_round(tree, phase, schedule, transport, codec, True,
-                        kernel, buckets)
+    share ``lo * x`` (reabsorbed fault weight included) and the received
+    share, whose sum is :func:`gossip_round`; ``(local, incoming,
+    new_residual)`` with ``ef_residual``.  ``incoming`` is a list of
+    leaves on the plain lane and a :class:`PendingShares` on the kernel
+    lane (the start kernels have run; the waits happen where it is
+    consumed).  Fault rows are read at the launch ``tick``."""
+    (local, incoming), new_res = _apply_round(
+        tree, phase, schedule, transport, codec, True, kernel, buckets,
+        faults, tick, ef_residual, perms)
+    if ef_residual is None:
+        return local, incoming
+    return local, incoming, new_res
+
+
+def _leaf_perms(names, layout, extra: int):
+    """Each named leaf's reference layout from ``layout`` (a
+    :class:`~.wire.ReferenceLayout`), None for ``extra`` trailing
+    leaves."""
+    if layout is None:
+        return None
+    return [layout.perm(n) for n in names] + [None] * extra
 
 
 def mix_push_sum(params: dict, ps_weight: torch.Tensor, phase: int,
                  schedule: GossipSchedule, transport, codec=None,
-                 kernel=None, buckets: int = 1):
+                 kernel=None, buckets: int = 1, faults=None, tick=None,
+                 ef_residual: dict | None = None, layout=None):
     """Push-sum round: parameters and the push-sum weight ``[R]`` mixed
-    jointly, the weight always on the exact lane.  Returns
-    ``(params, ps_weight)``."""
+    jointly, the weight always on the exact lane.  Returns ``(params,
+    ps_weight)``, or ``(params, ps_weight, new_residual)`` with
+    ``ef_residual`` (a dict mirroring ``params``).  ``layout`` (a
+    :class:`~.wire.ReferenceLayout`) places the int8 blocks as the
+    reference cuts them."""
     names = list(params)
-    mixed = gossip_round([params[n] for n in names] + [ps_weight], phase,
-                         schedule, transport, codec=codec, kernel=kernel,
-                         buckets=buckets)
-    return dict(zip(names, mixed[:-1])), mixed[-1]
+    leaves = [params[n] for n in names] + [ps_weight]
+    res = None
+    if ef_residual is not None:
+        res = [ef_residual[n] for n in names] + [torch.zeros_like(ps_weight)]
+    mixed, new_res = _apply_round(
+        leaves, phase, schedule, transport, codec, False, kernel, buckets,
+        faults, tick, res, _leaf_perms(names, layout, 1))
+    if ef_residual is None:
+        return dict(zip(names, mixed[:-1])), mixed[-1]
+    return (dict(zip(names, mixed[:-1])), mixed[-1],
+            dict(zip(names, new_res[:-1])))
 
 
 def mix_push_pull(params: dict, phase: int, schedule: GossipSchedule,
                   transport, codec=None, kernel=None,
-                  buckets: int = 1) -> dict:
+                  buckets: int = 1, layout=None) -> dict:
     """Doubly-stochastic (D-PSGD) round: :func:`gossip_round` over the
     parameters alone, with no push-sum weight leaf.  Uniform mixing on a
     regular graph is doubly stochastic, so the mean is kept without a
@@ -471,7 +736,8 @@ def mix_push_pull(params: dict, phase: int, schedule: GossipSchedule,
     names = list(params)
     mixed = gossip_round([params[n] for n in names], phase, schedule,
                          transport, codec=codec, kernel=kernel,
-                         buckets=buckets)
+                         buckets=buckets,
+                         perms=_leaf_perms(names, layout, 0))
     return dict(zip(names, mixed))
 
 

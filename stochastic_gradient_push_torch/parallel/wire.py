@@ -17,7 +17,11 @@ One difference of layout: the collectives hand a codec **rank-stacked**
 leaves, dim 0 indexing the ranks this process holds (all of them on the
 stacked lane, one on the ``torch.distributed`` lane).  The int8 codec
 blocks each rank's flattened leaf on its own, exactly as each rank of the
-reference does; a single payload is encoded as ``msg[None]``.
+reference does; a single payload is encoded as ``msg[None]``.  A leaf
+the port keeps in another layout than the reference (conv and Dense
+kernels, ``models/convert.py``) is blocked in the reference's layout:
+the collectives hand the codec that view (:class:`ReferenceLayout`), so
+every block groups the reference's elements and gets its scale.
 
 Scalar leaves (the push-sum weight lane) never reach a codec: the
 collectives ship them exact.  :meth:`WireCodec.kernel_spec` describes a
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 __all__ = ["WireCodec", "F32Codec", "BF16Codec", "Int8Codec", "DecodeSpec",
-           "F32", "BF16", "WIRE_DTYPES", "DEFAULT_WIRE_BLOCK",
+           "ReferenceLayout", "F32", "BF16", "WIRE_DTYPES", "DEFAULT_WIRE_BLOCK",
            "INT8_SCALE_BYTES", "get_codec"]
 
 WIRE_DTYPES = ("f32", "bf16", "int8")
@@ -56,10 +60,14 @@ class DecodeSpec:
 
 
 class WireCodec:
-    """Identity/base codec: the payload ships as-is (one wire part)."""
+    """Identity/base codec: the payload ships as-is (one wire part).
+    ``blocked`` codecs group elements (int8's per-block scales), so the
+    collectives hand them each leaf in the reference's layout
+    (:class:`ReferenceLayout`)."""
 
     name = "f32"
     lossy = False
+    blocked = False
 
     def kernel_spec(self) -> DecodeSpec | None:
         """The decode the gossip kernel lane would run; None (the base
@@ -81,6 +89,11 @@ class WireCodec:
         """``acc + decode(wire)``, rounded as the reference's compiled
         round rounds it."""
         return acc + self.decode(wire, acc)
+
+    def error(self, wire, msg: torch.Tensor) -> torch.Tensor:
+        """``msg - decode(wire)``: the quantization error error feedback
+        carries, rounded as the reference's compiled round rounds it."""
+        return msg - self.decode(wire, msg)
 
 
 class F32Codec(WireCodec):
@@ -121,6 +134,7 @@ class Int8Codec(WireCodec):
 
     name = "int8"
     lossy = True
+    blocked = True
 
     def __init__(self, block: int = DEFAULT_WIRE_BLOCK):
         if block < 1:
@@ -161,6 +175,19 @@ class Int8Codec(WireCodec):
                             scale[..., None])
         return out.reshape(ranks, -1)[:, :n].reshape(acc.shape).to(acc.dtype)
 
+    def error(self, wire, msg):
+        """``msg - q * scale`` with one rounding (XLA contracts the
+        reference's error into a fused multiply-add).  The code is
+        negated (exact) rather than passed ``value=-1``: the CUDA
+        ``addcmul`` rounds ``value * t1 * t2`` before the add."""
+        q, scale = wire
+        ranks, n = msg.shape[0], msg[0].numel()
+        flat = msg.reshape(ranks, -1).to(torch.float32)
+        flat = torch.nn.functional.pad(flat, (0, q[0].numel() - n))
+        out = torch.addcmul(flat.reshape(q.shape), q.to(torch.float32).neg(),
+                            scale[..., None])
+        return out.reshape(ranks, -1)[:, :n].reshape(msg.shape).to(msg.dtype)
+
     def element_bytes(self, n: int, itemsize: int = 4) -> int:
         del itemsize
         return n + INT8_SCALE_BYTES * int(math.ceil(n / self.block))
@@ -171,6 +198,26 @@ class Int8Codec(WireCodec):
 
 F32 = F32Codec()
 BF16 = BF16Codec()
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceLayout:
+    """Where the reference keeps each of a model's leaves.
+
+    ``order`` is the port's leaf names in the reference's flatten order
+    (JAX's sorted-key tree order); ``perms`` maps a leaf whose layout
+    differs (a conv kernel, OIHW here and HWIO there; a Dense kernel,
+    ``[out, in]`` here and ``[in, out]`` there) to the permutation of its
+    dims that gives the reference's layout.  Built by
+    ``models/convert.py::reference_layout``; the int8 codec's blocks and
+    the health probe read leaves through it."""
+
+    order: tuple = ()
+    perms: dict = dataclasses.field(default_factory=dict)
+
+    def perm(self, name: str):
+        """The leaf's permutation to the reference's layout, or None."""
+        return self.perms.get(name)
 
 
 def get_codec(dtype: str | None,

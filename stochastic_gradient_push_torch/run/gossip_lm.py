@@ -27,6 +27,11 @@ lane (refused under ``torchrun``: the cross-process transport kernel is
 not ported).  ``--gossip_every k`` fires a round every k-th step;
 ``--global_avg_every k`` takes an exact global average every k steps
 (unset means off: the port has no topology planner).
+``--wire_dtype int8 --error_feedback True`` carries error feedback,
+``--inject_faults SPEC`` drills faults into the rounds and
+``--health_every k`` (a multiple of ``--print_freq``) prints ``gossip
+health:`` lines, with ``--residual_floor`` arming the reactive global
+average.
 
 It runs on CUDA unless ``--device cpu``; ``--attn`` defaults to
 ``flash`` (the hand-written kernels, forward and backward, on CUDA).
@@ -59,10 +64,6 @@ UNPORTED = {
     "--dcn_cost": (None, float, "the fabric-priced planner"),
     "--ici_cost": (None, float, "the fabric-priced planner"),
     "--mixing_alpha": (None, str, "self-weighted mixing"),
-    "--inject_faults": (None, str, "fault injection"),
-    "--health_every": (0, int, "consensus health"),
-    "--residual_floor": (0.01, float, "consensus health recovery"),
-    "--error_feedback": ("False", str, "error feedback"),
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
@@ -124,6 +125,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "always ships exact f32")
     p.add_argument("--wire_block", default=64, type=int,
                    help="int8 codec block size")
+    p.add_argument("--error_feedback", default="False", type=str,
+                   help="carry per-rank error-feedback residuals (needs "
+                        "a lossy --wire_dtype)")
+    p.add_argument("--inject_faults", default=None, type=str,
+                   help="deterministic fault injection at the gossip "
+                        "round (resilience/faults.py grammar); "
+                        "mass-conserving drops, push-sum only")
+    p.add_argument("--health_every", default=0, type=int,
+                   help="emit a 'gossip health:' line every k steps (a "
+                        "multiple of --print_freq); excursions arm the "
+                        "recovery policy; 0 disables")
+    p.add_argument("--residual_floor", default=0.01, type=float,
+                   help="consensus residual above which recovery fires "
+                        "an exact global average (with --health_every)")
     p.add_argument("--overlap", default="False", type=str,
                    help="OSGP: launch each round at the top of the step, "
                         "consume it staleness-1 steps later")
@@ -263,6 +278,27 @@ def main(argv=None) -> dict:
 
     sb = _str_bool
     resolve_staleness_flag(args, sb(args.overlap))
+    ef = sb(args.error_feedback)
+    if ef and args.wire_dtype not in ("bf16", "int8"):
+        raise SystemExit(
+            "--error_feedback needs a lossy --wire_dtype (bf16/int8): "
+            "an exact wire has no quantization error to feed back")
+    fault_plan = None
+    if args.inject_faults:
+        if sb(args.all_reduce) or sb(args.bilat) or not sb(args.push_sum):
+            raise SystemExit("--inject_faults needs push-sum gossip: only "
+                             "push-sum's mass accounting keeps the mean "
+                             "exact under dropped edges")
+        from ..resilience import parse_fault_spec
+
+        fault_plan = parse_fault_spec(args.inject_faults)
+    if args.health_every < 0:
+        raise SystemExit("--health_every must be >= 0")
+    if args.health_every and args.health_every % args.print_freq:
+        raise SystemExit(
+            f"--health_every {args.health_every} must be a multiple of "
+            f"--print_freq {args.print_freq} (health signals ride the "
+            "metrics fetch cadence)")
     device = resolve_device(args.device)
     world = args.world_size or 1
     launched = int(os.environ.get("WORLD_SIZE", "1"))
@@ -284,6 +320,7 @@ def main(argv=None) -> dict:
         transport = StackedTransport(world)
         rows = slice(None)
     rank0 = launched == 1 or transport.rank == 0
+    log0 = print if rank0 else (lambda *a, **k: None)
     if args.batch_size % args.grad_accum:
         raise SystemExit(f"--batch_size {args.batch_size} not divisible "
                          f"by --grad_accum {args.grad_accum}")
@@ -301,8 +338,10 @@ def main(argv=None) -> dict:
                              "they do not apply to --all_reduce True")
         alg = all_reduce(transport)
     elif sb(args.bilat) or not sb(args.push_sum):
-        if args.wire_dtype not in (None, "f32") or args.gossip_every != 1:
-            raise SystemExit("gossip_every/wire_dtype are push-sum knobs")
+        if args.wire_dtype not in (None, "f32") or args.gossip_every != 1 \
+                or ef:
+            raise SystemExit("gossip_every/wire_dtype/error_feedback are "
+                             "push-sum knobs")
         graph = GRAPH_TOPOLOGIES[args.graph_type](
             world, peers_per_itr=args.peers_per_itr)
         if sb(args.bilat):
@@ -316,8 +355,15 @@ def main(argv=None) -> dict:
     else:
         graph = GRAPH_TOPOLOGIES[args.graph_type](
             world, peers_per_itr=args.peers_per_itr)
-        alg = sgp(build_schedule(graph), transport,
+        schedule = build_schedule(graph)
+        faults = None
+        if fault_plan is not None:
+            faults = fault_plan.build_masks(schedule,
+                                            gossip_every=args.gossip_every)
+            log0(f"gossip faults: {fault_plan.summary()}", flush=True)
+        alg = sgp(schedule, transport,
                   wire=get_codec(args.wire_dtype, args.wire_block),
+                  error_feedback=ef, faults=faults,
                   overlap=sb(args.overlap),
                   staleness=max(1, args.staleness), gossip_kernel=lane,
                   gossip_buckets=args.gossip_buckets,
@@ -332,12 +378,37 @@ def main(argv=None) -> dict:
     lrs = LRSchedule(ref_lr=args.lr, batch_size=args.batch_size,
                      world_size=world, decay_schedule={},
                      warmup=sb(args.warmup))
-    step = build_lm_train_step(make_model(cfg), alg, tx, lrs,
-                               itr_per_epoch=itr_per_epoch,
-                               grad_accum=args.grad_accum)
+    step = build_lm_train_step(
+        make_model(cfg), alg, tx, lrs, itr_per_epoch=itr_per_epoch,
+        grad_accum=args.grad_accum,
+        health_axis=transport if args.health_every > 0 else None)
     held = len(range(world)[rows])
     state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device)
-    log = print if rank0 else (lambda *a, **k: None)
+    log = log0
+    monitor = policy = recovery = None
+    if args.health_every > 0:
+        # signals ride every step's metrics and are read at the print
+        # cadence (the only points the loop reads metrics)
+        import types
+
+        from ..resilience import (HealthMonitor, RecoveryPolicy,
+                                  make_recovery_fn)
+
+        line = types.SimpleNamespace(
+            info=lambda m: log(m, flush=True),
+            warning=lambda m: log(m, flush=True))
+        monitor = HealthMonitor(health_every=args.health_every,
+                                residual_floor=args.residual_floor,
+                                log=line)
+        window = None   # (host clock, steps_done) at the last read
+        if world > 1 and hasattr(alg, "global_average"):
+            policy = RecoveryPolicy(
+                world=world, ppi=args.peers_per_itr,
+                algorithm="sgp" if sb(args.push_sum) else "dpsgd",
+                residual_floor=args.residual_floor,
+                cooldown_steps=args.health_every, log=line,
+                faults=bool(args.inject_faults))
+            recovery = make_recovery_fn(alg)
     n_params = sum(p[0].numel() for p in state.params.values())
     gossip = ""
     if alg.name in ("sgp", "dpsgd"):
@@ -373,6 +444,10 @@ def main(argv=None) -> dict:
                     or steps_done >= args.num_steps):
                 loss = mean(metrics["loss"])   # waits for the step
                 losses.append(loss)
+                if monitor is not None:
+                    state, window = _observe_health(
+                        monitor, policy, recovery, alg, state, metrics,
+                        steps_done, window)
                 tps = (tokens_per_step * steps_done
                        / (time.perf_counter() - t0))
                 log(f"{steps_done},{loss:.4f},{mean(metrics['ppl']):.2f},"
@@ -388,6 +463,26 @@ def main(argv=None) -> dict:
     if launched > 1:
         torch.distributed.destroy_process_group()
     return result
+
+
+def _observe_health(monitor, policy, recovery, alg, state, metrics,
+                    steps_done: int, window):
+    """Read one step's health signals at the print cadence, observe
+    them (one step-time sample per read window, the first window left
+    out) and fire the policy's global average; returns ``(state,
+    window)``."""
+    from ..resilience.monitor import host_signals
+    from ..resilience.recovery import recover_state
+
+    now = time.perf_counter()
+    if window is not None and steps_done > window[1]:
+        monitor.record_step_time((now - window[0])
+                                 / (steps_done - window[1]))
+    report = monitor.observe(steps_done, host_signals(metrics))
+    if report.unhealthy and policy is not None:
+        if policy.assess(report).action == "global-average":
+            state = recover_state(state, alg, recovery)
+    return state, (now, steps_done)
 
 
 if __name__ == "__main__":

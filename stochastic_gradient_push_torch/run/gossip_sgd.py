@@ -30,8 +30,13 @@ SIGUSR1 or SIGTERM makes the run save at the next step and exit 75.
 ``--model`` is one of ``resnet18/34/50/101/152``, ``tiny_cnn`` and
 ``tiny_mlp``.  Only ``--dataset synthetic`` is ported: ImageFolder data
 (the default) needs files and a decoder that are not ported yet.
-``--global_avg_every`` unset means off (the reference's unset value lets
-its topology planner decide; the port has no planner yet).  The flags
+``--wire_dtype int8 --error_feedback True`` carries error feedback,
+``--inject_faults SPEC`` drills deterministic faults into the rounds,
+``--health_every k`` prints ``gossip health:`` lines and
+``--residual_floor`` arms the reactive global average (``gossip
+recovery:`` lines).  ``--global_avg_every`` unset means off (the
+reference's unset value lets its topology planner decide; the port has
+no planner yet).  The flags
 the reference accepts and ignores (``--backend``, ``--master_port``,
 ``--network_interface_type``, ``--no_cuda_streams``) are accepted and
 ignored here too.  Every other flag whose feature is not ported parses
@@ -65,10 +70,6 @@ UNPORTED = {
     "--dcn_cost": (None, float, "the fabric-priced planner"),
     "--ici_cost": (None, float, "the fabric-priced planner"),
     "--mixing_alpha": (None, str, "self-weighted mixing"),
-    "--inject_faults": (None, str, "fault injection"),
-    "--health_every": (0, int, "consensus health"),
-    "--residual_floor": (0.01, float, "consensus health recovery"),
-    "--error_feedback": ("False", str, "error feedback"),
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
     "--checkpoint_all": ("True", str, "rank-0-only checkpoints"),
     "--nprocs_per_node": (1, int, "hierarchical gossip"),
@@ -150,6 +151,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "always ships exact f32")
     p.add_argument("--wire_block", default=64, type=int,
                    help="int8 codec block size")
+    p.add_argument("--error_feedback", default="False", type=str,
+                   help="carry per-rank error-feedback residuals: each "
+                        "round's quantization error is re-injected into "
+                        "the next send (needs a lossy --wire_dtype)")
+    p.add_argument("--inject_faults", default=None, type=str,
+                   help="deterministic fault injection at the gossip "
+                        "round (resilience/faults.py grammar, e.g. "
+                        "'drop:0->1@10:40;straggler:3@20:30;seed:7'); "
+                        "mass-conserving drops, push-sum only")
+    p.add_argument("--health_every", default=0, type=int,
+                   help="emit a 'gossip health:' line every k steps; "
+                        "excursions arm the recovery policy; 0 disables")
+    p.add_argument("--residual_floor", default=0.01, type=float,
+                   help="consensus residual above which recovery fires "
+                        "an exact global average (with --health_every)")
     p.add_argument("--gossip_kernel", default="xla",
                    choices=list(GOSSIP_KERNELS),
                    help="'pallas' runs the gossip payload through the CUDA "
@@ -275,17 +291,35 @@ def parse_config(argv=None):
     all_reduce = _str_bool(args.all_reduce)
     if args.wire_block < 1:
         raise SystemExit("--wire_block must be >= 1")
+    ef = _str_bool(args.error_feedback)
+    if ef and args.wire_dtype not in ("bf16", "int8"):
+        raise SystemExit(
+            "--error_feedback needs a lossy --wire_dtype (bf16/int8): "
+            "an exact wire has no quantization error to feed back")
     if args.gossip_buckets < 1:
         raise SystemExit("--gossip_buckets must be >= 1, got "
                          f"{args.gossip_buckets}")
     resolve_staleness_flag(args, _str_bool(args.overlap))
     if (all_reduce or not _str_bool(args.push_sum)) and (
-            args.gossip_every != 1 or args.wire_dtype not in (None, "f32")):
-        raise SystemExit("gossip_every/wire_dtype are push-sum knobs")
+            args.gossip_every != 1 or args.wire_dtype not in (None, "f32")
+            or ef):
+        raise SystemExit("gossip_every/wire_dtype/error_feedback are "
+                         "push-sum knobs")
     if all_reduce and args.graph_type != -1:
         raise SystemExit("--all_reduce True requires --graph_type -1")
     if not all_reduce and args.graph_type == -1:
         raise SystemExit("gossip training requires a graph_type >= 0")
+    if args.inject_faults:
+        if all_reduce or not _str_bool(args.push_sum):
+            raise SystemExit("--inject_faults needs push-sum gossip: only "
+                             "push-sum's mass accounting keeps the mean "
+                             "exact under dropped edges")
+        # fail a bad spec at parse time, not at the first step
+        from ..resilience import parse_fault_spec
+
+        parse_fault_spec(args.inject_faults)
+    if args.health_every < 0:
+        raise SystemExit("--health_every must be >= 0")
     cfg = TrainerConfig(
         all_reduce=all_reduce,
         push_sum=_str_bool(args.push_sum),
@@ -326,6 +360,10 @@ def parse_config(argv=None):
         gossip_buckets=args.gossip_buckets,
         per_rank_csv=_str_bool(args.per_rank_csv),
         global_avg_every=args.global_avg_every or 0,
+        error_feedback=ef,
+        inject_faults=args.inject_faults,
+        health_every=args.health_every,
+        residual_floor=args.residual_floor,
     )
     return cfg, args
 

@@ -14,8 +14,12 @@ one under ``torch.distributed``).  Each rank's forward and backward runs
 ``torch.func.functional_call`` of one shared module with that rank's
 de-biased parameters; the module's own weights are never used.
 
+``health_axis`` (a transport) adds the consensus health signals after
+``post_step``, as ``train/step.py`` does; the step tells the algorithm
+the LM's reference layout (the int8 wire's blocks).
+
 Not ported yet: the sequence-, tensor-, expert- and pipeline-parallel
-meshes, MoE losses, health signals and the eval step.
+meshes, MoE losses and the eval step.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 from torch.func import functional_call
 
 from ..algorithms.api import GossipAlgorithm
-from ..models.convert import init_params, params_from_jax
+from ..models.convert import (init_params, params_from_jax,
+                              reference_layout)
 from ..models.transformer import TransformerConfig, TransformerLM
 from .metrics import global_norm
 from .state import TrainState
@@ -52,13 +57,19 @@ def make_model(cfg: TransformerConfig) -> TransformerLM:
 
 def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                         tx, lr_schedule, itr_per_epoch: int,
-                        grad_accum: int = 1) -> tp.Callable:
+                        grad_accum: int = 1,
+                        health_axis=None) -> tp.Callable:
     """Step ``(state, tokens, targets) -> (state, metrics)`` for token
     batches ``[R, batch, seq]``.  ``grad_accum`` splits the batch into
     that many microbatches whose gradients are summed, then divided, as
-    the reference's scan does."""
+    the reference's scan does.  ``health_axis`` (a transport) adds the
+    health signals."""
+    from .step import health_metrics
+
     if grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
+    layout = reference_layout(model)
+    algorithm.bind_layout(layout)
 
     def rank_grads(z_r: dict, toks, tgts):
         if toks.shape[0] % grad_accum:
@@ -99,6 +110,9 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
 
         metrics = {"loss": loss, "ppl": torch.exp(loss), "lr": lr,
                    "grad_norm": global_norm(grads)}
+        if health_axis is not None:
+            metrics.update(health_metrics(params, grads, gstate,
+                                          health_axis, layout))
         return TrainState(step=step + 1, params=params,
                           opt_state=opt_state, gossip=gstate), metrics
 

@@ -24,6 +24,15 @@ them back, fast-forwards the loader to the saved iteration, and the LR
 follows from the restored step.  A SIGUSR1/SIGTERM is acted on at the
 next step boundary: save at (epoch, itr) and exit 75.
 
+Resilience (``resilience/``): ``inject_faults`` compiles a fault plan
+against each algorithm's schedule (logged once, ``gossip faults:``),
+``error_feedback`` keeps the EF residual in the gossip state (and in the
+rank files), and ``health_every`` adds the health signals to the step,
+observes them every step (``gossip health:`` lines) and lets the
+recovery policy fire an exact global average above ``residual_floor``
+(``gossip recovery:`` lines); a checkpoint's meta carries the last
+health payload.
+
 Config fields of features not ported yet raise ``NotImplementedError``
 naming the feature when set away from their defaults (:data:`UNPORTED`),
 as does a multi-process world; none is silently ignored.
@@ -140,7 +149,6 @@ class TrainerConfig:
 # the default raises, naming the feature
 UNPORTED = {
     "plan": (None, "the topology planner's plan"),
-    "error_feedback": (False, "error feedback"),
     "gossip_comm_dtype": (None, "the deprecated comm dtype alias"),
     "bilat_async": (False, "wall-clock asynchronous AD-PSGD "
                            "(train/async_bilat.py)"),
@@ -159,9 +167,6 @@ UNPORTED = {
     "prefetch": (False, "device prefetch"),
     "prefetch_depth": (2, "device prefetch"),
     "heartbeat_timeout": (300, "the step watchdog"),
-    "inject_faults": (None, "fault injection"),
-    "health_every": (0, "consensus health"),
-    "residual_floor": (0.01, "consensus health recovery"),
 }
 
 
@@ -206,6 +211,30 @@ class Trainer:
         self._eval_fn = None
         self._eval_alg = None
         self._last_val_per_rank: list[float] = []
+        # runtime consensus health: the monitor sees, the policy decides,
+        # the recovery fn (cached per algorithm) acts
+        self.monitor = None
+        self.recovery_policy = None
+        self._recovery_cache: dict = {}
+        if config.health_every < 0:
+            raise ValueError("health_every must be >= 0")
+        if config.health_every > 0:
+            from ..resilience import HealthMonitor, RecoveryPolicy
+
+            self.monitor = HealthMonitor(
+                health_every=config.health_every,
+                residual_floor=config.residual_floor, log=self.log)
+            if not (config.all_reduce or config.bilat):
+                # overlap runs recover too: the average folds the
+                # in-flight FIFO into Σx/Σw and drains it
+                self.recovery_policy = RecoveryPolicy(
+                    world=self.world_size,
+                    ppi=ppi_at_epoch(config.ppi_schedule, 0),
+                    algorithm="sgp" if config.push_sum else "dpsgd",
+                    residual_floor=config.residual_floor,
+                    cooldown_steps=config.health_every, log=self.log,
+                    faults=bool(config.inject_faults))
+        self._logged_faults = False
         self._csv_ranks = (tuple(range(self.world_size))
                            if config.per_rank_csv else (0,))
         self._fname = lambda r: os.path.join(
@@ -243,10 +272,19 @@ class Trainer:
             raise ValueError(
                 "wire compression (wire_dtype / the deprecated "
                 "gossip_comm_dtype) applies to the push-sum family only")
+        if cfg.error_feedback and (cfg.all_reduce or cfg.bilat
+                                   or not cfg.push_sum):
+            raise ValueError(
+                "error_feedback rides the push-sum gossip wire; "
+                "all_reduce/bilateral/D-PSGD modes have none")
         if cfg.global_avg_every and (cfg.all_reduce or cfg.bilat):
             raise ValueError(
                 "global_avg_every applies to the push-sum/D-PSGD gossip "
                 "family (all_reduce is already exact every step)")
+        if cfg.inject_faults and (cfg.all_reduce or cfg.bilat):
+            raise ValueError(
+                "inject_faults breaks gossip edges; all_reduce/bilateral "
+                "modes have none (use push-sum gossip)")
         if cfg.all_reduce:
             return all_reduce(self.transport)
         graph = cfg.graph_class(self.world_size, peers_per_itr=ppi)
@@ -254,20 +292,35 @@ class Trainer:
             return adpsgd(build_pairing_schedule(graph), self.transport)
         mixing = cfg.mixing_class() if cfg.mixing_class else None
         schedule = build_schedule(graph, mixing)
+        faults = None
+        if cfg.inject_faults:
+            # compiled against THIS schedule: the masks are per (phase,
+            # edge), so a ppi change rebuilds them
+            from ..resilience import parse_fault_spec
+
+            plan = parse_fault_spec(cfg.inject_faults)
+            faults = plan.build_masks(
+                schedule,
+                gossip_every=cfg.gossip_every if cfg.push_sum else 1)
+            if not self._logged_faults:
+                # one banner per run
+                self.log.warning("gossip faults: %s", plan.summary())
+                self._logged_faults = True
         staleness = self._resolve_staleness()
         if cfg.push_sum:
             return sgp(schedule, self.transport, overlap=cfg.overlap,
                        gossip_every=cfg.gossip_every, wire=codec,
+                       error_feedback=cfg.error_feedback,
                        staleness=staleness,
                        global_avg_every=cfg.global_avg_every,
-                       gossip_kernel=self.lane,
+                       faults=faults, gossip_kernel=self.lane,
                        gossip_buckets=cfg.gossip_buckets)
         if cfg.gossip_every != 1:
             raise ValueError("gossip_every is a push-sum knob")
         return dpsgd(schedule, self.transport, overlap=cfg.overlap,
                      staleness=staleness,
                      global_avg_every=cfg.global_avg_every,
-                     gossip_kernel=self.lane,
+                     faults=faults, gossip_kernel=self.lane,
                      gossip_buckets=cfg.gossip_buckets)
 
     def _train_fn(self, ppi: int, itr_per_epoch: int):
@@ -281,7 +334,9 @@ class Trainer:
                 itr_per_epoch=itr_per_epoch,
                 num_classes=self.cfg.num_classes,
                 label_smoothing=self.cfg.label_smoothing,
-                grad_accum=self.cfg.grad_accum)
+                grad_accum=self.cfg.grad_accum,
+                health_axis=(self.transport if self.monitor is not None
+                             else None))
             self._step_cache[key] = (alg, step)
         return self._step_cache[key]
 
@@ -445,12 +500,17 @@ class Trainer:
                    meters) -> dict:
         """Checkpoint metadata for a resume point at (epoch, itr)."""
         batch_meter, nn_meter, data_meter = meters
-        return {"epoch": epoch, "itr": itr,
+        meta = {"epoch": epoch, "itr": itr,
                 "best_prec1": float(best_prec1),
                 "elapsed_time": time.time() - begin_time,
                 "batch_meter": batch_meter.state_dict(),
                 "nn_meter": nn_meter.state_dict(),
                 "data_meter": data_meter.state_dict()}
+        if self.monitor is not None and self.monitor.last_payload:
+            # the run's health at save time rides with the state it
+            # describes
+            meta["health"] = self.monitor.last_payload
+        return meta
 
     def _preempt_exit(self, state, epoch, itr, meters, best_prec1,
                       begin_time):
@@ -480,7 +540,7 @@ class Trainer:
         cap = None if cap in (None, -1) else cap
         if start_itr:
             loader.fast_forward(start_itr)
-        _, train_fn = self._train_fn(ppi, itr_per_epoch)
+        alg, train_fn = self._train_fn(ppi, itr_per_epoch)
 
         it = iter(loader)
         i = start_itr - 1
@@ -503,12 +563,19 @@ class Trainer:
             elapsed_nn = time.time() - nn_time
             elapsed_batch = time.time() - batch_time
             i += 1
-            if num_itr_ignore == 0:
+            timed = num_itr_ignore == 0
+            if timed:
                 nn_meter.update(elapsed_nn)
                 batch_meter.update(elapsed_batch)
                 data_meter.update(elapsed_data)
             else:
                 num_itr_ignore -= 1
+            if self.monitor is not None:
+                if timed:
+                    # per-step samples feed the p50/p99 straggler view
+                    self.monitor.record_step_time(elapsed_batch)
+                state = self._observe_health(state, alg, metrics,
+                                             epoch * itr_per_epoch + i)
             for r in self._csv_ranks:
                 pick = ((lambda a: a[r]) if cfg.per_rank_csv
                         else (lambda a: a.mean()))
@@ -528,6 +595,35 @@ class Trainer:
             batch_time = time.time()
 
         self._log_row(epoch, i, meters, stat_meters)
+        return state
+
+    # -- resilience --------------------------------------------------------
+
+    def _recovery_fn(self, alg):
+        """The immediate global average of ``alg``, cached per
+        algorithm."""
+        key = id(alg)
+        if key not in self._recovery_cache:
+            from ..resilience import make_recovery_fn
+
+            self._recovery_cache[key] = (make_recovery_fn(alg), alg)
+        return self._recovery_cache[key][0]
+
+    def _observe_health(self, state, alg, metrics, gstep: int):
+        """Digest one step's health signals; fire recovery when the
+        policy says so."""
+        from ..resilience.monitor import host_signals
+        from ..resilience.recovery import recover_state
+
+        signals = host_signals(metrics)
+        if signals is None:
+            return state  # step built without health signals
+        report = self.monitor.observe(gstep, signals)
+        if report.unhealthy and self.recovery_policy is not None:
+            event = self.recovery_policy.assess(report)
+            if event.action == "global-average" \
+                    and hasattr(alg, "global_average"):
+                state = recover_state(state, alg, self._recovery_fn(alg))
         return state
 
     @torch.no_grad()

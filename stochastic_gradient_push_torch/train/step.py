@@ -22,8 +22,15 @@ activations live at a time.  The new running statistics come back
 through the forward's ``stats_out`` (``models/resnet.py``), advanced
 once per microbatch under ``grad_accum`` as the reference's scan does.
 
-Not ported, and refused by name: ``local_axis`` (intra-node averaging)
-and ``health_axis`` (consensus health signals).
+``health_axis`` (the transport the signals reduce over, the
+reference's gossip axis) adds the consensus health signals
+(``resilience/monitor.py::health_signals``) to the metrics after
+``post_step``, on the drained view with the EF residual.  The step tells
+the algorithm the model's reference layout
+(``models/convert.py::reference_layout``), where the int8 wire cuts its
+blocks.
+
+Not ported, and refused by name: ``local_axis`` (intra-node averaging).
 """
 
 from __future__ import annotations
@@ -35,14 +42,14 @@ from torch.func import functional_call
 
 from ..algorithms.api import GossipAlgorithm
 from ..data.synthetic import IMAGENET_MEAN, IMAGENET_STD
-from ..models.convert import init_model_params
+from ..models.convert import init_model_params, reference_layout
 from ..models.resnet import RESNETS
 from ..models.small import TinyCNN, TinyMLP
 from .metrics import accuracy_topk, global_norm, kl_div_loss, one_hot
 from .state import TrainState
 
 __all__ = ["normalize_images", "make_model", "MODELS", "build_train_step",
-           "build_eval_step", "init_train_state", "replica_spread",
+           "health_metrics", "build_eval_step", "init_train_state", "replica_spread",
            "unreplicate"]
 
 MODELS = {**RESNETS, "tiny_cnn": TinyCNN, "tiny_mlp": TinyMLP}
@@ -65,15 +72,23 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     return (images.float() / 255.0 - mean) / std
 
 
-def _refuse(local_axis, health_axis) -> None:
-    for value, name, what in ((local_axis, "local_axis",
-                               "intra-node gradient and BN averaging"),
-                              (health_axis, "health_axis",
-                               "consensus health signals")):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} ({what}) is not ported to "
-                f"stochastic_gradient_push_torch yet (ROADMAP.md Queue 1)")
+def _refuse(local_axis) -> None:
+    if local_axis is not None:
+        raise NotImplementedError(
+            "local_axis (intra-node gradient and BN averaging) is not "
+            "ported to stochastic_gradient_push_torch yet (ROADMAP.md "
+            "Queue 1)")
+
+
+def health_metrics(params, grads, gstate, transport, layout) -> dict:
+    """The consensus health signals of a step's outcome (after
+    ``post_step``): the drained view, the EF residual, the reference's
+    probe."""
+    from ..resilience.monitor import health_signals
+
+    return health_signals(params, grads, gstate.ps_weight, transport,
+                          ef_residual=gstate.ef_residual,
+                          in_flight=gstate.in_flight, layout=layout)
 
 
 def _rank(tree: dict, r: int) -> dict:
@@ -88,10 +103,13 @@ def build_train_step(model, algorithm: GossipAlgorithm, tx, lr_schedule,
     per held rank ``[R]`` (``loss``, ``top1``, ``top5``, ``grad_norm``)
     and the step's ``lr``.  ``grad_accum`` splits each rank's batch into
     that many microbatches: gradients, loss and accuracies are summed,
-    then divided, and the BatchNorm EMA advances once per microbatch."""
-    _refuse(local_axis, health_axis)
+    then divided, and the BatchNorm EMA advances once per microbatch.
+    ``health_axis`` (a transport) adds the health signals."""
+    _refuse(local_axis)
     if grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
+    layout = reference_layout(model) if model is not None else None
+    algorithm.bind_layout(layout)
 
     def rank_step(z_r: dict, stats_r: dict, images, labels):
         if images.shape[0] % grad_accum:
@@ -142,6 +160,9 @@ def build_train_step(model, algorithm: GossipAlgorithm, tx, lr_schedule,
 
         metrics = {"loss": loss, "top1": top1, "top5": top5, "lr": lr,
                    "grad_norm": global_norm(grads)}
+        if health_axis is not None:
+            metrics.update(health_metrics(params, grads, gstate,
+                                          health_axis, layout))
         return TrainState(step=step + 1, params=params, opt_state=opt_state,
                           gossip=gstate, batch_stats=batch_stats), metrics
 

@@ -9,13 +9,15 @@ checkpoint.py``, with the port's own file format:
   on its own, under the reference's names: ``{tag}checkpoint_r{rank}_
   n{world}.ckpt``, ``ep{epoch}_`` prefixed when epochs are kept apart,
   and ``{tag}model_best_r{rank}_n{world}.ckpt`` on a validation best.
-  The state carries the push-sum weight and the overlap FIFO; the
+  The state carries the push-sum weight, the overlap FIFO and, with
+  error feedback, the residual (``gossip/ef_residual``); the
   trainer drains the FIFO (``algorithms.drain_state``) before it saves,
   so nothing is in flight on disk.
 * **The payload** is one ``torch.save`` per file: ``{"state": ...,
   "meta": <JSON text>}`` with the rank's tensors on the CPU, the step
   and phase as ints, and the reference's meta keys (epoch, itr,
-  best_prec1, elapsed_time and the three timing meters), written to a
+  best_prec1, elapsed_time, the three timing meters and, with health
+  monitoring, the last ``health`` payload), written to a
   temporary name and renamed, so state and meta never disagree.  It is
   read with ``weights_only=True``.  The reference's flax msgpack is not
   read: that needs JAX.
@@ -57,15 +59,16 @@ def _row(state, j: int) -> dict:
         return {n: t[j].detach().cpu().clone() for n, t in tree.items()}
 
     g = state.gossip
+    gossip = {"phase": int(g.phase),
+              "ps_weight": g.ps_weight[j].detach().cpu().clone(),
+              "in_flight": [{"params": rows(p),
+                             "ps_weight": w[j].detach().cpu().clone()}
+                            for p, w in g.in_flight]}
+    if g.ef_residual is not None:
+        gossip["ef_residual"] = rows(g.ef_residual)
     return {"step": int(state.step), "params": rows(state.params),
             "opt_state": rows(state.opt_state),
-            "batch_stats": rows(state.batch_stats),
-            "gossip": {"phase": int(g.phase),
-                       "ps_weight": g.ps_weight[j].detach().cpu().clone(),
-                       "in_flight": [{"params": rows(p),
-                                      "ps_weight": w[j].detach().cpu()
-                                      .clone()}
-                                     for p, w in g.in_flight]}}
+            "batch_stats": rows(state.batch_stats), "gossip": gossip}
 
 
 def _stack(template: dict, rows: list[dict], what: str) -> dict:
@@ -165,6 +168,19 @@ class CheckpointManager:
                           for r in rows]).to(device=w.device,
                                              dtype=w.dtype))
             for k, (p, w) in enumerate(g.in_flight))
+        saved_ef = ["ef_residual" in r["gossip"] for r in rows]
+        if any(saved_ef) != (g.ef_residual is not None) or (
+                len(set(saved_ef)) > 1):
+            raise ValueError(
+                "checkpoint error-feedback residual does not match the "
+                f"run's (saved: {any(saved_ef)}, this run: "
+                f"{g.ef_residual is not None}): resume with the same "
+                "--wire_dtype and --error_feedback")
+        ef_residual = None
+        if g.ef_residual is not None:
+            ef_residual = _stack(g.ef_residual,
+                                 [r["gossip"]["ef_residual"] for r in rows],
+                                 "ef residual")
         ps_weight = torch.stack([r["gossip"]["ps_weight"] for r in rows])
         state = dataclasses.replace(
             template, step=rows[0]["step"],
@@ -179,7 +195,7 @@ class CheckpointManager:
                 phase=rows[0]["gossip"]["phase"],
                 ps_weight=ps_weight.to(device=g.ps_weight.device,
                                        dtype=g.ps_weight.dtype),
-                in_flight=in_flight))
+                in_flight=in_flight, ef_residual=ef_residual))
         return state, json.loads(blobs[0]["meta"])
 
 

@@ -32,6 +32,10 @@ statistics 5e-5).  D-PSGD steps on the kernel lane (sync and overlap)
 against the plain and interpret lanes (params 1e-6, weight exact),
 bilateral rounds on the card bit-equal to the CPU's, and the training
 CLI with D-PSGD on the kernel lane against the CPU run (params 1e-5).
+Faulted rounds with error feedback (drops, blackouts, NaN corruption;
+bf16 and int8; sync and overlap) on the kernel lane against the plain
+lane on the card and the interpret lane on the CPU: residual and
+ps-weight exact, params 1e-6, NaN positions equal.
 """
 
 import dataclasses
@@ -777,3 +781,72 @@ def test_gossip_sgd_cli_on_cuda_matches_cpu(cuda, tmp_path):
         tmp_path / d / "out_r0_n4.csv").read().splitlines()]
         for d in ("gpu", "cpu")]
     assert rows[0] == rows[1]
+
+
+@pytest.mark.parametrize("wire", ["bf16", "int8"])
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("spec", ["drop:0->1@0:3;nan:2@1:2",
+                                  "blackout:3@0:2"])
+def test_faulted_ef_rounds_on_the_kernel_lane(cuda, wire, overlap, spec):
+    """Error feedback and a fault plan at world 4, the kernel lane on the
+    card against the plain lane on the card and the interpret lane on
+    the CPU, NaN positions included; one start and one wait per bucket
+    a round.  One round at two peers (self-weighted): residual and
+    ps-weight exact across the card's lanes, params 1e-6.  Three rounds
+    at one peer under uniform mixing, where ``lo * x`` is exact: every
+    tensor exact.  (Over several rounds with an inexact local share the
+    lanes' one-ulp params difference can flip a wire code, so those are
+    not compared.)  The kernel lane equals its interpret twins
+    throughout."""
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+    from stochastic_gradient_push_torch.parallel import collectives as tc
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+    from stochastic_gradient_push_torch.resilience import parse_fault_spec
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, SelfWeightedMixing,
+        build_schedule)
+
+    def nan_equal(a, b):
+        return (torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+    r = np.random.default_rng(3)
+    leaves = [torch.from_numpy(r.standard_normal(s).astype(np.float32))
+              for s in ((4, 7, 33), (4, 300))]
+    ps = torch.from_numpy((1 + r.random(4)).astype(np.float32))
+    for ppi, mixing, rounds in (
+            (2, SelfWeightedMixing(np.linspace(0.3, 0.6, 4)), 1),
+            (1, None, 3)):
+        sched = build_schedule(NPeerDynamicDirectedExponentialGraph(4, ppi),
+                               mixing)
+        masks = parse_fault_spec(spec).build_masks(sched)
+        runs = []
+        for dev, lane in ((cuda, tgk.KernelLane(chunk_elems=128)),
+                          (cuda, None),
+                          (torch.device("cpu"),
+                           tgk.KernelLane(interpret=True, chunk_elems=128))):
+            tree = [a.to(dev) for a in leaves] + [ps.to(dev)]
+            res = [torch.zeros_like(a) for a in tree]
+            before = tgk.gossip_edge_start.launches
+            for tick in range(rounds):
+                kw = dict(codec=get_codec(wire, 16), kernel=lane, buckets=2,
+                          faults=masks, tick=tick, ef_residual=res)
+                if overlap:
+                    local, inc, res = tc.overlap_launch(
+                        tree, tick, sched, tc.StackedTransport(4), **kw)
+                    tree = tc.land_shares(local, tc.settle_share(inc))
+                else:
+                    tree, res = tc.gossip_round(
+                        tree, tick, sched, tc.StackedTransport(4), **kw)
+            launched = tgk.gossip_edge_start.launches - before
+            assert launched == (2 * rounds if lane is not None
+                                and not lane.interpret else 0)
+            runs.append([t.cpu() for t in tree + res])
+        kern, plain, interp = runs
+        assert all(nan_equal(a, b) for a, b in zip(kern, interp))
+        assert torch.equal(kern[2], plain[2])       # the ps-weight
+        assert all(nan_equal(a, b) for a, b in zip(kern[3:], plain[3:]))
+        for a, b in zip(kern[:2], plain[:2]):
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            err = float((a - b).nan_to_num().abs().max())
+            assert err == 0.0 if mixing is None else err <= 1e-6

@@ -7,7 +7,11 @@ the refusal, by name, of every flag whose feature is not ported yet.
 The overlap (OSGP) and gossip-kernel flags: ``--overlap True
 --staleness 2`` trains on the CPU; ``--gossip_kernel pallas`` raises
 ``KernelBackendError`` naming the flag on ``--device cpu`` and, under
-``torchrun``, refuses naming the cross-process transport.
+``torchrun``, refuses naming the cross-process transport.  The
+resilience flags (``--inject_faults``, ``--health_every``,
+``--residual_floor``, ``--error_feedback``) run, each printing its
+lines (``gossip faults:``, ``gossip health:``, ``gossip recovery:``),
+and are validated with the reference's messages.
 """
 
 import math
@@ -15,6 +19,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -108,15 +113,51 @@ def test_reference_flags_parse_with_reference_defaults():
 @pytest.mark.parametrize("flag,value", [
     ("--sp", "2"), ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
     ("--slice_size", "2"), ("--remat", "True"),
-    ("--precision", "bf16"), ("--inject_faults", "drop:0->1@0:4"),
+    ("--precision", "bf16"),
     ("--resume", "True"),
-    ("--checkpoint_dir", "/tmp/x"), ("--health_every", "10"),
+    ("--checkpoint_dir", "/tmp/x"),
     ("--moe_experts", "4"), ("--mixing_alpha", "0.5"),
-    ("--error_feedback", "True"), ("--trace_dir", "/tmp/x"),
+    ("--trace_dir", "/tmp/x"),
 ])
 def test_unported_flags_raise_naming_the_flag(flag, value):
     with pytest.raises(SystemExit, match=flag):
         gossip_lm.main(SMALL + [flag, value])
+
+
+@pytest.mark.parametrize("flag,value,extra", [
+    ("--inject_faults", "drop:0->1@0:4", []),
+    ("--health_every", "2", ["--print_freq", "1"]),
+    ("--error_feedback", "True", ["--wire_dtype", "int8"]),
+    ("--residual_floor", "1e-9", ["--health_every", "1",
+                                  "--print_freq", "1", "--world_size",
+                                  "4"]),
+])
+def test_resilience_flags_run(flag, value, extra, capsys):
+    argv = SMALL + [flag, value] + extra
+    if "--world_size" not in argv:
+        argv += ["--world_size", "2"]
+    result = gossip_lm.main(argv)
+    assert np.isfinite(result["final_loss"])
+    out = capsys.readouterr().out
+    if flag == "--inject_faults":
+        assert "gossip faults: " in out
+    if flag in ("--health_every", "--residual_floor"):
+        assert "gossip health: " in out
+    if flag == "--residual_floor":
+        assert '"action": "global-average"' in out
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--error_feedback", "True"], "needs a lossy --wire_dtype"),
+    (["--inject_faults", "drop:0->1@0:4", "--push_sum", "False"],
+     "--inject_faults needs push-sum"),
+    (["--inject_faults", "drop:0->1@0:4", "--bilat", "True"],
+     "--inject_faults needs push-sum"),
+    (["--health_every", "3", "--print_freq", "2"], "multiple of"),
+])
+def test_resilience_flags_are_validated(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        gossip_lm.main(SMALL + argv)
 
 
 @pytest.mark.parametrize("argv,match", [

@@ -20,6 +20,17 @@ gossip_sgd`` and ``run.gossip_sgd_adpsgd``) on the CPU.
   checkpoints of another world are refused by name.
 * SIGUSR1 to a subprocess run: exit 75, four rank files, the overlap
   FIFO on disk drained.
+* Resilience: ``--inject_faults``, ``--health_every``,
+  ``--residual_floor`` and ``--error_feedback`` reach the config and the
+  trainer (faults compiled into the algorithm, the monitor and policy
+  set up, the EF residual in the state) and are validated with the
+  reference's messages (EF needs a lossy wire and push-sum; faults need
+  push-sum, and a bilateral run refuses them); an OSGP int8 run with
+  EF, a fault plan and health logs ``gossip health:`` lines with
+  ``ef_residual_rms`` and a ``gossip recovery:`` average, its rank
+  files carry a non-zero residual and a drained FIFO; resume with EF
+  and faults equals continuing, residual included, and a resume with
+  other EF flags is refused.
 """
 
 import os
@@ -141,8 +152,6 @@ UNPORTED_VALUES = {
     "--synth_budget": "10", "--synth_beam": "2", "--synth_phases": "3",
     "--gap_floor": "0.1", "--slice_size": "2", "--dcn_cost": "4",
     "--ici_cost": "2", "--mixing_alpha": "0.5",
-    "--inject_faults": "drop:0->1@0:4", "--health_every": "5",
-    "--residual_floor": "0.1", "--error_feedback": "True",
     "--gossip_comm_dtype": "bf16", "--checkpoint_all": "False",
     "--nprocs_per_node": "2", "--scan_steps": "2", "--multihost": "True",
     "--coordinator_address": "localhost:1", "--num_processes": "2",
@@ -163,6 +172,73 @@ def test_unported_flags_raise_naming_the_flag(tmp_path, flag):
 
 def test_every_unported_flag_has_a_test_value():
     assert set(UNPORTED_VALUES) == set(gossip_sgd.UNPORTED)
+
+
+# the resilience flags: value, the extra flags they need, the config
+# field and the value it must hold
+RESILIENCE_FLAGS = {
+    "--inject_faults": ("drop:0->1@0:4", [], "inject_faults",
+                        "drop:0->1@0:4"),
+    "--health_every": ("5", [], "health_every", 5),
+    "--residual_floor": ("0.1", ["--health_every", "3"], "residual_floor",
+                         0.1),
+    "--error_feedback": ("True", ["--wire_dtype", "int8"], "error_feedback",
+                         True),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(RESILIENCE_FLAGS))
+def test_resilience_flags_are_accepted_into_the_config(flag):
+    value, extra, field, want = RESILIENCE_FLAGS[flag]
+    cfg, _ = gossip_sgd.parse_config(SMALL + [flag, value] + extra)
+    assert getattr(cfg, field) == want
+
+
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--error_feedback", "True"], SystemExit, "needs a lossy --wire_dtype"),
+    (["--error_feedback", "True", "--wire_dtype", "f32"], SystemExit,
+     "needs a lossy --wire_dtype"),
+    (["--error_feedback", "True", "--wire_dtype", "int8", "--push_sum",
+      "False"], SystemExit, "push-sum knobs"),
+    (["--inject_faults", "drop:0->1@0:4", "--all_reduce", "True",
+      "--graph_type", "-1"], SystemExit, "--inject_faults needs push-sum"),
+    (["--inject_faults", "drop:0->1@0:4", "--push_sum", "False"],
+     SystemExit, "--inject_faults needs push-sum"),
+    (["--inject_faults", "fog:1@0:2"], ValueError, "unknown fault kind"),
+    (["--health_every", "-1"], SystemExit, "--health_every must be >= 0"),
+])
+def test_resilience_flags_are_validated(tmp_path, argv, exc, match):
+    with pytest.raises(exc, match=match):
+        gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path)] + argv)
+
+
+def test_faults_are_refused_for_bilateral_runs(tmp_path):
+    with pytest.raises(ValueError, match="inject_faults breaks gossip "
+                                         "edges; all_reduce/bilateral"):
+        gossip_sgd_adpsgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
+                                        "--inject_faults", "drop:0->1@0:4"])
+
+
+def test_resilience_run_logs_health_and_recovery(tmp_path, capsys):
+    gossip_sgd.main(SMALL + [
+        "--checkpoint_dir", str(tmp_path), "--verbose", "True",
+        "--overlap", "True", "--staleness", "2", "--wire_dtype", "int8",
+        "--error_feedback", "True", "--inject_faults",
+        "drop:0->1@1:4;seed:5", "--health_every", "3", "--residual_floor",
+        "1e-9"])
+    out = capsys.readouterr().out
+    health = [line for line in out.splitlines() if "gossip health: " in line]
+    assert health and all('"ef_residual_rms"' in line for line in health)
+    assert "push-sum-mass-leak" not in out
+    assert "gossip faults: " in out
+    assert '"action": "global-average"' in out
+    for f in _rank_files(tmp_path):
+        res = f["state"]["gossip"]["ef_residual"]
+        assert any(t.any() for t in res.values())
+        for slot in f["state"]["gossip"]["in_flight"]:
+            assert not slot["ps_weight"].any()
+            assert not any(t.any() for t in slot["params"].values())
+        assert "ef_residual_rms" in f["meta"]
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -196,6 +272,37 @@ def test_async_adpsgd_is_refused_by_name(tmp_path, flag):
     with pytest.raises(SystemExit, match=flag):
         gossip_sgd_adpsgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
                                         flag, value])
+
+
+@pytest.mark.parametrize("field,value,extra", [
+    ("inject_faults", "drop:0->1@0:4", {}),
+    ("health_every", 4, {}),
+    ("residual_floor", 0.25, {"health_every": 2}),
+    ("error_feedback", True, {"wire_dtype": "bf16"}),
+])
+def test_resilience_trainer_fields_are_threaded(field, value, extra):
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch import topology
+    from stochastic_gradient_push_torch.train.step import make_model
+
+    cfg = tloop.TrainerConfig(
+        graph_class=topology.NPeerDynamicDirectedExponentialGraph,
+        **{field: value}, **extra)
+    trainer = tloop.Trainer(cfg, make_model("tiny_cnn"),
+                            StackedTransport(2), device="cpu")
+    alg = trainer.make_algorithm(1)
+    if field == "inject_faults":
+        assert alg.faults.plan.summary() == \
+            '{"events": [{"dst": 1, "end": 4, "kind": "drop", "src": 0, ' \
+            '"start": 0}], "seed": 0}'
+    elif field == "error_feedback":
+        assert alg.error_feedback and alg.init(
+            {"w": torch.zeros(2, 3)}).ef_residual is not None
+    else:
+        assert trainer.monitor.health_every == cfg.health_every
+        assert trainer.monitor.residual_floor == cfg.residual_floor
+        assert trainer.recovery_policy.residual_floor == cfg.residual_floor
 
 
 @pytest.mark.parametrize("field", sorted(tloop.UNPORTED))
@@ -241,7 +348,13 @@ def test_default_device_is_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [[], ["--overlap", "True", "--staleness",
-                                        "2", "--push_sum", "False"]])
+                                        "2", "--push_sum", "False"],
+                                   ["--overlap", "True", "--staleness", "2",
+                                    "--wire_dtype", "int8", "--wire_block",
+                                    "16", "--error_feedback", "True",
+                                    "--inject_faults",
+                                    "drop:0->1@1:5;nan:3@9:10;seed:5",
+                                    "--health_every", "2"]])
 def test_resume_equals_continue(tmp_path, extra):
     gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path / "a")]
                     + extra)
@@ -259,12 +372,27 @@ def test_resume_equals_continue(tmp_path, extra):
                 assert torch.equal(sb[tree][n], t), (tree, n)
         for x, y in zip(sa["gossip"]["in_flight"], sb["gossip"]["in_flight"]):
             assert torch.equal(x["ps_weight"], y["ps_weight"])
+        assert ("ef_residual" in sa["gossip"]) == ("--error_feedback" in extra)
+        for n, t in sa["gossip"].get("ef_residual", {}).items():
+            assert torch.equal(sb["gossip"]["ef_residual"][n], t), n
     rows_a = _rows(tmp_path / "a" / f"out_r0_n{WORLD}.csv")
     rows_b = _rows(tmp_path / "b" / f"out_r0_n{WORLD}.csv")
     # the resumed run appends to the CSV: the same epochs and iterations,
     # and the same losses and accuracies
     assert [r[:2] + r[11:] for r in rows_b] == [r[:2] + r[11:]
                                                 for r in rows_a]
+
+
+def test_resume_with_other_error_feedback_flags_is_refused(tmp_path):
+    ef = ["--wire_dtype", "int8", "--error_feedback", "True"]
+    gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
+                             "--num_epochs", "1"] + ef)
+    resume = SMALL + ["--checkpoint_dir", str(tmp_path), "--resume", "True"]
+    with pytest.raises(SystemExit, match="needs a lossy --wire_dtype"):
+        gossip_sgd.main(resume + ["--error_feedback", "True"])
+    with pytest.raises(ValueError, match="error-feedback residual does not "
+                                         "match the run's"):
+        gossip_sgd.main(resume + ["--wire_dtype", "int8"])
 
 
 def test_cross_world_resume_is_refused_by_name(tmp_path):

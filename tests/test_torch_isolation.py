@@ -94,6 +94,9 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.utils.meter",
                 "stochastic_gradient_push_torch.data.pipeline",
                 "stochastic_gradient_push_torch.topology.schedule",
+                "stochastic_gradient_push_torch.resilience.faults",
+                "stochastic_gradient_push_torch.resilience.monitor",
+                "stochastic_gradient_push_torch.resilience.recovery",
                 "chip_smoke"}
     assert expected <= set(result["imported"])
     assert not [m for m in result["loaded"]

@@ -248,8 +248,35 @@ def test_tpu_experiments_are_refused_by_name(kwargs, match, exc):
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"local_axis": "local"}, "local_axis"),
-    ({"health_axis": "gossip"}, "health_axis"),
 ])
 def test_unported_step_options_are_refused_by_name(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         build_train_step(None, None, None, None, 1, 10, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,keys", [
+    ({}, ()),
+    ({"health_axis": True}, ("consensus_residual", "ps_mass_err",
+                             "nonfinite_grads")),
+])
+def test_step_options_are_threaded_into_the_metrics(kwargs, keys):
+    from stochastic_gradient_push_torch import algorithms as talg
+    from stochastic_gradient_push_torch import topology as tt
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+    from stochastic_gradient_push_torch.train.step import (
+        init_train_state, make_model)
+
+    transport = StackedTransport(2)
+    if kwargs.get("health_axis"):
+        kwargs = {"health_axis": transport}
+    alg = talg.sgp(tt.build_schedule(
+        tt.NPeerDynamicDirectedExponentialGraph(2)), transport)
+    model = make_model("tiny_cnn", num_classes=4)
+    step = build_train_step(model, alg, sgd(), LRSchedule(0.1, 2, 2), 10, 4,
+                            **kwargs)
+    state = init_train_state(model, alg, sgd(), 2, seed=0)
+    _, m = step(state, torch.randn(2, 2, 8, 8, 3), torch.randint(0, 4, (2, 2)))
+    assert set(keys) <= set(m) and ("consensus_residual" in m) == bool(keys)

@@ -257,9 +257,16 @@ def test_unported_attention_and_algorithm_options_raise():
     class OneRankPerProcess:   # not the stacked transport
         world_size, ranks = 2, np.array([0])
 
-    for kwargs, name in (({"faults": object()}, "fault injection"),
-                         ({"error_feedback": True}, "error feedback")):
-        with pytest.raises(NotImplementedError, match=name):
+    # fault injection and error feedback are ported: masks for another
+    # thinning, and error feedback without a lossy wire, are refused
+    from stochastic_gradient_push_torch.resilience import parse_fault_spec
+
+    masks = parse_fault_spec("drop:0->1@0:4").build_masks(sched)
+    assert talg.sgp(sched, StackedTransport(2), faults=masks).faults is masks
+    for kwargs, name in (({"faults": masks, "gossip_every": 2},
+                          "gossip_every=2"),
+                         ({"error_feedback": True}, "lossy wire codec")):
+        with pytest.raises(ValueError, match=name):
             talg.sgp(sched, StackedTransport(2), **kwargs)
     with pytest.raises(NotImplementedError, match="cross-process"):
         talg.sgp(sched, OneRankPerProcess(),
