@@ -116,8 +116,38 @@
      kept to 1e-6 against float64, the weights 1, the FIFO drained;
    - 9d: K2 and K1 against their plain twins at ResNet-50's payload
      with a NaN-poisoned rank and dropped edges (int8 and bf16): bit
-     for bit, NaN positions included, the dropped edges landing 0.
-10. A JSON line of per-kernel results (the flash rows also carry
+     for bit, NaN positions included, the dropped edges landing 0; their
+     times on chunk-padded inputs (as the round packs them) beside the
+     bytes bounds, and the wrappers' on unpadded ones (pad copies
+     included).
+10. Hierarchical and synthesized rounds and the topology planner at
+   ResNet-50's width (224 px, fp32, TF32 off, world 4 stacked, 32 images
+   a rank, seed 0), on the kernel lane:
+   - 10a: ``HierarchicalGraph(4, slice_size=2)`` on the int8 wire with
+     error feedback, SGP and OSGP (staleness 2), two steps each from one
+     state on the kernel lane and on the plain lane under deterministic
+     cuDNN, each step from the kernel lane's state: ps-weight and EF
+     residual bit-equal, params within 1e-6,
+     ``Σw`` with the in-flight shares exactly 4, one K2 and one K1 a
+     step (none for the intra-slice mean), and after each SGP step the
+     replicas of a slice identical;
+   - 10b: the planner's ``--topology synth`` schedule for world 4 on
+     slices of 2 at a cross-slice cost of 16 (fingerprint ``b7e2ef83…``:
+     psum, delegate edge, full edge), SGP f32 for one cycle (three
+     steps), lanes as in 10a, two K2 and two K1; then the rounds alone
+     for two cycles over a random ResNet-50-shaped tree reach the rank
+     mean within 1e-6 (the cycle's product is nilpotent off the mean,
+     so one cycle does not), and the grouped mean's time a round;
+   - 10c: ``run/gossip_sgd.py`` with ``--topology synth --slice_size 2
+     --dcn_cost 16`` (its ``gossip plan:`` line carries the
+     fingerprint), then ``--resume True`` (the same fingerprint, and the
+     rank files' meta carries it), then ``--topology auto --health_every
+     3`` (plans ``hierarchical``; every health line ``ps_mass_err`` 0);
+     each run's ``BT`` step time;
+   - 10d: K2 and K1 at the hierarchical delegate round's shape (int8, one
+     edge, ranks 1 and 3 at weight 0) and at f32 over ResNet-50's
+     payload, bit-equal to their twins, timed beside their bounds.
+11. A JSON line of per-kernel results (the flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound; the paged-decode row
    ``device_ms`` and ``host_ms``), the ``nvidia-smi``
    name/power-limit line, and as the last line ``{"ok": true, "device":
@@ -175,6 +205,13 @@ RESIL_FAULTS_CLI = "drop:0->1@1:4;seed:5"
 RESIL_PAYLOAD = 25_557_032
 # make_recovery_fn against a float64 Σx/Σw
 TOL_RECOVERY = 1e-6
+# phase 10: ResNet-50 at the ResNet phase's width, unthinned and without
+# periodic averaging, over the hierarchical graph (slices of 2) and the
+# planner's synthesized world-4 schedule on a fabric of slices of 2 with
+# a cross-slice cost of 16 (psum, delegate edge, full edge)
+TOPO = dict(RESNET, gossip_every=1, global_avg_every=0)
+TOPO_STEPS = 2
+SYNTH_FINGERPRINT = "b7e2ef83ed403b218f4f2f2ed6c019f7d194cca1"
 # H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores, TF32
 # tensor-core rate (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -993,12 +1030,13 @@ def gossip_train_path(card: str, label: str, wire: str, overlap: bool,
 def _resnet_setup(cfg: dict, wire, overlap: bool, staleness: int,
                   peers: int, buckets: int, gossip_kernel=None,
                   push_sum: bool = True, error_feedback: bool = False,
-                  faults: str | None = None):
+                  faults: str | None = None, schedule=None):
     """ResNet SGP (or OSGP with ``overlap``; D-PSGD without
     ``push_sum``, unthinned) at ``cfg``'s size and dtype, thinned and
-    averaged, over the n-peer exponential graph at ``cfg["world"]``
-    ranks stacked on the card; SGP may carry error feedback and a fault
-    plan (``faults``, the ``--inject_faults`` grammar)."""
+    averaged, over the n-peer exponential graph (or ``schedule``) at
+    ``cfg["world"]`` ranks stacked on the card; SGP may carry error
+    feedback and a fault plan (``faults``, the ``--inject_faults``
+    grammar)."""
     import torch
 
     from stochastic_gradient_push_torch.algorithms import dpsgd, sgp
@@ -1015,8 +1053,9 @@ def _resnet_setup(cfg: dict, wire, overlap: bool, staleness: int,
     from stochastic_gradient_push_torch.resilience import parse_fault_spec
 
     world = cfg["world"]
-    schedule = build_schedule(NPeerDynamicDirectedExponentialGraph(
-        world, peers_per_itr=peers))
+    if schedule is None:
+        schedule = build_schedule(NPeerDynamicDirectedExponentialGraph(
+            world, peers_per_itr=peers))
     if push_sum:
         masks = None if faults is None else parse_fault_spec(
             faults).build_masks(schedule, gossip_every=cfg["gossip_every"])
@@ -1473,13 +1512,53 @@ def _nan_equal(a, b) -> bool:
                 and torch.equal(a[~nan], b[~nan]))
 
 
+def _edge_pair(parts, dests, spec, n: int, acc):
+    """K2 then K1 on ``parts`` and ``acc``, and their plain twins on the
+    chunk layout the start kernel moved: ``(handle, landed, out,
+    plain)``, the landed parts' twins and the wait's twin."""
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+
+    handle = gk.gossip_edge_start(parts, dests, spec, n_decoded=n)
+    _, _, rows, c, nb, _, _ = handle.meta
+    pad = nb * rows if spec.kind == "int8" else nb * c
+    chunked = tuple(gk._pad_rows(p, pad, 2).reshape(h.shape)
+                    for p, h in zip(parts, handle.recv))
+    landed = gk.gossip_edge_start_reference(chunked, dests)
+    out = gk.gossip_edge_wait(handle, acc)
+    ranks = acc.shape[0]
+    plain = gk.gossip_edge_wait_reference(
+        gk._pad_rows(acc, nb * c, 1).reshape(ranks, nb, c), handle.recv,
+        spec.kind).reshape(ranks, nb * c)[:, :n]
+    return handle, landed, out, plain
+
+
+def _edge_times(handle, parts, dests, spec, n: int, acc) -> dict:
+    """K2 and K1 times (CUDA events): ``start``/``wait`` on the parts
+    and accumulator chunk-padded already, as the round packs them, and
+    ``wrap_start``/``wrap_wait`` on them unpadded, the wrappers' pad
+    copies included."""
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+
+    _, _, rows, c, nb, _, _ = handle.meta
+    pad = nb * rows if spec.kind == "int8" else nb * c
+    padded = tuple(gk._pad_rows(p, pad, 2) for p in parts)
+    padded_acc = gk._pad_rows(acc, nb * c, 1)
+    return {
+        "start": _time_ms(lambda: gk.gossip_edge_start(
+            padded, dests, spec, n_decoded=n), 10),
+        "wait": _time_ms(lambda: gk.gossip_edge_wait(handle, padded_acc),
+                         10),
+        "wrap_start": _time_ms(lambda: gk.gossip_edge_start(
+            parts, dests, spec, n_decoded=n), 10),
+        "wrap_wait": _time_ms(lambda: gk.gossip_edge_wait(handle, acc), 10)}
+
+
 def check_gossip_faults(card: str) -> None:
     """Phase 9d: K2 and K1 against their plain twins on ResNet-50's
     payload with a NaN-poisoned rank and dropped edges (masked as the
     round masks them), int8 and bf16."""
     import torch
 
-    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
     from stochastic_gradient_push_torch.parallel.wire import get_codec
     from stochastic_gradient_push_torch.topology import (
         NPeerDynamicDirectedExponentialGraph, build_schedule)
@@ -1498,22 +1577,9 @@ def check_gossip_faults(card: str) -> None:
         msg = msg.masked_fill(corrupt > 0, float("nan"))
         msg = msg.masked_fill(keep <= 0, 0.0)
         parts = tuple(p[:, None] for p in codec.encode(msg))
-        handle = gk.gossip_edge_start(parts, dests, spec, n_decoded=n)
-        _, _, rows, c, nb, _, _ = handle.meta
-        # the parts in the chunk layout the start kernel moved
-        if wire == "int8":
-            chunked = (gk._pad_rows(parts[0], nb * rows, 2),
-                       gk._pad_rows(parts[1], nb * rows, 2))
-        else:
-            chunked = (gk._pad_rows(parts[0], nb * c, 2),)
-        chunked = tuple(p.reshape(h.shape)
-                        for p, h in zip(chunked, handle.recv))
-        plain_landed = gk.gossip_edge_start_reference(chunked, dests)
         acc = torch.randn(world, n, device="cuda", generator=g)
-        out = gk.gossip_edge_wait(handle, acc)
-        plain = gk.gossip_edge_wait_reference(
-            gk._pad_rows(acc, nb * c, 1).reshape(world, nb, c), handle.recv,
-            spec.kind).reshape(world, nb * c)[:, :n]
+        handle, plain_landed, out, plain = _edge_pair(parts, dests, spec, n,
+                                                      acc)
         torch.cuda.synchronize()
         landed_ok = all(_nan_equal(a, b)
                         for a, b in zip(handle.recv, plain_landed))
@@ -1535,22 +1601,23 @@ def check_gossip_faults(card: str) -> None:
                                  f"from their plain twins")
         # the kernels' times at this payload, and their bytes bounds
         part_bytes = sum(p.numel() * p.element_size() for p in parts)
-        start_ms = _time_ms(lambda: gk.gossip_edge_start(
-            parts, dests, spec, n_decoded=n), 10)
-        wait_ms = _time_ms(lambda: gk.gossip_edge_wait(handle, acc), 10)
+        t = _edge_times(handle, parts, dests, spec, n, acc)
         sb = _bound(2 * part_bytes, 0)
         wb = _bound(2 * acc.numel() * 4 + part_bytes,
                     acc.numel() * (2 if wire == "int8" else 1))
         print(f"kernel gossip faults {wire} E1 R{world} n{n}: start "
-              f"{start_ms:.4f} ms (bound {sb[0]:.4f} ms, {sb[1]}), wait "
-              f"{wait_ms:.4f} ms (bound {wb[0]:.4f} ms, {wb[1]}) [{card}]",
-              flush=True)
+              f"{t['start']:.4f} ms (bound {sb[0]:.4f} ms, {sb[1]}), wait "
+              f"{t['wait']:.4f} ms (bound {wb[0]:.4f} ms, {wb[1]}), on "
+              f"chunk-padded inputs as the round packs them; the wrappers "
+              f"on unpadded ones, pad copies included: start "
+              f"{t['wrap_start']:.4f} ms, wait {t['wrap_wait']:.4f} ms "
+              f"[{card}]", flush=True)
         if nan_rows[int(row[1])] == 0 or any(
                 nan_rows[d] for d in range(world) if recv_of[d] != 1):
             raise AssertionError(f"gossip faults {wire}: NaN landed at "
                                  f"{nan_rows}, expected at rank "
                                  f"{int(row[1])} only")
-        del msg, parts, handle, chunked, plain_landed, acc, out, plain
+        del msg, parts, handle, plain_landed, acc, out, plain
         torch.cuda.empty_cache()
 
 
@@ -1755,6 +1822,364 @@ def resilience_path(card: str) -> dict:
     return {n: lanes[n] + cli[n] for n in lanes}
 
 
+# -- phase 10: hierarchical and synthesized rounds, the planner -------------
+
+
+def _resnet_batch(cfg: dict):
+    import torch
+
+    from stochastic_gradient_push_torch.data.synthetic import (
+        synthetic_classification)
+
+    world, batch, image = cfg["world"], cfg["batch"], cfg["image"]
+    images, labels = synthetic_classification(
+        world * batch, num_classes=cfg["num_classes"], image_size=image,
+        seed=0)
+    x = torch.from_numpy(images.reshape(world, batch, image, image, 3)
+                         ).cuda()
+    y = torch.from_numpy(labels.reshape(world, batch)).cuda()
+    return x, y
+
+
+def _mass(gossip) -> float:
+    """``Σw`` over the ranks, the in-flight shares' weights included."""
+    total = gossip.ps_weight.double().sum()
+    for slot in gossip.in_flight or ():
+        total = total + slot[1].double().sum()
+    return float(total)
+
+
+def topology_lanes(card: str, label: str, schedule, steps: int, wire: str,
+                   overlap: bool = False, staleness: int = 1,
+                   error_feedback: bool = False, slices=None) -> dict:
+    """Phases 10a/10b: ``steps`` ResNet-50 kernel-lane steps over
+    ``schedule``, each held against the plain lane's step from the same
+    state under deterministic cuDNN (a trajectory would hold the rounds'
+    last-ulp differences, amplified by the next steps' gradients), the
+    launch counters zeroed just before: ps-weight (and the EF residual)
+    bit-equal, params within 1e-6, ``Σw`` (in-flight shares included)
+    exactly the world, and with ``slices`` every slice's replicas
+    identical after each step."""
+    import torch
+
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+    from stochastic_gradient_push_torch.train.step import init_train_state
+
+    cfg = TOPO
+    world = cfg["world"]
+    kw = dict(wire=wire, overlap=overlap, staleness=staleness, peers=1,
+              buckets=1, error_feedback=error_feedback, schedule=schedule)
+    model, alg, tx, step = _resnet_setup(cfg, gossip_kernel=KernelLane(),
+                                         **kw)
+    _, plain_alg, _, plain_step = _resnet_setup(cfg, **kw)
+    if (alg.transport_kernel_name, plain_alg.transport_kernel_name) != (
+            "pallas", "xla"):
+        raise AssertionError("the two lanes did not resolve as asked")
+    x, y = _resnet_batch(cfg)
+    k_state = init_train_state(model, alg, tx, world, seed=0,
+                               device="cuda")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    weights_equal = res_equal = exact = True
+    param_err, masses, same = 0.0, [], []
+    try:
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        for _ in range(steps):
+            p_state, _ = plain_step(k_state, x, y)
+            k_state, k_m = step(k_state, x, y)
+            kg, pg = k_state.gossip, p_state.gossip
+            weights_equal &= torch.equal(kg.ps_weight, pg.ps_weight) and all(
+                torch.equal(a[1], b[1])
+                for a, b in zip(kg.in_flight or (), pg.in_flight or ()))
+            res_equal &= kg.ef_residual is None or all(
+                torch.equal(kg.ef_residual[n], pg.ef_residual[n])
+                for n in kg.ef_residual)
+            param_err = max([param_err] + [
+                _max_err(k_state.params[n], p_state.params[n])
+                for n in k_state.params])
+            exact &= all(torch.equal(k_state.params[n], p_state.params[n])
+                         for n in k_state.params)
+            masses.append(_mass(kg))
+            if slices is not None:
+                same.append(all(
+                    torch.equal(t[g[0]], t[r]) for g in slices for r in g
+                    for t in [*k_state.params.values(), kg.ps_weight]))
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"topology {label}: {cfg['model']} {cfg['image']} px, world "
+          f"{world}, batch {cfg['batch']}/rank, {wire} wire, EF "
+          f"{error_feedback}, overlap {overlap} staleness {staleness}, "
+          f"{steps} kernel-lane steps, each against the plain lane from "
+          f"its state: losses {k_m['loss'].tolist()}; ps-weight "
+          f"{k_state.gossip.ps_weight.tolist()}, bit-equal {weights_equal}; "
+          f"EF residual bit-equal {res_equal}; max |param diff| "
+          f"{param_err:.3e} (tolerance {TOL_STEP_PARAM}), exactly equal "
+          f"{exact}; sum of weights with in-flight shares {masses}; "
+          f"slices identical after each step {same or 'n/a'}; launches "
+          f"{json.dumps(launches)} [{card}]", flush=True)
+    if not weights_equal:
+        raise AssertionError(f"topology {label}: push-sum weights differ")
+    if not res_equal:
+        raise AssertionError(f"topology {label}: EF residuals differ")
+    if not param_err <= TOL_STEP_PARAM:
+        raise AssertionError(f"topology {label}: params differ")
+    if any(m != float(world) for m in masses):
+        raise AssertionError(f"topology {label}: sum of weights {masses}")
+    if slices is not None and not all(same):
+        raise AssertionError(f"topology {label}: slice replicas differ")
+    return launches
+
+
+def topology_consensus(card: str, schedule) -> None:
+    """Phase 10b: two cycles of the synthesized schedule's rounds alone,
+    on the kernel lane, over a random tree of ResNet-50's shapes (seed
+    10): the de-biased values reach the rank mean.  The grouped means
+    are timed here too (CUDA events)."""
+    import torch
+
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+    from stochastic_gradient_push_torch.parallel import collectives
+    from stochastic_gradient_push_torch.train.step import make_model
+    from stochastic_gradient_push_torch.topology import (
+        HierarchicalGraph, build_schedule)
+
+    world = TOPO["world"]
+    model = make_model(TOPO["model"], num_classes=TOPO["num_classes"],
+                       dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    tree = {n: torch.randn((world,) + tuple(p.shape), device="cuda",
+                           generator=g)
+            for n, p in model.named_parameters()}
+    want = {n: t.double().mean(0) for n, t in tree.items()}
+    transport = collectives.StackedTransport(world)
+    params, ps = tree, torch.ones(world, device="cuda")
+    cycle = schedule.num_phases
+    errs = []
+    for r in range(2 * cycle):
+        params, ps = collectives.mix_push_sum(params, ps, r, schedule,
+                                              transport, kernel=KernelLane())
+        if (r + 1) % cycle == 0:
+            errs.append(max(float((params[n].double() / ps.double().reshape(
+                (-1,) + (1,) * (params[n].dim() - 1)) - want[n]).abs().max())
+                for n in params))
+    torch.cuda.synchronize()
+    n_values = sum(t[0].numel() for t in tree.values())
+    leaves = list(tree.values()) + [ps]
+    hsched = build_schedule(HierarchicalGraph(world, slice_size=2))
+    intra_ms = _time_ms(lambda: collectives.intra_average(
+        leaves, hsched, transport), 10)
+    print(f"topology synth consensus: {len(tree)} leaves, {n_values:,} "
+          f"values a rank, rounds alone on the kernel lane: max |x/w - "
+          f"mean| after one cycle {errs[0]:.3e}, after two {errs[1]:.3e} "
+          f"(tolerance {TOL_STEP_PARAM}); ps-weight {ps.tolist()}; the "
+          f"grouped mean over the tree and the ps-weight (slices of 2) "
+          f"{intra_ms:.4f} ms a round [{card}]", flush=True)
+    if not errs[1] <= TOL_STEP_PARAM:
+        raise AssertionError(f"topology synth: no consensus after two "
+                             f"cycles ({errs})")
+
+
+def topology_cli(card: str, tmp: str) -> dict:
+    """Phase 10c: ``run/gossip_sgd.py`` at ResNet-50's width planning
+    ``--topology synth`` (its fingerprint), resuming onto the same plan,
+    and ``--topology auto`` (hierarchical, ``ps_mass_err`` 0)."""
+    import contextlib
+    import io
+
+    fabric = ("--slice_size", "2", "--dcn_cost", "16",
+              "--gossip_kernel", "pallas", "--verbose", "True")
+    runs, plans = [], {}
+    synth = os.path.join(tmp, "synth")
+    for label, ckpt, extra in (
+            ("synth", synth, ("--topology", "synth", "--num_epochs", "1")),
+            ("synth resumed", synth, ("--topology", "synth", "--resume",
+                                      "True", "--num_epochs", "2")),
+            ("auto", os.path.join(tmp, "auto"),
+             ("--topology", "auto", "--health_every", "3",
+              "--num_epochs", "1"))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launches, _ = _cli_run(label, _cli_argv(ckpt, *fabric, *extra),
+                                   card)
+        out = buf.getvalue()
+        print("\n".join(line for line in out.splitlines()
+                        if line.startswith("cli ")
+                        or "gossip health" in line
+                        or "resumed" in line), flush=True)
+        plan = [json.loads(line.split("gossip plan: ", 1)[1])
+                for line in out.splitlines() if "gossip plan: " in line]
+        if len(plan) != 1:
+            raise AssertionError(f"cli {label}: plan lines {plan}")
+        plans[label] = plan = plan[0]
+        fp = (plan.get("synth") or {}).get("fingerprint")
+        print(f"cli {label}: gossip plan {plan['topology']}, gap "
+              f"{plan['gap']}, global_avg_every {plan['global_avg_every']}, "
+              f"fingerprint {fp}; {plan['rationale']} [{card}]", flush=True)
+        health = [json.loads(line.split("gossip health: ", 1)[1])
+                  for line in out.splitlines() if "gossip health: " in line]
+        if label.startswith("synth"):
+            if fp != SYNTH_FINGERPRINT:
+                raise AssertionError(f"cli {label}: fingerprint {fp}")
+            # a cycle of psum, edge, edge: the edge rounds launch
+            want = 2
+        else:
+            if plan["topology"] != "hierarchical":
+                raise AssertionError(f"cli auto: planned {plan['topology']}")
+            errs = [h["ps_mass_err"] for h in health]
+            print(f"cli auto: {len(health)} health lines, ps_mass_err "
+                  f"{errs} [{card}]", flush=True)
+            if not health or any(e != 0.0 for e in errs):
+                raise AssertionError(f"cli auto: ps_mass_err {errs}")
+            want = CLI["itrs"]
+        got = (launches["gossip_edge_start"], launches["gossip_edge_wait"])
+        if got != (want, want) or sum(launches.values()) != 2 * want:
+            raise AssertionError(f"cli {label}: launches {launches}, "
+                                 f"expected {want} start and wait")
+        runs.append(launches)
+    stamped = _rank_meta(synth)["plan"]["synth"]["fingerprint"]
+    if stamped != SYNTH_FINGERPRINT:
+        raise AssertionError(f"cli synth: stamped fingerprint {stamped}")
+    return {n: sum(r[n] for r in runs) for n in runs[0]}
+
+
+def _rank_meta(ckpt_dir: str) -> dict:
+    import torch
+
+    return json.loads(torch.load(os.path.join(
+        ckpt_dir, f"checkpoint_r0_n{CLI['world']}.ckpt"),
+        weights_only=True)["meta"])
+
+
+def topology_kernel_times(card: str) -> None:
+    """Phase 10d: K2 and K1 at the hierarchical delegate round's shape
+    (int8, one edge, four ranks, ranks 1 and 3 at weight 0) and at f32,
+    over ResNet-50's payload: bit-equal to their twins, timed (CUDA
+    events) beside their bytes bounds.  The kernel times take the parts
+    and the accumulator in the chunk-padded layout the round packs them
+    in; the wrapper times take them unpadded, as 9d does, so the
+    wrappers' pad copies are in them.  The bound counts every row the
+    kernels move; the one after the slash leaves the weight-0 rows
+    out."""
+    import torch
+
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+    from stochastic_gradient_push_torch.topology import (
+        HierarchicalGraph, build_schedule)
+
+    world, n = TOPO["world"], RESIL_PAYLOAD
+    inter = build_schedule(HierarchicalGraph(world, slice_size=2)
+                           ).inter_schedule
+    dests = inter.perms[0]     # [1 edge, world]
+    w = torch.tensor(inter.edge_weights[0, 0], dtype=torch.float32,
+                     device="cuda")[:, None]
+    senders = int((w > 0).sum())
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for wire in ("int8", "f32"):
+        codec = get_codec(wire, 64)
+        spec = codec.kernel_spec()
+        msg = torch.randn(world, n, device="cuda", generator=g) * w
+        parts = tuple(p[:, None] for p in codec.encode(msg))
+        acc = torch.randn(world, n, device="cuda", generator=g)
+        handle, landed, out, plain = _edge_pair(parts, dests, spec, n, acc)
+        torch.cuda.synchronize()
+        equal = (all(torch.equal(a, b) for a, b in zip(handle.recv, landed))
+                 and torch.equal(out, plain))
+        zero_rows = all(torch.equal(out[int(dests[0, r])],
+                                    acc[int(dests[0, r])])
+                        for r in range(world) if float(w[r]) == 0.0)
+        part_bytes = sum(p.numel() * p.element_size() for p in parts)
+        t = _edge_times(handle, parts, dests, spec, n, acc)
+        ops = acc.numel() * (2 if wire == "int8" else 1)
+        sb = _bound(2 * part_bytes, 0)
+        wb = _bound(2 * acc.numel() * 4 + part_bytes, ops)
+        frac = senders / world
+        sb_need = _bound(2 * part_bytes * frac, 0)
+        wb_need = _bound(2 * acc.numel() * 4 * frac + part_bytes * frac,
+                         ops * frac)
+        print(f"kernel gossip hierarchical {wire} E1 R{world} n{n} (ranks "
+              f"1 and 3 at weight 0): start and wait bit-equal to their "
+              f"twins {equal}, weight-0 rows land exactly 0 {zero_rows}; "
+              f"start {t['start']:.4f} ms (bound {sb[0]:.4f} / "
+              f"{sb_need[0]:.4f} ms, {sb[1]}), wait {t['wait']:.4f} ms "
+              f"(bound {wb[0]:.4f} / {wb_need[0]:.4f} ms, {wb[1]}); wrappers "
+              f"on unpadded inputs, pad copies included: start "
+              f"{t['wrap_start']:.4f} ms, wait {t['wrap_wait']:.4f} ms "
+              f"[{card}]", flush=True)
+        if not (equal and zero_rows):
+            raise AssertionError(f"gossip hierarchical {wire}: the kernels "
+                                 f"differ from their twins")
+        del msg, parts, handle, landed, acc, out, plain
+        torch.cuda.empty_cache()
+
+
+def topology_path(card: str) -> dict:
+    """Phase 10: hierarchical and synthesized rounds and the planner at
+    ResNet-50's width on the gossip kernel lane."""
+    import torch
+
+    from stochastic_gradient_push_torch.planner import (make_interconnect,
+                                                        resolve_topology)
+    from stochastic_gradient_push_torch.topology import (
+        HierarchicalGraph, build_schedule)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_topo_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:
+        t0 = time.perf_counter()
+        hsched = build_schedule(HierarchicalGraph(TOPO["world"],
+                                                  slice_size=2))
+        runs = [topology_lanes(card, "hierarchical sgp", hsched, TOPO_STEPS,
+                               "int8", error_feedback=True,
+                               slices=hsched.slice_groups)]
+        torch.cuda.empty_cache()
+        runs.append(topology_lanes(card, "hierarchical osgp", hsched,
+                                   TOPO_STEPS, "int8", overlap=True,
+                                   staleness=2, error_feedback=True))
+        torch.cuda.empty_cache()
+        for r in runs:
+            _assert_topology_launches(r, TOPO_STEPS)
+        plan = resolve_topology(TOPO["world"], topology="synth",
+                                interconnect=make_interconnect(2, 16, None),
+                                synth={})
+        fp = (plan.synth or {}).get("fingerprint")
+        print(f"topology synth: planned {plan.topology}, fingerprint {fp}, "
+              f"phases {[ph['kind'] for ph in plan.synth['spec']['phases']]}",
+              flush=True)
+        if fp != SYNTH_FINGERPRINT:
+            raise AssertionError(f"topology synth: fingerprint {fp}")
+        ssched = build_schedule(plan.graph_class(TOPO["world"]))
+        synth_run = topology_lanes(card, "synth sgp", ssched,
+                                   ssched.num_phases, "f32")
+        # psum, edge, edge: the two edge rounds launch
+        _assert_topology_launches(synth_run, 2)
+        runs.append(synth_run)
+        torch.cuda.empty_cache()
+        topology_consensus(card, ssched)
+        torch.cuda.empty_cache()
+        runs.append(topology_cli(card, tmp))
+        torch.cuda.empty_cache()
+        topology_kernel_times(card)
+        print(f"topology: phase 10 in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {n: sum(r[n] for r in runs) for n in runs[0]}
+
+
+def _assert_topology_launches(launches: dict, rounds: int) -> None:
+    want = {n: 0 for n in launches}
+    want["gossip_edge_start"] = want["gossip_edge_wait"] = rounds
+    if launches != want:
+        raise AssertionError(f"topology: launches {launches}, expected "
+                             f"{want} (one K2 and one K1 a launching round, "
+                             f"none for a grouped mean)")
+
+
 def main() -> int:
     import torch
 
@@ -1801,15 +2226,18 @@ def main() -> int:
     cli_launches = cli_path(card)
     torch.cuda.empty_cache()
     resil_launches = resilience_path(card)
+    torch.cuda.empty_cache()
+    topo_launches = topology_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
-    # D-PSGD and OSGP runs, phase 9's kernel-lane steps and CLI run)
-    # summed
+    # D-PSGD and OSGP runs, phase 9's kernel-lane steps and CLI run,
+    # phase 10's kernel-lane steps and CLI runs) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
-            resnet_sgp, resnet_osgp, cli_launches, resil_launches))
+            resnet_sgp, resnet_osgp, cli_launches, resil_launches,
+            topo_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -17,6 +17,12 @@ an exact global average (:meth:`PushSumGossip.global_average`).
 ``error_feedback`` carries each round's quantization error into the
 next (``GossipState.ef_residual``).
 
+A hierarchical schedule runs SGP and OSGP (the delegate share deferred,
+the intra-slice mean run at consume); a synthesized one runs SGP.  Both
+refuse fault injection, synthesized refuses overlap, D-PSGD refuses both
+(irregular), and bilateral pairing refuses both graphs, as the reference
+does.
+
 Not ported yet, and refused by name: the kernel lane under
 ``torch.distributed`` (the cross-process transport kernel).
 """
@@ -30,7 +36,9 @@ import torch
 
 from ..ops.gossip_kernel import resolve_gossip_kernel
 from ..parallel import collectives
+from ..topology.hierarchical import HierarchicalSchedule
 from ..topology.schedule import GossipSchedule
+from ..topology.synthesized import SynthesizedSchedule
 from .api import GossipAlgorithm, GossipState
 
 __all__ = ["AllReduce", "PushSumGossip", "PushPullGossip",
@@ -143,6 +151,26 @@ class PushSumGossip(GossipAlgorithm):
                  staleness: int = 1, global_avg_every: int = 0,
                  faults=None, wire=None, error_feedback: bool = False,
                  gossip_kernel=None, gossip_buckets: int = 1):
+        if isinstance(schedule, HierarchicalSchedule) and faults is not None:
+            # the intra-slice mean has no per-edge mask; overlap composes
+            # (the delegate share defers, the mean runs at consume)
+            raise ValueError(
+                "inject_faults is not supported on hierarchical "
+                "schedules: the intra-slice psum has no per-edge "
+                "mask (use a flat topology for fault drills)")
+        if isinstance(schedule, SynthesizedSchedule):
+            if faults is not None:
+                raise ValueError(
+                    "inject_faults is not supported on synthesized "
+                    "schedules: grouped psum phases have no per-edge "
+                    "mask (use a flat registry topology for fault "
+                    "drills)")
+            if overlap:
+                raise ValueError(
+                    "overlap is not supported on synthesized "
+                    "schedules: a psum/ppermute phase composition has "
+                    "no single augmented in-flight form (use a "
+                    "registry topology for overlap runs)")
         if faults is not None and faults.gossip_every != gossip_every:
             # fault rows are resolved against the rotation active at each
             # tick, which depends on thinning
@@ -310,8 +338,17 @@ class PushSumGossip(GossipAlgorithm):
         head = state.in_flight[0]
         if not isinstance(head, collectives.PendingShares):
             head = [head[0][n] for n in names] + [head[1]]
-        params, ps_weight = _tree(names, collectives.land_shares(
-            _leaves(params, state.ps_weight), head))
+        leaves = collectives.land_shares(_leaves(params, state.ps_weight),
+                                         head)
+        if isinstance(self.schedule, HierarchicalSchedule):
+            # the consumed share was the delegate half of the round
+            # launched staleness - 1 steps ago: its intra-slice mean runs
+            # now, when that launch fired, as often as the sync round's
+            launch = tick - (self.staleness - 1)
+            if launch >= 0 and launch % self.gossip_every == 0:
+                leaves = collectives.intra_average(leaves, self.schedule,
+                                                   self.transport)
+        params, ps_weight = _tree(names, leaves)
         # settle every slot this step does not consume: a live transport
         # handle never outlives the step that launched it
         settled = []

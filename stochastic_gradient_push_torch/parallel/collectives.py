@@ -72,8 +72,25 @@ its blocks and scales are the reference's; the decode, the kernel
 lane's packed accumulator and the residual come back through the
 inverse permutation.
 
-Not ported yet: thinning's ``empty_incoming``, and the hierarchical and
-synthesized rounds.
+**Hierarchical and synthesized schedules** (``topology/hierarchical.py``,
+``topology/synthesized.py``): a hierarchical round is the flat round over
+the delegate tables (:attr:`HierarchicalSchedule.inter_schedule` at round
+``phase % rounds_per_cycle``), then :func:`intra_average`, the exact mean
+inside each slice; the codec, the error-feedback residual and the kernel
+lane ride the delegate round only.  A synthesized round is, per table
+phase, a flat round over the edge phase's one-edge tables, or one
+grouped mean (psum phase) that leaves the residual as it is.  The grouped
+mean is the reference's ``lax.psum(a * float32(1/s),
+axis_index_groups=...)``: on :class:`StackedTransport` the rows of each
+group are summed in rank order, under ``torch.distributed`` it is one
+``all_reduce`` on a process subgroup made once per group.  Fault
+injection is refused on both kinds and overlap on synthesized ones, as
+the reference refuses them; an overlap launch on a hierarchical schedule
+defers the delegate share, and the caller runs :func:`intra_average`
+where it consumes it.
+
+Not ported: thinning's ``empty_incoming`` (a skipped overlap step puts a
+plain zero share in the FIFO instead).
 """
 
 from __future__ import annotations
@@ -82,12 +99,43 @@ import numpy as np
 import torch
 
 from ..ops import gossip_kernel as gk
+from ..topology.hierarchical import HierarchicalSchedule
 from ..topology.schedule import GossipSchedule
+from ..topology.synthesized import SynthesizedSchedule
 from . import wire as wire_mod
 
 __all__ = ["StackedTransport", "DistTransport", "PendingShares",
            "gossip_round", "overlap_launch", "land_shares", "settle_share",
-           "mix_push_sum", "mix_push_pull", "mix_bilat", "allreduce_mean"]
+           "intra_average", "mix_push_sum", "mix_push_pull", "mix_bilat",
+           "allreduce_mean"]
+
+
+def _scaled(x: torch.Tensor, inv: float) -> torch.Tensor:
+    """``x * inv`` with ``inv`` rounded to ``x``'s dtype first, as the
+    reference's ``a * jnp.asarray(1/s, a.dtype)``.  The rounded value is
+    a host scalar (exact in the dtype), so no copy to the device."""
+    return x * float(torch.tensor(inv, dtype=x.dtype))
+
+
+def _flat_by_dtype(leaves):
+    """The rank-stacked leaves raveled and concatenated per dtype: a list
+    of ``(flat [R, N], [(leaf index, n), ...])``, so a grouped mean is a
+    few launches (and one collective) over all leaves."""
+    order: dict = {}
+    for j, a in enumerate(leaves):
+        order.setdefault(a.dtype, []).append(j)
+    return [(torch.cat([leaves[j].reshape(leaves[j].shape[0], -1)
+                        for j in js], 1),
+             [(j, leaves[j][0].numel()) for j in js])
+            for js in order.values()]
+
+
+def _unflatten(out: list, leaves, flat, index) -> None:
+    """Views of ``flat`` back into ``out``, shaped like ``leaves``."""
+    off = 0
+    for j, n in index:
+        out[j] = flat[:, off:off + n].reshape(leaves[j].shape)
+        off += n
 
 
 class StackedTransport:
@@ -114,6 +162,27 @@ class StackedTransport:
     def allreduce_max(self, x: torch.Tensor) -> torch.Tensor:
         return x.amax(0, keepdim=True).expand_as(x).clone()
 
+    def group_mean(self, leaves, groups) -> list:
+        """The exact mean inside each of ``groups`` (equal contiguous rank
+        blocks covering the world, as both schedule kinds make them) of
+        every leaf, written back to every row of the block: the rows of
+        ``x * float32(1/s)`` summed in rank order.  The leaves go through
+        as one raveled tensor per dtype (the outputs are views of it)."""
+        s, m = len(groups[0]), len(groups)
+        if m * s != self.world_size or [tuple(g) for g in groups] != [
+                tuple(range(j * s, (j + 1) * s)) for j in range(m)]:
+            raise ValueError("group_mean takes equal contiguous rank "
+                             f"blocks covering the world, got {groups}")
+        out = list(leaves)
+        for flat, index in _flat_by_dtype(leaves):
+            blocks = _scaled(flat, 1.0 / s).view(m, s, -1)
+            acc = blocks[:, 0]
+            for k in range(1, s):
+                acc = acc + blocks[:, k]
+            _unflatten(out, leaves, acc.unsqueeze(1).expand_as(blocks)
+                       .reshape(flat.shape), index)
+        return out
+
 
 class DistTransport:
     """One rank per process of the default ``torch.distributed`` group;
@@ -126,10 +195,16 @@ class DistTransport:
         self.rank = dist.get_rank()
         self.world_size = dist.get_world_size()
         self.ranks = np.array([self.rank])
+        self._groups: dict = {}
 
     def permute(self, x: torch.Tensor, dests: np.ndarray) -> torch.Tensor:
         dist = self._dist
         dst = int(dests[self.rank])
+        if dst == self.rank:
+            # a rank the permutation fixes (a hierarchical non-delegate,
+            # a synthesized edge phase's idle rank) keeps its value: no
+            # message, as gloo refuses a send to itself
+            return x.clone()
         src = int(np.flatnonzero(np.asarray(dests) == self.rank)[0])
         send = x[0].contiguous()
         recv = torch.empty_like(send)
@@ -148,9 +223,28 @@ class DistTransport:
     def allreduce_max(self, x: torch.Tensor) -> torch.Tensor:
         return self._reduce(x, self._dist.ReduceOp.MAX)
 
-    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+    def _reduce(self, x: torch.Tensor, op, group=None) -> torch.Tensor:
         out = x.clone()
-        self._dist.all_reduce(out, op=op)
+        self._dist.all_reduce(out, op=op, group=group)
+        return out
+
+    def group_mean(self, leaves, groups) -> list:
+        """The exact mean inside this rank's group of ``groups``, of every
+        leaf: one ``all_reduce`` of the raveled ``x * float32(1/s)`` per
+        dtype on the group's process subgroup.  ``new_group`` is
+        collective over the default group, so every process makes every
+        group of a grouping, in one order, the first time the grouping
+        is seen, and never again."""
+        key = tuple(tuple(int(r) for r in g) for g in groups)
+        if key not in self._groups:
+            made = [self._dist.new_group(list(g)) for g in key]
+            self._groups[key] = next(pg for g, pg in zip(key, made)
+                                     if self.rank in g)
+        out = list(leaves)
+        for flat, index in _flat_by_dtype(leaves):
+            _unflatten(out, leaves, self._reduce(
+                _scaled(flat, 1.0 / len(key[0])), self._dist.ReduceOp.SUM,
+                self._groups[key]), index)
         return out
 
 
@@ -610,11 +704,50 @@ def _round(leaves, p: int, schedule: GossipSchedule, transport, send_codec,
     return out, err
 
 
+def intra_average(leaves, hsched: HierarchicalSchedule, transport):
+    """The exact intra-slice mean of a hierarchical round over every leaf
+    (the ps-weight included): the transport's grouped mean, numerically
+    ``W_intra @ x``.  Public because the overlap consume path runs it on
+    its own, after the deferred delegate share lands."""
+    return transport.group_mean(leaves, hsched.slice_groups)
+
+
+_EDGE_SCHEDULES: dict = {}
+
+
+def _edge_schedule(ssched: SynthesizedSchedule, p: int) -> GossipSchedule:
+    """``ssched.edge_phase_schedule(p)``, made once per (schedule,
+    phase), so its device weight tables are made once too."""
+    key = (id(ssched), p)
+    hit = _EDGE_SCHEDULES.get(key)
+    if hit is None or hit[0] is not ssched:
+        hit = (ssched, ssched.edge_phase_schedule(p))
+        _EDGE_SCHEDULES[key] = hit
+    return hit[1]
+
+
 def _apply_round(tree, phase: int, schedule: GossipSchedule, transport,
                  codec, split: bool, kernel, buckets: int, faults=None,
                  tick=None, residual=None, perms=None):
     if buckets < 1:
         raise ValueError("buckets must be >= 1")
+    if isinstance(schedule, HierarchicalSchedule) and faults is not None:
+        raise ValueError(
+            "fault injection is not supported on hierarchical "
+            "schedules: the intra-slice psum has no per-edge mask "
+            "(use a flat topology for fault drills)")
+    if isinstance(schedule, SynthesizedSchedule):
+        if faults is not None:
+            raise ValueError(
+                "fault injection is not supported on synthesized "
+                "schedules: grouped psum phases have no per-edge mask "
+                "(use a flat registry topology for fault drills)")
+        if split:
+            raise ValueError(
+                "overlap is not supported on synthesized schedules: a "
+                "psum/ppermute phase composition has no single "
+                "augmented in-flight form (use a registry topology for "
+                "overlap runs)")
     send_codec = _resolve_codec(codec)
     if residual is not None and send_codec is None:
         raise ValueError(
@@ -642,9 +775,28 @@ def _apply_round(tree, phase: int, schedule: GossipSchedule, transport,
         if split:
             return (leaves, [torch.zeros_like(a) for a in leaves]), residual
         return leaves, residual
-    return _round(leaves, phase % schedule.num_phases, schedule, transport,
-                  send_codec, split, kernel, buckets, faults=faults,
-                  tick=phase if tick is None else int(tick),
+    args = (transport, send_codec, split, kernel, buckets)
+    if isinstance(schedule, SynthesizedSchedule):
+        p = phase % schedule.num_phases
+        if schedule.phase_kinds[p] == "psum":
+            # an exact grouped mean: no wire, so no quantization error
+            # and the residual passes through
+            return transport.group_mean(leaves,
+                                        schedule.phase_groups[p]), residual
+        return _round(leaves, 0, _edge_schedule(schedule, p), *args,
+                      residual=residual, perms=perms)
+    if isinstance(schedule, HierarchicalSchedule):
+        # a round spans two table phases: the delegate round q of the
+        # inter tables, then the intra-slice mean (at consume, under
+        # overlap)
+        out, err = _round(leaves, phase % schedule.rounds_per_cycle,
+                          schedule.inter_schedule, *args,
+                          residual=residual, perms=perms)
+        if split:
+            return out, err
+        return intra_average(out, schedule, transport), err
+    return _round(leaves, phase % schedule.num_phases, schedule, *args,
+                  faults=faults, tick=phase if tick is None else int(tick),
                   residual=residual, perms=perms)
 
 

@@ -40,7 +40,7 @@ import torch
 
 __all__ = ["WireCodec", "F32Codec", "BF16Codec", "Int8Codec", "DecodeSpec",
            "ReferenceLayout", "F32", "BF16", "WIRE_DTYPES", "DEFAULT_WIRE_BLOCK",
-           "INT8_SCALE_BYTES", "get_codec"]
+           "INT8_SCALE_BYTES", "get_codec", "wire_stamp"]
 
 WIRE_DTYPES = ("f32", "bf16", "int8")
 DEFAULT_WIRE_BLOCK = 64
@@ -77,6 +77,13 @@ class WireCodec:
     def element_bytes(self, n: int, itemsize: int = 4) -> int:
         """Wire bytes of an ``n``-element payload of ``itemsize``."""
         return n * itemsize
+
+    def wire_fraction(self, itemsize: int = 4) -> float:
+        """Asymptotic encoded bytes over full-precision bytes: the factor
+        the planner prices gossip payloads at (the reference's
+        ``WireCodec.wire_fraction``)."""
+        n = 1 << 20
+        return self.element_bytes(n, itemsize) / float(n * itemsize)
 
     def encode(self, msg: torch.Tensor) -> tuple[torch.Tensor, ...]:
         return (msg,)
@@ -218,6 +225,20 @@ class ReferenceLayout:
     def perm(self, name: str):
         """The leaf's permutation to the reference's layout, or None."""
         return self.perms.get(name)
+
+
+def wire_stamp(dtype: str | None, block: int = DEFAULT_WIRE_BLOCK,
+               error_feedback: bool = False) -> dict | None:
+    """The wire config the planner prices on and a plan records
+    (``{"dtype", "block", "error_feedback"}``, the block for int8 only);
+    None for the exact wire."""
+    if dtype in (None, "f32"):
+        return None
+    out = {"dtype": dtype}
+    if dtype == "int8":
+        out["block"] = int(block)
+    out["error_feedback"] = bool(error_feedback)
+    return out
 
 
 def get_codec(dtype: str | None,

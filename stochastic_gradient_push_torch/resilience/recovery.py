@@ -12,10 +12,10 @@ leaks, or when a rank's ps-weight collapses, with a cooldown and a
 circuit breaker.  NaN/Inf excursions do not trigger it (an average
 spreads poison): they are logged with ``advise-restore``.
 
-The reference also asks its topology planner for a re-plan on every
-firing; the planner is not ported (ROADMAP.md Queue 1 item 6), so the
-port's events carry no ``suggestion`` (``to_dict`` omits it, as the
-reference does for None) and :meth:`RecoveryPolicy.replan` raises.
+Every firing also asks the topology planner (``planner.plan_for``) what
+it would run for this world now, on the run's fabric, fault, wire and
+synthesis settings (:meth:`RecoveryPolicy.replan`): the event's
+``suggestion``.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ class RecoveryEvent:
     step: int
     action: str              # "global-average" | "advise-restore" | "none"
     reasons: tuple[str, ...]
-    suggestion: dict | None  # planner re-plan; None until the planner exists
+    suggestion: dict | None  # planner re-plan for this world, if consulted
 
     def to_dict(self) -> dict:
         d = {"step": self.step, "action": self.action,
@@ -102,13 +102,20 @@ class RecoveryPolicy:
                  residual_floor: float = 0.01,
                  cooldown_steps: int = 10,
                  max_recoveries: int = 0, log=None,
-                 faults: bool = False, wire: dict | None = None):
+                 interconnect=None, faults: bool = False,
+                 wire: dict | None = None, synth: dict | None = None):
         self.world = world
         self.ppi = ppi
         self.algorithm = algorithm
-        self.topology = topology
+        self.topology = topology          # the running graph, for the diff
+        # the run's fabric model (planner.InterconnectModel or None), its
+        # fault injection, wire codec config and synthesis stamp: the
+        # re-plan prices and fences as the launch plan did, and a
+        # synthesized run re-enters the synthesizer with its spec
+        self.interconnect = interconnect
         self.faults = faults
         self.wire = wire
+        self.synth = synth
         self.residual_floor = residual_floor
         self.cooldown_steps = max(0, cooldown_steps)
         self.max_recoveries = max_recoveries
@@ -118,13 +125,21 @@ class RecoveryPolicy:
         self.events: list[RecoveryEvent] = []
 
     def replan(self) -> dict:
-        """The reference asks its topology planner what it would run for
-        this world now; the planner is not ported."""
-        raise NotImplementedError(
-            "RecoveryPolicy.replan needs the topology planner "
-            "(planner.plan_for), which is not ported to "
-            "stochastic_gradient_push_torch yet (ROADMAP.md Queue 1 "
-            "item 6)")
+        """What the planner would run for this world now: ``{topology,
+        ppi, gap, global_avg_every, switch}``, ``switch`` True when that
+        differs from the running topology (the relaunch hint)."""
+        from ..planner import PlanConstraints, plan_for
+
+        plan = plan_for(self.world, ppi=self.ppi, algorithm=self.algorithm,
+                        constraints=PlanConstraints(
+                            interconnect=self.interconnect,
+                            faults=self.faults, wire=self.wire,
+                            synth=self.synth))
+        return {"topology": plan.topology, "ppi": plan.ppi,
+                "gap": round(plan.gap, 6),
+                "global_avg_every": plan.global_avg_every,
+                "switch": (self.topology is not None
+                           and plan.topology != self.topology)}
 
     def _in_cooldown(self, step: int) -> bool:
         return (self.last_fired_step is not None
@@ -145,7 +160,7 @@ class RecoveryPolicy:
               and (self.max_recoveries == 0
                    or self.recoveries < self.max_recoveries)):
             event = RecoveryEvent(report.step, "global-average",
-                                  tuple(fixable), None)
+                                  tuple(fixable), self.replan())
             self.recoveries += 1
             self.last_fired_step = report.step
         else:

@@ -26,7 +26,11 @@ the card (``KernelBackendError`` on ``--device cpu``) and the stacked
 lane (refused under ``torchrun``: the cross-process transport kernel is
 not ported).  ``--gossip_every k`` fires a round every k-th step;
 ``--global_avg_every k`` takes an exact global average every k steps
-(unset means off: the port has no topology planner).
+(unset: the topology plan decides).  The planner's flags
+(``--topology auto|synth|<name>``, ``--synth_*``, ``--gap_floor``,
+``--slice_size``, ``--dcn_cost``, ``--ici_cost``, ``--mixing_alpha``;
+``run/gossip_sgd.py``) plan a gossip run at world 2 or more and print
+its ``gossip plan:`` line; ``--graph_type 6`` is the hierarchical graph.
 ``--wire_dtype int8 --error_feedback True`` carries error feedback,
 ``--inject_faults SPEC`` drills faults into the rounds and
 ``--health_every k`` (a multiple of ``--print_freq``) prints ``gossip
@@ -54,16 +58,6 @@ __all__ = ["main", "build_parser", "UNPORTED"]
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
 UNPORTED = {
-    "--topology": (None, str, "the topology planner"),
-    "--synth_seed": (None, int, "the schedule synthesizer"),
-    "--synth_budget": (None, int, "the schedule synthesizer"),
-    "--synth_beam": (None, int, "the schedule synthesizer"),
-    "--synth_phases": (None, int, "the schedule synthesizer"),
-    "--gap_floor": (0.01, float, "the topology planner"),
-    "--slice_size": (None, int, "hierarchical gossip"),
-    "--dcn_cost": (None, float, "the fabric-priced planner"),
-    "--ici_cost": (None, float, "the fabric-priced planner"),
-    "--mixing_alpha": (None, str, "self-weighted mixing"),
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
@@ -109,6 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     from ..ops.gossip_kernel import GOSSIP_KERNELS
     from ..parallel.wire import WIRE_DTYPES
     from ..topology import GRAPH_TOPOLOGIES
+    from .gossip_sgd import add_planner_flags
 
     p = argparse.ArgumentParser(description="Gossip LM on a GPU (PyTorch)")
     p.add_argument("--all_reduce", default="False", type=str)
@@ -119,6 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(synchronous formulation)")
     p.add_argument("--graph_type", default=5, type=int,
                    choices=sorted(GRAPH_TOPOLOGIES))
+    add_planner_flags(p)
     p.add_argument("--peers_per_itr", default=1, type=int)
     p.add_argument("--wire_dtype", default=None, choices=WIRE_DTYPES,
                    help="gossip wire codec; the push-sum weight lane "
@@ -156,10 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gossip on every k-th step (communication "
                         "thinning)")
     p.add_argument("--global_avg_every", default=None, type=int,
-                   help="exact global average every k steps; unset or 0 "
-                        "= off (the reference's unset value lets its "
-                        "topology planner decide; the port has no planner "
-                        "yet, so unset means off)")
+                   help="exact global average every k steps; unset = the "
+                        "planner decides, 0 = off, k = every k steps")
     p.add_argument("--lr", default=0.5, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--weight_decay", default=0.0, type=float)
@@ -270,8 +264,10 @@ def main(argv=None) -> dict:
     from ..models.transformer import TransformerConfig
     from ..parallel.collectives import DistTransport, StackedTransport
     from ..parallel.wire import get_codec
-    from ..topology import (GRAPH_TOPOLOGIES, build_pairing_schedule,
-                            build_schedule)
+    from ..topology import (GRAPH_TOPOLOGIES, TOPOLOGY_NAMES,
+                            build_pairing_schedule, build_schedule)
+    from .gossip_sgd import parse_mixing_alpha, plan_topology, \
+        synth_plan_config
     from ..train.lm import build_lm_train_step, init_lm_state, make_model
     from ..train.lr import WARMUP_EPOCHS, LRSchedule
     from ..train.state import sgd
@@ -328,6 +324,52 @@ def main(argv=None) -> dict:
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
         attn_impl=args.attn)
+    args.mixing_alpha = parse_mixing_alpha(args.mixing_alpha)
+    if args.mixing_alpha is not None and (
+            sb(args.all_reduce) or not sb(args.push_sum)):
+        raise SystemExit("--mixing_alpha needs push-sum gossip: AllReduce "
+                         "doesn't mix, and D-PSGD requires a regular "
+                         "(doubly-stochastic) schedule")
+    fabric_flags = (args.slice_size is not None
+                    or args.dcn_cost is not None
+                    or args.ici_cost is not None)
+    if (args.mixing_alpha is not None or fabric_flags) \
+            and (sb(args.bilat) or sb(args.all_reduce) or world < 2):
+        raise SystemExit("--topology auto / --mixing_alpha / fabric "
+                         "flags (--slice_size/--dcn_cost/--ici_cost) "
+                         "plan gossip schedules; they do not apply to "
+                         "all_reduce/bilateral modes or a "
+                         "single-rank world")
+    # the launch-time plan, before any model work, as in the reference
+    plan = None
+    synth_plan_config(args)   # refuses stray --synth_* knobs
+    if not sb(args.all_reduce) and not sb(args.bilat) and world > 1:
+        import types
+
+        plan = plan_topology(
+            args, world, args.peers_per_itr,
+            GRAPH_TOPOLOGIES[args.graph_type], sb(args.push_sum),
+            sb(args.overlap), types.SimpleNamespace(
+                info=lambda fmt, *a: log0(fmt % a, flush=True),
+                warning=lambda m: log0(m, flush=True)))
+    elif args.topology is not None and (sb(args.all_reduce)
+                                        or sb(args.bilat)):
+        raise SystemExit("--topology selects a push-sum/D-PSGD gossip "
+                         "graph; it does not apply to all_reduce/bilat "
+                         "modes")
+    elif args.topology in ("auto", "synth"):
+        raise SystemExit(f"--topology {args.topology} plans gossip "
+                         "schedules; it does not apply to a "
+                         "single-replica mesh")
+    # the plan's graph (a hierarchical plan binds its slice
+    # decomposition, a synthesized one its spec), mixing and period
+    if plan is not None:
+        graph_of, mixing = plan.graph_class, plan.mixing_strategy()
+        gae = plan.global_avg_every
+    else:
+        graph_of = (TOPOLOGY_NAMES[args.topology] if args.topology
+                    else GRAPH_TOPOLOGIES[args.graph_type])
+        mixing, gae = None, args.global_avg_every or 0
     if sb(args.all_reduce):
         if (args.wire_dtype is not None or sb(args.overlap)
                 or args.gossip_kernel != "xla" or args.gossip_buckets != 1
@@ -342,20 +384,21 @@ def main(argv=None) -> dict:
                 or ef:
             raise SystemExit("gossip_every/wire_dtype/error_feedback are "
                              "push-sum knobs")
-        graph = GRAPH_TOPOLOGIES[args.graph_type](
-            world, peers_per_itr=args.peers_per_itr)
         if sb(args.bilat):
+            graph = GRAPH_TOPOLOGIES[args.graph_type](
+                world, peers_per_itr=args.peers_per_itr)
             alg = adpsgd(build_pairing_schedule(graph), transport)
         else:
-            alg = dpsgd(build_schedule(graph), transport,
-                        overlap=sb(args.overlap),
+            alg = dpsgd(build_schedule(
+                            graph_of(world, peers_per_itr=args.peers_per_itr),
+                            mixing),
+                        transport, overlap=sb(args.overlap),
                         staleness=max(1, args.staleness), gossip_kernel=lane,
                         gossip_buckets=args.gossip_buckets,
-                        global_avg_every=args.global_avg_every or 0)
+                        global_avg_every=gae)
     else:
-        graph = GRAPH_TOPOLOGIES[args.graph_type](
-            world, peers_per_itr=args.peers_per_itr)
-        schedule = build_schedule(graph)
+        schedule = build_schedule(
+            graph_of(world, peers_per_itr=args.peers_per_itr), mixing)
         faults = None
         if fault_plan is not None:
             faults = fault_plan.build_masks(schedule,
@@ -368,7 +411,7 @@ def main(argv=None) -> dict:
                   staleness=max(1, args.staleness), gossip_kernel=lane,
                   gossip_buckets=args.gossip_buckets,
                   gossip_every=args.gossip_every,
-                  global_avg_every=args.global_avg_every or 0)
+                  global_avg_every=gae)
     tx = sgd(momentum=args.momentum, weight_decay=args.weight_decay,
              nesterov=sb(args.nesterov))
     # the reference's step-based warmup horizon and LR scaling over the
@@ -402,12 +445,20 @@ def main(argv=None) -> dict:
                                 log=line)
         window = None   # (host clock, steps_done) at the last read
         if world > 1 and hasattr(alg, "global_average"):
+            from ..parallel.wire import wire_stamp
+            from ..planner import make_interconnect
+
             policy = RecoveryPolicy(
                 world=world, ppi=args.peers_per_itr,
                 algorithm="sgp" if sb(args.push_sum) else "dpsgd",
+                topology=plan.topology if plan is not None else None,
                 residual_floor=args.residual_floor,
                 cooldown_steps=args.health_every, log=line,
-                faults=bool(args.inject_faults))
+                interconnect=make_interconnect(args.slice_size,
+                                               args.dcn_cost, args.ici_cost),
+                faults=bool(args.inject_faults),
+                wire=wire_stamp(args.wire_dtype, args.wire_block, ef),
+                synth=plan.synth if plan is not None else None)
             recovery = make_recovery_fn(alg)
     n_params = sum(p[0].numel() for p in state.params.values())
     gossip = ""

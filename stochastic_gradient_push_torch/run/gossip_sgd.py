@@ -34,9 +34,22 @@ SIGUSR1 or SIGTERM makes the run save at the next step and exit 75.
 ``--inject_faults SPEC`` drills deterministic faults into the rounds,
 ``--health_every k`` prints ``gossip health:`` lines and
 ``--residual_floor`` arms the reactive global average (``gossip
-recovery:`` lines).  ``--global_avg_every`` unset means off (the
-reference's unset value lets its topology planner decide; the port has
-no planner yet).  The flags
+recovery:`` lines).
+
+The launch-time topology planner (``planner/``) runs before the trainer
+is built, as in the reference, and logs its plan as one ``gossip plan:
+{json}`` line that every rank file's meta also carries: ``--topology
+auto`` picks (and tunes) the graph, ``--topology synth`` searches a
+schedule of edge and grouped-mean phases against the priced fabric
+(``--synth_seed/--synth_budget/--synth_beam/--synth_phases``), a name
+(or ``--graph_type``, 6 being the hierarchical graph) forces a graph and
+warns below ``--gap_floor``.  ``--slice_size``, ``--dcn_cost`` and
+``--ici_cost`` describe the fabric, ``--mixing_alpha`` (``auto`` or a
+float) makes the mixing self-weighted, and ``--global_avg_every`` unset
+lets the plan decide.  On the card, ``--topology synth --slice_size 2
+--dcn_cost 16`` at ``--world_size 4`` plans the three-phase cycle of
+fingerprint ``b7e2ef83…``, and ``--topology auto`` with the same fabric
+plans ``hierarchical``.  The flags
 the reference accepts and ignores (``--backend``, ``--master_port``,
 ``--network_interface_type``, ``--no_cuda_streams``) are accepted and
 ignored here too.  Every other flag whose feature is not ported parses
@@ -60,19 +73,10 @@ UNPORTED = {
     "--data_backend": ("auto", str, "ImageFolder decoding"),
     "--stem_s2d": ("False", str, "the space-to-depth ResNet stem"),
     "--data_output": ("f32", str, "the ImageFolder loader's uint8 output"),
-    "--topology": (None, str, "the topology planner"),
-    "--synth_seed": (None, int, "the schedule synthesizer"),
-    "--synth_budget": (None, int, "the schedule synthesizer"),
-    "--synth_beam": (None, int, "the schedule synthesizer"),
-    "--synth_phases": (None, int, "the schedule synthesizer"),
-    "--gap_floor": (0.01, float, "the topology planner"),
-    "--slice_size": (None, int, "hierarchical gossip"),
-    "--dcn_cost": (None, float, "the fabric-priced planner"),
-    "--ici_cost": (None, float, "the fabric-priced planner"),
-    "--mixing_alpha": (None, str, "self-weighted mixing"),
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
     "--checkpoint_all": ("True", str, "rank-0-only checkpoints"),
-    "--nprocs_per_node": (1, int, "hierarchical gossip"),
+    "--nprocs_per_node": (1, int, "intra-node averaging (a local mesh "
+                                  "axis)"),
     "--scan_steps": (1, int, "fused multi-step programs"),
     "--multihost": ("auto", str, "multi-host runs"),
     "--coordinator_address": (None, str, "multi-host runs"),
@@ -98,6 +102,134 @@ def _str_bool(v) -> bool:
     return str(v) == "True"
 
 
+def add_planner_flags(p: argparse.ArgumentParser) -> None:
+    """The topology planner's flags, shared by both CLIs, with the
+    reference's names and defaults."""
+    from ..topology import TOPOLOGY_NAMES
+
+    p.add_argument("--topology", default=None,
+                   choices=["auto"] + sorted(TOPOLOGY_NAMES),
+                   help="'auto' lets the planner pick (and tune) the "
+                        "gossip graph; 'synth' searches a schedule of edge "
+                        "and grouped-mean phases against the priced fabric "
+                        "(the registry's plan when not beaten); a name "
+                        "forces it (overriding --graph_type), with a "
+                        "warning below --gap_floor")
+    p.add_argument("--synth_seed", default=None, type=int,
+                   help="schedule-synthesizer seed, default 0")
+    p.add_argument("--synth_budget", default=None, type=int,
+                   help="synthesizer candidate evaluations (default 1200)")
+    p.add_argument("--synth_beam", default=None, type=int,
+                   help="synthesizer beam width (default 6)")
+    p.add_argument("--synth_phases", default=None, type=int,
+                   help="longest synthesized cycle, in phases (default 6)")
+    p.add_argument("--gap_floor", default=0.01, type=float,
+                   help="least acceptable rotation-cycle spectral gap")
+    p.add_argument("--slice_size", default=None, type=int,
+                   help="ranks per slice (contiguous blocks): the planner "
+                        "prices edges inside a slice per hop and across "
+                        "slices at --dcn_cost, and a hierarchical plan "
+                        "takes this decomposition; unset = uniform fabric")
+    p.add_argument("--dcn_cost", default=None, type=float,
+                   help="relative per-byte cost of a cross-slice message "
+                        "(a hop inside a slice = 1.0; default 16 with any "
+                        "fabric flag)")
+    p.add_argument("--ici_cost", default=None, type=float,
+                   help="relative per-byte cost of one hop inside a slice "
+                        "(default 1.0)")
+    p.add_argument("--mixing_alpha", default=None, type=str,
+                   help="SelfWeightedMixing self-mass: 'auto' co-optimizes "
+                        "it against the chosen topology, a float in (0,1) "
+                        "forces it; unset = uniform mixing")
+
+
+def synth_plan_config(args) -> dict | None:
+    """The synthesizer's knob dict (None unless ``--topology synth``);
+    stray ``--synth_*`` knobs on another topology are refused."""
+    knobs_set = any(v is not None for v in (
+        args.synth_seed, args.synth_budget, args.synth_beam,
+        args.synth_phases))
+    if args.topology != "synth":
+        if knobs_set:
+            raise SystemExit(
+                "--synth_seed/--synth_budget/--synth_beam/"
+                "--synth_phases tune the schedule synthesizer; they "
+                "need --topology synth")
+        return None
+    return {"seed": args.synth_seed, "budget": args.synth_budget,
+            "beam_width": args.synth_beam,
+            "max_phases": args.synth_phases}
+
+
+def parse_mixing_alpha(v):
+    """``--mixing_alpha``: None, ``"auto"`` or a float in (0, 1)."""
+    if v is None or v == "auto":
+        return v
+    try:
+        alpha = float(v)
+    except ValueError:
+        raise SystemExit(f"--mixing_alpha must be 'auto' or a float in "
+                         f"(0, 1), got {v!r}")
+    if not 0.0 < alpha < 1.0:
+        raise SystemExit(f"--mixing_alpha {alpha} outside (0, 1)")
+    return alpha
+
+
+def plan_topology(args, world: int, ppi: int, graph_class, push_sum: bool,
+                  overlap: bool, log):
+    """The launch-time plan of a gossip run (``planner.resolve_topology``
+    on the CLI's flags), logged as the ``gossip plan:`` line."""
+    from ..parallel.wire import wire_stamp
+    from ..planner import make_interconnect, resolve_topology
+
+    return resolve_topology(
+        world, ppi=ppi, topology=args.topology, graph_class=graph_class,
+        floor=args.gap_floor, algorithm="sgp" if push_sum else "dpsgd",
+        self_weighted=(True if args.mixing_alpha == "auto"
+                       else (args.mixing_alpha or False)),
+        global_avg_every=args.global_avg_every,   # None: the plan decides
+        interconnect=make_interconnect(args.slice_size, args.dcn_cost,
+                                       args.ici_cost),
+        overlap=overlap, faults=bool(args.inject_faults),
+        wire=wire_stamp(args.wire_dtype, args.wire_block,
+                        _str_bool(args.error_feedback)),
+        synth=synth_plan_config(args),
+        log=log)
+
+
+def _resolve_plan(cfg, args, world: int, log) -> None:
+    """Apply the launch-time topology plan to ``cfg`` (the reference's
+    ``_resolve_plan``): the graph (a hierarchical plan binds its slice
+    decomposition, a synthesized one its spec), the mixing, the
+    averaging period and the ``plan`` stamp."""
+    fabric_flags = (args.slice_size is not None
+                    or args.dcn_cost is not None
+                    or args.ici_cost is not None)
+    synth = synth_plan_config(args)
+    if cfg.all_reduce or cfg.bilat or world < 2:
+        if args.topology in ("auto", "synth") \
+                or args.mixing_alpha is not None or fabric_flags \
+                or synth is not None:
+            raise SystemExit("--topology auto/synth / --mixing_alpha / "
+                             "fabric flags (--slice_size/--dcn_cost/"
+                             "--ici_cost) plan gossip schedules; they do "
+                             "not apply to all_reduce/bilateral modes or "
+                             "a single-rank world")
+        return
+    from ..train.lr import ppi_at_epoch
+
+    # planned for the epoch-0 peers_per_itr
+    plan = plan_topology(args, world, ppi_at_epoch(cfg.ppi_schedule, 0),
+                         cfg.graph_class, cfg.push_sum, cfg.overlap, log)
+    cfg.graph_class = plan.graph_class
+    if plan.alpha is not None:
+        from ..topology import SelfWeightedMixing
+
+        cfg.mixing_class = lambda a=plan.alpha: SelfWeightedMixing(a)
+    cfg.global_avg_every = plan.global_avg_every
+    cfg.plan = plan.to_dict()
+
+
 def build_parser() -> argparse.ArgumentParser:
     from ..ops.gossip_kernel import GOSSIP_KERNELS
     from ..topology import MIXING_STRATEGIES
@@ -121,11 +253,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="False: D-PSGD (doubly-stochastic gossip)")
     p.add_argument("--graph_type", default=5, type=int,
                    choices=[0, 1, 2, 3, 4, 5, 6, -1],
-                   help="0-5 the flat graphs, -1 none (--all_reduce); 6 "
-                        "(hierarchical) is not ported")
+                   help="0-5 the flat graphs, 6 the hierarchical graph, "
+                        "-1 none (--all_reduce)")
+    add_planner_flags(p)
     p.add_argument("--global_avg_every", default=None, type=int,
-                   help="exact global average every k steps; unset or 0 "
-                        "= off (the port has no topology planner yet)")
+                   help="exact global average every k steps; unset = the "
+                        "planner decides (on below the gap floor), 0 = "
+                        "off, k = every k steps")
     p.add_argument("--mixing_strategy", default=0, type=int,
                    choices=list(MIXING_STRATEGIES))
     p.add_argument("--schedule", nargs="+",
@@ -239,10 +373,6 @@ def refuse_unported(args) -> None:
             "--dataset imagefolder: ImageFolder data (a directory of JPEG "
             "files and their decoding) is not ported to stochastic_"
             "gradient_push_torch yet; use --dataset synthetic")
-    if args.graph_type == 6:
-        raise SystemExit("--graph_type 6: hierarchical gossip "
-                         "(HierarchicalGraph) is not ported yet (ROADMAP.md "
-                         "Queue 1 item 6)")
     if args.model not in MODELS:
         raise SystemExit(f"unknown model {args.model}; one of {MODELS}")
 
@@ -278,7 +408,7 @@ def resolve_staleness_flag(args, overlap: bool) -> None:
 def parse_config(argv=None):
     """``(TrainerConfig, args)`` from a command line, validated as the
     reference validates it."""
-    from ..topology import GRAPH_TOPOLOGIES, MIXING_STRATEGIES
+    from ..topology import GRAPH_TOPOLOGIES, MIXING_STRATEGIES, TOPOLOGY_NAMES
     from ..train.loop import TrainerConfig
 
     args = build_parser().parse_args(argv)
@@ -307,8 +437,18 @@ def parse_config(argv=None):
                          "push-sum knobs")
     if all_reduce and args.graph_type != -1:
         raise SystemExit("--all_reduce True requires --graph_type -1")
-    if not all_reduce and args.graph_type == -1:
-        raise SystemExit("gossip training requires a graph_type >= 0")
+    if all_reduce and args.topology is not None:
+        raise SystemExit("--topology selects a gossip graph; it does not "
+                         "apply to --all_reduce True")
+    if not all_reduce and args.topology is None and args.graph_type == -1:
+        raise SystemExit("gossip training requires a graph_type >= 0 "
+                         "(or --topology)")
+    args.mixing_alpha = parse_mixing_alpha(args.mixing_alpha)
+    if args.mixing_alpha is not None and (
+            all_reduce or not _str_bool(args.push_sum)):
+        raise SystemExit("--mixing_alpha needs push-sum gossip: AllReduce "
+                         "doesn't mix, and D-PSGD requires a regular "
+                         "(doubly-stochastic) schedule")
     if args.inject_faults:
         if all_reduce or not _str_bool(args.push_sum):
             raise SystemExit("--inject_faults needs push-sum gossip: only "
@@ -320,13 +460,18 @@ def parse_config(argv=None):
         parse_fault_spec(args.inject_faults)
     if args.health_every < 0:
         raise SystemExit("--health_every must be >= 0")
+    # a forced name overrides the integer registry; "auto" and "synth"
+    # are planned once the world is known (_resolve_plan)
+    graph_class = GRAPH_TOPOLOGIES[args.graph_type]
+    if args.topology not in (None, "auto"):
+        graph_class = TOPOLOGY_NAMES[args.topology]
     cfg = TrainerConfig(
         all_reduce=all_reduce,
         push_sum=_str_bool(args.push_sum),
         overlap=_str_bool(args.overlap),
         synch_freq=args.synch_freq,
         staleness=args.staleness,
-        graph_class=(GRAPH_TOPOLOGIES.get(args.graph_type)),
+        graph_class=graph_class,
         mixing_class=MIXING_STRATEGIES[args.mixing_strategy],
         ppi_schedule=ppi_schedule,
         lr=args.lr,
@@ -410,8 +555,11 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     from ..utils.logging import make_logger
 
     log = make_logger("main", cfg.verbose)
-    device = resolve_device(args.device)
     world = args.world_size or 1
+    # planning is numpy only: its line and warnings come before any
+    # device work, as in the reference
+    _resolve_plan(cfg, args, world, log)
+    device = resolve_device(args.device)
     model = _make_model(args, cfg.num_classes)
 
     n = args.synthetic_samples or world * cfg.batch_size * 8

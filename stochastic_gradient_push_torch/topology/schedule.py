@@ -9,9 +9,10 @@ time-varying graph are enumerated ahead of time and frozen into numpy
 tables; the port's collectives pick a phase's tables by ``phase %
 num_phases`` on the host.
 
-Not ported yet: ``overlap_schedule`` (OSGP), and the
-``compile_schedule`` hook of the hierarchical and synthesized
-topologies.
+Graphs whose schedule is not phone-book rotation (the hierarchical and
+synthesized topologies) provide a ``compile_schedule`` hook and build
+their own tables.  Not ported: ``overlap_schedule``, the augmented
+OSGP tables the reference's static verifier sweeps.
 """
 
 from __future__ import annotations
@@ -70,14 +71,14 @@ class GossipSchedule:
 
 def build_schedule(graph: GraphTopology,
                    mixing: MixingStrategy | None = None) -> GossipSchedule:
-    """Compile ``graph`` + ``mixing`` into a :class:`GossipSchedule`."""
+    """Compile ``graph`` + ``mixing`` into a :class:`GossipSchedule`; a
+    graph with a ``compile_schedule`` hook (hierarchical, synthesized)
+    builds its own."""
     if mixing is None:
         mixing = UniformMixing()
-    if getattr(graph, "compile_schedule", None) is not None:
-        raise NotImplementedError(
-            f"{type(graph).__name__} compiles its own schedule "
-            "(hierarchical / synthesized rounds); the port has the flat "
-            "phone-book graphs only so far")
+    compile_hook = getattr(graph, "compile_schedule", None)
+    if compile_hook is not None:
+        return compile_hook(mixing)
     if graph.world_size == 1:
         ppi = graph.peers_per_itr
         return GossipSchedule(

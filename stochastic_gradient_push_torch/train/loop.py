@@ -30,8 +30,12 @@ against each algorithm's schedule (logged once, ``gossip faults:``),
 rank files), and ``health_every`` adds the health signals to the step,
 observes them every step (``gossip health:`` lines) and lets the
 recovery policy fire an exact global average above ``residual_floor``
-(``gossip recovery:`` lines); a checkpoint's meta carries the last
-health payload.
+(``gossip recovery:`` lines, each with the planner's re-plan
+``suggestion``); a checkpoint's meta carries the last health payload.
+
+``plan`` is the launch-time topology plan (``planner.Plan.to_dict()``,
+made by the CLI): its fabric model, wire stamp and synthesis stamp reach
+the recovery policy's re-plans, and every rank file's meta carries it.
 
 Config fields of features not ported yet raise ``NotImplementedError``
 naming the feature when set away from their defaults (:data:`UNPORTED`),
@@ -53,7 +57,7 @@ from ..algorithms import (GossipAlgorithm, adpsgd, all_reduce, dpsgd,
 from ..device import resolve_device
 from ..ops.gossip_kernel import resolve_gossip_kernel
 from ..parallel import collectives
-from ..parallel.wire import get_codec
+from ..parallel.wire import get_codec, wire_stamp
 from ..topology import build_pairing_schedule, build_schedule
 from ..utils.checkpoint import REQUEUE_EXIT_CODE, ClusterManager
 from ..utils.logging import make_logger
@@ -148,7 +152,6 @@ class TrainerConfig:
 # config field -> (default, the feature it belongs to): a value away from
 # the default raises, naming the feature
 UNPORTED = {
-    "plan": (None, "the topology planner's plan"),
     "gossip_comm_dtype": (None, "the deprecated comm dtype alias"),
     "bilat_async": (False, "wall-clock asynchronous AD-PSGD "
                            "(train/async_bilat.py)"),
@@ -162,7 +165,7 @@ UNPORTED = {
     "checkpoint_all": (True, "rank-0-only checkpoints"),
     "fleet": (False, "fleet supervision"),
     "host_id": (None, "fleet supervision"),
-    "nprocs_per_node": (1, "hierarchical gossip (a local mesh axis)"),
+    "nprocs_per_node": (1, "intra-node averaging (a local mesh axis)"),
     "scan_steps": (1, "fused multi-step programs (scan_steps > 1)"),
     "prefetch": (False, "device prefetch"),
     "prefetch_depth": (2, "device prefetch"),
@@ -227,13 +230,25 @@ class Trainer:
             if not (config.all_reduce or config.bilat):
                 # overlap runs recover too: the average folds the
                 # in-flight FIFO into Σx/Σw and drains it
+                from ..topology import topology_name
+
+                try:
+                    topo = topology_name(config.graph_class)
+                except KeyError:
+                    topo = None
                 self.recovery_policy = RecoveryPolicy(
                     world=self.world_size,
                     ppi=ppi_at_epoch(config.ppi_schedule, 0),
                     algorithm="sgp" if config.push_sum else "dpsgd",
+                    topology=topo,
                     residual_floor=config.residual_floor,
                     cooldown_steps=config.health_every, log=self.log,
-                    faults=bool(config.inject_faults))
+                    interconnect=self._plan_interconnect(),
+                    faults=bool(config.inject_faults),
+                    wire=wire_stamp(config.wire_dtype, config.wire_block,
+                                    config.error_feedback),
+                    synth=(config.plan.get("synth")
+                           if config.plan else None))
         self._logged_faults = False
         self._csv_ranks = (tuple(range(self.world_size))
                            if config.per_rank_csv else (0,))
@@ -242,6 +257,15 @@ class Trainer:
             f"{config.tag}out_r{r}_n{self.world_size}.csv")
 
     # -- algorithm / step construction ------------------------------------
+
+    def _plan_interconnect(self):
+        """The fabric model the plan was priced on (None on a uniform
+        fabric): recovery re-plans price on the same fabric."""
+        if self.cfg.plan and self.cfg.plan.get("interconnect"):
+            from ..planner import InterconnectModel
+
+            return InterconnectModel.from_dict(self.cfg.plan["interconnect"])
+        return None
 
     def _resolve_staleness(self) -> int:
         """The overlap FIFO depth from ``staleness`` or the
@@ -506,6 +530,10 @@ class Trainer:
                 "batch_meter": batch_meter.state_dict(),
                 "nn_meter": nn_meter.state_dict(),
                 "data_meter": data_meter.state_dict()}
+        if self.cfg.plan:
+            # the launch-time topology plan rides with the state it
+            # shaped
+            meta["plan"] = self.cfg.plan
         if self.monitor is not None and self.monitor.last_payload:
             # the run's health at save time rides with the state it
             # describes

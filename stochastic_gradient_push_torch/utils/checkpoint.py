@@ -16,8 +16,9 @@ checkpoint.py``, with the port's own file format:
 * **The payload** is one ``torch.save`` per file: ``{"state": ...,
   "meta": <JSON text>}`` with the rank's tensors on the CPU, the step
   and phase as ints, and the reference's meta keys (epoch, itr,
-  best_prec1, elapsed_time, the three timing meters and, with health
-  monitoring, the last ``health`` payload), written to a
+  best_prec1, elapsed_time, the three timing meters, the launch-time
+  topology ``plan`` when the CLI made one and, with health monitoring,
+  the last ``health`` payload), written to a
   temporary name and renamed, so state and meta never disagree.  It is
   read with ``weights_only=True``.  The reference's flax msgpack is not
   read: that needs JAX.

@@ -35,7 +35,11 @@ CLI with D-PSGD on the kernel lane against the CPU run (params 1e-5).
 Faulted rounds with error feedback (drops, blackouts, NaN corruption;
 bf16 and int8; sync and overlap) on the kernel lane against the plain
 lane on the card and the interpret lane on the CPU: residual and
-ps-weight exact, params 1e-6, NaN positions equal.
+ps-weight exact, params 1e-6, NaN positions equal.  Hierarchical rounds
+(sync and the overlap split) and a synthesized cycle on the kernel lane
+against the plain and interpret lanes (ps-weight exact; params and
+residual exact on the hierarchical schedule, 1e-6 on the synthesized
+one), and the grouped mean on the card bit-equal to the CPU's.
 """
 
 import dataclasses
@@ -850,3 +854,91 @@ def test_faulted_ef_rounds_on_the_kernel_lane(cuda, wire, overlap, spec):
             assert torch.equal(torch.isnan(a), torch.isnan(b))
             err = float((a - b).nan_to_num().abs().max())
             assert err == 0.0 if mixing is None else err <= 1e-6
+
+
+WORLD4_SYNTH = {"v": 1, "world": 4, "phases": [
+    {"kind": "psum", "group_size": 2},
+    {"kind": "edge", "perm": [2, 1, 0, 3], "send": [0.9, 0.0, 0.9, 0.0]},
+    {"kind": "edge", "perm": [3, 2, 1, 0], "send": [0.5, 0.5, 0.5, 0.5]}]}
+
+
+@pytest.mark.parametrize("wire", [None, "bf16", "int8"])
+@pytest.mark.parametrize("kind,overlap", [("hierarchical", False),
+                                          ("hierarchical", True),
+                                          ("synth", False)])
+def test_hierarchical_and_synth_rounds_on_the_kernel_lane(cuda, kind,
+                                                          overlap, wire):
+    """Three rounds of the hierarchical schedule (slices of 2; the
+    overlap split lands the delegate share, then the intra-slice mean)
+    and one cycle of the planner's world-4 synthesized schedule, with
+    error feedback on a lossy wire: the kernel lane on the card against
+    the plain lane on the card and the interpret lane on the CPU.  One
+    start per bucket a launching round, none for a grouped mean; the
+    ps-weight exact across the card's lanes; params and residual exact
+    on the hierarchical schedule (``lo·x`` is exact at 0.5) and 1e-6 on
+    the synthesized one (its 0.1 self weight is rounded on its own on
+    the kernel lane, and the next round encodes that ulp); the kernel
+    lane equals its interpret twins."""
+    from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
+    from stochastic_gradient_push_torch.parallel import collectives as tc
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+    from stochastic_gradient_push_torch.topology import (
+        HierarchicalGraph, SynthesizedGraph, build_schedule)
+
+    sched = build_schedule(HierarchicalGraph(4, slice_size=2)
+                           if kind == "hierarchical"
+                           else SynthesizedGraph(4, spec=WORLD4_SYNTH))
+    r = np.random.default_rng(4)
+    leaves = [torch.from_numpy(r.standard_normal(s).astype(np.float32))
+              for s in ((4, 7, 33), (4, 300))]
+    ps = torch.from_numpy((1 + r.random(4)).astype(np.float32))
+    codec = get_codec(wire, 16)
+    ef = codec is not None and codec.lossy
+    launching = 3 if kind == "hierarchical" else 2
+    runs = []
+    for dev, lane in ((cuda, tgk.KernelLane(chunk_elems=128)), (cuda, None),
+                      (torch.device("cpu"),
+                       tgk.KernelLane(interpret=True, chunk_elems=128))):
+        transport = tc.StackedTransport(4)
+        tree = [a.to(dev) for a in leaves] + [ps.to(dev)]
+        res = [torch.zeros_like(a) for a in tree] if ef else None
+        before = tgk.gossip_edge_start.launches
+        for phase in range(3):
+            kw = dict(codec=codec, kernel=lane, buckets=2, ef_residual=res)
+            if overlap:
+                out = tc.overlap_launch(tree, phase, sched, transport, **kw)
+                tree = tc.intra_average(
+                    tc.land_shares(out[0], tc.settle_share(out[1])), sched,
+                    transport)
+            else:
+                out = tc.gossip_round(tree, phase, sched, transport, **kw)
+                tree = out[0] if ef else out
+            if ef:
+                res = out[-1]
+        launched = tgk.gossip_edge_start.launches - before
+        assert launched == (2 * launching if lane is not None
+                            and not lane.interpret else 0)
+        runs.append([t.cpu() for t in tree + (res or [])])
+    kern, plain, interp = runs
+    assert all(torch.equal(a, b) for a, b in zip(kern, interp))
+    assert torch.equal(kern[2], plain[2])           # the ps-weight
+    for a, b in zip(kern[:2] + kern[3:], plain[:2] + plain[3:]):
+        err = float((a - b).abs().max())
+        assert err == 0.0 if kind == "hierarchical" else err <= 1e-6
+
+
+def test_grouped_mean_on_cuda_matches_cpu(cuda):
+    """The grouped mean (slices of 2 and 4) on the card bit-equal to the
+    CPU's, views of one raveled buffer per dtype."""
+    from stochastic_gradient_push_torch.parallel import collectives as tc
+
+    r = np.random.default_rng(5)
+    leaves = [torch.from_numpy(r.standard_normal(s).astype(np.float32))
+              for s in ((8, 7, 33), (8, 300), (8,))]
+    for s in (2, 4):
+        groups = tuple(tuple(range(j * s, (j + 1) * s))
+                       for j in range(8 // s))
+        got = tc.StackedTransport(8).group_mean(
+            [a.to(cuda) for a in leaves], groups)
+        want = tc.StackedTransport(8).group_mean(leaves, groups)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

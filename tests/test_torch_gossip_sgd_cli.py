@@ -148,11 +148,7 @@ def test_reference_flags_parse_with_reference_defaults():
 # one value per unported flag, each away from its default
 UNPORTED_VALUES = {
     "--prefetch": "True", "--data_backend": "pil", "--stem_s2d": "True",
-    "--data_output": "uint8", "--topology": "auto", "--synth_seed": "1",
-    "--synth_budget": "10", "--synth_beam": "2", "--synth_phases": "3",
-    "--gap_floor": "0.1", "--slice_size": "2", "--dcn_cost": "4",
-    "--ici_cost": "2", "--mixing_alpha": "0.5",
-    "--gossip_comm_dtype": "bf16", "--checkpoint_all": "False",
+    "--data_output": "uint8", "--gossip_comm_dtype": "bf16", "--checkpoint_all": "False",
     "--nprocs_per_node": "2", "--scan_steps": "2", "--multihost": "True",
     "--coordinator_address": "localhost:1", "--num_processes": "2",
     "--process_id": "1", "--heartbeat_timeout": "60",
@@ -243,7 +239,8 @@ def test_resilience_run_logs_health_and_recovery(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--dataset", "imagefolder"], "ImageFolder"),
-    (["--graph_type", "6"], "hierarchical"),
+    (["--all_reduce", "True", "--graph_type", "-1", "--topology", "auto"],
+     "--topology selects a gossip graph"),
     (["--multihost", "False"], None),
     (["--model", "vit"], "unknown model"),
     (["--staleness", "2"], "overlap-mode knob"),

@@ -1,6 +1,7 @@
-"""The port stands alone: ``stochastic_gradient_push_torch``,
-``chip_smoke.py`` and the port's chip scripts (``scripts/torch_*.py``)
-import neither jax nor the JAX package.
+"""The port stands alone: ``stochastic_gradient_push_torch`` (its
+numpy-only ``planner/`` and ``analysis/`` included), ``chip_smoke.py``
+and the port's chip scripts (``scripts/torch_*.py``) import neither jax
+nor the JAX package.
 
 One check runs the imports in a fresh interpreter where ``import jax``
 fails; the other reads the sources with ``ast``.
@@ -97,6 +98,15 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.resilience.faults",
                 "stochastic_gradient_push_torch.resilience.monitor",
                 "stochastic_gradient_push_torch.resilience.recovery",
+                "stochastic_gradient_push_torch.topology.hierarchical",
+                "stochastic_gradient_push_torch.topology.synthesized",
+                "stochastic_gradient_push_torch.analysis.findings",
+                "stochastic_gradient_push_torch.analysis.verifier",
+                "stochastic_gradient_push_torch.planner.alpha",
+                "stochastic_gradient_push_torch.planner.interconnect",
+                "stochastic_gradient_push_torch.planner.policy",
+                "stochastic_gradient_push_torch.planner.scorer",
+                "stochastic_gradient_push_torch.planner.synthesize",
                 "chip_smoke"}
     assert expected <= set(result["imported"])
     assert not [m for m in result["loaded"]

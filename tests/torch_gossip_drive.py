@@ -159,3 +159,37 @@ def assert_within_input_ulp(got, want, inputs, what, ulps=4):
 def assert_equal(got, want, what):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
                                   err_msg=what)
+
+
+def ref_flat_round(jsched, world, phase, codec=None, ef=False):
+    """The reference's compiled flat push-sum round at ``phase`` over a
+    ``world``-rank mesh: ``(params, ps_weight[, residual]) -> ...``."""
+    from stochastic_gradient_push_tpu.parallel.collectives import (
+        mix_push_sum)
+    from stochastic_gradient_push_tpu.parallel.mesh import (
+        GOSSIP_AXIS, make_gossip_mesh)
+
+    def body(p, w, *r):
+        return mix_push_sum(p, w, jnp.int32(phase), jsched, GOSSIP_AXIS,
+                            codec=codec, ef_residual=r[0] if r else None)
+
+    n = 3 if ef else 2
+    return jax.jit(jax.shard_map(
+        body, mesh=make_gossip_mesh(world), in_specs=(P(GOSSIP_AXIS),) * n,
+        out_specs=(P(GOSSIP_AXIS),) * n))
+
+
+def np_group_mean(a, groups):
+    """The reference's grouped psum ``lax.psum(a * float32(1/s),
+    axis_index_groups=groups)`` as its numpy definition: the scaled rows
+    of each group summed in rank order."""
+    a = np.asarray(a, np.float32)
+    sc = a * np.float32(1.0 / len(groups[0]))
+    out = np.empty_like(a)
+    for g in groups:
+        acc = sc[g[0]]
+        for r in g[1:]:
+            acc = acc + sc[r]
+        for r in g:
+            out[r] = acc
+    return out
