@@ -147,7 +147,27 @@
    - 10d: K2 and K1 at the hierarchical delegate round's shape (int8, one
      edge, ranks 1 and 3 at weight 0) and at f32 over ResNet-50's
      payload, bit-equal to their twins, timed beside their bounds.
-11. A JSON line of per-kernel results (the flash rows also carry
+11. Sequence parallelism: the d768/L12/vocab32000 LM (fp32, TF32 off)
+   at world 8 stacked = dp 2 replicas x sp 4 sequence shards, seq_len
+   4096 (1024-token shards), batch 2 a replica, ``ring_flash`` attention
+   (every layer's attention a ring of flash-kernel ticks, K3 forward, K4
+   and K5 backward), SGP on the f32 wire (one peer, one bucket) on the
+   gossip kernel lane between the two replicas:
+   - 11a: one step on the kernel lane and one from the same state on the
+     plain lane (the same ring with plain ticks, the plain transport),
+     held to phase 5's tolerances with the ps-weight equal; then three
+     timed steps, each launching K3 = K4 = K5 = dp * L * sp(sp+1)/2 =
+     240 and one K2 and one K1; step ms, tokens/s, peak memory;
+   - 11b: the same with ``remat=True``: its one step equal to 11a's
+     kernel step (exactly, or within 1e-6; which is printed), K3 480 a
+     step (the recompute); one replica's forward and backward peaks
+     below 11a's, the step's peak (set by the gossip round) no higher;
+   - 11c: ``run/gossip_lm.py --world_size 8 --sp 4 --attn ring_flash
+     --remat True --gossip_kernel pallas`` at the same shape, 4 steps:
+     finite CSV rows, the launches as in 11b;
+   - 11d: K3, K4 and K5 at a tick's shape (b2 h12 t1024), causal and
+     full, against their plain versions, with SDPA and the bounds.
+12. A JSON line of per-kernel results (the flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound; the paged-decode row
    ``device_ms`` and ``host_ms``), the ``nvidia-smi``
    name/power-limit line, and as the last line ``{"ok": true, "device":
@@ -212,6 +232,13 @@ TOL_RECOVERY = 1e-6
 TOPO = dict(RESNET, gossip_every=1, global_avg_every=0)
 TOPO_STEPS = 2
 SYNTH_FINGERPRINT = "b7e2ef83ed403b218f4f2f2ed6c019f7d194cca1"
+# phase 11: the d768/L12 LM at world 8 stacked = dp 2 replicas x sp 4
+# sequence shards, seq_len 4096 (1024-token shards), batch 2 a replica
+# (16,384 tokens a step), every attention a ring of flash-kernel ticks;
+# sp 4 because at sp 2 a ring turned the wrong way visits the same owners
+SEQ = dict(dp=2, sp=4, seq_len=4096, batch=2, steps=3, cli_steps=4)
+# remat against the step without it: equal, or within this much
+TOL_REMAT = 1e-6
 # H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores, TF32
 # tensor-core rate (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -326,7 +353,14 @@ def report_ptxas(built: dict) -> None:
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
-def check_flash(card: str) -> dict:
+def check_flash(card: str, cases=((1, 8, True), (1, 200, True),
+                                  (1, 512, True), (1, 200, False),
+                                  (8, 1024, True)),
+                row_case=(1, 512, True)) -> dict:
+    """The forward kernel against its plain version at each ``(b, t,
+    causal)`` of ``cases`` (h12 d64); returns the JSON row of
+    ``row_case`` (by default b1 t512, the longest prompt serving
+    prefills)."""
     import torch
     import torch.nn.functional as F
 
@@ -335,8 +369,7 @@ def check_flash(card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(1)
     row = None
-    for b, t, causal in ((1, 8, True), (1, 200, True), (1, 512, True),
-                         (1, 200, False), (8, 1024, True)):
+    for b, t, causal in cases:
         q, k, v = (torch.randn(b, 12, t, HEAD_DIM, device="cuda",
                                generator=g) for _ in range(3))
         ref, ref_lse = flash_attention_reference(q, k, v, causal=causal,
@@ -367,7 +400,7 @@ def check_flash(card: str) -> dict:
               f"{lib_ms:.4f} ms, 3xTF32 bound {bound_ms:.4f} ms ({bound_by};"
               f" {bound_ms / ms:.1%} of it), fp32 CUDA-core bound "
               f"{cores_ms:.4f} ms [{card}]", flush=True)
-        if (b, t) == (1, 512):   # the longest prompt serving prefills
+        if (b, t, causal) == row_case:
             row = dict(max_abs_err=max(err, lse_err), ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=lib_ms,
@@ -375,9 +408,13 @@ def check_flash(card: str) -> dict:
     return row
 
 
-def check_flash_bwd(card: str) -> dict:
+def check_flash_bwd(card: str, cases=((8, 1024, True), (1, 200, True),
+                                      (1, 200, False)),
+                    row_case=(8, 1024, True)) -> dict:
     """Both backward kernels against their plain versions, fed the
-    forward kernel's out and lse (as the training step feeds them)."""
+    forward kernel's out and lse (as the training step feeds them), at
+    each ``(b, t, causal)`` of ``cases``; returns the JSON rows of
+    ``row_case`` (by default the training main path's shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -387,7 +424,7 @@ def check_flash_bwd(card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
-    for b, t, causal in ((8, 1024, True), (1, 200, True), (1, 200, False)):
+    for b, t, causal in cases:
         q, k, v, do = (torch.randn(b, 12, t, HEAD_DIM, device="cuda",
                                    generator=g) for _ in range(4))
         out, lse = flash_fwd(q, k, v, causal=causal, return_lse=True)
@@ -436,7 +473,7 @@ def check_flash_bwd(card: str) -> dict:
               f"{dkv_bound[0] / dkv_ms:.1%} of it), fp32 CUDA-core bound "
               f"{dkv_cores:.4f} ms; sdpa backward {lib_ms:.4f} ms [{card}]",
               flush=True)
-        if (b, t) == (8, 1024):   # the training main path's shape
+        if (b, t, causal) == row_case:
             rows["flash_bwd_dq"] = dict(
                 max_abs_err=dq_err, ms=dq_ms, plain_ms=dq_plain,
                 bound_ms=dq_bound[0], bound_by=dq_bound[1],
@@ -537,12 +574,12 @@ def check_paged(card: str) -> dict:
     return row
 
 
-def _lm_config(attn_impl: str = "full"):
+def _lm_config(attn_impl: str = "full", **kw):
     from stochastic_gradient_push_torch.models.transformer import (
         TransformerConfig)
 
     return TransformerConfig(vocab_size=32000, d_model=768, n_layers=12,
-                             n_heads=12, d_ff=3072, attn_impl=attn_impl)
+                             n_heads=12, d_ff=3072, attn_impl=attn_impl, **kw)
 
 
 def _gossip_case(g, wire: str, ne: int, ranks: int, leaf_shapes=None,
@@ -2180,6 +2217,282 @@ def _assert_topology_launches(launches: dict, rounds: int) -> None:
                              f"none for a grouped mean)")
 
 
+# -- phase 11: sequence parallelism, the flash kernels as ring ticks --------
+
+
+def _seq_setup(lane: str, remat: bool, kernel_gossip: bool):
+    """The d768/L12 LM with ``ring_flash`` attention (ticks on ``lane``)
+    at dp x sp stacked on the card, SGP on the f32 wire over the n-peer
+    exponential graph, one peer, one bucket, on the gossip kernel lane
+    or the plain transport."""
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.parallel.seq import StackedSeq
+    from stochastic_gradient_push_torch.parallel.wire import get_codec
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.lm import (
+        build_lm_train_step, make_model)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+
+    dp = SEQ["dp"]
+    cfg = _lm_config("ring_flash", attn_lane=lane, remat=remat)
+    alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(
+        dp, peers_per_itr=1)), StackedTransport(dp), wire=get_codec("f32"),
+        gossip_kernel=KernelLane() if kernel_gossip else None)
+    tx = sgd(momentum=0.9, weight_decay=0.0)
+    step = build_lm_train_step(
+        make_model(cfg), alg, tx, LRSchedule(3e-2, SEQ["batch"], dp,
+                                             decay_schedule={}),
+        itr_per_epoch=1000, seq=StackedSeq(SEQ["sp"]))
+    return cfg, alg, tx, step
+
+
+def _seq_want(cfg, steps: int) -> dict:
+    """Launches of ``steps`` kernel-lane steps: one K3 a visible (shard,
+    tick) pair per replica and layer, again under remat's recompute; one
+    K4 and one K5 each; one K2 and one K1 a step."""
+    sp = SEQ["sp"]
+    visible = SEQ["dp"] * cfg.n_layers * sp * (sp + 1) // 2
+    return {"flash_fwd": visible * (2 if cfg.remat else 1) * steps,
+            "flash_bwd_dq": visible * steps,
+            "flash_bwd_dkv": visible * steps, "paged_decode": 0,
+            "gossip_edge_start": steps, "gossip_edge_wait": steps}
+
+
+def _seq_diff(k_state, k_m, o_state, o_m) -> tuple[float, float, float]:
+    """Largest relative loss and grad-norm differences over the replicas,
+    and the largest absolute parameter difference."""
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())
+    return (rel(k_m["loss"], o_m["loss"]),
+            rel(k_m["grad_norm"], o_m["grad_norm"]),
+            max(_max_err(k_state.params[n], o_state.params[n])
+                for n in k_state.params))
+
+
+def _seq_activation_gb(cfg, state, toks, tgts) -> float:
+    """Peak memory above the resting state of one replica's forward and
+    backward (the step runs the replicas one after another): what remat
+    trades for a second forward.  The step's own peak is set by the
+    gossip round's buffers instead."""
+    import torch
+    from torch.func import functional_call
+
+    from stochastic_gradient_push_torch.parallel.seq import StackedSeq
+    from stochastic_gradient_push_torch.train.lm import lm_loss, make_model
+
+    z = {n: p[0].detach().requires_grad_(True)
+         for n, p in state.params.items()}
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits = functional_call(make_model(cfg), z,
+                             (toks[0], StackedSeq(SEQ["sp"])))
+    loss = torch.stack([lm_loss(lg, y) for lg, y in zip(logits,
+                                                          tgts[0])]).mean()
+    del logits
+    torch.autograd.grad(loss, list(z.values()))
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - rest) / 1e9
+
+
+def _seq_timed(card: str, label: str, cfg, step, state, batches) -> dict:
+    """The main path: kernel-lane steps with every counter zeroed just
+    before, each step's launches checked, ending in the metrics' read."""
+    import numpy as np
+    import torch
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    want = _seq_want(cfg, 1)
+    for toks, tgts in batches:
+        before = {n: fn.launches for n, fn in counters.items()}
+        t0 = time.perf_counter()
+        state, m = step(state, toks, tgts)
+        losses.append(m["loss"].tolist())   # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        got = {n: fn.launches - before[n] for n, fn in counters.items()}
+        if got != want:
+            raise AssertionError(f"seq {label}: launches {got} a step, "
+                                 f"expected {want}")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    med_ms = float(np.median(step_s)) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = SEQ["dp"] * SEQ["batch"] * SEQ["seq_len"]
+    print(f"seq {label}: {len(batches)} steps, losses per replica "
+          f"{json.dumps([[round(x, 6) for x in r] for r in losses])}, step "
+          f"ms {json.dumps([round(x * 1e3, 2) for x in step_s])}, median "
+          f"{med_ms:.2f} ms, {tokens / med_ms * 1e3:.1f} tokens/s, peak "
+          f"memory {peak:.2f} GB; launches a step {json.dumps(want)} "
+          f"[{card}]", flush=True)
+    if not all(np.isfinite(losses).ravel()):
+        raise AssertionError(f"seq {label}: non-finite loss {losses}")
+    return {"launches": launches, "peak_gb": peak}
+
+
+def seq_lanes(card: str) -> dict:
+    """11a and 11b: one step on the kernel lane, on the plain lane (plain
+    ticks, plain transport) and with remat from one state; then three
+    timed steps without and with remat from the kernel step's state."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.train.lm import init_lm_state
+
+    dp, sp, b, t = SEQ["dp"], SEQ["sp"], SEQ["batch"], SEQ["seq_len"]
+    cfg, alg, tx, step = _seq_setup("auto", False, True)
+    _, plain_alg, _, plain_step = _seq_setup("plain", False, False)
+    remat_cfg, _, _, remat_step = _seq_setup("auto", True, True)
+    if (alg.transport_kernel_name, plain_alg.transport_kernel_name) != (
+            "pallas", "xla"):
+        raise AssertionError("seq: the two lanes did not resolve as asked")
+    rng = np.random.default_rng(3)
+    batches = [tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(dp, sp, b, t // sp))).cuda()
+        for _ in range(2)) for _ in range(1 + SEQ["steps"])]
+    state = init_lm_state(cfg, alg, tx, dp, seed=0, device="cuda")
+    print(f"seq: world {dp * sp} stacked = dp {dp} x sp {sp}, d{cfg.d_model} "
+          f"L{cfg.n_layers} h{cfg.n_heads} ff{cfg.d_ff} vocab{cfg.vocab_size} "
+          f"T{t} ({t // sp}-token shards) B{b}/replica fp32, ring_flash, SGP "
+          f"f32 wire, one peer, one bucket", flush=True)
+
+    k_state, k_m = step(state, *batches[0])
+    p_state, p_m = plain_step(state, *batches[0])
+    torch.cuda.synchronize()
+    loss_d, gn_d, param_d = _seq_diff(k_state, k_m, p_state, p_m)
+    weights_equal = torch.equal(k_state.gossip.ps_weight,
+                                p_state.gossip.ps_weight)
+    print(f"seq 11a: kernel lane vs plain lane (plain ticks, plain "
+          f"transport), one step from one state: losses "
+          f"{k_m['loss'].tolist()} vs {p_m['loss'].tolist()}, grad norms "
+          f"{k_m['grad_norm'].tolist()} vs {p_m['grad_norm'].tolist()}; "
+          f"max rel loss diff {loss_d:.3e}, grad norm {gn_d:.3e}, max "
+          f"|param diff| {param_d:.3e} (tolerances {TOL_STEP_LOSS_REL}, "
+          f"{TOL_STEP_GNORM_REL}, {TOL_STEP_PARAM}); ps-weight equal "
+          f"{weights_equal} [{card}]", flush=True)
+    if not (loss_d <= TOL_STEP_LOSS_REL and gn_d <= TOL_STEP_GNORM_REL
+            and param_d <= TOL_STEP_PARAM and weights_equal):
+        raise AssertionError("seq 11a: kernel-lane and plain-lane steps "
+                             "disagree")
+    del p_state, plain_step
+    torch.cuda.empty_cache()
+
+    r_state, r_m = remat_step(state, *batches[0])
+    torch.cuda.synchronize()
+    diffs = _seq_diff(k_state, k_m, r_state, r_m)
+    exact = (torch.equal(k_m["loss"], r_m["loss"])
+             and torch.equal(k_m["grad_norm"], r_m["grad_norm"])
+             and all(torch.equal(k_state.params[n], r_state.params[n])
+                     for n in k_state.params))
+    print(f"seq 11b: remat vs the kernel step, one step from one state: "
+          f"{'exactly equal' if exact else 'not bit-equal'}; max rel loss "
+          f"diff {diffs[0]:.3e}, grad norm {diffs[1]:.3e}, max |param "
+          f"diff| {diffs[2]:.3e} (tolerance {TOL_REMAT}) [{card}]",
+          flush=True)
+    if max(diffs) > TOL_REMAT:
+        raise AssertionError("seq 11b: remat changed the step")
+    del r_state, state
+    torch.cuda.empty_cache()
+
+    plain = _seq_timed(card, "11a", cfg, step, k_state, batches[1:])
+    torch.cuda.empty_cache()
+    remat = _seq_timed(card, "11b remat", remat_cfg, remat_step, k_state,
+                       batches[1:])
+    torch.cuda.empty_cache()
+    act = [_seq_activation_gb(c, k_state, *batches[0])
+           for c in (cfg, remat_cfg)]
+    print(f"seq 11b: peak memory a step {plain['peak_gb']:.2f} GB (11a) vs "
+          f"{remat['peak_gb']:.2f} GB (remat), set by the gossip round's "
+          f"buffers; one replica's forward and backward above the resting "
+          f"state {act[0]:.2f} GB vs {act[1]:.2f} GB [{card}]", flush=True)
+    if not (remat["peak_gb"] <= plain["peak_gb"] and act[1] < act[0]):
+        raise AssertionError(f"seq 11b: remat peak {remat['peak_gb']:.2f} "
+                             f"GB (a replica's pass {act[1]:.2f} GB) not "
+                             f"below {plain['peak_gb']:.2f} GB "
+                             f"({act[0]:.2f} GB)")
+    return {n: plain["launches"][n] + remat["launches"][n]
+            for n in plain["launches"]}
+
+
+def seq_cli(card: str) -> dict:
+    """11c: ``run/gossip_lm.py`` at the same shape with remat on the
+    kernel lanes, in process with every counter zeroed just before."""
+    import contextlib
+    import io
+
+    import torch
+
+    from stochastic_gradient_push_torch.run import gossip_lm
+
+    dp, sp, b, t = SEQ["dp"], SEQ["sp"], SEQ["batch"], SEQ["seq_len"]
+    n = SEQ["cli_steps"]
+    argv = ["--world_size", str(dp * sp), "--sp", str(sp), "--attn",
+            "ring_flash", "--remat", "True", "--gossip_kernel", "pallas",
+            "--vocab_size", "32000", "--d_model", "768", "--n_layers", "12",
+            "--n_heads", "12", "--d_ff", "3072", "--seq_len", str(t),
+            "--batch_size", str(b), "--num_steps", str(n), "--print_freq",
+            "1", "--corpus_tokens", str(dp * b * t * n + 1), "--seed", "0"]
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = gossip_lm.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("lm: ", "step,")) or line[:1].isdigit():
+            print(f"seq 11c cli: {line}", flush=True)
+    rows = [r.split(",") for r in lines[lines.index(
+        "step,loss,ppl,lr,tokens_per_sec,grad_norm") + 1:]
+        if r[:1].isdigit()]
+    print(f"seq 11c cli: {wall:.2f} s in main, tokens/s "
+          f"{result['tokens_per_sec']:.1f} over the run (the first step's "
+          f"warm-up included), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{json.dumps(launches)} [{card}]", flush=True)
+    if [r[0] for r in rows] != [str(i + 1) for i in range(n)] or not all(
+            len(r) == 6 and all(math.isfinite(float(v)) for v in r)
+            for r in rows):
+        raise AssertionError(f"seq 11c: CSV rows {rows}")
+    want = _seq_want(_lm_config("ring_flash", remat=True), n)
+    if launches != want:
+        raise AssertionError(f"seq 11c: launches {launches}, expected "
+                             f"{want}")
+    return launches
+
+
+def seq_path(card: str) -> dict:
+    """Phase 11: sequence-parallel LM training, dp 2 x sp 4 stacked, with
+    K3-K5 as ring ticks and K2/K1 between the replicas."""
+    import torch
+
+    t0 = time.perf_counter()
+    lanes = seq_lanes(card)
+    torch.cuda.empty_cache()
+    cli = seq_cli(card)
+    torch.cuda.empty_cache()
+    # 11d: the tick kernels at the ticks' shape, diagonal and full
+    tick = SEQ["seq_len"] // SEQ["sp"]
+    print(f"seq 11d: the flash kernels at a ring tick's shape, b{SEQ['batch']}"
+          f" h12 t{tick}", flush=True)
+    cases = ((SEQ["batch"], tick, True), (SEQ["batch"], tick, False))
+    check_flash(card, cases, row_case=None)
+    check_flash_bwd(card, cases, row_case=None)
+    print(f"seq: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {n: lanes[n] + cli[n] for n in lanes}
+
+
 def main() -> int:
     import torch
 
@@ -2228,16 +2541,19 @@ def main() -> int:
     resil_launches = resilience_path(card)
     torch.cuda.empty_cache()
     topo_launches = topology_path(card)
+    torch.cuda.empty_cache()
+    seq_launches = seq_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
     # D-PSGD and OSGP runs, phase 9's kernel-lane steps and CLI run,
-    # phase 10's kernel-lane steps and CLI runs) summed
+    # phase 10's kernel-lane steps and CLI runs, phase 11's timed steps
+    # and CLI run) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
-            topo_launches))
+            topo_launches, seq_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

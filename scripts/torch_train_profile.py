@@ -8,6 +8,7 @@
     python3 scripts/torch_train_profile.py --model resnet50 --world_size 4 \\
         --gossip_kernel pallas [--dtype bf16 --batch 128] [--push_sum False]
         [--wire_dtype int8 --error_feedback True --inject_faults SPEC]
+    python3 scripts/torch_train_profile.py --sp 4 [--remat True]
 
 Builds the training main path of ``chip_smoke.py`` (the d768/L12/h12/
 ff3072/vocab32000 LM, T1024, B8 per rank, fp32 with TF32 off; SGP or
@@ -26,6 +27,14 @@ instead (ResNet-50, 224 px, 1000 classes, ``--batch`` images a rank,
 ``--push_sum False``): the device time split into convolutions (cuDNN),
 the gossip kernels and the rest (BatchNorm, ReLU, pooling, SGD and the
 round's elementwise work).
+
+``--sp 4`` profiles ``chip_smoke.py``'s phase-11 path instead: the same
+LM at world 8 stacked = dp 2 x sp 4, T4096 in 1024-token shards, batch
+2 a replica, ``ring_flash`` attention (``--remat True`` recomputes each
+block), SGP f32 on the gossip kernel lane: the device time split into
+the flash kernels (the ring ticks), the GEMMs, the gossip kernels and
+the rest (the ticks' lse merges and accumulators, the ring shifts,
+LayerNorm, GELU, the loss, SGD and the round's elementwise work).
 
 On the kernel lane (``--gossip_kernel pallas``) it also splits one
 gossip round of the step's own state into its parts, each timed with
@@ -244,6 +253,62 @@ def profile_resnet(args, smi: str) -> dict:
     return result
 
 
+def profile_seq(args, smi: str) -> dict:
+    """Phase 11's sequence-parallel step (``chip_smoke.SEQ``): host and
+    device time a step, the device split into the flash kernels, the
+    GEMMs, the gossip kernels and the rest."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import SEQ, _seq_setup
+    from stochastic_gradient_push_torch.train.lm import init_lm_state
+    from torch_serve_profile import _device_kernels, _window
+
+    if args.sp != SEQ["sp"]:
+        raise SystemExit(f"--sp {args.sp}: the profiled path is phase 11's "
+                         f"sp {SEQ['sp']}")
+    dp, sp, b, t = SEQ["dp"], SEQ["sp"], SEQ["batch"], SEQ["seq_len"]
+    cfg, alg, tx, step = _seq_setup("auto", args.remat == "True", True)
+    state = init_lm_state(cfg, alg, tx, dp, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    toks, tgts = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(dp, sp, b, t // sp))).cuda()
+        for _ in range(2))
+    for _ in range(2):
+        step(state, toks, tgts)
+    torch.cuda.reset_peak_memory_stats()
+    window = _window(lambda: step(state, toks, tgts), args.steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step(state, toks, tgts)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    total = sum(kernels.values())
+    groups = {"flash": lambda n: "flash_" in n,
+              "gossip": lambda n: "edge_" in n,
+              "gemm": lambda n: any(k in n.lower() for k in (
+                  "gemm", "sm90_xmma", "cutlass"))}
+    split = {g: 0.0 for g in (*groups, "rest")}
+    for name, us in kernels.items():
+        g = next((g for g, hit in groups.items() if hit(name)), "rest")
+        split[g] += us / 1e3 / args.steps
+    window["device_ms_per_step_by_group"] = split
+    window["device_share_by_group"] = {
+        g: ms * 1e3 * args.steps / total for g, ms in split.items()}
+    window["tokens_per_sec_host_clock"] = (
+        dp * b * t / (window["host_ms_per_call"] / 1e3))
+    window["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return {"card": smi, "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "config": {"dp": dp, "sp": sp, "seq_len": t, "batch": b,
+                       "attn": "ring_flash", "remat": cfg.remat,
+                       "gossip_lane": alg.transport_kernel_name,
+                       "wire_dtype": "f32"},
+            "seq_step": window}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=5)
@@ -267,6 +332,10 @@ def main(argv=None) -> int:
                    help="resnet50: images per rank")
     p.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
                    help="resnet50: compute dtype")
+    p.add_argument("--sp", type=int, default=1,
+                   help="4: phase 11's dp 2 x sp 4 ring_flash LM step")
+    p.add_argument("--remat", default="False",
+                   help="--sp: recompute each block in the backward")
     p.add_argument("--out", default=os.path.join(
         "artifacts", "torch_train_profile.json"))
     args = p.parse_args(argv)
@@ -290,8 +359,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     world = args.world_size
-    if args.model == "resnet50":
-        result = profile_resnet(args, smi)
+    if args.model == "resnet50" or args.sp > 1:
+        result = (profile_resnet(args, smi) if args.model == "resnet50"
+                  else profile_seq(args, smi))
         out = json.dumps(result, indent=1, sort_keys=True)
         if args.out:
             os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

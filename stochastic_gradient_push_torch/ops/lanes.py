@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["KernelLaneError", "use_kernel"]
+__all__ = ["KernelLaneError", "LANES", "pick_lane", "use_kernel"]
 
 
 class KernelLaneError(RuntimeError):
@@ -29,3 +29,17 @@ def use_kernel(x: torch.Tensor, force_kernel: bool = False) -> bool:
             f"kernel lane forced for a tensor on {x.device}; the CUDA "
             f"kernels take CUDA tensors only")
     return False
+
+
+LANES = ("auto", "kernel", "plain")
+
+
+def pick_lane(x: torch.Tensor, lane: str = "auto") -> bool:
+    """True to launch the kernel for ``x``.  ``lane``: ``auto`` decides
+    by where ``x`` lies (:func:`use_kernel`), ``kernel`` forces the kernel
+    (a CPU tensor raises :class:`KernelLaneError`), ``plain`` runs the
+    plain version wherever ``x`` lies: the card's oracle, asked for by
+    name, never a fallback."""
+    if lane not in LANES:
+        raise ValueError(f"lane {lane!r} is not one of {LANES}")
+    return lane != "plain" and use_kernel(x, lane == "kernel")

@@ -1,16 +1,16 @@
 """Gossip LM CLI — decentralized transformer training on the GPU.
 
 Port of ``stochastic_gradient_push_tpu/run/gossip_lm.py`` for the flat
-data-parallel mesh: SGP or OSGP (push-sum over a flat gossip graph),
-D-PSGD (``--push_sum False``), AD-PSGD (``--bilat True``, bilateral
-averaging over the graph's perfect matchings) or AllReduce, the
-synthetic Markov corpus, torch-semantics SGD under the
-reference's LR schedule.  Run directly, every rank of ``--world_size``
-lives in this process on the stacked transport (``parallel/
-collectives.py``); on one GPU the default world is 1.  Under ``torchrun``
-(``WORLD_SIZE`` > 1 in the environment) each process holds one rank on
-the ``torch.distributed`` transport: NCCL on ``cuda:LOCAL_RANK``, gloo
-with ``--device cpu``; rank 0 prints.
+data-parallel mesh and the ``(gossip, seq)`` mesh: SGP or OSGP
+(push-sum over a flat gossip graph), D-PSGD (``--push_sum False``),
+AD-PSGD (``--bilat True``, bilateral averaging over the graph's perfect
+matchings) or AllReduce, the synthetic Markov corpus, torch-semantics
+SGD under the reference's LR schedule.  Run directly, every rank of
+``--world_size`` lives in this process on the stacked transport
+(``parallel/collectives.py``); on one GPU the default world is 1.
+Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) each process
+holds one rank on the ``torch.distributed`` transport: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``; rank 0 prints.
 
 Example (CPU, the kernels' plain twins)::
 
@@ -37,8 +37,23 @@ its ``gossip plan:`` line; ``--graph_type 6`` is the hierarchical graph.
 health:`` lines, with ``--residual_floor`` arming the reactive global
 average.
 
+``--sp k`` cuts each sequence into ``k`` contiguous shards held
+stacked beside their replica (``parallel/seq.py``): ``--world_size /
+--sp`` replicas gossip, and the graph, the LR scaling, the batches and
+tokens/s count those replicas.  Attention then runs as a ring: ``--attn
+ring`` (plain PyTorch, the default under ``--sp > 1``) or ``ring_flash``
+(the flash kernels as ring ticks); ``--remat True`` recomputes each
+block in the backward.  Under ``torchrun``, ``--sp > 1`` is refused (the
+cross-process sequence ring is not ported).  On the GPU::
+
+    python -m stochastic_gradient_push_torch.run.gossip_lm --world_size 8 \
+      --sp 4 --attn ring_flash --remat True --gossip_kernel pallas \
+      --vocab_size 32000 --d_model 768 --n_layers 12 --n_heads 12 \
+      --d_ff 3072 --seq_len 4096 --batch_size 2
+
 It runs on CUDA unless ``--device cpu``; ``--attn`` defaults to
-``flash`` (the hand-written kernels, forward and backward, on CUDA).
+``flash`` (the hand-written kernels, forward and backward, on CUDA)
+without ``--sp``.
 Ported flags keep the reference's names and defaults.  Every other flag
 of the reference parses with its default and is refused, by name, when
 given another value: none is silently ignored.  Prints the reference's
@@ -61,11 +76,8 @@ UNPORTED = {
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
-    "--attn_block": (0, int, "the TPU attention block rule"),
     "--attn_block_k": (0, int, "the TPU attention block rule"),
     "--precision": ("fp32", str, "bf16 precision"),
-    "--remat": ("False", str, "rematerialization"),
-    "--sp": (1, int, "sequence parallelism"),
     "--tp": (1, int, "tensor parallelism"),
     "--ep": (1, int, "expert parallelism"),
     "--pp": (1, int, "pipeline parallelism"),
@@ -92,7 +104,7 @@ UNPORTED = {
     "--num_processes": (None, int, "multi-host runs"),
     "--process_id": (None, int, "multi-host runs"),
 }
-ATTN_CHOICES = ("full", "blockwise", "flash", "ring", "ring_flash")
+ATTN_CHOICES = (None, "full", "blockwise", "flash", "ring", "ring_flash")
 
 
 def _str_bool(v) -> bool:
@@ -167,9 +179,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_heads", default=8, type=int)
     p.add_argument("--d_ff", default=1024, type=int)
     p.add_argument("--seq_len", default=256, type=int)
-    p.add_argument("--attn", default="flash", choices=ATTN_CHOICES,
-                   help="flash: the CUDA kernels (plain twins on CPU); "
-                        "full: dense attention")
+    p.add_argument("--attn", default=None, choices=ATTN_CHOICES,
+                   help="default: ring when --sp > 1, else flash (the CUDA "
+                        "kernels; plain twins on CPU). ring_flash runs the "
+                        "flash kernels as ring ticks, ring and blockwise "
+                        "are plain PyTorch, full is dense attention")
+    p.add_argument("--attn_block", default=0, type=int,
+                   help="blockwise only: the key block (0 = min(128, "
+                        "seq_len)). flash and ring_flash refuse it: the "
+                        "kernels' tiles are their own and ring_flash takes "
+                        "any shard length (the reference's min(128, shard) "
+                        "rule is its TPU block rule)")
+    p.add_argument("--remat", default="False", type=str,
+                   help="recompute each block's forward in the backward")
+    p.add_argument("--sp", default=1, type=int,
+                   help="sequence-parallel shards per replica, stacked on "
+                        "the device: --world_size / --sp replicas gossip")
     p.add_argument("--grad_accum", default=1, type=int)
     p.add_argument("--world_size", default=None, type=int,
                    help="gossip ranks, all held in this process "
@@ -203,10 +228,37 @@ def refuse_unported(args) -> None:
                 f"{flag} {value}: {feature} is not ported to "
                 f"stochastic_gradient_push_torch yet (a later slice; "
                 f"ROADMAP.md Queue 1)")
-    if args.attn not in ("full", "flash"):
-        raise SystemExit(f"--attn {args.attn} is not ported yet (it comes "
-                         f"with the sequence-parallel LM path); use flash "
-                         f"or full")
+
+
+def resolve_seq_flags(args, world: int, launched: int) -> tuple[int, str]:
+    """``(dp, attn)`` for ``--sp`` over ``world`` ranks, with the
+    reference's checks (run/gossip_lm.py:269-316, 494-519): ``dp = world
+    // sp`` replicas gossip, each holding ``sp`` sequence shards; an unset
+    ``--attn`` is ``ring`` under sp > 1, else ``flash``.  Under
+    ``torchrun``, ``--sp > 1`` is refused: the sequence ring across
+    processes is not ported."""
+    sp = args.sp
+    if sp < 1:
+        raise SystemExit("--sp must be >= 1")
+    if sp > 1 and launched > 1:
+        raise SystemExit(
+            f"--sp {sp} under torchrun: the cross-process sequence ring "
+            f"(one shard per GPU) is not ported yet (ROADMAP.md Queue 1); "
+            f"run the shards stacked with --world_size")
+    if world % sp:
+        raise SystemExit(f"world_size {world} not divisible by sp*tp*ep*pp "
+                         f"{sp}")
+    if args.seq_len % sp:
+        raise SystemExit(f"seq_len {args.seq_len} not divisible by sp {sp}")
+    attn = args.attn or ("ring" if sp > 1 else "flash")
+    if sp > 1 and attn not in ("ring", "ring_flash"):
+        raise SystemExit("--sp > 1 requires ring attention")
+    if args.attn_block and attn != "blockwise":
+        raise SystemExit(
+            f"--attn_block {args.attn_block} with --attn {attn}: the block "
+            f"is the blockwise attention's; the flash kernels' tiles are "
+            f"their own")
+    return world // sp, attn
 
 
 def resolve_staleness_flag(args, overlap: bool) -> None:
@@ -263,6 +315,7 @@ def main(argv=None) -> dict:
     from ..device import resolve_device
     from ..models.transformer import TransformerConfig
     from ..parallel.collectives import DistTransport, StackedTransport
+    from ..parallel.seq import StackedSeq
     from ..parallel.wire import get_codec
     from ..topology import (GRAPH_TOPOLOGIES, TOPOLOGY_NAMES,
                             build_pairing_schedule, build_schedule)
@@ -298,6 +351,8 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     world = args.world_size or 1
     launched = int(os.environ.get("WORLD_SIZE", "1"))
+    dp, attn = resolve_seq_flags(args, launched if launched > 1 else world,
+                                 launched)
     lane = resolve_kernel_flag(args, device, launched)
     if launched > 1:
         import torch.distributed as dist
@@ -309,11 +364,11 @@ def main(argv=None) -> dict:
             device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
             torch.cuda.set_device(device)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-        world = launched
+        world = dp = launched
         transport = DistTransport()
         rows = slice(transport.rank, transport.rank + 1)
     else:
-        transport = StackedTransport(world)
+        transport = StackedTransport(dp)
         rows = slice(None)
     rank0 = launched == 1 or transport.rank == 0
     log0 = print if rank0 else (lambda *a, **k: None)
@@ -323,7 +378,8 @@ def main(argv=None) -> dict:
     cfg = TransformerConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
-        attn_impl=args.attn)
+        attn_impl=attn, attn_block_size=args.attn_block or None,
+        remat=sb(args.remat))
     args.mixing_alpha = parse_mixing_alpha(args.mixing_alpha)
     if args.mixing_alpha is not None and (
             sb(args.all_reduce) or not sb(args.push_sum)):
@@ -334,7 +390,7 @@ def main(argv=None) -> dict:
                     or args.dcn_cost is not None
                     or args.ici_cost is not None)
     if (args.mixing_alpha is not None or fabric_flags) \
-            and (sb(args.bilat) or sb(args.all_reduce) or world < 2):
+            and (sb(args.bilat) or sb(args.all_reduce) or dp < 2):
         raise SystemExit("--topology auto / --mixing_alpha / fabric "
                          "flags (--slice_size/--dcn_cost/--ici_cost) "
                          "plan gossip schedules; they do not apply to "
@@ -343,11 +399,11 @@ def main(argv=None) -> dict:
     # the launch-time plan, before any model work, as in the reference
     plan = None
     synth_plan_config(args)   # refuses stray --synth_* knobs
-    if not sb(args.all_reduce) and not sb(args.bilat) and world > 1:
+    if not sb(args.all_reduce) and not sb(args.bilat) and dp > 1:
         import types
 
         plan = plan_topology(
-            args, world, args.peers_per_itr,
+            args, dp, args.peers_per_itr,
             GRAPH_TOPOLOGIES[args.graph_type], sb(args.push_sum),
             sb(args.overlap), types.SimpleNamespace(
                 info=lambda fmt, *a: log0(fmt % a, flush=True),
@@ -386,11 +442,11 @@ def main(argv=None) -> dict:
                              "push-sum knobs")
         if sb(args.bilat):
             graph = GRAPH_TOPOLOGIES[args.graph_type](
-                world, peers_per_itr=args.peers_per_itr)
+                dp, peers_per_itr=args.peers_per_itr)
             alg = adpsgd(build_pairing_schedule(graph), transport)
         else:
             alg = dpsgd(build_schedule(
-                            graph_of(world, peers_per_itr=args.peers_per_itr),
+                            graph_of(dp, peers_per_itr=args.peers_per_itr),
                             mixing),
                         transport, overlap=sb(args.overlap),
                         staleness=max(1, args.staleness), gossip_kernel=lane,
@@ -398,7 +454,7 @@ def main(argv=None) -> dict:
                         global_avg_every=gae)
     else:
         schedule = build_schedule(
-            graph_of(world, peers_per_itr=args.peers_per_itr), mixing)
+            graph_of(dp, peers_per_itr=args.peers_per_itr), mixing)
         faults = None
         if fault_plan is not None:
             faults = fault_plan.build_masks(schedule,
@@ -415,17 +471,18 @@ def main(argv=None) -> dict:
     tx = sgd(momentum=args.momentum, weight_decay=args.weight_decay,
              nesterov=sb(args.nesterov))
     # the reference's step-based warmup horizon and LR scaling over the
-    # data-parallel ranks
+    # data-parallel replicas (sequence shards do not enlarge the batch)
     warmup_steps = args.warmup_steps or max(args.num_steps // 10, 1)
     itr_per_epoch = max(warmup_steps // WARMUP_EPOCHS, 1)
     lrs = LRSchedule(ref_lr=args.lr, batch_size=args.batch_size,
-                     world_size=world, decay_schedule={},
+                     world_size=dp, decay_schedule={},
                      warmup=sb(args.warmup))
     step = build_lm_train_step(
         make_model(cfg), alg, tx, lrs, itr_per_epoch=itr_per_epoch,
         grad_accum=args.grad_accum,
-        health_axis=transport if args.health_every > 0 else None)
-    held = len(range(world)[rows])
+        health_axis=transport if args.health_every > 0 else None,
+        seq=StackedSeq(args.sp) if cfg.ring else None)
+    held = len(range(dp)[rows])
     state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device)
     log = log0
     monitor = policy = recovery = None
@@ -444,12 +501,12 @@ def main(argv=None) -> dict:
                                 residual_floor=args.residual_floor,
                                 log=line)
         window = None   # (host clock, steps_done) at the last read
-        if world > 1 and hasattr(alg, "global_average"):
+        if dp > 1 and hasattr(alg, "global_average"):
             from ..parallel.wire import wire_stamp
             from ..planner import make_interconnect
 
             policy = RecoveryPolicy(
-                world=world, ppi=args.peers_per_itr,
+                world=dp, ppi=args.peers_per_itr,
                 algorithm="sgp" if sb(args.push_sum) else "dpsgd",
                 topology=plan.topology if plan is not None else None,
                 residual_floor=args.residual_floor,
@@ -467,28 +524,33 @@ def main(argv=None) -> dict:
                   f"{alg.gossip_buckets}"
                   + (f", overlap staleness {alg.staleness}" if alg.overlap
                      else ""))
-    log(f"lm: world {world} ({held} in this process) on {device}; "
-        f"{n_params / 1e6:.2f}M params; attn={args.attn}; "
+    shards = f" = dp {dp} x sp {args.sp}" if args.sp > 1 else ""
+    log(f"lm: world {world}{shards} ({held} in this process) on {device}; "
+        f"{n_params / 1e6:.2f}M params; attn={attn}"
+        f"{' remat' if cfg.remat else ''}; "
         f"algorithm={alg.name}{gossip}", flush=True)
 
     def mean(x) -> float:
-        """Mean over all ranks of a per-held-rank metric (a collective
-        under torchrun: every process calls it)."""
+        """Mean over all replicas of a per-held-replica metric (a
+        collective under torchrun: every process calls it)."""
         return float(transport.allreduce_sum(x.reshape(-1).float())[0]
-                     / world)
+                     / dp)
 
     corpus = synthetic_lm_corpus(args.corpus_tokens,
                                  vocab_size=args.vocab_size, seed=args.seed)
-    tokens_per_step = world * args.batch_size * args.seq_len
+    tokens_per_step = dp * args.batch_size * args.seq_len
     log("step,loss,ppl,lr,tokens_per_sec,grad_norm", flush=True)
     steps_done, epoch, losses = 0, 0, []
     t0 = time.perf_counter()
     while steps_done < args.num_steps:
-        for tokens, targets in lm_batches(corpus, world, 1, args.batch_size,
-                                          args.seq_len,
+        for tokens, targets in lm_batches(corpus, dp, args.sp,
+                                          args.batch_size, args.seq_len,
                                           seed=args.seed + epoch):
-            toks, tgts = (torch.from_numpy(a[rows, 0]).to(device)
-                          for a in (tokens, targets))
+            # [dp, sp, batch, seq_len / sp]; flat models take [dp, batch,
+            # seq_len]
+            toks, tgts = (torch.from_numpy(
+                a[rows] if cfg.ring else a[rows, 0]).to(device)
+                for a in (tokens, targets))
             state, metrics = step(state, toks, tgts)
             steps_done += 1
             if (steps_done % args.print_freq == 0

@@ -18,8 +18,17 @@ de-biased parameters; the module's own weights are never used.
 ``post_step``, as ``train/step.py`` does; the step tells the algorithm
 the LM's reference layout (the int8 wire's blocks).
 
-Not ported yet: the sequence-, tensor-, expert- and pipeline-parallel
-meshes, MoE losses and the eval step.
+Sequence parallelism (the reference's ``(gossip, seq)`` mesh): with a
+ring ``attn_impl`` and ``seq`` (a :class:`~..parallel.seq.StackedSeq`
+of ``sp`` shards) the batches are ``[R, sp, batch, seq_len / sp]``, the
+``R`` ranks being the ``dp`` gossip replicas.  One ``functional_call``
+runs over a replica's shards; its loss is the mean over shards of each
+shard's token mean, so its gradient is the reference's seq-psummed
+gradient divided by ``sp`` (``train/lm.py:368-376``).  ``loss``,
+``ppl`` and ``grad_norm`` are per replica.
+
+Not ported yet: the tensor-, expert- and pipeline-parallel meshes, MoE
+losses and the eval step.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ..algorithms.api import GossipAlgorithm
 from ..models.convert import (init_params, params_from_jax,
                               reference_layout)
 from ..models.transformer import TransformerConfig, TransformerLM
+from ..parallel.seq import StackedSeq
 from .metrics import global_norm
 from .state import TrainState
 
@@ -58,27 +68,42 @@ def make_model(cfg: TransformerConfig) -> TransformerLM:
 def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                         tx, lr_schedule, itr_per_epoch: int,
                         grad_accum: int = 1,
-                        health_axis=None) -> tp.Callable:
+                        health_axis=None,
+                        seq: StackedSeq | None = None) -> tp.Callable:
     """Step ``(state, tokens, targets) -> (state, metrics)`` for token
-    batches ``[R, batch, seq]``.  ``grad_accum`` splits the batch into
-    that many microbatches whose gradients are summed, then divided, as
-    the reference's scan does.  ``health_axis`` (a transport) adds the
-    health signals."""
+    batches ``[R, batch, seq_len]``, or ``[R, sp, batch, seq_len / sp]``
+    with ``seq`` (a ring model's sequence shards).  ``grad_accum`` splits
+    the batch into that many microbatches whose gradients are summed,
+    then divided, as the reference's scan does.  ``health_axis`` (a
+    transport) adds the health signals."""
     from .step import health_metrics
 
     if grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
+    if model.cfg.ring != (seq is not None):
+        raise ValueError(f"attn_impl {model.cfg.attn_impl!r} with seq "
+                         f"{seq!r}: ring and ring_flash run over a "
+                         f"StackedSeq, the other attentions without one")
     layout = reference_layout(model)
     algorithm.bind_layout(layout)
+    batch_dim = 0 if seq is None else 1
+
+    def loss_of(z_r: dict, xs, ys):
+        if seq is None:
+            return lm_loss(functional_call(model, z_r, (xs,)), ys)
+        logits = functional_call(model, z_r, (xs, seq))
+        return torch.stack([lm_loss(lg, y)
+                            for lg, y in zip(logits, ys)]).mean()
 
     def rank_grads(z_r: dict, toks, tgts):
-        if toks.shape[0] % grad_accum:
-            raise ValueError(f"batch {toks.shape[0]} not divisible by "
-                             f"grad_accum {grad_accum}")
+        if toks.shape[batch_dim] % grad_accum:
+            raise ValueError(f"batch {toks.shape[batch_dim]} not divisible "
+                             f"by grad_accum {grad_accum}")
         z_r = {n: p.detach().requires_grad_(True) for n, p in z_r.items()}
         g_sum, loss_sum = None, None
-        for xs, ys in zip(toks.chunk(grad_accum), tgts.chunk(grad_accum)):
-            loss = lm_loss(functional_call(model, z_r, (xs,)), ys)
+        for xs, ys in zip(toks.chunk(grad_accum, batch_dim),
+                          tgts.chunk(grad_accum, batch_dim)):
+            loss = loss_of(z_r, xs, ys)
             g = torch.autograd.grad(loss, list(z_r.values()))
             if g_sum is None:
                 g_sum, loss_sum = list(g), loss.detach()

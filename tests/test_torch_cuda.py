@@ -39,7 +39,13 @@ ps-weight exact, params 1e-6, NaN positions equal.  Hierarchical rounds
 (sync and the overlap split) and a synthesized cycle on the kernel lane
 against the plain and interpret lanes (ps-weight exact; params and
 residual exact on the hierarchical schedule, 1e-6 on the synthesized
-one), and the grouped mean on the card bit-equal to the CPU's.
+one), and the grouped mean on the card bit-equal to the CPU's.  Ring
+flash attention (``ops/ring_flash.py``) on the kernel lane against its
+plain lane on the card, forward and backward (1e-4), at sp 3 and 4 and
+at a shard whose per-row scalars start off 16-byte alignment, with one
+K3 launch a visible (shard, tick) pair in the forward and one K4 and one
+K5 in the backward; and a dp 2 x sp 2 ``ring_flash`` SGP step with remat
+on the card against the same step on the CPU.
 """
 
 import dataclasses
@@ -942,3 +948,77 @@ def test_grouped_mean_on_cuda_matches_cpu(cuda):
             [a.to(cuda) for a in leaves], groups)
         want = tc.StackedTransport(8).group_mean(leaves, groups)
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("sp,causal,b,h,t", [
+    (4, True, 2, 3, 130), (4, False, 2, 3, 130), (3, True, 2, 3, 64),
+    (2, True, 1, 1, 7)])
+def test_ring_flash_kernel_lane_matches_plain_lane(cuda, sp, causal, b, h,
+                                                   t):
+    from stochastic_gradient_push_torch.ops.ring_flash import (
+        ring_flash_attention)
+    from stochastic_gradient_push_torch.parallel.seq import StackedSeq
+
+    g = torch.Generator(device=cuda).manual_seed(sp + t)
+    q, k, v, do = (torch.randn(sp, b, h, t, 64, device=cuda, generator=g)
+                   for _ in range(4))
+    seq = StackedSeq(sp)
+    res = []
+    for lane in ("kernel", "plain"):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = [f.launches for f in (tfa.flash_fwd, tfa.flash_bwd_dq,
+                                       tfa.flash_bwd_dkv)]
+        out = ring_flash_attention(*leaves, seq, causal=causal, lane=lane)
+        grads = torch.autograd.grad(out, leaves, do)
+        launched = [f.launches - n for f, n in zip(
+            (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv), before)]
+        visible = sp * (sp + 1) // 2 if causal else sp * sp
+        assert launched == ([visible] * 3 if lane == "kernel" else [0] * 3)
+        res.append([out.detach(), *grads])
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), *res):
+        assert float((got - ref).abs().max()) <= TOL, name
+
+
+def test_ring_flash_sp_step_on_cuda_matches_cpu(cuda):
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerConfig)
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.parallel.seq import StackedSeq
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.lm import (
+        build_lm_train_step, init_lm_state, make_model)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+
+    cfg = TransformerConfig(vocab_size=96, d_model=128, n_layers=2,
+                            n_heads=2, d_ff=256, attn_impl="ring_flash",
+                            remat=True)
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(2))
+    r = np.random.default_rng(1)
+    batches = [tuple(torch.from_numpy(r.integers(0, 96, (2, 2, 2, 40)))
+                     for _ in range(2)) for _ in range(2)]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        alg = sgp(sched, StackedTransport(2))
+        tx = sgd(0.9, 1e-4)
+        step = build_lm_train_step(make_model(cfg), alg, tx,
+                                   LRSchedule(0.5, 2, 2, {}), 10,
+                                   seq=StackedSeq(2))
+        state = init_lm_state(cfg, alg, tx, 2, seed=3, device=dev)
+        before = tfa.flash_fwd.launches
+        losses = []
+        for toks, tgts in batches:
+            state, m = step(state, toks.to(dev), tgts.to(dev))
+            losses.append(m["loss"].cpu())
+        # dp 2 x L 2 x 3 visible ticks, twice with remat, per step
+        assert tfa.flash_fwd.launches - before == (
+            2 * 2 * 2 * 3 * 2 if dev.type == "cuda" else 0)
+        runs.append((state, torch.stack(losses)))
+    (gs, gl), (cs, cl) = runs
+    torch.testing.assert_close(gl, cl, rtol=1e-5, atol=0)
+    assert torch.equal(gs.gossip.ps_weight.cpu(), cs.gossip.ps_weight)
+    for n in cs.params:
+        assert float((gs.params[n].cpu() - cs.params[n]).abs().max()) <= 1e-5

@@ -11,7 +11,11 @@ The overlap (OSGP) and gossip-kernel flags: ``--overlap True
 resilience flags (``--inject_faults``, ``--health_every``,
 ``--residual_floor``, ``--error_feedback``) run, each printing its
 lines (``gossip faults:``, ``gossip health:``, ``gossip recovery:``),
-and are validated with the reference's messages.
+and are validated with the reference's messages.  Sequence parallelism
+(``--sp``, ``--attn ring|ring_flash|blockwise``, ``--remat``) trains on
+the CPU with the shards stacked, and its sizes are validated with the
+reference's messages; under ``torchrun`` ``--sp > 1`` is refused, naming
+the cross-process sequence ring.
 """
 
 import math
@@ -103,16 +107,16 @@ def test_reference_flags_parse_with_reference_defaults():
             if a.option_strings and a.dest != "help"}
     missing = sorted(set(ref) - set(port))
     assert not missing, f"reference flags the port does not parse: {missing}"
-    differ = {k: (ref[k], port[k]) for k in ref
-              if k != "attn" and ref[k] != port[k]}
+    differ = {k: (ref[k], port[k]) for k in ref if ref[k] != port[k]}
     assert not differ
-    # the one deliberate default change: flash on the card by default
-    assert port["attn"] == "flash" and set(port) - set(ref) == {"device"}
+    # --attn unset resolves to ring under --sp > 1 (as the reference) and
+    # to flash otherwise (the reference picks full off a TPU)
+    assert port["attn"] is None and set(port) - set(ref) == {"device"}
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("--sp", "2"), ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
-    ("--slice_size", "2"), ("--remat", "True"),
+    ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
+    ("--slice_size", "2"),
     ("--precision", "bf16"),
     ("--resume", "True"),
     ("--checkpoint_dir", "/tmp/x"),
@@ -160,14 +164,73 @@ def test_resilience_flags_are_validated(argv, match):
         gossip_lm.main(SMALL + argv)
 
 
+@pytest.mark.parametrize("flag,value", [("--sp", "2"), ("--remat", "True")])
+def test_sequence_flags_run(flag, value, capsys):
+    """Refused until the sequence-parallel slice; now three steps, at
+    world 4 (dp 2 x sp 2 for ``--sp 2``)."""
+    result = gossip_lm.main(SMALL + ["--world_size", "4", flag, value])
+    assert math.isfinite(result["final_loss"])
+    out = capsys.readouterr().out
+    if flag == "--sp":
+        assert "world 4 = dp 2 x sp 2" in out and "attn=ring;" in out
+    else:
+        assert "attn=flash remat;" in out
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--attn", "ring"], "ring"),
     (["--attn", "blockwise"], "blockwise"),
     (["--attn", "ring_flash"], "ring_flash"),
 ])
-def test_unported_modes_raise(argv, match):
+def test_unported_modes_raise(argv, match, capsys):
+    """Once refused by name, these attentions train now: the ring ones at
+    dp 2 x sp 2, blockwise at sp 1; each prints its mode and a finite
+    loss."""
+    sp = [] if match == "blockwise" else ["--sp", "2"]
+    result = gossip_lm.main(SMALL + argv + ["--world_size", "4"] + sp)
+    assert math.isfinite(result["final_loss"])
+    assert f"attn={match};" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--world_size", "2", "--sp", "2", "--attn", "flash"],
+     "--sp > 1 requires ring attention"),
+    (["--world_size", "4", "--sp", "3"],
+     "world_size 4 not divisible by sp"),
+    (["--world_size", "3", "--sp", "3"], "seq_len 32 not divisible by sp 3"),
+    (["--world_size", "2", "--sp", "2", "--attn", "ring_flash",
+      "--attn_block", "8"], "--attn_block 8 with --attn ring_flash"),
+    (["--attn_block", "8"], "--attn_block 8 with --attn flash"),
+    (["--sp", "0"], "--sp must be >= 1"),
+])
+def test_sequence_flags_are_validated(argv, match):
     with pytest.raises(SystemExit, match=match):
         gossip_lm.main(SMALL + argv)
+
+
+def test_sp_under_torchrun_names_the_cross_process_ring(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="--sp 2 under torchrun.*"
+                                         "cross-process sequence ring"):
+        gossip_lm.main(SMALL + ["--sp", "2"])
+
+
+def test_sp_health_lines_keep_the_mass(capsys):
+    """dp 2 x sp 2 with health every step: the gossip runs between the two
+    replicas, and every health line shows ``ps_mass_err 0.0``."""
+    gossip_lm.main(SMALL + ["--world_size", "4", "--sp", "2", "--attn",
+                            "ring_flash", "--health_every", "1"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("gossip health: ")]
+    assert len(lines) == 3
+    assert all('"ps_mass_err": 0.0' in ln for ln in lines)
+
+
+def test_blockwise_takes_its_block(capsys):
+    result = gossip_lm.main(SMALL + ["--attn", "blockwise", "--attn_block",
+                                     "8"])
+    assert math.isfinite(result["final_loss"])
+    assert "attn=blockwise;" in capsys.readouterr().out
 
 
 def test_default_device_is_cuda():

@@ -250,8 +250,14 @@ def test_grad_accum_matches_full_batch():
 
 
 def test_unported_attention_and_algorithm_options_raise():
-    with pytest.raises(NotImplementedError, match="ring"):
-        TransformerConfig(attn_impl="ring")
+    # every attention of the reference is ported; another name, a block
+    # for the kernels' own tiles, or a forced lane off ring_flash is not
+    with pytest.raises(ValueError, match="attn_impl 'paged'"):
+        TransformerConfig(attn_impl="paged")
+    with pytest.raises(ValueError, match="blockwise"):
+        TransformerConfig(attn_impl="flash", attn_block_size=64)
+    with pytest.raises(ValueError, match="ring_flash"):
+        TransformerConfig(attn_impl="flash", attn_lane="kernel")
     sched = build_schedule(NPeerDynamicDirectedExponentialGraph(2))
 
     class OneRankPerProcess:   # not the stacked transport
