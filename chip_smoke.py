@@ -167,11 +167,40 @@
      finite CSV rows, the launches as in 11b;
    - 11d: K3, K4 and K5 at a tick's shape (b2 h12 t1024), causal and
      full, against their plain versions, with SDPA and the bounds.
-12. A JSON line of per-kernel results (the flash rows also carry
-   ``bound_fp32_cores_ms``, the CUDA-core bound; the paged-decode row
-   ``device_ms`` and ``host_ms``), the ``nvidia-smi``
-   name/power-limit line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+12. The LM at bf16 (the reference's ``--precision bf16``: bf16 compute
+   on fp32 parameters, the bf16 forms of K3, K4 and K5; bf16 GEMMs
+   accumulating in fp32, ``allow_bf16_reduced_precision_reduction``
+   off):
+   - 12a: phase 5's step (world 1, T1024 B8, flash) at bf16: one step
+     from one state on the kernel lane, on the plain lane (the kernels'
+     plain twins on the card, ``attn_lane="plain"``: the same function,
+     where ``full`` attention at bf16 takes delta from the unrounded
+     output) and on the fp32 kernel lane; the kernel lane's update no
+     farther from the fp32 step's than twice the plain lane's (relative
+     L2 over every parameter), its loss likewise plus the bf16 noise of
+     a mean over the step's tokens (2**-9 / sqrt(8192)); then 6
+     timed steps, each launching 12 bf16 K3, K4 and K5 and no fp32 flash
+     kernel; step ms and tokens/s beside phase 5's;
+   - 12b: phase 11's dp 2 x sp 4 step (T4096, ring_flash, SGP f32 on
+     K2/K1) at bf16, lanes as in 12a (the plain lane: plain ticks, plain
+     transport), then three timed steps, each launching 240 bf16 K3, K4
+     and K5, no fp32 flash kernel, one K2 and one K1; step ms, tokens/s
+     and peak memory beside 11a's;
+   - 12c: ``run/gossip_lm.py --precision bf16 --world_size 4
+     --gossip_kernel pallas`` at the LM's width (T1024 B8 a rank), 4
+     steps: finite CSV rows, 192 bf16 K3, K4 and K5, four K2 and K1;
+   - 12d: the bf16 forms of K3, K4 and K5 against their plain versions
+     (max |kernel - plain| <= 2**-6 of the largest |plain|, at least
+     1e-4; lse within 1e-4) at b1 t8, b1 t200 (causal and full), B8
+     T1024 causal and the tick shape b2 t1024 (causal and full), each
+     timed beside its plain version, SDPA at bf16 (its backward: forward
+     and backward less forward, replayed from CUDA graphs) and its bound
+     (bf16 rows, fp32 lse/delta, 989 TFLOP/s).
+13. A JSON line of per-kernel results (the fp32 flash rows also carry
+   ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
+   ``max_rel_err``; the paged-decode row ``device_ms`` and ``host_ms``),
+   the ``nvidia-smi`` name/power-limit line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside a checkout of the repository; any failed phase raises.
@@ -248,7 +277,13 @@ PEAK_TF32_FLOP_PER_S = 495e12
 # the card's best rate for fp32-accurate products
 TF32_PASSES = 3
 PEAK_3XTF32_FLOP_PER_S = PEAK_TF32_FLOP_PER_S / TF32_PASSES
+# the bf16 tensor-core rate (dense), the bf16 flash kernels' bound
+PEAK_BF16_FLOP_PER_S = 989e12
 HEAD_DIM = 64
+# phase 12: the same LM at bf16; 12a at phase 5's shape, 12b at phase
+# 11's, 12c the CLI at world 4 (phase 6's shape)
+BF16_STEPS = 6
+BF16_CLI = dict(world=4, seq_len=1024, batch=8, steps=4)
 
 
 def _run(cmd) -> str:
@@ -847,10 +882,11 @@ def engine_vs_dense(engine, requests, card: str) -> None:
 
 def _train_setup(attn_impl: str, world: int = 1, wire=None,
                  overlap: bool = False, staleness: int = 1, peers: int = 1,
-                 buckets: int = 1, gossip_kernel=None):
+                 buckets: int = 1, gossip_kernel=None, **model):
     """The training main path: the d768/L12 LM's step with SGP (or OSGP
     with ``overlap``) over the n-peer exponential graph at ``world``
-    ranks stacked on the card."""
+    ranks stacked on the card; ``model`` sets more of the model's config
+    (``dtype``, ``attn_lane``)."""
     from stochastic_gradient_push_torch.algorithms import sgp
     from stochastic_gradient_push_torch.parallel.collectives import (
         StackedTransport)
@@ -862,7 +898,7 @@ def _train_setup(attn_impl: str, world: int = 1, wire=None,
     from stochastic_gradient_push_torch.train.lr import LRSchedule
     from stochastic_gradient_push_torch.train.state import sgd
 
-    cfg = _lm_config(attn_impl)
+    cfg = _lm_config(attn_impl, **model)
     alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(
         world, peers_per_itr=peers)), StackedTransport(world),
         wire=get_codec(wire), overlap=overlap, staleness=staleness,
@@ -875,7 +911,7 @@ def _train_setup(attn_impl: str, world: int = 1, wire=None,
     return cfg, alg, tx, step
 
 
-def train_path(card: str) -> dict:
+def train_path(card: str) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
@@ -947,21 +983,43 @@ def train_path(card: str) -> dict:
             "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS, "paged_decode": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
-    return launches
+    return launches, {"ms": med_ms, "tokens_per_s": 8 * 1024 / med_ms * 1e3}
+
+
+class _Counter:
+    """One kernel's launch count: the attribute ``attr`` of its wrapper
+    ``fn`` (the flash wrappers count their fp32 and bf16 forms apart)."""
+
+    def __init__(self, fn, attr: str = "launches"):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.fn, self.attr, n)
+
+
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_BF16 = tuple(f"{n}_bf16" for n in FLASH)
 
 
 def _counters():
-    from stochastic_gradient_push_torch.ops.flash_attention import (
-        flash_bwd_dkv, flash_bwd_dq, flash_fwd)
+    from stochastic_gradient_push_torch.ops import flash_attention
     from stochastic_gradient_push_torch.ops.gossip_kernel import (
         gossip_edge_start, gossip_edge_wait)
     from stochastic_gradient_push_torch.serve.paged_attention import (
         paged_decode)
 
-    return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkv": flash_bwd_dkv, "paged_decode": paged_decode,
-            "gossip_edge_start": gossip_edge_start,
-            "gossip_edge_wait": gossip_edge_wait}
+    flash = {n: getattr(flash_attention, n) for n in FLASH}
+    return {**{n: _Counter(fn) for n, fn in flash.items()},
+            **{f"{n}_bf16": _Counter(fn, "launches_bf16")
+               for n, fn in flash.items()},
+            "paged_decode": _Counter(paged_decode),
+            "gossip_edge_start": _Counter(gossip_edge_start),
+            "gossip_edge_wait": _Counter(gossip_edge_wait)}
 
 
 def gossip_train_path(card: str, label: str, wire: str, overlap: bool,
@@ -1057,6 +1115,7 @@ def gossip_train_path(card: str, label: str, wire: str, overlap: bool,
     settled = 0 if staleness == 1 else 1
     attn = GOSSIP_WORLD * cfg.n_layers * GOSSIP_STEPS
     want = {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+            **dict.fromkeys(FLASH_BF16, 0),
             "paged_decode": 0, "gossip_edge_start": buckets * GOSSIP_STEPS,
             "gossip_edge_wait": buckets * (landed + settled) * GOSSIP_STEPS}
     if launches != want:
@@ -2220,11 +2279,12 @@ def _assert_topology_launches(launches: dict, rounds: int) -> None:
 # -- phase 11: sequence parallelism, the flash kernels as ring ticks --------
 
 
-def _seq_setup(lane: str, remat: bool, kernel_gossip: bool):
+def _seq_setup(lane: str, remat: bool, kernel_gossip: bool, dtype=None):
     """The d768/L12 LM with ``ring_flash`` attention (ticks on ``lane``)
-    at dp x sp stacked on the card, SGP on the f32 wire over the n-peer
-    exponential graph, one peer, one bucket, on the gossip kernel lane
-    or the plain transport."""
+    at dp x sp stacked on the card, computing in ``dtype`` (fp32 by
+    default), SGP on the f32 wire over the n-peer exponential graph, one
+    peer, one bucket, on the gossip kernel lane or the plain
+    transport."""
     from stochastic_gradient_push_torch.algorithms import sgp
     from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
     from stochastic_gradient_push_torch.parallel.collectives import (
@@ -2239,7 +2299,8 @@ def _seq_setup(lane: str, remat: bool, kernel_gossip: bool):
     from stochastic_gradient_push_torch.train.state import sgd
 
     dp = SEQ["dp"]
-    cfg = _lm_config("ring_flash", attn_lane=lane, remat=remat)
+    cfg = _lm_config("ring_flash", attn_lane=lane, remat=remat,
+                     **({} if dtype is None else {"dtype": dtype}))
     alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(
         dp, peers_per_itr=1)), StackedTransport(dp), wire=get_codec("f32"),
         gossip_kernel=KernelLane() if kernel_gossip else None)
@@ -2254,12 +2315,16 @@ def _seq_setup(lane: str, remat: bool, kernel_gossip: bool):
 def _seq_want(cfg, steps: int) -> dict:
     """Launches of ``steps`` kernel-lane steps: one K3 a visible (shard,
     tick) pair per replica and layer, again under remat's recompute; one
-    K4 and one K5 each; one K2 and one K1 a step."""
+    K4 and one K5 each, all in the form of ``cfg.dtype`` (none of the
+    other); one K2 and one K1 a step."""
     sp = SEQ["sp"]
     visible = SEQ["dp"] * cfg.n_layers * sp * (sp + 1) // 2
-    return {"flash_fwd": visible * (2 if cfg.remat else 1) * steps,
-            "flash_bwd_dq": visible * steps,
-            "flash_bwd_dkv": visible * steps, "paged_decode": 0,
+    flash = dict(zip(FLASH, (visible * (2 if cfg.remat else 1) * steps,
+                             visible * steps, visible * steps)))
+    bf16 = str(cfg.dtype) == "torch.bfloat16"
+    return {**{n: 0 if bf16 else c for n, c in flash.items()},
+            **{f"{n}_bf16": c if bf16 else 0 for n, c in flash.items()},
+            "paged_decode": 0,
             "gossip_edge_start": steps, "gossip_edge_wait": steps}
 
 
@@ -2333,10 +2398,11 @@ def _seq_timed(card: str, label: str, cfg, step, state, batches) -> dict:
           f"[{card}]", flush=True)
     if not all(np.isfinite(losses).ravel()):
         raise AssertionError(f"seq {label}: non-finite loss {losses}")
-    return {"launches": launches, "peak_gb": peak}
+    return {"launches": launches, "peak_gb": peak, "ms": med_ms,
+            "tokens_per_s": tokens / med_ms * 1e3}
 
 
-def seq_lanes(card: str) -> dict:
+def seq_lanes(card: str) -> tuple[dict, dict]:
     """11a and 11b: one step on the kernel lane, on the plain lane (plain
     ticks, plain transport) and with remat from one state; then three
     timed steps without and with remat from the kernel step's state."""
@@ -2417,7 +2483,7 @@ def seq_lanes(card: str) -> dict:
                              f"below {plain['peak_gb']:.2f} GB "
                              f"({act[0]:.2f} GB)")
     return {n: plain["launches"][n] + remat["launches"][n]
-            for n in plain["launches"]}
+            for n in plain["launches"]}, plain
 
 
 def seq_cli(card: str) -> dict:
@@ -2472,13 +2538,14 @@ def seq_cli(card: str) -> dict:
     return launches
 
 
-def seq_path(card: str) -> dict:
+def seq_path(card: str) -> tuple[dict, dict]:
     """Phase 11: sequence-parallel LM training, dp 2 x sp 4 stacked, with
-    K3-K5 as ring ticks and K2/K1 between the replicas."""
+    K3-K5 as ring ticks and K2/K1 between the replicas.  Returns the main
+    path's launches and 11a's timing."""
     import torch
 
     t0 = time.perf_counter()
-    lanes = seq_lanes(card)
+    lanes, timed = seq_lanes(card)
     torch.cuda.empty_cache()
     cli = seq_cli(card)
     torch.cuda.empty_cache()
@@ -2490,7 +2557,446 @@ def seq_path(card: str) -> dict:
     check_flash(card, cases, row_case=None)
     check_flash_bwd(card, cases, row_case=None)
     print(f"seq: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
-    return {n: lanes[n] + cli[n] for n in lanes}
+    return {n: lanes[n] + cli[n] for n in lanes}, timed
+
+
+# -- phase 12: the LM at bf16 ------------------------------------------------
+
+
+def check_flash_bf16(card: str, cases, row_case=None) -> dict:
+    """12d: the bf16 forms of K3, K4 and K5 against their plain versions
+    on the same bf16 inputs at each ``(b, t, causal)`` of ``cases`` (h12
+    d64), fed as the training step feeds them (the backward takes the
+    forward kernel's out and lse): element by element in bf16 ulps
+    (``bf16_close``: one ulp of max(|plain|, TOL_BF16_FLOOR of the
+    largest |plain|), at most TOL_BF16_SHARE of the elements apart), lse
+    (fp32) within TOL_KERNEL.
+    Each is timed beside its plain version, SDPA at bf16 and its bound
+    (bf16 rows, fp32 lse/delta, at the bf16 tensor-core rate).  Returns
+    the JSON rows of ``row_case``."""
+    import torch
+    import torch.nn.functional as F
+
+    from stochastic_gradient_push_torch.ops.flash_attention import (
+        TOL_BF16_SHARE, TOL_BF16_ULPS, bf16_mismatch,
+        flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_reference,
+        flash_bwd_dq, flash_bwd_dq_reference, flash_fwd)
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for b, t, causal in cases:
+        q, k, v, do = (torch.randn(b, 12, t, HEAD_DIM, device="cuda",
+                                   generator=g).bfloat16() for _ in range(4))
+        ref, ref_lse = flash_attention_reference(q, k, v, causal=causal,
+                                                 return_lse=True)
+        out, lse = flash_fwd(q, k, v, causal=causal, return_lse=True)
+        if out.dtype != torch.bfloat16 or lse.dtype != torch.float32:
+            raise AssertionError(f"flash_fwd bf16: out {out.dtype}, lse "
+                                 f"{lse.dtype}")
+        lse_err = _max_err(lse, ref_lse)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, causal)
+        pairs = {"flash_fwd_bf16": [(out, ref), (flash_fwd(
+                     q, k, v, causal=causal), ref)],
+                 "flash_bwd_dq_bf16": [(flash_bwd_dq(*args),
+                                        flash_bwd_dq_reference(*args))],
+                 "flash_bwd_dkv_bf16": list(zip(
+                     flash_bwd_dkv(*args), flash_bwd_dkv_reference(*args)))}
+        # per kernel: (worst ulps, largest share apart, max abs error)
+        err = {}
+        for name, ps in pairs.items():
+            m = [bf16_mismatch(a, r) for a, r in ps]
+            err[name] = (max(u for u, _ in m), max(sh for _, sh in m),
+                         max(_max_err(a, r) for a, r in ps))
+        err["flash_fwd_bf16"] = (*err["flash_fwd_bf16"][:2], max(
+            err["flash_fwd_bf16"][2], lse_err))
+        print(f"kernel bf16 b{b} h12 t{t} d64 causal={causal}: worst ulps, "
+              f"share apart: " + ", ".join(
+                  f"{n} {u:.3g} {sh:.3e}" for n, (u, sh, _) in err.items()) +
+              f" (tolerance {TOL_BF16_ULPS} ulp, {TOL_BF16_SHARE:.0%}); lse "
+              f"{lse_err:.3e} (tolerance {TOL_KERNEL}) [{card}]", flush=True)
+        bad = [n for n, (u, sh, _) in err.items()
+               if u > TOL_BF16_ULPS or sh > TOL_BF16_SHARE]
+        if bad or lse_err > TOL_KERNEL:
+            raise AssertionError(f"flash bf16 b{b} t={t} causal={causal}: "
+                                 f"{bad} apart from the plain version "
+                                 f"{ {n: err[n][:2] for n in bad} } or lse "
+                                 f"{lse_err} (> {TOL_KERNEL})")
+        fwd_ms = _time_ms(lambda: flash_fwd(q, k, v, causal=causal,
+                                            return_lse=True), 20)
+        fwd_plain = _time_ms(lambda: flash_attention_reference(
+            q, k, v, causal=causal, return_lse=True), 5)
+        dq_ms = _time_ms(lambda: flash_bwd_dq(*args), 20)
+        dkv_ms = _time_ms(lambda: flash_bwd_dkv(*args), 20)
+        dq_plain = _time_ms(lambda: flash_bwd_dq_reference(*args), 5)
+        dkv_plain = _time_ms(lambda: flash_bwd_dkv_reference(*args), 5)
+        sdpa_f = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), 20)
+        qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+        def sdpa_fb():
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+            torch.autograd.grad(o, (qs, ks, vs), do)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
+        # SDPA's backward: its forward and backward less its forward, both
+        # replayed from CUDA graphs (at bf16 the autograd call's host time
+        # exceeds the backward's device time, so back-to-back calls time
+        # the host)
+        sdpa_b = _graph_ms([sdpa_fb], 20) - _graph_ms([sdpa_fwd], 20)
+        bh = b * 12
+        pairs = t * (t + 1) // 2 if causal else t * t
+        row = bh * t * HEAD_DIM * 2          # one bf16 [b, h, t, 64] tensor
+        scal = bh * t * 4                    # one fp32 [b, h, t] tensor
+        work = {"flash_fwd_bf16": (4 * row + scal, 4 * pairs * bh * HEAD_DIM),
+                "flash_bwd_dq_bf16": (5 * row + 2 * scal,
+                                      6 * pairs * bh * HEAD_DIM),
+                "flash_bwd_dkv_bf16": (6 * row + 2 * scal,
+                                       8 * pairs * bh * HEAD_DIM)}
+        times = {"flash_fwd_bf16": (fwd_ms, fwd_plain, sdpa_f),
+                 "flash_bwd_dq_bf16": (dq_ms, dq_plain, sdpa_b),
+                 "flash_bwd_dkv_bf16": (dkv_ms, dkv_plain, sdpa_b)}
+        for name, (ms, plain_ms, lib_ms) in times.items():
+            bound_ms, bound_by = _bound(*work[name], PEAK_BF16_FLOP_PER_S)
+            print(f"kernel {name} b{b} h12 t{t} causal={causal}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bf16 "
+                  f"{'forward' if name == 'flash_fwd_bf16' else 'backward'}"
+                  f" {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{bound_ms / ms:.1%} of it) [{card}]", flush=True)
+            if (b, t, causal) == row_case:
+                ulps, share, abs_err = err[name]
+                rows[name] = dict(
+                    max_abs_err=abs_err, max_ulps=ulps, share_apart=share,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=lib_ms)
+    return rows
+
+
+def _step_dist(a_state, a_m, b_state, b_m, base, f_state) -> tuple:
+    """How far step ``a`` lies from step ``b``, both from the state
+    ``base``: the largest relative loss difference over the ranks, and
+    the L2 distance of the parameters over every parameter (fp64 sums),
+    relative to the fp32 step's update ``|f - base|``."""
+    import torch
+
+    num = den = 0.0
+    for n, p0 in base.params.items():
+        diff = a_state.params[n].double() - b_state.params[n].double()
+        upd = f_state.params[n].double() - p0.double()
+        num += float(torch.sum(diff * diff))
+        den += float(torch.sum(upd * upd))
+    loss = float(((a_m["loss"] - b_m["loss"]).abs() / b_m["loss"].abs())
+                 .max())
+    return loss, (num / den) ** 0.5
+
+
+def _captured_step(step, state, batch):
+    """``step(state, *batch)`` with each attention's inputs, output and
+    gradients kept: ``Attention.attend`` wrapped for the one call, tensor
+    hooks on q, k, v and the output.  Returns the step's result and one
+    record a layer."""
+    from stochastic_gradient_push_torch.models.transformer import Attention
+
+    records, attend = [], Attention.attend
+
+    def keep(self, q, k, v, seq):
+        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach()}
+        for n, x in (("q", q), ("k", k), ("v", v)):
+            x.register_hook(lambda g, n=n: rec.__setitem__(f"d{n}", g))
+        out = attend(self, q, k, v, seq)
+        rec["out"] = out.detach()
+        out.register_hook(lambda g: rec.__setitem__("do", g))
+        records.append(rec)
+        return out
+
+    Attention.attend = keep
+    try:
+        return step(state, *batch), records
+    finally:
+        Attention.attend = attend
+
+
+def _check_captured(card: str, label: str, records, seq=None):
+    """The bf16 kernels as the step ran them, on the step's own tensors:
+    each layer's kernel output and q/k/v gradients against the plain
+    versions on that layer's q, k, v and output gradient: the plain
+    forward, and the plain backward from the kernel's output as the step
+    fed it (delta = rowsum(dO * O) from it), each within ``bf16_close``;
+    with ``seq``, the ring's plain lane, results merged from bf16 ticks
+    (``bf16_close(parts=True)``).  Prints the worst layer."""
+    from stochastic_gradient_push_torch.ops.flash_attention import (
+        TOL_BF16_FLOOR, TOL_BF16_PARTS_FLOOR, TOL_BF16_PARTS_ULPS,
+        TOL_BF16_SHARE, TOL_BF16_ULPS, bf16_mismatch,
+        flash_attention_reference, flash_bwd_dkv_reference,
+        flash_bwd_dq_reference)
+    from stochastic_gradient_push_torch.ops.ring_flash import (
+        _ring_backward, _ring_forward)
+
+    floor, ulps = ((TOL_BF16_FLOOR, TOL_BF16_ULPS) if seq is None else
+                   (TOL_BF16_PARTS_FLOOR, TOL_BF16_PARTS_ULPS))
+    worst = {}
+    for rec in records:
+        q, k, v, do = rec["q"], rec["k"], rec["v"], rec["do"]
+        if seq is None:
+            ref, lse = flash_attention_reference(q, k, v, causal=True,
+                                                 return_lse=True)
+            delta = (do.float() * rec["out"].float()).sum(-1)
+            args = (q, k, v, do, lse, delta, True)
+            want = (ref, flash_bwd_dq_reference(*args),
+                    *flash_bwd_dkv_reference(*args))
+        else:
+            ref, lse = _ring_forward(q, k, v, seq, True, False)
+            want = (ref, *_ring_backward(q, k, v, rec["out"], lse,
+                                         do.contiguous(), seq, True,
+                                         False))
+        for name, w in zip(("out", "dq", "dk", "dv"), want):
+            m = bf16_mismatch(rec[name], w, floor)
+            worst[name] = tuple(map(max, zip(worst.get(name, m), m)))
+    print(f"bf16 {label}: the kernels on the step's own attention tensors, "
+          f"{len(records)} layers, against the plain versions: worst ulps "
+          f"(of max(|plain|, {floor:g} of the largest)), share apart: " +
+          ", ".join(f"{n} {u:.3g} {sh:.3e}" for n, (u, sh) in worst.items())
+          + f" (tolerance {ulps} ulp, {TOL_BF16_SHARE:.0%}) [{card}]",
+          flush=True)
+    bad = {n: m for n, m in worst.items()
+           if m[0] > ulps or m[1] > TOL_BF16_SHARE}
+    if bad:
+        raise AssertionError(f"bf16 {label}: the step's kernels apart from "
+                             f"their plain versions on the step's tensors: "
+                             f"{bad}")
+
+
+def _bf16_lanes(card: str, label: str, step, plain_step, fp32_step, state,
+                batch, tokens: int, seq=None):
+    """One step from ``state`` on the bf16 kernel lane, the bf16 plain
+    lane and the fp32 kernel lane.  The kernels first, on the step's own
+    tensors (:func:`_check_captured`).  Then the step: a one-ulp flip
+    anywhere in a bf16 step moves every later rounding, so two bf16
+    evaluations of a step lie from each other about as far as from the
+    fp32 step (the kernel lane from the plain lane 0.83-0.84 of the plain
+    lane's distance from fp32; with P and dS rounded once, 0.86-0.87),
+    and each lane is held to its distance from the fp32 step: the kernel
+    lane's update no farther from the fp32 update than twice the plain
+    lane's (relative L2 over every parameter), its loss no farther than
+    twice the plain lane's plus the bf16 noise of a mean over ``tokens``
+    token losses (2**-9 / sqrt(tokens) relative); the push-sum weight
+    equal.  ``seq``: the ring's shards (``ring_flash``).  Returns the
+    kernel lane's state."""
+    import torch
+
+    (k_state, k_m), records = _captured_step(step, state, batch)
+    p_state, p_m = plain_step(state, *batch)
+    f_state, f_m = fp32_step(state, *batch)
+    torch.cuda.synchronize()
+    _check_captured(card, label, records, seq)
+    del records
+    k_loss, k_upd = _step_dist(k_state, k_m, f_state, f_m, state, f_state)
+    p_loss, p_upd = _step_dist(p_state, p_m, f_state, f_m, state, f_state)
+    kp_loss, kp_upd = _step_dist(k_state, k_m, p_state, p_m, state, f_state)
+    noise = 2.0 ** -9 / math.sqrt(tokens)
+    weights_equal = torch.equal(k_state.gossip.ps_weight,
+                                p_state.gossip.ps_weight)
+    print(f"bf16 {label}: one step from one state, losses kernel lane "
+          f"{k_m['loss'].tolist()}, plain lane {p_m['loss'].tolist()}, "
+          f"fp32 {f_m['loss'].tolist()}; grad norms "
+          f"{k_m['grad_norm'].tolist()}, {p_m['grad_norm'].tolist()}, "
+          f"{f_m['grad_norm'].tolist()}; update (L2 over the fp32 update) "
+          f"from the fp32 step: kernel lane {k_upd:.3e}, plain lane "
+          f"{p_upd:.3e} (tolerance twice the plain lane's), kernel lane "
+          f"from the plain lane {kp_upd:.3e}; losses from the fp32 step: "
+          f"kernel lane {k_loss:.3e}, plain lane {p_loss:.3e} rel "
+          f"(tolerance twice the plain lane's + {noise:.3e}), kernel from "
+          f"plain {kp_loss:.3e}; ps-weight equal {weights_equal} [{card}]",
+          flush=True)
+    if not (k_upd <= 2 * p_upd and k_loss <= 2 * p_loss + noise
+            and weights_equal):
+        raise AssertionError(f"bf16 {label}: kernel lane update {k_upd} or "
+                             f"loss {k_loss} from the fp32 step, over twice "
+                             f"the plain lane's {p_upd}, {p_loss} (+ "
+                             f"{noise}), or ps-weight unequal")
+    return k_state
+
+
+def bf16_train_path(card: str, fp32: dict) -> dict:
+    """12a: phase 5's LM and step at bf16 (world 1, T1024 B8, flash): the
+    lanes from one state (the plain lane: the kernels' plain twins on the
+    card, ``attn_lane="plain"``), then BF16_STEPS kernel-lane steps with
+    every counter zeroed just before, each launching 12 bf16 K3, K4 and
+    K5 and no fp32 flash kernel; its timing printed beside phase 5's
+    ``fp32``."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.train.lm import init_lm_state
+
+    cfg, alg, tx, step = _train_setup("flash", dtype=torch.bfloat16)
+    *_, plain_step = _train_setup("flash", dtype=torch.bfloat16,
+                                  attn_lane="plain")
+    *_, fp32_step = _train_setup("flash")
+    state = init_lm_state(cfg, alg, tx, 1, seed=0, device="cuda")
+    rng = np.random.default_rng(12)
+    batches = [tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, 8, 1024))).cuda() for _ in range(2))
+        for _ in range(BF16_STEPS + 1)]
+    print(f"bf16 12a: SGP world 1, d{cfg.d_model} L{cfg.n_layers} "
+          f"h{cfg.n_heads} ff{cfg.d_ff} vocab{cfg.vocab_size} T1024 B8, "
+          f"bf16 compute on fp32 params, flash", flush=True)
+    state = _bf16_lanes(card, "12a", step, plain_step, fp32_step, state,
+                        batches[0], 8 * 1024)
+    del plain_step, fp32_step
+    torch.cuda.empty_cache()
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    want = {n: 0 for n in counters}
+    want.update(dict.fromkeys(FLASH_BF16, cfg.n_layers))
+    losses, step_s = [], []
+    for toks, tgts in batches[1:]:
+        before = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        state, m = step(state, toks, tgts)
+        losses.append(float(m["loss"][0]))   # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        got = {n: c.launches - before[n] for n, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"bf16 12a: launches {got} a step, "
+                                 f"expected {want}")
+    launches = {n: c.launches for n, c in counters.items()}
+    med_ms = float(np.median(step_s)) * 1e3
+    print(f"bf16 12a: {BF16_STEPS} steps, losses "
+          f"{json.dumps([round(x, 6) for x in losses])}, step ms "
+          f"{json.dumps([round(x * 1e3, 2) for x in step_s])}, median "
+          f"{med_ms:.2f} ms, {8 * 1024 / med_ms * 1e3:.1f} tokens/s (phase 5 "
+          f"fp32: {fp32['ms']:.2f} ms, {fp32['tokens_per_s']:.1f} "
+          f"tokens/s), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"launches a step {json.dumps(want)} [{card}]", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bf16 12a: non-finite loss {losses}")
+    return launches
+
+
+def bf16_seq_path(card: str, fp32: dict) -> dict:
+    """12b: phase 11's dp 2 x sp 4 step at bf16 (ring_flash, SGP f32 on
+    K2/K1): the lanes from one state, then three timed steps, each
+    launching 240 bf16 K3, K4 and K5, no fp32 flash kernel, one K2 and
+    one K1; their timing printed beside 11a's ``fp32``."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.parallel.seq import StackedSeq
+    from stochastic_gradient_push_torch.train.lm import init_lm_state
+
+    dp, sp, b, t = SEQ["dp"], SEQ["sp"], SEQ["batch"], SEQ["seq_len"]
+    bf16 = torch.bfloat16
+    cfg, alg, tx, step = _seq_setup("auto", False, True, dtype=bf16)
+    *_, plain_step = _seq_setup("plain", False, False, dtype=bf16)
+    *_, fp32_step = _seq_setup("auto", False, True)
+    rng = np.random.default_rng(13)
+    batches = [tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(dp, sp, b, t // sp))).cuda()
+        for _ in range(2)) for _ in range(1 + SEQ["steps"])]
+    state = init_lm_state(cfg, alg, tx, dp, seed=0, device="cuda")
+    print(f"bf16 12b: world {dp * sp} stacked = dp {dp} x sp {sp}, "
+          f"T{t} B{b}/replica, bf16 compute, ring_flash, SGP f32 wire on "
+          f"the gossip kernel lane", flush=True)
+    state = _bf16_lanes(card, "12b", step, plain_step, fp32_step, state,
+                        batches[0], b * t, StackedSeq(sp))
+    del plain_step, fp32_step
+    torch.cuda.empty_cache()
+    timed = _seq_timed(card, "12b", cfg, step, state, batches[1:])
+    print(f"bf16 12b: median {timed['ms']:.2f} ms, "
+          f"{timed['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{timed['peak_gb']:.2f} GB (11a fp32: {fp32['ms']:.2f} ms, "
+          f"{fp32['tokens_per_s']:.1f} tokens/s, {fp32['peak_gb']:.2f} GB) "
+          f"[{card}]", flush=True)
+    return timed["launches"]
+
+
+def bf16_cli(card: str) -> dict:
+    """12c: ``run/gossip_lm.py --precision bf16 --world_size 4
+    --gossip_kernel pallas`` at the LM's full width, in process with
+    every counter zeroed just before: finite CSV rows, the bf16 flash
+    kernels launched (4 ranks x 12 layers a step, no fp32 one), one K2
+    and one K1 a step."""
+    import contextlib
+    import io
+
+    import torch
+
+    from stochastic_gradient_push_torch.run import gossip_lm
+
+    w, t, b, n = (BF16_CLI[k] for k in ("world", "seq_len", "batch",
+                                        "steps"))
+    argv = ["--precision", "bf16", "--world_size", str(w), "--gossip_kernel",
+            "pallas", "--vocab_size", "32000", "--d_model", "768",
+            "--n_layers", "12", "--n_heads", "12", "--d_ff", "3072",
+            "--seq_len", str(t), "--batch_size", str(b), "--num_steps",
+            str(n), "--print_freq", "1", "--corpus_tokens",
+            str(w * b * t * n + 1), "--seed", "0"]
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = gossip_lm.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("lm: ", "step,")) or line[:1].isdigit():
+            print(f"bf16 12c cli: {line}", flush=True)
+    rows = [r.split(",") for r in lines[lines.index(
+        "step,loss,ppl,lr,tokens_per_sec,grad_norm") + 1:]
+        if r[:1].isdigit()]
+    print(f"bf16 12c cli: {wall:.2f} s in main, tokens/s "
+          f"{result['tokens_per_sec']:.1f} over the run (the first step's "
+          f"warm-up included); launches {json.dumps(launches)} [{card}]",
+          flush=True)
+    if "precision bf16;" not in out.getvalue() or [r[0] for r in rows] != [
+            str(i + 1) for i in range(n)] or not all(
+            len(r) == 6 and all(math.isfinite(float(v)) for v in r)
+            for r in rows):
+        raise AssertionError(f"bf16 12c: CSV rows {rows}")
+    want = {name: 0 for name in counters}
+    want.update(dict.fromkeys(FLASH_BF16, w * 12 * n))
+    want["gossip_edge_start"] = want["gossip_edge_wait"] = n
+    if launches != want:
+        raise AssertionError(f"bf16 12c: launches {launches}, expected "
+                             f"{want}")
+    return launches
+
+
+def bf16_path(card: str, fp32_train: dict, fp32_seq: dict
+              ) -> tuple[dict, dict]:
+    """Phase 12: LM training at bf16 through the bf16 forms of K3-K5,
+    timed beside phase 5's ``fp32_train`` and 11a's ``fp32_seq``.
+    Returns the main-path runs' launches and 12d's JSON rows (B8 T1024
+    causal)."""
+    import torch
+
+    t0 = time.perf_counter()
+    runs = [bf16_train_path(card, fp32_train)]
+    torch.cuda.empty_cache()
+    runs.append(bf16_seq_path(card, fp32_seq))
+    torch.cuda.empty_cache()
+    runs.append(bf16_cli(card))
+    torch.cuda.empty_cache()
+    tick = SEQ["seq_len"] // SEQ["sp"]
+    rows = check_flash_bf16(card, ((1, 8, True), (1, 200, True),
+                                   (1, 200, False), (8, 1024, True),
+                                   (SEQ["batch"], tick, True),
+                                   (SEQ["batch"], tick, False)),
+                            row_case=(8, 1024, True))
+    print(f"bf16: phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {n: sum(r[n] for r in runs) for n in runs[0]}
+    return launches, rows
 
 
 def main() -> int:
@@ -2505,6 +3011,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in fp32 throughout, as XLA's do (phase 12)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
@@ -2526,7 +3034,7 @@ def main() -> int:
     engine_vs_dense(engine, requests, card)
     del engine
     torch.cuda.empty_cache()
-    train_launches = train_path(card)
+    train_launches, train_timed = train_path(card)
     torch.cuda.empty_cache()
     sgp_launches = gossip_train_path(card, "sgp", "int8", False, 1, 1, 1, 1)
     torch.cuda.empty_cache()
@@ -2542,18 +3050,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     topo_launches = topology_path(card)
     torch.cuda.empty_cache()
-    seq_launches = seq_path(card)
+    seq_launches, seq_timed = seq_path(card)
+    torch.cuda.empty_cache()
+    bf16_launches, bf16_rows = bf16_path(card, train_timed, seq_timed)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
     # D-PSGD and OSGP runs, phase 9's kernel-lane steps and CLI run,
     # phase 10's kernel-lane steps and CLI runs, phase 11's timed steps
-    # and CLI run) summed
+    # and CLI run, phase 12's timed steps and CLI run) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
-            topo_launches, seq_launches))
+            topo_launches, seq_launches, bf16_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"
@@ -2584,6 +3094,16 @@ def main() -> int:
         dict(name="gossip_edge_wait", route="cuda", source=gossip_src,
              replaces=f"{gossip}:513", launches=total("gossip_edge_wait"),
              **gossip_row["gossip_edge_wait"]),
+        dict(name="flash_fwd_bf16", route="cuda",
+             source="stochastic_gradient_push_torch/csrc/flash_fwd.cu",
+             replaces=f"{flash}:110", launches=total("flash_fwd_bf16"),
+             **bf16_rows["flash_fwd_bf16"]),
+        dict(name="flash_bwd_dq_bf16", route="cuda", source=bwd_src,
+             replaces=f"{flash}:227", launches=total("flash_bwd_dq_bf16"),
+             **bf16_rows["flash_bwd_dq_bf16"]),
+        dict(name="flash_bwd_dkv_bf16", route="cuda", source=bwd_src,
+             replaces=f"{flash}:270", launches=total("flash_bwd_dkv_bf16"),
+             **bf16_rows["flash_bwd_dkv_bf16"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

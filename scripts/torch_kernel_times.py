@@ -6,11 +6,13 @@
 Runs ``chip_smoke.py``'s ``check_flash``, ``check_paged`` and
 ``check_flash_bwd`` on the ``stochastic_gradient_push_torch`` package
 found under ``--root`` (default: this checkout), with this checkout's
-timers and bounds, and prints their lines and one ``KERNELS {...}`` JSON
-line.  To compare two commits on one card, unpack the other into a
-git-ignored directory (``git archive <rev> | tar -x -C build/parent``)
-and run both in one call, in turns (parent, this, this, parent), each in
-its own process.  A tree that fails ``-Xptxas -v``'s spill check is still
+timers and bounds, and, for a tree with the bf16 forms of the flash
+kernels, ``check_flash_bf16`` at B8 H12 T1024 causal and at the ring
+tick's shape (b2 h12 t1024, causal and full); prints their lines and one
+``KERNELS {...}`` JSON line.  To compare two commits on one card, unpack
+the other into a git-ignored directory (``git archive <rev> | tar -x -C
+build/parent``) and run both in one call, in turns (parent, this, this,
+parent), each in its own process.  A tree that fails ``-Xptxas -v``'s spill check is still
 timed, so an older kernel can be measured, and its ``KERNELS`` line says
 so under ``"ptxas"``.  Needs a CUDA card and ``nvcc``.
 """
@@ -64,6 +66,12 @@ def main() -> int:
         print(f"ptxas spill check {ptxas}", flush=True)
     rows = {phase: getattr(smoke, phase)(card) for phase in (
         "check_flash", "check_paged", "check_flash_bwd")}
+    from stochastic_gradient_push_torch.ops import flash_attention
+
+    if torch.bfloat16 in getattr(flash_attention, "FORMS", {}):
+        rows["check_flash_bf16"] = smoke.check_flash_bf16(
+            card, ((8, 1024, True), (2, 1024, True), (2, 1024, False)),
+            row_case=(8, 1024, True))
     print("KERNELS " + json.dumps({"tree": root, "card": card,
                                    "ptxas": ptxas, **rows}), flush=True)
     return 0

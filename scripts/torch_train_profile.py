@@ -9,6 +9,7 @@
         --gossip_kernel pallas [--dtype bf16 --batch 128] [--push_sum False]
         [--wire_dtype int8 --error_feedback True --inject_faults SPEC]
     python3 scripts/torch_train_profile.py --sp 4 [--remat True]
+    python3 scripts/torch_train_profile.py [--sp 4] --precision bf16
 
 Builds the training main path of ``chip_smoke.py`` (the d768/L12/h12/
 ff3072/vocab32000 LM, T1024, B8 per rank, fp32 with TF32 off; SGP or
@@ -35,6 +36,11 @@ block), SGP f32 on the gossip kernel lane: the device time split into
 the flash kernels (the ring ticks), the GEMMs, the gossip kernels and
 the rest (the ticks' lse merges and accumulators, the ring shifts,
 LayerNorm, GELU, the loss, SGD and the round's elementwise work).
+
+``--precision bf16`` profiles either LM path at bf16 (phase 12's 12a and
+12b: bf16 compute on fp32 parameters, the bf16 forms of the flash
+kernels, the round in fp32).  The LM paths also list the step's
+heaviest kernels by device time (``top_kernels``).
 
 On the kernel lane (``--gossip_kernel pallas``) it also splits one
 gossip round of the step's own state into its parts, each timed with
@@ -253,6 +259,19 @@ def profile_resnet(args, smi: str) -> dict:
     return result
 
 
+def _dtype(args):
+    """The LM's compute dtype for ``--precision``."""
+    import torch
+
+    return torch.bfloat16 if args.precision == "bf16" else torch.float32
+
+
+def _top(kernels: dict, steps: int, n: int = 12) -> dict:
+    """The ``n`` heaviest kernels, ms a step (names cut to 90 chars)."""
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:n]
+    return {name[:90]: us / 1e3 / steps for name, us in top}
+
+
 def profile_seq(args, smi: str) -> dict:
     """Phase 11's sequence-parallel step (``chip_smoke.SEQ``): host and
     device time a step, the device split into the flash kernels, the
@@ -269,7 +288,8 @@ def profile_seq(args, smi: str) -> dict:
         raise SystemExit(f"--sp {args.sp}: the profiled path is phase 11's "
                          f"sp {SEQ['sp']}")
     dp, sp, b, t = SEQ["dp"], SEQ["sp"], SEQ["batch"], SEQ["seq_len"]
-    cfg, alg, tx, step = _seq_setup("auto", args.remat == "True", True)
+    cfg, alg, tx, step = _seq_setup("auto", args.remat == "True", True,
+                                    dtype=_dtype(args))
     state = init_lm_state(cfg, alg, tx, dp, seed=0, device="cuda")
     rng = np.random.default_rng(0)
     toks, tgts = (torch.from_numpy(rng.integers(
@@ -289,7 +309,7 @@ def profile_seq(args, smi: str) -> dict:
     groups = {"flash": lambda n: "flash_" in n,
               "gossip": lambda n: "edge_" in n,
               "gemm": lambda n: any(k in n.lower() for k in (
-                  "gemm", "sm90_xmma", "cutlass"))}
+                  "gemm", "sm90_xmma", "cutlass", "nvjet"))}
     split = {g: 0.0 for g in (*groups, "rest")}
     for name, us in kernels.items():
         g = next((g for g, hit in groups.items() if hit(name)), "rest")
@@ -297,6 +317,7 @@ def profile_seq(args, smi: str) -> dict:
     window["device_ms_per_step_by_group"] = split
     window["device_share_by_group"] = {
         g: ms * 1e3 * args.steps / total for g, ms in split.items()}
+    window["top_kernels"] = _top(kernels, args.steps)
     window["tokens_per_sec_host_clock"] = (
         dp * b * t / (window["host_ms_per_call"] / 1e3))
     window["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -304,6 +325,7 @@ def profile_seq(args, smi: str) -> dict:
             "cuda": torch.version.cuda,
             "config": {"dp": dp, "sp": sp, "seq_len": t, "batch": b,
                        "attn": "ring_flash", "remat": cfg.remat,
+                       "precision": args.precision,
                        "gossip_lane": alg.transport_kernel_name,
                        "wire_dtype": "f32"},
             "seq_step": window}
@@ -336,6 +358,8 @@ def main(argv=None) -> int:
                    help="4: phase 11's dp 2 x sp 4 ring_flash LM step")
     p.add_argument("--remat", default="False",
                    help="--sp: recompute each block in the backward")
+    p.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
+                   help="lm: compute dtype (fp32 parameters either way)")
     p.add_argument("--out", default=os.path.join(
         "artifacts", "torch_train_profile.json"))
     args = p.parse_args(argv)
@@ -354,6 +378,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in fp32 throughout, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -373,7 +399,7 @@ def main(argv=None) -> int:
         "flash", world=world, wire=args.wire_dtype,
         overlap=args.overlap == "True", staleness=args.staleness,
         peers=args.peers_per_itr, buckets=args.gossip_buckets,
-        gossip_kernel=args.gossip_kernel)
+        gossip_kernel=args.gossip_kernel, dtype=_dtype(args))
     state = init_lm_state(cfg, alg, tx, world, seed=0, device="cuda")
     rng = np.random.default_rng(0)
     toks, tgts = (torch.from_numpy(rng.integers(
@@ -397,12 +423,14 @@ def main(argv=None) -> int:
         window[f"{label}_kernels_ms_per_step"] = {
             n[:90]: us / 1e3 / args.steps for n, us in mine.items()}
         window[f"{label}_share_of_device_time"] = sum(mine.values()) / total
+    window["top_kernels"] = _top(kernels, args.steps)
     window["tokens_per_sec_host_clock"] = (
         world * 8 * 1024 / (window["host_ms_per_call"] / 1e3))
     window["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     result = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "config": {"world_size": world,
+                         "precision": args.precision,
                          "gossip_lane": alg.transport_kernel_name,
                          "wire_dtype": args.wire_dtype,
                          "overlap": args.overlap == "True",

@@ -6,22 +6,43 @@ Port of ``stochastic_gradient_push_tpu/models/transformer.py``
 fp32 LayerNorm (eps 1e-6, the flax default), tanh GELU (the
 ``jax.nn.gelu`` default), dense causal softmax attention in fp32.
 
+``dtype`` is the reference's ``TransformerConfig.dtype`` (its
+``--precision``): the compute type, with fp32 parameters (flax's
+``param_dtype``).  At ``torch.bfloat16`` every Dense casts its input,
+kernel and bias to bf16 and multiplies in bf16 (:class:`Dense`), the
+embedding table is cast to bf16 before the gather (:class:`Embed`), so
+the residual stream is bf16; LayerNorm runs in fp32 on the widened input
+(:class:`LayerNorm`) and its fp32 output feeds the next bf16 Dense;
+rotary embeddings rotate in fp32 and round back; ``full`` attention
+takes fp32 scores of the bf16 q/k, an fp32 softmax and ``p @ v`` in
+fp32, then rounds to bf16 (the flash kernels' semantics); the logits
+are widened to fp32.  The casts are explicit, as the reference's are
+(``torch.autocast`` would keep the embedding, and with it the residual
+stream, in fp32).  ``torch.float64`` computes everything that is fp32
+at the default in fp64 instead: the exact oracle the parity tests
+measure rounding against.
+
 Submodule and parameter names follow the flax tree, so a JAX parameter
 path maps onto one module path (``models/convert.py``):
 
-    embed                       nn.Embedding      embed/embedding
-    block_{i}.ln1, .ln2         nn.LayerNorm      block_{i}/ln1/{scale,bias}
-    block_{i}.attn.{q,k,v,o}    nn.Linear, no bias  block_{i}/attn/q/kernel
-    block_{i}.up, .down         nn.Linear         block_{i}/up/{kernel,bias}
-    ln_f                        nn.LayerNorm      ln_f/{scale,bias}
-    lm_head                     nn.Linear, no bias  lm_head/kernel
+    embed                       Embed             embed/embedding
+    block_{i}.ln1, .ln2         LayerNorm         block_{i}/ln1/{scale,bias}
+    block_{i}.attn.{q,k,v,o}    Dense, no bias    block_{i}/attn/q/kernel
+    block_{i}.up, .down         Dense             block_{i}/up/{kernel,bias}
+    ln_f                        LayerNorm         ln_f/{scale,bias}
+    lm_head                     Dense, no bias    lm_head/kernel
+
+(``Dense``, ``Embed`` and ``LayerNorm`` are ``nn.Linear``,
+``nn.Embedding`` and ``nn.LayerNorm`` with the reference's casts.)
 
 ``attn_impl`` picks the attention: ``"full"`` is the dense causal
 softmax (the plain oracle the serving engine is held against, and the
 plain lane of a training step); ``"flash"`` routes every layer through
 ``ops/flash_attention.py::flash_attention`` (the CUDA kernels, forward
-and backward, on CUDA tensors); ``"blockwise"`` is the online-softmax
-merge over key blocks of ``attn_block_size`` (default ``min(128, t)``,
+and backward, on CUDA tensors; ``attn_lane="plain"`` runs their plain
+twins there instead, the oracle with the kernels' own semantics);
+``"blockwise"`` is the online-softmax merge over key blocks of
+``attn_block_size`` (default ``min(128, t)``,
 ``parallel/ring_attention.py``).  ``"ring"`` and ``"ring_flash"`` run
 over the sequence shards of a :class:`~..parallel.seq.StackedSeq`:
 ``forward(tokens [sp, B, t], seq)``, each shard at global positions
@@ -52,11 +73,16 @@ from ..ops.ring_flash import ring_flash_attention
 from ..parallel.ring_attention import blockwise_attention, ring_attention
 from ..parallel.seq import StackedSeq
 
-__all__ = ["TransformerConfig", "TransformerLM", "rope", "rope_tok"]
+__all__ = ["DTYPES", "Dense", "Embed", "LayerNorm", "TransformerConfig",
+           "TransformerLM", "rope", "rope_tok"]
 
 LN_EPS = 1e-6        # flax.linen.LayerNorm default
+# compute types: the reference's fp32 and bf16 (--precision), and fp64 (the
+# tests' exact oracle)
+DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 ATTN_IMPLS = ("full", "blockwise", "flash", "ring", "ring_flash")
 RING_IMPLS = ("ring", "ring_flash")
+LANE_IMPLS = ("flash", "ring_flash")      # the attentions with a kernel
 ROPE_BASE = 10000.0
 
 
@@ -69,10 +95,13 @@ class TransformerConfig:
     d_ff: int = 2048
     attn_impl: str = "full"     # full | blockwise | flash | ring | ring_flash
     attn_block_size: int | None = None   # blockwise only; None: min(128, t)
-    attn_lane: str = "auto"     # ring_flash ticks: auto | kernel | plain
+    attn_lane: str = "auto"     # flash, ring_flash: auto | kernel | plain
     remat: bool = False         # recompute each block in the backward
+    dtype: torch.dtype = torch.float32   # compute type; params stay fp32
 
     def __post_init__(self):
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype {self.dtype} is not one of {DTYPES}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} is not one of "
                              f"{ATTN_IMPLS}")
@@ -83,8 +112,9 @@ class TransformerConfig:
         if self.attn_lane not in LANES:
             raise ValueError(f"attn_lane {self.attn_lane!r} is not one of "
                              f"{LANES}")
-        if self.attn_lane != "auto" and self.attn_impl != "ring_flash":
-            raise ValueError("attn_lane picks the ring_flash ticks' lane")
+        if self.attn_lane != "auto" and self.attn_impl not in LANE_IMPLS:
+            raise ValueError(f"attn_lane picks the flash kernels' lane of "
+                             f"{LANE_IMPLS}")
 
     @property
     def ring(self) -> bool:
@@ -93,6 +123,54 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in fp64 if it is fp64: the type the reference
+    computes its fp32 parts in (LayerNorm, softmax, logits, loss)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+class Dense(nn.Linear):
+    """flax's ``nn.Dense(dtype=compute)`` on fp32 parameters: the input,
+    kernel and bias cast to ``compute``, the product rounded to
+    ``compute``, then the bias added in ``compute`` (two roundings, as
+    flax's dot and add; a fused ``addmm`` would round once, and at bf16 an
+    output that cancels against its bias would land many ulps away).  At
+    fp32 the casts are no-ops."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool = True,
+                 compute: torch.dtype = torch.float32):
+        super().__init__(n_in, n_out, bias=bias)
+        self.compute = compute
+
+    def forward(self, x):
+        dt = self.compute
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class Embed(nn.Embedding):
+    """flax's ``nn.Embed(dtype=compute)``: the fp32 table cast to
+    ``compute`` before the gather."""
+
+    def __init__(self, n: int, e: int, compute: torch.dtype = torch.float32):
+        super().__init__(n, e)
+        self.compute = compute
+
+    def forward(self, tokens):
+        return F.embedding(tokens, self.weight.to(self.compute))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm(dtype=float32)``: computed in fp32 on the
+    widened input (fp64 stays fp64), whatever the stream's type."""
+
+    def __init__(self, e: int):
+        super().__init__(e, eps=LN_EPS)
+
+    def forward(self, x):
+        return super().forward(_wide(x))
 
 
 def _rope_angles(positions: torch.Tensor, d: int):
@@ -131,8 +209,8 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         for name in ("q", "k", "v", "o"):
-            self.add_module(name, nn.Linear(cfg.d_model, cfg.d_model,
-                                            bias=False))
+            self.add_module(name, Dense(cfg.d_model, cfg.d_model,
+                                        bias=False, compute=cfg.dtype))
 
     def split(self, y: torch.Tensor) -> torch.Tensor:
         """[..., T, E] -> [..., H, T, D]."""
@@ -142,7 +220,8 @@ class Attention(nn.Module):
     def attend(self, q, k, v, seq):
         cfg = self.cfg
         if cfg.attn_impl == "flash":
-            return flash_attention(q, k, v.contiguous(), causal=True)
+            return flash_attention(q, k, v.contiguous(), causal=True,
+                                   lane=cfg.attn_lane)
         if cfg.attn_impl == "ring_flash":
             return ring_flash_attention(q, k, v, seq, causal=True,
                                         lane=cfg.attn_lane)
@@ -152,9 +231,12 @@ class Attention(nn.Module):
         if cfg.attn_impl == "blockwise":
             return blockwise_attention(
                 q, k, v, min(cfg.attn_block_size or 128, t), causal=True)
+        # the reference's full attention: scores, softmax and p @ v in
+        # fp32 (at bf16, of the bf16 q/k/v), rounded once to the input type
         mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-        s = (q @ k.transpose(-1, -2)) * cfg.head_dim ** -0.5
-        return torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1) @ v
+        s = (_wide(q) @ _wide(k).transpose(-1, -2)) * cfg.head_dim ** -0.5
+        p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+        return (p @ _wide(v)).to(q.dtype)
 
     def forward(self, x, positions, seq=None):
         q = rope(self.split(self.q(x)), positions)
@@ -166,11 +248,11 @@ class Attention(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.ln1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
+        self.ln1 = LayerNorm(cfg.d_model)
         self.attn = Attention(cfg)
-        self.ln2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        self.up = nn.Linear(cfg.d_model, cfg.d_ff)
-        self.down = nn.Linear(cfg.d_ff, cfg.d_model)
+        self.ln2 = LayerNorm(cfg.d_model)
+        self.up = Dense(cfg.d_model, cfg.d_ff, compute=cfg.dtype)
+        self.down = Dense(cfg.d_ff, cfg.d_model, compute=cfg.dtype)
 
     def mlp(self, h: torch.Tensor) -> torch.Tensor:
         return self.down(F.gelu(self.up(h), approximate="tanh"))
@@ -197,18 +279,19 @@ def _remat_block(blk: Block, x, positions, seq):
 
 class TransformerLM(nn.Module):
     """Causal LM.  ``forward(tokens)`` with int tokens [B, T] returns fp32
-    logits [B, T, vocab]; with a ring ``attn_impl``, ``forward(tokens,
-    seq)`` takes a replica's shards ``[sp, B, t]`` and returns ``[sp, B,
-    t, vocab]``."""
+    logits [B, T, vocab] (fp64 at ``dtype=torch.float64``); with a ring
+    ``attn_impl``, ``forward(tokens, seq)`` takes a replica's shards
+    ``[sp, B, t]`` and returns ``[sp, B, t, vocab]``."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, compute=cfg.dtype)
         for i in range(cfg.n_layers):
             self.add_module(f"block_{i}", Block(cfg))
-        self.ln_f = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
+        self.ln_f = LayerNorm(cfg.d_model)
+        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, bias=False,
+                             compute=cfg.dtype)
 
     @property
     def blocks(self) -> list[Block]:
@@ -232,4 +315,4 @@ class TransformerLM(nn.Module):
         for blk in self.blocks:
             x = (_remat_block(blk, x, positions, seq) if self.cfg.remat
                  else blk(x, positions, seq))
-        return self.lm_head(self.ln_f(x)).float()
+        return _wide(self.lm_head(self.ln_f(x)))

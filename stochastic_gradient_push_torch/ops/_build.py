@@ -63,10 +63,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # library (= source) name -> {C entry point: argtypes}; the stream is the
 # last pointer
 KERNELS = {
-    "flash_fwd": {"sgp_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
+    "flash_fwd": {"sgp_flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+                  "sgp_flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _P)},
     "flash_bwd": {
         "sgp_flash_bwd_dq_f32": (_P,) * 7 + (_I, _I, _I, _P),
         "sgp_flash_bwd_dkv_f32": (_P,) * 8 + (_I, _I, _I, _P),
+        "sgp_flash_bwd_dq_bf16": (_P,) * 7 + (_I, _I, _I, _P),
+        "sgp_flash_bwd_dkv_bf16": (_P,) * 8 + (_I, _I, _I, _P),
     },
     "paged_decode": {"sgp_paged_decode_f32":
                      (_P,) * 7 + (_I,) * 7 + (_P,)},

@@ -51,6 +51,12 @@ cross-process sequence ring is not ported).  On the GPU::
       --vocab_size 32000 --d_model 768 --n_layers 12 --n_heads 12 \
       --d_ff 3072 --seq_len 4096 --batch_size 2
 
+``--precision bf16`` (the reference's flag) computes the model in
+bf16 on fp32 parameters (``models/transformer.py``): bf16 matmuls, the
+bf16 forms of the flash kernels, LayerNorm and the loss in fp32; the
+optimizer and the gossip round stay fp32.  It combines with every
+``--attn``, ``--sp``, ``--remat``, algorithm and ``--gossip_kernel``.
+
 It runs on CUDA unless ``--device cpu``; ``--attn`` defaults to
 ``flash`` (the hand-written kernels, forward and backward, on CUDA)
 without ``--sp``.
@@ -77,7 +83,6 @@ UNPORTED = {
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
     "--attn_block_k": (0, int, "the TPU attention block rule"),
-    "--precision": ("fp32", str, "bf16 precision"),
     "--tp": (1, int, "tensor parallelism"),
     "--ep": (1, int, "expert parallelism"),
     "--pp": (1, int, "pipeline parallelism"),
@@ -105,6 +110,10 @@ UNPORTED = {
     "--process_id": (None, int, "multi-host runs"),
 }
 ATTN_CHOICES = (None, "full", "blockwise", "flash", "ring", "ring_flash")
+# --precision -> the model's compute dtype (the reference's cfg.dtype,
+# run/gossip_lm.py:543 there); parameters, momentum and the gossip round
+# stay fp32
+PRECISIONS = {"fp32": "float32", "bf16": "bfloat16"}
 
 
 def _str_bool(v) -> bool:
@@ -192,6 +201,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "rule is its TPU block rule)")
     p.add_argument("--remat", default="False", type=str,
                    help="recompute each block's forward in the backward")
+    p.add_argument("--precision", default="fp32", choices=list(PRECISIONS),
+                   help="compute dtype of the model (bf16: bf16 matmuls, "
+                        "embedding and residual stream, the bf16 flash "
+                        "kernels; LayerNorm, softmax and loss in fp32); "
+                        "parameters, optimizer state and gossip stay fp32")
     p.add_argument("--sp", default=1, type=int,
                    help="sequence-parallel shards per replica, stacked on "
                         "the device: --world_size / --sp replicas gossip")
@@ -379,7 +393,8 @@ def main(argv=None) -> dict:
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
         attn_impl=attn, attn_block_size=args.attn_block or None,
-        remat=sb(args.remat))
+        remat=sb(args.remat),
+        dtype=getattr(torch, PRECISIONS[args.precision]))
     args.mixing_alpha = parse_mixing_alpha(args.mixing_alpha)
     if args.mixing_alpha is not None and (
             sb(args.all_reduce) or not sb(args.push_sum)):
@@ -527,7 +542,7 @@ def main(argv=None) -> dict:
     shards = f" = dp {dp} x sp {args.sp}" if args.sp > 1 else ""
     log(f"lm: world {world}{shards} ({held} in this process) on {device}; "
         f"{n_params / 1e6:.2f}M params; attn={attn}"
-        f"{' remat' if cfg.remat else ''}; "
+        f"{' remat' if cfg.remat else ''}; precision {args.precision}; "
         f"algorithm={alg.name}{gossip}", flush=True)
 
     def mean(x) -> float:

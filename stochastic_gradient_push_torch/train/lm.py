@@ -27,6 +27,11 @@ shard's token mean, so its gradient is the reference's seq-psummed
 gradient divided by ``sp`` (``train/lm.py:368-376``).  ``loss``,
 ``ppl`` and ``grad_norm`` are per replica.
 
+The model computes in its config's ``dtype`` (the reference's
+``--precision``: bf16 compute on fp32 parameters, ``models/
+transformer.py``); the state (parameters, momentum, the gossip state)
+and the loss stay fp32 at any dtype.
+
 Not ported yet: the tensor-, expert- and pipeline-parallel meshes, MoE
 losses and the eval step.
 """
@@ -51,8 +56,9 @@ __all__ = ["lm_loss", "build_lm_train_step", "init_lm_state", "make_model"]
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy, written as ``logsumexp -
-    target_logit`` as in the reference."""
-    logits = logits.float()
+    target_logit`` as in the reference, in fp32 (fp64 logits stay
+    fp64)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - tgt).mean()

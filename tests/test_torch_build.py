@@ -116,7 +116,7 @@ def test_header_edit_leaves_other_libraries_alone(tmp_path, monkeypatch):
     header = csrc / "tf32_mma.cuh"
     header.write_text('#include "inner.cuh"\n' + header.read_text())
     assert _build._local_headers(csrc / "flash_fwd.cu") == [
-        header, csrc / "inner.cuh"]
+        csrc / "bf16_mma.cuh", header, csrc / "inner.cuh"]
     assert _build._local_headers(csrc / "paged_decode.cu") == []
     before = {n: _build._lib_path(n) for n in ("flash_fwd", "paged_decode")}
     (csrc / "inner.cuh").write_text("// inner, edited\n")
@@ -134,3 +134,23 @@ def test_flash_sources_share_the_header_and_keep_no_copy():
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "tf32_mma.cuh"' in src
         assert not [h for h in helpers if h in src], name
+
+
+def test_flash_sources_share_the_bf16_header_and_keep_no_copy():
+    # the bf16 forms of K3-K5 take their mma, ldmatrix, packing and
+    # staging helpers from csrc/bf16_mma.cuh; an edit there rebuilds both
+    # flash libraries and no other
+    header = (_build.CSRC / "bf16_mma.cuh").read_text()
+    helpers = ("uint32_t pack(", "void split(", "void ldsm_x4(",
+               "void ldsm_x4_t(", "void rows_by_tile(", "void acc_by_tile(",
+               "m16n8k16.row.col.f32.bf16.bf16.f32")
+    assert all(h in header for h in helpers)
+    for name in ("flash_fwd", "flash_bwd"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "bf16_mma.cuh"' in src
+        assert not [h for h in helpers if h in src], name
+        assert _build.CSRC / "bf16_mma.cuh" in _build._local_headers(
+            _build.CSRC / f"{name}.cu")
+    for name in ("paged_decode", "gossip_edge"):
+        assert _build.CSRC / "bf16_mma.cuh" not in _build._local_headers(
+            _build.CSRC / f"{name}.cu")

@@ -46,6 +46,21 @@ at a shard whose per-row scalars start off 16-byte alignment, with one
 K3 launch a visible (shard, tick) pair in the forward and one K4 and one
 K5 in the backward; and a dp 2 x sp 2 ``ring_flash`` SGP step with remat
 on the card against the same step on the CPU.
+
+bf16: the bf16 forms of the flash kernels against their plain twins on
+the same bf16 inputs (b1 t8, b1 t200, B8 T1024 and the ring tick's b2
+t1024, causal and full, plus the tile edges), element by element in bf16
+ulps (``tfa.bf16_close``: one ulp of max(|plain|, 2**-8 of the largest
+|plain|), at most 1 % of the elements apart; at t = 1 the q and k
+gradients are fp32 summation noise around an exact 0, held to 1e-4) and
+lse within 1e-4, counted as bf16 launches and never as fp32 ones; the
+bf16 ring on the kernel lane against its plain lane, at a shard whose
+fp32 per-row scalars start off 16-byte alignment, and the bf16 autograd
+Function on CUDA against the CPU lane, both results merged from
+bf16-rounded parts (``bf16_close(parts=True)``: two ulps of the largest
+|plain|, 1 % apart); and a world-2 SGP step at bf16 on
+the card against the CPU, no farther from it than twice the CPU's bf16
+step is from its fp32 step.
 """
 
 import dataclasses
@@ -1022,3 +1037,159 @@ def test_ring_flash_sp_step_on_cuda_matches_cpu(cuda):
     assert torch.equal(gs.gossip.ps_weight.cpu(), cs.gossip.ps_weight)
     for n in cs.params:
         assert float((gs.params[n].cpu() - cs.params[n]).abs().max()) <= 1e-5
+
+
+# -- bf16 -------------------------------------------------------------------
+
+
+def _bf16_case(cuda, t, seed, b=2, h=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(b, h, t, 64, device=cuda,
+                             generator=g).bfloat16() for _ in range(4))
+
+
+BF16_SHAPES = [(1, 12, 8), (1, 12, 200), (8, 12, 1024), (2, 12, 1024),
+               *((2, 3, t) for t in (1, 15, 16, 17, 63, 65, 129, 300))]
+
+
+@pytest.mark.parametrize("b,h,t", BF16_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_kernels_match_plain(cuda, b, h, t, causal):
+    q, k, v, do = _bf16_case(cuda, t, 60 + t, b=b, h=h)
+    fns = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [(f.launches, f.launches_bf16) for f in fns]
+    out, lse = tfa.flash_fwd(q, k, v, causal=causal, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal)
+    got = (out, tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in fns] == [
+        (a, n + 1) for a, n in before]
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                                 return_lse=True)
+    want = (ref, tfa.flash_bwd_dq_reference(*args),
+            *tfa.flash_bwd_dkv_reference(*args))
+    assert lse.dtype == torch.float32
+    assert float((lse - ref_lse).abs().max()) <= TOL
+    for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.bfloat16
+        if t == 1 and name in ("dq", "dk"):
+            # exactly 0 (dS = P * (dP - delta) cancels): fp32 noise on
+            # both sides
+            assert max(float(x.float().abs().max()),
+                       float(y.float().abs().max())) <= TOL, name
+        else:
+            assert tfa.bf16_close(x, y), (name, tfa.bf16_mismatch(x, y))
+
+
+def test_flash_bf16_wrappers_refuse_mixed_types(cuda):
+    q, k, v, do = _bf16_case(cuda, 64, 70)
+    lse = torch.zeros(q.shape[:3], device=cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_fwd(q, k.float(), v)
+    with pytest.raises(TypeError, match="lse must be torch.float32"):
+        tfa.flash_bwd_dq(q, k, v, do, lse.bfloat16(), lse)
+    with pytest.raises(TypeError, match="do must be torch.bfloat16"):
+        tfa.flash_bwd_dkv(q, k, v, do.float(), lse, lse)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_autograd_on_cuda_matches_cpu_lane(cuda, causal):
+    q, k, v, do = _bf16_case(cuda, 100, 71)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        out = tfa.flash_attention(*leaves, causal=causal)
+        res.append([out.detach(),
+                    *torch.autograd.grad(out, leaves, do.to(dev))])
+    for got, ref in zip(*res):
+        # the backward on each lane takes its own lane's rounded output
+        assert got.dtype == torch.bfloat16
+        assert tfa.bf16_close(got.cpu(), ref, parts=True), (
+            tfa.bf16_mismatch(got.cpu(), ref, tfa.TOL_BF16_PARTS_FLOOR))
+
+
+@pytest.mark.parametrize("sp,causal,b,h,t", [
+    (4, True, 2, 3, 130), (4, False, 2, 3, 130), (2, True, 1, 1, 7)])
+def test_ring_flash_bf16_kernel_lane_matches_plain_lane(cuda, sp, causal, b,
+                                                        h, t):
+    # (2, True, 1, 1, 7): shard 1's slice of the stacked fp32 lse and
+    # delta starts 28 bytes in, off the kernels' 16-byte alignment
+    from stochastic_gradient_push_torch.ops.ring_flash import (
+        ring_flash_attention)
+    from stochastic_gradient_push_torch.parallel.seq import StackedSeq
+
+    g = torch.Generator(device=cuda).manual_seed(sp + t + 1)
+    q, k, v, do = (torch.randn(sp, b, h, t, 64, device=cuda,
+                               generator=g).bfloat16() for _ in range(4))
+    seq = StackedSeq(sp)
+    fns = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    res = []
+    for lane in ("kernel", "plain"):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = [(f.launches, f.launches_bf16) for f in fns]
+        out = ring_flash_attention(*leaves, seq, causal=causal, lane=lane)
+        grads = torch.autograd.grad(out, leaves, do)
+        launched = [(f.launches - a, f.launches_bf16 - n)
+                    for f, (a, n) in zip(fns, before)]
+        visible = sp * (sp + 1) // 2 if causal else sp * sp
+        assert launched == [(0, visible if lane == "kernel" else 0)] * 3
+        res.append([out.detach(), *grads])
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), *res):
+        assert got.dtype == torch.bfloat16
+        assert tfa.bf16_close(got, ref, parts=True), (
+            name, tfa.bf16_mismatch(got, ref, tfa.TOL_BF16_PARTS_FLOOR))
+
+
+def test_bf16_lm_step_on_cuda_matches_cpu(cuda):
+    """A world-2 SGP step of the LM at bf16 (flash) on the card against
+    the same step on the CPU: no farther apart than twice the CPU's bf16
+    step is from its fp32 step (the GEMMs round in bf16 at other places
+    on the two devices), and the card's step at least half that distance
+    from the CPU's fp32 step (bf16 ran on the card); the push-sum weight
+    equal."""
+    from stochastic_gradient_push_torch.algorithms import sgp
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerConfig)
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.lm import (
+        build_lm_train_step, init_lm_state, make_model)
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import sgd
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    r = np.random.default_rng(2)
+    toks, tgts = (torch.from_numpy(r.integers(0, 96, (2, 2, 80)))
+                  for _ in range(2))
+    runs = {}
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.bfloat16),
+                       ("cpu", torch.float32)):
+        cfg = TransformerConfig(vocab_size=96, d_model=128, n_layers=2,
+                                n_heads=2, d_ff=256, attn_impl="flash",
+                                dtype=dtype)
+        alg = sgp(build_schedule(NPeerDynamicDirectedExponentialGraph(2)),
+                  StackedTransport(2))
+        tx = sgd(0.9, 1e-4)
+        step = build_lm_train_step(make_model(cfg), alg, tx,
+                                   LRSchedule(0.5, 2, 2, {}), 10)
+        state = init_lm_state(cfg, alg, tx, 2, seed=4, device=dev)
+        before = tfa.flash_fwd.launches_bf16
+        state, m = step(state, toks.to(dev), tgts.to(dev))
+        assert tfa.flash_fwd.launches_bf16 - before == (
+            2 * 2 if str(dev) != "cpu" else 0)
+        runs[(str(dev) != "cpu", dtype)] = (state, m["loss"].cpu())
+    (gs, gl), (cs, cl), (fs, fl) = (runs[(True, torch.bfloat16)],
+                                    runs[(False, torch.bfloat16)],
+                                    runs[(False, torch.float32)])
+    assert float((gl - cl).abs().max()) <= 2 * float((cl - fl).abs().max())
+    assert torch.equal(gs.gossip.ps_weight.cpu(), cs.gossip.ps_weight)
+
+    def dist(a, b):
+        return max(float((a.params[n].cpu() - b.params[n]).abs().max())
+                   for n in b.params)
+
+    assert dist(gs, cs) <= 2 * dist(cs, fs)
+    assert dist(gs, fs) >= 0.5 * dist(cs, fs)

@@ -20,6 +20,7 @@ import torch
 
 from stochastic_gradient_push_torch.ops import flash_attention as tfa
 from stochastic_gradient_push_torch.ops.lanes import KernelLaneError
+from torch_bf16 import assert_bf16_close, from_jax, jax_bf16, to_bf16
 
 torch.set_num_threads(1)
 
@@ -221,10 +222,10 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
 def test_forced_kernel_on_cpu_raises_typed_error():
     q, k, v = (torch.from_numpy(x) for x in _qkv(0, 8))
     with pytest.raises(KernelLaneError):
-        tfa.flash_attention(q, k, v, causal=True, force_kernel=True)
+        tfa.flash_attention(q, k, v, causal=True, lane="kernel")
     with pytest.raises(KernelLaneError):
         tfa.flash_attention(q.requires_grad_(), k, v, causal=True,
-                            force_kernel=True)
+                            lane="kernel")
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -328,3 +329,246 @@ def test_3xtf32_split_keeps_fp32_accuracy(causal):
         *(torch.from_numpy(x) for x in (q, k, v, do, lse, delta)),
         causal=causal).numpy()
     assert np.abs(dq3 - dq_plain).max() <= TOL_KERNEL
+
+
+# -- bf16 -------------------------------------------------------------------
+# The reference's kernels take bf16 q/k/v: they widen them to fp32,
+# accumulate in fp32, keep lse and delta in fp32 and round each output
+# once to bf16.  The port's plain twins do the same: outputs equal or one
+# bf16 ulp apart (``tests/torch_bf16.py``), lse within 1e-5 relative.
+
+LSE_RTOL = 1e-5
+
+
+def _qkv_bf16(seed, t, b=1, h=2, d=32, n=3):
+    r = np.random.default_rng(seed)
+    return tuple(to_bf16(r.standard_normal((b, h, t, d)).astype(np.float32))
+                 for _ in range(n))
+
+
+@pytest.mark.parametrize("t,causal", CASES)
+def test_plain_bf16_matches_jax_interpret_kernel(t, causal):
+    from stochastic_gradient_push_tpu.ops.flash_attention import (
+        flash_attention_forward)
+
+    q, k, v = _qkv_bf16(900 + t, t)
+    blk = min(64, t)
+    out, lse = flash_attention_forward(
+        *map(jax_bf16, (q, k, v)), causal=causal, block_q=blk, block_k=blk,
+        interpret=True, return_lse=True)
+    got, got_lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                                 return_lse=True)
+    assert got_lse.dtype == torch.float32
+    assert_bf16_close(got, from_jax(out), name="out")
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse),
+                               rtol=LSE_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("t,causal", CASES)
+def test_plain_bf16_backward_matches_jax_interpret_kernels(t, causal):
+    # the port's plain backward fed the reference forward's own bf16 out
+    # and fp32 lse, against the dQ and dK/dV Pallas kernels at bf16
+    from stochastic_gradient_push_tpu.ops.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+
+    q, k, v, do = _qkv_bf16(1000 + t, t, n=4)
+    blk = min(64, t)
+    jq, jk, jv, jdo = map(jax_bf16, (q, k, v, do))
+    out, lse = flash_attention_forward(jq, jk, jv, causal=causal,
+                                       block_q=blk, block_k=blk,
+                                       interpret=True, return_lse=True)
+    want = flash_attention_backward(jq, jk, jv, out, lse, jdo,
+                                    causal=causal, block_q=blk, block_k=blk,
+                                    interpret=True)
+    got = tfa.flash_attention_backward_reference(
+        q, k, v, from_jax(out), from_jax(lse), do, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert_bf16_close(g, from_jax(w), name=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_bf16_takes_any_length(causal):
+    # t = 136 (no block of the reference's divides it): the plain twin
+    # against an fp64 oracle on the same bf16 inputs, rounded to bf16
+    q, k, v = _qkv_bf16(7, 136)
+    want = torch.from_numpy(_dense64(*(x.float().numpy() for x in (q, k, v)),
+                                     causal)).to(torch.bfloat16)
+    assert_bf16_close(tfa.flash_attention_reference(q, k, v, causal=causal),
+                       want, name="out")
+
+
+@pytest.mark.parametrize("t,causal", [(8, True), (37, True), (136, False)])
+def test_bf16_grads_flow_through_flash_attention_on_cpu(t, causal):
+    # the autograd Function at bf16: bf16 residuals, bf16 grads, equal to
+    # the plain backward fed the plain forward's out and lse
+    q, k, v, do = _qkv_bf16(t + 55, t, n=4)
+    a = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tfa.flash_attention(*a, causal=causal)
+    assert out.dtype == torch.bfloat16 and out.grad_fn is not None
+    got = torch.autograd.grad(out, a, do)
+    ref, lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                             return_lse=True)
+    want = tfa.flash_attention_backward_reference(q, k, v, ref, lse, do,
+                                                  causal=causal)
+    assert torch.equal(out.detach(), ref)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernels feed it to a product: hi + lo, ``hi =
+    bf16(x)``, ``lo = bf16(x - hi)``."""
+    hi = _round_bf16(x)
+    return hi + _round_bf16(x - hi)
+
+
+def _fwd_bf16_model(q, k, v, causal, operand=_split_bf16):
+    """The bf16 forward kernel's arithmetic: q * d**-0.5 in bf16 (exact),
+    per 64-key tile S = q.K^T in fp32, the online softmax in fp32, P fed
+    to P.V as ``operand(P)`` (a hi/lo bf16 pair), o rounded once to
+    bf16."""
+    t = q.shape[-2]
+    qs, kf, vf = (q.float() * 0.125).to(torch.bfloat16).float(), k.float(), \
+        v.float()
+    out = torch.zeros(q.shape)
+    m = torch.full(q.shape[:-1], float("-inf"))
+    den = torch.zeros(q.shape[:-1])
+    qi = torch.arange(t)[:, None]
+    for k0 in range(0, t, 64):
+        s = qs @ kf[..., k0:k0 + 64, :].transpose(-1, -2)
+        if causal:
+            s = s.masked_fill(k0 + torch.arange(s.shape[-1]) > qi,
+                              float("-inf"))
+        mx = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - mx[..., None])
+        alpha = torch.exp(m - mx)
+        den = den * alpha + p.sum(-1)
+        out = out * alpha[..., None] + operand(p) @ vf[..., k0:k0 + 64, :]
+        m = mx
+    return (out / den[..., None]).to(torch.bfloat16)
+
+
+def _bwd_bf16_model(q, k, v, do, lse, delta, causal, operand=_split_bf16):
+    """The bf16 backward kernels' arithmetic: P and dS in fp32, fed to
+    dV = P^T.dO, dQ = dS.K and dK = dS^T.q as ``operand(P)`` and
+    ``operand(dS)`` (hi/lo bf16 pairs); each gradient rounded once to
+    bf16."""
+    t = q.shape[-2]
+    s = q.float() @ k.float().transpose(-1, -2)
+    p = torch.exp(s * 0.125 - lse[..., None])
+    if causal:
+        p = p.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), 0.0)
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])
+    ds, p = operand(ds), operand(p)
+    return tuple(x.to(torch.bfloat16) for x in (
+        ds @ k.float() * 0.125, ds.transpose(-1, -2) @ q.float() * 0.125,
+        p.transpose(-1, -2) @ do.float()))
+
+
+@pytest.mark.parametrize("t,causal", [(8, True), (200, True), (200, False),
+                                      (1024, True), (1024, False)])
+def test_bf16_kernel_rounding_stays_within_tolerance(t, causal):
+    # a model of the bf16 kernels' arithmetic against the plain twins, as
+    # the card holds them (tfa.bf16_close).  With P and dS as hi/lo pairs
+    # the kernels round nearly the same fp32 values to bf16 as the twins:
+    # ~0.2 % of the elements land an ulp apart (a sum near a rounding
+    # boundary), none farther.  P and dS rounded once to bf16 (the first
+    # design) move ~40 % of the elements, by up to tens of ulps, and fail
+    # both parts of the check.
+    q, k, v, do = _qkv_bf16(1100 + t, t, b=2, h=2, d=64, n=4)
+    ref, lse = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                             return_lse=True)
+    delta = (do.float() * ref.float()).sum(-1)
+    want = (ref, tfa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal),
+            *tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal))
+    for operand in (_split_bf16, _round_bf16):
+        got = (_fwd_bf16_model(q, k, v, causal, operand),
+               *_bwd_bf16_model(q, k, v, do, lse, delta, causal, operand))
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+            ulps, share = tfa.bf16_mismatch(g, w)
+            if operand is _split_bf16:
+                assert tfa.bf16_close(g, w), (name, ulps, share)
+            else:
+                assert ulps > 2 * tfa.TOL_BF16_ULPS, (name, ulps)
+                assert share > 10 * tfa.TOL_BF16_SHARE, (name, share)
+
+
+def test_forced_bf16_kernel_on_cpu_raises_typed_error():
+    q, k, v = _qkv_bf16(0, 8, d=64)
+    with pytest.raises(KernelLaneError):
+        tfa.flash_attention(q, k, v, causal=True, lane="kernel")
+    with pytest.raises(KernelLaneError):
+        tfa.flash_attention(q.requires_grad_(), k, v, causal=True,
+                            lane="kernel")
+    lse = torch.zeros(q.shape[:3])
+    before = [(f.launches, f.launches_bf16) for f in (
+        tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dq(q, k, v, q, lse, lse, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dkv(q, k, v, q, lse, lse, causal=True)
+    assert before == [(f.launches, f.launches_bf16) for f in (
+        tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)]
+
+
+def test_mixed_dtypes_raise():
+    q, k, v = _qkv_bf16(0, 8, d=64)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_attention(q, k.float(), v, causal=True)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_attention_reference(q.float(), k, v)
+
+
+class _FakeLib:
+    """Stands in for the built libraries: records each entry point it is
+    called through and returns cudaSuccess."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("sgp_flash_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append(name) or 0
+
+
+@pytest.mark.parametrize("dtype,form", [(torch.float32, "f32"),
+                                        (torch.bfloat16, "bf16")])
+def test_wrappers_dispatch_by_dtype_with_the_build_mocked(monkeypatch, dtype,
+                                                          form):
+    # each wrapper takes the entry point of its inputs' form and counts the
+    # launch under that form alone: a bf16 tensor never reaches an _f32
+    # entry point (nor is it widened for one), an fp32 one never a _bf16
+    # one.  The build is mocked (no nvcc here) and the tensors pass for
+    # CUDA ones.
+    lib = _FakeLib()
+    monkeypatch.setattr(tfa._build, "load", lambda name: lib)
+    monkeypatch.setattr(tfa._build, "stream", lambda x: 0)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    q, k, v, do = (x.to(dtype) for x in _qkv_bf16(3, 70, d=64, n=4))
+    lse = torch.zeros(q.shape[:3])
+    wrappers = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [(f.launches, f.launches_bf16) for f in wrappers]
+    out, lse_out = tfa.flash_fwd(q, k, v, causal=True, return_lse=True)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, lse, causal=True)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, lse, causal=True)
+    assert lib.calls == [f"sgp_flash_fwd_{form}", f"sgp_flash_bwd_dq_{form}",
+                         f"sgp_flash_bwd_dkv_{form}"]
+    assert all(x.dtype == dtype for x in (out, dq, dk, dv))
+    assert lse_out.dtype == torch.float32
+    step = (1, 0) if form == "f32" else (0, 1)
+    assert [(f.launches, f.launches_bf16) for f in wrappers] == [
+        (a + step[0], b + step[1]) for a, b in before]
+    # per-row scalars stay fp32 beside bf16 rows; fp64 rows are no form
+    with pytest.raises(TypeError, match="lse must be torch.float32"):
+        tfa.flash_bwd_dq(q, k, v, do, lse.to(dtype if form == "bf16"
+                                             else torch.float64), lse)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.flash_fwd(q.double(), k.double(), v.double())
+    assert len(lib.calls) == 3

@@ -117,7 +117,6 @@ def test_reference_flags_parse_with_reference_defaults():
 @pytest.mark.parametrize("flag,value", [
     ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
     ("--slice_size", "2"),
-    ("--precision", "bf16"),
     ("--resume", "True"),
     ("--checkpoint_dir", "/tmp/x"),
     ("--moe_experts", "4"), ("--mixing_alpha", "0.5"),
@@ -175,6 +174,35 @@ def test_sequence_flags_run(flag, value, capsys):
         assert "world 4 = dp 2 x sp 2" in out and "attn=ring;" in out
     else:
         assert "attn=flash remat;" in out
+
+
+@pytest.mark.parametrize("flag,value,extra", [
+    ("--precision", "bf16", []),
+    ("--precision", "bf16", ["--world_size", "4", "--sp", "2", "--attn",
+                             "ring_flash", "--remat", "True"]),
+    ("--precision", "bf16", ["--world_size", "4", "--overlap", "True",
+                             "--staleness", "2", "--peers_per_itr", "2"]),
+    ("--precision", "fp32", ["--world_size", "2"]),
+])
+def test_precision_flag_runs(flag, value, extra, capsys):
+    """Refused until the bf16 slice; now three steps at bf16 with flash,
+    with ring_flash at dp 2 x sp 2 under remat, and with OSGP, each
+    printing finite rows (and ``fp32``, the default, as before)."""
+    result = gossip_lm.main(SMALL + [flag, value] + extra)
+    out = capsys.readouterr().out
+    assert f"precision {value};" in out
+    rows = _rows(out)
+    assert len(rows) == 3 and all(math.isfinite(float(v)) for r in rows
+                                  for v in r)
+    assert 4.5 < result["final_loss"] < 7.0
+
+
+def test_unknown_precision_is_refused(capsys):
+    # as the reference's parser refuses it: argparse's invalid choice
+    with pytest.raises(SystemExit) as exc:
+        gossip_lm.main(SMALL + ["--precision", "fp16"])
+    assert exc.value.code == 2
+    assert "invalid choice: 'fp16'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,match", [

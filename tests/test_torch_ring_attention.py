@@ -12,6 +12,14 @@ its plain XLA tick (``use_pallas=False``) and through its Pallas kernels
 in interpret mode (sp <= 4).  The tick owner/mode table is bit-equal to
 the reference's ``_tick_mode`` for sp 1 to 8; the ring's direction is
 the reference's ``ppermute`` ``i -> i+1``.
+
+At bf16 (the reference's ``--precision bf16``) the same inputs, rounded
+once to bf16, go through ``ring_flash``, ``ring`` and ``blockwise`` on
+both sides at sp 2 and 4: outputs and gradients within two bf16 ulps for
+the ring forms (each tick's output is rounded to bf16 once before the
+fp32 merge, and each tick's gradients before the fp32 accumulators) and
+one for ``blockwise`` (``tests/torch_bf16.py``), ``ring_flash``'s merged
+lse within 1e-5 relative.
 """
 
 import numpy as np
@@ -24,6 +32,7 @@ from stochastic_gradient_push_torch.ops.ring_flash import (
 from stochastic_gradient_push_torch.parallel.ring_attention import (
     blockwise_attention, ring_attention)
 from stochastic_gradient_push_torch.parallel.seq import StackedSeq
+from torch_bf16 import assert_bf16_close, from_jax
 
 torch.set_num_threads(1)
 
@@ -42,9 +51,10 @@ def _shard(x, sp):
         x.reshape(B, H, sp, T // sp, D), 2, 0))
 
 
-def _jax_ring(fn, sp, q, k, v, g):
+def _jax_ring(fn, sp, q, k, v, g, dtype=None):
     """Output and (dq, dk, dv) of ``Σ fn(q, k, v, "gossip")·g`` with one
-    shard per device of an sp-device mesh."""
+    shard per device of an sp-device mesh (inputs cast to ``dtype``
+    first, when given)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
@@ -52,6 +62,9 @@ def _jax_ring(fn, sp, q, k, v, g):
     from stochastic_gradient_push_tpu.parallel import make_gossip_mesh
 
     def f(qb, kb, vb, gb):
+        if dtype is not None:
+            qb, kb, vb, gb = (x.astype(dtype) for x in (qb, kb, vb, gb))
+
         def loss(q, k, v):
             out = fn(q, k, v, "gossip")
             return jnp.sum(out * gb[0]), out
@@ -64,8 +77,8 @@ def _jax_ring(fn, sp, q, k, v, g):
     sharded = jax.jit(jax.shard_map(
         f, mesh=make_gossip_mesh(sp), in_specs=(P("gossip"),) * 4,
         out_specs=(P("gossip"),) * 4))
-    return [np.asarray(x) for x in sharded(*(_shard(a, sp)
-                                             for a in (q, k, v, g)))]
+    out = sharded(*(_shard(a, sp) for a in (q, k, v, g)))
+    return [np.asarray(x) if dtype is None else x for x in out]
 
 
 def _port(fn, q, k, v, g):
@@ -196,3 +209,125 @@ def test_forced_kernel_lane_on_cpu_raises():
         ring_flash_attention(q, q, q, seq, causal=True, lane="fast")
     with pytest.raises(ValueError, match="shape"):
         ring_flash_attention(q, q, q, StackedSeq(4), causal=True)
+
+
+def _bf16_inputs(seed):
+    """The fp32 inputs rounded once to bf16, as fp32 numpy (exact)."""
+    return [torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+            for a in _inputs(seed)]
+
+
+def _port_bf16(fn, q, k, v, g):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+               for a in (q, k, v))
+    out = fn(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v),
+                                torch.from_numpy(g).to(torch.bfloat16))
+    return [x.detach() for x in (out, *grads)]
+
+
+def _close_bf16(got, want, ulps):
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert_bf16_close(a, from_jax(b), ulps=ulps, name=name)
+
+
+BF16_RING_CASES = [(sp, causal) for sp in (2, 4) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("sp,causal", BF16_RING_CASES)
+@pytest.mark.parametrize("pallas", [False, True])
+def test_ring_flash_bf16_matches_reference(sp, causal, pallas):
+    import jax.numpy as jnp
+
+    from stochastic_gradient_push_tpu.ops.ring_flash import (
+        ring_flash_attention as jrf)
+
+    q, k, v, g = _bf16_inputs(300 + sp + 10 * causal)
+    want = _jax_ring(lambda q, k, v, ax: jrf(
+        q, k, v, ax, causal=causal, interpret=pallas, use_pallas=pallas),
+        sp, q, k, v, g, dtype=jnp.bfloat16)
+    seq = StackedSeq(sp)
+    got = _port_bf16(lambda q, k, v: ring_flash_attention(q, k, v, seq,
+                                                          causal=causal),
+                     *(_shard(a, sp) for a in (q, k, v, g)))
+    assert all(x.dtype == torch.bfloat16 for x in got)
+    _close_bf16(got, want, ulps=2)
+
+
+@pytest.mark.parametrize("sp,causal", BF16_RING_CASES)
+def test_ring_flash_bf16_lse_matches_reference(sp, causal):
+    """The merged fp32 lse of the bf16 ring forward (the residual its
+    backward reads) against the reference's ``_ring_forward``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from stochastic_gradient_push_torch.ops.ring_flash import _ring_forward
+    from stochastic_gradient_push_tpu.ops.ring_flash import (
+        _ring_forward as jforward)
+    from stochastic_gradient_push_tpu.parallel import make_gossip_mesh
+
+    q, k, v, _ = (_shard(a, sp) for a in _bf16_inputs(400 + sp + causal))
+
+    def f(qb, kb, vb):
+        out, lse = jforward(*(x[0].astype(jnp.bfloat16) for x in (qb, kb,
+                                                                   vb)),
+                            "gossip", causal, False, False, T // sp)
+        return out[None], lse[None]
+
+    out, lse = jax.jit(jax.shard_map(
+        f, mesh=make_gossip_mesh(sp), in_specs=(P("gossip"),) * 3,
+        out_specs=(P("gossip"),) * 2))(q, k, v)
+    got_out, got_lse = _ring_forward(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        StackedSeq(sp), causal, False)
+    assert got_lse.dtype == torch.float32
+    assert_bf16_close(got_out, from_jax(out), ulps=2, name="out")
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse), rtol=1e-5,
+                               atol=0)
+
+
+@pytest.mark.parametrize("sp,causal", BF16_RING_CASES)
+def test_ring_attention_bf16_matches_reference(sp, causal):
+    import jax.numpy as jnp
+
+    from stochastic_gradient_push_tpu.parallel.ring_attention import (
+        ring_attention as jring)
+
+    q, k, v, g = _bf16_inputs(500 + sp + 10 * causal)
+    want = _jax_ring(lambda q, k, v, ax: jring(q, k, v, ax, causal=causal),
+                     sp, q, k, v, g, dtype=jnp.bfloat16)
+    seq = StackedSeq(sp)
+    got = _port_bf16(lambda q, k, v: ring_attention(q, k, v, seq,
+                                                    causal=causal),
+                     *(_shard(a, sp) for a in (q, k, v, g)))
+    _close_bf16(got, want, ulps=2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block", [8, 32])
+def test_blockwise_attention_bf16_matches_reference(block, causal):
+    import jax
+    import jax.numpy as jnp
+
+    from stochastic_gradient_push_tpu.parallel.ring_attention import (
+        blockwise_attention as jblock)
+
+    q, k, v, g = _bf16_inputs(600 + block + causal)
+
+    def loss(q, k, v, g):
+        q, k, v, g = (x.astype(jnp.bfloat16) for x in (q, k, v, g))
+
+        def inner(q, k, v):
+            out = jblock(q, k, v, block, causal=causal)
+            return jnp.sum(out * g), out
+
+        (_, out), grads = jax.value_and_grad(inner, argnums=(0, 1, 2),
+                                             has_aux=True)(q, k, v)
+        return (out, *grads)
+
+    want = jax.jit(loss)(q, k, v, g)
+    got = _port_bf16(lambda q, k, v: blockwise_attention(q, k, v, block,
+                                                         causal=causal),
+                     q, k, v, g)
+    _close_bf16(got, want, ulps=1)
