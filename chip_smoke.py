@@ -190,15 +190,19 @@
      --gossip_kernel pallas`` at the LM's width (T1024 B8 a rank), 4
      steps: finite CSV rows, 192 bf16 K3, K4 and K5, four K2 and K1;
    - 12d: the bf16 forms of K3, K4 and K5 against their plain versions
-     (max |kernel - plain| <= 2**-6 of the largest |plain|, at least
-     1e-4; lse within 1e-4) at b1 t8, b1 t200 (causal and full), B8
-     T1024 causal and the tick shape b2 t1024 (causal and full), each
-     timed beside its plain version, SDPA at bf16 (its backward: forward
-     and backward less forward, replayed from CUDA graphs) and its bound
-     (bf16 rows, fp32 lse/delta, 989 TFLOP/s).
+     (``bf16_close``: one bf16 ulp of max(|plain|, 2**-8 of the largest
+     |plain|), at most 1 % of the elements apart; lse within 1e-4) at
+     b1 t8, b1 t200 (causal and full), B8 T1024 causal and the tick
+     shape b2 t1024 (causal and full), each timed from CUDA-graph
+     replays (events around back-to-back calls printed beside) against
+     its plain version, SDPA at bf16 (forward from graphs; backward:
+     forward and backward less forward, from graphs) and its bound (bf16
+     rows, fp32 lse/delta, 989 TFLOP/s), and K4 + K5 against SDPA's
+     backward.
 13. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
-   ``max_rel_err``; the paged-decode row ``device_ms`` and ``host_ms``),
+   ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
+   paged-decode row ``device_ms`` and ``host_ms``),
    the ``nvidia-smi`` name/power-limit line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2571,9 +2575,11 @@ def check_flash_bf16(card: str, cases, row_case=None) -> dict:
     (``bf16_close``: one ulp of max(|plain|, TOL_BF16_FLOOR of the
     largest |plain|), at most TOL_BF16_SHARE of the elements apart), lse
     (fp32) within TOL_KERNEL.
-    Each is timed beside its plain version, SDPA at bf16 and its bound
-    (bf16 rows, fp32 lse/delta, at the bf16 tensor-core rate).  Returns
-    the JSON rows of ``row_case``."""
+    Each is timed from CUDA-graph replays (``_graph_ms``; events around
+    back-to-back calls printed beside it) against its plain version, SDPA
+    at bf16 (forward and backward from graphs too) and its bound (bf16
+    rows, fp32 lse/delta, at the bf16 tensor-core rate), and K4 + K5
+    against SDPA's backward.  Returns the JSON rows of ``row_case``."""
     import torch
     import torch.nn.functional as F
 
@@ -2622,16 +2628,21 @@ def check_flash_bf16(card: str, cases, row_case=None) -> dict:
                                  f"{bad} apart from the plain version "
                                  f"{ {n: err[n][:2] for n in bad} } or lse "
                                  f"{lse_err} (> {TOL_KERNEL})")
-        fwd_ms = _time_ms(lambda: flash_fwd(q, k, v, causal=causal,
-                                            return_lse=True), 20)
+        # the kernels and SDPA's forward from CUDA-graph replays (near
+        # 0.05 ms, events around back-to-back wrapper calls time the host);
+        # the events figure beside it, as earlier runs timed them
+        kern = {"flash_fwd_bf16": lambda: flash_fwd(
+                    q, k, v, causal=causal, return_lse=True),
+                "flash_bwd_dq_bf16": lambda: flash_bwd_dq(*args),
+                "flash_bwd_dkv_bf16": lambda: flash_bwd_dkv(*args),
+                "sdpa_fwd": lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal)}
+        graph = {n: _graph_ms([fn], 20) for n, fn in kern.items()}
+        events = {n: _time_ms(fn, 20) for n, fn in kern.items()}
         fwd_plain = _time_ms(lambda: flash_attention_reference(
             q, k, v, causal=causal, return_lse=True), 5)
-        dq_ms = _time_ms(lambda: flash_bwd_dq(*args), 20)
-        dkv_ms = _time_ms(lambda: flash_bwd_dkv(*args), 20)
         dq_plain = _time_ms(lambda: flash_bwd_dq_reference(*args), 5)
         dkv_plain = _time_ms(lambda: flash_bwd_dkv_reference(*args), 5)
-        sdpa_f = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal), 20)
         qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
 
         def sdpa_fb():
@@ -2656,13 +2667,15 @@ def check_flash_bf16(card: str, cases, row_case=None) -> dict:
                                       6 * pairs * bh * HEAD_DIM),
                 "flash_bwd_dkv_bf16": (6 * row + 2 * scal,
                                        8 * pairs * bh * HEAD_DIM)}
-        times = {"flash_fwd_bf16": (fwd_ms, fwd_plain, sdpa_f),
-                 "flash_bwd_dq_bf16": (dq_ms, dq_plain, sdpa_b),
-                 "flash_bwd_dkv_bf16": (dkv_ms, dkv_plain, sdpa_b)}
-        for name, (ms, plain_ms, lib_ms) in times.items():
+        times = {"flash_fwd_bf16": (fwd_plain, graph["sdpa_fwd"]),
+                 "flash_bwd_dq_bf16": (dq_plain, sdpa_b),
+                 "flash_bwd_dkv_bf16": (dkv_plain, sdpa_b)}
+        for name, (plain_ms, lib_ms) in times.items():
+            ms = graph[name]
             bound_ms, bound_by = _bound(*work[name], PEAK_BF16_FLOP_PER_S)
             print(f"kernel {name} b{b} h12 t{t} causal={causal}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa bf16 "
+                  f"{ms:.4f} ms (graph; events {events[name]:.4f}), plain "
+                  f"{plain_ms:.4f} ms, sdpa bf16 "
                   f"{'forward' if name == 'flash_fwd_bf16' else 'backward'}"
                   f" {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
                   f"{bound_ms / ms:.1%} of it) [{card}]", flush=True)
@@ -2672,6 +2685,13 @@ def check_flash_bf16(card: str, cases, row_case=None) -> dict:
                     max_abs_err=abs_err, max_ulps=ulps, share_apart=share,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=lib_ms)
+        bwd_ms = graph["flash_bwd_dq_bf16"] + graph["flash_bwd_dkv_bf16"]
+        print(f"kernel bf16 backward b{b} h12 t{t} causal={causal}: K4 + K5 "
+              f"{bwd_ms:.4f} ms against sdpa bf16 backward {sdpa_b:.4f} ms "
+              f"({bwd_ms / sdpa_b:.2f}x); K3 against sdpa bf16 forward "
+              f"{graph['flash_fwd_bf16'] / graph['sdpa_fwd']:.2f}x; sdpa "
+              f"forward events {events['sdpa_fwd']:.4f} ms [{card}]",
+              flush=True)
     return rows
 
 

@@ -1,8 +1,10 @@
 // Device helpers shared by the bf16 forms of the flash kernels
-// (flash_fwd.cu, flash_bwd.cu): bf16 products on Hopper's tensor cores
-// with fp32 accumulation (mma.sync m16n8k16), ldmatrix fragment loads from
-// staged tiles, f32 <-> bf16 packing, and cp.async staging of 64-row bf16
-// tiles.
+// (flash_fwd.cu, flash_bwd.cu): f32 <-> bf16 packing, the hi/lo split of
+// an fp32 operand, and the rounded store of a 64-row accumulator, used by
+// all three; and, for dQ, bf16 products on the tensor cores with fp32
+// accumulation (mma.sync m16n8k16), ldmatrix fragment loads from staged
+// tiles and cp.async staging of 64-row bf16 tiles.  The forward and dK/dV
+// run their products on wgmma (sm90_bf16.cuh).
 //
 // The product of two bf16 values (8 significant bits each) fits the 24
 // bits of an fp32 significand, so a bf16 mma with fp32 accumulation
@@ -103,15 +105,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// cp.async of 4 bytes (zero-filled when !valid)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -62,6 +62,7 @@
 #include <math.h>
 
 #include "bf16_mma.cuh"
+#include "sm90_bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -375,35 +376,57 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // The bf16 forms: the same functions on bf16 q, k, v, dO and gradients,
 // with lse and delta in fp32, as the TPU kernels compute them for bf16
 // inputs (widened to fp32, fp32 accumulators, each gradient rounded once
-// to the input type).
-// - S and dP are one bf16 mma.sync pass each (m16n8k16, fp32
-//   accumulation): products of bf16 values are exact in fp32, so both are
-//   the reference's widened dot products up to the order of the sum.
-// - p = exp(s * d**-0.5 - lse) and ds = p * (dp - delta) in fp32 in the
-//   accumulators; P (for dV) and dS (for dQ and dK) enter the second
-//   products from registers as hi/lo bf16 pairs, two passes each, ~16
-//   bits where the reference keeps fp32 (flash_fwd.cu says why one
-//   rounding to bf16 is too coarse).
-// - The running sums (dQ; dK, dV) accumulate on the tensor cores in fp32
-//   and are rounded once to bf16 at the end; d**-0.5 scales dQ and dK
-//   there.
-// - As the fp32 forms: 4 warps own 64 rows, dQ query rows (q and dO as
-//   register fragments) and streams K and V; dK/dV key rows (K and V as
-//   register fragments) and streams q, dO, lse and delta; the other
-//   side's 64-row tiles double-buffered with 16-byte cp.async (8 bf16;
-//   lse and delta 4 bytes), rows padded to 72 values for conflict-free
-//   ldmatrix.  The second products read their B tiles with
-//   ldmatrix.trans.  Shared memory: 36,864 bytes (dQ), 37,888 (dK/dV).
-// What bounds them: 6*d (dQ) and 8*d (dK/dV) flops a visible pair at the
-// bf16 tensor-core rate (989 TFLOP/s), against 2-byte rows.
+// to the input type).  Both feed P and dS to their second products from
+// registers as hi/lo bf16 pairs, two passes each, ~16 bits where the
+// reference keeps fp32 (flash_fwd.cu says why one rounding to bf16 is
+// too coarse), and round each running sum once to bf16 at the end, where
+// d**-0.5 scales dQ and dK.
+//
+// dQ runs on mma.sync (m16n8k16, fp32 accumulation): as the fp32 form, 4
+// warps own 64 query rows (q and dO as register fragments) and stream K
+// and V through 64-row tiles double-buffered with 16-byte cp.async, rows
+// padded to 72 values for conflict-free ldmatrix (ldmatrix.trans for the
+// second product's B).  36,864 bytes of shared memory.
+//
+// dK/dV runs on Hopper's wgmma fed by TMA (sm90_bf16.cuh).  What bounds
+// it on an H100: 8*d flops a visible pair at the bf16 tensor-core rate
+// (989 TFLOP/s) against 2-byte rows and the fp32 lse and delta at 3.35
+// TB/s: at B8 H12 T1024 causal the operations bound (0.0261 ms) is above
+// the bytes bound.  The hi/lo passes make it 12*d flops of tensor-core
+// work a pair, run at ~40 % of the peak (PERF.md).  The design:
+// - A block is one warpgroup (4 warps, 64 key rows of one head).  Thread
+//   0 loads the block's K and V tiles once by TMA; warp 0 keeps a ring of
+//   DKV_STAGES (q, dO) tiles in flight from the diagonal on (causal)
+//   under full/empty mbarriers: lane 0 loads q and dO by TMA, and the 32
+//   lanes copy the tile's 64 lse and 64 delta values with 4-byte
+//   cp.asyncs that arrive on the same full barrier (a head's fp32 row
+//   starts 4t bytes in, which TMA refuses when t % 4 != 0).  Warp 0
+//   refills a stage after the products of the tile before, where none is
+//   in flight.  Without a producer warp a block is 128 threads, and three
+//   fit an SM at the kernel's registers (with one, two fit).
+// - Per q tile: S^T = K.q^T and dP^T = V.dO^T are two SS wgmma groups
+//   (both operands K-major), so each accumulator row is a key row; P^T =
+//   exp2(S^T * d**-0.5 * log2 e - lse * log2 e) is computed while dP^T is
+//   still in flight, then dS^T = P^T * (dP^T - delta), in registers.
+// - dV += P^T.dO and dK += dS^T.q are RS wgmma groups: P^T and dS^T as
+//   hi/lo A fragments (n-blocks 2j, 2j + 1 = k-step j), dO and q the B
+//   operands MN-major, read in place with wgmma's transpose bit; the dV
+//   group runs while dS^T is split.  The fp32 accumulators stay in
+//   registers across the loop.
+// - Masking runs on the causal diagonal and ragged edge tiles only; the
+//   low key tiles, which see the most queries, launch first.  Rows past t
+//   are zero-filled by TMA and their outputs never stored.
+// - One block owns each key row, no atomics: two launches are bit-equal.
+// - 64 key rows a block at every shape (B8 H12 T1024: 1,536 blocks; the
+//   tick b2 h12 t1024: 384).
+// - -Xptxas -v: 167 registers a thread, no spill, no static shared
+//   memory; DKV_SMEM_BYTES (68,152) of dynamic shared memory a block.
 namespace bf16k {
 
 using namespace bf16mma;
 
 constexpr int DQ_STAGE = 2 * TILE;  // K, V
 constexpr int DQ_SMEM_BYTES = 2 * DQ_STAGE * (int)sizeof(bf16);  // 36,864
-constexpr int DKV_STAGE_BYTES = 2 * TILE_BYTES + 2 * 64 * 4;  // q dO lse δ
-constexpr int DKV_SMEM_BYTES = 2 * DKV_STAGE_BYTES;           // 37,888
 
 // dQ: one block per (batch*head, 64-row query tile), looping over the
 // visible key tiles up to the diagonal.  Warp w owns query rows q0 + 16w
@@ -500,91 +523,145 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   store_rows(dq + base, dqa, qi0, t, tq, scale, scale);
 }
 
-// One dK/dV stage: rows [q0, q0 + 64) of q and dO, and their lse and
-// delta (4-byte copies: a head's [t] row need not be 16-byte aligned).
-__device__ __forceinline__ void load_stage(unsigned char* st, const bf16* qb,
-                                           const bf16* db, const float* lb,
-                                           const float* deb, int q0, int t) {
-  bf16* rows = reinterpret_cast<bf16*>(st);
-  load_rows(rows, qb, q0, t);
-  load_rows(rows + TILE, db, q0, t);
-  const int r = threadIdx.x & 63;
-  const bool ok = q0 + r < t;
-  const float* src = threadIdx.x < 64 ? lb : deb;
-  cp_async4(reinterpret_cast<float*>(st + 2 * TILE_BYTES) + threadIdx.x,
-            src + (ok ? q0 + r : 0), ok);
+// dK/dV (wgmma, TMA): shared memory holds K, V, then q[STAGES],
+// dO[STAGES] (8 KB tiles, 1024-aligned), then each stage's 64 lse and 64
+// delta values, then the barriers kv, full[STAGES], empty[STAGES]
+constexpr int DKV_STAGES = 3;
+constexpr int DKV_THREADS = 128;  // one warpgroup
+constexpr int DKV_OFF_Q = 2 * sm90::BOX_BYTES;
+constexpr int DKV_OFF_DO = DKV_OFF_Q + DKV_STAGES * sm90::BOX_BYTES;
+constexpr int DKV_OFF_L = DKV_OFF_DO + DKV_STAGES * sm90::BOX_BYTES;
+constexpr int DKV_OFF_BAR = DKV_OFF_L + DKV_STAGES * 128 * 4;
+constexpr int DKV_SMEM_BYTES =
+    DKV_OFF_BAR + 8 * (1 + 2 * DKV_STAGES) + 1024;  // 68,152
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// dK/dV: one block per (batch*head, 64-row key tile), looping over the
-// visible query tiles from the diagonal on.  Warp w owns key rows k0 +
-// 16w .. +15; lane (g, tq) holds rows g and g + 8 of them, as the rows of
-// S^T = K.q^T and dP^T = V.dO^T and of the dK and dV accumulators.
-__global__ void __launch_bounds__(THREADS, 2)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
+// One block per (batch*head, 64-row key tile), looping over the visible
+// query tiles from the diagonal on: one warpgroup, whose warp 0 also
+// fills the stages.  Warp w owns key rows k0 + 16w .. +15; lane (g, tq)
+// holds rows g and g + 8 of them, as the rows of S^T, dP^T and the dK and
+// dV accumulators.
+__global__ void __launch_bounds__(DKV_THREADS, 3)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                          const __grid_constant__ CUtensorMap tmk,
+                          const __grid_constant__ CUtensorMap tmv,
+                          const __grid_constant__ CUtensorMap tmdo,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           int t, int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char dkv_bf16_smem[];
+  using namespace sm90;
+  extern __shared__ unsigned char dkv_bf16_smem[];
+  const uint32_t raw = smem_addr(dkv_bf16_smem);
+  const uint32_t sk = (raw + 1023) & ~1023u;  // 128-byte swizzle atoms
+  const uint32_t sv = sk + BOX_BYTES, sq = sk + DKV_OFF_Q;
+  const uint32_t sdo = sk + DKV_OFF_DO, kvbar = sk + DKV_OFF_BAR;
+  // stage s's lse at [128 s], delta at [128 s + 64]
+  const uint32_t sscal = sk + DKV_OFF_L;
+  const float* const scal =
+      reinterpret_cast<const float*>(dkv_bf16_smem + (sscal - raw));
+  auto full = [&](int s) { return kvbar + 8 + 8 * s; };
+  auto empty = [&](int s) { return kvbar + 8 + 8 * (DKV_STAGES + s); };
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
+  const int head = blockIdx.x;
   const int kt = blockIdx.y;  // low tiles see the most queries: run first
   const int k0 = kt * 64;
-  const size_t base = (size_t)blockIdx.x * (size_t)t * D;
-  const bf16* qb = q + base;
-  const bf16* db = dout + base;
-  const float* lb = lse + (size_t)blockIdx.x * t;
-  const float* deb = delta + (size_t)blockIdx.x * t;
   const int nq = (t + 63) / 64;
   // causal: query rows before the tile's first key see none of it
   const int qt0 = causal ? kt : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* lb = lse + (size_t)head * t;
+  const float* deb = delta + (size_t)head * t;
+  // warp 0 fills the stage of the block's it-th query tile, once the block
+  // is done with its (it - DKV_STAGES)-th there: q and dO by TMA (lane 0),
+  // the tile's lse and delta by 4-byte cp.asyncs (a head's fp32 row starts
+  // 4t bytes in, which TMA refuses when t % 4 != 0), zeros past t
+  auto fill = [&](int it) {
+    const int s = it % DKV_STAGES, q0 = (qt0 + it) * 64;
+    if (it >= DKV_STAGES) mbar_wait(empty(s), ((it / DKV_STAGES) - 1) & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + lane + 32 * h;
+      const uint32_t dst = sscal + 4 * (128 * s + lane + 32 * h);
+      cp_async4(dst, lb + (r < t ? r : 0), r < t);
+      cp_async4(dst + 4 * 64, deb + (r < t ? r : 0), r < t);
+    }
+    cp_async_arrive(full(s));
+    if (lane == 0) {
+      mbar_arrive_expect_tx(full(s), 2 * BOX_BYTES);
+      tma_load_3d(sq + s * BOX_BYTES, &tmq, full(s), 0, q0, head);
+      tma_load_3d(sdo + s * BOX_BYTES, &tmdo, full(s), 0, q0, head);
+    }
+  };
 
-  load_stage(dkv_bf16_smem, qb, db, lb, deb, qt0 * 64, t);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(full(s), 33);  // warp 0's cp.asyncs, lane 0's TMA
+      mbar_init(empty(s), DKV_THREADS);
+    }
+    mbar_init_fence();
+    mbar_arrive_expect_tx(kvbar, 2 * BOX_BYTES);
+    tma_load_3d(sk, &tmk, kvbar, 0, k0, head);
+    tma_load_3d(sv, &tmv, kvbar, 0, k0, head);
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int it = 0; it < DKV_STAGES && qt0 + it < nq; ++it) fill(it);
 
+  const int g = lane >> 2, tq = lane & 3;
   const int kj0 = k0 + 16 * warp + g, kj1 = kj0 + 8;
-  uint32_t ka[4][4], va[4][4];  // the A fragments of S^T and dP^T
-  load_a(ka, k + base, kj0, t, tq, 1.f);
-  load_a(va, v + base, kj0, t, tq, 1.f);
-  float dka[8][4], dva[8][4];  // n-tile n holds dims 8n + 2tq, +1
+  const float c = scale * LOG2E;  // raw score -> log2 units
+  const uint64_t dK = desc_sw128(sk), dV = desc_sw128(sv);
+
+  // dK, dV; S^T then P^T; dP^T then dS^T: n-block n holds queries
+  // q0 + 8n + 2tq, +1 (dK, dV: dims 8n + 2tq, +1)
+  float dka[8][4], dva[8][4], s[8][4], dp[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  mbar_wait(kvbar, 0);
 
   for (int qt = qt0; qt < nq; ++qt) {
-    const int it = qt - qt0;
-    if (qt + 1 < nq) {  // the next tile loads while this one is used
-      load_stage(dkv_bf16_smem + ((it + 1) & 1) * DKV_STAGE_BYTES, qb, db,
-                 lb, deb, (qt + 1) * 64, t);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    unsigned char* st = dkv_bf16_smem + (it & 1) * DKV_STAGE_BYTES;
-    const bf16* qs = reinterpret_cast<const bf16*>(st);
-    const bf16* dos = qs + TILE;
-    const float* ls = reinterpret_cast<const float*>(st + 2 * TILE_BYTES);
-    const float* dls = ls + 64;
+    const int it = qt - qt0, st = it % DKV_STAGES;
     const int q0 = qt * 64;
+    mbar_wait(full(st), (it / DKV_STAGES) & 1);
+    const uint64_t dQ = desc_sw128(sq + st * BOX_BYTES);
+    const uint64_t dO = desc_sw128(sdo + st * BOX_BYTES);
+    const float* sl = scal + 128 * st;
 
-    // S^T = K.q^T, then P^T = exp(S^T * scale - lse), exactly 0 where
-    // masked
-    float s[8][4];
-    rows_by_tile(s, ka, qs, lane);
+    // S^T = K.q^T and dP^T = V.dO^T, two groups
+    wgmma_fence();
+    wgmma_ss<false>(s, dK, dQ);
+#pragma unroll
+    for (int j = 1; j < 4; ++j)
+      wgmma_ss<true>(s, dK + j * KSTEP_K, dQ + j * KSTEP_K);
+    wgmma_commit();
+    wgmma_ss<false>(dp, dV, dO);
+#pragma unroll
+    for (int j = 1; j < 4; ++j)
+      wgmma_ss<true>(dp, dV + j * KSTEP_K, dO + j * KSTEP_K);
+    wgmma_commit();
+
+    // P^T = exp(S^T * scale - lse), exactly 0 where masked, while dP^T
+    // is in flight
+    wgmma_wait<1>();
+    fence_acc(s);
     const bool edge = (causal && qt == kt) || q0 + 64 > t || k0 + 64 > t;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * tq);
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * n + 2 * tq);
+      const float lc[2] = {l2.x * LOG2E, l2.y * LOG2E};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = expf(fmaf(s[n][e], scale, -((e & 1) ? l2.y : l2.x)));
+        float p = ex2(fmaf(s[n][e], c, -lc[e & 1]));
         if (edge) {
           const int qi = q0 + 8 * n + 2 * tq + (e & 1);
           const int kj = e < 2 ? kj0 : kj1;
@@ -593,26 +670,47 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         s[n][e] = p;
       }
     }
-    // dV += P^T.dO, P^T as a hi/lo bf16 pair
-    acc_by_tile(dva, s, dos, lane);
-
-    // dP^T = V.dO^T, then dS^T = P^T * (dP^T - delta) in place
-    float dp[8][4];
-    rows_by_tile(dp, va, dos, lane);
+    // dS^T = P^T * (dP^T - delta) in place
+    wgmma_wait<0>();
+    fence_acc(dp);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const float2 d2 =
-          *reinterpret_cast<const float2*>(dls + 8 * n + 2 * tq);
+          *reinterpret_cast<const float2*>(sl + 64 + 8 * n + 2 * tq);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         dp[n][e] = s[n][e] * (dp[n][e] - ((e & 1) ? d2.y : d2.x));
     }
-    // dK += dS^T.q, dS^T as a hi/lo bf16 pair
-    acc_by_tile(dka, dp, qs, lane);
-    __syncthreads();  // every warp is done with this buffer
+    // P^T and dS^T as hi/lo bf16 A fragments (k-step j = n-blocks 2j,
+    // 2j + 1); dV += P^T.dO runs on the tensor cores while dS^T is split,
+    // then dK += dS^T.q, each the small terms first
+    uint32_t hi[4][4], lo[4][4];
+    split_acc(s, hi, lo);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_rs(dva, lo[j], dO + j * KSTEP_MN);
+      wgmma_rs(dva, hi[j], dO + j * KSTEP_MN);
+    }
+    wgmma_commit();
+    uint32_t dh[4][4], dl[4][4];
+    split_acc(dp, dh, dl);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_rs(dka, dl[j], dQ + j * KSTEP_MN);
+      wgmma_rs(dka, dh[j], dQ + j * KSTEP_MN);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_acc(dka);
+    mbar_arrive(empty(st));  // this thread is done with the stage
+    if (warp == 0 && qt + DKV_STAGES < nq) fill(it + DKV_STAGES);
   }
 
   // dK = dS^T.(q * scale): the scale (a power of two) applied once here
+  const size_t base = (size_t)head * (size_t)t * D;
   store_rows(dk + base, dka, kj0, t, tq, scale, scale);
   store_rows(dv + base, dva, kj0, t, tq, 1.f, 1.f);
 }
@@ -632,19 +730,29 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// the dK/dV kernel's dynamic shared memory is lifted once per device
+int dkv_smem_ready[64];
+
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int bh, int t, int causal, void* stream) {
   const int nk = (t + 63) / 64;
   if (bh <= 0 || t <= 0 || nk > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(bh, nk);  // under 48 KB of shared memory: no lift
-  flash_bwd_dkv_bf16_kernel<<<grid, THREADS, DKV_SMEM_BYTES,
+  CUtensorMap tmq, tmk, tmv, tmdo;
+  if (int err = sm90::rows_map(&tmq, q, bh, t)) return err;
+  if (int err = sm90::rows_map(&tmk, k, bh, t)) return err;
+  if (int err = sm90::rows_map(&tmv, v, bh, t)) return err;
+  if (int err = sm90::rows_map(&tmdo, dout, bh, t)) return err;
+  if (int err = tf32mma::allow_dynamic_smem(
+          (const void*)flash_bwd_dkv_bf16_kernel, DKV_SMEM_BYTES,
+          dkv_smem_ready))
+    return err;
+  const dim3 grid(bh, nk);
+  flash_bwd_dkv_bf16_kernel<<<grid, DKV_THREADS, DKV_SMEM_BYTES,
                               (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), t, causal,
-      0.125f /* 64 ** -0.5 */);
+      tmq, tmk, tmv, tmdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), t, causal, 0.125f /* 64 ** -0.5 */);
   return (int)cudaGetLastError();
 }
 

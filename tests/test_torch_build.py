@@ -2,10 +2,11 @@
 driven with a stand-in ``nvcc`` (a shell script), since the real one is
 only on a machine with the CUDA toolkit: sources are built in parallel into
 a hash-keyed library, a built library is not rebuilt and still reports
-its ptxas log, an edit to a shared header ``csrc/*.cuh`` rebuilds the
-libraries that include it and no other, a refused source or a missing compiler raises
-``KernelBuildError``, and a non-zero CUDA error from a launch raises
-``KernelLaunchError``.
+its ptxas log, an edit to a shared header ``csrc/*.cuh`` (the TF32 and
+bf16 ``mma.sync`` helpers, the Hopper ``wgmma``/TMA helpers) rebuilds
+the libraries that include it and no other, a refused source or a
+missing compiler raises ``KernelBuildError``, and a non-zero CUDA error
+from a launch raises ``KernelLaunchError``.
 """
 
 import os
@@ -116,7 +117,8 @@ def test_header_edit_leaves_other_libraries_alone(tmp_path, monkeypatch):
     header = csrc / "tf32_mma.cuh"
     header.write_text('#include "inner.cuh"\n' + header.read_text())
     assert _build._local_headers(csrc / "flash_fwd.cu") == [
-        csrc / "bf16_mma.cuh", header, csrc / "inner.cuh"]
+        csrc / "bf16_mma.cuh", csrc / "sm90_bf16.cuh", header,
+        csrc / "inner.cuh"]
     assert _build._local_headers(csrc / "paged_decode.cu") == []
     before = {n: _build._lib_path(n) for n in ("flash_fwd", "paged_decode")}
     (csrc / "inner.cuh").write_text("// inner, edited\n")
@@ -154,3 +156,33 @@ def test_flash_sources_share_the_bf16_header_and_keep_no_copy():
     for name in ("paged_decode", "gossip_edge"):
         assert _build.CSRC / "bf16_mma.cuh" not in _build._local_headers(
             _build.CSRC / f"{name}.cu")
+
+
+def test_flash_sources_share_the_sm90_header_and_keep_no_copy(tmp_path,
+                                                              monkeypatch):
+    # the bf16 forward and dK/dV take their wgmma, TMA and mbarrier
+    # helpers from csrc/sm90_bf16.cuh: an edit there rebuilds both flash
+    # libraries and no other, and the bf16 forward keeps none of the
+    # mma.sync helpers it ran on before
+    header = (_build.CSRC / "sm90_bf16.cuh").read_text()
+    helpers = ("void mbar_wait(", "void tma_load_3d(", "uint64_t desc_sw128(",
+               "void wgmma_ss(", "void wgmma_rs(", "void split_acc(",
+               "int rows_map(", "wgmma.mma_async.sync.aligned.m64n64k16",
+               "cp.async.bulk.tensor.3d", "cuTensorMapEncodeTiled")
+    assert all(h in header for h in helpers)
+    for name in ("flash_fwd", "flash_bwd"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "sm90_bf16.cuh"' in src
+        assert not [h for h in helpers if h in src], name
+    fwd = (_build.CSRC / "flash_fwd.cu").read_text()
+    assert not [h for h in ("rows_by_tile(", "acc_by_tile(", "load_a(",
+                            "load_rows(") if h in fwd]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("flash_fwd", "flash_bwd", "paged_decode", "gossip_edge")
+    before = {n: _build._lib_path(n) for n in names}
+    (csrc / "sm90_bf16.cuh").write_text(header + "// edited\n")
+    after = {n: _build._lib_path(n) for n in names}
+    assert [n for n in names if after[n] != before[n]] == [
+        "flash_fwd", "flash_bwd"]

@@ -49,7 +49,9 @@ on the card against the same step on the CPU.
 
 bf16: the bf16 forms of the flash kernels against their plain twins on
 the same bf16 inputs (b1 t8, b1 t200, B8 T1024 and the ring tick's b2
-t1024, causal and full, plus the tile edges), element by element in bf16
+t1024, causal and full, plus lengths on both sides of the 64-row tiles up
+to t1000, one head, and batch*heads 65,532 at t8), two launches of each
+bit-equal, element by element in bf16
 ulps (``tfa.bf16_close``: one ulp of max(|plain|, 2**-8 of the largest
 |plain|), at most 1 % of the elements apart; at t = 1 the q and k
 gradients are fp32 summation noise around an exact 0, held to 1e-4) and
@@ -274,13 +276,15 @@ def test_flash_kernels_one_and_96_heads(cuda, b, h, t, causal):
         assert float((x - y).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernels_are_deterministic(cuda, causal):
-    q, k, v, do = _fwd_bwd_case(cuda, 300, 40, b=2, h=4)
+def test_flash_kernels_are_deterministic(cuda, causal, dtype):
+    q, k, v, do = (x.to(dtype) for x in _fwd_bwd_case(cuda, 300, 40, b=2,
+                                                       h=4))
     runs = []
     for _ in range(2):
         out, lse = tfa.flash_fwd(q, k, v, causal=causal, return_lse=True)
-        delta = (do * out).sum(-1)
+        delta = (do.float() * out.float()).sum(-1)
         runs.append((out, lse,
                      tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
                      *tfa.flash_bwd_dkv(q, k, v, do, lse, delta,
@@ -1048,8 +1052,11 @@ def _bf16_case(cuda, t, seed, b=2, h=3):
                              generator=g).bfloat16() for _ in range(4))
 
 
+# the last: batch*heads 65,532, near the kernels' grid limit (_MAX_BH)
 BF16_SHAPES = [(1, 12, 8), (1, 12, 200), (8, 12, 1024), (2, 12, 1024),
-               *((2, 3, t) for t in (1, 15, 16, 17, 63, 65, 129, 300))]
+               *((2, 3, t) for t in (1, 15, 16, 17, 63, 64, 65, 127, 128,
+                                     129, 255, 257, 300, 1000)),
+               (1, 1, 65), (1, 1, 1000), (5461, 12, 8)]
 
 
 @pytest.mark.parametrize("b,h,t", BF16_SHAPES)
