@@ -371,12 +371,17 @@ def report_ptxas(built: dict) -> None:
     """Print ``-Xptxas -v``'s registers, shared memory and spills per
     kernel (mangled names, as ptxas gives them); a flash or paged-decode
     library without that report, or a kernel of theirs that spills, fails
-    the run."""
+    the run, and so does a flash library whose wgmma products ptxas
+    serialized (warning C7520)."""
     for lib, info in built.items():
         kernel = lib
         checked = lib.startswith("flash") or lib == "paged_decode"
         if checked and "registers" not in info["log"]:
             raise AssertionError(f"no ptxas report for {lib}")
+        if checked and "C7520" in info["log"]:
+            raise AssertionError(f"ptxas serialized {lib}'s wgmma products: "
+                                 + next(line for line in info["log"]
+                                        .splitlines() if "C7520" in line))
         for line in info["log"].splitlines():
             m = re.search(r"entry function '(\w+)'", line)
             if m:

@@ -380,20 +380,55 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // registers as hi/lo bf16 pairs, two passes each, ~16 bits where the
 // reference keeps fp32 (flash_fwd.cu says why one rounding to bf16 is
 // too coarse), and round each running sum once to bf16 at the end, where
-// d**-0.5 scales dQ and dK.
+// d**-0.5 scales dQ and dK.  Both run on Hopper's wgmma fed by TMA
+// (sm90_bf16.cuh), one design with the roles of query and key rows
+// swapped.
 //
-// dQ runs on mma.sync (m16n8k16, fp32 accumulation): as the fp32 form, 4
-// warps own 64 query rows (q and dO as register fragments) and stream K
-// and V through 64-row tiles double-buffered with 16-byte cp.async, rows
-// padded to 72 values for conflict-free ldmatrix (ldmatrix.trans for the
-// second product's B).  36,864 bytes of shared memory.
+// dQ.  What bounds it on an H100: 6*d flops a visible pair at the bf16
+// tensor-core rate (989 TFLOP/s) against 2-byte rows and the fp32 lse and
+// delta at 3.35 TB/s: at B8 H12 T1024 causal the operations bound (0.0196
+// ms) is above the bytes bound.  The hi/lo pass makes it 8*d flops of
+// tensor-core work a pair (16 m64n64k16 products a 64 x 64 tile pair).
+// The design:
+// - A block is one warpgroup (4 warps, 64 query rows of one head, 16 a
+//   warp).  Thread 0 loads the block's q and dO tiles once by TMA onto one
+//   mbarrier, and keeps a ring of DQ_STAGES (K, V) tiles in flight from
+//   key tile 0 up to the diagonal (causal) under full/empty mbarriers.
+//   Each thread reads its two rows' lse and delta (rows 16w + g and + 8
+//   of the accumulator layout) into registers once.  Thread 0 refills the
+//   stage of tile kt - 1 once dP of tile kt has landed: no product is in
+//   flight there, and every thread released that stage before it issued
+//   tile kt's products, so the refill waits for no warp.  (Refilled
+//   after tile kt's own dQ product, the wait on the empty barrier held
+//   warp 0, and with it the warpgroup's next products, for the slowest
+//   warp, and the kernel ran slower.)
+// - Occupancy sets the speed: with two stages (50 KB) and 128 registers,
+//   four blocks share an SM; with three stages only three fit (shared
+//   memory), and that ran slower, as did q and dO held as register A
+//   fragments (S and dP as RS products; more registers, three blocks) and
+//   tile kt + 1's S and dP issued beside tile kt's dQ product.
+// - Per key tile: S = q.K^T and dP = dO.V^T are two SS wgmma groups
+//   (both operands K-major), so each accumulator row is a query row; P =
+//   exp2(S * d**-0.5 * log2 e - lse * log2 e) is computed while dP is
+//   still in flight, then dS = P * (dP - delta), in registers.
+// - dQ += dS.K is an RS wgmma group: dS as hi/lo A fragments (n-blocks
+//   2j, 2j + 1 = k-step j), the small terms first, K the B operand
+//   MN-major, read in place from the same tile with wgmma's transpose
+//   bit.  The fp32 accumulator stays in registers across the loop.
+// - Masking runs on the causal diagonal and a ragged last key tile only;
+//   the last query tiles, which see the most keys, launch first.  Rows
+//   past t are zero-filled by TMA and their outputs never stored.
+// - One block owns each query row, no atomics: two launches are bit-equal.
+// - 64 query rows a block at every shape (B8 H12 T1024: 1,536 blocks; the
+//   tick b2 h12 t1024: 384).
+// - -Xptxas -v: 128 registers a thread, no spill, no static shared
+//   memory; DQ_SMEM_BYTES (50,216) of dynamic shared memory a block.
 //
-// dK/dV runs on Hopper's wgmma fed by TMA (sm90_bf16.cuh).  What bounds
-// it on an H100: 8*d flops a visible pair at the bf16 tensor-core rate
-// (989 TFLOP/s) against 2-byte rows and the fp32 lse and delta at 3.35
-// TB/s: at B8 H12 T1024 causal the operations bound (0.0261 ms) is above
-// the bytes bound.  The hi/lo passes make it 12*d flops of tensor-core
-// work a pair, run at ~40 % of the peak (PERF.md).  The design:
+// dK/dV.  What bounds it on an H100: 8*d flops a visible pair against
+// 2-byte rows and the fp32 lse and delta: at B8 H12 T1024 causal the
+// operations bound (0.0261 ms) is above the bytes bound.  The hi/lo
+// passes make it 12*d flops of tensor-core work a pair, run at ~40 % of
+// the peak (PERF.md).  The design:
 // - A block is one warpgroup (4 warps, 64 key rows of one head).  Thread
 //   0 loads the block's K and V tiles once by TMA; warp 0 keeps a ring of
 //   DKV_STAGES (q, dO) tiles in flight from the diagonal on (causal)
@@ -421,119 +456,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 //   tick b2 h12 t1024: 384).
 // - -Xptxas -v: 167 registers a thread, no spill, no static shared
 //   memory; DKV_SMEM_BYTES (68,152) of dynamic shared memory a block.
+//
+// In both, a load issued on a divergent path between wgmma products would
+// make ptxas serialize every product of the kernel (warning C7520), so
+// the stages are refilled only where no product is in flight.
 namespace bf16k {
 
-using namespace bf16mma;
+using namespace bf16mma;  // bf16, D, store_rows
 
-constexpr int DQ_STAGE = 2 * TILE;  // K, V
-constexpr int DQ_SMEM_BYTES = 2 * DQ_STAGE * (int)sizeof(bf16);  // 36,864
-
-// dQ: one block per (batch*head, 64-row query tile), looping over the
-// visible key tiles up to the diagonal.  Warp w owns query rows q0 + 16w
-// .. +15; lane (g, tq) holds rows g and g + 8 of them.
-__global__ void __launch_bounds__(THREADS, 2)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int t, int causal,
-                         float scale) {
-  extern __shared__ __align__(16) unsigned char dq_bf16_smem[];
-  bf16* stages = reinterpret_cast<bf16*>(dq_bf16_smem);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  // causal: the last query tiles see the most keys: run them first
-  const int qt = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
-                        : (int)blockIdx.y;
-  const int q0 = qt * 64;
-  const size_t base = (size_t)blockIdx.x * (size_t)t * D;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-  // causal: keys past the tile's last query row are never loaded
-  const int nk = causal ? qt + 1 : (t + 63) / 64;
-
-  load_rows(stages, kb, 0, t);
-  load_rows(stages + TILE, vb, 0, t);
-  cp_async_commit();
-
-  const int qi0 = q0 + 16 * warp + g, qi1 = qi0 + 8;
-  uint32_t qa[4][4], da[4][4];  // the A fragments of S and dP
-  load_a(qa, q + base, qi0, t, tq, 1.f);
-  load_a(da, dout + base, qi0, t, tq, 1.f);
-  const float* lb = lse + (size_t)blockIdx.x * t;
-  const float* deb = delta + (size_t)blockIdx.x * t;
-  const float l0 = qi0 < t ? lb[qi0] : 0.f, l1 = qi1 < t ? lb[qi1] : 0.f;
-  const float d0 = qi0 < t ? deb[qi0] : 0.f, d1 = qi1 < t ? deb[qi1] : 0.f;
-  float dqa[8][4];  // n-tile n holds dims 8n + 2tq, +1
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {  // the next tile loads while this one is used
-      bf16* nxt = stages + ((kt + 1) & 1) * DQ_STAGE;
-      load_rows(nxt, kb, (kt + 1) * 64, t);
-      load_rows(nxt + TILE, vb, (kt + 1) * 64, t);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = stages + (kt & 1) * DQ_STAGE;
-    const bf16* vs = ks + TILE;
-    const int k0 = kt * 64;
-
-    // S = q.K^T, then P = exp(S * scale - lse), exactly 0 where masked
-    float s[8][4];
-    rows_by_tile(s, qa, ks, lane);
-    const bool edge = (causal && kt == qt) || q0 + 64 > t || k0 + 64 > t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = expf(fmaf(s[n][e], scale, -(e < 2 ? l0 : l1)));
-        if (edge) {
-          const int qi = e < 2 ? qi0 : qi1;
-          const int kj = k0 + 8 * n + 2 * tq + (e & 1);
-          if (qi >= t || kj >= t || (causal && kj > qi)) p = 0.f;
-        }
-        s[n][e] = p;
-      }
-
-    // dP = dO.V^T, then dS = P * (dP - delta) in place
-    float dp[8][4];
-    rows_by_tile(dp, da, vs, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[n][e] = s[n][e] * (dp[n][e] - (e < 2 ? d0 : d1));
-
-    // dQ += dS.K, dS as a hi/lo bf16 pair
-    acc_by_tile(dqa, dp, ks, lane);
-    __syncthreads();  // every warp is done with this buffer
-  }
-
-  // dQ = dS.K * scale: the scale (a power of two) applied once here
-  store_rows(dq + base, dqa, qi0, t, tq, scale, scale);
-}
-
-// dK/dV (wgmma, TMA): shared memory holds K, V, then q[STAGES],
-// dO[STAGES] (8 KB tiles, 1024-aligned), then each stage's 64 lse and 64
-// delta values, then the barriers kv, full[STAGES], empty[STAGES]
-constexpr int DKV_STAGES = 3;
-constexpr int DKV_THREADS = 128;  // one warpgroup
-constexpr int DKV_OFF_Q = 2 * sm90::BOX_BYTES;
-constexpr int DKV_OFF_DO = DKV_OFF_Q + DKV_STAGES * sm90::BOX_BYTES;
-constexpr int DKV_OFF_L = DKV_OFF_DO + DKV_STAGES * sm90::BOX_BYTES;
-constexpr int DKV_OFF_BAR = DKV_OFF_L + DKV_STAGES * 128 * 4;
-constexpr int DKV_SMEM_BYTES =
-    DKV_OFF_BAR + 8 * (1 + 2 * DKV_STAGES) + 1024;  // 68,152
+constexpr int THREADS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -542,12 +473,191 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// dQ (wgmma, TMA): shared memory holds q, dO, then K and V of each stage
+// (8 KB tiles, 1024-aligned), then the barriers qdo, full[DQ_STAGES],
+// empty[DQ_STAGES]
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_OFF_K = 2 * sm90::BOX_BYTES;  // stage s: K, then V
+constexpr int DQ_OFF_BAR = DQ_OFF_K + 2 * DQ_STAGES * sm90::BOX_BYTES;
+constexpr int DQ_SMEM_BYTES =
+    DQ_OFF_BAR + 8 * (1 + 2 * DQ_STAGES) + 1024;  // 50,216
+
+// S = q.K^T and dP = dO.V^T, each one committed group of 4 k-steps
+// (q, o, k, v: the descriptors of the q, dO, K and V tiles)
+__device__ __forceinline__ void scores(float (&s)[8][4], float (&dp)[8][4],
+                                       uint64_t q, uint64_t o, uint64_t k,
+                                       uint64_t v) {
+  using namespace sm90;
+  wgmma_ss<false>(s, q, k);
+#pragma unroll
+  for (int j = 1; j < 4; ++j)
+    wgmma_ss<true>(s, q + j * KSTEP_K, k + j * KSTEP_K);
+  wgmma_commit();
+  wgmma_ss<false>(dp, o, v);
+#pragma unroll
+  for (int j = 1; j < 4; ++j)
+    wgmma_ss<true>(dp, o + j * KSTEP_K, v + j * KSTEP_K);
+  wgmma_commit();
+}
+
+// S of key tile k0 in place -> P = exp2(S * c - l), exactly 0 where
+// masked (an edge tile: keys at or past t, or, causal, past the row)
+__device__ __forceinline__ void probs(float (&s)[8][4], bool edge, int k0,
+                                      int t, int causal, int tq, int qi0,
+                                      float c, float l0, float l1) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(s[n][e], c, -(e < 2 ? l0 : l1)));
+      if (edge) {
+        const int kj = k0 + 8 * n + 2 * tq + (e & 1);
+        if (kj >= t || (causal && kj > qi0 + (e < 2 ? 0 : 8))) p = 0.f;
+      }
+      s[n][e] = p;
+    }
+}
+
+// One block per (batch*head, 64-row query tile), looping over the visible
+// key tiles up to the diagonal.  Warp w owns query rows q0 + 16w .. +15;
+// lane (g, tq) holds rows g and g + 8 of them, as the rows of S, dP and
+// the dQ accumulator.
+__global__ void __launch_bounds__(THREADS, 4)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
+                         const __grid_constant__ CUtensorMap tmk,
+                         const __grid_constant__ CUtensorMap tmv,
+                         const __grid_constant__ CUtensorMap tmdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int t, int causal,
+                         float scale) {
+  using namespace sm90;
+  extern __shared__ unsigned char dq_bf16_smem[];
+  const uint32_t sq = (smem_addr(dq_bf16_smem) + 1023) & ~1023u;
+  const uint32_t sdo = sq + BOX_BYTES, skv = sq + DQ_OFF_K;
+  const uint32_t qbar = sq + DQ_OFF_BAR;
+  auto full = [&](int s) { return qbar + 8 + 8 * s; };
+  auto empty = [&](int s) { return qbar + 8 + 8 * (DQ_STAGES + s); };
+  auto ktile = [&](int s) { return skv + 2 * s * BOX_BYTES; };
+
+  const int head = blockIdx.x;
+  // causal: the last query tiles see the most keys: run them first
+  const int qt = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                        : (int)blockIdx.y;
+  const int q0 = qt * 64;
+  // causal: keys past the tile's last query row are never loaded
+  const int nk = causal ? qt + 1 : (t + 63) / 64;
+  // thread 0 fills the stage of key tile kt with its K and V, once the
+  // block is done with tile kt - DQ_STAGES there (zeros past t)
+  auto fill = [&](int kt) {
+    const int s = kt % DQ_STAGES;
+    if (kt >= DQ_STAGES) mbar_wait(empty(s), ((kt / DQ_STAGES) - 1) & 1);
+    mbar_arrive_expect_tx(full(s), 2 * BOX_BYTES);
+    tma_load_3d(ktile(s), &tmk, full(s), 0, kt * 64, head);
+    tma_load_3d(ktile(s) + BOX_BYTES, &tmv, full(s), 0, kt * 64, head);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), THREADS);
+    }
+    mbar_init_fence();
+    mbar_arrive_expect_tx(qbar, 2 * BOX_BYTES);
+    tma_load_3d(sq, &tmq, qbar, 0, q0, head);
+    tma_load_3d(sdo, &tmdo, qbar, 0, q0, head);
+    for (int kt = 0; kt < DQ_STAGES && kt < nk; ++kt) fill(kt);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int qi0 = q0 + 16 * warp + g, qi1 = qi0 + 8;
+  const float* lb = lse + (size_t)head * t;
+  const float* deb = delta + (size_t)head * t;
+  // the two rows' lse (in log2 units) and delta; rows past t, never
+  // stored, take 0
+  const float l0 = qi0 < t ? lb[qi0] * LOG2E : 0.f;
+  const float l1 = qi1 < t ? lb[qi1] * LOG2E : 0.f;
+  const float d0 = qi0 < t ? deb[qi0] : 0.f;
+  const float d1 = qi1 < t ? deb[qi1] : 0.f;
+  const float c = scale * LOG2E;  // raw score -> log2 units
+  const uint64_t desc_q = desc_sw128(sq), desc_do = desc_sw128(sdo);
+
+  // dQ; S then P; dP then dS: n-block n holds keys k0 + 8n + 2tq, +1 of
+  // rows qi0 (e < 2) and qi1 (dQ: dims 8n + 2tq, +1)
+  float dqa[8][4], s[8][4], dp[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % DQ_STAGES;
+    const uint64_t desc_k = desc_sw128(ktile(st));
+    mbar_wait(full(st), (kt / DQ_STAGES) & 1);
+    // S = q.K^T and dP = dO.V^T, two groups; P while dP is in flight
+    wgmma_fence();
+    scores(s, dp, desc_q, desc_do, desc_k,
+           desc_sw128(ktile(st) + BOX_BYTES));
+    wgmma_wait<1>();
+    fence_acc(s);
+    const bool edge = (causal && kt == qt) || kt * 64 + 64 > t;
+    probs(s, edge, kt * 64, t, causal, tq, qi0, c, l0, l1);
+    wgmma_wait<0>();
+    fence_acc(dp);
+    // no product is in flight, and every thread has released the stage of
+    // tile kt - 1 (its arrival came before this tile's products): thread 0
+    // refills it
+    if (threadIdx.x == 0 && kt >= 1 && kt - 1 + DQ_STAGES < nk)
+      fill(kt - 1 + DQ_STAGES);
+
+    // dS = P * (dP - delta) in place, then dQ += dS.K: dS as hi/lo bf16 A
+    // fragments (k-step j = n-blocks 2j, 2j + 1), the small terms first,
+    // K read MN-major from the same tile
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = s[n][e] * (dp[n][e] - (e < 2 ? d0 : d1));
+    uint32_t dh[4][4], dl[4][4];
+    split_acc(dp, dh, dl);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_rs(dqa, dl[j], desc_k + j * KSTEP_MN);
+      wgmma_rs(dqa, dh[j], desc_k + j * KSTEP_MN);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dqa);
+    mbar_arrive(empty(st));  // this thread is done with the stage
+  }
+
+  // dQ = dS.K * scale: the scale (a power of two) applied once here
+  store_rows(dq + (size_t)head * (size_t)t * D, dqa, qi0, t, tq, scale,
+             scale);
+}
+
+// dK/dV (wgmma, TMA): shared memory holds K, V, then q[STAGES],
+// dO[STAGES] (8 KB tiles, 1024-aligned), then each stage's 64 lse and 64
+// delta values, then the barriers kv, full[STAGES], empty[STAGES]
+constexpr int DKV_STAGES = 3;
+constexpr int DKV_OFF_Q = 2 * sm90::BOX_BYTES;
+constexpr int DKV_OFF_DO = DKV_OFF_Q + DKV_STAGES * sm90::BOX_BYTES;
+constexpr int DKV_OFF_L = DKV_OFF_DO + DKV_STAGES * sm90::BOX_BYTES;
+constexpr int DKV_OFF_BAR = DKV_OFF_L + DKV_STAGES * 128 * 4;
+constexpr int DKV_SMEM_BYTES =
+    DKV_OFF_BAR + 8 * (1 + 2 * DKV_STAGES) + 1024;  // 68,152
+
 // One block per (batch*head, 64-row key tile), looping over the visible
 // query tiles from the diagonal on: one warpgroup, whose warp 0 also
 // fills the stages.  Warp w owns key rows k0 + 16w .. +15; lane (g, tq)
 // holds rows g and g + 8 of them, as the rows of S^T, dP^T and the dK and
 // dV accumulators.
-__global__ void __launch_bounds__(DKV_THREADS, 3)
+__global__ void __launch_bounds__(THREADS, 3)
 flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
                           const __grid_constant__ CUtensorMap tmk,
                           const __grid_constant__ CUtensorMap tmv,
@@ -604,7 +714,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
     mbar_init(kvbar, 1);
     for (int s = 0; s < DKV_STAGES; ++s) {
       mbar_init(full(s), 33);  // warp 0's cp.asyncs, lane 0's TMA
-      mbar_init(empty(s), DKV_THREADS);
+      mbar_init(empty(s), THREADS);
     }
     mbar_init_fence();
     mbar_arrive_expect_tx(kvbar, 2 * BOX_BYTES);
@@ -715,18 +825,29 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tmq,
   store_rows(dv + base, dva, kj0, t, tq, 1.f, 1.f);
 }
 
+// the dQ kernel's dynamic shared memory is lifted once per device
+int dq_smem_ready[64];
+
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int t,
               int causal, void* stream) {
   const int nq = (t + 63) / 64;
   if (bh <= 0 || t <= 0 || nq > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(bh, nq);  // under 48 KB of shared memory: no lift
+  CUtensorMap tmq, tmk, tmv, tmdo;
+  if (int err = sm90::rows_map(&tmq, q, bh, t)) return err;
+  if (int err = sm90::rows_map(&tmk, k, bh, t)) return err;
+  if (int err = sm90::rows_map(&tmv, v, bh, t)) return err;
+  if (int err = sm90::rows_map(&tmdo, dout, bh, t)) return err;
+  if (int err = tf32mma::allow_dynamic_smem(
+          (const void*)flash_bwd_dq_bf16_kernel, DQ_SMEM_BYTES,
+          dq_smem_ready))
+    return err;
+  const dim3 grid(bh, nq);
   flash_bwd_dq_bf16_kernel<<<grid, THREADS, DQ_SMEM_BYTES,
                              (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), t, causal, 0.125f /* 64 ** -0.5 */);
+      tmq, tmk, tmv, tmdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), t, causal,
+      0.125f /* 64 ** -0.5 */);
   return (int)cudaGetLastError();
 }
 
@@ -748,7 +869,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
           dkv_smem_ready))
     return err;
   const dim3 grid(bh, nk);
-  flash_bwd_dkv_bf16_kernel<<<grid, DKV_THREADS, DKV_SMEM_BYTES,
+  flash_bwd_dkv_bf16_kernel<<<grid, THREADS, DKV_SMEM_BYTES,
                               (cudaStream_t)stream>>>(
       tmq, tmk, tmv, tmdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
@@ -782,8 +903,9 @@ extern "C" int sgp_flash_bwd_dkv_f32(const void* q, const void* k,
 }
 
 // The bf16 forms: q, k, v, dout and the gradients contiguous bf16
-// [bh, t, 64]; lse, delta fp32 [bh, t].  Return cudaGetLastError() after
-// the launch (0 on success).
+// [bh, t, 64], 16-byte aligned; lse, delta fp32 [bh, t].  Return the
+// error of a tensor map (1000 + its CUresult), of the shared-memory
+// attribute or cudaGetLastError() after the launch (0 on success).
 extern "C" int sgp_flash_bwd_dq_bf16(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,

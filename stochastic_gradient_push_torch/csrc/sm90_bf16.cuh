@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the bf16 flash kernels that run on
-// wgmma fed by TMA: the forward (flash_fwd.cu) and dK/dV (flash_bwd.cu).
+// Hopper (sm_90a) building blocks of the bf16 flash kernels, which all
+// run on wgmma fed by TMA: the forward (flash_fwd.cu), dQ and dK/dV
+// (flash_bwd.cu).
 // Inline PTX, no CUTLASS, so each library still builds in seconds.
 //
 // - Tiles.  Every bf16 row tensor is [bh, t, 64]: one row of 64 bf16 is

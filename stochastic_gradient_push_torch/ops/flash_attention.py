@@ -38,11 +38,10 @@ The fp32 forms are fp32-accurate through a 3xTF32 split (``mma.sync``
 TF32, three products per fp32 product; ``csrc/tf32_mma.cuh``) and hold
 their plain versions to 1e-4 on the card.  The bf16 forms take one bf16
 pass per product of bf16 inputs with fp32 accumulation, and feed P and
-dS to their second products as hi/lo bf16 pairs; the forward and dK/dV
-run on Hopper's ``wgmma`` with tiles loaded by TMA under mbarriers
-(``csrc/sm90_bf16.cuh``), dQ on ``mma.sync`` (``csrc/bf16_mma.cuh``).
-They hold their plain versions element by element in bf16 ulps
-(:func:`bf16_close`).
+dS to their second products as hi/lo bf16 pairs; all three run on
+Hopper's ``wgmma`` with tiles loaded by TMA under mbarriers
+(``csrc/sm90_bf16.cuh``).  They hold their plain versions element by
+element in bf16 ulps (:func:`bf16_close`).
 """
 
 from __future__ import annotations

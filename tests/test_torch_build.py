@@ -2,14 +2,17 @@
 driven with a stand-in ``nvcc`` (a shell script), since the real one is
 only on a machine with the CUDA toolkit: sources are built in parallel into
 a hash-keyed library, a built library is not rebuilt and still reports
-its ptxas log, an edit to a shared header ``csrc/*.cuh`` (the TF32 and
-bf16 ``mma.sync`` helpers, the Hopper ``wgmma``/TMA helpers) rebuilds
-the libraries that include it and no other, a refused source or a
+its ptxas log, an edit to a shared header ``csrc/*.cuh`` (the TF32
+``mma.sync`` helpers, the bf16 packing helpers, the Hopper ``wgmma``/TMA
+helpers) rebuilds the libraries that include it and no other, the bf16
+kernels keep none of the warp-level product helpers they ran on before
+``wgmma``, a refused source or a
 missing compiler raises ``KernelBuildError``, and a non-zero CUDA error
 from a launch raises ``KernelLaunchError``.
 """
 
 import os
+import re
 import shutil
 import stat
 
@@ -139,13 +142,12 @@ def test_flash_sources_share_the_header_and_keep_no_copy():
 
 
 def test_flash_sources_share_the_bf16_header_and_keep_no_copy():
-    # the bf16 forms of K3-K5 take their mma, ldmatrix, packing and
-    # staging helpers from csrc/bf16_mma.cuh; an edit there rebuilds both
-    # flash libraries and no other
+    # the bf16 forms of K3-K5 take their packing, hi/lo split and rounded
+    # store from csrc/bf16_mma.cuh; an edit there rebuilds both flash
+    # libraries and no other
     header = (_build.CSRC / "bf16_mma.cuh").read_text()
-    helpers = ("uint32_t pack(", "void split(", "void ldsm_x4(",
-               "void ldsm_x4_t(", "void rows_by_tile(", "void acc_by_tile(",
-               "m16n8k16.row.col.f32.bf16.bf16.f32")
+    helpers = ("uint32_t pack(", "float lo_f(", "float hi_f(", "void split(",
+               "void store_rows(")
     assert all(h in header for h in helpers)
     for name in ("flash_fwd", "flash_bwd"):
         src = (_build.CSRC / f"{name}.cu").read_text()
@@ -158,9 +160,49 @@ def test_flash_sources_share_the_bf16_header_and_keep_no_copy():
             _build.CSRC / f"{name}.cu")
 
 
+def _bf16_namespace(name: str) -> str:
+    """The text of ``csrc/<name>.cu``'s bf16 kernels (``namespace bf16k``)."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    start = src.index("namespace bf16k {")
+    return src[start:src.index("}  // namespace bf16k", start)]
+
+
+# the warp-level bf16 product helpers the kernels ran on before wgmma
+_RETIRED_BF16 = ("mma(", "mmaz(", "ldsm_x4(", "ldsm_x4_t(", "cp_async16(",
+                 "cp_async_commit(", "cp_async_wait<", "load_rows(",
+                 "load_a(", "rows_by_tile(", "acc_by_tile(")
+
+
+def test_bf16_header_keeps_no_warp_level_product_helper():
+    # bf16_mma.cuh holds exactly the helpers the wgmma kernels use: no
+    # mma.sync, ldmatrix or cp.async helper, no staged-tile stride; and
+    # the bf16 namespaces of both flash sources call none of the retired
+    # helpers, with dQ, dK/dV and the forward all on wgmma fed by TMA
+    header = (_build.CSRC / "bf16_mma.cuh").read_text()
+    code = re.sub(r"//[^\n]*", "", header)
+    for ptx in ("mma.sync", "ldmatrix", "cp.async"):
+        assert ptx not in code, ptx
+    defined = re.findall(r"__device__ __forceinline__ \w+ (\w+)\(", code)
+    assert sorted(defined) == ["hi_f", "lo_f", "pack", "split", "store_rows"]
+    assert re.findall(r"constexpr int (\w+)", code) == ["D"]
+    kernels = {"flash_fwd": ("flash_fwd_bf16_kernel",),
+               "flash_bwd": ("flash_bwd_dq_bf16_kernel",
+                             "flash_bwd_dkv_bf16_kernel")}
+    for name, entries in kernels.items():
+        body = re.sub(r"//[^\n]*", "", _bf16_namespace(name))
+        for ptx in ("mma.sync", "ldmatrix"):
+            assert ptx not in body, (name, ptx)
+        called = [h for h in _RETIRED_BF16
+                  if re.search(r"(?<![\w.])" + re.escape(h), body)]
+        assert not called, (name, called)
+        assert all(e in body for e in entries), name
+        assert body.count("wgmma_rs(") >= 2 * len(entries), name
+        assert body.count("tma_load_3d(") >= 2 * len(entries), name
+
+
 def test_flash_sources_share_the_sm90_header_and_keep_no_copy(tmp_path,
                                                               monkeypatch):
-    # the bf16 forward and dK/dV take their wgmma, TMA and mbarrier
+    # the bf16 forward, dQ and dK/dV take their wgmma, TMA and mbarrier
     # helpers from csrc/sm90_bf16.cuh: an edit there rebuilds both flash
     # libraries and no other, and the bf16 forward keeps none of the
     # mma.sync helpers it ran on before
