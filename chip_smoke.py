@@ -199,7 +199,30 @@
      forward and backward less forward, from graphs) and its bound (bf16
      rows, fp32 lse/delta, 989 TFLOP/s), and K4 + K5 against SDPA's
      backward.
-13. A JSON line of per-kernel results (the fp32 flash rows also carry
+13. One rank per process on the card (``DistTransport`` over a gloo
+   group, the payload on the cross-process K2/K1, peers mapped by CUDA
+   IPC), each process's run joined with a timeout so a hang fails:
+   - 13a: 4 processes run the cross-process K2 + K1 for the f32, bf16
+     and int8 wires at ResNet-50's payload and at the d768/L12 LM's, two
+     edges, 20 rounds each with new data every round: every rank's
+     output bit-equal to the stacked K2 + K1 on the same seeded inputs
+     (every round) and to the plain twin (gloo, round 0 at ResNet-50's
+     payload); then rounds at 13b's shape (ResNet-50, f32, one edge)
+     timed in rank 0 with CUDA events: its K2 and its K1 each alone on
+     the card once its flags are set (the ``ms`` of the kernels line),
+     and the round as the four processes run it together, time-sliced,
+     beside ``copy_`` into the mapped peer row and the HBM bound, none
+     an NVLink figure; then one process skips a round, and the rank it
+     sends to must raise ``PeerLostError`` naming its rank, the edge,
+     the round and the silent peer after its 2 s limit;
+   - 13b: ``run/gossip_sgd.py`` in 2 processes under a torchrun
+     environment (``--backend gloo --gossip_kernel pallas``), ResNet-50
+     at 224 px, 8 images a rank, 3 steps, SGP and OSGP side by side: one
+     cross-process K2 and K1 a step in each process, both rank files
+     written, each rank's state against the stacked kernel-lane run of
+     the same command under deterministic cuDNN (the ResNet step tests'
+     tolerance, rtol 1e-5 / atol 1e-6).
+14. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -3024,6 +3047,466 @@ def bf16_path(card: str, fp32_train: dict, fp32_seq: dict
     return launches, rows
 
 
+# -- phase 13: one rank per process on one card -----------------------------
+
+# 13a: the cross-process K2 + K1 at world 4, two edges, every wire, at
+# ResNet-50's payload and the d768/L12 LM's, new data every round; then
+# rounds at 13b's shape (ResNet-50, f32, one edge) timed
+DIST = dict(world=4, edges=2, rounds=20, timed=20, timeout=60.0,
+            lost_timeout=2.0)
+# 13b: run/gossip_sgd.py in 2 processes under a torchrun environment,
+# ResNet-50 at full width, 8 images a rank, 3 steps, SGP then OSGP
+DIST_CLI = dict(world=2, batch=8, itrs=3)
+DIST_TIMEOUT_S = 300
+
+_DIST_KERNEL_CHILD = r"""
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+from stochastic_gradient_push_torch.parallel import collectives
+from stochastic_gradient_push_torch.parallel.wire import get_codec
+from stochastic_gradient_push_torch.topology import (
+    NPeerDynamicDirectedExponentialGraph, build_schedule)
+
+rank, world, port = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+cfg = json.loads(sys.argv[5])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank)
+transport = collectives.DistTransport(timeout_s=cfg["timeout"])
+lane = gk.KernelLane()
+report = {"rank": rank, "checked": []}
+
+
+def case(g, spec, length, ne):
+    # every rank's encoded parts and accumulator: the same in each process
+    if spec.kind == "int8":
+        rows = length // spec.block
+        parts = (torch.randint(-127, 128, (world, ne, rows, spec.block),
+                               device="cuda", generator=g,
+                               dtype=torch.int8),
+                 torch.rand(world, ne, rows, device="cuda", generator=g)
+                 * 0.02)
+    else:
+        x = torch.randn(world, ne, length, device="cuda", generator=g)
+        parts = (x.to(torch.bfloat16) if spec.kind == "bf16" else x,)
+    return parts, torch.randn(world, length, device="cuda", generator=g)
+
+
+def dests_of(ne, t):
+    s = build_schedule(NPeerDynamicDirectedExponentialGraph(
+        world, peers_per_itr=ne))
+    return s.perms[t % s.num_phases]
+
+
+g = torch.Generator(device="cuda")
+for label, n in cfg["payloads"]:
+    for wire in ("f32", "bf16", "int8"):
+        spec = get_codec(wire, 64).kernel_spec()
+        length = gk.padded_len(spec, n)
+        for t in range(cfg["rounds"]):
+            g.manual_seed(1000 * t + len(label))
+            parts, acc = case(g, spec, length, cfg["edges"])
+            dests = dests_of(cfg["edges"], t)
+            want = gk.gossip_edge_wait(gk.gossip_edge_start(
+                parts, dests, spec, n_decoded=n), acc)[rank]
+            mine = tuple(p[rank:rank + 1] for p in parts)
+            got = gk.gossip_edge_wait(transport.edge_start(
+                mine, dests, spec, n, lane, slot=(label, wire)),
+                acc[rank:rank + 1])[0]
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"rank {rank} {label} {wire} round {t}: cross-process "
+                    f"K2+K1 differs from the stacked K2+K1, max err "
+                    f"{float((got - want).abs().max())}")
+            if t == 0 and label == cfg["twin"]:
+                # the plain twin: the same parts over gloo, landed on the CPU
+                twin = gk.gossip_edge_wait(transport.edge_start(
+                    tuple(p.cpu() for p in mine), dests, spec, n,
+                    gk.KernelLane(interpret=True), slot=("twin", wire)),
+                    acc[rank:rank + 1].cpu())[0]
+                if not torch.equal(twin, got.cpu()):
+                    raise AssertionError(
+                        f"rank {rank} {label} {wire}: cross-process K2+K1 "
+                        "differs from its plain twin")
+            del parts, acc, want, got, mine
+        transport.check()
+        report["checked"].append(f"{label} {wire}")
+        torch.cuda.empty_cache()
+
+# 13b's shape: ResNet-50's payload, f32, one edge; timed in rank 0 while
+# the four processes run the same rounds
+spec = get_codec("f32", 64).kernel_spec()
+n = cfg["payloads"][0][1]
+length = gk.padded_len(spec, n)
+g.manual_seed(99)
+parts, acc = case(g, spec, length, 1)
+mine = (parts[0][rank:rank + 1].contiguous(),)
+a = acc[rank:rank + 1].contiguous()
+del parts, acc
+dests = dests_of(1, 0)
+whole = []
+for t in range(cfg["timed"] + 3):
+    # the round as the four processes run it together, time-sliced
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    # the card sleeps ~1 ms while the host launches the round, so the
+    # events time the device's work, not the host's
+    torch.cuda._sleep(2_000_000)
+    e0.record()
+    h = transport.edge_start(mine, dests, spec, n, lane, slot="timed")
+    out = gk.gossip_edge_wait(h, a)
+    e1.record()
+    e1.synchronize()
+    if t >= 3:
+        whole.append(e0.elapsed_time(e1))
+
+
+def alone(fn):
+    # rank 0 runs fn (after a ~1 ms device sleep) on a card the others
+    # leave idle at a barrier, then the others run it; rank 0's time
+    torch.cuda.synchronize()
+    dist.barrier()
+    ms, out = None, None
+    if rank == 0:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        # a start ends at its K2's event (the side stream's)
+        ms = e0.elapsed_time(out.remote.event if hasattr(out, "remote")
+                             else e1)
+    dist.barrier()
+    if rank != 0:
+        out = fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return ms, out
+
+
+k2, k1 = [], []
+for t in range(cfg["timed"] + 3):
+    # K2 once every receiver consumed the last round; K1 once every K2 of
+    # the round has landed
+    ms2, h = alone(lambda: transport.edge_start(mine, dests, spec, n, lane,
+                                                slot="timed"))
+    link = h.remote.link
+    ready = torch.as_tensor(gk._DeviceBytes(link.ptr, 8 * link.E),
+                            device="cuda").view(torch.int64)
+    if int(ready.min()) < h.remote.rnd:
+        raise AssertionError(f"rank {rank}: round {h.remote.rnd} not "
+                             f"ready after every K2 ended: {ready.tolist()}")
+    ms1, out = alone(lambda: gk.gossip_edge_wait(h, a))
+    if t >= 3 and rank == 0:
+        k2.append(ms2)
+        k1.append(ms1)
+transport.check()
+# the plain twin at the same shape (gloo between the four processes,
+# host clock)
+cpu_mine, cpu_a = (mine[0].cpu(),), a.cpu()
+twin = []
+for t in range(2):
+    dist.barrier()
+    t0 = time.perf_counter()
+    gk.gossip_edge_wait(transport.edge_start(
+        cpu_mine, dests, spec, n, gk.KernelLane(interpret=True),
+        slot="twin-timed"), cpu_a)
+    twin.append((time.perf_counter() - t0) * 1e3)
+dist.barrier()
+if rank == 0:
+    dst = int(dests[0][rank])
+    nbytes = mine[0].numel() * mine[0].element_size()
+    # the PyTorch call that computes K2's function: copy_ into the mapped
+    # landing row of the receiver
+    peer = torch.as_tensor(gk._DeviceBytes(link.base(dst) + link.offs[0],
+                                           nbytes), device="cuda"
+                           ).view(torch.float32).reshape(mine[0].shape)
+    recv = link.recv[0].reshape(a.shape)
+
+    def timed(fn, iters=10):
+        for _ in range(3):
+            fn()
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        for _ in range(iters):
+            fn()
+        s1.record()
+        s1.synchronize()
+        return s0.elapsed_time(s1) / iters
+
+    acc_chunks = a.reshape(1, h.meta[4], h.meta[3])
+    report.update(
+        k2_ms=statistics.median(k2), k1_ms=statistics.median(k1),
+        round_ms=statistics.median(whole), round_min_ms=min(whole),
+        copy_ms=timed(lambda: peer.copy_(mine[0])),
+        add_ms=timed(lambda: torch.add(a, recv)),
+        k1_plain_ms=timed(lambda: gk.gossip_edge_wait_reference(
+            acc_chunks, h.recv, "f32")),
+        twin_ms=twin[-1], part_bytes=nbytes, acc_elems=a.numel())
+dist.barrier()
+# a peer that never sends: on a fresh link every rank runs round 1, then
+# rank 3 skips round 2; the rank it sends to gives up after the link's
+# limit and names it
+lost = world - 1
+victim = int(dests[0][lost])
+gk.gossip_edge_wait(transport.edge_start(mine, dests, spec, n, lane,
+                                         slot="lost"), a)
+torch.cuda.synchronize()
+transport.check()
+transport.links.timeout_s = cfg["lost_timeout"]
+if rank != lost:
+    t0 = time.perf_counter()
+    h = transport.edge_start(mine, dests, spec, n, lane, slot="lost")
+    gk.gossip_edge_wait(h, a)
+    torch.cuda.synchronize()
+    try:
+        transport.check()
+        raised = None
+    except gk.PeerLostError as e:
+        raised = str(e)
+    report["lost"] = [raised, time.perf_counter() - t0]
+    if (raised is None) != (rank != victim):
+        raise AssertionError(f"rank {rank}: lost-peer error {raised!r}")
+    if raised is not None and not (
+            f"rank {rank}, edge 0, round 2: no payload from rank {lost}"
+            in raised):
+        raise AssertionError(f"rank {rank}: lost-peer error {raised!r}")
+dist.barrier()
+transport.close()
+print("DIST13 " + json.dumps(report), flush=True)
+dist.destroy_process_group()
+"""
+
+_DIST_CLI_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+from stochastic_gradient_push_torch.run import gossip_sgd
+
+counters = {"gossip_edge_start": (gk.gossip_edge_start, "launches"),
+            "gossip_edge_wait": (gk.gossip_edge_wait, "launches"),
+            "gossip_edge_start_ipc": (gk.gossip_edge_start, "launches_ipc"),
+            "gossip_edge_wait_ipc": (gk.gossip_edge_wait, "launches_ipc")}
+for fn, attr in counters.values():
+    setattr(fn, attr, 0)
+gossip_sgd.main(json.loads(sys.argv[5]))
+print("LAUNCHES " + json.dumps({k: getattr(fn, attr)
+                                for k, (fn, attr) in counters.items()}),
+      flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(script: str, world: int, args, env=None) -> list:
+    """``world`` processes of ``script`` (argv: root, rank, world, port,
+    *args), each with the card as device 0; started, to be joined by
+    :func:`_join`."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        e = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2",
+                 **(env(r, port) if env else {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script, ROOT, str(r), str(world),
+             str(port), *args], env=e, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _join(label: str, procs) -> list[str]:
+    """Each process's output; a nonzero exit or a hang (past
+    ``DIST_TIMEOUT_S``) fails the phase, and no process outlives it."""
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{label}: a process hung past "
+                                     f"{DIST_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"{label}: rank(s) {bad} exited "
+                             f"{[procs[i].returncode for i in bad]}:\n"
+                             + "\n".join(logs[i][-4000:] for i in bad))
+    return logs
+
+
+def _tagged(log: str, tag: str) -> dict:
+    line = next(x for x in log.splitlines() if x.startswith(tag + " "))
+    return json.loads(line[len(tag) + 1:])
+
+
+def dist_kernel_rows(card: str, lm_payload: int) -> dict:
+    """13a: the cross-process K2 + K1 in 4 processes on the card against
+    the stacked K2 + K1 (every round) and the plain twin (first round at
+    ResNet-50's payload); the kernels' rows from rank 0's timings at
+    13b's shape."""
+    t0 = time.perf_counter()
+    cfg = dict(DIST, payloads=[["resnet50", RESIL_PAYLOAD],
+                               ["lm_d768_L12", lm_payload]],
+               twin="resnet50")
+    logs = _join("13a", _ranks(_DIST_KERNEL_CHILD, DIST["world"],
+                               [json.dumps(cfg)]))
+    reports = [_tagged(log, "DIST13") for log in logs]
+    r0 = next(r for r in reports if r["rank"] == 0)
+    print(f"dist 13a: {DIST['world']} processes, E{DIST['edges']}, "
+          f"{DIST['rounds']} rounds each of {', '.join(r0['checked'])}: "
+          f"every rank's cross-process K2 + K1 bit-equal to the stacked "
+          f"K2 + K1, and to the plain twin (gloo) on round 0 at "
+          f"ResNet-50's payload; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    part, acc = r0["part_bytes"], r0["acc_elems"]
+    sb = _bound(2 * part, 0)
+    wb = _bound(2 * acc * 4 + part, acc)
+    victim = next(r for r in reports if r.get("lost", [None])[0])
+    print(f"dist 13a lost peer: rank {DIST['world'] - 1} skipped a round; "
+          f"rank {victim['rank']} raised after {victim['lost'][1]:.2f} s "
+          f"(limit {DIST['lost_timeout']} s): {victim['lost'][0]}",
+          flush=True)
+    print(f"dist 13a timed at ResNet-50 f32 E1, world 4 processes on one "
+          f"card (not an NVLink figure), rank 0 medians of {DIST['timed']}: "
+          f"K2 {r0['k2_ms']:.4f} ms once its receiver consumed the last "
+          f"round, K1 {r0['k1_ms']:.4f} ms once every K2 landed (each alone "
+          f"on the card, flag waits and signals included); the round as "
+          f"the four run it together, time-sliced, {r0['round_ms']:.3f} ms "
+          f"(best {r0['round_min_ms']:.3f}); copy_ into the mapped peer row "
+          f"{r0['copy_ms']:.3f} ms, add {r0['add_ms']:.3f} ms, K1 plain "
+          f"{r0['k1_plain_ms']:.3f} ms, twin round (gloo, host clock) "
+          f"{r0['twin_ms']:.1f} ms; bounds K2 {sb[0]:.4f} ms ({sb[1]}, "
+          f"HBM; NVLink 450 GB/s a direction would be "
+          f"{part / 450e9 * 1e3:.4f} ms, not measured), K1 {wb[0]:.4f} ms "
+          f"[{card}]", flush=True)
+    return {"gossip_edge_start_ipc": dict(
+                max_abs_err=0.0, ms=r0["k2_ms"], plain_ms=r0["twin_ms"],
+                bound_ms=sb[0], bound_by=sb[1], library_ms=r0["copy_ms"]),
+            "gossip_edge_wait_ipc": dict(
+                max_abs_err=0.0, ms=r0["k1_ms"], plain_ms=r0["k1_plain_ms"],
+                bound_ms=wb[0], bound_by=wb[1], library_ms=r0["add_ms"])}
+
+
+def _dist_argv(ckpt_dir: str, *extra: str) -> list[str]:
+    c = DIST_CLI
+    return ["--model", "resnet50", "--image_size", "224", "--num_classes",
+            "1000", "--dataset", "synthetic", "--batch_size", str(c["batch"]),
+            "--num_epochs", "1", "--num_iterations_per_training_epoch",
+            str(c["itrs"]), "--synthetic_samples",
+            str(c["world"] * c["batch"] * c["itrs"]), "--num_itr_ignore", "0",
+            "--print_freq", "1", "--seed", "0", "--verbose", "False",
+            "--gossip_kernel", "pallas", "--checkpoint_dir", ckpt_dir, *extra]
+
+
+def dist_cli_path(card: str) -> dict:
+    """13b: run/gossip_sgd.py under a torchrun environment in 2 processes
+    on the card (gloo group, the payload on the cross-process K2/K1),
+    SGP and OSGP side by side; launch counts per step in each process,
+    the rank files, and each rank's state against the stacked kernel-lane
+    run of the same command (deterministic cuDNN)."""
+    import torch
+
+    from stochastic_gradient_push_torch.run import gossip_sgd
+
+    t0 = time.perf_counter()
+    world, steps = DIST_CLI["world"], DIST_CLI["itrs"]
+    tmp = tempfile.mkdtemp(prefix="dist13_", dir=os.path.join(ROOT, "build"))
+    runs = {"sgp": [], "osgp": ["--overlap", "True"]}
+
+    def torchrun(r, port):
+        return dict(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(port))
+
+    procs = {alg: _ranks(_DIST_CLI_CHILD, world, [json.dumps(_dist_argv(
+        os.path.join(tmp, alg), "--backend", "gloo", *extra))], torchrun)
+        for alg, extra in runs.items()}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        for alg, extra in runs.items():
+            gossip_sgd.main(_dist_argv(os.path.join(tmp, alg + "_stacked"),
+                                       "--world_size", str(world), *extra))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    launches = {}
+    for alg in runs:
+        logs = _join(f"13b {alg}", procs[alg])
+        for r, log in enumerate(logs):
+            got = _tagged(log, "LAUNCHES")
+            want = {"gossip_edge_start": 0, "gossip_edge_wait": 0,
+                    "gossip_edge_start_ipc": steps,
+                    "gossip_edge_wait_ipc": steps}
+            if got != want:
+                raise AssertionError(f"13b {alg} rank {r}: launches {got}, "
+                                     f"expected {want} (one cross-process "
+                                     f"start and wait a step)")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+        worst, exact = 0.0, 0
+        for r in range(world):
+            path = os.path.join(tmp, alg, f"checkpoint_r{r}_n{world}.ckpt")
+            if not os.path.isfile(path):
+                raise AssertionError(f"13b {alg}: no rank file {path}")
+            got = _flat(torch.load(path, weights_only=True)["state"])
+            want = _flat(torch.load(os.path.join(
+                tmp, alg + "_stacked", f"checkpoint_r{r}_n{world}.ckpt"),
+                weights_only=True)["state"])
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"13b {alg} rank {r}: rank file keys "
+                                     "differ from the stacked run's")
+            for k in want:
+                # tests/test_torch_resnet_step.py's step tolerance
+                torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                           atol=1e-6, msg=f"13b {alg} {k}")
+                worst = max(worst, _max_err(got[k], want[k]))
+                exact += bool(torch.equal(got[k], want[k]))
+        print(f"dist 13b {alg}: run/gossip_sgd.py in {world} processes "
+              f"(torchrun environment, --backend gloo, --gossip_kernel "
+              f"pallas), ResNet-50 224 px, {DIST_CLI['batch']} a rank, "
+              f"{steps} steps: one cross-process K2 and K1 a step in each "
+              f"process, rank files written; vs the stacked kernel lane's "
+              f"run: max |diff| {worst:.3g} over {len(want) * world} "
+              f"tensors, {exact} exactly equal [{card}]", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"dist: 13b in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def dist_path(card: str, lm_payload: int) -> tuple[dict, dict]:
+    """Phase 13: 13a (the kernels across processes), then 13b (the CLI
+    under torchrun)."""
+    t0 = time.perf_counter()
+    rows = dist_kernel_rows(card, lm_payload)
+    launches = dist_cli_path(card)
+    print(f"dist: phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -3078,17 +3561,22 @@ def main() -> int:
     seq_launches, seq_timed = seq_path(card)
     torch.cuda.empty_cache()
     bf16_launches, bf16_rows = bf16_path(card, train_timed, seq_timed)
+    torch.cuda.empty_cache()
+    from stochastic_gradient_push_torch.train.lm import make_model
+    dist_launches, dist_rows = dist_path(card, sum(
+        p.numel() for p in make_model(_lm_config()).parameters()))
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
     # D-PSGD and OSGP runs, phase 9's kernel-lane steps and CLI run,
     # phase 10's kernel-lane steps and CLI runs, phase 11's timed steps
-    # and CLI run, phase 12's timed steps and CLI run) summed
+    # and CLI run, phase 12's timed steps and CLI run, phase 13b's CLI
+    # processes) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
-            topo_launches, seq_launches, bf16_launches))
+            topo_launches, seq_launches, bf16_launches, dist_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"
@@ -3129,6 +3617,15 @@ def main() -> int:
         dict(name="flash_bwd_dkv_bf16", route="cuda", source=bwd_src,
              replaces=f"{flash}:270", launches=total("flash_bwd_dkv_bf16"),
              **bf16_rows["flash_bwd_dkv_bf16"]),
+        # the cross-process forms, at phase 13b's shape (ResNet-50, f32,
+        # one edge), timed with four processes sharing the card
+        dict(name="gossip_edge_start_ipc", route="cuda", source=gossip_src,
+             replaces=f"{gossip}:295",
+             launches=total("gossip_edge_start_ipc"),
+             **dist_rows["gossip_edge_start_ipc"]),
+        dict(name="gossip_edge_wait_ipc", route="cuda", source=gossip_src,
+             replaces=f"{gossip}:513", launches=total("gossip_edge_wait_ipc"),
+             **dist_rows["gossip_edge_wait_ipc"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

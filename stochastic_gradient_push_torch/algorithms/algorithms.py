@@ -10,7 +10,7 @@ Where the reference takes a mesh axis name, the port takes a transport
 (``parallel/collectives.py``).  ``gossip_kernel`` (``"xla"``,
 ``"auto"``, ``"pallas"`` or a resolved ``KernelLane``) moves the payload
 through the gossip transport kernels (``ops/gossip_kernel.py``) in
-``gossip_buckets`` buckets, on the stacked transport.
+``gossip_buckets`` buckets, on the stacked transport or across processes.
 ``gossip_every`` thins the rounds and ``global_avg_every`` interleaves
 an exact global average (:meth:`PushSumGossip.global_average`).
 ``faults`` (``resilience/faults.py``) masks the rounds and
@@ -22,9 +22,6 @@ the intra-slice mean run at consume); a synthesized one runs SGP.  Both
 refuse fault injection, synthesized refuses overlap, D-PSGD refuses both
 (irregular), and bilateral pairing refuses both graphs, as the reference
 does.
-
-Not ported yet, and refused by name: the kernel lane under
-``torch.distributed`` (the cross-process transport kernel).
 """
 
 from __future__ import annotations
@@ -203,13 +200,8 @@ class PushSumGossip(GossipAlgorithm):
         # resolved at construction, so "pallas" without a card fails here
         # with the typed KernelBackendError before any step runs
         lane = resolve_gossip_kernel(gossip_kernel)
-        if lane is not None and not isinstance(
-                transport, collectives.StackedTransport):
-            raise NotImplementedError(
-                "gossip_kernel='pallas' under a DistTransport: the "
-                "cross-process gossip_edge_start (one rank per GPU) is not "
-                "ported to stochastic_gradient_push_torch yet (ROADMAP.md "
-                "Queue 2); use gossip_kernel='xla' under torch.distributed")
+        if lane is not None:
+            collectives.check_kernel_transport(transport)
         self.schedule = schedule
         self.transport = transport
         self.overlap = bool(overlap)

@@ -1,4 +1,6 @@
-// Gossip transport for Hopper (sm_90a): edge start (K2) and edge wait (K1).
+// Gossip transport for Hopper (sm_90a): edge start (K2) and edge wait (K1),
+// in two forms: the stacked lane (every rank in one process) and the
+// cross-process lane (one rank per process, peers mapped by CUDA IPC).
 //
 // K2 replaces stochastic_gradient_push_tpu/ops/gossip_kernel.py::
 // _edge_start_kernel (reached through gossip_edge_start): every encoded
@@ -29,9 +31,38 @@
 // to the plain PyTorch version.  Bound: bytes (1 flop per element read).
 // Each thread owns 4 consecutive elements (16-byte acc/out loads) when
 // the slab length and the pointers allow, else 1.
+//
+// Cross-process form (one rank per process, R = 1 in every shape): each
+// rank cudaMalloc's one block per transport bucket, [ready[E] |
+// consumed[E] | landing part 0 [E, slab0] | part 1 [E, slab1]], exports it
+// with cudaIpcGetMemHandle, and maps the blocks of the peers it sends to
+// with cudaIpcOpenMemHandle (sgp_gossip_ipc_*; on one card the processes
+// share the device, across cards the mapping rides NVLink).  Counters
+// hold the round number (1, 2, ...) and are never reset, so stale landing
+// bytes cannot pass for a new round.  Stream order is the barrier: K2
+// (sgp_gossip_edge_start_ipc) is a one-block wait kernel that
+// acquire-waits (ld.acquire.sys) until each receiver's consumed[e] has
+// reached the previous round -- the receiver owns its landing row again,
+// the TPU kernel's entry barrier -- then the stacked K2 above at R = E = 1
+// for each edge, straight into the receiver's mapped landing row, then a
+// one-block signal kernel that release-stores ready[e] = round in each
+// receiver's block (st.release.sys after a system fence).  K1
+// (sgp_gossip_edge_wait_ipc_*) is the wait kernel on this rank's ready[e],
+// the stacked K1 above at R = 1, and the signal kernel on its
+// consumed[e].  A wait polls with __nanosleep backoff and gives up after
+// timeout_ns of %globaltimer: it records (code, rank, edge, round) in a
+// host-mapped error record and raises a device abort word, after which
+// the link's waits give up at once and its signals are not sent; the host
+// raises a typed error from the record.  Processes that share one card
+// run by time-slicing, so a wait spinning on a flag holds the card until
+// its slice ends: rounds there are slow, and are no NVLink figure.
+// Bound of the cross-process K2: the part bytes read once and written
+// once (3.35 TB/s on one card; across cards each byte also crosses
+// NVLink at 450 GB/s a direction).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -217,4 +248,253 @@ extern "C" int sgp_gossip_edge_wait_int8(const void* acc, const void* q,
                                          long long L, int block, int R,
                                          int E, void* stream) {
   return launch_wait<INT8>(acc, q, scale, out, L, block, R, E, stream);
+}
+
+// ---- the cross-process form ----------------------------------------------
+
+namespace {
+
+constexpr int MAX_EDGES = 16;  // edges a round
+
+// One u64 round counter an edge, each in some rank's IPC block.
+struct Flags {
+  unsigned long long* p[MAX_EDGES];
+};
+// Host-side int64 link[5]: the abort word (local device int), the error
+// record (host-mapped, device address), round, timeout_ns, rank.
+struct Link {
+  int* abort;
+  volatile long long* err;
+  unsigned long long round;
+  long long timeout_ns;
+  int rank;
+};
+
+Link make_link(const long long* h) {
+  return Link{reinterpret_cast<int*>(h[0]),
+              reinterpret_cast<volatile long long*>(h[1]),
+              static_cast<unsigned long long>(h[2]), h[3],
+              static_cast<int>(h[4])};
+}
+
+Flags make_flags(const long long* h, int E) {
+  Flags f;
+  for (int e = 0; e < MAX_EDGES; ++e)
+    f.p[e] = e < E ? reinterpret_cast<unsigned long long*>(h[e]) : nullptr;
+  return f;
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Thread e spins until *f.p[e] >= want.  It gives up when another wait of
+// the link gave up, or after timeout_ns: then the first to give up
+// records (code, rank, edge, round) for the host and raises the abort
+// word.
+__global__ void flag_wait_kernel(Flags f, unsigned long long want, Link k,
+                                 int code, int E) {
+  const int e = threadIdx.x;
+  if (e >= E || ld_acquire(f.p[e]) >= want) return;
+  const unsigned long long t0 = now_ns();
+  unsigned ns = 32;
+  for (;;) {
+    if (*reinterpret_cast<volatile int*>(k.abort)) return;
+    __nanosleep(ns);
+    if (ns < 8192) ns <<= 1;
+    if (ld_acquire(f.p[e]) >= want) return;
+    if ((long long)(now_ns() - t0) > k.timeout_ns) {
+      if (atomicCAS(k.abort, 0, code) == 0) {
+        k.err[1] = k.rank;
+        k.err[2] = e;
+        k.err[3] = (long long)k.round;
+        __threadfence_system();
+        k.err[0] = code;
+        __threadfence_system();
+      }
+      return;
+    }
+  }
+}
+
+// Thread e release-stores the round in *f.p[e], after the copy or fold
+// before it in stream order; nothing once a wait of the link gave up.
+__global__ void flag_signal_kernel(Flags f, unsigned long long round,
+                                   const int* abort, int E) {
+  const int e = threadIdx.x;
+  if (e >= E || *reinterpret_cast<const volatile int*>(abort)) return;
+  __threadfence_system();
+  st_release(f.p[e], round);
+}
+
+// K1, cross-process: wait for every incoming edge's ready[e] (waits),
+// the stacked K1 at R = 1, then release consumed[e] (signals).
+template <int KIND>
+int wait_ipc(const void* acc, const void* recv, const void* scale,
+             void* out, long long L, int block, int E, const void* waits,
+             const void* signals, const void* link, int device,
+             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (E < 1 || E > MAX_EDGES) return (int)cudaErrorInvalidValue;
+  const Link k = make_link(static_cast<const long long*>(link));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  flag_wait_kernel<<<1, MAX_EDGES, 0, st>>>(
+      make_flags(static_cast<const long long*>(waits), E), k.round, k, 2,
+      E);
+  const int rc = launch_wait<KIND>(acc, recv, scale, out, L, block, 1, E,
+                                   stream);
+  if (rc != 0) return rc;
+  flag_signal_kernel<<<1, MAX_EDGES, 0, st>>>(
+      make_flags(static_cast<const long long*>(signals), E), k.round,
+      k.abort, E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ---- cross-process setup and entry points ----------------------------------
+
+// One zeroed block of `bytes` on `device` and its IPC handle (64 bytes).
+extern "C" int sgp_gossip_ipc_alloc(int device, long long bytes, void** ptr,
+                                    void* handle) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  return (int)err;
+}
+
+// Map a peer's block from its handle.
+extern "C" int sgp_gossip_ipc_open(int device, const void* handle,
+                                   void** ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaIpcOpenMemHandle(
+        ptr, *static_cast<const cudaIpcMemHandle_t*>(handle),
+        cudaIpcMemLazyEnablePeerAccess);
+  return (int)err;
+}
+
+extern "C" int sgp_gossip_ipc_close(int device, void* ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaIpcCloseMemHandle(ptr);
+  return (int)err;
+}
+
+extern "C" int sgp_gossip_free(int device, void* ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaFree(ptr);
+  return (int)err;
+}
+
+// A zeroed host-mapped buffer (the error record): its host and device
+// addresses.
+extern "C" int sgp_gossip_host_alloc(long long bytes, void** host,
+                                     void** dev) {
+  cudaError_t err = cudaHostAlloc(host, (size_t)bytes, cudaHostAllocMapped);
+  if (err == cudaSuccess) {
+    memset(*host, 0, (size_t)bytes);
+    err = cudaHostGetDevicePointer(dev, *host, 0);
+  }
+  return (int)err;
+}
+
+extern "C" int sgp_gossip_host_free(void* host) {
+  return (int)cudaFreeHost(host);
+}
+
+// K2, cross-process: wait until every receiver has consumed the last
+// round (waits: host int64[E], each receiver's consumed[e]), the stacked
+// K2 once an edge at R = E = 1 from this rank's row e of each part
+// (src0/src1: [E, n] of esize-byte elements, src1 null when absent)
+// straight to dst0[e]/dst1[e] (host int64[E], the mapped landing rows),
+// then release the round into each receiver's ready[e] (signals: host
+// int64[E]).  zero: a device int32 0 (the one-rank dests table); link:
+// host int64[5] (see Link).
+extern "C" int sgp_gossip_edge_start_ipc(const void* src0, long long n0,
+                                         int esize0, const void* dst0,
+                                         const void* src1, long long n1,
+                                         int esize1, const void* dst1,
+                                         const void* zero, int E,
+                                         const void* waits,
+                                         const void* signals,
+                                         const void* link, int device,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (E < 1 || E > MAX_EDGES) return (int)cudaErrorInvalidValue;
+  const Link k = make_link(static_cast<const long long*>(link));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  flag_wait_kernel<<<1, MAX_EDGES, 0, st>>>(
+      make_flags(static_cast<const long long*>(waits), E), k.round - 1, k,
+      1, E);
+  const long long* d0 = static_cast<const long long*>(dst0);
+  const long long* d1 = static_cast<const long long*>(dst1);
+  const long long s0 = n0 * esize0, s1 = src1 ? n1 * esize1 : 0;
+  for (int e = 0; e < E && err == cudaSuccess; ++e)
+    err = (cudaError_t)sgp_gossip_edge_start(
+        static_cast<const unsigned char*>(src0) + e * s0,
+        reinterpret_cast<void*>(d0[e]), n0, esize0,
+        src1 ? static_cast<const unsigned char*>(src1) + e * s1 : nullptr,
+        src1 ? reinterpret_cast<void*>(d1[e]) : nullptr, n1, esize1, zero,
+        1, 1, stream);
+  if (err != cudaSuccess) return (int)err;
+  flag_signal_kernel<<<1, MAX_EDGES, 0, st>>>(
+      make_flags(static_cast<const long long*>(signals), E), k.round,
+      k.abort, E);
+  return (int)cudaGetLastError();
+}
+
+// K1, cross-process, one entry point per wire.  acc/out: f32 [L]; recv:
+// this rank's landing [E, L]; scale (int8): [E, L / block]; waits,
+// signals, link as for K2.
+extern "C" int sgp_gossip_edge_wait_ipc_f32(const void* acc, const void* recv,
+                                            void* out, long long L, int E,
+                                            const void* waits,
+                                            const void* signals,
+                                            const void* link, int device,
+                                            void* stream) {
+  return wait_ipc<F32>(acc, recv, nullptr, out, L, 1, E, waits, signals,
+                       link, device, stream);
+}
+
+extern "C" int sgp_gossip_edge_wait_ipc_bf16(const void* acc,
+                                             const void* recv, void* out,
+                                             long long L, int E,
+                                             const void* waits,
+                                             const void* signals,
+                                             const void* link, int device,
+                                             void* stream) {
+  return wait_ipc<BF16>(acc, recv, nullptr, out, L, 1, E, waits, signals,
+                        link, device, stream);
+}
+
+extern "C" int sgp_gossip_edge_wait_ipc_int8(const void* acc, const void* q,
+                                             const void* scale, void* out,
+                                             long long L, int block, int E,
+                                             const void* waits,
+                                             const void* signals,
+                                             const void* link, int device,
+                                             void* stream) {
+  return wait_ipc<INT8>(acc, q, scale, out, L, block, E, waits, signals,
+                        link, device, stream);
 }

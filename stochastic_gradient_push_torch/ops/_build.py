@@ -79,6 +79,22 @@ KERNELS = {
         "sgp_gossip_edge_wait_f32": (_P, _P, _P, _L, _I, _I, _P),
         "sgp_gossip_edge_wait_bf16": (_P, _P, _P, _L, _I, _I, _P),
         "sgp_gossip_edge_wait_int8": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+        # the cross-process lane: IPC blocks, the host-mapped error record,
+        # K2 and K1 with their flag barrier
+        "sgp_gossip_ipc_alloc": (_I, _L, _P, _P),
+        "sgp_gossip_ipc_open": (_I, _P, _P),
+        "sgp_gossip_ipc_close": (_I, _P),
+        "sgp_gossip_free": (_I, _P),
+        "sgp_gossip_host_alloc": (_L, _P, _P),
+        "sgp_gossip_host_free": (_P,),
+        "sgp_gossip_edge_start_ipc": (_P, _L, _I, _P, _P, _L, _I, _P, _P,
+                                      _I, _P, _P, _P, _I, _P),
+        "sgp_gossip_edge_wait_ipc_f32": (_P, _P, _P, _L, _I, _P, _P, _P, _I,
+                                         _P),
+        "sgp_gossip_edge_wait_ipc_bf16": (_P, _P, _P, _L, _I, _P, _P, _P,
+                                          _I, _P),
+        "sgp_gossip_edge_wait_ipc_int8": (_P, _P, _P, _P, _L, _I, _I, _P, _P,
+                                          _P, _I, _P),
     },
 }
 

@@ -15,12 +15,28 @@ through two calls:
   edges folded in order, through ``sgp_gossip_edge_wait_{f32,bf16,int8}``
   (replaces ``_edge_wait_kernel:513``).
 
-This is the **stacked lane**: all ``R`` ranks of the world live in one
-process, every tensor carries a leading rank dim (parts and landed
+Two forms.  The **stacked lane**: all ``R`` ranks of the world live in
+one process, every tensor carries a leading rank dim (parts and landed
 buffers ``[R, E, ...]``, accumulators ``[R, ...]``), and the "remote"
 copy writes another rank's rows of the same device memory.  The
-cross-process form (one rank per GPU) is not ported; the collectives
-refuse it by name.
+**cross-process lane** (:func:`gossip_edge_start_dist`, one rank per
+process, ``R = 1``): a :class:`PeerLinks` gives each transport bucket a
+landing block per rank, exported by CUDA IPC and mapped by the peers
+that send to it (handles passed through the process group's store).
+Stream order is the barrier.  K2 (``sgp_gossip_edge_start_ipc``) is a
+small kernel that acquires each receiver's ``consumed[e]`` of the
+previous round (the TPU kernel's entry barrier), the stacked K2 copying
+this rank's encoded edge ``e`` straight into the landing row of
+``dests[e][rank]``, and a small kernel that release-stores the round in
+the receiver's ``ready[e]``; K1 (``sgp_gossip_edge_wait_ipc_*``) acquires
+every incoming ``ready[e]``, runs the stacked K1 and releases
+``consumed``.  The start runs on a side stream and hands the wait a
+CUDA event, so an overlap start runs beside the step.  Every wait gives up after ``timeout_s``; the host
+then raises :class:`PeerLostError` naming the rank, the edge and the
+round.  Its plain twin carries the same encoded parts over
+``torch.distributed`` ``batch_isend_irecv`` into the receiver's landing
+rows and lands them with :func:`gossip_edge_wait_reference`: the CPU
+carrier under gloo, and the oracle on the card.
 
 Lanes: a :class:`KernelLane` with ``interpret=True`` is the counterpart
 of Pallas interpret mode — the wrappers run the plain twins
@@ -28,7 +44,8 @@ of Pallas interpret mode — the wrappers run the plain twins
 on CPU tensors, which is how the CPU tests drive the kernel lane.  A
 non-interpret lane launches the CUDA kernels on CUDA tensors; handed CPU
 tensors it raises :class:`~.lanes.KernelLaneError`, and an interpret
-lane handed CUDA tensors raises likewise: nothing falls back.
+lane handed CUDA tensors raises likewise: nothing falls back.  A failed
+IPC map on the card raises :class:`KernelBackendError`.
 
 The push-sum weight never enters either kernel: scalar leaves stay on
 the collectives' exact lane.
@@ -36,7 +53,11 @@ the collectives' exact lane.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import datetime
+import itertools
+import math
 
 import numpy as np
 import torch
@@ -49,7 +70,8 @@ __all__ = ["KernelBackendError", "KernelLane", "GOSSIP_KERNELS",
            "empty_transport_handle", "resolve_gossip_kernel",
            "gossip_edge_start", "gossip_edge_wait", "gossip_edge_axpy",
            "gossip_edge_start_reference", "gossip_edge_wait_reference",
-           "padded_len"]
+           "padded_len", "PEER_TIMEOUT_S", "PeerLostError", "PeerLinks",
+           "gossip_edge_start_dist", "gossip_edge_start_dist_reference"]
 
 # CLI vocabulary for --gossip_kernel
 GOSSIP_KERNELS = ("auto", "pallas", "xla")
@@ -66,10 +88,21 @@ _MAX_CHUNKS = 256
 COLLECTIVE_ID_SLOTS = 16
 
 _MAX_RANK_EDGES = 65535   # the kernels' grid.y
+_MAX_EDGES = 16           # csrc/gossip_edge.cu MAX_EDGES
+
+# how long a cross-process wait spins (kernel) or blocks (twin) before it
+# names the peer that never sent
+PEER_TIMEOUT_S = 10.0
+_TAG_BASE = 16
 
 
 class KernelBackendError(RuntimeError):
     """``gossip_kernel="pallas"`` where the CUDA kernels cannot run."""
+
+
+class PeerLostError(RuntimeError):
+    """A cross-process gossip wait passed its limit, or its peer went away:
+    the message names this rank, the edge, the round and the peer."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +214,7 @@ class TransportHandle:
 
     recv: tuple
     meta: tuple
+    remote: object = None   # cross-process: the round's _Landing
 
     @property
     def num_edges(self) -> int:
@@ -316,6 +350,39 @@ def gossip_edge_wait_reference(acc: torch.Tensor, recv, kind: str
 # -- the kernel wrappers ----------------------------------------------------
 
 
+def _check_spec(spec) -> str:
+    if spec is None:
+        raise ValueError("codec exposes no in-kernel decode spec; the "
+                         "caller must take the plain transport lane")
+    if spec.kind not in ("f32", "bf16", "int8"):
+        raise ValueError(f"unknown decode spec kind {spec.kind!r}")
+    return spec.kind
+
+
+def _chunk_parts(parts, spec, n_decoded, chunk_elems):
+    """``(chunks, n, rows, C, NB)``: the encoded parts ``[R, E, ...]`` cut
+    into the chunk layout (f32/bf16 ``[R, E, NB, C]``; int8 q ``[R, E,
+    NB, rows, block]`` and scales ``[R, E, NB, rows]``), zero-padded where
+    shorter."""
+    ranks, ne = parts[0].shape[:2]
+    if spec.kind == "int8":
+        q, scale = parts
+        n = int(n_decoded) if n_decoded is not None \
+            else q.shape[2] * q.shape[3]
+        rows, c, nb = _chunk_layout(n, spec.block, chunk_elems)
+        return ((_pad_rows(q, nb * rows, 2).reshape(ranks, ne, nb, rows,
+                                                    q.shape[3]),
+                 _pad_rows(scale, nb * rows, 2).reshape(ranks, ne, nb,
+                                                        rows)),
+                n, rows, c, nb)
+    (w,) = parts
+    w = w.reshape(ranks, ne, -1)
+    n = int(n_decoded) if n_decoded is not None else w.shape[2]
+    rows, c, nb = _chunk_layout(n, None, chunk_elems)
+    return (_pad_rows(w, nb * c, 2).reshape(ranks, ne, nb, c),), n, rows, \
+        c, nb
+
+
 def _launch_start(chunks, landed, table: np.ndarray) -> None:
     ranks, ne = chunks[0].shape[:2]
     if ranks * ne > _MAX_RANK_EDGES:
@@ -357,12 +424,7 @@ def gossip_edge_start(parts, dests, spec, n_decoded: int | None = None,
     permutation; ``R`` must be the world.  ``n_decoded`` is the payload
     length the wait trims to (default: the encoded capacity).  Adds one
     to ``gossip_edge_start.launches`` per kernel launch."""
-    if spec is None:
-        raise ValueError("codec exposes no in-kernel decode spec; the "
-                         "caller must take the plain transport lane")
-    kind = spec.kind
-    if kind not in ("f32", "bf16", "int8"):
-        raise ValueError(f"unknown decode spec kind {kind!r}")
+    kind = _check_spec(spec)
     parts = tuple(parts)
     ranks, ne = parts[0].shape[:2]
     table = _dest_table(dests, ranks)
@@ -372,21 +434,8 @@ def gossip_edge_start(parts, dests, spec, n_decoded: int | None = None,
             f"parts lead with {[tuple(p.shape[:2]) for p in parts]} (ranks, "
             f"edges) but dests has {table.shape[0]} rows for world {ranks}")
     kernel = _check_lane(parts[0], interpret, "gossip_edge_start")
-    if kind == "int8":
-        q, scale = parts
-        n = int(n_decoded) if n_decoded is not None \
-            else q.shape[2] * q.shape[3]
-        rows, c, nb = _chunk_layout(n, spec.block, chunk_elems)
-        chunks = (_pad_rows(q, nb * rows, 2).reshape(ranks, ne, nb, rows,
-                                                     q.shape[3]),
-                  _pad_rows(scale, nb * rows, 2).reshape(ranks, ne, nb,
-                                                         rows))
-    else:
-        (w,) = parts
-        w = w.reshape(ranks, ne, -1)
-        n = int(n_decoded) if n_decoded is not None else w.shape[2]
-        rows, c, nb = _chunk_layout(n, None, chunk_elems)
-        chunks = (_pad_rows(w, nb * c, 2).reshape(ranks, ne, nb, c),)
+    chunks, n, rows, c, nb = _chunk_parts(parts, spec, n_decoded,
+                                          chunk_elems)
     if kernel:
         landed = tuple(torch.empty_like(p) for p in chunks)
         _launch_start(chunks, landed, table)
@@ -447,7 +496,9 @@ def gossip_edge_wait(handle: TransportHandle,
     kernel = _check_lane(acc, interpret, "gossip_edge_wait")
     acc_chunks = _pad_rows(acc.reshape(ranks, per_rank), nb * c, 1
                            ).reshape(ranks, nb, c)
-    if kernel:
+    if handle.remote is not None:
+        out = handle.remote.land(acc_chunks, handle.recv, kind, kernel)
+    elif kernel:
         out = torch.empty_like(acc_chunks)
         block = handle.recv[0].shape[-1] if kind == "int8" else 1
         _launch_wait(kind, acc_chunks, handle.recv, out, block)
@@ -467,3 +518,376 @@ def gossip_edge_axpy(acc, parts, dests, spec, interpret: bool = False,
                                n_decoded=acc[0].numel(), interpret=interpret,
                                chunk_elems=chunk_elems)
     return gossip_edge_wait(handle, acc)
+
+
+# -- the cross-process lane -------------------------------------------------
+
+
+class _DeviceBytes:
+    """``nbytes`` of device memory at ``ptr`` as a CUDA array interface,
+    so ``torch.as_tensor`` views memory this module allocated or mapped."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (int(nbytes),), "typestr": "|u1",
+            "data": (int(ptr), False), "version": 2}
+
+
+def _align(n: int, to: int = 256) -> int:
+    return -(-int(n) // to) * to
+
+
+def _ipc(rc: int, what: str, rank: int) -> None:
+    """Raise :class:`KernelBackendError` for a failed IPC call: the
+    cross-process kernel lane never turns into the plain lane."""
+    if rc != 0:
+        raise KernelBackendError(
+            f"cross-process gossip transport, rank {rank}: {what} failed "
+            f"with cudaError_t {rc}")
+
+
+class _Link:
+    """One transport bucket's cross-process landing on the card.
+
+    This rank's block ``[ready[E] | consumed[E] | part 0 [E, ...] | part
+    1 [E, ...]]`` (u64 counters, parts 256-byte aligned), exported with
+    ``cudaIpcGetMemHandle`` (the handle goes to the group's store); a
+    peer's block is mapped at the first round that sends to it
+    (:meth:`base`), so a process maps only the peers it sends to.
+    Local: the abort word and a device int32 0 (the one-rank dests table
+    of the stacked K2), and a host-mapped error record ``(code, rank,
+    edge, round)``."""
+
+    def __init__(self, peers: "PeerLinks", key: str, shapes, dtypes,
+                 device: torch.device):
+        lib = _build.load("gossip_edge")
+        rank, dev = peers.rank, device.index
+        self.peers, self.device, self.lib, self.key = peers, device, lib, key
+        self.E = int(shapes[0][0])
+        self.offs, off = [], _align(16 * self.E)
+        for shape, dt in zip(shapes, dtypes):
+            self.offs.append(off)
+            off += _align(math.prod(shape) * dt.itemsize)
+        self.slabs = [math.prod(shape[1:]) * dt.itemsize
+                      for shape, dt in zip(shapes, dtypes)]
+        self.nbytes = off
+        ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(64)
+        _ipc(lib.sgp_gossip_ipc_alloc(dev, off, ctypes.byref(ptr), handle),
+             f"cudaMalloc/cudaIpcGetMemHandle of {off} bytes", rank)
+        self.ptr = ptr.value
+        self.opened: dict = {}   # peer rank -> its block, mapped here
+        peers.store().set(f"{key}/{rank}", handle.raw)
+        host, dptr = ctypes.c_void_p(), ctypes.c_void_p()
+        _ipc(lib.sgp_gossip_host_alloc(32, ctypes.byref(host),
+                                       ctypes.byref(dptr)),
+             "cudaHostAlloc of the error record", rank)
+        self.host, self.err_dev = host.value, dptr.value
+        self.err = (ctypes.c_longlong * 4).from_address(self.host)
+        # the abort word, then the one-rank dests table (0)
+        self.local = torch.zeros(2, dtype=torch.int32, device=device)
+        mem = torch.as_tensor(_DeviceBytes(self.ptr, off), device=device)
+        self.recv = tuple(
+            mem[o:o + math.prod(shape) * dt.itemsize].view(dt)
+            .reshape((1,) + tuple(shape))
+            for o, shape, dt in zip(self.offs, shapes, dtypes))
+        self.round = 0
+        self.dests: dict = {}   # round -> (dests, sources), for errors
+
+    def base(self, r: int) -> int:
+        """Rank ``r``'s block as this process addresses it (mapped from
+        its handle at first use)."""
+        if r == self.peers.rank:
+            return self.ptr
+        if r not in self.opened:
+            raw = self.peers.store().get(f"{self.key}/{r}")
+            peer = ctypes.c_void_p()
+            _ipc(self.lib.sgp_gossip_ipc_open(
+                self.device.index, ctypes.create_string_buffer(raw, 64),
+                ctypes.byref(peer)), f"cudaIpcOpenMemHandle of rank {r}",
+                self.peers.rank)
+            self.opened[r] = peer.value
+        return self.opened[r]
+
+    def counters(self, bases, which: int):
+        """``int64[E]`` addresses of ``ready[e]`` (``which`` 0) or
+        ``consumed[e]`` (1) in the block at ``bases[e]``."""
+        return (ctypes.c_longlong * self.E)(*(
+            b + 8 * (which * self.E + e) for e, b in enumerate(bases)))
+
+    def args(self, rnd: int):
+        """The kernels' ``link`` argument for round ``rnd``."""
+        return (ctypes.c_longlong * 5)(
+            self.local.data_ptr(), self.err_dev, rnd,
+            int(self.peers.timeout_s * 1e9), self.peers.rank)
+
+    def check(self) -> None:
+        """Raise :class:`PeerLostError` if a wait of this link gave up."""
+        code = int(self.err[0])
+        if code:
+            edge, rnd = int(self.err[2]), int(self.err[3])
+            row = self.dests.get(rnd)
+            if code == 1:
+                peer = "" if row is None else f" (rank {row[0][edge]})"
+                what = (f"its receiver{peer} did not consume round "
+                        f"{rnd - 1}")
+            else:
+                peer = "" if row is None else f" from rank {row[1][edge]}"
+                what = f"no payload{peer} arrived"
+            raise PeerLostError(
+                f"cross-process gossip: rank {self.peers.rank}, edge "
+                f"{edge}, round {rnd}: {what} within "
+                f"{self.peers.timeout_s} s")
+
+    def close(self) -> None:
+        rank, dev = self.peers.rank, self.device.index
+        for ptr in self.opened.values():
+            _ipc(self.lib.sgp_gossip_ipc_close(dev, ptr),
+                 "cudaIpcCloseMemHandle", rank)
+        _ipc(self.lib.sgp_gossip_free(dev, self.ptr), "cudaFree", rank)
+        _ipc(self.lib.sgp_gossip_host_free(self.host), "cudaFreeHost", rank)
+        self.opened, self.recv = {}, ()
+
+
+@dataclasses.dataclass
+class _Landing:
+    """One cross-process round in flight: kernel (``link``, the start's
+    ``event``) or twin (the ``works`` with their edges and peers, and
+    host buffers to copy back)."""
+
+    peers: "PeerLinks"
+    rnd: int
+    link: _Link | None = None
+    event: object = None
+    works: list = dataclasses.field(default_factory=list)
+    copies: list = dataclasses.field(default_factory=list)
+
+    def land(self, acc, recv, kind: str, kernel: bool):
+        if self.link is None:
+            self._wait_works()
+            return gossip_edge_wait_reference(acc, recv, kind)
+        link = self.link
+        link.check()
+        torch.cuda.current_stream(acc.device).wait_event(self.event)
+        out = torch.empty_like(acc)
+        lib, length = link.lib, acc[0].numel()
+        own = [link.ptr] * link.E
+        args = (link.E, link.counters(own, 0), link.counters(own, 1),
+                link.args(self.rnd), acc.device.index, _build.stream(acc))
+        if kind == "int8":
+            rc = lib.sgp_gossip_edge_wait_ipc_int8(
+                acc.data_ptr(), recv[0].data_ptr(), recv[1].data_ptr(),
+                out.data_ptr(), length, recv[0].shape[-1], *args)
+        else:
+            fn = (lib.sgp_gossip_edge_wait_ipc_bf16 if kind == "bf16"
+                  else lib.sgp_gossip_edge_wait_ipc_f32)
+            rc = fn(acc.data_ptr(), recv[0].data_ptr(), out.data_ptr(),
+                    length, *args)
+        gossip_edge_wait.launches_ipc += 1
+        _build.check(rc, "gossip_edge_wait (cross-process)")
+        return out
+
+    def _wait_works(self) -> None:
+        timeout = datetime.timedelta(seconds=self.peers.timeout_s)
+        rank = self.peers.rank
+        for work, edge, peer, sending in self.works:
+            try:
+                work.wait(timeout)
+            except RuntimeError as e:
+                what = (f"rank {peer} did not take its payload" if sending
+                        else f"no payload from rank {peer} arrived")
+                raise PeerLostError(
+                    f"cross-process gossip: rank {rank}, edge {edge}, round "
+                    f"{self.rnd}: {what} within {self.peers.timeout_s} s "
+                    f"({e})") from None
+        for host, dev in self.copies:
+            dev.copy_(host)
+        self.works, self.copies = [], []
+
+
+class PeerLinks:
+    """This process's end of the cross-process gossip transport (one rank
+    per process of the default ``torch.distributed`` group).
+
+    On the card, one :class:`_Link` per transport bucket, made at its
+    first round by every process in the same order (each publishes its
+    block's handle in the group's store), and one side stream for the
+    starts.  Nothing caps the world: a process maps only the blocks of
+    the ranks it sends to.  On the CPU
+    (the twin) nothing is allocated; rounds are counted per bucket all
+    the same, so errors name them alike.  ``timeout_s`` bounds every
+    wait.  :meth:`check` raises a wait that gave up; :meth:`close` frees
+    the blocks once every process is done with them."""
+
+    _made = itertools.count()
+
+    def __init__(self, rank: int, world: int,
+                 timeout_s: float = PEER_TIMEOUT_S):
+        self.rank, self.world = int(rank), int(world)
+        self.timeout_s = float(timeout_s)
+        self.name = f"sgp_gossip_ipc/{next(self._made)}"
+        self.links: dict = {}
+        self.rounds: dict = {}
+        self.stream = None
+
+    @staticmethod
+    def store():
+        import torch.distributed as dist
+
+        return dist.distributed_c10d._get_default_store()
+
+    def _link(self, slot, chunks) -> _Link:
+        shapes = tuple(tuple(p.shape[1:]) for p in chunks)
+        key = (slot, shapes, tuple(p.dtype for p in chunks))
+        link = self.links.get(key)
+        if link is None:
+            link = _Link(self, f"{self.name}/{len(self.links)}", shapes,
+                         key[2], chunks[0].device)
+            self.links[key] = link
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(chunks[0].device)
+        return link
+
+    def start(self, chunks, table: np.ndarray, slot, kernel: bool
+              ) -> _Landing:
+        """Start one round of bucket ``slot``: on the card, K2 moves
+        ``chunks`` (``[1, E, ...]`` in the chunk layout) to
+        ``dests[e][rank]`` on the side stream; off it (``kernel`` False)
+        the round is only counted, for the twin to fill.  Returns the
+        round's :class:`_Landing`."""
+        ne = chunks[0].shape[1]
+        if ne > _MAX_EDGES:
+            raise ValueError(f"at most {_MAX_EDGES} edges a round, got {ne}")
+        if not kernel:
+            rnd = self.rounds[slot] = self.rounds.get(slot, 0) + 1
+            return _Landing(self, rnd)
+        src = [int(np.flatnonzero(row == self.rank)[0]) for row in table]
+        dst = [int(row[self.rank]) for row in table]
+        link = self._link(slot, chunks)
+        link.check()
+        link.round += 1
+        rnd = link.round
+        link.dests[rnd] = (dst, src)
+        link.dests.pop(rnd - 4, None)
+        device = chunks[0].device
+        side = self.stream
+        side.wait_stream(torch.cuda.current_stream(device))
+        bases = [link.base(d) for d in dst]
+        args = []
+        for i in range(2):
+            if i < len(chunks):
+                p = chunks[i]
+                rows = (ctypes.c_longlong * ne)(*(
+                    b + link.offs[i] + e * link.slabs[i]
+                    for e, b in enumerate(bases)))
+                args += [p.data_ptr(), p[0, 0].numel(), p.element_size(),
+                         rows]
+            else:
+                args += [None, 0, 0, None]
+        rc = link.lib.sgp_gossip_edge_start_ipc(
+            *args, link.local.data_ptr() + 4, ne, link.counters(bases, 1),
+            link.counters(bases, 0), link.args(rnd), device.index,
+            side.cuda_stream)
+        gossip_edge_start.launches_ipc += 1
+        _build.check(rc, "gossip_edge_start (cross-process)")
+        for p in chunks:
+            p.record_stream(side)
+        event = torch.cuda.Event(enable_timing=True)   # K2's end, timed
+        event.record(side)
+        return _Landing(self, rnd, link=link, event=event)
+
+    def check(self) -> None:
+        """Raise :class:`PeerLostError` for any wait that gave up (read
+        from host-mapped records: no device sync)."""
+        for link in self.links.values():
+            link.check()
+
+    def close(self) -> None:
+        """Free this rank's blocks and unmap its peers' (a barrier first:
+        no peer may still write into them)."""
+        if not self.links:
+            return
+        import torch.distributed as dist
+
+        torch.cuda.synchronize()
+        dist.barrier()
+        for link in self.links.values():
+            link.close()
+        self.links = {}
+
+
+def gossip_edge_start_dist_reference(chunks, table: np.ndarray, rank: int,
+                                     landing: _Landing) -> tuple:
+    """Plain cross-process transport: every part of edge ``e`` to
+    ``dests[e][rank]`` and the matching receive from the rank whose edge
+    ``e`` lands here, one ``batch_isend_irecv`` (tag ``16 + 2 e + part``,
+    clear of the transport's own permutes) into
+    fresh landing rows ``[1, E, ...]``; a rank the permutation fixes
+    copies locally.  The works go to ``landing``, which waits them (with
+    its timeout) when the round lands.  CUDA tensors cross a gloo group
+    through host copies."""
+    import torch.distributed as dist
+
+    staged = (chunks[0].is_cuda
+              and dist.get_backend() == dist.Backend.GLOO)
+    landed = tuple(torch.empty_like(p) for p in chunks)
+    ops, meta = [], []
+    for e, row in enumerate(table):
+        dst = int(row[rank])
+        src = int(np.flatnonzero(row == rank)[0])
+        for i, (p, out) in enumerate(zip(chunks, landed)):
+            if dst == rank:
+                out[0, e].copy_(p[0, e])
+                continue
+            send, recv = p[0, e], out[0, e]
+            if staged:
+                send, recv = send.cpu(), torch.empty(
+                    recv.shape, dtype=recv.dtype)
+                landing.copies.append((recv, out[0, e]))
+            tag = _TAG_BASE + 2 * e + i
+            ops += [dist.P2POp(dist.isend, send, dst, tag=tag),
+                    dist.P2POp(dist.irecv, recv, src, tag=tag)]
+            meta += [(e, dst, True), (e, src, False)]
+    if ops:
+        for work, (e, peer, sending) in zip(dist.batch_isend_irecv(ops),
+                                            meta):
+            landing.works.append((work, e, peer, sending))
+    return landed
+
+
+def gossip_edge_start_dist(parts, dests, spec, peers: PeerLinks, slot=0,
+                           n_decoded: int | None = None,
+                           interpret: bool = False,
+                           chunk_elems: int = DEFAULT_CHUNK_ELEMS
+                           ) -> TransportHandle:
+    """The cross-process :func:`gossip_edge_start`: this rank's encoded
+    parts (``[1, E, ...]``, as the stacked lane's rows) to
+    ``dests[e][rank]`` through ``peers``, transport bucket ``slot``.
+    CUDA tensors on a non-interpret lane launch K2 over the peers' mapped
+    landing blocks (one more in ``gossip_edge_start.launches_ipc``); CPU
+    tensors on an interpret lane run the twin over ``torch.distributed``.
+    The handle's wait (:func:`gossip_edge_wait`) lands it."""
+    kind = _check_spec(spec)
+    parts = tuple(parts)
+    table = _dest_table(dests, peers.world)
+    ne = table.shape[0]
+    if any(p.shape[:2] != (1, ne) for p in parts):
+        raise ValueError(
+            f"parts lead with {[tuple(p.shape[:2]) for p in parts]}; the "
+            f"cross-process lane takes this rank's (1, {ne}) rows")
+    kernel = _check_lane(parts[0], interpret, "gossip_edge_start_dist")
+    chunks, n, rows, c, nb = _chunk_parts(parts, spec, n_decoded,
+                                          chunk_elems)
+    chunks = tuple(p.contiguous() for p in chunks)
+    landing = peers.start(chunks, table, slot, kernel)
+    if kernel:
+        recv = landing.link.recv
+    else:
+        recv = gossip_edge_start_dist_reference(chunks, table, peers.rank,
+                                                landing)
+    return TransportHandle(recv=recv,
+                           meta=(kind, n, rows, c, nb, ne, bool(interpret)),
+                           remote=landing)
+
+
+gossip_edge_start.launches_ipc = 0
+gossip_edge_wait.launches_ipc = 0

@@ -44,11 +44,15 @@ The transport is a seam with two lanes:
   reference's virtual-device mesh).  It serves the tests and runs on
   CUDA tensors as well;
 * :class:`DistTransport` — one rank per process, each exchange one
-  ``batch_isend_irecv`` pair (gloo on CPU, NCCL on GPU): what a
-  multi-GPU run under ``torchrun`` uses.
+  ``batch_isend_irecv`` pair (gloo on CPU, NCCL on GPU; CUDA tensors
+  cross a gloo group through host copies): what a run under ``torchrun``
+  uses.
 
-The kernel lane runs on the stacked transport only; the cross-process
-transport kernel is not ported and is refused by name.
+Both carry the kernel lane: a transport's :meth:`edge_start` is the
+stacked :func:`~..ops.gossip_kernel.gossip_edge_start` or the
+cross-process :func:`~..ops.gossip_kernel.gossip_edge_start_dist` (peer
+landing blocks mapped by CUDA IPC on the card, its twin over
+``torch.distributed`` on the CPU), and the same wait lands either.
 
 Scalar leaves (per-rank size 1: the push-sum weight) never go through a
 codec, so the weight lane stays exact f32.  At world 1 a round returns
@@ -156,6 +160,23 @@ class StackedTransport:
     def allreduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         return x.sum(0, keepdim=True).expand_as(x).clone()
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's row on the host: ``x`` itself."""
+        return x.detach().cpu()
+
+    def edge_start(self, parts, dests, spec, n_decoded: int, kernel,
+                   slot=0):
+        """The kernel lane's start of one transport bucket."""
+        return gk.gossip_edge_start(parts, dests, spec, n_decoded=n_decoded,
+                                    interpret=kernel.interpret,
+                                    chunk_elems=kernel.chunk_elems)
+
+    def check(self) -> None:
+        """Nothing crosses a process here: nothing to have lost."""
+
+    def close(self) -> None:
+        """Nothing to free."""
+
     def allreduce_min(self, x: torch.Tensor) -> torch.Tensor:
         return x.amin(0, keepdim=True).expand_as(x).clone()
 
@@ -186,9 +207,14 @@ class StackedTransport:
 
 class DistTransport:
     """One rank per process of the default ``torch.distributed`` group;
-    leaves carry a leading dim of 1."""
+    leaves carry a leading dim of 1.  On a gloo group CUDA tensors go
+    through host copies (gloo moves host memory); the kernel lane's
+    payload never does: its start maps the peers' landing blocks
+    (``links``, a :class:`~..ops.gossip_kernel.PeerLinks` made at the
+    kernel lane's first start, whose waits give up after ``timeout_s``;
+    the plain lane never makes one)."""
 
-    def __init__(self):
+    def __init__(self, timeout_s: float = gk.PEER_TIMEOUT_S):
         import torch.distributed as dist
 
         self._dist = dist
@@ -196,6 +222,19 @@ class DistTransport:
         self.world_size = dist.get_world_size()
         self.ranks = np.array([self.rank])
         self._groups: dict = {}
+        self._staged = dist.get_backend() == dist.Backend.GLOO
+        self._nccl = dist.get_backend() == dist.Backend.NCCL
+        self.timeout_s = timeout_s
+        self.links = None
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` where the group's backend takes it: on the host for
+        gloo, on this process's card for NCCL."""
+        if self._staged and x.is_cuda:
+            return x.cpu()
+        if self._nccl and not x.is_cuda:
+            return x.cuda()
+        return x
 
     def permute(self, x: torch.Tensor, dests: np.ndarray) -> torch.Tensor:
         dist = self._dist
@@ -206,13 +245,42 @@ class DistTransport:
             # message, as gloo refuses a send to itself
             return x.clone()
         src = int(np.flatnonzero(np.asarray(dests) == self.rank)[0])
-        send = x[0].contiguous()
+        send = self._host(x[0].contiguous())
         recv = torch.empty_like(send)
         reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst),
                                        dist.P2POp(dist.irecv, recv, src)])
         for req in reqs:
             req.wait()
-        return recv[None]
+        return recv.to(x.device)[None]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's row of ``x`` (``[1, ...]``) on the host, in rank
+        order: ``[world, ...]``."""
+        send = self._host(x.detach().contiguous())
+        rows = [torch.empty_like(send) for _ in range(self.world_size)]
+        self._dist.all_gather(rows, send)
+        return torch.cat(rows).cpu()
+
+    def edge_start(self, parts, dests, spec, n_decoded: int, kernel,
+                   slot=0):
+        """The kernel lane's start of transport bucket ``slot``, across
+        processes."""
+        if self.links is None:
+            self.links = gk.PeerLinks(self.rank, self.world_size,
+                                      self.timeout_s)
+        return gk.gossip_edge_start_dist(
+            parts, dests, spec, self.links, slot=slot, n_decoded=n_decoded,
+            interpret=kernel.interpret, chunk_elems=kernel.chunk_elems)
+
+    def check(self) -> None:
+        """Raise ``PeerLostError`` for a kernel-lane wait that gave up."""
+        if self.links is not None:
+            self.links.check()
+
+    def close(self) -> None:
+        """Free the kernel lane's landing blocks (collective)."""
+        if self.links is not None:
+            self.links.close()
 
     def allreduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         return self._reduce(x, self._dist.ReduceOp.SUM)
@@ -224,9 +292,9 @@ class DistTransport:
         return self._reduce(x, self._dist.ReduceOp.MAX)
 
     def _reduce(self, x: torch.Tensor, op, group=None) -> torch.Tensor:
-        out = x.clone()
+        out = self._host(x).clone()
         self._dist.all_reduce(out, op=op, group=group)
-        return out
+        return out.to(x.device)
 
     def group_mean(self, leaves, groups) -> list:
         """The exact mean inside this rank's group of ``groups``, of every
@@ -246,6 +314,16 @@ class DistTransport:
                 _scaled(flat, 1.0 / len(key[0])), self._dist.ReduceOp.SUM,
                 self._groups[key]), index)
         return out
+
+
+def check_kernel_transport(transport) -> None:
+    """The kernel lane moves payloads through a transport's
+    ``edge_start``: the stacked one or the cross-process one."""
+    if not isinstance(transport, (StackedTransport, DistTransport)):
+        raise TypeError(
+            "gossip_kernel='pallas' runs on the stacked transport or the "
+            "cross-process one (DistTransport: peer-mapped landing blocks "
+            f"with a flag barrier), not on a {type(transport).__name__}")
 
 
 _PHASE_TABLES: dict = {}
@@ -675,14 +753,13 @@ def _round(leaves, p: int, schedule: GossipSchedule, transport, send_codec,
     if plan:
         dests = np.stack([schedule.perms[p, i] for i in range(ne)])
         shapes = [a.shape for a in leaves]
-        for bucket in plan:
+        for slot, bucket in enumerate(plan):
             total, length = _bucket_len(bucket, spec, kernel)
             parts = _pack_bucket(bucket, sent, spec, ne, length)
             for j, _, _ in bucket:
                 del sent[j]
-            handle = gk.gossip_edge_start(
-                parts, dests, spec, n_decoded=total,
-                interpret=kernel.interpret, chunk_elems=kernel.chunk_elems)
+            handle = transport.edge_start(parts, dests, spec, total, kernel,
+                                          slot=slot)
             del parts
             if split:
                 # overlap launch: the handle rides the FIFO; the caller
@@ -757,13 +834,8 @@ def _apply_round(tree, phase: int, schedule: GossipSchedule, transport,
         raise ValueError(
             f"schedule was built for world_size={schedule.world_size} but "
             f"the transport holds world {transport.world_size}")
-    if kernel is not None and not isinstance(transport, StackedTransport):
-        raise NotImplementedError(
-            "gossip_kernel='pallas' needs the stacked transport: the "
-            "cross-process gossip_edge_start (one rank per GPU, peer-mapped "
-            "buffers with a flag barrier, or NCCL across nodes) is not "
-            "ported to stochastic_gradient_push_torch yet (ROADMAP.md "
-            "Queue 2); use gossip_kernel='xla' under torch.distributed")
+    if kernel is not None:
+        check_kernel_transport(transport)
     leaves = list(tree)
     if residual is not None:
         residual = list(residual)

@@ -9,8 +9,10 @@ SGD under the reference's LR schedule.  Run directly, every rank of
 ``--world_size`` lives in this process on the stacked transport
 (``parallel/collectives.py``); on one GPU the default world is 1.
 Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) each process
-holds one rank on the ``torch.distributed`` transport: NCCL on
-``cuda:LOCAL_RANK``, gloo with ``--device cpu``; rank 0 prints.
+holds one rank on the ``torch.distributed`` transport
+(``parallel/multihost.py``): on ``cuda:{LOCAL_RANK % cards}`` over NCCL,
+or over gloo where ranks share a card or with ``--device cpu``; rank 0
+prints.
 
 Example (CPU, the kernels' plain twins)::
 
@@ -22,9 +24,9 @@ On a GPU, ``--world_size 4 --gossip_kernel pallas`` runs the four ranks
 stacked on the card with the gossip transport kernels
 (``ops/gossip_kernel.py``); ``--overlap True --staleness 2`` makes it
 OSGP; ``--gossip_buckets`` sets the transport buckets.  ``pallas`` needs
-the card (``KernelBackendError`` on ``--device cpu``) and the stacked
-lane (refused under ``torchrun``: the cross-process transport kernel is
-not ported).  ``--gossip_every k`` fires a round every k-th step;
+the card (``KernelBackendError`` on ``--device cpu``); under ``torchrun``
+it is the cross-process transport kernel (peer landing blocks mapped by
+CUDA IPC, with a flag barrier).  ``--gossip_every k`` fires a round every k-th step;
 ``--global_avg_every k`` takes an exact global average every k steps
 (unset: the topology plan decides).  The planner's flags
 (``--topology auto|synth|<name>``, ``--synth_*``, ``--gap_floor``,
@@ -71,7 +73,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 __all__ = ["main", "build_parser", "UNPORTED"]
@@ -287,10 +288,9 @@ def resolve_staleness_flag(args, overlap: bool) -> None:
 
 
 def resolve_kernel_flag(args, device, launched: int):
-    """The ``--gossip_kernel`` lane for this run: ``pallas`` needs the
-    stacked lane (under ``torchrun`` it is refused, naming the
-    cross-process transport) and a CUDA device (``KernelBackendError``
-    otherwise)."""
+    """The ``--gossip_kernel`` lane for this run: ``pallas`` needs a CUDA
+    device (``KernelBackendError`` otherwise; under ``torchrun`` it is
+    the cross-process transport kernel)."""
     from ..ops.gossip_kernel import KernelBackendError, resolve_gossip_kernel
 
     if args.gossip_buckets < 1:
@@ -302,19 +302,13 @@ def resolve_kernel_flag(args, device, launched: int):
     if (args.global_avg_every or 0) < 0:
         raise SystemExit("--global_avg_every must be >= 0, got "
                          f"{args.global_avg_every}")
-    if launched > 1:
-        if args.gossip_kernel == "pallas":
-            raise SystemExit(
-                "--gossip_kernel pallas under torchrun: the cross-process "
-                "gossip transport kernel (one rank per GPU) is not ported "
-                "yet (ROADMAP.md Queue 2); run the ranks stacked with "
-                "--world_size, or use --gossip_kernel xla")
-        return None
     try:
         return resolve_gossip_kernel(args.gossip_kernel, device=device)
     except KernelBackendError as e:
-        raise KernelBackendError(f"--gossip_kernel {args.gossip_kernel}: "
-                                 f"{e}") from None
+        where = (" under torchrun (the cross-process transport kernel)"
+                 if launched > 1 else "")
+        raise KernelBackendError(f"--gossip_kernel {args.gossip_kernel}"
+                                 f"{where}: {e}") from None
 
 
 def main(argv=None) -> dict:
@@ -328,6 +322,9 @@ def main(argv=None) -> dict:
     from ..data.lm import lm_batches, synthetic_lm_corpus
     from ..device import resolve_device
     from ..models.transformer import TransformerConfig
+    from ..parallel.discovery import discover
+    from ..parallel.multihost import (host_local_slice, initialize_multihost,
+                                      process_device)
     from ..parallel.collectives import DistTransport, StackedTransport
     from ..parallel.seq import StackedSeq
     from ..parallel.wire import get_codec
@@ -362,28 +359,24 @@ def main(argv=None) -> dict:
             f"--health_every {args.health_every} must be a multiple of "
             f"--print_freq {args.print_freq} (health signals ride the "
             "metrics fetch cadence)")
-    device = resolve_device(args.device)
+    info = discover()
+    launched = info.world_size
+    device = (process_device(args.device, info) if launched > 1
+              else resolve_device(args.device))
     world = args.world_size or 1
-    launched = int(os.environ.get("WORLD_SIZE", "1"))
     dp, attn = resolve_seq_flags(args, launched if launched > 1 else world,
                                  launched)
     lane = resolve_kernel_flag(args, device, launched)
     if launched > 1:
-        import torch.distributed as dist
-
         if args.world_size not in (None, launched):
             raise SystemExit(f"--world_size {args.world_size} but the "
                              f"launcher started {launched} processes")
-        if device.type == "cuda":
-            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
-            torch.cuda.set_device(device)
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        owns_group = not torch.distributed.is_initialized()
+        initialize_multihost("xla", device, info)
         world = dp = launched
         transport = DistTransport()
-        rows = slice(transport.rank, transport.rank + 1)
     else:
         transport = StackedTransport(dp)
-        rows = slice(None)
     rank0 = launched == 1 or transport.rank == 0
     log0 = print if rank0 else (lambda *a, **k: None)
     if args.batch_size % args.grad_accum:
@@ -497,7 +490,7 @@ def main(argv=None) -> dict:
         grad_accum=args.grad_accum,
         health_axis=transport if args.health_every > 0 else None,
         seq=StackedSeq(args.sp) if cfg.ring else None)
-    held = len(range(dp)[rows])
+    held = len(transport.ranks)
     state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device)
     log = log0
     monitor = policy = recovery = None
@@ -563,9 +556,9 @@ def main(argv=None) -> dict:
                                           seed=args.seed + epoch):
             # [dp, sp, batch, seq_len / sp]; flat models take [dp, batch,
             # seq_len]
-            toks, tgts = (torch.from_numpy(
-                a[rows] if cfg.ring else a[rows, 0]).to(device)
-                for a in (tokens, targets))
+            mine = host_local_slice({"x": tokens, "y": targets}, transport)
+            toks, tgts = (torch.from_numpy(a if cfg.ring else a[:, 0])
+                          .to(device) for a in (mine["x"], mine["y"]))
             state, metrics = step(state, toks, tgts)
             steps_done += 1
             if (steps_done % args.print_freq == 0
@@ -589,7 +582,9 @@ def main(argv=None) -> dict:
               / (time.perf_counter() - t0)}
     log(json.dumps(result), flush=True)
     if launched > 1:
-        torch.distributed.destroy_process_group()
+        transport.close()
+        if owns_group:
+            torch.distributed.destroy_process_group()
     return result
 
 

@@ -5,14 +5,22 @@ Port of ``stochastic_gradient_push_tpu/run/gossip_sgd.py``
 (``build_parser``, ``parse_config``, ``main``): the reference's flag
 surface with its names, string-encoded booleans, integer-coded graph and
 mixing registries and flat-list schedules, driving the port's
-``train/loop.py::Trainer``.  Every rank of ``--world_size`` (default 1)
-lives in this process, stacked on one device; the five algorithms come
+``train/loop.py::Trainer``.  Run directly, every rank of
+``--world_size`` (default 1) lives in this process, stacked on one
+device; under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment, or
+SLURM's variables) each process holds one rank
+(``parallel/multihost.py``) on ``cuda:{LOCAL_RANK % cards}``, over the
+group ``--backend`` names (``xla``, the default: NCCL, or gloo where
+ranks share a card or on the CPU), and rank 0 writes the CSV with every
+rank's metrics; each process writes its rank's checkpoint file, the
+stacked lane's file for that rank.  The five algorithms come
 from ``--all_reduce``, ``--push_sum``, ``--overlap`` with ``--staleness``
 or ``--synch_freq``, and (``run/gossip_sgd_adpsgd.py``) bilateral
 AD-PSGD.  ``--gossip_kernel pallas`` moves SGP, OSGP and D-PSGD rounds
-through the CUDA gossip kernels (``ops/gossip_kernel.py``); ``auto``
-picks them on a CUDA device; ``pallas`` off the card raises
-``KernelBackendError``.
+through the CUDA gossip kernels (``ops/gossip_kernel.py``; under
+``torchrun`` the cross-process K2 writes into the peers' landing blocks,
+mapped by CUDA IPC); ``auto`` picks them on a CUDA device; ``pallas``
+off the card raises ``KernelBackendError``.
 
 Example (CPU, the kernels' plain twins)::
 
@@ -50,9 +58,9 @@ lets the plan decide.  On the card, ``--topology synth --slice_size 2
 --dcn_cost 16`` at ``--world_size 4`` plans the three-phase cycle of
 fingerprint ``b7e2ef83…``, and ``--topology auto`` with the same fabric
 plans ``hierarchical``.  The flags
-the reference accepts and ignores (``--backend``, ``--master_port``,
-``--network_interface_type``, ``--no_cuda_streams``) are accepted and
-ignored here too.  Every other flag whose feature is not ported parses
+the reference accepts and ignores (``--master_port``: the launcher's
+``MASTER_PORT`` rules; ``--network_interface_type``,
+``--no_cuda_streams``) are accepted and ignored here too.  Every other flag whose feature is not ported parses
 with its default and is refused, by name, when given another value
 (:data:`UNPORTED`); none is silently ignored.
 """
@@ -313,7 +321,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default="False", type=str)
     p.add_argument("--backend", default="xla",
                    choices=["xla", "nccl", "gloo", "mpi"],
-                   help="accepted for compatibility; unused")
+                   help="the torch.distributed backend under torchrun: "
+                        "xla = nccl on the card (gloo where ranks share "
+                        "one, and on the CPU)")
     p.add_argument("--tag", default="", type=str)
     p.add_argument("--print_freq", default=10, type=int)
     p.add_argument("--verbose", default="True", type=str)
@@ -330,7 +340,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_cuda_streams", action="store_true",
                    help="accepted for compatibility; unused")
     p.add_argument("--world_size", default=None, type=int,
-                   help="gossip ranks, all held in this process (default 1)")
+                   help="gossip ranks, all held in this process (default "
+                        "1); under torchrun the launcher's world")
     p.add_argument("--model", default="resnet50", type=str,
                    help=f"one of {', '.join(MODELS)}")
     p.add_argument("--dataset", default="imagefolder",
@@ -545,21 +556,43 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     if config_transform is not None:
         cfg = config_transform(cfg, args)
 
+    import torch
+
     from ..data.pipeline import DistributedSampler, ShardedLoader
     from ..data.synthetic import synthetic_classification
     from ..device import resolve_device
     from ..ops.gossip_kernel import KernelBackendError
-    from ..parallel.collectives import StackedTransport
+    from ..parallel.collectives import DistTransport, StackedTransport
+    from ..parallel.discovery import discover
+    from ..parallel.multihost import initialize_multihost, process_device
     from ..train.loop import Trainer
     from ..utils.checkpoint import CheckpointManager, ClusterManager
     from ..utils.logging import make_logger
 
     log = make_logger("main", cfg.verbose)
-    world = args.world_size or 1
+    info = discover()
+    spread = info.world_size > 1   # one rank per process
+    if spread and args.world_size not in (None, info.world_size):
+        raise SystemExit(f"--world_size {args.world_size} but the launcher "
+                         f"started {info.world_size} processes")
+    world = info.world_size if spread else (args.world_size or 1)
     # planning is numpy only: its line and warnings come before any
     # device work, as in the reference
     _resolve_plan(cfg, args, world, log)
-    device = resolve_device(args.device)
+    owns_group = False
+    if spread:
+        device = process_device(args.device, info)
+        owns_group = not torch.distributed.is_initialized()
+        try:
+            initialize_multihost(args.backend, device, info)
+        except ValueError as e:
+            raise SystemExit(f"--backend {args.backend}: {e}") from None
+        transport = DistTransport()
+        ranks = [transport.rank]
+    else:
+        device = resolve_device(args.device)
+        transport = StackedTransport(world)
+        ranks = list(range(world))
     model = _make_model(args, cfg.num_classes)
 
     n = args.synthetic_samples or world * cfg.batch_size * 8
@@ -568,30 +601,37 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     images, labels = synthetic_classification(
         n + n_val, num_classes=cfg.num_classes, image_size=args.image_size,
         seed=cfg.seed)
+    # this process's rank rows of the samplers the stacked lane reads
+    held = ranks if spread else None
     sampler = DistributedSampler(n, world)
-    loader = ShardedLoader(images[:n], labels[:n], cfg.batch_size, sampler)
+    loader = ShardedLoader(images[:n], labels[:n], cfg.batch_size, sampler,
+                           ranks=held)
     val_loader = ShardedLoader(images[n:], labels[n:], cfg.batch_size,
-                               DistributedSampler(n_val, world))
+                               DistributedSampler(n_val, world), ranks=held)
 
     ckpt = CheckpointManager(cfg.checkpoint_dir, tag=cfg.tag,
-                             world_size=world, ranks=range(world))
-    cluster = ClusterManager(ckpt, rank=0, requeue_command=(
+                             world_size=world, ranks=ranks)
+    cluster = ClusterManager(ckpt, rank=ranks[0], requeue_command=(
         args.requeue_command or _default_requeue()))
     try:
-        trainer = Trainer(cfg, model, StackedTransport(world),
-                          cluster_manager=cluster, device=device)
+        trainer = Trainer(cfg, model, transport, cluster_manager=cluster,
+                          device=device)
     except KernelBackendError as e:
         raise KernelBackendError(f"--gossip_kernel {cfg.gossip_kernel}: "
                                  f"{e}") from None
     alg = trainer.make_algorithm(cfg.ppi_schedule[0])
     lane = getattr(alg, "transport_kernel_name", None)
-    log.info(f"world {world} stacked on {device}; {args.model}, "
+    where = (f"rank {ranks[0]} of {world}, one a process, on {device} "
+             f"({torch.distributed.get_backend()})" if spread
+             else f"world {world} stacked on {device}")
+    log.info(f"{where}; {args.model}, "
              f"{args.image_size} px, {cfg.num_classes} classes, batch "
              f"{cfg.batch_size}/rank; algorithm {alg.name}"
              + (f", gossip lane {lane}" if lane else ""))
     return types.SimpleNamespace(cfg=cfg, args=args, trainer=trainer,
                                  loader=loader, sampler=sampler,
-                                 val_loader=val_loader, log=log)
+                                 val_loader=val_loader, log=log,
+                                 transport=transport, owns_group=owns_group)
 
 
 def main(argv=None, config_transform=None) -> dict:
@@ -602,6 +642,11 @@ def main(argv=None, config_transform=None) -> dict:
         state = run.trainer.init_state()
         state, result = run.trainer.fit(state, run.loader, run.sampler,
                                         run.val_loader)
+        run.transport.close()
+        if run.owns_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     finally:
         # a library caller gets its own handlers back
         for s, h in handlers.items():

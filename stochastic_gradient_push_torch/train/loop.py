@@ -1,8 +1,15 @@
 """The experiment loop: epochs, meters, CSV logging, validation, resume.
 
 Port of ``TrainerConfig`` and ``Trainer`` in ``stochastic_gradient_push_
-tpu/train/loop.py`` for one process holding every rank of the world on
-the stacked transport (``parallel/collectives.py``), on one device.  The
+tpu/train/loop.py``, over either transport of ``parallel/collectives.py``:
+one process holding every rank of the world (``StackedTransport``), or
+one rank per process (``DistTransport``, under ``torchrun``), where each
+process trains its own rank with a leading dim of 1, reads its rank's
+rows of the same sampler, writes its rank's checkpoint file (the same
+file the stacked lane writes for that rank), gathers every rank's
+metrics so rank 0's CSV holds them all (``parallel/multihost.py::
+to_host``), agrees on the resume point and on a preemption signal at
+each step boundary, and resumes from either lane's files.  The
 step is ``train/step.py::build_train_step``; the five algorithms come
 from :meth:`Trainer.make_algorithm` (AllReduce, SGP, OSGP, D-PSGD,
 AD-PSGD), one per peers-per-iteration value as the reference caches one
@@ -38,8 +45,8 @@ made by the CLI): its fabric model, wire stamp and synthesis stamp reach
 the recovery policy's re-plans, and every rank file's meta carries it.
 
 Config fields of features not ported yet raise ``NotImplementedError``
-naming the feature when set away from their defaults (:data:`UNPORTED`),
-as does a multi-process world; none is silently ignored.
+naming the feature when set away from their defaults (:data:`UNPORTED`);
+none is silently ignored.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from ..algorithms import (GossipAlgorithm, adpsgd, all_reduce, dpsgd,
 from ..device import resolve_device
 from ..ops.gossip_kernel import resolve_gossip_kernel
 from ..parallel import collectives
+from ..parallel.multihost import consensus_resume_point, to_host
 from ..parallel.wire import get_codec, wire_stamp
 from ..topology import build_pairing_schedule, build_schedule
 from ..utils.checkpoint import REQUEUE_EXIT_CODE, ClusterManager
@@ -180,11 +188,12 @@ def _refuse_unported(cfg: TrainerConfig, transport) -> None:
             raise NotImplementedError(
                 f"TrainerConfig.{field}={value!r}: {feature} is not ported "
                 f"to stochastic_gradient_push_torch yet (ROADMAP.md Queue 1)")
-    if not isinstance(transport, collectives.StackedTransport):
+    if not isinstance(transport, (collectives.StackedTransport,
+                                  collectives.DistTransport)):
         raise NotImplementedError(
-            "a multi-process world (one rank per process) is not ported to "
-            "the trainer yet (ROADMAP.md Queue 1 item 10); hold every rank "
-            "in one process with a StackedTransport")
+            f"a {type(transport).__name__}: the trainer runs a multi-process "
+            "world on collectives.DistTransport (one rank per process) and "
+            "a single process on collectives.StackedTransport")
 
 
 class Trainer:
@@ -201,11 +210,17 @@ class Trainer:
         self.transport = transport
         self.device = resolve_device(device)
         self.world_size = transport.world_size
+        # ranks this process holds: all of them, or its own
+        self.held = len(transport.ranks)
+        self.spread = self.held < self.world_size
         # resolved here, so "pallas" off the card fails before any step
         self.lane = resolve_gossip_kernel(config.gossip_kernel,
                                           device=self.device)
         self.log = make_logger("trainer", config.verbose)
         self.cluster = cluster_manager
+        if cluster_manager is not None and self.spread:
+            # a signal one process saw is acted on by all, at one step
+            cluster_manager.agree = self._any_process
         self.tx = sgd(momentum=config.momentum,
                       weight_decay=config.weight_decay,
                       nesterov=config.nesterov)
@@ -250,11 +265,18 @@ class Trainer:
                     synth=(config.plan.get("synth")
                            if config.plan else None))
         self._logged_faults = False
-        self._csv_ranks = (tuple(range(self.world_size))
-                           if config.per_rank_csv else (0,))
+        # rank 0's process writes the CSVs, from every rank's metrics
+        self._csv_ranks = ((tuple(range(self.world_size))
+                            if config.per_rank_csv else (0,))
+                           if 0 in transport.ranks else ())
         self._fname = lambda r: os.path.join(
             config.checkpoint_dir,
             f"{config.tag}out_r{r}_n{self.world_size}.csv")
+
+    def _any_process(self, flag: bool) -> bool:
+        """Whether ``flag`` holds in any process (a collective)."""
+        x = torch.tensor([float(flag)], device=self.device)
+        return bool(self.transport.allreduce_max(x)[0])
 
     # -- algorithm / step construction ------------------------------------
 
@@ -407,9 +429,8 @@ class Trainer:
         """Every rank starts from the same parameters, drawn from
         ``seed`` (``train/step.py::init_train_state``)."""
         alg = self.make_algorithm(ppi_at_epoch(self.cfg.ppi_schedule, 0))
-        return init_train_state(self.model, alg, self.tx,
-                                self.world_size, seed=self.cfg.seed,
-                                device=self.device)
+        return init_train_state(self.model, alg, self.tx, self.held,
+                                seed=self.cfg.seed, device=self.device)
 
     def fit(self, state, train_loader, sampler,
             val_loader=None) -> tuple[tp.Any, dict]:
@@ -441,7 +462,11 @@ class Trainer:
         start_epoch, start_itr, best_prec1 = 0, 0, 0.0
         elapsed = 0.0
         want_resume = cfg.resume and self.cluster is not None
-        if want_resume and not self.cluster.ckpt.exists():
+        have = want_resume and self.cluster.ckpt.exists()
+        if want_resume and self.spread:
+            # resume only if every process holds its rank's file
+            have = not self._any_process(not have)
+        if want_resume and not have:
             worlds = self.cluster.ckpt.discover_worlds()
             if worlds:
                 raise NotImplementedError(
@@ -450,10 +475,11 @@ class Trainer:
                     f"{self.world_size}; resharding them "
                     "(supervise/reshard.py) is not ported to stochastic_"
                     "gradient_push_torch yet (ROADMAP.md Queue 1 item 10)")
-        if want_resume and self.cluster.ckpt.exists():
+        if have:
             state, meta = self.cluster.ckpt.restore(state)
-            start_epoch = meta.get("epoch", 0)
-            start_itr = meta.get("itr", 0)
+            start_epoch, start_itr = consensus_resume_point(
+                meta.get("epoch", 0), meta.get("itr", 0), self.transport,
+                self.log)
             best_prec1 = meta.get("best_prec1", 0.0)
             elapsed = meta.get("elapsed_time", 0.0)
             for m, k in zip(meters, ("batch_meter", "nn_meter",
@@ -494,7 +520,7 @@ class Trainer:
             start_itr = 0
             if cfg.train_fast:
                 continue
-            spread = replica_spread(state, alg)
+            spread = replica_spread(state, alg, self.transport)
             self.log.info(f"epoch {epoch}: replica spread "
                           f"max {spread['max_spread']:.2e} "
                           f"mean {spread['mean_spread']:.2e}")
@@ -578,16 +604,26 @@ class Trainer:
                 x, y = next(it)
             except StopIteration:
                 break
-            n = x.shape[0] * x.shape[1]
+            n = self.world_size * x.shape[1]
             x = torch.from_numpy(x).to(self.device)
             y = torch.from_numpy(y).to(self.device)
             elapsed_data = time.time() - batch_time
             nn_time = time.time()
             state, metrics = train_fn(state, x, y)
             # the device-to-host read ends the step's window on finished
-            # work
-            host = {k: metrics[k].detach().cpu().numpy()
-                    for k in ("loss", "top1", "top5", "grad_norm")}
+            # work; every rank's row in one read, gathered across
+            # processes, with this process's preemption flag beside it
+            keys = ("loss", "top1", "top5", "grad_norm")
+            row = [metrics[k] for k in keys]
+            if self.spread:
+                row.append(torch.full_like(row[0], float(
+                    self.cluster is not None
+                    and self.cluster.local_signalled())))
+            rows = to_host(torch.stack(row, -1), self.transport)
+            host = {k: rows[:, j] for j, k in enumerate(keys)}
+            signalled = self.spread and bool(rows[:, -1].max())
+            # a cross-process gossip wait that gave up raises here
+            self.transport.check()
             elapsed_nn = time.time() - nn_time
             elapsed_batch = time.time() - batch_time
             i += 1
@@ -615,8 +651,9 @@ class Trainer:
                 if cfg.verbose:
                     self.log.info(f"epoch {epoch} itr {i}: grad_norm "
                                   f"{float(host['grad_norm'].mean()):.4f}")
-            if self.cluster is not None \
-                    and self.cluster.any_rank_signalled():
+            if self.cluster is not None and (
+                    signalled if self.spread
+                    else self.cluster.any_rank_signalled()):
                 self._preempt_exit(state, epoch, i + 1, meters, best_prec1,
                                    begin_time if begin_time is not None
                                    else time.time())
@@ -668,10 +705,10 @@ class Trainer:
         rank_top1 = np.zeros(self.world_size)
         n_batches, n_samples = 0, 0
         for x, y in val_loader:
-            n = x.shape[0] * x.shape[1]
+            n = self.world_size * x.shape[1]
             m = self._eval_fn(state, torch.from_numpy(x).to(self.device),
                               torch.from_numpy(y).to(self.device))
-            m = {k: v.cpu().numpy() for k, v in m.items()}
+            m = {k: to_host(v, self.transport) for k, v in m.items()}
             losses.update(float(np.mean(m["loss"])), n)
             top1.update(float(np.mean(m["top1"])), n)
             top5.update(float(np.mean(m["top5"])), n)

@@ -225,16 +225,35 @@ def unreplicate(tree, rank: int = 0):
 
 
 @torch.no_grad()
-def replica_spread(state: TrainState, algorithm: GossipAlgorithm) -> dict:
+def replica_spread(state: TrainState, algorithm: GossipAlgorithm,
+                   transport=None) -> dict:
     """Cross-replica disagreement of the de-biased parameters: max and
     mean absolute deviation from the rank mean over every parameter,
     the per-rank-averaged L2 norm of the deviation, and the largest
     parameter magnitude.  The deviations are fp32, on the state's
     device; their mean and norm accumulate in fp64 (an fp32 sum over
-    ~10^8 elements drifts by a few tenths of a percent)."""
+    ~10^8 elements drifts by a few tenths of a percent).  With one rank
+    per process (``transport`` holds fewer ranks than its world) the
+    mean and the sums reduce across processes."""
     z = algorithm.eval_params(state.params, state.gossip)
     flat = torch.cat([p.float().reshape(p.shape[0], -1) for p in z.values()],
                      dim=1)
+    if transport is not None and len(transport.ranks) < transport.world_size:
+        world = transport.world_size
+        dev = (flat - transport.allreduce_sum(flat) / world).abs()
+
+        def total(x):
+            return float(transport.allreduce_sum(x.reshape(1))[0])
+
+        def most(x):
+            return float(transport.allreduce_max(x.reshape(1))[0])
+
+        return {"max_spread": most(dev.max()),
+                "mean_spread": total(dev.sum(dtype=torch.float64))
+                / dev.numel() / world,
+                "spread_l2": total(dev.square().sum(dtype=torch.float64))
+                ** 0.5 / world ** 0.5,
+                "param_scale": most(flat.abs().max())}
     world = flat.shape[0]
     dev = (flat - flat.mean(0, keepdim=True)).abs()
     return {"max_spread": float(dev.max()),

@@ -212,6 +212,9 @@ class ClusterManager:
         self.requeue_command = requeue_command
         self.signal_received = False
         self.last_signal: str | None = None
+        # one rank per process: the trainer sets this to a collective
+        # "any process", so every process acts at the same step
+        self.agree = None
         self.logger = make_logger(rank)
         self._flag_path = os.path.join(
             self.ckpt.directory, f"{self.ckpt.tag}.preempt_flag")
@@ -248,8 +251,13 @@ class ClusterManager:
         except OSError as e:
             self.logger.warning(f"could not write preempt flag: {e}")
 
-    def any_rank_signalled(self) -> bool:
+    def local_signalled(self) -> bool:
+        """A signal reached this process, or another left the flag."""
         return self.signal_received or os.path.isfile(self._flag_path)
+
+    def any_rank_signalled(self) -> bool:
+        flag = self.local_signalled()
+        return flag if self.agree is None else self.agree(flag)
 
     def save_checkpoint(self, state, meta: dict, epoch_id: int | None = None,
                         is_best: bool = False,

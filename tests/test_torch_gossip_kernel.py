@@ -21,8 +21,10 @@ JAX package's ``ops/gossip_kernel.py`` and its XLA lane.
   lane too, where this jax can run its start kernel.
 * Resolver and lane contracts: ``pallas`` without a card raises
   ``KernelBackendError``, a non-interpret lane handed CPU tensors raises
-  ``KernelLaneError``, dests must be permutations, the kernel lane under
-  a ``DistTransport`` is refused naming the cross-process transport.
+  ``KernelLaneError``, dests must be permutations, the kernel lane on a
+  transport that is neither the stacked nor the cross-process one is
+  refused naming both (``tests/test_torch_gossip_kernel_dist.py`` runs
+  the cross-process lane).
 
 Every world-8 reference program runs serialized (each call drained
 before the next).
@@ -331,13 +333,15 @@ def test_transport_kernel_name_reports_the_lane_that_runs():
 
 
 def test_kernel_lane_under_dist_transport_is_refused_by_name():
-    class FakeDist:   # a transport that is not the stacked one
+    class FakeDist:   # neither the stacked nor the cross-process transport
         world_size, ranks = 4, np.array([0])
 
     sched = tt.build_schedule(tt.NPeerDynamicDirectedExponentialGraph(4))
-    with pytest.raises(NotImplementedError, match="cross-process"):
+    with pytest.raises(TypeError, match="stacked transport or the "
+                                        "cross-process one.*FakeDist"):
         talg.sgp(sched, FakeDist(), gossip_kernel=tgk.KernelLane(True))
-    with pytest.raises(NotImplementedError, match="cross-process"):
+    with pytest.raises(TypeError, match="stacked transport or the "
+                                        "cross-process one.*FakeDist"):
         tc.gossip_round([torch.zeros(1, 8)], 0, sched, FakeDist(),
                         kernel=tgk.KernelLane(True))
 

@@ -6,8 +6,9 @@ surface (every flag of the JAX package's parser, with its default), and
 the refusal, by name, of every flag whose feature is not ported yet.
 The overlap (OSGP) and gossip-kernel flags: ``--overlap True
 --staleness 2`` trains on the CPU; ``--gossip_kernel pallas`` raises
-``KernelBackendError`` naming the flag on ``--device cpu`` and, under
-``torchrun``, refuses naming the cross-process transport.  The
+``KernelBackendError`` naming the flag on ``--device cpu``, under
+``torchrun`` naming the cross-process transport kernel (its twin runs in
+``tests/test_torch_gossip_kernel_dist.py``).  The
 resilience flags (``--inject_faults``, ``--health_every``,
 ``--residual_floor``, ``--error_feedback``) run, each printing its
 lines (``gossip faults:``, ``gossip health:``, ``gossip recovery:``),
@@ -280,9 +281,15 @@ def test_pallas_on_cpu_is_a_typed_error_naming_the_flag():
 
 def test_pallas_under_torchrun_names_the_cross_process_transport(
         monkeypatch):
+    # the cross-process transport kernel runs under torchrun now; off the
+    # card it is a typed error naming it
+    from stochastic_gradient_push_torch.ops.gossip_kernel import (
+        KernelBackendError)
+
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="--gossip_kernel pallas under "
-                                         "torchrun.*cross-process"):
+    with pytest.raises(KernelBackendError, match="--gossip_kernel pallas "
+                                                 "under torchrun.*cross-"
+                                                 "process"):
         gossip_lm.main(SMALL + ["--gossip_kernel", "pallas"])
 
 

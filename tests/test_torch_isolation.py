@@ -78,6 +78,8 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.train.lm",
                 "stochastic_gradient_push_torch.run.gossip_lm",
                 "stochastic_gradient_push_torch.parallel.collectives",
+                "stochastic_gradient_push_torch.parallel.discovery",
+                "stochastic_gradient_push_torch.parallel.multihost",
                 "stochastic_gradient_push_torch.parallel.seq",
                 "stochastic_gradient_push_torch.parallel.ring_attention",
                 "stochastic_gradient_push_torch.ops.ring_flash",

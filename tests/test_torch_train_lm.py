@@ -505,6 +505,6 @@ def test_unported_attention_and_algorithm_options_raise():
                          ({"error_feedback": True}, "lossy wire codec")):
         with pytest.raises(ValueError, match=name):
             talg.sgp(sched, StackedTransport(2), **kwargs)
-    with pytest.raises(NotImplementedError, match="cross-process"):
+    with pytest.raises(TypeError, match="cross-process"):
         talg.sgp(sched, OneRankPerProcess(),
                  gossip_kernel=KernelLane(interpret=True))
