@@ -222,7 +222,34 @@
      written, each rank's state against the stacked kernel-lane run of
      the same command under deterministic cuDNN (the ResNet step tests'
      tolerance, rtol 1e-5 / atol 1e-6).
-14. A JSON line of per-kernel results (the fp32 flash rows also carry
+14. The reference's ImageNet command line on a JPEG tree written here
+   (4 classes, 64 train and 32 val images a class, 320 x 256 px, seed 0),
+   ResNet-50 at 224 px and 1000 classes, fp32, world 4 stacked, 32 images
+   a rank (2 steps an epoch):
+   - 14a: ``run/gossip_sgd.py --dataset imagefolder`` (PIL decoding, a
+     batch a task on a pool of 8 threads) with SGP on the gossip kernels, three
+     times: ``--data_output uint8 --prefetch True`` and ``--data_output
+     f32 --prefetch False`` for 3 epochs, and the first again for one
+     epoch with a ``--profile_dir`` window of both its steps; one K2 and
+     one K1 a step in each; the first batch, uploaded as uint8 through the
+     prefetcher's pinned buffers, equal to the loader's decode, and
+     normalised on the card within 1e-6 of the same normalisation on the
+     CPU and of the f32 loader's host-normalised batch; the first-step
+     losses of the two runs within 1e-4 relative; the Chrome trace names
+     both gossip kernels; each run's images/s and ``DT`` share of ``BT``
+     (means of 3 steps, each epoch's first skipped), the card's
+     normalisation time (``fenced_ms``), and the loader's own images/s
+     with no step over 4 epochs of 8 batches (5 decoding at once, as
+     under the CLI on a long epoch);
+   - 14b: ``run/gossip_sgd_adpsgd.py`` on the same tree, 3 epochs of 2
+     steps (``--train_fast``), synchronous (its images/s and losses
+     printed beside), then ``--bilat_async True``: at least one
+     adoption, finite losses, the averaging thread alive until ``stop``,
+     no gossip kernel, and the staleness summary; then one averaging
+     round on ResNet-50's world-4 parameters on the card (snapshot through
+     pinned buffers on a side stream, adoption in place) bit-equal to the
+     numpy round on the same snapshot.
+15. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -684,6 +711,38 @@ def _gossip_case(g, wire: str, ne: int, ranks: int, leaf_shapes=None,
     return spec, lane, parts, acc, n
 
 
+def _decode_add_ms(acc, recv, kind: str) -> float:
+    """K1's function in PyTorch ops on the landed chunks: ``acc +
+    recv[0].float() (+ recv[1].float())``, or the int8 dequantise-add
+    ``acc + q.float() * scale`` an edge; one ``add`` at f32 on one edge."""
+    import torch
+
+    ne = recv[0].shape[1]
+    if kind == "int8":
+        q, scale = recv
+
+        def fn():
+            out = acc
+            for e in range(ne):
+                out = out + (q[:, e].float() * scale[:, e][..., None]
+                             ).reshape(acc.shape)
+            return out
+    elif kind == "f32" and ne == 1:
+        r0 = recv[0][:, 0].reshape(acc.shape)
+
+        def fn():
+            return torch.add(acc, r0)
+    else:
+        r = [recv[0][:, e].reshape(acc.shape) for e in range(ne)]
+
+        def fn():
+            out = acc
+            for x in r:
+                out = out + x.float()
+            return out
+    return _time_ms(fn, 10)
+
+
 def check_gossip(card: str) -> dict:
     """K2 and K1 bit-equal to their plain versions on the full-width
     packed payload at world 4 and on ragged payloads, with times."""
@@ -760,18 +819,17 @@ def check_gossip(card: str) -> dict:
         wait_ms = _time_ms(lambda: gk.gossip_edge_wait(handle, acc), 10)
         wait_plain = _time_ms(lambda: gk.gossip_edge_wait_reference(
             acc.reshape(GOSSIP_WORLD, nb, c), handle.recv, spec.kind), 3)
-        wait_lib = None
-        if spec.kind in ("f32", "bf16") and ne == 1:
-            recv0 = handle.recv[0].reshape(acc.shape)
-            wait_lib = _time_ms(lambda: torch.add(acc, recv0), 10)
+        # K1's function in PyTorch ops (one add at f32 on one edge)
+        wait_lib = _decode_add_ms(acc.reshape(GOSSIP_WORLD, nb, c),
+                                  handle.recv, spec.kind)
         sb = _bound(2 * part_bytes, 0)
         wb = _bound(2 * acc_bytes + part_bytes,
                     acc.numel() * ne * (2 if spec.kind == "int8" else 1))
         print(f"kernel gossip {label}: bit-equal; start {start_ms:.4f} ms, "
               f"plain {start_plain:.4f} ms, index_select {start_lib:.4f} "
               f"ms, bound {sb[0]:.4f} ms ({sb[1]}); wait {wait_ms:.4f} ms, "
-              f"plain {wait_plain:.4f} ms, add "
-              f"{'n/a' if wait_lib is None else f'{wait_lib:.4f} ms'}, bound "
+              f"plain {wait_plain:.4f} ms, PyTorch decode-add "
+              f"{wait_lib:.4f} ms, bound "
               f"{wb[0]:.4f} ms ({wb[1]}) [{card}]", flush=True)
         rows[(wire, ne)] = {
             "gossip_edge_start": dict(
@@ -2194,6 +2252,7 @@ def topology_kernel_times(card: str) -> None:
     out."""
     import torch
 
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
     from stochastic_gradient_push_torch.parallel.wire import get_codec
     from stochastic_gradient_push_torch.topology import (
         HierarchicalGraph, build_schedule)
@@ -2221,6 +2280,9 @@ def topology_kernel_times(card: str) -> None:
                         for r in range(world) if float(w[r]) == 0.0)
         part_bytes = sum(p.numel() * p.element_size() for p in parts)
         t = _edge_times(handle, parts, dests, spec, n, acc)
+        _, _, _, c, nb, _, _ = handle.meta
+        lib = _decode_add_ms(gk._pad_rows(acc, nb * c, 1).reshape(
+            world, nb, c), handle.recv, spec.kind)
         ops = acc.numel() * (2 if wire == "int8" else 1)
         sb = _bound(2 * part_bytes, 0)
         wb = _bound(2 * acc.numel() * 4 + part_bytes, ops)
@@ -2233,7 +2295,9 @@ def topology_kernel_times(card: str) -> None:
               f"twins {equal}, weight-0 rows land exactly 0 {zero_rows}; "
               f"start {t['start']:.4f} ms (bound {sb[0]:.4f} / "
               f"{sb_need[0]:.4f} ms, {sb[1]}), wait {t['wait']:.4f} ms "
-              f"(bound {wb[0]:.4f} / {wb_need[0]:.4f} ms, {wb[1]}); wrappers "
+              f"(bound {wb[0]:.4f} / {wb_need[0]:.4f} ms, {wb[1]}), "
+              f"{'add' if wire == 'f32' else 'PyTorch dequantise-add'} "
+              f"{lib:.4f} ms; wrappers "
               f"on unpadded inputs, pad copies included: start "
               f"{t['wrap_start']:.4f} ms, wait {t['wrap_wait']:.4f} ms "
               f"[{card}]", flush=True)
@@ -3507,6 +3571,397 @@ def dist_path(card: str, lm_payload: int) -> tuple[dict, dict]:
     return launches, rows
 
 
+# -- phase 14: the reference's ImageNet command line -------------------------
+
+# a JPEG tree written here: 4 classes, 64 train and 32 val images a class,
+# 320 x 256 px, so RandomResizedCrop to 224 and the val resize and centre
+# crop resample for real
+IMAGES = dict(classes=4, train=64, val=32, width=320, height=256)
+# run/gossip_sgd.py at ResNet-50's width, world 4 stacked, 32 images a
+# rank: the 256 training images are 2 steps an epoch; the timed runs of
+# 14a and 14b train 3 epochs (the meters skip each epoch's first step, so
+# BT and DT are means of 3 steps); the loader alone streams 4 epochs at 8
+# images a rank, 8 batches an epoch, so it decodes as many batches at once
+# as the CLI does on a long epoch (its prefetch 4 + 1)
+IMG_CLI = dict(world=4, batch=32, workers=8, epochs=3, loader_epochs=4,
+               loader_batch=8)
+# the uint8 run's first-step loss against the f32 run's: their inputs
+# differ by an ulp (the card's fused normalisation against the host's)
+TOL_IMG_LOSS_REL = 1e-4
+# the card-normalised uint8 batch against the same normalisation on the
+# CPU and against the f32 loader's host-normalised batch (|x| < 2.7, an
+# ulp there is 2.4e-7)
+TOL_IMG_NORM = 1e-6
+
+
+def _write_images(root: str) -> None:
+    """The phase's JPEG tree, made from seed 0: each image a smooth random
+    field (an 8 x 10 grid upsampled bicubically), a class tint and mild
+    pixel noise, saved at quality 90."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    w, h = IMAGES["width"], IMAGES["height"]
+    for split in ("train", "val"):
+        for c in range(IMAGES["classes"]):
+            d = os.path.join(root, split, f"class_{c}")
+            os.makedirs(d)
+            for i in range(IMAGES[split]):
+                field = Image.fromarray(rng.integers(
+                    0, 256, (8, 10, 3), dtype=np.uint8)).resize(
+                    (w, h), Image.BICUBIC)
+                px = np.asarray(field, np.int16) + rng.integers(
+                    -12, 13, (h, w, 3))
+                px[..., c % 3] += 30
+                Image.fromarray(np.clip(px, 0, 255).astype(np.uint8)).save(
+                    os.path.join(d, f"img_{i:03d}.jpg"), quality=90)
+
+
+def _img_argv(root: str, ckpt: str, *extra: str) -> list[str]:
+    c = IMG_CLI
+    return ["--model", "resnet50", "--image_size", "224", "--num_classes",
+            "1000", "--dataset", "imagefolder", "--dataset_dir", root,
+            "--world_size", str(c["world"]), "--batch_size", str(c["batch"]),
+            "--num_dataloader_workers", str(c["workers"]), "--num_epochs",
+            "1", "--num_itr_ignore", "1", "--print_freq", "1", "--seed", "0",
+            "--verbose", "False", "--checkpoint_dir", ckpt, *extra]
+
+
+class _Spy:
+    """Inside a ``with``: the first batch array the Trainer moved to the
+    card (the first step's images) and the first step's metric rows
+    (``[R, 4]``: loss, top-1, top-5, grad norm)."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from stochastic_gradient_push_torch.train import loop
+
+        self.loop, self.batch, self.rows = loop, None, None
+        self._real = (loop.Trainer._on_device, loop.to_host)
+        on_device, to_host = self._real
+
+        def spy_on_device(trainer, a):
+            out = on_device(trainer, a)
+            if self.batch is None:
+                self.batch = out.clone()
+            return out
+
+        def spy_to_host(x, transport):
+            out = to_host(x, transport)
+            if self.rows is None:
+                self.rows = np.array(out)
+            return out
+
+        loop.Trainer._on_device, loop.to_host = spy_on_device, spy_to_host
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.Trainer._on_device, self.loop.to_host = self._real
+
+
+def _csv_rows(ckpt: str) -> list[list[str]]:
+    """Rank 0's training rows, one a global step: the CSV's rows after
+    its header block, less the validation rows (``itr`` -1) and each
+    epoch's closing row (the same ``(epoch, itr)`` as its last step)."""
+    with open(os.path.join(ckpt, f"out_r0_n{IMG_CLI['world']}.csv")) as f:
+        rows = [r.split(",") for r in f.read().splitlines()[5:]]
+    steps = {}
+    for r in rows:
+        if r[1] != "-1":
+            steps.setdefault((r[0], r[1]), r)
+    return list(steps.values())
+
+
+def _csv_timing(ckpt: str) -> tuple[float, float, float]:
+    """The last training row's ``avg:BT(s)``, ``std:BT(s)`` and
+    ``avg:DT(s)``."""
+    last = _csv_rows(ckpt)[-1]
+    return float(last[3]), float(last[4]), float(last[9])
+
+
+def _loader_rate(root: str, output: str) -> tuple[float, int, int]:
+    """The streaming loader's own images/s over ``loader_epochs`` training
+    epochs, no step, at the CLI's workers and prefetch; with the images it
+    decoded and the most batches decoding at once (a batch a task: the
+    one waited on and ``prefetch`` behind it, at most one a thread)."""
+    from stochastic_gradient_push_torch.data.streaming import (
+        StreamingImageFolder)
+
+    c = IMG_CLI
+    loader = StreamingImageFolder(root, "train", c["world"],
+                                  c["loader_batch"],
+                                  num_workers=c["workers"], output=output)
+    in_flight = min(loader.num_workers, loader.prefetch + 1, len(loader))
+    n = 0
+    t0 = time.perf_counter()
+    for epoch in range(c["loader_epochs"]):
+        loader.set_epoch(epoch)
+        n += sum(x.shape[0] * x.shape[1] for x, _ in loader)
+    return n / (time.perf_counter() - t0), n, in_flight
+
+
+def image_cli(card: str, root: str, tmp: str) -> dict:
+    """14a: run/gossip_sgd.py on the tree, ResNet-50 at 224 px, world 4
+    stacked, SGP on the gossip kernels: uint8 output with device
+    prefetch, f32 without (``epochs`` epochs each), then the first again
+    for one epoch with a profile window of both its steps (its times are
+    the profiler's, not the run's)."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.data.streaming import (
+        StreamingImageFolder)
+    from stochastic_gradient_push_torch.run import gossip_sgd
+    from stochastic_gradient_push_torch.train.step import normalize_images
+    from stochastic_gradient_push_torch.utils.profiling import fenced_ms
+
+    c = IMG_CLI
+    prof = os.path.join(tmp, "profile")
+    uint8 = ["--data_output", "uint8", "--prefetch", "True"]
+    runs = {"uint8": ("uint8, prefetch", c["epochs"], uint8),
+            "f32": ("f32, no prefetch", c["epochs"],
+                    ["--data_output", "f32", "--prefetch", "False"]),
+            "profiled": ("uint8, prefetch, profiled", 1, uint8 + [
+                "--profile_dir", prof, "--profile_start_step", "0",
+                "--profile_steps", "2"])}
+    per_epoch = (IMAGES["train"] * IMAGES["classes"]
+                 // (c["world"] * c["batch"]))
+    # the loader alone first, before the runs leave their objects to the
+    # garbage collector (a 240,000-event trace among them)
+    rates = {out: _loader_rate(root, out) for out in ("uint8", "f32")}
+    n, in_flight = rates["uint8"][1:]
+    print(f"imagenet 14a loader alone (no step, {c['loader_epochs']} "
+          f"epochs of {c['world']} x {c['loader_batch']}, {n} images, "
+          f"{c['workers']} PIL threads, {in_flight} batches decoding at "
+          f"once, {IMAGES['width']}x"
+          f"{IMAGES['height']} JPEGs to 224): "
+          + ", ".join(f"{k} {v[0]:.1f} images/s" for k, v in rates.items())
+          + f" [{card}]", flush=True)
+    got, launches_total = {}, {}
+    for label, (what, epochs, extra) in runs.items():
+        ckpt = os.path.join(tmp, f"img_{label}")
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        with _Spy() as spy:
+            t0 = time.perf_counter()
+            result = gossip_sgd.main(_img_argv(
+                root, ckpt, "--gossip_kernel", "pallas", "--num_epochs",
+                str(epochs), *extra))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        steps = per_epoch * epochs
+        launches = {n: fn.launches for n, fn in counters.items()}
+        want = {n: 0 for n in launches}
+        want["gossip_edge_start"] = want["gossip_edge_wait"] = steps
+        if launches != want:
+            raise AssertionError(f"imagenet 14a {label}: launches {launches},"
+                                 f" expected {want}")
+        for n, v in launches.items():
+            launches_total[n] = launches_total.get(n, 0) + v
+        bt, bt_std, dt = _csv_timing(ckpt)
+        loss = spy.rows[:, 0]
+        if not np.isfinite(spy.rows).all():
+            raise AssertionError(f"imagenet 14a {label}: metrics {spy.rows}")
+        print(f"imagenet 14a {what}: {wall:.2f} s in main ({epochs} epochs "
+              f"of {per_epoch} steps, validation, checkpoints); BT mean of "
+              f"{epochs} steps (each epoch's second) {bt * 1e3:.0f} ms "
+              f"(std {bt_std * 1e3:.0f}), "
+              f"{c['world'] * c['batch'] / result['batch_meter'].avg:.1f} "
+              f"images/s, DT {dt * 1e3:.0f} ms = {dt / bt:.1%} of BT; "
+              f"first-step loss per rank {loss.tolist()}; one K2 and one K1 "
+              f"a step [{card}]", flush=True)
+        got[label] = dict(batch=spy.batch, loss=loss, result=result)
+
+    # the first batch: uploaded as uint8 through the prefetcher's pinned
+    # buffers, normalised on the card
+    u8 = got["uint8"]["batch"]
+    if u8.dtype != torch.uint8 or not u8.is_cuda:
+        raise AssertionError(f"imagenet 14a: first uint8 batch {u8.dtype} "
+                             f"on {u8.device}")
+    # the CLI's loader: --seed 0, so the trainer's first epoch is 0
+    loader = StreamingImageFolder(root, "train", c["world"], c["batch"],
+                                  image_size=u8.shape[2], seed=0,
+                                  num_workers=c["workers"], output="uint8")
+    loader.set_epoch(0)
+    decoded = torch.from_numpy(next(iter(loader))[0])
+    if not torch.equal(u8.cpu(), decoded):
+        raise AssertionError("imagenet 14a: the prefetched uint8 batch "
+                             "differs from the loader's")
+    on_card = normalize_images(u8)
+    on_cpu = normalize_images(decoded)
+    norm_ms = fenced_ms(normalize_images, u8, steps=20)
+    host = got["f32"]["batch"]
+    err_cpu = _max_err(on_card.cpu(), on_cpu)
+    err_host = _max_err(on_card, host)
+    print(f"imagenet 14a first batch {tuple(u8.shape)}: uint8 through "
+          f"pinned buffers equal to the loader's decode; normalised on the "
+          f"card vs the same on the CPU: exactly equal "
+          f"{torch.equal(on_card.cpu(), on_cpu)}, max |diff| {err_cpu:.3g}; "
+          f"vs the f32 loader's host-normalised batch: max |diff| "
+          f"{err_host:.3g} (bound {TOL_IMG_NORM}); the card's "
+          f"normalisation {norm_ms:.3f} ms a batch (fenced_ms, 20 calls) "
+          f"[{card}]", flush=True)
+    if not (err_cpu <= TOL_IMG_NORM and err_host <= TOL_IMG_NORM):
+        raise AssertionError("imagenet 14a: normalisations differ")
+    rel = float(np.max(np.abs(got["uint8"]["loss"] - got["f32"]["loss"])
+                       / np.abs(got["f32"]["loss"])))
+    print(f"imagenet 14a: first-step loss uint8 vs f32, max relative diff "
+          f"{rel:.3g} (tolerance {TOL_IMG_LOSS_REL}) [{card}]", flush=True)
+    if not rel <= TOL_IMG_LOSS_REL:
+        raise AssertionError("imagenet 14a: first-step losses differ")
+
+    # the profiled run's trace names the gossip kernels
+    trace = got["profiled"]["result"].get("profile_trace")
+    if not trace or not os.path.isfile(trace):
+        raise AssertionError(f"imagenet 14a: no profile trace ({trace})")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels)
+             for k in ("edge_start_kernel", "edge_wait_kernel")}
+    print(f"imagenet 14a profile: {os.path.basename(trace)}, "
+          f"{os.path.getsize(trace) / 1e6:.1f} MB, {len(events)} events, "
+          f"{len(kernels)} kernel launches, gossip kernels {named} "
+          f"[{card}]", flush=True)
+    if min(named.values()) < per_epoch:
+        raise AssertionError("imagenet 14a: the trace does not name the "
+                             f"gossip kernels: {named}")
+    return launches_total
+
+
+def _bilat_card_round(card: str) -> None:
+    """One averaging round on ResNet-50's world-4 parameters on the card,
+    applied to the live params, against the numpy round on the same
+    snapshot, bit for bit."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.models.convert import (
+        init_model_params)
+    from stochastic_gradient_push_torch.topology import (
+        DynamicBipartiteExponentialGraph, build_pairing_schedule)
+    from stochastic_gradient_push_torch.train.async_bilat import (
+        AsyncBilateralAverager)
+    from stochastic_gradient_push_torch.train.step import make_model
+
+    world = IMG_CLI["world"]
+    params, _ = init_model_params(make_model("resnet50", num_classes=1000), 0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    live = {n: t.cuda()[None] + 0.01 * torch.randn(
+        world, *t.shape, generator=g, device="cuda")
+        for n, t in params.items()}
+    snap = {n: t.cpu().numpy().copy() for n, t in live.items()}
+    av = AsyncBilateralAverager(build_pairing_schedule(
+        DynamicBipartiteExponentialGraph(world))).start()
+    try:
+        av.publish(7, live)
+        deadline = time.perf_counter() + 60
+        while av._rounds < 1:
+            if time.perf_counter() > deadline:
+                raise AssertionError("imagenet 14b: no averaging round")
+            time.sleep(0.005)
+        _, adopted = av.maybe_adopt(9, live)
+        torch.cuda.synchronize()
+    finally:
+        av.stop()
+    partner = av.pairing[0]
+    bad = [n for n, a in snap.items()
+           if not np.array_equal(live[n].cpu().numpy(),
+                                 a + (a[partner] - a) * np.float32(0.5))]
+    print(f"imagenet 14b: one averaging round on {len(snap)} ResNet-50 "
+          f"tensors ({sum(a[0].size for a in snap.values()):,} values a "
+          f"rank), snapshot through pinned buffers on a side stream, "
+          f"partners {partner.tolist()}, adopted on the card: "
+          f"{len(snap) - len(bad)} of {len(snap)} bit-equal to numpy's "
+          f"x + (x[partner] - x) * 0.5; {av.staleness_summary()} [{card}]",
+          flush=True)
+    if bad or not adopted:
+        raise AssertionError(f"imagenet 14b: round differs in {bad[:5]}")
+
+
+def image_bilat(card: str, root: str, tmp: str) -> None:
+    """14b: run/gossip_sgd_adpsgd.py --bilat_async True on the tree."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.run import gossip_sgd_adpsgd
+    from stochastic_gradient_push_torch.train import async_bilat
+
+    c = IMG_CLI
+    alive_at_stop = []
+    stop = async_bilat.AsyncBilateralAverager.stop
+
+    def watched_stop(self):
+        alive_at_stop.append(self.alive)
+        stop(self)
+
+    def run(label, *extra):
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        out = os.path.join(tmp, f"img_{label}")
+        t0 = time.perf_counter()
+        result = gossip_sgd_adpsgd.main(_img_argv(
+            root, out, "--num_epochs", str(c["epochs"]),
+            "--train_fast", "True", *extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(r[11]) for r in _csv_rows(out)]
+        bt, bt_std, _ = _csv_timing(out)
+        print(f"imagenet 14b {label}: {wall:.2f} s in main "
+              f"({c['epochs']} epochs of 2 steps, --train_fast); "
+              f"BT mean of {c['epochs']} steps {bt * 1e3:.0f} ms (std "
+              f"{bt_std * 1e3:.0f}), "
+              f"{c['world'] * c['batch'] / result['batch_meter'].avg:.1f} "
+              f"images/s; losses a step {losses}"
+              + (f"; staleness {result['async_bilat']}; thread alive at "
+                 f"stop {alive_at_stop}" if "async_bilat" in result else "")
+              + f" [{card}]", flush=True)
+        return result, losses, {n: fn.launches for n, fn in counters.items()}
+
+    # synchronous AD-PSGD beside it, for the step's time and losses
+    run("adpsgd sync")
+    async_bilat.AsyncBilateralAverager.stop = watched_stop
+    try:
+        result, losses, launches = run("bilat_async", "--bilat_async",
+                                       "True")
+    finally:
+        async_bilat.AsyncBilateralAverager.stop = stop
+    stats = result["async_bilat"]
+    if any(launches.values()):
+        raise AssertionError(f"imagenet 14b: gossip launches {launches}")
+    if stats["adoptions"] < 1 or not np.isfinite(losses).all() \
+            or alive_at_stop != [True]:
+        raise AssertionError(f"imagenet 14b: {stats}, losses {losses}, "
+                             f"alive at stop {alive_at_stop}")
+    _bilat_card_round(card)
+
+
+def image_path(card: str) -> dict:
+    """Phase 14: the reference's ImageNet command line on a JPEG tree
+    written here."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="img_", dir=os.path.join(ROOT, "build"))
+    try:
+        root = os.path.join(tmp, "tree")
+        _write_images(root)
+        print(f"imagenet: {IMAGES['classes']} classes of {IMAGES['train']} "
+              f"train and {IMAGES['val']} val JPEGs, {IMAGES['width']}x"
+              f"{IMAGES['height']} px, written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        launches = image_cli(card, root, tmp)
+        image_bilat(card, root, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"imagenet: phase 14 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3565,18 +4020,21 @@ def main() -> int:
     from stochastic_gradient_push_torch.train.lm import make_model
     dist_launches, dist_rows = dist_path(card, sum(
         p.numel() for p in make_model(_lm_config()).parameters()))
+    torch.cuda.empty_cache()
+    image_launches = image_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
     # D-PSGD and OSGP runs, phase 9's kernel-lane steps and CLI run,
     # phase 10's kernel-lane steps and CLI runs, phase 11's timed steps
     # and CLI run, phase 12's timed steps and CLI run, phase 13b's CLI
-    # processes) summed
+    # processes, phase 14a's three CLI runs) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
-            topo_launches, seq_launches, bf16_launches, dist_launches))
+            topo_launches, seq_launches, bf16_launches, dist_launches,
+            image_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

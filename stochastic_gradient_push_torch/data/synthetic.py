@@ -1,20 +1,18 @@
-"""Synthetic image classification data and the ImageNet normalization
-constants.
+"""Synthetic image classification data.
 
 A copy of ``synthetic_classification`` from ``stochastic_gradient_push_tpu/
 data/pipeline.py`` (numpy only): the same arguments give bit-identical
 arrays.  Images are NHWC, as the reference's loaders yield them.  The
-ImageNet channel mean and std are those of ``data/imagefolder.py`` there.
+ImageNet channel mean and std are re-exported from ``data/imagefolder.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_classification", "IMAGENET_MEAN", "IMAGENET_STD"]
+from .imagefolder import IMAGENET_MEAN, IMAGENET_STD
 
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+__all__ = ["synthetic_classification", "IMAGENET_MEAN", "IMAGENET_STD"]
 
 
 def synthetic_classification(n: int, num_classes: int = 10,

@@ -36,8 +36,21 @@ land in ``--checkpoint_dir``; ``--resume True`` continues from them.
 SIGUSR1 or SIGTERM makes the run save at the next step and exit 75.
 
 ``--model`` is one of ``resnet18/34/50/101/152``, ``tiny_cnn`` and
-``tiny_mlp``.  Only ``--dataset synthetic`` is ported: ImageFolder data
-(the default) needs files and a decoder that are not ported yet.
+``tiny_mlp``.  ``--dataset imagefolder`` (the default) streams
+``--dataset_dir``'s ``train`` and ``val`` splits (``root/split/class/
+*.jpg``) through ``data/streaming.py``: ``--num_dataloader_workers``
+PIL decode threads (``--data_backend auto`` and ``pil`` both mean PIL;
+``native``, the reference's libjpeg decoder, is not ported and is
+refused by name), ``--data_output uint8`` ships raw pixels that the step
+normalises on the card, and ``--prefetch True`` uploads the next batch
+from pinned memory on a side stream while the step runs
+(``data/prefetch.py``; one process only: under torchrun it warns and
+goes on without).  ``--dataset synthetic`` draws seeded images.
+``--heartbeat_timeout`` arms the step watchdog (0: off),
+``--profile_dir`` (with ``--profile_start_step``/``--profile_steps``)
+writes a ``torch.profiler`` Chrome trace of a window of steps, and
+``--checkpoint_all False`` keeps rank 0's checkpoint alone (every rank
+resumes from it; one process only).
 ``--wire_dtype int8 --error_feedback True`` carries error feedback,
 ``--inject_faults SPEC`` drills deterministic faults into the rounds,
 ``--health_every k`` prints ``gossip health:`` lines and
@@ -77,12 +90,8 @@ __all__ = ["build_parser", "parse_config", "build", "main", "UNPORTED"]
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
 UNPORTED = {
-    "--prefetch": ("False", str, "device prefetch"),
-    "--data_backend": ("auto", str, "ImageFolder decoding"),
     "--stem_s2d": ("False", str, "the space-to-depth ResNet stem"),
-    "--data_output": ("f32", str, "the ImageFolder loader's uint8 output"),
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
-    "--checkpoint_all": ("True", str, "rank-0-only checkpoints"),
     "--nprocs_per_node": (1, int, "intra-node averaging (a local mesh "
                                   "axis)"),
     "--scan_steps": (1, int, "fused multi-step programs"),
@@ -90,13 +99,9 @@ UNPORTED = {
     "--coordinator_address": (None, str, "multi-host runs"),
     "--num_processes": (None, int, "multi-host runs"),
     "--process_id": (None, int, "multi-host runs"),
-    "--heartbeat_timeout": (300, int, "the step watchdog"),
     "--ckpt_backend": ("msgpack", str, "the orbax checkpoint backend"),
     "--trace_dir": (None, str, "run telemetry"),
     "--metrics_every": (0, int, "run telemetry"),
-    "--profile_dir": (None, str, "profiling windows"),
-    "--profile_start_step": (None, int, "profiling windows"),
-    "--profile_steps": (None, int, "profiling windows"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
 }
@@ -238,6 +243,38 @@ def _resolve_plan(cfg, args, world: int, log) -> None:
     cfg.plan = plan.to_dict()
 
 
+def add_profile_flags(p: argparse.ArgumentParser) -> None:
+    """The profiling window's flags, with the reference's names and
+    defaults (``utils/profiling.py::ProfileWindow``)."""
+    p.add_argument("--profile_dir", default=None, type=str,
+                   help="write a torch.profiler Chrome trace (CPU and CUDA "
+                        "activities) of global steps [--profile_start_step, "
+                        "+--profile_steps) into this directory")
+    p.add_argument("--profile_start_step", default=None, type=int,
+                   help="first global step of the window (default 2: past "
+                        "the kernel builds and autotuning)")
+    p.add_argument("--profile_steps", default=None, type=int,
+                   help="steps in the window (default 3)")
+
+
+def resolve_profile_flags(args) -> None:
+    """Validate and default the profiling flags in place: window knobs
+    without a destination are a mistake."""
+    knobs_set = (args.profile_start_step is not None
+                 or args.profile_steps is not None)
+    if knobs_set and not args.profile_dir:
+        raise SystemExit("--profile_start_step/--profile_steps shape "
+                         "the capture window; they need --profile_dir")
+    if args.profile_start_step is None:
+        args.profile_start_step = 2
+    if args.profile_steps is None:
+        args.profile_steps = 3
+    if args.profile_start_step < 0:
+        raise SystemExit("--profile_start_step must be >= 0")
+    if args.profile_steps < 1:
+        raise SystemExit("--profile_steps must be >= 1")
+
+
 def build_parser() -> argparse.ArgumentParser:
     from ..ops.gossip_kernel import GOSSIP_KERNELS
     from ..topology import MIXING_STRATEGIES
@@ -249,8 +286,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", default=0.1, type=float,
                    help="reference lr for a 256-sample global batch")
     p.add_argument("--num_dataloader_workers", default=8, type=int,
-                   help="reported in the CSV header (synthetic data "
-                        "ignores it)")
+                   help="decode threads of the imagefolder streaming "
+                        "loader (synthetic data ignores it)")
+    p.add_argument("--prefetch", default="False", type=str,
+                   help="upload the next batch (pinned memory, a side "
+                        "stream) while the step runs (data/prefetch.py; "
+                        "one process only)")
+    p.add_argument("--data_backend", default="auto",
+                   choices=["auto", "native", "pil"],
+                   help="imagefolder decoding: auto and pil decode with "
+                        "PIL; native (the reference's libjpeg decoder) is "
+                        "not ported")
+    p.add_argument("--data_output", default="f32", choices=["f32", "uint8"],
+                   help="loader output: host-normalised float32, or raw "
+                        "uint8 pixels normalised on the card (a 4x smaller "
+                        "host-to-device copy)")
     p.add_argument("--num_epochs", default=90, type=int)
     p.add_argument("--num_iterations_per_training_epoch", default=None,
                    type=int, help="early exit for testing")
@@ -328,6 +378,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print_freq", default=10, type=int)
     p.add_argument("--verbose", default="True", type=str)
     p.add_argument("--train_fast", default="False", type=str)
+    p.add_argument("--checkpoint_all", default="True", type=str,
+                   help="False: rank 0's checkpoint alone, every rank "
+                        "resumes from it (one process only)")
     p.add_argument("--overwrite_checkpoints", default="True", type=str)
     p.add_argument("--master_port", default="40100", type=str,
                    help="accepted for compatibility; unused")
@@ -346,7 +399,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help=f"one of {', '.join(MODELS)}")
     p.add_argument("--dataset", default="imagefolder",
                    choices=["imagefolder", "synthetic"],
-                   help="only synthetic is ported")
+                   help="imagefolder streams --dataset_dir's train and val "
+                        "splits; synthetic draws seeded images")
     p.add_argument("--image_size", default=224, type=int)
     p.add_argument("--num_classes", default=1000, type=int)
     p.add_argument("--synthetic_samples", default=None, type=int)
@@ -360,6 +414,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the "
                         "kernels' plain twins)")
+    p.add_argument("--heartbeat_timeout", default=300, type=int,
+                   help="seconds a blocking step may take before the "
+                        "watchdog logs a stall (0 disables it)")
+    add_profile_flags(p)
     for flag, (default, typ, _) in UNPORTED.items():
         p.add_argument(flag, default=default, type=typ,
                        help=argparse.SUPPRESS)
@@ -379,11 +437,10 @@ def refuse_unported(args) -> None:
                 f"{flag} {value}: {feature} is not ported to "
                 f"stochastic_gradient_push_torch yet (a later slice; "
                 f"ROADMAP.md Queue 1)")
-    if args.dataset == "imagefolder":
-        raise SystemExit(
-            "--dataset imagefolder: ImageFolder data (a directory of JPEG "
-            "files and their decoding) is not ported to stochastic_"
-            "gradient_push_torch yet; use --dataset synthetic")
+    if args.data_backend == "native":
+        from ..data.streaming import NATIVE_REFUSAL
+
+        raise SystemExit(f"--data_backend native: {NATIVE_REFUSAL}")
     if args.model not in MODELS:
         raise SystemExit(f"unknown model {args.model}; one of {MODELS}")
 
@@ -424,6 +481,9 @@ def parse_config(argv=None):
 
     args = build_parser().parse_args(argv)
     refuse_unported(args)
+    resolve_profile_flags(args)
+    if args.heartbeat_timeout < 0:
+        raise SystemExit("--heartbeat_timeout must be >= 0 (0 disables)")
     lr_schedule = _parse_pair_schedule(args.schedule, float)
     ppi_schedule = _parse_pair_schedule(
         args.peers_per_itr_schedule or [0, 1], int)
@@ -520,6 +580,12 @@ def parse_config(argv=None):
         inject_faults=args.inject_faults,
         health_every=args.health_every,
         residual_floor=args.residual_floor,
+        prefetch=_str_bool(args.prefetch),
+        checkpoint_all=_str_bool(args.checkpoint_all),
+        heartbeat_timeout=args.heartbeat_timeout,
+        profile_dir=args.profile_dir,
+        profile_start_step=args.profile_start_step,
+        profile_steps=args.profile_steps,
     )
     return cfg, args
 
@@ -547,6 +613,34 @@ def _make_model(args, num_classes: int):
     return make_model(args.model, num_classes=num_classes, dtype=dtype)
 
 
+def _image_folders(args, cfg, world: int, held, log):
+    """``(loader, sampler, val_loader)`` streaming ``--dataset_dir``'s
+    ``train`` and ``val`` splits; the train loader owns ``set_epoch``
+    for both the sampling and the augmentation."""
+    from ..data.streaming import StreamingImageFolder
+
+    if not args.dataset_dir:
+        raise SystemExit("--dataset imagefolder: ImageFolder data needs "
+                         "--dataset_dir (DIR/train/<class>/*.jpg and "
+                         "DIR/val/<class>/*.jpg)")
+    workers = args.num_dataloader_workers or 8
+    common = dict(world_size=world, batch_size=cfg.batch_size,
+                  image_size=args.image_size, num_workers=workers,
+                  ranks=held, backend=args.data_backend,
+                  output=args.data_output)
+    loader = StreamingImageFolder(args.dataset_dir, "train", train=True,
+                                  seed=cfg.seed, **common)
+    val_loader = StreamingImageFolder(args.dataset_dir, "val", train=False,
+                                      **common)
+    log.info(f"imagefolder {args.dataset_dir}: {len(loader.dataset)} train "
+             f"and {len(val_loader.dataset)} val images, "
+             f"{len(loader.classes)} classes; decoding with PIL on "
+             f"{workers} threads (--data_backend {args.data_backend}: the "
+             f"native decoder is not ported), {args.data_output} output"
+             + (", device prefetch" if cfg.prefetch else ""))
+    return loader, loader, val_loader
+
+
 def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     """Everything a run needs, from a command line: ``cfg``, ``args``,
     the ``trainer`` (its cluster manager has installed the SIGUSR1 and
@@ -565,7 +659,7 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     from ..parallel.collectives import DistTransport, StackedTransport
     from ..parallel.discovery import discover
     from ..parallel.multihost import initialize_multihost, process_device
-    from ..train.loop import Trainer
+    from ..train.loop import Trainer, refuse_single_process_only
     from ..utils.checkpoint import CheckpointManager, ClusterManager
     from ..utils.logging import make_logger
 
@@ -581,6 +675,10 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     _resolve_plan(cfg, args, world, log)
     owns_group = False
     if spread:
+        try:
+            refuse_single_process_only(cfg)
+        except ValueError as e:
+            raise SystemExit(f"--{e}") from None
         device = process_device(args.device, info)
         owns_group = not torch.distributed.is_initialized()
         try:
@@ -595,22 +693,28 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
         ranks = list(range(world))
     model = _make_model(args, cfg.num_classes)
 
-    n = args.synthetic_samples or world * cfg.batch_size * 8
-    n_val = max(world * cfg.batch_size, n // 8)
-    # one draw, then split: train and val share class structure
-    images, labels = synthetic_classification(
-        n + n_val, num_classes=cfg.num_classes, image_size=args.image_size,
-        seed=cfg.seed)
     # this process's rank rows of the samplers the stacked lane reads
     held = ranks if spread else None
-    sampler = DistributedSampler(n, world)
-    loader = ShardedLoader(images[:n], labels[:n], cfg.batch_size, sampler,
-                           ranks=held)
-    val_loader = ShardedLoader(images[n:], labels[n:], cfg.batch_size,
-                               DistributedSampler(n_val, world), ranks=held)
+    if args.dataset == "imagefolder":
+        loader, sampler, val_loader = _image_folders(args, cfg, world, held,
+                                                     log)
+    else:
+        n = args.synthetic_samples or world * cfg.batch_size * 8
+        n_val = max(world * cfg.batch_size, n // 8)
+        # one draw, then split: train and val share class structure
+        images, labels = synthetic_classification(
+            n + n_val, num_classes=cfg.num_classes,
+            image_size=args.image_size, seed=cfg.seed)
+        sampler = DistributedSampler(n, world)
+        loader = ShardedLoader(images[:n], labels[:n], cfg.batch_size,
+                               sampler, ranks=held)
+        val_loader = ShardedLoader(images[n:], labels[n:], cfg.batch_size,
+                                   DistributedSampler(n_val, world),
+                                   ranks=held)
 
     ckpt = CheckpointManager(cfg.checkpoint_dir, tag=cfg.tag,
-                             world_size=world, ranks=ranks)
+                             world_size=world, ranks=ranks,
+                             all_workers=cfg.checkpoint_all)
     cluster = ClusterManager(ckpt, rank=ranks[0], requeue_command=(
         args.requeue_command or _default_requeue()))
     try:

@@ -8,9 +8,13 @@ partners per iteration (the ppi schedule) and the default graph is the
 bipartite exponential graph (``--graph_type 1``), as in the reference;
 every other flag goes to ``run/gossip_sgd.py``.
 
-``--bilat_async True`` (wall-clock asynchronous averaging on a host
-thread, ``train/async_bilat.py``) and its ``--bilat_async_interval`` are
-not ported and are refused by name.
+``--bilat_async True`` is the paper's asynchronous form: the step
+carries no communication and a host thread averages bilaterally off the
+step, its displacements adopted with a wall-clock staleness
+(``train/async_bilat.py``); ``--bilat_async_interval`` paces its rounds
+(seconds, 0 unpaced).  The staleness summary is logged at the end of the
+run and returned in the result (``async_bilat``).  It is single-process
+only, and refused under torchrun.
 """
 
 from __future__ import annotations
@@ -28,20 +32,20 @@ def main(argv=None):
     peel = argparse.ArgumentParser(add_help=False)
     peel.add_argument("--num_peers", default=1, type=int)
     peel.add_argument("--graph_type", default=1, type=int)
-    peel.add_argument("--bilat_async", default="False", type=str)
-    peel.add_argument("--bilat_async_interval", default=0.0, type=float)
+    peel.add_argument("--bilat_async", default="False", type=str,
+                      help="True: bilateral averaging on a host thread off "
+                           "the step (train/async_bilat.py), adopted with "
+                           "a wall-clock staleness")
+    peel.add_argument("--bilat_async_interval", default=0.0, type=float,
+                      help="least seconds between host averaging rounds "
+                           "(0 = unpaced); raising it widens staleness")
     known, rest = peel.parse_known_args(argv)
-    if _str_bool(known.bilat_async) or known.bilat_async_interval:
-        flag = ("--bilat_async" if _str_bool(known.bilat_async)
-                else "--bilat_async_interval")
-        raise SystemExit(
-            f"{flag}: wall-clock asynchronous AD-PSGD (train/"
-            "async_bilat.py) is not ported to stochastic_gradient_push_"
-            "torch yet (ROADMAP.md Queue 1 item 8)")
     forwarded = rest + ["--graph_type", str(known.graph_type)]
 
     def to_bilat(cfg, args):
         cfg.bilat = True
+        cfg.bilat_async = _str_bool(known.bilat_async)
+        cfg.bilat_async_interval = known.bilat_async_interval
         cfg.ppi_schedule = {0: known.num_peers}
         return cfg
 

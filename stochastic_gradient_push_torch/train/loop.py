@@ -40,6 +40,20 @@ recovery policy fire an exact global average above ``residual_floor``
 (``gossip recovery:`` lines, each with the planner's re-plan
 ``suggestion``); a checkpoint's meta carries the last health payload.
 
+Around the step (``train/loop.py:968-1095`` of the reference):
+``prefetch`` wraps the loader in ``data/prefetch.py::DevicePrefetcher``
+(one process only; under torchrun a warning, and no prefetch);
+``heartbeat_timeout`` arms ``utils/profiling.py::StepWatchdog`` around
+each warm step (the step and its metrics' read; 0 disables it);
+``profile_dir`` captures the global steps ``[profile_start_step,
++profile_steps)`` with ``torch.profiler`` (``ProfileWindow``, the trace
+path in the result as ``profile_trace``); ``bilat_async`` trains local
+SGD steps while ``train/async_bilat.py`` averages on a host thread: each
+step's params are published and a ready displacement adopted, and the
+staleness summary is logged and returned as ``async_bilat``.
+``bilat_async`` and ``checkpoint_all=False`` (rank 0's file alone, see
+``utils/checkpoint.py``) are single-process only.
+
 ``plan`` is the launch-time topology plan (``planner.Plan.to_dict()``,
 made by the CLI): its fabric model, wire stamp and synthesis stamp reach
 the recovery policy's re-plans, and every rank file's meta carries it.
@@ -51,6 +65,7 @@ none is silently ignored.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -70,6 +85,7 @@ from ..topology import build_pairing_schedule, build_schedule
 from ..utils.checkpoint import REQUEUE_EXIT_CODE, ClusterManager
 from ..utils.logging import make_logger
 from ..utils.meter import Meter
+from ..utils.profiling import ProfileWindow, StepWatchdog
 from .lr import CosineLRSchedule, LRSchedule, ppi_at_epoch
 from .state import sgd
 from .step import (build_eval_step, build_train_step, init_train_state,
@@ -161,23 +177,12 @@ class TrainerConfig:
 # the default raises, naming the feature
 UNPORTED = {
     "gossip_comm_dtype": (None, "the deprecated comm dtype alias"),
-    "bilat_async": (False, "wall-clock asynchronous AD-PSGD "
-                           "(train/async_bilat.py)"),
-    "bilat_async_interval": (0.0, "wall-clock asynchronous AD-PSGD "
-                                  "(train/async_bilat.py)"),
     "trace_dir": (None, "run telemetry"),
     "metrics_every": (0, "run telemetry"),
-    "profile_dir": (None, "profiling windows"),
-    "profile_start_step": (2, "profiling windows"),
-    "profile_steps": (3, "profiling windows"),
-    "checkpoint_all": (True, "rank-0-only checkpoints"),
     "fleet": (False, "fleet supervision"),
     "host_id": (None, "fleet supervision"),
     "nprocs_per_node": (1, "intra-node averaging (a local mesh axis)"),
     "scan_steps": (1, "fused multi-step programs (scan_steps > 1)"),
-    "prefetch": (False, "device prefetch"),
-    "prefetch_depth": (2, "device prefetch"),
-    "heartbeat_timeout": (300, "the step watchdog"),
 }
 
 
@@ -194,6 +199,30 @@ def _refuse_unported(cfg: TrainerConfig, transport) -> None:
             f"a {type(transport).__name__}: the trainer runs a multi-process "
             "world on collectives.DistTransport (one rank per process) and "
             "a single process on collectives.StackedTransport")
+    if len(transport.ranks) < transport.world_size:
+        refuse_single_process_only(cfg)
+
+
+# TrainerConfig fields a run of one rank per process refuses:
+# (default, why), as the reference refuses them
+SINGLE_PROCESS_ONLY = {
+    "bilat_async": (False, "the averaging runs on one host thread over "
+                           "every rank's params (see train/async_bilat.py)"),
+    "checkpoint_all": (True, "with one rank per process each process "
+                             "writes its own rank's checkpoint file"),
+}
+
+
+def refuse_single_process_only(cfg: TrainerConfig) -> None:
+    """Raise ``ValueError`` (``"<field> <value> is single-process only:
+    ..."``) for the first field of ``SINGLE_PROCESS_ONLY`` ``cfg`` sets;
+    the Trainer calls it for a world spread over processes, and the CLIs
+    before they start the process group."""
+    for field, (default, why) in SINGLE_PROCESS_ONLY.items():
+        value = getattr(cfg, field)
+        if value != default:
+            raise ValueError(f"{field} {value} is single-process only: "
+                             f"{why}")
 
 
 class Trainer:
@@ -242,7 +271,8 @@ class Trainer:
             self.monitor = HealthMonitor(
                 health_every=config.health_every,
                 residual_floor=config.residual_floor, log=self.log)
-            if not (config.all_reduce or config.bilat):
+            if not (config.all_reduce or config.bilat
+                    or config.bilat_async):
                 # overlap runs recover too: the average folds the
                 # in-flight FIFO into Σx/Σw and drains it
                 from ..topology import topology_name
@@ -265,6 +295,22 @@ class Trainer:
                     synth=(config.plan.get("synth")
                            if config.plan else None))
         self._logged_faults = False
+        # a heartbeat around each warm blocking step (the reference's
+        # 300 s gossip flag timeout): a hung kernel, read or peer shows
+        # up as a step that does not end
+        self.watchdog = (StepWatchdog(timeout=config.heartbeat_timeout,
+                                      rank=transport.ranks[0])
+                         if config.heartbeat_timeout > 0 else None)
+        # the step calls of each step variant: the first two carry the
+        # builds and autotuning, and the watchdog is armed after them
+        self._warm_counts: dict = {}
+        self.profile = ProfileWindow(config.profile_dir,
+                                     start_step=config.profile_start_step,
+                                     num_steps=config.profile_steps,
+                                     device=self.device,
+                                     rank=transport.ranks[0])
+        self._async_bilat = None  # built per fit with bilat_async
+        self._warned_prefetch = False
         # rank 0's process writes the CSVs, from every rank's metrics
         self._csv_ranks = ((tuple(range(self.world_size))
                             if config.per_rank_csv else (0,))
@@ -272,6 +318,13 @@ class Trainer:
         self._fname = lambda r: os.path.join(
             config.checkpoint_dir,
             f"{config.tag}out_r{r}_n{self.world_size}.csv")
+
+    def _on_device(self, a) -> torch.Tensor:
+        """A loader's batch array (numpy, or a tensor from the
+        prefetcher) on the trainer's device."""
+        if isinstance(a, np.ndarray):
+            a = torch.from_numpy(a)
+        return a.to(self.device)
 
     def _any_process(self, flag: bool) -> bool:
         """Whether ``flag`` holds in any process (a collective)."""
@@ -313,26 +366,31 @@ class Trainer:
     def make_algorithm(self, ppi: int) -> GossipAlgorithm:
         cfg = self.cfg
         codec = get_codec(cfg.wire_dtype, cfg.wire_block)
+        bilat = cfg.bilat or cfg.bilat_async
         if codec is not None and codec.lossy \
-                and (cfg.all_reduce or cfg.bilat or not cfg.push_sum):
+                and (cfg.all_reduce or bilat or not cfg.push_sum):
             raise ValueError(
                 "wire compression (wire_dtype / the deprecated "
                 "gossip_comm_dtype) applies to the push-sum family only")
-        if cfg.error_feedback and (cfg.all_reduce or cfg.bilat
+        if cfg.error_feedback and (cfg.all_reduce or bilat
                                    or not cfg.push_sum):
             raise ValueError(
                 "error_feedback rides the push-sum gossip wire; "
                 "all_reduce/bilateral/D-PSGD modes have none")
-        if cfg.global_avg_every and (cfg.all_reduce or cfg.bilat):
+        if cfg.global_avg_every and (cfg.all_reduce or bilat):
             raise ValueError(
                 "global_avg_every applies to the push-sum/D-PSGD gossip "
                 "family (all_reduce is already exact every step)")
-        if cfg.inject_faults and (cfg.all_reduce or cfg.bilat):
+        if cfg.inject_faults and (cfg.all_reduce or bilat):
             raise ValueError(
                 "inject_faults breaks gossip edges; all_reduce/bilateral "
                 "modes have none (use push-sum gossip)")
         if cfg.all_reduce:
             return all_reduce(self.transport)
+        if cfg.bilat_async:
+            # no communication in the step: the bilateral averaging runs
+            # on a host thread (train/async_bilat.py); local SGD here
+            return GossipAlgorithm()
         graph = cfg.graph_class(self.world_size, peers_per_itr=ppi)
         if cfg.bilat:
             return adpsgd(build_pairing_schedule(graph), self.transport)
@@ -489,19 +547,41 @@ class Trainer:
             self.log.info(f"resumed from epoch {start_epoch} itr {start_itr}")
 
         begin_time = time.time() - elapsed
-        state, best_prec1, final_prec1 = self._fit_epochs(
-            state, train_loader, sampler, val_loader, itr_per_epoch,
-            meters, start_epoch, start_itr, best_prec1, begin_time)
-        if cfg.train_fast and val_loader is not None:
-            alg = self._train_fn(
-                ppi_at_epoch(cfg.ppi_schedule, cfg.num_epochs - 1)
-                if not cfg.all_reduce else 1, itr_per_epoch)[0]
-            final_prec1 = self.validate(state, alg, val_loader)
-            self.log.info(f"Test accuracy: {final_prec1}")
+        if cfg.bilat_async:
+            if cfg.graph_class is None:
+                raise ValueError("bilat_async needs a graph_class for "
+                                 "the matching schedule")
+            from .async_bilat import AsyncBilateralAverager
+
+            graph = cfg.graph_class(self.world_size, peers_per_itr=1)
+            self._async_bilat = AsyncBilateralAverager(
+                build_pairing_schedule(graph),
+                min_interval_s=cfg.bilat_async_interval).start()
+        try:
+            state, best_prec1, final_prec1 = self._fit_epochs(
+                state, train_loader, sampler, val_loader, itr_per_epoch,
+                meters, start_epoch, start_itr, best_prec1, begin_time)
+            if cfg.train_fast and val_loader is not None:
+                alg = self._train_fn(
+                    ppi_at_epoch(cfg.ppi_schedule, cfg.num_epochs - 1)
+                    if not cfg.all_reduce else 1, itr_per_epoch)[0]
+                final_prec1 = self.validate(state, alg, val_loader)
+                self.log.info(f"Test accuracy: {final_prec1}")
+        finally:
+            if self._async_bilat is not None:
+                self._async_bilat.stop()
+                self.log.info("async bilateral staleness: "
+                              f"{self._async_bilat.staleness_summary()}")
+            # a run that ended inside the window still writes its trace
+            self.profile.close()
         result = {"best_prec1": float(best_prec1),
                   "final_prec1": float(final_prec1),
                   "elapsed_time": time.time() - begin_time,
                   "batch_meter": meters[0]}
+        if self._async_bilat is not None:
+            result["async_bilat"] = self._async_bilat.staleness_summary()
+        if self.profile.trace_path is not None:
+            result["profile_trace"] = self.profile.trace_path
         return state, result
 
     def _fit_epochs(self, state, train_loader, sampler, val_loader,
@@ -594,6 +674,16 @@ class Trainer:
         cap = None if cap in (None, -1) else cap
         if start_itr:
             loader.fast_forward(start_itr)
+        if cfg.prefetch:
+            if not self.spread:
+                from ..data.prefetch import DevicePrefetcher
+
+                loader = DevicePrefetcher(loader, self.device,
+                                          depth=cfg.prefetch_depth)
+            elif not self._warned_prefetch:
+                self.log.warning("prefetch supports single-process runs "
+                                 "only; continuing without it")
+                self._warned_prefetch = True
         alg, train_fn = self._train_fn(ppi, itr_per_epoch)
 
         it = iter(loader)
@@ -605,21 +695,40 @@ class Trainer:
             except StopIteration:
                 break
             n = self.world_size * x.shape[1]
-            x = torch.from_numpy(x).to(self.device)
-            y = torch.from_numpy(y).to(self.device)
+            x, y = self._on_device(x), self._on_device(y)
             elapsed_data = time.time() - batch_time
             nn_time = time.time()
-            state, metrics = train_fn(state, x, y)
-            # the device-to-host read ends the step's window on finished
-            # work; every rank's row in one read, gathered across
-            # processes, with this process's preemption flag beside it
-            keys = ("loss", "top1", "top5", "grad_norm")
-            row = [metrics[k] for k in keys]
-            if self.spread:
-                row.append(torch.full_like(row[0], float(
-                    self.cluster is not None
-                    and self.cluster.local_signalled())))
-            rows = to_host(torch.stack(row, -1), self.transport)
+            gstep = epoch * itr_per_epoch + i + 1
+            warm_key = (ppi, itr_per_epoch, tuple(x.shape), x.dtype)
+            warm = self._warm_counts.get(warm_key, 0) >= 2
+            self._warm_counts[warm_key] = self._warm_counts.get(
+                warm_key, 0) + 1
+            # the heartbeat is armed on warm steps only: a variant's first
+            # calls build kernels and tune convolutions
+            guard = (self.watchdog.step()
+                     if self.watchdog is not None and warm
+                     else contextlib.nullcontext())
+            self.profile.maybe_start(gstep)
+            with guard:
+                state, metrics = train_fn(state, x, y)
+                if self._async_bilat is not None:
+                    # wall-clock AD-PSGD: the thread gets this step's
+                    # params (a clone queued after the step) and the step
+                    # takes whatever displacement it has ready
+                    self._async_bilat.publish(gstep, state.params)
+                    self._async_bilat.maybe_adopt(gstep, state.params)
+                # the device-to-host read ends the step's window on
+                # finished work; every rank's row in one read, gathered
+                # across processes, with this process's preemption flag
+                # beside it
+                keys = ("loss", "top1", "top5", "grad_norm")
+                row = [metrics[k] for k in keys]
+                if self.spread:
+                    row.append(torch.full_like(row[0], float(
+                        self.cluster is not None
+                        and self.cluster.local_signalled())))
+                rows = to_host(torch.stack(row, -1), self.transport)
+            self.profile.maybe_stop(gstep)
             host = {k: rows[:, j] for j, k in enumerate(keys)}
             signalled = self.spread and bool(rows[:, -1].max())
             # a cross-process gossip wait that gave up raises here
@@ -706,8 +815,7 @@ class Trainer:
         n_batches, n_samples = 0, 0
         for x, y in val_loader:
             n = self.world_size * x.shape[1]
-            m = self._eval_fn(state, torch.from_numpy(x).to(self.device),
-                              torch.from_numpy(y).to(self.device))
+            m = self._eval_fn(state, self._on_device(x), self._on_device(y))
             m = {k: to_host(v, self.transport) for k, v in m.items()}
             losses.update(float(np.mean(m["loss"])), n)
             top1.update(float(np.mean(m["top1"])), n)

@@ -37,11 +37,12 @@ from __future__ import annotations
 
 import typing as tp
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from ..algorithms.api import GossipAlgorithm
-from ..data.synthetic import IMAGENET_MEAN, IMAGENET_STD
+from ..data.imagefolder import IMAGENET_MEAN, IMAGENET_STD
 from ..models.convert import init_model_params, reference_layout
 from ..models.resnet import RESNETS
 from ..models.small import TinyCNN, TinyMLP
@@ -63,13 +64,19 @@ def make_model(name: str, **kwargs) -> torch.nn.Module:
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
-    """uint8 NHWC batches to ImageNet-normalized float32 on the device
-    (``(x / 255 - mean) / std``); float batches pass through."""
+    """uint8 NHWC batches to ImageNet-normalized float32 on the device;
+    float batches pass through.  The reference's ``(x / 255 - mean) /
+    std`` in the form XLA compiles it to: the divisions become
+    multiplies by the float32 reciprocals, and the first multiply and
+    the subtraction one fused multiply-add, ``fma(x, f32(1/255), -mean)
+    * f32(1/std)`` (``torch.addcmul``, one rounding)."""
     if images.dtype != torch.uint8:
         return images
-    mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
-    std = torch.as_tensor(IMAGENET_STD, device=images.device)
-    return (images.float() / 255.0 - mean) / std
+    dev = images.device
+    neg_mean = torch.as_tensor(-IMAGENET_MEAN, device=dev)
+    inv_std = torch.as_tensor(np.float32(1) / IMAGENET_STD, device=dev)
+    scale = torch.tensor(np.float32(1 / 255), device=dev)
+    return torch.addcmul(neg_mean, images.float(), scale) * inv_std
 
 
 def _refuse(local_axis) -> None:

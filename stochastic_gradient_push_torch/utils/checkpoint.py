@@ -26,6 +26,11 @@ checkpoint.py``, with the port's own file format:
   checkpoints); at the next step boundary the trainer saves and exits
   with :data:`REQUEUE_EXIT_CODE`, after an optional requeue command.
 
+``all_workers=False`` (the CLI's ``--checkpoint_all False``) keeps
+rank 0's file alone, the original's rank-0-only checkpoint: rank 0's
+row is saved, and a resume starts every rank from it.  It needs every
+rank in this process (the stacked lane).
+
 A checkpoint set of another world size is found (``discover_worlds``)
 but not resharded: cross-world resume (``supervise/reshard.py``) is not
 ported, and the trainer refuses it by name.
@@ -93,15 +98,21 @@ def _stack(template: dict, rows: list[dict], what: str) -> dict:
 
 class CheckpointManager:
     """Save and restore the rank rows ``ranks`` of a rank-stacked train
-    state (row ``j`` is rank ``ranks[j]``), one file per rank."""
+    state (row ``j`` is rank ``ranks[j]``), one file per rank, or rank
+    0's file alone with ``all_workers=False``."""
 
     def __init__(self, directory: str, tag: str = "", world_size: int = 1,
-                 ranks=(0,)):
+                 ranks=(0,), all_workers: bool = True):
         self.directory = directory
         self.tag = tag
         self.world_size = int(world_size)
         self.ranks = [int(r) for r in ranks]
+        self.all_workers = bool(all_workers)
         os.makedirs(directory, exist_ok=True)
+
+    def _sources(self) -> list[int]:
+        """The rank file each held rank is saved to and restored from."""
+        return self.ranks if self.all_workers else [0] * len(self.ranks)
 
     def path(self, rank: int, epoch_id: int | None = None) -> str:
         """Rank ``rank``'s file, ``ep{epoch_id}_`` prefixed when given."""
@@ -120,6 +131,8 @@ class CheckpointManager:
         meta_text = json.dumps(meta, default=float)
         written = []
         for j, rank in enumerate(self.ranks):
+            if not self.all_workers and rank != 0:
+                continue
             path = self.path(rank, epoch_id)
             tmp = path + ".tmp"
             torch.save({"state": _row(state, j), "meta": meta_text}, tmp)
@@ -133,7 +146,7 @@ class CheckpointManager:
         return written
 
     def exists(self) -> bool:
-        return all(os.path.isfile(self.path(r)) for r in self.ranks)
+        return all(os.path.isfile(self.path(r)) for r in self._sources())
 
     def discover_worlds(self) -> list[int]:
         """World sizes of other checkpoint sets in this directory (any
@@ -148,8 +161,10 @@ class CheckpointManager:
     def restore(self, template) -> tuple[object, dict]:
         """The saved rows stacked into ``template``'s structure (a train
         state of the same run configuration), and the meta."""
-        blobs = [torch.load(self.path(r), map_location="cpu",
-                            weights_only=True) for r in self.ranks]
+        files = {r: torch.load(self.path(r), map_location="cpu",
+                               weights_only=True)
+                 for r in set(self._sources())}
+        blobs = [files[r] for r in self._sources()]
         rows = [b["state"] for b in blobs]
         if len({(r["step"], r["gossip"]["phase"]) for r in rows}) != 1:
             raise ValueError("rank files disagree on the step or the "

@@ -10,8 +10,10 @@ gossip_sgd`` and ``run.gossip_sgd_adpsgd``) on the CPU.
   ``python -m``.
 * The reference's flag surface: every flag of its parser, with its
   default; every flag of a feature not ported refused by name (one
-  parametrised test), as is ``--dataset imagefolder``, graph 6,
-  ``--bilat_async``, and every unported ``TrainerConfig`` field.
+  parametrised test), as is graph 6 and every unported
+  ``TrainerConfig`` field; ``--dataset imagefolder`` without
+  ``--dataset_dir`` is refused (the image-folder runs themselves are
+  ``tests/test_torch_imagefolder_cli.py``).
 * ``--gossip_kernel pallas`` on the CPU raises ``KernelBackendError``
   naming the flag; with no ``--device`` the CLI runs on CUDA or raises
   ``DeviceUnavailableError``.
@@ -147,15 +149,12 @@ def test_reference_flags_parse_with_reference_defaults():
 
 # one value per unported flag, each away from its default
 UNPORTED_VALUES = {
-    "--prefetch": "True", "--data_backend": "pil", "--stem_s2d": "True",
-    "--data_output": "uint8", "--gossip_comm_dtype": "bf16", "--checkpoint_all": "False",
+    "--stem_s2d": "True", "--gossip_comm_dtype": "bf16",
     "--nprocs_per_node": "2", "--scan_steps": "2", "--multihost": "True",
     "--coordinator_address": "localhost:1", "--num_processes": "2",
-    "--process_id": "1", "--heartbeat_timeout": "60",
-    "--ckpt_backend": "orbax", "--trace_dir": "/nonexistent",
-    "--metrics_every": "5", "--profile_dir": "/nonexistent",
-    "--profile_start_step": "1", "--profile_steps": "1", "--fleet": "True",
-    "--host_id": "0",
+    "--process_id": "1", "--ckpt_backend": "orbax",
+    "--trace_dir": "/nonexistent", "--metrics_every": "5",
+    "--fleet": "True", "--host_id": "0",
 }
 
 
@@ -261,14 +260,6 @@ def test_flags_are_validated(tmp_path, argv, match):
         return
     with pytest.raises(SystemExit, match=match):
         gossip_sgd.main(argv)
-
-
-@pytest.mark.parametrize("flag", ["--bilat_async", "--bilat_async_interval"])
-def test_async_adpsgd_is_refused_by_name(tmp_path, flag):
-    value = "True" if flag == "--bilat_async" else "0.5"
-    with pytest.raises(SystemExit, match=flag):
-        gossip_sgd_adpsgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
-                                        flag, value])
 
 
 @pytest.mark.parametrize("field,value,extra", [

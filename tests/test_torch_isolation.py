@@ -99,6 +99,11 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.utils.logging",
                 "stochastic_gradient_push_torch.utils.meter",
                 "stochastic_gradient_push_torch.data.pipeline",
+                "stochastic_gradient_push_torch.data.imagefolder",
+                "stochastic_gradient_push_torch.data.streaming",
+                "stochastic_gradient_push_torch.data.prefetch",
+                "stochastic_gradient_push_torch.train.async_bilat",
+                "stochastic_gradient_push_torch.utils.profiling",
                 "stochastic_gradient_push_torch.topology.schedule",
                 "stochastic_gradient_push_torch.resilience.faults",
                 "stochastic_gradient_push_torch.resilience.monitor",
