@@ -249,7 +249,27 @@
      round on ResNet-50's world-4 parameters on the card (snapshot through
      pinned buffers on a side stream, adoption in place) bit-equal to the
      numpy round on the same snapshot.
-15. A JSON line of per-kernel results (the fp32 flash rows also carry
+15. The LM command line's harness (``run/gossip_lm.py``) at the LM's
+   full width, bf16, world 2 stacked, SGP on K2/K1, flash attention,
+   T1024 B4 a rank, each run in process with the counters zeroed just
+   before (one bf16 K3, K4 and K5 a layer a rank and one K2 and one K1
+   a step asserted), a temporary ``--checkpoint_dir``, and the seconds of
+   its init, steps, eval batches, saves and restores (with GB) printed:
+   - 15a: on an ``.npy`` token file over the vocabulary (``--corpus_file``),
+     4 steps with ``--ckpt_every 2`` twice (the rank files' and CSV
+     losses' spread between two identical runs: determinism), then 2
+     steps and a ``--resume True`` to 4, within that spread of the
+     straight run;
+   - 15b-15d: ``--corpus_file`` on the repository's own ``*.md`` text as
+     bytes (vocab 256) with ``--val_frac 0.1 --val_every 2``, 12 steps
+     in a subprocess, SIGUSR1 once its first CSV row is out: exit 75,
+     both rank files at the CSV's last step; a resume in process to 12,
+     its rows running on without a gap, validation rows at the cadence
+     and at the end, K3 launched once more a layer a rank for every
+     validation batch and K4/K5 not, validation's share of the run's
+     time; then the eval step on the saved state on the card, kernels
+     against plain twins, losses within 2e-3 relative.
+16. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -338,6 +358,17 @@ HEAD_DIM = 64
 # 11's, 12c the CLI at world 4 (phase 6's shape)
 BF16_STEPS = 6
 BF16_CLI = dict(world=4, seq_len=1024, batch=8, steps=4)
+# phase 15: run/gossip_lm.py at the LM's width, bf16, world 2 stacked,
+# SGP on K2/K1, flash attention, T1024 B4 a rank; 15a's corpus is a token
+# file four steps' batches long, so its resume skips batches; 15b-15d run
+# 12 steps on the repository's text, validated every 2, in a subprocess
+# until SIGUSR1, then resumed in process
+HARNESS = dict(world=2, seq_len=1024, batch=4, steps=4, preempt_steps=12,
+               corpus=2 * 4 * 1024 * 4 + 1, val_frac=0.1, val_every=2,
+               val_batches=2)
+# the eval step's bf16 loss, kernels against plain twins (relative; the
+# LM step parity tests' bf16 loss tolerance, tests/torch_lm_drive.py)
+TOL_HARNESS_LOSS_REL = 2e-3
 
 
 def _run(cmd) -> str:
@@ -2605,10 +2636,17 @@ def seq_cli(card: str) -> dict:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
+    # the run's CSV and its final checkpoint (a file a replica)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="seq_cli_", dir=os.path.join(ROOT,
+                                                               "build"))
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        result = gossip_lm.main(argv)
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = gossip_lm.main(argv + ["--checkpoint_dir", ckpt])
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     lines = out.getvalue().splitlines()
@@ -2617,10 +2655,10 @@ def seq_cli(card: str) -> dict:
             print(f"seq 11c cli: {line}", flush=True)
     rows = [r.split(",") for r in lines[lines.index(
         "step,loss,ppl,lr,tokens_per_sec,grad_norm") + 1:]
-        if r[:1].isdigit()]
+        if r.split(",")[0].isdigit()]
     print(f"seq 11c cli: {wall:.2f} s in main, tokens/s "
           f"{result['tokens_per_sec']:.1f} over the run (the first step's "
-          f"warm-up included), peak memory "
+          f"warm-up and the final save included), peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
           f"{json.dumps(launches)} [{card}]", flush=True)
     if [r[0] for r in rows] != [str(i + 1) for i in range(n)] or not all(
@@ -3054,10 +3092,17 @@ def bf16_cli(card: str) -> dict:
     for c in counters.values():
         c.launches = 0
     out = io.StringIO()
+    # the run's CSV and its final checkpoint (a file a rank)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="bf16_cli_", dir=os.path.join(ROOT,
+                                                                "build"))
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        result = gossip_lm.main(argv)
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = gossip_lm.main(argv + ["--checkpoint_dir", ckpt])
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     lines = out.getvalue().splitlines()
@@ -3066,10 +3111,11 @@ def bf16_cli(card: str) -> dict:
             print(f"bf16 12c cli: {line}", flush=True)
     rows = [r.split(",") for r in lines[lines.index(
         "step,loss,ppl,lr,tokens_per_sec,grad_norm") + 1:]
-        if r[:1].isdigit()]
+        if r.split(",")[0].isdigit()]
     print(f"bf16 12c cli: {wall:.2f} s in main, tokens/s "
           f"{result['tokens_per_sec']:.1f} over the run (the first step's "
-          f"warm-up included); launches {json.dumps(launches)} [{card}]",
+          f"warm-up and the final save included); launches "
+          f"{json.dumps(launches)} [{card}]",
           flush=True)
     if "precision bf16;" not in out.getvalue() or [r[0] for r in rows] != [
             str(i + 1) for i in range(n)] or not all(
@@ -3962,6 +4008,409 @@ def image_path(card: str) -> dict:
     return launches
 
 
+# -- phase 15: the LM command line's harness --------------------------------
+
+
+class _HarnessClock:
+    """Inside a ``with``: the seconds of the LM CLI's model init, of each
+    train step and eval step (the device drained before and after), and
+    the seconds and bytes of every checkpoint save and restore
+    (``CheckpointManager``, the device drained first, so the clock holds
+    the copies to and from the host and the files)."""
+
+    def __enter__(self):
+        import torch
+
+        from stochastic_gradient_push_torch.train import lm
+        from stochastic_gradient_push_torch.utils import checkpoint
+
+        self.init, self.steps, self.evals = [], [], []
+        self.saves, self.restores = [], []
+
+        def timed(fn, into):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        cls = checkpoint.CheckpointManager
+        save, restore = cls.save, cls.restore
+
+        def timed_save(mgr, state, meta, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths = save(mgr, state, meta, **kw)
+            self.saves.append((time.perf_counter() - t0,
+                               sum(os.path.getsize(p) for p in paths)))
+            return paths
+
+        def timed_restore(mgr, template):
+            out = timed(restore, self.restores)(mgr, template)
+            self.restores[-1] = (self.restores[-1], sum(
+                os.path.getsize(mgr.path(r)) for r in mgr.ranks))
+            return out
+
+        self.real = [(lm, "init_lm_state", lm.init_lm_state),
+                     (lm, "build_lm_train_step", lm.build_lm_train_step),
+                     (lm, "build_lm_eval_step", lm.build_lm_eval_step),
+                     (cls, "save", save), (cls, "restore", restore)]
+        lm.init_lm_state = timed(lm.init_lm_state, self.init)
+        build_train, build_eval = lm.build_lm_train_step, lm.build_lm_eval_step
+        lm.build_lm_train_step = lambda *a, **k: timed(build_train(*a, **k),
+                                                       self.steps)
+        lm.build_lm_eval_step = lambda *a, **k: timed(build_eval(*a, **k),
+                                                      self.evals)
+        cls.save, cls.restore = timed_save, timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.real:
+            setattr(owner, name, fn)
+
+    def summary(self, wall: float) -> str:
+        io_s = [t for t, _ in self.saves + self.restores]
+        rest = wall - sum(self.init + self.steps + self.evals + io_s)
+        out = [f"init {sum(self.init):.2f} s",
+               f"{len(self.steps)} steps {sum(self.steps):.2f} s (first "
+               f"{self.steps[0] if self.steps else 0:.3f}, median "
+               f"{statistics.median(self.steps) if self.steps else 0:.3f})"]
+        if self.evals:
+            out.append(f"{len(self.evals)} eval batches "
+                       f"{sum(self.evals):.2f} s")
+        out += [f"{what} {t:.2f} s for {n / 1e9:.2f} GB"
+                for what, rows in (("save", self.saves),
+                                   ("restore", self.restores))
+                for t, n in rows]
+        return ", ".join(out) + f", the rest {rest:.2f} s"
+
+
+def _harness_argv(ckpt: str, *extra: str, vocab: int = 32000) -> list[str]:
+    c = HARNESS
+    return ["--precision", "bf16", "--world_size", str(c["world"]),
+            "--gossip_kernel", "pallas", "--attn", "flash", "--vocab_size",
+            str(vocab), "--d_model", "768", "--n_layers", "12", "--n_heads",
+            "12", "--d_ff", "3072", "--seq_len", str(c["seq_len"]),
+            "--batch_size", str(c["batch"]), "--print_freq", "1", "--seed",
+            "0", "--checkpoint_dir", ckpt, *extra]
+
+
+def _harness_run(label: str, argv, card: str):
+    """One in-process run of ``run/gossip_lm.py`` with every counter
+    zeroed just before: ``(result, launches, stdout lines, wall s,
+    clock)``, the clock a :class:`_HarnessClock`."""
+    import contextlib
+    import io
+
+    import torch
+
+    from stochastic_gradient_push_torch.run import gossip_lm
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    with _HarnessClock() as clock:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = gossip_lm.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"harness {label}: {wall:.2f} s in main: {clock.summary(wall)}; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}"
+          f" [{card}]", flush=True)
+    return result, launches, out.getvalue().splitlines(), wall, clock
+
+
+def _harness_want(train_steps: int, eval_forwards: int = 0) -> dict:
+    """The launches of ``train_steps`` steps at world HARNESS["world"]
+    (12 layers a rank: one bf16 K3, K4 and K5 each; one K2 and one K1 a
+    step) and of ``eval_forwards`` validation batches (K3 alone)."""
+    w = HARNESS["world"] * 12
+    want = {name: 0 for name in _counters()}
+    want.update(dict.fromkeys(FLASH_BF16, w * train_steps))
+    want["flash_fwd_bf16"] += w * eval_forwards
+    want["gossip_edge_start"] = want["gossip_edge_wait"] = train_steps
+    return want
+
+
+def _harness_files(ckpt: str) -> dict:
+    """``{(file, tensor path): tensor}`` over the directory's rank
+    files, and ``{file: meta}``."""
+    import torch
+
+    tensors, metas = {}, {}
+    for name in sorted(os.listdir(ckpt)):
+        if name.endswith(".ckpt"):
+            blob = torch.load(os.path.join(ckpt, name), weights_only=True)
+            metas[name] = json.loads(blob["meta"])
+            for k, t in _flat(blob["state"]).items():
+                tensors[(name, k)] = t
+    return tensors, metas
+
+
+def _harness_losses(ckpt: str) -> list[float]:
+    with open(os.path.join(ckpt, f"lm_out_n{HARNESS['world']}.csv")) as f:
+        return [float(r.split(",")[1]) for r in f.read().splitlines()[1:]]
+
+
+def _harness_spread(a: str, b: str) -> tuple[float, float]:
+    """The largest |difference| between two directories' rank files
+    (same files, same tensors, same metas, else it raises) and between
+    their CSV losses."""
+    ta, ma = _harness_files(a)
+    tb, mb = _harness_files(b)
+    if ma != mb or sorted(ta) != sorted(tb) or not ma:
+        raise AssertionError(f"harness: rank files differ in kind: {ma} "
+                             f"vs {mb}")
+    params = max(float((ta[k].double() - tb[k].double()).abs().max())
+                 if ta[k].numel() else 0.0 for k in ta)
+    la, lb = _harness_losses(a), _harness_losses(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"harness: CSV rows {la} vs {lb}")
+    return params, max(abs(x - y) for x, y in zip(la, lb))
+
+
+def harness_resume(card: str, tmp: str) -> dict:
+    """15a: N steps with ``--ckpt_every N/2``, twice (the determinism
+    spread), against N/2 steps and a ``--resume True`` to N: rank files
+    and CSV losses equal, or within the spread of the two straight
+    runs."""
+    import numpy as np
+
+    n = HARNESS["steps"]
+    # a token file over the whole vocabulary, n steps' batches long (the
+    # synthetic corpus would first draw a 32000 x 32000 table)
+    corpus = os.path.join(tmp, "tokens.npy")
+    np.save(corpus, np.random.default_rng(0).integers(
+        0, 32000, HARNESS["corpus"]).astype(np.int32))
+    every = ["--ckpt_every", str(n // 2), "--corpus_file", corpus]
+    launches = []
+    for label, steps, extra in (("straight", n, []), ("again", n, []),
+                                ("split", n // 2, []),
+                                ("split", n, ["--resume", "True"])):
+        ckpt = os.path.join(tmp, f"resume_{label}")
+        _, got, _, _, clock = _harness_run(
+            f"15a {label} to step {steps}",
+            _harness_argv(ckpt, "--num_steps", str(steps), *every, *extra),
+            card)
+        done = steps - (n // 2 if extra else 0)
+        if got != _harness_want(done) or len(clock.restores) != bool(extra):
+            raise AssertionError(
+                f"harness 15a {label}: launches {got}, expected "
+                f"{_harness_want(done)}; restores {clock.restores}")
+        launches.append(got)
+    straight = os.path.join(tmp, "resume_straight")
+    spread, loss_spread = _harness_spread(
+        straight, os.path.join(tmp, "resume_again"))
+    diff, loss_diff = _harness_spread(
+        straight, os.path.join(tmp, "resume_split"))
+    print(f"harness 15a: two straight {n}-step runs (--ckpt_every {n // 2}) "
+          f"apart by {spread:.3g} in the rank files and {loss_spread:.3g} in "
+          f"the CSV losses (determinism); stopped at {n // 2} and resumed: "
+          f"{diff:.3g} and {loss_diff:.3g} from the straight run "
+          f"(tolerance: the spread) [{card}]", flush=True)
+    if diff > spread or loss_diff > loss_spread:
+        raise AssertionError(f"harness 15a: resume is {diff} / {loss_diff} "
+                             f"from continuing, over the spread {spread} / "
+                             f"{loss_spread}")
+    for label in ("straight", "again", "split"):
+        shutil.rmtree(os.path.join(tmp, f"resume_{label}"))
+    return {k: sum(r[k] for r in launches) for k in launches[0]}
+
+
+def harness_preempt(card: str, tmp: str) -> dict:
+    """15b-15d: the CLI on ``--corpus_file``, the repository's own
+    ``*.md`` text as bytes (vocab 256), with ``--val_frac 0.1
+    --val_every 2``, in a subprocess: SIGUSR1 once its first CSV row is
+    out, exit 75 with the rank files at the CSV's last step; then a
+    resume in this process to ``--num_steps``, its rows running on
+    without a gap and validation rows at the cadence and the end, K3
+    launched once more a layer a rank for every validation batch and
+    K4/K5 not; then the eval step on the saved state on the card,
+    kernels against plain twins."""
+    import torch
+
+    c, w = HARNESS, HARNESS["world"]
+    n = c["preempt_steps"]
+    corpus = os.path.join(tmp, "repo_text.bin")
+    with open(corpus, "wb") as out:
+        for name in sorted(os.listdir(ROOT)):
+            if name.endswith(".md"):
+                with open(os.path.join(ROOT, name), "rb") as f:
+                    out.write(f.read())
+    ckpt = os.path.join(tmp, "preempt")
+    argv = _harness_argv(ckpt, "--num_steps", str(n), "--corpus_file",
+                         corpus, "--val_frac", str(c["val_frac"]),
+                         "--val_every", str(c["val_every"]),
+                         "--val_batches", str(c["val_batches"]), vocab=256)
+    csv_path = os.path.join(ckpt, f"lm_out_n{w}.csv")
+    log_path = os.path.join(tmp, "preempt.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "stochastic_gradient_push_torch.run.gossip_lm", *argv],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None or (
+                        time.perf_counter() - t0 > PREEMPT_TIMEOUT_S):
+                    raise AssertionError("harness 15b: no CSV row before "
+                                         "the run ended or timed out")
+                if os.path.exists(csv_path):
+                    with open(csv_path) as f:
+                        if len(f.read().splitlines()) >= 2:
+                            break
+                time.sleep(0.05)
+            signalled = time.perf_counter() - t0
+            proc.send_signal(signal.SIGUSR1)
+            code = proc.wait(timeout=PREEMPT_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    exited = time.perf_counter() - t0
+    with open(log_path) as f:
+        log_text = f.read()
+    if code != 75:
+        raise AssertionError(f"harness 15b: exit {code}, expected 75:\n"
+                             f"{log_text[-2000:]}")
+    metas = [json.loads(torch.load(os.path.join(
+        ckpt, f"lm_checkpoint_r{r}_n{w}.ckpt"), weights_only=True)["meta"])
+        for r in range(w)]
+    k = metas[0]["step"]
+    with open(csv_path) as f:
+        rows = [r.split(",")[0] for r in f.read().splitlines()[1:]]
+    if any(m["step"] != k for m in metas) or rows != [
+            str(i + 1) for i in range(k)]:
+        raise AssertionError(f"harness 15b: metas {metas}, rows {rows}")
+    result, launches, lines, wall, clock = _harness_run(
+        f"15b resume from step {k} to {n}", argv + ["--resume", "True"],
+        card)
+    with open(csv_path) as f:
+        rows = [r.split(",") for r in f.read().splitlines()[1:]]
+    corpus_line = [x for x in log_text.splitlines()
+                   if x.startswith("corpus: ")]
+    print(f"harness 15b: SIGUSR1 {signalled:.1f} s into the subprocess, "
+          f"exit {code} at step {k} after {exited:.1f} s; the resume's "
+          f"rows run on to {rows[-1][0]}; "
+          f"{corpus_line[0] if corpus_line else 'no corpus line'}; "
+          f"rows (step:loss/val_loss) "
+          f"{[r[0] + ':' + r[1] + '/' + r[6] for r in rows]} [{card}]",
+          flush=True)
+    due = [(i + 1) % c["val_every"] == 0 or i + 1 == n for i in range(n)]
+    n_eval = sum(due[k:]) * c["val_batches"]
+    if ([r[0] for r in rows] != [str(i + 1) for i in range(n)]
+            or [bool(r[6]) for r in rows] != due
+            or not corpus_line
+            or not all(math.isfinite(float(v)) for r in rows
+                       for v in r[:6] + (r[6:] if r[6] else []))):
+        raise AssertionError(f"harness 15b-d: rows {rows}")
+    want = _harness_want(n - k, n_eval)
+    if launches != want or len(clock.evals) != n_eval:
+        raise AssertionError(f"harness 15c: launches {launches}, expected "
+                             f"{want}; {len(clock.evals)} eval batches")
+    print(f"harness 15c: {n_eval} validation batches in "
+          f"{sum(clock.evals):.2f} s = {sum(clock.evals) / wall:.1%} of the "
+          f"resumed run's {wall:.2f} s in main ({sum(clock.steps):.2f} s "
+          f"in its {n - k} steps); K3 {launches['flash_fwd_bf16']} = {w} x "
+          f"12 x ({n - k} steps + {n_eval} eval batches), K4/K5 "
+          f"{launches['flash_bwd_dq_bf16']}/"
+          f"{launches['flash_bwd_dkv_bf16']} (the steps alone) [{card}]",
+          flush=True)
+    _harness_eval_lanes(card, ckpt, corpus)
+    shutil.rmtree(ckpt)
+    return launches
+
+
+def _harness_eval_lanes(card: str, ckpt: str, corpus_path: str) -> None:
+    """15c: the eval step on the state saved in ``ckpt`` (vocab 256) on
+    the first held-out batch, the bf16 K3 against the plain twins
+    (``attn_lane="plain"``) on the card."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch import algorithms as alg_mod
+    from stochastic_gradient_push_torch.data.lm import (lm_batches,
+                                                        load_corpus)
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerConfig)
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.run.gossip_lm import split_corpus
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train import lm as tlm
+    from stochastic_gradient_push_torch.train.state import sgd
+    from stochastic_gradient_push_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    c, w = HARNESS, HARNESS["world"]
+    held = split_corpus(load_corpus(corpus_path, 256), c["val_frac"],
+                        (c["seq_len"] + 1) * w * c["batch"])[1]
+    vt, vy = next(lm_batches(held, w, 1, c["batch"], c["seq_len"], seed=1))
+    toks, tgts = (torch.from_numpy(a[:, 0]).cuda() for a in (vt, vy))
+    alg = alg_mod.sgp(build_schedule(
+        NPeerDynamicDirectedExponentialGraph(w)), StackedTransport(w))
+    losses, state = {}, None
+    for lane in ("kernel", "plain"):
+        cfg = TransformerConfig(vocab_size=256, d_model=768, n_layers=12,
+                                n_heads=12, d_ff=3072, attn_impl="flash",
+                                attn_lane="auto" if lane == "kernel"
+                                else "plain", dtype=torch.bfloat16)
+        if state is None:
+            state, _ = CheckpointManager(ckpt, tag="lm_", world_size=w,
+                                         ranks=range(w)).restore(
+                tlm.init_lm_state(cfg, alg, sgd(momentum=0.9), w,
+                                  device="cuda"))
+        counters = _counters()
+        for k in counters.values():
+            k.launches = 0
+        losses[lane] = tlm.build_lm_eval_step(tlm.make_model(cfg), alg)(
+            state, toks, tgts)["loss"].float().cpu().numpy()
+        fired = {k: v.launches for k, v in counters.items() if v.launches}
+        if fired != ({"flash_fwd_bf16": w * 12} if lane == "kernel" else {}):
+            raise AssertionError(f"harness 15c {lane}: launches {fired}")
+    del state
+    rel = float(np.max(np.abs(losses["kernel"] - losses["plain"])
+                       / np.abs(losses["plain"])))
+    print(f"harness 15c: eval loss on the saved state, kernels "
+          f"{losses['kernel'].tolist()} vs plain twins "
+          f"{losses['plain'].tolist()} on the card, max relative diff "
+          f"{rel:.3g} (tolerance {TOL_HARNESS_LOSS_REL}) [{card}]",
+          flush=True)
+    if not rel <= TOL_HARNESS_LOSS_REL:
+        raise AssertionError("harness 15c: eval losses differ")
+
+
+def harness_path(card: str) -> dict:
+    """Phase 15: the LM command line's harness at the LM's full width
+    (bf16, world 2 stacked, SGP on K2/K1, flash attention): resume equals
+    continue, preemption, validation and a file corpus.  Returns the
+    main path's launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm_harness_",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        runs = [harness_resume(card, tmp)]
+        torch.cuda.empty_cache()
+        runs.append(harness_preempt(card, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"harness: phase 15 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {n: sum(r[n] for r in runs) for n in runs[0]}
+
+
 def main() -> int:
     import torch
 
@@ -4022,19 +4471,22 @@ def main() -> int:
         p.numel() for p in make_model(_lm_config()).parameters()))
     torch.cuda.empty_cache()
     image_launches = image_path(card)
+    torch.cuda.empty_cache()
+    harness_launches = harness_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
     # D-PSGD and OSGP runs, phase 9's kernel-lane steps and CLI run,
     # phase 10's kernel-lane steps and CLI runs, phase 11's timed steps
     # and CLI run, phase 12's timed steps and CLI run, phase 13b's CLI
-    # processes, phase 14a's three CLI runs) summed
+    # processes, phase 14a's three CLI runs, phase 15's in-process CLI
+    # runs) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
             topo_launches, seq_launches, bf16_launches, dist_launches,
-            image_launches))
+            image_launches, harness_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -1,16 +1,49 @@
-"""Language-model data: the synthetic Markov corpus and its batching.
+"""Language-model data: file corpora, the synthetic Markov corpus and
+their batching.
 
-A copy of ``synthetic_lm_corpus`` and ``lm_batches`` from
-``stochastic_gradient_push_tpu/data/lm.py`` (numpy only): the same seed
-gives the same tokens, batch for batch.  ``load_corpus`` (a file corpus)
-is not ported yet.
+A copy of ``load_corpus``, ``synthetic_lm_corpus`` and ``lm_batches``
+from ``stochastic_gradient_push_tpu/data/lm.py`` (numpy only): the same
+file or seed gives the same tokens, batch for batch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_lm_corpus", "lm_batches"]
+__all__ = ["load_corpus", "synthetic_lm_corpus", "lm_batches"]
+
+
+def load_corpus(path: str, vocab_size: int) -> np.ndarray:
+    """A file corpus as int32 token ids.
+
+    ``.npy``/``.npz`` files are pre-tokenized integer arrays (one array
+    in an ``.npz``), checked against ``vocab_size``; any other file is
+    read as raw bytes, a byte-level corpus (``vocab_size >= 256``).
+    """
+    if path.endswith((".npy", ".npz")):
+        arr = np.load(path)
+        if hasattr(arr, "files"):  # npz: single array expected
+            names = list(arr.files)
+            if len(names) != 1:
+                raise ValueError(f"{path}: expected one array, "
+                                 f"found {names}")
+            arr = arr[names[0]]
+        arr = np.asarray(arr).reshape(-1)
+        if not np.issubdtype(arr.dtype, np.integer):
+            raise ValueError(f"{path}: token array must be integer, "
+                             f"got {arr.dtype}")
+        arr = arr.astype(np.int32)
+        if arr.size and (arr.min() < 0 or arr.max() >= vocab_size):
+            raise ValueError(
+                f"{path}: token ids span [{arr.min()}, {arr.max()}] — "
+                f"outside vocab_size {vocab_size}")
+        return arr
+    with open(path, "rb") as f:
+        data = np.frombuffer(f.read(), np.uint8)
+    if vocab_size < 256:
+        raise ValueError(
+            f"byte-level corpus needs vocab_size >= 256, got {vocab_size}")
+    return data.astype(np.int32)
 
 
 def synthetic_lm_corpus(n_tokens: int, vocab_size: int = 256,

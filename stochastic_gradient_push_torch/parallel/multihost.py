@@ -17,6 +17,9 @@ its tensors carry a leading rank dim of 1 (``collectives.DistTransport``):
 * :func:`consensus_resume_point` agrees on the least ``(epoch, itr)``.
 * :func:`to_host` gathers each rank's metric row, so rank 0 sees every
   rank's; :func:`host_local_slice` is this process's rows.
+* :func:`leave` frees the transport and leaves a group the run started,
+  on a run's end and on its exit 75 alike (a process that exits with
+  the group still up can abort in its teardown).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .discovery import ClusterInfo, discover
 
 __all__ = ["BACKENDS", "resolve_backend", "process_device",
            "initialize_multihost", "consensus_resume_point", "to_host",
-           "host_local_slice"]
+           "host_local_slice", "leave"]
 
 BACKENDS = ("xla", "nccl", "gloo", "mpi")
 
@@ -124,3 +127,14 @@ def host_local_slice(tree: dict, transport) -> dict:
     rows = np.asarray(transport.ranks)
     return {k: v[rows] if isinstance(v, np.ndarray) else v[
         torch.as_tensor(rows, device=v.device)] for k, v in tree.items()}
+
+
+def leave(transport, owns_group: bool) -> None:
+    """Free ``transport``'s landing blocks (a collective on the kernel
+    lane) and, when this run joined the group (``owns_group``), destroy
+    it.  Every process calls it at the same point."""
+    transport.close()
+    if owns_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()

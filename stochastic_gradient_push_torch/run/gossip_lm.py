@@ -64,18 +64,48 @@ It runs on CUDA unless ``--device cpu``; ``--attn`` defaults to
 without ``--sp``.
 Ported flags keep the reference's names and defaults.  Every other flag
 of the reference parses with its default and is refused, by name, when
-given another value: none is silently ignored.  Prints the reference's
-CSV columns (``step,loss,ppl,lr,tokens_per_sec,grad_norm``) to stdout;
-no file is written.
+given another value: none is silently ignored.
+
+The harness (the reference's, ``run/gossip_lm.py:752-1216`` there):
+
+* ``--corpus_file`` trains on a file (``data/lm.py::load_corpus``:
+  ``.npy``/``.npz`` token ids, or raw bytes at ``--vocab_size`` >= 256)
+  instead of the synthetic Markov corpus.
+* ``--val_frac f`` holds out the corpus tail (at least one validation
+  batch; refused past half the corpus) and validates the de-biased
+  replicas on ``--val_batches`` batches every ``--val_every`` steps (a
+  multiple of ``--print_freq``; 0: at the end only) and at the last
+  step; its wall time is left out of ``tokens_per_sec``.
+* Into ``--checkpoint_dir`` (default ``./checkpoints``) it writes the
+  CSV ``{tag}out_n{world}.csv`` (``{tag}out_p{process}_n{world}.csv``
+  per process under ``torchrun``), its rows also printed to stdout, and
+  one checkpoint file a gossip replica, ``{tag}checkpoint_r{rank}_
+  n{world}.ckpt`` (``utils/checkpoint.py``; ``world`` is the launched
+  world, ``dp x sp`` stacked): every ``--ckpt_every`` steps and at the
+  end, each save with the overlap FIFO drained first, the run going on
+  from the drained state.
+* ``--resume True`` restores the files and fast-forwards the data
+  stream, so a resumed run equals one that never stopped; under
+  ``torchrun`` every process resumes from the least step restored, or
+  all start from step 0 when a process lacks its file.  A set of
+  another world is refused by name (resharding is not ported).
+* SIGUSR1/SIGTERM: at the next step boundary (agreed across processes
+  under ``torchrun``) the run saves and exits 75, the requeue status.
+* ``--heartbeat_timeout`` logs a metrics fetch that stalls (from the
+  second print on: the first carries the warm-up); ``--profile_dir``
+  writes a ``torch.profiler`` Chrome trace of steps
+  ``[--profile_start_step, +--profile_steps)``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import time
 
-__all__ = ["main", "build_parser", "UNPORTED"]
+__all__ = ["main", "build_parser", "UNPORTED", "split_corpus"]
 
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
@@ -90,19 +120,7 @@ UNPORTED = {
     "--n_micro": (4, int, "pipeline parallelism"),
     "--moe_experts": (0, int, "MoE"),
     "--moe_every": (2, int, "MoE"),
-    "--corpus_file": (None, str, "file corpora"),
-    "--checkpoint_dir": ("./checkpoints", str, "checkpoints"),
-    "--tag": ("lm_", str, "checkpoints"),
-    "--ckpt_every": (0, int, "checkpoints"),
-    "--resume": ("False", str, "checkpoints/resume"),
-    "--ckpt_backend": ("msgpack", str, "checkpoints"),
-    "--heartbeat_timeout": (300, int, "the metrics-fetch watchdog"),
-    "--val_frac": (0.0, float, "validation"),
-    "--val_every": (0, int, "validation"),
-    "--val_batches": (8, int, "validation"),
-    "--profile_dir": (None, str, "profiling windows"),
-    "--profile_start_step": (None, int, "profiling windows"),
-    "--profile_steps": (None, int, "profiling windows"),
+    "--ckpt_backend": ("msgpack", str, "the orbax checkpoint backend"),
     "--trace_dir": (None, str, "run telemetry"),
     "--metrics_every": (0, int, "run telemetry"),
     "--multihost": ("auto", str, "multi-host runs"),
@@ -125,7 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
     from ..ops.gossip_kernel import GOSSIP_KERNELS
     from ..parallel.wire import WIRE_DTYPES
     from ..topology import GRAPH_TOPOLOGIES
-    from .gossip_sgd import add_planner_flags
+    from .gossip_sgd import add_planner_flags, add_profile_flags
 
     p = argparse.ArgumentParser(description="Gossip LM on a GPU (PyTorch)")
     p.add_argument("--all_reduce", default="False", type=str)
@@ -221,6 +239,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print_freq", default=10, type=int)
     p.add_argument("--seed", default=47, type=int)
     p.add_argument("--corpus_tokens", default=500_000, type=int)
+    p.add_argument("--corpus_file", default=None,
+                   help="real corpus: .npy/.npz pre-tokenized int array, "
+                        "or any file read as raw bytes (byte-level LM, "
+                        "vocab_size >= 256); default: synthetic Markov")
+    p.add_argument("--checkpoint_dir", default="./checkpoints", type=str,
+                   help="the CSV and the checkpoint files go here")
+    p.add_argument("--tag", default="lm_", type=str)
+    p.add_argument("--ckpt_every", default=0, type=int,
+                   help="checkpoint every N steps (0 = only at the end)")
+    p.add_argument("--resume", default="False", type=str)
+    p.add_argument("--heartbeat_timeout", default=300, type=int,
+                   help="log an error if a metrics fetch stalls longer "
+                        "than this many seconds (a hung kernel or a "
+                        "dead peer process); 0 disables")
+    p.add_argument("--val_frac", default=0.0, type=float,
+                   help="hold out this fraction of the corpus tail for "
+                        "validation (0 = off); val_loss/val_ppl columns "
+                        "join the CSV")
+    p.add_argument("--val_every", default=0, type=int,
+                   help="validate every N steps (0 = only at the end); "
+                        "a multiple of --print_freq")
+    p.add_argument("--val_batches", default=8, type=int,
+                   help="validation batches per evaluation")
+    add_profile_flags(p)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the "
                         "kernels' plain twins)")
@@ -311,20 +353,88 @@ def resolve_kernel_flag(args, device, launched: int):
                                  f"{where}: {e}") from None
 
 
+def resolve_harness_flags(args) -> None:
+    """Validate the harness's flags in place (the reference's rules):
+    the profile window's, the watchdog's and the validation cadence."""
+    from .gossip_sgd import resolve_profile_flags
+
+    resolve_profile_flags(args)
+    if args.heartbeat_timeout < 0:
+        raise SystemExit("--heartbeat_timeout must be >= 0 (0 disables)")
+    if args.val_frac > 0 and args.val_every \
+            and args.val_every % args.print_freq:
+        raise SystemExit(
+            f"--val_every {args.val_every} must be a multiple of "
+            f"--print_freq {args.print_freq} (validation rows ride the "
+            "CSV print cadence)")
+
+
+def split_corpus(corpus, val_frac: float, min_val: int):
+    """``(train, val)``: the corpus tail held out, ``val_frac`` of it and
+    at least ``min_val`` tokens (one validation batch); ``val`` is None
+    at ``val_frac`` 0."""
+    if val_frac <= 0:
+        return corpus, None
+    n_val = max(int(len(corpus) * val_frac), min_val)
+    if n_val >= len(corpus) // 2:
+        raise SystemExit("--val_frac leaves too little training data")
+    return corpus[:-n_val], corpus[-n_val:]
+
+
+def open_csv(path: str, header: str, resumed: bool, warn) -> None:
+    """Start the run's CSV, or on a resume append to the one there: an
+    older header is rewritten first, each old value under its column's
+    name (missing columns left empty), through a temporary file and a
+    rename, so a crash mid-rewrite keeps the history."""
+    if not (resumed and os.path.isfile(path)):
+        with open(path, "w") as f:
+            print(header, file=f)
+        return
+    with open(path) as f:
+        old_lines = f.read().splitlines()
+    if not old_lines or old_lines[0] == header:
+        return
+    warn(f"existing CSV header {old_lines[0]!r} != current schema "
+         f"{header!r}; remapping old rows to the new schema (missing "
+         "columns left empty)")
+    old_cols, new_cols = old_lines[0].split(","), header.split(",")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        print(header, file=f)
+        for row in old_lines[1:]:
+            vals = dict(zip(old_cols, row.split(",")))
+            print(",".join(vals.get(c, "") for c in new_cols), file=f)
+    os.replace(tmp, path)
+
+
 def main(argv=None) -> dict:
+    handlers = {s: signal.getsignal(s)
+                for s in (signal.SIGUSR1, signal.SIGTERM)}
+    try:
+        return _main(argv)
+    finally:
+        # a library caller gets its own handlers back
+        for s, h in handlers.items():
+            signal.signal(s, h)
+
+
+def _main(argv) -> dict:
     args = build_parser().parse_args(argv)
     refuse_unported(args)
+
+    import contextlib
 
     import numpy as np
     import torch
 
-    from ..algorithms import adpsgd, all_reduce, dpsgd, sgp
-    from ..data.lm import lm_batches, synthetic_lm_corpus
+    from ..algorithms import adpsgd, all_reduce, dpsgd, drain_state, sgp
+    from ..data.lm import lm_batches, load_corpus, synthetic_lm_corpus
     from ..device import resolve_device
     from ..models.transformer import TransformerConfig
     from ..parallel.discovery import discover
-    from ..parallel.multihost import (host_local_slice, initialize_multihost,
-                                      process_device)
+    from ..parallel.multihost import (consensus_resume_point,
+                                      host_local_slice, initialize_multihost,
+                                      leave, process_device)
     from ..parallel.collectives import DistTransport, StackedTransport
     from ..parallel.seq import StackedSeq
     from ..parallel.wire import get_codec
@@ -332,12 +442,18 @@ def main(argv=None) -> dict:
                             build_pairing_schedule, build_schedule)
     from .gossip_sgd import parse_mixing_alpha, plan_topology, \
         synth_plan_config
-    from ..train.lm import build_lm_train_step, init_lm_state, make_model
+    from ..train.lm import (build_lm_eval_step, build_lm_train_step,
+                            init_lm_state, make_model)
     from ..train.lr import WARMUP_EPOCHS, LRSchedule
     from ..train.state import sgd
+    from ..utils.checkpoint import (REQUEUE_EXIT_CODE, CheckpointManager,
+                                    ClusterManager)
+    from ..utils.logging import make_logger
+    from ..utils.profiling import ProfileWindow, StepWatchdog
 
     sb = _str_bool
     resolve_staleness_flag(args, sb(args.overlap))
+    resolve_harness_flags(args)
     ef = sb(args.error_feedback)
     if ef and args.wire_dtype not in ("bf16", "int8"):
         raise SystemExit(
@@ -367,6 +483,7 @@ def main(argv=None) -> dict:
     dp, attn = resolve_seq_flags(args, launched if launched > 1 else world,
                                  launched)
     lane = resolve_kernel_flag(args, device, launched)
+    owns_group = False
     if launched > 1:
         if args.world_size not in (None, launched):
             raise SystemExit(f"--world_size {args.world_size} but the "
@@ -485,15 +602,17 @@ def main(argv=None) -> dict:
     lrs = LRSchedule(ref_lr=args.lr, batch_size=args.batch_size,
                      world_size=dp, decay_schedule={},
                      warmup=sb(args.warmup))
+    model = make_model(cfg)
+    seq = StackedSeq(args.sp) if cfg.ring else None
     step = build_lm_train_step(
-        make_model(cfg), alg, tx, lrs, itr_per_epoch=itr_per_epoch,
+        model, alg, tx, lrs, itr_per_epoch=itr_per_epoch,
         grad_accum=args.grad_accum,
-        health_axis=transport if args.health_every > 0 else None,
-        seq=StackedSeq(args.sp) if cfg.ring else None)
+        health_axis=transport if args.health_every > 0 else None, seq=seq)
     held = len(transport.ranks)
     state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device)
     log = log0
     monitor = policy = recovery = None
+    window = None   # (host clock, steps_done, val_time) at the last read
     if args.health_every > 0:
         # signals ride every step's metrics and are read at the print
         # cadence (the only points the loop reads metrics)
@@ -508,7 +627,6 @@ def main(argv=None) -> dict:
         monitor = HealthMonitor(health_every=args.health_every,
                                 residual_floor=args.residual_floor,
                                 log=line)
-        window = None   # (host clock, steps_done) at the last read
         if dp > 1 and hasattr(alg, "global_average"):
             from ..parallel.wire import wire_stamp
             from ..planner import make_interconnect
@@ -544,68 +662,223 @@ def main(argv=None) -> dict:
         return float(transport.allreduce_sum(x.reshape(-1).float())[0]
                      / dp)
 
-    corpus = synthetic_lm_corpus(args.corpus_tokens,
-                                 vocab_size=args.vocab_size, seed=args.seed)
-    tokens_per_step = dp * args.batch_size * args.seq_len
-    log("step,loss,ppl,lr,tokens_per_sec,grad_norm", flush=True)
-    steps_done, epoch, losses = 0, 0, []
-    t0 = time.perf_counter()
-    while steps_done < args.num_steps:
-        for tokens, targets in lm_batches(corpus, dp, args.sp,
-                                          args.batch_size, args.seq_len,
-                                          seed=args.seed + epoch):
-            # [dp, sp, batch, seq_len / sp]; flat models take [dp, batch,
-            # seq_len]
-            mine = host_local_slice({"x": tokens, "y": targets}, transport)
-            toks, tgts = (torch.from_numpy(a if cfg.ring else a[:, 0])
-                          .to(device) for a in (mine["x"], mine["y"]))
-            state, metrics = step(state, toks, tgts)
-            steps_done += 1
-            if (steps_done % args.print_freq == 0
-                    or steps_done >= args.num_steps):
-                loss = mean(metrics["loss"])   # waits for the step
-                losses.append(loss)
-                if monitor is not None:
-                    state, window = _observe_health(
-                        monitor, policy, recovery, alg, state, metrics,
-                        steps_done, window)
-                tps = (tokens_per_step * steps_done
-                       / (time.perf_counter() - t0))
-                log(f"{steps_done},{loss:.4f},{mean(metrics['ppl']):.2f},"
-                    f"{float(metrics['lr']):.5f},{tps:.0f},"
-                    f"{mean(metrics['grad_norm']):.4f}", flush=True)
-            if steps_done >= args.num_steps:
-                break
-        epoch += 1
-    result = {"final_loss": losses[-1], "avg_loss": float(np.mean(losses)),
-              "tokens_per_sec": tokens_per_step * steps_done
-              / (time.perf_counter() - t0)}
-    log(json.dumps(result), flush=True)
+    def any_process(flag: bool) -> bool:
+        """Whether ``flag`` holds in any process (a collective)."""
+        x = torch.tensor([float(flag)], device=device)
+        return bool(transport.allreduce_max(x)[0])
+
+    # checkpoints: one file a gossip replica, named by the launched world
+    me = int(transport.ranks[0])
+    warn = make_logger(me).warning
+    ckpt = CheckpointManager(args.checkpoint_dir, tag=args.tag,
+                             world_size=world, ranks=transport.ranks)
+    # SIGUSR1/SIGTERM raise a flag checked at each step boundary; no
+    # requeue command: relaunching is the launcher's
+    cluster = ClusterManager(ckpt, rank=me, requeue_command=None)
     if launched > 1:
-        transport.close()
-        if owns_group:
-            torch.distributed.destroy_process_group()
+        cluster.agree = any_process
+    start_step = 0
+    if sb(args.resume):
+        have = ckpt.exists()
+        if launched > 1:
+            # decided collectively: resume only if every process holds
+            # its file, else every process starts from step 0
+            every = not any_process(not have)
+            if not every:
+                warn("checkpoint present here but missing on a peer; "
+                     "starting from step 0" if have else
+                     f"no checkpoint for rank {me} in "
+                     f"{args.checkpoint_dir}; every process starts from "
+                     "step 0")
+            have = every
+        if not have:
+            ckpt.refuse_other_worlds()
+        else:
+            state, meta = ckpt.restore(state)
+            start_step = int(meta.get("step", 0))
+            if launched > 1:
+                _, start_step = consensus_resume_point(0, start_step,
+                                                       transport, log=warn)
+            log(f"resumed from step {start_step}", flush=True)
+    if start_step >= args.num_steps:
+        log(f"nothing to do: resumed at step {start_step} >= num_steps "
+            f"{args.num_steps}", flush=True)
+        leave(transport, owns_group)
+        return {"final_loss": None, "avg_loss": None,
+                "tokens_per_sec": 0.0, "already_complete": True}
+
+    def save(st, at: int):
+        """Checkpoint ``st`` at step ``at`` with its overlap FIFO drained
+        into the params (``drain_state``); returns the drained state, the
+        one the run goes on from."""
+        st = drain_state(st)
+        meta = {"step": at}
+        if plan is not None:
+            # the launch-time plan rides with the state it shaped
+            meta["plan"] = plan.to_dict()
+        if monitor is not None and monitor.last_payload:
+            meta["health"] = monitor.last_payload
+        ckpt.save(st, meta)
+        return st
+
+    if args.corpus_file:
+        corpus = load_corpus(args.corpus_file, args.vocab_size)
+        log(f"corpus: {args.corpus_file} ({len(corpus):,} tokens)",
+            flush=True)
+    else:
+        corpus = synthetic_lm_corpus(args.corpus_tokens,
+                                     vocab_size=args.vocab_size,
+                                     seed=args.seed)
+    corpus, val_corpus = split_corpus(
+        corpus, args.val_frac, (args.seq_len + 1) * dp * args.batch_size)
+    val_on = val_corpus is not None
+    eval_step = build_lm_eval_step(model, alg, seq) if val_on else None
+    out_fname = os.path.join(
+        args.checkpoint_dir,
+        f"{args.tag}out_n{world}.csv" if launched == 1
+        else f"{args.tag}out_p{transport.rank}_n{world}.csv")
+    header = ("step,loss,ppl,lr,tokens_per_sec,grad_norm"
+              + (",val_loss,val_ppl" if val_on else ""))
+    open_csv(out_fname, header, start_step > 0, warn)
+    log(header, flush=True)
+
+    # a heartbeat around the blocking metrics fetch, from the second
+    # print on: the first carries the warm-up (builds, autotuning)
+    watchdog = (StepWatchdog(timeout=args.heartbeat_timeout, rank=me)
+                if args.heartbeat_timeout > 0 else None)
+    pw = ProfileWindow(args.profile_dir, start_step=args.profile_start_step,
+                       num_steps=args.profile_steps, device=device, rank=me)
+
+    def on_device(tokens, targets):
+        # [dp, sp, batch, seq_len / sp]; flat models take [dp, batch,
+        # seq_len]; this process's rows
+        mine = host_local_slice({"x": tokens, "y": targets}, transport)
+        return tuple(torch.from_numpy(a if cfg.ring else a[:, 0]).to(device)
+                     for a in (mine["x"], mine["y"]))
+
+    val_time = 0.0   # left out of tokens_per_sec
+
+    def validate(st) -> tuple[float, float]:
+        """Mean held-out loss of the de-biased replicas over
+        ``--val_batches`` batches, and its perplexity."""
+        nonlocal val_time
+        t_val = time.perf_counter()
+        vals = []
+        for vt, vy in lm_batches(val_corpus, dp, args.sp, args.batch_size,
+                                 args.seq_len, seed=1):
+            vals.append(mean(eval_step(st, *on_device(vt, vy))["loss"]))
+            if len(vals) >= args.val_batches:
+                break
+        vl = float(np.mean(vals))
+        val_time += time.perf_counter() - t_val
+        return vl, float(np.exp(vl))
+
+    # resume fast-forward: the data stream restarts where the saved run
+    # left off instead of replaying consumed batches
+    n_seqs = (len(corpus) - 1) // args.seq_len
+    batches_per_epoch = max(1, n_seqs // (dp * args.batch_size))
+    epoch, skip = divmod(start_step, batches_per_epoch)
+    tokens_per_step = dp * args.batch_size * args.seq_len
+    steps_done, last_saved, prints = start_step, start_step - 1, 0
+    losses, last_val = [], None
+    t0 = time.perf_counter()
+    try:
+        while steps_done < args.num_steps:
+            for tokens, targets in lm_batches(corpus, dp, args.sp,
+                                              args.batch_size, args.seq_len,
+                                              seed=args.seed + epoch):
+                if skip:
+                    skip -= 1
+                    continue
+                toks, tgts = on_device(tokens, targets)
+                pw.maybe_start(steps_done + 1)
+                with (torch.profiler.record_function(
+                        f"lm_step_{steps_done + 1}") if pw.active
+                        else contextlib.nullcontext()):
+                    state, metrics = step(state, toks, tgts)
+                steps_done += 1
+                pw.maybe_stop(steps_done)
+                if (steps_done % args.print_freq == 0
+                        or steps_done >= args.num_steps):
+                    with (watchdog.step() if watchdog is not None
+                          and prints else contextlib.nullcontext()):
+                        # waits for the step
+                        got = {k: mean(metrics[k])
+                               for k in ("loss", "ppl", "grad_norm")}
+                    prints += 1
+                    losses.append(got["loss"])
+                    if monitor is not None:
+                        state, window = _observe_health(
+                            monitor, policy, recovery, alg, state, metrics,
+                            steps_done, window, val_time)
+                    tps = (tokens_per_step * (steps_done - start_step)
+                           / (time.perf_counter() - t0 - val_time))
+                    row = (f"{steps_done},{got['loss']:.4f},"
+                           f"{got['ppl']:.2f},{float(metrics['lr']):.5f},"
+                           f"{tps:.0f},{got['grad_norm']:.4f}")
+                    if val_on:
+                        if ((args.val_every
+                             and steps_done % args.val_every == 0)
+                                or steps_done >= args.num_steps):
+                            last_val, val_ppl = validate(state)
+                            row += f",{last_val:.4f},{val_ppl:.2f}"
+                        else:
+                            row += ",,"
+                    log(row, flush=True)
+                    with open(out_fname, "a") as f:
+                        print(row, file=f)
+                if args.ckpt_every and steps_done % args.ckpt_every == 0:
+                    state = save(state, steps_done)
+                    last_saved = steps_done
+                if cluster.any_rank_signalled():
+                    # the step is done: save, free the transport, exit
+                    # with the requeue status
+                    sig = cluster.last_signal or "peer flag"
+                    warn(f"preemption signal ({sig}): checkpointing at "
+                         f"step {steps_done} and exiting "
+                         f"{REQUEUE_EXIT_CODE} (requeue me)")
+                    state = save(state, steps_done)
+                    leave(transport, owns_group)
+                    raise SystemExit(REQUEUE_EXIT_CODE)
+                if steps_done >= args.num_steps:
+                    break
+            epoch += 1
+        if last_saved != steps_done:
+            state = save(state, steps_done)
+    finally:
+        # a run that ended inside the window still writes its trace
+        pw.close()
+    result = {"final_loss": losses[-1], "avg_loss": float(np.mean(losses)),
+              "tokens_per_sec": tokens_per_step * (steps_done - start_step)
+              / (time.perf_counter() - t0 - val_time)}
+    if last_val is not None:
+        result["val_loss"] = last_val
+    if pw.trace_path is not None:
+        result["profile_trace"] = pw.trace_path
+    log(json.dumps(result), flush=True)
+    leave(transport, owns_group)
     return result
 
 
 def _observe_health(monitor, policy, recovery, alg, state, metrics,
-                    steps_done: int, window):
+                    steps_done: int, window, val_time: float):
     """Read one step's health signals at the print cadence, observe
-    them (one step-time sample per read window, the first window left
-    out) and fire the policy's global average; returns ``(state,
-    window)``."""
+    them (one step-time sample per read window, validation's time and
+    the first window left out) and fire the policy's global average;
+    returns ``(state, window)``."""
     from ..resilience.monitor import host_signals
     from ..resilience.recovery import recover_state
 
     now = time.perf_counter()
     if window is not None and steps_done > window[1]:
-        monitor.record_step_time((now - window[0])
+        elapsed = (now - window[0]) - (val_time - window[2])
+        monitor.record_step_time(max(0.0, elapsed)
                                  / (steps_done - window[1]))
     report = monitor.observe(steps_done, host_signals(metrics))
     if report.unhealthy and policy is not None:
         if policy.assess(report).action == "global-average":
             state = recover_state(state, alg, recovery)
-    return state, (now, steps_done)
+    return state, (now, steps_done, val_time)
 
 
 if __name__ == "__main__":

@@ -741,16 +741,21 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
 def main(argv=None, config_transform=None) -> dict:
     handlers = {s: signal.getsignal(s)
                 for s in (signal.SIGUSR1, signal.SIGTERM)}
+    from ..parallel.multihost import leave
+    from ..utils.checkpoint import REQUEUE_EXIT_CODE
+
     try:
         run = build(argv, config_transform)
-        state = run.trainer.init_state()
-        state, result = run.trainer.fit(state, run.loader, run.sampler,
-                                        run.val_loader)
-        run.transport.close()
-        if run.owns_group:
-            import torch.distributed as dist
-
-            dist.destroy_process_group()
+        try:
+            state = run.trainer.init_state()
+            state, result = run.trainer.fit(state, run.loader, run.sampler,
+                                            run.val_loader)
+        except SystemExit as e:
+            if e.code == REQUEUE_EXIT_CODE:
+                # every process stops at the same step: leave together
+                leave(run.transport, run.owns_group)
+            raise
+        leave(run.transport, run.owns_group)
     finally:
         # a library caller gets its own handlers back
         for s, h in handlers.items():

@@ -2,8 +2,8 @@
 
 Port of the data-parallel part of ``stochastic_gradient_push_tpu/train/
 lm.py``: :func:`lm_loss`, :func:`build_lm_train_step` (with
-``grad_accum``) and :func:`init_lm_state`.  The step keeps the
-reference's order exactly::
+``grad_accum``), :func:`build_lm_eval_step` and :func:`init_lm_state`.
+The step keeps the reference's order exactly::
 
     pre_step → eval_params → forward/backward → reduce_grads → LR
       → numerator update → post_step → metrics (loss, ppl, lr, grad_norm)
@@ -32,8 +32,13 @@ The model computes in its config's ``dtype`` (the reference's
 transformer.py``); the state (parameters, momentum, the gossip state)
 and the loss stay fp32 at any dtype.
 
-Not ported yet: the tensor-, expert- and pipeline-parallel meshes, MoE
-losses and the eval step.
+The eval step runs each replica's forward on its de-biased parameters
+(``algorithm.val_params``: an overlap FIFO folded in first) under
+``torch.no_grad``, so the flash attention runs its forward kernel alone;
+no gossip, no state update.
+
+Not ported yet: the tensor-, expert- and pipeline-parallel meshes and
+MoE losses.
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ from ..parallel.seq import StackedSeq
 from .metrics import global_norm
 from .state import TrainState
 
-__all__ = ["lm_loss", "build_lm_train_step", "init_lm_state", "make_model"]
+__all__ = ["lm_loss", "build_lm_train_step", "build_lm_eval_step",
+           "init_lm_state", "make_model"]
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -71,6 +77,23 @@ def make_model(cfg: TransformerConfig) -> TransformerLM:
         return TransformerLM(cfg)
 
 
+def _check_seq(model: TransformerLM, seq: StackedSeq | None) -> None:
+    if model.cfg.ring != (seq is not None):
+        raise ValueError(f"attn_impl {model.cfg.attn_impl!r} with seq "
+                         f"{seq!r}: ring and ring_flash run over a "
+                         f"StackedSeq, the other attentions without one")
+
+
+def _replica_loss(model: TransformerLM, seq: StackedSeq | None, z_r: dict,
+                  xs, ys) -> torch.Tensor:
+    """One replica's loss: its token mean, or with ``seq`` the mean over
+    its shards of each shard's token mean (the reference's seq pmean)."""
+    if seq is None:
+        return lm_loss(functional_call(model, z_r, (xs,)), ys)
+    logits = functional_call(model, z_r, (xs, seq))
+    return torch.stack([lm_loss(lg, y) for lg, y in zip(logits, ys)]).mean()
+
+
 def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                         tx, lr_schedule, itr_per_epoch: int,
                         grad_accum: int = 1,
@@ -86,20 +109,10 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
 
     if grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
-    if model.cfg.ring != (seq is not None):
-        raise ValueError(f"attn_impl {model.cfg.attn_impl!r} with seq "
-                         f"{seq!r}: ring and ring_flash run over a "
-                         f"StackedSeq, the other attentions without one")
+    _check_seq(model, seq)
     layout = reference_layout(model)
     algorithm.bind_layout(layout)
     batch_dim = 0 if seq is None else 1
-
-    def loss_of(z_r: dict, xs, ys):
-        if seq is None:
-            return lm_loss(functional_call(model, z_r, (xs,)), ys)
-        logits = functional_call(model, z_r, (xs, seq))
-        return torch.stack([lm_loss(lg, y)
-                            for lg, y in zip(logits, ys)]).mean()
 
     def rank_grads(z_r: dict, toks, tgts):
         if toks.shape[batch_dim] % grad_accum:
@@ -109,7 +122,7 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
         g_sum, loss_sum = None, None
         for xs, ys in zip(toks.chunk(grad_accum, batch_dim),
                           tgts.chunk(grad_accum, batch_dim)):
-            loss = loss_of(z_r, xs, ys)
+            loss = _replica_loss(model, seq, z_r, xs, ys)
             g = torch.autograd.grad(loss, list(z_r.values()))
             if g_sum is None:
                 g_sum, loss_sum = list(g), loss.detach()
@@ -148,6 +161,27 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                           opt_state=opt_state, gossip=gstate), metrics
 
     return train_step
+
+
+def build_lm_eval_step(model: TransformerLM, algorithm: GossipAlgorithm,
+                       seq: StackedSeq | None = None) -> tp.Callable:
+    """Eval ``(state, tokens, targets) -> {"loss", "ppl"}``, one value a
+    held replica, for the train step's batch shapes: each replica's
+    forward on its de-biased parameters under ``torch.no_grad``, then
+    :func:`lm_loss` (with ``seq``, the mean over its shards).  No gossip,
+    no state update (the reference's ``build_lm_eval_step``)."""
+    _check_seq(model, seq)
+
+    def eval_step(state: TrainState, tokens, targets) -> dict:
+        with torch.no_grad():
+            z = algorithm.val_params(state.params, state.gossip)
+            loss = torch.stack([
+                _replica_loss(model, seq, {n: p[r] for n, p in z.items()},
+                              tokens[r], targets[r])
+                for r in range(tokens.shape[0])])
+        return {"loss": loss, "ppl": torch.exp(loss)}
+
+    return eval_step
 
 
 def init_lm_state(cfg: TransformerConfig, algorithm: GossipAlgorithm, tx,

@@ -525,14 +525,7 @@ class Trainer:
             # resume only if every process holds its rank's file
             have = not self._any_process(not have)
         if want_resume and not have:
-            worlds = self.cluster.ckpt.discover_worlds()
-            if worlds:
-                raise NotImplementedError(
-                    f"cross-world resume: {cfg.checkpoint_dir} holds "
-                    f"checkpoints of world {worlds}, not "
-                    f"{self.world_size}; resharding them "
-                    "(supervise/reshard.py) is not ported to stochastic_"
-                    "gradient_push_torch yet (ROADMAP.md Queue 1 item 10)")
+            self.cluster.ckpt.refuse_other_worlds()
         if have:
             state, meta = self.cluster.ckpt.restore(state)
             start_epoch, start_itr = consensus_resume_point(

@@ -33,7 +33,8 @@ rank in this process (the stacked lane).
 
 A checkpoint set of another world size is found (``discover_worlds``)
 but not resharded: cross-world resume (``supervise/reshard.py``) is not
-ported, and the trainer refuses it by name.
+ported, and the trainer and the LM CLI refuse it by name
+(``refuse_other_worlds``).
 """
 
 from __future__ import annotations
@@ -157,6 +158,17 @@ class CheckpointManager:
                   if (m := pat.match(f))}
         worlds.discard(self.world_size)
         return sorted(worlds)
+
+    def refuse_other_worlds(self) -> None:
+        """``NotImplementedError`` naming cross-world resume when this
+        directory holds a checkpoint set of another world size."""
+        worlds = self.discover_worlds()
+        if worlds:
+            raise NotImplementedError(
+                f"cross-world resume: {self.directory} holds checkpoints "
+                f"of world {worlds}, not {self.world_size}; resharding "
+                "them (supervise/reshard.py) is not ported to stochastic_"
+                "gradient_push_torch yet (ROADMAP.md Queue 1 item 10)")
 
     def restore(self, template) -> tuple[object, dict]:
         """The saved rows stacked into ``template``'s structure (a train

@@ -22,7 +22,8 @@ launch helpers (``parallel/discovery.py``, ``parallel/multihost.py``).
   a card; ``consensus_resume_point`` agrees on the least point.
 
 Each child process runs under its own ``communicate(timeout=...)`` with
-one torch thread.
+one torch thread, and each stacked run in this process is pinned to one
+thread around the run.
 """
 
 import json
@@ -119,8 +120,16 @@ def _launch(world, runs, timeout=300):
 
 
 def _stacked(module, argv):
+    """The stacked run in this process, on the children's one torch
+    thread (a CPU convolution's sums follow the thread count, and other
+    test files set their own at import)."""
     mod = gossip_sgd_adpsgd if module == "gossip_sgd_adpsgd" else gossip_sgd
-    mod.main(argv)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        mod.main(argv)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _rank_file(directory, r, world):

@@ -477,8 +477,9 @@ SMALL_LM = ["--device", "cpu", "--vocab_size", "256", "--d_model", "32",
     (["--bilat", "True", "--graph_type", "1"], "adpsgd"),
     (["--bilat", "True", "--graph_type", "0"], "adpsgd"),
 ])
-def test_lm_cli_trains_dpsgd_and_adpsgd(extra, name, capsys):
-    result = gossip_lm.main(SMALL_LM + extra)
+def test_lm_cli_trains_dpsgd_and_adpsgd(extra, name, capsys, tmp_path):
+    result = gossip_lm.main(SMALL_LM + extra
+                            + ["--checkpoint_dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert f"algorithm={name}" in out
     assert 4.5 < result["final_loss"] < 7.0
@@ -488,6 +489,7 @@ def test_lm_cli_trains_dpsgd_and_adpsgd(extra, name, capsys):
     ["--push_sum", "False", "--wire_dtype", "int8"],
     ["--bilat", "True", "--gossip_every", "2"],
 ])
-def test_lm_cli_refuses_push_sum_knobs_off_push_sum(extra):
+def test_lm_cli_refuses_push_sum_knobs_off_push_sum(extra, tmp_path):
     with pytest.raises(SystemExit, match="push-sum knobs"):
-        gossip_lm.main(SMALL_LM + extra)
+        gossip_lm.main(SMALL_LM + extra
+                       + ["--checkpoint_dir", str(tmp_path)])

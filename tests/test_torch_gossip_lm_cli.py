@@ -4,6 +4,9 @@ the CPU: a 3-step run at vocab 256 through ``main`` and through
 rank each) printing the stacked lane's rows, the reference's flag
 surface (every flag of the JAX package's parser, with its default), and
 the refusal, by name, of every flag whose feature is not ported yet.
+Every run writes its CSV and checkpoints into a temporary
+``--checkpoint_dir`` (the harness's own tests are
+``tests/test_torch_lm_harness*.py``).
 The overlap (OSGP) and gossip-kernel flags: ``--overlap True
 --staleness 2`` trains on the CPU; ``--gossip_kernel pallas`` raises
 ``KernelBackendError`` naming the flag on ``--device cpu``, under
@@ -40,6 +43,13 @@ SMALL = ["--device", "cpu", "--vocab_size", "256", "--d_model", "32",
          "--print_freq", "1", "--corpus_tokens", "4000"]
 
 
+
+@pytest.fixture
+def small(tmp_path):
+    """``SMALL`` writing its CSV and checkpoints into a temporary
+    directory (an LM run writes both)."""
+    return SMALL + ["--checkpoint_dir", str(tmp_path / "ckpt")]
+
 @pytest.mark.parametrize("extra", [
     ["--world_size", "4"],
     ["--world_size", "4", "--wire_dtype", "int8", "--peers_per_itr", "2",
@@ -51,8 +61,8 @@ SMALL = ["--device", "cpu", "--vocab_size", "256", "--d_model", "32",
     ["--world_size", "4", "--gossip_kernel", "auto", "--gossip_buckets",
      "3"],
 ])
-def test_three_steps_on_cpu(extra, capsys):
-    result = gossip_lm.main(SMALL + extra)
+def test_three_steps_on_cpu(extra, capsys, small):
+    result = gossip_lm.main(small + extra)
     out = capsys.readouterr().out.splitlines()
     header = out.index("step,loss,ppl,lr,tokens_per_sec,grad_norm")
     rows = [r.split(",") for r in out[header + 1:header + 4]]
@@ -63,11 +73,11 @@ def test_three_steps_on_cpu(extra, capsys):
     assert 4.5 < result["final_loss"] < 7.0
 
 
-def test_module_entry_point_runs():
+def test_module_entry_point_runs(small):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "stochastic_gradient_push_torch.run.gossip_lm",
-         *SMALL, "--world_size", "2"], capture_output=True, text=True,
+         *small, "--world_size", "2"], capture_output=True, text=True,
         env=env, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert '"final_loss"' in proc.stdout.splitlines()[-1]
@@ -77,20 +87,25 @@ def _rows(stdout: str) -> list[list[str]]:
     """The CSV rows without the tokens/s column (a host timing)."""
     lines = stdout.splitlines()
     start = lines.index("step,loss,ppl,lr,tokens_per_sec,grad_norm") + 1
+    # a row's first field is its step (the processes' log lines, such as
+    # the signal handlers' under torchrun, start with a rank and a colon)
     return [r.split(",")[:4] + r.split(",")[5:] for r in lines[start:]
-            if r and r[0].isdigit()]
+            if r.split(",")[0].isdigit()]
 
 
-def test_torchrun_lane_prints_the_stacked_lanes_rows():
+def test_torchrun_lane_prints_the_stacked_lanes_rows(tmp_path):
+    # both lanes run in children on one torch thread (OMP_NUM_THREADS)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     argv = ["-m", "stochastic_gradient_push_torch.run.gossip_lm", *SMALL,
             "--wire_dtype", "int8"]
-    stacked = subprocess.run([sys.executable, *argv, "--world_size", "2"],
-                             capture_output=True, text=True, env=env,
-                             cwd=REPO, timeout=300)
+    stacked = subprocess.run(
+        [sys.executable, *argv, "--world_size", "2", "--checkpoint_dir",
+         str(tmp_path / "stacked")], capture_output=True, text=True,
+        env=env, cwd=REPO, timeout=300)
     launched = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "2", *argv], capture_output=True, text=True,
+         "--nproc_per_node", "2", *argv, "--checkpoint_dir",
+         str(tmp_path / "launched")], capture_output=True, text=True,
         env=env, cwd=REPO, timeout=300)
     assert stacked.returncode == 0, stacked.stderr
     assert launched.returncode == 0, launched.stderr
@@ -118,14 +133,14 @@ def test_reference_flags_parse_with_reference_defaults():
 @pytest.mark.parametrize("flag,value", [
     ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
     ("--slice_size", "2"),
-    ("--resume", "True"),
-    ("--checkpoint_dir", "/tmp/x"),
+    ("--ckpt_backend", "orbax"),
+    ("--metrics_every", "5"),
     ("--moe_experts", "4"), ("--mixing_alpha", "0.5"),
     ("--trace_dir", "/tmp/x"),
 ])
-def test_unported_flags_raise_naming_the_flag(flag, value):
+def test_unported_flags_raise_naming_the_flag(flag, value, small):
     with pytest.raises(SystemExit, match=flag):
-        gossip_lm.main(SMALL + [flag, value])
+        gossip_lm.main(small + [flag, value])
 
 
 @pytest.mark.parametrize("flag,value,extra", [
@@ -136,8 +151,8 @@ def test_unported_flags_raise_naming_the_flag(flag, value):
                                   "--print_freq", "1", "--world_size",
                                   "4"]),
 ])
-def test_resilience_flags_run(flag, value, extra, capsys):
-    argv = SMALL + [flag, value] + extra
+def test_resilience_flags_run(flag, value, extra, capsys, small):
+    argv = small + [flag, value] + extra
     if "--world_size" not in argv:
         argv += ["--world_size", "2"]
     result = gossip_lm.main(argv)
@@ -159,16 +174,16 @@ def test_resilience_flags_run(flag, value, extra, capsys):
      "--inject_faults needs push-sum"),
     (["--health_every", "3", "--print_freq", "2"], "multiple of"),
 ])
-def test_resilience_flags_are_validated(argv, match):
+def test_resilience_flags_are_validated(argv, match, small):
     with pytest.raises(SystemExit, match=match):
-        gossip_lm.main(SMALL + argv)
+        gossip_lm.main(small + argv)
 
 
 @pytest.mark.parametrize("flag,value", [("--sp", "2"), ("--remat", "True")])
-def test_sequence_flags_run(flag, value, capsys):
+def test_sequence_flags_run(flag, value, capsys, small):
     """Refused until the sequence-parallel slice; now three steps, at
     world 4 (dp 2 x sp 2 for ``--sp 2``)."""
-    result = gossip_lm.main(SMALL + ["--world_size", "4", flag, value])
+    result = gossip_lm.main(small + ["--world_size", "4", flag, value])
     assert math.isfinite(result["final_loss"])
     out = capsys.readouterr().out
     if flag == "--sp":
@@ -185,11 +200,11 @@ def test_sequence_flags_run(flag, value, capsys):
                              "--staleness", "2", "--peers_per_itr", "2"]),
     ("--precision", "fp32", ["--world_size", "2"]),
 ])
-def test_precision_flag_runs(flag, value, extra, capsys):
+def test_precision_flag_runs(flag, value, extra, capsys, small):
     """Refused until the bf16 slice; now three steps at bf16 with flash,
     with ring_flash at dp 2 x sp 2 under remat, and with OSGP, each
     printing finite rows (and ``fp32``, the default, as before)."""
-    result = gossip_lm.main(SMALL + [flag, value] + extra)
+    result = gossip_lm.main(small + [flag, value] + extra)
     out = capsys.readouterr().out
     assert f"precision {value};" in out
     rows = _rows(out)
@@ -198,10 +213,10 @@ def test_precision_flag_runs(flag, value, extra, capsys):
     assert 4.5 < result["final_loss"] < 7.0
 
 
-def test_unknown_precision_is_refused(capsys):
+def test_unknown_precision_is_refused(capsys, small):
     # as the reference's parser refuses it: argparse's invalid choice
     with pytest.raises(SystemExit) as exc:
-        gossip_lm.main(SMALL + ["--precision", "fp16"])
+        gossip_lm.main(small + ["--precision", "fp16"])
     assert exc.value.code == 2
     assert "invalid choice: 'fp16'" in capsys.readouterr().err
 
@@ -211,12 +226,12 @@ def test_unknown_precision_is_refused(capsys):
     (["--attn", "blockwise"], "blockwise"),
     (["--attn", "ring_flash"], "ring_flash"),
 ])
-def test_unported_modes_raise(argv, match, capsys):
+def test_unported_modes_raise(argv, match, capsys, small):
     """Once refused by name, these attentions train now: the ring ones at
     dp 2 x sp 2, blockwise at sp 1; each prints its mode and a finite
     loss."""
     sp = [] if match == "blockwise" else ["--sp", "2"]
-    result = gossip_lm.main(SMALL + argv + ["--world_size", "4"] + sp)
+    result = gossip_lm.main(small + argv + ["--world_size", "4"] + sp)
     assert math.isfinite(result["final_loss"])
     assert f"attn={match};" in capsys.readouterr().out
 
@@ -232,22 +247,23 @@ def test_unported_modes_raise(argv, match, capsys):
     (["--attn_block", "8"], "--attn_block 8 with --attn flash"),
     (["--sp", "0"], "--sp must be >= 1"),
 ])
-def test_sequence_flags_are_validated(argv, match):
+def test_sequence_flags_are_validated(argv, match, small):
     with pytest.raises(SystemExit, match=match):
-        gossip_lm.main(SMALL + argv)
+        gossip_lm.main(small + argv)
 
 
-def test_sp_under_torchrun_names_the_cross_process_ring(monkeypatch):
+def test_sp_under_torchrun_names_the_cross_process_ring(monkeypatch,
+                                                        small):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match="--sp 2 under torchrun.*"
                                          "cross-process sequence ring"):
-        gossip_lm.main(SMALL + ["--sp", "2"])
+        gossip_lm.main(small + ["--sp", "2"])
 
 
-def test_sp_health_lines_keep_the_mass(capsys):
+def test_sp_health_lines_keep_the_mass(capsys, small):
     """dp 2 x sp 2 with health every step: the gossip runs between the two
     replicas, and every health line shows ``ps_mass_err 0.0``."""
-    gossip_lm.main(SMALL + ["--world_size", "4", "--sp", "2", "--attn",
+    gossip_lm.main(small + ["--world_size", "4", "--sp", "2", "--attn",
                             "ring_flash", "--health_every", "1"])
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("gossip health: ")]
@@ -255,32 +271,32 @@ def test_sp_health_lines_keep_the_mass(capsys):
     assert all('"ps_mass_err": 0.0' in ln for ln in lines)
 
 
-def test_blockwise_takes_its_block(capsys):
-    result = gossip_lm.main(SMALL + ["--attn", "blockwise", "--attn_block",
+def test_blockwise_takes_its_block(capsys, small):
+    result = gossip_lm.main(small + ["--attn", "blockwise", "--attn_block",
                                      "8"])
     assert math.isfinite(result["final_loss"])
     assert "attn=blockwise;" in capsys.readouterr().out
 
 
-def test_default_device_is_cuda():
-    argv = [a for a in SMALL if a not in ("--device", "cpu")]
+def test_default_device_is_cuda(small):
+    argv = [a for a in small if a not in ("--device", "cpu")]
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default resolves to it")
     with pytest.raises(DeviceUnavailableError):
         gossip_lm.main(argv)
 
 
-def test_pallas_on_cpu_is_a_typed_error_naming_the_flag():
+def test_pallas_on_cpu_is_a_typed_error_naming_the_flag(small):
     from stochastic_gradient_push_torch.ops.gossip_kernel import (
         KernelBackendError)
 
     with pytest.raises(KernelBackendError, match="--gossip_kernel pallas"):
-        gossip_lm.main(SMALL + ["--world_size", "4", "--gossip_kernel",
+        gossip_lm.main(small + ["--world_size", "4", "--gossip_kernel",
                                 "pallas"])
 
 
 def test_pallas_under_torchrun_names_the_cross_process_transport(
-        monkeypatch):
+        monkeypatch, small):
     # the cross-process transport kernel runs under torchrun now; off the
     # card it is a typed error naming it
     from stochastic_gradient_push_torch.ops.gossip_kernel import (
@@ -290,7 +306,7 @@ def test_pallas_under_torchrun_names_the_cross_process_transport(
     with pytest.raises(KernelBackendError, match="--gossip_kernel pallas "
                                                  "under torchrun.*cross-"
                                                  "process"):
-        gossip_lm.main(SMALL + ["--gossip_kernel", "pallas"])
+        gossip_lm.main(small + ["--gossip_kernel", "pallas"])
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -299,6 +315,6 @@ def test_pallas_under_torchrun_names_the_cross_process_transport(
     (["--gossip_buckets", "0"], "gossip_buckets must be"),
     (["--all_reduce", "True", "--overlap", "True"], "push-sum gossip"),
 ])
-def test_overlap_and_kernel_flags_are_validated(argv, match):
+def test_overlap_and_kernel_flags_are_validated(argv, match, small):
     with pytest.raises(SystemExit, match=match):
-        gossip_lm.main(SMALL + ["--world_size", "2"] + argv)
+        gossip_lm.main(small + ["--world_size", "2"] + argv)

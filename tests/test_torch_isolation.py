@@ -4,7 +4,9 @@ and the port's chip scripts (``scripts/torch_*.py``) import neither jax
 nor the JAX package.
 
 One check runs the imports in a fresh interpreter where ``import jax``
-fails; the other reads the sources with ``ast``.
+fails; another reads the sources with ``ast``; a third runs the LM
+command line's harness (whose imports sit inside ``main``) and its
+resume in such an interpreter.
 """
 
 import ast
@@ -120,4 +122,42 @@ def test_every_module_imports_with_jax_unavailable():
                 "chip_smoke"}
     assert expected <= set(result["imported"])
     assert not [m for m in result["loaded"]
+                if m.startswith("stochastic_gradient_push_tpu")]
+
+
+_HARNESS_RUN = r"""
+import json, sys
+for name in ("jax", "jaxlib", "flax", "optax"):
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, sys.argv[1])
+from stochastic_gradient_push_torch.run import gossip_lm
+d = sys.argv[2]
+with open(d + "/corpus.txt", "wb") as f:
+    f.write(bytes(range(256)) * 40)
+argv = ["--device", "cpu", "--vocab_size", "256", "--d_model", "16",
+        "--n_layers", "1", "--n_heads", "1", "--d_ff", "32", "--seq_len",
+        "16", "--batch_size", "2", "--world_size", "2", "--print_freq", "1",
+        "--corpus_file", d + "/corpus.txt", "--val_frac", "0.1",
+        "--checkpoint_dir", d, "--profile_dir", d + "/prof",
+        "--profile_start_step", "1", "--profile_steps", "1"]
+gossip_lm.main(argv + ["--num_steps", "1", "--ckpt_every", "1"])
+result = gossip_lm.main(argv + ["--num_steps", "2", "--resume", "True"])
+print(json.dumps({"result": result, "loaded": sorted(
+    m for m in sys.modules if m.startswith("stochastic_gradient_push"))}))
+"""
+
+
+def test_lm_harness_runs_with_jax_unavailable(tmp_path):
+    """The LM CLI's harness imports inside ``main`` (file corpus,
+    validation, checkpoints, resume, the profile window): a run and its
+    resume in an interpreter where ``import jax`` fails."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _HARNESS_RUN, str(REPO), str(tmp_path)],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "val_loss" in out["result"] and "resumed from step 1" \
+        in proc.stdout
+    assert not [m for m in out["loaded"]
                 if m.startswith("stochastic_gradient_push_tpu")]

@@ -1,0 +1,200 @@
+"""The LM command line's harness (``run/gossip_lm.py``) across processes,
+on the CPU with gloo, at 2 layers, d32, seq 32:
+
+* SIGUSR1 to a run in a child process once its first CSV row is out: it
+  saves (the OSGP FIFO drained) and exits 75; a resume completes to
+  ``--num_steps`` and the CSV's rows run on without a gap.
+* Two processes under a torchrun environment (``RANK``, ``WORLD_SIZE``,
+  ``MASTER_ADDR/PORT`` set by hand): SIGUSR1 to one makes both save at
+  one step and exit 75; a resume on two processes continues from that
+  step, and its rows and rank files equal a straight stacked run's.  A
+  torn save window (one process's file deleted) starts every process at
+  step 0.
+
+Children are joined with timeouts; the stacked run in this process is
+pinned to the children's one torch thread around the run.
+"""
+
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+
+import torch
+
+from stochastic_gradient_push_torch.run import gossip_lm
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULE = "stochastic_gradient_push_torch.run.gossip_lm"
+SMALL = ["--device", "cpu", "--vocab_size", "256", "--d_model", "32",
+         "--n_layers", "2", "--n_heads", "1", "--d_ff", "64",
+         "--seq_len", "32", "--batch_size", "2", "--print_freq", "1",
+         "--warmup", "True", "--warmup_steps", "8",
+         "--corpus_tokens", "4000"]
+TIMEOUT = 240
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _env(rank=None, world=None, port=None):
+    """One torch thread; with ``rank``, a torchrun environment for it."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    if rank is not None:
+        env.update(RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    return env
+
+
+def _spawn(argv, world=None):
+    """The CLI in one child, or in ``world`` children of one group."""
+    if world is None:
+        envs = [_env()]
+    else:
+        port = _free_port()
+        envs = [_env(r, world, port) for r in range(world)]
+    return [subprocess.Popen([sys.executable, "-m", MODULE, *argv], env=env,
+                             cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT) for env in envs]
+
+
+def _join(procs, signal_to=None, when=None):
+    """Every child's ``(returncode, log)``; with ``signal_to``, SIGUSR1
+    goes to that child once ``when()`` holds."""
+    try:
+        if signal_to is not None:
+            deadline = time.time() + TIMEOUT
+            while not when():
+                assert time.time() < deadline, "the run never got going"
+                assert all(p.poll() is None for p in procs), \
+                    "a child ended before the signal"
+                time.sleep(0.05)
+            signal_to.send_signal(signal.SIGUSR1)
+        logs = [p.communicate(timeout=TIMEOUT)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], logs
+
+
+def _lines(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def _rows(path):
+    """The CSV's rows, ``tokens_per_sec`` (a host timing) left out."""
+    return [r.split(",")[:4] + r.split(",")[5:] for r in _lines(path)[1:]]
+
+
+def _file(directory, r, world):
+    blob = torch.load(os.path.join(directory,
+                                   f"lm_checkpoint_r{r}_n{world}.ckpt"),
+                      weights_only=True)
+    return blob["state"], json.loads(blob["meta"])
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _flat(sub, f"{prefix}/{i}").items()}
+    return {prefix: torch.as_tensor(tree)}
+
+
+def test_sigusr1_saves_exits_75_and_a_resume_completes(tmp_path):
+    n = 150   # far more steps than the child takes before the signal
+    argv = SMALL + ["--world_size", "2", "--num_steps", str(n),
+                    "--overlap", "True", "--staleness", "2",
+                    "--checkpoint_dir", str(tmp_path)]
+    csv = str(tmp_path / "lm_out_n2.csv")
+    (proc,) = _spawn(argv)
+    codes, logs = _join([proc], signal_to=proc,
+                        when=lambda: len(_lines(csv)) >= 2)
+    assert codes == [75], logs[0]
+    assert "preemption signal (SIGUSR1)" in logs[0]
+    states = [_file(tmp_path, r, 2) for r in range(2)]
+    k = states[0][1]["step"]
+    assert 1 <= k < n and all(m["step"] == k == s["step"]
+                              for s, m in states)
+    fifo = [t for s, _ in states
+            for t in _flat(s["gossip"]["in_flight"]).values()]
+    assert fifo and not any(t.any() for t in fifo)
+    assert [r[0] for r in _rows(csv)] == [str(i + 1) for i in range(k)]
+    result = gossip_lm.main(argv + ["--resume", "True"])
+    assert "already_complete" not in result
+    assert [r[0] for r in _rows(csv)] == [str(i + 1) for i in range(n)]
+    assert _file(tmp_path, 0, 2)[1]["step"] == n
+
+
+def test_torchrun_preemption_and_resume_continue_the_stacked_run(tmp_path):
+    n, world = 80, 2
+    dist, stacked = str(tmp_path / "dist"), str(tmp_path / "stacked")
+    argv = SMALL + ["--num_steps", str(n), "--checkpoint_dir", dist]
+    csv = os.path.join(dist, f"lm_out_p0_n{world}.csv")
+    procs = _spawn(argv, world)
+    codes, logs = _join(procs, signal_to=procs[1],
+                        when=lambda: len(_lines(csv)) >= 3)
+    assert codes == [75, 75], "\n".join(logs)
+    steps = [_file(dist, r, world)[1]["step"] for r in range(world)]
+    k = steps[0]
+    assert steps == [k, k] and 2 <= k < n
+    assert [r[0] for r in _rows(csv)] == [str(i + 1) for i in range(k)]
+
+    codes, logs = _join(_spawn(argv + ["--resume", "True"], world))
+    assert codes == [0, 0], "\n".join(logs)
+    assert f"resumed from step {k}" in logs[0]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        gossip_lm.main(SMALL + ["--num_steps", str(n), "--world_size",
+                                str(world), "--checkpoint_dir", stacked])
+    finally:
+        torch.set_num_threads(threads)
+    want = _rows(os.path.join(stacked, f"lm_out_n{world}.csv"))
+    assert len(want) == n
+    for p in range(world):
+        assert _rows(os.path.join(dist, f"lm_out_p{p}_n{world}.csv")) == want
+    for r in range(world):
+        got, meta = _file(dist, r, world)
+        ref, ref_meta = _file(stacked, r, world)
+        assert meta == ref_meta
+        got, ref = _flat(got), _flat(ref)
+        assert sorted(got) == sorted(ref)
+        for key in ref:
+            assert torch.equal(got[key], ref[key]), (r, key)
+
+
+def test_torn_save_window_starts_every_process_at_step_0(tmp_path):
+    world = 2
+    argv = SMALL + ["--checkpoint_dir", str(tmp_path)]
+    codes, logs = _join(_spawn(argv + ["--num_steps", "2"], world))
+    assert codes == [0, 0], "\n".join(logs)
+    os.remove(tmp_path / f"lm_checkpoint_r1_n{world}.ckpt")
+    codes, logs = _join(_spawn(argv + ["--num_steps", "3", "--resume",
+                                       "True"], world))
+    assert codes == [0, 0], "\n".join(logs)
+    assert "checkpoint present here but missing on a peer; starting from " \
+        "step 0" in logs[0]
+    assert "no checkpoint for rank 1" in logs[1]
+    assert "resumed from step" not in logs[0]
+    assert [r[0] for r in _rows(tmp_path / f"lm_out_p0_n{world}.csv")] \
+        == ["1", "2", "3"]
+    assert all(_file(tmp_path, r, world)[1]["step"] == 3
+               for r in range(world))

@@ -363,8 +363,9 @@ SMALL = ["--device", "cpu", "--vocab_size", "256", "--d_model", "32",
     ["--gossip_every", "3", "--overlap", "True", "--staleness", "2",
      "--global_avg_every", "2"],
 ])
-def test_cli_takes_thinning_and_averaging_flags(extra, capsys):
-    result = gossip_lm.main(SMALL + extra)
+def test_cli_takes_thinning_and_averaging_flags(extra, capsys, tmp_path):
+    result = gossip_lm.main(SMALL + extra
+                            + ["--checkpoint_dir", str(tmp_path)])
     assert math.isfinite(result["final_loss"])
     rows = capsys.readouterr().out.splitlines()
     assert "step,loss,ppl,lr,tokens_per_sec,grad_norm" in rows
@@ -375,6 +376,6 @@ def test_cli_takes_thinning_and_averaging_flags(extra, capsys):
     (["--global_avg_every", "-2"], "--global_avg_every must be >= 0"),
     (["--all_reduce", "True", "--gossip_every", "2"], "--gossip_every"),
 ])
-def test_cli_rejects_bad_thinning_flags(argv, match):
+def test_cli_rejects_bad_thinning_flags(argv, match, tmp_path):
     with pytest.raises(SystemExit, match=match):
-        gossip_lm.main(SMALL + argv)
+        gossip_lm.main(SMALL + argv + ["--checkpoint_dir", str(tmp_path)])

@@ -244,12 +244,12 @@ LM = ["--device", "cpu", "--vocab_size", "64", "--d_model", "16",
     ["--graph_type", "6"],
     ["--topology", "auto", "--mixing_alpha", "auto"],
 ], ids=["synth", "graph6", "auto-alpha"])
-def test_lm_cli_plans_as_the_reference(argv, capsys):
+def test_lm_cli_plans_as_the_reference(argv, capsys, tmp_path):
     from stochastic_gradient_push_tpu.planner import (make_interconnect,
                                                       resolve_topology)
     from stochastic_gradient_push_tpu.topology import GRAPH_TOPOLOGIES
 
-    result = gossip_lm.main(LM + argv)
+    result = gossip_lm.main(LM + argv + ["--checkpoint_dir", str(tmp_path)])
     assert np.isfinite(result["final_loss"])
     out = capsys.readouterr().out
     plan = [json.loads(line.split("gossip plan: ", 1)[1])
@@ -268,7 +268,7 @@ def test_lm_cli_plans_as_the_reference(argv, capsys):
     assert all(h["ps_mass_err"] == 0.0 for h in health)
 
 
-def test_lm_cli_refusals():
+def test_lm_cli_refusals(tmp_path):
     for argv, match in (
             (["--topology", "auto", "--world_size", "1"], "single-replica"),
             (["--topology", "auto", "--all_reduce", "True"],
@@ -278,4 +278,5 @@ def test_lm_cli_refusals():
              "needs push-sum")):
         with pytest.raises(SystemExit, match=match):
             with contextlib.redirect_stdout(io.StringIO()):
-                gossip_lm.main(LM + argv)
+                gossip_lm.main(LM + argv
+                               + ["--checkpoint_dir", str(tmp_path)])
