@@ -269,7 +269,29 @@
      validation batch and K4/K5 not, validation's share of the run's
      time; then the eval step on the saved state on the card, kernels
      against plain twins, losses within 2e-3 relative.
-16. A JSON line of per-kernel results (the fp32 flash rows also carry
+16. Intra-node averaging and gossip without a model:
+   - 16a: phase 8's SGP run of ``run/gossip_sgd.py`` (ResNet-50, 224 px,
+     fp32, 32 images a device row, two epochs of three steps) with
+     ``--world_size 4 --nprocs_per_node 2``: 2 nodes of 2 devices,
+     gradients, statistics and metrics averaged over a node's rows, one
+     K2 and one K1 a step between the nodes (asserted), the CSV as
+     phase 8's, its ``BT`` beside phase 8's flat world-4 ``BT``; then the
+     kernel lane and the plain lane from one state under deterministic
+     cuDNN: ps-weight bit-equal, params, momentum and statistics within
+     1e-6;
+   - 16b: the same command under a torchrun environment in 2 processes,
+     one node each (``--backend gloo --gossip_kernel pallas``; started
+     before 16a's lanes and joined with a timeout): each logs its batch
+     rows (``[0, 1]``, ``[2, 3]``), launches one cross-process K2 and K1
+     a step and no stacked one, and its rank file and rank 0's CSV rows
+     equal 16a's plain lane's (ps-weight exactly, the rest to phase 13b's
+     tolerance; CSV rows outside timing exactly);
+   - 16c: ``parallel/averaging.py::push_sum_average`` over ResNet-50's
+     parameters at world 8 stacked (each rank the seed-0 init plus its
+     own noise), 40 plain rounds of the n-peer exponential graph: the
+     consensus error below 1e-5 of the parameter scale, every rank
+     within 1e-6 of it of the float64 mean, ms a round and peak memory.
+17. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -1626,8 +1648,9 @@ def _preempt_check(tmp: str, card: str) -> None:
         raise AssertionError("cli preempt: the FIFO on disk is not drained")
 
 
-def cli_path(card: str) -> dict:
-    """Phase 8: the training CLI at ResNet-50's width."""
+def cli_path(card: str) -> tuple[dict, float]:
+    """Phase 8: the training CLI at ResNet-50's width.  Returns the main
+    runs' launches and the SGP run's mean ``BT`` (s)."""
     import torch
 
     from stochastic_gradient_push_torch.run import gossip_sgd_adpsgd
@@ -1642,8 +1665,10 @@ def cli_path(card: str) -> dict:
         main_runs = []
         for label, extra in (("sgp", []), ("dpsgd", ["--push_sum", "False"])):
             ckpt = os.path.join(tmp, label)
-            launches, _ = _cli_run(label, _cli_argv(
+            launches, result = _cli_run(label, _cli_argv(
                 ckpt, "--gossip_kernel", "pallas", *extra), card)
+            if label == "sgp":
+                flat_bt = result["batch_meter"].avg
             _assert_gossip_launches(label, launches, 1)
             _check_csv(os.path.join(ckpt, f"out_r0_n{CLI['world']}.csv"),
                        label)
@@ -1714,7 +1739,8 @@ def cli_path(card: str) -> dict:
         _preempt_check(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {n: sum(run[n] for run in main_runs) for n in main_runs[0]}
+    return ({n: sum(run[n] for run in main_runs) for n in main_runs[0]},
+            flat_bt)
 
 
 # -- phase 9: error feedback, faults, health and recovery --------------------
@@ -4411,6 +4437,217 @@ def harness_path(card: str) -> dict:
     return {n: sum(r[n] for r in runs) for n in runs[0]}
 
 
+# -- phase 16: intra-node averaging and gossip without a model --------------
+
+# 16a/16b: phase 8's CLI run (ResNet-50, 224 px, 32 a device row, world 4,
+# two epochs of three steps, SGP f32) with --nprocs_per_node 2: 2 nodes of
+# 2 devices, one gossip round a step between the nodes
+HIER_LOCAL = 2
+# 16c: push_sum_average over ResNet-50's parameters at world 8 stacked,
+# each rank the seed-0 init plus its own noise of this scale, 40 rounds of
+# the n-peer exponential graph; consensus below HIER_CONSENSUS and the
+# mean within HIER_MEAN of float64's, both relative to the parameter scale
+HIER_AVG = dict(world=8, rounds=40, noise=0.01)
+HIER_CONSENSUS = 1e-5
+HIER_MEAN = 1e-6
+
+
+def _node_files(ckpt_dir: str, nodes: int, world: int) -> list[dict]:
+    import torch
+
+    return [_flat(torch.load(os.path.join(
+        ckpt_dir, f"checkpoint_r{r}_n{world}.ckpt"), weights_only=True)[
+        "state"]) for r in range(nodes)]
+
+
+def _csv_outside_timing(path: str) -> list[list[str]]:
+    with open(path) as f:
+        rows = [line.split(",") for line in f.read().splitlines()]
+    return rows[:5] + [r[:2] + r[11:] for r in rows[5:]]
+
+
+def hierarchical_cli(card: str, tmp: str, flat_bt: float) -> dict:
+    """16a and 16b: the CLI with ``--nprocs_per_node 2`` stacked (the
+    kernel lane timed, then both lanes from one state under deterministic
+    cuDNN) and under a torchrun environment in 2 processes, one node
+    each, against the stacked plain lane.  Returns the main runs'
+    launches (16a's kernel-lane run and 16b's processes)."""
+    import torch
+
+    world, local = CLI["world"], HIER_LOCAL
+    nodes, steps = world // local, CLI["epochs"] * CLI["itrs"]
+    hier = ("--nprocs_per_node", str(local))
+    ckpt = os.path.join(tmp, "main")
+    launches, result = _cli_run("16a sgp", _cli_argv(
+        ckpt, "--gossip_kernel", "pallas", *hier), card)
+    _assert_gossip_launches("16a sgp", launches, 1)
+    _check_csv(os.path.join(ckpt, f"out_r0_n{world}.csv"), "16a sgp")
+    bt = result["batch_meter"].avg
+    print(f"hier 16a: {nodes} nodes x {local} devices, {steps} steps: one K2 "
+          f"and one K1 a step; BT {bt * 1e3:.2f} ms against phase 8's flat "
+          f"world-{world} SGP BT {flat_bt * 1e3:.2f} ms (the same "
+          f"{world} forward/backward passes of {CLI['batch']}, "
+          f"{nodes} gossip ranks instead of {world}) [{card}]", flush=True)
+
+    # 16b's processes start now and run beside 16a's lanes
+    def torchrun(r, port):
+        return dict(RANK=str(r), WORLD_SIZE=str(nodes), LOCAL_RANK=str(r),
+                    LOCAL_WORLD_SIZE=str(nodes), MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(port))
+
+    procs = _ranks(_DIST_CLI_CHILD, nodes, [json.dumps(_cli_argv(
+        os.path.join(tmp, "dist"), "--gossip_kernel", "pallas", *hier,
+        "--backend", "gloo", "--verbose", "True"))], torchrun)
+    torch.backends.cudnn.deterministic = True
+    try:
+        lanes = {}
+        for lane in ("pallas", "xla"):
+            d = os.path.join(tmp, f"lane_{lane}")
+            got, _ = _cli_run(f"16a {lane} lane", _cli_argv(
+                d, "--gossip_kernel", lane, *hier), card)
+            _assert_gossip_launches(f"16a {lane} lane", got,
+                                    1 if lane == "pallas" else 0)
+            lanes[lane] = _node_files(d, nodes, world)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    err = max(_max_err(a[n], b[n]) for a, b in zip(lanes["pallas"],
+                                                   lanes["xla"]) for n in a)
+    exact = all(torch.equal(a[n], b[n]) for a, b in zip(
+        lanes["pallas"], lanes["xla"]) for n in a)
+    ps_equal = all(torch.equal(a["ps_weight"], b["ps_weight"])
+                   for a, b in zip(lanes["pallas"], lanes["xla"]))
+    print(f"hier 16a lanes: kernel vs plain lane, {steps} steps from one "
+          f"state under deterministic cuDNN: ps-weight bit-equal "
+          f"{ps_equal}; max |diff| {err:.3e} over params, momentum and "
+          f"statistics (tolerance {TOL_STEP_PARAM}); exactly equal {exact} "
+          f"[{card}]", flush=True)
+    if not (ps_equal and err <= TOL_STEP_PARAM):
+        raise AssertionError("hier 16a: the lanes differ")
+
+    logs = _join("16b", procs)
+    dist = {}
+    for r, log in enumerate(logs):
+        rows = list(range(r * local, (r + 1) * local))
+        if f"feeding batch rows {rows}" not in log:
+            raise AssertionError(f"16b process {r}: no 'feeding batch rows "
+                                 f"{rows}' line")
+        got = _tagged(log, "LAUNCHES")
+        want = {"gossip_edge_start": 0, "gossip_edge_wait": 0,
+                "gossip_edge_start_ipc": steps, "gossip_edge_wait_ipc": steps}
+        if got != want:
+            raise AssertionError(f"16b process {r}: launches {got}, expected "
+                                 f"{want} (one cross-process start and wait "
+                                 f"a step)")
+        for k, v in got.items():
+            dist[k] = dist.get(k, 0) + v
+    got = _node_files(os.path.join(tmp, "dist"), nodes, world)
+    worst, n_exact = 0.0, 0
+    for r, (g, w) in enumerate(zip(got, lanes["xla"])):
+        if sorted(g) != sorted(w) or not torch.equal(g["ps_weight"],
+                                                     w["ps_weight"]):
+            raise AssertionError(f"16b node {r}: rank file differs")
+        for k in w:
+            # phase 13b's tolerance (tests/test_torch_resnet_step.py's)
+            torch.testing.assert_close(g[k], w[k], rtol=1e-5, atol=1e-6,
+                                       msg=f"16b node {r} {k}")
+            worst = max(worst, _max_err(g[k], w[k]))
+            n_exact += bool(torch.equal(g[k], w[k]))
+    rows_dist = _csv_outside_timing(os.path.join(tmp, "dist",
+                                                 f"out_r0_n{world}.csv"))
+    rows_stacked = _csv_outside_timing(os.path.join(
+        tmp, "lane_xla", f"out_r0_n{world}.csv"))
+    if rows_dist != rows_stacked:
+        raise AssertionError(f"16b: CSV rows {rows_dist} differ from the "
+                             f"stacked plain lane's {rows_stacked}")
+    print(f"hier 16b: run/gossip_sgd.py in {nodes} processes (one node of "
+          f"{local} devices each, rows [0, 1] and [2, 3], --backend gloo, "
+          f"--gossip_kernel pallas): one cross-process K2 and K1 a step in "
+          f"each; CSV rows equal to the stacked plain lane's outside "
+          f"timing; rank files: max |diff| {worst:.3g}, {n_exact} of "
+          f"{sum(len(w) for w in lanes['xla'])} tensors exactly equal "
+          f"[{card}]", flush=True)
+    return {n: launches.get(n, 0) + dist.get(n, 0)
+            for n in {*launches, *dist}}
+
+
+def hierarchical_averaging(card: str) -> None:
+    """16c: ``push_sum_average`` on ResNet-50's parameters at world 8
+    stacked on the card: consensus, the float64 mean, ms a round and the
+    peak memory."""
+    import torch
+
+    from stochastic_gradient_push_torch.models.convert import (
+        init_model_params)
+    from stochastic_gradient_push_torch.parallel.averaging import (
+        consensus_error, push_sum_average)
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.topology import (
+        NPeerDynamicDirectedExponentialGraph, build_schedule)
+    from stochastic_gradient_push_torch.train.step import make_model
+
+    c = HIER_AVG
+    params, _ = init_model_params(make_model("resnet50", num_classes=1000),
+                                  0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {n: p.cuda()[None] + c["noise"] * torch.randn(
+        (c["world"], *p.shape), generator=g, device="cuda")
+        for n, p in params.items()}
+    del params
+    numel = sum(t[0].numel() for t in tree.values())
+    scale = max(float(t.abs().max()) for t in tree.values())
+    sched = build_schedule(NPeerDynamicDirectedExponentialGraph(
+        c["world"], peers_per_itr=1))
+    transport = StackedTransport(c["world"])
+    before = consensus_error(tree)
+    out = push_sum_average(tree, transport, sched, rounds=c["rounds"])
+    after = consensus_error(out)
+    mean_err = max(float((out[n].double() - t.double().mean(0)).abs().max())
+                   for n, t in tree.items())
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = push_sum_average(tree, transport, sched, rounds=c["rounds"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / c["rounds"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"hier 16c: push_sum_average on ResNet-50's {numel:,} parameters "
+          f"x {c['world']} ranks ({c['world'] * numel * 4 / 1e6:.0f} MB), "
+          f"{c['rounds']} rounds of the n-peer exponential graph: consensus "
+          f"error {before:.3e} -> {after:.3e} ({after / scale:.3e} of the "
+          f"parameter scale {scale:.3f}; limit {HIER_CONSENSUS}), the mean "
+          f"within {mean_err:.3e} of float64's ({mean_err / scale:.3e}; "
+          f"limit {HIER_MEAN}); {ms:.3f} ms a round (the plain round, CUDA "
+          f"events over the call, de-bias included), peak "
+          f"{peak:.2f} GB [{card}]", flush=True)
+    del out, tree
+    if not after <= HIER_CONSENSUS * scale:
+        raise AssertionError("hier 16c: no consensus")
+    if not mean_err <= HIER_MEAN * scale:
+        raise AssertionError("hier 16c: the consensus is not the mean")
+
+
+def hierarchical_path(card: str, flat_bt: float) -> dict:
+    """Phase 16: ``--nprocs_per_node`` on the stacked and torchrun lanes
+    (16a, 16b), then ``push_sum_average`` on the card (16c).  Returns the
+    main runs' launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hier_", dir=os.path.join(ROOT, "build"))
+    try:
+        launches = hierarchical_cli(card, tmp, flat_bt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    hierarchical_averaging(card)
+    print(f"hier: phase 16 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4456,7 +4693,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     resnet_osgp = resnet_train_path(card, "osgp", "bf16", True, 2, 2, 3, 2)
     torch.cuda.empty_cache()
-    cli_launches = cli_path(card)
+    cli_launches, flat_bt = cli_path(card)
     torch.cuda.empty_cache()
     resil_launches = resilience_path(card)
     torch.cuda.empty_cache()
@@ -4473,6 +4710,8 @@ def main() -> int:
     image_launches = image_path(card)
     torch.cuda.empty_cache()
     harness_launches = harness_path(card)
+    torch.cuda.empty_cache()
+    hier_launches = hierarchical_path(card, flat_bt)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
@@ -4480,13 +4719,13 @@ def main() -> int:
     # phase 10's kernel-lane steps and CLI runs, phase 11's timed steps
     # and CLI run, phase 12's timed steps and CLI run, phase 13b's CLI
     # processes, phase 14a's three CLI runs, phase 15's in-process CLI
-    # runs) summed
+    # runs, phase 16a's kernel-lane CLI run and 16b's processes) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
             topo_launches, seq_launches, bf16_launches, dist_launches,
-            image_launches, harness_launches))
+            image_launches, harness_launches, hier_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -106,6 +106,7 @@ from ..ops import gossip_kernel as gk
 from ..topology.hierarchical import HierarchicalSchedule
 from ..topology.schedule import GossipSchedule
 from ..topology.synthesized import SynthesizedSchedule
+from ..utils.flatten import flat_by_dtype, unflatten_by_dtype
 from . import wire as wire_mod
 
 __all__ = ["StackedTransport", "DistTransport", "PendingShares",
@@ -119,27 +120,6 @@ def _scaled(x: torch.Tensor, inv: float) -> torch.Tensor:
     reference's ``a * jnp.asarray(1/s, a.dtype)``.  The rounded value is
     a host scalar (exact in the dtype), so no copy to the device."""
     return x * float(torch.tensor(inv, dtype=x.dtype))
-
-
-def _flat_by_dtype(leaves):
-    """The rank-stacked leaves raveled and concatenated per dtype: a list
-    of ``(flat [R, N], [(leaf index, n), ...])``, so a grouped mean is a
-    few launches (and one collective) over all leaves."""
-    order: dict = {}
-    for j, a in enumerate(leaves):
-        order.setdefault(a.dtype, []).append(j)
-    return [(torch.cat([leaves[j].reshape(leaves[j].shape[0], -1)
-                        for j in js], 1),
-             [(j, leaves[j][0].numel()) for j in js])
-            for js in order.values()]
-
-
-def _unflatten(out: list, leaves, flat, index) -> None:
-    """Views of ``flat`` back into ``out``, shaped like ``leaves``."""
-    off = 0
-    for j, n in index:
-        out[j] = flat[:, off:off + n].reshape(leaves[j].shape)
-        off += n
 
 
 class StackedTransport:
@@ -195,12 +175,12 @@ class StackedTransport:
             raise ValueError("group_mean takes equal contiguous rank "
                              f"blocks covering the world, got {groups}")
         out = list(leaves)
-        for flat, index in _flat_by_dtype(leaves):
+        for flat, index in flat_by_dtype(leaves):
             blocks = _scaled(flat, 1.0 / s).view(m, s, -1)
             acc = blocks[:, 0]
             for k in range(1, s):
                 acc = acc + blocks[:, k]
-            _unflatten(out, leaves, acc.unsqueeze(1).expand_as(blocks)
+            unflatten_by_dtype(out, leaves, acc.unsqueeze(1).expand_as(blocks)
                        .reshape(flat.shape), index)
         return out
 
@@ -309,8 +289,8 @@ class DistTransport:
             self._groups[key] = next(pg for g, pg in zip(key, made)
                                      if self.rank in g)
         out = list(leaves)
-        for flat, index in _flat_by_dtype(leaves):
-            _unflatten(out, leaves, self._reduce(
+        for flat, index in flat_by_dtype(leaves):
+            unflatten_by_dtype(out, leaves, self._reduce(
                 _scaled(flat, 1.0 / len(key[0])), self._dist.ReduceOp.SUM,
                 self._groups[key]), index)
         return out

@@ -29,6 +29,20 @@ Example (CPU, the kernels' plain twins)::
       --num_classes 10 --batch_size 8 --world_size 4 --num_epochs 2 \\
       --num_iterations_per_training_epoch 5 --checkpoint_dir /tmp/ckpt/
 
+``--nprocs_per_node L`` groups the devices into nodes of L (the
+reference's deployment knob, ``parallel/mesh.py``): gradients, BatchNorm
+statistics and metrics are averaged exactly over a node's L batch rows,
+and the gossip (and the planner) runs between the ``world // L`` nodes.
+``--world_size`` counts devices, so the LR schedule, the CSV's
+``World-Size`` and the file names' ``_n{world}`` do, while the rank
+files and per-rank CSVs are one per node: ``--world_size 8
+--nprocs_per_node 2`` writes ``out_r{0..3}_n8.csv`` and
+``checkpoint_r{0..3}_n8.ckpt``.  Under ``torchrun`` a process holds one
+node (the reference's rule that a gossip rank's devices share a
+process): the world is processes × L devices, process ``p`` feeds batch
+rows ``[p·L, (p+1)·L)``, and ``--world_size``, when given, must equal
+that product.
+
 It runs on CUDA unless ``--device cpu``.  The rank-averaged CSV
 ``{tag}out_r0_n{world}.csv`` (one per rank with ``--per_rank_csv True``)
 and one checkpoint per rank, ``{tag}checkpoint_r{rank}_n{world}.ckpt``,
@@ -92,8 +106,6 @@ __all__ = ["build_parser", "parse_config", "build", "main", "UNPORTED"]
 UNPORTED = {
     "--stem_s2d": ("False", str, "the space-to-depth ResNet stem"),
     "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
-    "--nprocs_per_node": (1, int, "intra-node averaging (a local mesh "
-                                  "axis)"),
     "--scan_steps": (1, int, "fused multi-step programs"),
     "--multihost": ("auto", str, "multi-host runs"),
     "--coordinator_address": (None, str, "multi-host runs"),
@@ -393,8 +405,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_cuda_streams", action="store_true",
                    help="accepted for compatibility; unused")
     p.add_argument("--world_size", default=None, type=int,
-                   help="gossip ranks, all held in this process (default "
-                        "1); under torchrun the launcher's world")
+                   help="devices, all held in this process (default 1); "
+                        "under torchrun, when given, the launcher's "
+                        "processes x --nprocs_per_node")
+    p.add_argument("--nprocs_per_node", default=1, type=int,
+                   help="devices per node: gradients, BatchNorm statistics "
+                        "and metrics averaged exactly over a node's rows, "
+                        "the gossip between nodes (under torchrun a process "
+                        "holds one node)")
     p.add_argument("--model", default="resnet50", type=str,
                    help=f"one of {', '.join(MODELS)}")
     p.add_argument("--dataset", default="imagefolder",
@@ -658,6 +676,7 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     from ..ops.gossip_kernel import KernelBackendError
     from ..parallel.collectives import DistTransport, StackedTransport
     from ..parallel.discovery import discover
+    from ..parallel.mesh import make_hierarchical_layout
     from ..parallel.multihost import initialize_multihost, process_device
     from ..train.loop import Trainer, refuse_single_process_only
     from ..utils.checkpoint import CheckpointManager, ClusterManager
@@ -665,14 +684,24 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
 
     log = make_logger("main", cfg.verbose)
     info = discover()
-    spread = info.world_size > 1   # one rank per process
-    if spread and args.world_size not in (None, info.world_size):
+    spread = info.world_size > 1   # one gossip rank (node) per process
+    local = args.nprocs_per_node
+    if spread and args.world_size not in (None, info.world_size * local):
         raise SystemExit(f"--world_size {args.world_size} but the launcher "
-                         f"started {info.world_size} processes")
-    world = info.world_size if spread else (args.world_size or 1)
+                         f"started {info.world_size} processes of "
+                         f"--nprocs_per_node {local} devices each "
+                         f"({info.world_size * local})")
+    # devices: the data and LR world; the gossip runs between its nodes
+    world = info.world_size * local if spread else (args.world_size or 1)
+    try:
+        nodes = make_hierarchical_layout(local, world)
+    except ValueError as e:
+        raise SystemExit(f"--world_size {world} --nprocs_per_node {local}: "
+                         f"{e}") from None
+    cfg.nprocs_per_node = local
     # planning is numpy only: its line and warnings come before any
-    # device work, as in the reference
-    _resolve_plan(cfg, args, world, log)
+    # device work, as in the reference; it sees the gossip world
+    _resolve_plan(cfg, args, nodes, log)
     owns_group = False
     if spread:
         try:
@@ -689,12 +718,17 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
         ranks = [transport.rank]
     else:
         device = resolve_device(args.device)
-        transport = StackedTransport(world)
-        ranks = list(range(world))
+        transport = StackedTransport(nodes)
+        ranks = list(range(nodes))
     model = _make_model(args, cfg.num_classes)
 
-    # this process's rank rows of the samplers the stacked lane reads
-    held = ranks if spread else None
+    # this process's device rows of the samplers the stacked lane reads:
+    # its node's
+    held = (list(range(ranks[0] * local, (ranks[0] + 1) * local))
+            if spread else None)
+    if spread:
+        log.info(f"process {ranks[0]}/{nodes}: feeding batch rows "
+                 f"{held}")
     if args.dataset == "imagefolder":
         loader, sampler, val_loader = _image_folders(args, cfg, world, held,
                                                      log)
@@ -725,9 +759,12 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
                                  f"{e}") from None
     alg = trainer.make_algorithm(cfg.ppi_schedule[0])
     lane = getattr(alg, "transport_kernel_name", None)
-    where = (f"rank {ranks[0]} of {world}, one a process, on {device} "
-             f"({torch.distributed.get_backend()})" if spread
+    where = (f"rank {ranks[0]} of {nodes}, one a process, on "
+             f"{device} ({torch.distributed.get_backend()})" if spread
              else f"world {world} stacked on {device}")
+    if local > 1:
+        where += (f"; {nodes} nodes x {local} devices, gossip "
+                  f"between nodes")
     log.info(f"{where}; {args.model}, "
              f"{args.image_size} px, {cfg.num_classes} classes, batch "
              f"{cfg.batch_size}/rank; algorithm {alg.name}"

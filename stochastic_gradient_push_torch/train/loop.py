@@ -54,6 +54,16 @@ staleness summary is logged and returned as ``async_bilat``.
 ``bilat_async`` and ``checkpoint_all=False`` (rank 0's file alone, see
 ``utils/checkpoint.py``) are single-process only.
 
+``nprocs_per_node`` L > 1 makes the transport's ranks nodes of L devices:
+the step averages gradients, BatchNorm statistics and metrics exactly
+over a node's L batch rows (``train/step.py``'s ``local_axis``) and the
+gossip runs between nodes.  The Trainer keeps the reference's two worlds:
+``gossip_world``, the transport's (the graph, the recovery policy, the
+per-rank metrics and CSVs, the rank files), and ``world_size`` =
+``gossip_world × L``, the devices (the LR schedule, the file names'
+``_n{world}``, the CSV's ``World-Size`` and the sample counts).  The
+loader feeds the held nodes' ``L`` rows each.
+
 ``plan`` is the launch-time topology plan (``planner.Plan.to_dict()``,
 made by the CLI): its fabric model, wire stamp and synthesis stamp reach
 the recovery policy's re-plans, and every rank file's meta carries it.
@@ -181,7 +191,6 @@ UNPORTED = {
     "metrics_every": (0, "run telemetry"),
     "fleet": (False, "fleet supervision"),
     "host_id": (None, "fleet supervision"),
-    "nprocs_per_node": (1, "intra-node averaging (a local mesh axis)"),
     "scan_steps": (1, "fused multi-step programs (scan_steps > 1)"),
 }
 
@@ -234,14 +243,21 @@ class Trainer:
                  cluster_manager: ClusterManager | None = None,
                  device=None):
         _refuse_unported(config, transport)
+        if config.nprocs_per_node < 1:
+            raise ValueError(f"nprocs_per_node must be >= 1, got "
+                             f"{config.nprocs_per_node}")
         self.cfg = config
         self.model = model
         self.transport = transport
         self.device = resolve_device(device)
-        self.world_size = transport.world_size
-        # ranks this process holds: all of them, or its own
+        # the gossip ranks (nodes), and the devices: the data and LR world
+        self.gossip_world = transport.world_size
+        self.world_size = transport.world_size * config.nprocs_per_node
+        self.local_axis = (config.nprocs_per_node
+                           if config.nprocs_per_node > 1 else None)
+        # gossip ranks this process holds: all of them, or its own
         self.held = len(transport.ranks)
-        self.spread = self.held < self.world_size
+        self.spread = self.held < self.gossip_world
         # resolved here, so "pallas" off the card fails before any step
         self.lane = resolve_gossip_kernel(config.gossip_kernel,
                                           device=self.device)
@@ -282,7 +298,7 @@ class Trainer:
                 except KeyError:
                     topo = None
                 self.recovery_policy = RecoveryPolicy(
-                    world=self.world_size,
+                    world=self.gossip_world,
                     ppi=ppi_at_epoch(config.ppi_schedule, 0),
                     algorithm="sgp" if config.push_sum else "dpsgd",
                     topology=topo,
@@ -312,7 +328,7 @@ class Trainer:
         self._async_bilat = None  # built per fit with bilat_async
         self._warned_prefetch = False
         # rank 0's process writes the CSVs, from every rank's metrics
-        self._csv_ranks = ((tuple(range(self.world_size))
+        self._csv_ranks = ((tuple(range(self.gossip_world))
                             if config.per_rank_csv else (0,))
                            if 0 in transport.ranks else ())
         self._fname = lambda r: os.path.join(
@@ -391,7 +407,7 @@ class Trainer:
             # no communication in the step: the bilateral averaging runs
             # on a host thread (train/async_bilat.py); local SGD here
             return GossipAlgorithm()
-        graph = cfg.graph_class(self.world_size, peers_per_itr=ppi)
+        graph = cfg.graph_class(self.gossip_world, peers_per_itr=ppi)
         if cfg.bilat:
             return adpsgd(build_pairing_schedule(graph), self.transport)
         mixing = cfg.mixing_class() if cfg.mixing_class else None
@@ -439,6 +455,7 @@ class Trainer:
                 num_classes=self.cfg.num_classes,
                 label_smoothing=self.cfg.label_smoothing,
                 grad_accum=self.cfg.grad_accum,
+                local_axis=self.local_axis,
                 health_axis=(self.transport if self.monitor is not None
                              else None))
             self._step_cache[key] = (alg, step)
@@ -546,7 +563,7 @@ class Trainer:
                                  "the matching schedule")
             from .async_bilat import AsyncBilateralAverager
 
-            graph = cfg.graph_class(self.world_size, peers_per_itr=1)
+            graph = cfg.graph_class(self.gossip_world, peers_per_itr=1)
             self._async_bilat = AsyncBilateralAverager(
                 build_pairing_schedule(graph),
                 min_interval_s=cfg.bilat_async_interval).start()
@@ -799,12 +816,13 @@ class Trainer:
         sample-weighted mean top-1 over ranks and batches."""
         if self._eval_fn is None or self._eval_alg is not algorithm:
             self._eval_fn = build_eval_step(self.model, algorithm,
-                                            self.cfg.num_classes)
+                                            self.cfg.num_classes,
+                                            local_axis=self.local_axis)
             self._eval_alg = algorithm
         losses = Meter(ptag="Loss")
         top1 = Meter(ptag="Prec@1")
         top5 = Meter(ptag="Prec@5")
-        rank_top1 = np.zeros(self.world_size)
+        rank_top1 = np.zeros(self.gossip_world)
         n_batches, n_samples = 0, 0
         for x, y in val_loader:
             n = self.world_size * x.shape[1]
@@ -813,14 +831,14 @@ class Trainer:
             losses.update(float(np.mean(m["loss"])), n)
             top1.update(float(np.mean(m["top1"])), n)
             top5.update(float(np.mean(m["top5"])), n)
-            rank_top1 += m["top1"].reshape(self.world_size) * n
+            rank_top1 += m["top1"].reshape(self.gossip_world) * n
             n_samples += n
             n_batches += 1
         if n_batches == 0:
             self.log.warning(
                 "validation loader yielded no batches (dataset smaller "
                 "than one world batch?) — reporting -1")
-            self._last_val_per_rank = [-1.0] * self.world_size
+            self._last_val_per_rank = [-1.0] * self.gossip_world
             return -1.0
         self._last_val_per_rank = (rank_top1 / n_samples).tolist()
         self.log.info(f" * Prec@1 {top1.avg:.3f} Prec@5 {top5.avg:.3f}")

@@ -1,26 +1,39 @@
 """The image-classification train and eval steps: model + algorithm +
 optimizer + LR schedule.
 
-Port of ``stochastic_gradient_push_tpu/train/step.py`` for the flat
-gossip mesh: :func:`build_train_step` (with ``grad_accum`` and
-``label_smoothing``), :func:`build_eval_step`, :func:`init_train_state`,
+Port of ``stochastic_gradient_push_tpu/train/step.py``:
+:func:`build_train_step` (with ``grad_accum``, ``label_smoothing`` and
+``local_axis``), :func:`build_eval_step`, :func:`init_train_state`,
 :func:`replica_spread` and :func:`unreplicate`.  The step keeps the
 reference's slot order exactly::
 
     normalize (uint8 -> ImageNet-normalized f32) → pre_step → eval_params
-      → per-rank forward/backward with rank-local BatchNorm → reduce_grads
-      → LR → numerator update → post_step → metrics (loss, top1, top5,
-      lr, grad_norm)
+      → per-row forward/backward with row-local BatchNorm → the local
+      mean → reduce_grads → LR → numerator update → post_step → metrics
+      (loss, top1, top5, lr, grad_norm)
 
-Batches are rank-stacked NHWC, ``images [R, B, H, W, C]`` (float, or
+Batches are row-stacked NHWC, ``images [R, B, H, W, C]`` (float, or
 uint8 normalized on the device) and ``labels [R, B]``, as the
-reference's loaders yield them; each rank's images are permuted to NCHW
-once for the model.  Each rank's forward and backward is
-``torch.func.functional_call`` of one meta-device module with that
-rank's de-biased parameters and BatchNorm statistics; one rank's
+reference's loaders yield them; each row's images are permuted to NCHW
+once for the model.  Each row's forward and backward is
+``torch.func.functional_call`` of one meta-device module with its
+rank's de-biased parameters and BatchNorm statistics; one row's
 activations live at a time.  The new running statistics come back
 through the forward's ``stats_out`` (``models/resnet.py``), advanced
 once per microbatch under ``grad_accum`` as the reference's scan does.
+
+``local_axis`` (the local size ``L``, the original's
+``nprocs_per_node``; ``parallel/mesh.py``) makes the state's rows nodes
+and the batch's rows devices: ``images [N·L, B, ...]`` against state
+rows ``[N, ...]``, row ``n·L + l`` node ``n``'s device ``l``.  Each
+device row runs the step above on its node's parameters and statistics,
+then the node takes the exact mean over its ``L`` rows, summed in local
+order and divided by ``L`` (the reference's ``psum`` over the local
+axis, then its division): the gradients, the new BatchNorm statistics
+(each row normalizes with its own batch's, so a node's running
+statistics are the mean of ``L`` EMAs, not one wider batch's) and the
+loss and accuracies; ``grad_norm`` is taken on the averaged gradients.
+``reduce_grads``, the update and the gossip then run once per node.
 
 ``health_axis`` (the transport the signals reduce over, the
 reference's gossip axis) adds the consensus health signals
@@ -29,8 +42,6 @@ reference's gossip axis) adds the consensus health signals
 the algorithm the model's reference layout
 (``models/convert.py::reference_layout``), where the int8 wire cuts its
 blocks.
-
-Not ported, and refused by name: ``local_axis`` (intra-node averaging).
 """
 
 from __future__ import annotations
@@ -79,12 +90,38 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     return torch.addcmul(neg_mean, images.float(), scale) * inv_std
 
 
-def _refuse(local_axis) -> None:
-    if local_axis is not None:
-        raise NotImplementedError(
-            "local_axis (intra-node gradient and BN averaging) is not "
-            "ported to stochastic_gradient_push_torch yet (ROADMAP.md "
-            "Queue 1)")
+def _local_size(local_axis) -> int:
+    """``local_axis`` as the local size ``L`` (None: 1, the flat step);
+    the reference's mesh-axis names do not carry over."""
+    if local_axis is None:
+        return 1
+    if isinstance(local_axis, bool) or not isinstance(local_axis, int) \
+            or local_axis < 1:
+        raise ValueError(f"local_axis is the local size L, an int >= 1 "
+                         f"(or None), got {local_axis!r}")
+    return local_axis
+
+
+def _node_rows(rows: int, nodes: int, local: int) -> None:
+    if rows != nodes * local:
+        raise ValueError(f"{rows} batch rows for {nodes} node rows of "
+                         f"local_axis={local}: the batch holds each "
+                         f"node's {local} device rows")
+
+
+def _local_mean(parts: list):
+    """``Σ_l parts[l] / L`` over one node's rows, summed in local order;
+    each part a tensor, a dict or a tuple of them."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _local_mean([p[k] for p in parts]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_local_mean([p[i] for p in parts])
+                     for i in range(len(first)))
+    total = first
+    for p in parts[1:]:
+        total = total + p
+    return total / len(parts)
 
 
 def health_metrics(params, grads, gstate, transport, layout) -> dict:
@@ -108,11 +145,13 @@ def build_train_step(model, algorithm: GossipAlgorithm, tx, lr_schedule,
                      grad_accum: int = 1, health_axis=None) -> tp.Callable:
     """Step ``(state, images, labels) -> (state, metrics)``.  Metrics are
     per held rank ``[R]`` (``loss``, ``top1``, ``top5``, ``grad_norm``)
-    and the step's ``lr``.  ``grad_accum`` splits each rank's batch into
+    and the step's ``lr``.  ``grad_accum`` splits each row's batch into
     that many microbatches: gradients, loss and accuracies are summed,
     then divided, and the BatchNorm EMA advances once per microbatch.
-    ``health_axis`` (a transport) adds the health signals."""
-    _refuse(local_axis)
+    ``local_axis`` (an int ``L``) averages each node's ``L`` batch rows
+    exactly (the module docstring).  ``health_axis`` (a transport) adds
+    the health signals, after the local mean."""
+    local = _local_size(local_axis)
     if grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
     layout = reference_layout(model) if model is not None else None
@@ -148,9 +187,15 @@ def build_train_step(model, algorithm: GossipAlgorithm, tx, lr_schedule,
         params, gstate = algorithm.pre_step(state.params, state.gossip)
         z = algorithm.eval_params(params, gstate)
 
-        per_rank = [rank_step(_rank(z, r), _rank(state.batch_stats, r),
+        nodes = state.gossip.ps_weight.shape[0]
+        _node_rows(images.shape[0], nodes, local)
+        per_rank = [rank_step(_rank(z, r // local),
+                              _rank(state.batch_stats, r // local),
                               images[r], labels[r])
                     for r in range(images.shape[0])]
+        if local > 1:
+            per_rank = [_local_mean(per_rank[n * local:(n + 1) * local])
+                        for n in range(nodes)]
         grads = {n: torch.stack([g[n] for g, _, _ in per_rank]) for n in z}
         batch_stats = {n: torch.stack([s[n] for _, s, _ in per_rank])
                        for n in state.batch_stats}
@@ -176,26 +221,35 @@ def build_train_step(model, algorithm: GossipAlgorithm, tx, lr_schedule,
     return train_step
 
 
-def build_eval_step(model, algorithm: GossipAlgorithm,
-                    num_classes: int) -> tp.Callable:
+def build_eval_step(model, algorithm: GossipAlgorithm, num_classes: int,
+                    local_axis=None) -> tp.Callable:
     """Eval step ``(state, images, labels) -> metrics``: the validation
     view of the params (``algorithm.val_params``: the overlap FIFO
     drained, de-biased), running BatchNorm statistics, no gossip; per
-    held rank ``loss``, ``top1``, ``top5``."""
+    held rank ``loss``, ``top1``, ``top5``.  With ``local_axis`` (``L``)
+    each batch row is evaluated with its node's parameters and
+    statistics, and a node's metrics are the mean over its ``L`` rows."""
+    local = _local_size(local_axis)
 
     @torch.no_grad()
     def eval_step(state: TrainState, images, labels):
         images = normalize_images(images)
         z = algorithm.val_params(state.params, state.gossip)
+        nodes = state.gossip.ps_weight.shape[0]
+        _node_rows(images.shape[0], nodes, local)
         out = []
         for r in range(images.shape[0]):
+            n = r // local
             logits = functional_call(
-                model, {**_rank(z, r), **_rank(state.batch_stats, r)},
+                model, {**_rank(z, n), **_rank(state.batch_stats, n)},
                 (images[r].permute(0, 3, 1, 2).contiguous(),),
                 {"train": False})
             out.append((kl_div_loss(logits, one_hot(labels[r],
                                                      num_classes)),
                         *accuracy_topk(logits, labels[r])))
+        if local > 1:
+            out = [_local_mean(out[n * local:(n + 1) * local])
+                   for n in range(nodes)]
         return {k: torch.stack([o[i] for o in out])
                 for i, k in enumerate(("loss", "top1", "top5"))}
 

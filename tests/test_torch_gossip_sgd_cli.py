@@ -150,7 +150,7 @@ def test_reference_flags_parse_with_reference_defaults():
 # one value per unported flag, each away from its default
 UNPORTED_VALUES = {
     "--stem_s2d": "True", "--gossip_comm_dtype": "bf16",
-    "--nprocs_per_node": "2", "--scan_steps": "2", "--multihost": "True",
+    "--scan_steps": "2", "--multihost": "True",
     "--coordinator_address": "localhost:1", "--num_processes": "2",
     "--process_id": "1", "--ckpt_backend": "orbax",
     "--trace_dir": "/nonexistent", "--metrics_every": "5",
@@ -158,11 +158,18 @@ UNPORTED_VALUES = {
 }
 
 
-@pytest.mark.parametrize("flag", sorted(gossip_sgd.UNPORTED))
+# flags ported since, each with a value that is still refused naming it:
+# --nprocs_per_node 3 does not divide the world of 4
+REFUSED_VALUES = {"--nprocs_per_node": "3"}
+
+
+@pytest.mark.parametrize("flag", sorted(gossip_sgd.UNPORTED)
+                         + sorted(REFUSED_VALUES))
 def test_unported_flags_raise_naming_the_flag(tmp_path, flag):
+    value = {**UNPORTED_VALUES, **REFUSED_VALUES}[flag]
     with pytest.raises(SystemExit, match=flag):
         gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path), flag,
-                                 UNPORTED_VALUES[flag]])
+                                 value])
 
 
 def test_every_unported_flag_has_a_test_value():
@@ -293,19 +300,30 @@ def test_resilience_trainer_fields_are_threaded(field, value, extra):
         assert trainer.recovery_policy.residual_floor == cfg.residual_floor
 
 
-@pytest.mark.parametrize("field", sorted(tloop.UNPORTED))
+# TrainerConfig fields ported since, each with a value still refused:
+# (value, exception, message)
+REFUSED_FIELDS = {"nprocs_per_node": (0, ValueError,
+                                      "nprocs_per_node must be >= 1")}
+
+
+@pytest.mark.parametrize("field", sorted(tloop.UNPORTED)
+                         + sorted(REFUSED_FIELDS))
 def test_unported_trainer_fields_raise_naming_the_feature(field):
     from stochastic_gradient_push_torch.parallel.collectives import (
         StackedTransport)
     from stochastic_gradient_push_torch.train.step import make_model
 
-    default, feature = tloop.UNPORTED[field]
-    value = {bool: not default, int: 7, float: 0.25}.get(type(default),
-                                                         "x")
-    if field == "plan":
-        value = {"topology": "ring"}
+    if field in REFUSED_FIELDS:
+        value, exc, match = REFUSED_FIELDS[field]
+    else:
+        default, feature = tloop.UNPORTED[field]
+        value = {bool: not default, int: 7, float: 0.25}.get(
+            type(default), "x")
+        exc, match = NotImplementedError, feature.split(" (")[0]
+        if field == "plan":
+            value = {"topology": "ring"}
     cfg = tloop.TrainerConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=feature.split(" (")[0]):
+    with pytest.raises(exc, match=match):
         tloop.Trainer(cfg, make_model("tiny_cnn"), StackedTransport(2),
                       device="cpu")
 

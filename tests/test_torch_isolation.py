@@ -83,6 +83,9 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.parallel.discovery",
                 "stochastic_gradient_push_torch.parallel.multihost",
                 "stochastic_gradient_push_torch.parallel.seq",
+                "stochastic_gradient_push_torch.parallel.mesh",
+                "stochastic_gradient_push_torch.parallel.averaging",
+                "stochastic_gradient_push_torch.utils.flatten",
                 "stochastic_gradient_push_torch.parallel.ring_attention",
                 "stochastic_gradient_push_torch.ops.ring_flash",
                 "stochastic_gradient_push_torch.algorithms.algorithms",

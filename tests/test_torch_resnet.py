@@ -247,10 +247,12 @@ def test_tpu_experiments_are_refused_by_name(kwargs, match, exc):
 
 
 @pytest.mark.parametrize("kwargs,match", [
+    # local_axis is ported: the port's is the local size, so the
+    # reference's mesh-axis name is refused by name
     ({"local_axis": "local"}, "local_axis"),
 ])
 def test_unported_step_options_are_refused_by_name(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         build_train_step(None, None, None, None, 1, 10, **kwargs)
 
 
