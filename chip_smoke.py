@@ -291,7 +291,34 @@
      own noise), 40 plain rounds of the n-peer exponential graph: the
      consensus error below 1e-5 of the parameter scale, every rank
      within 1e-6 of it of the float64 mean, ms a round and peak memory.
-17. A JSON line of per-kernel results (the fp32 flash rows also carry
+17. Checkpoint sets across worlds, serving a run, the DCP backend:
+   - 17a: phase 8's SGP command (``--gossip_kernel pallas``) at world 4
+     for one epoch, then ``--world_size 2 --resume True`` for a second:
+     the "resharded checkpoint set n=4 -> n=2" line, the reshard's
+     seconds and GB, one K2 and one K1 a step at world 2, finite CSV
+     rows; ``reshard_checkpoints`` on a copy of the world-4 set: its
+     world-2 params exactly the float64 Σx/Σw cast to f32, ps-weight 1,
+     its ``mean_drift``;
+   - 17b: another copy resumed at world 2 in 2 torchrun processes
+     (``--backend gloo --gossip_kernel pallas``, in the background): each
+     process reshards its own rank's file, bit-equal to 17a's copy, and
+     launches one cross-process K2 and K1 a step and no stacked one;
+   - 17c: phase 15's ``run/gossip_lm.py`` (bf16, world 2, SGP on K2/K1,
+     flash, T1024 B4) under ``--ckpt_backend orbax --ckpt_every 2``: 6
+     steps twice (the spread) and 4 steps resumed to 6, the step-6
+     checkpoints and CSV losses within the spread, at most 3 step
+     directories, the seconds a save holds the run (the host copy) and
+     its background write, beside ``torch.save`` of the same tensors;
+     one bf16 K3, K4 and K5 a layer a rank and one K2 and K1 a step;
+   - 17d: a 2-step world-2 run of the same LM on the per-rank files,
+     ``serve/load.py::load_consensus`` on its set (``IngestInfo``, the
+     seconds), then phase 3's 48 requests and phase 4's teacher-forced
+     check on an engine over the consensus;
+   - 17e: ``run/gossip_sgd.py`` in 2 torchrun processes at 13b's shape
+     under ``--ckpt_backend orbax`` (in the background), one epoch then
+     resumed to two: one shared root, each process's restored rows equal
+     to the rows it saved, rank 1's different from rank 0's.
+18. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -928,7 +955,10 @@ class _TimedEngine:
         return out
 
 
-def main_path(card: str):
+def main_path(card: str, params=None, label: str = "main"):
+    """Phase 3 (17d with ``params``, a flax-layout tree): the engine over
+    ``params`` (default the seed-0 init) serves 48 requests closed loop;
+    returns ``(engine, requests, launches)``."""
     import torch
 
     from stochastic_gradient_push_torch.models.convert import init_params
@@ -945,11 +975,12 @@ def main_path(card: str):
     cfg = TransformerConfig(vocab_size=32000, d_model=768, n_layers=12,
                             n_heads=12, d_ff=3072)
     t0 = time.perf_counter()
-    engine = LMEngine(init_params(cfg, seed=0), ServeConfig(
+    engine = LMEngine(init_params(cfg, seed=0) if params is None
+                      else params, ServeConfig(
         n_heads=12, page_size=16, num_pages=1024, max_seqs=16,
         max_pages_per_seq=48), device="cuda")
     torch.cuda.synchronize()
-    print(f"main: engine d{cfg.d_model} L{cfg.n_layers} h{cfg.n_heads} "
+    print(f"{label}: engine d{cfg.d_model} L{cfg.n_layers} h{cfg.n_heads} "
           f"ff{cfg.d_ff} vocab{cfg.vocab_size} built in "
           f"{time.perf_counter() - t0:.2f} s; weights "
           f"{sum(p.numel() for p in engine.model.parameters()) * 4 / 1e9:.3f}"
@@ -963,9 +994,9 @@ def main_path(card: str):
     torch.cuda.synchronize()
     launches = {"flash_fwd": flash_fwd.launches,
                 "paged_decode": paged_decode.launches}
-    print("main: summarize " + json.dumps(metrics, sort_keys=True),
+    print(f"{label}: summarize " + json.dumps(metrics, sort_keys=True),
           flush=True)
-    print(f"main: launches {json.dumps(launches)}; host time prefill "
+    print(f"{label}: launches {json.dumps(launches)}; host time prefill "
           f"{timed.seconds['prefill']:.4f} s, decode "
           f"{timed.seconds['decode']:.4f} s of {metrics['elapsed_s']:.4f} s "
           f"[{card}]", flush=True)
@@ -1486,9 +1517,10 @@ def _flat(row: dict) -> dict:
     return out
 
 
-def _cli_run(label: str, argv, card: str, module=None) -> tuple[dict, dict]:
-    """One in-process run of the CLI with every counter zeroed just
-    before: its launches and its result."""
+def _cli_run(label: str, argv, card: str, module=None,
+             world: int | None = None) -> tuple[dict, dict]:
+    """One in-process run of the CLI (at ``world``, default CLI's) with
+    every counter zeroed just before: its launches and its result."""
     import torch
 
     from stochastic_gradient_push_torch.run import gossip_sgd
@@ -1503,11 +1535,12 @@ def _cli_run(label: str, argv, card: str, module=None) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in counters.items()}
     bt = result["batch_meter"]
-    print(f"cli {label}: {wall:.2f} s in main (data, {CLI['epochs']} "
-          f"epochs of {CLI['itrs']} steps, validation, checkpoints); step "
+    print(f"cli {label}: {wall:.2f} s in main (data, steps, validation, "
+          f"checkpoints); step "
           f"(BT meter, {bt.count} timed steps) mean {bt.avg * 1e3:.2f} ms, "
           f"std {bt.std * 1e3:.2f} ms, "
-          f"{CLI['world'] * CLI['batch'] / bt.avg:.1f} images/s; peak memory "
+          f"{(world or CLI['world']) * CLI['batch'] / bt.avg:.1f} images/s; "
+          f"peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
           f"{json.dumps(launches)} [{card}]", flush=True)
     return launches, result
@@ -3476,8 +3509,13 @@ def _join(label: str, procs) -> list[str]:
             try:
                 logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"{label}: a process hung past "
-                                     f"{DIST_TIMEOUT_S} s") from None
+                for q in procs:
+                    if q.poll() is None:
+                        q.kill()
+                tails = [q.communicate()[0] or "" for q in procs[len(logs):]]
+                raise AssertionError(
+                    f"{label}: a process hung past {DIST_TIMEOUT_S} s:\n"
+                    + "\n".join(t[-3000:] for t in tails)) from None
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4648,6 +4686,525 @@ def hierarchical_path(card: str, flat_bt: float) -> dict:
     return launches
 
 
+# -- phase 17: resume at another world, serve the consensus, DCP ------------
+
+# 17a/17b: phase 8's SGP command (ResNet-50, 224 px, fp32, 32 images a
+# rank, three steps an epoch) at world 4 for one epoch, then resumed at
+# world 2 for a second: stacked (17a), in 2 torchrun processes (17b)
+RESHARD = dict(old=4, new=2)
+# 17c: run/gossip_lm.py at phase 15's shape under --ckpt_backend orbax:
+# 6 steps straight, twice (the spread), and 4 steps resumed to 6, a save
+# every 2 steps, the newest 3 kept
+DCP_LM = dict(steps=6, split=4, every=2, keep=3)
+# 17d: a 2-step world-2 run of the same LM on the per-rank files
+CONSENSUS_STEPS = 2
+
+# 17b and 17e: the CLI's runs (argv lists, in order) in one process of a
+# torchrun environment, on one group the child joins first (a process
+# that makes a new default group after a DCP save of DTensors may reach
+# the old group's store, seen with torch 2.13); the reshard's report
+# (its files copied aside before the run overwrites them), a digest of
+# every state the DCP backend saves and restores, and the launch counts
+_P17_CHILD = r"""
+import hashlib, json, shutil, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+from stochastic_gradient_push_torch.parallel import multihost
+from stochastic_gradient_push_torch.run import gossip_sgd
+from stochastic_gradient_push_torch.supervise import reshard
+from stochastic_gradient_push_torch.utils import dcp_ckpt
+
+counters = {"gossip_edge_start": (gk.gossip_edge_start, "launches"),
+            "gossip_edge_wait": (gk.gossip_edge_wait, "launches"),
+            "gossip_edge_start_ipc": (gk.gossip_edge_start, "launches_ipc"),
+            "gossip_edge_wait_ipc": (gk.gossip_edge_wait, "launches_ipc")}
+for fn, attr in counters.values():
+    setattr(fn, attr, 0)
+got = {"reshard": [], "saved": [], "restored": []}
+real = reshard.maybe_cross_world_reshard
+
+def spy(*a, **k):
+    t0 = time.perf_counter()
+    report = real(*a, **k)
+    if report is not None:
+        for p in report.files_out:
+            shutil.copyfile(p, p + ".resharded")
+        got["reshard"].append(dict(report.to_dict(),
+                                   seconds=time.perf_counter() - t0))
+    return report
+
+reshard.maybe_cross_world_reshard = spy
+
+def digest(state):
+    h = hashlib.sha256()
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + "/" + k)
+        elif isinstance(t, torch.Tensor):
+            h.update(path.encode())
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    walk(dcp_ckpt._to_tree(state), "")
+    return h.hexdigest()
+
+cls = dcp_ckpt.DcpCheckpointManager
+save, restore = cls.save, cls.restore
+
+def spy_save(self, state, meta, **kw):
+    got["saved"].append(digest(state))
+    return save(self, state, meta, **kw)
+
+def spy_restore(self, template):
+    state, meta = restore(self, template)
+    got["restored"].append(digest(state))
+    return state, meta
+
+cls.save, cls.restore = spy_save, spy_restore
+multihost.initialize_multihost("gloo", torch.device("cuda", 0))
+for argv in json.loads(sys.argv[5]):
+    gossip_sgd.main(argv)
+print("PHASE17 " + json.dumps(got), flush=True)
+print("LAUNCHES " + json.dumps({k: getattr(fn, attr)
+                                for k, (fn, attr) in counters.items()}),
+      flush=True)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def _torchrun_env(world: int):
+    def env(r, port):
+        return dict(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(port))
+    return env
+
+
+class _Lines:
+    """Inside a ``with``: the messages the trainer's logger emits."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines = []
+        outer = self
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                outer.lines.append(record.getMessage())
+
+        self.handler = Keep()
+        self.logger = logging.getLogger(
+            "stochastic_gradient_push_torch.utils.logging.ranktrainer")
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def _state_tensors(path: str) -> dict:
+    import torch
+
+    row = torch.load(path, weights_only=True)["state"]
+    out = _flat(row)
+    out["step"] = torch.tensor(row["step"])
+    out["phase"] = torch.tensor(row["gossip"]["phase"])
+    return out
+
+
+def _consensus_f32(rows: list) -> dict:
+    """The float64 Σx/Σw of rank rows (the rows summed in rank order,
+    then each in-flight slot's), cast to f32: the reshard's arithmetic,
+    in torch on the host."""
+    w_sum = 0.0
+    for r in rows:
+        w_sum += float(r["gossip"]["ps_weight"].double())
+    out = {}
+    for n in rows[0]["params"]:
+        num = rows[0]["params"][n].double()
+        for r in rows[1:]:
+            num = num + r["params"][n].double()
+        out[n] = (num / w_sum).float()
+    return out
+
+
+def reshard_cli(card: str, tmp: str) -> tuple[dict, list]:
+    """17a (and 17b's start): the world-4 run, copies of its set, the
+    world-2 resume with the reshard timed, and ``reshard_checkpoints`` on
+    a copy against the float64 consensus.  Returns the stacked runs'
+    launches and 17b's processes."""
+    old, new = RESHARD["old"], RESHARD["new"]
+    ckpt = os.path.join(tmp, "a")
+    kernel = ("--gossip_kernel", "pallas")
+    first, _ = _cli_run(f"17a world {old}", _cli_argv(ckpt, *kernel,
+                                                      epochs=1), card)
+    names = [f"checkpoint_r{r}_n{old}.ckpt" for r in range(old)]
+    for d in ("b", "c"):
+        os.makedirs(os.path.join(tmp, d))
+        for n in names:
+            shutil.copyfile(os.path.join(ckpt, n), os.path.join(tmp, d, n))
+    procs = _ranks(_P17_CHILD, new, [json.dumps([_cli_argv(
+        os.path.join(tmp, "b"), *kernel, "--world_size", str(new),
+        "--resume", "True", "--backend", "gloo")])], _torchrun_env(new))
+    try:
+        launches = _reshard_resume(card, tmp, ckpt, first, names)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    return launches, procs
+
+
+def _reshard_resume(card: str, tmp: str, ckpt: str, first: dict,
+                    names: list) -> dict:
+    """17a after the world-4 run: the world-2 resume, then the copy."""
+    import torch
+
+    from stochastic_gradient_push_torch.supervise import reshard
+
+    old, new = RESHARD["old"], RESHARD["new"]
+    steps = CLI["itrs"]
+    kernel = ("--gossip_kernel", "pallas")
+
+    timed = {}
+    real = reshard.maybe_cross_world_reshard
+
+    def spy(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = real(*a, **k)
+        timed["s"] = time.perf_counter() - t0
+        timed["report"] = report
+        return report
+
+    reshard.maybe_cross_world_reshard = spy
+    try:
+        with _Lines() as lines:
+            second, _ = _cli_run(f"17a world {new} resumed", _cli_argv(
+                ckpt, *kernel, "--world_size", str(new), "--resume", "True"),
+                card, world=new)
+    finally:
+        reshard.maybe_cross_world_reshard = real
+    want_line = f"resharded checkpoint set n={old} -> n={new}"
+    if not any(want_line in m for m in lines.lines):
+        raise AssertionError(f"17a: no '{want_line}' line in {lines.lines}")
+    report = timed["report"]
+    gb_in = sum(os.path.getsize(p) for p in report.files_in) / 1e9
+    gb_out = sum(os.path.getsize(p) for p in report.files_out) / 1e9
+    for label, got in ((f"world {old}", first), (f"world {new}", second)):
+        want = {n: 0 for n in got}
+        want["gossip_edge_start"] = want["gossip_edge_wait"] = steps
+        if got != want:
+            raise AssertionError(f"17a {label}: launches {got}, expected "
+                                 f"{want} (one K2 and one K1 a step)")
+    with open(os.path.join(ckpt, f"out_r0_n{new}.csv")) as f:
+        rows = [r.split(",") for r in f.read().splitlines()[5:]]
+    if len(rows) != steps + 2 or not all(
+            math.isfinite(float(v)) for r in rows for v in r[2:]):
+        raise AssertionError(f"17a: world-{new} CSV rows {rows}")
+    print(f"ckpt 17a: resumed the world-{old} set at world {new}: "
+          f"'{want_line}'; the reshard {timed['s']:.2f} s, "
+          f"{gb_in:.2f} GB read, {gb_out:.2f} GB written, mean drift "
+          f"{report.mean_drift:.3e}; then {steps} steps at world {new}, one "
+          f"K2 and K1 each, losses {[r[11] for r in rows[:-1]]} [{card}]",
+          flush=True)
+
+    copy = os.path.join(tmp, "c")
+    t0 = time.perf_counter()
+    rep = reshard.reshard_checkpoints(copy, "", old, new)
+    seconds = time.perf_counter() - t0
+    rows_in = [torch.load(os.path.join(copy, n), weights_only=True)["state"]
+               for n in names]
+    want = _consensus_f32(rows_in)
+    del rows_in
+    exact, ps_one = True, True
+    for r in range(new):
+        row = torch.load(os.path.join(copy, f"checkpoint_r{r}_n{new}.ckpt"),
+                         weights_only=True)["state"]
+        exact &= all(torch.equal(row["params"][n], w) for n, w in want.items())
+        ps_one &= bool(row["gossip"]["ps_weight"] == 1.0)
+    print(f"ckpt 17a: reshard_checkpoints on a copy, world {old} -> {new} in "
+          f"{seconds:.2f} s: params equal to the float64 Σx/Σw cast to f32 "
+          f"exactly: {exact} ({len(want)} tensors a rank); ps-weight 1: "
+          f"{ps_one}; mean_drift {rep.mean_drift:.3e}, ps_mass_err "
+          f"{rep.ps_mass_err:.3e} [{card}]", flush=True)
+    if not (exact and ps_one):
+        raise AssertionError("17a: the reshard is not the consensus")
+    return {n: first.get(n, 0) + second.get(n, 0) for n in first}
+
+
+def reshard_dist_check(card: str, tmp: str, procs) -> dict:
+    """17b: the torchrun processes' reshards against 17a's copy."""
+    import torch
+
+    new, steps = RESHARD["new"], CLI["itrs"]
+    logs = _join("17b", procs)
+    launches = {}
+    for r, log in enumerate(logs):
+        got = _tagged(log, "PHASE17")["reshard"]
+        want_file = f"checkpoint_r{r}_n{new}.ckpt"
+        if len(got) != 1 or got[0]["files_out"] != [want_file]:
+            raise AssertionError(f"17b process {r}: reshards {got}, expected "
+                                 f"one writing {want_file}")
+        mine = _state_tensors(os.path.join(tmp, "b", want_file
+                                           + ".resharded"))
+        ref = _state_tensors(os.path.join(tmp, "c", want_file))
+        if sorted(mine) != sorted(ref) or not all(
+                torch.equal(mine[k], ref[k]) for k in ref):
+            raise AssertionError(f"17b process {r}: its resharded file "
+                                 "differs from 17a's copy")
+        counts = _tagged(log, "LAUNCHES")
+        want = {"gossip_edge_start": 0, "gossip_edge_wait": 0,
+                "gossip_edge_start_ipc": steps, "gossip_edge_wait_ipc": steps}
+        if counts != want:
+            raise AssertionError(f"17b process {r}: launches {counts}, "
+                                 f"expected {want}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"ckpt 17b: process {r} resharded its own file {want_file} in "
+              f"{got[0]['seconds']:.2f} s, bit-equal to 17a's copy "
+              f"({len(ref)} tensors); {steps} steps with one cross-process "
+              f"K2 and K1 each, no stacked one [{card}]", flush=True)
+    return launches
+
+
+def _dcp_tensors(path: str) -> dict:
+    """Every tensor of a DCP checkpoint directory, on the host."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    meta = dcp.FileSystemReader(path).read_metadata()
+    out = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+           for k, m in meta.state_dict_metadata.items()
+           if hasattr(m, "size")}
+    dcp.load(out, checkpoint_id=path, no_dist=True)
+    return out
+
+
+class _DcpSpy:
+    """Inside a ``with``: every ``DcpCheckpointManager`` made, and the
+    seconds of each restore."""
+
+    def __enter__(self):
+        from stochastic_gradient_push_torch.utils import dcp_ckpt
+
+        self.cls = dcp_ckpt.DcpCheckpointManager
+        self.managers, self.restores = [], []
+        init, restore = self.cls.__init__, self.cls.restore
+        self.real = init, restore
+        outer = self
+
+        def spy_init(mgr, *a, **k):
+            init(mgr, *a, **k)
+            outer.managers.append(mgr)
+
+        def spy_restore(mgr, template):
+            t0 = time.perf_counter()
+            out = restore(mgr, template)
+            outer.restores.append(time.perf_counter() - t0)
+            return out
+
+        self.cls.__init__, self.cls.restore = spy_init, spy_restore
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__, self.cls.restore = self.real
+
+
+def dcp_lm(card: str, tmp: str, corpus: str) -> dict:
+    """17c: the LM CLI under ``--ckpt_backend orbax``: straight runs
+    twice, a split run resumed, retention, the save's two clocks beside
+    ``torch.save``, the launches."""
+    import torch
+
+    c = DCP_LM
+    flags = ["--ckpt_backend", "orbax", "--ckpt_every", str(c["every"]),
+             "--corpus_file", corpus]
+    launches, saves, restores = [], [], []
+    for label, steps, extra in (("straight", c["steps"], []),
+                                ("again", c["steps"], []),
+                                ("split", c["split"], []),
+                                ("split", c["steps"], ["--resume", "True"])):
+        ckpt = os.path.join(tmp, f"lm_{label}")
+        with _DcpSpy() as spy:
+            _, got, _, _, _ = _harness_run(
+                f"17c {label} to step {steps}",
+                _harness_argv(ckpt, "--num_steps", str(steps), *flags,
+                              *extra), card)
+        done = steps - (c["split"] if extra else 0)
+        if got != _harness_want(done) or len(spy.restores) != bool(extra):
+            raise AssertionError(f"17c {label}: launches {got}, expected "
+                                 f"{_harness_want(done)}; restores "
+                                 f"{spy.restores}")
+        launches.append(got)
+        saves += [h for m in spy.managers for h in m.history]
+        restores += spy.restores
+    roots = {label: os.path.join(tmp, f"lm_{label}",
+                                 f"lm_dcp_r0_n{HARNESS['world']}")
+             for label in ("straight", "again", "split")}
+    for label, root in roots.items():
+        kept = sorted(int(n) for n in os.listdir(root) if n.isdigit())
+        if len(kept) > c["keep"] or kept[-1] != c["steps"] or not all(
+                os.path.isfile(os.path.join(root, str(k), ".metadata"))
+                for k in kept):
+            raise AssertionError(f"17c {label}: step directories {kept}")
+    final = {label: _dcp_tensors(os.path.join(root, str(c["steps"])))
+             for label, root in roots.items()}
+
+    def apart(a, b):
+        if sorted(a) != sorted(b):
+            raise AssertionError("17c: checkpoints differ in kind")
+        return max(float((a[k].double() - b[k].double()).abs().max())
+                   if a[k].numel() else 0.0 for k in a)
+
+    spread = apart(final["straight"], final["again"])
+    diff = apart(final["straight"], final["split"])
+    losses = {label: _harness_losses(os.path.join(tmp, f"lm_{label}"))
+              for label in roots}
+    loss_spread = max(abs(x - y) for x, y in zip(losses["straight"],
+                                                 losses["again"]))
+    if len(losses["split"]) != len(losses["straight"]):
+        raise AssertionError(f"17c: CSV rows {losses}")
+    loss_diff = max(abs(x - y) for x, y in zip(losses["straight"],
+                                               losses["split"]))
+    path = os.path.join(tmp, "torch_save.pt")
+    t0 = time.perf_counter()
+    torch.save(final["straight"], path)
+    ts = time.perf_counter() - t0
+    gb = sum(t.numel() * t.element_size()
+             for t in final["straight"].values()) / 1e9
+    os.remove(path)
+    stage = [h["stage_s"] for h in saves]
+    write = [h["write_s"] for h in saves]
+    print(f"ckpt 17c: --ckpt_backend orbax (torch.distributed.checkpoint): "
+          f"{len(saves)} saves of {saves[0]['bytes'] / 1e9:.2f} GB hold the "
+          f"run {min(stage):.3f}-{max(stage):.3f} s (the host copy), write "
+          f"in the background in {min(write):.2f}-{max(write):.2f} s; "
+          f"torch.save of the same {gb:.2f} GB of tensors {ts:.2f} s; "
+          f"restores {', '.join(f'{t:.2f}' for t in restores)} s; step "
+          f"directories kept {c['keep']} at most [{card}]", flush=True)
+    print(f"ckpt 17c: two straight {c['steps']}-step runs apart by "
+          f"{spread:.3g} in the step-{c['steps']} checkpoint and "
+          f"{loss_spread:.3g} in the CSV losses; stopped at {c['split']} and "
+          f"resumed: {diff:.3g} and {loss_diff:.3g} (tolerance: the spread) "
+          f"[{card}]", flush=True)
+    if diff > spread or loss_diff > loss_spread:
+        raise AssertionError(f"17c: resume is {diff} / {loss_diff} from "
+                             f"continuing, over the spread {spread} / "
+                             f"{loss_spread}")
+    del final
+    return {k: sum(r[k] for r in launches) for k in launches[0]}
+
+
+def serve_consensus(card: str, tmp: str, corpus: str) -> dict:
+    """17d: a 2-step run on the per-rank files, its consensus ingested
+    and served as phases 3 and 4 serve the seed-0 model."""
+    from stochastic_gradient_push_torch.models.convert import params_to_jax
+    from stochastic_gradient_push_torch.serve.load import load_consensus
+
+    ckpt = os.path.join(tmp, "lm_serve")
+    _, got, _, _, _ = _harness_run(
+        "17d", _harness_argv(ckpt, "--num_steps", str(CONSENSUS_STEPS),
+                             "--corpus_file", corpus), card)
+    if got != _harness_want(CONSENSUS_STEPS):
+        raise AssertionError(f"17d: launches {got}, expected "
+                             f"{_harness_want(CONSENSUS_STEPS)}")
+    t0 = time.perf_counter()
+    params, _, info = load_consensus(ckpt, tag="lm_")
+    seconds = time.perf_counter() - t0
+    print(f"ckpt 17d: load_consensus {json.dumps(info.to_dict())} in "
+          f"{seconds:.2f} s ({sum(p.numel() for p in params.values()):,} "
+          f"parameters) [{card}]", flush=True)
+    if info.world != HARNESS["world"] or info.step != CONSENSUS_STEPS:
+        raise AssertionError(f"17d: ingested {info}")
+    engine, requests, launches = main_path(card, params_to_jax(params),
+                                           label="ckpt 17d serve")
+    engine_vs_dense(engine, requests, card)
+    del engine
+    return {n: got.get(n, 0) + launches.get(n, 0)
+            for n in {*got, *launches}}
+
+
+def dcp_dist_check(card: str, tmp: str, procs) -> dict:
+    """17e: the DCP backend under torchrun: one shared root, each
+    process's rows restored as saved, and the rows apart."""
+    world, steps = DIST_CLI["world"], DIST_CLI["itrs"]
+    logs = _join("17e", procs)
+    names = os.listdir(os.path.join(tmp, "e"))
+    if f"dcp_global_n{world}" not in names or any(
+            n.endswith(".ckpt") or n.startswith("dcp_r") for n in names):
+        raise AssertionError(f"17e: checkpoint directory holds {names}")
+    got = [_tagged(log, "PHASE17") for log in logs]
+    for r, g in enumerate(got):
+        if len(g["saved"]) != 2 or g["restored"] != g["saved"][:1]:
+            raise AssertionError(f"17e process {r}: saved {g['saved']}, "
+                                 f"restored {g['restored']}")
+    if got[0]["saved"][0] == got[1]["saved"][0]:
+        raise AssertionError("17e: the processes saved the same rows")
+    launches = {}
+    for r, log in enumerate(logs):
+        counts = _tagged(log, "LAUNCHES")
+        want = {"gossip_edge_start": 0, "gossip_edge_wait": 0,
+                "gossip_edge_start_ipc": 2 * steps,
+                "gossip_edge_wait_ipc": 2 * steps}
+        if counts != want:
+            raise AssertionError(f"17e process {r}: launches {counts}, "
+                                 f"expected {want}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"ckpt 17e: run/gossip_sgd.py in {world} processes under "
+          f"--ckpt_backend orbax, one epoch then resumed to two: one shared "
+          f"root dcp_global_n{world}; each process restored the rows it "
+          f"saved (sha256 {got[0]['saved'][0][:12]}, "
+          f"{got[1]['saved'][0][:12]}: apart); one cross-process K2 and K1 a "
+          f"step [{card}]", flush=True)
+    return launches
+
+
+def checkpoints_path(card: str) -> dict:
+    """Phase 17: 17e and 17b in the background, 17a, 17c and 17d in this
+    process.  Returns the main runs' launches."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ckpt17_", dir=os.path.join(ROOT, "build"))
+    procs_e = procs_b = []
+    try:
+        e_argv = _dist_argv(os.path.join(tmp, "e"), "--backend", "gloo",
+                            "--ckpt_backend", "orbax")
+        procs_e = _ranks(_P17_CHILD, DIST_CLI["world"], [json.dumps(
+            [e_argv, e_argv + ["--num_epochs", "2", "--resume", "True"]])],
+            _torchrun_env(DIST_CLI["world"]))
+        runs = []
+        a, procs_b = reshard_cli(card, tmp)
+        runs.append(a)
+        torch.cuda.empty_cache()
+        corpus = os.path.join(tmp, "tokens.npy")
+        np.save(corpus, np.random.default_rng(0).integers(
+            0, 32000, HARNESS["corpus"]).astype(np.int32))
+        runs.append(dcp_lm(card, tmp, corpus))
+        torch.cuda.empty_cache()
+        runs.append(serve_consensus(card, tmp, corpus))
+        torch.cuda.empty_cache()
+        runs.append(reshard_dist_check(card, tmp, procs_b))
+        runs.append(dcp_dist_check(card, tmp, procs_e))
+    finally:
+        # a failed part leaves no process behind
+        for p in [*procs_e, *procs_b]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"ckpt: phase 17 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {n: sum(r.get(n, 0) for r in runs) for r in runs for n in r}
+
+
 def main() -> int:
     import torch
 
@@ -4712,6 +5269,8 @@ def main() -> int:
     harness_launches = harness_path(card)
     torch.cuda.empty_cache()
     hier_launches = hierarchical_path(card, flat_bt)
+    torch.cuda.empty_cache()
+    ckpt_launches = checkpoints_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
@@ -4719,13 +5278,15 @@ def main() -> int:
     # phase 10's kernel-lane steps and CLI runs, phase 11's timed steps
     # and CLI run, phase 12's timed steps and CLI run, phase 13b's CLI
     # processes, phase 14a's three CLI runs, phase 15's in-process CLI
-    # runs, phase 16a's kernel-lane CLI run and 16b's processes) summed
+    # runs, phase 16a's kernel-lane CLI run and 16b's processes, phase
+    # 17's CLI runs, 17b's and 17e's processes and 17d's serving) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
             topo_launches, seq_launches, bf16_launches, dist_launches,
-            image_launches, harness_launches, hier_launches))
+            image_launches, harness_launches, hier_launches,
+            ckpt_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

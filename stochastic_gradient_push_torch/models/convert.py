@@ -4,7 +4,10 @@ The JAX package keeps a model's parameters as a nested dict (the flax
 tree that ``model.init(...)["params"]`` and ``serve/load.py::
 load_consensus`` return).  :func:`params_from_jax` turns that tree, with
 numpy (or array-like) leaves, into a ``state_dict`` for
-``models/transformer.py::TransformerLM``.
+``models/transformer.py::TransformerLM``; :func:`params_to_jax` is its
+inverse, so a port parameter set (a training state's row, or the
+consensus ``serve/load.py::load_consensus`` ingests) feeds the serving
+engine, which takes the flax tree.
 
 **Transposition.**  A flax ``Dense`` kernel is ``[in, out]`` and computes
 ``x @ kernel``; ``nn.Linear.weight`` is ``[out, in]`` and computes
@@ -54,7 +57,7 @@ import torch
 
 from .transformer import TransformerConfig
 
-__all__ = ["params_from_jax", "init_params", "config_from_params",
+__all__ = ["params_from_jax", "params_to_jax", "init_params", "config_from_params",
            "flatten_tree", "unflatten_tree", "train_state_from_jax",
            "vision_params_from_jax", "init_model_params",
            "reference_layout"]
@@ -103,6 +106,30 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             t = t.transpose(-1, -2).contiguous()
         state[".".join([*mods, _LEAF[leaf]])] = t
     return state
+
+
+def params_to_jax(state) -> dict:
+    """Inverse of :func:`params_from_jax`: a ``TransformerLM``
+    ``state_dict`` (tensors or arrays, optionally with leading rank
+    dims) as the flax tree of numpy arrays, kernels transposed back.
+    Values keep their dtype and bits."""
+    flat = {}
+    for name, t in state.items():
+        *mods, leaf = name.split(".")
+        if leaf not in ("weight", "bias") or not mods:
+            raise ValueError(f"unexpected parameter {name!r}")
+        arr = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+               else np.asarray(t))
+        if leaf == "weight":
+            # the module decides: Embedding, LayerNorm or Dense
+            if mods[-1] == "embed":
+                leaf = "embedding"
+            elif mods[-1] in ("ln1", "ln2", "ln_f"):
+                leaf = "scale"
+            else:   # [..., out, in] -> [..., in, out]
+                leaf, arr = "kernel", np.swapaxes(arr, -1, -2)
+        flat["/".join([*mods, leaf])] = np.ascontiguousarray(arr)
+    return unflatten_tree(flat)
 
 
 def config_from_params(tree, n_heads: int) -> TransformerConfig:

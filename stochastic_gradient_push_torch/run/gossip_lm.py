@@ -87,8 +87,17 @@ The harness (the reference's, ``run/gossip_lm.py:752-1216`` there):
 * ``--resume True`` restores the files and fast-forwards the data
   stream, so a resumed run equals one that never stopped; under
   ``torchrun`` every process resumes from the least step restored, or
-  all start from step 0 when a process lacks its file.  A set of
-  another world is refused by name (resharding is not ported).
+  all start from step 0 when a process lacks its file.  In one process
+  at ``--sp 1``, a set of another world is resharded to this one first
+  (the push-sum consensus, ``supervise/reshard.py``), as the reference
+  does; under ``--sp`` > 1 or ``torchrun`` it is refused by name.
+* ``--ckpt_backend orbax`` saves through ``torch.distributed.checkpoint``
+  (``utils/dcp_ckpt.py``) keyed by step: one root
+  ``{tag}dcp_r0_n{world}``, each save's host copy made before the run
+  goes on and its write in the background, the last 3 steps kept; under
+  ``torchrun`` one shared ``{tag}dcp_global_n{world}`` written by every
+  process, synchronously.  A preemption exit and the run's end wait for
+  the write in flight.
 * SIGUSR1/SIGTERM: at the next step boundary (agreed across processes
   under ``torchrun``) the run saves and exits 75, the requeue status.
 * ``--heartbeat_timeout`` logs a metrics fetch that stalls (from the
@@ -120,7 +129,6 @@ UNPORTED = {
     "--n_micro": (4, int, "pipeline parallelism"),
     "--moe_experts": (0, int, "MoE"),
     "--moe_every": (2, int, "MoE"),
-    "--ckpt_backend": ("msgpack", str, "the orbax checkpoint backend"),
     "--trace_dir": (None, str, "run telemetry"),
     "--metrics_every": (0, int, "run telemetry"),
     "--multihost": ("auto", str, "multi-host runs"),
@@ -248,6 +256,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tag", default="lm_", type=str)
     p.add_argument("--ckpt_every", default=0, type=int,
                    help="checkpoint every N steps (0 = only at the end)")
+    p.add_argument("--ckpt_backend", default="msgpack",
+                   choices=["msgpack", "orbax"],
+                   help="msgpack (the reference's name): one torch.save "
+                        "file a replica; orbax: torch.distributed."
+                        "checkpoint (utils/dcp_ckpt.py), saves keyed by "
+                        "step, asynchronous in one process, the last 3 "
+                        "kept, one shared checkpoint under torchrun")
     p.add_argument("--resume", default="False", type=str)
     p.add_argument("--heartbeat_timeout", default=300, type=int,
                    help="log an error if a metrics fetch stalls longer "
@@ -667,11 +682,21 @@ def _main(argv) -> dict:
         x = torch.tensor([float(flag)], device=device)
         return bool(transport.allreduce_max(x)[0])
 
-    # checkpoints: one file a gossip replica, named by the launched world
+    # checkpoints: one file a gossip replica, named by the launched
+    # world, or (--ckpt_backend orbax) one DCP checkpoint keyed by step
     me = int(transport.ranks[0])
-    warn = make_logger(me).warning
-    ckpt = CheckpointManager(args.checkpoint_dir, tag=args.tag,
-                             world_size=world, ranks=transport.ranks)
+    logger = make_logger(me)
+    warn = logger.warning
+    use_dcp = args.ckpt_backend == "orbax"
+    if use_dcp:
+        from ..utils.dcp_ckpt import DcpCheckpointManager
+
+        ckpt = DcpCheckpointManager(
+            args.checkpoint_dir, tag=args.tag,
+            rank=transport.rank if launched > 1 else 0, world_size=world)
+    else:
+        ckpt = CheckpointManager(args.checkpoint_dir, tag=args.tag,
+                                 world_size=world, ranks=transport.ranks)
     # SIGUSR1/SIGTERM raise a flag checked at each step boundary; no
     # requeue command: relaunching is the launcher's
     cluster = ClusterManager(ckpt, rank=me, requeue_command=None)
@@ -692,8 +717,8 @@ def _main(argv) -> dict:
                      "step 0")
             have = every
         if not have:
-            ckpt.refuse_other_worlds()
-        else:
+            have = _reshard_other_world(ckpt, args, world, launched, logger)
+        if have:
             state, meta = ckpt.restore(state)
             start_step = int(meta.get("step", 0))
             if launched > 1:
@@ -718,7 +743,10 @@ def _main(argv) -> dict:
             meta["plan"] = plan.to_dict()
         if monitor is not None and monitor.last_payload:
             meta["health"] = monitor.last_payload
-        ckpt.save(st, meta)
+        if use_dcp:
+            ckpt.save(st, meta, epoch_id=at)
+        else:
+            ckpt.save(st, meta)
         return st
 
     if args.corpus_file:
@@ -838,6 +866,8 @@ def _main(argv) -> dict:
                          f"step {steps_done} and exiting "
                          f"{REQUEUE_EXIT_CODE} (requeue me)")
                     state = save(state, steps_done)
+                    # an asynchronous save lands before the exit
+                    ckpt.close()
                     leave(transport, owns_group)
                     raise SystemExit(REQUEUE_EXIT_CODE)
                 if steps_done >= args.num_steps:
@@ -845,6 +875,7 @@ def _main(argv) -> dict:
             epoch += 1
         if last_saved != steps_done:
             state = save(state, steps_done)
+        ckpt.close()
     finally:
         # a run that ended inside the window still writes its trace
         pw.close()
@@ -858,6 +889,36 @@ def _main(argv) -> dict:
     log(json.dumps(result), flush=True)
     leave(transport, owns_group)
     return result
+
+
+def _reshard_other_world(ckpt, args, world: int, launched: int,
+                         log) -> bool:
+    """No checkpoint of this world on a resume: reshard another world's
+    set into place (``supervise/reshard.py``, the reference's rule: one
+    process, ``--sp 1``) and say whether the files are now there; refuse
+    by name where the reference does not reshard."""
+    from ..supervise.reshard import maybe_cross_world_reshard
+    from ..utils.checkpoint import CheckpointManager
+
+    if not isinstance(ckpt, CheckpointManager):
+        ckpt.refuse_other_worlds()
+        return False
+    if not ckpt.discover_worlds():
+        return False
+    if launched > 1:
+        ckpt.refuse_other_worlds(
+            f"the run spans {launched} processes (the LM CLI reshards in "
+            "one process)")
+    if args.sp > 1:
+        ckpt.refuse_other_worlds(
+            f"--sp {args.sp} > 1 keeps a replica's sequence shards in "
+            "its file, so the files are not one rank row each")
+    if maybe_cross_world_reshard(args.checkpoint_dir, args.tag, world,
+                                 log=log) is None:
+        log.warning(f"a checkpoint of world {world} is on disk but "
+                    "incomplete; starting from step 0")
+        return False
+    return ckpt.exists()
 
 
 def _observe_health(monitor, policy, recovery, alg, state, metrics,

@@ -46,8 +46,16 @@ that product.
 It runs on CUDA unless ``--device cpu``.  The rank-averaged CSV
 ``{tag}out_r0_n{world}.csv`` (one per rank with ``--per_rank_csv True``)
 and one checkpoint per rank, ``{tag}checkpoint_r{rank}_n{world}.ckpt``,
-land in ``--checkpoint_dir``; ``--resume True`` continues from them.
-SIGUSR1 or SIGTERM makes the run save at the next step and exit 75.
+land in ``--checkpoint_dir``; ``--resume True`` continues from them, and
+from a set of another world size, resharded to this one first (the
+push-sum consensus, ``supervise/reshard.py``; refused by name under
+``--nprocs_per_node`` > 1).  ``--ckpt_backend orbax`` saves through
+``torch.distributed.checkpoint`` instead (``utils/dcp_ckpt.py``): one
+root ``{tag}dcp_r0_n{world}`` of step directories, written in the
+background, the last 3 kept and the best apart; under ``torchrun`` one
+shared ``{tag}dcp_global_n{world}`` that each process writes its rank's
+rows of.  SIGUSR1 or SIGTERM makes the run save at the next step and
+exit 75.
 
 ``--model`` is one of ``resnet18/34/50/101/152``, ``tiny_cnn`` and
 ``tiny_mlp``.  ``--dataset imagefolder`` (the default) streams
@@ -111,7 +119,6 @@ UNPORTED = {
     "--coordinator_address": (None, str, "multi-host runs"),
     "--num_processes": (None, int, "multi-host runs"),
     "--process_id": (None, int, "multi-host runs"),
-    "--ckpt_backend": ("msgpack", str, "the orbax checkpoint backend"),
     "--trace_dir": (None, str, "run telemetry"),
     "--metrics_every": (0, int, "run telemetry"),
     "--fleet": ("False", str, "fleet supervision"),
@@ -394,6 +401,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="False: rank 0's checkpoint alone, every rank "
                         "resumes from it (one process only)")
     p.add_argument("--overwrite_checkpoints", default="True", type=str)
+    p.add_argument("--ckpt_backend", default="msgpack",
+                   choices=["msgpack", "orbax"],
+                   help="msgpack (the reference's name): one torch.save "
+                        "file a rank; orbax: torch.distributed.checkpoint "
+                        "(utils/dcp_ckpt.py), asynchronous saves in one "
+                        "process, the last 3 kept, one shared checkpoint "
+                        "under torchrun")
     p.add_argument("--master_port", default="40100", type=str,
                    help="accepted for compatibility; unused")
     p.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
@@ -659,6 +673,23 @@ def _image_folders(args, cfg, world: int, held, log):
     return loader, loader, val_loader
 
 
+def make_ckpt_manager(backend: str, cfg, world: int, ranks):
+    """The checkpoint backend ``--ckpt_backend`` names (the reference's
+    ``_make_ckpt_manager``): a ``torch.save`` file a rank, or for
+    ``orbax`` the ``torch.distributed.checkpoint`` manager."""
+    if backend == "orbax":
+        from ..utils.dcp_ckpt import DcpCheckpointManager
+
+        return DcpCheckpointManager(cfg.checkpoint_dir, tag=cfg.tag,
+                                    rank=ranks[0], world_size=world,
+                                    all_workers=cfg.checkpoint_all)
+    from ..utils.checkpoint import CheckpointManager
+
+    return CheckpointManager(cfg.checkpoint_dir, tag=cfg.tag,
+                             world_size=world, ranks=ranks,
+                             all_workers=cfg.checkpoint_all)
+
+
 def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     """Everything a run needs, from a command line: ``cfg``, ``args``,
     the ``trainer`` (its cluster manager has installed the SIGUSR1 and
@@ -679,7 +710,7 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     from ..parallel.mesh import make_hierarchical_layout
     from ..parallel.multihost import initialize_multihost, process_device
     from ..train.loop import Trainer, refuse_single_process_only
-    from ..utils.checkpoint import CheckpointManager, ClusterManager
+    from ..utils.checkpoint import ClusterManager
     from ..utils.logging import make_logger
 
     log = make_logger("main", cfg.verbose)
@@ -746,9 +777,7 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
                                    DistributedSampler(n_val, world),
                                    ranks=held)
 
-    ckpt = CheckpointManager(cfg.checkpoint_dir, tag=cfg.tag,
-                             world_size=world, ranks=ranks,
-                             all_workers=cfg.checkpoint_all)
+    ckpt = make_ckpt_manager(args.ckpt_backend, cfg, world, ranks)
     cluster = ClusterManager(ckpt, rank=ranks[0], requeue_command=(
         args.requeue_command or _default_requeue()))
     try:
@@ -787,6 +816,8 @@ def main(argv=None, config_transform=None) -> dict:
             state = run.trainer.init_state()
             state, result = run.trainer.fit(state, run.loader, run.sampler,
                                             run.val_loader)
+            # an asynchronous save lands before the run ends
+            run.trainer.cluster.ckpt.close()
         except SystemExit as e:
             if e.code == REQUEUE_EXIT_CODE:
                 # every process stops at the same step: leave together

@@ -24,12 +24,20 @@ meters: the data window is the loader and the host-to-device copy, the
 step window ends in the device-to-host read of the step's metrics, so
 it times finished work.
 
-Checkpoints (``utils/checkpoint.py``): one file per rank after every
-epoch, the overlap FIFO drained first (the live state adopts the drained
-view too, so a resumed run follows the straight one); ``resume`` reads
-them back, fast-forwards the loader to the saved iteration, and the LR
-follows from the restored step.  A SIGUSR1/SIGTERM is acted on at the
-next step boundary: save at (epoch, itr) and exit 75.
+Checkpoints (``utils/checkpoint.py``, or ``utils/dcp_ckpt.py`` for
+``--ckpt_backend orbax``): one file per rank after every epoch, the
+overlap FIFO drained first (the live state adopts the drained view too,
+so a resumed run follows the straight one); ``resume`` reads them back,
+fast-forwards the loader to the saved iteration, and the LR follows from
+the restored step.  With no set of the run's world on disk, another
+world's set is resharded into place first (``_try_cross_world_resume``,
+``supervise/reshard.py``): the stacked lane writes every new rank's
+file, under ``torchrun`` each process its own rank's, after every
+process has found no file of the run's world.  The epoch, iteration and
+step carry over from the old set; the LR and the sampler take the new
+world.  ``nprocs_per_node`` > 1 and the DCP backend refuse another
+world's set by name.  A SIGUSR1/SIGTERM is acted on at the next step
+boundary: save at (epoch, itr) and exit 75.
 
 Resilience (``resilience/``): ``inject_faults`` compiles a fault plan
 against each algorithm's schedule (logged once, ``gossip faults:``),
@@ -542,8 +550,12 @@ class Trainer:
             # resume only if every process holds its rank's file
             have = not self._any_process(not have)
         if want_resume and not have:
-            self.cluster.ckpt.refuse_other_worlds()
+            have = self._try_cross_world_resume()
         if have:
+            # both backends take the held rows as the template: the
+            # per-rank files give each process its ranks' files, the DCP
+            # backend under torchrun restores collectively, each process
+            # its rows of one shared checkpoint
             state, meta = self.cluster.ckpt.restore(state)
             start_epoch, start_itr = consensus_resume_point(
                 meta.get("epoch", 0), meta.get("itr", 0), self.transport,
@@ -635,6 +647,42 @@ class Trainer:
                     is_best=is_best,
                     requeue_on_signal=epoch != cfg.num_epochs - 1)
         return state, best_prec1, final_prec1
+
+    def _try_cross_world_resume(self) -> bool:
+        """No checkpoint of this world: reshard another world's set into
+        place (``supervise/reshard.py``) and say whether every process
+        now holds its files.  Raises where the reference does not
+        reshard (``nprocs_per_node`` > 1, the DCP backend) and when no
+        set on disk can be resharded, rather than start over."""
+        from ..supervise.reshard import maybe_cross_world_reshard
+        from ..utils.checkpoint import CheckpointManager
+
+        ckpt = self.cluster.ckpt
+        if not isinstance(ckpt, CheckpointManager):
+            ckpt.refuse_other_worlds()
+            return False
+        if not ckpt.discover_worlds():
+            return False
+        if self.local_axis is not None:
+            ckpt.refuse_other_worlds(
+                f"nprocs_per_node {self.cfg.nprocs_per_node} > 1 keeps a "
+                "node's row in a file while the file world counts devices")
+        # decided before any writes (under torchrun by every process
+        # together): one process's new file must not make another skip
+        # its reshard
+        this_world = os.path.join(ckpt.directory, f"{ckpt.tag}checkpoint_"
+                                  f"r{{}}_n{ckpt.world_size}.ckpt")
+        seen = any(os.path.isfile(this_world.format(r))
+                   for r in range(self.gossip_world))
+        if self._any_process(seen) if self.spread else seen:
+            self.log.warning("a checkpoint of this world is on disk but "
+                             "incomplete; starting from epoch 0")
+            return False
+        maybe_cross_world_reshard(
+            ckpt.directory, ckpt.tag, ckpt.world_size,
+            ranks=self.transport.ranks, log=self.log, exact_checked=True)
+        have = ckpt.exists()
+        return not self._any_process(not have) if self.spread else have
 
     def _ckpt_meta(self, epoch: int, itr: int, best_prec1, begin_time,
                    meters) -> dict:

@@ -32,9 +32,18 @@ row is saved, and a resume starts every rank from it.  It needs every
 rank in this process (the stacked lane).
 
 A checkpoint set of another world size is found (``discover_worlds``)
-but not resharded: cross-world resume (``supervise/reshard.py``) is not
-ported, and the trainer and the LM CLI refuse it by name
-(``refuse_other_worlds``).
+and, on a resume with no set of the run's own world, resharded into
+place (``supervise/reshard.py::maybe_cross_world_reshard``: the push-sum
+consensus replicated at the new world) by the trainer, stacked or each
+process its own ranks under ``torchrun``, and by the LM CLI in one
+process with ``--sp 1``.  Where the reference does not reshard, the run
+refuses by name (``refuse_other_worlds``) rather than start over: a
+``--nprocs_per_node`` > 1 layout (a file holds a node's row while the
+file world counts devices), the LM CLI under ``--sp`` > 1 or in several
+processes, and the ``--ckpt_backend orbax`` backend
+(``utils/dcp_ckpt.py``).  A ``--checkpoint_all False`` set, rank 0's
+file alone, cannot give the consensus and is rejected as torn, naming
+the flag.
 """
 
 from __future__ import annotations
@@ -149,6 +158,12 @@ class CheckpointManager:
     def exists(self) -> bool:
         return all(os.path.isfile(self.path(r)) for r in self._sources())
 
+    def wait(self) -> None:
+        """Saves are synchronous: nothing is in flight (the DCP backend's
+        surface, ``utils/dcp_ckpt.py``)."""
+
+    close = wait
+
     def discover_worlds(self) -> list[int]:
         """World sizes of other checkpoint sets in this directory (any
         rank), the current world excluded."""
@@ -159,16 +174,17 @@ class CheckpointManager:
         worlds.discard(self.world_size)
         return sorted(worlds)
 
-    def refuse_other_worlds(self) -> None:
-        """``NotImplementedError`` naming cross-world resume when this
-        directory holds a checkpoint set of another world size."""
+    def refuse_other_worlds(self, case: str) -> None:
+        """``NotImplementedError`` naming cross-world resume and ``case``,
+        the run's reason not to reshard, when this directory holds a
+        checkpoint set of another world size."""
         worlds = self.discover_worlds()
         if worlds:
             raise NotImplementedError(
                 f"cross-world resume: {self.directory} holds checkpoints "
-                f"of world {worlds}, not {self.world_size}; resharding "
-                "them (supervise/reshard.py) is not ported to stochastic_"
-                "gradient_push_torch yet (ROADMAP.md Queue 1 item 10)")
+                f"of world {worlds}, not {self.world_size}, and {case}, so "
+                "they are not resharded (supervise/reshard.py); resume at "
+                "their world instead")
 
     def restore(self, template) -> tuple[object, dict]:
         """The saved rows stacked into ``template``'s structure (a train
@@ -295,6 +311,8 @@ class ClusterManager:
         self.logger.info("Saving checkpoint")
         self.ckpt.save(state, meta, epoch_id=epoch_id, is_best=is_best)
         if requeue_on_signal and self.any_rank_signalled():
+            # an asynchronous save lands before the exit
+            self.ckpt.wait()
             self.logger.info(
                 "At least 1 process received SIGUSR1. Terminating")
             if self.rank == 0 and self.requeue_command:

@@ -28,6 +28,7 @@ thread around the run.
 
 import json
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -41,6 +42,8 @@ import torch
 from stochastic_gradient_push_torch.parallel import collectives as tc
 from stochastic_gradient_push_torch.parallel import discovery, multihost
 from stochastic_gradient_push_torch.run import gossip_sgd, gossip_sgd_adpsgd
+from torch_ckpt_sets import (assert_bit_equal, dcp_tensors, port_set,
+                             reference_reshard)
 
 torch.set_num_threads(1)
 
@@ -236,6 +239,69 @@ def test_resume_equals_continue_across_the_two_lanes(tmp_path):
             assert sorted(got) == sorted(want)
             for k in want:
                 assert torch.equal(got[k], want[k]), (lane, r, k)
+
+
+def test_resume_at_another_world_under_torchrun(tmp_path):
+    """A stacked world-4 set resumed at world 2 in 2 processes: each
+    process writes its own rank's resharded file, bit-equal to the
+    stacked lane's reshard, and the runs go on equal."""
+    sgp = BASE + ["--overlap", "True", "--staleness", "2"]
+    _stacked("gossip_sgd", sgp + ["--num_epochs", "1", "--world_size", "4",
+                                  "--checkpoint_dir", str(tmp_path / "a")])
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    resume = sgp + ["--resume", "True"]
+    # resumed at its last epoch: the reshard alone, in each lane
+    logs = _launch(2, [("gossip_sgd", resume + [
+        "--num_epochs", "1", "--checkpoint_dir", str(tmp_path / "a")])])
+    for r, log in enumerate(logs):
+        # each process writes its own rank's file
+        assert ("resharded checkpoint set n=4 -> n=2" in log
+                and f"wrote checkpoint_r{r}_n2.ckpt\n" in log), log
+    _stacked("gossip_sgd", resume + ["--num_epochs", "1", "--world_size",
+                                     "2", "--checkpoint_dir",
+                                     str(tmp_path / "b")])
+    assert_bit_equal(port_set(tmp_path / "a", "", 2),
+                     port_set(tmp_path / "b", "", 2))
+    assert_bit_equal(port_set(tmp_path / "a", "", 2),
+                     reference_reshard(tmp_path / "b", "", 4, 2))
+    metas = [json.loads(_rank_file(tmp_path / "a", r, 2)["meta"])
+             for r in range(2)]
+    assert [m["reshard"]["old_world"] for m in metas] == [4, 4]
+    _launch(2, [("gossip_sgd", resume + [
+        "--num_epochs", "2", "--checkpoint_dir", str(tmp_path / "a")])])
+    _stacked("gossip_sgd", resume + ["--num_epochs", "2", "--world_size",
+                                     "2", "--checkpoint_dir",
+                                     str(tmp_path / "b")])
+    for r in range(2):
+        got = _tensors(_rank_file(tmp_path / "a", r, 2)["state"])
+        want = _tensors(_rank_file(tmp_path / "b", r, 2)["state"])
+        assert sorted(got) == sorted(want) and int(want["/step"]) == 6
+        for k in want:
+            assert torch.equal(got[k], want[k]), (r, k)
+
+
+def test_dcp_backend_under_torchrun_keeps_each_process_rows(tmp_path):
+    """--ckpt_backend orbax in 2 processes: one shared root that each
+    process writes its rows of; a resume equals the per-rank backend's."""
+    for backend in ("msgpack", "orbax"):
+        argv = BASE + ["--ckpt_backend", backend, "--checkpoint_dir",
+                       str(tmp_path / backend)]
+        _launch(2, [("gossip_sgd", argv + ["--num_epochs", "1"]),
+                    ("gossip_sgd", argv + ["--num_epochs", "2", "--resume",
+                                           "True"])])
+    assert sorted(os.listdir(tmp_path / "orbax")) == ["dcp_global_n2",
+                                                      "out_r0_n2.csv"]
+    got = dcp_tensors(tmp_path / "orbax" / "dcp_global_n2" / "2")
+    for r in range(2):
+        state = _rank_file(tmp_path / "msgpack", r, 2)["state"]
+        assert state["step"] == 6
+        for tree in ("params", "opt_state", "batch_stats"):
+            for n, t in state[tree].items():
+                assert torch.equal(got[f"state.{tree}.{n}"][r], t), (r, n)
+    momentum = next(k for k in got if k.startswith("state.opt_state."))
+    assert not torch.equal(got[momentum][0], got[momentum][1])
+    assert _csv_rows(tmp_path / "orbax", 2) == _csv_rows(
+        tmp_path / "msgpack", 2)
 
 
 def test_sigusr1_to_one_process_makes_every_process_exit_75(tmp_path):

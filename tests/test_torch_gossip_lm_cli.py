@@ -133,7 +133,6 @@ def test_reference_flags_parse_with_reference_defaults():
 @pytest.mark.parametrize("flag,value", [
     ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
     ("--slice_size", "2"),
-    ("--ckpt_backend", "orbax"),
     ("--metrics_every", "5"),
     ("--moe_experts", "4"), ("--mixing_alpha", "0.5"),
     ("--trace_dir", "/tmp/x"),

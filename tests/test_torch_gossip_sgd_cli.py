@@ -35,7 +35,9 @@ gossip_sgd`` and ``run.gossip_sgd_adpsgd``) on the CPU.
   other EF flags is refused.
 """
 
+import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -48,7 +50,11 @@ from stochastic_gradient_push_torch.device import DeviceUnavailableError
 from stochastic_gradient_push_torch.ops.gossip_kernel import (
     KernelBackendError)
 from stochastic_gradient_push_torch.run import gossip_sgd, gossip_sgd_adpsgd
+from stochastic_gradient_push_torch.supervise.reshard import (
+    TornCheckpointError)
 from stochastic_gradient_push_torch.train import loop as tloop
+from torch_ckpt_sets import (assert_bit_equal, dcp_tensors, port_set,
+                             reference_reshard)
 
 torch.set_num_threads(1)
 
@@ -64,18 +70,18 @@ HEADER = ("Epoch,itr,BT(s),avg:BT(s),std:BT(s),NT(s),avg:NT(s),std:NT(s),"
           "Prec@5,avg:Prec@5,val")
 
 
-def _rows(path):
+def _rows(path, world=WORLD):
     with open(path) as f:
         lines = f.read().splitlines()
-    assert lines[:5] == ["BEGIN-TRAINING", f"World-Size,{WORLD}",
+    assert lines[:5] == ["BEGIN-TRAINING", f"World-Size,{world}",
                          "Num-DLWorkers,8", "Batch-Size,4", HEADER]
     return [line.split(",") for line in lines[5:]]
 
 
-def _rank_files(path, tag=""):
-    return [torch.load(os.path.join(path, f"{tag}checkpoint_r{r}_n{WORLD}"
+def _rank_files(path, tag="", world=WORLD):
+    return [torch.load(os.path.join(path, f"{tag}checkpoint_r{r}_n{world}"
                                           ".ckpt"), weights_only=True)
-            for r in range(WORLD)]
+            for r in range(world)]
 
 
 @pytest.mark.parametrize("extra,module,name", [
@@ -152,7 +158,7 @@ UNPORTED_VALUES = {
     "--stem_s2d": "True", "--gossip_comm_dtype": "bf16",
     "--scan_steps": "2", "--multihost": "True",
     "--coordinator_address": "localhost:1", "--num_processes": "2",
-    "--process_id": "1", "--ckpt_backend": "orbax",
+    "--process_id": "1",
     "--trace_dir": "/nonexistent", "--metrics_every": "5",
     "--fleet": "True", "--host_id": "0",
 }
@@ -402,11 +408,115 @@ def test_resume_with_other_error_feedback_flags_is_refused(tmp_path):
 
 
 def test_cross_world_resume_is_refused_by_name(tmp_path):
-    gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
+    # where the reference does not reshard: a file holds a node's row
+    # under --nprocs_per_node > 1, and the DCP backend is not resharded
+    gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path / "a"),
                              "--num_epochs", "1"])
-    with pytest.raises(NotImplementedError, match="cross-world resume"):
-        gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path),
+    with pytest.raises(NotImplementedError,
+                       match=r"cross-world resume: .* world \[4\], not 8, "
+                             r"and nprocs_per_node 2 > 1"):
+        gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path / "a"),
+                                 "--world_size", "8", "--nprocs_per_node",
+                                 "2", "--resume", "True"])
+    orbax = ["--ckpt_backend", "orbax", "--checkpoint_dir",
+             str(tmp_path / "b")]
+    gossip_sgd.main(SMALL + orbax + ["--num_epochs", "1"])
+    with pytest.raises(NotImplementedError,
+                       match="cross-world resume: .*--ckpt_backend orbax"):
+        gossip_sgd.main(SMALL + orbax + ["--world_size", "2", "--resume",
+                                         "True"])
+    # a --checkpoint_all False set holds rank 0's row alone
+    gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path / "c"),
+                             "--num_epochs", "1", "--checkpoint_all",
+                             "False"])
+    with pytest.raises(TornCheckpointError, match="--checkpoint_all False"):
+        gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path / "c"),
                                  "--world_size", "2", "--resume", "True"])
+
+
+def test_a_torn_set_of_this_world_starts_over_with_a_warning(tmp_path,
+                                                             capsys):
+    argv = SMALL + ["--checkpoint_dir", str(tmp_path), "--num_epochs", "1"]
+    gossip_sgd.main(argv)
+    gossip_sgd.main(argv + ["--world_size", "2"])
+    os.remove(tmp_path / "checkpoint_r1_n2.ckpt")
+    capsys.readouterr()
+    gossip_sgd.main(argv + ["--world_size", "2", "--resume", "True"])
+    out = capsys.readouterr().out
+    assert "a checkpoint of this world is on disk but incomplete" in out
+    assert "resharded" not in out and "resumed from" not in out
+
+
+def _state_of(directory, world):
+    """The tensors, step and phase of every rank file of a set."""
+    out = {}
+    for r, f in enumerate(_rank_files(directory, world=world)):
+        s = f["state"]
+        out[(r, "step")] = torch.tensor(s["step"])
+        out[(r, "phase")] = torch.tensor(s["gossip"]["phase"])
+        out[(r, "ps")] = s["gossip"]["ps_weight"]
+        for tree in ("params", "opt_state", "batch_stats"):
+            out.update({(r, tree, n): t for n, t in s[tree].items()})
+    return out
+
+
+@pytest.mark.parametrize("module,extra", [
+    (gossip_sgd, []),
+    (gossip_sgd, ["--overlap", "True", "--staleness", "2"]),
+    (gossip_sgd_adpsgd, []),
+], ids=["sgp", "osgp", "adpsgd"])
+def test_resume_at_another_world_reshards(tmp_path, module, extra):
+    """World 4 for one epoch, resumed at world 2: the resharded files
+    are the reference's reshard of the port's world-4 files, bit for
+    bit, and the resumed run equals a same-world resume from them."""
+    old = SMALL + extra + ["--num_epochs", "1"]
+    module.main(old + ["--checkpoint_dir", str(tmp_path / "a")])
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    want = reference_reshard(tmp_path / "a", "", WORLD, 2)
+    new = SMALL + extra + ["--world_size", "2", "--resume", "True"]
+    # resumed at its last epoch: the reshard writes the set, no step runs
+    module.main(new + ["--num_epochs", "1", "--checkpoint_dir",
+                       str(tmp_path / "a")])
+    assert_bit_equal(port_set(tmp_path / "a", "", 2), want)
+    meta = json.loads(_rank_files(tmp_path / "a", world=2)[0]["meta"])
+    assert meta["reshard"]["old_world"] == WORLD and meta["epoch"] == 1
+    # a same-world resume from the resharded set, and the cross-world
+    # resume straight from the world-4 set
+    module.main(new + ["--num_epochs", "2", "--checkpoint_dir",
+                       str(tmp_path / "a")])
+    module.main(new + ["--num_epochs", "2", "--checkpoint_dir",
+                       str(tmp_path / "b")])
+    a, b = _state_of(tmp_path / "a", 2), _state_of(tmp_path / "b", 2)
+    assert sorted(a) == sorted(b) and a[(0, "step")] == 3 + 3
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert _rows(tmp_path / "b" / "out_r0_n2.csv", world=2)[-1][1] == "-1"
+
+
+def test_resume_under_the_dcp_backend_equals_the_rank_files(tmp_path):
+    """--ckpt_backend orbax: one epoch then a resume to two, against the
+    same run on the per-rank files (the reference's
+    tests/test_run_layer.py:326)."""
+    for backend, d in (("msgpack", "p"), ("orbax", "d")):
+        argv = SMALL + ["--ckpt_backend", backend, "--checkpoint_dir",
+                        str(tmp_path / d), "--overlap", "True"]
+        gossip_sgd.main(argv + ["--num_epochs", "1"])
+        gossip_sgd.main(argv + ["--resume", "True"])
+    assert sorted(os.listdir(tmp_path / "d")) == [
+        f"dcp_r0_n{WORLD}", f"out_r0_n{WORLD}.csv"]
+    root = tmp_path / "d" / f"dcp_r0_n{WORLD}"
+    assert sorted(os.listdir(root)) == ["1", "2", "best"]
+    got = dcp_tensors(root / "2")
+    files = _rank_files(tmp_path / "p")
+    for tree in ("params", "opt_state", "batch_stats"):
+        for n in files[0]["state"][tree]:
+            want = torch.stack([f["state"][tree][n] for f in files])
+            assert torch.equal(got[f"state.{tree}.{n}"], want), (tree, n)
+    assert torch.equal(got["state.ps_weight"], torch.stack(
+        [f["state"]["gossip"]["ps_weight"] for f in files]))
+    rows = [_rows(tmp_path / d / f"out_r0_n{WORLD}.csv") for d in "pd"]
+    assert [r[:2] + r[11:] for r in rows[0]] == [r[:2] + r[11:]
+                                                for r in rows[1]]
 
 
 def test_sigusr1_exits_75_with_drained_rank_files(tmp_path):

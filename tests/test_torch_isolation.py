@@ -4,9 +4,10 @@ and the port's chip scripts (``scripts/torch_*.py``) import neither jax
 nor the JAX package.
 
 One check runs the imports in a fresh interpreter where ``import jax``
-fails; another reads the sources with ``ast``; a third runs the LM
-command line's harness (whose imports sit inside ``main``) and its
-resume in such an interpreter.
+(and ``orbax``) fails; another reads the sources with ``ast``; a third
+runs the LM command line's harness (whose imports sit inside ``main``),
+its resume, a resume at another world, the consensus ingest and the
+DCP backend in such an interpreter.
 """
 
 import ast
@@ -21,7 +22,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "stochastic_gradient_push_torch"
 SMOKE = REPO / "chip_smoke.py"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "stochastic_gradient_push_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "stochastic_gradient_push_tpu")
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
@@ -50,7 +52,7 @@ def test_source_never_imports_jax_or_the_reference(path):
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
     sys.modules[name] = None          # any import of them now fails
 sys.path.insert(0, sys.argv[1])
 import stochastic_gradient_push_torch as port
@@ -101,6 +103,10 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.train.loop",
                 "stochastic_gradient_push_torch.train.lr",
                 "stochastic_gradient_push_torch.utils.checkpoint",
+                "stochastic_gradient_push_torch.utils.dcp_ckpt",
+                "stochastic_gradient_push_torch.supervise",
+                "stochastic_gradient_push_torch.supervise.reshard",
+                "stochastic_gradient_push_torch.serve.load",
                 "stochastic_gradient_push_torch.utils.logging",
                 "stochastic_gradient_push_torch.utils.meter",
                 "stochastic_gradient_push_torch.data.pipeline",
@@ -145,6 +151,14 @@ argv = ["--device", "cpu", "--vocab_size", "256", "--d_model", "16",
         "--profile_start_step", "1", "--profile_steps", "1"]
 gossip_lm.main(argv + ["--num_steps", "1", "--ckpt_every", "1"])
 result = gossip_lm.main(argv + ["--num_steps", "2", "--resume", "True"])
+# the consensus for serving, a resume at world 1 (the reshard), and the
+# DCP backend
+from stochastic_gradient_push_torch.serve.load import load_consensus
+load_consensus(d, tag="lm_")
+gossip_lm.main(argv + ["--num_steps", "3", "--resume", "True",
+                       "--world_size", "1"])
+gossip_lm.main(argv + ["--num_steps", "1", "--ckpt_backend", "orbax",
+                       "--checkpoint_dir", d + "/dcp"])
 print(json.dumps({"result": result, "loaded": sorted(
     m for m in sys.modules if m.startswith("stochastic_gradient_push"))}))
 """

@@ -32,6 +32,7 @@ The runs in other processes (SIGUSR1, ``torchrun``) are in
 import contextlib
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -40,6 +41,8 @@ import torch
 from stochastic_gradient_push_torch.data import lm as tdata
 from stochastic_gradient_push_torch.run import gossip_lm
 import torch_lm_drive as drive
+from torch_ckpt_sets import (assert_bit_equal, dcp_tensors, port_set,
+                             reference_reshard)
 
 torch.set_num_threads(1)
 
@@ -416,17 +419,89 @@ def test_resume_at_or_past_the_end_is_already_complete(tmp_path, num_steps):
 
 
 def test_orbax_backend_is_refused_by_name(tmp_path):
-    with pytest.raises(SystemExit, match="--ckpt_backend orbax"):
-        gossip_lm.main(SMALL + ["--ckpt_backend", "orbax",
-                                "--checkpoint_dir", str(tmp_path)])
+    # --ckpt_backend orbax (torch.distributed.checkpoint) trains and
+    # saves; its checkpoints of another world are refused, naming it
+    argv = SMALL + ["--num_steps", "1", "--ckpt_backend", "orbax",
+                    "--checkpoint_dir", str(tmp_path)]
+    gossip_lm.main(argv + ["--world_size", "2"])
+    assert sorted(os.listdir(tmp_path)) == ["lm_dcp_r0_n2", "lm_out_n2.csv"]
+    with pytest.raises(NotImplementedError,
+                       match=r"cross-world resume: .*--ckpt_backend orbax "
+                             r".* world \[2\], not 4"):
+        gossip_lm.main(argv + ["--world_size", "4", "--resume", "True"])
 
 
 def test_cross_world_resume_is_refused_by_name(tmp_path):
+    # the reference reshards a flat mesh in one process only: --sp 2
+    # keeps a replica's sequence shards in its file
     argv = SMALL + ["--num_steps", "1", "--checkpoint_dir", str(tmp_path)]
     gossip_lm.main(argv + ["--world_size", "2"])
     with pytest.raises(NotImplementedError,
-                       match=r"cross-world resume: .* world \[2\], not 4"):
-        gossip_lm.main(argv + ["--world_size", "4", "--resume", "True"])
+                       match=r"cross-world resume: .* world \[2\], not 4, "
+                             r"and --sp 2 > 1"):
+        gossip_lm.main(argv + ["--world_size", "4", "--sp", "2",
+                               "--resume", "True"])
+
+
+@pytest.mark.parametrize("extra", [[], BF16 + OSGP[:4]],
+                         ids=["fp32-sgp", "bf16-osgp"])
+def test_resume_at_another_world_reshards(extra, tmp_path, capsys):
+    """World 4 for 3 steps, resumed at world 2: the resharded files are
+    the reference's reshard of the port's world-4 files, bit for bit, and
+    the resumed run equals a same-world resume from them."""
+    argv = SMALL + CORPUS + extra
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    gossip_lm.main(argv + ["--world_size", "4", "--num_steps", "3",
+                           "--checkpoint_dir", a])
+    shutil.copytree(a, b)
+    want = reference_reshard(a, "lm_", 4, 2)
+    new = argv + ["--world_size", "2", "--resume", "True"]
+    # resumed at its last step: the reshard writes the set, no step runs
+    assert gossip_lm.main(new + ["--num_steps", "3", "--checkpoint_dir",
+                                 a])["already_complete"]
+    assert "resharded checkpoint set n=4 -> n=2" in capsys.readouterr().out
+    assert_bit_equal(port_set(a, "lm_", 2), want)
+    gossip_lm.main(new + ["--num_steps", "6", "--checkpoint_dir", a])
+    gossip_lm.main(new + ["--num_steps", "6", "--checkpoint_dir", b])
+    got, ref = _files(a), _files(b)
+    names = ["lm_checkpoint_r0_n2.ckpt", "lm_checkpoint_r1_n2.ckpt"]
+    assert [n for n in got if n in names] == names
+    for name in names:
+        g_t, g_meta = got[name]
+        w_t, w_meta = ref[name]
+        assert g_meta["step"] == w_meta["step"] == 6
+        assert sorted(g_t) == sorted(w_t)
+        for k in w_t:
+            assert torch.equal(g_t[k], w_t[k]), (name, k)
+    assert _csv(a, "lm_out_n2.csv") == _csv(b, "lm_out_n2.csv")
+
+
+def test_resume_under_the_dcp_backend_equals_the_rank_files(tmp_path):
+    """--ckpt_backend orbax, keyed by step, against the per-rank files
+    (the reference's tests/test_transformer_lm.py:222): 3 steps, then a
+    resume to 6, equal rows and states."""
+    argv = SMALL + CORPUS + ["--world_size", "4", "--ckpt_every", "1",
+                             "--overlap", "True", "--staleness", "2"]
+    for backend in ("msgpack", "orbax"):
+        d = str(tmp_path / backend)
+        flags = ["--ckpt_backend", backend, "--checkpoint_dir", d]
+        gossip_lm.main(argv + flags + ["--num_steps", "3"])
+        gossip_lm.main(argv + flags + ["--num_steps", "6", "--resume",
+                                       "True"])
+    root = tmp_path / "orbax" / "lm_dcp_r0_n4"
+    # saves keyed by step, the newest 3 kept
+    assert sorted(os.listdir(root)) == ["4", "5", "6", "best"]
+    got = dcp_tensors(root / "6")
+    files = _files(str(tmp_path / "msgpack"))
+    for r in range(4):
+        tensors, meta = files[f"lm_checkpoint_r{r}_n4.ckpt"]
+        assert meta["step"] == 6
+        for k, t in tensors.items():
+            if k.startswith("/params/"):
+                assert torch.equal(got["state.params." + k[8:]][r], t), k
+            elif k.startswith("/opt_state/"):
+                assert torch.equal(got["state.opt_state." + k[11:]][r], t), k
+    assert _csv(str(tmp_path / "orbax")) == _csv(str(tmp_path / "msgpack"))
 
 
 def test_every_run_writes_its_files(tmp_path):

@@ -198,3 +198,49 @@ def test_torn_save_window_starts_every_process_at_step_0(tmp_path):
         == ["1", "2", "3"]
     assert all(_file(tmp_path, r, world)[1]["step"] == 3
                for r in range(world))
+
+
+def test_cross_world_resume_under_torchrun_is_refused_by_name(tmp_path):
+    # the reference reshards in one process only: every process refuses
+    argv = SMALL + ["--checkpoint_dir", str(tmp_path), "--num_steps", "1"]
+    codes, logs = _join(_spawn(argv + ["--world_size", "4"]))
+    assert codes == [0], logs[0]
+    codes, logs = _join(_spawn(argv + ["--resume", "True"], 2))
+    assert codes[0] != 0 and codes[1] != 0, "\n".join(logs)
+    for log in logs:
+        assert ("NotImplementedError: cross-world resume" in log
+                and "the run spans 2 processes" in log), log
+
+
+def test_dcp_backend_under_torchrun_resumes_as_the_rank_files(tmp_path):
+    """--ckpt_backend orbax in 2 processes: one shared root, each
+    process's rows restored; the run equals the per-rank backend's."""
+    world = 2
+    for backend in ("msgpack", "orbax"):
+        argv = SMALL + ["--checkpoint_dir", str(tmp_path / backend),
+                        "--ckpt_backend", backend, "--ckpt_every", "1"]
+        codes, logs = _join(_spawn(argv + ["--num_steps", "2"], world))
+        assert codes == [0, 0], "\n".join(logs)
+        codes, logs = _join(_spawn(argv + ["--num_steps", "4", "--resume",
+                                           "True"], world))
+        assert codes == [0, 0], "\n".join(logs)
+        assert "resumed from step 2" in logs[0]
+    assert sorted(os.listdir(tmp_path / "orbax")) == [
+        f"lm_dcp_global_n{world}", f"lm_out_p0_n{world}.csv",
+        f"lm_out_p1_n{world}.csv"]
+    from torch_ckpt_sets import dcp_tensors
+
+    got = dcp_tensors(tmp_path / "orbax" / f"lm_dcp_global_n{world}" / "4")
+    for r in range(world):
+        state, meta = _file(tmp_path / "msgpack", r, world)
+        assert meta["step"] == 4
+        for n, t in state["params"].items():
+            assert torch.equal(got[f"state.params.{n}"][r], t), (r, n)
+        for n, t in state["opt_state"].items():
+            assert torch.equal(got[f"state.opt_state.{n}"][r], t), (r, n)
+    # the two processes' momentum rows differ (at world 2 a round
+    # averages the params exactly), so each kept its own
+    assert not torch.equal(got["state.opt_state.embed.weight"][0],
+                           got["state.opt_state.embed.weight"][1])
+    assert _rows(tmp_path / "orbax" / f"lm_out_p0_n{world}.csv") == _rows(
+        tmp_path / "msgpack" / f"lm_out_p0_n{world}.csv")
