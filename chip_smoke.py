@@ -304,8 +304,8 @@
      process reshards its own rank's file, bit-equal to 17a's copy, and
      launches one cross-process K2 and K1 a step and no stacked one;
    - 17c: phase 15's ``run/gossip_lm.py`` (bf16, world 2, SGP on K2/K1,
-     flash, T1024 B4) under ``--ckpt_backend orbax --ckpt_every 2``: 6
-     steps twice (the spread) and 4 steps resumed to 6, the step-6
+     flash, T1024 B4) under ``--ckpt_backend orbax --ckpt_every 2``: 4
+     steps twice (the spread) and 2 steps resumed to 4, the step-4
      checkpoints and CSV losses within the spread, at most 3 step
      directories, the seconds a save holds the run (the host copy) and
      its background write, beside ``torch.save`` of the same tensors;
@@ -318,7 +318,26 @@
      under ``--ckpt_backend orbax`` (in the background), one epoch then
      resumed to two: one shared root, each process's restored rows equal
      to the rows it saved, rank 1's different from rank 0's.
-18. A JSON line of per-kernel results (the fp32 flash rows also carry
+18. The sequence ring across processes: phase 11's LM (d768/L12, dp 2 x
+   sp 4, T4096 in 1024-token shards, B2 a replica, ``ring_flash``,
+   remat, SGP on K2/K1, seed 0) through ``run/gossip_lm.py`` on a token
+   file, in 8 processes under a torchrun environment sharing the card
+   over gloo, process ``p`` holding shard ``p % 4`` of replica ``p //
+   4``, each beside the same command stacked in this process:
+   - 18a: fp32, 3 steps: every process's losses and grad norms within
+     1e-5 relative of its stacked replica's, its push-sum weight
+     exactly the replica's; fp32 K3/K4/K5 launches summed over the
+     processes equal to the stacked run's; one cross-process K2 and K1
+     a step in every process and no stacked one; finite CSV rows, the
+     same in every process; one checkpoint file a process;
+   - 18b: the same at ``--precision bf16``, 2 steps: finite rows and the
+     bf16 K3-K5 launches summed over the processes equal to the stacked
+     run's;
+   - 18c: one ring shift of a ``[2, 12, 1024, 64]`` fp32 block a shard,
+     every process at once (gloo, through the host), by the host clock,
+     beside ``torch.roll`` of the stacked block (CUDA events); each
+     run's synchronised step ms beside the stacked run's.
+19. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -4693,9 +4712,10 @@ def hierarchical_path(card: str, flat_bt: float) -> dict:
 # world 2 for a second: stacked (17a), in 2 torchrun processes (17b)
 RESHARD = dict(old=4, new=2)
 # 17c: run/gossip_lm.py at phase 15's shape under --ckpt_backend orbax:
-# 6 steps straight, twice (the spread), and 4 steps resumed to 6, a save
-# every 2 steps, the newest 3 kept
-DCP_LM = dict(steps=6, split=4, every=2, keep=3)
+# 4 steps straight, twice (the spread), and 2 steps resumed to 4, a save
+# every 2 steps, the newest 3 kept (few steps: the saves set the
+# script's time)
+DCP_LM = dict(steps=4, split=2, every=2, keep=3)
 # 17d: a 2-step world-2 run of the same LM on the per-rank files
 CONSENSUS_STEPS = 2
 
@@ -5205,6 +5225,305 @@ def checkpoints_path(card: str) -> dict:
     return {n: sum(r.get(n, 0) for r in runs) for r in runs for n in r}
 
 
+# -- phase 18: the sequence ring across processes ---------------------------
+
+# phase 11's shape (dp 2 x sp 4, T4096, 1024-token shards, B2 a replica)
+# in 8 processes sharing the card over gloo, one sequence shard each:
+# 18a fp32 for 3 steps, 18b bf16 for 2, each beside the same command
+# stacked in this process; 18c one ring shift of a [2, 12, 1024, 64] fp32
+# block a shard, 10 times in every process at once
+SEQ_DIST = dict(steps=3, bf16_steps=2, shifts=10)
+
+# the child: joins one gloo group on the card, waits for the file
+# sys.argv[6] (the parent's stacked runs are done), runs each argv of
+# sys.argv[5] through run/gossip_lm.py (seq_dist_run), then times the
+# ring shift on its replica's sp group
+_P18_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as c
+from stochastic_gradient_push_torch.parallel import multihost
+c.set_matmul_flags()
+multihost.initialize_multihost("gloo", torch.device("cuda", 0))
+t0 = time.perf_counter()
+while not os.path.exists(sys.argv[6]):
+    if time.perf_counter() - t0 > c.DIST_TIMEOUT_S:
+        raise SystemExit("the parent never started phase 18's runs")
+    time.sleep(0.1)
+for label, argv in json.loads(sys.argv[5]):
+    print(label + " " + json.dumps(c.seq_dist_run(argv)), flush=True)
+print("SHIFT " + json.dumps(c.seq_dist_shift()), flush=True)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def set_matmul_flags() -> None:
+    """TF32 off, bf16 GEMMs accumulating in fp32 (as ``main`` runs)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _seq_dist_argv(ckpt: str, corpus: str, steps: int, *extra) -> list:
+    """Phase 11c's command (ring_flash, remat, K2/K1) on a token file."""
+    b, t = SEQ["batch"], SEQ["seq_len"]
+    return ["--sp", str(SEQ["sp"]), "--attn", "ring_flash", "--remat",
+            "True", "--gossip_kernel", "pallas", "--vocab_size", "32000",
+            "--d_model", "768", "--n_layers", "12", "--n_heads", "12",
+            "--d_ff", "3072", "--seq_len", str(t), "--batch_size", str(b),
+            "--num_steps", str(steps), "--print_freq", "1", "--seed", "0",
+            "--corpus_file", corpus, "--checkpoint_dir", ckpt, *extra]
+
+
+def seq_dist_run(argv) -> dict:
+    """``run/gossip_lm.py`` in this process with every counter zeroed
+    just before and its steps watched: each step's losses and grad norms
+    (one a held replica), its synchronised host time, the last push-sum
+    weights, the launches, the CSV rows (``tokens_per_sec`` left out) and
+    the checkpoint files this process wrote (then removed): one a
+    replica stacked, one a process in a group."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+    from stochastic_gradient_push_torch.run import gossip_lm
+    from stochastic_gradient_push_torch.train import lm
+
+    counters = {**_counters(),
+                "gossip_edge_start_ipc": _Counter(gk.gossip_edge_start,
+                                                  "launches_ipc"),
+                "gossip_edge_wait_ipc": _Counter(gk.gossip_edge_wait,
+                                                 "launches_ipc")}
+    got = {"loss": [], "grad_norm": [], "step_s": []}
+    build = lm.build_lm_train_step
+
+    def watched(*a, **k):
+        step = build(*a, **k)
+
+        def run(state, toks, tgts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, toks, tgts)
+            torch.cuda.synchronize()
+            got["step_s"].append(time.perf_counter() - t0)
+            got["loss"].append(m["loss"].tolist())
+            got["grad_norm"].append(m["grad_norm"].tolist())
+            got["ps_weight"] = state.gossip.ps_weight.tolist()
+            return state, m
+        return run
+
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    lm.build_lm_train_step = watched
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            gossip_lm.main(argv)
+    finally:
+        lm.build_lm_train_step = build
+    got["wall_s"] = time.perf_counter() - t0
+    got["launches"] = {n: c.launches for n, c in counters.items()}
+    ckpt = argv[argv.index("--checkpoint_dir") + 1]
+    world, sp = SEQ["dp"] * SEQ["sp"], SEQ["sp"]
+    if dist.is_initialized():
+        p = dist.get_rank()
+        csv = f"lm_out_p{p}_n{world}.csv"
+        files = [f"lm_checkpoint_r{p // sp}_s{p % sp}_n{world}.ckpt"]
+    else:
+        csv = f"lm_out_n{world}.csv"
+        files = [f"lm_checkpoint_r{r}_n{world}.ckpt"
+                 for r in range(SEQ["dp"])]
+    with open(os.path.join(ckpt, csv)) as f:
+        got["rows"] = [r.split(",")[:4] + r.split(",")[5:]
+                       for r in f.read().splitlines()[1:]]
+    got["files"] = {f: os.path.getsize(os.path.join(ckpt, f)) for f in files}
+    for f in files:
+        os.remove(os.path.join(ckpt, f))
+    return got
+
+
+def seq_dist_shift() -> dict:
+    """Ring shifts of one ``[1, B2, H12, 1024, 64]`` fp32 block on this
+    process's sp group (gloo, through the host), every process at once:
+    the host clock's ms a shift, synchronised, over ``shifts`` calls
+    after two warm-ups."""
+    import torch
+    import torch.distributed as dist
+
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        DistTransport)
+    from stochastic_gradient_push_torch.parallel.mesh import (
+        join_dp_sp_groups, make_dp_sp_layout)
+    from stochastic_gradient_push_torch.parallel.seq import DistSeq
+
+    layout = make_dp_sp_layout(dist.get_world_size(), SEQ["sp"])
+    sp_group, _ = join_dp_sp_groups(layout, dist.get_rank())
+    seq = DistSeq(DistTransport(group=sp_group))
+    x = torch.randn(1, SEQ["batch"], 12, SEQ["seq_len"] // SEQ["sp"], 64,
+                    device="cuda")
+    for _ in range(2):
+        y = seq.ring_shift(x)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SEQ_DIST["shifts"]):
+        y = seq.ring_shift(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / SEQ_DIST["shifts"]
+    return {"ms": ms, "bytes": x.numel() * x.element_size(),
+            "finite": bool(torch.isfinite(y).all())}
+
+
+def _seq_dist_check(card: str, label: str, procs: list, stacked: dict,
+                    exact: bool) -> None:
+    """Each process's run against the stacked one: launches summed over
+    the processes equal to the stacked run's on the flash kernels, one
+    cross-process K2 and K1 a step in each process and no stacked one;
+    finite rows, the same in every process; with ``exact``, losses and
+    grad norms within 1e-5 relative of the stacked replica's and the
+    push-sum weights exactly equal."""
+    import numpy as np
+
+    steps = len(stacked["loss"])
+    want = stacked["launches"]
+    summed = {n: sum(p["launches"][n] for p in procs) for n in want}
+    flash = FLASH + FLASH_BF16
+    if {n: summed[n] for n in flash} != {n: want[n] for n in flash}:
+        raise AssertionError(f"seq 18{label}: flash launches over the "
+                             f"processes {summed}, the stacked run's {want}")
+    for p, run in enumerate(procs):
+        ipc = {n: run["launches"][n] for n in (
+            "gossip_edge_start", "gossip_edge_wait",
+            "gossip_edge_start_ipc", "gossip_edge_wait_ipc")}
+        if ipc != {"gossip_edge_start": 0, "gossip_edge_wait": 0,
+                   "gossip_edge_start_ipc": steps,
+                   "gossip_edge_wait_ipc": steps}:
+            raise AssertionError(f"seq 18{label} process {p}: gossip "
+                                 f"launches {ipc}, expected one "
+                                 f"cross-process K2 and K1 a step")
+        rows = [[float(v) for v in r] for r in run["rows"]]
+        if len(rows) != steps or not np.isfinite(rows).all() or (
+                run["rows"] != procs[0]["rows"]):
+            raise AssertionError(f"seq 18{label} process {p}: CSV rows "
+                                 f"{run['rows']} (process 0: "
+                                 f"{procs[0]['rows']})")
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for p, run in enumerate(procs):
+        replica = p // SEQ["sp"]
+        for key in worst:
+            a = np.asarray(run[key])[:, 0]
+            b = np.asarray(stacked[key])[:, replica]
+            worst[key] = max(worst[key], float(np.max(np.abs(a - b)
+                                                      / np.abs(b))))
+        if exact and run["ps_weight"] != stacked["ps_weight"][
+                replica:replica + 1]:
+            raise AssertionError(f"seq 18{label} process {p}: ps-weight "
+                                 f"{run['ps_weight']}, stacked "
+                                 f"{stacked['ps_weight']}")
+    print(f"seq 18{label}: {len(procs)} processes vs the stacked run: "
+          f"largest relative loss difference {worst['loss']:.3e}, grad norm "
+          f"{worst['grad_norm']:.3e}; flash launches summed "
+          f"{json.dumps({n: summed[n] for n in flash if summed[n]})}; "
+          f"ps-weight {procs[0]['ps_weight']}; checkpoint files "
+          f"{sum(len(p['files']) for p in procs)} of "
+          f"{max(s for p in procs for s in p['files'].values()) / 1e9:.2f} GB "
+          f"[{card}]", flush=True)
+    if exact and max(worst.values()) > TOL_STEP_LOSS_REL:
+        raise AssertionError(f"seq 18{label}: the processes' losses or "
+                             f"grad norms are {worst} from the stacked "
+                             f"run's, over {TOL_STEP_LOSS_REL}")
+
+
+def seq_dist_path(card: str) -> dict:
+    """Phase 18: phase 11's dp 2 x sp 4 LM in 8 processes, one sequence
+    shard each, against the same command stacked in this process (18a
+    fp32, 18b bf16), then the ring shift's time (18c).  Returns the
+    processes' launches."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    dp, sp, b, t = SEQ["dp"], SEQ["sp"], SEQ["batch"], SEQ["seq_len"]
+    world, steps = dp * sp, SEQ_DIST["steps"]
+    tmp = tempfile.mkdtemp(prefix="seq18_", dir=os.path.join(ROOT, "build"))
+    corpus = os.path.join(tmp, "tokens.npy")
+    np.save(corpus, np.random.default_rng(0).integers(
+        0, 32000, dp * b * t * steps + 1).astype(np.int32))
+    runs = [("a", steps, []),
+            ("b", SEQ_DIST["bf16_steps"], ["--precision", "bf16"])]
+    # the processes start (imports, the group) while the stacked runs go,
+    # and wait for the go file before any work on the card
+    go = os.path.join(tmp, "go")
+    procs = _ranks(_P18_CHILD, world, [json.dumps([
+        (f"RUN_{label}", _seq_dist_argv(os.path.join(tmp, f"dist_{label}"),
+                                        corpus, n, *extra))
+        for label, n, extra in runs]), go], _torchrun_env(world))
+    stacked = {}
+    try:
+        for label, n, extra in runs:
+            ckpt = os.path.join(tmp, f"stacked_{label}")
+            stacked[label] = seq_dist_run(_seq_dist_argv(
+                ckpt, corpus, n, "--world_size", str(world), *extra))
+            shutil.rmtree(ckpt)
+            torch.cuda.empty_cache()
+        x = torch.randn(sp, b, 12, t // sp, 64, device="cuda")
+        roll_ms = _time_ms(lambda: torch.roll(x, 1, 0), 20)
+        del x
+        torch.cuda.empty_cache()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    print(f"seq 18: {world} processes (torchrun environment, gloo, the card "
+          f"shared) = dp {dp} x sp {sp}, one {t // sp}-token shard each, d768 "
+          f"L12 T{t} B{b}/replica ring_flash remat K2/K1, beside the same "
+          f"command stacked here [{card}]", flush=True)
+    with open(go, "w"):
+        pass
+    logs = _join("18", procs)
+    launches = {}
+    # the main path's launches: the processes' runs (the stacked runs
+    # are their oracle)
+    launches = {}
+    for label, _, _ in runs:
+        procs = [_tagged(log, f"RUN_{label}") for log in logs]
+        _seq_dist_check(card, label, procs, stacked[label], label == "a")
+        for p in procs:
+            for k, v in p["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        step_ms = [float(np.median(p["step_s"][1:])) * 1e3 for p in procs]
+        stacked_ms = float(np.median(stacked[label]["step_s"][1:])) * 1e3
+        print(f"seq 18{label}: step ms (synchronised, median of steps 2-"
+              f"{len(procs[0]['step_s'])}) {min(step_ms):.1f}-"
+              f"{max(step_ms):.1f} over the processes, stacked "
+              f"{stacked_ms:.1f}; seconds in main "
+              f"{min(p['wall_s'] for p in procs):.1f}-"
+              f"{max(p['wall_s'] for p in procs):.1f}, stacked "
+              f"{stacked[label]['wall_s']:.1f} [{card}]", flush=True)
+    shifts = [_tagged(log, "SHIFT") for log in logs]
+    if not all(s["finite"] for s in shifts):
+        raise AssertionError("seq 18c: a shifted block is not finite")
+    ms = sorted(s["ms"] for s in shifts)
+    print(f"seq 18c: one ring shift of a {shifts[0]['bytes'] / 1e6:.2f} MB "
+          f"fp32 block a shard, {world} processes at once over gloo "
+          f"(through the host): {ms[0]:.2f}-{ms[-1]:.2f} ms a shift (median "
+          f"{statistics.median(ms):.2f}); torch.roll of the stacked "
+          f"[{sp}, {b}, 12, {t // sp}, 64] {roll_ms:.4f} ms (CUDA events) "
+          f"[{card}]", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"seq: phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5215,10 +5534,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from stochastic_gradient_push_torch.ops import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     # bf16 GEMMs accumulate in fp32 throughout, as XLA's do (phase 12)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    set_matmul_flags()
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
@@ -5271,6 +5588,8 @@ def main() -> int:
     hier_launches = hierarchical_path(card, flat_bt)
     torch.cuda.empty_cache()
     ckpt_launches = checkpoints_path(card)
+    torch.cuda.empty_cache()
+    seq_dist_launches = seq_dist_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
@@ -5279,14 +5598,15 @@ def main() -> int:
     # and CLI run, phase 12's timed steps and CLI run, phase 13b's CLI
     # processes, phase 14a's three CLI runs, phase 15's in-process CLI
     # runs, phase 16a's kernel-lane CLI run and 16b's processes, phase
-    # 17's CLI runs, 17b's and 17e's processes and 17d's serving) summed
+    # 17's CLI runs, 17b's and 17e's processes and 17d's serving, phase
+    # 18's processes) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
-            ckpt_launches))
+            ckpt_launches, seq_dist_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -44,9 +44,10 @@ twins there instead, the oracle with the kernels' own semantics);
 ``"blockwise"`` is the online-softmax merge over key blocks of
 ``attn_block_size`` (default ``min(128, t)``,
 ``parallel/ring_attention.py``).  ``"ring"`` and ``"ring_flash"`` run
-over the sequence shards of a :class:`~..parallel.seq.StackedSeq`:
-``forward(tokens [sp, B, t], seq)``, each shard at global positions
-``s·t + arange(t)``; ``ring`` is plain PyTorch, ``ring_flash`` runs the
+over the sequence shards held here (``parallel/seq.py``: all ``sp``
+stacked, or one a process): ``forward(tokens [held, B, t], seq)``, each
+shard ``s`` at global positions ``s·t + arange(t)``; ``ring`` is plain
+PyTorch, ``ring_flash`` runs the
 flash kernels as its ticks (``ops/ring_flash.py``; ``attn_lane`` picks
 them, as :func:`~..ops.lanes.pick_lane` does).  Embedding, LayerNorm,
 MLP and head act over the extra leading dim unchanged.  ``remat=True``
@@ -71,7 +72,6 @@ from ..ops.flash_attention import NEG_INF, flash_attention
 from ..ops.lanes import LANES
 from ..ops.ring_flash import ring_flash_attention
 from ..parallel.ring_attention import blockwise_attention, ring_attention
-from ..parallel.seq import StackedSeq
 
 __all__ = ["DTYPES", "Dense", "Embed", "LayerNorm", "TransformerConfig",
            "TransformerLM", "rope", "rope_tok"]
@@ -280,8 +280,8 @@ def _remat_block(blk: Block, x, positions, seq):
 class TransformerLM(nn.Module):
     """Causal LM.  ``forward(tokens)`` with int tokens [B, T] returns fp32
     logits [B, T, vocab] (fp64 at ``dtype=torch.float64``); with a ring
-    ``attn_impl``, ``forward(tokens, seq)`` takes a replica's shards
-    ``[sp, B, t]`` and returns ``[sp, B, t, vocab]``."""
+    ``attn_impl``, ``forward(tokens, seq)`` takes the replica's shards
+    held here ``[held, B, t]`` and returns ``[held, B, t, vocab]``."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -298,15 +298,16 @@ class TransformerLM(nn.Module):
         return [getattr(self, f"block_{i}") for i in range(self.cfg.n_layers)]
 
     def forward(self, tokens: torch.Tensor,
-                seq: StackedSeq | None = None) -> torch.Tensor:
+                seq=None) -> torch.Tensor:
         t = tokens.shape[-1]
         positions = torch.arange(t, device=tokens.device)
         if self.cfg.ring:
-            if seq is None or tokens.ndim != 3 or tokens.shape[0] != seq.size:
+            if seq is None or tokens.ndim != 3 or (
+                    tokens.shape[0] != len(seq.shards)):
                 raise ValueError(f"attn_impl {self.cfg.attn_impl!r} takes "
-                                 f"tokens [sp, batch, t] and their "
-                                 f"StackedSeq, got {tuple(tokens.shape)} and "
-                                 f"{seq!r}")
+                                 f"tokens [held shards, batch, t] and their "
+                                 f"sequence axis, got {tuple(tokens.shape)} "
+                                 f"and {seq!r}")
             positions = seq.index(tokens.device)[:, None] * t + positions
         elif seq is not None:
             raise ValueError(f"attn_impl {self.cfg.attn_impl!r} has no "

@@ -576,7 +576,7 @@ class _Link:
              f"cudaMalloc/cudaIpcGetMemHandle of {off} bytes", rank)
         self.ptr = ptr.value
         self.opened: dict = {}   # peer rank -> its block, mapped here
-        peers.store().set(f"{key}/{rank}", handle.raw)
+        peers.store().set(peers.handle_key(key, rank), handle.raw)
         host, dptr = ctypes.c_void_p(), ctypes.c_void_p()
         _ipc(lib.sgp_gossip_host_alloc(32, ctypes.byref(host),
                                        ctypes.byref(dptr)),
@@ -599,7 +599,7 @@ class _Link:
         if r == self.peers.rank:
             return self.ptr
         if r not in self.opened:
-            raw = self.peers.store().get(f"{self.key}/{r}")
+            raw = self.peers.store().get(self.peers.handle_key(self.key, r))
             peer = ctypes.c_void_p()
             _ipc(self.lib.sgp_gossip_ipc_open(
                 self.device.index, ctypes.create_string_buffer(raw, 64),
@@ -706,7 +706,12 @@ class _Landing:
 
 class PeerLinks:
     """This process's end of the cross-process gossip transport (one rank
-    per process of the default ``torch.distributed`` group).
+    per process of a ``torch.distributed`` group: ``group``, None for the
+    default one).  ``rank`` and ``world`` are the group's (gossip ranks);
+    ``members[r]`` is the global rank of the process holding gossip rank
+    ``r`` (default: the identity), under which its handles are published,
+    so the gossip groups of several shard indices, running side by side,
+    never map each other's blocks.
 
     On the card, one :class:`_Link` per transport bucket, made at its
     first round by every process in the same order (each publishes its
@@ -721,8 +726,15 @@ class PeerLinks:
     _made = itertools.count()
 
     def __init__(self, rank: int, world: int,
-                 timeout_s: float = PEER_TIMEOUT_S):
+                 timeout_s: float = PEER_TIMEOUT_S, members=None,
+                 group=None):
         self.rank, self.world = int(rank), int(world)
+        self.members = (list(range(self.world)) if members is None
+                        else [int(m) for m in members])
+        if len(self.members) != self.world:
+            raise ValueError(f"{len(self.members)} members for a group of "
+                             f"{self.world}")
+        self.group = group
         self.timeout_s = float(timeout_s)
         self.name = f"sgp_gossip_ipc/{next(self._made)}"
         self.links: dict = {}
@@ -734,6 +746,11 @@ class PeerLinks:
         import torch.distributed as dist
 
         return dist.distributed_c10d._get_default_store()
+
+    def handle_key(self, link: str, r: int) -> str:
+        """The store key of gossip rank ``r``'s block handle on ``link``:
+        named by the process that holds it."""
+        return f"{link}/{self.members[r]}"
 
     def _link(self, slot, chunks) -> _Link:
         shapes = tuple(tuple(p.shape[1:]) for p in chunks)
@@ -809,7 +826,7 @@ class PeerLinks:
         import torch.distributed as dist
 
         torch.cuda.synchronize()
-        dist.barrier()
+        dist.barrier(group=self.group)
         for link in self.links.values():
             link.close()
         self.links = {}
@@ -823,12 +840,15 @@ def gossip_edge_start_dist_reference(chunks, table: np.ndarray, rank: int,
     clear of the transport's own permutes) into
     fresh landing rows ``[1, E, ...]``; a rank the permutation fixes
     copies locally.  The works go to ``landing``, which waits them (with
-    its timeout) when the round lands.  CUDA tensors cross a gloo group
-    through host copies."""
+    its timeout) when the round lands.  ``rank`` and the table are in
+    the gossip ranks of ``landing.peers``' group; the messages go to the
+    processes holding them.  CUDA tensors cross a gloo group through host
+    copies."""
     import torch.distributed as dist
 
+    peers = landing.peers
     staged = (chunks[0].is_cuda
-              and dist.get_backend() == dist.Backend.GLOO)
+              and dist.get_backend(peers.group) == dist.Backend.GLOO)
     landed = tuple(torch.empty_like(p) for p in chunks)
     ops, meta = [], []
     for e, row in enumerate(table):
@@ -844,8 +864,10 @@ def gossip_edge_start_dist_reference(chunks, table: np.ndarray, rank: int,
                     recv.shape, dtype=recv.dtype)
                 landing.copies.append((recv, out[0, e]))
             tag = _TAG_BASE + 2 * e + i
-            ops += [dist.P2POp(dist.isend, send, dst, tag=tag),
-                    dist.P2POp(dist.irecv, recv, src, tag=tag)]
+            ops += [dist.P2POp(dist.isend, send, peers.members[dst],
+                               peers.group, tag=tag),
+                    dist.P2POp(dist.irecv, recv, peers.members[src],
+                               peers.group, tag=tag)]
             meta += [(e, dst, True), (e, src, False)]
     if ops:
         for work, (e, peer, sending) in zip(dist.batch_isend_irecv(ops),

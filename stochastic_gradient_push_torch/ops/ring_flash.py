@@ -1,8 +1,11 @@
 """Ring attention with the flash kernels as its ticks.
 
 Port of ``stochastic_gradient_push_tpu/ops/ring_flash.py`` over the
-stacked sequence axis (:class:`~..parallel.seq.StackedSeq`): q/k/v are
-``[sp, batch, heads, block_len, head_dim]``, one block per shard.  The
+sequence axis (``parallel/seq.py``): q/k/v are ``[held, batch, heads,
+block_len, head_dim]``, one block per shard held here (all ``sp`` of
+them on a :class:`~..parallel.seq.StackedSeq`, this process's one on a
+:class:`~..parallel.seq.DistSeq`, which runs only its own shard's row
+of each tick, with the owner and mode of its index).  The
 ring is the one of ``parallel/ring_attention.py``, but each visible
 (shard, tick) pair is one call of the flash kernels
 (``ops/flash_attention.py``), so no ``[t, t]`` score matrix outlives a
@@ -35,7 +38,6 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.seq import StackedSeq
 from .flash_attention import (NEG_INF, _delta, flash_attention_reference,
                               flash_bwd_dkv, flash_bwd_dkv_reference,
                               flash_bwd_dq, flash_bwd_dq_reference, flash_fwd)
@@ -84,14 +86,15 @@ def _tick_bwd(q, k, v, do, lse, delta, causal: bool, kernel: bool):
             *flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal))
 
 
-def _ring_forward(q, k, v, seq: StackedSeq, causal: bool, kernel: bool):
+def _ring_forward(q, k, v, seq, causal: bool, kernel: bool):
     acc = torch.zeros_like(q, dtype=torch.float32)
     lse = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32,
                      device=q.device)
     for s, shards in enumerate(ring_ticks(seq.size, causal)):
         if s:
             k, v = seq.ring_shift(k), seq.ring_shift(v)
-        for r, (_, mode) in enumerate(shards):
+        # r: the row held here, of shard seq.shards[r]
+        for r, (_, mode) in enumerate(shards[i] for i in seq.shards):
             if mode == SKIP:
                 continue
             out_t, lse_t = _tick_fwd(q[r], k[r], v[r], mode == DIAG, kernel)
@@ -103,7 +106,7 @@ def _ring_forward(q, k, v, seq: StackedSeq, causal: bool, kernel: bool):
     return acc.to(q.dtype), lse
 
 
-def _ring_backward(q, k, v, out, lse, do, seq: StackedSeq, causal: bool,
+def _ring_backward(q, k, v, out, lse, do, seq, causal: bool,
                    kernel: bool):
     delta = _delta(out, do)
     dq = torch.zeros_like(q, dtype=torch.float32)
@@ -113,7 +116,7 @@ def _ring_backward(q, k, v, out, lse, do, seq: StackedSeq, causal: bool,
         if s:   # the dK/dV accumulators travel with their blocks
             k, v = seq.ring_shift(k), seq.ring_shift(v)
             dk, dv = seq.ring_shift(dk), seq.ring_shift(dv)
-        for r, (_, mode) in enumerate(shards):
+        for r, (_, mode) in enumerate(shards[i] for i in seq.shards):
             if mode == SKIP:
                 continue
             dq_t, dk_t, dv_t = _tick_bwd(q[r], k[r], v[r], do[r], lse[r],
@@ -132,7 +135,7 @@ class RingFlashAttention(torch.autograd.Function):
     the global-lse ring backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seq: StackedSeq, causal: bool, kernel: bool):
+    def forward(ctx, q, k, v, seq, causal: bool, kernel: bool):
         q, k, v = (x.contiguous() for x in (q, k, v))
         out, lse = _ring_forward(q, k, v, seq, causal, kernel)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -147,14 +150,15 @@ class RingFlashAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-def ring_flash_attention(q, k, v, seq: StackedSeq, causal: bool = False,
+def ring_flash_attention(q, k, v, seq, causal: bool = False,
                          lane: str = "auto"):
     """Exact ring attention over the shards of ``seq`` with flash-kernel
-    ticks: q/k/v ``[sp, batch, heads, block_len, head_dim]``.
-    Differentiable: inputs that require grad go through
-    :class:`RingFlashAttention`."""
-    if q.shape[0] != seq.size or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q/k/v must share one [sp={seq.size}, batch, "
+    ticks: q/k/v ``[held, batch, heads, block_len, head_dim]``, the shards
+    ``seq`` holds here.  Differentiable: inputs that require grad go
+    through :class:`RingFlashAttention`."""
+    held = len(seq.shards)
+    if q.shape[0] != held or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q/k/v must share one [held={held}, batch, "
                          f"heads, block_len, head_dim] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")

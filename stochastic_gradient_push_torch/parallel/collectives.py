@@ -186,24 +186,41 @@ class StackedTransport:
 
 
 class DistTransport:
-    """One rank per process of the default ``torch.distributed`` group;
-    leaves carry a leading dim of 1.  On a gloo group CUDA tensors go
-    through host copies (gloo moves host memory); the kernel lane's
-    payload never does: its start maps the peers' landing blocks
-    (``links``, a :class:`~..ops.gossip_kernel.PeerLinks` made at the
-    kernel lane's first start, whose waits give up after ``timeout_s``;
-    the plain lane never makes one)."""
+    """One rank per process of a ``torch.distributed`` group (``group``;
+    None: the default one); leaves carry a leading dim of 1.  ``rank``,
+    ``world_size`` and every permutation are in the group's ranks (the
+    gossip ranks of a dp group, the shards of an sp group); ``members``
+    maps them to the processes' global ranks, which point-to-point peers
+    and ``new_group`` take.  ``siblings`` lists the member lists of every
+    group that runs the same rounds beside this one (one dp group a
+    shard index: ``parallel/mesh.py``), so a grouped mean's subgroups
+    are made for all of them.  On a gloo group CUDA tensors go through
+    host copies (gloo moves host memory); the kernel lane's payload never
+    does: its start maps the peers' landing blocks (``links``, a
+    :class:`~..ops.gossip_kernel.PeerLinks` made at the kernel lane's
+    first start, whose waits give up after ``timeout_s``; the plain lane
+    never makes one)."""
 
-    def __init__(self, timeout_s: float = gk.PEER_TIMEOUT_S):
+    def __init__(self, timeout_s: float = gk.PEER_TIMEOUT_S, group=None,
+                 siblings=None):
         import torch.distributed as dist
 
         self._dist = dist
-        self.rank = dist.get_rank()
-        self.world_size = dist.get_world_size()
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world_size = dist.get_world_size(group)
         self.ranks = np.array([self.rank])
+        self.members = dist.get_process_group_ranks(
+            dist.group.WORLD if group is None else group)
+        self.siblings = ([list(self.members)] if siblings is None
+                         else [list(m) for m in siblings])
+        if list(self.members) not in self.siblings:
+            raise ValueError(f"siblings {self.siblings} do not hold this "
+                             f"group's members {self.members}")
         self._groups: dict = {}
-        self._staged = dist.get_backend() == dist.Backend.GLOO
-        self._nccl = dist.get_backend() == dist.Backend.NCCL
+        backend = dist.get_backend(group)
+        self._staged = backend == dist.Backend.GLOO
+        self._nccl = backend == dist.Backend.NCCL
         self.timeout_s = timeout_s
         self.links = None
 
@@ -227,8 +244,10 @@ class DistTransport:
         src = int(np.flatnonzero(np.asarray(dests) == self.rank)[0])
         send = self._host(x[0].contiguous())
         recv = torch.empty_like(send)
-        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst),
-                                       dist.P2POp(dist.irecv, recv, src)])
+        peer = self.members
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, peer[dst], self.group),
+            dist.P2POp(dist.irecv, recv, peer[src], self.group)])
         for req in reqs:
             req.wait()
         return recv.to(x.device)[None]
@@ -238,7 +257,7 @@ class DistTransport:
         order: ``[world, ...]``."""
         send = self._host(x.detach().contiguous())
         rows = [torch.empty_like(send) for _ in range(self.world_size)]
-        self._dist.all_gather(rows, send)
+        self._dist.all_gather(rows, send, group=self.group)
         return torch.cat(rows).cpu()
 
     def edge_start(self, parts, dests, spec, n_decoded: int, kernel,
@@ -247,7 +266,8 @@ class DistTransport:
         processes."""
         if self.links is None:
             self.links = gk.PeerLinks(self.rank, self.world_size,
-                                      self.timeout_s)
+                                      self.timeout_s, members=self.members,
+                                      group=self.group)
         return gk.gossip_edge_start_dist(
             parts, dests, spec, self.links, slot=slot, n_decoded=n_decoded,
             interpret=kernel.interpret, chunk_elems=kernel.chunk_elems)
@@ -273,7 +293,8 @@ class DistTransport:
 
     def _reduce(self, x: torch.Tensor, op, group=None) -> torch.Tensor:
         out = self._host(x).clone()
-        self._dist.all_reduce(out, op=op, group=group)
+        self._dist.all_reduce(out, op=op,
+                              group=self.group if group is None else group)
         return out.to(x.device)
 
     def group_mean(self, leaves, groups) -> list:
@@ -281,13 +302,14 @@ class DistTransport:
         leaf: one ``all_reduce`` of the raveled ``x * float32(1/s)`` per
         dtype on the group's process subgroup.  ``new_group`` is
         collective over the default group, so every process makes every
-        group of a grouping, in one order, the first time the grouping
-        is seen, and never again."""
+        group of a grouping, for every sibling group in turn and in one
+        order, the first time the grouping is seen, and never again."""
         key = tuple(tuple(int(r) for r in g) for g in groups)
         if key not in self._groups:
-            made = [self._dist.new_group(list(g)) for g in key]
-            self._groups[key] = next(pg for g, pg in zip(key, made)
-                                     if self.rank in g)
+            made = {(tuple(sib), g): self._dist.new_group([sib[r] for r in g])
+                    for sib in self.siblings for g in key}
+            mine = next(g for g in key if self.rank in g)
+            self._groups[key] = made[(tuple(self.members), mine)]
         out = list(leaves)
         for flat, index in flat_by_dtype(leaves):
             unflatten_by_dtype(out, leaves, self._reduce(

@@ -14,12 +14,20 @@ its tensors carry a leading rank dim of 1 (``collectives.DistTransport``):
   through the group (``ops/gossip_kernel.py``'s cross-process K2).
 * :func:`process_device` is ``cuda:{LOCAL_RANK % device_count}``, so
   ranks may share a card.
-* :func:`consensus_resume_point` agrees on the least ``(epoch, itr)``.
-* :func:`to_host` gathers each rank's metric row, so rank 0 sees every
-  rank's; :func:`host_local_slice` is this process's rows.
+* :func:`consensus_resume_point` agrees on the least ``(epoch, itr)``
+  over its transport's group: the world's, so every process resumes at
+  one step.
+* :func:`to_host` gathers each rank's metric row over its transport's
+  group (the gossip ranks); :func:`host_local_slice` is this process's
+  rows, and under ``--sp`` its ``(replica, shard)`` block.
 * :func:`leave` frees the transport and leaves a group the run started,
   on a run's end and on its exit 75 alike (a process that exits with
   the group still up can abort in its teardown).
+
+Under ``--sp`` > 1 a process holds one sequence shard of one gossip
+replica (``parallel/mesh.py``): the helpers take the transport of the
+group they agree over (the world's for the resume point, the replicas'
+dp group for the metrics), as the caller passes it.
 """
 
 from __future__ import annotations
@@ -121,12 +129,23 @@ def to_host(x: torch.Tensor, transport) -> np.ndarray:
     return transport.gather(x.detach()).numpy()
 
 
-def host_local_slice(tree: dict, transport) -> dict:
-    """This process's rows of a world-stacked dict of arrays or
-    tensors."""
+def host_local_slice(tree: dict, transport, shards=None) -> dict:
+    """This process's rows of a world-stacked dict of arrays or tensors:
+    the gossip ranks ``transport`` holds, and with ``shards`` (the
+    sequence shards held here, ``seq.shards``) those of dim 1, so a
+    ``[dp, sp, ...]`` batch gives this process's ``(replica, shard)``
+    block ``[1, 1, ...]``."""
     rows = np.asarray(transport.ranks)
-    return {k: v[rows] if isinstance(v, np.ndarray) else v[
-        torch.as_tensor(rows, device=v.device)] for k, v in tree.items()}
+    cols = None if shards is None else np.asarray(shards)
+
+    def take(v):
+        if not isinstance(v, np.ndarray):
+            v = v[torch.as_tensor(rows, device=v.device)]
+            return v if cols is None else v[:, torch.as_tensor(
+                cols, device=v.device)]
+        return v[rows] if cols is None else v[rows][:, cols]
+
+    return {k: take(v) for k, v in tree.items()}
 
 
 def leave(transport, owns_group: bool) -> None:

@@ -1,10 +1,13 @@
-"""Ring attention over stacked sequence shards, and blockwise attention.
+"""Ring attention over sequence shards, and blockwise attention.
 
 Port of ``stochastic_gradient_push_tpu/parallel/ring_attention.py``.
-Each shard of a :class:`~.seq.StackedSeq` holds one contiguous block of
-the sequence; keys and values travel the ring (``seq.ring_shift``) while
+Each shard of the sequence axis (``parallel/seq.py``: all of them
+stacked here, or this process's one) holds one contiguous block of the
+sequence; keys and values travel the ring (``seq.ring_shift``) while
 every shard merges its queries' attention over the blocks with the
-online-softmax state ``(max, numerator, denominator)``.
+online-softmax state ``(max, numerator, denominator)``.  Across
+processes the shift is differentiable on its own (its backward sends
+the gradient one hop back), so autograd runs this ring as it is.
 
 Causal masking follows the contiguous layout: at ring step ``s`` shard
 ``r`` holds the block of owner ``(r - s) mod sp``; positions ``r*t +
@@ -21,7 +24,6 @@ from __future__ import annotations
 import torch
 
 from ..ops.flash_attention import NEG_INF
-from .seq import StackedSeq
 
 __all__ = ["ring_attention", "blockwise_attention"]
 
@@ -52,10 +54,11 @@ def _init_state(qf):
     return zeros + NEG_INF, torch.zeros_like(qf), zeros
 
 
-def ring_attention(q, k, v, seq: StackedSeq, causal: bool = False):
+def ring_attention(q, k, v, seq, causal: bool = False):
     """Exact attention with K/V blocks rotating over the shards of
-    ``seq``: q/k/v ``[sp, batch, heads, block_len, head_dim]``, returns
-    the output in the same layout and dtype as ``q``."""
+    ``seq``: q/k/v ``[held, batch, heads, block_len, head_dim]`` (the
+    shards held here), returns the output in the same layout and dtype
+    as ``q``."""
     sp, t = seq.size, q.shape[-2]
     rank = seq.index(q.device)
     qf = q.float()

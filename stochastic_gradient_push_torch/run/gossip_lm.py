@@ -39,14 +39,19 @@ its ``gossip plan:`` line; ``--graph_type 6`` is the hierarchical graph.
 health:`` lines, with ``--residual_floor`` arming the reactive global
 average.
 
-``--sp k`` cuts each sequence into ``k`` contiguous shards held
-stacked beside their replica (``parallel/seq.py``): ``--world_size /
---sp`` replicas gossip, and the graph, the LR scaling, the batches and
-tokens/s count those replicas.  Attention then runs as a ring: ``--attn
-ring`` (plain PyTorch, the default under ``--sp > 1``) or ``ring_flash``
-(the flash kernels as ring ticks); ``--remat True`` recomputes each
-block in the backward.  Under ``torchrun``, ``--sp > 1`` is refused (the
-cross-process sequence ring is not ported).  On the GPU::
+``--sp k`` cuts each sequence into ``k`` contiguous shards
+(``parallel/seq.py``): ``--world_size / --sp`` replicas gossip, and the
+graph, the LR scaling, the batches and tokens/s count those replicas.
+Run directly, a replica's shards are held stacked beside it; under
+``torchrun`` each of the ``P`` processes holds one shard, process ``p``
+shard ``p % k`` of replica ``p // k`` (the reference's ``(gossip,
+seq)`` device order, ``parallel/mesh.py``): keys and values travel the
+ring and the loss and gradients are meaned on the replica's sp group,
+the gossip round and the metrics' means run on the shard index's dp
+group, and the signal and resume agreement on the world.  Attention
+then runs as a ring: ``--attn ring`` (plain PyTorch, the default under
+``--sp > 1``) or ``ring_flash`` (the flash kernels as ring ticks);
+``--remat True`` recomputes each block in the backward.  On the GPU::
 
     python -m stochastic_gradient_push_torch.run.gossip_lm --world_size 8 \
       --sp 4 --attn ring_flash --remat True --gossip_kernel pallas \
@@ -81,16 +86,18 @@ The harness (the reference's, ``run/gossip_lm.py:752-1216`` there):
   per process under ``torchrun``), its rows also printed to stdout, and
   one checkpoint file a gossip replica, ``{tag}checkpoint_r{rank}_
   n{world}.ckpt`` (``utils/checkpoint.py``; ``world`` is the launched
-  world, ``dp x sp`` stacked): every ``--ckpt_every`` steps and at the
-  end, each save with the overlap FIFO drained first, the run going on
-  from the drained state.
+  world, ``dp x sp``), or under ``torchrun`` at ``--sp`` > 1 one a
+  process, ``{tag}checkpoint_r{replica}_s{shard}_n{world}.ckpt``: every
+  ``--ckpt_every`` steps and at the end, each save with the overlap FIFO
+  drained first, the run going on from the drained state.
 * ``--resume True`` restores the files and fast-forwards the data
   stream, so a resumed run equals one that never stopped; under
   ``torchrun`` every process resumes from the least step restored, or
   all start from step 0 when a process lacks its file.  In one process
   at ``--sp 1``, a set of another world is resharded to this one first
   (the push-sum consensus, ``supervise/reshard.py``), as the reference
-  does; under ``--sp`` > 1 or ``torchrun`` it is refused by name.
+  does; under ``--sp`` > 1 or ``torchrun`` it is refused by name, as is
+  ``--ckpt_backend orbax`` under ``torchrun`` at ``--sp`` > 1.
 * ``--ckpt_backend orbax`` saves through ``torch.distributed.checkpoint``
   (``utils/dcp_ckpt.py``) keyed by step: one root
   ``{tag}dcp_r0_n{world}``, each save's host copy made before the run
@@ -234,8 +241,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels; LayerNorm, softmax and loss in fp32); "
                         "parameters, optimizer state and gossip stay fp32")
     p.add_argument("--sp", default=1, type=int,
-                   help="sequence-parallel shards per replica, stacked on "
-                        "the device: --world_size / --sp replicas gossip")
+                   help="sequence-parallel shards per replica: "
+                        "--world_size / --sp replicas gossip; stacked on "
+                        "the device, or one a process under torchrun")
     p.add_argument("--grad_accum", default=1, type=int)
     p.add_argument("--world_size", default=None, type=int,
                    help="gossip ranks, all held in this process "
@@ -302,24 +310,21 @@ def refuse_unported(args) -> None:
                 f"ROADMAP.md Queue 1)")
 
 
-def resolve_seq_flags(args, world: int, launched: int) -> tuple[int, str]:
-    """``(dp, attn)`` for ``--sp`` over ``world`` ranks, with the
-    reference's checks (run/gossip_lm.py:269-316, 494-519): ``dp = world
-    // sp`` replicas gossip, each holding ``sp`` sequence shards; an unset
-    ``--attn`` is ``ring`` under sp > 1, else ``flash``.  Under
-    ``torchrun``, ``--sp > 1`` is refused: the sequence ring across
-    processes is not ported."""
+def resolve_seq_flags(args, world: int) -> tuple[int, str]:
+    """``(dp, attn)`` for ``--sp`` over ``world`` ranks (processes under
+    ``torchrun``), with the reference's checks (run/gossip_lm.py:269-316,
+    494-519): ``dp = world // sp`` replicas gossip, each holding ``sp``
+    sequence shards; an unset ``--attn`` is ``ring`` under sp > 1, else
+    ``flash``."""
+    from ..parallel.mesh import make_dp_sp_layout
+
     sp = args.sp
     if sp < 1:
         raise SystemExit("--sp must be >= 1")
-    if sp > 1 and launched > 1:
-        raise SystemExit(
-            f"--sp {sp} under torchrun: the cross-process sequence ring "
-            f"(one shard per GPU) is not ported yet (ROADMAP.md Queue 1); "
-            f"run the shards stacked with --world_size")
-    if world % sp:
-        raise SystemExit(f"world_size {world} not divisible by sp*tp*ep*pp "
-                         f"{sp}")
+    try:
+        make_dp_sp_layout(world, sp)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if args.seq_len % sp:
         raise SystemExit(f"seq_len {args.seq_len} not divisible by sp {sp}")
     attn = args.attn or ("ring" if sp > 1 else "flash")
@@ -451,7 +456,8 @@ def _main(argv) -> dict:
                                       host_local_slice, initialize_multihost,
                                       leave, process_device)
     from ..parallel.collectives import DistTransport, StackedTransport
-    from ..parallel.seq import StackedSeq
+    from ..parallel.mesh import join_dp_sp_groups, make_dp_sp_layout
+    from ..parallel.seq import DistSeq, StackedSeq
     from ..parallel.wire import get_codec
     from ..topology import (GRAPH_TOPOLOGIES, TOPOLOGY_NAMES,
                             build_pairing_schedule, build_schedule)
@@ -495,21 +501,37 @@ def _main(argv) -> dict:
     device = (process_device(args.device, info) if launched > 1
               else resolve_device(args.device))
     world = args.world_size or 1
-    dp, attn = resolve_seq_flags(args, launched if launched > 1 else world,
-                                 launched)
+    dp, attn = resolve_seq_flags(args, launched if launched > 1 else world)
     lane = resolve_kernel_flag(args, device, launched)
     owns_group = False
+    # the sequence axis across processes: this process's shard, its
+    # replica's sp group, and the world for agreement (signals, resume)
+    dist_seq = agree = None
     if launched > 1:
         if args.world_size not in (None, launched):
             raise SystemExit(f"--world_size {args.world_size} but the "
                              f"launcher started {launched} processes")
+        if args.sp > 1 and args.ckpt_backend == "orbax":
+            raise SystemExit(
+                f"--ckpt_backend orbax with --sp {args.sp} under torchrun: "
+                "its row layout is one gossip rank a process, and a "
+                "replica's sequence shards are not written as one row yet "
+                "(ROADMAP.md Queue 1); use --ckpt_backend msgpack")
         owns_group = not torch.distributed.is_initialized()
         initialize_multihost("xla", device, info)
-        world = dp = launched
-        transport = DistTransport()
+        world = launched
+        if args.sp > 1:
+            layout = make_dp_sp_layout(launched, args.sp)
+            sp_group, dp_group = join_dp_sp_groups(layout, info.rank)
+            transport = DistTransport(group=dp_group, siblings=[
+                layout.dp_members(i) for i in range(args.sp)])
+            dist_seq = DistSeq(DistTransport(group=sp_group))
+            agree = DistTransport()
+        else:
+            transport = agree = DistTransport()
     else:
         transport = StackedTransport(dp)
-    rank0 = launched == 1 or transport.rank == 0
+    rank0 = info.rank == 0
     log0 = print if rank0 else (lambda *a, **k: None)
     if args.batch_size % args.grad_accum:
         raise SystemExit(f"--batch_size {args.batch_size} not divisible "
@@ -618,7 +640,7 @@ def _main(argv) -> dict:
                      world_size=dp, decay_schedule={},
                      warmup=sb(args.warmup))
     model = make_model(cfg)
-    seq = StackedSeq(args.sp) if cfg.ring else None
+    seq = (dist_seq or StackedSeq(args.sp)) if cfg.ring else None
     step = build_lm_train_step(
         model, alg, tx, lrs, itr_per_epoch=itr_per_epoch,
         grad_accum=args.grad_accum,
@@ -666,7 +688,10 @@ def _main(argv) -> dict:
                   + (f", overlap staleness {alg.staleness}" if alg.overlap
                      else ""))
     shards = f" = dp {dp} x sp {args.sp}" if args.sp > 1 else ""
-    log(f"lm: world {world}{shards} ({held} in this process) on {device}; "
+    here = (f"{held} in this process" if dist_seq is None else
+            f"process {info.rank}: replica {transport.rank}, shard "
+            f"{dist_seq.shards[0]}")
+    log(f"lm: world {world}{shards} ({here}) on {device}; "
         f"{n_params / 1e6:.2f}M params; attn={attn}"
         f"{' remat' if cfg.remat else ''}; precision {args.precision}; "
         f"algorithm={alg.name}{gossip}", flush=True)
@@ -678,13 +703,15 @@ def _main(argv) -> dict:
                      / dp)
 
     def any_process(flag: bool) -> bool:
-        """Whether ``flag`` holds in any process (a collective)."""
+        """Whether ``flag`` holds in any process of the world (a
+        collective)."""
         x = torch.tensor([float(flag)], device=device)
-        return bool(transport.allreduce_max(x)[0])
+        return bool(agree.allreduce_max(x)[0])
 
-    # checkpoints: one file a gossip replica, named by the launched
-    # world, or (--ckpt_backend orbax) one DCP checkpoint keyed by step
-    me = int(transport.ranks[0])
+    # checkpoints: one file a gossip replica (a process under torchrun
+    # at --sp > 1), named by the launched world, or (--ckpt_backend
+    # orbax) one DCP checkpoint keyed by step
+    me = info.rank
     logger = make_logger(me)
     warn = logger.warning
     use_dcp = args.ckpt_backend == "orbax"
@@ -695,8 +722,10 @@ def _main(argv) -> dict:
             args.checkpoint_dir, tag=args.tag,
             rank=transport.rank if launched > 1 else 0, world_size=world)
     else:
-        ckpt = CheckpointManager(args.checkpoint_dir, tag=args.tag,
-                                 world_size=world, ranks=transport.ranks)
+        ckpt = CheckpointManager(
+            args.checkpoint_dir, tag=args.tag, world_size=world,
+            ranks=transport.ranks,
+            shard=None if dist_seq is None else dist_seq.shards[0])
     # SIGUSR1/SIGTERM raise a flag checked at each step boundary; no
     # requeue command: relaunching is the launcher's
     cluster = ClusterManager(ckpt, rank=me, requeue_command=None)
@@ -723,7 +752,7 @@ def _main(argv) -> dict:
             start_step = int(meta.get("step", 0))
             if launched > 1:
                 _, start_step = consensus_resume_point(0, start_step,
-                                                       transport, log=warn)
+                                                       agree, log=warn)
             log(f"resumed from step {start_step}", flush=True)
     if start_step >= args.num_steps:
         log(f"nothing to do: resumed at step {start_step} >= num_steps "
@@ -764,7 +793,7 @@ def _main(argv) -> dict:
     out_fname = os.path.join(
         args.checkpoint_dir,
         f"{args.tag}out_n{world}.csv" if launched == 1
-        else f"{args.tag}out_p{transport.rank}_n{world}.csv")
+        else f"{args.tag}out_p{info.rank}_n{world}.csv")
     header = ("step,loss,ppl,lr,tokens_per_sec,grad_norm"
               + (",val_loss,val_ppl" if val_on else ""))
     open_csv(out_fname, header, start_step > 0, warn)
@@ -779,8 +808,9 @@ def _main(argv) -> dict:
 
     def on_device(tokens, targets):
         # [dp, sp, batch, seq_len / sp]; flat models take [dp, batch,
-        # seq_len]; this process's rows
-        mine = host_local_slice({"x": tokens, "y": targets}, transport)
+        # seq_len]; this process's rows (and shard)
+        mine = host_local_slice({"x": tokens, "y": targets}, transport,
+                                None if seq is None else seq.shards)
         return tuple(torch.from_numpy(a if cfg.ring else a[:, 0]).to(device)
                      for a in (mine["x"], mine["y"]))
 

@@ -19,13 +19,21 @@ de-biased parameters; the module's own weights are never used.
 the LM's reference layout (the int8 wire's blocks).
 
 Sequence parallelism (the reference's ``(gossip, seq)`` mesh): with a
-ring ``attn_impl`` and ``seq`` (a :class:`~..parallel.seq.StackedSeq`
-of ``sp`` shards) the batches are ``[R, sp, batch, seq_len / sp]``, the
-``R`` ranks being the ``dp`` gossip replicas.  One ``functional_call``
-runs over a replica's shards; its loss is the mean over shards of each
-shard's token mean, so its gradient is the reference's seq-psummed
-gradient divided by ``sp`` (``train/lm.py:368-376``).  ``loss``,
-``ppl`` and ``grad_norm`` are per replica.
+ring ``attn_impl`` and ``seq`` (``parallel/seq.py``) the batches are
+``[R, held, batch, seq_len / sp]``, the ``R`` ranks being the gossip
+replicas held here and ``held`` the shards of each held here: all
+``sp`` on a :class:`~..parallel.seq.StackedSeq`, this process's one on
+a :class:`~..parallel.seq.DistSeq`.  One ``functional_call`` runs over
+a replica's held shards; its loss is their mean of each shard's token
+mean.  Then ``seq.pmean`` means the loss and the gradients over the
+replica's shards (the reference's ``lax.pmean(..., seq)``,
+``train/lm.py:368-376, 410-412`` there): across processes one
+all-reduce per dtype on the sp group, before the optimizer and the
+gossip round; on a stack nothing, autograd having summed the stacked
+shards.  Either way the gradient is the reference's seq-psummed
+gradient divided by ``sp``, identical on every shard of a replica, so
+the grad norm and the health signals need no mean of their own.
+``loss``, ``ppl`` and ``grad_norm`` are per replica.
 
 The model computes in its config's ``dtype`` (the reference's
 ``--precision``: bf16 compute on fp32 parameters, ``models/
@@ -52,7 +60,6 @@ from ..algorithms.api import GossipAlgorithm
 from ..models.convert import (init_params, params_from_jax,
                               reference_layout)
 from ..models.transformer import TransformerConfig, TransformerLM
-from ..parallel.seq import StackedSeq
 from .metrics import global_norm
 from .state import TrainState
 
@@ -77,17 +84,19 @@ def make_model(cfg: TransformerConfig) -> TransformerLM:
         return TransformerLM(cfg)
 
 
-def _check_seq(model: TransformerLM, seq: StackedSeq | None) -> None:
+def _check_seq(model: TransformerLM, seq) -> None:
     if model.cfg.ring != (seq is not None):
         raise ValueError(f"attn_impl {model.cfg.attn_impl!r} with seq "
                          f"{seq!r}: ring and ring_flash run over a "
-                         f"StackedSeq, the other attentions without one")
+                         f"sequence axis (a StackedSeq, or a DistSeq "
+                         f"across processes), the other attentions without "
+                         f"one")
 
 
-def _replica_loss(model: TransformerLM, seq: StackedSeq | None, z_r: dict,
+def _replica_loss(model: TransformerLM, seq, z_r: dict,
                   xs, ys) -> torch.Tensor:
     """One replica's loss: its token mean, or with ``seq`` the mean over
-    its shards of each shard's token mean (the reference's seq pmean)."""
+    its held shards of each shard's token mean."""
     if seq is None:
         return lm_loss(functional_call(model, z_r, (xs,)), ys)
     logits = functional_call(model, z_r, (xs, seq))
@@ -97,11 +106,10 @@ def _replica_loss(model: TransformerLM, seq: StackedSeq | None, z_r: dict,
 def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                         tx, lr_schedule, itr_per_epoch: int,
                         grad_accum: int = 1,
-                        health_axis=None,
-                        seq: StackedSeq | None = None) -> tp.Callable:
+                        health_axis=None, seq=None) -> tp.Callable:
     """Step ``(state, tokens, targets) -> (state, metrics)`` for token
-    batches ``[R, batch, seq_len]``, or ``[R, sp, batch, seq_len / sp]``
-    with ``seq`` (a ring model's sequence shards).  ``grad_accum`` splits
+    batches ``[R, batch, seq_len]``, or ``[R, held, batch, seq_len / sp]``
+    with ``seq`` (a ring model's sequence axis).  ``grad_accum`` splits
     the batch into that many microbatches whose gradients are summed,
     then divided, as the reference's scan does.  ``health_axis`` (a
     transport) adds the health signals."""
@@ -143,6 +151,9 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                     for r in range(tokens.shape[0])]
         grads = {n: torch.stack([g[n] for g, _ in per_rank]) for n in z}
         loss = torch.stack([l for _, l in per_rank])
+        if seq is not None:
+            loss, *g = seq.pmean([loss, *grads.values()])
+            grads = dict(zip(grads, g))
         grads = algorithm.reduce_grads(grads)
 
         step = state.step
@@ -164,11 +175,12 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
 
 
 def build_lm_eval_step(model: TransformerLM, algorithm: GossipAlgorithm,
-                       seq: StackedSeq | None = None) -> tp.Callable:
+                       seq=None) -> tp.Callable:
     """Eval ``(state, tokens, targets) -> {"loss", "ppl"}``, one value a
     held replica, for the train step's batch shapes: each replica's
     forward on its de-biased parameters under ``torch.no_grad``, then
-    :func:`lm_loss` (with ``seq``, the mean over its shards).  No gossip,
+    :func:`lm_loss` (with ``seq``, the mean over its shards, across
+    processes by ``seq.pmean``).  No gossip,
     no state update (the reference's ``build_lm_eval_step``)."""
     _check_seq(model, seq)
 
@@ -179,6 +191,8 @@ def build_lm_eval_step(model: TransformerLM, algorithm: GossipAlgorithm,
                 _replica_loss(model, seq, {n: p[r] for n, p in z.items()},
                               tokens[r], targets[r])
                 for r in range(tokens.shape[0])])
+            if seq is not None:
+                loss = seq.pmean([loss])[0]
         return {"loss": loss, "ppl": torch.exp(loss)}
 
     return eval_step

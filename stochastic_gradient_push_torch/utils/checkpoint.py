@@ -26,6 +26,12 @@ checkpoint.py``, with the port's own file format:
   checkpoints); at the next step boundary the trainer saves and exits
   with :data:`REQUEUE_EXIT_CODE`, after an optional requeue command.
 
+Under ``--sp`` > 1 in several processes a process holds one sequence
+shard of a replica, and writes its own file, ``{tag}checkpoint_r{rank}
+_s{shard}_n{world}.ckpt`` (``shard``): the ``sp`` files of a replica
+hold the same state, the stacked run's ``..._r{rank}_n{world}.ckpt``,
+so the two sets sit apart in one directory and compare file by file.
+
 ``all_workers=False`` (the CLI's ``--checkpoint_all False``) keeps
 rank 0's file alone, the original's rank-0-only checkpoint: rank 0's
 row is saved, and a resume starts every rank from it.  It needs every
@@ -109,15 +115,18 @@ def _stack(template: dict, rows: list[dict], what: str) -> dict:
 class CheckpointManager:
     """Save and restore the rank rows ``ranks`` of a rank-stacked train
     state (row ``j`` is rank ``ranks[j]``), one file per rank, or rank
-    0's file alone with ``all_workers=False``."""
+    0's file alone with ``all_workers=False``; with ``shard``, the files
+    of that sequence shard of the ranks."""
 
     def __init__(self, directory: str, tag: str = "", world_size: int = 1,
-                 ranks=(0,), all_workers: bool = True):
+                 ranks=(0,), all_workers: bool = True,
+                 shard: int | None = None):
         self.directory = directory
         self.tag = tag
         self.world_size = int(world_size)
         self.ranks = [int(r) for r in ranks]
         self.all_workers = bool(all_workers)
+        self._shard = "" if shard is None else f"_s{int(shard)}"
         os.makedirs(directory, exist_ok=True)
 
     def _sources(self) -> list[int]:
@@ -126,7 +135,8 @@ class CheckpointManager:
 
     def path(self, rank: int, epoch_id: int | None = None) -> str:
         """Rank ``rank``'s file, ``ep{epoch_id}_`` prefixed when given."""
-        base = f"{self.tag}checkpoint_r{rank}_n{self.world_size}.ckpt"
+        base = (f"{self.tag}checkpoint_r{rank}{self._shard}_"
+                f"n{self.world_size}.ckpt")
         if epoch_id is not None:
             base = f"ep{epoch_id}_{base}"
         return os.path.join(self.directory, base)
@@ -134,7 +144,8 @@ class CheckpointManager:
     def best_path(self, rank: int) -> str:
         return os.path.join(
             self.directory,
-            f"{self.tag}model_best_r{rank}_n{self.world_size}.ckpt")
+            f"{self.tag}model_best_r{rank}{self._shard}_"
+            f"n{self.world_size}.ckpt")
 
     def save(self, state, meta: dict, epoch_id: int | None = None,
              is_best: bool = False) -> list[str]:
@@ -166,9 +177,10 @@ class CheckpointManager:
 
     def discover_worlds(self) -> list[int]:
         """World sizes of other checkpoint sets in this directory (any
-        rank), the current world excluded."""
+        rank, per replica or per sequence shard), the current world
+        excluded."""
         pat = re.compile(re.escape(self.tag)
-                         + r"checkpoint_r(\d+)_n(\d+)\.ckpt$")
+                         + r"checkpoint_r(\d+)(?:_s\d+)?_n(\d+)\.ckpt$")
         worlds = {int(m.group(2)) for f in os.listdir(self.directory)
                   if (m := pat.match(f))}
         worlds.discard(self.world_size)

@@ -18,8 +18,9 @@ lines (``gossip faults:``, ``gossip health:``, ``gossip recovery:``),
 and are validated with the reference's messages.  Sequence parallelism
 (``--sp``, ``--attn ring|ring_flash|blockwise``, ``--remat``) trains on
 the CPU with the shards stacked, and its sizes are validated with the
-reference's messages; under ``torchrun`` ``--sp > 1`` is refused, naming
-the cross-process sequence ring.
+reference's messages; under ``torchrun`` at ``--sp > 1`` the DCP backend
+is refused by name (the process ring itself runs in
+``tests/test_torch_lm_harness_dist.py`` and ``test_torch_seq_dist.py``).
 """
 
 import math
@@ -251,12 +252,14 @@ def test_sequence_flags_are_validated(argv, match, small):
         gossip_lm.main(small + argv)
 
 
-def test_sp_under_torchrun_names_the_cross_process_ring(monkeypatch,
-                                                        small):
+def test_sp_under_torchrun_refuses_the_dcp_backend_by_name(monkeypatch,
+                                                          small):
+    # --sp > 1 runs under torchrun, one shard a process; the DCP backend's
+    # one-row-a-process layout does not hold a replica's shards yet
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="--sp 2 under torchrun.*"
-                                         "cross-process sequence ring"):
-        gossip_lm.main(small + ["--sp", "2"])
+    with pytest.raises(SystemExit, match="--ckpt_backend orbax with --sp 2 "
+                                         "under torchrun"):
+        gossip_lm.main(small + ["--sp", "2", "--ckpt_backend", "orbax"])
 
 
 def test_sp_health_lines_keep_the_mass(capsys, small):

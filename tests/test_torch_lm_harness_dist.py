@@ -10,6 +10,16 @@ on the CPU with gloo, at 2 layers, d32, seq 32:
   step, and its rows and rank files equal a straight stacked run's.  A
   torn save window (one process's file deleted) starts every process at
   step 0.
+* ``--sp`` > 1 under torchrun, one sequence shard a process (dp 2 x sp 2
+  with ``ring_flash`` and remat, dp 1 x sp 4 with ``ring``, 4
+  processes): every process's CSV rows equal the stacked run's outside
+  timing, and its file ``lm_checkpoint_r{replica}_s{shard}_n4.ckpt``
+  equals its replica's other shards' bit for bit and the stacked
+  replica's within 2e-6 (ps-weight exactly); SIGUSR1 to one process
+  makes all four save at one step and exit 75, and the resume equals a
+  straight run of the processes, rows and files bit for bit; a torn set
+  starts every process at step 0; cross-world resume is refused by
+  name.
 
 Children are joined with timeouts; the stacked run in this process is
 pinned to the children's one torch thread around the run.
@@ -23,6 +33,7 @@ import subprocess
 import sys
 import time
 
+import pytest
 import torch
 
 from stochastic_gradient_push_torch.run import gossip_lm
@@ -118,6 +129,16 @@ def _flat(tree, prefix=""):
     return {prefix: torch.as_tensor(tree)}
 
 
+def _one_thread(fn):
+    """``fn()`` on one torch thread, as the children run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(threads)
+
+
 def test_sigusr1_saves_exits_75_and_a_resume_completes(tmp_path):
     n = 150   # far more steps than the child takes before the signal
     argv = SMALL + ["--world_size", "2", "--num_steps", str(n),
@@ -160,13 +181,9 @@ def test_torchrun_preemption_and_resume_continue_the_stacked_run(tmp_path):
     codes, logs = _join(_spawn(argv + ["--resume", "True"], world))
     assert codes == [0, 0], "\n".join(logs)
     assert f"resumed from step {k}" in logs[0]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        gossip_lm.main(SMALL + ["--num_steps", str(n), "--world_size",
-                                str(world), "--checkpoint_dir", stacked])
-    finally:
-        torch.set_num_threads(threads)
+    _one_thread(lambda: gossip_lm.main(
+        SMALL + ["--num_steps", str(n), "--world_size", str(world),
+                 "--checkpoint_dir", stacked]))
     want = _rows(os.path.join(stacked, f"lm_out_n{world}.csv"))
     assert len(want) == n
     for p in range(world):
@@ -244,3 +261,121 @@ def test_dcp_backend_under_torchrun_resumes_as_the_rank_files(tmp_path):
                            got["state.opt_state.embed.weight"][1])
     assert _rows(tmp_path / "orbax" / f"lm_out_p0_n{world}.csv") == _rows(
         tmp_path / "msgpack" / f"lm_out_p0_n{world}.csv")
+
+
+# -- --sp > 1 under torchrun: one sequence shard a process -------------------
+
+SP_CASES = {"dp2_sp2": ["--sp", "2", "--attn", "ring_flash", "--remat",
+                        "True"],
+            "dp1_sp4": ["--sp", "4", "--attn", "ring"]}
+
+
+def _shard_files(directory, dp, sp, world):
+    return {(r, i): os.path.join(
+        directory, f"lm_checkpoint_r{r}_s{i}_n{world}.ckpt")
+        for r in range(dp) for i in range(sp)}
+
+
+@pytest.mark.parametrize("case", sorted(SP_CASES))
+def test_sp_under_torchrun_rows_equal_the_stacked_run(tmp_path, case):
+    """4 processes, each one sequence shard: every process's CSV rows equal
+    the stacked run's outside timing, and its checkpoint file (named by
+    replica and shard) holds its replica's state, the same in every shard
+    of the replica and the stacked file's push-sum weight."""
+    world, sp = 4, int(SP_CASES[case][1])
+    dp, n = world // sp, 4
+    dist, stacked = str(tmp_path / "dist"), str(tmp_path / "stacked")
+    argv = SMALL + SP_CASES[case] + ["--num_steps", str(n)]
+    codes, logs = _join(_spawn(argv + ["--checkpoint_dir", dist], world))
+    assert codes == [0] * world, "\n".join(logs)
+    assert (f"lm: world {world} = dp {dp} x sp {sp} (process 0: replica 0, "
+            "shard 0)") in logs[0]
+    _one_thread(lambda: gossip_lm.main(
+        argv + ["--world_size", str(world), "--checkpoint_dir", stacked]))
+    want = _rows(os.path.join(stacked, f"lm_out_n{world}.csv"))
+    assert len(want) == n
+    for p in range(world):
+        assert _rows(os.path.join(dist, f"lm_out_p{p}_n{world}.csv")) == want
+    files = _shard_files(dist, dp, sp, world)
+    for (r, i), path in files.items():
+        got = _flat(torch.load(path, weights_only=True)["state"])
+        first = _flat(torch.load(files[r, 0], weights_only=True)["state"])
+        ref = _flat(_file(stacked, r, world)[0])
+        assert sorted(got) == sorted(ref)
+        for key in ref:
+            assert torch.equal(got[key], first[key]), (r, i, key)
+        assert torch.equal(got["/gossip/ps_weight"],
+                           ref["/gossip/ps_weight"])
+        for key in ref:
+            torch.testing.assert_close(got[key], ref[key], rtol=0,
+                                       atol=2e-6)
+
+
+def test_sp_torchrun_preemption_and_resume_continue_the_straight_run(
+        tmp_path):
+    """dp 2 x sp 2 in 4 processes: SIGUSR1 to one makes every process save
+    at one step and exit 75; the resume equals a straight run of the same
+    processes, rows and files bit for bit."""
+    n, world = 150, 4
+    cut, straight = str(tmp_path / "cut"), str(tmp_path / "straight")
+    argv = SMALL + SP_CASES["dp2_sp2"] + ["--num_steps", str(n)]
+    csv = os.path.join(cut, f"lm_out_p0_n{world}.csv")
+    procs = _spawn(argv + ["--checkpoint_dir", cut], world)
+    codes, logs = _join(procs, signal_to=procs[3],
+                        when=lambda: len(_lines(csv)) >= 3)
+    assert codes == [75] * world, "\n".join(logs)
+    files = _shard_files(cut, 2, 2, world)
+    steps = {torch.load(f, weights_only=True)["state"]["step"]
+             for f in files.values()}
+    assert len(steps) == 1 and 2 <= min(steps) < n, steps
+    k = steps.pop()
+    codes, logs = _join(_spawn(argv + ["--checkpoint_dir", cut,
+                                       "--resume", "True"], world))
+    assert codes == [0] * world, "\n".join(logs)
+    assert f"resumed from step {k}" in logs[0]
+    codes, logs = _join(_spawn(argv + ["--checkpoint_dir", straight],
+                               world))
+    assert codes == [0] * world, "\n".join(logs)
+    for p in range(world):
+        got = _rows(os.path.join(cut, f"lm_out_p{p}_n{world}.csv"))
+        assert len(got) == n
+        assert got == _rows(os.path.join(straight,
+                                         f"lm_out_p{p}_n{world}.csv"))
+    for key, path in _shard_files(straight, 2, 2, world).items():
+        ref = _flat(torch.load(path, weights_only=True)["state"])
+        got = _flat(torch.load(files[key], weights_only=True)["state"])
+        assert sorted(got) == sorted(ref)
+        for name in ref:
+            assert torch.equal(got[name], ref[name]), (key, name)
+
+
+def test_sp_torn_save_window_starts_every_process_at_step_0(tmp_path):
+    world = 4
+    argv = SMALL + SP_CASES["dp2_sp2"] + ["--checkpoint_dir", str(tmp_path)]
+    codes, logs = _join(_spawn(argv + ["--num_steps", "2"], world))
+    assert codes == [0] * world, "\n".join(logs)
+    os.remove(_shard_files(tmp_path, 2, 2, world)[1, 0])
+    codes, logs = _join(_spawn(argv + ["--num_steps", "3", "--resume",
+                                       "True"], world))
+    assert codes == [0] * world, "\n".join(logs)
+    assert "checkpoint present here but missing on a peer; starting from " \
+        "step 0" in logs[0]
+    assert "no checkpoint for rank 2" in logs[2]
+    assert not any("resumed from step" in log for log in logs)
+    for p in range(world):
+        assert [r[0] for r in _rows(tmp_path / f"lm_out_p{p}_n{world}.csv")
+                ] == ["1", "2", "3"]
+    assert all(torch.load(f, weights_only=True)["state"]["step"] == 3
+               for f in _shard_files(tmp_path, 2, 2, world).values())
+
+
+def test_sp_cross_world_resume_under_torchrun_is_refused_by_name(tmp_path):
+    argv = SMALL + ["--checkpoint_dir", str(tmp_path), "--num_steps", "1",
+                    "--sp", "2"]
+    codes, logs = _join(_spawn(argv + ["--world_size", "2"]))
+    assert codes == [0], logs[0]
+    codes, logs = _join(_spawn(argv + ["--resume", "True"], 4))
+    assert all(c != 0 for c in codes), "\n".join(logs)
+    for log in logs:
+        assert ("NotImplementedError: cross-world resume" in log
+                and "the run spans 4 processes" in log), log
