@@ -337,7 +337,30 @@
      every process at once (gloo, through the host), by the host clock,
      beside ``torch.roll`` of the stacked block (CUDA events); each
      run's synchronised step ms beside the stacked run's.
-19. A JSON line of per-kernel results (the fp32 flash rows also carry
+19. Tensor parallelism: the flagship LM (d768/L12, 12 heads, d_ff 3072,
+   vocab 32000, seed 0) through ``run/gossip_lm.py`` on a token file,
+   Megatron column/row shards over ``--tp 2``:
+   - 19a: ``--world_size 4 --tp 2`` (dp 2) stacked in this process,
+     bf16, flash, SGP on K2/K1, 4 steps at T1024 B8: losses within 2e-3
+     relative of the same command at ``--tp 1 --world_size 2``; 12 bf16
+     K3, K4 and K5 launches a step a replica (one launch a layer for both
+     shards' heads) and one K2 and K1 a step;
+   - 19b: the same command in 4 processes under a torchrun environment
+     (one tp shard each, gloo, the card shared; checkpoints forced
+     through the DCP backend), 3 steps, then resumed from their DCP save
+     to step 4: losses, grad norms, push-sum weight and the step-4
+     checkpoint (params, momentum) bit-equal to 19a's straight run; each
+     process's parameter, momentum and gossip bytes (79.4 M of 134.2 M
+     parameters, 59 %, predicted from the shapes), 12 bf16 K3-K5
+     launches a step and one cross-process K2 and K1 a step;
+   - 19c: dp 1 x sp 2 x tp 2 in 4 processes, ``ring_flash``, remat,
+     fp32, T4096 B2, 2 steps, beside the same command stacked here:
+     losses within 1e-5 and grad norms 1e-4 relative (the sequence
+     axis's gradient mean runs in another order, phase 18), ps-weight
+     exact; the fp32 K3-K5 launches summed over the processes tp times
+     the stacked run's (which folds both shards' heads into one launch);
+   - each run's step host ms and the tp sums' count and host ms a step.
+20. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -5523,6 +5546,362 @@ def seq_dist_path(card: str) -> dict:
     print(f"seq: phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
+# -- phase 19: tensor parallelism -------------------------------------------
+
+# the flagship LM at --tp 2: 19a/19b dp 2 x tp 2, bf16, flash, SGP on
+# K2/K1, T1024 B8 a replica, 4 steps (19b: 3, saved, then resumed to 4);
+# 19c dp 1 x sp 2 x tp 2, fp32, ring_flash, remat, T4096 B2, 2 steps
+TP = dict(tp=2, dp=2, seq_len=1024, batch=8, steps=4, c_seq_len=4096,
+          c_batch=2, c_steps=2, vocab=32000)
+
+# the child: joins one gloo group on the card, waits for the file
+# sys.argv[6] (the parent's stacked runs are done), then runs each command
+# line of sys.argv[5] through run/gossip_lm.py (tp_run)
+_P19_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as c
+from stochastic_gradient_push_torch.parallel import multihost
+c.set_matmul_flags()
+multihost.initialize_multihost("gloo", torch.device("cuda", 0))
+t0 = time.perf_counter()
+while not os.path.exists(sys.argv[6]):
+    if time.perf_counter() - t0 > c.DIST_TIMEOUT_S:
+        raise SystemExit("the parent never started phase 19's runs")
+    time.sleep(0.1)
+for label, argv in json.loads(sys.argv[5]):
+    print(label + " " + json.dumps(c.tp_run(argv)), flush=True)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+
+def _tp_argv(ckpt: str, corpus: str, *extra) -> list:
+    """19a's command (bf16, flash, SGP on K2/K1) on a token file."""
+    return ["--tp", str(TP["tp"]), "--precision", "bf16", "--attn", "flash",
+            "--gossip_kernel", "pallas", "--vocab_size", str(TP["vocab"]),
+            "--d_model", "768", "--n_layers", "12", "--n_heads", "12",
+            "--d_ff", "3072", "--seq_len", str(TP["seq_len"]),
+            "--batch_size", str(TP["batch"]), "--num_steps",
+            str(TP["steps"]), "--print_freq", "1", "--seed", "0",
+            "--corpus_file", corpus, "--checkpoint_dir", ckpt, *extra]
+
+
+def _tp3_argv(ckpt: str, corpus: str, *extra) -> list:
+    """19c's command: dp 1 x sp 2 x tp 2, fp32, ring_flash, remat."""
+    return ["--tp", str(TP["tp"]), "--sp", "2", "--attn", "ring_flash",
+            "--remat", "True", "--vocab_size", str(TP["vocab"]),
+            "--d_model", "768", "--n_layers", "12",
+            "--n_heads", "12", "--d_ff", "3072", "--seq_len",
+            str(TP["c_seq_len"]), "--batch_size", str(TP["c_batch"]),
+            "--num_steps", str(TP["c_steps"]), "--print_freq", "1",
+            "--seed", "0", "--corpus_file", corpus, "--checkpoint_dir", ckpt,
+            *extra]
+
+
+def tp_run(argv) -> dict:
+    """``run/gossip_lm.py`` in this process with every counter zeroed
+    just before and its steps watched: each step's losses and grad norms
+    (one a held replica), its synchronised host time, the tp sums' count
+    and host seconds, the last push-sum weights, the launches, the bytes
+    of the state held here, and the CSV rows (``tokens_per_sec`` left
+    out)."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+    from stochastic_gradient_push_torch.run import gossip_lm
+    from stochastic_gradient_push_torch.train import lm
+
+    counters = {**_counters(),
+                "gossip_edge_start_ipc": _Counter(gk.gossip_edge_start,
+                                                  "launches_ipc"),
+                "gossip_edge_wait_ipc": _Counter(gk.gossip_edge_wait,
+                                                 "launches_ipc")}
+    got = {"loss": [], "grad_norm": [], "step_s": [], "sums": [],
+           "sums_s": []}
+    build = lm.build_lm_train_step
+
+    def watched(*a, **k):
+        step, tp = build(*a, **k), k.get("tp")
+
+        def run(state, toks, tgts):
+            n0, s0 = (tp.reductions, tp.reduce_s) if tp else (0, 0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, toks, tgts)
+            torch.cuda.synchronize()
+            got["step_s"].append(time.perf_counter() - t0)
+            if tp is not None:
+                got["sums"].append(tp.reductions - n0)
+                got["sums_s"].append(tp.reduce_s - s0)
+            got["loss"].append(m["loss"].tolist())
+            got["grad_norm"].append(m["grad_norm"].tolist())
+            got["ps_weight"] = state.gossip.ps_weight.tolist()
+
+            def nbytes(tree):
+                return sum(t.numel() * t.element_size()
+                           for t in tree.values())
+            got["bytes"] = {
+                "params": nbytes(state.params),
+                "momentum": nbytes(state.opt_state),
+                # what a round sends: the params and the push-sum weight
+                # (the f32 wire), and the FIFO (none for SGP)
+                "gossip": nbytes(state.params)
+                + state.gossip.ps_weight.numel() * 4
+                + sum(nbytes(p) for p, _ in state.gossip.in_flight)}
+            got["numel"] = sum(t.numel() for t in state.params.values())
+            return state, m
+        return run
+
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    lm.build_lm_train_step = watched
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            gossip_lm.main(argv)
+    finally:
+        lm.build_lm_train_step = build
+    got["wall_s"] = time.perf_counter() - t0
+    got["launches"] = {n: c.launches for n, c in counters.items()}
+    got["forced"] = "checkpoints through --ckpt_backend orbax" in (
+        out.getvalue())
+    ckpt = argv[argv.index("--checkpoint_dir") + 1]
+    p = dist.get_rank() if dist.is_initialized() else None
+    csv = [f for f in os.listdir(ckpt) if f.endswith(".csv") and (
+        p is None or f.startswith(f"lm_out_p{p}_"))]
+    with open(os.path.join(ckpt, csv[0])) as f:
+        got["rows"] = [r.split(",")[:4] + r.split(",")[5:]
+                       for r in f.read().splitlines()[1:]]
+    return got
+
+
+def _tp_predicted() -> tuple[int, int]:
+    """The parameters a tp shard holds and a replica's, from the shapes:
+    ``(split leaves / tp + replicated leaves, all)``."""
+    from stochastic_gradient_push_torch.parallel.tp import split_dim
+    from stochastic_gradient_push_torch.train.lm import logical_shapes
+
+    shapes = logical_shapes(_lm_config())
+    whole = sum(math.prod(s) for s in shapes.values())
+    held = sum(math.prod(s) // (TP["tp"] if split_dim(n) is not None else 1)
+               for n, s in shapes.items())
+    return held, whole
+
+
+def _tp_equal(x: dict, y: dict) -> tuple[bool, float]:
+    """Whether two DCP steps' tensors (``_dcp_tensors``) are the same bit
+    for bit, and the largest |difference| of their params."""
+    import torch
+
+    if set(x) != set(y):
+        raise AssertionError(f"tp: DCP keys differ: {sorted(set(x) ^ set(y))}")
+    worst = max(float((x[k].double() - y[k].double()).abs().max())
+                for k in x if ".params." in k)
+    return all(torch.equal(x[k], y[k]) for k in x), worst
+
+
+def _tp_launch_check(label: str, run: dict, want_flash: dict,
+                     k2: int, ipc: bool) -> None:
+    got = {n: run["launches"][n] for n in want_flash}
+    gossip = {n: run["launches"][n] for n in (
+        "gossip_edge_start", "gossip_edge_wait", "gossip_edge_start_ipc",
+        "gossip_edge_wait_ipc")}
+    want_gossip = {"gossip_edge_start": 0 if ipc else k2,
+                   "gossip_edge_wait": 0 if ipc else k2,
+                   "gossip_edge_start_ipc": k2 if ipc else 0,
+                   "gossip_edge_wait_ipc": k2 if ipc else 0}
+    if got != want_flash or gossip != want_gossip:
+        raise AssertionError(f"tp {label}: launches {got} {gossip}, "
+                             f"expected {want_flash} {want_gossip}")
+
+
+def _tp_sum_check(procs: list, stacked: dict, tp: int) -> None:
+    """19c: the stack runs both tp shards' heads in one launch, each
+    process its own, so the processes' fp32 K3-K5 launches sum to tp
+    times the stack's."""
+    summed = {n: sum(r["launches"][n] for r in procs) for n in FLASH}
+    want = {n: tp * stacked["launches"][n] for n in FLASH}
+    if summed != want or not all(summed.values()):
+        raise AssertionError(f"tp 19c: fp32 flash launches over the "
+                             f"processes {summed}, expected {want}")
+
+
+def _tp_rel(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def tp_path(card: str) -> dict:
+    """Phase 19: the LM at --tp 2, stacked (19a) and one tp shard a
+    process (19b), and the 3-D mesh in processes (19c), each beside its
+    stacked oracle.  Returns the main path's launches (19a's tp run, the
+    processes' runs)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tp19_", dir=os.path.join(ROOT, "build"))
+    dp, tp, b, t = TP["dp"], TP["tp"], TP["batch"], TP["seq_len"]
+    world, steps = dp * tp, TP["steps"]
+    corpus = os.path.join(tmp, "tokens.npy")
+    np.save(corpus, np.random.default_rng(0).integers(
+        0, TP["vocab"], dp * b * t * steps + 1).astype(np.int32))
+    corpus3 = os.path.join(tmp, "tokens3.npy")
+    np.save(corpus3, np.random.default_rng(1).integers(
+        0, TP["vocab"], TP["c_batch"] * TP["c_seq_len"] * TP["c_steps"]
+        + 1).astype(np.int32))
+    root = f"lm_dcp_global_n{world}"
+    dist_b = os.path.join(tmp, "dist_b")
+    # 19b: steps - 1 steps and their DCP save, then the run resumed from
+    # it to step ``steps``
+    jobs = [
+        ("RUN_b", _tp_argv(dist_b, corpus, "--num_steps", str(steps - 1))),
+        ("RUN_r", _tp_argv(dist_b, corpus, "--resume", "True")),
+        ("RUN_c", _tp3_argv(os.path.join(tmp, "dist_c"), corpus3))]
+    # the processes start (imports, the group) while the stacked runs go,
+    # and wait for the go file before any work on the card
+    go = os.path.join(tmp, "go")
+    procs = _ranks(_P19_CHILD, world, [json.dumps(jobs), go],
+                   _torchrun_env(world))
+    try:
+        # the DCP backend in one process too: its step-4 checkpoint holds
+        # the logical leaves the processes' global one does
+        a = tp_run(_tp_argv(os.path.join(tmp, "stacked_a"), corpus,
+                            "--world_size", str(world), "--ckpt_backend",
+                            "orbax"))
+        torch.cuda.empty_cache()
+        one = tp_run(_tp_argv(os.path.join(tmp, "tp1"), corpus,
+                              "--world_size", str(dp), "--tp", "1"))
+        shutil.rmtree(os.path.join(tmp, "tp1"))
+        torch.cuda.empty_cache()
+        c = tp_run(_tp3_argv(os.path.join(tmp, "stacked_c"), corpus3,
+                             "--world_size", str(world)))
+        torch.cuda.empty_cache()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    with open(go, "w"):
+        pass
+    logs = _join("19", procs)
+    runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
+            for lab in "brc"}
+
+    # 19a: the stacked run against tp 1, and its launches
+    layers = 12
+    flash_a = {f"{n}_bf16": dp * layers * steps for n in FLASH}
+    _tp_launch_check("19a", a, flash_a, steps, ipc=False)
+    rel = _tp_rel(a["loss"], one["loss"])
+    print(f"tp 19a: world {world} = dp {dp} x tp {tp} stacked, d768 L12 "
+          f"T{t} B{b}/replica bf16 flash SGP K2/K1, {steps} steps: losses "
+          f"{[round(x[0], 4) for x in a['loss']]}, largest relative "
+          f"difference from --tp 1 {rel:.3e}; step ms (synchronised, median "
+          f"of steps 2-{steps}) {np.median(a['step_s'][1:]) * 1e3:.1f}, tp "
+          f"1 {np.median(one['step_s'][1:]) * 1e3:.1f}; tp sums a step "
+          f"{a['sums'][-1]} in {np.median(a['sums_s']) * 1e3:.2f} host ms; "
+          f"bf16 K3/K4/K5 {a['launches']['flash_fwd_bf16']} each [{card}]",
+          flush=True)
+    if not np.isfinite(a["loss"]).all() or rel > TOL_HARNESS_LOSS_REL:
+        raise AssertionError(f"tp 19a: losses {a['loss']} vs tp 1 "
+                             f"{one['loss']}: {rel} over "
+                             f"{TOL_HARNESS_LOSS_REL}")
+
+    # 19b: every process bit-equal to its stacked replica and shard, the
+    # resumed step included
+    held, whole = _tp_predicted()
+    for p, (run, resumed) in enumerate(zip(runs["b"], runs["r"])):
+        replica = p // tp
+        for key in ("loss", "grad_norm"):
+            mine = [x[0] for x in run[key] + resumed[key]]
+            want = [x[replica] for x in a[key]]
+            if mine != want:
+                raise AssertionError(f"tp 19b process {p}: {key} {mine}, "
+                                     f"the stacked replica's {want}")
+        if resumed["ps_weight"] != a["ps_weight"][replica:replica + 1]:
+            raise AssertionError(f"tp 19b process {p}: ps-weight "
+                                 f"{resumed['ps_weight']}, {a['ps_weight']}")
+        if run["numel"] != held or run["bytes"]["params"] != 4 * held:
+            raise AssertionError(f"tp 19b process {p}: {run['numel']} "
+                                 f"parameters held, predicted {held}")
+        if not run["forced"] and p == 0:
+            raise AssertionError("tp 19b: the DCP backend was not forced")
+        _tp_launch_check(f"19b process {p}", run, {
+            f"{n}_bf16": layers * (steps - 1) for n in FLASH}, steps - 1,
+            ipc=True)
+        _tp_launch_check(f"19b resume process {p}", resumed, {
+            f"{n}_bf16": layers for n in FLASH}, 1, ipc=True)
+    exact, diff = _tp_equal(
+        _dcp_tensors(os.path.join(tmp, "stacked_a", f"lm_dcp_r0_n{world}",
+                                  str(steps))),
+        _dcp_tensors(os.path.join(dist_b, root, str(steps))))
+    if not exact:
+        raise AssertionError(f"tp 19b: resumed from step {steps - 1}, the "
+                             f"processes' step-{steps} checkpoint is not the "
+                             f"stacked run's (params {diff:.3e} apart)")
+    bts = runs["b"][0]["bytes"]
+    step_ms = [float(np.median(r["step_s"][1:])) * 1e3 for r in runs["b"]]
+    sums_ms = [float(np.median(r["sums_s"][1:])) * 1e3 for r in runs["b"]]
+    print(f"tp 19b: {world} processes (torchrun environment, gloo, the card "
+          f"shared) = dp {dp} x tp {tp}, one tp shard each, 19a's command, "
+          f"{steps - 1} steps and then resumed from their DCP save to step "
+          f"{steps}: losses, grad norms, ps-weight and the step-{steps} "
+          f"checkpoint (params, momentum) bit-equal to 19a's straight run; "
+          f"held a process {held / 1e6:.1f} M of {whole / 1e6:.1f} M "
+          f"parameters ({held / whole:.1%}): params "
+          f"{bts['params'] / 1e6:.1f} MB, momentum "
+          f"{bts['momentum'] / 1e6:.1f} MB, gossip {bts['gossip'] / 1e6:.1f} "
+          f"MB a round; step ms {min(step_ms):.1f}-{max(step_ms):.1f} over "
+          f"the processes (stacked 19a {np.median(a['step_s'][1:]) * 1e3:.1f}"
+          f"); tp sums a step {runs['b'][0]['sums'][-1]}, host ms a step "
+          f"{min(sums_ms):.1f}-{max(sums_ms):.1f}; seconds in main: the run "
+          f"{max(r['wall_s'] for r in runs['b']):.1f}, the resume "
+          f"{max(r['wall_s'] for r in runs['r']):.1f}, 19a "
+          f"{a['wall_s']:.1f}, tp 1 {one['wall_s']:.1f} [{card}]", flush=True)
+
+    # 19c: the 3-D mesh against its stacked run
+    loss_rel = grad_rel = 0.0
+    bit = True
+    for p, run in enumerate(runs["c"]):
+        loss_rel = max(loss_rel, _tp_rel([x[0] for x in run["loss"]],
+                                         [x[0] for x in c["loss"]]))
+        grad_rel = max(grad_rel, _tp_rel([x[0] for x in run["grad_norm"]],
+                                         [x[0] for x in c["grad_norm"]]))
+        bit &= run["loss"] == c["loss"] and run["grad_norm"] == (
+            c["grad_norm"])
+        if run["ps_weight"] != c["ps_weight"]:
+            raise AssertionError(f"tp 19c process {p}: ps-weight "
+                                 f"{run['ps_weight']}, {c['ps_weight']}")
+    _tp_sum_check(runs["c"], c, tp)
+    c_ms = [float(np.median(r["step_s"])) * 1e3 for r in runs["c"]]
+    print(f"tp 19c: {world} processes = dp 1 x sp 2 x tp 2, ring_flash remat "
+          f"fp32 T{TP['c_seq_len']} B{TP['c_batch']}, {TP['c_steps']} steps "
+          f"beside the same command stacked: {'bit-equal' if bit else 'not bit-equal'}; "
+          f"largest relative loss difference {loss_rel:.3e}, grad norm "
+          f"{grad_rel:.3e}; step ms {min(c_ms):.1f}-{max(c_ms):.1f}, stacked "
+          f"{np.median(c['step_s']) * 1e3:.1f}; tp sums a step "
+          f"{runs['c'][0]['sums'][-1]} (stacked {c['sums'][-1]}) [{card}]",
+          flush=True)
+    if loss_rel > TOL_STEP_LOSS_REL or grad_rel > TOL_STEP_GNORM_REL:
+        raise AssertionError(f"tp 19c: losses {loss_rel} or grad norms "
+                             f"{grad_rel} from the stacked run's")
+    launches = {}
+    for run in [a] + runs["b"] + runs["r"] + runs["c"]:
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tp: phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
 
 def main() -> int:
     import torch
@@ -5590,6 +5969,8 @@ def main() -> int:
     ckpt_launches = checkpoints_path(card)
     torch.cuda.empty_cache()
     seq_dist_launches = seq_dist_path(card)
+    torch.cuda.empty_cache()
+    tp_launches = tp_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
@@ -5599,14 +5980,15 @@ def main() -> int:
     # processes, phase 14a's three CLI runs, phase 15's in-process CLI
     # runs, phase 16a's kernel-lane CLI run and 16b's processes, phase
     # 17's CLI runs, 17b's and 17e's processes and 17d's serving, phase
-    # 18's processes) summed
+    # 18's processes, phase 19a's stacked tp run and 19b's and 19c's
+    # processes) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
-            ckpt_launches, seq_dist_launches))
+            ckpt_launches, seq_dist_launches, tp_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -91,11 +91,18 @@ def unflatten_tree(flat) -> dict:
     return tree
 
 
-def params_from_jax(tree) -> dict[str, torch.Tensor]:
+def params_from_jax(tree, tp: int = 1,
+                    shards=None) -> dict[str, torch.Tensor]:
     """The flax tree of a ``TransformerLM`` as a ``TransformerLM``
     ``state_dict`` of fp32 CPU tensors (kernels transposed).  Leaves may
     carry leading dims (a rank-stacked training state): the kernels'
-    last two dims are the ones transposed."""
+    last two dims are the ones transposed.  With ``tp`` > 1 the tree is
+    rank-stacked and its leaves are placed for the tensor-parallel
+    ``shards`` (default all; ``parallel/tp.py::shard_params``)."""
+    if tp > 1:
+        from ..parallel.tp import shard_params
+
+        return shard_params(params_from_jax(tree), tp, shards)
     state = {}
     for path, arr in flatten_tree(tree).items():
         *mods, leaf = path.split("/")
@@ -108,11 +115,18 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     return state
 
 
-def params_to_jax(state) -> dict:
+def params_to_jax(state, tp: int = 1) -> dict:
     """Inverse of :func:`params_from_jax`: a ``TransformerLM``
     ``state_dict`` (tensors or arrays, optionally with leading rank
     dims) as the flax tree of numpy arrays, kernels transposed back.
-    Values keep their dtype and bits."""
+    Values keep their dtype and bits.  With ``tp`` > 1 a rank-stacked
+    state holding every tensor-parallel shard is gathered into the
+    logical leaves first."""
+    if tp > 1:
+        from ..parallel.tp import gather_params
+
+        state = gather_params({n: torch.as_tensor(t) for n, t in
+                               state.items()}, tp)
     flat = {}
     for name, t in state.items():
         *mods, leaf = name.split(".")
@@ -373,7 +387,9 @@ def reference_layout(model):
     """A model's :class:`~..parallel.wire.ReferenceLayout`: its port
     parameter names in the reference's flatten order, and the dims
     permutation of each kernel the port transposes (conv OIHW -> HWIO,
-    Dense ``[out, in]`` -> ``[in, out]``).  ``model`` is a
+    Dense ``[out, in]`` -> ``[in, out]``; a tensor-parallel Dense kernel
+    ``[shards, out, in]`` -> ``[shards, in, out]``, each held shard in the
+    reference's order, ``parallel/tp.py``).  ``model`` is a
     ``TransformerLM`` or a vision model of ``models/resnet.py`` /
     ``models/small.py`` (a meta-device module will do)."""
     from ..parallel.wire import ReferenceLayout
@@ -404,6 +420,9 @@ def reference_layout(model):
                 kind = "kernel" if len(shape) in _TO_FLAX else "scale"
         paths[name] = tuple(flax_mod) + (kind,)
         if kind == "kernel":
-            perms[name] = _TO_FLAX[len(shape)]
+            # a tp-split Dense kernel [shards, out, in] is blocked shard by
+            # shard, each in the reference's [in, out] order
+            perms[name] = ((0, 2, 1) if to_flax is None and len(shape) == 3
+                           else _TO_FLAX[len(shape)])
     return ReferenceLayout(order=tuple(sorted(paths, key=paths.get)),
                            perms=perms)

@@ -54,12 +54,29 @@ MLP and head act over the extra leading dim unchanged.  ``remat=True``
 recomputes each block's forward in the backward
 (``torch.utils.checkpoint``, the reference's ``nn.remat(_Block)``).
 
+``tp`` > 1 is the reference's Megatron placement over its ``tp`` mesh
+axis (``train/lm.py:164-196`` there): ``q``, ``k``, ``v``, ``up`` and
+``lm_head`` are :class:`ColumnDense` (output features split, ``up``'s
+bias with them), ``o`` and ``down`` :class:`RowDense` (input features
+split, ``down``'s bias replicated), everything else replicated.  The
+forward then takes the tensor axis (``parallel/tp.py``: all ``tp``
+shards stacked, or one a process): ``forward(tokens, seq, tp)``.  The
+replicated activation is one tensor, a sharded one a list of the held
+shards'; *f* (``tp.copy``) feeds ``ln1``'s, ``ln2``'s and ``ln_f``'s
+output to the column layers, *g* (``tp.reduce``) sums ``o``'s and
+``down``'s partial products before ``down``'s bias.  Each shard runs
+heads ``[i·H/tp, (i+1)·H/tp)``; the held shards' heads are folded into
+one head dim for the attention (one flash launch for all of them).  The
+model returns the held shards' vocabulary slices of the logits, a list
+(``tp.lm_loss`` takes it).
+
 The engine (``serve/engine.py``) reuses these modules' weights through
 its own prefill and paged decode paths.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -73,8 +90,9 @@ from ..ops.lanes import LANES
 from ..ops.ring_flash import ring_flash_attention
 from ..parallel.ring_attention import blockwise_attention, ring_attention
 
-__all__ = ["DTYPES", "Dense", "Embed", "LayerNorm", "TransformerConfig",
-           "TransformerLM", "rope", "rope_tok"]
+__all__ = ["DTYPES", "ColumnDense", "Dense", "Embed", "LayerNorm",
+           "RowDense", "TransformerConfig", "TransformerLM", "check_tp_axis",
+           "rope", "rope_tok"]
 
 LN_EPS = 1e-6        # flax.linen.LayerNorm default
 # compute types: the reference's fp32 and bf16 (--precision), and fp64 (the
@@ -98,8 +116,13 @@ class TransformerConfig:
     attn_lane: str = "auto"     # flash, ring_flash: auto | kernel | plain
     remat: bool = False         # recompute each block in the backward
     dtype: torch.dtype = torch.float32   # compute type; params stay fp32
+    tp: int = 1                 # tensor-parallel shards (parallel/tp.py)
 
     def __post_init__(self):
+        if self.tp > 1:
+            from ..parallel.tp import check_tp_dims
+
+            check_tp_dims(self.n_heads, self.d_ff, self.vocab_size, self.tp)
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype {self.dtype} is not one of {DTYPES}")
         if self.attn_impl not in ATTN_IMPLS:
@@ -125,6 +148,18 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
+def check_tp_axis(cfg: TransformerConfig, tp) -> None:
+    """``ValueError`` unless ``tp`` is the tensor axis a model of
+    ``cfg`` runs over: one of its size (a ``StackedTp``, or a ``DistTp``
+    across processes) at ``cfg.tp`` > 1, none at tp 1."""
+    if (cfg.tp > 1) != (tp is not None) or (
+            tp is not None and tp.size != cfg.tp):
+        raise ValueError(f"a model of tp {cfg.tp} with tp {tp!r}: tp > 1 "
+                         f"runs over a tensor axis of its size (a "
+                         f"StackedTp, or a DistTp across processes), tp 1 "
+                         f"without one")
+
+
 def _wide(x: torch.Tensor) -> torch.Tensor:
     """``x`` in fp32, or in fp64 if it is fp64: the type the reference
     computes its fp32 parts in (LayerNorm, softmax, logits, loss)."""
@@ -145,8 +180,54 @@ class Dense(nn.Linear):
         self.compute = compute
 
     def forward(self, x):
+        return _dense(x, self.weight, self.bias, self.compute)
+
+
+def _dense(x, weight, bias, dt):
+    y = F.linear(x.to(dt), weight.to(dt))
+    return y if bias is None else y + bias.to(dt)
+
+
+class ColumnDense(nn.Module):
+    """A column-parallel :class:`Dense`: the output features split over
+    ``tp`` shards, ``weight`` ``[tp, n_out / tp, n_in]`` and ``bias``
+    ``[tp, n_out / tp]`` (shard ``i`` holds rows ``[i·n_out/tp,
+    (i+1)·n_out/tp)`` of the logical ``[n_out, n_in]``).  ``forward``
+    takes the held shards' inputs (a list, ``parallel/tp.py``'s *f*)
+    and returns each held shard's output slice."""
+
+    def __init__(self, n_in: int, n_out: int, tp: int, bias: bool = True,
+                 compute: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute = compute
+        self.weight = nn.Parameter(torch.empty(tp, n_out // tp, n_in))
+        self.bias = (nn.Parameter(torch.empty(tp, n_out // tp)) if bias
+                     else None)
+
+    def forward(self, xs: list) -> list:
+        return [_dense(x, self.weight[i],
+                       None if self.bias is None else self.bias[i],
+                       self.compute) for i, x in enumerate(xs)]
+
+
+class RowDense(nn.Module):
+    """A row-parallel :class:`Dense`: the input features split over
+    ``tp`` shards, ``weight`` ``[tp, n_out, n_in / tp]``, ``bias``
+    ``[n_out]`` replicated.  ``forward`` takes the held shards' inputs
+    and sums their partial products over the shards (``tp.reduce``, *g*)
+    before the bias is added."""
+
+    def __init__(self, n_in: int, n_out: int, tp: int, bias: bool = True,
+                 compute: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute = compute
+        self.weight = nn.Parameter(torch.empty(tp, n_out, n_in // tp))
+        self.bias = nn.Parameter(torch.empty(n_out)) if bias else None
+
+    def forward(self, xs: list, tp) -> torch.Tensor:
         dt = self.compute
-        y = F.linear(x.to(dt), self.weight.to(dt))
+        y = tp.reduce([_dense(x, self.weight[i], None, dt)
+                       for i, x in enumerate(xs)])
         return y if self.bias is None else y + self.bias.to(dt)
 
 
@@ -208,13 +289,21 @@ class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
+        e = cfg.d_model
         for name in ("q", "k", "v", "o"):
-            self.add_module(name, Dense(cfg.d_model, cfg.d_model,
-                                        bias=False, compute=cfg.dtype))
+            if cfg.tp == 1:
+                mod = Dense(e, e, bias=False, compute=cfg.dtype)
+            elif name == "o":
+                mod = RowDense(e, e, cfg.tp, bias=False, compute=cfg.dtype)
+            else:
+                mod = ColumnDense(e, e, cfg.tp, bias=False,
+                                  compute=cfg.dtype)
+            self.add_module(name, mod)
 
     def split(self, y: torch.Tensor) -> torch.Tensor:
-        """[..., T, E] -> [..., H, T, D]."""
-        return y.reshape(*y.shape[:-1], self.cfg.n_heads,
+        """[..., T, E] -> [..., H, T, D] (H the heads of ``y``: all of
+        them, or a tp shard's)."""
+        return y.reshape(*y.shape[:-1], -1,
                          self.cfg.head_dim).transpose(-2, -3)
 
     def attend(self, q, k, v, seq):
@@ -238,41 +327,71 @@ class Attention(nn.Module):
         p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
         return (p @ _wide(v)).to(q.dtype)
 
-    def forward(self, x, positions, seq=None):
+    def forward(self, x, positions, seq=None, tp=None):
+        if tp is not None:
+            return self._forward_tp(x, positions, seq, tp)
         q = rope(self.split(self.q(x)), positions)
         k = rope(self.split(self.k(x)), positions)
         out = self.attend(q, k, self.split(self.v(x)), seq).transpose(-2, -3)
         return self.o(out.reshape(*out.shape[:-2], self.cfg.d_model))
 
+    def _forward_tp(self, x, positions, seq, tp):
+        """Each held tp shard's ``n_heads / tp`` heads (the column split
+        is contiguous in heads), folded into one head dim for the
+        attention, then ``o``'s row split and its sum over the shards."""
+        xs = tp.copy(x)
+
+        def heads(mod):
+            hs = [self.split(y) for y in mod(xs)]
+            return hs[0] if len(hs) == 1 else torch.cat(hs, dim=-3)
+
+        q = rope(heads(self.q), positions)
+        k = rope(heads(self.k), positions)
+        out = self.attend(q, k, heads(self.v), seq)
+        parts = [o.transpose(-2, -3) for o in out.chunk(len(xs), dim=-3)]
+        return self.o([o.reshape(*o.shape[:-2], -1) for o in parts], tp)
+
 
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.ln1 = LayerNorm(cfg.d_model)
+        e, f = cfg.d_model, cfg.d_ff
+        self.ln1 = LayerNorm(e)
         self.attn = Attention(cfg)
-        self.ln2 = LayerNorm(cfg.d_model)
-        self.up = Dense(cfg.d_model, cfg.d_ff, compute=cfg.dtype)
-        self.down = Dense(cfg.d_ff, cfg.d_model, compute=cfg.dtype)
+        self.ln2 = LayerNorm(e)
+        if cfg.tp == 1:
+            self.up = Dense(e, f, compute=cfg.dtype)
+            self.down = Dense(f, e, compute=cfg.dtype)
+        else:
+            self.up = ColumnDense(e, f, cfg.tp, compute=cfg.dtype)
+            self.down = RowDense(f, e, cfg.tp, compute=cfg.dtype)
 
-    def mlp(self, h: torch.Tensor) -> torch.Tensor:
-        return self.down(F.gelu(self.up(h), approximate="tanh"))
+    def mlp(self, h: torch.Tensor, tp=None) -> torch.Tensor:
+        if tp is None:
+            return self.down(F.gelu(self.up(h), approximate="tanh"))
+        return self.down([F.gelu(y, approximate="tanh")
+                          for y in self.up(tp.copy(h))], tp)
 
-    def forward(self, x, positions, seq=None):
-        x = x + self.attn(self.ln1(x), positions, seq)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, positions, seq=None, tp=None):
+        x = x + self.attn(self.ln1(x), positions, seq, tp)
+        return x + self.mlp(self.ln2(x), tp)
 
 
-def _remat_block(blk: Block, x, positions, seq):
-    """``blk(x, positions, seq)`` with its forward recomputed in the
+def _remat_block(blk: Block, x, positions, seq, tp):
+    """``blk(x, positions, seq, tp)`` with its forward recomputed in the
     backward.  The block's parameters enter the checkpoint as inputs, so
     the recompute sees the tensors the caller's ``functional_call`` swapped
-    in, after that call has returned."""
+    in, after that call has returned.  With ``tp`` the recompute reads
+    back the first pass's sums over the tp shards (``tp.tape()``) rather
+    than reducing again."""
     params = dict(blk.named_parameters())
     names = tuple(params)
+    tape = None if tp is None else tp.tape()
 
     def run(x, *tensors):
-        return functional_call(blk, dict(zip(names, tensors)),
-                               (x, positions, seq))
+        with tape if tape is not None else contextlib.nullcontext():
+            return functional_call(blk, dict(zip(names, tensors)),
+                                   (x, positions, seq, tp))
 
     return checkpoint(run, x, *params.values(), use_reentrant=False)
 
@@ -281,7 +400,9 @@ class TransformerLM(nn.Module):
     """Causal LM.  ``forward(tokens)`` with int tokens [B, T] returns fp32
     logits [B, T, vocab] (fp64 at ``dtype=torch.float64``); with a ring
     ``attn_impl``, ``forward(tokens, seq)`` takes the replica's shards
-    held here ``[held, B, t]`` and returns ``[held, B, t, vocab]``."""
+    held here ``[held, B, t]`` and returns ``[held, B, t, vocab]``.  At
+    ``cfg.tp`` > 1, ``forward(tokens, seq, tp)`` returns a list: each
+    held tp shard's ``[..., vocab / tp]`` slice."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -290,15 +411,18 @@ class TransformerLM(nn.Module):
         for i in range(cfg.n_layers):
             self.add_module(f"block_{i}", Block(cfg))
         self.ln_f = LayerNorm(cfg.d_model)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, bias=False,
-                             compute=cfg.dtype)
+        self.lm_head = (
+            Dense(cfg.d_model, cfg.vocab_size, bias=False, compute=cfg.dtype)
+            if cfg.tp == 1 else
+            ColumnDense(cfg.d_model, cfg.vocab_size, cfg.tp, bias=False,
+                        compute=cfg.dtype))
 
     @property
     def blocks(self) -> list[Block]:
         return [getattr(self, f"block_{i}") for i in range(self.cfg.n_layers)]
 
-    def forward(self, tokens: torch.Tensor,
-                seq=None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, seq=None, tp=None):
+        check_tp_axis(self.cfg, tp)
         t = tokens.shape[-1]
         positions = torch.arange(t, device=tokens.device)
         if self.cfg.ring:
@@ -314,6 +438,8 @@ class TransformerLM(nn.Module):
                              f"sequence axis; ring and ring_flash do")
         x = self.embed(tokens)
         for blk in self.blocks:
-            x = (_remat_block(blk, x, positions, seq) if self.cfg.remat
-                 else blk(x, positions, seq))
-        return _wide(self.lm_head(self.ln_f(x)))
+            x = (_remat_block(blk, x, positions, seq, tp) if self.cfg.remat
+                 else blk(x, positions, seq, tp))
+        if tp is None:
+            return _wide(self.lm_head(self.ln_f(x)))
+        return [_wide(y) for y in self.lm_head(tp.copy(self.ln_f(x)))]

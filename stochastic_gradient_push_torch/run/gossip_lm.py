@@ -58,6 +58,27 @@ then runs as a ring: ``--attn ring`` (plain PyTorch, the default under
       --vocab_size 32000 --d_model 768 --n_layers 12 --n_heads 12 \
       --d_ff 3072 --seq_len 4096 --batch_size 2
 
+``--tp k`` splits each projection Megatron-style over ``k`` tensor
+shards (``parallel/tp.py``, the reference's ``(gossip, tp)`` and
+``(gossip, seq, tp)`` meshes): ``--world_size / (--sp · --tp)`` replicas
+gossip; ``n_heads``, ``d_ff`` and ``vocab_size`` must divide by ``k``.
+Run directly, a replica's shards are held stacked beside it; under
+``torchrun`` process ``p`` holds tp shard ``p % k`` of sequence shard
+``(p // k) % sp`` of replica ``p // (sp · k)``: the Megatron sums (after
+``o`` and ``down``, the gradients of the column layers' inputs, the
+vocabulary-parallel loss, the grad norm) run on the ``(replica, shard)``
+tp group, each ``(shard, t)`` index's slices gossip on its dp group, and
+checkpoints go through ``--ckpt_backend orbax`` (forced, and logged).
+The stacked run's files hold the logical leaves, so they resume at any
+``--tp``.  The reference's refusals stand: a world that ``sp·tp`` does
+not divide, ``--tp`` with ring attention at ``--sp 1``, ``--health_every``
+with ``--tp``; an int8 wire whose blocks a shard would cut, and
+cross-world resume, are refused by name.  On the GPU::
+
+    python -m stochastic_gradient_push_torch.run.gossip_lm --world_size 4 \
+      --tp 2 --precision bf16 --gossip_kernel pallas --vocab_size 32000 \
+      --d_model 768 --n_layers 12 --n_heads 12 --d_ff 3072 --seq_len 1024
+
 ``--precision bf16`` (the reference's flag) computes the model in
 bf16 on fp32 parameters (``models/transformer.py``): bf16 matmuls, the
 bf16 forms of the flash kernels, LayerNorm and the loss in fp32; the
@@ -87,23 +108,25 @@ The harness (the reference's, ``run/gossip_lm.py:752-1216`` there):
   one checkpoint file a gossip replica, ``{tag}checkpoint_r{rank}_
   n{world}.ckpt`` (``utils/checkpoint.py``; ``world`` is the launched
   world, ``dp x sp``), or under ``torchrun`` at ``--sp`` > 1 one a
-  process, ``{tag}checkpoint_r{replica}_s{shard}_n{world}.ckpt``: every
+  process, ``{tag}checkpoint_r{replica}_s{shard}_n{world}.ckpt`` (at
+  ``--tp`` > 1 under ``torchrun``: the DCP backend): every
   ``--ckpt_every`` steps and at the end, each save with the overlap FIFO
   drained first, the run going on from the drained state.
 * ``--resume True`` restores the files and fast-forwards the data
   stream, so a resumed run equals one that never stopped; under
   ``torchrun`` every process resumes from the least step restored, or
   all start from step 0 when a process lacks its file.  In one process
-  at ``--sp 1``, a set of another world is resharded to this one first
-  (the push-sum consensus, ``supervise/reshard.py``), as the reference
-  does; under ``--sp`` > 1 or ``torchrun`` it is refused by name, as is
-  ``--ckpt_backend orbax`` under ``torchrun`` at ``--sp`` > 1.
+  at ``--sp 1`` and ``--tp 1``, a set of another world is resharded to
+  this one first (the push-sum consensus, ``supervise/reshard.py``), as
+  the reference does; under ``--sp`` > 1, ``--tp`` > 1 or ``torchrun``
+  it is refused by name.
 * ``--ckpt_backend orbax`` saves through ``torch.distributed.checkpoint``
   (``utils/dcp_ckpt.py``) keyed by step: one root
   ``{tag}dcp_r0_n{world}``, each save's host copy made before the run
   goes on and its write in the background, the last 3 steps kept; under
   ``torchrun`` one shared ``{tag}dcp_global_n{world}`` written by every
-  process, synchronously.  A preemption exit and the run's end wait for
+  process, synchronously, each leaf placed on the ``(dp, sp, tp)`` mesh
+  (a replica's copies written once, a split leaf as its logical rows).  A preemption exit and the run's end wait for
   the write in flight.
 * SIGUSR1/SIGTERM: at the next step boundary (agreed across processes
   under ``torchrun``) the run saves and exits 75, the requeue status.
@@ -130,7 +153,6 @@ UNPORTED = {
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
     "--attn_block_k": (0, int, "the TPU attention block rule"),
-    "--tp": (1, int, "tensor parallelism"),
     "--ep": (1, int, "expert parallelism"),
     "--pp": (1, int, "pipeline parallelism"),
     "--n_micro": (4, int, "pipeline parallelism"),
@@ -244,6 +266,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sequence-parallel shards per replica: "
                         "--world_size / --sp replicas gossip; stacked on "
                         "the device, or one a process under torchrun")
+    p.add_argument("--tp", default=1, type=int,
+                   help="tensor-parallel (Megatron) shards per replica: "
+                        "--world_size / (--sp * --tp) replicas gossip; "
+                        "stacked on the device, or one a process under "
+                        "torchrun")
     p.add_argument("--grad_accum", default=1, type=int)
     p.add_argument("--world_size", default=None, type=int,
                    help="gossip ranks, all held in this process "
@@ -311,31 +338,43 @@ def refuse_unported(args) -> None:
 
 
 def resolve_seq_flags(args, world: int) -> tuple[int, str]:
-    """``(dp, attn)`` for ``--sp`` over ``world`` ranks (processes under
-    ``torchrun``), with the reference's checks (run/gossip_lm.py:269-316,
-    494-519): ``dp = world // sp`` replicas gossip, each holding ``sp``
-    sequence shards; an unset ``--attn`` is ``ring`` under sp > 1, else
-    ``flash``."""
+    """``(dp, attn)`` for ``--sp`` and ``--tp`` over ``world`` ranks
+    (processes under ``torchrun``), with the reference's checks
+    (run/gossip_lm.py:269-316, 361-366, 494-522): ``dp = world // (sp ·
+    tp)`` replicas gossip, each holding ``sp`` sequence shards of ``tp``
+    tensor shards; an unset ``--attn`` is ``ring`` under sp > 1, else
+    ``flash``.  ``n_heads``, ``d_ff`` and ``vocab_size`` must divide by
+    ``tp`` (GSPMD would pad them; the port refuses by name)."""
     from ..parallel.mesh import make_dp_sp_layout
+    from ..parallel.tp import check_tp_dims
 
-    sp = args.sp
+    sp, tp = args.sp, args.tp
     if sp < 1:
         raise SystemExit("--sp must be >= 1")
+    if tp < 1:
+        raise SystemExit("--sp, --tp, --ep and --pp must be >= 1")
     try:
-        make_dp_sp_layout(world, sp)
+        make_dp_sp_layout(world, sp, tp)
+        check_tp_dims(args.n_heads, args.d_ff, args.vocab_size, tp)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if args.seq_len % sp:
         raise SystemExit(f"seq_len {args.seq_len} not divisible by sp {sp}")
+    if args.health_every and tp > 1:
+        raise SystemExit("--health_every composes with the flat dp "
+                         "and dp×sp meshes only (not ep/tp/pp)")
     attn = args.attn or ("ring" if sp > 1 else "flash")
     if sp > 1 and attn not in ("ring", "ring_flash"):
         raise SystemExit("--sp > 1 requires ring attention")
+    if tp > 1 and sp == 1 and attn in ("ring", "ring_flash"):
+        raise SystemExit(
+            "--tp with ring attention requires --sp > 1 (3-D mesh)")
     if args.attn_block and attn != "blockwise":
         raise SystemExit(
             f"--attn_block {args.attn_block} with --attn {attn}: the block "
             f"is the blockwise attention's; the flash kernels' tiles are "
             f"their own")
-    return world // sp, attn
+    return world // (sp * tp), attn
 
 
 def resolve_staleness_flag(args, overlap: bool) -> None:
@@ -456,8 +495,9 @@ def _main(argv) -> dict:
                                       host_local_slice, initialize_multihost,
                                       leave, process_device)
     from ..parallel.collectives import DistTransport, StackedTransport
-    from ..parallel.mesh import join_dp_sp_groups, make_dp_sp_layout
+    from ..parallel.mesh import join_dp_sp_tp_groups, make_dp_sp_layout
     from ..parallel.seq import DistSeq, StackedSeq
+    from ..parallel.tp import DistTp, StackedTp, gather_state, shard_state
     from ..parallel.wire import get_codec
     from ..topology import (GRAPH_TOPOLOGIES, TOPOLOGY_NAMES,
                             build_pairing_schedule, build_schedule)
@@ -503,29 +543,38 @@ def _main(argv) -> dict:
     world = args.world_size or 1
     dp, attn = resolve_seq_flags(args, launched if launched > 1 else world)
     lane = resolve_kernel_flag(args, device, launched)
+    tp_n = args.tp
     owns_group = False
-    # the sequence axis across processes: this process's shard, its
-    # replica's sp group, and the world for agreement (signals, resume)
-    dist_seq = agree = None
+    forced = None
+    # the sequence and tensor axes across processes: this process's
+    # shards, its replica's sp and tp groups, and the world for agreement
+    # (signals, resume)
+    dist_seq = dist_tp = agree = layout = None
     if launched > 1:
         if args.world_size not in (None, launched):
             raise SystemExit(f"--world_size {args.world_size} but the "
                              f"launcher started {launched} processes")
-        if args.sp > 1 and args.ckpt_backend == "orbax":
-            raise SystemExit(
-                f"--ckpt_backend orbax with --sp {args.sp} under torchrun: "
-                "its row layout is one gossip rank a process, and a "
-                "replica's sequence shards are not written as one row yet "
-                "(ROADMAP.md Queue 1); use --ckpt_backend msgpack")
+        if tp_n > 1 and args.ckpt_backend != "orbax":
+            # the reference forces its global backend for a tp-sharded
+            # state across processes (run/gossip_lm.py:766-769 there)
+            forced = (f"--tp {tp_n} under torchrun: checkpoints through "
+                      f"--ckpt_backend orbax (torch.distributed.checkpoint, "
+                      f"one global checkpoint), not {args.ckpt_backend}")
+            args.ckpt_backend = "orbax"
         owns_group = not torch.distributed.is_initialized()
         initialize_multihost("xla", device, info)
         world = launched
-        if args.sp > 1:
-            layout = make_dp_sp_layout(launched, args.sp)
-            sp_group, dp_group = join_dp_sp_groups(layout, info.rank)
+        if args.sp > 1 or tp_n > 1:
+            layout = make_dp_sp_layout(launched, args.sp, tp_n)
+            tp_group, sp_group, dp_group = join_dp_sp_tp_groups(
+                layout, info.rank)
             transport = DistTransport(group=dp_group, siblings=[
-                layout.dp_members(i) for i in range(args.sp)])
-            dist_seq = DistSeq(DistTransport(group=sp_group))
+                layout.dp_members(i, t) for i in range(args.sp)
+                for t in range(tp_n)])
+            if args.sp > 1:
+                dist_seq = DistSeq(DistTransport(group=sp_group))
+            if tp_n > 1:
+                dist_tp = DistTp(DistTransport(group=tp_group))
             agree = DistTransport()
         else:
             transport = agree = DistTransport()
@@ -533,6 +582,8 @@ def _main(argv) -> dict:
         transport = StackedTransport(dp)
     rank0 = info.rank == 0
     log0 = print if rank0 else (lambda *a, **k: None)
+    if forced:
+        log0(forced, flush=True)
     if args.batch_size % args.grad_accum:
         raise SystemExit(f"--batch_size {args.batch_size} not divisible "
                          f"by --grad_accum {args.grad_accum}")
@@ -541,7 +592,7 @@ def _main(argv) -> dict:
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
         attn_impl=attn, attn_block_size=args.attn_block or None,
         remat=sb(args.remat),
-        dtype=getattr(torch, PRECISIONS[args.precision]))
+        dtype=getattr(torch, PRECISIONS[args.precision]), tp=tp_n)
     args.mixing_alpha = parse_mixing_alpha(args.mixing_alpha)
     if args.mixing_alpha is not None and (
             sb(args.all_reduce) or not sb(args.push_sum)):
@@ -641,12 +692,19 @@ def _main(argv) -> dict:
                      warmup=sb(args.warmup))
     model = make_model(cfg)
     seq = (dist_seq or StackedSeq(args.sp)) if cfg.ring else None
-    step = build_lm_train_step(
-        model, alg, tx, lrs, itr_per_epoch=itr_per_epoch,
-        grad_accum=args.grad_accum,
-        health_axis=transport if args.health_every > 0 else None, seq=seq)
+    tp = (dist_tp or StackedTp(tp_n)) if tp_n > 1 else None
+    try:
+        step = build_lm_train_step(
+            model, alg, tx, lrs, itr_per_epoch=itr_per_epoch,
+            grad_accum=args.grad_accum,
+            health_axis=transport if args.health_every > 0 else None,
+            seq=seq, tp=tp)
+    except ValueError as e:
+        # an int8 wire whose blocks a tp shard would cut
+        raise SystemExit(str(e)) from None
     held = len(transport.ranks)
-    state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device)
+    state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device,
+                          tp=tp)
     log = log0
     monitor = policy = recovery = None
     window = None   # (host clock, steps_done, val_time) at the last read
@@ -680,17 +738,24 @@ def _main(argv) -> dict:
                 wire=wire_stamp(args.wire_dtype, args.wire_block, ef),
                 synth=plan.synth if plan is not None else None)
             recovery = make_recovery_fn(alg)
-    n_params = sum(p[0].numel() for p in state.params.values())
+    # the logical parameters of a replica (all its tp shards)
+    n_params = sum(p.numel() for p in model.parameters())
     gossip = ""
     if alg.name in ("sgp", "dpsgd"):
         gossip = (f"; gossip lane {alg.transport_kernel_name}, buckets "
                   f"{alg.gossip_buckets}"
                   + (f", overlap staleness {alg.staleness}" if alg.overlap
                      else ""))
-    shards = f" = dp {dp} x sp {args.sp}" if args.sp > 1 else ""
-    here = (f"{held} in this process" if dist_seq is None else
-            f"process {info.rank}: replica {transport.rank}, shard "
-            f"{dist_seq.shards[0]}")
+    shards = "".join(f" x {a} {n}" for a, n in (("sp", args.sp),
+                                                ("tp", tp_n)) if n > 1)
+    shards = f" = dp {dp}{shards}" if shards else ""
+    if layout is None:
+        here = f"{held} in this process"
+    else:
+        replica, shard, t = layout.index(info.rank)
+        here = (f"process {info.rank}: replica {replica}"
+                + (f", shard {shard}" if args.sp > 1 else "")
+                + (f", tp shard {t}" if tp_n > 1 else ""))
     log(f"lm: world {world}{shards} ({here}) on {device}; "
         f"{n_params / 1e6:.2f}M params; attn={attn}"
         f"{' remat' if cfg.remat else ''}; precision {args.precision}; "
@@ -709,8 +774,9 @@ def _main(argv) -> dict:
         return bool(agree.allreduce_max(x)[0])
 
     # checkpoints: one file a gossip replica (a process under torchrun
-    # at --sp > 1), named by the launched world, or (--ckpt_backend
-    # orbax) one DCP checkpoint keyed by step
+    # at --sp > 1), named by the launched world, holding the logical
+    # leaves at --tp > 1, or (--ckpt_backend orbax) one DCP checkpoint
+    # keyed by step, on the (dp, sp, tp) mesh under torchrun
     me = info.rank
     logger = make_logger(me)
     warn = logger.warning
@@ -720,7 +786,8 @@ def _main(argv) -> dict:
 
         ckpt = DcpCheckpointManager(
             args.checkpoint_dir, tag=args.tag,
-            rank=transport.rank if launched > 1 else 0, world_size=world)
+            rank=transport.rank if launched > 1 else 0, world_size=world,
+            layout=layout)
     else:
         ckpt = CheckpointManager(
             args.checkpoint_dir, tag=args.tag, world_size=world,
@@ -748,7 +815,12 @@ def _main(argv) -> dict:
         if not have:
             have = _reshard_other_world(ckpt, args, world, launched, logger)
         if have:
-            state, meta = ckpt.restore(state)
+            if tp is not None and launched == 1:
+                # the files hold the logical leaves
+                state, meta = ckpt.restore(gather_state(state, tp_n))
+                state = shard_state(state, tp_n)
+            else:
+                state, meta = ckpt.restore(state)
             start_step = int(meta.get("step", 0))
             if launched > 1:
                 _, start_step = consensus_resume_point(0, start_step,
@@ -772,10 +844,12 @@ def _main(argv) -> dict:
             meta["plan"] = plan.to_dict()
         if monitor is not None and monitor.last_payload:
             meta["health"] = monitor.last_payload
+        out = (gather_state(st, tp_n) if tp is not None and launched == 1
+               else st)
         if use_dcp:
-            ckpt.save(st, meta, epoch_id=at)
+            ckpt.save(out, meta, epoch_id=at)
         else:
-            ckpt.save(st, meta)
+            ckpt.save(out, meta)
         return st
 
     if args.corpus_file:
@@ -789,7 +863,7 @@ def _main(argv) -> dict:
     corpus, val_corpus = split_corpus(
         corpus, args.val_frac, (args.seq_len + 1) * dp * args.batch_size)
     val_on = val_corpus is not None
-    eval_step = build_lm_eval_step(model, alg, seq) if val_on else None
+    eval_step = build_lm_eval_step(model, alg, seq, tp) if val_on else None
     out_fname = os.path.join(
         args.checkpoint_dir,
         f"{args.tag}out_n{world}.csv" if launched == 1
@@ -943,6 +1017,10 @@ def _reshard_other_world(ckpt, args, world: int, launched: int,
         ckpt.refuse_other_worlds(
             f"--sp {args.sp} > 1 keeps a replica's sequence shards in "
             "its file, so the files are not one rank row each")
+    if args.tp > 1:
+        ckpt.refuse_other_worlds(
+            f"--tp {args.tp} > 1 (the reference reshards flat dp meshes "
+            "only)")
     if maybe_cross_world_reshard(args.checkpoint_dir, args.tag, world,
                                  log=log) is None:
         log.warning(f"a checkpoint of world {world} is on disk but "

@@ -45,13 +45,26 @@ The eval step runs each replica's forward on its de-biased parameters
 ``torch.no_grad``, so the flash attention runs its forward kernel alone;
 no gossip, no state update.
 
-Not ported yet: the tensor-, expert- and pipeline-parallel meshes and
-MoE losses.
+Tensor parallelism (the reference's ``(gossip, tp)`` and ``(gossip,
+seq, tp)`` meshes): a model of ``cfg.tp`` > 1 and ``tp``
+(``parallel/tp.py``: a :class:`~..parallel.tp.StackedTp` holding all
+shards, or a :class:`~..parallel.tp.DistTp` one a process).  The state's
+split leaves are ``[R, held, *shard]``, its replicated ones ``[R, ...]``
+(:func:`init_lm_state` draws the logical params from the seed and places
+them); the batches are the replica's, as without tp (the shards see the
+same tokens).  The loss is the cross-entropy over the vocabulary split
+across ``lm_head``'s shards (``tp.lm_loss``), the grad norm the norm of
+the logical leaves (``metrics.global_norm(grads, tp)``); the gossip
+round runs on every leaf as it is held, each ``(shard, t)`` index's
+slices on its own dp group across processes.
+
+Not ported yet: the expert- and pipeline-parallel meshes and MoE losses.
 """
 
 from __future__ import annotations
 
-import typing as tp
+import dataclasses
+import typing
 
 import torch
 from torch.func import functional_call
@@ -59,12 +72,14 @@ from torch.func import functional_call
 from ..algorithms.api import GossipAlgorithm
 from ..models.convert import (init_params, params_from_jax,
                               reference_layout)
-from ..models.transformer import TransformerConfig, TransformerLM
+from ..models.transformer import (TransformerConfig, TransformerLM,
+                                  check_tp_axis)
+from ..parallel.tp import check_wire_blocks, shard_params
 from .metrics import global_norm
 from .state import TrainState
 
 __all__ = ["lm_loss", "build_lm_train_step", "build_lm_eval_step",
-           "init_lm_state", "make_model"]
+           "init_lm_state", "make_model", "logical_shapes"]
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -93,10 +108,17 @@ def _check_seq(model: TransformerLM, seq) -> None:
                          f"one")
 
 
-def _replica_loss(model: TransformerLM, seq, z_r: dict,
+def _replica_loss(model: TransformerLM, seq, tp, z_r: dict,
                   xs, ys) -> torch.Tensor:
     """One replica's loss: its token mean, or with ``seq`` the mean over
-    its held shards of each shard's token mean."""
+    its held shards of each shard's token mean; with ``tp`` over the
+    vocabulary split across the tp shards."""
+    if tp is not None:
+        logits = functional_call(model, z_r, (xs, seq, tp))
+        if seq is None:
+            return tp.lm_loss(logits, ys)
+        return torch.stack([tp.lm_loss([lg[s] for lg in logits], y)
+                            for s, y in enumerate(ys)]).mean()
     if seq is None:
         return lm_loss(functional_call(model, z_r, (xs,)), ys)
     logits = functional_call(model, z_r, (xs, seq))
@@ -106,18 +128,24 @@ def _replica_loss(model: TransformerLM, seq, z_r: dict,
 def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                         tx, lr_schedule, itr_per_epoch: int,
                         grad_accum: int = 1,
-                        health_axis=None, seq=None) -> tp.Callable:
+                        health_axis=None, seq=None, tp=None) -> typing.Callable:
     """Step ``(state, tokens, targets) -> (state, metrics)`` for token
     batches ``[R, batch, seq_len]``, or ``[R, held, batch, seq_len / sp]``
     with ``seq`` (a ring model's sequence axis).  ``grad_accum`` splits
     the batch into that many microbatches whose gradients are summed,
     then divided, as the reference's scan does.  ``health_axis`` (a
-    transport) adds the health signals."""
+    transport) adds the health signals.  ``tp`` is the tensor axis of a
+    model of ``cfg.tp`` > 1; an int8 wire must keep the reference's
+    blocks on its shards (``parallel/tp.py::check_wire_blocks``)."""
     from .step import health_metrics
 
     if grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
     _check_seq(model, seq)
+    check_tp_axis(model.cfg, tp)
+    codec = getattr(algorithm, "wire", None)
+    if tp is not None and codec is not None and codec.blocked:
+        check_wire_blocks(logical_shapes(model.cfg), tp.size, codec.block)
     layout = reference_layout(model)
     algorithm.bind_layout(layout)
     batch_dim = 0 if seq is None else 1
@@ -130,7 +158,7 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
         g_sum, loss_sum = None, None
         for xs, ys in zip(toks.chunk(grad_accum, batch_dim),
                           tgts.chunk(grad_accum, batch_dim)):
-            loss = _replica_loss(model, seq, z_r, xs, ys)
+            loss = _replica_loss(model, seq, tp, z_r, xs, ys)
             g = torch.autograd.grad(loss, list(z_r.values()))
             if g_sum is None:
                 g_sum, loss_sum = list(g), loss.detach()
@@ -164,7 +192,7 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
         params, gstate = algorithm.post_step(params, gstate)
 
         metrics = {"loss": loss, "ppl": torch.exp(loss), "lr": lr,
-                   "grad_norm": global_norm(grads)}
+                   "grad_norm": global_norm(grads, tp)}
         if health_axis is not None:
             metrics.update(health_metrics(params, grads, gstate,
                                           health_axis, layout))
@@ -175,20 +203,23 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
 
 
 def build_lm_eval_step(model: TransformerLM, algorithm: GossipAlgorithm,
-                       seq=None) -> tp.Callable:
+                       seq=None, tp=None) -> typing.Callable:
     """Eval ``(state, tokens, targets) -> {"loss", "ppl"}``, one value a
     held replica, for the train step's batch shapes: each replica's
     forward on its de-biased parameters under ``torch.no_grad``, then
     :func:`lm_loss` (with ``seq``, the mean over its shards, across
-    processes by ``seq.pmean``).  No gossip,
-    no state update (the reference's ``build_lm_eval_step``)."""
+    processes by ``seq.pmean``; with ``tp``, over the vocabulary split
+    across the tp shards).  No gossip, no state update (the reference's
+    ``build_lm_eval_step``)."""
     _check_seq(model, seq)
+    check_tp_axis(model.cfg, tp)
 
     def eval_step(state: TrainState, tokens, targets) -> dict:
         with torch.no_grad():
             z = algorithm.val_params(state.params, state.gossip)
             loss = torch.stack([
-                _replica_loss(model, seq, {n: p[r] for n, p in z.items()},
+                _replica_loss(model, seq, tp,
+                              {n: p[r] for n, p in z.items()},
                               tokens[r], targets[r])
                 for r in range(tokens.shape[0])])
             if seq is not None:
@@ -198,15 +229,28 @@ def build_lm_eval_step(model: TransformerLM, algorithm: GossipAlgorithm,
     return eval_step
 
 
+def logical_shapes(cfg: TransformerConfig) -> dict:
+    """Each parameter's logical per-replica shape (as at tp 1)."""
+    return {n: tuple(p.shape) for n, p in
+            make_model(dataclasses.replace(cfg, tp=1)).named_parameters()}
+
+
 def init_lm_state(cfg: TransformerConfig, algorithm: GossipAlgorithm, tx,
                   world: int, seed: int = 0,
-                  device: str | torch.device = "cpu") -> TrainState:
+                  device: str | torch.device = "cpu",
+                  tp=None) -> TrainState:
     """Fresh state for ``world`` held ranks: every rank starts from the
     same parameters, drawn from ``seed`` with the flax init recipe
-    (``models/convert.py::init_params``), zero momentum, ps-weight 1."""
-    one = params_from_jax(init_params(cfg, seed))
+    (``models/convert.py::init_params``), zero momentum, ps-weight 1.
+    At ``cfg.tp`` > 1 the same logical parameters are placed for the
+    shards ``tp`` holds (``parallel/tp.py::shard_params``), as the
+    reference's ``init_lm_state_tp`` places its draw."""
+    one = params_from_jax(init_params(dataclasses.replace(cfg, tp=1), seed))
     params = {n: p.to(device)[None].expand(world, *p.shape).clone()
               for n, p in one.items()}
+    check_tp_axis(cfg, tp)
+    if tp is not None:
+        params = shard_params(params, cfg.tp, tp.shards)
     return TrainState(step=0, params=params, opt_state=tx.init(params),
                       gossip=algorithm.init(params))
 

@@ -50,8 +50,30 @@ def accuracy_topk(logits: torch.Tensor, labels: torch.Tensor,
                  for k in topk)
 
 
-def global_norm(grads: dict) -> torch.Tensor:
+def global_norm(grads: dict, tp=None) -> torch.Tensor:
     """Per-rank L2 norm over every leaf of rank-stacked gradients
-    ``[R, ...]`` (``utils/flatten.py::global_norm`` there): ``[R]``."""
-    return torch.sqrt(sum(g.float().square().flatten(1).sum(1)
-                          for g in grads.values()))
+    ``[R, ...]`` (``utils/flatten.py::global_norm`` there): ``[R]``.
+
+    With ``tp`` (``parallel/tp.py``) the norm is over the logical leaves,
+    as the reference's over its GSPMD-sharded ones: a split leaf ``[R,
+    held, ...]`` counts each shard's sum of squares, folded over the tp
+    shards (one all-gather a rank across processes), a replicated leaf
+    counts once.  Rank by rank and shard by shard, so a process holding
+    one shard computes what the stack does."""
+    if tp is None:
+        return torch.sqrt(sum(g.float().square().flatten(1).sum(1)
+                              for g in grads.values()))
+    from ..parallel.tp import split_dim
+
+    split = [n for n in grads if split_dim(n) is not None]
+    norms = []
+    for r in range(next(iter(grads.values())).shape[0]):
+        shard_sq = torch.stack([
+            torch.stack([grads[n][r, i].float().square().sum()
+                         for n in split])
+            for i in range(len(tp.shards))])
+        sq = dict(zip(split, tp.sum_shards(shard_sq).unbind(0)))
+        norms.append(torch.sqrt(sum(
+            sq[n] if n in sq else g[r].float().square().sum()
+            for n, g in grads.items())))
+    return torch.stack(norms)

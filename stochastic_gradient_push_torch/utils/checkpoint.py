@@ -32,6 +32,10 @@ _s{shard}_n{world}.ckpt`` (``shard``): the ``sp`` files of a replica
 hold the same state, the stacked run's ``..._r{rank}_n{world}.ckpt``,
 so the two sets sit apart in one directory and compare file by file.
 
+At ``--tp`` > 1 in one process the LM CLI saves the logical leaves
+(``parallel/tp.py::gather_state``) and places them again on a restore,
+so the files are tp 1's and load at any ``--tp``; under ``torchrun`` it
+saves through ``utils/dcp_ckpt.py`` instead.
 ``all_workers=False`` (the CLI's ``--checkpoint_all False``) keeps
 rank 0's file alone, the original's rank-0-only checkpoint: rank 0's
 row is saved, and a resume starts every rank from it.  It needs every

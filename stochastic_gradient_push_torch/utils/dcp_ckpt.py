@@ -21,7 +21,14 @@ OrbaxCheckpointManager`` with the reference's surface (``save``,
   ``DTensor`` sharded on dim 0 (``Shard(0)``) over a CPU mesh of the
   processes, on a gloo group (the default group when it is gloo, as
   where the processes share one card, else one of its own).
-  ``saves_global_state`` is then True.  A process that destroys its
+  ``saves_global_state`` is then True.  With ``layout`` (the LM's
+  ``(gossip, seq, tp)`` processes, ``parallel/mesh.py::DpSpLayout``)
+  the CPU mesh is ``(dp, sp, tp)`` and a leaf is placed ``[Shard(0),
+  Replicate(), Shard(k)]`` when tp splits its dim ``k`` (the
+  ``[out, in]`` layout after the rank dim; the held-shard dim is
+  dropped), else ``[Shard(0), Replicate(), Replicate()]``: the ``sp``
+  (and ``tp``) identical copies of a replica's leaf are written once,
+  and a split leaf as its logical rows.  A process that destroys its
   default group after such a save and makes a new one on the same port
   may reach the old group's store (seen with torch 2.13 on gloo): run
   one job a process, or keep one group across jobs.
@@ -62,9 +69,14 @@ _ROOT_RE = r"dcp_(?:r\d+|global)_n(\d+)$"
 def _map(tree, fn):
     """Leaf map over nested dicts: tensors through ``fn``, other values
     as they are."""
+    return _map_named(tree, lambda _, t: fn(t))
+
+
+def _map_named(tree, fn, key: str = ""):
+    """:func:`_map` with each tensor's dict key: ``fn(key, tensor)``."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+        return {k: _map_named(v, fn, k) for k, v in tree.items()}
+    return fn(key, tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def _to_tree(state) -> dict:
@@ -118,7 +130,8 @@ class DcpCheckpointManager:
 
     def __init__(self, directory: str, tag: str = "", rank: int = 0,
                  world_size: int = 1, all_workers: bool = True,
-                 max_to_keep: int = 3, async_save: bool = True):
+                 max_to_keep: int = 3, async_save: bool = True,
+                 layout=None):
         import torch.distributed as dist
 
         self.directory = os.path.abspath(directory)
@@ -126,6 +139,7 @@ class DcpCheckpointManager:
         self.rank = rank if all_workers else 0
         self.world_size = int(world_size)
         self.max_to_keep = int(max_to_keep)
+        self.layout = layout
         self._multi = dist.is_initialized() and dist.get_world_size() > 1
         self._group = self._mesh = None
         if self._multi:
@@ -134,9 +148,18 @@ class DcpCheckpointManager:
             # the rows travel as host tensors: a gloo group (the default
             # one when it is gloo; every process builds the manager at the
             # same point, so creating another is collective)
-            self._group = (dist.group.WORLD if dist.get_backend() == "gloo"
+            gloo = dist.get_backend() == "gloo"
+            self._group = (dist.group.WORLD if gloo
                            else dist.new_group(backend="gloo"))
-            self._mesh = DeviceMesh.from_group(self._group, "cpu")
+            if layout is None:
+                self._mesh = DeviceMesh.from_group(self._group, "cpu")
+            else:
+                self._mesh = DeviceMesh(
+                    "cpu", torch.arange(layout.world).reshape(
+                        layout.dp, layout.sp, layout.tp),
+                    mesh_dim_names=("dp", "sp", "tp"),
+                    **({} if gloo else
+                       {"backend_override": (("gloo", None),) * 3}))
             self._proc = dist.get_rank()
             root = f"{tag}dcp_global_n{world_size}"
             async_save = False
@@ -214,29 +237,50 @@ class DcpCheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
+    def _split(self, key: str) -> int | None:
+        """The dim (after the rank dim) tp splits leaf ``key`` on, or
+        None."""
+        if self.layout is None or self.layout.tp == 1:
+            return None
+        from ..parallel.tp import split_dim
+
+        return split_dim(key)
+
     def _stage(self, state) -> dict:
         """Host copies of the state's tensors; under several processes
-        each a ``Shard(0)`` DTensor of this process's rows."""
+        each a DTensor of this process's rows (``Shard(0)``, or on the
+        ``(dp, sp, tp)`` mesh as the module docstring says)."""
         def copy(t):
             return t.detach().to("cpu", copy=True).contiguous()
 
         tree = _map(_to_tree(state), copy)
         if not self._multi:
             return tree
-        from torch.distributed.tensor import DTensor, Shard
+        from torch.distributed.tensor import DTensor, Replicate, Shard
 
-        n = self._mesh.size()
-
-        def shard(t):
-            shape = (t.shape[0] * n, *t.shape[1:])
+        def place(key, t):
+            d = self._split(key)
+            if self.layout is None:
+                places, shape = [Shard(0)], [t.shape[0] * self._mesh.size()]
+            else:
+                # (dp, sp, tp): rows over dp, copies over sp, and over tp
+                # copies or the split dim's shards
+                places = [Shard(0), Replicate(),
+                          Replicate() if d is None else Shard(d + 1)]
+                if d is not None:
+                    t = t[:, 0]
+                shape = [t.shape[0] * self.layout.dp]
+            shape += t.shape[1:]
+            if d is not None:
+                shape[d + 1] *= self.layout.tp
             stride = [1] * len(shape)
-            for d in range(len(shape) - 2, -1, -1):
-                stride[d] = stride[d + 1] * shape[d + 1]
-            return DTensor.from_local(t, self._mesh, [Shard(0)],
+            for i in range(len(shape) - 2, -1, -1):
+                stride[i] = stride[i + 1] * shape[i + 1]
+            return DTensor.from_local(t, self._mesh, places,
                                       run_check=False,
                                       shape=torch.Size(shape),
                                       stride=tuple(stride))
-        return _map(tree, shard)
+        return _map_named(tree, place)
 
     def _dcp_kw(self) -> dict:
         return ({"process_group": self._group} if self._multi
@@ -332,8 +376,10 @@ class DcpCheckpointManager:
         payload = {"state": self._stage(template), "meta": ""}
         dcp.load(payload, checkpoint_id=os.path.join(root, str(step)),
                  **self._dcp_kw())
-        tree = _map(payload["state"], lambda t: t.to_local()
-                    if hasattr(t, "to_local") else t)
+        def local(key, t):
+            t = t.to_local() if hasattr(t, "to_local") else t
+            return t if self._split(key) is None else t[:, None]
+        tree = _map_named(payload["state"], local)
         meta = json.loads(payload["meta"]) or {}
         meta.pop("is_best", None)
         return _from_tree(template, tree), meta

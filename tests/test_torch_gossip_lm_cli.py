@@ -3,7 +3,9 @@ the CPU: a 3-step run at vocab 256 through ``main`` and through
 ``python -m``, the same run under ``torchrun`` (two gloo processes, one
 rank each) printing the stacked lane's rows, the reference's flag
 surface (every flag of the JAX package's parser, with its default), and
-the refusal, by name, of every flag whose feature is not ported yet.
+the refusal, by name, of every flag whose feature is not ported yet, and
+of the reference's ``--tp`` refusals (``--tp`` itself trains: its
+tests are ``tests/test_torch_tp*.py``).
 Every run writes its CSV and checkpoints into a temporary
 ``--checkpoint_dir`` (the harness's own tests are
 ``tests/test_torch_lm_harness*.py``).
@@ -19,7 +21,8 @@ and are validated with the reference's messages.  Sequence parallelism
 (``--sp``, ``--attn ring|ring_flash|blockwise``, ``--remat``) trains on
 the CPU with the shards stacked, and its sizes are validated with the
 reference's messages; under ``torchrun`` at ``--sp > 1`` the DCP backend
-is refused by name (the process ring itself runs in
+refuses a checkpoint of another world by name (the process ring itself
+runs in
 ``tests/test_torch_lm_harness_dist.py`` and ``test_torch_seq_dist.py``).
 """
 
@@ -139,8 +142,47 @@ def test_reference_flags_parse_with_reference_defaults():
     ("--trace_dir", "/tmp/x"),
 ])
 def test_unported_flags_raise_naming_the_flag(flag, value, small):
+    # --tp is ported; the case keeps a refusal of the reference that names
+    # it: --tp with ring attention at --sp 1
+    extra = {"--tp": ["--n_heads", "2", "--attn", "ring", "--world_size",
+                      "2"]}.get(flag, [])
     with pytest.raises(SystemExit, match=flag):
-        gossip_lm.main(small + [flag, value])
+        gossip_lm.main(small + [flag, value] + extra)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--n_heads", "2", "--health_every", "2"],
+     "--health_every composes with the flat dp and dp×sp meshes only "
+     r"\(not ep/tp/pp\)"),
+    (["--n_heads", "2", "--attn", "ring"],
+     r"--tp with ring attention requires --sp > 1 \(3-D mesh\)"),
+    ([], "n_heads 1 not divisible by tp 2"),
+    (["--n_heads", "2", "--d_ff", "63"], "d_ff 63 not divisible by tp 2"),
+    (["--n_heads", "2", "--world_size", "6", "--sp", "2"],
+     r"world_size 6 not divisible by sp\*tp\*ep\*pp 4"),
+    (["--n_heads", "2", "--wire_dtype", "int8", "--world_size", "4"],
+     r"block_0\.attn\.q\.weight's shard has out / tp = 16, not a multiple "
+     "of --wire_block 64"),
+])
+def test_tp_refusals_keep_the_reference_messages(argv, match, small):
+    with pytest.raises(SystemExit, match=match):
+        gossip_lm.main(small + ["--tp", "2", "--world_size", "2"] + argv)
+    with pytest.raises(SystemExit, match="--sp, --tp, --ep and --pp must "
+                                         "be >= 1"):
+        gossip_lm.main(small + ["--tp", "0"])
+
+
+def test_tp_default_agrees_with_the_reference():
+    from stochastic_gradient_push_tpu.run.gossip_lm import build_parser
+
+    def tp_action(parser):
+        return next(a for a in parser._actions if a.dest == "tp")
+
+    ref, port = tp_action(build_parser()), tp_action(
+        gossip_lm.build_parser())
+    assert ref.default == port.default == 1
+    assert ref.type is port.type is int
+    assert "--tp" not in gossip_lm.UNPORTED
 
 
 @pytest.mark.parametrize("flag,value,extra", [
@@ -252,14 +294,24 @@ def test_sequence_flags_are_validated(argv, match, small):
         gossip_lm.main(small + argv)
 
 
-def test_sp_under_torchrun_refuses_the_dcp_backend_by_name(monkeypatch,
-                                                          small):
-    # --sp > 1 runs under torchrun, one shard a process; the DCP backend's
-    # one-row-a-process layout does not hold a replica's shards yet
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="--ckpt_backend orbax with --sp 2 "
-                                         "under torchrun"):
-        gossip_lm.main(small + ["--sp", "2", "--ckpt_backend", "orbax"])
+def test_sp_under_torchrun_refuses_the_dcp_backend_by_name(tmp_path):
+    # the DCP backend holds a replica's sequence shards under torchrun now
+    # (its (dp, sp, tp) placements, tests/test_torch_tp_dist.py); what it
+    # still refuses by name there is a checkpoint of another world
+    ckpt = tmp_path / "ckpt"
+    (ckpt / "lm_dcp_global_n4").mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m",
+         "stochastic_gradient_push_torch.run.gossip_lm", *SMALL, "--sp", "2",
+         "--ckpt_backend", "orbax", "--resume", "True", "--checkpoint_dir",
+         str(ckpt)], capture_output=True, text=True, env=env, cwd=REPO,
+        timeout=300)
+    assert run.returncode != 0
+    assert ("cross-world resume" in run.stderr + run.stdout
+            and "--ckpt_backend orbax" in run.stderr + run.stdout), (
+        run.stderr)
 
 
 def test_sp_health_lines_keep_the_mass(capsys, small):
