@@ -324,7 +324,7 @@
    file, in 8 processes under a torchrun environment sharing the card
    over gloo, process ``p`` holding shard ``p % 4`` of replica ``p //
    4``, each beside the same command stacked in this process:
-   - 18a: fp32, 3 steps: every process's losses and grad norms within
+   - 18a: fp32, 2 steps: every process's losses and grad norms within
      1e-5 relative of its stacked replica's, its push-sum weight
      exactly the replica's; fp32 K3/K4/K5 launches summed over the
      processes equal to the stacked run's; one cross-process K2 and K1
@@ -360,7 +360,30 @@
      exact; the fp32 K3-K5 launches summed over the processes tp times
      the stacked run's (which folds both shards' heads into one launch);
    - each run's step host ms and the tp sums' count and host ms a step.
-20. A JSON line of per-kernel results (the fp32 flash rows also carry
+20. Switch MoE and expert parallelism: the flagship LM with 8 experts on
+   every second block (capacity factor 1.25) through ``run/gossip_lm.py``
+   on a token file, ``--moe_experts 8 --ep 2``:
+   - 20a: ``--world_size 4`` (dp 2 x ep 2) stacked in this process, bf16,
+     flash, SGP on K2/K1, 3 steps at T1024 B8 an ep shard: 12 bf16 K3,
+     K4 and K5 launches a step a replica (both ep shards' rows in one
+     launch a layer) and one K2 and K1 a step; ``moe_dropped`` in the
+     CSV, in [0, 1]; the step ms, the peak GB, and the device ms of one
+     MoE block's FFN and of one layer's attention, each alone at the
+     run's shapes;
+   - 20b: the ``/n_ep`` oracle at full width, fp32: one momentum-free
+     AllReduce step at dp 1 x ep 2, capacity factor 8, no MoE loss,
+     within rtol 5e-4 / atol 1e-5 of ``p - lr · grad`` of the ep 1 model
+     on both shards' tokens, every MoE leaf moved, nothing dropped;
+   - 20c: 20a's command in 4 processes under a torchrun environment (one
+     ep shard each, gloo, the card shared; checkpoints forced through
+     the DCP backend), 2 steps, then step 3 resumed from their DCP save:
+     losses within 2e-3 relative of 20a's replicas (a process sums its
+     replicated gradients over the ep group, the stack takes one
+     gradient of both shards' mean), ps-weight equal, the step-3
+     params' distance from 20a's printed; 12 bf16 K3-K5 launches and
+     one cross-process K2 and K1 a step a process; the exchanges' count,
+     bytes and host ms a step.
+21. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -465,6 +488,31 @@ TOL_HARNESS_LOSS_REL = 2e-3
 def _run(cmd) -> str:
     return subprocess.run(cmd, check=True, capture_output=True,
                           text=True).stdout.strip()
+
+
+def share_corpus_tables() -> None:
+    """Make ``data/lm.py::synthetic_lm_corpus`` draw its ``vocab^order``
+    table once per ``(vocab, order, seed)`` in this process (phases 11c
+    and 12c both walk the vocab-32000 one, a 4.1 GB draw): the table and
+    the generator's state after it are kept, so each corpus is the stream
+    a fresh call makes, token for token."""
+    import numpy as np
+
+    from stochastic_gradient_push_torch.data import lm
+
+    kept = {}
+
+    def corpus(n_tokens, vocab_size=256, order=2, seed=0):
+        key = (vocab_size, order, seed)
+        if key not in kept:
+            table, g = lm.markov_table(vocab_size, order, seed)
+            kept[key] = table, g.bit_generator.state
+        table, state = kept[key]
+        g = np.random.default_rng()
+        g.bit_generator.state = state
+        return lm.markov_walk(table, g, n_tokens, vocab_size, order)
+
+    lm.synthetic_lm_corpus = corpus
 
 
 def _time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -5252,10 +5300,11 @@ def checkpoints_path(card: str) -> dict:
 
 # phase 11's shape (dp 2 x sp 4, T4096, 1024-token shards, B2 a replica)
 # in 8 processes sharing the card over gloo, one sequence shard each:
-# 18a fp32 for 3 steps, 18b bf16 for 2, each beside the same command
-# stacked in this process; 18c one ring shift of a [2, 12, 1024, 64] fp32
-# block a shard, 10 times in every process at once
-SEQ_DIST = dict(steps=3, bf16_steps=2, shifts=10)
+# 18a fp32 for 2 steps (3 until phase 20 came), 18b bf16 for 2, each
+# beside the same command stacked in this process; 18c one ring shift of
+# a [2, 12, 1024, 64] fp32 block a shard, 10 times in every process at
+# once
+SEQ_DIST = dict(steps=2, bf16_steps=2, shifts=10)
 
 # the child: joins one gloo group on the card, waits for the file
 # sys.argv[6] (the parent's stacked runs are done), runs each argv of
@@ -5556,7 +5605,7 @@ TP = dict(tp=2, dp=2, seq_len=1024, batch=8, steps=4, c_seq_len=4096,
 
 # the child: joins one gloo group on the card, waits for the file
 # sys.argv[6] (the parent's stacked runs are done), then runs each command
-# line of sys.argv[5] through run/gossip_lm.py (tp_run)
+# line of sys.argv[5] through run/gossip_lm.py (lm_run)
 _P19_CHILD = r"""
 import json, os, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -5571,7 +5620,7 @@ while not os.path.exists(sys.argv[6]):
         raise SystemExit("the parent never started phase 19's runs")
     time.sleep(0.1)
 for label, argv in json.loads(sys.argv[5]):
-    print(label + " " + json.dumps(c.tp_run(argv)), flush=True)
+    print(label + " " + json.dumps(c.lm_run(argv)), flush=True)
 torch.distributed.barrier()
 torch.distributed.destroy_process_group()
 """
@@ -5600,13 +5649,14 @@ def _tp3_argv(ckpt: str, corpus: str, *extra) -> list:
             *extra]
 
 
-def tp_run(argv) -> dict:
+def lm_run(argv) -> dict:
     """``run/gossip_lm.py`` in this process with every counter zeroed
     just before and its steps watched: each step's losses and grad norms
     (one a held replica), its synchronised host time, the tp sums' count
-    and host seconds, the last push-sum weights, the launches, the bytes
-    of the state held here, and the CSV rows (``tokens_per_sec`` left
-    out)."""
+    and host seconds, the ep exchanges' count, host seconds and bytes
+    and the dropped fraction (a MoE model), the last push-sum weights,
+    the launches, the bytes of the state held here, and the CSV rows
+    (``tokens_per_sec`` left out)."""
     import contextlib
     import io
 
@@ -5623,14 +5673,17 @@ def tp_run(argv) -> dict:
                 "gossip_edge_wait_ipc": _Counter(gk.gossip_edge_wait,
                                                  "launches_ipc")}
     got = {"loss": [], "grad_norm": [], "step_s": [], "sums": [],
-           "sums_s": []}
+           "sums_s": [], "ex": [], "ex_s": [], "ex_bytes": [],
+           "moe_dropped": []}
     build = lm.build_lm_train_step
 
     def watched(*a, **k):
-        step, tp = build(*a, **k), k.get("tp")
+        step, tp, ep = build(*a, **k), k.get("tp"), k.get("ep")
 
         def run(state, toks, tgts):
             n0, s0 = (tp.reductions, tp.reduce_s) if tp else (0, 0.0)
+            e0 = ((ep.exchanges, ep.exchange_s, ep.exchange_bytes) if ep
+                  else (0, 0.0, 0))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, m = step(state, toks, tgts)
@@ -5639,6 +5692,12 @@ def tp_run(argv) -> dict:
             if tp is not None:
                 got["sums"].append(tp.reductions - n0)
                 got["sums_s"].append(tp.reduce_s - s0)
+            if ep is not None:
+                got["ex"].append(ep.exchanges - e0[0])
+                got["ex_s"].append(ep.exchange_s - e0[1])
+                got["ex_bytes"].append(ep.exchange_bytes - e0[2])
+            if "moe_dropped" in m:
+                got["moe_dropped"].append(m["moe_dropped"].tolist())
             got["loss"].append(m["loss"].tolist())
             got["grad_norm"].append(m["grad_norm"].tolist())
             got["ps_weight"] = state.gossip.ps_weight.tolist()
@@ -5775,15 +5834,15 @@ def tp_path(card: str) -> dict:
     try:
         # the DCP backend in one process too: its step-4 checkpoint holds
         # the logical leaves the processes' global one does
-        a = tp_run(_tp_argv(os.path.join(tmp, "stacked_a"), corpus,
+        a = lm_run(_tp_argv(os.path.join(tmp, "stacked_a"), corpus,
                             "--world_size", str(world), "--ckpt_backend",
                             "orbax"))
         torch.cuda.empty_cache()
-        one = tp_run(_tp_argv(os.path.join(tmp, "tp1"), corpus,
+        one = lm_run(_tp_argv(os.path.join(tmp, "tp1"), corpus,
                               "--world_size", str(dp), "--tp", "1"))
         shutil.rmtree(os.path.join(tmp, "tp1"))
         torch.cuda.empty_cache()
-        c = tp_run(_tp3_argv(os.path.join(tmp, "stacked_c"), corpus3,
+        c = lm_run(_tp3_argv(os.path.join(tmp, "stacked_c"), corpus3,
                              "--world_size", str(world)))
         torch.cuda.empty_cache()
     except BaseException:
@@ -5903,6 +5962,311 @@ def tp_path(card: str) -> dict:
     return launches
 
 
+# -- phase 20: switch MoE and expert parallelism ---------------------------
+
+# the flagship LM with 8 experts on every second block (the reference's
+# examples/bench_lm_tpu.py:202 run: d768 L12 h12 T1024 B8, bf16, flash,
+# capacity factor 1.25) at --ep 2: 20a dp 2 x ep 2 stacked, SGP on K2/K1,
+# 3 steps; 20b the /n_ep oracle at dp 1 x ep 2, fp32, capacity factor 8;
+# 20c 20a's command in 4 processes, 2 steps, a DCP save, the third step
+# resumed from it
+EP = dict(ep=2, dp=2, experts=8, every=2, seq_len=1024, batch=8, steps=3,
+          vocab=32000)
+# the reference test's tolerance for the oracle
+# (tests/test_expert_parallel_lm.py::test_ep_train_step_matches_full_
+# expert_model)
+TOL_EP_RTOL, TOL_EP_ATOL = 5e-4, 1e-5
+
+_P20_CHILD = _P19_CHILD.replace("phase 19's", "phase 20's")
+
+
+def _ep_argv(ckpt: str, corpus: str, *extra) -> list:
+    """20a's command (bf16, flash, SGP on K2/K1) on a token file."""
+    return ["--moe_experts", str(EP["experts"]), "--moe_every",
+            str(EP["every"]), "--ep", str(EP["ep"]), "--precision", "bf16",
+            "--attn", "flash", "--gossip_kernel", "pallas", "--vocab_size",
+            str(EP["vocab"]), "--d_model", "768", "--n_layers", "12",
+            "--n_heads", "12", "--d_ff", "3072", "--seq_len",
+            str(EP["seq_len"]), "--batch_size", str(EP["batch"]),
+            "--num_steps", str(EP["steps"]), "--print_freq", "1", "--seed",
+            "0", "--corpus_file", corpus, "--checkpoint_dir", ckpt, *extra]
+
+
+def _ep_params(cfg, device, seed: int) -> dict:
+    """A replica's logical parameters drawn on ``device`` from ``seed``
+    (fan-in-scaled normals, unit LayerNorm scales, zero biases; the
+    expert stacks' fan-in counts the expert dim, as flax's does)."""
+    import torch
+
+    from stochastic_gradient_push_torch.train.lm import logical_shapes
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for n, shape in logical_shapes(cfg).items():
+        if n.endswith("bias"):
+            out[n] = torch.zeros(shape, device=device)
+        elif ".ln" in n:
+            out[n] = torch.ones(shape, device=device)
+        else:
+            if n.startswith("embed") or n.endswith("router"):
+                std = 0.02
+            elif n.endswith(("experts_up", "experts_down")):
+                std = (shape[0] * shape[1]) ** -0.5
+            else:
+                std = shape[-1] ** -0.5
+            out[n] = torch.randn(shape, generator=g, device=device) * std
+    return out
+
+
+def ep_oracle(cfg, device, batch: int, seq_len: int, seed: int = 0):
+    """20b: one momentum-free AllReduce step at dp 1 x ep 2 (no MoE loss)
+    against ``p - lr · grad`` of the ep 1 model on both shards' tokens
+    (their mean cross-entropy).  Returns ``(worst, moved, dropped)``: the
+    largest ``|got - want| / (atol + rtol·|want|)`` over every parameter
+    (<= 1 passes), the names of the leaves the step changed, and the
+    step's dropped fraction."""
+    import dataclasses
+
+    import torch
+    from torch.func import functional_call
+
+    from stochastic_gradient_push_torch import algorithms
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.parallel.ep import StackedEp
+    from stochastic_gradient_push_torch.train import lm
+    from stochastic_gradient_push_torch.train.lr import LRSchedule
+    from stochastic_gradient_push_torch.train.state import TrainState, sgd
+
+    ep = cfg.ep
+    alg = algorithms.all_reduce(StackedTransport(1))
+    tx = sgd(momentum=0.0, weight_decay=0.0)
+    step = lm.build_lm_train_step(
+        lm.make_model(cfg), alg, tx, LRSchedule(0.1, batch, ep,
+                                                decay_schedule={},
+                                                warmup=False),
+        itr_per_epoch=100, ep=StackedEp(ep), moe_loss_coef=0.0)
+    one = _ep_params(cfg, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    toks, tgts = (torch.randint(0, cfg.vocab_size, (1, ep, batch, seq_len),
+                                generator=g, device=device)
+                  for _ in range(2))
+    ref = lm.make_model(dataclasses.replace(cfg, ep=1))
+    p0 = {n: p.clone().requires_grad_(True) for n, p in one.items()}
+    loss = sum(lm.lm_loss(functional_call(ref, p0, (toks[0, j],)),
+                          tgts[0, j]) for j in range(ep)) / ep
+    grads = torch.autograd.grad(loss, list(p0.values()))
+    del loss, p0
+    params = {n: p[None] for n, p in one.items()}
+    state = TrainState(step=0, params=params, opt_state=tx.init(params),
+                       gossip=alg.init(params))
+    new, m = step(state, toks, tgts)
+    lr = float(m["lr"])
+    worst, moved = 0.0, []
+    for (n, p), gr in zip(one.items(), grads):
+        want = p - lr * gr
+        got = new.params[n][0]
+        worst = max(worst, float(((got - want).abs() / (
+            TOL_EP_ATOL + TOL_EP_RTOL * want.abs())).max()))
+        if bool((got != p).any()):
+            moved.append(n)
+    return worst, moved, float(m["moe_dropped"][0])
+
+
+def _ep_layer_ms(cfg) -> tuple[float, float]:
+    """Device ms, forward and backward, of one MoE block's FFN (the
+    stacked exchange over both ep shards, fp32 as the model runs it) and
+    of one layer's bf16 flash attention, alone at 20a's shapes a replica
+    (CUDA events, 10 runs after 3): ``(moe_ms, attention_ms)``."""
+    import torch
+
+    from stochastic_gradient_push_torch.models.moe import switch_moe_ffn
+    from stochastic_gradient_push_torch.ops.flash_attention import (
+        flash_attention)
+    from stochastic_gradient_push_torch.parallel.ep import StackedEp
+
+    ep, b, t, d = EP["ep"], EP["batch"], EP["seq_len"], cfg.d_model
+    p = _ep_params(cfg, "cuda", 5)
+    w = [p[f"block_1.moe.{k}"].requires_grad_(True)
+         for k in ("router", "experts_up", "experts_down")]
+    x = torch.randn(ep, b * t, d, device="cuda", requires_grad=True)
+    ax = StackedEp(ep)
+
+    def moe():
+        y, aux = switch_moe_ffn(x, *w, ep=ax)
+        (y.square().mean() + aux["load_balance_loss"].sum()).backward()
+
+    q, k, v = (torch.randn(ep * b, cfg.n_heads, t, cfg.head_dim,
+                           device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+
+    def attn():
+        flash_attention(q, k, v, causal=True).float().square().mean(
+        ).backward()
+
+    return _time_ms(moe, 10), _time_ms(attn, 10)
+
+
+def ep_path(card: str) -> dict:
+    """Phase 20: the MoE LM at --ep 2 stacked (20a), the /n_ep oracle on
+    the card (20b), and one ep shard a process through a DCP resume (20c)
+    beside 20a.  Returns the main path's launches (20a's run, 20c's
+    processes)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ep20_", dir=os.path.join(ROOT, "build"))
+    dp, ep, b, t = EP["dp"], EP["ep"], EP["batch"], EP["seq_len"]
+    world, steps = dp * ep, EP["steps"]
+    corpus = os.path.join(tmp, "tokens.npy")
+    np.save(corpus, np.random.default_rng(0).integers(
+        0, EP["vocab"], world * b * t * steps + 1).astype(np.int32))
+    dist_c = os.path.join(tmp, "dist_c")
+    # 20c: steps - 1 steps and their DCP save, then the run resumed from
+    # it to step ``steps``
+    jobs = [("RUN_c", _ep_argv(dist_c, corpus, "--num_steps",
+                               str(steps - 1))),
+            ("RUN_r", _ep_argv(dist_c, corpus, "--resume", "True"))]
+    cfg = _lm_config("flash", moe_experts=EP["experts"],
+                     moe_every=EP["every"], ep=ep)
+    # timed alone on the card, before the processes start
+    moe_ms, attn_ms = _ep_layer_ms(cfg)
+    torch.cuda.empty_cache()
+    go = os.path.join(tmp, "go")
+    procs = _ranks(_P20_CHILD, world, [json.dumps(jobs), go],
+                   _torchrun_env(world))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        a = lm_run(_ep_argv(os.path.join(tmp, "stacked_a"), corpus,
+                            "--world_size", str(world), "--ckpt_backend",
+                            "orbax"))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        worst, moved, dropped = ep_oracle(
+            dataclasses.replace(cfg, moe_capacity_factor=8.0), "cuda", b, t)
+        b_s = time.perf_counter() - t_b
+        torch.cuda.empty_cache()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    with open(go, "w"):
+        pass
+    logs = _join("20", procs)
+    runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
+            for lab in "cr"}
+
+    # 20a: launches, the dropped fraction in the CSV, the times
+    layers, moe_blocks = 12, 12 // EP["every"]
+    # each replica's forward holds both ep shards' rows: one launch a layer
+    _tp_launch_check("20a", a, {f"{n}_bf16": dp * layers * steps
+                                for n in FLASH}, steps, ipc=False)
+    csv_dropped = [float(r[-1]) for r in a["rows"]]
+    if len(csv_dropped) != steps or not all(0 <= x <= 1
+                                            for x in csv_dropped):
+        raise AssertionError(f"ep 20a: moe_dropped in the CSV "
+                             f"{csv_dropped}")
+    if not np.isfinite(a["loss"]).all():
+        raise AssertionError(f"ep 20a: losses {a['loss']}")
+    step_ms = float(np.median(a["step_s"][1:])) * 1e3
+    print(f"ep 20a: world {world} = dp {dp} x ep {ep} stacked, d768 L12 "
+          f"T{t} B{b}/ep shard bf16 flash SGP K2/K1, {EP['experts']} "
+          f"experts on {moe_blocks} blocks (capacity factor 1.25), {steps} "
+          f"steps: losses {[round(x[0], 4) for x in a['loss']]}, "
+          f"moe_dropped (CSV) {csv_dropped}; step ms (synchronised, median "
+          f"of steps 2-{steps}) {step_ms:.1f}; peak {peak_gb:.2f} GB; "
+          f"{a['numel'] / dp / 1e6:.1f} M parameters a replica; a step's "
+          f"device ms alone a replica (CUDA events, forward + backward): "
+          f"{moe_blocks} MoE FFNs {moe_blocks * moe_ms:.2f} ({moe_ms:.3f} "
+          f"each), {layers} flash attentions {layers * attn_ms:.2f} "
+          f"({attn_ms:.3f} each); bf16 K3/K4/K5 "
+          f"{a['launches']['flash_fwd_bf16']} each, K2/K1 "
+          f"{a['launches']['gossip_edge_start']} [{card}]", flush=True)
+
+    # 20b: the oracle
+    # the leaves the /n_ep scaling is about must have moved (an fp32
+    # update below half an ulp leaves a LayerNorm scale as it was)
+    from stochastic_gradient_push_torch.train.lm import logical_shapes
+
+    leaves = list(logical_shapes(cfg))
+    moe = [n for n in leaves if ".moe." in n]
+    print(f"ep 20b: dp 1 x ep 2, fp32, capacity factor 8, no MoE loss, "
+          f"momentum-free AllReduce: every parameter within rtol "
+          f"{TOL_EP_RTOL} / atol {TOL_EP_ATOL} of p - lr * grad of the ep 1 "
+          f"model on both shards' tokens: worst {worst:.3e} of the bound; "
+          f"{len(moved)} of {len(leaves)} leaves moved, all "
+          f"{len(moe)} MoE leaves among them: "
+          f"{set(moe) <= set(moved)}; dropped {dropped}; {b_s:.1f} s "
+          f"[{card}]", flush=True)
+    if worst > 1 or not set(moe) <= set(moved) or dropped != 0:
+        raise AssertionError(f"ep 20b: worst {worst} of the bound, MoE "
+                             f"leaves unmoved {sorted(set(moe) - set(moved))}"
+                             f", dropped {dropped}")
+
+    # 20c: each process against its stacked replica, through the resume
+    loss_rel = grad_rel = 0.0
+    for p, (run, resumed) in enumerate(zip(runs["c"], runs["r"])):
+        replica = p // ep
+        mine = {k: [x[0] for x in run[k] + resumed[k]]
+                for k in ("loss", "grad_norm")}
+        loss_rel = max(loss_rel, _tp_rel(mine["loss"],
+                                         [x[replica] for x in a["loss"]]))
+        grad_rel = max(grad_rel, _tp_rel(mine["grad_norm"], [
+            x[replica] for x in a["grad_norm"]]))
+        if resumed["ps_weight"] != a["ps_weight"][replica:replica + 1]:
+            raise AssertionError(f"ep 20c process {p}: ps-weight "
+                                 f"{resumed['ps_weight']}, {a['ps_weight']}")
+        if not run["forced"] and p == 0:
+            raise AssertionError("ep 20c: the DCP backend was not forced")
+        _tp_launch_check(f"20c process {p}", run, {
+            f"{n}_bf16": layers * (steps - 1) for n in FLASH}, steps - 1,
+            ipc=True)
+        _tp_launch_check(f"20c resume process {p}", resumed, {
+            f"{n}_bf16": layers for n in FLASH}, 1, ipc=True)
+    root = f"lm_dcp_global_n{world}"
+    _, diff = _tp_equal(
+        _dcp_tensors(os.path.join(tmp, "stacked_a", f"lm_dcp_r0_n{world}",
+                                  str(steps))),
+        _dcp_tensors(os.path.join(dist_c, root, str(steps))))
+    c0 = runs["c"][0]
+    ex_ms = [float(np.median(r["ex_s"])) * 1e3 for r in runs["c"]]
+    c_ms = [float(np.median(r["step_s"])) * 1e3 for r in runs["c"]]
+    print(f"ep 20c: {world} processes (torchrun environment, gloo, the card "
+          f"shared) = dp {dp} x ep {ep}, one ep shard each, 20a's command, "
+          f"{steps - 1} steps, a DCP save, then step {steps} resumed from "
+          f"it: against 20a's stacked replica losses {loss_rel:.3e} and grad "
+          f"norms {grad_rel:.3e} apart (largest relative), the step-{steps} "
+          f"params {diff:.3e} apart (largest absolute), ps-weight equal (a "
+          f"process takes its own shard's gradient and sums the replicated "
+          f"leaves' over the ep group, where the stack takes one gradient "
+          f"of both shards' mean: bf16 products in another order); held a "
+          f"process {c0['numel'] / 1e6:.1f} M parameters; exchanges a step "
+          f"{c0['ex'][-1]} of {c0['ex_bytes'][-1] / c0['ex'][-1] / 1e6:.1f} "
+          f"MB each through the host, {min(ex_ms):.1f}-{max(ex_ms):.1f} host "
+          f"ms a step ({min(ex_ms) / c0['ex'][-1]:.1f}-"
+          f"{max(ex_ms) / c0['ex'][-1]:.1f} an exchange); step ms "
+          f"{min(c_ms):.1f}-{max(c_ms):.1f} over the processes (stacked "
+          f"{step_ms:.1f}); seconds in main: the run "
+          f"{max(r['wall_s'] for r in runs['c']):.1f}, the resume "
+          f"{max(r['wall_s'] for r in runs['r']):.1f}, 20a "
+          f"{a['wall_s']:.1f} [{card}]", flush=True)
+    if loss_rel > TOL_HARNESS_LOSS_REL or not np.isfinite(diff):
+        raise AssertionError(f"ep 20c: losses {loss_rel} from the stacked "
+                             f"run's (over {TOL_HARNESS_LOSS_REL})")
+    launches = {}
+    for run in [a] + runs["c"] + runs["r"]:
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"ep: phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5915,6 +6279,7 @@ def main() -> int:
 
     # bf16 GEMMs accumulate in fp32 throughout, as XLA's do (phase 12)
     set_matmul_flags()
+    share_corpus_tables()
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
@@ -5971,6 +6336,8 @@ def main() -> int:
     seq_dist_launches = seq_dist_path(card)
     torch.cuda.empty_cache()
     tp_launches = tp_path(card)
+    torch.cuda.empty_cache()
+    ep_launches = ep_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
@@ -5981,14 +6348,14 @@ def main() -> int:
     # runs, phase 16a's kernel-lane CLI run and 16b's processes, phase
     # 17's CLI runs, 17b's and 17e's processes and 17d's serving, phase
     # 18's processes, phase 19a's stacked tp run and 19b's and 19c's
-    # processes) summed
+    # processes, phase 20a's stacked MoE run and 20c's processes) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
-            ckpt_launches, seq_dist_launches, tp_launches))
+            ckpt_launches, seq_dist_launches, tp_launches, ep_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["load_corpus", "synthetic_lm_corpus", "lm_batches"]
+__all__ = ["load_corpus", "synthetic_lm_corpus", "markov_table",
+           "markov_walk", "lm_batches"]
 
 
 def load_corpus(path: str, vocab_size: int) -> np.ndarray:
@@ -51,9 +52,24 @@ def synthetic_lm_corpus(n_tokens: int, vocab_size: int = 256,
     """A learnable Markov corpus: each token depends on the previous
     ``order`` tokens through a fixed random table, so a causal LM can drive
     the loss well below the unigram entropy."""
+    table, g = markov_table(vocab_size, order, seed)
+    return markov_walk(table, g, n_tokens, vocab_size, order)
+
+
+def markov_table(vocab_size: int, order: int = 2, seed: int = 0):
+    """``(table, generator)``: the corpus's ``vocab^order`` transition
+    table drawn from ``seed``, and the generator just after that draw,
+    where :func:`markov_walk` continues the stream."""
     g = np.random.default_rng(seed)
     table = g.integers(0, vocab_size,
                        size=(vocab_size,) * order).astype(np.int32)
+    return table, g
+
+
+def markov_walk(table: np.ndarray, g: np.random.Generator, n_tokens: int,
+                vocab_size: int, order: int = 2) -> np.ndarray:
+    """``n_tokens`` of the walk over ``table``, drawing its noise and
+    restarts from ``g``."""
     noise = g.random(n_tokens)
     toks = np.empty(n_tokens, np.int32)
     toks[:order] = g.integers(0, vocab_size, size=order)

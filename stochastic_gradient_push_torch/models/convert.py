@@ -12,7 +12,10 @@ engine, which takes the flax tree.
 **Transposition.**  A flax ``Dense`` kernel is ``[in, out]`` and computes
 ``x @ kernel``; ``nn.Linear.weight`` is ``[out, in]`` and computes
 ``x @ weight.T``.  Every ``kernel`` leaf is transposed here, and only
-here; embeddings, LayerNorm scales and biases carry over as they are.
+here; embeddings, LayerNorm scales and biases carry over as they are,
+and so do a MoE block's raw leaves (``moe/router`` ``[D, E]``,
+``moe/experts_up`` ``[E, D, F]``, ``moe/experts_down`` ``[E, F, D]``:
+``self.param`` arrays, not Dense kernels).
 
 :func:`init_params` builds a tree in that same layout with numpy from a
 seed (embedding N(0, 0.02), lecun-normal kernels, zero biases, unit
@@ -65,6 +68,8 @@ __all__ = ["params_from_jax", "params_to_jax", "init_params", "config_from_param
 # flax leaf name -> nn.Module parameter name
 _LEAF = {"embedding": "weight", "kernel": "weight", "scale": "weight",
          "bias": "bias"}
+# a MoE block's raw leaves: the same name on both sides, never transposed
+_RAW = ("router", "experts_up", "experts_down")
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -106,12 +111,12 @@ def params_from_jax(tree, tp: int = 1,
     state = {}
     for path, arr in flatten_tree(tree).items():
         *mods, leaf = path.split("/")
-        if leaf not in _LEAF:
+        if leaf not in _LEAF and leaf not in _RAW:
             raise ValueError(f"unexpected parameter leaf {path!r}")
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         if leaf == "kernel":   # [..., in, out] -> [..., out, in]
             t = t.transpose(-1, -2).contiguous()
-        state[".".join([*mods, _LEAF[leaf]])] = t
+        state[".".join([*mods, _LEAF.get(leaf, leaf)])] = t
     return state
 
 
@@ -130,7 +135,7 @@ def params_to_jax(state, tp: int = 1) -> dict:
     flat = {}
     for name, t in state.items():
         *mods, leaf = name.split(".")
-        if leaf not in ("weight", "bias") or not mods:
+        if leaf not in ("weight", "bias", *_RAW) or not mods:
             raise ValueError(f"unexpected parameter {name!r}")
         arr = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
                else np.asarray(t))
@@ -151,23 +156,35 @@ def config_from_params(tree, n_heads: int) -> TransformerConfig:
     be: the reference engine takes it from its ServeConfig too)."""
     vocab, d_model = np.shape(tree["embed"]["embedding"])
     n_layers = sum(1 for k in tree if str(k).startswith("block_"))
-    d_ff = np.shape(tree["block_0"]["up"]["kernel"])[1]
+    moe = [i for i in range(n_layers) if "moe" in tree[f"block_{i}"]]
+    if moe:
+        # block i is MoE iff i % every == every - 1: the first is every - 1
+        first = tree[f"block_{moe[0]}"]["moe"]
+        moe_kw = {"moe_experts": int(np.shape(first["router"])[1]),
+                  "moe_every": moe[0] + 1}
+        d_ff = np.shape(first["experts_up"])[-1]
+    else:
+        moe_kw = {}
+        d_ff = np.shape(tree["block_0"]["up"]["kernel"])[1]
     if d_model % n_heads:
         raise ValueError(f"d_model {d_model} not divisible by n_heads "
                          f"{n_heads}")
     return TransformerConfig(vocab_size=int(vocab), d_model=int(d_model),
                              n_layers=n_layers, n_heads=int(n_heads),
-                             d_ff=int(d_ff))
+                             d_ff=int(d_ff), **moe_kw)
 
 
 def _lecun_normal(rng: np.random.Generator, fan_in: int, shape):
     """flax ``lecun_normal``: a standard normal truncated to (-2, 2),
     rescaled to unit variance, times ``fan_in ** -0.5``."""
     x = rng.standard_normal(shape, dtype=np.float32)
-    bad = np.abs(x) >= 2.0
-    while bad.any():
-        x[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
-        bad = np.abs(x) >= 2.0
+    # redraw the rejected entries, in flat order, until none is left: only
+    # a redrawn entry can be rejected again, so each round scans those
+    flat = x.reshape(-1)
+    bad = np.flatnonzero(np.abs(flat) >= 2.0)
+    while bad.size:
+        flat[bad] = rng.standard_normal(bad.size, dtype=np.float32)
+        bad = bad[np.abs(flat[bad]) >= 2.0]
     # stddev of the standard normal truncated to (-2, 2)
     return x * np.float32(fan_in ** -0.5 / 0.87962566103423978)
 
@@ -187,6 +204,15 @@ def init_params(cfg: TransformerConfig, seed: int) -> dict:
         return {"scale": np.ones(e, np.float32),
                 "bias": np.zeros(e, np.float32)}
 
+    def moe():
+        # flax's lecun_normal on [E, in, out] counts the expert dim into
+        # the fan-in (a receptive field of E): E·in
+        n = cfg.moe_experts
+        return {"router": rng.standard_normal((e, n), dtype=np.float32)
+                * np.float32(0.02),
+                "experts_up": _lecun_normal(rng, n * e, (n, e, f)),
+                "experts_down": _lecun_normal(rng, n * f, (n, f, e))}
+
     tree = {"embed": {"embedding": rng.standard_normal(
         (cfg.vocab_size, e), dtype=np.float32) * np.float32(0.02)}}
     for i in range(cfg.n_layers):
@@ -194,9 +220,12 @@ def init_params(cfg: TransformerConfig, seed: int) -> dict:
             "ln1": ln(),
             "attn": {n: dense(e, e, False) for n in ("q", "k", "v", "o")},
             "ln2": ln(),
-            "up": dense(e, f, True),
-            "down": dense(f, e, True),
         }
+        if cfg.use_moe(i):
+            tree[f"block_{i}"]["moe"] = moe()
+        else:
+            tree[f"block_{i}"].update(up=dense(e, f, True),
+                                      down=dense(f, e, True))
     tree["ln_f"] = ln()
     tree["lm_head"] = dense(e, cfg.vocab_size, False)
     return tree
@@ -408,6 +437,8 @@ def reference_layout(model):
             flax_mod = mod.split(".")
             if last == "embed":
                 kind = "embedding"
+            elif leaf in _RAW:
+                kind = leaf
             elif last.startswith("ln"):
                 kind = "scale" if leaf == "weight" else "bias"
             else:

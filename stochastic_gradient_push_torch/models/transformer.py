@@ -70,6 +70,24 @@ one head dim for the attention (one flash launch for all of them).  The
 model returns the held shards' vocabulary slices of the logits, a list
 (``tp.lm_loss`` takes it).
 
+``moe_experts`` > 0 makes block ``i`` a switch mixture of experts
+when ``i % moe_every == moe_every - 1`` (the reference's ``_MoEFFN``,
+``models/transformer.py:141-195,231-234`` there): :class:`MoEFFN` holds
+``router`` ``[D, E]``, ``experts_up`` ``[E, D, F]`` and ``experts_down``
+``[E, F, D]`` (raw leaves, no transpose) and routes the ``ln2`` output
+flattened to ``[B·T, D]`` (``models/moe.py``); a dropped token rides the
+residual.  Its fp32 output turns a bf16 residual stream fp32 from there
+on, as the reference's promotion does.  Under a ring ``attn_impl`` each
+held sequence shard routes its own ``B·t`` tokens.  ``ep`` > 1 is the
+reference's expert axis (``parallel/ep.py``: all ``ep`` shards stacked,
+or one a process): ``forward(tokens, seq, tp, ep)`` takes the held ep
+shards' batches folded into the batch dim, ``[held·B, T]`` (``[held_sp,
+held·B, t]`` with a ring), and each shard routes its own rows.
+``forward(..., aux=[])`` appends each MoE block's ``(load_balance,
+dropped)``, one value a routing group; under ``remat`` they leave the
+checkpoint as its outputs, so the recompute in the backward never
+appends twice.
+
 The engine (``serve/engine.py``) reuses these modules' weights through
 its own prefill and paged decode paths.
 """
@@ -89,10 +107,11 @@ from ..ops.flash_attention import NEG_INF, flash_attention
 from ..ops.lanes import LANES
 from ..ops.ring_flash import ring_flash_attention
 from ..parallel.ring_attention import blockwise_attention, ring_attention
+from .moe import switch_moe_ffn
 
 __all__ = ["DTYPES", "ColumnDense", "Dense", "Embed", "LayerNorm",
-           "RowDense", "TransformerConfig", "TransformerLM", "check_tp_axis",
-           "rope", "rope_tok"]
+           "MoEFFN", "RowDense", "TransformerConfig", "TransformerLM",
+           "check_ep_axis", "check_tp_axis", "rope", "rope_tok"]
 
 LN_EPS = 1e-6        # flax.linen.LayerNorm default
 # compute types: the reference's fp32 and bf16 (--precision), and fp64 (the
@@ -117,8 +136,27 @@ class TransformerConfig:
     remat: bool = False         # recompute each block in the backward
     dtype: torch.dtype = torch.float32   # compute type; params stay fp32
     tp: int = 1                 # tensor-parallel shards (parallel/tp.py)
+    moe_experts: int = 0        # total experts (0: every FFN dense)
+    moe_every: int = 2          # every k-th block is a MoE block
+    moe_capacity_factor: float = 1.25
+    ep: int = 1                 # expert-parallel shards (parallel/ep.py)
 
     def __post_init__(self):
+        if self.moe_experts < 0 or self.ep < 1:
+            raise ValueError(f"moe_experts {self.moe_experts} must be >= 0 "
+                             f"and ep {self.ep} >= 1")
+        if self.moe_experts > 0 and self.moe_every < 1:
+            raise ValueError("moe_every must be >= 1 when moe_experts > 0")
+        if self.ep > 1 and not self.moe_experts:
+            raise ValueError("--ep requires --moe_experts > 0")
+        if self.moe_experts % self.ep:
+            raise ValueError(f"moe_experts {self.moe_experts} not divisible "
+                             f"by ep {self.ep}")
+        if self.moe_experts and self.tp > 1:
+            raise ValueError(f"--moe_experts with --tp {self.tp}: MoE under "
+                             f"tensor parallelism (the (gossip, ep, tp) "
+                             f"meshes, experts split on their F dim) is not "
+                             f"ported yet (ROADMAP.md Queue 1)")
         if self.tp > 1:
             from ..parallel.tp import check_tp_dims
 
@@ -147,6 +185,11 @@ class TransformerConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    def use_moe(self, i: int) -> bool:
+        """Whether block ``i`` is a MoE block."""
+        return (self.moe_experts > 0
+                and i % self.moe_every == self.moe_every - 1)
+
 
 def check_tp_axis(cfg: TransformerConfig, tp) -> None:
     """``ValueError`` unless ``tp`` is the tensor axis a model of
@@ -157,6 +200,17 @@ def check_tp_axis(cfg: TransformerConfig, tp) -> None:
         raise ValueError(f"a model of tp {cfg.tp} with tp {tp!r}: tp > 1 "
                          f"runs over a tensor axis of its size (a "
                          f"StackedTp, or a DistTp across processes), tp 1 "
+                         f"without one")
+
+
+def check_ep_axis(cfg: TransformerConfig, ep) -> None:
+    """``ValueError`` unless ``ep`` is the expert axis a model of ``cfg``
+    runs over: one of its size at ``cfg.ep`` > 1, none at ep 1."""
+    if (cfg.ep > 1) != (ep is not None) or (
+            ep is not None and ep.size != cfg.ep):
+        raise ValueError(f"a model of ep {cfg.ep} with ep {ep!r}: ep > 1 "
+                         f"runs over an expert axis of its size (a "
+                         f"StackedEp, or a DistEp across processes), ep 1 "
                          f"without one")
 
 
@@ -352,13 +406,44 @@ class Attention(nn.Module):
         return self.o([o.reshape(*o.shape[:-2], -1) for o in parts], tp)
 
 
-class Block(nn.Module):
+class MoEFFN(nn.Module):
+    """The switch-MoE feed-forward (``models/moe.py``): ``router`` ``[D,
+    E]``, ``experts_up`` ``[E, D, F]``, ``experts_down`` ``[E, F, D]``
+    (the held shards' experts: all of them, or ``E / ep`` a process).
+    ``forward(h, ep)`` routes each group of rows of ``h`` ``[..., B, T,
+    D]``: every leading index alone, and with ``ep`` the ``B`` rows cut
+    into the held ep shards' batches."""
+
     def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.capacity_factor = cfg.moe_capacity_factor
+        e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        self.router = nn.Parameter(torch.empty(d, e))
+        self.experts_up = nn.Parameter(torch.empty(e, d, f))
+        self.experts_down = nn.Parameter(torch.empty(e, f, d))
+
+    def forward(self, h: torch.Tensor, ep=None):
+        *lead, b, t, d = h.shape
+        held = 1 if ep is None else len(ep.shards)
+        groups = (*lead, held, b // held * t, d) if ep is not None else (
+            *lead, b * t, d)
+        y, aux = switch_moe_ffn(h.reshape(groups), self.router,
+                                self.experts_up, self.experts_down, ep,
+                                self.capacity_factor)
+        return y.reshape(h.shape), (aux["load_balance_loss"],
+                                    aux["dropped_fraction"])
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, use_moe: bool = False):
         super().__init__()
         e, f = cfg.d_model, cfg.d_ff
         self.ln1 = LayerNorm(e)
         self.attn = Attention(cfg)
         self.ln2 = LayerNorm(e)
+        self.moe = MoEFFN(cfg) if use_moe else None
+        if use_moe:
+            return
         if cfg.tp == 1:
             self.up = Dense(e, f, compute=cfg.dtype)
             self.down = Dense(f, e, compute=cfg.dtype)
@@ -372,28 +457,42 @@ class Block(nn.Module):
         return self.down([F.gelu(y, approximate="tanh")
                           for y in self.up(tp.copy(h))], tp)
 
-    def forward(self, x, positions, seq=None, tp=None):
+    def forward(self, x, positions, seq=None, tp=None, ep=None, aux=None):
         x = x + self.attn(self.ln1(x), positions, seq, tp)
-        return x + self.mlp(self.ln2(x), tp)
+        if self.moe is None:
+            return x + self.mlp(self.ln2(x), tp)
+        y, stats = self.moe(self.ln2(x), ep)
+        if aux is not None:
+            aux.append(stats)
+        return x + y
 
 
-def _remat_block(blk: Block, x, positions, seq, tp):
-    """``blk(x, positions, seq, tp)`` with its forward recomputed in the
-    backward.  The block's parameters enter the checkpoint as inputs, so
-    the recompute sees the tensors the caller's ``functional_call`` swapped
-    in, after that call has returned.  With ``tp`` the recompute reads
-    back the first pass's sums over the tp shards (``tp.tape()``) rather
-    than reducing again."""
+def _remat_block(blk: Block, x, positions, seq, tp, ep, aux):
+    """``blk(x, positions, seq, tp, ep, aux)`` with its forward recomputed
+    in the backward.  The block's parameters enter the checkpoint as
+    inputs, so the recompute sees the tensors the caller's
+    ``functional_call`` swapped in, after that call has returned.  With
+    ``tp`` the recompute reads back the first pass's sums over the tp
+    shards (``tp.tape()``) rather than reducing again.  A MoE block's
+    ``(load_balance, dropped)`` leave the checkpoint as outputs and are
+    appended here, once."""
     params = dict(blk.named_parameters())
     names = tuple(params)
     tape = None if tp is None else tp.tape()
 
     def run(x, *tensors):
+        got = []
         with tape if tape is not None else contextlib.nullcontext():
-            return functional_call(blk, dict(zip(names, tensors)),
-                                   (x, positions, seq, tp))
+            out = functional_call(blk, dict(zip(names, tensors)),
+                                  (x, positions, seq, tp, ep, got))
+        return (out, *got[0]) if got else out
 
-    return checkpoint(run, x, *params.values(), use_reentrant=False)
+    out = checkpoint(run, x, *params.values(), use_reentrant=False)
+    if blk.moe is None:
+        return out
+    if aux is not None:
+        aux.append(tuple(out[1:]))
+    return out[0]
 
 
 class TransformerLM(nn.Module):
@@ -409,7 +508,7 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, compute=cfg.dtype)
         for i in range(cfg.n_layers):
-            self.add_module(f"block_{i}", Block(cfg))
+            self.add_module(f"block_{i}", Block(cfg, cfg.use_moe(i)))
         self.ln_f = LayerNorm(cfg.d_model)
         self.lm_head = (
             Dense(cfg.d_model, cfg.vocab_size, bias=False, compute=cfg.dtype)
@@ -421,8 +520,10 @@ class TransformerLM(nn.Module):
     def blocks(self) -> list[Block]:
         return [getattr(self, f"block_{i}") for i in range(self.cfg.n_layers)]
 
-    def forward(self, tokens: torch.Tensor, seq=None, tp=None):
+    def forward(self, tokens: torch.Tensor, seq=None, tp=None, ep=None,
+                aux=None):
         check_tp_axis(self.cfg, tp)
+        check_ep_axis(self.cfg, ep)
         t = tokens.shape[-1]
         positions = torch.arange(t, device=tokens.device)
         if self.cfg.ring:
@@ -438,8 +539,8 @@ class TransformerLM(nn.Module):
                              f"sequence axis; ring and ring_flash do")
         x = self.embed(tokens)
         for blk in self.blocks:
-            x = (_remat_block(blk, x, positions, seq, tp) if self.cfg.remat
-                 else blk(x, positions, seq, tp))
+            x = (_remat_block(blk, x, positions, seq, tp, ep, aux)
+                 if self.cfg.remat else blk(x, positions, seq, tp, ep, aux))
         if tp is None:
             return _wide(self.lm_head(self.ln_f(x)))
         return [_wide(y) for y in self.lm_head(tp.copy(self.ln_f(x)))]

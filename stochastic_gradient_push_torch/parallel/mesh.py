@@ -1,6 +1,6 @@
 """Layouts of a world: nodes of ``nprocs_per_node`` devices, and the
-``(gossip, seq, tp)`` grid of replicas, sequence shards and tensor
-shards.
+``(gossip, ep, seq, tp)`` grid of replicas, expert shards, sequence
+shards and tensor shards.
 
 Counterpart of ``stochastic_gradient_push_tpu/parallel/mesh.py``'s
 ``make_hierarchical_mesh`` and of ``make_dp_sp_mesh``,
@@ -14,28 +14,34 @@ over a node's ``L`` rows (``train/step.py``'s ``local_axis``), the
 original's ``nprocs_per_node`` (its ``distributed.py:62-78``).
 
 Under ``torchrun``, :class:`DpSpLayout` places the ``P`` processes on
-the reference's ``(gossip, seq, tp)`` grid in its device order
-(``make_dp_sp_tp_mesh``, ``stochastic_gradient_push_tpu/train/lm.py:72-76``):
-process ``p`` is ``(replica, shard, t) = (p // (sp·tp), (p // tp) % sp,
-p % tp)``, tp shard ``t`` of sequence shard ``shard`` of gossip replica
-``replica``.  At ``tp == 1`` that is the ``(gossip, seq)`` order of
-``make_dp_sp_mesh``.  The ``tp`` processes of one ``(replica, shard)``
-form its **tp group** (the Megatron reductions, ``parallel/tp.py``); a
-replica's ``sp`` processes of one ``t`` form its **sp group** (ring
-shifts, the mean of loss and gradients over shards); the ``dp``
-processes of one ``(shard, t)`` index form its **dp group** (the gossip
-round and every mean over replicas); agreement (signals, the resume
-point) stays on the world.  :func:`join_dp_sp_tp_groups` makes every
-group of the three kinds, in one order in every process (``new_group``
-is collective over the world).
+the reference's ``(gossip, ep, seq, tp)`` grid in its device order
+(``make_dp_ep_sp_tp_mesh``, ``stochastic_gradient_push_tpu/train/
+lm.py:107-115``): process ``p = ((replica·ep + e)·sp + shard)·tp + t``
+is tp shard ``t`` of sequence shard ``shard`` of expert shard ``e`` of
+gossip replica ``replica``.  At ``ep == 1`` that is the ``(gossip, seq,
+tp)`` order of ``make_dp_sp_tp_mesh``, at ``ep == tp == 1`` the
+``(gossip, seq)`` order of ``make_dp_sp_mesh``, at ``sp == tp == 1`` the
+``(gossip, ep)`` order of ``make_dp_ep_mesh``.  The ``tp`` processes of
+one ``(replica, e, shard)`` form its **tp group** (the Megatron
+reductions, ``parallel/tp.py``); the ``sp`` ones of one ``(replica, e,
+t)`` its **sp group** (ring shifts, the mean of loss and gradients over
+shards); the ``ep`` ones of one ``(replica, shard, t)`` its **ep group**
+(the token exchange and the means over expert shards, ``parallel/
+ep.py``); the ``dp`` processes of one ``(e, shard, t)`` index form its
+**dp group** (the gossip round and every mean over replicas); agreement
+(signals, the resume point) stays on the world.  :func:`join_groups`
+makes every group of the four kinds, in one order in every process
+(``new_group`` is collective over the world).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 __all__ = ["make_hierarchical_layout", "DpSpLayout", "make_dp_sp_layout",
-           "join_dp_sp_groups", "join_dp_sp_tp_groups"]
+           "MeshGroups", "join_groups", "join_dp_sp_groups",
+           "join_dp_sp_tp_groups"]
 
 
 def make_hierarchical_layout(nprocs_per_node: int, n_devices: int) -> int:
@@ -53,80 +59,121 @@ def make_hierarchical_layout(nprocs_per_node: int, n_devices: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class DpSpLayout:
-    """``world`` processes as ``dp`` replicas x ``sp`` sequence shards x
-    ``tp`` tensor shards, row-major: process ``p`` is ``(replica, shard,
-    t) = (p // (sp·tp), (p // tp) % sp, p % tp)``."""
+    """``world`` processes as ``dp`` replicas x ``ep`` expert shards x
+    ``sp`` sequence shards x ``tp`` tensor shards, row-major: process
+    ``p`` is ``(replica, e, shard, t)`` (:meth:`grid`)."""
 
     world: int
     sp: int
     tp: int = 1
+    ep: int = 1
 
     @property
     def dp(self) -> int:
-        return self.world // (self.sp * self.tp)
+        return self.world // (self.ep * self.sp * self.tp)
+
+    def grid(self, proc: int) -> tuple[int, int, int, int]:
+        """``(replica, e, shard, t)`` of process ``proc``."""
+        proc = int(proc)
+        return (proc // (self.ep * self.sp * self.tp),
+                (proc // (self.sp * self.tp)) % self.ep,
+                (proc // self.tp) % self.sp, proc % self.tp)
 
     def index(self, proc: int) -> tuple[int, int, int]:
         """``(replica, shard, t)`` of process ``proc``."""
-        proc = int(proc)
-        return (proc // (self.sp * self.tp), (proc // self.tp) % self.sp,
-                proc % self.tp)
+        replica, _, shard, t = self.grid(proc)
+        return replica, shard, t
 
     def place(self, proc: int) -> tuple[int, int]:
         """``(replica, shard)`` of process ``proc``."""
         return self.index(proc)[:2]
 
-    def proc(self, replica: int, shard: int, t: int = 0) -> int:
+    def proc(self, replica: int, shard: int, t: int = 0, e: int = 0) -> int:
         """The process holding tp shard ``t`` of sequence shard ``shard``
-        of replica ``replica``."""
-        return (replica * self.sp + shard) * self.tp + t
+        of expert shard ``e`` of replica ``replica``."""
+        return ((replica * self.ep + e) * self.sp + shard) * self.tp + t
 
-    def tp_members(self, replica: int, shard: int = 0) -> list[int]:
-        """The processes of one ``(replica, shard)``'s tensor shards, in
-        tp order."""
-        return [self.proc(replica, shard, t) for t in range(self.tp)]
+    def tp_members(self, replica: int, shard: int = 0,
+                   e: int = 0) -> list[int]:
+        """The processes of one ``(replica, e, shard)``'s tensor shards,
+        in tp order."""
+        return [self.proc(replica, shard, t, e) for t in range(self.tp)]
 
-    def sp_members(self, replica: int, t: int = 0) -> list[int]:
+    def sp_members(self, replica: int, t: int = 0, e: int = 0) -> list[int]:
         """The processes of replica ``replica``'s sequence ring at tp
-        shard ``t``, in shard order."""
-        return [self.proc(replica, i, t) for i in range(self.sp)]
+        shard ``t`` and expert shard ``e``, in shard order."""
+        return [self.proc(replica, i, t, e) for i in range(self.sp)]
 
-    def dp_members(self, shard: int, t: int = 0) -> list[int]:
-        """The processes holding ``(shard, t)``, in replica (gossip rank)
-        order."""
-        return [self.proc(r, shard, t) for r in range(self.dp)]
+    def ep_members(self, replica: int, shard: int = 0,
+                   t: int = 0) -> list[int]:
+        """The processes of replica ``replica``'s expert shards at
+        ``(shard, t)``, in ep order."""
+        return [self.proc(replica, shard, t, e) for e in range(self.ep)]
+
+    def dp_members(self, shard: int, t: int = 0, e: int = 0) -> list[int]:
+        """The processes holding ``(e, shard, t)``, in replica (gossip
+        rank) order."""
+        return [self.proc(r, shard, t, e) for r in range(self.dp)]
+
+    def all_dp_members(self) -> list[list[int]]:
+        """Every dp group's members, one group an ``(e, shard, t)``."""
+        return [self.dp_members(i, t, e) for e in range(self.ep)
+                for i in range(self.sp) for t in range(self.tp)]
 
 
-def make_dp_sp_layout(world: int, sp: int, tp: int = 1) -> DpSpLayout:
-    """The ``(gossip, seq, tp)`` layout of ``world`` processes; the
-    reference's ``ValueError`` when ``sp·tp`` does not divide them."""
-    if sp < 1:
-        raise ValueError(f"sp must be >= 1, got {sp}")
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
-    if world % (sp * tp):
+def make_dp_sp_layout(world: int, sp: int, tp: int = 1,
+                      ep: int = 1) -> DpSpLayout:
+    """The ``(gossip, ep, seq, tp)`` layout of ``world`` processes; the
+    reference's ``ValueError`` when ``ep·sp·tp`` does not divide them."""
+    for name, n in (("sp", sp), ("tp", tp), ("ep", ep)):
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
+    if world % (sp * tp * ep):
         raise ValueError(f"world_size {world} not divisible by sp*tp*ep*pp "
-                         f"{sp * tp}")
-    return DpSpLayout(int(world), int(sp), int(tp))
+                         f"{sp * tp * ep}")
+    return DpSpLayout(int(world), int(sp), int(tp), int(ep))
 
 
-def join_dp_sp_tp_groups(layout: DpSpLayout, proc: int):
-    """``(tp_group, sp_group, dp_group)`` of process ``proc``: every
-    ``(replica, shard)``'s tp group (none at ``tp == 1``), then every
-    ``(replica, t)``'s sp group, then every ``(shard, t)``'s dp group,
-    made in this order by every process of the world."""
+class MeshGroups(typing.NamedTuple):
+    """A process's groups of each kind (None where the axis is 1, the dp
+    and sp groups always)."""
+
+    tp: typing.Any
+    sp: typing.Any
+    dp: typing.Any
+    ep: typing.Any
+
+
+def join_groups(layout: DpSpLayout, proc: int) -> MeshGroups:
+    """The groups of process ``proc``: every ``(replica, e, shard)``'s tp
+    group (none at ``tp == 1``), then every ``(replica, e, t)``'s sp
+    group, then every ``(e, shard, t)``'s dp group, then every
+    ``(replica, shard, t)``'s ep group (none at ``ep == 1``), made in
+    this order by every process of the world."""
     import torch.distributed as dist
 
     n = layout
-    tp_groups = ({(r, i): dist.new_group(n.tp_members(r, i))
-                  for r in range(n.dp) for i in range(n.sp)}
-                 if n.tp > 1 else None)
-    sp_groups = {(r, t): dist.new_group(n.sp_members(r, t))
-                 for r in range(n.dp) for t in range(n.tp)}
-    dp_groups = {(i, t): dist.new_group(n.dp_members(i, t))
-                 for i in range(n.sp) for t in range(n.tp)}
-    replica, shard, t = n.index(proc)
-    return (None if tp_groups is None else tp_groups[replica, shard],
-            sp_groups[replica, t], dp_groups[shard, t])
+    cells = [(r, e, i, t) for r in range(n.dp) for e in range(n.ep)
+             for i in range(n.sp) for t in range(n.tp)]
+    tp_groups = ({(r, e, i): dist.new_group(n.tp_members(r, i, e))
+                  for r, e, i, t in cells if t == 0} if n.tp > 1 else None)
+    sp_groups = {(r, e, t): dist.new_group(n.sp_members(r, t, e))
+                 for r, e, i, t in cells if i == 0}
+    dp_groups = {(e, i, t): dist.new_group(n.dp_members(i, t, e))
+                 for r, e, i, t in cells if r == 0}
+    ep_groups = ({(r, i, t): dist.new_group(n.ep_members(r, i, t))
+                  for r, e, i, t in cells if e == 0} if n.ep > 1 else None)
+    replica, e, shard, t = n.grid(proc)
+    return MeshGroups(
+        None if tp_groups is None else tp_groups[replica, e, shard],
+        sp_groups[replica, e, t], dp_groups[e, shard, t],
+        None if ep_groups is None else ep_groups[replica, shard, t])
+
+
+def join_dp_sp_tp_groups(layout: DpSpLayout, proc: int):
+    """``(tp_group, sp_group, dp_group)`` of process ``proc``
+    (:func:`join_groups` at ``ep == 1``)."""
+    return tuple(join_groups(layout, proc))[:3]
 
 
 def join_dp_sp_groups(layout: DpSpLayout, proc: int):

@@ -79,6 +79,32 @@ cross-world resume, are refused by name.  On the GPU::
       --tp 2 --precision bf16 --gossip_kernel pallas --vocab_size 32000 \
       --d_model 768 --n_layers 12 --n_heads 12 --d_ff 3072 --seq_len 1024
 
+``--moe_experts M`` makes every ``--moe_every``-th block (default 2) a
+top-1 switch mixture of ``M`` experts (``models/moe.py``, capacity
+factor 1.25): the objective adds 0.01 times the blocks' load-balancing
+loss, ``ppl`` stays the bare cross-entropy's, and the CSV gains a
+``moe_dropped`` column.  At ``--sp`` > 1 each sequence shard routes its
+own tokens.  ``--ep k`` splits the experts over ``k`` expert shards
+(``parallel/ep.py``, the reference's ``(gossip, ep)`` and ``(gossip, ep,
+seq)`` meshes): ``--world_size / (--sp · --tp · --ep)`` replicas gossip,
+each ep shard carries its own tokens (the LR and tokens/s count ``dp ·
+ep`` batches), and every gradient is the mean over the ep shards.  Run
+directly, a replica's ep shards are held stacked beside it (with
+``--sp`` > 1 too); under ``torchrun`` process ``p`` holds ep shard ``p %
+k`` of replica ``p // k``: the token exchange and the means over ep run
+on the replica's ep group, each ep index's slices gossip on its dp group,
+and checkpoints go through ``--ckpt_backend orbax`` (forced, and
+logged).  The reference's refusals stand (``--ep`` without
+``--moe_experts``, experts that ``k`` does not divide, ``--ep`` with ring
+attention at ``--sp 1``, ``--health_every`` with ``--ep``); MoE with
+``--tp`` and ``--ep`` with ``--sp`` under ``torchrun`` are refused as
+not ported yet.  On the GPU::
+
+    python -m stochastic_gradient_push_torch.run.gossip_lm --world_size 4 \
+      --moe_experts 8 --ep 2 --precision bf16 --gossip_kernel pallas \
+      --vocab_size 32000 --d_model 768 --n_layers 12 --n_heads 12 \
+      --d_ff 3072 --seq_len 1024
+
 ``--precision bf16`` (the reference's flag) computes the model in
 bf16 on fp32 parameters (``models/transformer.py``): bf16 matmuls, the
 bf16 forms of the flash kernels, LayerNorm and the loss in fp32; the
@@ -153,11 +179,8 @@ UNPORTED = {
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
     "--attn_block_k": (0, int, "the TPU attention block rule"),
-    "--ep": (1, int, "expert parallelism"),
     "--pp": (1, int, "pipeline parallelism"),
     "--n_micro": (4, int, "pipeline parallelism"),
-    "--moe_experts": (0, int, "MoE"),
-    "--moe_every": (2, int, "MoE"),
     "--trace_dir": (None, str, "run telemetry"),
     "--metrics_every": (0, int, "run telemetry"),
     "--multihost": ("auto", str, "multi-host runs"),
@@ -271,6 +294,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "--world_size / (--sp * --tp) replicas gossip; "
                         "stacked on the device, or one a process under "
                         "torchrun")
+    p.add_argument("--ep", default=1, type=int,
+                   help="expert-parallel shards (requires --moe_experts; "
+                        "each ep shard also carries its own tokens)")
+    p.add_argument("--moe_experts", default=0, type=int,
+                   help="switch-MoE experts (0: dense FFN blocks)")
+    p.add_argument("--moe_every", default=2, type=int,
+                   help="every k-th block is a MoE block")
     p.add_argument("--grad_accum", default=1, type=int)
     p.add_argument("--world_size", default=None, type=int,
                    help="gossip ranks, all held in this process "
@@ -337,44 +367,71 @@ def refuse_unported(args) -> None:
                 f"ROADMAP.md Queue 1)")
 
 
-def resolve_seq_flags(args, world: int) -> tuple[int, str]:
-    """``(dp, attn)`` for ``--sp`` and ``--tp`` over ``world`` ranks
-    (processes under ``torchrun``), with the reference's checks
-    (run/gossip_lm.py:269-316, 361-366, 494-522): ``dp = world // (sp ·
-    tp)`` replicas gossip, each holding ``sp`` sequence shards of ``tp``
-    tensor shards; an unset ``--attn`` is ``ring`` under sp > 1, else
-    ``flash``.  ``n_heads``, ``d_ff`` and ``vocab_size`` must divide by
-    ``tp`` (GSPMD would pad them; the port refuses by name)."""
+def resolve_seq_flags(args, world: int,
+                      launched: int = 1) -> tuple[int, str]:
+    """``(dp, attn)`` for ``--sp``, ``--tp`` and ``--ep`` over ``world``
+    ranks (processes under ``torchrun``, ``launched`` > 1), with the
+    reference's checks (run/gossip_lm.py:269-316, 361-366, 494-526):
+    ``dp = world // (sp · tp · ep)`` replicas gossip, each holding ``ep``
+    expert shards of ``sp`` sequence shards of ``tp`` tensor shards; an
+    unset ``--attn`` is ``ring`` under sp > 1, else ``flash``.
+    ``n_heads``, ``d_ff`` and ``vocab_size`` must divide by ``tp`` (GSPMD
+    would pad them; the port refuses by name)."""
     from ..parallel.mesh import make_dp_sp_layout
     from ..parallel.tp import check_tp_dims
 
-    sp, tp = args.sp, args.tp
+    sp, tp, ep = args.sp, args.tp, args.ep
     if sp < 1:
         raise SystemExit("--sp must be >= 1")
-    if tp < 1:
+    if tp < 1 or ep < 1:
         raise SystemExit("--sp, --tp, --ep and --pp must be >= 1")
+    if ep > 1 and not args.moe_experts:
+        raise SystemExit("--ep requires --moe_experts > 0")
+    if args.moe_experts and args.moe_experts % ep:
+        raise SystemExit(
+            f"moe_experts {args.moe_experts} not divisible by ep {ep}")
     try:
-        make_dp_sp_layout(world, sp, tp)
+        make_dp_sp_layout(world, sp, tp, ep)
         check_tp_dims(args.n_heads, args.d_ff, args.vocab_size, tp)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if args.seq_len % sp:
         raise SystemExit(f"seq_len {args.seq_len} not divisible by sp {sp}")
-    if args.health_every and tp > 1:
+    if args.moe_experts < 0:
+        raise SystemExit("--moe_experts must be >= 0")
+    if args.moe_experts and args.moe_every < 1:
+        raise SystemExit("moe_every must be >= 1 when moe_experts > 0")
+    if args.health_every and (tp > 1 or ep > 1):
         raise SystemExit("--health_every composes with the flat dp "
                          "and dp×sp meshes only (not ep/tp/pp)")
+    if args.moe_experts and tp > 1:
+        raise SystemExit(
+            f"--moe_experts with --tp {tp}: MoE under tensor parallelism "
+            "(the (gossip, ep, tp) meshes, experts split on their F dim) "
+            "is not ported to stochastic_gradient_push_torch yet "
+            "(ROADMAP.md Queue 1)")
+    if ep > 1 and sp > 1 and launched > 1:
+        raise SystemExit(
+            f"--ep {ep} with --sp {sp} under torchrun: the (gossip, ep, "
+            "seq) mesh across processes is not ported to "
+            "stochastic_gradient_push_torch yet (ROADMAP.md Queue 1); run "
+            "it stacked in one process")
     attn = args.attn or ("ring" if sp > 1 else "flash")
     if sp > 1 and attn not in ("ring", "ring_flash"):
         raise SystemExit("--sp > 1 requires ring attention")
     if tp > 1 and sp == 1 and attn in ("ring", "ring_flash"):
         raise SystemExit(
             "--tp with ring attention requires --sp > 1 (3-D mesh)")
+    if ep > 1 and sp == 1 and attn in ("ring", "ring_flash"):
+        raise SystemExit(
+            "--ep with ring attention needs --sp > 1 (the 3-D "
+            "gossip × ep × seq mesh)")
     if args.attn_block and attn != "blockwise":
         raise SystemExit(
             f"--attn_block {args.attn_block} with --attn {attn}: the block "
             f"is the blockwise attention's; the flash kernels' tiles are "
             f"their own")
-    return world // (sp * tp), attn
+    return world // (sp * tp * ep), attn
 
 
 def resolve_staleness_flag(args, overlap: bool) -> None:
@@ -495,7 +552,8 @@ def _main(argv) -> dict:
                                       host_local_slice, initialize_multihost,
                                       leave, process_device)
     from ..parallel.collectives import DistTransport, StackedTransport
-    from ..parallel.mesh import join_dp_sp_tp_groups, make_dp_sp_layout
+    from ..parallel.ep import DistEp, StackedEp
+    from ..parallel.mesh import join_groups, make_dp_sp_layout
     from ..parallel.seq import DistSeq, StackedSeq
     from ..parallel.tp import DistTp, StackedTp, gather_state, shard_state
     from ..parallel.wire import get_codec
@@ -541,40 +599,44 @@ def _main(argv) -> dict:
     device = (process_device(args.device, info) if launched > 1
               else resolve_device(args.device))
     world = args.world_size or 1
-    dp, attn = resolve_seq_flags(args, launched if launched > 1 else world)
+    dp, attn = resolve_seq_flags(args, launched if launched > 1 else world,
+                                 launched)
     lane = resolve_kernel_flag(args, device, launched)
-    tp_n = args.tp
+    tp_n, ep_n = args.tp, args.ep
     owns_group = False
     forced = None
-    # the sequence and tensor axes across processes: this process's
-    # shards, its replica's sp and tp groups, and the world for agreement
-    # (signals, resume)
-    dist_seq = dist_tp = agree = layout = None
+    # the sequence, tensor and expert axes across processes: this
+    # process's shards, its replica's sp, tp and ep groups, and the world
+    # for agreement (signals, resume)
+    dist_seq = dist_tp = dist_ep = agree = layout = None
     if launched > 1:
         if args.world_size not in (None, launched):
             raise SystemExit(f"--world_size {args.world_size} but the "
                              f"launcher started {launched} processes")
-        if tp_n > 1 and args.ckpt_backend != "orbax":
-            # the reference forces its global backend for a tp-sharded
-            # state across processes (run/gossip_lm.py:766-769 there)
-            forced = (f"--tp {tp_n} under torchrun: checkpoints through "
-                      f"--ckpt_backend orbax (torch.distributed.checkpoint, "
-                      f"one global checkpoint), not {args.ckpt_backend}")
+        if (tp_n > 1 or ep_n > 1) and args.ckpt_backend != "orbax":
+            # the reference forces its global backend for a tp- or
+            # ep-sharded state across processes (run/gossip_lm.py:763-776
+            # there)
+            axis = "--tp" if tp_n > 1 else "--ep"
+            forced = (f"{axis} {max(tp_n, ep_n)} under torchrun: "
+                      f"checkpoints through --ckpt_backend orbax "
+                      f"(torch.distributed.checkpoint, one global "
+                      f"checkpoint), not {args.ckpt_backend}")
             args.ckpt_backend = "orbax"
         owns_group = not torch.distributed.is_initialized()
         initialize_multihost("xla", device, info)
         world = launched
-        if args.sp > 1 or tp_n > 1:
-            layout = make_dp_sp_layout(launched, args.sp, tp_n)
-            tp_group, sp_group, dp_group = join_dp_sp_tp_groups(
-                layout, info.rank)
-            transport = DistTransport(group=dp_group, siblings=[
-                layout.dp_members(i, t) for i in range(args.sp)
-                for t in range(tp_n)])
+        if args.sp > 1 or tp_n > 1 or ep_n > 1:
+            layout = make_dp_sp_layout(launched, args.sp, tp_n, ep_n)
+            groups = join_groups(layout, info.rank)
+            transport = DistTransport(group=groups.dp,
+                                      siblings=layout.all_dp_members())
             if args.sp > 1:
-                dist_seq = DistSeq(DistTransport(group=sp_group))
+                dist_seq = DistSeq(DistTransport(group=groups.sp))
             if tp_n > 1:
-                dist_tp = DistTp(DistTransport(group=tp_group))
+                dist_tp = DistTp(DistTransport(group=groups.tp))
+            if ep_n > 1:
+                dist_ep = DistEp(DistTransport(group=groups.ep))
             agree = DistTransport()
         else:
             transport = agree = DistTransport()
@@ -592,7 +654,8 @@ def _main(argv) -> dict:
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
         attn_impl=attn, attn_block_size=args.attn_block or None,
         remat=sb(args.remat),
-        dtype=getattr(torch, PRECISIONS[args.precision]), tp=tp_n)
+        dtype=getattr(torch, PRECISIONS[args.precision]), tp=tp_n,
+        moe_experts=args.moe_experts, moe_every=args.moe_every, ep=ep_n)
     args.mixing_alpha = parse_mixing_alpha(args.mixing_alpha)
     if args.mixing_alpha is not None and (
             sb(args.all_reduce) or not sb(args.push_sum)):
@@ -684,27 +747,29 @@ def _main(argv) -> dict:
     tx = sgd(momentum=args.momentum, weight_decay=args.weight_decay,
              nesterov=sb(args.nesterov))
     # the reference's step-based warmup horizon and LR scaling over the
-    # data-parallel replicas (sequence shards do not enlarge the batch)
+    # data-parallel replicas and ep shards (each carries its own batch;
+    # sequence and tensor shards do not enlarge it)
     warmup_steps = args.warmup_steps or max(args.num_steps // 10, 1)
     itr_per_epoch = max(warmup_steps // WARMUP_EPOCHS, 1)
     lrs = LRSchedule(ref_lr=args.lr, batch_size=args.batch_size,
-                     world_size=dp, decay_schedule={},
+                     world_size=dp * ep_n, decay_schedule={},
                      warmup=sb(args.warmup))
     model = make_model(cfg)
     seq = (dist_seq or StackedSeq(args.sp)) if cfg.ring else None
     tp = (dist_tp or StackedTp(tp_n)) if tp_n > 1 else None
+    ep = (dist_ep or StackedEp(ep_n)) if ep_n > 1 else None
     try:
         step = build_lm_train_step(
             model, alg, tx, lrs, itr_per_epoch=itr_per_epoch,
             grad_accum=args.grad_accum,
             health_axis=transport if args.health_every > 0 else None,
-            seq=seq, tp=tp)
+            seq=seq, tp=tp, ep=ep)
     except ValueError as e:
-        # an int8 wire whose blocks a tp shard would cut
+        # an int8 wire whose blocks a tp or ep shard would cut
         raise SystemExit(str(e)) from None
     held = len(transport.ranks)
     state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device,
-                          tp=tp)
+                          tp=tp, ep=ep)
     log = log0
     monitor = policy = recovery = None
     window = None   # (host clock, steps_done, val_time) at the last read
@@ -746,18 +811,21 @@ def _main(argv) -> dict:
                   f"{alg.gossip_buckets}"
                   + (f", overlap staleness {alg.staleness}" if alg.overlap
                      else ""))
-    shards = "".join(f" x {a} {n}" for a, n in (("sp", args.sp),
-                                                ("tp", tp_n)) if n > 1)
+    shards = "".join(f" x {a} {n}" for a, n in (
+        ("ep", ep_n), ("sp", args.sp), ("tp", tp_n)) if n > 1)
     shards = f" = dp {dp}{shards}" if shards else ""
     if layout is None:
         here = f"{held} in this process"
     else:
-        replica, shard, t = layout.index(info.rank)
+        replica, e, shard, t = layout.grid(info.rank)
         here = (f"process {info.rank}: replica {replica}"
+                + (f", ep shard {e}" if ep_n > 1 else "")
                 + (f", shard {shard}" if args.sp > 1 else "")
                 + (f", tp shard {t}" if tp_n > 1 else ""))
+    moe = (f"; moe {args.moe_experts} experts every {args.moe_every} "
+           f"blocks" if args.moe_experts else "")
     log(f"lm: world {world}{shards} ({here}) on {device}; "
-        f"{n_params / 1e6:.2f}M params; attn={attn}"
+        f"{n_params / 1e6:.2f}M params{moe}; attn={attn}"
         f"{' remat' if cfg.remat else ''}; precision {args.precision}; "
         f"algorithm={alg.name}{gossip}", flush=True)
 
@@ -860,15 +928,20 @@ def _main(argv) -> dict:
         corpus = synthetic_lm_corpus(args.corpus_tokens,
                                      vocab_size=args.vocab_size,
                                      seed=args.seed)
+    # a step's batch: dp replicas' of ep shards' sequences
+    rows = dp * ep_n
     corpus, val_corpus = split_corpus(
-        corpus, args.val_frac, (args.seq_len + 1) * dp * args.batch_size)
+        corpus, args.val_frac, (args.seq_len + 1) * rows * args.batch_size)
     val_on = val_corpus is not None
-    eval_step = build_lm_eval_step(model, alg, seq, tp) if val_on else None
+    eval_step = (build_lm_eval_step(model, alg, seq, tp, ep) if val_on
+                 else None)
     out_fname = os.path.join(
         args.checkpoint_dir,
         f"{args.tag}out_n{world}.csv" if launched == 1
         else f"{args.tag}out_p{info.rank}_n{world}.csv")
+    moe_on = args.moe_experts > 0
     header = ("step,loss,ppl,lr,tokens_per_sec,grad_norm"
+              + (",moe_dropped" if moe_on else "")
               + (",val_loss,val_ppl" if val_on else ""))
     open_csv(out_fname, header, start_step > 0, warn)
     log(header, flush=True)
@@ -881,8 +954,15 @@ def _main(argv) -> dict:
                        num_steps=args.profile_steps, device=device, rank=me)
 
     def on_device(tokens, targets):
-        # [dp, sp, batch, seq_len / sp]; flat models take [dp, batch,
-        # seq_len]; this process's rows (and shard)
+        # [dp·ep, sp, batch, seq_len / sp], row replica·ep + e; flat
+        # models take [dp, batch, seq_len]; this process's rows (and
+        # shard); with ep [dp, held_ep, ...], the ep shards held here
+        if ep is not None:
+            held_ep = np.asarray(ep.shards)
+            return tuple(torch.from_numpy(np.ascontiguousarray(
+                a.reshape(dp, ep_n, *a.shape[1:])[transport.ranks][
+                    :, held_ep][:, :, slice(None) if cfg.ring else 0])
+            ).to(device) for a in (tokens, targets))
         mine = host_local_slice({"x": tokens, "y": targets}, transport,
                                 None if seq is None else seq.shards)
         return tuple(torch.from_numpy(a if cfg.ring else a[:, 0]).to(device)
@@ -896,8 +976,8 @@ def _main(argv) -> dict:
         nonlocal val_time
         t_val = time.perf_counter()
         vals = []
-        for vt, vy in lm_batches(val_corpus, dp, args.sp, args.batch_size,
-                                 args.seq_len, seed=1):
+        for vt, vy in lm_batches(val_corpus, rows, args.sp,
+                                 args.batch_size, args.seq_len, seed=1):
             vals.append(mean(eval_step(st, *on_device(vt, vy))["loss"]))
             if len(vals) >= args.val_batches:
                 break
@@ -908,15 +988,15 @@ def _main(argv) -> dict:
     # resume fast-forward: the data stream restarts where the saved run
     # left off instead of replaying consumed batches
     n_seqs = (len(corpus) - 1) // args.seq_len
-    batches_per_epoch = max(1, n_seqs // (dp * args.batch_size))
+    batches_per_epoch = max(1, n_seqs // (rows * args.batch_size))
     epoch, skip = divmod(start_step, batches_per_epoch)
-    tokens_per_step = dp * args.batch_size * args.seq_len
+    tokens_per_step = rows * args.batch_size * args.seq_len
     steps_done, last_saved, prints = start_step, start_step - 1, 0
     losses, last_val = [], None
     t0 = time.perf_counter()
     try:
         while steps_done < args.num_steps:
-            for tokens, targets in lm_batches(corpus, dp, args.sp,
+            for tokens, targets in lm_batches(corpus, rows, args.sp,
                                               args.batch_size, args.seq_len,
                                               seed=args.seed + epoch):
                 if skip:
@@ -936,7 +1016,8 @@ def _main(argv) -> dict:
                           and prints else contextlib.nullcontext()):
                         # waits for the step
                         got = {k: mean(metrics[k])
-                               for k in ("loss", "ppl", "grad_norm")}
+                               for k in ("loss", "ppl", "grad_norm")
+                               + (("moe_dropped",) if moe_on else ())}
                     prints += 1
                     losses.append(got["loss"])
                     if monitor is not None:
@@ -948,6 +1029,8 @@ def _main(argv) -> dict:
                     row = (f"{steps_done},{got['loss']:.4f},"
                            f"{got['ppl']:.2f},{float(metrics['lr']):.5f},"
                            f"{tps:.0f},{got['grad_norm']:.4f}")
+                    if moe_on:
+                        row += f",{got['moe_dropped']:.4f}"
                     if val_on:
                         if ((args.val_every
                              and steps_done % args.val_every == 0)
@@ -1017,10 +1100,11 @@ def _reshard_other_world(ckpt, args, world: int, launched: int,
         ckpt.refuse_other_worlds(
             f"--sp {args.sp} > 1 keeps a replica's sequence shards in "
             "its file, so the files are not one rank row each")
-    if args.tp > 1:
+    if args.tp > 1 or args.ep > 1:
+        axis = "--tp" if args.tp > 1 else "--ep"
         ckpt.refuse_other_worlds(
-            f"--tp {args.tp} > 1 (the reference reshards flat dp meshes "
-            "only)")
+            f"{axis} {max(args.tp, args.ep)} > 1 (the reference reshards "
+            "flat dp meshes only)")
     if maybe_cross_world_reshard(args.checkpoint_dir, args.tag, world,
                                  log=log) is None:
         log.warning(f"a checkpoint of world {world} is on disk but "

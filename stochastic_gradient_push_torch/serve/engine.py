@@ -146,6 +146,11 @@ class LMEngine:
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
         self.cfg = config_from_params(params, config.n_heads)
+        if self.cfg.moe_experts:
+            # the reference's engine runs dense blocks (up/down) only
+            raise ValueError("serving a MoE model: the engine's prefill and "
+                             "decode run dense FFN blocks (as the "
+                             "reference's)")
         self.model = TransformerLM(self.cfg)
         self.model.load_state_dict(params_from_jax(params))
         self.model.to(self.device).eval().requires_grad_(False)

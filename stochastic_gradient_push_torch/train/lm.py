@@ -58,7 +58,28 @@ the logical leaves (``metrics.global_norm(grads, tp)``); the gossip
 round runs on every leaf as it is held, each ``(shard, t)`` index's
 slices on its own dp group across processes.
 
-Not ported yet: the expert- and pipeline-parallel meshes and MoE losses.
+Mixture of experts (a model of ``cfg.moe_experts`` > 0, the
+reference's ``train/lm.py:292-414``): the objective is the
+cross-entropy plus ``moe_loss_coef`` (0.01) times the mean over MoE
+blocks of each block's load-balancing loss (meaned over its routing
+groups), ``ppl`` is ``exp`` of the bare cross-entropy, and
+``moe_dropped`` the mean over blocks of the dropped fraction; under
+``grad_accum`` each microbatch routes under its own capacity.  Expert
+parallelism (the reference's ``(gossip, ep)`` and ``(gossip, ep, seq)``
+meshes): a model of ``cfg.ep`` > 1 and ``ep`` (``parallel/ep.py``: a
+:class:`~..parallel.ep.StackedEp` holding all shards, or a
+:class:`~..parallel.ep.DistEp` one a process).  A replica's batches are
+``[R, held_ep, batch, seq_len]`` (``[R, held_ep, held_sp, batch,
+seq_len / sp]`` with ``seq``), each ep shard its own tokens; one forward
+runs over all held shards (the exchange couples them), their batches
+folded into one.  Every gradient is the mean over ep shards
+(``ep.reduce_grads``), loss, ``ppl`` and ``moe_dropped`` are meaned over
+ep, the grad norm is each shard's norm of its own gradients meaned over
+ep (``metrics.global_norm(grads, ep=)``), and eval means the
+cross-entropy over ep.  :func:`init_lm_state` draws the logical experts
+once and a :class:`~..parallel.ep.DistEp` keeps its shard's slice.
+
+Not ported yet: the pipeline-parallel meshes, MoE under ``tp``.
 """
 
 from __future__ import annotations
@@ -73,7 +94,8 @@ from ..algorithms.api import GossipAlgorithm
 from ..models.convert import (init_params, params_from_jax,
                               reference_layout)
 from ..models.transformer import (TransformerConfig, TransformerLM,
-                                  check_tp_axis)
+                                  check_ep_axis, check_tp_axis)
+from ..parallel.ep import check_ep_wire_blocks, shard_experts
 from ..parallel.tp import check_wire_blocks, shard_params
 from .metrics import global_norm
 from .state import TrainState
@@ -108,67 +130,108 @@ def _check_seq(model: TransformerLM, seq) -> None:
                          f"one")
 
 
-def _replica_loss(model: TransformerLM, seq, tp, z_r: dict,
-                  xs, ys) -> torch.Tensor:
-    """One replica's loss: its token mean, or with ``seq`` the mean over
-    its held shards of each shard's token mean; with ``tp`` over the
-    vocabulary split across the tp shards."""
+def _fold_ep(x: torch.Tensor, seq) -> torch.Tensor:
+    """The held ep shards' batches as one: ``[held, B, T]`` -> ``[held·B,
+    T]``, ``[held, held_sp, B, t]`` -> ``[held_sp, held·B, t]``."""
+    if seq is None:
+        return x.reshape(-1, x.shape[-1])
+    return x.transpose(0, 1).reshape(x.shape[1], -1, x.shape[-1])
+
+
+def _replica_loss(model: TransformerLM, seq, tp, ep, z_r: dict, xs, ys,
+                  moe_loss_coef: float = 0.01):
+    """One replica's ``(objective, cross-entropy, dropped fraction)``.
+    The cross-entropy is its token mean, or with ``seq`` the mean over
+    its held shards of each shard's token mean, with ``ep`` over the held
+    ep shards' tokens; with ``tp`` over the vocabulary split across the
+    tp shards.  A MoE model's objective adds ``moe_loss_coef`` times the
+    blocks' mean load-balancing loss; otherwise it is the cross-entropy
+    and the dropped fraction None."""
     if tp is not None:
         logits = functional_call(model, z_r, (xs, seq, tp))
         if seq is None:
-            return tp.lm_loss(logits, ys)
-        return torch.stack([tp.lm_loss([lg[s] for lg in logits], y)
-                            for s, y in enumerate(ys)]).mean()
+            ce = tp.lm_loss(logits, ys)
+        else:
+            ce = torch.stack([tp.lm_loss([lg[s] for lg in logits], y)
+                              for s, y in enumerate(ys)]).mean()
+        return ce, ce, None
+    if ep is not None:
+        xs, ys = _fold_ep(xs, seq), _fold_ep(ys, seq)
+    aux = [] if model.cfg.moe_experts else None
+    logits = functional_call(model, z_r, (xs, seq, None, ep, aux))
     if seq is None:
-        return lm_loss(functional_call(model, z_r, (xs,)), ys)
-    logits = functional_call(model, z_r, (xs, seq))
-    return torch.stack([lm_loss(lg, y) for lg, y in zip(logits, ys)]).mean()
+        ce = lm_loss(logits, ys)
+    else:
+        ce = torch.stack([lm_loss(lg, y) for lg, y in zip(logits, ys)]
+                         ).mean()
+    if aux is None:
+        return ce, ce, None
+    # the reference's sum(mean(l) for l in sown) / len(sown)
+    lb = sum(l.mean() for l, _ in aux) / len(aux)
+    dropped = sum(d.mean() for _, d in aux) / len(aux)
+    return ce + moe_loss_coef * lb, ce, dropped.detach()
 
 
 def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                         tx, lr_schedule, itr_per_epoch: int,
                         grad_accum: int = 1,
-                        health_axis=None, seq=None, tp=None) -> typing.Callable:
+                        health_axis=None, seq=None, tp=None, ep=None,
+                        moe_loss_coef: float = 0.01) -> typing.Callable:
     """Step ``(state, tokens, targets) -> (state, metrics)`` for token
     batches ``[R, batch, seq_len]``, or ``[R, held, batch, seq_len / sp]``
-    with ``seq`` (a ring model's sequence axis).  ``grad_accum`` splits
-    the batch into that many microbatches whose gradients are summed,
-    then divided, as the reference's scan does.  ``health_axis`` (a
+    with ``seq`` (a ring model's sequence axis), each with the held ep
+    shards' dim after ``R`` with ``ep``.  ``grad_accum`` splits the batch
+    into that many microbatches whose gradients are summed, then
+    divided, as the reference's scan does.  ``health_axis`` (a
     transport) adds the health signals.  ``tp`` is the tensor axis of a
-    model of ``cfg.tp`` > 1; an int8 wire must keep the reference's
-    blocks on its shards (``parallel/tp.py::check_wire_blocks``)."""
+    model of ``cfg.tp`` > 1, ``ep`` the expert axis of one of ``cfg.ep``
+    > 1; an int8 wire must keep the reference's blocks on their shards
+    (``parallel/tp.py::check_wire_blocks``,
+    ``parallel/ep.py::check_ep_wire_blocks``).  ``moe_loss_coef``
+    weighs a MoE model's load-balancing loss."""
     from .step import health_metrics
 
     if grad_accum < 1:
         raise ValueError("grad_accum must be >= 1")
     _check_seq(model, seq)
     check_tp_axis(model.cfg, tp)
+    check_ep_axis(model.cfg, ep)
     codec = getattr(algorithm, "wire", None)
-    if tp is not None and codec is not None and codec.blocked:
-        check_wire_blocks(logical_shapes(model.cfg), tp.size, codec.block)
+    if codec is not None and codec.blocked:
+        if tp is not None:
+            check_wire_blocks(logical_shapes(model.cfg), tp.size,
+                              codec.block)
+        if ep is not None:
+            check_ep_wire_blocks(logical_shapes(model.cfg), ep.size,
+                                 codec.block)
     layout = reference_layout(model)
     algorithm.bind_layout(layout)
-    batch_dim = 0 if seq is None else 1
+    moe = model.cfg.moe_experts > 0
 
     def rank_grads(z_r: dict, toks, tgts):
+        # the batch dim: after the held ep and sequence shards' dims
+        batch_dim = toks.ndim - 2
         if toks.shape[batch_dim] % grad_accum:
             raise ValueError(f"batch {toks.shape[batch_dim]} not divisible "
                              f"by grad_accum {grad_accum}")
         z_r = {n: p.detach().requires_grad_(True) for n, p in z_r.items()}
-        g_sum, loss_sum = None, None
+        g_sum, sums = None, None
         for xs, ys in zip(toks.chunk(grad_accum, batch_dim),
                           tgts.chunk(grad_accum, batch_dim)):
-            loss = _replica_loss(model, seq, tp, z_r, xs, ys)
+            loss, ce, dropped = _replica_loss(model, seq, tp, ep, z_r, xs,
+                                              ys, moe_loss_coef)
             g = torch.autograd.grad(loss, list(z_r.values()))
+            got = ([loss.detach(), ce.detach(), dropped] if moe
+                   else [loss.detach()])
             if g_sum is None:
-                g_sum, loss_sum = list(g), loss.detach()
+                g_sum, sums = list(g), got
             else:
                 g_sum = [a + b for a, b in zip(g_sum, g)]
-                loss_sum = loss_sum + loss.detach()
+                sums = [a + b for a, b in zip(sums, got)]
         if grad_accum > 1:
             g_sum = [g / grad_accum for g in g_sum]
-            loss_sum = loss_sum / grad_accum
-        return dict(zip(z_r, g_sum)), loss_sum
+            sums = [x / grad_accum for x in sums]
+        return dict(zip(z_r, g_sum)), sums
 
     def train_step(state: TrainState, tokens, targets):
         params, gstate = algorithm.pre_step(state.params, state.gossip)
@@ -178,10 +241,18 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
                                tokens[r], targets[r])
                     for r in range(tokens.shape[0])]
         grads = {n: torch.stack([g[n] for g, _ in per_rank]) for n in z}
-        loss = torch.stack([l for _, l in per_rank])
+        # the loss (a MoE model's cross-entropy and dropped fraction too),
+        # one a replica
+        scalars = [torch.stack(x) for x in zip(*(s for _, s in per_rank))]
+        k = len(scalars)
         if seq is not None:
-            loss, *g = seq.pmean([loss, *grads.values()])
-            grads = dict(zip(grads, g))
+            out = seq.pmean([*scalars, *grads.values()])
+            scalars, grads = out[:k], dict(zip(grads, out[k:]))
+        if ep is not None:
+            grads = ep.reduce_grads(grads)
+            scalars = ep.pmean(scalars)
+        loss = scalars[0]
+        ce = scalars[1] if moe else loss
         grads = algorithm.reduce_grads(grads)
 
         step = state.step
@@ -191,8 +262,10 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
         params = {n: p - float(lr) * updates[n] for n, p in params.items()}
         params, gstate = algorithm.post_step(params, gstate)
 
-        metrics = {"loss": loss, "ppl": torch.exp(loss), "lr": lr,
-                   "grad_norm": global_norm(grads, tp)}
+        metrics = {"loss": loss, "ppl": torch.exp(ce), "lr": lr,
+                   "grad_norm": global_norm(grads, tp, ep)}
+        if moe:
+            metrics["moe_dropped"] = scalars[2]
         if health_axis is not None:
             metrics.update(health_metrics(params, grads, gstate,
                                           health_axis, layout))
@@ -203,27 +276,31 @@ def build_lm_train_step(model: TransformerLM, algorithm: GossipAlgorithm,
 
 
 def build_lm_eval_step(model: TransformerLM, algorithm: GossipAlgorithm,
-                       seq=None, tp=None) -> typing.Callable:
+                       seq=None, tp=None, ep=None) -> typing.Callable:
     """Eval ``(state, tokens, targets) -> {"loss", "ppl"}``, one value a
     held replica, for the train step's batch shapes: each replica's
     forward on its de-biased parameters under ``torch.no_grad``, then
     :func:`lm_loss` (with ``seq``, the mean over its shards, across
     processes by ``seq.pmean``; with ``tp``, over the vocabulary split
-    across the tp shards).  No gossip, no state update (the reference's
-    ``build_lm_eval_step``)."""
+    across the tp shards; with ``ep``, the mean over the ep shards'
+    tokens).  The bare cross-entropy, no MoE loss.  No gossip, no state
+    update (the reference's ``build_lm_eval_step``)."""
     _check_seq(model, seq)
     check_tp_axis(model.cfg, tp)
+    check_ep_axis(model.cfg, ep)
 
     def eval_step(state: TrainState, tokens, targets) -> dict:
         with torch.no_grad():
             z = algorithm.val_params(state.params, state.gossip)
             loss = torch.stack([
-                _replica_loss(model, seq, tp,
+                _replica_loss(model, seq, tp, ep,
                               {n: p[r] for n, p in z.items()},
-                              tokens[r], targets[r])
+                              tokens[r], targets[r])[1]
                 for r in range(tokens.shape[0])])
             if seq is not None:
                 loss = seq.pmean([loss])[0]
+            if ep is not None:
+                loss = ep.pmean([loss])[0]
         return {"loss": loss, "ppl": torch.exp(loss)}
 
     return eval_step
@@ -238,19 +315,24 @@ def logical_shapes(cfg: TransformerConfig) -> dict:
 def init_lm_state(cfg: TransformerConfig, algorithm: GossipAlgorithm, tx,
                   world: int, seed: int = 0,
                   device: str | torch.device = "cpu",
-                  tp=None) -> TrainState:
+                  tp=None, ep=None) -> TrainState:
     """Fresh state for ``world`` held ranks: every rank starts from the
     same parameters, drawn from ``seed`` with the flax init recipe
     (``models/convert.py::init_params``), zero momentum, ps-weight 1.
     At ``cfg.tp`` > 1 the same logical parameters are placed for the
     shards ``tp`` holds (``parallel/tp.py::shard_params``), as the
-    reference's ``init_lm_state_tp`` places its draw."""
+    reference's ``init_lm_state_tp`` places its draw; at ``cfg.ep`` > 1
+    every expert is drawn once and the ep shards held keep theirs
+    (``parallel/ep.py::shard_experts``: all on a stack)."""
     one = params_from_jax(init_params(dataclasses.replace(cfg, tp=1), seed))
     params = {n: p.to(device)[None].expand(world, *p.shape).clone()
               for n, p in one.items()}
     check_tp_axis(cfg, tp)
+    check_ep_axis(cfg, ep)
     if tp is not None:
         params = shard_params(params, cfg.tp, tp.shards)
+    if ep is not None and len(ep.shards) < ep.size:
+        params = shard_experts(params, ep.size, ep.shards)
     return TrainState(step=0, params=params, opt_state=tx.init(params),
                       gossip=algorithm.init(params))
 

@@ -50,9 +50,16 @@ def accuracy_topk(logits: torch.Tensor, labels: torch.Tensor,
                  for k in topk)
 
 
-def global_norm(grads: dict, tp=None) -> torch.Tensor:
+def global_norm(grads: dict, tp=None, ep=None) -> torch.Tensor:
     """Per-rank L2 norm over every leaf of rank-stacked gradients
     ``[R, ...]`` (``utils/flatten.py::global_norm`` there): ``[R]``.
+
+    With ``ep`` (``parallel/ep.py``) each ep shard's norm of the
+    gradients it holds, the replicated leaves and its own expert slice,
+    meaned over the shards (the reference's ``pmean`` over ep of its
+    shards' norms, ``train/lm.py:403-412`` there): on a stack the held
+    expert leaves ``[R, E, ...]`` are cut into the shards' slices, across
+    processes one all-reduce on the ep group.
 
     With ``tp`` (``parallel/tp.py``) the norm is over the logical leaves,
     as the reference's over its GSPMD-sharded ones: a split leaf ``[R,
@@ -60,6 +67,18 @@ def global_norm(grads: dict, tp=None) -> torch.Tensor:
     shards (one all-gather a rank across processes), a replicated leaf
     counts once.  Rank by rank and shard by shard, so a process holding
     one shard computes what the stack does."""
+    if ep is not None:
+        from ..parallel.ep import is_expert
+
+        def sq(g):
+            return g.float().square().flatten(1).sum(1)
+
+        rep = sum(sq(g) for n, g in grads.items() if not is_expert(n))
+        experts = [g.chunk(len(ep.shards), 1) for n, g in grads.items()
+                   if is_expert(n)]
+        return ep.mean_shards(torch.stack([
+            torch.sqrt(rep + sum(sq(parts[i]) for parts in experts))
+            for i in range(len(ep.shards))]))
     if tp is None:
         return torch.sqrt(sum(g.float().square().flatten(1).sum(1)
                               for g in grads.values()))

@@ -22,13 +22,15 @@ OrbaxCheckpointManager`` with the reference's surface (``save``,
   processes, on a gloo group (the default group when it is gloo, as
   where the processes share one card, else one of its own).
   ``saves_global_state`` is then True.  With ``layout`` (the LM's
-  ``(gossip, seq, tp)`` processes, ``parallel/mesh.py::DpSpLayout``)
-  the CPU mesh is ``(dp, sp, tp)`` and a leaf is placed ``[Shard(0),
-  Replicate(), Shard(k)]`` when tp splits its dim ``k`` (the
-  ``[out, in]`` layout after the rank dim; the held-shard dim is
-  dropped), else ``[Shard(0), Replicate(), Replicate()]``: the ``sp``
-  (and ``tp``) identical copies of a replica's leaf are written once,
-  and a split leaf as its logical rows.  A process that destroys its
+  ``(gossip, ep, seq, tp)`` processes, ``parallel/mesh.py::DpSpLayout``)
+  the CPU mesh is ``(dp, ep, sp, tp)`` and a leaf is placed ``[Shard(0),
+  Replicate(), Replicate(), Shard(k)]`` when tp splits its dim ``k``
+  (the ``[out, in]`` layout after the rank dim; the held-shard dim is
+  dropped), ``[Shard(0), Shard(1), Replicate(), Replicate()]`` for an
+  expert stack (its expert dim over ep, ``parallel/ep.py``), else
+  ``[Shard(0), Replicate(), Replicate(), Replicate()]``: the identical
+  copies of a replica's leaf are written once, and a split leaf as its
+  logical rows.  A process that destroys its
   default group after such a save and makes a new one on the same port
   may reach the old group's store (seen with torch 2.13 on gloo): run
   one job a process, or keep one group across jobs.
@@ -156,10 +158,10 @@ class DcpCheckpointManager:
             else:
                 self._mesh = DeviceMesh(
                     "cpu", torch.arange(layout.world).reshape(
-                        layout.dp, layout.sp, layout.tp),
-                    mesh_dim_names=("dp", "sp", "tp"),
+                        layout.dp, layout.ep, layout.sp, layout.tp),
+                    mesh_dim_names=("dp", "ep", "sp", "tp"),
                     **({} if gloo else
-                       {"backend_override": (("gloo", None),) * 3}))
+                       {"backend_override": (("gloo", None),) * 4}))
             self._proc = dist.get_rank()
             root = f"{tag}dcp_global_n{world_size}"
             async_save = False
@@ -249,7 +251,7 @@ class DcpCheckpointManager:
     def _stage(self, state) -> dict:
         """Host copies of the state's tensors; under several processes
         each a DTensor of this process's rows (``Shard(0)``, or on the
-        ``(dp, sp, tp)`` mesh as the module docstring says)."""
+        ``(dp, ep, sp, tp)`` mesh as the module docstring says)."""
         def copy(t):
             return t.detach().to("cpu", copy=True).contiguous()
 
@@ -258,14 +260,20 @@ class DcpCheckpointManager:
             return tree
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
+        from ..parallel.ep import is_expert
+
         def place(key, t):
             d = self._split(key)
+            expert = self.layout is not None and self.layout.ep > 1 and (
+                is_expert(key))
             if self.layout is None:
                 places, shape = [Shard(0)], [t.shape[0] * self._mesh.size()]
             else:
-                # (dp, sp, tp): rows over dp, copies over sp, and over tp
-                # copies or the split dim's shards
-                places = [Shard(0), Replicate(),
+                # (dp, ep, sp, tp): rows over dp, over ep copies or the
+                # expert dim's shards, copies over sp, and over tp copies
+                # or the split dim's shards
+                places = [Shard(0), Shard(1) if expert else Replicate(),
+                          Replicate(),
                           Replicate() if d is None else Shard(d + 1)]
                 if d is not None:
                     t = t[:, 0]
@@ -273,6 +281,8 @@ class DcpCheckpointManager:
             shape += t.shape[1:]
             if d is not None:
                 shape[d + 1] *= self.layout.tp
+            if expert:
+                shape[1] *= self.layout.ep
             stride = [1] * len(shape)
             for i in range(len(shape) - 2, -1, -1):
                 stride[i] = stride[i + 1] * shape[i + 1]

@@ -5,7 +5,8 @@ rank each) printing the stacked lane's rows, the reference's flag
 surface (every flag of the JAX package's parser, with its default), and
 the refusal, by name, of every flag whose feature is not ported yet, and
 of the reference's ``--tp`` refusals (``--tp`` itself trains: its
-tests are ``tests/test_torch_tp*.py``).
+tests are ``tests/test_torch_tp*.py``; ``--moe_experts`` and ``--ep``
+train too: ``tests/test_torch_ep_lm.py``, ``test_torch_ep_dist.py``).
 Every run writes its CSV and checkpoints into a temporary
 ``--checkpoint_dir`` (the harness's own tests are
 ``tests/test_torch_lm_harness*.py``).
@@ -142,10 +143,14 @@ def test_reference_flags_parse_with_reference_defaults():
     ("--trace_dir", "/tmp/x"),
 ])
 def test_unported_flags_raise_naming_the_flag(flag, value, small):
-    # --tp is ported; the case keeps a refusal of the reference that names
-    # it: --tp with ring attention at --sp 1
+    # --tp, --ep and --moe_experts are ported; their cases keep a refusal
+    # that names the flag: --tp with ring attention at --sp 1 (the
+    # reference's), --ep without --moe_experts (the reference's), and
+    # --moe_experts under --tp (not ported yet)
     extra = {"--tp": ["--n_heads", "2", "--attn", "ring", "--world_size",
-                      "2"]}.get(flag, [])
+                      "2"],
+             "--moe_experts": ["--tp", "2", "--n_heads", "2",
+                               "--world_size", "2"]}.get(flag, [])
     with pytest.raises(SystemExit, match=flag):
         gossip_lm.main(small + [flag, value] + extra)
 

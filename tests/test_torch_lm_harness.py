@@ -2,7 +2,8 @@
 the CPU, with the kernels' plain twins, at 2 layers, d32, seq 32:
 
 * ``data/lm.py::load_corpus`` against the reference's, token for token
-  (``.npy``, one-array ``.npz``, a byte file) and error for error.
+  (``.npy``, one-array ``.npz``, a byte file) and error for error; the
+  synthetic corpus too, fresh and walked from a kept table.
 * ``train/lm.py::build_lm_eval_step`` against ``jax.jit`` of the
   reference's eval step under ``shard_lm_eval_step``, flat dp 2 and dp 2
   x sp 2 ring, fp32 and bf16, on parameters whose ps-weights are not 1
@@ -140,6 +141,27 @@ def test_load_corpus_refuses_as_the_reference(tmp_path, kind, suffix, vocab):
     with pytest.raises(ValueError) as got:
         tdata.load_corpus(str(path), vocab)
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("n,vocab,order,seed", [
+    (3000, 256, 2, 47), (500, 300, 1, 0), (1000, 64, 3, 5)])
+def test_synthetic_corpus_is_the_references_from_a_kept_table(n, vocab,
+                                                              order, seed):
+    """``synthetic_lm_corpus`` equals the reference's token for token, and
+    so does a walk from a kept ``markov_table`` and its generator's state
+    (``chip_smoke.py`` draws each table once this way)."""
+    from stochastic_gradient_push_tpu.data.lm import synthetic_lm_corpus
+
+    want = synthetic_lm_corpus(n, vocab_size=vocab, order=order, seed=seed)
+    assert np.array_equal(tdata.synthetic_lm_corpus(
+        n, vocab_size=vocab, order=order, seed=seed), want)
+    table, g = tdata.markov_table(vocab, order, seed)
+    state = g.bit_generator.state
+    for _ in range(2):
+        again = np.random.default_rng()
+        again.bit_generator.state = state
+        assert np.array_equal(tdata.markov_walk(table, again, n, vocab,
+                                                order), want)
 
 
 # -- the eval step against the reference ---------------------------------
