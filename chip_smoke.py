@@ -318,8 +318,8 @@
      under ``--ckpt_backend orbax`` (in the background), one epoch then
      resumed to two: one shared root, each process's restored rows equal
      to the rows it saved, rank 1's different from rank 0's.
-18. The sequence ring across processes: phase 11's LM (d768/L12, dp 2 x
-   sp 4, T4096 in 1024-token shards, B2 a replica, ``ring_flash``,
+18. The sequence ring across processes: phase 11's LM (d768, cut to 4
+   layers, dp 2 x sp 4, T4096 in 1024-token shards, B2 a replica, ``ring_flash``,
    remat, SGP on K2/K1, seed 0) through ``run/gossip_lm.py`` on a token
    file, in 8 processes under a torchrun environment sharing the card
    over gloo, process ``p`` holding shard ``p % 4`` of replica ``p //
@@ -345,16 +345,17 @@
      relative of the same command at ``--tp 1 --world_size 2``; 12 bf16
      K3, K4 and K5 launches a step a replica (one launch a layer for both
      shards' heads) and one K2 and K1 a step;
-   - 19b: the same command in 4 processes under a torchrun environment
-     (one tp shard each, gloo, the card shared; checkpoints forced
-     through the DCP backend), 3 steps, then resumed from their DCP save
-     to step 4: losses, grad norms, push-sum weight and the step-4
-     checkpoint (params, momentum) bit-equal to 19a's straight run; each
-     process's parameter, momentum and gossip bytes (79.4 M of 134.2 M
-     parameters, 59 %, predicted from the shapes), 12 bf16 K3-K5
+   - 19b: the same command cut to 4 layers in 4 processes under a
+     torchrun environment (one tp shard each, gloo, the card shared;
+     checkpoints forced through the DCP backend), 3 steps, then resumed
+     from their DCP save to step 4: losses, grad norms, push-sum weight
+     and the step-4 checkpoint (params, momentum) bit-equal to that
+     command's straight run stacked here; each process's parameter,
+     momentum and gossip bytes (predicted from the shapes), 4 bf16 K3-K5
      launches a step and one cross-process K2 and K1 a step;
    - 19c: dp 1 x sp 2 x tp 2 in 4 processes, ``ring_flash``, remat,
-     fp32, T4096 B2, 2 steps, beside the same command stacked here:
+     fp32, d768 cut to 4 layers, T4096 B2, 2 steps, beside the same
+     command stacked here:
      losses within 1e-5 and grad norms 1e-4 relative (the sequence
      axis's gradient mean runs in another order, phase 18), ps-weight
      exact; the fp32 K3-K5 launches summed over the processes tp times
@@ -374,16 +375,34 @@
      AllReduce step at dp 1 x ep 2, capacity factor 8, no MoE loss,
      within rtol 5e-4 / atol 1e-5 of ``p - lr · grad`` of the ep 1 model
      on both shards' tokens, every MoE leaf moved, nothing dropped;
-   - 20c: 20a's command in 4 processes under a torchrun environment (one
-     ep shard each, gloo, the card shared; checkpoints forced through
-     the DCP backend), 2 steps, then step 3 resumed from their DCP save:
-     losses within 2e-3 relative of 20a's replicas (a process sums its
+   - 20c: 20a's command cut to 4 layers in 4 processes under a torchrun
+     environment (one ep shard each, gloo, the card shared; checkpoints
+     forced through the DCP backend), 2 steps, then step 3 resumed from
+     their DCP save, beside that command stacked here: losses within
+     2e-3 relative of the stacked replicas' (a process sums its
      replicated gradients over the ep group, the stack takes one
      gradient of both shards' mean), ps-weight equal, the step-3
-     params' distance from 20a's printed; 12 bf16 K3-K5 launches and
+     params' distance printed; 4 bf16 K3-K5 launches and
      one cross-process K2 and K1 a step a process; the exchanges' count,
      bytes and host ms a step.
-21. A JSON line of per-kernel results (the fp32 flash rows also carry
+21. MoE under tensor parallelism and the expert meshes across processes
+   (``--moe_experts 8 --ep 2 --tp 2``, the experts split on their F dim):
+   - 21a: 20a's command at ``--tp 2 --world_size 8`` (dp 2 x ep 2 x tp
+     2) stacked, 3 steps on 20a's tokens: the same launches as 20a (a
+     replica's ep and tp shards fold into one flash launch a layer),
+     ``moe_dropped`` in [0, 1], losses within 2e-3 relative of 20a's
+     (the reference's ``test_moe_ep_with_tp_matches_ep_only``); the step
+     ms, the peak GB and one MoE FFN's device ms at tp 2 beside 20a's;
+   - 21b: dp 1 x ep 2 x sp 2 x tp 2 in 8 processes under a torchrun
+     environment (one ``(e, shard, t)`` each), bf16, ``ring_flash``, d768
+     cut to 4 layers (2 MoE blocks), T1024 B8 an ep shard, 2 steps, a
+     DCP save, then step 3 resumed from it, beside the same command
+     stacked here: losses and grad norms within 2e-3 relative,
+     ps-weight equal, the step-3 params' distance printed; each
+     process's ring ticks (shard ``s`` runs ``s + 1`` a layer), their
+     sum ep x tp times the stack's; process 0's ep exchanges, tp sums
+     and ring shifts a step (count, host ms, MB).
+22. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -5301,10 +5320,10 @@ def checkpoints_path(card: str) -> dict:
 # phase 11's shape (dp 2 x sp 4, T4096, 1024-token shards, B2 a replica)
 # in 8 processes sharing the card over gloo, one sequence shard each:
 # 18a fp32 for 2 steps (3 until phase 20 came), 18b bf16 for 2, each
-# beside the same command stacked in this process; 18c one ring shift of
-# a [2, 12, 1024, 64] fp32 block a shard, 10 times in every process at
-# once
-SEQ_DIST = dict(steps=2, bf16_steps=2, shifts=10)
+# beside the same command stacked in this process, at d768 cut to 4
+# layers (12 until phase 21 came); 18c one ring shift of a [2, 12, 1024,
+# 64] fp32 block a shard, 10 times in every process at once
+SEQ_DIST = dict(steps=2, bf16_steps=2, shifts=10, layers=4)
 
 # the child: joins one gloo group on the card, waits for the file
 # sys.argv[6] (the parent's stacked runs are done), runs each argv of
@@ -5341,13 +5360,15 @@ def set_matmul_flags() -> None:
 
 
 def _seq_dist_argv(ckpt: str, corpus: str, steps: int, *extra) -> list:
-    """Phase 11c's command (ring_flash, remat, K2/K1) on a token file."""
+    """Phase 11c's command (ring_flash, remat, K2/K1) on a token file, cut
+    to ``SEQ_DIST["layers"]``."""
     b, t = SEQ["batch"], SEQ["seq_len"]
     return ["--sp", str(SEQ["sp"]), "--attn", "ring_flash", "--remat",
             "True", "--gossip_kernel", "pallas", "--vocab_size", "32000",
-            "--d_model", "768", "--n_layers", "12", "--n_heads", "12",
-            "--d_ff", "3072", "--seq_len", str(t), "--batch_size", str(b),
-            "--num_steps", str(steps), "--print_freq", "1", "--seed", "0",
+            "--d_model", "768", "--n_layers", str(SEQ_DIST["layers"]),
+            "--n_heads", "12", "--d_ff", "3072", "--seq_len", str(t),
+            "--batch_size", str(b), "--num_steps", str(steps),
+            "--print_freq", "1", "--seed", "0",
             "--corpus_file", corpus, "--checkpoint_dir", ckpt, *extra]
 
 
@@ -5557,7 +5578,8 @@ def seq_dist_path(card: str) -> dict:
         raise
     print(f"seq 18: {world} processes (torchrun environment, gloo, the card "
           f"shared) = dp {dp} x sp {sp}, one {t // sp}-token shard each, d768 "
-          f"L12 T{t} B{b}/replica ring_flash remat K2/K1, beside the same "
+          f"L{SEQ_DIST['layers']} T{t} B{b}/replica ring_flash remat K2/K1, "
+          f"beside the same "
           f"command stacked here [{card}]", flush=True)
     with open(go, "w"):
         pass
@@ -5599,9 +5621,11 @@ def seq_dist_path(card: str) -> dict:
 
 # the flagship LM at --tp 2: 19a/19b dp 2 x tp 2, bf16, flash, SGP on
 # K2/K1, T1024 B8 a replica, 4 steps (19b: 3, saved, then resumed to 4);
-# 19c dp 1 x sp 2 x tp 2, fp32, ring_flash, remat, T4096 B2, 2 steps
+# 19c dp 1 x sp 2 x tp 2, fp32, ring_flash, remat, T4096 B2, 2 steps;
+# 19b and 19c at d768 cut to 4 layers (12 until phase 21 came), 19b beside
+# its command stacked at that depth
 TP = dict(tp=2, dp=2, seq_len=1024, batch=8, steps=4, c_seq_len=4096,
-          c_batch=2, c_steps=2, vocab=32000)
+          c_batch=2, c_steps=2, vocab=32000, bc_layers=4)
 
 # the child: joins one gloo group on the card, waits for the file
 # sys.argv[6] (the parent's stacked runs are done), then runs each command
@@ -5626,11 +5650,11 @@ torch.distributed.destroy_process_group()
 """
 
 
-def _tp_argv(ckpt: str, corpus: str, *extra) -> list:
+def _tp_argv(ckpt: str, corpus: str, *extra, layers: int = 12) -> list:
     """19a's command (bf16, flash, SGP on K2/K1) on a token file."""
     return ["--tp", str(TP["tp"]), "--precision", "bf16", "--attn", "flash",
             "--gossip_kernel", "pallas", "--vocab_size", str(TP["vocab"]),
-            "--d_model", "768", "--n_layers", "12", "--n_heads", "12",
+            "--d_model", "768", "--n_layers", str(layers), "--n_heads", "12",
             "--d_ff", "3072", "--seq_len", str(TP["seq_len"]),
             "--batch_size", str(TP["batch"]), "--num_steps",
             str(TP["steps"]), "--print_freq", "1", "--seed", "0",
@@ -5641,7 +5665,7 @@ def _tp3_argv(ckpt: str, corpus: str, *extra) -> list:
     """19c's command: dp 1 x sp 2 x tp 2, fp32, ring_flash, remat."""
     return ["--tp", str(TP["tp"]), "--sp", "2", "--attn", "ring_flash",
             "--remat", "True", "--vocab_size", str(TP["vocab"]),
-            "--d_model", "768", "--n_layers", "12",
+            "--d_model", "768", "--n_layers", str(TP["bc_layers"]),
             "--n_heads", "12", "--d_ff", "3072", "--seq_len",
             str(TP["c_seq_len"]), "--batch_size", str(TP["c_batch"]),
             "--num_steps", str(TP["c_steps"]), "--print_freq", "1",
@@ -5652,9 +5676,10 @@ def _tp3_argv(ckpt: str, corpus: str, *extra) -> list:
 def lm_run(argv) -> dict:
     """``run/gossip_lm.py`` in this process with every counter zeroed
     just before and its steps watched: each step's losses and grad norms
-    (one a held replica), its synchronised host time, the tp sums' count
-    and host seconds, the ep exchanges' count, host seconds and bytes
-    and the dropped fraction (a MoE model), the last push-sum weights,
+    (one a held replica), its synchronised host time, the count, host
+    seconds and bytes of the tp sums, the ep exchanges and the ring
+    shifts across processes, the dropped fraction (a MoE model), the
+    last push-sum weights,
     the launches, the bytes of the state held here, and the CSV rows
     (``tokens_per_sec`` left out)."""
     import contextlib
@@ -5673,29 +5698,35 @@ def lm_run(argv) -> dict:
                 "gossip_edge_wait_ipc": _Counter(gk.gossip_edge_wait,
                                                  "launches_ipc")}
     got = {"loss": [], "grad_norm": [], "step_s": [], "sums": [],
-           "sums_s": [], "ex": [], "ex_s": [], "ex_bytes": [],
+           "sums_s": [], "sums_bytes": [], "ex": [], "ex_s": [],
+           "ex_bytes": [], "sh": [], "sh_s": [], "sh_bytes": [],
            "moe_dropped": []}
     build = lm.build_lm_train_step
+    # each axis's counters: (count, host seconds, bytes) attributes
+    meters = {"sums": ("tp", "reductions", "reduce_s", "reduce_bytes"),
+              "ex": ("ep", "exchanges", "exchange_s", "exchange_bytes"),
+              "sh": ("seq", "shifts", "shift_s", "shift_bytes")}
 
     def watched(*a, **k):
-        step, tp, ep = build(*a, **k), k.get("tp"), k.get("ep")
+        step = build(*a, **k)
+        axes = {key: k.get(axis) for key, (axis, *_) in meters.items()
+                if hasattr(k.get(axis), meters[key][1])}
+
+        def read():
+            return {key: [getattr(ax, n) for n in meters[key][1:]]
+                    for key, ax in axes.items()}
 
         def run(state, toks, tgts):
-            n0, s0 = (tp.reductions, tp.reduce_s) if tp else (0, 0.0)
-            e0 = ((ep.exchanges, ep.exchange_s, ep.exchange_bytes) if ep
-                  else (0, 0.0, 0))
+            before = read()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, m = step(state, toks, tgts)
             torch.cuda.synchronize()
             got["step_s"].append(time.perf_counter() - t0)
-            if tp is not None:
-                got["sums"].append(tp.reductions - n0)
-                got["sums_s"].append(tp.reduce_s - s0)
-            if ep is not None:
-                got["ex"].append(ep.exchanges - e0[0])
-                got["ex_s"].append(ep.exchange_s - e0[1])
-                got["ex_bytes"].append(ep.exchange_bytes - e0[2])
+            for key, now in read().items():
+                for suffix, a, b in zip(("", "_s", "_bytes"), now,
+                                        before[key]):
+                    got[key + suffix].append(a - b)
             if "moe_dropped" in m:
                 got["moe_dropped"].append(m["moe_dropped"].tolist())
             got["loss"].append(m["loss"].tolist())
@@ -5741,13 +5772,16 @@ def lm_run(argv) -> dict:
     return got
 
 
-def _tp_predicted() -> tuple[int, int]:
+def _tp_predicted(layers: int) -> tuple[int, int]:
     """The parameters a tp shard holds and a replica's, from the shapes:
     ``(split leaves / tp + replicated leaves, all)``."""
+    import dataclasses
+
     from stochastic_gradient_push_torch.parallel.tp import split_dim
     from stochastic_gradient_push_torch.train.lm import logical_shapes
 
-    shapes = logical_shapes(_lm_config())
+    shapes = logical_shapes(dataclasses.replace(_lm_config(),
+                                                n_layers=layers))
     whole = sum(math.prod(s) for s in shapes.values())
     held = sum(math.prod(s) // (TP["tp"] if split_dim(n) is not None else 1)
                for n, s in shapes.items())
@@ -5801,8 +5835,8 @@ def _tp_rel(a, b) -> float:
 
 def tp_path(card: str) -> dict:
     """Phase 19: the LM at --tp 2, stacked (19a) and one tp shard a
-    process (19b), and the 3-D mesh in processes (19c), each beside its
-    stacked oracle.  Returns the main path's launches (19a's tp run, the
+    process at a cut depth (19b), and the 3-D mesh in processes (19c),
+    each beside its stacked oracle.  Returns the main path's launches (19a's tp run, the
     processes' runs)."""
     import numpy as np
     import torch
@@ -5820,11 +5854,13 @@ def tp_path(card: str) -> dict:
         + 1).astype(np.int32))
     root = f"lm_dcp_global_n{world}"
     dist_b = os.path.join(tmp, "dist_b")
+    cut = TP["bc_layers"]
     # 19b: steps - 1 steps and their DCP save, then the run resumed from
     # it to step ``steps``
     jobs = [
-        ("RUN_b", _tp_argv(dist_b, corpus, "--num_steps", str(steps - 1))),
-        ("RUN_r", _tp_argv(dist_b, corpus, "--resume", "True")),
+        ("RUN_b", _tp_argv(dist_b, corpus, "--num_steps", str(steps - 1),
+                           layers=cut)),
+        ("RUN_r", _tp_argv(dist_b, corpus, "--resume", "True", layers=cut)),
         ("RUN_c", _tp3_argv(os.path.join(tmp, "dist_c"), corpus3))]
     # the processes start (imports, the group) while the stacked runs go,
     # and wait for the go file before any work on the card
@@ -5832,11 +5868,16 @@ def tp_path(card: str) -> dict:
     procs = _ranks(_P19_CHILD, world, [json.dumps(jobs), go],
                    _torchrun_env(world))
     try:
-        # the DCP backend in one process too: its step-4 checkpoint holds
-        # the logical leaves the processes' global one does
         a = lm_run(_tp_argv(os.path.join(tmp, "stacked_a"), corpus,
-                            "--world_size", str(world), "--ckpt_backend",
-                            "orbax"))
+                            "--world_size", str(world)))
+        shutil.rmtree(os.path.join(tmp, "stacked_a"))
+        torch.cuda.empty_cache()
+        # 19b's oracle, the DCP backend in one process too: its step-4
+        # checkpoint holds the logical leaves the processes' global one
+        # does
+        sb = lm_run(_tp_argv(os.path.join(tmp, "stacked_b"), corpus,
+                             "--world_size", str(world), "--ckpt_backend",
+                             "orbax", layers=cut))
         torch.cuda.empty_cache()
         one = lm_run(_tp_argv(os.path.join(tmp, "tp1"), corpus,
                               "--world_size", str(dp), "--tp", "1"))
@@ -5877,55 +5918,58 @@ def tp_path(card: str) -> dict:
 
     # 19b: every process bit-equal to its stacked replica and shard, the
     # resumed step included
-    held, whole = _tp_predicted()
+    held, whole = _tp_predicted(cut)
     for p, (run, resumed) in enumerate(zip(runs["b"], runs["r"])):
         replica = p // tp
         for key in ("loss", "grad_norm"):
             mine = [x[0] for x in run[key] + resumed[key]]
-            want = [x[replica] for x in a[key]]
+            want = [x[replica] for x in sb[key]]
             if mine != want:
                 raise AssertionError(f"tp 19b process {p}: {key} {mine}, "
                                      f"the stacked replica's {want}")
-        if resumed["ps_weight"] != a["ps_weight"][replica:replica + 1]:
+        if resumed["ps_weight"] != sb["ps_weight"][replica:replica + 1]:
             raise AssertionError(f"tp 19b process {p}: ps-weight "
-                                 f"{resumed['ps_weight']}, {a['ps_weight']}")
+                                 f"{resumed['ps_weight']}, {sb['ps_weight']}")
         if run["numel"] != held or run["bytes"]["params"] != 4 * held:
             raise AssertionError(f"tp 19b process {p}: {run['numel']} "
                                  f"parameters held, predicted {held}")
         if not run["forced"] and p == 0:
             raise AssertionError("tp 19b: the DCP backend was not forced")
         _tp_launch_check(f"19b process {p}", run, {
-            f"{n}_bf16": layers * (steps - 1) for n in FLASH}, steps - 1,
+            f"{n}_bf16": cut * (steps - 1) for n in FLASH}, steps - 1,
             ipc=True)
         _tp_launch_check(f"19b resume process {p}", resumed, {
-            f"{n}_bf16": layers for n in FLASH}, 1, ipc=True)
+            f"{n}_bf16": cut for n in FLASH}, 1, ipc=True)
     exact, diff = _tp_equal(
-        _dcp_tensors(os.path.join(tmp, "stacked_a", f"lm_dcp_r0_n{world}",
+        _dcp_tensors(os.path.join(tmp, "stacked_b", f"lm_dcp_r0_n{world}",
                                   str(steps))),
         _dcp_tensors(os.path.join(dist_b, root, str(steps))))
     if not exact:
         raise AssertionError(f"tp 19b: resumed from step {steps - 1}, the "
                              f"processes' step-{steps} checkpoint is not the "
                              f"stacked run's (params {diff:.3e} apart)")
+    b_ms = float(np.median(sb["step_s"][1:])) * 1e3
     bts = runs["b"][0]["bytes"]
     step_ms = [float(np.median(r["step_s"][1:])) * 1e3 for r in runs["b"]]
     sums_ms = [float(np.median(r["sums_s"][1:])) * 1e3 for r in runs["b"]]
     print(f"tp 19b: {world} processes (torchrun environment, gloo, the card "
-          f"shared) = dp {dp} x tp {tp}, one tp shard each, 19a's command, "
-          f"{steps - 1} steps and then resumed from their DCP save to step "
-          f"{steps}: losses, grad norms, ps-weight and the step-{steps} "
-          f"checkpoint (params, momentum) bit-equal to 19a's straight run; "
+          f"shared) = dp {dp} x tp {tp}, one tp shard each, 19a's command at "
+          f"L{cut}, {steps - 1} steps and then resumed from their DCP save "
+          f"to step {steps}: losses, grad norms, ps-weight and the "
+          f"step-{steps} checkpoint (params, momentum) bit-equal to the same "
+          f"command's straight run stacked; "
           f"held a process {held / 1e6:.1f} M of {whole / 1e6:.1f} M "
           f"parameters ({held / whole:.1%}): params "
           f"{bts['params'] / 1e6:.1f} MB, momentum "
           f"{bts['momentum'] / 1e6:.1f} MB, gossip {bts['gossip'] / 1e6:.1f} "
           f"MB a round; step ms {min(step_ms):.1f}-{max(step_ms):.1f} over "
-          f"the processes (stacked 19a {np.median(a['step_s'][1:]) * 1e3:.1f}"
-          f"); tp sums a step {runs['b'][0]['sums'][-1]}, host ms a step "
+          f"the processes (stacked {b_ms:.1f}); tp sums a step "
+          f"{runs['b'][0]['sums'][-1]}, host ms a step "
           f"{min(sums_ms):.1f}-{max(sums_ms):.1f}; seconds in main: the run "
           f"{max(r['wall_s'] for r in runs['b']):.1f}, the resume "
-          f"{max(r['wall_s'] for r in runs['r']):.1f}, 19a "
-          f"{a['wall_s']:.1f}, tp 1 {one['wall_s']:.1f} [{card}]", flush=True)
+          f"{max(r['wall_s'] for r in runs['r']):.1f}, stacked "
+          f"{sb['wall_s']:.1f}, 19a {a['wall_s']:.1f}, tp 1 "
+          f"{one['wall_s']:.1f} [{card}]", flush=True)
 
     # 19c: the 3-D mesh against its stacked run
     loss_rel = grad_rel = 0.0
@@ -5943,7 +5987,8 @@ def tp_path(card: str) -> dict:
     _tp_sum_check(runs["c"], c, tp)
     c_ms = [float(np.median(r["step_s"])) * 1e3 for r in runs["c"]]
     print(f"tp 19c: {world} processes = dp 1 x sp 2 x tp 2, ring_flash remat "
-          f"fp32 T{TP['c_seq_len']} B{TP['c_batch']}, {TP['c_steps']} steps "
+          f"fp32 d768 L{cut} T{TP['c_seq_len']} B{TP['c_batch']}, "
+          f"{TP['c_steps']} steps "
           f"beside the same command stacked: {'bit-equal' if bit else 'not bit-equal'}; "
           f"largest relative loss difference {loss_rel:.3e}, grad norm "
           f"{grad_rel:.3e}; step ms {min(c_ms):.1f}-{max(c_ms):.1f}, stacked "
@@ -5968,10 +6013,11 @@ def tp_path(card: str) -> dict:
 # examples/bench_lm_tpu.py:202 run: d768 L12 h12 T1024 B8, bf16, flash,
 # capacity factor 1.25) at --ep 2: 20a dp 2 x ep 2 stacked, SGP on K2/K1,
 # 3 steps; 20b the /n_ep oracle at dp 1 x ep 2, fp32, capacity factor 8;
-# 20c 20a's command in 4 processes, 2 steps, a DCP save, the third step
-# resumed from it
+# 20c 20a's command cut to 4 layers (12 until phase 21 came) in 4
+# processes, 2 steps, a DCP save, the third step resumed from it, beside
+# that command stacked
 EP = dict(ep=2, dp=2, experts=8, every=2, seq_len=1024, batch=8, steps=3,
-          vocab=32000)
+          vocab=32000, c_layers=4)
 # the reference test's tolerance for the oracle
 # (tests/test_expert_parallel_lm.py::test_ep_train_step_matches_full_
 # expert_model)
@@ -5980,12 +6026,12 @@ TOL_EP_RTOL, TOL_EP_ATOL = 5e-4, 1e-5
 _P20_CHILD = _P19_CHILD.replace("phase 19's", "phase 20's")
 
 
-def _ep_argv(ckpt: str, corpus: str, *extra) -> list:
+def _ep_argv(ckpt: str, corpus: str, *extra, layers: int = 12) -> list:
     """20a's command (bf16, flash, SGP on K2/K1) on a token file."""
     return ["--moe_experts", str(EP["experts"]), "--moe_every",
             str(EP["every"]), "--ep", str(EP["ep"]), "--precision", "bf16",
             "--attn", "flash", "--gossip_kernel", "pallas", "--vocab_size",
-            str(EP["vocab"]), "--d_model", "768", "--n_layers", "12",
+            str(EP["vocab"]), "--d_model", "768", "--n_layers", str(layers),
             "--n_heads", "12", "--d_ff", "3072", "--seq_len",
             str(EP["seq_len"]), "--batch_size", str(EP["batch"]),
             "--num_steps", str(EP["steps"]), "--print_freq", "1", "--seed",
@@ -6073,27 +6119,35 @@ def ep_oracle(cfg, device, batch: int, seq_len: int, seed: int = 0):
     return worst, moved, float(m["moe_dropped"][0])
 
 
-def _ep_layer_ms(cfg) -> tuple[float, float]:
+def _ep_layer_ms(cfg, tp: int = 1) -> tuple[float, float]:
     """Device ms, forward and backward, of one MoE block's FFN (the
-    stacked exchange over both ep shards, fp32 as the model runs it) and
-    of one layer's bf16 flash attention, alone at 20a's shapes a replica
-    (CUDA events, 10 runs after 3): ``(moe_ms, attention_ms)``."""
+    stacked exchange over both ep shards, fp32 as the model runs it; at
+    ``tp`` > 1 each expert split on its F dim over ``tp`` stacked
+    shards, their outputs folded) and of one layer's bf16 flash
+    attention, alone at 20a's shapes a replica (CUDA events, 10 runs
+    after 3): ``(moe_ms, attention_ms)``."""
     import torch
 
     from stochastic_gradient_push_torch.models.moe import switch_moe_ffn
     from stochastic_gradient_push_torch.ops.flash_attention import (
         flash_attention)
     from stochastic_gradient_push_torch.parallel.ep import StackedEp
+    from stochastic_gradient_push_torch.parallel.tp import (
+        StackedTp, shard_params)
 
     ep, b, t, d = EP["ep"], EP["batch"], EP["seq_len"], cfg.d_model
     p = _ep_params(cfg, "cuda", 5)
-    w = [p[f"block_1.moe.{k}"].requires_grad_(True)
-         for k in ("router", "experts_up", "experts_down")]
+    names = [f"block_1.moe.{k}" for k in ("router", "experts_up",
+                                          "experts_down")]
+    if tp > 1:
+        p = {n: q[0] for n, q in shard_params(
+            {n: p[n][None] for n in names}, tp).items()}
+    w = [p[n].requires_grad_(True) for n in names]
     x = torch.randn(ep, b * t, d, device="cuda", requires_grad=True)
-    ax = StackedEp(ep)
+    ax, tx = StackedEp(ep), StackedTp(tp) if tp > 1 else None
 
     def moe():
-        y, aux = switch_moe_ffn(x, *w, ep=ax)
+        y, aux = switch_moe_ffn(x, *w, ep=ax, tp=tx)
         (y.square().mean() + aux["load_balance_loss"].sum()).backward()
 
     q, k, v = (torch.randn(ep * b, cfg.n_heads, t, cfg.head_dim,
@@ -6107,11 +6161,12 @@ def _ep_layer_ms(cfg) -> tuple[float, float]:
     return _time_ms(moe, 10), _time_ms(attn, 10)
 
 
-def ep_path(card: str) -> dict:
+def ep_path(card: str) -> tuple[dict, dict]:
     """Phase 20: the MoE LM at --ep 2 stacked (20a), the /n_ep oracle on
-    the card (20b), and one ep shard a process through a DCP resume (20c)
-    beside 20a.  Returns the main path's launches (20a's run, 20c's
-    processes)."""
+    the card (20b), and one ep shard a process at a cut depth through a
+    DCP resume (20c) beside its command stacked.  Returns the main path's launches (20a's run, 20c's
+    processes) and 20a's run with its peak GB and MoE FFN ms alone
+    (phase 21's baseline)."""
     import dataclasses
 
     import numpy as np
@@ -6125,11 +6180,13 @@ def ep_path(card: str) -> dict:
     np.save(corpus, np.random.default_rng(0).integers(
         0, EP["vocab"], world * b * t * steps + 1).astype(np.int32))
     dist_c = os.path.join(tmp, "dist_c")
+    cut = EP["c_layers"]
     # 20c: steps - 1 steps and their DCP save, then the run resumed from
     # it to step ``steps``
     jobs = [("RUN_c", _ep_argv(dist_c, corpus, "--num_steps",
-                               str(steps - 1))),
-            ("RUN_r", _ep_argv(dist_c, corpus, "--resume", "True"))]
+                               str(steps - 1), layers=cut)),
+            ("RUN_r", _ep_argv(dist_c, corpus, "--resume", "True",
+                               layers=cut))]
     cfg = _lm_config("flash", moe_experts=EP["experts"],
                      moe_every=EP["every"], ep=ep)
     # timed alone on the card, before the processes start
@@ -6141,9 +6198,14 @@ def ep_path(card: str) -> dict:
     try:
         torch.cuda.reset_peak_memory_stats()
         a = lm_run(_ep_argv(os.path.join(tmp, "stacked_a"), corpus,
-                            "--world_size", str(world), "--ckpt_backend",
-                            "orbax"))
+                            "--world_size", str(world)))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        shutil.rmtree(os.path.join(tmp, "stacked_a"))
+        torch.cuda.empty_cache()
+        # 20c's oracle, the DCP backend in one process too
+        sc = lm_run(_ep_argv(os.path.join(tmp, "stacked_c"), corpus,
+                             "--world_size", str(world), "--ckpt_backend",
+                             "orbax", layers=cut))
         torch.cuda.empty_cache()
         t_b = time.perf_counter()
         worst, moved, dropped = ep_oracle(
@@ -6215,31 +6277,32 @@ def ep_path(card: str) -> dict:
         mine = {k: [x[0] for x in run[k] + resumed[k]]
                 for k in ("loss", "grad_norm")}
         loss_rel = max(loss_rel, _tp_rel(mine["loss"],
-                                         [x[replica] for x in a["loss"]]))
+                                         [x[replica] for x in sc["loss"]]))
         grad_rel = max(grad_rel, _tp_rel(mine["grad_norm"], [
-            x[replica] for x in a["grad_norm"]]))
-        if resumed["ps_weight"] != a["ps_weight"][replica:replica + 1]:
+            x[replica] for x in sc["grad_norm"]]))
+        if resumed["ps_weight"] != sc["ps_weight"][replica:replica + 1]:
             raise AssertionError(f"ep 20c process {p}: ps-weight "
-                                 f"{resumed['ps_weight']}, {a['ps_weight']}")
+                                 f"{resumed['ps_weight']}, {sc['ps_weight']}")
         if not run["forced"] and p == 0:
             raise AssertionError("ep 20c: the DCP backend was not forced")
         _tp_launch_check(f"20c process {p}", run, {
-            f"{n}_bf16": layers * (steps - 1) for n in FLASH}, steps - 1,
+            f"{n}_bf16": cut * (steps - 1) for n in FLASH}, steps - 1,
             ipc=True)
         _tp_launch_check(f"20c resume process {p}", resumed, {
-            f"{n}_bf16": layers for n in FLASH}, 1, ipc=True)
+            f"{n}_bf16": cut for n in FLASH}, 1, ipc=True)
     root = f"lm_dcp_global_n{world}"
     _, diff = _tp_equal(
-        _dcp_tensors(os.path.join(tmp, "stacked_a", f"lm_dcp_r0_n{world}",
+        _dcp_tensors(os.path.join(tmp, "stacked_c", f"lm_dcp_r0_n{world}",
                                   str(steps))),
         _dcp_tensors(os.path.join(dist_c, root, str(steps))))
     c0 = runs["c"][0]
     ex_ms = [float(np.median(r["ex_s"])) * 1e3 for r in runs["c"]]
     c_ms = [float(np.median(r["step_s"])) * 1e3 for r in runs["c"]]
     print(f"ep 20c: {world} processes (torchrun environment, gloo, the card "
-          f"shared) = dp {dp} x ep {ep}, one ep shard each, 20a's command, "
-          f"{steps - 1} steps, a DCP save, then step {steps} resumed from "
-          f"it: against 20a's stacked replica losses {loss_rel:.3e} and grad "
+          f"shared) = dp {dp} x ep {ep}, one ep shard each, 20a's command at "
+          f"L{cut}, {steps - 1} steps, a DCP save, then step {steps} resumed "
+          f"from it: against the same command's stacked replica losses "
+          f"{loss_rel:.3e} and grad "
           f"norms {grad_rel:.3e} apart (largest relative), the step-{steps} "
           f"params {diff:.3e} apart (largest absolute), ps-weight equal (a "
           f"process takes its own shard's gradient and sums the replicated "
@@ -6251,10 +6314,10 @@ def ep_path(card: str) -> dict:
           f"ms a step ({min(ex_ms) / c0['ex'][-1]:.1f}-"
           f"{max(ex_ms) / c0['ex'][-1]:.1f} an exchange); step ms "
           f"{min(c_ms):.1f}-{max(c_ms):.1f} over the processes (stacked "
-          f"{step_ms:.1f}); seconds in main: the run "
-          f"{max(r['wall_s'] for r in runs['c']):.1f}, the resume "
-          f"{max(r['wall_s'] for r in runs['r']):.1f}, 20a "
-          f"{a['wall_s']:.1f} [{card}]", flush=True)
+          f"{float(np.median(sc['step_s'][1:])) * 1e3:.1f}); seconds in "
+          f"main: the run {max(r['wall_s'] for r in runs['c']):.1f}, the "
+          f"resume {max(r['wall_s'] for r in runs['r']):.1f}, stacked "
+          f"{sc['wall_s']:.1f}, 20a {a['wall_s']:.1f} [{card}]", flush=True)
     if loss_rel > TOL_HARNESS_LOSS_REL or not np.isfinite(diff):
         raise AssertionError(f"ep 20c: losses {loss_rel} from the stacked "
                              f"run's (over {TOL_HARNESS_LOSS_REL})")
@@ -6264,6 +6327,204 @@ def ep_path(card: str) -> dict:
             launches[k] = launches.get(k, 0) + v
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"ep: phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, dict(a, peak_gb=peak_gb, moe_ms=moe_ms)
+
+# -- phase 21: MoE under tensor parallelism, the expert meshes across ------
+# -- processes ---------------------------------------------------------------
+
+# 21a: 20a's command at --tp 2 (dp 2 x ep 2 x tp 2, world 8 stacked: the
+# experts split on their F dim), 3 steps on 20a's tokens, beside 20a (the
+# reference's test_moe_ep_with_tp_matches_ep_only on the card); 21b: dp 1 x
+# ep 2 x sp 2 x tp 2 in 8 torchrun processes (the reference's
+# test_moe_ep_sp_tp_4d_trains layout), bf16, ring_flash, full width cut to
+# 4 layers (2 MoE blocks), T1024 B8 an ep shard, 2 steps, a DCP save, the
+# third step resumed from it, beside the same command stacked
+EPTP = dict(tp=2, sp=2, b_layers=4, b_steps=3)
+
+_P21_CHILD = _P19_CHILD.replace("phase 19's", "phase 21's")
+
+
+def _eptp_argv(ckpt: str, corpus: str, *extra) -> list:
+    """21b's command: the 4-D mesh at d768, cut to ``b_layers``."""
+    return ["--moe_experts", str(EP["experts"]), "--moe_every",
+            str(EP["every"]), "--ep", str(EP["ep"]), "--sp",
+            str(EPTP["sp"]), "--tp", str(EPTP["tp"]), "--precision",
+            "bf16", "--attn", "ring_flash", "--vocab_size", str(EP["vocab"]),
+            "--d_model", "768", "--n_layers", str(EPTP["b_layers"]),
+            "--n_heads", "12", "--d_ff", "3072", "--seq_len",
+            str(EP["seq_len"]), "--batch_size", str(EP["batch"]),
+            "--num_steps", str(EPTP["b_steps"]), "--print_freq", "1",
+            "--seed", "0", "--corpus_file", corpus, "--checkpoint_dir", ckpt,
+            *extra]
+
+
+def _per_step(run: dict, key: str) -> str:
+    """A run's ``key`` meter a step: count, host ms and MB."""
+    return ", ".join(
+        f"{n} in {ms * 1e3:.1f} ms, {mb / 1e6:.1f} MB"
+        for n, ms, mb in zip(run[key], run[key + "_s"], run[key + "_bytes"]))
+
+
+def tp_ep_path(card: str, ep20: dict) -> dict:
+    """Phase 21: 20a's MoE LM at --tp 2 stacked beside 20a (21a), and
+    the (gossip, ep, seq, tp) mesh one shard a process through a DCP
+    resume beside the same command stacked (21b).  Returns the main
+    path's launches (21a's run, 21b's processes)."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.parallel.mesh import (
+        make_dp_sp_layout)
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="eptp21_",
+                           dir=os.path.join(ROOT, "build"))
+    dp, ep, tp, sp = EP["dp"], EP["ep"], EPTP["tp"], EPTP["sp"]
+    b, t, steps = EP["batch"], EP["seq_len"], EP["steps"]
+    world = dp * ep * tp
+    # 20a's tokens (the same draw), and 21b's: dp 1 x ep 2 rows a step
+    corpus = os.path.join(tmp, "tokens.npy")
+    np.save(corpus, np.random.default_rng(0).integers(
+        0, EP["vocab"], dp * ep * b * t * steps + 1).astype(np.int32))
+    corpus_b = os.path.join(tmp, "tokens_b.npy")
+    b_steps, b_world = EPTP["b_steps"], ep * sp * tp
+    np.save(corpus_b, np.random.default_rng(2).integers(
+        0, EP["vocab"], ep * b * t * b_steps + 1).astype(np.int32))
+    dist_b = os.path.join(tmp, "dist_b")
+    jobs = [("RUN_b", _eptp_argv(dist_b, corpus_b, "--num_steps",
+                                 str(b_steps - 1))),
+            ("RUN_r", _eptp_argv(dist_b, corpus_b, "--resume", "True"))]
+    cfg = _lm_config("flash", moe_experts=EP["experts"],
+                     moe_every=EP["every"], ep=ep)
+    # timed alone on the card, before the processes start
+    moe_ms, _ = _ep_layer_ms(cfg, tp)
+    torch.cuda.empty_cache()
+    go = os.path.join(tmp, "go")
+    procs = _ranks(_P21_CHILD, b_world, [json.dumps(jobs), go],
+                   _torchrun_env(b_world))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        a = lm_run(_ep_argv(os.path.join(tmp, "stacked_a"), corpus,
+                            "--tp", str(tp), "--world_size", str(world)))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        shutil.rmtree(os.path.join(tmp, "stacked_a"))
+        torch.cuda.empty_cache()
+        s = lm_run(_eptp_argv(os.path.join(tmp, "stacked_b"), corpus_b,
+                              "--world_size", str(b_world),
+                              "--ckpt_backend", "orbax"))
+        torch.cuda.empty_cache()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    with open(go, "w"):
+        pass
+    logs = _join("21", procs)
+    runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
+            for lab in "br"}
+
+    # 21a: launches (a replica's ep and tp shards fold into one flash
+    # launch a layer), the dropped fraction, the distance from 20a
+    layers, moe_blocks = 12, 12 // EP["every"]
+    _tp_launch_check("21a", a, {f"{n}_bf16": dp * layers * steps
+                                for n in FLASH}, steps, ipc=False)
+    csv_dropped = [float(r[-1]) for r in a["rows"]]
+    if len(csv_dropped) != steps or not all(0 <= x <= 1
+                                            for x in csv_dropped):
+        raise AssertionError(f"eptp 21a: moe_dropped in the CSV "
+                             f"{csv_dropped}")
+    rel = _tp_rel(a["loss"], ep20["loss"])
+    drop_diff = float(np.max(np.abs(np.asarray(a["moe_dropped"])
+                                    - np.asarray(ep20["moe_dropped"]))))
+    step_ms = float(np.median(a["step_s"][1:])) * 1e3
+    step20 = float(np.median(ep20["step_s"][1:])) * 1e3
+    print(f"eptp 21a: world {world} = dp {dp} x ep {ep} x tp {tp} stacked, "
+          f"20a's command (d768 L12 T{t} B{b}/ep shard bf16 flash SGP K2/K1, "
+          f"{EP['experts']} experts on {moe_blocks} blocks), {steps} steps "
+          f"on 20a's tokens: losses {[round(x[0], 4) for x in a['loss']]}, "
+          f"largest relative difference from 20a (--tp 1) {rel:.3e}, "
+          f"moe_dropped (CSV) {csv_dropped}, largest difference from 20a's "
+          f"{drop_diff:.3e}; step ms (synchronised, median of steps "
+          f"2-{steps}) {step_ms:.1f} (20a {step20:.1f}); peak {peak_gb:.2f} "
+          f"GB (20a {ep20['peak_gb']:.2f}); a MoE FFN alone, forward + "
+          f"backward (CUDA events, both ep shards) {moe_ms:.3f} ms at tp "
+          f"{tp} (20a {ep20['moe_ms']:.3f}); tp sums a step "
+          f"{a['sums'][-1]} in {np.median(a['sums_s']) * 1e3:.2f} host ms; "
+          f"bf16 K3/K4/K5 {a['launches']['flash_fwd_bf16']} each, K2/K1 "
+          f"{a['launches']['gossip_edge_start']} [{card}]", flush=True)
+    if not np.isfinite(a["loss"]).all() or rel > TOL_HARNESS_LOSS_REL:
+        raise AssertionError(f"eptp 21a: losses {a['loss']} vs 20a "
+                             f"{ep20['loss']}: {rel} over "
+                             f"{TOL_HARNESS_LOSS_REL}")
+
+    # 21b: each process against the stacked run, through the resume
+    layout = make_dp_sp_layout(b_world, sp, tp, ep)
+    b_layers = EPTP["b_layers"]
+    loss_rel = grad_rel = 0.0
+    for p, (run, resumed) in enumerate(zip(runs["b"], runs["r"])):
+        _, e, shard, _ = layout.grid(p)
+        mine = {k: [x[0] for x in run[k] + resumed[k]]
+                for k in ("loss", "grad_norm")}
+        loss_rel = max(loss_rel, _tp_rel(mine["loss"],
+                                         [x[0] for x in s["loss"]]))
+        grad_rel = max(grad_rel, _tp_rel(mine["grad_norm"],
+                                         [x[0] for x in s["grad_norm"]]))
+        if resumed["ps_weight"] != s["ps_weight"]:
+            raise AssertionError(f"eptp 21b process {p}: ps-weight "
+                                 f"{resumed['ps_weight']}, {s['ps_weight']}")
+        if not run["forced"] and p == 0:
+            raise AssertionError("eptp 21b: the DCP backend was not forced")
+        # a causal ring of 2: shard 0 runs its diagonal tick, shard 1 its
+        # diagonal and the full one
+        ticks = b_layers * (shard + 1)
+        for lab, r, n in (("", run, b_steps - 1), (" resume", resumed, 1)):
+            _tp_launch_check(f"21b{lab} process {p}", r, {
+                f"{k}_bf16": ticks * n for k in FLASH}, 0, ipc=False)
+    summed = {k: sum(r["launches"][f"{k}_bf16"]
+                     for r in runs["b"] + runs["r"]) for k in FLASH}
+    want = {k: ep * tp * s["launches"][f"{k}_bf16"] for k in FLASH}
+    if summed != want:
+        raise AssertionError(f"eptp 21b: bf16 flash launches over the "
+                             f"processes {summed}, expected ep x tp x the "
+                             f"stack's {want}")
+    root = f"lm_dcp_global_n{b_world}"
+    _, diff = _tp_equal(
+        _dcp_tensors(os.path.join(tmp, "stacked_b",
+                                  f"lm_dcp_r0_n{b_world}", str(b_steps))),
+        _dcp_tensors(os.path.join(dist_b, root, str(b_steps))))
+    b0 = runs["b"][0]
+    b_ms = [float(np.median(r["step_s"])) * 1e3 for r in runs["b"]]
+    print(f"eptp 21b: {b_world} processes (torchrun environment, gloo, the "
+          f"card shared) = dp 1 x ep {ep} x sp {sp} x tp {tp}, one (e, "
+          f"shard, t) each, bf16 ring_flash d768 L{b_layers} ({b_layers // 2} "
+          f"MoE blocks) T{t} B{b}/ep shard, {b_steps - 1} steps, a DCP save, "
+          f"then step {b_steps} resumed from it: against the same command "
+          f"stacked losses {loss_rel:.3e} and grad norms {grad_rel:.3e} apart "
+          f"(largest relative), the step-{b_steps} params {diff:.3e} apart "
+          f"(largest absolute), ps-weight equal (a process takes its own "
+          f"(e, shard)'s gradient, means it over the sp group and sums it "
+          f"over the ep group, where the stack takes one gradient of every "
+          f"shard's mean: bf16 products and fp32 sums in another order); "
+          f"held a process {b0['numel'] / 1e6:.1f} M parameters; process 0 "
+          f"a step: ep exchanges {_per_step(b0, 'ex')}; tp sums "
+          f"{_per_step(b0, 'sums')}; ring shifts {_per_step(b0, 'sh')}; step "
+          f"ms {min(b_ms):.1f}-{max(b_ms):.1f} over the processes (stacked "
+          f"{np.median(s['step_s']) * 1e3:.1f}); seconds in main: the run "
+          f"{max(r['wall_s'] for r in runs['b']):.1f}, the resume "
+          f"{max(r['wall_s'] for r in runs['r']):.1f}, 21a {a['wall_s']:.1f}, "
+          f"21b stacked {s['wall_s']:.1f} [{card}]", flush=True)
+    if (loss_rel > TOL_HARNESS_LOSS_REL or grad_rel > TOL_HARNESS_LOSS_REL
+            or not np.isfinite(diff)):
+        raise AssertionError(f"eptp 21b: losses {loss_rel} or grad norms "
+                             f"{grad_rel} from the stacked run's (over "
+                             f"{TOL_HARNESS_LOSS_REL})")
+    launches = {}
+    for run in [a] + runs["b"] + runs["r"]:
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"eptp: phase 21 in {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -6337,7 +6598,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_launches = tp_path(card)
     torch.cuda.empty_cache()
-    ep_launches = ep_path(card)
+    ep_launches, ep20 = ep_path(card)
+    torch.cuda.empty_cache()
+    tp_ep_launches = tp_ep_path(card, ep20)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
@@ -6348,14 +6611,16 @@ def main() -> int:
     # runs, phase 16a's kernel-lane CLI run and 16b's processes, phase
     # 17's CLI runs, 17b's and 17e's processes and 17d's serving, phase
     # 18's processes, phase 19a's stacked tp run and 19b's and 19c's
-    # processes, phase 20a's stacked MoE run and 20c's processes) summed
+    # processes, phase 20a's stacked MoE run and 20c's processes, phase
+    # 21a's stacked ep x tp run and 21b's processes) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
             resnet_sgp, resnet_osgp, cli_launches, resil_launches,
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
-            ckpt_launches, seq_dist_launches, tp_launches, ep_launches))
+            ckpt_launches, seq_dist_launches, tp_launches, ep_launches,
+            tp_ep_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

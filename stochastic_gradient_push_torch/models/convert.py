@@ -96,18 +96,26 @@ def unflatten_tree(flat) -> dict:
     return tree
 
 
-def params_from_jax(tree, tp: int = 1,
-                    shards=None) -> dict[str, torch.Tensor]:
+def params_from_jax(tree, tp: int = 1, shards=None, ep: int = 1,
+                    ep_shards=None) -> dict[str, torch.Tensor]:
     """The flax tree of a ``TransformerLM`` as a ``TransformerLM``
     ``state_dict`` of fp32 CPU tensors (kernels transposed).  Leaves may
     carry leading dims (a rank-stacked training state): the kernels'
-    last two dims are the ones transposed.  With ``tp`` > 1 the tree is
-    rank-stacked and its leaves are placed for the tensor-parallel
-    ``shards`` (default all; ``parallel/tp.py::shard_params``)."""
-    if tp > 1:
+    last two dims are the ones transposed.  With ``ep`` > 1 and
+    ``ep_shards`` the tree is rank-stacked and its expert stacks keep
+    those ep shards' experts (``parallel/ep.py::shard_experts``; without
+    ``ep_shards`` every expert, as a stack holds them); then with ``tp``
+    > 1 its leaves are placed for the tensor-parallel ``shards`` (default
+    all; ``parallel/tp.py::shard_params``): an expert stack as its ``(e,
+    t)`` slices."""
+    if tp > 1 or (ep > 1 and ep_shards is not None):
+        from ..parallel.ep import shard_experts
         from ..parallel.tp import shard_params
 
-        return shard_params(params_from_jax(tree), tp, shards)
+        state = params_from_jax(tree)
+        if ep > 1 and ep_shards is not None:
+            state = shard_experts(state, ep, ep_shards)
+        return shard_params(state, tp, shards) if tp > 1 else state
     state = {}
     for path, arr in flatten_tree(tree).items():
         *mods, leaf = path.split("/")
@@ -120,18 +128,30 @@ def params_from_jax(tree, tp: int = 1,
     return state
 
 
-def params_to_jax(state, tp: int = 1) -> dict:
+def _gather_tp(state, tp: int) -> dict:
+    """A rank-stacked state holding every tp shard as its logical leaves
+    (``parallel/tp.py::gather_params``; as it is at ``tp`` 1)."""
+    from ..parallel.tp import gather_params
+
+    state = {n: torch.as_tensor(t) for n, t in state.items()}
+    return gather_params(state, tp) if tp > 1 else state
+
+
+def params_to_jax(state, tp: int = 1, ep: int = 1) -> dict:
     """Inverse of :func:`params_from_jax`: a ``TransformerLM``
     ``state_dict`` (tensors or arrays, optionally with leading rank
     dims) as the flax tree of numpy arrays, kernels transposed back.
     Values keep their dtype and bits.  With ``tp`` > 1 a rank-stacked
     state holding every tensor-parallel shard is gathered into the
-    logical leaves first."""
-    if tp > 1:
-        from ..parallel.tp import gather_params
+    logical leaves first; with ``ep`` > 1 ``state`` is the list of every
+    ep shard's state (each holding its experts, in shard order), whose
+    expert stacks are joined (``parallel/ep.py::gather_experts``)."""
+    if ep > 1:
+        from ..parallel.ep import gather_experts
 
-        state = gather_params({n: torch.as_tensor(t) for n, t in
-                               state.items()}, tp)
+        state = gather_experts([_gather_tp(part, tp) for part in state])
+    elif tp > 1:
+        state = _gather_tp(state, tp)
     flat = {}
     for name, t in state.items():
         *mods, leaf = name.split(".")
@@ -418,7 +438,10 @@ def reference_layout(model):
     permutation of each kernel the port transposes (conv OIHW -> HWIO,
     Dense ``[out, in]`` -> ``[in, out]``; a tensor-parallel Dense kernel
     ``[shards, out, in]`` -> ``[shards, in, out]``, each held shard in the
-    reference's order, ``parallel/tp.py``).  ``model`` is a
+    reference's order, ``parallel/tp.py``; an expert stack's raw ``[tp,
+    E, ...]`` shards need none: a ``(e, t)`` shard whose F slice keeps
+    the reference's blocks, ``parallel/tp.py::check_wire_blocks``, is
+    blocked as the reference blocks its ep slice).  ``model`` is a
     ``TransformerLM`` or a vision model of ``models/resnet.py`` /
     ``models/small.py`` (a meta-device module will do)."""
     from ..parallel.wire import ReferenceLayout

@@ -31,6 +31,18 @@ every local expert runs over ``[E_local, ep·C, D]`` (each source shard's
 ``C`` slots in shard order) and the outputs travel back
 (``ep.combine``).  ``w1``/``w2`` hold the experts of the shards held
 here: all ``E`` on a stack, ``E / ep`` a process.
+
+**Tensor parallelism** (``parallel/tp.py``, the reference's
+``_TP_EXPERT_COLUMN``/``_TP_EXPERT_ROW`` under GSPMD): with ``tp`` each
+expert's FFN is Megatron's column/row pair, ``w1`` ``[held_tp, E_held,
+D, F/tp]`` and ``w2`` ``[held_tp, E_held, F/tp, D]`` the held tp shards'
+slices of its F dim.  After ``ep.dispatch`` the slots go to every held
+tp shard (``tp.copy``, *f*: its backward sums the slots' gradient over
+tp, so the router and the tokens see it once), each shard runs its
+``bmm`` pair ``gelu_tanh(xs @ w1_t) @ w2_t``, and the partial outputs
+are summed in shard order (``tp.reduce``, *g*) before ``ep.combine``,
+so the ep exchange moves one reduced tensor.  The routing runs on the
+tp-replicated input and is the same on every tp shard.
 """
 
 from __future__ import annotations
@@ -98,22 +110,35 @@ def dispatch(x: torch.Tensor, r: Routing, e_total: int, cap: int):
     return slots, slot
 
 
+def _experts(xs: torch.Tensor, w1: torch.Tensor,
+             w2: torch.Tensor) -> torch.Tensor:
+    """Every expert's FFN over its slots ``[E, n, D]``, in the slots'
+    type."""
+    h = F.gelu(torch.bmm(xs, w1.to(xs.dtype)), approximate="tanh")
+    return torch.bmm(h, w2.to(xs.dtype))
+
+
 def switch_moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor,
                    w2: torch.Tensor, ep=None,
-                   capacity_factor: float = 1.25):
+                   capacity_factor: float = 1.25, tp=None):
     """Top-1 switch MoE feed-forward of ``x`` ``[..., T, D]`` (with
     ``ep``: ``[..., held, T, D]``, ``held`` the ep shards held here).
     ``router`` ``[D, E]`` (E the total experts), ``w1`` ``[E_held, D, F]``
-    and ``w2`` ``[E_held, F, D]`` the experts of the held shards.  Returns
-    ``(y, aux)``: ``y`` shaped like ``x``, ``aux`` the
-    ``load_balance_loss`` and ``dropped_fraction`` of each routing group
-    (``x.shape[:-2]``)."""
+    and ``w2`` ``[E_held, F, D]`` the experts of the held shards (with
+    ``tp``: ``[held_tp, E_held, D, F/tp]`` and ``[held_tp, E_held, F/tp,
+    D]``, the held tp shards' slices).  Returns ``(y, aux)``: ``y`` shaped
+    like ``x``, ``aux`` the ``load_balance_loss`` and ``dropped_fraction``
+    of each routing group (``x.shape[:-2]``)."""
     *lead, t, d = x.shape
     held = 1 if ep is None else len(ep.shards)
     size = 1 if ep is None else ep.size
-    e_local = w1.shape[0] // held
+    if tp is not None and (w1.dim() != 4 or w1.shape[0] != len(tp.shards)):
+        raise ValueError(f"w1 {tuple(w1.shape)}: with tp the leading dim "
+                         f"is the {len(tp.shards)} tp shards held here")
+    e_rows = w1.shape[-3]
+    e_local = e_rows // held
     e_total = e_local * size
-    if router.shape[-1] != e_total or e_local * held != w1.shape[0]:
+    if router.shape[-1] != e_total or e_local * held != e_rows:
         raise ValueError(
             f"router is over {router.shape[-1]} experts but weights "
             f"provide {e_total} ({e_local} × {size} shards)")
@@ -124,13 +149,15 @@ def switch_moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor,
     r = route(x, router, cap)
     slots, slot = dispatch(x, r, e_total, cap)
 
-    wide = slots.dtype
     if ep is None:
         xs = slots.movedim(-3, 0).reshape(e_total, -1, d)
     else:
         xs = ep.dispatch(slots)                  # [E_held, n·ep·C, D]
-    h = F.gelu(torch.bmm(xs, w1.to(wide)), approximate="tanh")
-    ys = torch.bmm(h, w2.to(wide))
+    if tp is None:
+        ys = _experts(xs, w1, w2)
+    else:
+        ys = tp.reduce([_experts(xt, w1[i], w2[i])
+                        for i, xt in enumerate(tp.copy(xs))])
     if ep is None:
         y_slots = ys.reshape(e_total, *lead, cap, d).movedim(0, -3)
     else:

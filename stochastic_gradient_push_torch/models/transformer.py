@@ -86,7 +86,12 @@ held·B, t]`` with a ring), and each shard routes its own rows.
 ``forward(..., aux=[])`` appends each MoE block's ``(load_balance,
 dropped)``, one value a routing group; under ``remat`` they leave the
 checkpoint as its outputs, so the recompute in the backward never
-appends twice.
+appends twice.  Under ``tp`` > 1 a MoE block's expert stacks split
+their F dim over the tp shards (``experts_up`` ``[tp, E, D, F/tp]``,
+``experts_down`` ``[tp, E, F/tp, D]``, ``parallel/tp.py``) and each
+expert runs Megatron's column/row pair (``models/moe.py``); the router
+stays replicated, so the routing is the same on every tp shard:
+``forward(tokens, seq, tp, ep, aux)`` threads all four axes.
 
 The engine (``serve/engine.py``) reuses these modules' weights through
 its own prefill and paged decode paths.
@@ -152,11 +157,6 @@ class TransformerConfig:
         if self.moe_experts % self.ep:
             raise ValueError(f"moe_experts {self.moe_experts} not divisible "
                              f"by ep {self.ep}")
-        if self.moe_experts and self.tp > 1:
-            raise ValueError(f"--moe_experts with --tp {self.tp}: MoE under "
-                             f"tensor parallelism (the (gossip, ep, tp) "
-                             f"meshes, experts split on their F dim) is not "
-                             f"ported yet (ROADMAP.md Queue 1)")
         if self.tp > 1:
             from ..parallel.tp import check_tp_dims
 
@@ -409,27 +409,31 @@ class Attention(nn.Module):
 class MoEFFN(nn.Module):
     """The switch-MoE feed-forward (``models/moe.py``): ``router`` ``[D,
     E]``, ``experts_up`` ``[E, D, F]``, ``experts_down`` ``[E, F, D]``
-    (the held shards' experts: all of them, or ``E / ep`` a process).
-    ``forward(h, ep)`` routes each group of rows of ``h`` ``[..., B, T,
-    D]``: every leading index alone, and with ``ep`` the ``B`` rows cut
-    into the held ep shards' batches."""
+    (the held shards' experts: all of them, or ``E / ep`` a process); at
+    ``tp`` > 1 the expert stacks hold the tp shards' F slices, ``[tp, E,
+    D, F/tp]`` and ``[tp, E, F/tp, D]``, as :class:`ColumnDense` and
+    :class:`RowDense` hold theirs.  ``forward(h, ep, tp)`` routes each
+    group of rows of ``h`` ``[..., B, T, D]``: every leading index alone,
+    and with ``ep`` the ``B`` rows cut into the held ep shards'
+    batches."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.capacity_factor = cfg.moe_capacity_factor
-        e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        e, d, f, n = cfg.moe_experts, cfg.d_model, cfg.d_ff, cfg.tp
         self.router = nn.Parameter(torch.empty(d, e))
-        self.experts_up = nn.Parameter(torch.empty(e, d, f))
-        self.experts_down = nn.Parameter(torch.empty(e, f, d))
+        lead = () if n == 1 else (n,)
+        self.experts_up = nn.Parameter(torch.empty(*lead, e, d, f // n))
+        self.experts_down = nn.Parameter(torch.empty(*lead, e, f // n, d))
 
-    def forward(self, h: torch.Tensor, ep=None):
+    def forward(self, h: torch.Tensor, ep=None, tp=None):
         *lead, b, t, d = h.shape
         held = 1 if ep is None else len(ep.shards)
         groups = (*lead, held, b // held * t, d) if ep is not None else (
             *lead, b * t, d)
         y, aux = switch_moe_ffn(h.reshape(groups), self.router,
                                 self.experts_up, self.experts_down, ep,
-                                self.capacity_factor)
+                                self.capacity_factor, tp)
         return y.reshape(h.shape), (aux["load_balance_loss"],
                                     aux["dropped_fraction"])
 
@@ -461,7 +465,7 @@ class Block(nn.Module):
         x = x + self.attn(self.ln1(x), positions, seq, tp)
         if self.moe is None:
             return x + self.mlp(self.ln2(x), tp)
-        y, stats = self.moe(self.ln2(x), ep)
+        y, stats = self.moe(self.ln2(x), ep, tp)
         if aux is not None:
             aux.append(stats)
         return x + y

@@ -3,8 +3,10 @@ or one shard a process.
 
 Counterpart of the reference's ``EP_AXIS`` and its placement
 (``stochastic_gradient_push_tpu/train/lm.py:38,79-90,147-161``).  There
-``ep`` is a manual axis of the ``(gossip, ep)`` and ``(gossip, ep,
-seq)`` meshes: every ep shard carries its own tokens, the expert leaves
+``ep`` is a manual axis of the ``(gossip, ep)``, ``(gossip, ep, seq)``,
+``(gossip, ep, tp)`` and ``(gossip, ep, seq, tp)`` meshes (tp stays
+auto: ``parallel/tp.py`` splits each expert's F dim besides): every ep
+shard carries its own tokens, the expert leaves
 (``experts_up`` ``[E, D, F]``, ``experts_down`` ``[E, F, D]``) are split
 on their expert dim, shard ``i`` holding experts ``[i·E/ep,
 (i+1)·E/ep)``, and every other leaf is replicated over ep.
@@ -19,9 +21,12 @@ E/ep, ...]`` (:func:`shard_experts`, :func:`gather_experts`).
 experts' shards, and each expert gets ``[ep·C, D]``, source shard ``j``'s
 ``C`` slots at rows ``[j·C, (j+1)·C)`` (the reference's ``all_to_all(...,
 split_axis=0, concat_axis=1, tiled=True)``); the outputs go back the
-same way.  On a stack that is a fixed-order move (``movedim``) whose
-backward is autograd's own.  Across processes it is one
-``all_to_all_single`` on the replica's ep group, in an autograd function
+same way.  Slots keep their leading group dims (a process's sequence
+shard under a ring), so each sequence shard routes its own tokens across
+processes as on a stack.  On a stack that is a fixed-order move
+(``movedim``) whose backward is autograd's own.  Across processes it is
+one ``all_to_all_single`` on the ep group of the process's ``(replica,
+shard, t)``, in an autograd function
 whose backward is the inverse exchange of the gradient (through the host
 on gloo, as ``parallel/tp.py::DistTp`` does); ``exchanges``,
 ``exchange_s`` and ``exchange_bytes`` count them.

@@ -20,10 +20,14 @@ the host on gloo, on the card under NCCL), differentiable by its
 transpose, the shift the other way.  ``pmean`` is the reference's
 ``lax.pmean(..., seq)`` of the loss and the gradients: nothing on a
 stack (autograd already summed the stacked shards), one all-reduce per
-dtype across processes.
+dtype across processes.  A :class:`DistSeq`'s ``shifts``, ``shift_s``
+and ``shift_bytes`` count its hops, their host seconds and the bytes
+each sent.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -88,6 +92,9 @@ class DistSeq:
         self.transport = transport
         self.size = int(transport.world_size)
         self.shards = (int(transport.rank),)
+        self.shifts = 0
+        self.shift_s = 0.0
+        self.shift_bytes = 0
         # the permutation of a hop: shard j's block lands on j + step
         self._dests = {step: np.array([(j + step) % self.size
                                        for j in range(self.size)])
@@ -98,7 +105,12 @@ class DistSeq:
         return torch.tensor(self.shards, device=device)
 
     def _hop(self, x: torch.Tensor, step: int) -> torch.Tensor:
-        return self.transport.permute(x, self._dests[step])
+        t0 = time.perf_counter()
+        out = self.transport.permute(x, self._dests[step])
+        self.shifts += 1
+        self.shift_bytes += x.numel() * x.element_size()
+        self.shift_s += time.perf_counter() - t0
+        return out
 
     def ring_shift(self, x: torch.Tensor) -> torch.Tensor:
         """Send this shard's block ``[1, ...]`` to shard ``i + 1`` and take

@@ -14,7 +14,11 @@ partitioner, so this module writes those reductions by hand.
 port's layout) keeps rows ``[i·out/tp, (i+1)·out/tp)`` on shard ``i``,
 and ``up``'s bias goes with its kernel.  The row-parallel modules
 (``o``, ``down``) split their input features, columns of ``[out, in]``.
-Every other leaf (the embedding, the LayerNorms, ``down``'s bias) is
+A MoE block's expert stacks split their FFN dim, the reference's
+``_TP_EXPERT_COLUMN``/``_TP_EXPERT_ROW``: ``experts_up`` ``[E, D, F]``
+on F (dim 2), ``experts_down`` ``[E, F, D]`` on F (dim 1), so each
+shard runs Megatron's column/row pair on every expert.  Every other
+leaf (the embedding, the LayerNorms, ``down``'s bias, the router) is
 replicated.  A sharded leaf of a rank-stacked state is held as ``[R,
 held, *shard]``, ``held`` the shards this process holds; a replicated
 one as ``[R, *shape]``, one copy.  :func:`shard_params` and
@@ -36,8 +40,9 @@ form.
 
 :meth:`tape` keeps a rematerialised block's forward from reducing
 twice: the first pass records each *g*'s sum, the recompute in the
-backward reads it back.  ``reductions`` and ``reduce_s`` count the sums
-over the shards and their host seconds.
+backward reads it back.  ``reductions``, ``reduce_s`` and
+``reduce_bytes`` count the sums over the shards, their host seconds and
+the bytes each put in.
 """
 
 from __future__ import annotations
@@ -47,19 +52,29 @@ import time
 
 import torch
 
-__all__ = ["TP_COLUMN", "TP_ROW", "StackedTp", "DistTp", "split_dim",
+__all__ = ["TP_COLUMN", "TP_ROW", "TP_EXPERT_COLUMN", "TP_EXPERT_ROW",
+           "StackedTp", "DistTp", "split_dim",
            "shard_params", "gather_params", "shard_state", "gather_state",
            "check_tp_dims", "check_wire_blocks"]
 
 # the reference's _TP_COLUMN / _TP_ROW (train/lm.py:167-168 there)
 TP_COLUMN = ("q", "k", "v", "up", "lm_head")
 TP_ROW = ("o", "down")
+# the reference's _TP_EXPERT_COLUMN / _TP_EXPERT_ROW (:170-171 there): a
+# MoE block's raw expert stacks, split on their FFN dim
+TP_EXPERT_COLUMN = ("experts_up",)      # [E, D, F]: F
+TP_EXPERT_ROW = ("experts_down",)       # [E, F, D]: F
 
 
 def split_dim(name: str) -> int | None:
     """The dim of a logical per-replica leaf (the port's ``[out, in]``
-    layout) that tp splits, by module name; None for a replicated one."""
+    layout, an expert stack's ``[E, D, F]`` / ``[E, F, D]``) that tp
+    splits, by module name; None for a replicated one."""
     mod, _, leaf = name.rpartition(".")
+    if leaf in TP_EXPERT_COLUMN:
+        return 2
+    if leaf in TP_EXPERT_ROW:
+        return 1
     last = mod.rpartition(".")[2]
     if last in TP_COLUMN:
         return 0
@@ -141,12 +156,25 @@ def check_wire_blocks(shapes: dict, tp: int, block: int) -> None:
     logical ``[out, in]`` (or ``[out]``) shape.  A shard, flattened in
     the reference's ``[in, out]`` order, is blocked as the logical leaf
     is exactly when a column split's ``out / tp`` (a bias's length / tp)
-    or a row split's ``(in / tp) · out`` is a multiple of ``block``."""
+    or a row split's ``(in / tp) · out`` is a multiple of ``block``.  An
+    expert stack is blocked by the reference over each ep shard's slice
+    at full F (tp is an auto axis there); a ``(e, t)`` shard keeps those
+    blocks exactly when ``F / tp`` (``experts_up`` ``[E, D, F]``) or
+    ``(F / tp) · D`` (``experts_down`` ``[E, F, D]``) is a multiple of
+    ``block`` (the ep slice's own size: ``parallel/ep.py::
+    check_ep_wire_blocks``)."""
     for n, shape in shapes.items():
         d = split_dim(n)
         if d is None or tp == 1:
             continue
-        if d == 0:
+        leaf = n.rpartition(".")[2]
+        if leaf in TP_EXPERT_COLUMN:
+            run = shape[2] // tp
+            what = f"F / tp = {run}"
+        elif leaf in TP_EXPERT_ROW:
+            run = (shape[1] // tp) * shape[2]
+            what = f"(F / tp) * D = {run}"
+        elif d == 0:
             run, what = shape[0] // tp, f"out / tp = {shape[0] // tp}"
         else:
             run = (shape[1] // tp) * shape[0]
@@ -237,6 +265,7 @@ class _TpAxis:
     def __init__(self):
         self.reductions = 0
         self.reduce_s = 0.0
+        self.reduce_bytes = 0
         self._tape = None
 
     def _all(self, parts: list) -> list:
@@ -255,6 +284,7 @@ class _TpAxis:
         t0 = time.perf_counter()
         got = self._all([p.detach() for p in parts])
         self.reductions += 1
+        self.reduce_bytes += sum(p.numel() * p.element_size() for p in parts)
         self.reduce_s += time.perf_counter() - t0
         return got
 

@@ -94,14 +94,19 @@ directly, a replica's ep shards are held stacked beside it (with
 k`` of replica ``p // k``: the token exchange and the means over ep run
 on the replica's ep group, each ep index's slices gossip on its dp group,
 and checkpoints go through ``--ckpt_backend orbax`` (forced, and
-logged).  The reference's refusals stand (``--ep`` without
+logged).  With ``--tp`` the experts split their F dim over the tp
+shards (the reference's ``(gossip, tp)``, ``(gossip, seq, tp)``,
+``(gossip, ep, tp)`` and ``(gossip, ep, seq, tp)`` meshes): under
+``torchrun`` process ``p`` holds ``(replica, e, shard, t)`` of
+``parallel/mesh.py::DpSpLayout``, its exchange on the ep group of its
+``(replica, shard, t)``, its tp sums on the tp group of its ``(replica,
+e, shard)``.  The reference's refusals stand (``--ep`` without
 ``--moe_experts``, experts that ``k`` does not divide, ``--ep`` with ring
-attention at ``--sp 1``, ``--health_every`` with ``--ep``); MoE with
-``--tp`` and ``--ep`` with ``--sp`` under ``torchrun`` are refused as
-not ported yet.  On the GPU::
+attention at ``--sp 1``, ``--health_every`` with ``--ep`` or ``--tp``).
+On the GPU::
 
-    python -m stochastic_gradient_push_torch.run.gossip_lm --world_size 4 \
-      --moe_experts 8 --ep 2 --precision bf16 --gossip_kernel pallas \
+    python -m stochastic_gradient_push_torch.run.gossip_lm --world_size 8 \
+      --moe_experts 8 --ep 2 --tp 2 --precision bf16 --gossip_kernel pallas \
       --vocab_size 32000 --d_model 768 --n_layers 12 --n_heads 12 \
       --d_ff 3072 --seq_len 1024
 
@@ -367,11 +372,9 @@ def refuse_unported(args) -> None:
                 f"ROADMAP.md Queue 1)")
 
 
-def resolve_seq_flags(args, world: int,
-                      launched: int = 1) -> tuple[int, str]:
+def resolve_seq_flags(args, world: int) -> tuple[int, str]:
     """``(dp, attn)`` for ``--sp``, ``--tp`` and ``--ep`` over ``world``
-    ranks (processes under ``torchrun``, ``launched`` > 1), with the
-    reference's checks (run/gossip_lm.py:269-316, 361-366, 494-526):
+    ranks (processes under ``torchrun``), with the reference's checks (run/gossip_lm.py:269-316, 361-366, 494-526):
     ``dp = world // (sp · tp · ep)`` replicas gossip, each holding ``ep``
     expert shards of ``sp`` sequence shards of ``tp`` tensor shards; an
     unset ``--attn`` is ``ring`` under sp > 1, else ``flash``.
@@ -404,18 +407,6 @@ def resolve_seq_flags(args, world: int,
     if args.health_every and (tp > 1 or ep > 1):
         raise SystemExit("--health_every composes with the flat dp "
                          "and dp×sp meshes only (not ep/tp/pp)")
-    if args.moe_experts and tp > 1:
-        raise SystemExit(
-            f"--moe_experts with --tp {tp}: MoE under tensor parallelism "
-            "(the (gossip, ep, tp) meshes, experts split on their F dim) "
-            "is not ported to stochastic_gradient_push_torch yet "
-            "(ROADMAP.md Queue 1)")
-    if ep > 1 and sp > 1 and launched > 1:
-        raise SystemExit(
-            f"--ep {ep} with --sp {sp} under torchrun: the (gossip, ep, "
-            "seq) mesh across processes is not ported to "
-            "stochastic_gradient_push_torch yet (ROADMAP.md Queue 1); run "
-            "it stacked in one process")
     attn = args.attn or ("ring" if sp > 1 else "flash")
     if sp > 1 and attn not in ("ring", "ring_flash"):
         raise SystemExit("--sp > 1 requires ring attention")
@@ -599,8 +590,7 @@ def _main(argv) -> dict:
     device = (process_device(args.device, info) if launched > 1
               else resolve_device(args.device))
     world = args.world_size or 1
-    dp, attn = resolve_seq_flags(args, launched if launched > 1 else world,
-                                 launched)
+    dp, attn = resolve_seq_flags(args, launched if launched > 1 else world)
     lane = resolve_kernel_flag(args, device, launched)
     tp_n, ep_n = args.tp, args.ep
     owns_group = False
@@ -956,12 +946,14 @@ def _main(argv) -> dict:
     def on_device(tokens, targets):
         # [dp·ep, sp, batch, seq_len / sp], row replica·ep + e; flat
         # models take [dp, batch, seq_len]; this process's rows (and
-        # shard); with ep [dp, held_ep, ...], the ep shards held here
+        # shard); with ep [dp, held_ep, (held_sp,) ...], the ep (and
+        # sequence) shards held here
         if ep is not None:
             held_ep = np.asarray(ep.shards)
+            held_sp = np.asarray(seq.shards) if cfg.ring else 0
             return tuple(torch.from_numpy(np.ascontiguousarray(
                 a.reshape(dp, ep_n, *a.shape[1:])[transport.ranks][
-                    :, held_ep][:, :, slice(None) if cfg.ring else 0])
+                    :, held_ep][:, :, held_sp])
             ).to(device) for a in (tokens, targets))
         mine = host_local_slice({"x": tokens, "y": targets}, transport,
                                 None if seq is None else seq.shards)

@@ -79,7 +79,16 @@ ep (``metrics.global_norm(grads, ep=)``), and eval means the
 cross-entropy over ep.  :func:`init_lm_state` draws the logical experts
 once and a :class:`~..parallel.ep.DistEp` keeps its shard's slice.
 
-Not ported yet: the pipeline-parallel meshes, MoE under ``tp``.
+MoE under tensor parallelism (the reference's ``(gossip, tp)``,
+``(gossip, seq, tp)``, ``(gossip, ep, tp)`` and ``(gossip, ep, seq,
+tp)`` meshes): a model of both ``cfg.tp`` and ``cfg.moe_experts``, its
+expert stacks split on their F dim (``[R, held_tp, E_held, ...]``); the
+objective adds the MoE loss to the vocabulary-parallel cross-entropy,
+the gradients are divided by ``sp`` then by ``ep`` as above, and the
+grad norm of each ep shard is over the tp-logical leaves (its expert
+slice at full F), meaned over ep.
+
+Not ported yet: the pipeline-parallel meshes.
 """
 
 from __future__ import annotations
@@ -147,19 +156,16 @@ def _replica_loss(model: TransformerLM, seq, tp, ep, z_r: dict, xs, ys,
     tp shards.  A MoE model's objective adds ``moe_loss_coef`` times the
     blocks' mean load-balancing loss; otherwise it is the cross-entropy
     and the dropped fraction None."""
-    if tp is not None:
-        logits = functional_call(model, z_r, (xs, seq, tp))
-        if seq is None:
-            ce = tp.lm_loss(logits, ys)
-        else:
-            ce = torch.stack([tp.lm_loss([lg[s] for lg in logits], y)
-                              for s, y in enumerate(ys)]).mean()
-        return ce, ce, None
     if ep is not None:
         xs, ys = _fold_ep(xs, seq), _fold_ep(ys, seq)
     aux = [] if model.cfg.moe_experts else None
-    logits = functional_call(model, z_r, (xs, seq, None, ep, aux))
-    if seq is None:
+    logits = functional_call(model, z_r, (xs, seq, tp, ep, aux))
+    if tp is not None and seq is None:
+        ce = tp.lm_loss(logits, ys)
+    elif tp is not None:
+        ce = torch.stack([tp.lm_loss([lg[s] for lg in logits], y)
+                          for s, y in enumerate(ys)]).mean()
+    elif seq is None:
         ce = lm_loss(logits, ys)
     else:
         ce = torch.stack([lm_loss(lg, y) for lg, y in zip(logits, ys)]
@@ -319,20 +325,22 @@ def init_lm_state(cfg: TransformerConfig, algorithm: GossipAlgorithm, tx,
     """Fresh state for ``world`` held ranks: every rank starts from the
     same parameters, drawn from ``seed`` with the flax init recipe
     (``models/convert.py::init_params``), zero momentum, ps-weight 1.
-    At ``cfg.tp`` > 1 the same logical parameters are placed for the
-    shards ``tp`` holds (``parallel/tp.py::shard_params``), as the
-    reference's ``init_lm_state_tp`` places its draw; at ``cfg.ep`` > 1
-    every expert is drawn once and the ep shards held keep theirs
-    (``parallel/ep.py::shard_experts``: all on a stack)."""
+    At ``cfg.ep`` > 1 every expert is drawn once and the ep shards held
+    keep theirs (``parallel/ep.py::shard_experts``: all on a stack); at
+    ``cfg.tp`` > 1 the result is placed for the shards ``tp`` holds
+    (``parallel/tp.py::shard_params``), as the reference's
+    ``init_lm_state_tp`` and ``init_lm_state_ep`` place their draws: an
+    expert stack then holds each held ``(e, t)`` slice, ep on its expert
+    dim and tp on its F dim."""
+    check_tp_axis(cfg, tp)
+    check_ep_axis(cfg, ep)
     one = params_from_jax(init_params(dataclasses.replace(cfg, tp=1), seed))
     params = {n: p.to(device)[None].expand(world, *p.shape).clone()
               for n, p in one.items()}
-    check_tp_axis(cfg, tp)
-    check_ep_axis(cfg, ep)
-    if tp is not None:
-        params = shard_params(params, cfg.tp, tp.shards)
     if ep is not None and len(ep.shards) < ep.size:
         params = shard_experts(params, ep.size, ep.shards)
+    if tp is not None:
+        params = shard_params(params, cfg.tp, tp.shards)
     return TrainState(step=0, params=params, opt_state=tx.init(params),
                       gossip=algorithm.init(params))
 

@@ -54,45 +54,51 @@ def global_norm(grads: dict, tp=None, ep=None) -> torch.Tensor:
     """Per-rank L2 norm over every leaf of rank-stacked gradients
     ``[R, ...]`` (``utils/flatten.py::global_norm`` there): ``[R]``.
 
-    With ``ep`` (``parallel/ep.py``) each ep shard's norm of the
-    gradients it holds, the replicated leaves and its own expert slice,
-    meaned over the shards (the reference's ``pmean`` over ep of its
-    shards' norms, ``train/lm.py:403-412`` there): on a stack the held
-    expert leaves ``[R, E, ...]`` are cut into the shards' slices, across
-    processes one all-reduce on the ep group.
-
     With ``tp`` (``parallel/tp.py``) the norm is over the logical leaves,
     as the reference's over its GSPMD-sharded ones: a split leaf ``[R,
     held, ...]`` counts each shard's sum of squares, folded over the tp
     shards (one all-gather a rank across processes), a replicated leaf
     counts once.  Rank by rank and shard by shard, so a process holding
-    one shard computes what the stack does."""
-    if ep is not None:
-        from ..parallel.ep import is_expert
+    one shard computes what the stack does.
 
-        def sq(g):
-            return g.float().square().flatten(1).sum(1)
-
-        rep = sum(sq(g) for n, g in grads.items() if not is_expert(n))
-        experts = [g.chunk(len(ep.shards), 1) for n, g in grads.items()
-                   if is_expert(n)]
-        return ep.mean_shards(torch.stack([
-            torch.sqrt(rep + sum(sq(parts[i]) for parts in experts))
-            for i in range(len(ep.shards))]))
-    if tp is None:
+    With ``ep`` (``parallel/ep.py``) each ep shard's norm of the
+    gradients it holds, the replicated leaves and its own expert slice
+    (with ``tp``, that slice at full F: the fold above inside each ep
+    shard's norm), meaned over the shards (the reference's ``pmean``
+    over ep of its shards' tp-logical norms, ``train/lm.py:403-412``
+    there): on a stack the held expert leaves ``[R, (held_tp,) E, ...]``
+    are cut into the shards' slices, across processes one all-reduce on
+    the ep group."""
+    if tp is None and ep is None:
         return torch.sqrt(sum(g.float().square().flatten(1).sum(1)
                               for g in grads.values()))
+    from ..parallel.ep import is_expert
     from ..parallel.tp import split_dim
 
-    split = [n for n in grads if split_dim(n) is not None]
+    held_ep = 1 if ep is None else len(ep.shards)
+    split = [] if tp is None else [n for n in grads
+                                   if split_dim(n) is not None]
+
+    def sq(n: str, g: torch.Tensor, i: int) -> torch.Tensor:
+        """The sum of squares of ep shard ``i``'s part of one rank's
+        (one tp shard's) leaf ``g``."""
+        if ep is not None and is_expert(n):
+            g = g.chunk(held_ep, 0)[i]
+        return g.float().square().sum()
+
     norms = []
     for r in range(next(iter(grads.values())).shape[0]):
-        shard_sq = torch.stack([
-            torch.stack([grads[n][r, i].float().square().sum()
-                         for n in split])
-            for i in range(len(tp.shards))])
-        sq = dict(zip(split, tp.sum_shards(shard_sq).unbind(0)))
-        norms.append(torch.sqrt(sum(
-            sq[n] if n in sq else g[r].float().square().sum()
-            for n, g in grads.items())))
-    return torch.stack(norms)
+        row = []
+        for i in range(held_ep):
+            folded = {}
+            if split:
+                shard_sq = torch.stack([
+                    torch.stack([sq(n, grads[n][r, j], i) for n in split])
+                    for j in range(len(tp.shards))])
+                folded = dict(zip(split, tp.sum_shards(shard_sq).unbind(0)))
+            row.append(torch.sqrt(sum(
+                folded[n] if n in folded else sq(n, g[r], i)
+                for n, g in grads.items())))
+        norms.append(torch.stack(row))
+    norms = torch.stack(norms)                   # [R, held_ep]
+    return norms[:, 0] if ep is None else ep.mean_shards(norms.T)

@@ -27,7 +27,8 @@ OrbaxCheckpointManager`` with the reference's surface (``save``,
   Replicate(), Replicate(), Shard(k)]`` when tp splits its dim ``k``
   (the ``[out, in]`` layout after the rank dim; the held-shard dim is
   dropped), ``[Shard(0), Shard(1), Replicate(), Replicate()]`` for an
-  expert stack (its expert dim over ep, ``parallel/ep.py``), else
+  expert stack (its expert dim over ep, ``parallel/ep.py``; at tp > 1
+  ``[Shard(0), Shard(1), Replicate(), Shard(k)]``, tp on its F dim), else
   ``[Shard(0), Replicate(), Replicate(), Replicate()]``: the identical
   copies of a replica's leaf are written once, and a split leaf as its
   logical rows.  A process that destroys its

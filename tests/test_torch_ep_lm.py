@@ -27,8 +27,7 @@ sizes (d32, L2, h4, ff32, 8 experts on block 1, T32, B2).
 * **Checkpoints**: the stacked files hold the logical leaves; a run
   resumed from them equals one that never stopped.
 * **The command line**: ``--moe_experts``/``--ep`` train, the CSV gains
-  ``moe_dropped``, and every reference refusal fires with its message,
-  as do the two refusals of what is not ported yet.
+  ``moe_dropped``, and every reference refusal fires with its message.
 """
 
 import numpy as np
@@ -339,9 +338,8 @@ def test_cli_resume_equals_continue(tmp_path, capsys):
      r"\(not ep/tp/pp\)"),
     (["--moe_every", "0"], "moe_every must be >= 1 when moe_experts > 0"),
     (["--ep", "0"], "--sp, --tp, --ep and --pp must be >= 1"),
-    (["--tp", "2", "--world_size", "2"],
-     r"--moe_experts with --tp 2: .*is not ported to "
-     r"stochastic_gradient_push_torch yet"),
+    (["--tp", "2", "--world_size", "2", "--attn", "ring"],
+     r"--tp with ring attention requires --sp > 1 \(3-D mesh\)"),
     (["--ep", "2", "--world_size", "4", "--wire_dtype", "int8",
       "--wire_block", "1000"],
      r"block_1\.moe\.experts_up's shard has 4096 elements, not a multiple "
@@ -354,13 +352,22 @@ def test_cli_refusals_keep_the_reference_messages(tmp_path, argv, match):
 
 
 def test_ep_with_sp_across_processes_is_refused_by_name():
+    """The (gossip, ep, seq) mesh resolves for 8 processes as for 8
+    stacked ranks (``tests/test_torch_ep_tp_dist.py`` runs it); what the
+    reference refuses on it stays refused by name: ``--health_every``
+    and an ep shard count that does not divide the experts."""
     args = gossip_lm.build_parser().parse_args(
         SMALL + ["--ep", "2", "--sp", "2", "--attn", "ring"])
-    with pytest.raises(SystemExit, match=r"--ep 2 with --sp 2 under "
-                                         r"torchrun: .*not ported"):
-        gossip_lm.resolve_seq_flags(args, 8, launched=8)
-    # stacked in one process the same mesh resolves
     assert gossip_lm.resolve_seq_flags(args, 8) == (2, "ring")
+    args.health_every = 1
+    with pytest.raises(SystemExit, match=r"--health_every composes with "
+                                         r"the flat dp and dp×sp meshes "
+                                         r"only \(not ep/tp/pp\)"):
+        gossip_lm.resolve_seq_flags(args, 8)
+    args.health_every, args.ep = 0, 3
+    with pytest.raises(SystemExit, match="moe_experts 8 not divisible by "
+                                         "ep 3"):
+        gossip_lm.resolve_seq_flags(args, 12)
 
 
 def test_cli_refuses_cross_world_resume_at_ep(tmp_path):

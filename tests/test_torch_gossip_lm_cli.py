@@ -144,13 +144,14 @@ def test_reference_flags_parse_with_reference_defaults():
 ])
 def test_unported_flags_raise_naming_the_flag(flag, value, small):
     # --tp, --ep and --moe_experts are ported; their cases keep a refusal
-    # that names the flag: --tp with ring attention at --sp 1 (the
-    # reference's), --ep without --moe_experts (the reference's), and
-    # --moe_experts under --tp (not ported yet)
+    # of the reference's that names the flag: --tp with ring attention at
+    # --sp 1, --ep without --moe_experts, and for --moe_experts the same
+    # refusal (a later --moe_experts 0 wins, with --ep 2 under --tp 2)
     extra = {"--tp": ["--n_heads", "2", "--attn", "ring", "--world_size",
                       "2"],
-             "--moe_experts": ["--tp", "2", "--n_heads", "2",
-                               "--world_size", "2"]}.get(flag, [])
+             "--moe_experts": ["--tp", "2", "--n_heads", "2", "--ep", "2",
+                               "--world_size", "4", "--moe_experts",
+                               "0"]}.get(flag, [])
     with pytest.raises(SystemExit, match=flag):
         gossip_lm.main(small + [flag, value] + extra)
 

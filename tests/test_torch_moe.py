@@ -415,7 +415,8 @@ def test_init_draws_the_flax_recipe():
     ({"moe_every": 0}, "moe_every must be >= 1"),
     ({"ep": 3}, "moe_experts 8 not divisible by ep 3"),
     ({"moe_experts": 0, "ep": 2}, "--ep requires --moe_experts"),
-    ({"tp": 2}, "not ported yet"),
+    # MoE under tp splits each expert's F evenly
+    ({"tp": 2, "d_ff": 31}, "d_ff 31 not divisible by tp 2"),
 ])
 def test_config_refusals(kw, match):
     import dataclasses

@@ -14,6 +14,7 @@ from stochastic_gradient_push_torch import algorithms as talg
 from stochastic_gradient_push_torch.models.transformer import (
     TransformerConfig)
 from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+from stochastic_gradient_push_torch.parallel.tp import shard_state
 from stochastic_gradient_push_torch.parallel.wire import get_codec
 from stochastic_gradient_push_torch.topology import (
     NPeerDynamicDirectedExponentialGraph, build_schedule)
@@ -30,11 +31,13 @@ ALGORITHMS = ("sgp", "sgp_int8", "sgp_twin", "osgp", "allreduce")
 
 
 def config(ep: int = 1, impl: str = "full", remat: bool = False,
-           dtype=torch.float32, cf: float = 1.25, experts: int = E):
+           dtype=torch.float32, cf: float = 1.25, experts: int = E,
+           tp: int = 1, ff: int = FF):
     return TransformerConfig(vocab_size=VOCAB, d_model=D, n_layers=L,
-                             n_heads=H, d_ff=FF, attn_impl=impl,
+                             n_heads=H, d_ff=ff, attn_impl=impl,
                              remat=remat, dtype=dtype, moe_experts=experts,
-                             moe_every=2, moe_capacity_factor=cf, ep=ep)
+                             moe_every=2, moe_capacity_factor=cf, ep=ep,
+                             tp=tp)
 
 
 def algorithm(name: str, dp: int, transport):
@@ -61,34 +64,48 @@ def batches(dp: int, ep: int, sp: int, seed: int,
                   for _ in range(2)) for _ in range(steps)]
 
 
-def local(batch, rows, ep_shards, sp: int) -> torch.Tensor:
-    """The rows and ep shards held here of a ``[dp, ep, sp, B, t]``
-    batch, as the step takes them (no sequence dim at sp 1)."""
+def local(batch, rows, ep_shards, sp: int, seq_shards=None) -> torch.Tensor:
+    """The rows, ep shards and sequence shards (default all) held here of
+    a ``[dp, ep, sp, B, t]`` batch, as the step takes them (no sequence
+    dim at sp 1)."""
     x = batch[np.asarray(rows)][:, np.asarray(ep_shards)]
-    return torch.from_numpy(x if sp > 1 else x[:, :, 0]).long()
+    if sp > 1 and seq_shards is not None:
+        x = x[:, :, np.asarray(seq_shards)]
+    return torch.from_numpy(np.ascontiguousarray(
+        x if sp > 1 else x[:, :, 0])).long()
 
 
 def run(name: str, dp: int, transport, ep, data, sp: int = 1, seq=None,
         impl: str = "full", remat: bool = False, grad_accum: int = 1,
-        cf: float = 1.25) -> dict:
-    """``len(data)`` train steps from the seed-0 init over ``data``, then
-    the eval step on the first batch: per step each held replica's loss,
-    ppl, moe_dropped and grad norm, the final params and momentum as
-    held, the push-sum weight, the eval loss and the exchanges' count."""
-    cfg = config(1 if ep is None else ep.size, impl, remat, cf=cf)
+        cf: float = 1.25, tp=None, experts: int = E, ff: int = FF,
+        start=None) -> dict:
+    """``len(data)`` train steps from the seed-0 init (or ``start``, a
+    rank-stacked state of logical leaves, on a stacked lane) over
+    ``data``, then the eval step on the first batch: per step each held
+    replica's loss, ppl, moe_dropped and grad norm, the final params and
+    momentum as held, the push-sum weight, the eval loss and the count of
+    exchanges (with ``tp``, of the tp sums; across processes, of the
+    ring shifts)."""
+    cfg = config(1 if ep is None else ep.size, impl, remat, cf=cf,
+                 experts=experts, tp=1 if tp is None else tp.size, ff=ff)
     alg = algorithm(name, dp, transport)
     model = tlm.make_model(cfg)
     tx = sgd(0.9, 1e-4, nesterov=True)
     step = tlm.build_lm_train_step(
         model, alg, tx, LRSchedule(0.5, B, dp * cfg.ep, decay_schedule={},
                                    warmup=True),
-        itr_per_epoch=2, grad_accum=grad_accum, seq=seq, ep=ep)
+        itr_per_epoch=2, grad_accum=grad_accum, seq=seq, tp=tp, ep=ep)
     state = tlm.init_lm_state(cfg, alg, tx, len(transport.ranks), seed=0,
-                              ep=ep)
+                              tp=tp, ep=ep)
+    if start is not None:
+        # a stacked lane holds every replica and expert: only tp places
+        state = start if tp is None else shard_state(start, tp.size)
     shards = (0,) if ep is None else ep.shards
+    seq_shards = range(sp) if seq is None else seq.shards
 
     def mine(pair):
-        got = [local(a, transport.ranks, shards, sp) for a in pair]
+        got = [local(a, transport.ranks, shards, sp, seq_shards)
+               for a in pair]
         return got if ep is not None else [g[:, 0] for g in got]
 
     out = {}
@@ -101,19 +118,28 @@ def run(name: str, dp: int, transport, ep, data, sp: int = 1, seq=None,
     for n, p in state.opt_state.items():
         out[f"momentum/{n}"] = p.numpy()
     out["ps_weight"] = state.gossip.ps_weight.numpy()
-    ev = tlm.build_lm_eval_step(model, alg, seq, ep=ep)(state,
-                                                       *mine(data[0]))
+    ev = tlm.build_lm_eval_step(model, alg, seq, tp, ep)(state,
+                                                         *mine(data[0]))
     out["eval_loss"] = ev["loss"].numpy()
     out["exchanges"] = np.array(0 if ep is None else ep.exchanges)
+    if tp is not None:
+        out["reductions"] = np.array(tp.reductions)
+    if hasattr(seq, "shifts"):
+        out["shifts"] = np.array(seq.shifts)
     return out
 
 
 def jax_run(dp: int, ep: int, sp: int, data, name: str = "sgp",
-            grad_accum: int = 1, cf: float = 1.25):
+            grad_accum: int = 1, cf: float = 1.25, tp: int = 1,
+            experts: int = E, ff: int = FF, block: int = 64):
     """The reference's MoE step on its CPU mesh: ``(gossip, ep)`` at sp
     1, ``(gossip, ep, seq)`` with ring attention at sp > 1 (``ep`` 1: the
-    flat or ``(gossip, seq)`` mesh).  Returns its start state, end state
-    and each step's metrics (host arrays)."""
+    flat or ``(gossip, seq)`` mesh); at ``tp`` > 1 the mesh gains its auto
+    ``tp`` axis (``make_dp_ep_tp_mesh``, ``make_dp_ep_sp_tp_mesh``,
+    ``make_dp_tp_mesh``, ``make_dp_sp_tp_mesh``), as its CLI picks it
+    (``run/gossip_lm.py:426-441,638-662`` there).  ``block`` is the int8
+    wire's.  Returns its start state, end state and each step's metrics
+    (host arrays)."""
     import jax
 
     from stochastic_gradient_push_tpu import algorithms as jalg
@@ -128,21 +154,23 @@ def jax_run(dp: int, ep: int, sp: int, data, name: str = "sgp",
     from stochastic_gradient_push_tpu.train import sgd as jsgd
     from stochastic_gradient_push_tpu.train.lm import (
         EP_AXIS, SEQ_AXIS, build_lm_train_step, ep_state_specs,
-        init_lm_state, init_lm_state_ep, make_dp_ep_mesh,
-        make_dp_ep_sp_mesh, make_dp_sp_mesh, shard_lm_train_step)
+        init_lm_state, init_lm_state_ep, init_lm_state_tp,
+        make_dp_ep_mesh, make_dp_ep_sp_mesh, make_dp_ep_sp_tp_mesh,
+        make_dp_ep_tp_mesh, make_dp_sp_mesh, make_dp_sp_tp_mesh,
+        make_dp_tp_mesh, shard_lm_train_step)
 
     seq_axis = SEQ_AXIS if sp > 1 else None
     ep_axis = EP_AXIS if ep > 1 else None
     model = JLM(JConfig(vocab_size=VOCAB, d_model=D, n_layers=L, n_heads=H,
-                        d_ff=FF, max_len=T,
+                        d_ff=ff, max_len=T,
                         attn_impl="ring" if sp > 1 else "full",
-                        seq_axis=seq_axis, moe_experts=E, moe_every=2,
+                        seq_axis=seq_axis, moe_experts=experts, moe_every=2,
                         moe_capacity_factor=cf, ep_axis=ep_axis))
     sched = jbuild(JGraph(dp, peers_per_itr=1))
     if name == "allreduce":
         alg = jalg.all_reduce(GOSSIP_AXIS)
     elif name == "sgp_int8":
-        alg = jalg.sgp(sched, GOSSIP_AXIS, wire=jcodec("int8", 64))
+        alg = jalg.sgp(sched, GOSSIP_AXIS, wire=jcodec("int8", block))
     else:
         alg = jalg.sgp(sched, GOSSIP_AXIS)
     tx = jsgd(momentum=0.9, weight_decay=1e-4, nesterov=True)
@@ -151,22 +179,31 @@ def jax_run(dp: int, ep: int, sp: int, data, name: str = "sgp",
     step = build_lm_train_step(model, alg, tx, lrs, itr_per_epoch=2,
                                seq_axis=seq_axis, ep_axis=ep_axis,
                                grad_accum=grad_accum)
+    auto = tp > 1
     if ep > 1:
-        mesh = (make_dp_ep_sp_mesh(dp, ep, sp) if sp > 1
-                else make_dp_ep_mesh(dp, ep))
+        if auto:
+            mesh = (make_dp_ep_sp_tp_mesh(dp, ep, sp, tp) if sp > 1
+                    else make_dp_ep_tp_mesh(dp, ep, tp))
+        else:
+            mesh = (make_dp_ep_sp_mesh(dp, ep, sp) if sp > 1
+                    else make_dp_ep_mesh(dp, ep))
         state = init_lm_state_ep(model, mesh, alg, tx, dp=dp, ep=ep,
                                  batch_size=B, seq_len=T, seed=0, sp=sp)
         fn = shard_lm_train_step(step, mesh, seq_axis=seq_axis,
                                  state_specs=ep_state_specs(state),
-                                 ep_axis=EP_AXIS)
+                                 ep_axis=EP_AXIS, tp=auto)
+    elif auto and sp == 1:
+        mesh = make_dp_tp_mesh(dp, tp)
+        state = init_lm_state_tp(model, mesh, alg, tx, dp=dp, batch_size=B,
+                                 seq_len=T, seed=0)
+        fn = shard_lm_train_step(step, mesh, seq_axis=None, tp=True)
     else:
-        from stochastic_gradient_push_tpu.train.lm import make_dp_sp_mesh
-
-        mesh = make_dp_sp_mesh(dp, sp)
+        mesh = (make_dp_sp_tp_mesh(dp, sp, tp) if auto
+                else make_dp_sp_mesh(dp, sp))
         state = init_lm_state(model, mesh, alg, tx, dp=dp, sp=sp,
                               batch_size=B, block_len=T // sp, seed=0,
                               seq_axis=seq_axis)
-        fn = shard_lm_train_step(step, mesh, seq_axis=seq_axis)
+        fn = shard_lm_train_step(step, mesh, seq_axis=seq_axis, tp=auto)
     start = jax.device_get(state)
     metrics = []
     for toks, tgts in data:
