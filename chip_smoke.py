@@ -255,8 +255,8 @@
    before (one bf16 K3, K4 and K5 a layer a rank and one K2 and one K1
    a step asserted), a temporary ``--checkpoint_dir``, and the seconds of
    its init, steps, eval batches, saves and restores (with GB) printed:
-   - 15a: on an ``.npy`` token file over the vocabulary (``--corpus_file``),
-     4 steps with ``--ckpt_every 2`` twice (the rank files' and CSV
+   - 15a: d768 cut to 4 layers, on an ``.npy`` token file over the
+     vocabulary (``--corpus_file``), 4 steps with ``--ckpt_every 2`` twice (the rank files' and CSV
      losses' spread between two identical runs: determinism), then 2
      steps and a ``--resume True`` to 4, within that spread of the
      straight run;
@@ -304,7 +304,8 @@
      process reshards its own rank's file, bit-equal to 17a's copy, and
      launches one cross-process K2 and K1 a step and no stacked one;
    - 17c: phase 15's ``run/gossip_lm.py`` (bf16, world 2, SGP on K2/K1,
-     flash, T1024 B4) under ``--ckpt_backend orbax --ckpt_every 2``: 4
+     flash, T1024 B4, cut to 4 layers) under ``--ckpt_backend orbax
+     --ckpt_every 2``: 4
      steps twice (the spread) and 2 steps resumed to 4, the step-4
      checkpoints and CSV losses within the spread, at most 3 step
      directories, the seconds a save holds the run (the host copy) and
@@ -402,7 +403,29 @@
      process's ring ticks (shard ``s`` runs ``s + 1`` a layer), their
      sum ep x tp times the stack's; process 0's ep exchanges, tp sums
      and ring shifts a step (count, host ms, MB).
-22. A JSON line of per-kernel results (the fp32 flash rows also carry
+22. Pipeline parallelism (``--pp 2 --n_micro 4``, GPipe stages):
+   - 22a: the flagship LM (d768/L12, bf16, flash, SGP on K2/K1, T1024 B8
+     a replica) at ``--pp 2 --world_size 4`` (dp 2 x pp 2) stacked, 3
+     steps: 48 bf16 K3, K4 and K5 a step a replica (each of the 4
+     microbatches through each of the 12 layers) and one K2 and K1 a
+     step; beside the same command at ``--pp 1 --world_size 2`` on the
+     same tokens (12 a step a replica): losses within 2e-3 relative,
+     the step ms and the peak GB of both;
+   - 22b: the ``(gossip, pipe, ep, seq)`` mesh stacked, ``--pp 2 --ep 2
+     --sp 2 --moe_experts 8 --moe_every 1 --attn ring_flash --world_size
+     8`` (dp 1), bf16, d768 cut to 4 layers, 2 steps: 3 ring ticks a
+     layer a microbatch, ``moe_dropped`` in [0, 1];
+   - 22c: dp 2 x pp 2 in 4 processes under a torchrun environment (one
+     stage each, gloo, the card shared; checkpoints forced through the
+     DCP backend), 22a's command cut to 4 layers, 2 steps, then step 3
+     resumed from their DCP save, beside that command stacked here:
+     losses and grad norms within 2e-3 relative of the stacked
+     replicas', ps-weight equal, the step-3 DCP tensors compared; 8 bf16
+     K3-K5 launches (a stage's 2 layers x 4 microbatches) and one
+     cross-process K2 and K1 a step a process, their sum the stack's;
+     process 0's hand-offs and pipe-group sums a step (count, host ms,
+     MB).
+23. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -492,13 +515,14 @@ HEAD_DIM = 64
 BF16_STEPS = 6
 BF16_CLI = dict(world=4, seq_len=1024, batch=8, steps=4)
 # phase 15: run/gossip_lm.py at the LM's width, bf16, world 2 stacked,
-# SGP on K2/K1, flash attention, T1024 B4 a rank; 15a's corpus is a token
-# file four steps' batches long, so its resume skips batches; 15b-15d run
+# SGP on K2/K1, flash attention, T1024 B4 a rank; 15a (cut to 4 layers,
+# 12 until phase 22 came) on a token file four steps' batches long, so
+# its resume skips batches; 15b-15d run
 # 12 steps on the repository's text, validated every 2, in a subprocess
 # until SIGUSR1, then resumed in process
 HARNESS = dict(world=2, seq_len=1024, batch=4, steps=4, preempt_steps=12,
                corpus=2 * 4 * 1024 * 4 + 1, val_frac=0.1, val_every=2,
-               val_batches=2)
+               val_batches=2, a_layers=4)
 # the eval step's bf16 loss, kernels against plain twins (relative; the
 # LM step parity tests' bf16 loss tolerance, tests/torch_lm_drive.py)
 TOL_HARNESS_LOSS_REL = 2e-3
@@ -4261,11 +4285,13 @@ class _HarnessClock:
         return ", ".join(out) + f", the rest {rest:.2f} s"
 
 
-def _harness_argv(ckpt: str, *extra: str, vocab: int = 32000) -> list[str]:
+def _harness_argv(ckpt: str, *extra: str, vocab: int = 32000,
+                  layers: int = 12) -> list[str]:
     c = HARNESS
     return ["--precision", "bf16", "--world_size", str(c["world"]),
             "--gossip_kernel", "pallas", "--attn", "flash", "--vocab_size",
-            str(vocab), "--d_model", "768", "--n_layers", "12", "--n_heads",
+            str(vocab), "--d_model", "768", "--n_layers", str(layers),
+            "--n_heads",
             "12", "--d_ff", "3072", "--seq_len", str(c["seq_len"]),
             "--batch_size", str(c["batch"]), "--print_freq", "1", "--seed",
             "0", "--checkpoint_dir", ckpt, *extra]
@@ -4299,11 +4325,12 @@ def _harness_run(label: str, argv, card: str):
     return result, launches, out.getvalue().splitlines(), wall, clock
 
 
-def _harness_want(train_steps: int, eval_forwards: int = 0) -> dict:
+def _harness_want(train_steps: int, eval_forwards: int = 0,
+                  layers: int = 12) -> dict:
     """The launches of ``train_steps`` steps at world HARNESS["world"]
-    (12 layers a rank: one bf16 K3, K4 and K5 each; one K2 and one K1 a
+    (``layers`` a rank: one bf16 K3, K4 and K5 each; one K2 and one K1 a
     step) and of ``eval_forwards`` validation batches (K3 alone)."""
-    w = HARNESS["world"] * 12
+    w = HARNESS["world"] * layers
     want = {name: 0 for name in _counters()}
     want.update(dict.fromkeys(FLASH_BF16, w * train_steps))
     want["flash_fwd_bf16"] += w * eval_forwards
@@ -4369,13 +4396,14 @@ def harness_resume(card: str, tmp: str) -> dict:
         ckpt = os.path.join(tmp, f"resume_{label}")
         _, got, _, _, clock = _harness_run(
             f"15a {label} to step {steps}",
-            _harness_argv(ckpt, "--num_steps", str(steps), *every, *extra),
-            card)
+            _harness_argv(ckpt, "--num_steps", str(steps), *every, *extra,
+                          layers=HARNESS["a_layers"]), card)
         done = steps - (n // 2 if extra else 0)
-        if got != _harness_want(done) or len(clock.restores) != bool(extra):
+        want = _harness_want(done, layers=HARNESS["a_layers"])
+        if got != want or len(clock.restores) != bool(extra):
             raise AssertionError(
-                f"harness 15a {label}: launches {got}, expected "
-                f"{_harness_want(done)}; restores {clock.restores}")
+                f"harness 15a {label}: launches {got}, expected {want}; "
+                f"restores {clock.restores}")
         launches.append(got)
     straight = os.path.join(tmp, "resume_straight")
     spread, loss_spread = _harness_spread(
@@ -4801,11 +4829,11 @@ def hierarchical_path(card: str, flat_bt: float) -> dict:
 # rank, three steps an epoch) at world 4 for one epoch, then resumed at
 # world 2 for a second: stacked (17a), in 2 torchrun processes (17b)
 RESHARD = dict(old=4, new=2)
-# 17c: run/gossip_lm.py at phase 15's shape under --ckpt_backend orbax:
-# 4 steps straight, twice (the spread), and 2 steps resumed to 4, a save
-# every 2 steps, the newest 3 kept (few steps: the saves set the
-# script's time)
-DCP_LM = dict(steps=4, split=2, every=2, keep=3)
+# 17c: run/gossip_lm.py at phase 15's shape, cut to 4 layers (12 until
+# phase 22 came), under --ckpt_backend orbax: 4 steps straight, twice
+# (the spread), and 2 steps resumed to 4, a save every 2 steps, the
+# newest 3 kept (few steps: the saves set the script's time)
+DCP_LM = dict(steps=4, split=2, every=2, keep=3, layers=4)
 # 17d: a 2-step world-2 run of the same LM on the per-rank files
 CONSENSUS_STEPS = 2
 
@@ -5145,12 +5173,12 @@ def dcp_lm(card: str, tmp: str, corpus: str) -> dict:
             _, got, _, _, _ = _harness_run(
                 f"17c {label} to step {steps}",
                 _harness_argv(ckpt, "--num_steps", str(steps), *flags,
-                              *extra), card)
+                              *extra, layers=c["layers"]), card)
         done = steps - (c["split"] if extra else 0)
-        if got != _harness_want(done) or len(spy.restores) != bool(extra):
+        want = _harness_want(done, layers=c["layers"])
+        if got != want or len(spy.restores) != bool(extra):
             raise AssertionError(f"17c {label}: launches {got}, expected "
-                                 f"{_harness_want(done)}; restores "
-                                 f"{spy.restores}")
+                                 f"{want}; restores {spy.restores}")
         launches.append(got)
         saves += [h for m in spy.managers for h in m.history]
         restores += spy.restores
@@ -5677,8 +5705,9 @@ def lm_run(argv) -> dict:
     """``run/gossip_lm.py`` in this process with every counter zeroed
     just before and its steps watched: each step's losses and grad norms
     (one a held replica), its synchronised host time, the count, host
-    seconds and bytes of the tp sums, the ep exchanges and the ring
-    shifts across processes, the dropped fraction (a MoE model), the
+    seconds and bytes of the tp sums, the ep exchanges, the ring
+    shifts, the pipeline hand-offs and the sums over the stages across
+    processes, the dropped fraction (a MoE model), the
     last push-sum weights,
     the launches, the bytes of the state held here, and the CSV rows
     (``tokens_per_sec`` left out)."""
@@ -5690,7 +5719,7 @@ def lm_run(argv) -> dict:
 
     from stochastic_gradient_push_torch.ops import gossip_kernel as gk
     from stochastic_gradient_push_torch.run import gossip_lm
-    from stochastic_gradient_push_torch.train import lm
+    from stochastic_gradient_push_torch.train import lm, pp
 
     counters = {**_counters(),
                 "gossip_edge_start_ipc": _Counter(gk.gossip_edge_start,
@@ -5700,15 +5729,20 @@ def lm_run(argv) -> dict:
     got = {"loss": [], "grad_norm": [], "step_s": [], "sums": [],
            "sums_s": [], "sums_bytes": [], "ex": [], "ex_s": [],
            "ex_bytes": [], "sh": [], "sh_s": [], "sh_bytes": [],
-           "moe_dropped": []}
-    build = lm.build_lm_train_step
+           "ho": [], "ho_s": [], "ho_bytes": [], "ps": [], "ps_s": [],
+           "ps_bytes": [], "moe_dropped": []}
+    builds = {lm: lm.build_lm_train_step, pp: pp.build_pp_train_step}
     # each axis's counters: (count, host seconds, bytes) attributes
     meters = {"sums": ("tp", "reductions", "reduce_s", "reduce_bytes"),
               "ex": ("ep", "exchanges", "exchange_s", "exchange_bytes"),
-              "sh": ("seq", "shifts", "shift_s", "shift_bytes")}
+              "sh": ("seq", "shifts", "shift_s", "shift_bytes"),
+              "ho": ("pipe", "hand_offs", "hand_off_s", "hand_off_bytes"),
+              "ps": ("pipe", "sums", "sum_s", "sum_bytes")}
 
-    def watched(*a, **k):
-        step = build(*a, **k)
+    def watch(build):
+        return lambda *a, **k: watched(build(*a, **k), k)
+
+    def watched(step, k):
         axes = {key: k.get(axis) for key, (axis, *_) in meters.items()
                 if hasattr(k.get(axis), meters[key][1])}
 
@@ -5751,13 +5785,15 @@ def lm_run(argv) -> dict:
     for c in counters.values():
         c.launches = 0
     out = io.StringIO()
-    lm.build_lm_train_step = watched
+    lm.build_lm_train_step = watch(builds[lm])
+    pp.build_pp_train_step = watch(builds[pp])
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
             gossip_lm.main(argv)
     finally:
-        lm.build_lm_train_step = build
+        lm.build_lm_train_step = builds[lm]
+        pp.build_pp_train_step = builds[pp]
     got["wall_s"] = time.perf_counter() - t0
     got["launches"] = {n: c.launches for n, c in counters.items()}
     got["forced"] = "checkpoints through --ckpt_backend orbax" in (
@@ -6528,6 +6564,235 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
     return launches
 
 
+# -- phase 22: pipeline parallelism ----------------------------------------
+
+# 22a: the flagship LM at --pp 2 --n_micro 4 (dp 2 x pp 2 stacked, bf16,
+# flash, SGP on K2/K1, T1024 B8 a replica, 3 steps) beside the same command
+# at --pp 1 (world 2) on the same tokens; 22b: the (gossip, pipe, ep, seq)
+# mesh stacked (dp 1 x pp 2 x ep 2 x sp 2, 8 experts on every block, bf16
+# ring_flash), d768 cut to 4 layers, 2 steps; 22c: dp 2 x pp 2 in 4
+# torchrun processes, one stage each, d768 cut to 4 layers, bf16, 2 steps,
+# a DCP save, the third step resumed from it, beside the same command
+# stacked
+PP = dict(pp=2, dp=2, n_micro=4, seq_len=1024, batch=8, steps=3,
+          vocab=32000, b_layers=4, b_steps=2, c_layers=4, c_steps=3)
+
+_P22_CHILD = _P19_CHILD.replace("phase 19's", "phase 22's")
+
+
+def _pp_argv(ckpt: str, corpus: str, *extra, layers: int = 12) -> list:
+    """22a's command (bf16, flash, SGP on K2/K1) on a token file, at
+    ``--n_micro 4`` (``--pp`` among ``extra``)."""
+    return ["--n_micro", str(PP["n_micro"]), "--precision", "bf16",
+            "--attn", "flash", "--gossip_kernel", "pallas", "--vocab_size",
+            str(PP["vocab"]), "--d_model", "768", "--n_layers", str(layers),
+            "--n_heads", "12", "--d_ff", "3072", "--seq_len",
+            str(PP["seq_len"]), "--batch_size", str(PP["batch"]),
+            "--num_steps", str(PP["steps"]), "--print_freq", "1", "--seed",
+            "0", "--corpus_file", corpus, "--checkpoint_dir", ckpt, *extra]
+
+
+def _pp4_argv(ckpt: str, corpus: str) -> list:
+    """22b's command: the 4-D pipeline mesh, d768 cut to ``b_layers``."""
+    return ["--pp", str(PP["pp"]), "--ep", str(EP["ep"]), "--sp", "2",
+            "--moe_experts", str(EP["experts"]), "--moe_every", "1",
+            "--n_micro", str(PP["n_micro"]), "--precision", "bf16",
+            "--attn", "ring_flash", "--world_size",
+            str(PP["pp"] * EP["ep"] * 2), "--vocab_size", str(PP["vocab"]),
+            "--d_model", "768", "--n_layers", str(PP["b_layers"]),
+            "--n_heads", "12", "--d_ff", "3072", "--seq_len",
+            str(PP["seq_len"]), "--batch_size", str(PP["batch"]),
+            "--num_steps", str(PP["b_steps"]), "--print_freq", "1",
+            "--seed", "0", "--corpus_file", corpus, "--checkpoint_dir",
+            ckpt]
+
+
+def _pp_logical(tensors: dict, pp: int) -> dict:
+    """A stacked run's DCP tensors with each stage leaf's ``[R, pp, L/pp,
+    ...]`` joined into the logical ``[R, L, ...]`` the processes write."""
+    return {k: (t.flatten(1, 2) if ".stack." in k and t.dim() > 2
+                and t.shape[1] == pp else t) for k, t in tensors.items()}
+
+
+def pp_path(card: str) -> dict:
+    """Phase 22: the LM at --pp 2 stacked beside --pp 1 (22a), the
+    (gossip, pipe, ep, seq) mesh stacked (22b), and one stage a process
+    through a DCP resume beside the same command stacked (22c).  Returns
+    the main path's launches (22a's pp run, 22b's run, 22c's
+    processes)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pp22_", dir=os.path.join(ROOT, "build"))
+    dp, pp, m = PP["dp"], PP["pp"], PP["n_micro"]
+    b, t, steps = PP["batch"], PP["seq_len"], PP["steps"]
+    world = dp * pp
+    corpus = os.path.join(tmp, "tokens.npy")
+    np.save(corpus, np.random.default_rng(0).integers(
+        0, PP["vocab"], dp * b * t * steps + 1).astype(np.int32))
+    corpus_b = os.path.join(tmp, "tokens_b.npy")
+    np.save(corpus_b, np.random.default_rng(3).integers(
+        0, PP["vocab"], EP["ep"] * b * t * PP["b_steps"] + 1).astype(
+            np.int32))
+    c_layers, c_steps = PP["c_layers"], PP["c_steps"]
+    dist_c = os.path.join(tmp, "dist_c")
+    jobs = [("RUN_c", _pp_argv(dist_c, corpus, "--pp", str(pp),
+                               "--num_steps", str(c_steps - 1),
+                               layers=c_layers)),
+            ("RUN_r", _pp_argv(dist_c, corpus, "--pp", str(pp), "--resume",
+                               "True", "--num_steps", str(c_steps),
+                               layers=c_layers))]
+    go = os.path.join(tmp, "go")
+    procs = _ranks(_P22_CHILD, world, [json.dumps(jobs), go],
+                   _torchrun_env(world))
+    try:
+        peaks = {}
+        runs_a = {}
+        for lab, extra in (("pp2", ["--pp", str(pp), "--world_size",
+                                    str(world)]),
+                           ("pp1", ["--world_size", str(dp)])):
+            torch.cuda.reset_peak_memory_stats()
+            runs_a[lab] = lm_run(_pp_argv(os.path.join(tmp, lab), corpus,
+                                          *extra))
+            peaks[lab] = torch.cuda.max_memory_allocated() / 1e9
+            shutil.rmtree(os.path.join(tmp, lab))
+            torch.cuda.empty_cache()
+        four = lm_run(_pp4_argv(os.path.join(tmp, "four"), corpus_b))
+        torch.cuda.empty_cache()
+        sc = lm_run(_pp_argv(os.path.join(tmp, "stacked_c"), corpus,
+                             "--pp", str(pp), "--world_size", str(world),
+                             "--ckpt_backend", "orbax", "--num_steps",
+                             str(c_steps), layers=c_layers))
+        torch.cuda.empty_cache()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    with open(go, "w"):
+        pass
+    logs = _join("22", procs)
+    runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
+            for lab in "cr"}
+
+    # 22a: GPipe's launches (a replica's microbatches, each through every
+    # layer), the distance from pp 1, the step and the memory
+    a, a1 = runs_a["pp2"], runs_a["pp1"]
+    layers = 12
+    _tp_launch_check("22a", a, {f"{n}_bf16": dp * m * layers * steps
+                                for n in FLASH}, steps, ipc=False)
+    _tp_launch_check("22a pp 1", a1, {f"{n}_bf16": dp * layers * steps
+                                      for n in FLASH}, steps, ipc=False)
+    rel = _tp_rel(a["loss"], a1["loss"])
+    ms = {k: float(np.median(r["step_s"][1:])) * 1e3
+          for k, r in runs_a.items()}
+    print(f"pp 22a: world {world} = dp {dp} x pp {pp} stacked, --n_micro "
+          f"{m} (bubble {(pp - 1) / (m + pp - 1):.3f}), d768 L12 T{t} "
+          f"B{b}/replica bf16 flash SGP K2/K1, {steps} steps: losses "
+          f"{[round(x[0], 4) for x in a['loss']]}, largest relative "
+          f"difference from the same command at --pp 1 (world {dp}, same "
+          f"tokens) {rel:.3e}; grad norms (the mean of the stages' norms) "
+          f"{[round(x[0], 4) for x in a['grad_norm']]} against pp 1's "
+          f"{[round(x[0], 4) for x in a1['grad_norm']]}; step ms "
+          f"(synchronised, median of steps 2-{steps}) {ms['pp2']:.1f} (pp "
+          f"1 {ms['pp1']:.1f}); peak {peaks['pp2']:.2f} GB (pp 1 "
+          f"{peaks['pp1']:.2f}); bf16 K3/K4/K5 {a['launches']['flash_fwd_bf16']}"
+          f" each (pp 1 {a1['launches']['flash_fwd_bf16']}), K2/K1 "
+          f"{a['launches']['gossip_edge_start']} [{card}]", flush=True)
+    if not np.isfinite(a["loss"]).all() or rel > TOL_HARNESS_LOSS_REL:
+        raise AssertionError(f"pp 22a: losses {a['loss']} vs pp 1 "
+                             f"{a1['loss']}: {rel} over "
+                             f"{TOL_HARNESS_LOSS_REL}")
+
+    # 22b: the 4-D mesh; a causal ring of 2 runs 3 ticks a call (shard 0
+    # its diagonal, shard 1 its diagonal and the full one), one call a
+    # layer a microbatch (both ep shards' rows folded)
+    b_steps, b_layers = PP["b_steps"], PP["b_layers"]
+    _tp_launch_check("22b", four, {f"{n}_bf16": 3 * b_layers * m * b_steps
+                                   for n in FLASH}, 0, ipc=False)
+    dropped = [float(r[-1]) for r in four["rows"]]
+    print(f"pp 22b: world 8 = dp 1 x pp {pp} x ep {EP['ep']} x sp 2 "
+          f"stacked, {EP['experts']} experts on every block, bf16 "
+          f"ring_flash, d768 L{b_layers} T{t} B{b}/ep shard, --n_micro {m}, "
+          f"{b_steps} steps: losses {[round(x[0], 4) for x in four['loss']]}"
+          f", moe_dropped (CSV) {dropped}; step ms "
+          f"{[round(x * 1e3, 1) for x in four['step_s']]}; bf16 K3/K4/K5 "
+          f"{four['launches']['flash_fwd_bf16']} each; seconds in main "
+          f"{four['wall_s']:.1f} [{card}]", flush=True)
+    if (len(dropped) != b_steps or not all(0 <= x <= 1 for x in dropped)
+            or not np.isfinite(four["loss"]).all()):
+        raise AssertionError(f"pp 22b: moe_dropped {dropped}, losses "
+                             f"{four['loss']}")
+
+    # 22c: each process against its stacked replica, through the resume
+    loss_rel = grad_rel = 0.0
+    same = True
+    for p, (run, resumed) in enumerate(zip(runs["c"], runs["r"])):
+        replica = p // pp
+        mine = {k: [x[0] for x in run[k] + resumed[k]]
+                for k in ("loss", "grad_norm")}
+        want = {k: [x[replica] for x in sc[k]] for k in ("loss",
+                                                           "grad_norm")}
+        same = same and mine == want
+        loss_rel = max(loss_rel, _tp_rel(mine["loss"], want["loss"]))
+        grad_rel = max(grad_rel, _tp_rel(mine["grad_norm"],
+                                         want["grad_norm"]))
+        if resumed["ps_weight"] != sc["ps_weight"][replica:replica + 1]:
+            raise AssertionError(f"pp 22c process {p}: ps-weight "
+                                 f"{resumed['ps_weight']}, {sc['ps_weight']}")
+        if not run["forced"] and p == 0:
+            raise AssertionError("pp 22c: the DCP backend was not forced")
+        # a stage's layers, each microbatch
+        per = (c_layers // pp) * m
+        _tp_launch_check(f"22c process {p}", run, {
+            f"{n}_bf16": per * (c_steps - 1) for n in FLASH}, c_steps - 1,
+            ipc=True)
+        _tp_launch_check(f"22c resume process {p}", resumed, {
+            f"{n}_bf16": per for n in FLASH}, 1, ipc=True)
+    summed = {n: sum(r["launches"][f"{n}_bf16"]
+                     for r in runs["c"] + runs["r"]) for n in FLASH}
+    if summed != {n: sc["launches"][f"{n}_bf16"] for n in FLASH}:
+        raise AssertionError(f"pp 22c: bf16 flash launches over the "
+                             f"processes {summed}, the stack's "
+                             f"{sc['launches']}")
+    root = f"lm_dcp_global_n{world}"
+    bits, diff = _tp_equal(
+        _pp_logical(_dcp_tensors(os.path.join(
+            tmp, "stacked_c", f"lm_dcp_r0_n{world}", str(c_steps))), pp),
+        _dcp_tensors(os.path.join(dist_c, root, str(c_steps))))
+    c0 = runs["c"][0]
+    c_ms = [float(np.median(r["step_s"])) * 1e3 for r in runs["c"]]
+    print(f"pp 22c: {world} processes (torchrun environment, gloo, the "
+          f"card shared) = dp {dp} x pp {pp}, one stage each, 22a's command "
+          f"at L{c_layers}, {c_steps - 1} steps, a DCP save, then step "
+          f"{c_steps} resumed from it: against the same command's stacked "
+          f"replica losses {loss_rel:.3e} and grad norms {grad_rel:.3e} "
+          f"apart (largest relative; equal to the digit: {same}), the "
+          f"step-{c_steps} DCP tensors bit-equal: {bits} (params "
+          f"{diff:.3e} apart, largest absolute), ps-weight equal; held a "
+          f"process {c0['numel'] / 1e6:.1f} M parameters; process 0 a "
+          f"step: hand-offs {_per_step(c0, 'ho')}; pipe-group sums "
+          f"{_per_step(c0, 'ps')}; step ms {min(c_ms):.1f}-{max(c_ms):.1f} "
+          f"over the processes (stacked "
+          f"{float(np.median(sc['step_s'][1:])) * 1e3:.1f}); seconds in "
+          f"main: the run {max(r['wall_s'] for r in runs['c']):.1f}, the "
+          f"resume {max(r['wall_s'] for r in runs['r']):.1f}, stacked "
+          f"{sc['wall_s']:.1f} [{card}]", flush=True)
+    if (loss_rel > TOL_HARNESS_LOSS_REL or grad_rel > TOL_HARNESS_LOSS_REL
+            or not np.isfinite(diff)):
+        raise AssertionError(f"pp 22c: losses {loss_rel} or grad norms "
+                             f"{grad_rel} from the stacked run's (over "
+                             f"{TOL_HARNESS_LOSS_REL})")
+    launches = {}
+    for run in [a, four] + runs["c"] + runs["r"]:
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"pp: phase 22 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6601,6 +6866,8 @@ def main() -> int:
     ep_launches, ep20 = ep_path(card)
     torch.cuda.empty_cache()
     tp_ep_launches = tp_ep_path(card, ep20)
+    torch.cuda.empty_cache()
+    pp_launches = pp_path(card)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
@@ -6612,7 +6879,8 @@ def main() -> int:
     # 17's CLI runs, 17b's and 17e's processes and 17d's serving, phase
     # 18's processes, phase 19a's stacked tp run and 19b's and 19c's
     # processes, phase 20a's stacked MoE run and 20c's processes, phase
-    # 21a's stacked ep x tp run and 21b's processes) summed
+    # 21a's stacked ep x tp run and 21b's processes, phase 22a's stacked
+    # pp run, 22b's 4-D pipeline run and 22c's processes) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
@@ -6620,7 +6888,7 @@ def main() -> int:
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
             ckpt_launches, seq_dist_launches, tp_launches, ep_launches,
-            tp_ep_launches))
+            tp_ep_launches, pp_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -27,6 +27,18 @@ state across (params, the SGD momentum buffers, the push-sum weight, the
 phase, the step and an overlap run's in-flight FIFO), so the port and
 the reference can start from one state.
 
+**Pipeline stages** (``models/pipeline.py::PipelineStageLM``).  The
+reference's pipeline tree is ``embed``, ``ln_f``, ``lm_head`` and
+``stack/block/<leaf>``, each stack leaf ``[L, ...]`` gathered over the
+stages (its rank-stacked state ``[R, L, ...]``, with ``[R, L, E, ...]``
+expert stacks).  The port's stage leaves are ``stack.<leaf>``, the
+layer dim cut into ``[pp, L/pp]`` (``params_from_jax(tree, pp=)``);
+:func:`params_to_jax` joins the stages back, and :func:`assemble` turns
+the pipeline tree into the ``TransformerLM`` tree (``block_{i}`` the
+stack's layer ``i``: the reference tests'
+``_assemble_reference_params``; :func:`pipeline_tree` is its inverse),
+so a pipeline state and a ``TransformerLM`` one compare leaf for leaf.
+
 **Vision models** (``models/resnet.py``, ``models/small.py``).
 :func:`vision_params_from_jax` maps a flax ``{"params", "batch_stats"}``
 pair onto the port's parameter and buffer names: the flax auto-names
@@ -63,13 +75,17 @@ from .transformer import TransformerConfig
 __all__ = ["params_from_jax", "params_to_jax", "init_params", "config_from_params",
            "flatten_tree", "unflatten_tree", "train_state_from_jax",
            "vision_params_from_jax", "init_model_params",
-           "reference_layout"]
+           "reference_layout", "assemble", "pipeline_tree"]
 
 # flax leaf name -> nn.Module parameter name
 _LEAF = {"embedding": "weight", "kernel": "weight", "scale": "weight",
          "bias": "bias"}
 # a MoE block's raw leaves: the same name on both sides, never transposed
 _RAW = ("router", "experts_up", "experts_down")
+# each flax leaf's dims in one layer of one replica: a stack leaf's layer
+# dim sits just before them, the rank dims before that
+_LEAF_NDIM = {"embedding": 2, "kernel": 2, "scale": 1, "bias": 1,
+              "router": 2, "experts_up": 3, "experts_down": 3}
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -96,8 +112,44 @@ def unflatten_tree(flat) -> dict:
     return tree
 
 
+def pipeline_tree(tree) -> dict:
+    """The pipeline tree of a ``TransformerLM`` tree (flax layouts,
+    numpy leaves, optionally rank-stacked): every ``block_{i}`` stacked
+    on a new layer dim after the rank dims, under ``stack/block``; the
+    inverse of :func:`assemble`."""
+    blocks = sorted((k for k in tree if str(k).startswith("block_")),
+                    key=lambda k: int(str(k)[6:]))
+    flat = [flatten_tree(tree[k]) for k in blocks]
+    stacked = {}
+    for path in flat[0]:
+        leaf = path.rsplit("/", 1)[-1]
+        arrs = [np.asarray(f[path]) for f in flat]
+        d = arrs[0].ndim - _LEAF_NDIM[leaf]
+        stacked[path] = np.stack(arrs, axis=d)
+    out = {k: v for k, v in tree.items() if not str(k).startswith("block_")}
+    out["stack"] = {"block": unflatten_tree(stacked)}
+    return out
+
+
+def assemble(tree) -> dict:
+    """The ``TransformerLM`` tree of a pipeline tree (flax layouts, numpy
+    leaves, optionally rank-stacked): ``block_{i}`` is layer ``i`` of
+    every ``stack/block`` leaf (the reference tests'
+    ``_assemble_reference_params``)."""
+    per = {}
+    for path, arr in flatten_tree(tree["stack"]["block"]).items():
+        d = arr.ndim - _LEAF_NDIM[path.rsplit("/", 1)[-1]] - 1
+        per[path] = (arr, d)
+    out = {k: v for k, v in tree.items() if k != "stack"}
+    for i in range(arr.shape[d]):
+        out[f"block_{i}"] = unflatten_tree(
+            {path: np.take(arr, i, axis=d) for path, (arr, d) in
+             per.items()})
+    return out
+
+
 def params_from_jax(tree, tp: int = 1, shards=None, ep: int = 1,
-                    ep_shards=None) -> dict[str, torch.Tensor]:
+                    ep_shards=None, pp: int = 1) -> dict[str, torch.Tensor]:
     """The flax tree of a ``TransformerLM`` as a ``TransformerLM``
     ``state_dict`` of fp32 CPU tensors (kernels transposed).  Leaves may
     carry leading dims (a rank-stacked training state): the kernels'
@@ -107,7 +159,9 @@ def params_from_jax(tree, tp: int = 1, shards=None, ep: int = 1,
     ``ep_shards`` every expert, as a stack holds them); then with ``tp``
     > 1 its leaves are placed for the tensor-parallel ``shards`` (default
     all; ``parallel/tp.py::shard_params``): an expert stack as its ``(e,
-    t)`` slices."""
+    t)`` slices.  A pipeline tree (``stack/block/...``) becomes
+    ``PipelineStageLM`` leaves ``stack.<leaf>``, each layer dim cut into
+    ``[pp, L/pp]`` (every stage)."""
     if tp > 1 or (ep > 1 and ep_shards is not None):
         from ..parallel.ep import shard_experts
         from ..parallel.tp import shard_params
@@ -124,6 +178,14 @@ def params_from_jax(tree, tp: int = 1, shards=None, ep: int = 1,
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         if leaf == "kernel":   # [..., in, out] -> [..., out, in]
             t = t.transpose(-1, -2).contiguous()
+        if mods[:2] == ["stack", "block"]:
+            mods = mods[1:]
+            mods[0] = "stack"
+            d = t.dim() - _LEAF_NDIM[leaf] - 1     # the layer dim
+            if t.shape[d] % pp:
+                raise ValueError(f"{path}: {t.shape[d]} layers not "
+                                 f"divisible by pp {pp}")
+            t = t.reshape(*t.shape[:d], pp, -1, *t.shape[d + 1:])
         state[".".join([*mods, _LEAF.get(leaf, leaf)])] = t
     return state
 
@@ -137,7 +199,8 @@ def _gather_tp(state, tp: int) -> dict:
     return gather_params(state, tp) if tp > 1 else state
 
 
-def params_to_jax(state, tp: int = 1, ep: int = 1) -> dict:
+def params_to_jax(state, tp: int = 1, ep: int = 1,
+                  pp: int | None = None) -> dict:
     """Inverse of :func:`params_from_jax`: a ``TransformerLM``
     ``state_dict`` (tensors or arrays, optionally with leading rank
     dims) as the flax tree of numpy arrays, kernels transposed back.
@@ -145,7 +208,11 @@ def params_to_jax(state, tp: int = 1, ep: int = 1) -> dict:
     state holding every tensor-parallel shard is gathered into the
     logical leaves first; with ``ep`` > 1 ``state`` is the list of every
     ep shard's state (each holding its experts, in shard order), whose
-    expert stacks are joined (``parallel/ep.py::gather_experts``)."""
+    expert stacks are joined (``parallel/ep.py::gather_experts``).  A
+    ``PipelineStageLM`` state holding every stage (its ``stack.<leaf>``
+    leaves ``[..., pp, L/pp, ...]``, ``pp`` checked when given) becomes
+    the pipeline tree, the stages joined into the layer dim ``[..., L,
+    ...]``."""
     if ep > 1:
         from ..parallel.ep import gather_experts
 
@@ -167,6 +234,14 @@ def params_to_jax(state, tp: int = 1, ep: int = 1) -> dict:
                 leaf = "scale"
             else:   # [..., out, in] -> [..., in, out]
                 leaf, arr = "kernel", np.swapaxes(arr, -1, -2)
+        if mods[0] == "stack":
+            # [..., pp, L/pp, ...] -> [..., L, ...]
+            d = arr.ndim - _LEAF_NDIM[leaf] - 2
+            if pp is not None and arr.shape[d] != pp:
+                raise ValueError(f"{name}: {arr.shape[d]} stages held, not "
+                                 f"pp {pp}")
+            arr = arr.reshape(*arr.shape[:d], -1, *arr.shape[d + 2:])
+            mods = ["stack", "block", *mods[1:]]
         flat["/".join([*mods, leaf])] = np.ascontiguousarray(arr)
     return unflatten_tree(flat)
 
@@ -379,7 +454,7 @@ def init_model_params(model, seed: int) -> tuple[dict, dict]:
 
 
 def train_state_from_jax(state, device: str | torch.device = "cpu",
-                         model=None):
+                         model=None, pp: int = 1):
     """The reference's rank-stacked ``TrainState`` (leaves as numpy
     arrays, e.g. after ``jax.device_get``) as the port's
     :class:`~..train.state.TrainState`: params and the optimizer's trace
@@ -389,7 +464,10 @@ def train_state_from_jax(state, device: str | torch.device = "cpu",
     ps-weight ``[R]``).  Without ``model`` the tree is the LM's
     (:func:`params_from_jax`, no BatchNorm statistics); with a vision
     ``model`` it goes through :func:`vision_params_from_jax` and the
-    ``batch_stats`` come along."""
+    ``batch_stats`` come along.  A pipeline state (the reference's
+    ``init_pp_state``: a ``stack`` in its tree) becomes
+    ``PipelineStageLM`` leaves of ``pp`` stages (:func:`params_from_jax`).
+    """
     from ..algorithms.api import GossipState
     from ..train.state import TrainState
 
@@ -400,7 +478,7 @@ def train_state_from_jax(state, device: str | torch.device = "cpu",
 
     def to_dev(tree):
         if model is None:
-            out = params_from_jax(tree)
+            out = params_from_jax(tree, pp=pp)
         else:
             out = vision_params_from_jax(model, {"params": tree})[0]
         return {n: t.to(device) for n, t in out.items()}
@@ -443,12 +521,19 @@ def reference_layout(model):
     the reference's blocks, ``parallel/tp.py::check_wire_blocks``, is
     blocked as the reference blocks its ep slice).  ``model`` is a
     ``TransformerLM`` or a vision model of ``models/resnet.py`` /
-    ``models/small.py`` (a meta-device module will do)."""
+    ``models/small.py`` (a meta-device module will do), or a
+    ``PipelineStageLM``: the pipeline tree's order (``embed``,
+    ``lm_head``, ``ln_f``, ``stack/block/...``) and, for a stack's Dense
+    kernel, held as ``[stages, L/pp, out, in]`` a rank, the ``(0, 2, 1)``
+    permutation of each stage's ``[L/pp, out, in]`` (``(0, 1, 3, 2)``
+    with the stage dim)."""
     from ..parallel.wire import ReferenceLayout
+    from .pipeline import PipelineStageLM
     from .transformer import TransformerLM
 
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    if isinstance(model, TransformerLM):
+    pipeline = isinstance(model, PipelineStageLM)
+    if pipeline or isinstance(model, TransformerLM):
         to_flax = None
     else:
         to_flax = _module_map(model)
@@ -458,6 +543,8 @@ def reference_layout(model):
         last = mod.rpartition(".")[2]
         if to_flax is None:
             flax_mod = mod.split(".")
+            if flax_mod[0] == "stack":
+                flax_mod = ["stack", "block", *flax_mod[1:]]
             if last == "embed":
                 kind = "embedding"
             elif leaf in _RAW:
@@ -473,7 +560,12 @@ def reference_layout(model):
             else:
                 kind = "kernel" if len(shape) in _TO_FLAX else "scale"
         paths[name] = tuple(flax_mod) + (kind,)
-        if kind == "kernel":
+        if kind == "kernel" and pipeline and flax_mod[0] == "stack":
+            # a stage's Dense kernel [L/pp, out, in], held [stages, L/pp,
+            # out, in] a rank: each stage in the reference's [L/pp, in,
+            # out] order
+            perms[name] = (0, 1, 3, 2)
+        elif kind == "kernel":
             # a tp-split Dense kernel [shards, out, in] is blocked shard by
             # shard, each in the reference's [in, out] order
             perms[name] = ((0, 2, 1) if to_flax is None and len(shape) == 3

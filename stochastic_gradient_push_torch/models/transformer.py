@@ -471,16 +471,18 @@ class Block(nn.Module):
         return x + y
 
 
-def _remat_block(blk: Block, x, positions, seq, tp, ep, aux):
+def _remat_block(blk: Block, x, positions, seq, tp, ep, aux,
+                 params: dict | None = None):
     """``blk(x, positions, seq, tp, ep, aux)`` with its forward recomputed
-    in the backward.  The block's parameters enter the checkpoint as
-    inputs, so the recompute sees the tensors the caller's
-    ``functional_call`` swapped in, after that call has returned.  With
-    ``tp`` the recompute reads back the first pass's sums over the tp
-    shards (``tp.tape()``) rather than reducing again.  A MoE block's
-    ``(load_balance, dropped)`` leave the checkpoint as outputs and are
-    appended here, once."""
-    params = dict(blk.named_parameters())
+    in the backward.  The block's parameters (``params``, default its
+    own) enter the checkpoint as inputs, so the recompute sees the
+    tensors the caller's ``functional_call`` swapped in, after that call
+    has returned.  With ``tp`` the recompute reads back the first pass's
+    sums over the tp shards (``tp.tape()``) rather than reducing again.
+    A MoE block's ``(load_balance, dropped)`` leave the checkpoint as
+    outputs and are appended here, once."""
+    if params is None:
+        params = dict(blk.named_parameters())
     names = tuple(params)
     tape = None if tp is None else tp.tape()
 

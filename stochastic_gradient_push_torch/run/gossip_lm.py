@@ -110,6 +110,32 @@ On the GPU::
       --vocab_size 32000 --d_model 768 --n_layers 12 --n_heads 12 \
       --d_ff 3072 --seq_len 1024
 
+``--pp k --n_micro m`` runs GPipe (``train/pp.py``, the reference's
+``(gossip, pipe)``, ``(gossip, pipe, seq)``, ``(gossip, pipe, ep)`` and
+``(gossip, pipe, ep, seq)`` meshes): each replica's layers are cut into
+``k`` stages and its batch into ``m`` microbatches, ``--world_size /
+(--pp · --ep · --sp)`` replicas gossip, and ``grad_norm`` is the mean
+over the stages of each stage's norm (the reference's).  Run directly,
+a replica's stages are held stacked beside it; under ``torchrun``
+(``(gossip, pipe)`` only: ``--sp`` or ``--ep`` beside ``--pp`` there
+is refused by name) process ``p`` holds stage ``p % k`` of replica ``p
+// k``: the stage hand-offs and the sum of the replicated leaves'
+gradients run on the replica's pipe group, each stage's leaves gossip
+on its dp group, and checkpoints go through ``--ckpt_backend orbax``
+(forced, and logged).  The reference's refusals stand, with its
+messages: ``--pp`` with ``--tp``, ``--pp --ep`` without
+``--moe_experts``, ``--moe_every`` other than 1, ``--n_micro`` < 1,
+layers or a batch that ``--pp`` or ``--n_micro`` do not divide, ring
+attention at ``--sp 1``, ``--grad_accum`` and ``--health_every`` with
+``--pp``; an int8 wire whose stacked stages would cut the reference's
+blocks, and cross-world resume at ``--pp`` > 1, are refused by name.
+On the GPU::
+
+    python -m stochastic_gradient_push_torch.run.gossip_lm --world_size 4 \
+      --pp 2 --n_micro 4 --precision bf16 --gossip_kernel pallas \
+      --vocab_size 32000 --d_model 768 --n_layers 12 --n_heads 12 \
+      --d_ff 3072 --seq_len 1024
+
 ``--precision bf16`` (the reference's flag) computes the model in
 bf16 on fp32 parameters (``models/transformer.py``): bf16 matmuls, the
 bf16 forms of the flash kernels, LayerNorm and the loss in fp32; the
@@ -184,8 +210,6 @@ UNPORTED = {
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
     "--attn_block_k": (0, int, "the TPU attention block rule"),
-    "--pp": (1, int, "pipeline parallelism"),
-    "--n_micro": (4, int, "pipeline parallelism"),
     "--trace_dir": (None, str, "run telemetry"),
     "--metrics_every": (0, int, "run telemetry"),
     "--multihost": ("auto", str, "multi-host runs"),
@@ -302,6 +326,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ep", default=1, type=int,
                    help="expert-parallel shards (requires --moe_experts; "
                         "each ep shard also carries its own tokens)")
+    p.add_argument("--pp", default=1, type=int,
+                   help="pipeline stages per replica (GPipe microbatch "
+                        "schedule): --world_size / (--pp * --ep * --sp) "
+                        "replicas gossip; stacked on the device, or one "
+                        "stage a process under torchrun")
+    p.add_argument("--n_micro", default=4, type=int,
+                   help="microbatches per step when --pp > 1 (must divide "
+                        "batch_size; bubble fraction is "
+                        "(pp-1)/(n_micro+pp-1))")
     p.add_argument("--moe_experts", default=0, type=int,
                    help="switch-MoE experts (0: dense FFN blocks)")
     p.add_argument("--moe_every", default=2, type=int,
@@ -373,28 +406,48 @@ def refuse_unported(args) -> None:
 
 
 def resolve_seq_flags(args, world: int) -> tuple[int, str]:
-    """``(dp, attn)`` for ``--sp``, ``--tp`` and ``--ep`` over ``world``
-    ranks (processes under ``torchrun``), with the reference's checks (run/gossip_lm.py:269-316, 361-366, 494-526):
-    ``dp = world // (sp · tp · ep)`` replicas gossip, each holding ``ep``
-    expert shards of ``sp`` sequence shards of ``tp`` tensor shards; an
-    unset ``--attn`` is ``ring`` under sp > 1, else ``flash``.
-    ``n_heads``, ``d_ff`` and ``vocab_size`` must divide by ``tp`` (GSPMD
-    would pad them; the port refuses by name)."""
+    """``(dp, attn)`` for ``--sp``, ``--tp``, ``--ep`` and ``--pp`` over
+    ``world`` ranks (processes under ``torchrun``), with the reference's
+    checks (run/gossip_lm.py:269-316, 361-366, 494-533): ``dp = world //
+    (sp · tp · ep · pp)`` replicas gossip, each holding ``pp`` stages of
+    ``ep`` expert shards of ``sp`` sequence shards of ``tp`` tensor
+    shards; an unset ``--attn`` is ``ring`` under sp > 1, else
+    ``flash``.  ``n_heads``, ``d_ff`` and ``vocab_size`` must divide by
+    ``tp`` (GSPMD would pad them; the port refuses by name)."""
     from ..parallel.mesh import make_dp_sp_layout
     from ..parallel.tp import check_tp_dims
 
-    sp, tp, ep = args.sp, args.tp, args.ep
+    sp, tp, ep, pp = args.sp, args.tp, args.ep, args.pp
     if sp < 1:
         raise SystemExit("--sp must be >= 1")
-    if tp < 1 or ep < 1:
+    if tp < 1 or ep < 1 or pp < 1:
         raise SystemExit("--sp, --tp, --ep and --pp must be >= 1")
+    if pp > 1:
+        # the reference's pipeline fences (run/gossip_lm.py:272-295 there)
+        if tp > 1:
+            raise SystemExit("--pp composes with gossip DP, --sp, "
+                             "--moe_experts and --ep only (not --tp)")
+        if ep > 1 and not args.moe_experts:
+            raise SystemExit("--pp with --ep requires --moe_experts > 0")
+        if args.moe_experts and args.moe_every != 1:
+            raise SystemExit("--pp with --moe_experts requires "
+                             "--moe_every 1 (the stage stack is one "
+                             "uniform scan)")
+        if args.n_micro < 1:
+            raise SystemExit(f"--n_micro must be >= 1 (got {args.n_micro})")
+        if args.n_layers % pp:
+            raise SystemExit(f"n_layers {args.n_layers} not divisible "
+                             f"by pp {pp}")
+        if args.batch_size % args.n_micro:
+            raise SystemExit(f"batch_size {args.batch_size} not divisible "
+                             f"by n_micro {args.n_micro}")
     if ep > 1 and not args.moe_experts:
         raise SystemExit("--ep requires --moe_experts > 0")
     if args.moe_experts and args.moe_experts % ep:
         raise SystemExit(
             f"moe_experts {args.moe_experts} not divisible by ep {ep}")
     try:
-        make_dp_sp_layout(world, sp, tp, ep)
+        make_dp_sp_layout(world, sp, tp, ep, pp)
         check_tp_dims(args.n_heads, args.d_ff, args.vocab_size, tp)
     except ValueError as e:
         raise SystemExit(str(e)) from None
@@ -404,7 +457,7 @@ def resolve_seq_flags(args, world: int) -> tuple[int, str]:
         raise SystemExit("--moe_experts must be >= 0")
     if args.moe_experts and args.moe_every < 1:
         raise SystemExit("moe_every must be >= 1 when moe_experts > 0")
-    if args.health_every and (tp > 1 or ep > 1):
+    if args.health_every and (tp > 1 or ep > 1 or pp > 1):
         raise SystemExit("--health_every composes with the flat dp "
                          "and dp×sp meshes only (not ep/tp/pp)")
     attn = args.attn or ("ring" if sp > 1 else "flash")
@@ -417,12 +470,19 @@ def resolve_seq_flags(args, world: int) -> tuple[int, str]:
         raise SystemExit(
             "--ep with ring attention needs --sp > 1 (the 3-D "
             "gossip × ep × seq mesh)")
+    if pp > 1 and sp == 1 and attn in ("ring", "ring_flash"):
+        raise SystemExit("--pp with ring attention needs --sp > 1 "
+                         "(the 3-D gossip × pipe × seq mesh)")
+    if args.grad_accum > 1 and pp > 1:
+        raise SystemExit("--grad_accum composes with the flat meshes; "
+                         "pipeline runs control microbatching with "
+                         "--n_micro")
     if args.attn_block and attn != "blockwise":
         raise SystemExit(
             f"--attn_block {args.attn_block} with --attn {attn}: the block "
             f"is the blockwise attention's; the flash kernels' tiles are "
             f"their own")
-    return world // (sp * tp * ep), attn
+    return world // (sp * tp * ep * pp), attn
 
 
 def resolve_staleness_flag(args, overlap: bool) -> None:
@@ -545,6 +605,7 @@ def _main(argv) -> dict:
     from ..parallel.collectives import DistTransport, StackedTransport
     from ..parallel.ep import DistEp, StackedEp
     from ..parallel.mesh import join_groups, make_dp_sp_layout
+    from ..parallel.pipeline import DistPipe, StackedPipe
     from ..parallel.seq import DistSeq, StackedSeq
     from ..parallel.tp import DistTp, StackedTp, gather_state, shard_state
     from ..parallel.wire import get_codec
@@ -554,6 +615,8 @@ def _main(argv) -> dict:
         synth_plan_config
     from ..train.lm import (build_lm_eval_step, build_lm_train_step,
                             init_lm_state, make_model)
+    from ..train.pp import (build_pp_eval_step, build_pp_train_step,
+                            init_pp_state, is_stage, make_pp_model)
     from ..train.lr import WARMUP_EPOCHS, LRSchedule
     from ..train.state import sgd
     from ..utils.checkpoint import (REQUEUE_EXIT_CODE, CheckpointManager,
@@ -592,23 +655,32 @@ def _main(argv) -> dict:
     world = args.world_size or 1
     dp, attn = resolve_seq_flags(args, launched if launched > 1 else world)
     lane = resolve_kernel_flag(args, device, launched)
-    tp_n, ep_n = args.tp, args.ep
+    tp_n, ep_n, pp_n = args.tp, args.ep, args.pp
     owns_group = False
     forced = None
-    # the sequence, tensor and expert axes across processes: this
-    # process's shards, its replica's sp, tp and ep groups, and the world
-    # for agreement (signals, resume)
-    dist_seq = dist_tp = dist_ep = agree = layout = None
+    # the sequence, tensor, expert and pipeline axes across processes:
+    # this process's shards, its replica's sp, tp, ep and pipe groups,
+    # and the world for agreement (signals, resume)
+    dist_seq = dist_tp = dist_ep = dist_pipe = agree = layout = None
     if launched > 1:
         if args.world_size not in (None, launched):
             raise SystemExit(f"--world_size {args.world_size} but the "
                              f"launcher started {launched} processes")
-        if (tp_n > 1 or ep_n > 1) and args.ckpt_backend != "orbax":
-            # the reference forces its global backend for a tp- or
-            # ep-sharded state across processes (run/gossip_lm.py:763-776
+        if pp_n > 1 and (args.sp > 1 or ep_n > 1):
+            raise SystemExit(
+                f"--pp {pp_n} with --sp or --ep under torchrun: the "
+                f"(gossip, pipe, seq), (gossip, pipe, ep) and (gossip, "
+                f"pipe, ep, seq) meshes across processes are not ported "
+                f"yet (ROADMAP.md Queue 1); run them stacked "
+                f"(--world_size in one process)")
+        if (tp_n > 1 or ep_n > 1 or pp_n > 1) and \
+                args.ckpt_backend != "orbax":
+            # the reference forces its global backend for a tp-, ep- or
+            # pp-sharded state across processes (run/gossip_lm.py:763-776
             # there)
-            axis = "--tp" if tp_n > 1 else "--ep"
-            forced = (f"{axis} {max(tp_n, ep_n)} under torchrun: "
+            axis, n = next((a, k) for a, k in (
+                ("--tp", tp_n), ("--ep", ep_n), ("--pp", pp_n)) if k > 1)
+            forced = (f"{axis} {n} under torchrun: "
                       f"checkpoints through --ckpt_backend orbax "
                       f"(torch.distributed.checkpoint, one global "
                       f"checkpoint), not {args.ckpt_backend}")
@@ -616,8 +688,8 @@ def _main(argv) -> dict:
         owns_group = not torch.distributed.is_initialized()
         initialize_multihost("xla", device, info)
         world = launched
-        if args.sp > 1 or tp_n > 1 or ep_n > 1:
-            layout = make_dp_sp_layout(launched, args.sp, tp_n, ep_n)
+        if args.sp > 1 or tp_n > 1 or ep_n > 1 or pp_n > 1:
+            layout = make_dp_sp_layout(launched, args.sp, tp_n, ep_n, pp_n)
             groups = join_groups(layout, info.rank)
             transport = DistTransport(group=groups.dp,
                                       siblings=layout.all_dp_members())
@@ -627,6 +699,8 @@ def _main(argv) -> dict:
                 dist_tp = DistTp(DistTransport(group=groups.tp))
             if ep_n > 1:
                 dist_ep = DistEp(DistTransport(group=groups.ep))
+            if pp_n > 1:
+                dist_pipe = DistPipe(DistTransport(group=groups.pp))
             agree = DistTransport()
         else:
             transport = agree = DistTransport()
@@ -738,28 +812,39 @@ def _main(argv) -> dict:
              nesterov=sb(args.nesterov))
     # the reference's step-based warmup horizon and LR scaling over the
     # data-parallel replicas and ep shards (each carries its own batch;
-    # sequence and tensor shards do not enlarge it)
+    # sequence, tensor and pipeline shards do not enlarge it)
     warmup_steps = args.warmup_steps or max(args.num_steps // 10, 1)
     itr_per_epoch = max(warmup_steps // WARMUP_EPOCHS, 1)
     lrs = LRSchedule(ref_lr=args.lr, batch_size=args.batch_size,
                      world_size=dp * ep_n, decay_schedule={},
                      warmup=sb(args.warmup))
-    model = make_model(cfg)
     seq = (dist_seq or StackedSeq(args.sp)) if cfg.ring else None
     tp = (dist_tp or StackedTp(tp_n)) if tp_n > 1 else None
     ep = (dist_ep or StackedEp(ep_n)) if ep_n > 1 else None
-    try:
-        step = build_lm_train_step(
-            model, alg, tx, lrs, itr_per_epoch=itr_per_epoch,
-            grad_accum=args.grad_accum,
-            health_axis=transport if args.health_every > 0 else None,
-            seq=seq, tp=tp, ep=ep)
-    except ValueError as e:
-        # an int8 wire whose blocks a tp or ep shard would cut
-        raise SystemExit(str(e)) from None
+    pipe = (dist_pipe or StackedPipe(pp_n)) if pp_n > 1 else None
     held = len(transport.ranks)
-    state = init_lm_state(cfg, alg, tx, held, seed=args.seed, device=device,
-                          tp=tp, ep=ep)
+    try:
+        if pipe is not None:
+            # GPipe stages (train/pp.py; the reference's build_pp_train_step)
+            model = make_pp_model(cfg, pp_n)
+            step = build_pp_train_step(
+                model, alg, tx, lrs, itr_per_epoch=itr_per_epoch,
+                pipe=pipe, n_micro=args.n_micro, seq=seq, ep=ep)
+            state = init_pp_state(cfg, alg, tx, held, pp_n,
+                                  stages=pipe.stages, seed=args.seed,
+                                  device=device)
+        else:
+            model = make_model(cfg)
+            step = build_lm_train_step(
+                model, alg, tx, lrs, itr_per_epoch=itr_per_epoch,
+                grad_accum=args.grad_accum,
+                health_axis=transport if args.health_every > 0 else None,
+                seq=seq, tp=tp, ep=ep)
+            state = init_lm_state(cfg, alg, tx, held, seed=args.seed,
+                                  device=device, tp=tp, ep=ep)
+    except ValueError as e:
+        # an int8 wire whose blocks a tp, ep or pp shard would cut
+        raise SystemExit(str(e)) from None
     log = log0
     monitor = policy = recovery = None
     window = None   # (host clock, steps_done, val_time) at the last read
@@ -793,8 +878,10 @@ def _main(argv) -> dict:
                 wire=wire_stamp(args.wire_dtype, args.wire_block, ef),
                 synth=plan.synth if plan is not None else None)
             recovery = make_recovery_fn(alg)
-    # the logical parameters of a replica (all its tp shards)
-    n_params = sum(p.numel() for p in model.parameters())
+    # the logical parameters of a replica (all its tp shards, all its
+    # stages)
+    n_params = sum(p.numel() * (pp_n if is_stage(n) and pipe else 1)
+                   for n, p in model.named_parameters())
     gossip = ""
     if alg.name in ("sgp", "dpsgd"):
         gossip = (f"; gossip lane {alg.transport_kernel_name}, buckets "
@@ -802,18 +889,22 @@ def _main(argv) -> dict:
                   + (f", overlap staleness {alg.staleness}" if alg.overlap
                      else ""))
     shards = "".join(f" x {a} {n}" for a, n in (
-        ("ep", ep_n), ("sp", args.sp), ("tp", tp_n)) if n > 1)
+        ("pp", pp_n), ("ep", ep_n), ("sp", args.sp), ("tp", tp_n)) if n > 1)
     shards = f" = dp {dp}{shards}" if shards else ""
     if layout is None:
         here = f"{held} in this process"
     else:
         replica, e, shard, t = layout.grid(info.rank)
         here = (f"process {info.rank}: replica {replica}"
+                + (f", stage {layout.stage(info.rank)}" if pp_n > 1 else "")
                 + (f", ep shard {e}" if ep_n > 1 else "")
                 + (f", shard {shard}" if args.sp > 1 else "")
                 + (f", tp shard {t}" if tp_n > 1 else ""))
     moe = (f"; moe {args.moe_experts} experts every {args.moe_every} "
            f"blocks" if args.moe_experts else "")
+    if pipe is not None:
+        moe += (f"; pipeline {pp_n} stages x {args.n_micro} microbatches "
+                f"(bubble {(pp_n - 1) / (args.n_micro + pp_n - 1):.3f})")
     log(f"lm: world {world}{shards} ({here}) on {device}; "
         f"{n_params / 1e6:.2f}M params{moe}; attn={attn}"
         f"{' remat' if cfg.remat else ''}; precision {args.precision}; "
@@ -833,8 +924,9 @@ def _main(argv) -> dict:
 
     # checkpoints: one file a gossip replica (a process under torchrun
     # at --sp > 1), named by the launched world, holding the logical
-    # leaves at --tp > 1, or (--ckpt_backend orbax) one DCP checkpoint
-    # keyed by step, on the (dp, sp, tp) mesh under torchrun
+    # leaves at --tp > 1 and every stage's [pp, L/pp, ...] leaves at --pp
+    # > 1, or (--ckpt_backend orbax) one DCP checkpoint keyed by step, on
+    # the (dp, pp, ep, sp, tp) mesh under torchrun
     me = info.rank
     logger = make_logger(me)
     warn = logger.warning
@@ -923,8 +1015,12 @@ def _main(argv) -> dict:
     corpus, val_corpus = split_corpus(
         corpus, args.val_frac, (args.seq_len + 1) * rows * args.batch_size)
     val_on = val_corpus is not None
-    eval_step = (build_lm_eval_step(model, alg, seq, tp, ep) if val_on
-                 else None)
+    eval_step = None
+    if val_on and pipe is not None:
+        eval_step = build_pp_eval_step(model, alg, pipe, args.n_micro, seq,
+                                       ep)
+    elif val_on:
+        eval_step = build_lm_eval_step(model, alg, seq, tp, ep)
     out_fname = os.path.join(
         args.checkpoint_dir,
         f"{args.tag}out_n{world}.csv" if launched == 1
@@ -1092,11 +1188,12 @@ def _reshard_other_world(ckpt, args, world: int, launched: int,
         ckpt.refuse_other_worlds(
             f"--sp {args.sp} > 1 keeps a replica's sequence shards in "
             "its file, so the files are not one rank row each")
-    if args.tp > 1 or args.ep > 1:
-        axis = "--tp" if args.tp > 1 else "--ep"
+    if args.tp > 1 or args.ep > 1 or args.pp > 1:
+        axis, n = next((a, k) for a, k in (
+            ("--tp", args.tp), ("--ep", args.ep), ("--pp", args.pp))
+            if k > 1)
         ckpt.refuse_other_worlds(
-            f"{axis} {max(args.tp, args.ep)} > 1 (the reference reshards "
-            "flat dp meshes only)")
+            f"{axis} {n} > 1 (the reference reshards flat dp meshes only)")
     if maybe_cross_world_reshard(args.checkpoint_dir, args.tag, world,
                                  log=log) is None:
         log.warning(f"a checkpoint of world {world} is on disk but "

@@ -88,7 +88,8 @@ the gradients are divided by ``sp`` then by ``ep`` as above, and the
 grad norm of each ep shard is over the tp-logical leaves (its expert
 slice at full F), meaned over ep.
 
-Not ported yet: the pipeline-parallel meshes.
+The pipeline-parallel meshes (``--pp``) have a step of their own,
+``train/pp.py``, over the stage module of ``models/pipeline.py``.
 """
 
 from __future__ import annotations

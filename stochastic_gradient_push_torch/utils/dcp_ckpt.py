@@ -22,19 +22,21 @@ OrbaxCheckpointManager`` with the reference's surface (``save``,
   processes, on a gloo group (the default group when it is gloo, as
   where the processes share one card, else one of its own).
   ``saves_global_state`` is then True.  With ``layout`` (the LM's
-  ``(gossip, ep, seq, tp)`` processes, ``parallel/mesh.py::DpSpLayout``)
-  the CPU mesh is ``(dp, ep, sp, tp)`` and a leaf is placed ``[Shard(0),
-  Replicate(), Replicate(), Shard(k)]`` when tp splits its dim ``k``
-  (the ``[out, in]`` layout after the rank dim; the held-shard dim is
-  dropped), ``[Shard(0), Shard(1), Replicate(), Replicate()]`` for an
-  expert stack (its expert dim over ep, ``parallel/ep.py``; at tp > 1
-  ``[Shard(0), Shard(1), Replicate(), Shard(k)]``, tp on its F dim), else
-  ``[Shard(0), Replicate(), Replicate(), Replicate()]``: the identical
-  copies of a replica's leaf are written once, and a split leaf as its
-  logical rows.  A process that destroys its
-  default group after such a save and makes a new one on the same port
-  may reach the old group's store (seen with torch 2.13 on gloo): run
-  one job a process, or keep one group across jobs.
+  ``(gossip, pipe, ep, seq, tp)`` processes, ``parallel/mesh.py::
+  DpSpLayout``) the CPU mesh is ``(dp, pp, ep, sp, tp)`` and a leaf is
+  placed ``[Shard(0), Replicate(), Replicate(), Replicate(), Shard(k)]``
+  when tp splits its dim ``k`` (the ``[out, in]`` layout after the rank
+  dim; the held-shard dim is dropped), with ``Shard(1)`` on ep for an
+  expert stack (its expert dim, ``parallel/ep.py``; at tp > 1 tp on its
+  F dim), with ``Shard(1)`` on pp for a pipeline stage leaf (the
+  held-stage dim dropped, its ``L/pp`` layers on the layer dim: the
+  logical ``[dp, L, ...]``; an expert stack's expert dim is then dim 2),
+  else ``Replicate()`` on every dim but dp: the identical copies of a
+  replica's leaf are written once (a replicated leaf once for all the
+  stages), and a split leaf as its logical rows.  A process that
+  destroys its default group after such a save and makes a new one on
+  the same port may reach the old group's store (seen with torch 2.13
+  on gloo): run one job a process, or keep one group across jobs.
 
 DCP has no manager, so this module keeps one: a step is the directory
 ``{root}/{step}`` (the epoch, or ``epoch_id``: the LM CLI's step); a save
@@ -159,10 +161,11 @@ class DcpCheckpointManager:
             else:
                 self._mesh = DeviceMesh(
                     "cpu", torch.arange(layout.world).reshape(
-                        layout.dp, layout.ep, layout.sp, layout.tp),
-                    mesh_dim_names=("dp", "ep", "sp", "tp"),
+                        layout.dp, layout.pp, layout.ep, layout.sp,
+                        layout.tp),
+                    mesh_dim_names=("dp", "pp", "ep", "sp", "tp"),
                     **({} if gloo else
-                       {"backend_override": (("gloo", None),) * 4}))
+                       {"backend_override": (("gloo", None),) * 5}))
             self._proc = dist.get_rank()
             root = f"{tag}dcp_global_n{world_size}"
             async_save = False
@@ -249,6 +252,12 @@ class DcpCheckpointManager:
 
         return split_dim(key)
 
+    def _staged(self, key: str) -> bool:
+        """Whether leaf ``key`` is a pipeline stage leaf, held ``[R, 1,
+        L/pp, ...]``."""
+        return (self.layout is not None and self.layout.pp > 1
+                and key.startswith("stack."))
+
     def _stage(self, state) -> dict:
         """Host copies of the state's tensors; under several processes
         each a DTensor of this process's rows (``Shard(0)``, or on the
@@ -267,23 +276,29 @@ class DcpCheckpointManager:
             d = self._split(key)
             expert = self.layout is not None and self.layout.ep > 1 and (
                 is_expert(key))
+            staged = self._staged(key)
+            e_dim = 2 if staged else 1
             if self.layout is None:
                 places, shape = [Shard(0)], [t.shape[0] * self._mesh.size()]
             else:
-                # (dp, ep, sp, tp): rows over dp, over ep copies or the
-                # expert dim's shards, copies over sp, and over tp copies
-                # or the split dim's shards
-                places = [Shard(0), Shard(1) if expert else Replicate(),
+                # (dp, pp, ep, sp, tp): rows over dp, over pp copies or
+                # the layer dim's stages, over ep copies or the expert
+                # dim's shards, copies over sp, and over tp copies or the
+                # split dim's shards
+                places = [Shard(0), Shard(1) if staged else Replicate(),
+                          Shard(e_dim) if expert else Replicate(),
                           Replicate(),
                           Replicate() if d is None else Shard(d + 1)]
-                if d is not None:
+                if d is not None or staged:
                     t = t[:, 0]
                 shape = [t.shape[0] * self.layout.dp]
             shape += t.shape[1:]
             if d is not None:
                 shape[d + 1] *= self.layout.tp
+            if staged:
+                shape[1] *= self.layout.pp
             if expert:
-                shape[1] *= self.layout.ep
+                shape[e_dim] *= self.layout.ep
             stride = [1] * len(shape)
             for i in range(len(shape) - 2, -1, -1):
                 stride[i] = stride[i + 1] * shape[i + 1]
@@ -389,7 +404,8 @@ class DcpCheckpointManager:
                  **self._dcp_kw())
         def local(key, t):
             t = t.to_local() if hasattr(t, "to_local") else t
-            return t if self._split(key) is None else t[:, None]
+            return (t if self._split(key) is None and not self._staged(key)
+                    else t[:, None])
         tree = _map_named(payload["state"], local)
         meta = json.loads(payload["meta"]) or {}
         meta.pop("is_best", None)

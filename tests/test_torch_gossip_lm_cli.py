@@ -143,12 +143,14 @@ def test_reference_flags_parse_with_reference_defaults():
     ("--trace_dir", "/tmp/x"),
 ])
 def test_unported_flags_raise_naming_the_flag(flag, value, small):
-    # --tp, --ep and --moe_experts are ported; their cases keep a refusal
-    # of the reference's that names the flag: --tp with ring attention at
-    # --sp 1, --ep without --moe_experts, and for --moe_experts the same
-    # refusal (a later --moe_experts 0 wins, with --ep 2 under --tp 2)
+    # --tp, --ep, --moe_experts and --pp are ported; their cases keep a
+    # refusal of the reference's that names the flag: --tp with ring
+    # attention at --sp 1, --ep without --moe_experts, for --moe_experts
+    # the same refusal (a later --moe_experts 0 wins, with --ep 2 under
+    # --tp 2), and --pp with --tp
     extra = {"--tp": ["--n_heads", "2", "--attn", "ring", "--world_size",
                       "2"],
+             "--pp": ["--tp", "2", "--n_heads", "2", "--world_size", "4"],
              "--moe_experts": ["--tp", "2", "--n_heads", "2", "--ep", "2",
                                "--world_size", "4", "--moe_experts",
                                "0"]}.get(flag, [])
