@@ -51,7 +51,7 @@
    two peers, three buckets).  Each first takes steps from one state on
    the kernel lane and on the plain transport lane (both with flash
    attention): the push-sum weight, and the in-flight FIFO's weights,
-   bit-equal, params within 1e-6.  Then 5 kernel-lane steps with the
+   bit-equal, params within 1e-6.  Then 3 kernel-lane steps with the
    counters zeroed just before: every start and wait went through the
    kernels (buckets per step each), every attention call too (4 ranks x
    12 layers per step), every loss finite; losses, median step ms,
@@ -66,7 +66,7 @@
    OSGP (staleness 2, bf16 wire, two peers, three buckets).  Each first
    steps one state on the kernel lane and on the plain transport lane
    under deterministic cuDNN: the push-sum weight and the FIFO's weights
-   bit-equal, params within 1e-6.  Then 8 kernel-lane steps with the
+   bit-equal, params within 1e-6.  Then 4 kernel-lane steps with the
    counters zeroed just before: a fired step launches one start and one
    wait per bucket (the wait lands or settles the launched share), a
    skipped step launches nothing, every loss is finite, every rank's
@@ -163,8 +163,9 @@
      step (the recompute); one replica's forward and backward peaks
      below 11a's, the step's peak (set by the gossip round) no higher;
    - 11c: ``run/gossip_lm.py --world_size 8 --sp 4 --attn ring_flash
-     --remat True --gossip_kernel pallas`` at the same shape, 4 steps:
-     finite CSV rows, the launches as in 11b;
+     --remat True --gossip_kernel pallas`` at the same shape, 4 steps on
+     a token file (``--corpus_file``, ids from seed 0): finite CSV rows,
+     the launches as in 11b;
    - 11d: K3, K4 and K5 at a tick's shape (b2 h12 t1024), causal and
      full, against their plain versions, with SDPA and the bounds.
 12. The LM at bf16 (the reference's ``--precision bf16``: bf16 compute
@@ -188,7 +189,8 @@
      and peak memory beside 11a's;
    - 12c: ``run/gossip_lm.py --precision bf16 --world_size 4
      --gossip_kernel pallas`` at the LM's width (T1024 B8 a rank), 4
-     steps: finite CSV rows, 192 bf16 K3, K4 and K5, four K2 and K1;
+     steps on a token file: finite CSV rows, 192 bf16 K3, K4 and K5, four
+     K2 and K1;
    - 12d: the bf16 forms of K3, K4 and K5 against their plain versions
      (``bf16_close``: one bf16 ulp of max(|plain|, 2**-8 of the largest
      |plain|), at most 1 % of the elements apart; lse within 1e-4) at
@@ -260,8 +262,9 @@
      losses' spread between two identical runs: determinism), then 2
      steps and a ``--resume True`` to 4, within that spread of the
      straight run;
-   - 15b-15d: ``--corpus_file`` on the repository's own ``*.md`` text as
-     bytes (vocab 256) with ``--val_frac 0.1 --val_every 2``, 12 steps
+   - 15b-15d: d768 cut to 4 layers, ``--corpus_file`` on the
+     repository's own ``*.md`` text as bytes (vocab 256) with
+     ``--val_frac 0.1 --val_every 2``, 12 steps
      in a subprocess, SIGUSR1 once its first CSV row is out: exit 75,
      both rank files at the CSV's last step; a resume in process to 12,
      its rows running on without a gap, validation rows at the cadence
@@ -366,9 +369,10 @@
    every second block (capacity factor 1.25) through ``run/gossip_lm.py``
    on a token file, ``--moe_experts 8 --ep 2``:
    - 20a: ``--world_size 4`` (dp 2 x ep 2) stacked in this process, bf16,
-     flash, SGP on K2/K1, 3 steps at T1024 B8 an ep shard: 12 bf16 K3,
-     K4 and K5 launches a step a replica (both ep shards' rows in one
-     launch a layer) and one K2 and K1 a step; ``moe_dropped`` in the
+     flash, SGP on K2/K1, d768 cut to 4 layers (2 MoE blocks; 12 until
+     phase 23 came), 3 steps at T1024 B8 an ep shard: 4 bf16 K3, K4 and
+     K5 launches a step a replica (both ep shards' rows in one launch a
+     layer) and one K2 and K1 a step; ``moe_dropped`` in the
      CSV, in [0, 1]; the step ms, the peak GB, and the device ms of one
      MoE block's FFN and of one layer's attention, each alone at the
      run's shapes;
@@ -413,8 +417,9 @@
      the step ms and the peak GB of both;
    - 22b: the ``(gossip, pipe, ep, seq)`` mesh stacked, ``--pp 2 --ep 2
      --sp 2 --moe_experts 8 --moe_every 1 --attn ring_flash --world_size
-     8`` (dp 1), bf16, d768 cut to 4 layers, 2 steps: 3 ring ticks a
-     layer a microbatch, ``moe_dropped`` in [0, 1];
+     8`` (dp 1), bf16, d768 cut to 4 layers, 3 steps (phase 23's
+     oracle, its DCP save at the end): 3 ring ticks a layer a
+     microbatch, ``moe_dropped`` in [0, 1];
    - 22c: dp 2 x pp 2 in 4 processes under a torchrun environment (one
      stage each, gloo, the card shared; checkpoints forced through the
      DCP backend), 22a's command cut to 4 layers, 2 steps, then step 3
@@ -425,15 +430,30 @@
      cross-process K2 and K1 a step a process, their sum the stack's;
      process 0's hand-offs and pipe-group sums a step (count, host ms,
      MB).
-23. A JSON line of per-kernel results (the fp32 flash rows also carry
+23. The pipeline meshes across processes: 22b's command in 8 processes
+   under a torchrun environment (gloo, the card shared), one ``(stage,
+   ep shard, sequence shard)`` each (dp 1 x pp 2 x ep 2 x sp 2;
+   checkpoints forced through the DCP backend), 2 steps, a DCP save,
+   then step 3 resumed from it, held against 22b's stacked run: losses
+   and grad norms within 2e-3 relative, ``moe_dropped`` printed beside
+   the stack's, ps-weight equal, the step-3 DCP tensors finite and their
+   distance from the stack's printed; each process's bf16 K3, K4 and K5
+   launches asserted from its sequence shard (a causal ring of 2: shard
+   0 runs 1 tick a call, shard 1 runs 2; one call a layer of its stage
+   a microbatch, so 8 and 16 a step), their sum ep times the stack's;
+   process 0's hand-offs, ring shifts, ep exchanges and pipe-group sums
+   a step (count, host ms, MB).  The processes start during phase 22.
+24. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
    the ``nvidia-smi`` name/power-limit line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
-Exits non-zero, before printing any result, without a CUDA device or
-outside a checkout of the repository; any failed phase raises.
+Every phase prints its seconds, and the script its seconds from the
+build on.  Exits non-zero, before printing any result, without a CUDA
+device or outside a checkout of the repository; any failed phase
+raises.
 """
 
 from __future__ import annotations
@@ -460,13 +480,13 @@ TOL_STEP_GNORM_REL = 1e-4
 TOL_STEP_PARAM = 1e-6
 TRAIN_STEPS = 6
 GOSSIP_WORLD = 4
-GOSSIP_STEPS = 5
+GOSSIP_STEPS = 3
 GOSSIP_CHECKS = (("f32", 1), ("f32", 2), ("bf16", 1), ("bf16", 2),
                  ("int8", 1), ("int8", 2))
 # the ResNet phase: ResNet-50 at full width, world 4 stacked, bench.py's
 # per-chip batch of 128 split over the ranks
 RESNET = dict(model="resnet50", num_classes=1000, image=224, batch=32,
-              world=4, steps=8, gossip_every=2, global_avg_every=4,
+              world=4, steps=4, gossip_every=2, global_avg_every=4,
               dtype="fp32")
 # the CLI phase: run/gossip_sgd.py at ResNet-50's width, world 4 stacked,
 # two epochs of three iterations (the training set is exactly three
@@ -517,12 +537,12 @@ BF16_CLI = dict(world=4, seq_len=1024, batch=8, steps=4)
 # phase 15: run/gossip_lm.py at the LM's width, bf16, world 2 stacked,
 # SGP on K2/K1, flash attention, T1024 B4 a rank; 15a (cut to 4 layers,
 # 12 until phase 22 came) on a token file four steps' batches long, so
-# its resume skips batches; 15b-15d run
-# 12 steps on the repository's text, validated every 2, in a subprocess
-# until SIGUSR1, then resumed in process
+# its resume skips batches; 15b-15d (cut to 4 layers, 12 until phase 23
+# came) run 12 steps on the repository's text, validated every 2, in a
+# subprocess until SIGUSR1, then resumed in process
 HARNESS = dict(world=2, seq_len=1024, batch=4, steps=4, preempt_steps=12,
                corpus=2 * 4 * 1024 * 4 + 1, val_frac=0.1, val_every=2,
-               val_batches=2, a_layers=4)
+               val_batches=2, a_layers=4, b_layers=4)
 # the eval step's bf16 loss, kernels against plain twins (relative; the
 # LM step parity tests' bf16 loss tolerance, tests/torch_lm_drive.py)
 TOL_HARNESS_LOSS_REL = 2e-3
@@ -533,29 +553,16 @@ def _run(cmd) -> str:
                           text=True).stdout.strip()
 
 
-def share_corpus_tables() -> None:
-    """Make ``data/lm.py::synthetic_lm_corpus`` draw its ``vocab^order``
-    table once per ``(vocab, order, seed)`` in this process (phases 11c
-    and 12c both walk the vocab-32000 one, a 4.1 GB draw): the table and
-    the generator's state after it are kept, so each corpus is the stream
-    a fresh call makes, token for token."""
+def _token_file(directory: str, n: int) -> str:
+    """An ``.npy`` file of ``n`` token ids over the vocab-32000 LM's
+    vocabulary from seed 0, for ``--corpus_file`` (the synthetic corpus
+    would first draw a 32000 x 32000 table, 4.1 GB)."""
     import numpy as np
 
-    from stochastic_gradient_push_torch.data import lm
-
-    kept = {}
-
-    def corpus(n_tokens, vocab_size=256, order=2, seed=0):
-        key = (vocab_size, order, seed)
-        if key not in kept:
-            table, g = lm.markov_table(vocab_size, order, seed)
-            kept[key] = table, g.bit_generator.state
-        table, state = kept[key]
-        g = np.random.default_rng()
-        g.bit_generator.state = state
-        return lm.markov_walk(table, g, n_tokens, vocab_size, order)
-
-    lm.synthetic_lm_corpus = corpus
+    path = os.path.join(directory, "tokens.npy")
+    np.save(path, np.random.default_rng(0).integers(0, 32000, n).astype(
+        np.int32))
+    return path
 
 
 def _time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2817,21 +2824,22 @@ def seq_cli(card: str) -> dict:
 
     dp, sp, b, t = SEQ["dp"], SEQ["sp"], SEQ["batch"], SEQ["seq_len"]
     n = SEQ["cli_steps"]
+    # the run's tokens, CSV and final checkpoint (a file a replica)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="seq_cli_", dir=os.path.join(ROOT,
+                                                               "build"))
     argv = ["--world_size", str(dp * sp), "--sp", str(sp), "--attn",
             "ring_flash", "--remat", "True", "--gossip_kernel", "pallas",
             "--vocab_size", "32000", "--d_model", "768", "--n_layers", "12",
             "--n_heads", "12", "--d_ff", "3072", "--seq_len", str(t),
             "--batch_size", str(b), "--num_steps", str(n), "--print_freq",
-            "1", "--corpus_tokens", str(dp * b * t * n + 1), "--seed", "0"]
+            "1", "--corpus_file", _token_file(ckpt, dp * b * t * n + 1),
+            "--seed", "0"]
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
-    # the run's CSV and its final checkpoint (a file a replica)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    ckpt = tempfile.mkdtemp(prefix="seq_cli_", dir=os.path.join(ROOT,
-                                                               "build"))
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
@@ -3274,20 +3282,20 @@ def bf16_cli(card: str) -> dict:
 
     w, t, b, n = (BF16_CLI[k] for k in ("world", "seq_len", "batch",
                                         "steps"))
+    # the run's tokens, CSV and final checkpoint (a file a rank)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="bf16_cli_", dir=os.path.join(ROOT,
+                                                                "build"))
     argv = ["--precision", "bf16", "--world_size", str(w), "--gossip_kernel",
             "pallas", "--vocab_size", "32000", "--d_model", "768",
             "--n_layers", "12", "--n_heads", "12", "--d_ff", "3072",
             "--seq_len", str(t), "--batch_size", str(b), "--num_steps",
-            str(n), "--print_freq", "1", "--corpus_tokens",
-            str(w * b * t * n + 1), "--seed", "0"]
+            str(n), "--print_freq", "1", "--corpus_file",
+            _token_file(ckpt, w * b * t * n + 1), "--seed", "0"]
     counters = _counters()
     for c in counters.values():
         c.launches = 0
     out = io.StringIO()
-    # the run's CSV and its final checkpoint (a file a rank)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    ckpt = tempfile.mkdtemp(prefix="bf16_cli_", dir=os.path.join(ROOT,
-                                                                "build"))
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
@@ -4380,15 +4388,10 @@ def harness_resume(card: str, tmp: str) -> dict:
     spread), against N/2 steps and a ``--resume True`` to N: rank files
     and CSV losses equal, or within the spread of the two straight
     runs."""
-    import numpy as np
-
     n = HARNESS["steps"]
-    # a token file over the whole vocabulary, n steps' batches long (the
-    # synthetic corpus would first draw a 32000 x 32000 table)
-    corpus = os.path.join(tmp, "tokens.npy")
-    np.save(corpus, np.random.default_rng(0).integers(
-        0, 32000, HARNESS["corpus"]).astype(np.int32))
-    every = ["--ckpt_every", str(n // 2), "--corpus_file", corpus]
+    # a token file over the whole vocabulary, n steps' batches long
+    every = ["--ckpt_every", str(n // 2), "--corpus_file",
+             _token_file(tmp, HARNESS["corpus"])]
     launches = []
     for label, steps, extra in (("straight", n, []), ("again", n, []),
                                 ("split", n // 2, []),
@@ -4448,7 +4451,8 @@ def harness_preempt(card: str, tmp: str) -> dict:
     argv = _harness_argv(ckpt, "--num_steps", str(n), "--corpus_file",
                          corpus, "--val_frac", str(c["val_frac"]),
                          "--val_every", str(c["val_every"]),
-                         "--val_batches", str(c["val_batches"]), vocab=256)
+                         "--val_batches", str(c["val_batches"]), vocab=256,
+                         layers=c["b_layers"])
     csv_path = os.path.join(ckpt, f"lm_out_n{w}.csv")
     log_path = os.path.join(tmp, "preempt.log")
     t0 = time.perf_counter()
@@ -4513,7 +4517,7 @@ def harness_preempt(card: str, tmp: str) -> dict:
             or not all(math.isfinite(float(v)) for r in rows
                        for v in r[:6] + (r[6:] if r[6] else []))):
         raise AssertionError(f"harness 15b-d: rows {rows}")
-    want = _harness_want(n - k, n_eval)
+    want = _harness_want(n - k, n_eval, c["b_layers"])
     if launches != want or len(clock.evals) != n_eval:
         raise AssertionError(f"harness 15c: launches {launches}, expected "
                              f"{want}; {len(clock.evals)} eval batches")
@@ -4521,7 +4525,7 @@ def harness_preempt(card: str, tmp: str) -> dict:
           f"{sum(clock.evals):.2f} s = {sum(clock.evals) / wall:.1%} of the "
           f"resumed run's {wall:.2f} s in main ({sum(clock.steps):.2f} s "
           f"in its {n - k} steps); K3 {launches['flash_fwd_bf16']} = {w} x "
-          f"12 x ({n - k} steps + {n_eval} eval batches), K4/K5 "
+          f"{c['b_layers']} x ({n - k} steps + {n_eval} eval batches), K4/K5 "
           f"{launches['flash_bwd_dq_bf16']}/"
           f"{launches['flash_bwd_dkv_bf16']} (the steps alone) [{card}]",
           flush=True)
@@ -4561,7 +4565,8 @@ def _harness_eval_lanes(card: str, ckpt: str, corpus_path: str) -> None:
         NPeerDynamicDirectedExponentialGraph(w)), StackedTransport(w))
     losses, state = {}, None
     for lane in ("kernel", "plain"):
-        cfg = TransformerConfig(vocab_size=256, d_model=768, n_layers=12,
+        cfg = TransformerConfig(vocab_size=256, d_model=768,
+                                n_layers=c["b_layers"],
                                 n_heads=12, d_ff=3072, attn_impl="flash",
                                 attn_lane="auto" if lane == "kernel"
                                 else "plain", dtype=torch.bfloat16)
@@ -4576,7 +4581,8 @@ def _harness_eval_lanes(card: str, ckpt: str, corpus_path: str) -> None:
         losses[lane] = tlm.build_lm_eval_step(tlm.make_model(cfg), alg)(
             state, toks, tgts)["loss"].float().cpu().numpy()
         fired = {k: v.launches for k, v in counters.items() if v.launches}
-        if fired != ({"flash_fwd_bf16": w * 12} if lane == "kernel" else {}):
+        if fired != ({"flash_fwd_bf16": w * c["b_layers"]} if lane == "kernel"
+                     else {}):
             raise AssertionError(f"harness 15c {lane}: launches {fired}")
     del state
     rel = float(np.max(np.abs(losses["kernel"] - losses["plain"])
@@ -5666,6 +5672,12 @@ import chip_smoke as c
 from stochastic_gradient_push_torch.parallel import multihost
 c.set_matmul_flags()
 multihost.initialize_multihost("gloo", torch.device("cuda", 0))
+# the run's imports and the card's GEMM handles while the parent runs its
+# stacked lanes
+from stochastic_gradient_push_torch.run import gossip_lm  # noqa: F401
+for dt in (torch.float32, torch.bfloat16):
+    x = torch.ones(64, 64, device="cuda", dtype=dt)
+    (x @ x).sum().item()
 t0 = time.perf_counter()
 while not os.path.exists(sys.argv[6]):
     if time.perf_counter() - t0 > c.DIST_TIMEOUT_S:
@@ -6048,12 +6060,12 @@ def tp_path(card: str) -> dict:
 # the flagship LM with 8 experts on every second block (the reference's
 # examples/bench_lm_tpu.py:202 run: d768 L12 h12 T1024 B8, bf16, flash,
 # capacity factor 1.25) at --ep 2: 20a dp 2 x ep 2 stacked, SGP on K2/K1,
-# 3 steps; 20b the /n_ep oracle at dp 1 x ep 2, fp32, capacity factor 8;
-# 20c 20a's command cut to 4 layers (12 until phase 21 came) in 4
-# processes, 2 steps, a DCP save, the third step resumed from it, beside
-# that command stacked
+# cut to 4 layers (12 until phase 23 came), 3 steps; 20b the /n_ep oracle
+# at dp 1 x ep 2, fp32, capacity factor 8; 20c 20a's command at 4 layers
+# (12 until phase 21 came) in 4 processes, 2 steps, a DCP save, the third
+# step resumed from it, beside that command stacked
 EP = dict(ep=2, dp=2, experts=8, every=2, seq_len=1024, batch=8, steps=3,
-          vocab=32000, c_layers=4)
+          vocab=32000, a_layers=4, c_layers=4)
 # the reference test's tolerance for the oracle
 # (tests/test_expert_parallel_lm.py::test_ep_train_step_matches_full_
 # expert_model)
@@ -6234,7 +6246,8 @@ def ep_path(card: str) -> tuple[dict, dict]:
     try:
         torch.cuda.reset_peak_memory_stats()
         a = lm_run(_ep_argv(os.path.join(tmp, "stacked_a"), corpus,
-                            "--world_size", str(world)))
+                            "--world_size", str(world),
+                            layers=EP["a_layers"]))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         shutil.rmtree(os.path.join(tmp, "stacked_a"))
         torch.cuda.empty_cache()
@@ -6260,7 +6273,8 @@ def ep_path(card: str) -> tuple[dict, dict]:
             for lab in "cr"}
 
     # 20a: launches, the dropped fraction in the CSV, the times
-    layers, moe_blocks = 12, 12 // EP["every"]
+    layers = EP["a_layers"]
+    moe_blocks = layers // EP["every"]
     # each replica's forward holds both ep shards' rows: one launch a layer
     _tp_launch_check("20a", a, {f"{n}_bf16": dp * layers * steps
                                 for n in FLASH}, steps, ipc=False)
@@ -6272,7 +6286,7 @@ def ep_path(card: str) -> tuple[dict, dict]:
     if not np.isfinite(a["loss"]).all():
         raise AssertionError(f"ep 20a: losses {a['loss']}")
     step_ms = float(np.median(a["step_s"][1:])) * 1e3
-    print(f"ep 20a: world {world} = dp {dp} x ep {ep} stacked, d768 L12 "
+    print(f"ep 20a: world {world} = dp {dp} x ep {ep} stacked, d768 L{layers} "
           f"T{t} B{b}/ep shard bf16 flash SGP K2/K1, {EP['experts']} "
           f"experts on {moe_blocks} blocks (capacity factor 1.25), {steps} "
           f"steps: losses {[round(x[0], 4) for x in a['loss']]}, "
@@ -6441,7 +6455,8 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
     try:
         torch.cuda.reset_peak_memory_stats()
         a = lm_run(_ep_argv(os.path.join(tmp, "stacked_a"), corpus,
-                            "--tp", str(tp), "--world_size", str(world)))
+                            "--tp", str(tp), "--world_size", str(world),
+                            layers=EP["a_layers"]))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         shutil.rmtree(os.path.join(tmp, "stacked_a"))
         torch.cuda.empty_cache()
@@ -6462,7 +6477,8 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
 
     # 21a: launches (a replica's ep and tp shards fold into one flash
     # launch a layer), the dropped fraction, the distance from 20a
-    layers, moe_blocks = 12, 12 // EP["every"]
+    layers = EP["a_layers"]
+    moe_blocks = layers // EP["every"]
     _tp_launch_check("21a", a, {f"{n}_bf16": dp * layers * steps
                                 for n in FLASH}, steps, ipc=False)
     csv_dropped = [float(r[-1]) for r in a["rows"]]
@@ -6476,7 +6492,8 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
     step_ms = float(np.median(a["step_s"][1:])) * 1e3
     step20 = float(np.median(ep20["step_s"][1:])) * 1e3
     print(f"eptp 21a: world {world} = dp {dp} x ep {ep} x tp {tp} stacked, "
-          f"20a's command (d768 L12 T{t} B{b}/ep shard bf16 flash SGP K2/K1, "
+          f"20a's command (d768 L{layers} T{t} B{b}/ep shard bf16 flash SGP "
+          f"K2/K1, "
           f"{EP['experts']} experts on {moe_blocks} blocks), {steps} steps "
           f"on 20a's tokens: losses {[round(x[0], 4) for x in a['loss']]}, "
           f"largest relative difference from 20a (--tp 1) {rel:.3e}, "
@@ -6573,11 +6590,14 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
 # ring_flash), d768 cut to 4 layers, 2 steps; 22c: dp 2 x pp 2 in 4
 # torchrun processes, one stage each, d768 cut to 4 layers, bf16, 2 steps,
 # a DCP save, the third step resumed from it, beside the same command
-# stacked
+# stacked; phase 23: 22b's command in 8 torchrun processes, one (stage, ep
+# shard, sequence shard) each, 2 steps, a DCP save, the third step resumed
+# from it, held against 22b (3 steps, its DCP save at the end)
 PP = dict(pp=2, dp=2, n_micro=4, seq_len=1024, batch=8, steps=3,
-          vocab=32000, b_layers=4, b_steps=2, c_layers=4, c_steps=3)
+          vocab=32000, b_layers=4, b_steps=3, c_layers=4, c_steps=3)
 
 _P22_CHILD = _P19_CHILD.replace("phase 19's", "phase 22's")
+_P23_CHILD = _P19_CHILD.replace("phase 19's", "phase 23's")
 
 
 def _pp_argv(ckpt: str, corpus: str, *extra, layers: int = 12) -> list:
@@ -6592,8 +6612,9 @@ def _pp_argv(ckpt: str, corpus: str, *extra, layers: int = 12) -> list:
             "0", "--corpus_file", corpus, "--checkpoint_dir", ckpt, *extra]
 
 
-def _pp4_argv(ckpt: str, corpus: str) -> list:
-    """22b's command: the 4-D pipeline mesh, d768 cut to ``b_layers``."""
+def _pp4_argv(ckpt: str, corpus: str, *extra) -> list:
+    """22b's command: the 4-D pipeline mesh, d768 cut to ``b_layers``
+    (phase 23's too, across processes)."""
     return ["--pp", str(PP["pp"]), "--ep", str(EP["ep"]), "--sp", "2",
             "--moe_experts", str(EP["experts"]), "--moe_every", "1",
             "--n_micro", str(PP["n_micro"]), "--precision", "bf16",
@@ -6604,7 +6625,7 @@ def _pp4_argv(ckpt: str, corpus: str) -> list:
             str(PP["seq_len"]), "--batch_size", str(PP["batch"]),
             "--num_steps", str(PP["b_steps"]), "--print_freq", "1",
             "--seed", "0", "--corpus_file", corpus, "--checkpoint_dir",
-            ckpt]
+            ckpt, *extra]
 
 
 def _pp_logical(tensors: dict, pp: int) -> dict:
@@ -6644,8 +6665,14 @@ def pp_path(card: str) -> dict:
                                "True", "--num_steps", str(c_steps),
                                layers=c_layers))]
     go = os.path.join(tmp, "go")
+    b_world = pp * EP["ep"] * 2
+    dist_d, go_d = os.path.join(tmp, "dist_d"), os.path.join(tmp, "go_d")
+    jobs_d = [("RUN_d", _pp4_argv(dist_d, corpus_b, "--num_steps",
+                                  str(PP["b_steps"] - 1))),
+              ("RUN_e", _pp4_argv(dist_d, corpus_b, "--resume", "True"))]
     procs = _ranks(_P22_CHILD, world, [json.dumps(jobs), go],
                    _torchrun_env(world))
+    procs_d = []
     try:
         peaks = {}
         runs_a = {}
@@ -6658,21 +6685,25 @@ def pp_path(card: str) -> dict:
             peaks[lab] = torch.cuda.max_memory_allocated() / 1e9
             shutil.rmtree(os.path.join(tmp, lab))
             torch.cuda.empty_cache()
-        four = lm_run(_pp4_argv(os.path.join(tmp, "four"), corpus_b))
+        # phase 23's processes import while 22b and 22c run
+        procs_d = _ranks(_P23_CHILD, b_world, [json.dumps(jobs_d), go_d],
+                         _torchrun_env(b_world))
+        four = lm_run(_pp4_argv(os.path.join(tmp, "four"), corpus_b,
+                                "--ckpt_backend", "orbax"))
         torch.cuda.empty_cache()
         sc = lm_run(_pp_argv(os.path.join(tmp, "stacked_c"), corpus,
                              "--pp", str(pp), "--world_size", str(world),
                              "--ckpt_backend", "orbax", "--num_steps",
                              str(c_steps), layers=c_layers))
         torch.cuda.empty_cache()
+        with open(go, "w"):
+            pass
+        logs = _join("22", procs)
     except BaseException:
-        for p in procs:
+        for p in procs + procs_d:
             p.kill()
             p.wait()
         raise
-    with open(go, "w"):
-        pass
-    logs = _join("22", procs)
     runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
             for lab in "cr"}
 
@@ -6784,13 +6815,125 @@ def pp_path(card: str) -> dict:
         raise AssertionError(f"pp 22c: losses {loss_rel} or grad norms "
                              f"{grad_rel} from the stacked run's (over "
                              f"{TOL_HARNESS_LOSS_REL})")
+    print(f"pp: phase 22 in {time.perf_counter() - t0:.1f} s", flush=True)
+    druns = pp_mesh_path(card, tmp, procs_d, go_d, four)
     launches = {}
-    for run in [a, four] + runs["c"] + runs["r"]:
+    for run in [a, four] + runs["c"] + runs["r"] + druns:
         for k, v in run["launches"].items():
             launches[k] = launches.get(k, 0) + v
     shutil.rmtree(tmp, ignore_errors=True)
-    print(f"pp: phase 22 in {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
+
+
+def pp_mesh_path(card: str, tmp: str, procs: list, go: str,
+                 four: dict) -> list:
+    """Phase 23: 22b's command across 8 processes, one ``(stage, ep
+    shard, sequence shard)`` each, through a DCP resume, held against
+    22b's stacked run (``four``, its DCP save under ``tmp``).  Starts
+    the waiting ``procs`` through ``go``; returns their runs."""
+    import numpy as np
+    import torch
+
+    from stochastic_gradient_push_torch.parallel.mesh import (
+        make_dp_sp_layout)
+
+    t0 = time.perf_counter()
+    pp, ep, sp, m = PP["pp"], EP["ep"], 2, PP["n_micro"]
+    world, steps, layers = pp * ep * sp, PP["b_steps"], PP["b_layers"]
+    with open(go, "w"):
+        pass
+    logs = _join("23", procs)
+    runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
+            for lab in "de"}
+    layout = make_dp_sp_layout(world, sp, 1, ep, pp)
+    loss_rel = grad_rel = drop_diff = 0.0
+    for p, (run, resumed) in enumerate(zip(runs["d"], runs["e"])):
+        _, e, shard, _ = layout.grid(p)
+        mine = {k: [x[0] for x in run[k] + resumed[k]]
+                for k in ("loss", "grad_norm", "moe_dropped")}
+        want = {k: [x[0] for x in four[k]] for k in mine}
+        loss_rel = max(loss_rel, _tp_rel(mine["loss"], want["loss"]))
+        grad_rel = max(grad_rel, _tp_rel(mine["grad_norm"],
+                                         want["grad_norm"]))
+        drop_diff = max(drop_diff, float(np.max(np.abs(
+            np.subtract(mine["moe_dropped"], want["moe_dropped"])))))
+        if resumed["ps_weight"] != four["ps_weight"]:
+            raise AssertionError(f"pp 23 process {p}: ps-weight "
+                                 f"{resumed['ps_weight']}, "
+                                 f"{four['ps_weight']}")
+        if not run["forced"] and p == 0:
+            raise AssertionError("pp 23: the DCP backend was not forced")
+        # a causal ring of 2: shard 0 runs its diagonal tick, shard 1 its
+        # diagonal and the full one, one call a layer of the stage a
+        # microbatch (the process's ep shard's rows alone)
+        ticks = (shard + 1) * (layers // pp) * m
+        for lab, r, n in (("", run, steps - 1), (" resume", resumed, 1)):
+            _tp_launch_check(f"23{lab} process {p}", r, {
+                f"{k}_bf16": ticks * n for k in FLASH}, 0, ipc=False)
+    summed = {k: sum(r["launches"][f"{k}_bf16"]
+                     for r in runs["d"] + runs["e"]) for k in FLASH}
+    want = {k: ep * four["launches"][f"{k}_bf16"] for k in FLASH}
+    if summed != want:
+        raise AssertionError(f"pp 23: bf16 flash launches over the "
+                             f"processes {summed}, expected ep x the "
+                             f"stack's {want}")
+    got = _dcp_tensors(os.path.join(tmp, "dist_d", f"lm_dcp_global_n{world}",
+                                    str(steps)))
+    finite = all(bool(torch.isfinite(x).all()) for x in got.values()
+                 if x.is_floating_point())
+    _, diff = _tp_equal(_pp_logical(_dcp_tensors(os.path.join(
+        tmp, "four", f"lm_dcp_r0_n{world}", str(steps))), pp), got)
+    d0 = runs["d"][0]
+    d_ms = [float(np.median(r["step_s"])) * 1e3 for r in runs["d"]]
+    print(f"pp 23: {world} processes (torchrun environment, gloo, the card "
+          f"shared) = dp 1 x pp {pp} x ep {ep} x sp {sp}, one (stage, ep "
+          f"shard, sequence shard) each, 22b's command (d768 L{layers}, "
+          f"{EP['experts']} experts on every block, bf16 ring_flash, T"
+          f"{PP['seq_len']} B{PP['batch']}/ep shard, --n_micro {m}), "
+          f"{steps - 1} steps, a DCP save, then step {steps} resumed from "
+          f"it: against 22b's stacked run losses {loss_rel:.3e} and grad "
+          f"norms {grad_rel:.3e} apart (largest relative), moe_dropped "
+          f"process 0 {[x[0] for x in d0['moe_dropped']]} against the "
+          f"stack's {[x[0] for x in four['moe_dropped'][:steps - 1]]} "
+          f"(largest difference over the processes and steps "
+          f"{drop_diff:.3e}), ps-weight equal, the step-{steps} DCP tensors "
+          f"finite: {finite}, params {diff:.3e} from the stack's (largest "
+          f"absolute); held a process {d0['numel'] / 1e6:.1f} M "
+          f"parameters; bf16 K3/K4/K5 a step: shard 0 "
+          f"{(layers // pp) * m}, shard 1 {2 * (layers // pp) * m} a "
+          f"process; process 0 a step: hand-offs {_per_step(d0, 'ho')}; "
+          f"ring shifts {_per_step(d0, 'sh')}; ep exchanges "
+          f"{_per_step(d0, 'ex')}; pipe-group sums {_per_step(d0, 'ps')}; "
+          f"step ms {min(d_ms):.1f}-{max(d_ms):.1f} over the processes "
+          f"(22b stacked {float(np.median(four['step_s'][1:])) * 1e3:.1f}); "
+          f"seconds in main: the run "
+          f"{max(r['wall_s'] for r in runs['d']):.1f}, the resume "
+          f"{max(r['wall_s'] for r in runs['e']):.1f} [{card}]", flush=True)
+    if (loss_rel > TOL_HARNESS_LOSS_REL or grad_rel > TOL_HARNESS_LOSS_REL
+            or not finite or not np.isfinite(diff)):
+        raise AssertionError(f"pp 23: losses {loss_rel} or grad norms "
+                             f"{grad_rel} from 22b's (over "
+                             f"{TOL_HARNESS_LOSS_REL}), or the DCP tensors "
+                             f"not finite ({finite}, {diff})")
+    print(f"pp: phase 23 in {time.perf_counter() - t0:.1f} s (its processes "
+          f"started during phase 22)", flush=True)
+    return runs["d"] + runs["e"]
+
+
+class _phase_clock:
+    """Inside a ``with``: prints the phase's seconds at its end (phases
+    9-23 print their own)."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            print(f"phase {self.label} in "
+                  f"{time.perf_counter() - self.t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -6805,7 +6948,6 @@ def main() -> int:
 
     # bf16 GEMMs accumulate in fp32 throughout, as XLA's do (phase 12)
     set_matmul_flags()
-    share_corpus_tables()
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
@@ -6819,25 +6961,37 @@ def main() -> int:
           flush=True)
     report_ptxas(built)
 
-    flash_row = check_flash(card)
-    paged_row = check_paged(card)
-    bwd_rows = check_flash_bwd(card)
-    gossip_rows = check_gossip(card)
-    engine, requests, launches = main_path(card)
-    engine_vs_dense(engine, requests, card)
+    with _phase_clock("2"):
+        flash_row = check_flash(card)
+        paged_row = check_paged(card)
+        bwd_rows = check_flash_bwd(card)
+    with _phase_clock("4, the gossip kernels,"):
+        gossip_rows = check_gossip(card)
+    with _phase_clock("3"):
+        engine, requests, launches = main_path(card)
+    with _phase_clock("4, the teacher-forced check,"):
+        engine_vs_dense(engine, requests, card)
     del engine
     torch.cuda.empty_cache()
-    train_launches, train_timed = train_path(card)
+    with _phase_clock("5"):
+        train_launches, train_timed = train_path(card)
     torch.cuda.empty_cache()
-    sgp_launches = gossip_train_path(card, "sgp", "int8", False, 1, 1, 1, 1)
+    with _phase_clock("6"):
+        sgp_launches = gossip_train_path(card, "sgp", "int8", False, 1, 1,
+                                         1, 1)
+        torch.cuda.empty_cache()
+        osgp_launches = gossip_train_path(card, "osgp", "bf16", True, 2, 2,
+                                          3, 2)
     torch.cuda.empty_cache()
-    osgp_launches = gossip_train_path(card, "osgp", "bf16", True, 2, 2, 3, 2)
+    with _phase_clock("7"):
+        resnet_sgp = resnet_train_path(card, "sgp", "f32", False, 1, 1, 1,
+                                       1)
+        torch.cuda.empty_cache()
+        resnet_osgp = resnet_train_path(card, "osgp", "bf16", True, 2, 2,
+                                        3, 2)
     torch.cuda.empty_cache()
-    resnet_sgp = resnet_train_path(card, "sgp", "f32", False, 1, 1, 1, 1)
-    torch.cuda.empty_cache()
-    resnet_osgp = resnet_train_path(card, "osgp", "bf16", True, 2, 2, 3, 2)
-    torch.cuda.empty_cache()
-    cli_launches, flat_bt = cli_path(card)
+    with _phase_clock("8"):
+        cli_launches, flat_bt = cli_path(card)
     torch.cuda.empty_cache()
     resil_launches = resilience_path(card)
     torch.cuda.empty_cache()
@@ -6868,6 +7022,8 @@ def main() -> int:
     tp_ep_launches = tp_ep_path(card, ep20)
     torch.cuda.empty_cache()
     pp_launches = pp_path(card)
+    print(f"chip_smoke: every phase in {time.perf_counter() - t0:.1f} s "
+          f"from the build on", flush=True)
 
     # launches: each main path's run (serving, training at world 1, SGP
     # and OSGP at world 4, ResNet SGP and OSGP at world 4, the CLI's SGP,
@@ -6880,7 +7036,8 @@ def main() -> int:
     # 18's processes, phase 19a's stacked tp run and 19b's and 19c's
     # processes, phase 20a's stacked MoE run and 20c's processes, phase
     # 21a's stacked ep x tp run and 21b's processes, phase 22a's stacked
-    # pp run, 22b's 4-D pipeline run and 22c's processes) summed
+    # pp run, 22b's 4-D pipeline run and 22c's processes, phase 23's
+    # processes) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,

@@ -32,10 +32,13 @@ reference's pipeline tree is ``embed``, ``ln_f``, ``lm_head`` and
 ``stack/block/<leaf>``, each stack leaf ``[L, ...]`` gathered over the
 stages (its rank-stacked state ``[R, L, ...]``, with ``[R, L, E, ...]``
 expert stacks).  The port's stage leaves are ``stack.<leaf>``, the
-layer dim cut into ``[pp, L/pp]`` (``params_from_jax(tree, pp=)``);
-:func:`params_to_jax` joins the stages back, and :func:`assemble` turns
-the pipeline tree into the ``TransformerLM`` tree (``block_{i}`` the
-stack's layer ``i``: the reference tests'
+layer dim cut into ``[pp, L/pp]`` (``params_from_jax(tree, pp=)``;
+with ``stages`` and ``ep_shards`` one process's ``(stage, e)`` block,
+``[1, L/pp, E/ep, ...]`` of an expert stack); :func:`join_stages` joins
+the stage processes' parts, :func:`params_to_jax` the stages (and with
+``ep`` the ep shards' parts) back into the layer dim, and
+:func:`assemble` turns the pipeline tree into the ``TransformerLM``
+tree (``block_{i}`` the stack's layer ``i``: the reference tests'
 ``_assemble_reference_params``; :func:`pipeline_tree` is its inverse),
 so a pipeline state and a ``TransformerLM`` one compare leaf for leaf.
 
@@ -75,7 +78,7 @@ from .transformer import TransformerConfig
 __all__ = ["params_from_jax", "params_to_jax", "init_params", "config_from_params",
            "flatten_tree", "unflatten_tree", "train_state_from_jax",
            "vision_params_from_jax", "init_model_params",
-           "reference_layout", "assemble", "pipeline_tree"]
+           "reference_layout", "assemble", "pipeline_tree", "join_stages"]
 
 # flax leaf name -> nn.Module parameter name
 _LEAF = {"embedding": "weight", "kernel": "weight", "scale": "weight",
@@ -149,7 +152,8 @@ def assemble(tree) -> dict:
 
 
 def params_from_jax(tree, tp: int = 1, shards=None, ep: int = 1,
-                    ep_shards=None, pp: int = 1) -> dict[str, torch.Tensor]:
+                    ep_shards=None, pp: int = 1,
+                    stages=None) -> dict[str, torch.Tensor]:
     """The flax tree of a ``TransformerLM`` as a ``TransformerLM``
     ``state_dict`` of fp32 CPU tensors (kernels transposed).  Leaves may
     carry leading dims (a rank-stacked training state): the kernels'
@@ -161,12 +165,15 @@ def params_from_jax(tree, tp: int = 1, shards=None, ep: int = 1,
     all; ``parallel/tp.py::shard_params``): an expert stack as its ``(e,
     t)`` slices.  A pipeline tree (``stack/block/...``) becomes
     ``PipelineStageLM`` leaves ``stack.<leaf>``, each layer dim cut into
-    ``[pp, L/pp]`` (every stage)."""
+    ``[pp, L/pp]``: every stage, or those of ``stages`` (stage indices,
+    in order), ``[held, L/pp]``; with ``ep_shards`` an expert stack then
+    keeps those shards' experts, ``[held, L/pp, held·E/ep, ...]`` (one
+    process's ``(stage, e)`` block)."""
     if tp > 1 or (ep > 1 and ep_shards is not None):
         from ..parallel.ep import shard_experts
         from ..parallel.tp import shard_params
 
-        state = params_from_jax(tree)
+        state = params_from_jax(tree, pp=pp, stages=stages)
         if ep > 1 and ep_shards is not None:
             state = shard_experts(state, ep, ep_shards)
         return shard_params(state, tp, shards) if tp > 1 else state
@@ -186,8 +193,27 @@ def params_from_jax(tree, tp: int = 1, shards=None, ep: int = 1,
                 raise ValueError(f"{path}: {t.shape[d]} layers not "
                                  f"divisible by pp {pp}")
             t = t.reshape(*t.shape[:d], pp, -1, *t.shape[d + 1:])
+            if stages is not None:
+                t = t[(slice(None),) * d + (list(stages),)].contiguous()
         state[".".join([*mods, _LEAF.get(leaf, leaf)])] = t
     return state
+
+
+def join_stages(parts: list) -> dict:
+    """One state of every stage from each stage process's (in stage
+    order, each holding ``[..., 1, L/pp, ...]`` of a stage leaf, as
+    :func:`params_from_jax` with ``stages`` places it): the stage leaves
+    joined on their held-stage dim, the replicated leaves stage 0's."""
+    out = {}
+    for name, t in parts[0].items():
+        if name.startswith("stack."):
+            *mods, leaf = name.split(".")
+            ndim = (_LEAF_NDIM[leaf] if leaf in _RAW else 1
+                    if leaf == "bias" or mods[-1] in ("ln1", "ln2") else 2)
+            d = np.ndim(t) - ndim - 2
+            t = torch.cat([torch.as_tensor(p[name]) for p in parts], d)
+        out[name] = t
+    return out
 
 
 def _gather_tp(state, tp: int) -> dict:
@@ -454,7 +480,8 @@ def init_model_params(model, seed: int) -> tuple[dict, dict]:
 
 
 def train_state_from_jax(state, device: str | torch.device = "cpu",
-                         model=None, pp: int = 1):
+                         model=None, pp: int = 1, stages=None, ep: int = 1,
+                         ep_shards=None):
     """The reference's rank-stacked ``TrainState`` (leaves as numpy
     arrays, e.g. after ``jax.device_get``) as the port's
     :class:`~..train.state.TrainState`: params and the optimizer's trace
@@ -466,8 +493,9 @@ def train_state_from_jax(state, device: str | torch.device = "cpu",
     ``model`` it goes through :func:`vision_params_from_jax` and the
     ``batch_stats`` come along.  A pipeline state (the reference's
     ``init_pp_state``: a ``stack`` in its tree) becomes
-    ``PipelineStageLM`` leaves of ``pp`` stages (:func:`params_from_jax`).
-    """
+    ``PipelineStageLM`` leaves of ``pp`` stages (:func:`params_from_jax`),
+    with ``stages`` and ``ep_shards`` those of one process's ``(stage,
+    e)`` block."""
     from ..algorithms.api import GossipState
     from ..train.state import TrainState
 
@@ -478,7 +506,8 @@ def train_state_from_jax(state, device: str | torch.device = "cpu",
 
     def to_dev(tree):
         if model is None:
-            out = params_from_jax(tree, pp=pp)
+            out = params_from_jax(tree, ep=ep, ep_shards=ep_shards, pp=pp,
+                                  stages=stages)
         else:
             out = vision_params_from_jax(model, {"params": tree})[0]
         return {n: t.to(device) for n, t in out.items()}

@@ -64,23 +64,25 @@ def is_expert(name: str) -> bool:
 
 
 def shard_experts(logical: dict, ep: int, shards) -> dict:
-    """Rank-stacked logical leaves ``[R, ...]`` with each expert leaf cut
-    to the experts of ``shards`` (ep indices, in order), ``[R, held·E/ep,
-    ...]``; the others as they are."""
+    """Logical leaves with each expert leaf ``[..., E, D, F]`` (or ``[...,
+    E, F, D]``: any leading rank, stage or layer dims) cut to the experts
+    of ``shards`` (ep indices, in order), ``[..., held·E/ep, ...]``; the
+    others as they are."""
     out = {}
     for n, p in logical.items():
         if is_expert(n):
-            parts = p.chunk(ep, dim=1)
-            p = torch.cat([parts[i] for i in shards], 1).contiguous()
+            parts = p.chunk(ep, dim=-3)
+            p = torch.cat([parts[i] for i in shards], -3).contiguous()
         out[n] = p
     return out
 
 
 def gather_experts(parts: list) -> dict:
     """The logical leaves from every ep shard's :func:`shard_experts` (in
-    shard order): expert leaves concatenated, the others shard 0's."""
-    return {n: (torch.cat([p[n] for p in parts], 1) if is_expert(n)
-                else parts[0][n]) for n in parts[0]}
+    shard order): expert leaves concatenated on the expert dim, the
+    others shard 0's."""
+    return {n: (torch.cat([torch.as_tensor(p[n]) for p in parts], -3)
+                if is_expert(n) else parts[0][n]) for n in parts[0]}
 
 
 def check_ep_wire_blocks(shapes: dict, ep: int, block: int) -> None:

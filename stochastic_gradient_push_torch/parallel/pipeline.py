@@ -20,7 +20,8 @@ outputs, aux and gradients to zero: skipping gives the same values).
   one entry a stage, and the hand-off moves the list one place along
   (stage ``s``'s entry to ``s + 1``, the last one's back to 0).
 * :class:`DistPipe` holds one stage, the others reached over the
-  replica's pipe group (``parallel/mesh.py``).  Its hand-off is one
+  pipe group of its ``(replica, ep shard, sequence shard)``
+  (``parallel/mesh.py``).  Its hand-off is one
   ``batch_isend_irecv`` a tick (``collectives.DistTransport.permute``:
   staged through the host on gloo), sending to stage ``s + 1`` and
   taking stage ``s - 1``'s, in an autograd function whose backward is
@@ -36,6 +37,18 @@ outputs, aux and gradients to zero: skipping gives the same values).
   ``hand_off_bytes`` count the exchanges, their host seconds and the
   bytes each sent; ``sums``, ``sum_s`` and ``sum_bytes`` the sums over
   the stages (:meth:`DistPipe.sum_stages`).
+
+A stage body may hold collectives of its own groups: ring shifts on its
+sp group (``parallel/seq.py``) and token exchanges on its ep group
+(``parallel/ep.py``), every shard and ep shard of the stage running the
+same body on the same ticks.  Their order in the backward needs no
+anchor of its own: a live tick's body lies between two hand-offs (the
+received activation feeds only that body, whose output feeds only the
+next hand-off and, on the last stage, the loss), so the backward of
+tick ``t``'s body runs after tick ``t``'s hand-off's and before tick ``t
+- 1``'s in every process, and the processes of a stage build the same
+graph.  Bubble ticks run no body, so no shift or exchange waits on a
+peer that skipped it.
 """
 
 from __future__ import annotations

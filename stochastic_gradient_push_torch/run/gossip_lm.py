@@ -116,13 +116,19 @@ On the GPU::
 ``k`` stages and its batch into ``m`` microbatches, ``--world_size /
 (--pp · --ep · --sp)`` replicas gossip, and ``grad_norm`` is the mean
 over the stages of each stage's norm (the reference's).  Run directly,
-a replica's stages are held stacked beside it; under ``torchrun``
-(``(gossip, pipe)`` only: ``--sp`` or ``--ep`` beside ``--pp`` there
-is refused by name) process ``p`` holds stage ``p % k`` of replica ``p
-// k``: the stage hand-offs and the sum of the replicated leaves'
-gradients run on the replica's pipe group, each stage's leaves gossip
-on its dp group, and checkpoints go through ``--ckpt_backend orbax``
-(forced, and logged).  The reference's refusals stand, with its
+a replica's stages are held stacked beside it; under ``torchrun`` each
+process holds one ``(replica, stage, ep shard, sequence shard)``,
+process ``p = ((replica·k + s)·ep + e)·sp + shard`` (the reference's
+``(gossip, pipe, ep, seq)`` device order; ``(gossip, pipe)`` is stage
+``p % k`` of replica ``p // k``) fed its replica's, ep shard's and
+sequence shard's tokens: the stage hand-offs and the sum of the
+replicated leaves' gradients run on the pipe group of its ``(replica,
+e, shard)``, ring shifts and the sequence mean inside each tick on its
+stage's sp group, the token exchanges and the ep means on its stage's
+ep group, each ``(stage, e, shard)``'s leaves gossip on its dp group,
+and checkpoints go through ``--ckpt_backend orbax`` (forced, and
+logged; an expert stack as ``[dp, L, E, ...]``, pipe on the layer dim
+and ep on the expert dim).  The reference's refusals stand, with its
 messages: ``--pp`` with ``--tp``, ``--pp --ep`` without
 ``--moe_experts``, ``--moe_every`` other than 1, ``--n_micro`` < 1,
 layers or a batch that ``--pp`` or ``--n_micro`` do not divide, ring
@@ -135,6 +141,14 @@ On the GPU::
       --pp 2 --n_micro 4 --precision bf16 --gossip_kernel pallas \
       --vocab_size 32000 --d_model 768 --n_layers 12 --n_heads 12 \
       --d_ff 3072 --seq_len 1024
+
+and ``(gossip, pipe, ep, seq)`` one block a process (8 processes)::
+
+    torchrun --nproc_per_node 8 -m \
+      stochastic_gradient_push_torch.run.gossip_lm \
+      --pp 2 --ep 2 --sp 2 --n_micro 4 --moe_experts 8 --moe_every 1 \
+      --attn ring_flash --precision bf16 --vocab_size 32000 --d_model 768 \
+      --n_layers 4 --n_heads 12 --d_ff 3072 --seq_len 1024 --batch_size 8
 
 ``--precision bf16`` (the reference's flag) computes the model in
 bf16 on fp32 parameters (``models/transformer.py``): bf16 matmuls, the
@@ -182,9 +196,10 @@ The harness (the reference's, ``run/gossip_lm.py:752-1216`` there):
   ``{tag}dcp_r0_n{world}``, each save's host copy made before the run
   goes on and its write in the background, the last 3 steps kept; under
   ``torchrun`` one shared ``{tag}dcp_global_n{world}`` written by every
-  process, synchronously, each leaf placed on the ``(dp, sp, tp)`` mesh
-  (a replica's copies written once, a split leaf as its logical rows).  A preemption exit and the run's end wait for
-  the write in flight.
+  process, synchronously, each leaf placed on the ``(dp, pp, ep, sp,
+  tp)`` mesh (a replica's copies written once, a split leaf as its
+  logical rows).  A preemption exit and the run's end wait for the write
+  in flight.
 * SIGUSR1/SIGTERM: at the next step boundary (agreed across processes
   under ``torchrun``) the run saves and exits 75, the requeue status.
 * ``--heartbeat_timeout`` logs a metrics fetch that stalls (from the
@@ -666,13 +681,6 @@ def _main(argv) -> dict:
         if args.world_size not in (None, launched):
             raise SystemExit(f"--world_size {args.world_size} but the "
                              f"launcher started {launched} processes")
-        if pp_n > 1 and (args.sp > 1 or ep_n > 1):
-            raise SystemExit(
-                f"--pp {pp_n} with --sp or --ep under torchrun: the "
-                f"(gossip, pipe, seq), (gossip, pipe, ep) and (gossip, "
-                f"pipe, ep, seq) meshes across processes are not ported "
-                f"yet (ROADMAP.md Queue 1); run them stacked "
-                f"(--world_size in one process)")
         if (tp_n > 1 or ep_n > 1 or pp_n > 1) and \
                 args.ckpt_backend != "orbax":
             # the reference forces its global backend for a tp-, ep- or
@@ -832,7 +840,7 @@ def _main(argv) -> dict:
                 pipe=pipe, n_micro=args.n_micro, seq=seq, ep=ep)
             state = init_pp_state(cfg, alg, tx, held, pp_n,
                                   stages=pipe.stages, seed=args.seed,
-                                  device=device)
+                                  device=device, ep=ep)
         else:
             model = make_model(cfg)
             step = build_lm_train_step(

@@ -12,7 +12,9 @@ and gossip mirrors) are ``[R, held_pp, L/pp, ...]``: ``held_pp`` the
 stages this process holds, all ``pp`` on a :class:`~..parallel.pipeline.
 StackedPipe`, one on a :class:`~..parallel.pipeline.DistPipe` (as a tp
 shard is held, ``parallel/tp.py``); under ep an expert stack's E dim
-comes after (all experts on a stack).  ``embed``, ``ln_f`` and
+comes after, all experts on a stack and ``E/ep`` on a
+:class:`~..parallel.ep.DistEp` (a process's ``(stage, e)`` block ``[R, 1,
+L/pp, E/ep, ...]``).  ``embed``, ``ln_f`` and
 ``lm_head`` are replicated over the stages, ``[R, ...]``: one copy on a
 stack, one a stage process across processes, where each stage's copy
 gossips on its own dp group and every copy gets the same summed
@@ -81,25 +83,31 @@ def make_pp_model(cfg: TransformerConfig, pp: int) -> PipelineStageLM:
 
 
 def check_pp_wire_blocks(model: PipelineStageLM, held_pp: int, ep: int,
-                         block: int) -> None:
+                         block: int, held_ep: int | None = None) -> None:
     """``ValueError`` naming the first stage leaf whose int8 blocks would
     not be the reference's.  The reference blocks each stage's leaf
     ``[L/pp, ...]`` (under ep its ``[L/pp, E/ep, ...]`` slice) on its
     own; a rank of a stacked state holds ``held_pp`` stages side by side,
-    blocked as the reference's exactly when a stage's leaf is a multiple
-    of ``block`` elements, and a stacked expert stack's ep slices are
-    runs of its flattening only at one layer a stage."""
+    blocked as the reference's exactly when a stage's leaf (as held: one
+    ep slice of an expert stack where ``held_ep`` is 1) is a multiple of
+    ``block`` elements, and a stacked expert stack's ep slices (``held_ep``
+    of them, default all ``ep``) are runs of its flattening only at one
+    layer a stage.  One stage and one ep slice a process hold the
+    reference's own block unit."""
+    held_ep = ep if held_ep is None else held_ep
     for n, p in model.named_parameters():
         if not is_stage(n):
             continue
         size = p.numel()
+        if ep > 1 and is_expert(n) and held_ep == 1:
+            size //= ep
         if held_pp > 1 and size % block:
             raise ValueError(
                 f"--wire_dtype int8 with --pp: {n}'s stage holds {size} "
                 f"elements, not a multiple of --wire_block {block}, so "
                 f"the stacked stages' int8 blocks would not be the "
                 f"reference's")
-        if ep > 1 and is_expert(n):
+        if ep > 1 and is_expert(n) and held_ep > 1:
             if model.n_local_layers > 1:
                 raise ValueError(
                     f"--wire_dtype int8 with --pp and --ep: {n}'s ep "
@@ -116,17 +124,20 @@ def check_pp_wire_blocks(model: PipelineStageLM, held_pp: int, ep: int,
 
 def init_pp_state(cfg: TransformerConfig, algorithm: GossipAlgorithm, tx,
                   world: int, pp: int, stages=None, seed: int = 0,
-                  device: str | torch.device = "cpu") -> TrainState:
+                  device: str | torch.device = "cpu",
+                  ep=None) -> TrainState:
     """Fresh state for ``world`` held ranks of ``pp`` stages, holding
-    ``stages`` (default all): the logical ``L``-layer model drawn once
-    from ``seed`` with the flax init recipe (``models/convert.py::
-    init_params``: the initialisers' distributions, not their bits), each
-    held stage's layers placed, zero momentum, ps-weight 1."""
+    ``stages`` (default all) and the experts of ``ep``'s held shards (all
+    on a stack): the logical ``L``-layer model drawn once from ``seed``
+    with the flax init recipe (``models/convert.py::init_params``: the
+    initialisers' distributions, not their bits), each held ``(stage,
+    e)`` block placed, zero momentum, ps-weight 1."""
     check_pp_config(cfg)
-    one = params_from_jax(pipeline_tree(init_params(cfg, seed)), pp=pp)
-    if stages is not None:
-        one = {n: p[list(stages)] if is_stage(n) else p
-               for n, p in one.items()}
+    ep_shards = (ep.shards if ep is not None and len(ep.shards) < ep.size
+                 else None)
+    one = params_from_jax(pipeline_tree(init_params(cfg, seed)),
+                          ep=cfg.ep, ep_shards=ep_shards, pp=pp,
+                          stages=stages)
     params = {n: p.to(device)[None].expand(world, *p.shape).clone()
               for n, p in one.items()}
     return TrainState(step=0, params=params, opt_state=tx.init(params),
@@ -284,7 +295,8 @@ def build_pp_train_step(model: PipelineStageLM, algorithm: GossipAlgorithm,
     codec = getattr(algorithm, "wire", None)
     if codec is not None and codec.blocked:
         check_pp_wire_blocks(model, len(pipe.stages),
-                             1 if ep is None else ep.size, codec.block)
+                             1 if ep is None else ep.size, codec.block,
+                             None if ep is None else len(ep.shards))
     algorithm.bind_layout(reference_layout(model))
     moe = model.cfg.moe_experts > 0
     dist = isinstance(pipe, DistPipe) and pipe.size > 1

@@ -14,8 +14,6 @@ stacked lane.
 """
 
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -25,6 +23,7 @@ import torch
 from stochastic_gradient_push_torch.parallel import collectives as tc
 from stochastic_gradient_push_torch.parallel import wire as tw
 from stochastic_gradient_push_torch import topology as tt
+from torch_launch import spawn
 
 torch.set_num_threads(1)
 
@@ -157,34 +156,14 @@ dist.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_dist_lane_equals_stacked_lane_over_gloo(tmp_path):
     params, ps = _state(2, seed=7)
     data = tmp_path / "state.npz"
     np.savez(data, ps=ps, **params)
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, REPO, str(r), str(port),
-         str(tmp_path / f"rank{r}.npz"), str(data)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=120)
-            logs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    spawn(2, lambda r, port: [
+        sys.executable, "-c", _WORKER, REPO, str(r), str(port),
+        str(tmp_path / f"rank{r}.npz"), str(data)], timeout=120,
+        PYTHONPATH=REPO)
 
     sched = tt.build_schedule(tt.NPeerDynamicDirectedExponentialGraph(2),
                               tt.SelfWeightedMixing(np.array([0.3, 0.6])))

@@ -22,8 +22,6 @@ reference's ``tests/test_ckpt_streaming.py`` holds its orbax manager:
 import dataclasses
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import pytest
@@ -33,6 +31,7 @@ from torch.distributed.checkpoint.api import CheckpointException
 from stochastic_gradient_push_torch.algorithms.api import GossipState
 from stochastic_gradient_push_torch.train.state import TrainState
 from stochastic_gradient_push_torch.utils.dcp_ckpt import DcpCheckpointManager
+from torch_launch import torchrun
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
@@ -238,32 +237,10 @@ dist.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_two_processes_keep_their_own_rows(tmp_path):
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _CHILD, REPO, str(tmp_path)],
-        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                 RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=120)[0].decode(
-                errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    logs = torchrun(2, lambda r: [sys.executable, "-c", _CHILD, REPO,
+                                  str(tmp_path)], timeout=120,
+                    PYTHONPATH=REPO)
 
     def tagged(log, tag):
         line = next(x for x in log.splitlines() if x.startswith(tag + " "))

@@ -30,8 +30,6 @@ import json
 import os
 import shutil
 import signal
-import socket
-import subprocess
 import sys
 import time
 
@@ -44,6 +42,7 @@ from stochastic_gradient_push_torch.parallel import discovery, multihost
 from stochastic_gradient_push_torch.run import gossip_sgd, gossip_sgd_adpsgd
 from torch_ckpt_sets import (assert_bit_equal, dcp_tensors, port_set,
                              reference_reshard)
+from torch_launch import Rendezvous, torchrun
 
 torch.set_num_threads(1)
 
@@ -86,40 +85,12 @@ torch.distributed.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _env(rank, world, port):
-    """A torchrun environment for ``rank`` of ``world`` on this host."""
-    return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(port))
-
-
 def _launch(world, runs, timeout=300):
     """Every ``(module, argv)`` of ``runs`` in turn, in ``world``
     processes of one gloo group; returns the processes' logs."""
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _CHILD, REPO, json.dumps(runs)],
-        env=_env(r, world, port), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            logs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert [p.returncode for p in procs] == [0] * world, "\n".join(logs)
-    return logs
+    return torchrun(world, lambda r: [sys.executable, "-c", _CHILD, REPO,
+                                      json.dumps(runs)], timeout=timeout,
+                    PYTHONPATH=REPO)
 
 
 def _stacked(module, argv):
@@ -305,14 +276,14 @@ def test_dcp_backend_under_torchrun_keeps_each_process_rows(tmp_path):
 
 
 def test_sigusr1_to_one_process_makes_every_process_exit_75(tmp_path):
-    port = _free_port()
+    rdv = Rendezvous()
     argv = BASE + ["--num_epochs", "50", "--checkpoint_dir", str(tmp_path)]
     argv[argv.index("--num_iterations_per_training_epoch") + 1] = "400"
     argv += ["--synthetic_samples", "8000", "--image_size", "8"]
-    procs = [subprocess.Popen(
+    procs = [rdv.popen(
         [sys.executable, "-m", "stochastic_gradient_push_torch.run."
-         "gossip_sgd", *argv], env=_env(r, 2, port), cwd=REPO,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+         "gossip_sgd", *argv], r, 2, env={"PYTHONPATH": REPO}, cwd=REPO)
+        for r in range(2)]
     csv = tmp_path / "out_r0_n2.csv"
     try:
         deadline = time.time() + 120

@@ -27,8 +27,6 @@ against the reference on the same numpy inputs, on the CPU.
 """
 
 import os
-import socket
-import subprocess
 import sys
 
 import jax
@@ -43,6 +41,7 @@ from stochastic_gradient_push_torch import topology as tt
 from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
 from stochastic_gradient_push_torch.parallel import collectives as tc
 from stochastic_gradient_push_torch.run import gossip_lm
+from torch_launch import spawn
 
 torch.set_num_threads(1)
 
@@ -422,35 +421,15 @@ dist.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.mark.parametrize("world", [2, 4])
 def test_bilat_dist_lane_equals_stacked_lane_over_gloo(tmp_path, world):
     params = _params(world, seed=world)
     data = tmp_path / "state.npz"
     np.savez(data, **params)
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, REPO, str(r), str(port),
-         str(tmp_path / f"rank{r}.npz"), str(data), str(world)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=120)
-            logs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert [p.returncode for p in procs] == [0] * world, "\n".join(logs)
+    spawn(world, lambda r, port: [
+        sys.executable, "-c", _WORKER, REPO, str(r), str(port),
+        str(tmp_path / f"rank{r}.npz"), str(data), str(world)], timeout=120,
+        PYTHONPATH=REPO)
 
     pairing = tt.build_pairing_schedule(
         tt.DynamicBipartiteExponentialGraph(world))

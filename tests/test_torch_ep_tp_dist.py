@@ -44,7 +44,6 @@ this process is pinned to one thread too.
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -59,7 +58,8 @@ from stochastic_gradient_push_torch.parallel.seq import StackedSeq
 from stochastic_gradient_push_torch.parallel.tp import StackedTp, split_dim
 from stochastic_gradient_push_torch.run import gossip_lm
 import torch_ep_drive as drive
-from test_torch_tp_dist import _dcp, _free_port, _join
+from test_torch_tp_dist import _dcp
+from torch_launch import spawn, torchrun
 
 torch.set_num_threads(1)
 
@@ -125,14 +125,11 @@ dist.destroy_process_group()
 
 
 def _spawn(world: int, layouts: list, tmp) -> list[dict]:
-    port = _free_port()
     job = {"layouts": layouts, "seed": 5, "experts": E, "ff": FF,
            "out": str(tmp / "rank%d.npz")}
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    _join([subprocess.Popen(
-        [sys.executable, "-c", _WORKER, REPO, TESTS, str(r), str(world),
-         str(port), json.dumps(job)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for r in range(world)])
+    spawn(world, lambda r, port: [
+        sys.executable, "-c", _WORKER, REPO, TESTS, str(r), str(world),
+        str(port), json.dumps(job)], PYTHONPATH=REPO)
     return [dict(np.load(job["out"] % r)) for r in range(world)]
 
 
@@ -306,15 +303,9 @@ ARGV = ["--device", "cpu", "--moe_experts", str(E), "--ep", str(EP),
 
 
 def _cli(argv: list) -> list[str]:
-    port = _free_port()
-    return _join([subprocess.Popen(
-        [sys.executable, "-c", _CLI_WORKER, REPO, json.dumps(argv)],
-        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                 RANK=str(r), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(r),
-                 LOCAL_WORLD_SIZE=str(WORLD), MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(port)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(WORLD)])
+    return torchrun(WORLD, lambda r: [sys.executable, "-c", _CLI_WORKER,
+                                      REPO, json.dumps(argv)],
+                    PYTHONPATH=REPO)
 
 
 def _rows(text: str) -> list:

@@ -31,8 +31,6 @@ suite.
 
 import os
 import re
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -45,6 +43,7 @@ from stochastic_gradient_push_torch.ops import _build
 from stochastic_gradient_push_torch.ops import gossip_kernel as tgk
 from stochastic_gradient_push_torch.parallel import collectives as tc
 from stochastic_gradient_push_torch.parallel import wire as tw
+from torch_launch import Rendezvous, join
 
 torch.set_num_threads(1)
 
@@ -119,31 +118,14 @@ dist.destroy_process_group()
            rounds=ROUNDS)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(script, world, args, timeout=240):
     """Run ``script`` in ``world`` processes (argv: repo, rank, world,
     port, *args(rank)); returns their logs, raising on a nonzero exit."""
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", script, REPO, str(r), str(world), str(port),
-         *args(r)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            logs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    rdv = Rendezvous()
+    procs = [rdv.popen([sys.executable, "-c", script, REPO, str(r),
+                        str(world), str(rdv.port), *args(r)],
+                       env={"PYTHONPATH": REPO}) for r in range(world)]
+    logs = join(procs, timeout, check=False)
     return [p.returncode for p in procs], logs
 
 

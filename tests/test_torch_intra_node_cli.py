@@ -26,8 +26,6 @@ the CPU, stacked and under a torchrun environment over gloo.
 import csv
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -48,6 +46,7 @@ from stochastic_gradient_push_torch.algorithms import sgp
 from stochastic_gradient_push_torch.train import step as tstep
 from stochastic_gradient_push_torch.train.lr import LRSchedule
 from stochastic_gradient_push_torch.train.state import sgd
+from torch_launch import torchrun
 
 torch.set_num_threads(1)
 
@@ -197,43 +196,24 @@ import json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 torch.set_num_threads(1)
+from stochastic_gradient_push_torch.parallel import multihost
 from stochastic_gradient_push_torch.run import gossip_sgd
+# one group for both runs: the rendezvous store outlives a group
+multihost.initialize_multihost("gloo", "cpu")
 for argv in json.loads(sys.argv[2]):
     gossip_sgd.main(argv)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 """
 DIST = BASE + ["--num_epochs", "1", "--verbose", "True"]
 DIST_ALGS = {"sgp": [],
              "ar": ["--all_reduce", "True", "--graph_type", "-1"]}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _launch(procs_n, runs, timeout=300):
-    port = _free_port()
-    env = [dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                RANK=str(r), WORLD_SIZE=str(procs_n), LOCAL_RANK=str(r),
-                LOCAL_WORLD_SIZE=str(procs_n), MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(port)) for r in range(procs_n)]
-    procs = [subprocess.Popen([sys.executable, "-c", _CHILD, REPO,
-                               json.dumps(runs)], env=e,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT) for e in env]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0].decode(
-                errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert [p.returncode for p in procs] == [0] * procs_n, "\n".join(logs)
-    return logs
+    return torchrun(procs_n, lambda r: [sys.executable, "-c", _CHILD, REPO,
+                                        json.dumps(runs)], timeout=timeout,
+                    PYTHONPATH=REPO)
 
 
 @pytest.fixture(scope="module")

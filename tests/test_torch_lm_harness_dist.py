@@ -28,8 +28,6 @@ pinned to the children's one torch thread around the run.
 import json
 import os
 import signal
-import socket
-import subprocess
 import sys
 import time
 
@@ -37,6 +35,7 @@ import pytest
 import torch
 
 from stochastic_gradient_push_torch.run import gossip_lm
+from torch_launch import Rendezvous
 
 torch.set_num_threads(1)
 
@@ -50,32 +49,12 @@ SMALL = ["--device", "cpu", "--vocab_size", "256", "--d_model", "32",
 TIMEOUT = 240
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _env(rank=None, world=None, port=None):
-    """One torch thread; with ``rank``, a torchrun environment for it."""
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    if rank is not None:
-        env.update(RANK=str(rank), WORLD_SIZE=str(world),
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    return env
-
-
 def _spawn(argv, world=None):
     """The CLI in one child, or in ``world`` children of one group."""
-    if world is None:
-        envs = [_env()]
-    else:
-        port = _free_port()
-        envs = [_env(r, world, port) for r in range(world)]
-    return [subprocess.Popen([sys.executable, "-m", MODULE, *argv], env=env,
-                             cwd=REPO, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT) for env in envs]
+    rdv = Rendezvous()
+    return [rdv.popen([sys.executable, "-m", MODULE, *argv], r, world,
+                      env={"PYTHONPATH": REPO}, cwd=REPO)
+            for r in ([None] if world is None else range(world))]
 
 
 def _join(procs, signal_to=None, when=None):

@@ -293,3 +293,110 @@ def test_process_grid_is_the_references_device_order():
         make_dp_sp_layout(8, 1, 1, 1, 3)
     with pytest.raises(ValueError, match="pp must be >= 1"):
         make_dp_sp_layout(8, 1, 1, 1, 0)
+
+
+@pytest.mark.parametrize("dp,ep,sp", [(1, 1, 2), (1, 2, 1), (1, 2, 2),
+                                      (2, 2, 1)])
+def test_every_process_makes_the_groups_in_one_order(monkeypatch, dp, ep,
+                                                     sp):
+    """``new_group`` is collective over the world: on the pipeline meshes
+    every process makes the sp, dp, ep and pipe groups in one order, and
+    is handed the four that hold it, whole."""
+    import torch.distributed as dist
+
+    from stochastic_gradient_push_torch.parallel.mesh import join_groups
+
+    made = []
+    monkeypatch.setattr(dist, "new_group", lambda ranks: made.append(
+        list(ranks)) or tuple(ranks))
+    pp = 2
+    layout = make_dp_sp_layout(dp * pp * ep * sp, sp, 1, ep, pp)
+    orders = []
+    for p in range(layout.world):
+        made.clear()
+        groups = join_groups(layout, p)
+        orders.append(list(made))
+        replica, e, shard, t = layout.grid(p)
+        s = layout.stage(p)
+        assert groups.tp is None
+        assert groups.sp == tuple(layout.sp_members(replica, t, e, s))
+        assert groups.dp == tuple(layout.dp_members(shard, t, e, s))
+        assert groups.ep == (tuple(layout.ep_members(replica, shard, t, s))
+                             if ep > 1 else None)
+        assert groups.pp == tuple(layout.pp_members(replica, e, shard, t))
+        assert all(p in g for g in groups if g is not None)
+    assert all(o == orders[0] for o in orders)
+    # sp groups, then dp, then ep, then pipe; each process in one of each
+    n = dp * pp * ep * sp
+    kinds = [n // sp, n // dp] + ([n // ep] if ep > 1 else []) + [n // pp]
+    assert len(orders[0]) == sum(kinds)
+    assert sorted(map(tuple, orders[0][-n // pp:])) == sorted(
+        tuple(layout.pp_members(r, e_, i)) for r in range(dp)
+        for e_ in range(ep) for i in range(sp))
+
+
+def test_converters_place_one_process_block():
+    """``params_from_jax`` with ``pp``, ``stages``, ``ep`` and ``ep_shards``
+    gives a process its ``(stage, e)`` block (``[R, 1, L/pp, E/ep, ...]``
+    of an expert stack, ``[R, 1, L/pp, ...]`` of the router, replicated
+    leaves whole); ``join_stages`` and ``params_to_jax`` of every
+    process's block give back the reference's logical tree, and
+    ``train_state_from_jax`` places the same block."""
+    import types
+
+    from stochastic_gradient_push_torch.models.convert import (
+        join_stages, train_state_from_jax)
+
+    cfg = drive.config(4, moe=True)
+    rng = np.random.default_rng(2)
+    tree = pipeline_tree(unflatten_tree({
+        k: rng.normal(size=(2, *np.shape(v))).astype(np.float32)
+        for k, v in flatten_tree(init_params(cfg, 0)).items()}))
+    pp, ep = 2, 2
+    full = params_from_jax(tree, pp=pp)
+    blocks = {}
+    for s, e in np.ndindex(pp, ep):
+        got = params_from_jax(tree, ep=ep, ep_shards=[e], pp=pp, stages=[s])
+        assert got["stack.moe.experts_up"].shape == (2, 1, 2, 2, 32, 64)
+        assert got["stack.moe.router"].shape == (2, 1, 2, 32, 4)
+        assert got["embed.weight"].shape == (2, 64, 32)
+        for n, t in got.items():
+            want = full[n]
+            if n.startswith("stack."):
+                want = want[:, s:s + 1]
+                if n.endswith(("experts_up", "experts_down")):
+                    want = want.chunk(ep, -3)[e]
+            assert torch.equal(t, want), n
+        blocks[s, e] = got
+    back = flatten_tree(params_to_jax(
+        [join_stages([blocks[s, e] for s in range(pp)]) for e in range(ep)],
+        ep=ep, pp=pp))
+    want = flatten_tree(tree)
+    assert set(back) == set(want)
+    assert all(np.array_equal(back[k], want[k]) for k in want)
+    # a whole rank-stacked state: params and momentum placed alike
+    state = types.SimpleNamespace(
+        params=tree, step=np.zeros(2, np.int32),
+        opt_state=(types.SimpleNamespace(trace=tree),),
+        gossip=types.SimpleNamespace(phase=np.zeros(2, np.int32),
+                                     ps_weight=np.ones(2, np.float32)))
+    got = train_state_from_jax(state, pp=pp, stages=[1], ep=ep,
+                               ep_shards=[0])
+    for part in (got.params, got.opt_state):
+        for n, t in part.items():
+            assert torch.equal(t, blocks[1, 0][n]), n
+
+
+def test_int8_wire_sees_the_process_block():
+    """One stage and one ep slice a process hold the reference's own
+    int8 block unit, ``[L/pp, E/ep, ...]``: nothing to refuse where the
+    stacked stages' interleaved slices are refused."""
+    moe = tpp.make_pp_model(drive.config(4, ep=2, moe=True), 2)
+    with pytest.raises(ValueError, match="ep slices interleave"):
+        tpp.check_pp_wire_blocks(moe, 1, 2, 64)
+    tpp.check_pp_wire_blocks(moe, 1, 2, 64, held_ep=1)
+    # stacked stages of one ep slice: the slice's size decides
+    with pytest.raises(ValueError, match=r"stack\.ln1\.weight's stage "
+                                         r"holds 64 elements, not a "
+                                         r"multiple of --wire_block 48"):
+        tpp.check_pp_wire_blocks(moe, 2, 2, 48, held_ep=1)

@@ -37,7 +37,6 @@ this process is pinned to one thread too.
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -50,7 +49,8 @@ from stochastic_gradient_push_torch.parallel.mesh import make_dp_sp_layout
 from stochastic_gradient_push_torch.parallel.pipeline import StackedPipe
 from stochastic_gradient_push_torch.run import gossip_lm
 import torch_pp_drive as drive
-from test_torch_tp_dist import _dcp, _free_port, _join
+from test_torch_tp_dist import _dcp
+from torch_launch import spawn, torchrun
 
 torch.set_num_threads(1)
 
@@ -95,13 +95,10 @@ dist.destroy_process_group()
 
 
 def _spawn(job: dict, tmp) -> list[dict]:
-    port = _free_port()
     job = dict(job, out=str(tmp / "rank%d.npz"))
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    _join([subprocess.Popen(
-        [sys.executable, "-c", _WORKER, REPO, TESTS, str(r), str(WORLD),
-         str(port), json.dumps(job)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for r in range(WORLD)])
+    spawn(WORLD, lambda r, port: [
+        sys.executable, "-c", _WORKER, REPO, TESTS, str(r), str(WORLD),
+        str(port), json.dumps(job)], PYTHONPATH=REPO)
     return [dict(np.load(job["out"] % r)) for r in range(WORLD)]
 
 
@@ -216,15 +213,9 @@ ARGV = ["--device", "cpu", "--pp", str(PP), "--n_micro", "2",
 
 
 def _cli(argv: list) -> list[str]:
-    port = _free_port()
-    return _join([subprocess.Popen(
-        [sys.executable, "-c", _CLI_WORKER, REPO, json.dumps(argv)],
-        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                 RANK=str(r), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(r),
-                 LOCAL_WORLD_SIZE=str(WORLD), MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(port)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(WORLD)])
+    return torchrun(WORLD, lambda r: [sys.executable, "-c", _CLI_WORKER,
+                                      REPO, json.dumps(argv)],
+                    PYTHONPATH=REPO)
 
 
 def _rows(text: str) -> list:

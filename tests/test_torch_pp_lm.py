@@ -19,7 +19,9 @@ line (``--pp``, ``--n_micro``), on the stacked lane.
   ``(gossip, pipe, ep, seq)`` meshes trains with ``moe_dropped`` in [0,
   1]; a stacked run resumed from its step-2 files equals the straight
   run (rows and files); every reference refusal fires with its message,
-  and cross-world resume at pp > 1 is refused by name.
+  and cross-world resume at pp > 1 is refused by name.  Under a torchrun
+  environment ``--pp 2 --sp 2`` runs in four processes with the stacked
+  run's rows, and ``--pp`` × ``--tp`` stays refused by its message.
 """
 
 import numpy as np
@@ -254,12 +256,39 @@ def test_cli_refuses_cross_world_resume_at_pp(tmp_path):
 
 def test_pp_with_sp_or_ep_across_processes_is_refused_by_name(monkeypatch,
                                                                tmp_path):
+    """The refusal of ``--pp`` with ``--sp`` or ``--ep`` under torchrun is
+    lifted: ``(gossip, pipe, seq)`` runs in four processes and prints the
+    stacked run's rows.  What stays refused by name under torchrun is
+    the reference's ``--pp`` × ``--tp``."""
+    import sys
+
+    from torch_launch import torchrun
+
+    argv = SMALL + ["--pp", "2", "--sp", "2", "--attn", "ring",
+                    "--num_steps", "2"]
+    logs = torchrun(4, lambda r: [
+        sys.executable, "-m", "stochastic_gradient_push_torch.run.gossip_lm",
+        *argv, "--checkpoint_dir", str(tmp_path / "procs")])
+    assert "world 4 = dp 1 x pp 2 x sp 2 (process 0: replica 0, stage 0, " \
+        "shard 0)" in logs[0]
+    gossip_lm.main(argv + ["--world_size", "4", "--checkpoint_dir",
+                           str(tmp_path / "stacked")])
+    procs, stacked = ([r.split(",") for r in (
+        tmp_path / csv).read_text().splitlines()[1:]]
+        for csv in ("procs/lm_out_p3_n4.csv", "stacked/lm_out_n4.csv"))
+    assert len(procs) == len(stacked) == 2
+    # step, loss, ppl, lr, grad_norm, one unit of the last printed digit
+    # apart at most (the sequence mean is taken per process)
+    unit = np.array([0, 1e-4, 1e-2, 1e-5, 1e-4]) * (1 + 1e-6)
+    for g, w in zip(procs, stacked):
+        g, w = g[:4] + g[5:], w[:4] + w[5:]
+        assert np.all(np.abs(np.float64(g) - np.float64(w)) <= unit), (g, w)
     for k, v in (("RANK", "0"), ("WORLD_SIZE", "8"), ("LOCAL_RANK", "0"),
                  ("LOCAL_WORLD_SIZE", "8"), ("MASTER_ADDR", "127.0.0.1"),
                  ("MASTER_PORT", "29999")):
         monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match=r"--pp 2 with --sp or --ep under "
-                                         r"torchrun: .* not ported yet"):
-        gossip_lm.main(SMALL + ["--pp", "2", "--sp", "2", "--attn", "ring",
-                                "--num_steps", "1", "--checkpoint_dir",
-                                str(tmp_path)])
+    with pytest.raises(SystemExit, match=r"--pp composes with gossip DP, "
+                                         r"--sp, --moe_experts and --ep "
+                                         r"only \(not --tp\)"):
+        gossip_lm.main(SMALL + ["--pp", "2", "--tp", "2", "--num_steps",
+                                "1", "--checkpoint_dir", str(tmp_path)])

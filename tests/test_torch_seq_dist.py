@@ -34,8 +34,6 @@ this process is pinned to one thread too.
 
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -52,12 +50,12 @@ from stochastic_gradient_push_torch.parallel.ring_attention import (
     ring_attention)
 from stochastic_gradient_push_torch.parallel.seq import StackedSeq
 import torch_seq_drive as drive
+from torch_launch import spawn, torchrun
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(REPO, "tests")
-TIMEOUT = 240
 SP = 4
 BLK = (1, 2, 8, 16)    # a shard's q/k/v: [B, H, t, D]
 LOSS_RTOL, GN_RTOL, PARAM_ATOL = 1e-5, 1e-4, 2e-6
@@ -132,32 +130,12 @@ dist.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(world: int, job: dict, tmp) -> list[dict]:
     """Run the worker in ``world`` gloo processes; each one's results."""
-    port = _free_port()
     job = dict(job, out=str(tmp / "rank%d.npz"))
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, REPO, TESTS, str(r), str(world),
-         str(port), json.dumps(job)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT)[0].decode(
-                errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    spawn(world, lambda r, port: [
+        sys.executable, "-c", _WORKER, REPO, TESTS, str(r), str(world),
+        str(port), json.dumps(job)], PYTHONPATH=REPO)
     return [dict(np.load(job["out"] % r)) for r in range(world)]
 
 
@@ -410,25 +388,10 @@ def test_cli_collectives_run_on_their_groups(tmp_path):
             "--checkpoint_dir", str(tmp_path)]
     runs = []
     for resume, steps in (("False", "2"), ("True", "3")):
-        port = _free_port()
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", _CLI_WORKER, REPO,
-             json.dumps(argv + ["--resume", resume, "--num_steps", steps])],
-            env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                     RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                     LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                     MASTER_PORT=str(port)),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for r in range(world)]
-        try:
-            logs = [p.communicate(timeout=TIMEOUT)[0].decode(
-                errors="replace") for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+        logs = torchrun(world, lambda r: [
+            sys.executable, "-c", _CLI_WORKER, REPO,
+            json.dumps(argv + ["--resume", resume, "--num_steps", steps])],
+            PYTHONPATH=REPO)
         assert "resumed from step 2" in logs[0] or resume == "False"
         runs.append(logs)
     layout = make_dp_sp_layout(world, sp)

@@ -41,8 +41,6 @@ this process is pinned to one thread too.
 import json
 import os
 import shutil
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -57,12 +55,12 @@ from stochastic_gradient_push_torch.parallel.seq import StackedSeq
 from stochastic_gradient_push_torch.parallel.tp import StackedTp, split_dim
 from stochastic_gradient_push_torch.train import lm as tlm
 import torch_tp_drive as drive
+from torch_launch import spawn, torchrun
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(REPO, "tests")
-TIMEOUT = 240
 LOSS_RTOL, GN_RTOL, PARAM_ATOL = 1e-5, 1e-4, 2e-6
 
 _WORKER = r"""
@@ -78,6 +76,7 @@ from stochastic_gradient_push_torch.parallel.mesh import (
 from stochastic_gradient_push_torch.parallel.seq import DistSeq
 from stochastic_gradient_push_torch.parallel.tp import DistTp
 import torch_tp_drive as drive
+from torch_launch import spawn, torchrun
 
 rank, world, port = int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
 job = json.loads(sys.argv[6])
@@ -105,36 +104,12 @@ dist.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _join(procs) -> list[str]:
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT)[0].decode(
-                errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
-    return logs
-
-
 def _spawn(world: int, job: dict, tmp) -> list[dict]:
     """Run the worker in ``world`` gloo processes; each one's results."""
-    port = _free_port()
     job = dict(job, out=str(tmp / "rank%d.npz"))
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    _join([subprocess.Popen(
-        [sys.executable, "-c", _WORKER, REPO, TESTS, str(r), str(world),
-         str(port), json.dumps(job)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for r in range(world)])
+    spawn(world, lambda r, port: [
+        sys.executable, "-c", _WORKER, REPO, TESTS, str(r), str(world),
+        str(port), json.dumps(job)], PYTHONPATH=REPO)
     return [dict(np.load(job["out"] % r)) for r in range(world)]
 
 
@@ -288,15 +263,9 @@ finally:
 
 
 def _cli(world: int, argv: list) -> list[str]:
-    port = _free_port()
-    return _join([subprocess.Popen(
-        [sys.executable, "-c", _CLI_WORKER, REPO, json.dumps(argv)],
-        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
-                 RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                 LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(port)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(world)])
+    return torchrun(world, lambda r: [sys.executable, "-c", _CLI_WORKER,
+                                      REPO, json.dumps(argv)],
+                    PYTHONPATH=REPO)
 
 
 def _dcp(path) -> dict:

@@ -4,8 +4,9 @@
 L4, MoE with 4 experts on every block at L2), their algorithms, token
 batches from a seed, a few train steps and the eval step, run the same
 way on the stacked lane (every stage in the test's process,
-``parallel/pipeline.py::StackedPipe``) and on the process lane (one stage
-a gloo process, ``DistPipe``); and the reference's pipelined step on its
+``parallel/pipeline.py::StackedPipe``) and on the process lane (one
+``(stage, ep shard, sequence shard)`` a gloo process, ``DistPipe`` beside
+``DistEp`` and ``DistSeq``); and the reference's pipelined step on its
 CPU meshes."""
 
 import numpy as np
@@ -100,7 +101,8 @@ def run(name: str, dp: int, transport, pipe, data, n_layers: int = 4,
     init (or ``start``, a rank-stacked state as held), then the eval step
     on the first batch: per step each held replica's loss, ppl,
     moe_dropped and grad norm, the final params and momentum as held, the
-    push-sum weight, the eval loss and the pipe's hand-offs."""
+    push-sum weight, the eval loss, the pipe's hand-offs and (with
+    ``seq`` or ``ep``) the shifts and exchanges with their bytes."""
     cfg = config(n_layers, sp, 1 if ep is None else ep.size, moe, impl,
                  remat, dtype, cf)
     alg = algorithm(name, dp, transport)
@@ -111,7 +113,7 @@ def run(name: str, dp: int, transport, pipe, data, n_layers: int = 4,
         pipe=pipe, n_micro=n_micro, seq=seq, ep=ep, moe_loss_coef=coef)
     state = (start if start is not None else tpp.init_pp_state(
         cfg, alg, tx, len(transport.ranks), pipe.size, stages=pipe.stages,
-        seed=0))
+        seed=0, ep=ep))
 
     def mine(pair):
         return [local(a, transport.ranks, ep, sp,
@@ -133,6 +135,11 @@ def run(name: str, dp: int, transport, pipe, data, n_layers: int = 4,
         state, *mine(data[0]))
     out["eval_loss"] = ev["loss"].numpy()
     out["hand_offs"] = np.array(getattr(pipe, "hand_offs", 0))
+    # the sequence and expert axes' counters, where they exist
+    for ax, keys in ((seq, ("shifts", "shift_bytes")),
+                     (ep, ("exchanges", "exchange_bytes"))):
+        if ax is not None:
+            out.update({k: np.array(getattr(ax, k, 0)) for k in keys})
     return out
 
 
