@@ -75,18 +75,30 @@
    ``replica_spread`` are printed.
 8. The training CLI, ``run/gossip_sgd.py``, at ResNet-50's full width
    (224 px, 1000 classes, fp32, TF32 off), world 4 stacked, 32 images a
-   rank, synthetic data (seed 0), two epochs of three iterations with
-   validation, each run with the counters zeroed just before:
+   rank, synthetic data (seed 0; each image set drawn once for the
+   script, ``install_synthetic_memo``), two epochs of three iterations
+   with validation, each run with the counters zeroed just before and
+   traced
+   (``--trace_dir``; its host spans printed: validation, saves, steps
+   and the rest of ``main``):
    - SGP and D-PSGD (``--push_sum False``) on the kernel lane
      (``--gossip_kernel pallas``): one start and one wait per step, no
      other kernel; the rank-averaged CSV's header and its 10 rows; one
      checkpoint file per rank.  Their step times (the trainer's own
-     ``BT`` meter, each epoch's first step left out) are printed.
+     ``BT`` meter, each epoch's first step left out) are printed.  The
+     SGP run's telemetry (``--metrics_every 2``), checked with the
+     port's own schema (the reference's reader needs jax): ``plan``,
+     ``run_meta``, ``comm`` and ``step_stats`` events, every envelope
+     valid and every kind in the closed vocabulary; ``trace.json``
+     monotone with one ``train_step`` span a step; the last ``comm``
+     bytes equal to a ``CommModel`` built here from the plan's graph and
+     ResNet-50's parameter count; ``run_meta`` stamping the kernel lane.
    - D-PSGD on the kernel lane against ``--gossip_kernel xla``: two
      steps from one state (seed 0) under deterministic cuDNN, params
      within 1e-6 (the saved rank files).
-   - AD-PSGD through ``run/gossip_sgd_adpsgd.py`` (graph 1): no gossip
-     kernel launched; one bilateral round on ResNet-50's parameters on
+   - AD-PSGD through ``run/gossip_sgd_adpsgd.py`` (graph 1, one epoch,
+     ``--train_fast True``): no gossip kernel launched; one bilateral
+     round on ResNet-50's parameters on
      the card equal, bit for bit, to ``(x + x[partner]) * 0.5`` gathered
      to the host.
    - Resume equals continue: OSGP (staleness 2) on the kernel lane for
@@ -95,7 +107,8 @@
      momentum, push-sum weight and FIFO exactly equal.
    - Preemption: a subprocess run of the CLI (OSGP, ``--overlap True``)
      gets SIGUSR1 once it is training; it must exit 75 and leave the
-     four rank files with a drained (all-zero) FIFO.
+     four rank files with a drained (all-zero) FIFO.  It runs beside the
+     runs after the SGP and D-PSGD ones (a thread waits on it).
 9. Error feedback, faults, health and recovery at ResNet-50's width
    (224 px, fp32, TF32 off, world 4 stacked, 32 images a rank):
    - 9a: SGP on the int8 wire with error feedback and the fault plan
@@ -110,7 +123,10 @@
      faults), every ``gossip health:`` line with a finite
      ``ef_residual_rms`` under 0.1, no ``push-sum-mass-leak``, a
      ``gossip recovery:`` global average, rank files with a non-zero
-     EF residual and a drained FIFO, the reference's CSV;
+     EF residual and a drained FIFO, the reference's CSV; traced
+     (``--trace_dir``): its ``health`` and ``recovery`` events' data
+     the JSON of those lines, each line once, one ``gossip plan:``
+     line;
    - 9c: ``make_recovery_fn`` on 9b's saved state (with a FIFO of
      pending shares) on the card: every rank exactly equal, ``Σx/Σw``
      kept to 1e-6 against float64, the weights 1, the FIFO drained;
@@ -266,7 +282,10 @@
      repository's own ``*.md`` text as bytes (vocab 256) with
      ``--val_frac 0.1 --val_every 2``, 12 steps
      in a subprocess, SIGUSR1 once its first CSV row is out: exit 75,
-     both rank files at the CSV's last step; a resume in process to 12,
+     both rank files at the CSV's last step, and (traced) its
+     ``trace.json``, a ``run_meta`` with ``exit_reason:
+     "preempt-requeue"`` at that step and a last ``comm`` event; a
+     resume in process to 12,
      its rows running on without a gap, validation rows at the cadence
      and at the end, K3 launched once more a layer a rank for every
      validation batch and K4/K5 not, validation's share of the run's
@@ -333,7 +352,10 @@
      exactly the replica's; fp32 K3/K4/K5 launches summed over the
      processes equal to the stacked run's; one cross-process K2 and K1
      a step in every process and no stacked one; finite CSV rows, the
-     same in every process; one checkpoint file a process;
+     same in every process; one checkpoint file a process; traced:
+     every process's own ``events_rN.jsonl`` and ``trace_rN.json``
+     (process 0 the canonical names), its ``run_meta`` at dp 2 x sp 4,
+     its comm model priced on its replica's payload;
    - 18b: the same at ``--precision bf16``, 2 steps: finite rows and the
      bf16 K3-K5 launches summed over the processes equal to the stacked
      run's;
@@ -443,7 +465,12 @@
    a microbatch, so 8 and 16 a step), their sum ep times the stack's;
    process 0's hand-offs, ring shifts, ep exchanges and pipe-group sums
    a step (count, host ms, MB).  The processes start during phase 22.
-24. A JSON line of per-kernel results (the fp32 flash rows also carry
+24. The wire selftest (``scripts/torch_wirecheck.py --selftest``,
+   ``parallel/wirecheck.py``) on the card, after phase 9: int8 + EF
+   chaos round, parity, the ``CommModel`` pricing, and the chaos round
+   on the kernel lane through the CUDA K2 and K1 (launches asserted),
+   its ps-weight trajectory bit-identical to the plain lane's.
+25. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -1683,6 +1710,13 @@ def _cli_run(label: str, argv, card: str, module=None,
           f"peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
           f"{json.dumps(launches)} [{card}]", flush=True)
+    if "--trace_dir" in argv:
+        # where main's seconds went, from the run's own host spans
+        _, spans = _telemetry(f"cli {label}",
+                              argv[argv.index("--trace_dir") + 1])
+        print(f"cli {label}: {wall - sum(e['dur'] for e in spans) / 1e6:.2f}"
+              f" s of main outside the spans (init, data set, the rest); "
+              f"{_span_split(spans)}", flush=True)
     return launches, result
 
 
@@ -1724,6 +1758,86 @@ def _assert_gossip_launches(label: str, launches: dict, per_step: int):
     if launches != want:
         raise AssertionError(f"cli {label}: launches {launches}, expected "
                              f"{want} ({per_step} start and wait a step)")
+
+
+def _telemetry(label: str, tdir: str, rank: int = 0,
+               kinds=("run_meta", "comm")) -> tuple[list, list]:
+    """A ``--trace_dir`` run's files of process ``rank``, checked with
+    the port's own schema (the reference's reader needs jax): every
+    event's envelope valid, its kind in the closed vocabulary and
+    ``kinds`` among them; ``trace.json`` parsed, its complete spans'
+    ``ts`` monotone.  Returns ``(events, spans)``."""
+    from stochastic_gradient_push_torch.telemetry import (
+        EVENT_KINDS, EVENTS_FILE, SCHEMA_VERSION, TRACE_FILE, _rank_file)
+    from stochastic_gradient_push_torch.telemetry.registry import SEVERITIES
+
+    with open(os.path.join(tdir, _rank_file(EVENTS_FILE, rank))) as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    bad = [e for e in events
+           if set(e) - {"step"} != {"v", "kind", "t", "rank", "severity",
+                                    "data"}
+           or e["v"] != SCHEMA_VERSION or e["kind"] not in EVENT_KINDS
+           or e["severity"] not in SEVERITIES or e["rank"] != rank
+           or not isinstance(e["data"], dict)]
+    missing = set(kinds) - {e["kind"] for e in events}
+    if bad or missing:
+        raise AssertionError(f"{label}: events {bad[:3]} out of the "
+                             f"schema, kinds {sorted(missing)} missing")
+    with open(os.path.join(tdir, _rank_file(TRACE_FILE, rank))) as f:
+        trace = json.load(f)["traceEvents"]
+    spans = [e for e in trace if e["ph"] == "X"]
+    ts = [e["ts"] for e in trace if e["ph"] != "M"]
+    if ts != sorted(ts) or not all("dur" in e for e in spans):
+        raise AssertionError(f"{label}: trace.json not monotone")
+    return events, spans
+
+
+def _span_split(spans) -> str:
+    """Seconds a span name over a trace's complete spans."""
+    tot = {}
+    for e in spans:
+        tot[e["name"]] = tot.get(e["name"], 0.0) + e["dur"] / 1e6
+    return ", ".join(f"{n} {v:.2f} s" for n, v in tot.items())
+
+
+def _check_cli_telemetry(label: str, tdir: str, launches: dict,
+                         card: str) -> None:
+    """8: the traced SGP run's files: plan, run_meta, comm and
+    step_stats events; one ``train_step`` span a step; the final comm
+    bytes equal to a ``CommModel`` built here from the plan's graph and
+    ResNet-50's parameter count; the kernel lane stamped."""
+    from stochastic_gradient_push_torch.telemetry import CommModel
+    from stochastic_gradient_push_torch.topology import (TOPOLOGY_NAMES,
+                                                         build_schedule)
+    from stochastic_gradient_push_torch.train.step import make_model
+
+    events, spans = _telemetry(f"cli {label}", tdir, kinds=(
+        "plan", "run_meta", "comm", "step_stats"))
+    steps = CLI["epochs"] * CLI["itrs"]
+    plan = next(e["data"] for e in events if e["kind"] == "plan")
+    meta = next(e["data"] for e in events if e["kind"] == "run_meta")
+    comm = [e["data"] for e in events if e["kind"] == "comm"][-1]
+    payload = 4 * sum(p.numel() for p in make_model(
+        CLI["model"], num_classes=CLI["num_classes"]).parameters())
+    model = CommModel.from_schedule(
+        build_schedule(TOPOLOGY_NAMES[plan["topology"]](
+            CLI["world"], peers_per_itr=plan["ppi"])), payload,
+        global_avg_every=plan["global_avg_every"], gossip_kernel="pallas")
+    n_steps = sum(e["name"] == "train_step" for e in spans)
+    print(f"cli {label}: telemetry {len(events)} events "
+          f"{sorted({e['kind'] for e in events})}, {n_steps} train_step "
+          f"spans; comm {json.dumps(comm['bytes'])} after {comm['steps']} "
+          f"steps, CommModel here {json.dumps(model.totals(steps))}; "
+          f"run_meta gossip_kernel {meta['comm_model']['gossip_kernel']}, "
+          f"payload {meta['comm_model']['payload_bytes']:,} B; host "
+          f"spans: {_span_split(spans)} [{card}]", flush=True)
+    if (n_steps != steps or comm["steps"] != steps
+            or comm["bytes"] != model.totals(steps)
+            or meta["comm_model"]["gossip_kernel"] != "pallas"
+            or meta["comm_model"]["payload_bytes"] != payload):
+        raise AssertionError(f"cli {label}: telemetry differs from the "
+                             f"run: {meta}, {comm}")
+    _assert_gossip_launches(label, launches, 1)
 
 
 def _bilat_round_check(card: str) -> None:
@@ -1821,33 +1935,62 @@ def _preempt_check(tmp: str, card: str) -> None:
         raise AssertionError("cli preempt: the FIFO on disk is not drained")
 
 
+def _traced(ckpt: str) -> list[str]:
+    """A phase-8 run's telemetry flags: its files beside its
+    checkpoints."""
+    return ["--trace_dir", os.path.join(ckpt, "telemetry")]
+
+
 def cli_path(card: str) -> tuple[dict, float]:
-    """Phase 8: the training CLI at ResNet-50's width.  Returns the main
-    runs' launches and the SGP run's mean ``BT`` (s)."""
+    """Phase 8: the training CLI at ResNet-50's width, every in-process
+    run traced (``--trace_dir``; its host spans printed).  Returns the
+    main runs' launches and the SGP run's mean ``BT`` (s)."""
+    import threading
+
     import torch
 
     from stochastic_gradient_push_torch.run import gossip_sgd_adpsgd
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(ROOT, "build"))
+    preempt = None
     try:
         print(f"cli: run/gossip_sgd.py, {CLI['model']} {CLI['image']} px, "
               f"{CLI['num_classes']} classes, world {CLI['world']} stacked, "
               f"batch {CLI['batch']}/rank, fp32, {CLI['epochs']} epochs of "
               f"{CLI['itrs']} steps", flush=True)
         main_runs = []
-        for label, extra in (("sgp", []), ("dpsgd", ["--push_sum", "False"])):
+        for label, extra in (("sgp", ["--metrics_every", "2"]),
+                             ("dpsgd", ["--push_sum", "False"])):
             ckpt = os.path.join(tmp, label)
             launches, result = _cli_run(label, _cli_argv(
-                ckpt, "--gossip_kernel", "pallas", *extra), card)
+                ckpt, "--gossip_kernel", "pallas", *_traced(ckpt), *extra),
+                card)
             if label == "sgp":
                 flat_bt = result["batch_meter"].avg
+                _check_cli_telemetry(label, os.path.join(ckpt, "telemetry"),
+                                     launches, card)
             _assert_gossip_launches(label, launches, 1)
             _check_csv(os.path.join(ckpt, f"out_r0_n{CLI['world']}.csv"),
                        label)
             if len(_rank_files(ckpt)) != CLI["world"]:
                 raise AssertionError(f"cli {label}: rank files missing")
             main_runs.append(launches)
+
+        # the preemption check's subprocess runs beside the runs below
+        # (its start, imports and init overlap them; the timed SGP and
+        # D-PSGD runs above ran alone)
+        failed = []
+
+        def preempt_check():
+            try:
+                _preempt_check(tmp, card)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                failed.append(e)
+
+        preempt = threading.Thread(target=preempt_check,
+                                   name="preempt_check")
+        preempt.start()
 
         # D-PSGD: the kernel lane against the plain lane, two steps from
         # one state under deterministic cuDNN
@@ -1858,8 +2001,8 @@ def cli_path(card: str) -> tuple[dict, float]:
                 ckpt = os.path.join(tmp, f"lane_{lane}")
                 _cli_run(f"dpsgd {lane} lane", _cli_argv(
                     ckpt, "--push_sum", "False", "--gossip_kernel", lane,
-                    "--num_iterations_per_training_epoch", "2", epochs=1),
-                    card)
+                    "--num_iterations_per_training_epoch", "2",
+                    *_traced(ckpt), epochs=1), card)
                 lanes[lane] = [_flat(r) for r in _rank_files(ckpt)]
             err = max(_max_err(a[n], b[n]) for a, b in zip(
                 lanes["pallas"], lanes["xla"]) for n in a)
@@ -1872,10 +2015,12 @@ def cli_path(card: str) -> tuple[dict, float]:
             if not err <= TOL_STEP_PARAM:
                 raise AssertionError("cli dpsgd: the lanes differ")
 
-            # AD-PSGD: no gossip kernel, and one round exact
+            # AD-PSGD: no gossip kernel (its check reads nothing else:
+            # one epoch, no checkpoint), and one round exact
+            ckpt = os.path.join(tmp, "adpsgd")
             launches, _ = _cli_run("adpsgd", _cli_argv(
-                os.path.join(tmp, "adpsgd"), "--graph_type", "1"), card,
-                module=gossip_sgd_adpsgd)
+                ckpt, "--graph_type", "1", "--train_fast", "True",
+                *_traced(ckpt), epochs=1), card, module=gossip_sgd_adpsgd)
             if any(launches.values()):
                 raise AssertionError(f"cli adpsgd: launches {launches}")
             _bilat_round_check(card)
@@ -1890,7 +2035,9 @@ def cli_path(card: str) -> tuple[dict, float]:
                     ("osgp first epoch", split, 1, "False"),
                     ("osgp resumed", split, 2, "True")):
                 launches, _ = _cli_run(label, _cli_argv(
-                    ckpt, *osgp, "--resume", resume, epochs=epochs), card)
+                    ckpt, *osgp, "--resume", resume,
+                    *_traced(os.path.join(ckpt, f"e{epochs}")),
+                    epochs=epochs), card)
                 main_runs.append(launches)
             a = [_flat(r) for r in _rank_files(straight)]
             b = [_flat(r) for r in _rank_files(split)]
@@ -1908,9 +2055,12 @@ def cli_path(card: str) -> tuple[dict, float]:
                                      "continue")
         finally:
             torch.backends.cudnn.deterministic = False
-
-        _preempt_check(tmp, card)
+        preempt.join()
+        if failed:
+            raise failed[0]
     finally:
+        if preempt is not None:
+            preempt.join()
         shutil.rmtree(tmp, ignore_errors=True)
     return ({n: sum(run[n] for run in main_runs) for n in main_runs[0]},
             flat_bt)
@@ -2122,11 +2272,13 @@ def resilience_cli(card: str, tmp: str) -> tuple[dict, str]:
     import io
 
     ckpt = os.path.join(tmp, "resilience")
+    tdir = os.path.join(tmp, "resilience_telemetry")
     argv = _cli_argv(ckpt, "--overlap", "True", "--staleness", "2",
                      "--wire_dtype", "int8", "--error_feedback", "True",
                      "--inject_faults", RESIL_FAULTS_CLI,
                      "--health_every", "3", "--residual_floor", "1e-9",
-                     "--gossip_kernel", "pallas", "--verbose", "True")
+                     "--gossip_kernel", "pallas", "--verbose", "True",
+                     "--trace_dir", tdir)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         launches, _ = _cli_run("resilience", argv, card)
@@ -2157,6 +2309,21 @@ def resilience_cli(card: str, tmp: str) -> tuple[dict, str]:
         raise AssertionError("cli resilience: no global-average recovery")
     if len(faults) != 1:
         raise AssertionError(f"cli resilience: faults lines {faults}")
+    # with --trace_dir the health and recovery lines come from the
+    # telemetry's compatibility view: each once, the JSON of its event
+    events, _ = _telemetry("cli resilience", tdir,
+                           kinds=("plan", "health", "recovery"))
+    typed = {k: [e["data"] for e in events if e["kind"] == k]
+             for k in ("health", "recovery")}
+    plans = [line for line in out.splitlines() if "gossip plan: " in line]
+    print(f"cli resilience: telemetry {len(typed['health'])} health and "
+          f"{len(typed['recovery'])} recovery events, their data the JSON "
+          f"of the {len(health)} and {len(recover)} lines: "
+          f"{typed == {'health': health, 'recovery': recover}}; "
+          f"{len(plans)} plan line [{card}]", flush=True)
+    if typed != {"health": health, "recovery": recover} or len(plans) != 1:
+        raise AssertionError("cli resilience: the lines are not the "
+                             "telemetry's events, once each")
     rows = _rank_files(ckpt)
     res_nonzero = all(any(bool(t.any()) for t in
                           r["gossip"]["ef_residual"].values()) for r in rows)
@@ -2236,6 +2403,33 @@ def resilience_path(card: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {n: lanes[n] + cli[n] for n in lanes}
+
+
+def wire_selftest_path(card: str) -> dict:
+    """Phase 24: ``scripts/torch_wirecheck.py --selftest`` on the card
+    (``parallel/wirecheck.py``), its stage 4 on the CUDA K2 and K1:
+    every check passes and both kernels launched.  Returns the
+    launches."""
+    import contextlib
+    import io
+
+    from stochastic_gradient_push_torch.parallel import wirecheck
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        code = wirecheck.selftest("cuda")
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"wirecheck: exit {code}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} "
+          f"[{card}]{err.getvalue()}", flush=True)
+    if code != 0 or not (launches["gossip_edge_start"] > 0
+                         and launches["gossip_edge_wait"] > 0):
+        raise AssertionError("wirecheck: the selftest failed or its "
+                             "kernel lane launched no K2/K1")
+    return launches
 
 
 # -- phase 10: hierarchical and synthesized rounds, the planner -------------
@@ -4455,11 +4649,15 @@ def harness_preempt(card: str, tmp: str) -> dict:
                          layers=c["b_layers"])
     csv_path = os.path.join(ckpt, f"lm_out_n{w}.csv")
     log_path = os.path.join(tmp, "preempt.log")
+    # the preempted run is traced: its trace, exit record and last comm
+    # snapshot must survive the exit 75
+    tdir = os.path.join(tmp, "preempt_telemetry")
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m",
-             "stochastic_gradient_push_torch.run.gossip_lm", *argv],
+             "stochastic_gradient_push_torch.run.gossip_lm", *argv,
+             "--trace_dir", tdir],
             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
             stderr=subprocess.STDOUT)
         try:
@@ -4495,6 +4693,20 @@ def harness_preempt(card: str, tmp: str) -> dict:
     if any(m["step"] != k for m in metas) or rows != [
             str(i + 1) for i in range(k)]:
         raise AssertionError(f"harness 15b: metas {metas}, rows {rows}")
+    events, spans = _telemetry("harness 15b", tdir, kinds=(
+        "plan", "run_meta", "comm"))
+    exit_meta = [e for e in events if e["kind"] == "run_meta"
+                 and "exit_reason" in e["data"]]
+    print(f"harness 15b: telemetry after the exit: {len(events)} events, "
+          f"the exit record {json.dumps(exit_meta[-1]['data'])} at step "
+          f"{exit_meta[-1].get('step')}, the last a {events[-1]['kind']} "
+          f"event of {events[-1]['data'].get('steps')} steps; trace.json "
+          f"{_span_split(spans)} [{card}]", flush=True)
+    if (not exit_meta
+            or exit_meta[-1]["data"]["exit_reason"] != "preempt-requeue"
+            or exit_meta[-1]["step"] != k or events[-1]["kind"] != "comm"
+            or events[-1]["data"]["steps"] != k):
+        raise AssertionError(f"harness 15b: telemetry {events[-3:]}")
     result, launches, lines, wall, clock = _harness_run(
         f"15b resume from step {k} to {n}", argv + ["--resume", "True"],
         card)
@@ -5584,7 +5796,9 @@ def seq_dist_path(card: str) -> dict:
     corpus = os.path.join(tmp, "tokens.npy")
     np.save(corpus, np.random.default_rng(0).integers(
         0, 32000, dp * b * t * steps + 1).astype(np.int32))
-    runs = [("a", steps, []),
+    # 18a's processes are traced, each into its own _rN files
+    tdir = os.path.join(tmp, "telemetry")
+    runs = [("a", steps, ["--trace_dir", tdir]),
             ("b", SEQ_DIST["bf16_steps"], ["--precision", "bf16"])]
     # the processes start (imports, the group) while the stacked runs go,
     # and wait for the go file before any work on the card
@@ -5597,6 +5811,7 @@ def seq_dist_path(card: str) -> dict:
     try:
         for label, n, extra in runs:
             ckpt = os.path.join(tmp, f"stacked_{label}")
+            extra = [x for x in extra if x != tdir and x != "--trace_dir"]
             stacked[label] = seq_dist_run(_seq_dist_argv(
                 ckpt, corpus, n, "--world_size", str(world), *extra))
             shutil.rmtree(ckpt)
@@ -5637,6 +5852,20 @@ def seq_dist_path(card: str) -> dict:
               f"{min(p['wall_s'] for p in procs):.1f}-"
               f"{max(p['wall_s'] for p in procs):.1f}, stacked "
               f"{stacked[label]['wall_s']:.1f} [{card}]", flush=True)
+    metas = []
+    for p in range(world):
+        events, _ = _telemetry(f"seq 18a process {p}", tdir, rank=p)
+        meta = next(e["data"] for e in events if e["kind"] == "run_meta")
+        comm = [e["data"] for e in events if e["kind"] == "comm"][-1]
+        metas.append((meta["dp"], meta["sp"], comm["steps"],
+                      comm["bytes"]["gossip_wire"]))
+    names = sorted(os.listdir(tdir))
+    print(f"seq 18a: telemetry files {names}; (dp, sp, comm steps, gossip "
+          f"wire bytes) a process {sorted(set(metas))} [{card}]",
+          flush=True)
+    if set(metas) != {(dp, sp, steps, metas[0][3])} or len(names) != \
+            2 * world:
+        raise AssertionError(f"seq 18a: telemetry {names}, {metas}")
     shifts = [_tagged(log, "SHIFT") for log in logs]
     if not all(s["finite"] for s in shifts):
         raise AssertionError("seq 18c: a shifted block is not finite")
@@ -6920,6 +7149,26 @@ def pp_mesh_path(card: str, tmp: str, procs: list, go: str,
     return runs["d"] + runs["e"]
 
 
+def install_synthetic_memo() -> None:
+    """Draw each synthetic image set once: ``data/synthetic.py``'s
+    ``synthetic_classification`` is a pure function of its arguments
+    whose class-mean draw (``num_classes`` x 224 x 224 x 3 normals in
+    float64) took ~4 s of every ResNet-50 CLI run's ``main``; the CLI
+    runs get a copy of the first draw of the same arguments, the same
+    bits."""
+    from stochastic_gradient_push_torch.data import synthetic
+
+    draw, cache = synthetic.synthetic_classification, {}
+
+    def memo(*a, **k):
+        key = (a, tuple(sorted(k.items())))
+        if key not in cache:
+            cache[key] = draw(*a, **k)
+        return tuple(x.copy() for x in cache[key])
+
+    synthetic.synthetic_classification = memo
+
+
 class _phase_clock:
     """Inside a ``with``: prints the phase's seconds at its end (phases
     9-23 print their own)."""
@@ -6948,6 +7197,7 @@ def main() -> int:
 
     # bf16 GEMMs accumulate in fp32 throughout, as XLA's do (phase 12)
     set_matmul_flags()
+    install_synthetic_memo()
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
@@ -6995,6 +7245,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     resil_launches = resilience_path(card)
     torch.cuda.empty_cache()
+    with _phase_clock("24, the wire selftest,"):
+        wire_launches = wire_selftest_path(card)
     topo_launches = topology_path(card)
     torch.cuda.empty_cache()
     seq_launches, seq_timed = seq_path(card)
@@ -7037,7 +7289,7 @@ def main() -> int:
     # processes, phase 20a's stacked MoE run and 20c's processes, phase
     # 21a's stacked ep x tp run and 21b's processes, phase 22a's stacked
     # pp run, 22b's 4-D pipeline run and 22c's processes, phase 23's
-    # processes) summed
+    # processes, phase 24's wire selftest) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
@@ -7045,7 +7297,7 @@ def main() -> int:
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
             ckpt_launches, seq_dist_launches, tp_launches, ep_launches,
-            tp_ep_launches, pp_launches))
+            tp_ep_launches, pp_launches, wire_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -481,7 +481,7 @@ def resolve_topology(world: int, *, ppi: int = 1,
                      overlap: bool = False, faults: bool = False,
                      wire: dict | None = None,
                      synth: dict | None = None,
-                     log=None) -> Plan:
+                     log=None, registry=None) -> Plan:
     """Run-layer entry point: resolve ``--topology``/``--graph_type`` into
     a :class:`Plan`, log it, and emit any warnings.
 
@@ -514,6 +514,10 @@ def resolve_topology(world: int, *, ppi: int = 1,
       log: optional logger; the plan is logged as one JSON line
         (``gossip plan: {...}``, sorted keys) and each warning loudly via
         ``log.warning``.
+      registry: optional telemetry registry; when set, the plan publishes
+        as a typed ``plan`` event (the registry's compatibility sink
+        renders the same ``gossip plan:`` line) instead of the direct
+        line.
     """
     if topology == "synth":
         from .synthesize import SynthesisConfig, plan_synthesized
@@ -543,7 +547,10 @@ def resolve_topology(world: int, *, ppi: int = 1,
                               global_avg_every=global_avg_every,
                               interconnect=interconnect,
                               overlap=overlap, faults=faults, wire=wire)
-    if log is not None:
+    if registry is not None:
+        # info like the direct line (plan *warnings* go via log below)
+        registry.emit("plan", plan.to_dict(), severity="info")
+    elif log is not None:
         log.info("gossip plan: %s", json.dumps(plan.to_dict(),
                                                sort_keys=True))
     if log is not None:

@@ -311,6 +311,11 @@ class FaultMasks:
         self._corrupt = np.asarray(corrupt, np.float32)
         self._on_device: dict = {}
 
+    def keep_host(self) -> np.ndarray:
+        """The keep table ``(horizon + num_phases, ppi, world)`` (comm
+        accounting and tests)."""
+        return self._keep
+
     def _row(self, tick: int) -> int:
         t = int(tick)
         if t < self.horizon:

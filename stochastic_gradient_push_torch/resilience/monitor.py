@@ -168,7 +168,8 @@ class HealthMonitor:
                  mass_tol: float = DEFAULT_MASS_TOL,
                  ps_weight_floor: float = DEFAULT_PS_WEIGHT_FLOOR,
                  log=None, step_window: int = 1024,
-                 ef_residual_floor: float = DEFAULT_EF_RESIDUAL_FLOOR):
+                 ef_residual_floor: float = DEFAULT_EF_RESIDUAL_FLOOR,
+                 registry=None):
         if health_every < 1:
             raise ValueError("health_every must be >= 1")
         self.health_every = health_every
@@ -177,6 +178,10 @@ class HealthMonitor:
         self.ps_weight_floor = ps_weight_floor
         self.ef_residual_floor = ef_residual_floor
         self.log = log
+        # telemetry registry: when set, the monitor publishes typed
+        # `health` events and the registry's compatibility sink renders
+        # the `gossip health:` line from the same payload
+        self.registry = registry
         self.step_time = PercentileMeter(maxlen=step_window, ptag="Step")
         self.last_payload: dict | None = None
         self.reports: int = 0
@@ -228,7 +233,11 @@ class HealthMonitor:
                               reasons=reasons)
         due = step % self.health_every == 0
         if due or reasons:
-            if self.log is not None:
+            if self.registry is not None:
+                self.registry.emit(
+                    "health", payload, step=int(step),
+                    severity="warning" if reasons else "info")
+            elif self.log is not None:
                 line = "gossip health: " + json.dumps(payload,
                                                       sort_keys=True)
                 if reasons:

@@ -103,7 +103,8 @@ class RecoveryPolicy:
                  cooldown_steps: int = 10,
                  max_recoveries: int = 0, log=None,
                  interconnect=None, faults: bool = False,
-                 wire: dict | None = None, synth: dict | None = None):
+                 wire: dict | None = None, synth: dict | None = None,
+                 registry=None):
         self.world = world
         self.ppi = ppi
         self.algorithm = algorithm
@@ -120,6 +121,9 @@ class RecoveryPolicy:
         self.cooldown_steps = max(0, cooldown_steps)
         self.max_recoveries = max_recoveries
         self.log = log
+        # telemetry registry: when set, decisions publish as typed
+        # `recovery` events (the compatibility sink renders the line)
+        self.registry = registry
         self.recoveries = 0
         self.last_fired_step: int | None = None
         self.events: list[RecoveryEvent] = []
@@ -168,7 +172,10 @@ class RecoveryPolicy:
                                   tuple(report.reasons), None)
         if event.action != "none":
             self.events.append(event)
-            if self.log is not None:
+            if self.registry is not None:
+                self.registry.emit("recovery", event.to_dict(),
+                                   step=report.step, severity="warning")
+            elif self.log is not None:
                 self.log.warning("gossip recovery: "
                                  + json.dumps(event.to_dict(),
                                               sort_keys=True))

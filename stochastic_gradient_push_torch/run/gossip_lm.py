@@ -37,7 +37,17 @@ its ``gossip plan:`` line; ``--graph_type 6`` is the hierarchical graph.
 ``--inject_faults SPEC`` drills faults into the rounds and
 ``--health_every k`` (a multiple of ``--print_freq``) prints ``gossip
 health:`` lines, with ``--residual_floor`` arming the reactive global
-average.
+average.  ``--trace_dir DIR`` writes the run's telemetry there
+(``telemetry/``, the reference's ``run/gossip_lm.py:373-403,695-750``):
+``events.jsonl`` with the plan, a ``run_meta`` (``world``, ``dp``,
+``sp``, ``tp``, ``ep``, ``pp`` and the comm model — on the flat dp and
+dp x sp meshes only, ``null`` under ep, tp and pp, whose shards the
+per-rank payload arithmetic does not cover), health and recovery
+events, ``step_stats`` and a ``comm`` snapshot at the print cadence
+every ``--metrics_every`` steps and a preemption's exit record; and
+``trace.json`` (``metrics_fetch``, ``validate``, ``checkpoint_save``
+and ``recovery_global_average`` spans), written in a ``finally``.
+Under ``torchrun`` each process writes its own ``_rN`` files.
 
 ``--sp k`` cuts each sequence into ``k`` contiguous shards
 (``parallel/seq.py``): ``--world_size / --sp`` replicas gossip, and the
@@ -225,8 +235,6 @@ UNPORTED = {
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
     "--attn_block_k": (0, int, "the TPU attention block rule"),
-    "--trace_dir": (None, str, "run telemetry"),
-    "--metrics_every": (0, int, "run telemetry"),
     "--multihost": ("auto", str, "multi-host runs"),
     "--coordinator_address": (None, str, "multi-host runs"),
     "--num_processes": (None, int, "multi-host runs"),
@@ -396,6 +404,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_batches", default=8, type=int,
                    help="validation batches per evaluation")
     add_profile_flags(p)
+    p.add_argument("--trace_dir", default=None, type=str,
+                   help="run telemetry directory (telemetry/): "
+                        "trace.json host spans + events.jsonl typed "
+                        "plan/health/recovery/comm events.  Unset = "
+                        "telemetry off")
+    p.add_argument("--metrics_every", default=0, type=int,
+                   help="emit a step_stats + comm telemetry event every "
+                        "k steps (rides the --print_freq metrics fetch "
+                        "cadence; 0 = only the final comm snapshot); "
+                        "requires --trace_dir")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the "
                         "kernels' plain twins)")
@@ -624,6 +642,8 @@ def _main(argv) -> dict:
     from ..parallel.seq import DistSeq, StackedSeq
     from ..parallel.tp import DistTp, StackedTp, gather_state, shard_state
     from ..parallel.wire import get_codec
+    from ..planner import make_interconnect
+    from ..telemetry import make_run_telemetry
     from ..topology import (GRAPH_TOPOLOGIES, TOPOLOGY_NAMES,
                             build_pairing_schedule, build_schedule)
     from .gossip_sgd import parse_mixing_alpha, plan_topology, \
@@ -656,6 +676,11 @@ def _main(argv) -> dict:
         from ..resilience import parse_fault_spec
 
         fault_plan = parse_fault_spec(args.inject_faults)
+    if args.metrics_every < 0:
+        raise SystemExit("--metrics_every must be >= 0")
+    if args.metrics_every and not args.trace_dir:
+        raise SystemExit("--metrics_every needs --trace_dir (telemetry "
+                         "events have nowhere to go without it)")
     if args.health_every < 0:
         raise SystemExit("--health_every must be >= 0")
     if args.health_every and args.health_every % args.print_freq:
@@ -716,6 +741,16 @@ def _main(argv) -> dict:
         transport = StackedTransport(dp)
     rank0 = info.rank == 0
     log0 = print if rank0 else (lambda *a, **k: None)
+    import types
+
+    # the plan, health and recovery lines: printed by process 0
+    lines = types.SimpleNamespace(
+        info=lambda m, *a: log0(m % a if a else m, flush=True),
+        warning=lambda m, *a: log0(m % a if a else m, flush=True))
+    # telemetry before planning, so the plan's event and the loop's share
+    # one events.jsonl (the no-op bundle without --trace_dir)
+    rt = make_run_telemetry(args.trace_dir, rank=info.rank, log=lines,
+                            metrics_every=args.metrics_every)
     if forced:
         log0(forced, flush=True)
     if args.batch_size % args.grad_accum:
@@ -748,14 +783,10 @@ def _main(argv) -> dict:
     plan = None
     synth_plan_config(args)   # refuses stray --synth_* knobs
     if not sb(args.all_reduce) and not sb(args.bilat) and dp > 1:
-        import types
-
         plan = plan_topology(
             args, dp, args.peers_per_itr,
             GRAPH_TOPOLOGIES[args.graph_type], sb(args.push_sum),
-            sb(args.overlap), types.SimpleNamespace(
-                info=lambda fmt, *a: log0(fmt % a, flush=True),
-                warning=lambda m: log0(m, flush=True)))
+            sb(args.overlap), lines, rt.registry)
     elif args.topology is not None and (sb(args.all_reduce)
                                         or sb(args.bilat)):
         raise SystemExit("--topology selects a push-sum/D-PSGD gossip "
@@ -765,6 +796,10 @@ def _main(argv) -> dict:
         raise SystemExit(f"--topology {args.topology} plans gossip "
                          "schedules; it does not apply to a "
                          "single-replica mesh")
+    # the fabric the plan priced: the recovery re-plans and the comm
+    # model's link lanes follow it
+    interconnect = make_interconnect(args.slice_size, args.dcn_cost,
+                                     args.ici_cost)
     # the plan's graph (a hierarchical plan binds its slice
     # decomposition, a synthesized one its spec), mixing and period
     if plan is not None:
@@ -859,29 +894,22 @@ def _main(argv) -> dict:
     if args.health_every > 0:
         # signals ride every step's metrics and are read at the print
         # cadence (the only points the loop reads metrics)
-        import types
-
         from ..resilience import (HealthMonitor, RecoveryPolicy,
                                   make_recovery_fn)
 
-        line = types.SimpleNamespace(
-            info=lambda m: log(m, flush=True),
-            warning=lambda m: log(m, flush=True))
         monitor = HealthMonitor(health_every=args.health_every,
                                 residual_floor=args.residual_floor,
-                                log=line)
+                                log=lines, registry=rt.registry)
         if dp > 1 and hasattr(alg, "global_average"):
             from ..parallel.wire import wire_stamp
-            from ..planner import make_interconnect
 
             policy = RecoveryPolicy(
                 world=dp, ppi=args.peers_per_itr,
                 algorithm="sgp" if sb(args.push_sum) else "dpsgd",
                 topology=plan.topology if plan is not None else None,
                 residual_floor=args.residual_floor,
-                cooldown_steps=args.health_every, log=line,
-                interconnect=make_interconnect(args.slice_size,
-                                               args.dcn_cost, args.ici_cost),
+                cooldown_steps=args.health_every, log=lines,
+                registry=rt.registry, interconnect=interconnect,
                 faults=bool(args.inject_faults),
                 wire=wire_stamp(args.wire_dtype, args.wire_block, ef),
                 synth=plan.synth if plan is not None else None)
@@ -917,6 +945,8 @@ def _main(argv) -> dict:
         f"{n_params / 1e6:.2f}M params{moe}; attn={attn}"
         f"{' remat' if cfg.remat else ''}; precision {args.precision}; "
         f"algorithm={alg.name}{gossip}", flush=True)
+    if rt.enabled:
+        _run_meta(rt, args, state, alg, held, interconnect, world, dp)
 
     def mean(x) -> float:
         """Mean over all replicas of a per-held-replica metric (a
@@ -987,6 +1017,7 @@ def _main(argv) -> dict:
     if start_step >= args.num_steps:
         log(f"nothing to do: resumed at step {start_step} >= num_steps "
             f"{args.num_steps}", flush=True)
+        rt.finish(step=start_step)
         leave(transport, owns_group)
         return {"final_loss": None, "avg_loss": None,
                 "tokens_per_sec": 0.0, "already_complete": True}
@@ -1004,10 +1035,11 @@ def _main(argv) -> dict:
             meta["health"] = monitor.last_payload
         out = (gather_state(st, tp_n) if tp is not None and launched == 1
                else st)
-        if use_dcp:
-            ckpt.save(out, meta, epoch_id=at)
-        else:
-            ckpt.save(out, meta)
+        with rt.span("checkpoint_save", "checkpoint"):
+            if use_dcp:
+                ckpt.save(out, meta, epoch_id=at)
+            else:
+                ckpt.save(out, meta)
         return st
 
     if args.corpus_file:
@@ -1042,7 +1074,8 @@ def _main(argv) -> dict:
 
     # a heartbeat around the blocking metrics fetch, from the second
     # print on: the first carries the warm-up (builds, autotuning)
-    watchdog = (StepWatchdog(timeout=args.heartbeat_timeout, rank=me)
+    watchdog = (StepWatchdog(timeout=args.heartbeat_timeout, rank=me,
+                             registry=rt.registry)
                 if args.heartbeat_timeout > 0 else None)
     pw = ProfileWindow(args.profile_dir, start_step=args.profile_start_step,
                        num_steps=args.profile_steps, device=device, rank=me)
@@ -1072,11 +1105,12 @@ def _main(argv) -> dict:
         nonlocal val_time
         t_val = time.perf_counter()
         vals = []
-        for vt, vy in lm_batches(val_corpus, rows, args.sp,
-                                 args.batch_size, args.seq_len, seed=1):
-            vals.append(mean(eval_step(st, *on_device(vt, vy))["loss"]))
-            if len(vals) >= args.val_batches:
-                break
+        with rt.span("validate", "eval"):
+            for vt, vy in lm_batches(val_corpus, rows, args.sp,
+                                     args.batch_size, args.seq_len, seed=1):
+                vals.append(mean(eval_step(st, *on_device(vt, vy))["loss"]))
+                if len(vals) >= args.val_batches:
+                    break
         vl = float(np.mean(vals))
         val_time += time.perf_counter() - t_val
         return vl, float(np.exp(vl))
@@ -1089,6 +1123,7 @@ def _main(argv) -> dict:
     tokens_per_step = rows * args.batch_size * args.seq_len
     steps_done, last_saved, prints = start_step, start_step - 1, 0
     losses, last_val = [], None
+    last_stats = start_step
     t0 = time.perf_counter()
     try:
         while steps_done < args.num_steps:
@@ -1105,11 +1140,17 @@ def _main(argv) -> dict:
                         else contextlib.nullcontext()):
                     state, metrics = step(state, toks, tgts)
                 steps_done += 1
+                if rt.comm is not None:
+                    # the algorithm's 0-based tick; host integer math
+                    rt.comm.on_step(steps_done - 1)
                 pw.maybe_stop(steps_done)
                 if (steps_done % args.print_freq == 0
                         or steps_done >= args.num_steps):
                     with (watchdog.step() if watchdog is not None
-                          and prints else contextlib.nullcontext()):
+                          and prints else contextlib.nullcontext()), \
+                            rt.span("metrics_fetch", "step",
+                                    {"step": steps_done} if rt.enabled
+                                    else None):
                         # waits for the step
                         got = {k: mean(metrics[k])
                                for k in ("loss", "ppl", "grad_norm")
@@ -1119,9 +1160,20 @@ def _main(argv) -> dict:
                     if monitor is not None:
                         state, window = _observe_health(
                             monitor, policy, recovery, alg, state, metrics,
-                            steps_done, window, val_time)
+                            steps_done, window, val_time, rt)
                     tps = (tokens_per_step * (steps_done - start_step)
                            / (time.perf_counter() - t0 - val_time))
+                    if rt.metrics_every and \
+                            steps_done - last_stats >= rt.metrics_every:
+                        # step_stats ride the print cadence's metrics
+                        # read, the loop's only host sync
+                        rt.registry.emit("step_stats", {
+                            "loss": round(got["loss"], 6),
+                            "tokens_per_sec": round(tps, 1),
+                            "grad_norm": round(got["grad_norm"], 6)},
+                            step=steps_done)
+                        rt.emit_comm(step=steps_done)
+                        last_stats = steps_done
                     row = (f"{steps_done},{got['loss']:.4f},"
                            f"{got['ppl']:.2f},{float(metrics['lr']):.5f},"
                            f"{tps:.0f},{got['grad_norm']:.4f}")
@@ -1151,6 +1203,12 @@ def _main(argv) -> dict:
                     state = save(state, steps_done)
                     # an asynchronous save lands before the exit
                     ckpt.close()
+                    if rt.enabled:
+                        rt.registry.emit("run_meta", {
+                            "exit_reason": "preempt-requeue",
+                            "signal": cluster.last_signal,
+                            "exit_code": REQUEUE_EXIT_CODE},
+                            step=steps_done, severity="warning")
                     leave(transport, owns_group)
                     raise SystemExit(REQUEUE_EXIT_CODE)
                 if steps_done >= args.num_steps:
@@ -1162,6 +1220,9 @@ def _main(argv) -> dict:
     finally:
         # a run that ended inside the window still writes its trace
         pw.close()
+        # trace.json and the last comm snapshot, whatever path leaves
+        # the loop (a crash, an exit 75)
+        rt.finish(step=steps_done)
     result = {"final_loss": losses[-1], "avg_loss": float(np.mean(losses)),
               "tokens_per_sec": tokens_per_step * (steps_done - start_step)
               / (time.perf_counter() - t0 - val_time)}
@@ -1210,12 +1271,65 @@ def _reshard_other_world(ckpt, args, world: int, launched: int,
     return ckpt.exists()
 
 
+def _run_meta(rt, args, state, alg, held: int, interconnect, world: int,
+              dp: int) -> None:
+    """Attach the comm model (on the flat dp and dp x sp meshes: ep, tp
+    and pp shard the leaves past their leading dim, which the per-rank
+    payload arithmetic does not cover) and emit the ``run_meta``
+    event."""
+    from ..parallel.wire import get_codec
+    from ..telemetry import (CommModel, encoded_payload_bytes,
+                             tree_payload_bytes)
+
+    sb = _str_bool
+    if args.pp == 1 and args.ep == 1 and args.tp == 1:
+        # one replica's payload: the state stacks the held replicas
+        exact = tree_payload_bytes(state.params, held)
+        if sb(args.all_reduce):
+            model = CommModel.for_allreduce(dp, exact)
+        elif sb(args.bilat):
+            model = CommModel.for_bilat(dp, exact)
+        else:
+            # the encoded payload: what the wire ships
+            codec = get_codec(args.wire_dtype, args.wire_block)
+            model = CommModel.from_schedule(
+                alg.schedule, encoded_payload_bytes(state.params, held,
+                                                    codec),
+                exact_bytes=exact, gossip_every=alg.gossip_every,
+                global_avg_every=alg.global_avg_every, faults=alg.faults,
+                ps_weight=sb(args.push_sum), interconnect=interconnect,
+                codec=codec, error_feedback=sb(args.error_feedback),
+                overlap=alg.overlap, staleness=alg.staleness,
+                gossip_kernel=alg.transport_kernel_name,
+                gossip_buckets=alg.gossip_buckets)
+        rt.attach_comm(model)
+    run_meta = {
+        "world": world, "dp": dp, "sp": args.sp, "tp": args.tp,
+        "ep": args.ep, "pp": args.pp,
+        "algorithm": ("all_reduce" if sb(args.all_reduce) else
+                      "adpsgd" if sb(args.bilat) else
+                      "sgp" if sb(args.push_sum) else "dpsgd"),
+        "gossip_every": args.gossip_every,
+        "batch_size": args.batch_size,
+        "num_steps": args.num_steps,
+        "comm_model": (rt.comm.model.to_dict()
+                       if rt.comm is not None else None)}
+    if args.profile_dir:
+        # where the torch.profiler trace lands, and its step window
+        run_meta["profile_dir"] = args.profile_dir
+        run_meta["profile_window"] = [
+            args.profile_start_step,
+            args.profile_start_step + args.profile_steps]
+    rt.registry.emit("run_meta", run_meta)
+
+
 def _observe_health(monitor, policy, recovery, alg, state, metrics,
-                    steps_done: int, window, val_time: float):
+                    steps_done: int, window, val_time: float, rt):
     """Read one step's health signals at the print cadence, observe
     them (one step-time sample per read window, validation's time and
-    the first window left out) and fire the policy's global average;
-    returns ``(state, window)``."""
+    the first window left out) and fire the policy's global average
+    (in a ``recovery_global_average`` span, priced on ``rt``'s comm
+    tally); returns ``(state, window)``."""
     from ..resilience.monitor import host_signals
     from ..resilience.recovery import recover_state
 
@@ -1227,7 +1341,10 @@ def _observe_health(monitor, policy, recovery, alg, state, metrics,
     report = monitor.observe(steps_done, host_signals(metrics))
     if report.unhealthy and policy is not None:
         if policy.assess(report).action == "global-average":
-            state = recover_state(state, alg, recovery)
+            with rt.span("recovery_global_average", "recovery"):
+                state = recover_state(state, alg, recovery)
+            if rt.comm is not None:
+                rt.comm.on_recovery()
     return state, (now, steps_done, val_time)
 
 

@@ -77,7 +77,13 @@ resumes from it; one process only).
 ``--inject_faults SPEC`` drills deterministic faults into the rounds,
 ``--health_every k`` prints ``gossip health:`` lines and
 ``--residual_floor`` arms the reactive global average (``gossip
-recovery:`` lines).
+recovery:`` lines).  ``--trace_dir DIR`` writes the run's telemetry
+there (``telemetry/``): ``events.jsonl`` (the plan, ``run_meta`` with
+the comm model, health, recovery and ``comm`` events; ``step_stats``
+every ``--metrics_every`` steps) and ``trace.json`` (host spans); the
+telemetry is made before the plan, so the plan's event lands in the same
+file, and the ``gossip plan/health/recovery:`` lines print as without
+it.  Under ``torchrun`` each process writes its own ``_rN`` files.
 
 The launch-time topology planner (``planner/``) runs before the trainer
 is built, as in the reference, and logs its plan as one ``gossip plan:
@@ -119,8 +125,6 @@ UNPORTED = {
     "--coordinator_address": (None, str, "multi-host runs"),
     "--num_processes": (None, int, "multi-host runs"),
     "--process_id": (None, int, "multi-host runs"),
-    "--trace_dir": (None, str, "run telemetry"),
-    "--metrics_every": (0, int, "run telemetry"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
 }
@@ -208,9 +212,10 @@ def parse_mixing_alpha(v):
 
 
 def plan_topology(args, world: int, ppi: int, graph_class, push_sum: bool,
-                  overlap: bool, log):
+                  overlap: bool, log, registry=None):
     """The launch-time plan of a gossip run (``planner.resolve_topology``
-    on the CLI's flags), logged as the ``gossip plan:`` line."""
+    on the CLI's flags), logged as the ``gossip plan:`` line (through
+    ``registry``'s compatibility sink when telemetry is on)."""
     from ..parallel.wire import wire_stamp
     from ..planner import make_interconnect, resolve_topology
 
@@ -226,10 +231,10 @@ def plan_topology(args, world: int, ppi: int, graph_class, push_sum: bool,
         wire=wire_stamp(args.wire_dtype, args.wire_block,
                         _str_bool(args.error_feedback)),
         synth=synth_plan_config(args),
-        log=log)
+        log=log, registry=registry)
 
 
-def _resolve_plan(cfg, args, world: int, log) -> None:
+def _resolve_plan(cfg, args, world: int, log, registry=None) -> None:
     """Apply the launch-time topology plan to ``cfg`` (the reference's
     ``_resolve_plan``): the graph (a hierarchical plan binds its slice
     decomposition, a synthesized one its spec), the mixing, the
@@ -252,7 +257,8 @@ def _resolve_plan(cfg, args, world: int, log) -> None:
 
     # planned for the epoch-0 peers_per_itr
     plan = plan_topology(args, world, ppi_at_epoch(cfg.ppi_schedule, 0),
-                         cfg.graph_class, cfg.push_sum, cfg.overlap, log)
+                         cfg.graph_class, cfg.push_sum, cfg.overlap, log,
+                         registry)
     cfg.graph_class = plan.graph_class
     if plan.alpha is not None:
         from ..topology import SelfWeightedMixing
@@ -449,6 +455,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--heartbeat_timeout", default=300, type=int,
                    help="seconds a blocking step may take before the "
                         "watchdog logs a stall (0 disables it)")
+    p.add_argument("--trace_dir", default=None, type=str,
+                   help="run telemetry directory (telemetry/): writes "
+                        "trace.json (Chrome-trace host spans: data "
+                        "fetch, step, checkpoint, eval, recovery "
+                        "averages) and events.jsonl (typed "
+                        "plan/health/recovery/comm events, one "
+                        "versioned schema).  Unset = telemetry off")
+    p.add_argument("--metrics_every", default=0, type=int,
+                   help="emit a step_stats + comm telemetry event "
+                        "every k steps (0 = only the final comm "
+                        "snapshot); requires --trace_dir")
     add_profile_flags(p)
     for flag, (default, typ, _) in UNPORTED.items():
         p.add_argument(flag, default=default, type=typ,
@@ -563,6 +580,11 @@ def parse_config(argv=None):
         parse_fault_spec(args.inject_faults)
     if args.health_every < 0:
         raise SystemExit("--health_every must be >= 0")
+    if args.metrics_every < 0:
+        raise SystemExit("--metrics_every must be >= 0")
+    if args.metrics_every and not args.trace_dir:
+        raise SystemExit("--metrics_every needs --trace_dir (telemetry "
+                         "events have nowhere to go without it)")
     # a forced name overrides the integer registry; "auto" and "synth"
     # are planned once the world is known (_resolve_plan)
     graph_class = GRAPH_TOPOLOGIES[args.graph_type]
@@ -618,6 +640,8 @@ def parse_config(argv=None):
         profile_dir=args.profile_dir,
         profile_start_step=args.profile_start_step,
         profile_steps=args.profile_steps,
+        trace_dir=args.trace_dir,
+        metrics_every=args.metrics_every,
     )
     return cfg, args
 
@@ -709,6 +733,7 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     from ..parallel.discovery import discover
     from ..parallel.mesh import make_hierarchical_layout
     from ..parallel.multihost import initialize_multihost, process_device
+    from ..telemetry import make_run_telemetry
     from ..train.loop import Trainer, refuse_single_process_only
     from ..utils.checkpoint import ClusterManager
     from ..utils.logging import make_logger
@@ -730,9 +755,13 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
         raise SystemExit(f"--world_size {world} --nprocs_per_node {local}: "
                          f"{e}") from None
     cfg.nprocs_per_node = local
+    # telemetry before planning, so the plan's event and the loop's share
+    # one events.jsonl (the no-op bundle without --trace_dir)
+    telemetry = make_run_telemetry(cfg.trace_dir, rank=info.rank, log=log,
+                                   metrics_every=cfg.metrics_every)
     # planning is numpy only: its line and warnings come before any
     # device work, as in the reference; it sees the gossip world
-    _resolve_plan(cfg, args, nodes, log)
+    _resolve_plan(cfg, args, nodes, log, registry=telemetry.registry)
     owns_group = False
     if spread:
         try:
@@ -782,7 +811,7 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
         args.requeue_command or _default_requeue()))
     try:
         trainer = Trainer(cfg, model, transport, cluster_manager=cluster,
-                          device=device)
+                          device=device, telemetry=telemetry)
     except KernelBackendError as e:
         raise KernelBackendError(f"--gossip_kernel {cfg.gossip_kernel}: "
                                  f"{e}") from None

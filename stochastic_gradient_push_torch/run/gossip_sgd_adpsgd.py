@@ -7,7 +7,8 @@ its parameters with one partner of a perfect matching
 partners per iteration (the ppi schedule) and the default graph is the
 bipartite exponential graph (``--graph_type 1``), as in the reference;
 every other flag goes to ``run/gossip_sgd.py`` (``--nprocs_per_node``
-too: the partners are then nodes, each the exact mean of its devices).
+too: the partners are then nodes, each the exact mean of its devices;
+``--trace_dir`` prices the run as one bilateral exchange a step).
 
 ``--bilat_async True`` is the paper's asynchronous form: the step
 carries no communication and a host thread averages bilaterally off the

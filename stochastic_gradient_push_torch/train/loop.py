@@ -76,6 +76,20 @@ loader feeds the held nodes' ``L`` rows each.
 made by the CLI): its fabric model, wire stamp and synthesis stamp reach
 the recovery policy's re-plans, and every rank file's meta carries it.
 
+Run telemetry (``telemetry/``, the reference's ``train/loop.py:510-576,
+1117-1150``): with ``trace_dir`` (or a bundle the CLI made, passed as
+``telemetry=``, so the plan event shares its ``events.jsonl``) the fit
+writes ``events.jsonl`` — a ``run_meta`` event with the comm model of
+the epoch-0 algorithm, the health and recovery events, a
+``step_stats`` and a ``comm`` snapshot every ``metrics_every`` steps,
+a preemption's exit record — and, in a ``finally``, ``trace.json``:
+``data_fetch`` and ``train_step`` spans from the loop's own clock
+readings (``train_step`` counts the gossip rounds and global averages
+it ran), ``checkpoint_save``, ``validate`` and
+``recovery_global_average`` spans.  Under ``torchrun`` each process
+writes its own ``_rN`` files.  Telemetry reads no device value: the
+step's one read stays the metrics' ``to_host``.
+
 Config fields of features not ported yet raise ``NotImplementedError``
 naming the feature when set away from their defaults (:data:`UNPORTED`);
 none is silently ignored.
@@ -195,8 +209,6 @@ class TrainerConfig:
 # the default raises, naming the feature
 UNPORTED = {
     "gossip_comm_dtype": (None, "the deprecated comm dtype alias"),
-    "trace_dir": (None, "run telemetry"),
-    "metrics_every": (0, "run telemetry"),
     "fleet": (False, "fleet supervision"),
     "host_id": (None, "fleet supervision"),
     "scan_steps": (1, "fused multi-step programs (scan_steps > 1)"),
@@ -249,11 +261,17 @@ class Trainer:
 
     def __init__(self, config: TrainerConfig, model, transport,
                  cluster_manager: ClusterManager | None = None,
-                 device=None):
+                 device=None, telemetry=None):
         _refuse_unported(config, transport)
         if config.nprocs_per_node < 1:
             raise ValueError(f"nprocs_per_node must be >= 1, got "
                              f"{config.nprocs_per_node}")
+        if config.metrics_every < 0:
+            raise ValueError("metrics_every must be >= 0")
+        if config.metrics_every and not config.trace_dir \
+                and telemetry is None:
+            raise ValueError("metrics_every needs trace_dir (telemetry "
+                             "events have nowhere to go without it)")
         self.cfg = config
         self.model = model
         self.transport = transport
@@ -270,6 +288,20 @@ class Trainer:
         self.lane = resolve_gossip_kernel(config.gossip_kernel,
                                           device=self.device)
         self.log = make_logger("trainer", config.verbose)
+        # run telemetry: the CLI passes the bundle it planned with (one
+        # events.jsonl); a library caller gets one from the config, or
+        # the shared no-op bundle without a trace_dir.  Health and
+        # recovery lines keep this logger either way.
+        if telemetry is None:
+            from ..telemetry import make_run_telemetry
+
+            telemetry = make_run_telemetry(
+                config.trace_dir,
+                rank=transport.ranks[0] if self.spread else 0,
+                log=self.log, metrics_every=config.metrics_every)
+        self.telemetry = telemetry
+        telemetry.route_legacy(("health", "recovery"), self.log)
+        registry = telemetry.registry
         self.cluster = cluster_manager
         if cluster_manager is not None and self.spread:
             # a signal one process saw is acted on by all, at one step
@@ -294,7 +326,8 @@ class Trainer:
 
             self.monitor = HealthMonitor(
                 health_every=config.health_every,
-                residual_floor=config.residual_floor, log=self.log)
+                residual_floor=config.residual_floor, log=self.log,
+                registry=registry)
             if not (config.all_reduce or config.bilat
                     or config.bilat_async):
                 # overlap runs recover too: the average folds the
@@ -312,6 +345,7 @@ class Trainer:
                     topology=topo,
                     residual_floor=config.residual_floor,
                     cooldown_steps=config.health_every, log=self.log,
+                    registry=registry,
                     interconnect=self._plan_interconnect(),
                     faults=bool(config.inject_faults),
                     wire=wire_stamp(config.wire_dtype, config.wire_block,
@@ -323,7 +357,8 @@ class Trainer:
         # 300 s gossip flag timeout): a hung kernel, read or peer shows
         # up as a step that does not end
         self.watchdog = (StepWatchdog(timeout=config.heartbeat_timeout,
-                                      rank=transport.ranks[0])
+                                      rank=transport.ranks[0],
+                                      registry=registry)
                          if config.heartbeat_timeout > 0 else None)
         # the step calls of each step variant: the first two carry the
         # builds and autotuning, and the watchdog is armed after them
@@ -469,6 +504,81 @@ class Trainer:
             self._step_cache[key] = (alg, step)
         return self._step_cache[key]
 
+    # -- telemetry ---------------------------------------------------------
+
+    def _setup_telemetry(self, state, itr_per_epoch: int) -> None:
+        """Attach the comm accountant for the active configuration and
+        emit the ``run_meta`` event.  Host work, once a fit."""
+        from ..telemetry import (CommModel, encoded_payload_bytes,
+                                 tree_payload_bytes)
+
+        cfg = self.cfg
+        # one rank's payload: the state stacks the held ranks
+        exact = tree_payload_bytes(state.params, self.held)
+        if cfg.all_reduce:
+            alg_name = "all_reduce"
+            model = CommModel.for_allreduce(self.gossip_world, exact)
+        elif cfg.bilat or cfg.bilat_async:
+            alg_name = "bilat_async" if cfg.bilat_async else "adpsgd"
+            model = CommModel.for_bilat(self.gossip_world, exact)
+        else:
+            alg_name = "sgp" if cfg.push_sum else "dpsgd"
+            # the epoch-0 algorithm's own schedule and faults: what the
+            # wire runs (the epoch loop reuses the cached entry)
+            alg = self._train_fn(ppi_at_epoch(cfg.ppi_schedule, 0),
+                                 itr_per_epoch)[0]
+            # the encoded payload: dtype size plus the int8 scale lane,
+            # scalar leaves exempt
+            codec = alg.wire
+            model = CommModel.from_schedule(
+                alg.schedule,
+                encoded_payload_bytes(state.params, self.held, codec),
+                exact_bytes=exact, gossip_every=alg.gossip_every,
+                global_avg_every=alg.global_avg_every, faults=alg.faults,
+                ps_weight=cfg.push_sum,
+                interconnect=self._plan_interconnect(), codec=codec,
+                error_feedback=cfg.error_feedback, overlap=alg.overlap,
+                staleness=alg.staleness,
+                gossip_kernel=alg.transport_kernel_name,
+                gossip_buckets=alg.gossip_buckets)
+        self.telemetry.attach_comm(model)
+        meta = {
+            "world": self.gossip_world, "algorithm": alg_name,
+            "gossip_every": cfg.gossip_every,
+            "global_avg_every": cfg.global_avg_every,
+            "batch_size": cfg.batch_size,
+            "itr_per_epoch": itr_per_epoch,
+            "num_epochs": cfg.num_epochs,
+            "scan_steps": cfg.scan_steps,
+            "comm_model": model.to_dict()}
+        if self.profile.profile_dir is not None:
+            # where this run's torch.profiler trace lands
+            meta["profile_dir"] = self.profile.profile_dir
+            meta["profile_window"] = [
+                self.profile.start_step,
+                self.profile.start_step + self.profile.num_steps]
+        self.telemetry.registry.emit("run_meta", meta)
+
+    def _save(self, state, meta, epoch: int | None = None, **kw) -> None:
+        """``save_checkpoint`` in a ``checkpoint_save`` span; a save that
+        exits for a requeue leaves the exit record (a ``run_meta`` event
+        with ``exit_reason``) first."""
+        tel = self.telemetry
+        try:
+            with tel.span("checkpoint_save", "checkpoint",
+                          {"epoch": epoch} if tel.enabled
+                          and epoch is not None else None):
+                self.cluster.save_checkpoint(state, meta, **kw)
+        except SystemExit as e:
+            if tel.enabled and e.code == REQUEUE_EXIT_CODE:
+                tel.registry.emit("run_meta", {
+                    "exit_reason": "preempt-requeue",
+                    "signal": self.cluster.last_signal,
+                    "epoch": meta["epoch"], "itr": meta["itr"],
+                    "exit_code": REQUEUE_EXIT_CODE},
+                    step=self._gstep, severity="warning")
+            raise
+
     # -- csv logging -------------------------------------------------------
 
     def _init_csv(self) -> None:
@@ -569,6 +679,8 @@ class Trainer:
             self.log.info(f"resumed from epoch {start_epoch} itr {start_itr}")
 
         begin_time = time.time() - elapsed
+        # the last step taken (the exit record's step)
+        self._gstep = start_epoch * itr_per_epoch + start_itr
         if cfg.bilat_async:
             if cfg.graph_class is None:
                 raise ValueError("bilat_async needs a graph_class for "
@@ -580,6 +692,8 @@ class Trainer:
                 build_pairing_schedule(graph),
                 min_interval_s=cfg.bilat_async_interval).start()
         try:
+            if self.telemetry.enabled:
+                self._setup_telemetry(state, itr_per_epoch)
             state, best_prec1, final_prec1 = self._fit_epochs(
                 state, train_loader, sampler, val_loader, itr_per_epoch,
                 meters, start_epoch, start_itr, best_prec1, begin_time)
@@ -596,6 +710,9 @@ class Trainer:
                               f"{self._async_bilat.staleness_summary()}")
             # a run that ended inside the window still writes its trace
             self.profile.close()
+            # trace.json and the last comm snapshot, whatever path leaves
+            # the fit (a crash, an exit 75)
+            self.telemetry.finish(step=self._gstep)
         result = {"best_prec1": float(best_prec1),
                   "final_prec1": float(final_prec1),
                   "elapsed_time": time.time() - begin_time,
@@ -641,11 +758,11 @@ class Trainer:
                 state = drain_state(state)
                 meta = self._ckpt_meta(epoch + 1, 0, best_prec1, begin_time,
                                        meters)
-                self.cluster.save_checkpoint(
-                    state, meta,
-                    epoch_id=None if cfg.overwrite_checkpoints else epoch,
-                    is_best=is_best,
-                    requeue_on_signal=epoch != cfg.num_epochs - 1)
+                self._save(state, meta, epoch,
+                           epoch_id=None if cfg.overwrite_checkpoints
+                           else epoch,
+                           is_best=is_best,
+                           requeue_on_signal=epoch != cfg.num_epochs - 1)
         return state, best_prec1, final_prec1
 
     def _try_cross_world_resume(self) -> bool:
@@ -716,7 +833,7 @@ class Trainer:
             REQUEUE_EXIT_CODE)
         state = drain_state(state)
         meta = self._ckpt_meta(epoch, itr, best_prec1, begin_time, meters)
-        self.cluster.save_checkpoint(state, meta, requeue_on_signal=True)
+        self._save(state, meta, requeue_on_signal=True)
         # only reachable if the flag vanished between check and save
         raise SystemExit(REQUEUE_EXIT_CODE)
 
@@ -794,6 +911,31 @@ class Trainer:
             elapsed_nn = time.time() - nn_time
             elapsed_batch = time.time() - batch_time
             i += 1
+            # gstep is the algorithm's 0-based tick; steps done count 1
+            self._gstep = gstep + 1
+            tel = self.telemetry
+            if tel.enabled:
+                # spans from the loop's own clock readings; the comm tally
+                # is integer math at the step's tick
+                tel.trace_complete("data_fetch", "data", batch_time,
+                                   elapsed_data)
+                span_args = {"steps": 1, "timed": warm}
+                if tel.comm is not None:
+                    m = tel.comm.model
+                    span_args["gossip"] = int(m.gossip_fires(gstep))
+                    span_args["global_avg"] = int(m.global_avg_fires(gstep))
+                    tel.comm.on_step(gstep)
+                tel.trace_complete("train_step", "step", nn_time,
+                                   elapsed_nn, span_args)
+                if tel.metrics_every and self._gstep % tel.metrics_every == 0:
+                    tel.registry.emit("step_stats", {
+                        "epoch": epoch,
+                        "loss": round(float(host["loss"].mean()), 6),
+                        "step_time_s": round(elapsed_batch, 6),
+                        "data_time_s": round(elapsed_data, 6),
+                        "nn_time_s": round(elapsed_nn, 6),
+                        "timed": warm}, step=self._gstep)
+                    tel.emit_comm(step=self._gstep)
             timed = num_itr_ignore == 0
             if timed:
                 nn_meter.update(elapsed_nn)
@@ -855,7 +997,12 @@ class Trainer:
             event = self.recovery_policy.assess(report)
             if event.action == "global-average" \
                     and hasattr(alg, "global_average"):
-                state = recover_state(state, alg, self._recovery_fn(alg))
+                with self.telemetry.span("recovery_global_average",
+                                         "recovery"):
+                    state = recover_state(state, alg,
+                                          self._recovery_fn(alg))
+                if self.telemetry.comm is not None:
+                    self.telemetry.comm.on_recovery()
         return state
 
     @torch.no_grad()
@@ -872,16 +1019,18 @@ class Trainer:
         top5 = Meter(ptag="Prec@5")
         rank_top1 = np.zeros(self.gossip_world)
         n_batches, n_samples = 0, 0
-        for x, y in val_loader:
-            n = self.world_size * x.shape[1]
-            m = self._eval_fn(state, self._on_device(x), self._on_device(y))
-            m = {k: to_host(v, self.transport) for k, v in m.items()}
-            losses.update(float(np.mean(m["loss"])), n)
-            top1.update(float(np.mean(m["top1"])), n)
-            top5.update(float(np.mean(m["top5"])), n)
-            rank_top1 += m["top1"].reshape(self.gossip_world) * n
-            n_samples += n
-            n_batches += 1
+        with self.telemetry.span("validate", "eval"):
+            for x, y in val_loader:
+                n = self.world_size * x.shape[1]
+                m = self._eval_fn(state, self._on_device(x),
+                                  self._on_device(y))
+                m = {k: to_host(v, self.transport) for k, v in m.items()}
+                losses.update(float(np.mean(m["loss"])), n)
+                top1.update(float(np.mean(m["top1"])), n)
+                top5.update(float(np.mean(m["top5"])), n)
+                rank_top1 += m["top1"].reshape(self.gossip_world) * n
+                n_samples += n
+                n_batches += 1
         if n_batches == 0:
             self.log.warning(
                 "validation loader yielded no batches (dataset smaller "

@@ -156,12 +156,14 @@ class StepWatchdog:
     A watcher thread checks ``clock()`` every ``poll_s`` seconds (at
     most one second, and no longer than ``timeout``); once the step has
     run past ``timeout`` it logs an error and sets ``timed_out``.
-    ``clock`` and ``poll_s`` are there for tests.
+    With a telemetry ``registry`` the stall also lands as a ``heartbeat``
+    event in ``events.jsonl``.  ``clock`` and ``poll_s`` are there for
+    tests.
     """
 
     def __init__(self, timeout: float = HEARTBEAT_TIMEOUT, rank: int = 0,
                  clock: tp.Callable[[], float] = time.monotonic,
-                 poll_s: float | None = None):
+                 poll_s: float | None = None, registry=None):
         if timeout <= 0:
             raise ValueError("timeout must be > 0 (0 disables the "
                              "watchdog: build none)")
@@ -170,6 +172,7 @@ class StepWatchdog:
         self.clock = clock
         self.poll_s = min(timeout, 1.0) if poll_s is None else poll_s
         self.logger = make_logger(rank)
+        self.registry = registry
         self.timed_out = False
 
     @contextlib.contextmanager
@@ -186,6 +189,14 @@ class StepWatchdog:
                         f"step exceeded heartbeat timeout ({elapsed:.0f}s "
                         f"> {self.timeout}s): a hung kernel or device "
                         "read, or a peer process that stopped answering")
+                    if self.registry is not None:
+                        # the sinks are thread-safe; the main thread is
+                        # stuck in the step
+                        self.registry.emit(
+                            "heartbeat",
+                            {"elapsed_s": round(elapsed, 3),
+                             "timeout_s": self.timeout, "rank": self.rank},
+                            severity="error")
                     return
 
         t = threading.Thread(target=watch, daemon=True, name="StepWatchdog")

@@ -138,22 +138,26 @@ def test_reference_flags_parse_with_reference_defaults():
 @pytest.mark.parametrize("flag,value", [
     ("--tp", "2"), ("--ep", "2"), ("--pp", "2"),
     ("--slice_size", "2"),
-    ("--metrics_every", "5"),
+    ("--metrics_every", "-1"),
     ("--moe_experts", "4"), ("--mixing_alpha", "0.5"),
-    ("--trace_dir", "/tmp/x"),
+    ("--trace_dir", ""),
 ])
 def test_unported_flags_raise_naming_the_flag(flag, value, small):
-    # --tp, --ep, --moe_experts and --pp are ported; their cases keep a
-    # refusal of the reference's that names the flag: --tp with ring
-    # attention at --sp 1, --ep without --moe_experts, for --moe_experts
-    # the same refusal (a later --moe_experts 0 wins, with --ep 2 under
-    # --tp 2), and --pp with --tp
+    # --tp, --ep, --moe_experts, --pp, --metrics_every and --trace_dir are
+    # ported; their cases keep a refusal of the reference's that names
+    # the flag: --tp with ring attention at --sp 1, --ep without
+    # --moe_experts, for --moe_experts the same refusal (a later
+    # --moe_experts 0 wins, with --ep 2 under --tp 2), --pp with --tp,
+    # --metrics_every -1, and --metrics_every 5 with no (an empty)
+    # --trace_dir
     extra = {"--tp": ["--n_heads", "2", "--attn", "ring", "--world_size",
                       "2"],
              "--pp": ["--tp", "2", "--n_heads", "2", "--world_size", "4"],
              "--moe_experts": ["--tp", "2", "--n_heads", "2", "--ep", "2",
                                "--world_size", "4", "--moe_experts",
-                               "0"]}.get(flag, [])
+                               "0"],
+             "--metrics_every": ["--trace_dir", "/tmp/x"],
+             "--trace_dir": ["--metrics_every", "5"]}.get(flag, [])
     with pytest.raises(SystemExit, match=flag):
         gossip_lm.main(small + [flag, value] + extra)
 

@@ -159,23 +159,26 @@ UNPORTED_VALUES = {
     "--scan_steps": "2", "--multihost": "True",
     "--coordinator_address": "localhost:1", "--num_processes": "2",
     "--process_id": "1",
-    "--trace_dir": "/nonexistent", "--metrics_every": "5",
     "--fleet": "True", "--host_id": "0",
 }
 
 
-# flags ported since, each with a value that is still refused naming it:
-# --nprocs_per_node 3 does not divide the world of 4
-REFUSED_VALUES = {"--nprocs_per_node": "3"}
+# flags ported since, each with a value (and the flags beside it) that
+# is still refused naming it, by the reference's refusal:
+# --nprocs_per_node 3 does not divide the world of 4; --metrics_every -1;
+# --metrics_every 5 with no (an empty) --trace_dir
+REFUSED_VALUES = {"--nprocs_per_node": ("3",),
+                  "--metrics_every": ("-1", "--trace_dir", "/nonexistent"),
+                  "--trace_dir": ("", "--metrics_every", "5")}
 
 
 @pytest.mark.parametrize("flag", sorted(gossip_sgd.UNPORTED)
                          + sorted(REFUSED_VALUES))
 def test_unported_flags_raise_naming_the_flag(tmp_path, flag):
-    value = {**UNPORTED_VALUES, **REFUSED_VALUES}[flag]
+    value, *extra = REFUSED_VALUES.get(flag, (UNPORTED_VALUES.get(flag),))
     with pytest.raises(SystemExit, match=flag):
         gossip_sgd.main(SMALL + ["--checkpoint_dir", str(tmp_path), flag,
-                                 value])
+                                 value, *extra])
 
 
 def test_every_unported_flag_has_a_test_value():
@@ -307,9 +310,15 @@ def test_resilience_trainer_fields_are_threaded(field, value, extra):
 
 
 # TrainerConfig fields ported since, each with a value still refused:
-# (value, exception, message)
+# (value, exception, message[, the fields beside it])
 REFUSED_FIELDS = {"nprocs_per_node": (0, ValueError,
-                                      "nprocs_per_node must be >= 1")}
+                                      "nprocs_per_node must be >= 1"),
+                  "metrics_every": (-1, ValueError,
+                                    "metrics_every must be >= 0",
+                                    {"trace_dir": "/nonexistent"}),
+                  "trace_dir": ("", ValueError,
+                                "metrics_every needs trace_dir",
+                                {"metrics_every": 5})}
 
 
 @pytest.mark.parametrize("field", sorted(tloop.UNPORTED)
@@ -319,8 +328,10 @@ def test_unported_trainer_fields_raise_naming_the_feature(field):
         StackedTransport)
     from stochastic_gradient_push_torch.train.step import make_model
 
+    beside = {}
     if field in REFUSED_FIELDS:
-        value, exc, match = REFUSED_FIELDS[field]
+        value, exc, match, *more = REFUSED_FIELDS[field]
+        beside = more[0] if more else {}
     else:
         default, feature = tloop.UNPORTED[field]
         value = {bool: not default, int: 7, float: 0.25}.get(
@@ -328,7 +339,7 @@ def test_unported_trainer_fields_raise_naming_the_feature(field):
         exc, match = NotImplementedError, feature.split(" (")[0]
         if field == "plan":
             value = {"topology": "ring"}
-    cfg = tloop.TrainerConfig(**{field: value})
+    cfg = tloop.TrainerConfig(**{field: value, **beside})
     with pytest.raises(exc, match=match):
         tloop.Trainer(cfg, make_model("tiny_cnn"), StackedTransport(2),
                       device="cpu")

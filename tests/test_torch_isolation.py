@@ -118,6 +118,13 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.topology.schedule",
                 "stochastic_gradient_push_torch.resilience.faults",
                 "stochastic_gradient_push_torch.resilience.monitor",
+                "stochastic_gradient_push_torch.telemetry",
+                "stochastic_gradient_push_torch.telemetry.comm",
+                "stochastic_gradient_push_torch.telemetry.metrics",
+                "stochastic_gradient_push_torch.telemetry.registry",
+                "stochastic_gradient_push_torch.telemetry.sink",
+                "stochastic_gradient_push_torch.telemetry.tracer",
+                "stochastic_gradient_push_torch.parallel.wirecheck",
                 "stochastic_gradient_push_torch.resilience.recovery",
                 "stochastic_gradient_push_torch.topology.hierarchical",
                 "stochastic_gradient_push_torch.topology.synthesized",
@@ -176,5 +183,41 @@ def test_lm_harness_runs_with_jax_unavailable(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "val_loss" in out["result"] and "resumed from step 1" \
         in proc.stdout
+    assert not [m for m in out["loaded"]
+                if m.startswith("stochastic_gradient_push_tpu")]
+
+
+_TELEMETRY_RUN = r"""
+import json, os, sys
+for name in ("jax", "jaxlib", "flax", "optax"):
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, sys.argv[1])
+from stochastic_gradient_push_torch.parallel import wirecheck
+from stochastic_gradient_push_torch.run import gossip_lm
+d = sys.argv[2]
+assert wirecheck.selftest("cpu") == 0
+gossip_lm.main(["--device", "cpu", "--vocab_size", "64", "--d_model", "16",
+                "--n_layers", "1", "--n_heads", "1", "--d_ff", "32",
+                "--seq_len", "16", "--batch_size", "2", "--world_size", "2",
+                "--print_freq", "1", "--num_steps", "2", "--corpus_tokens",
+                "2000", "--checkpoint_dir", d, "--trace_dir", d + "/tel",
+                "--metrics_every", "1"])
+print(json.dumps({"files": sorted(os.listdir(d + "/tel")), "loaded": sorted(
+    m for m in sys.modules if m.startswith("stochastic_gradient_push"))}))
+"""
+
+
+def test_telemetry_and_the_wire_selftest_run_with_jax_unavailable(tmp_path):
+    """``scripts/torch_wirecheck.py``'s selftest and a traced LM run in
+    an interpreter where ``import jax`` fails."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _TELEMETRY_RUN, str(REPO), str(tmp_path)],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "wire selftest: OK" in proc.stdout
+    assert out["files"] == ["events.jsonl", "trace.json"]
+    assert "stochastic_gradient_push_torch.telemetry.comm" in out["loaded"]
     assert not [m for m in out["loaded"]
                 if m.startswith("stochastic_gradient_push_tpu")]

@@ -554,10 +554,10 @@ def _stalling_watchdog(made):
     from stochastic_gradient_push_torch.utils.profiling import StepWatchdog
 
     class Stalling(StepWatchdog):
-        def __init__(self, timeout, rank=0):
+        def __init__(self, timeout, rank=0, **kw):
             self.fake = _Clock()
             super().__init__(timeout, rank=rank, clock=self.fake,
-                             poll_s=0.005)
+                             poll_s=0.005, **kw)
             made.append(self)
 
         @contextlib.contextmanager
