@@ -233,8 +233,10 @@
      an NVLink figure; then one process skips a round, and the rank it
      sends to must raise ``PeerLostError`` naming its rank, the edge,
      the round and the silent peer after its 2 s limit;
-   - 13b: ``run/gossip_sgd.py`` in 2 processes under a torchrun
-     environment (``--backend gloo --gossip_kernel pallas``), ResNet-50
+   - 13b: ``run/gossip_sgd.py`` in 2 processes launched by the
+     reference's flags (``--multihost True --coordinator_address
+     127.0.0.1:port --num_processes 2 --process_id i``, no torchrun
+     variables; ``--backend gloo --gossip_kernel pallas``), ResNet-50
      at 224 px, 8 images a rank, 3 steps, SGP and OSGP side by side: one
      cross-process K2 and K1 a step in each process, both rank files
      written, each rank's state against the stacked kernel-lane run of
@@ -281,7 +283,8 @@
    - 15b-15d: d768 cut to 4 layers, ``--corpus_file`` on the
      repository's own ``*.md`` text as bytes (vocab 256) with
      ``--val_frac 0.1 --val_every 2``, 12 steps
-     in a subprocess, SIGUSR1 once its first CSV row is out: exit 75,
+     in a subprocess started beside 15a, SIGUSR1 (from a thread) once
+     its first CSV row is out: exit 75,
      both rank files at the CSV's last step, and (traced) its
      ``trace.json``, a ``run_meta`` with ``exit_reason:
      "preempt-requeue"`` at that step and a last ``comm`` event; a
@@ -470,7 +473,34 @@
    chaos round, parity, the ``CommModel`` pricing, and the chaos round
    on the kernel lane through the CUDA K2 and K1 (launches asserted),
    its ps-weight trajectory bit-identical to the plain lane's.
-25. A JSON line of per-kernel results (the fp32 flash rows also carry
+25. The KV-head-sharded serve (``serve/cli.py --model_shards 2``) of
+   phase 17d's consensus set (d768/h12/ff3072/vocab 32000 at 17d's 12
+   layers) at phase 3's page shape (page 16, 1024 pages, 16 slots, 48
+   pages a sequence), 16 requests of 64-512 prompt and 16-64 new tokens:
+   - 25a: in this process, both shards stacked on the card (alone: 25b
+     and 25c start once its serve is done), with ``--trace_dir``: every
+     request complete, the pages quiescent, 2 x L
+     x decode steps K6 and 2 x L x requests K3 launches; the trace's
+     ``run_meta`` and ``serve`` events; two requests' teacher-forced
+     logits within 1e-3 of the unsharded model (as phase 4);
+   - 25b: the same command in 2 processes under a torchrun environment
+     (gloo, the card shared), one shard each, started once 25a's serve is
+     done (beside the rest of phase 25 and phase 18, joined after it):
+     tokens and page ids bit-equal to 25a's, each process L x decode
+     steps K6 and L x requests K3 launches;
+   - 25c: ``serve/cli.py --selftest`` on the card in a subprocess
+     started after 25a's serve (joined after phase 18): ``serve
+     selftest: OK`` and its K6 launches above 0; then, in that process,
+     the ``SyntheticEngine`` fallback: 17a's ResNet-50 set served, its
+     summary printed, no kernel launched.
+   Phase 2 also times the paged decode at one shard's heads (Hq = Hkv =
+   6) beside the unsharded row.  A time printed while other work ran on
+   the card (15a beside 15b's subprocess, phase 18 beside 25b and 25c,
+   25b beside phase 18) carries ``(the card shared with ...)``.  13b
+   launches its processes by the reference's flags (``--multihost True
+   --coordinator_address ... --num_processes 2 --process_id i``) instead
+   of the torchrun environment.
+26. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -658,6 +688,12 @@ def _bound(nbytes: float, flops: float,
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _shared(busy: str) -> str:
+    """The mark on a printed timing taken while ``busy`` (other work, by
+    name) ran on the card; empty when it had the card to itself."""
+    return f" (the card shared with {busy})" if busy else ""
 
 
 def _max_err(a, b) -> float:
@@ -855,7 +891,8 @@ def check_paged(card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(2)
     row = None
-    for hq, hkv in ((12, 12), (12, 6)):
+    # the engine's shape, GQA, and one of 2 KV-head shards' (phase 25)
+    for hq, hkv in ((12, 12), (12, 6), (6, 6)):
         q, kc, vc, pi, lengths = _paged_case(g, hq, hkv)
         layers = kc.shape[0]
         err = max(_max_err(paged_decode(q, kc[i], vc[i], pi, lengths),
@@ -907,7 +944,7 @@ def check_paged(card: str) -> dict:
               f"{plain_ms:.4f} ms, sdpa over gathered pages {lib_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms "
               f"({bound_by}) [{card}]", flush=True)
-        if hq == hkv:   # the engine's shape: group 1
+        if hq == hkv == 12:   # the engine's shape: group 1
             row = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
                        host_ms=host_ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
@@ -1125,7 +1162,8 @@ class _TimedEngine:
 def main_path(card: str, params=None, label: str = "main"):
     """Phase 3 (17d with ``params``, a flax-layout tree): the engine over
     ``params`` (default the seed-0 init) serves 48 requests closed loop;
-    returns ``(engine, requests, launches)``."""
+    returns ``(engine, requests, launches, params)``."""
+    import numpy as np
     import torch
 
     from stochastic_gradient_push_torch.models.convert import init_params
@@ -1141,17 +1179,23 @@ def main_path(card: str, params=None, label: str = "main"):
 
     cfg = TransformerConfig(vocab_size=32000, d_model=768, n_layers=12,
                             n_heads=12, d_ff=3072)
+    if params is None:
+        params = init_params(cfg, seed=0)
     t0 = time.perf_counter()
-    engine = LMEngine(init_params(cfg, seed=0) if params is None
-                      else params, ServeConfig(
+    engine = LMEngine(params, ServeConfig(
         n_heads=12, page_size=16, num_pages=1024, max_seqs=16,
         max_pages_per_seq=48), device="cuda")
     torch.cuda.synchronize()
+
+    def size(tree) -> int:
+        return (sum(size(v) for v in tree.values())
+                if isinstance(tree, dict) else int(np.size(tree)))
+
     print(f"{label}: engine d{cfg.d_model} L{cfg.n_layers} h{cfg.n_heads} "
           f"ff{cfg.d_ff} vocab{cfg.vocab_size} built in "
           f"{time.perf_counter() - t0:.2f} s; weights "
-          f"{sum(p.numel() for p in engine.model.parameters()) * 4 / 1e9:.3f}"
-          f" GB, KV pool {2 * engine._kc.numel() * 4 / 1e9:.3f} GB", flush=True)
+          f"{size(params) * 4 / 1e9:.3f} GB, KV pool "
+          f"{2 * engine._kc.numel() * 4 / 1e9:.3f} GB", flush=True)
     requests = synthetic_requests(48, seed=0, vocab=256,
                                   prompt_tokens=(64, 512),
                                   new_tokens=(16, 128))
@@ -1180,14 +1224,24 @@ def main_path(card: str, params=None, label: str = "main"):
             "paged_decode": cfg.n_layers * metrics["decode_steps"]}
     if launches != want or min(launches.values()) <= 0:
         raise AssertionError(f"launches {launches}, expected {want}")
-    return engine, requests, launches
+    return engine, requests, launches, params
 
 
-def engine_vs_dense(engine, requests, card: str) -> None:
+def engine_vs_dense(engine, requests, card: str, params) -> None:
     """Two requests decoded side by side through the kernels, each
-    step's logits held against the dense model (plain attention) fed
-    the same tokens."""
+    step's logits held against the dense model over ``params`` (a
+    flax-layout tree; plain attention) fed the same tokens."""
     import torch
+
+    from stochastic_gradient_push_torch.models.convert import (
+        config_from_params, params_from_jax)
+    from stochastic_gradient_push_torch.models.transformer import (
+        TransformerLM)
+
+    dense_model = TransformerLM(config_from_params(params,
+                                                   engine.config.n_heads))
+    dense_model.load_state_dict(params_from_jax(params))
+    dense_model.to(engine.device).eval()
 
     worst = 0.0
     reqs = requests[:2]
@@ -1205,11 +1259,11 @@ def engine_vs_dense(engine, requests, card: str) -> None:
         engine.finish(slot)
         seq = list(r.prompt) + toks[:-1]
         with torch.no_grad():
-            dense = engine.model(torch.tensor([seq], device="cuda"))[0]
+            want = dense_model(torch.tensor([seq], device=engine.device))[0]
         t = len(r.prompt)
-        worst = max(worst, _max_err(logits[0], dense[:t]))
+        worst = max(worst, _max_err(logits[0], want[:t]))
         for j, lg in enumerate(logits[1:]):
-            worst = max(worst, _max_err(lg, dense[t + j]))
+            worst = max(worst, _max_err(lg, want[t + j]))
     engine.pages.assert_quiescent()
     print(f"engine vs dense: 2 requests x {n_new} tokens teacher-forced, "
           f"max |logit diff| {worst:.3e} (tolerance {TOL_ENGINE}) [{card}]",
@@ -3928,9 +3982,28 @@ def _dist_argv(ckpt_dir: str, *extra: str) -> list[str]:
             "--gossip_kernel", "pallas", "--checkpoint_dir", ckpt_dir, *extra]
 
 
+def _flag_form(child: str) -> str:
+    """``child`` (a :data:`_DIST_CLI_CHILD`) with its CLI call given the
+    reference's flags of a multi-host launch from its argv (root, rank,
+    world, port, the CLI's argv); it raises if ``child`` has no such
+    call, so the launch cannot silently lose its flags."""
+    call = "gossip_sgd.main(json.loads(sys.argv[5]))"
+    if child.count(call) != 1:
+        raise AssertionError(f"13b: the child has no {call!r} to flag")
+    return child.replace(call, (
+        "gossip_sgd.main(json.loads(sys.argv[5]) + [\"--multihost\", "
+        "\"True\", \"--coordinator_address\", \"127.0.0.1:\" + sys.argv[4], "
+        "\"--num_processes\", sys.argv[3], \"--process_id\", sys.argv[2]])"))
+
+
+# 13b's child: _DIST_CLI_CHILD launched by the reference's flags, with no
+# torchrun variables
+_DIST_CLI_FLAG_CHILD = _flag_form(_DIST_CLI_CHILD)
+
+
 def dist_cli_path(card: str) -> dict:
-    """13b: run/gossip_sgd.py under a torchrun environment in 2 processes
-    on the card (gloo group, the payload on the cross-process K2/K1),
+    """13b: run/gossip_sgd.py in 2 processes launched by the reference's
+    flags on the card (gloo group, the payload on the cross-process K2/K1),
     SGP and OSGP side by side; launch counts per step in each process,
     the rank files, and each rank's state against the stacked kernel-lane
     run of the same command (deterministic cuDNN)."""
@@ -3942,14 +4015,8 @@ def dist_cli_path(card: str) -> dict:
     world, steps = DIST_CLI["world"], DIST_CLI["itrs"]
     tmp = tempfile.mkdtemp(prefix="dist13_", dir=os.path.join(ROOT, "build"))
     runs = {"sgp": [], "osgp": ["--overlap", "True"]}
-
-    def torchrun(r, port):
-        return dict(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                    MASTER_PORT=str(port))
-
-    procs = {alg: _ranks(_DIST_CLI_CHILD, world, [json.dumps(_dist_argv(
-        os.path.join(tmp, alg), "--backend", "gloo", *extra))], torchrun)
+    procs = {alg: _ranks(_DIST_CLI_FLAG_CHILD, world, [json.dumps(_dist_argv(
+        os.path.join(tmp, alg), "--backend", "gloo", *extra))])
         for alg, extra in runs.items()}
     flags = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
@@ -3995,7 +4062,8 @@ def dist_cli_path(card: str) -> dict:
                 worst = max(worst, _max_err(got[k], want[k]))
                 exact += bool(torch.equal(got[k], want[k]))
         print(f"dist 13b {alg}: run/gossip_sgd.py in {world} processes "
-              f"(torchrun environment, --backend gloo, --gossip_kernel "
+              f"(launched by --multihost True --coordinator_address "
+              f"--num_processes --process_id, --backend gloo, --gossip_kernel "
               f"pallas), ResNet-50 224 px, {DIST_CLI['batch']} a rank, "
               f"{steps} steps: one cross-process K2 and K1 a step in each "
               f"process, rank files written; vs the stacked kernel lane's "
@@ -4499,10 +4567,12 @@ def _harness_argv(ckpt: str, *extra: str, vocab: int = 32000,
             "0", "--checkpoint_dir", ckpt, *extra]
 
 
-def _harness_run(label: str, argv, card: str):
+def _harness_run(label: str, argv, card: str, beside=None):
     """One in-process run of ``run/gossip_lm.py`` with every counter
     zeroed just before: ``(result, launches, stdout lines, wall s,
-    clock)``, the clock a :class:`_HarnessClock`."""
+    clock)``, the clock a :class:`_HarnessClock`.  ``beside`` names the
+    other work running on the card as the run starts (a callable), which
+    marks its printed times."""
     import contextlib
     import io
 
@@ -4514,6 +4584,7 @@ def _harness_run(label: str, argv, card: str):
     for c in counters.values():
         c.launches = 0
     out = io.StringIO()
+    busy = beside() if beside else ""
     with _HarnessClock() as clock:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -4521,9 +4592,10 @@ def _harness_run(label: str, argv, card: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    print(f"harness {label}: {wall:.2f} s in main: {clock.summary(wall)}; "
-          f"launches {json.dumps({k: v for k, v in launches.items() if v})}"
-          f" [{card}]", flush=True)
+    print(f"harness {label}: {wall:.2f} s in main: {clock.summary(wall)}"
+          f"{_shared(busy)}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} [{card}]",
+          flush=True)
     return result, launches, out.getvalue().splitlines(), wall, clock
 
 
@@ -4577,11 +4649,11 @@ def _harness_spread(a: str, b: str) -> tuple[float, float]:
     return params, max(abs(x - y) for x, y in zip(la, lb))
 
 
-def harness_resume(card: str, tmp: str) -> dict:
+def harness_resume(card: str, tmp: str, preempt: dict) -> dict:
     """15a: N steps with ``--ckpt_every N/2``, twice (the determinism
     spread), against N/2 steps and a ``--resume True`` to N: rank files
     and CSV losses equal, or within the spread of the two straight
-    runs."""
+    runs.  ``preempt`` is 15b's run, whose subprocess runs beside."""
     n = HARNESS["steps"]
     # a token file over the whole vocabulary, n steps' batches long
     every = ["--ckpt_every", str(n // 2), "--corpus_file",
@@ -4594,7 +4666,9 @@ def harness_resume(card: str, tmp: str) -> dict:
         _, got, _, _, clock = _harness_run(
             f"15a {label} to step {steps}",
             _harness_argv(ckpt, "--num_steps", str(steps), *every, *extra,
-                          layers=HARNESS["a_layers"]), card)
+                          layers=HARNESS["a_layers"]), card,
+            beside=lambda: ("15b's subprocess"
+                            if preempt["proc"].poll() is None else ""))
         done = steps - (n // 2 if extra else 0)
         want = _harness_want(done, layers=HARNESS["a_layers"])
         if got != want or len(clock.restores) != bool(extra):
@@ -4621,20 +4695,14 @@ def harness_resume(card: str, tmp: str) -> dict:
     return {k: sum(r[k] for r in launches) for k in launches[0]}
 
 
-def harness_preempt(card: str, tmp: str) -> dict:
-    """15b-15d: the CLI on ``--corpus_file``, the repository's own
-    ``*.md`` text as bytes (vocab 256), with ``--val_frac 0.1
-    --val_every 2``, in a subprocess: SIGUSR1 once its first CSV row is
-    out, exit 75 with the rank files at the CSV's last step; then a
-    resume in this process to ``--num_steps``, its rows running on
-    without a gap and validation rows at the cadence and the end, K3
-    launched once more a layer a rank for every validation batch and
-    K4/K5 not; then the eval step on the saved state on the card,
-    kernels against plain twins."""
-    import torch
+def _preempt_start(tmp: str) -> dict:
+    """15b's subprocess, started beside 15a: the CLI on the repository's
+    own ``*.md`` text, traced, and a thread that sends it SIGUSR1 once
+    its first CSV row is out and waits for its exit.  Returns the run's
+    paths, its argv and (once the thread is joined) its timings."""
+    import threading
 
     c, w = HARNESS, HARNESS["world"]
-    n = c["preempt_steps"]
     corpus = os.path.join(tmp, "repo_text.bin")
     with open(corpus, "wb") as out:
         for name in sorted(os.listdir(ROOT)):
@@ -4642,44 +4710,77 @@ def harness_preempt(card: str, tmp: str) -> dict:
                 with open(os.path.join(ROOT, name), "rb") as f:
                     out.write(f.read())
     ckpt = os.path.join(tmp, "preempt")
-    argv = _harness_argv(ckpt, "--num_steps", str(n), "--corpus_file",
-                         corpus, "--val_frac", str(c["val_frac"]),
-                         "--val_every", str(c["val_every"]),
-                         "--val_batches", str(c["val_batches"]), vocab=256,
+    argv = _harness_argv(ckpt, "--num_steps", str(c["preempt_steps"]),
+                         "--corpus_file", corpus, "--val_frac",
+                         str(c["val_frac"]), "--val_every",
+                         str(c["val_every"]), "--val_batches",
+                         str(c["val_batches"]), vocab=256,
                          layers=c["b_layers"])
-    csv_path = os.path.join(ckpt, f"lm_out_n{w}.csv")
-    log_path = os.path.join(tmp, "preempt.log")
-    # the preempted run is traced: its trace, exit record and last comm
-    # snapshot must survive the exit 75
-    tdir = os.path.join(tmp, "preempt_telemetry")
+    run = dict(corpus=corpus, ckpt=ckpt, argv=argv,
+               csv_path=os.path.join(ckpt, f"lm_out_n{w}.csv"),
+               log_path=os.path.join(tmp, "preempt.log"),
+               # the preempted run is traced: its trace, exit record and
+               # last comm snapshot must survive the exit 75
+               tdir=os.path.join(tmp, "preempt_telemetry"))
     t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m",
-             "stochastic_gradient_push_torch.run.gossip_lm", *argv,
-             "--trace_dir", tdir],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
-            stderr=subprocess.STDOUT)
+    log = open(run["log_path"], "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "stochastic_gradient_push_torch.run.gossip_lm", *argv,
+         "--trace_dir", run["tdir"]],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=log,
+        stderr=subprocess.STDOUT)
+
+    def watch():
         try:
             while True:
                 if proc.poll() is not None or (
                         time.perf_counter() - t0 > PREEMPT_TIMEOUT_S):
-                    raise AssertionError("harness 15b: no CSV row before "
-                                         "the run ended or timed out")
-                if os.path.exists(csv_path):
-                    with open(csv_path) as f:
+                    run["error"] = ("harness 15b: no CSV row before the "
+                                    "run ended or timed out")
+                    return
+                if os.path.exists(run["csv_path"]):
+                    with open(run["csv_path"]) as f:
                         if len(f.read().splitlines()) >= 2:
                             break
                 time.sleep(0.05)
-            signalled = time.perf_counter() - t0
+            run["signalled"] = time.perf_counter() - t0
             proc.send_signal(signal.SIGUSR1)
-            code = proc.wait(timeout=PREEMPT_TIMEOUT_S)
+            run["code"] = proc.wait(timeout=PREEMPT_TIMEOUT_S)
+            run["exited"] = time.perf_counter() - t0
+        except BaseException as e:      # noqa: BLE001 (re-raised below)
+            run["error"] = repr(e)
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    exited = time.perf_counter() - t0
-    with open(log_path) as f:
+            log.close()
+
+    run["proc"] = proc
+    run["thread"] = threading.Thread(target=watch, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def harness_preempt(card: str, tmp: str, run: dict) -> dict:
+    """15b-15d: ``run`` (:func:`_preempt_start`'s) exits 75 with the rank
+    files at the CSV's last step; then a resume in this process to
+    ``--num_steps``, its rows running on without a gap and validation
+    rows at the cadence and the end, K3 launched once more a layer a
+    rank for every validation batch and K4/K5 not; then the eval step on
+    the saved state on the card, kernels against plain twins."""
+    import torch
+
+    c, w = HARNESS, HARNESS["world"]
+    n = c["preempt_steps"]
+    run["thread"].join(2 * PREEMPT_TIMEOUT_S)
+    if "error" in run or run["thread"].is_alive():
+        raise AssertionError(run.get("error", "harness 15b: the subprocess "
+                                              "outlived its watch"))
+    corpus, ckpt, argv = run["corpus"], run["ckpt"], run["argv"]
+    csv_path, tdir = run["csv_path"], run["tdir"]
+    code, signalled, exited = run["code"], run["signalled"], run["exited"]
+    with open(run["log_path"]) as f:
         log_text = f.read()
     if code != 75:
         raise AssertionError(f"harness 15b: exit {code}, expected 75:\n"
@@ -4715,7 +4816,8 @@ def harness_preempt(card: str, tmp: str) -> dict:
     corpus_line = [x for x in log_text.splitlines()
                    if x.startswith("corpus: ")]
     print(f"harness 15b: SIGUSR1 {signalled:.1f} s into the subprocess, "
-          f"exit {code} at step {k} after {exited:.1f} s; the resume's "
+          f"exit {code} at step {k} after {exited:.1f} s"
+          f"{_shared('15a')}; the resume's "
           f"rows run on to {rows[-1][0]}; "
           f"{corpus_line[0] if corpus_line else 'no corpus line'}; "
           f"rows (step:loss/val_loss) "
@@ -4820,13 +4922,15 @@ def harness_path(card: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="lm_harness_",
                            dir=os.path.join(ROOT, "build"))
     try:
-        runs = [harness_resume(card, tmp)]
+        # 15b's subprocess starts first and runs beside 15a
+        preempt = _preempt_start(tmp)
+        runs = [harness_resume(card, tmp, preempt)]
         torch.cuda.empty_cache()
-        runs.append(harness_preempt(card, tmp))
+        runs.append(harness_preempt(card, tmp, preempt))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"harness: phase 15 in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"harness: phase 15 in {time.perf_counter() - t0:.1f} s (15b's "
+          f"subprocess beside 15a)", flush=True)
     return {n: sum(r[n] for r in runs) for n in runs[0]}
 
 
@@ -5478,12 +5582,13 @@ def serve_consensus(card: str, tmp: str, corpus: str) -> dict:
           f"parameters) [{card}]", flush=True)
     if info.world != HARNESS["world"] or info.step != CONSENSUS_STEPS:
         raise AssertionError(f"17d: ingested {info}")
-    engine, requests, launches = main_path(card, params_to_jax(params),
-                                           label="ckpt 17d serve")
-    engine_vs_dense(engine, requests, card)
+    tree = params_to_jax(params)
+    engine, requests, launches, _ = main_path(card, tree,
+                                              label="ckpt 17d serve")
+    engine_vs_dense(engine, requests, card, tree)
     del engine
     return {n: got.get(n, 0) + launches.get(n, 0)
-            for n in {*got, *launches}}
+            for n in {*got, *launches}}, tree
 
 
 def dcp_dist_check(card: str, tmp: str, procs) -> dict:
@@ -5522,15 +5627,19 @@ def dcp_dist_check(card: str, tmp: str, procs) -> dict:
     return launches
 
 
-def checkpoints_path(card: str) -> dict:
+def checkpoints_path(card: str):
     """Phase 17: 17e and 17b in the background, 17a, 17c and 17d in this
-    process.  Returns the main runs' launches."""
+    process; then phase 25 on 17d's and 17a's sets.  Returns phase 17's
+    and phase 25a's main runs' launches, a function that joins 25b and
+    25c, checks them, removes phase 17's files and returns their
+    launches, and one that names those of them still running."""
     import numpy as np
     import torch
 
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="ckpt17_", dir=os.path.join(ROOT, "build"))
-    procs_e = procs_b = []
+    procs_e, procs_b, procs_25 = [], [], []
+    done = False
     try:
         e_argv = _dist_argv(os.path.join(tmp, "e"), "--backend", "gloo",
                             "--ckpt_backend", "orbax")
@@ -5546,19 +5655,275 @@ def checkpoints_path(card: str) -> dict:
             0, 32000, HARNESS["corpus"]).astype(np.int32))
         runs.append(dcp_lm(card, tmp, corpus))
         torch.cuda.empty_cache()
-        runs.append(serve_consensus(card, tmp, corpus))
+        served, tree = serve_consensus(card, tmp, corpus)
+        runs.append(served)
         torch.cuda.empty_cache()
         runs.append(reshard_dist_check(card, tmp, procs_b))
         runs.append(dcp_dist_check(card, tmp, procs_e))
+        print(f"ckpt: phase 17 in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        sharded, join = serve_sharded_path(card, tmp, tree, procs_25)
+        del tree
+        done = True
     finally:
         # a failed part leaves no process behind
-        for p in [*procs_e, *procs_b]:
+        for p in [*procs_e, *procs_b, *([] if done else procs_25)]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f"ckpt: phase 17 in {time.perf_counter() - t0:.1f} s", flush=True)
-    return {n: sum(r.get(n, 0) for r in runs) for r in runs for n in r}
+        if not done:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def busy() -> str:
+        """Phase 25's processes still running on the card, by name."""
+        names = ["25b's serve"] * SHARDED["shards"] + ["25c's selftest"]
+        return ", ".join(dict.fromkeys(
+            n for n, p in zip(names, procs_25) if p.poll() is None))
+
+    def finish(abandon: bool = False) -> dict:
+        try:
+            if abandon:
+                for p in procs_25:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                return {}
+            return join()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    return ({n: sum(r.get(n, 0) for r in runs) for r in runs for n in r},
+            sharded, finish, busy)
+
+
+# -- phase 25: the KV-head-sharded serve -------------------------------------
+
+# 17d's consensus set through serve/cli.py at phase 3's page shape, its KV
+# heads over 2 shards: 16 requests of 64-512 prompt and 16-64 new tokens
+SHARDED = dict(shards=2, requests=16, min_prompt=64, max_prompt=512,
+               min_new=16, max_new=64)
+
+
+def _sharded_argv(ckpt: str, *extra: str) -> list[str]:
+    c = SHARDED
+    return [ckpt, "--tag", "lm_", "--n_heads", "12", "--model_shards",
+            str(c["shards"]), "--page_size", "16", "--num_pages", "1024",
+            "--max_seqs", "16", "--max_pages_per_seq", "48", "--requests",
+            str(c["requests"]), "--min_prompt", str(c["min_prompt"]),
+            "--max_prompt", str(c["max_prompt"]), "--min_new",
+            str(c["min_new"]), "--max_new", str(c["max_new"]), "--device",
+            "cuda", *extra]
+
+
+class _ServeRecorder(_TimedEngine):
+    """An engine as the scheduler sees it, with the page ids of every
+    slot after each call recorded, and the host-clock totals of its
+    prefill and decode calls (:class:`_TimedEngine`)."""
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.pages = engine.pages
+        self.trace = []
+
+    def start(self, prompt, budget_tokens):
+        slot, tok = super().start(prompt, budget_tokens)
+        self.trace.append([slot, list(self.pages.pages_of(slot))])
+        return slot, tok
+
+    def step(self, slots):
+        out = super().step(slots)
+        self.trace.append([[s, list(self.pages.pages_of(s))]
+                           for s in sorted(slots)])
+        return out
+
+
+def install_serve_recorder(path: str):
+    """``serve/bench.py::run_bench`` recording each run's completions,
+    page ids and metrics into the JSON file ``path`` (the serve CLI
+    looks it up when it runs); the wrapper keeps the last engine."""
+    from stochastic_gradient_push_torch.serve import bench
+
+    real = bench.run_bench
+
+    def recording(engine, requests, **kw):
+        rec = _ServeRecorder(engine)
+        metrics, completions = real(rec, requests, **kw)
+        with open(path, "w") as f:
+            json.dump({"tokens": {str(c.rid): list(c.tokens)
+                                  for c in completions},
+                       "pages": rec.trace, "metrics": metrics,
+                       "seconds": rec.seconds}, f)
+        recording.engine = engine
+        return metrics, completions
+
+    bench.run_bench = recording
+    return recording
+
+
+# the child: one shard of 25a's command a process under a torchrun
+# environment, started once 25a's serve is done; its run is recorded into
+# sys.argv[5] + ".r{rank}.json"
+_P25_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as c
+from stochastic_gradient_push_torch.ops.flash_attention import flash_fwd
+from stochastic_gradient_push_torch.serve import cli
+from stochastic_gradient_push_torch.serve.paged_attention import paged_decode
+c.install_serve_recorder(f"{sys.argv[5]}.r{sys.argv[2]}.json")
+rc = cli.main(json.loads(sys.argv[6]))
+print("LAUNCHES " + json.dumps({"flash_fwd": flash_fwd.launches,
+                                "paged_decode": paged_decode.launches}),
+      flush=True)
+sys.exit(rc)
+"""
+
+
+# 25c's child: the serve CLI's selftest on the card, then the
+# SyntheticEngine fallback on 17a's ResNet-50 set (sys.argv[2]), every
+# kernel counter zeroed just before the fallback and read after it
+_P25C_CHILD = r"""
+import contextlib, io, json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as c
+from stochastic_gradient_push_torch.serve import cli
+rc = cli.main(["--selftest", "--device", "cuda"])
+counters = c._counters()
+for k in counters.values():
+    k.launches = 0
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    fallback = cli.main([sys.argv[2], "--requests", "8", "--device", "cuda",
+                         "--artifact", sys.argv[3]])
+print("FALLBACK " + json.dumps({
+    "rc": fallback, "lines": buf.getvalue().splitlines(),
+    "launches": {n: k.launches for n, k in counters.items()}}), flush=True)
+sys.exit(rc)
+"""
+
+
+def serve_sharded_path(card: str, tmp: str, tree, procs: list):
+    """Phase 25 in this process: 25a, alone on the card, and its
+    teacher-forced check; 25b's processes and 25c's selftest and fallback
+    start once 25a's serve is done and run beside what follows (phase
+    18), appended to ``procs``.  Returns 25a's launches and a function
+    that joins and checks 25b and 25c and returns theirs."""
+    from stochastic_gradient_push_torch.ops.flash_attention import flash_fwd
+    from stochastic_gradient_push_torch.serve import bench, cli
+    from stochastic_gradient_push_torch.serve.bench import synthetic_requests
+    from stochastic_gradient_push_torch.serve.paged_attention import (
+        paged_decode)
+
+    t0 = time.perf_counter()
+    c, shards = SHARDED, SHARDED["shards"]
+    ckpt = os.path.join(tmp, "lm_serve")
+    out = os.path.join(tmp, "p25")
+    os.makedirs(out)
+    layers = sum(1 for k in tree if k.startswith("block_"))
+    real = bench.run_bench
+    # 25a: both shards stacked here, traced
+    tdir = os.path.join(out, "trace")
+    recording = install_serve_recorder(os.path.join(out, "a.json"))
+    try:
+        rc = cli.main(_sharded_argv(ckpt, "--trace_dir", tdir, "--artifact",
+                                    os.path.join(out, "a.json.art")))
+    finally:
+        bench.run_bench = real
+    # 25b's processes (ingest, build, serve) and 25c start now, beside
+    # what follows, in the caller's list: it stops them all
+    procs += _ranks(_P25_CHILD, shards, [
+        os.path.join(out, "b"), json.dumps(_sharded_argv(
+            ckpt, "--artifact", os.path.join(out, "b.json")))],
+        _torchrun_env(shards))
+    procs.append(subprocess.Popen(
+        [sys.executable, "-c", _P25C_CHILD, ROOT, os.path.join(tmp, "a"),
+         os.path.join(out, "synthetic.json")], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+    launches = {"flash_fwd": flash_fwd.launches,
+                "paged_decode": paged_decode.launches}
+    with open(os.path.join(out, "a.json")) as f:
+        rec = json.load(f)
+    m = rec["metrics"]
+    requests = synthetic_requests(
+        c["requests"], seed=0, vocab=256,
+        prompt_tokens=(c["min_prompt"], c["max_prompt"]),
+        new_tokens=(c["min_new"], c["max_new"]))
+    want = {"flash_fwd": shards * layers * c["requests"],
+            "paged_decode": shards * layers * m["decode_steps"]}
+    budgets = {str(r.rid): r.max_new_tokens for r in requests}
+    if (rc != 0 or m["requests"] != c["requests"]
+            or {k: len(v) for k, v in rec["tokens"].items()} != budgets
+            or launches != want):
+        raise AssertionError(f"25a: exit {rc}, {m['requests']} requests, "
+                             f"launches {launches}, expected {want}")
+    events, _ = _telemetry("serve 25a", tdir, kinds=("run_meta", "serve"))
+    meta = next(e for e in events if e["kind"] == "run_meta")["data"]
+    engine = recording.engine
+    engine.pages.assert_quiescent()
+    sec = rec["seconds"]
+    a_ms = sec["decode"] / m["decode_steps"] * 1e3
+    print(f"serve 25a: serve/cli.py --model_shards {shards} stacked on the "
+          f"card, d768 L{layers} h12: {m['requests']} requests, "
+          f"{m['decode_steps']} decode steps, {m['tokens_per_sec']:.1f} "
+          f"tok/s, p50 {m['p50_latency_s'] * 1e3:.1f} ms; host time prefill "
+          f"{sec['prefill']:.4f} s, decode {sec['decode']:.4f} s "
+          f"({a_ms:.2f} ms a step) of {m['elapsed_s']:.4f} s; launches "
+          f"{json.dumps(launches)} = {shards} x {layers} x (requests, decode "
+          f"steps); trace: {len(events)} events, run_meta model_shards "
+          f"{meta['model_shards']} [{card}]", flush=True)
+    # the teacher-forced check against the unsharded model
+    engine_vs_dense(engine, requests, card, tree)
+    del engine, recording.engine
+    print(f"serve: phase 25 in {time.perf_counter() - t0:.1f} s in this "
+          f"process (25b and 25c joined after phase 18)", flush=True)
+
+    def finish() -> dict:
+        """25b and 25c, joined: their checks, and their launches."""
+        logs = _join("25b, 25c", procs)
+        lines = logs[-1].strip().splitlines()
+        fb = _tagged(logs[-1], "FALLBACK")
+        print("serve 25 fallback: " + " | ".join(fb["lines"]) + "; kernel "
+              f"launches {sum(fb['launches'].values())} [{card}]",
+              flush=True)
+        if (fb["rc"] != 0 or not any("synthetic engine" in x
+                                     for x in fb["lines"])
+                or any(fb["launches"].values())):
+            raise AssertionError(f"25 fallback: {fb}")
+        ok = [x for x in lines if x.startswith("serve selftest: ")]
+        k6 = [x for x in ok if x.startswith("serve selftest: kernel")]
+        c6 = int(k6[0].rsplit(" ", 1)[1]) if k6 else 0
+        c3 = int(k6[0].split("flash_fwd ")[1].split(",")[0]) if k6 else 0
+        print(f"serve 25c: {ok[-1]!r}; {k6[0] if k6 else 'no launches'} "
+              f"[{card}]", flush=True)
+        if ok[-1] != "serve selftest: OK" or c6 <= 0:
+            raise AssertionError(f"25c: {logs[-1][-3000:]}")
+        apart, steps_ms = [], []
+        want_r = {k: v // shards for k, v in want.items()}
+        for r, plog in enumerate(logs[:-1]):
+            got = _tagged(plog, "LAUNCHES")
+            with open(os.path.join(out, f"b.r{r}.json")) as f:
+                prec = json.load(f)
+            if got != want_r:
+                raise AssertionError(f"25b process {r}: launches {got}, "
+                                     f"expected {want_r}")
+            apart.append(prec["tokens"] != rec["tokens"]
+                         or prec["pages"] != rec["pages"])
+            steps_ms.append(prec["seconds"]["decode"]
+                            / prec["metrics"]["decode_steps"] * 1e3)
+        print(f"serve 25b: {shards} processes (torchrun environment, gloo, "
+              f"the card shared), one KV-head shard each: tokens and page "
+              f"ids bit-equal to 25a's: {not any(apart)}; launches a process"
+              f" {json.dumps(want_r)}; decode host time a step "
+              f"{min(steps_ms):.2f}-{max(steps_ms):.2f} ms"
+              f"{_shared('phase 18')} (25a {a_ms:.2f}) [{card}]", flush=True)
+        if any(apart):
+            raise AssertionError("25b: the processes' tokens or page ids "
+                                 "differ from 25a's")
+        return {"flash_fwd": want["flash_fwd"] + c3,
+                "paged_decode": want["paged_decode"] + c6}
+
+    return launches, finish
 
 
 # -- phase 18: the sequence ring across processes ---------------------------
@@ -5781,11 +6146,13 @@ def _seq_dist_check(card: str, label: str, procs: list, stacked: dict,
                              f"run's, over {TOL_STEP_LOSS_REL}")
 
 
-def seq_dist_path(card: str) -> dict:
+def seq_dist_path(card: str, beside) -> dict:
     """Phase 18: phase 11's dp 2 x sp 4 LM in 8 processes, one sequence
     shard each, against the same command stacked in this process (18a
-    fp32, 18b bf16), then the ring shift's time (18c).  Returns the
-    processes' launches."""
+    fp32, 18b bf16), then the ring shift's time (18c); ``beside`` names
+    the other work still running on the card (phase 25's processes),
+    which marks the times it shares.  Returns the processes'
+    launches."""
     import numpy as np
     import torch
 
@@ -5807,9 +6174,10 @@ def seq_dist_path(card: str) -> dict:
         (f"RUN_{label}", _seq_dist_argv(os.path.join(tmp, f"dist_{label}"),
                                         corpus, n, *extra))
         for label, n, extra in runs]), go], _torchrun_env(world))
-    stacked = {}
+    stacked, shared = {}, {}
     try:
         for label, n, extra in runs:
+            shared[label] = beside()
             ckpt = os.path.join(tmp, f"stacked_{label}")
             extra = [x for x in extra if x != tdir and x != "--trace_dir"]
             stacked[label] = seq_dist_run(_seq_dist_argv(
@@ -5817,6 +6185,7 @@ def seq_dist_path(card: str) -> dict:
             shutil.rmtree(ckpt)
             torch.cuda.empty_cache()
         x = torch.randn(sp, b, 12, t // sp, 64, device="cuda")
+        shared["roll"] = beside()
         roll_ms = _time_ms(lambda: torch.roll(x, 1, 0), 20)
         del x
         torch.cuda.empty_cache()
@@ -5830,6 +6199,7 @@ def seq_dist_path(card: str) -> dict:
           f"L{SEQ_DIST['layers']} T{t} B{b}/replica ring_flash remat K2/K1, "
           f"beside the same "
           f"command stacked here [{card}]", flush=True)
+    shared["processes"] = beside()
     with open(go, "w"):
         pass
     logs = _join("18", procs)
@@ -5847,8 +6217,9 @@ def seq_dist_path(card: str) -> dict:
         stacked_ms = float(np.median(stacked[label]["step_s"][1:])) * 1e3
         print(f"seq 18{label}: step ms (synchronised, median of steps 2-"
               f"{len(procs[0]['step_s'])}) {min(step_ms):.1f}-"
-              f"{max(step_ms):.1f} over the processes, stacked "
-              f"{stacked_ms:.1f}; seconds in main "
+              f"{max(step_ms):.1f} over the processes"
+              f"{_shared(shared['processes'])}, stacked {stacked_ms:.1f}"
+              f"{_shared(shared[label])}; seconds in main "
               f"{min(p['wall_s'] for p in procs):.1f}-"
               f"{max(p['wall_s'] for p in procs):.1f}, stacked "
               f"{stacked[label]['wall_s']:.1f} [{card}]", flush=True)
@@ -5873,11 +6244,13 @@ def seq_dist_path(card: str) -> dict:
     print(f"seq 18c: one ring shift of a {shifts[0]['bytes'] / 1e6:.2f} MB "
           f"fp32 block a shard, {world} processes at once over gloo "
           f"(through the host): {ms[0]:.2f}-{ms[-1]:.2f} ms a shift (median "
-          f"{statistics.median(ms):.2f}); torch.roll of the stacked "
-          f"[{sp}, {b}, 12, {t // sp}, 64] {roll_ms:.4f} ms (CUDA events) "
+          f"{statistics.median(ms):.2f}){_shared(shared['processes'])}; "
+          f"torch.roll of the stacked [{sp}, {b}, 12, {t // sp}, 64] "
+          f"{roll_ms:.4f} ms (CUDA events){_shared(shared['roll'])} "
           f"[{card}]", flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
-    print(f"seq: phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"seq: phase 18 in {time.perf_counter() - t0:.1f} s"
+          f"{_shared(shared['a'])}", flush=True)
     return launches
 
 # -- phase 19: tensor parallelism -------------------------------------------
@@ -7218,10 +7591,10 @@ def main() -> int:
     with _phase_clock("4, the gossip kernels,"):
         gossip_rows = check_gossip(card)
     with _phase_clock("3"):
-        engine, requests, launches = main_path(card)
+        engine, requests, launches, tree = main_path(card)
     with _phase_clock("4, the teacher-forced check,"):
-        engine_vs_dense(engine, requests, card)
-    del engine
+        engine_vs_dense(engine, requests, card, tree)
+    del engine, tree
     torch.cuda.empty_cache()
     with _phase_clock("5"):
         train_launches, train_timed = train_path(card)
@@ -7263,9 +7636,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     hier_launches = hierarchical_path(card, flat_bt)
     torch.cuda.empty_cache()
-    ckpt_launches = checkpoints_path(card)
+    ckpt_launches, sharded_a, finish_25, busy_25 = checkpoints_path(card)
     torch.cuda.empty_cache()
-    seq_dist_launches = seq_dist_path(card)
+    try:
+        seq_dist_launches = seq_dist_path(card, busy_25)
+    except BaseException:
+        finish_25(abandon=True)
+        raise
+    # 25b's serve, 25c's selftest and the fallback ran beside phase 18
+    sharded_bc = finish_25()
+    sharded_launches = {n: sharded_a[n] + sharded_bc[n] for n in sharded_a}
     torch.cuda.empty_cache()
     tp_launches = tp_path(card)
     torch.cuda.empty_cache()
@@ -7289,7 +7669,8 @@ def main() -> int:
     # processes, phase 20a's stacked MoE run and 20c's processes, phase
     # 21a's stacked ep x tp run and 21b's processes, phase 22a's stacked
     # pp run, 22b's 4-D pipeline run and 22c's processes, phase 23's
-    # processes, phase 24's wire selftest) summed
+    # processes, phase 24's wire selftest, phase 25's stacked serve, 25b's
+    # processes and 25c's selftest) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
@@ -7297,7 +7678,7 @@ def main() -> int:
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
             ckpt_launches, seq_dist_launches, tp_launches, ep_launches,
-            tp_ep_launches, pp_launches, wire_launches))
+            tp_ep_launches, pp_launches, wire_launches, sharded_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

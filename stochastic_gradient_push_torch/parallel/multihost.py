@@ -33,6 +33,7 @@ dp group for the metrics), as the caller passes it.
 from __future__ import annotations
 
 import datetime
+import itertools
 
 import numpy as np
 import torch
@@ -45,6 +46,8 @@ __all__ = ["BACKENDS", "resolve_backend", "process_device",
            "host_local_slice", "leave"]
 
 BACKENDS = ("xla", "nccl", "gloo", "mpi")
+# this process's joins of a default group, in order (initialize_multihost)
+_JOINS = itertools.count()
 
 
 def resolve_backend(flag: str, device: torch.device,
@@ -86,7 +89,15 @@ def initialize_multihost(backend: str = "xla", device=None,
                          timeout_s: float | None = None) -> ClusterInfo:
     """Join the default group as ``info`` (default: :func:`discover`)
     says, with ``--backend``'s backend on ``device`` (CUDA devices are
-    made current first).  A group that is already up is kept."""
+    made current first).  A group that is already up is kept.
+
+    Each join of this process gets keys of its own on the rendezvous
+    store (a ``PrefixStore`` named by the join's number, the same in every
+    process that joins as often).  torch names a default group's keys
+    alike every time, and a store that outlives a group (torchrun's agent
+    store, or a launcher's held one) still holds the first group's
+    addresses: a process that read its peer's before the peer rewrote it
+    dialled a closed port and the second group hung."""
     import torch.distributed as dist
 
     info = info or discover()
@@ -96,9 +107,11 @@ def initialize_multihost(backend: str = "xla", device=None,
     if not dist.is_initialized():
         kw = {} if timeout_s is None else {
             "timeout": datetime.timedelta(seconds=timeout_s)}
+        store, rank, world = next(dist.rendezvous(
+            info.init_method, info.rank, info.world_size, **kw))
+        store = dist.PrefixStore(f"sgp_join/{next(_JOINS)}", store)
         dist.init_process_group(resolve_backend(backend, dev, info),
-                                init_method=info.init_method,
-                                world_size=info.world_size, rank=info.rank,
+                                store=store, world_size=world, rank=rank,
                                 **kw)
     return info
 

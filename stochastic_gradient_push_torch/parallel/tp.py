@@ -301,6 +301,11 @@ class _TpAxis:
                              f"{len(self.shards)} shards held here")
         return _Reduce.apply(self, *parts)
 
+    def gather(self, parts: list) -> list:
+        """Every shard's tensor in shard order, from the held shards'
+        ``parts`` (no gradient; not counted among the sums)."""
+        return self._all([p.detach() for p in parts])
+
     def sum_shards(self, x: torch.Tensor) -> torch.Tensor:
         """The fold over the shards of ``x`` ``[held, ...]`` (no
         gradient)."""

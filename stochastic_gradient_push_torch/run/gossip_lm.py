@@ -8,7 +8,10 @@ matchings) or AllReduce, the synthetic Markov corpus, torch-semantics
 SGD under the reference's LR schedule.  Run directly, every rank of
 ``--world_size`` lives in this process on the stacked transport
 (``parallel/collectives.py``); on one GPU the default world is 1.
-Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) each process
+Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment), SLURM or
+OpenMPI, or with the reference's flags (``--multihost True
+--coordinator_address host:port --num_processes N --process_id i``,
+``parallel/discovery.py``) each process
 holds one rank on the ``torch.distributed`` transport
 (``parallel/multihost.py``): on ``cuda:{LOCAL_RANK % cards}`` over NCCL,
 or over gloo where ranks share a card or with ``--device cpu``; rank 0
@@ -231,14 +234,9 @@ __all__ = ["main", "build_parser", "UNPORTED", "split_corpus"]
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
 UNPORTED = {
-    "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
     "--attn_block_k": (0, int, "the TPU attention block rule"),
-    "--multihost": ("auto", str, "multi-host runs"),
-    "--coordinator_address": (None, str, "multi-host runs"),
-    "--num_processes": (None, int, "multi-host runs"),
-    "--process_id": (None, int, "multi-host runs"),
 }
 ATTN_CHOICES = (None, "full", "blockwise", "flash", "ring", "ring_flash")
 # --precision -> the model's compute dtype (the reference's cfg.dtype,
@@ -255,7 +253,8 @@ def build_parser() -> argparse.ArgumentParser:
     from ..ops.gossip_kernel import GOSSIP_KERNELS
     from ..parallel.wire import WIRE_DTYPES
     from ..topology import GRAPH_TOPOLOGIES
-    from .gossip_sgd import add_planner_flags, add_profile_flags
+    from .gossip_sgd import (add_multihost_flags, add_planner_flags,
+                             add_profile_flags)
 
     p = argparse.ArgumentParser(description="Gossip LM on a GPU (PyTorch)")
     p.add_argument("--all_reduce", default="False", type=str)
@@ -276,6 +275,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--error_feedback", default="False", type=str,
                    help="carry per-rank error-feedback residuals (needs "
                         "a lossy --wire_dtype)")
+    p.add_argument("--gossip_comm_dtype", default=None,
+                   choices=[None, "bf16"],
+                   help="DEPRECATED alias for --wire_dtype bf16")
     p.add_argument("--inject_faults", default=None, type=str,
                    help="deterministic fault injection at the gossip "
                         "round (resilience/faults.py grammar); "
@@ -379,6 +381,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "vocab_size >= 256); default: synthetic Markov")
     p.add_argument("--checkpoint_dir", default="./checkpoints", type=str,
                    help="the CSV and the checkpoint files go here")
+    add_multihost_flags(p)
     p.add_argument("--tag", default="lm_", type=str)
     p.add_argument("--ckpt_every", default=0, type=int,
                    help="checkpoint every N steps (0 = only at the end)")
@@ -621,6 +624,9 @@ def main(argv=None) -> dict:
 def _main(argv) -> dict:
     args = build_parser().parse_args(argv)
     refuse_unported(args)
+    from .gossip_sgd import discover_launch, resolve_wire_alias
+
+    resolve_wire_alias(args)
 
     import contextlib
 
@@ -631,7 +637,6 @@ def _main(argv) -> dict:
     from ..data.lm import lm_batches, load_corpus, synthetic_lm_corpus
     from ..device import resolve_device
     from ..models.transformer import TransformerConfig
-    from ..parallel.discovery import discover
     from ..parallel.multihost import (consensus_resume_point,
                                       host_local_slice, initialize_multihost,
                                       leave, process_device)
@@ -688,7 +693,7 @@ def _main(argv) -> dict:
             f"--health_every {args.health_every} must be a multiple of "
             f"--print_freq {args.print_freq} (health signals ride the "
             "metrics fetch cadence)")
-    info = discover()
+    info = discover_launch(args)
     launched = info.world_size
     device = (process_device(args.device, info) if launched > 1
               else resolve_device(args.device))

@@ -7,8 +7,10 @@ surface with its names, string-encoded booleans, integer-coded graph and
 mixing registries and flat-list schedules, driving the port's
 ``train/loop.py::Trainer``.  Run directly, every rank of
 ``--world_size`` (default 1) lives in this process, stacked on one
-device; under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment, or
-SLURM's variables) each process holds one rank
+device; under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment),
+SLURM or OpenMPI, or launched with the reference's flags (``--multihost
+True --coordinator_address host:port --num_processes N --process_id
+i``, ``parallel/discovery.py``), each process holds one rank
 (``parallel/multihost.py``) on ``cuda:{LOCAL_RANK % cards}``, over the
 group ``--backend`` names (``xla``, the default: NCCL, or gloo where
 ranks share a card or on the CPU), and rank 0 writes the CSV with every
@@ -111,6 +113,7 @@ from __future__ import annotations
 import argparse
 import os
 import signal
+import sys
 import types
 
 __all__ = ["build_parser", "parse_config", "build", "main", "UNPORTED"]
@@ -119,23 +122,61 @@ __all__ = ["build_parser", "parse_config", "build", "main", "UNPORTED"]
 # reference command line is accepted, refused when not at its default
 UNPORTED = {
     "--stem_s2d": ("False", str, "the space-to-depth ResNet stem"),
-    "--gossip_comm_dtype": (None, str, "the deprecated comm dtype alias"),
     "--scan_steps": (1, int, "fused multi-step programs"),
-    "--multihost": ("auto", str, "multi-host runs"),
-    "--coordinator_address": (None, str, "multi-host runs"),
-    "--num_processes": (None, int, "multi-host runs"),
-    "--process_id": (None, int, "multi-host runs"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
 }
-# values other than the default that leave the feature off
-_ALSO_OFF = {"--multihost": ("False",)}
 MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
           "tiny_cnn", "tiny_mlp")
 
 
 def _str_bool(v) -> bool:
     return str(v) == "True"
+
+
+def add_multihost_flags(p: argparse.ArgumentParser) -> None:
+    """The reference's flag form of a multi-host launch, shared by both
+    CLIs (``parallel/discovery.py::discover`` reads them)."""
+    from ..parallel.discovery import MULTIHOST_CHOICES
+
+    p.add_argument("--multihost", default="auto",
+                   choices=list(MULTIHOST_CHOICES),
+                   help="join a group of processes; 'auto' joins when "
+                        "SLURM, OpenMPI, torchrun or a coordinator's "
+                        "variables say so, 'False' runs one process "
+                        "(torchrun's variables still hold)")
+    p.add_argument("--coordinator_address", default=None, type=str,
+                   help="host:port of process 0 (the rendezvous)")
+    p.add_argument("--num_processes", default=None, type=int)
+    p.add_argument("--process_id", default=None, type=int)
+
+
+def resolve_wire_alias(args) -> None:
+    """Fold the deprecated ``--gossip_comm_dtype`` into ``--wire_dtype``
+    in place, with the reference's warning and refusal
+    (``resolve_wire_flags``, ``run/gossip_sgd.py:65-79`` there)."""
+    if args.gossip_comm_dtype:
+        if args.wire_dtype not in (None, "bf16"):
+            raise SystemExit(
+                "--gossip_comm_dtype is a deprecated alias for "
+                "--wire_dtype bf16 and conflicts with "
+                f"--wire_dtype {args.wire_dtype}")
+        print("warning: --gossip_comm_dtype is deprecated; use "
+              "--wire_dtype bf16", file=sys.stderr)
+        args.wire_dtype = "bf16"
+        args.gossip_comm_dtype = None
+
+
+def discover_launch(args):
+    """This process's :class:`~..parallel.discovery.ClusterInfo` from the
+    multi-host flags and the launcher's variables; a flag set that does
+    not fit exits naming the flag."""
+    from ..parallel.discovery import discover
+
+    try:
+        return discover(flags=args)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def add_planner_flags(p: argparse.ArgumentParser) -> None:
@@ -372,6 +413,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="carry per-rank error-feedback residuals: each "
                         "round's quantization error is re-injected into "
                         "the next send (needs a lossy --wire_dtype)")
+    p.add_argument("--gossip_comm_dtype", default=None,
+                   choices=[None, "bf16"],
+                   help="DEPRECATED alias for --wire_dtype bf16")
     p.add_argument("--inject_faults", default=None, type=str,
                    help="deterministic fault injection at the gossip "
                         "round (resilience/faults.py grammar, e.g. "
@@ -399,6 +443,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the torch.distributed backend under torchrun: "
                         "xla = nccl on the card (gloo where ranks share "
                         "one, and on the CPU)")
+    add_multihost_flags(p)
     p.add_argument("--tag", default="", type=str)
     p.add_argument("--print_freq", default=10, type=int)
     p.add_argument("--verbose", default="True", type=str)
@@ -480,7 +525,7 @@ def refuse_unported(args) -> None:
         if default in ("True", "False"):
             changed = _str_bool(value) != _str_bool(default)
         else:
-            changed = value not in (default,) + _ALSO_OFF.get(flag, ())
+            changed = value != default
         if changed:
             raise SystemExit(
                 f"{flag} {value}: {feature} is not ported to "
@@ -530,6 +575,7 @@ def parse_config(argv=None):
 
     args = build_parser().parse_args(argv)
     refuse_unported(args)
+    resolve_wire_alias(args)
     resolve_profile_flags(args)
     if args.heartbeat_timeout < 0:
         raise SystemExit("--heartbeat_timeout must be >= 0 (0 disables)")
@@ -730,7 +776,6 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     from ..device import resolve_device
     from ..ops.gossip_kernel import KernelBackendError
     from ..parallel.collectives import DistTransport, StackedTransport
-    from ..parallel.discovery import discover
     from ..parallel.mesh import make_hierarchical_layout
     from ..parallel.multihost import initialize_multihost, process_device
     from ..telemetry import make_run_telemetry
@@ -739,7 +784,7 @@ def build(argv=None, config_transform=None) -> types.SimpleNamespace:
     from ..utils.logging import make_logger
 
     log = make_logger("main", cfg.verbose)
-    info = discover()
+    info = discover_launch(args)
     spread = info.world_size > 1   # one gossip rank (node) per process
     local = args.nprocs_per_node
     if spread and args.world_size not in (None, info.world_size * local):

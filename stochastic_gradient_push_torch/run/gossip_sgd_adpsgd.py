@@ -16,7 +16,7 @@ step, its displacements adopted with a wall-clock staleness
 (``train/async_bilat.py``); ``--bilat_async_interval`` paces its rounds
 (seconds, 0 unpaced).  The staleness summary is logged at the end of the
 run and returned in the result (``async_bilat``).  It is single-process
-only, and refused under torchrun.
+only, and refused across processes (torchrun, or the multi-host flags).
 """
 
 from __future__ import annotations

@@ -1,13 +1,20 @@
 """Synthetic traffic bench for the serving stack.
 
 Port of ``stochastic_gradient_push_tpu/serve/bench.py``
-(``synthetic_requests``, ``poisson_arrivals``, ``run_bench``,
-``summarize``, ``write_artifact``).  The request streams come from the
+(``SyntheticEngine``, ``synthetic_requests``, ``poisson_arrivals``,
+``run_bench``, ``summarize``, ``write_artifact``).  The request streams
+come from the
 same numpy ``default_rng`` draws in the same order, so one seed gives
 the same requests in both packages.  :func:`summarize` is the single
 source of the serving numbers (tokens/sec, p50/p99 request latency, peak
 page occupancy, admission rejections, modeled KV bytes/token, decode
 steps): the CLI's printed lines and the artifact both come from it.
+
+:class:`SyntheticEngine` is the reference's deterministic numpy engine
+behind the slot API: it drives the page table as ``LMEngine`` does, with
+token arithmetic in place of a model, so a set that holds no LM (a
+ResNet run's files) still serves, and one seed gives the reference's
+tokens and page ids.
 """
 
 from __future__ import annotations
@@ -20,10 +27,56 @@ import typing as tp
 import numpy as np
 
 from ..utils.meter import PercentileMeter
+from .pages import PageTable, pages_for
 from .scheduler import AdmissionError, ContinuousBatcher, Request
 
-__all__ = ["synthetic_requests", "poisson_arrivals", "run_bench",
-           "summarize", "write_artifact"]
+__all__ = ["SyntheticEngine", "synthetic_requests", "poisson_arrivals",
+           "run_bench", "summarize", "write_artifact"]
+
+
+class SyntheticEngine:
+    """Deterministic token arithmetic behind the LMEngine slot API
+    (``config`` a :class:`~.engine.ServeConfig`: the page shape)."""
+
+    def __init__(self, config, vocab: int = 256, seed: int = 0,
+                 kv_bytes_per_tok: int = 0):
+        self.config = config
+        self.vocab = int(vocab)
+        self.seed = int(seed)
+        self._kv_bytes = int(kv_bytes_per_tok)
+        self.pages = PageTable(config.num_pages, config.page_size,
+                               config.max_seqs)
+        self._last: dict[int, int] = {}
+
+    def can_admit(self, budget_tokens: int) -> bool:
+        return (budget_tokens <= self.config.max_tokens_per_seq
+                and self.pages.can_fit(budget_tokens))
+
+    def required_pages(self, budget_tokens: int) -> int:
+        return pages_for(budget_tokens, self.config.page_size)
+
+    def start(self, prompt, budget_tokens: int):
+        slot = self.pages.open(budget_tokens)
+        self.pages.append(slot, len(prompt))
+        tok = (self.seed + sum(prompt) + 31 * len(prompt)) % self.vocab
+        self._last[slot] = tok
+        return slot, tok
+
+    def step(self, slots) -> dict[int, int]:
+        out = {}
+        for slot in slots:
+            self.pages.append(slot, 1)
+            tok = (self._last[slot] * 31 + slot + 7) % self.vocab
+            self._last[slot] = tok
+            out[slot] = tok
+        return out
+
+    def finish(self, slot: int) -> None:
+        self._last.pop(slot, None)
+        self.pages.close(slot)
+
+    def kv_bytes_per_token(self) -> int:
+        return self._kv_bytes
 
 
 def synthetic_requests(n: int, seed: int = 0, vocab: int = 256,

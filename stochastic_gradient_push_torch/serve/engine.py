@@ -10,10 +10,11 @@ Port of ``stochastic_gradient_push_tpu/serve/engine.py`` (``ServeConfig``,
   real tokens into the slot's KV pages;
 * **decode** runs one token for every one of the ``max_seqs`` lanes per
   step: embed -> per layer LN, q/k/v, rope, cache write, paged-attention
-  kernel (``serve/paged_attention.py``), o-proj, MLP -> LN -> lm_head ->
-  argmax.  The batch is always ``max_seqs`` wide: inactive lanes decode
-  a dummy token whose KV write lands in the reserved **sink page** (page
-  id ``num_pages``, owned by nobody) and whose output is dropped.
+  kernel (``serve/paged_attention.py::sharded_paged_decode``), o-proj,
+  MLP -> LN -> lm_head -> argmax.  The batch is always ``max_seqs``
+  wide: inactive lanes decode a dummy token whose KV write lands in the
+  reserved **sink page** (page id ``num_pages``, owned by nobody) and
+  whose output is dropped.
 
 Caches are ``[layers, heads, num_pages + 1, page_size, head_dim]`` fp32
 on the device.  Where the reference donates the caches to its jitted
@@ -30,6 +31,28 @@ parity with the reference and with the dense model depends on it.
 The kernels run for CUDA tensors and their plain twins for CPU tensors
 (``ops/lanes.py``); the engine's device decides, and it is CUDA unless
 the caller passes ``device="cpu"``.
+
+**KV-head shards.**  The engine runs its model as ``S`` shards (``S`` = 1
+unless ``shards`` or a ``tp`` axis says otherwise; ``S`` > 1 is the
+reference's ``LMEngine(mesh=...)`` on a 1-D ``model`` mesh).  It places
+the parameters as ``serve/load.py::shard_params_for_decode`` does and
+runs each shard with the operations a process of ``parallel/tp.py``'s
+process lane runs on its one shard: q, k and v from the shard's column
+blocks, the shard's own heads of the KV cache ``[layers, heads / S,
+num_pages + 1, page_size, head_dim]``, the flash kernel (prefill) or the
+paged kernel (decode, one ``sharded_paged_decode`` head slice a shard)
+on its heads, ``o`` as a row block and ``tp.reduce`` (a fold in shard
+order), ``up``/``down`` as a column and row pair and ``tp.reduce``,
+``lm_head`` on the shard's vocab block.  A leaf the rules leave
+replicated runs whole, with no sum; at ``S`` = 1 every leaf does, and
+the passes are the whole model's.  ``StackedTp(S)`` holds every
+shard on one device (one kernel launch a shard); ``DistTp`` holds one
+shard a process, its sums an all-gather on the group, so the processes
+compute the stack's bits.  The greedy token comes from the shards'
+``(max, argmax)`` pairs: the largest max wins, a tie the lowest global
+index (``jnp.argmax`` over the gathered vocabulary); the ``[batch,
+vocab]`` logits are gathered only when :attr:`LMEngine.last_logits` is
+read.
 """
 
 from __future__ import annotations
@@ -38,15 +61,17 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..models.convert import config_from_params, params_from_jax
-from ..models.transformer import TransformerLM, rope, rope_tok
+from ..models.convert import config_from_params
+from ..models.transformer import LN_EPS, rope, rope_tok
 from ..ops.flash_attention import flash_attention
-from .paged_attention import paged_attention_decode
+from ..parallel.tp import StackedTp
+from .paged_attention import sharded_paged_decode
 from .pages import PageTable, pages_for
 
-__all__ = ["ServeConfig", "LMEngine", "pad_len", "prefill", "decode"]
+__all__ = ["ServeConfig", "LMEngine", "pad_len"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,59 +96,167 @@ def pad_len(t: int) -> int:
     return max(8, -(-t // 8) * 8)
 
 
-@torch.no_grad()
-def prefill(model: TransformerLM, tokens: torch.Tensor):
-    """Prompt pass.  ``tokens`` [t] -> (logits [t, vocab], k, v
-    [layers, heads, t, head_dim], roped and cache-ready)."""
-    t = tokens.shape[0]
-    positions = torch.arange(t, device=tokens.device)
-    x = model.embed.weight[tokens][None]                    # [1, t, E]
-    ks, vs = [], []
-    for blk in model.blocks:
-        h = blk.ln1(x)
-        attn = blk.attn
-        q = rope(attn.split(attn.q(h)), positions)
-        k = rope(attn.split(attn.k(h)), positions).contiguous()
-        v = attn.split(attn.v(h)).contiguous()
-        ks.append(k[0])
-        vs.append(v[0])
-        out = flash_attention(q.contiguous(), k, v, causal=True)
-        x = x + attn.o(out.transpose(1, 2).reshape(1, t, -1))
-        x = x + blk.mlp(blk.ln2(x))
-    logits = model.lm_head(model.ln_f(x))[0].float()
-    return logits, torch.stack(ks), torch.stack(vs)
+class _ShardedLM:
+    """The held shards' weights of the engine's model, on ``device``, in
+    the port's ``[out, in]`` layout, and the shard by shard forward
+    passes (see the module docstring)."""
 
+    def __init__(self, params, cfg, tp, device):
+        from .load import decode_placement, shard_params_for_decode
 
-@torch.no_grad()
-def decode(model: TransformerLM, k_cache, v_cache, tokens, positions,
-           dest_page, dest_off, page_indices, lengths):
-    """One decode step for the full slot batch.  ``tokens``/``positions``
-    /``dest_page``/``dest_off`` [B] (long); ``page_indices`` int32
-    [B, max_pages]; ``lengths`` int32 [B].  Writes each token's k/v into
-    ``k_cache``/``v_cache`` at ``(dest_page, dest_off)`` in place and
-    returns the logits [B, vocab]."""
-    cfg = model.cfg
-    bsz = tokens.shape[0]
-    heads = torch.arange(cfg.n_heads, device=tokens.device)[:, None]
-    where = (heads, dest_page[None], dest_off[None])        # -> [H, B]
-    x = model.embed.weight[tokens]                          # [B, E]
-    for i, blk in enumerate(model.blocks):
-        h = blk.ln1(x)
-        attn = blk.attn
-        q = rope_tok(attn.q(h).reshape(bsz, cfg.n_heads, cfg.head_dim),
-                     positions)
-        k = rope_tok(attn.k(h).reshape(bsz, cfg.n_heads, cfg.head_dim),
-                     positions)
-        v = attn.v(h).reshape(bsz, cfg.n_heads, cfg.head_dim)
-        # cache[i, :, dest_page[b], dest_off[b]] = k[b], in place (the
-        # reference donates the cache to its jitted step instead)
-        k_cache[i].index_put_(where, k.transpose(0, 1))
-        v_cache[i].index_put_(where, v.transpose(0, 1))
-        out = paged_attention_decode(q.contiguous(), k_cache[i], v_cache[i],
-                                     page_indices, lengths)
-        x = x + attn.o(out.reshape(bsz, cfg.d_model))
-        x = x + blk.mlp(blk.ln2(x))
-    return model.lm_head(model.ln_f(x)).float()
+        self.cfg, self.tp = cfg, tp
+        size = tp.size
+        dims = decode_placement(params, size)
+        parts = shard_params_for_decode(params, size)
+
+        def put(a, kernel=False):
+            a = np.asarray(a, np.float32)
+            if kernel:      # flax [in, out] -> [out, in]
+                a = a.swapaxes(-1, -2)
+            return torch.tensor(a, device=device)       # a copy
+
+        def ln(tree):
+            return put(tree["scale"]), put(tree["bias"])
+
+        self.embed = put(params["embed"]["embedding"])
+        self.ln_f = ln(params["ln_f"])
+        self.vocab_split = dims["lm_head"]["kernel"] is not None
+        self.lm_head = ([put(parts[i]["lm_head"]["kernel"], True)
+                         for i in tp.shards] if self.vocab_split
+                        else [put(params["lm_head"]["kernel"], True)])
+        self.layers, self.held = [], []
+        for layer in range(cfg.n_layers):
+            blk = params[f"block_{layer}"]
+            d = dims[f"block_{layer}"]
+            if size > 1 and d["attn"]["q"]["kernel"] is None:
+                raise ValueError(f"d_model {cfg.d_model} not divisible by "
+                                 f"{size} shards")
+            common = {"ln1": ln(blk["ln1"]), "ln2": ln(blk["ln2"]),
+                      "down_b": put(blk["down"]["bias"]),
+                      "mlp_split": d["up"]["kernel"] is not None}
+            if not common["mlp_split"]:
+                common.update(up=put(blk["up"]["kernel"], True),
+                              up_b=put(blk["up"]["bias"]),
+                              down=put(blk["down"]["kernel"], True))
+            self.layers.append(common)
+            held = []
+            for i in tp.shards:
+                b = parts[i][f"block_{layer}"]
+                w = {n: put(b["attn"][n]["kernel"], True)
+                     for n in ("q", "k", "v", "o")}
+                if common["mlp_split"]:
+                    f = b["up"]["kernel"].shape[1]
+                    w.update(up=put(b["up"]["kernel"], True),
+                             up_b=put(blk["up"]["bias"][i * f:(i + 1) * f]),
+                             down=put(b["down"]["kernel"], True))
+                held.append(w)
+            self.held.append(held)
+
+    def _ln(self, x, wb):
+        return F.layer_norm(x, (x.shape[-1],), wb[0], wb[1], LN_EPS)
+
+    def _mlp(self, layer: int, h):
+        c = self.layers[layer]
+        if not c["mlp_split"]:
+            y = F.gelu(F.linear(h, c["up"]) + c["up_b"], approximate="tanh")
+            return F.linear(y, c["down"]) + c["down_b"]
+        parts = [F.linear(F.gelu(F.linear(h, w["up"]) + w["up_b"],
+                                 approximate="tanh"), w["down"])
+                 for w in self.held[layer]]
+        return self.tp.reduce(parts) + c["down_b"]
+
+    def _logits(self, x) -> list:
+        h = self._ln(x, self.ln_f)
+        return [F.linear(h, w).float() for w in self.lm_head]
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """``tokens`` [t] -> (the held shards' logits [t, vocab / S] (or
+        the whole [t, vocab] where lm_head is replicated), k, v [layers,
+        held heads, t, head_dim])."""
+        t = tokens.shape[0]
+        d = self.cfg.head_dim
+        positions = torch.arange(t, device=tokens.device)
+        x = self.embed[tokens][None]                        # [1, t, E]
+        ks, vs = [], []
+        for layer, held in enumerate(self.held):
+            h = self._ln(x, self.layers[layer]["ln1"])
+            parts, kl, vl = [], [], []
+            for w in held:
+                def heads(y):
+                    return y.reshape(1, t, -1, d).transpose(1, 2)
+                q = rope(heads(F.linear(h, w["q"])), positions)
+                k = rope(heads(F.linear(h, w["k"])), positions).contiguous()
+                v = heads(F.linear(h, w["v"])).contiguous()
+                kl.append(k[0])
+                vl.append(v[0])
+                out = flash_attention(q.contiguous(), k, v, causal=True)
+                parts.append(F.linear(out.transpose(1, 2).reshape(1, t, -1),
+                                      w["o"]))
+            x = x + self.tp.reduce(parts)
+            x = x + self._mlp(layer, self._ln(x, self.layers[layer]["ln2"]))
+            ks.append(torch.cat(kl))
+            vs.append(torch.cat(vl))
+        return ([lg[0] for lg in self._logits(x)], torch.stack(ks),
+                torch.stack(vs))
+
+    @torch.no_grad()
+    def decode(self, k_cache, v_cache, tokens, positions, dest_page,
+               dest_off, page_indices, lengths) -> list:
+        """One decode step over the held shards' heads of the caches:
+        each shard's k/v written at ``(dest_page, dest_off)`` in place, the
+        paged decode run on each held shard's head slice; returns the held
+        shards' logits [B, vocab / S] (or the whole)."""
+        bsz = tokens.shape[0]
+        d = self.cfg.head_dim
+        hs = self.cfg.n_heads // self.tp.size
+        heads = torch.arange(hs, device=tokens.device)[:, None]
+        where = (heads, dest_page[None], dest_off[None])     # -> [hs, B]
+        x = self.embed[tokens]                               # [B, E]
+        for layer, held in enumerate(self.held):
+            h = self._ln(x, self.layers[layer]["ln1"])
+            qs = []
+            for j, w in enumerate(held):
+                qs.append(rope_tok(F.linear(h, w["q"]).reshape(bsz, hs, d),
+                                   positions))
+                k = rope_tok(F.linear(h, w["k"]).reshape(bsz, hs, d),
+                             positions)
+                v = F.linear(h, w["v"]).reshape(bsz, hs, d)
+                # this shard's heads of the caches: a contiguous slice
+                k_cache[layer, j * hs:(j + 1) * hs].index_put_(
+                    where, k.transpose(0, 1))
+                v_cache[layer, j * hs:(j + 1) * hs].index_put_(
+                    where, v.transpose(0, 1))
+            out = sharded_paged_decode(torch.cat(qs, dim=1), k_cache[layer],
+                                       v_cache[layer], page_indices, lengths,
+                                       len(held))
+            parts = [F.linear(out[:, j * hs:(j + 1) * hs].reshape(
+                bsz, hs * d), w["o"]) for j, w in enumerate(held)]
+            x = x + self.tp.reduce(parts)
+            x = x + self._mlp(layer, self._ln(x, self.layers[layer]["ln2"]))
+        return self._logits(x)
+
+    def greedy(self, parts: list) -> torch.Tensor:
+        """The greedy token of each row over the whole vocabulary from the
+        held shards' logits: the shards' ``(max, argmax)`` pairs, gathered
+        in shard order; the largest max wins, a tie the lowest index."""
+        if not self.vocab_split:
+            return torch.argmax(parts[0], -1)
+        v = parts[0].shape[-1]
+        pairs = [torch.stack([lg.amax(-1).double(),
+                              (torch.argmax(lg, -1) + i * v).double()], -1)
+                 for i, lg in zip(self.tp.shards, parts)]
+        best, *rest = self.tp.gather(pairs)
+        for p in rest:
+            best = torch.where((p[..., 0] > best[..., 0])[..., None], p,
+                               best)
+        return best[..., 1].long()
+
+    def gather_logits(self, parts: list) -> torch.Tensor:
+        """The whole ``[..., vocab]`` logits from the held shards'."""
+        if not self.vocab_split:
+            return parts[0]
+        return torch.cat(self.tp.gather(parts), dim=-1)
 
 
 class LMEngine:
@@ -136,10 +269,17 @@ class LMEngine:
     token), :meth:`step` (one greedy token for every live slot) and
     :meth:`finish` (release the slot's pages).  ``last_logits`` holds
     the fp32 logits of the latest :meth:`start` ([prompt_len, vocab]) or
-    :meth:`step` ([max_seqs, vocab]) call.
+    :meth:`step` ([max_seqs, vocab]) call (gathered over the shards when
+    read).
+
+    The model runs as ``tp``'s shards (a :class:`~..parallel.tp.StackedTp`,
+    or a ``DistTp`` for one shard a process), by default as
+    ``StackedTp(shards)``: ``shards=1`` is one shard holding the whole
+    model.
     """
 
-    def __init__(self, params, config: ServeConfig, device=None):
+    def __init__(self, params, config: ServeConfig, device=None,
+                 shards: int = 1, tp=None):
         self.device = resolve_device(device)
         # fp32 end to end, as the reference: no TF32 anywhere on the path
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -151,22 +291,38 @@ class LMEngine:
             raise ValueError("serving a MoE model: the engine's prefill and "
                              "decode run dense FFN blocks (as the "
                              "reference's)")
-        self.model = TransformerLM(self.cfg)
-        self.model.load_state_dict(params_from_jax(params))
-        self.model.to(self.device).eval().requires_grad_(False)
+        if tp is None:
+            tp = StackedTp(shards)
+        elif shards not in (1, tp.size):
+            raise ValueError(f"shards {shards} but a tp axis of {tp.size}")
+        self.tp = tp
+        self.shards = tp.size
+        if config.n_heads % self.shards:
+            raise ValueError(f"kv_heads {config.n_heads} not divisible by "
+                             f"mesh axis 'model' size {self.shards}")
         self.n_layers = self.cfg.n_layers
         self.head_dim = self.cfg.head_dim
+        self._lm = _ShardedLM(params, self.cfg, tp, self.device)
+        held_heads = config.n_heads // tp.size * len(tp.shards)
         self.pages = PageTable(config.num_pages, config.page_size,
                                config.max_seqs)
         # +1 page: the sink, where inactive slots' dummy KV writes land
         self._sink = config.num_pages
-        cache_shape = (self.n_layers, config.n_heads, config.num_pages + 1,
+        cache_shape = (self.n_layers, held_heads, config.num_pages + 1,
                        config.page_size, self.head_dim)
         self._kc = torch.zeros(cache_shape, dtype=torch.float32,
                                device=self.device)
         self._vc = torch.zeros_like(self._kc)
         self._last_tok = np.zeros(config.max_seqs, np.int64)
-        self.last_logits: torch.Tensor | None = None
+        self._last_parts: list | None = None
+
+    @property
+    def last_logits(self) -> torch.Tensor | None:
+        """The latest call's fp32 logits over the whole vocabulary (on a
+        ``DistTp`` engine a collective: every process reads them)."""
+        if self._last_parts is None:
+            return None
+        return self._lm.gather_logits(self._last_parts)
 
     # -- admission ---------------------------------------------------------
 
@@ -187,8 +343,8 @@ class LMEngine:
         t = len(prompt)
         padded = np.zeros(pad_len(t), np.int64)
         padded[:t] = prompt
-        logits, ks, vs = prefill(self.model,
-                                 torch.from_numpy(padded).to(self.device))
+        tokens = torch.from_numpy(padded).to(self.device)
+        parts, ks, vs = self._lm.prefill(tokens)
         self.pages.append(slot, t)
         # scatter the prompt's roped k/v into the slot's pages, one
         # index_put_ per cache: token j lands at (page j // size, j % size)
@@ -199,8 +355,8 @@ class LMEngine:
                  torch.from_numpy(pos % size).to(self.device))
         self._kc[:, :, where[0], where[1]] = ks[:, :, :t]
         self._vc[:, :, where[0], where[1]] = vs[:, :, :t]
-        self.last_logits = logits[:t]
-        tok = int(torch.argmax(logits[t - 1]))
+        self._last_parts = [lg[:t] for lg in parts]
+        tok = int(self._lm.greedy([lg[t - 1] for lg in parts]))
         self._last_tok[slot] = tok
         return slot, tok
 
@@ -233,13 +389,10 @@ class LMEngine:
             row = self.pages.pages_of(slot)
             page_rows[slot, :len(row)] = row
         dev = self.device
-        logits = decode(
-            self.model, self._kc, self._vc,
-            *(torch.from_numpy(a).to(dev) for a in (
-                tokens, positions, dest_page, dest_off, page_rows,
-                lengths)))
-        self.last_logits = logits
-        nxt = torch.argmax(logits, -1).cpu().numpy()
+        args = [torch.from_numpy(a).to(dev) for a in (
+            tokens, positions, dest_page, dest_off, page_rows, lengths)]
+        self._last_parts = self._lm.decode(self._kc, self._vc, *args)
+        nxt = self._lm.greedy(self._last_parts).cpu().numpy()
         out = {}
         for slot in order:
             self._last_tok[slot] = nxt[slot]
@@ -252,8 +405,8 @@ class LMEngine:
     # -- introspection -----------------------------------------------------
 
     def kv_bytes_per_token(self) -> int:
-        """Modeled KV footprint of one token across all layers (the
-        bench artifact's capacity-planning number)."""
+        """Modeled KV footprint of one token across all layers and every
+        shard (the bench artifact's capacity-planning number)."""
         return (2 * self.n_layers * self.config.n_heads * self.head_dim
                 * self._kc.element_size())
 

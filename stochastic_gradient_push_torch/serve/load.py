@@ -22,15 +22,23 @@ names for the LM).  ``LMEngine`` takes the flax-layout tree:
     params, meta, info = load_consensus(ckpt_dir, tag="lm_")
     engine = LMEngine(params_to_jax(params), ServeConfig(n_heads=12))
 
-The reference's decode-mesh placement (``decode_partition_rules``,
-``match_partition_rules``, ``shard_params_for_decode``) goes with the
-sharded decode and is not ported (ROADMAP.md Queue 1 item 12).
+The decode placement is the reference's (``decode_partition_rules``,
+``match_partition_rules``, ``shard_params_for_decode``, ``:110-184``
+there), on the flax-layout tree: the same regexes over the ``/``-joined
+paths; ``q``, ``k``, ``v``, ``up`` and ``lm_head`` kernels split on their
+output dim, ``o`` and ``down`` on their input dim, every other leaf
+replicated, and a dim the shard count does not divide replicated too.  A
+spec is the tuple of a ``PartitionSpec`` (``(None, "model")``, ``()``).
+Where the reference places the tree on a mesh and GSPMD adds the sums,
+:func:`shard_params_for_decode` returns one tree a shard for
+``serve/engine.py``'s sharded engine, which adds them itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import torch
@@ -39,7 +47,11 @@ from ..supervise.reshard import (_in_flight_slots, _rank_files,
                                  load_world_checkpoint, reshard_state)
 
 __all__ = ["ConsensusIngestError", "IngestInfo", "available_worlds",
-           "load_consensus"]
+           "load_consensus", "decode_partition_rules",
+           "match_partition_rules", "decode_placement",
+           "shard_params_for_decode", "MODEL_AXIS"]
+
+MODEL_AXIS = "model"    # the reference's decode mesh axis
 
 
 class ConsensusIngestError(RuntimeError):
@@ -102,3 +114,96 @@ def load_consensus(directory: str, tag: str = "",
         in_flight_folded=in_flight, ef_forfeited=ef_forfeited,
         plan=meta.get("plan"))
     return params, meta, info
+
+
+# -- decode placement ----------------------------------------------------------
+
+
+def decode_partition_rules(axis: str | None = None):
+    """Regex over a leaf's ``/``-joined path -> the spec of its placement
+    on the 1-D decode axis: q/k/v/up/lm_head split their output (head /
+    ff / vocab) dim, o/down their input dim, so each pair stays a
+    contraction over the axis; norms, biases and the embedding
+    replicate.  First match wins; the catch-all replicates anything a
+    later model adds."""
+    axis = MODEL_AXIS if axis is None else axis
+    return (
+        (r"attn/(q|k|v)/kernel$", (None, axis)),
+        (r"attn/o/kernel$", (axis, None)),
+        (r"up/kernel$", (None, axis)),
+        (r"down/kernel$", (axis, None)),
+        (r"lm_head/kernel$", (None, axis)),
+        (r".*", ()),
+    )
+
+
+def _map_leaves(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, path + (str(k),))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def match_partition_rules(rules, params) -> dict:
+    """Every leaf's spec: that of the first rule whose regex searches its
+    ``/``-joined path.  Scalar leaves are replicated without the rules; a
+    leaf no rule matches is a :class:`ConsensusIngestError`."""
+
+    def leaf_fn(path, leaf):
+        if leaf is None:
+            return None
+        name = "/".join(path)
+        if np.ndim(leaf) == 0 or np.size(leaf) == 1:
+            return ()
+        for pattern, spec in rules:
+            if re.search(pattern, name):
+                return tuple(spec)
+        raise ConsensusIngestError(
+            f"no partition rule matches param '{name}'")
+
+    return _map_leaves(params, leaf_fn)
+
+
+def decode_placement(params, shards: int, rules=None) -> dict:
+    """Every leaf's split dim over ``shards`` shards, or None where it is
+    replicated: its rule's, or None where ``shards`` does not divide that
+    dim (tiny models on wide meshes must still serve)."""
+    specs = match_partition_rules(
+        decode_partition_rules() if rules is None else rules, params)
+
+    def place(path, leaf):
+        if leaf is None:
+            return None
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        dims = [d for d, axis in enumerate(spec) if axis is not None]
+        if shards == 1 or not dims or np.shape(leaf)[dims[0]] % shards:
+            return None
+        return dims[0]
+
+    return _map_leaves(params, place)
+
+
+def shard_params_for_decode(params, shards: int, rules=None) -> list:
+    """The tree ``shards`` ways: a list of one tree a shard, each leaf its
+    shard's contiguous block on the dim :func:`decode_placement` names,
+    or the whole leaf where it is replicated."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    dims = decode_placement(params, shards, rules)
+
+    def part(i):
+        def take(path, leaf):
+            d = dims
+            for k in path:
+                d = d[k]
+            if d is None:
+                return leaf
+            n = np.shape(leaf)[d] // shards
+            idx = [slice(None)] * np.ndim(leaf)
+            idx[d] = slice(i * n, (i + 1) * n)
+            return leaf[tuple(idx)]
+        return _map_leaves(params, take)
+
+    return [part(i) for i in range(shards)]

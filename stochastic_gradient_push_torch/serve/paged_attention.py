@@ -14,10 +14,12 @@ group``.
   workspace, the partials folded in split order by a second kernel;
 * :func:`paged_attention_reference` gathers every named page and runs
   masked softmax attention — the CPU lane and the kernel's oracle;
-* :func:`paged_attention_decode` picks between them by device.
-
-``sharded_paged_decode`` (kv heads over a model axis) needs two or more
-GPUs and is not ported yet.
+* :func:`paged_attention_decode` picks between them by device;
+* :func:`sharded_paged_decode` is the reference's KV-head-sharded decode
+  (``:224-249`` there, a ``shard_map`` over a 1-D ``model`` mesh): each
+  shard's head slice decoded alone, one :func:`paged_attention_decode` a
+  shard, with no collective.  On one card every shard runs, one kernel
+  launch each; a process of a sharded engine runs its own.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..ops.flash_attention import NEG_INF
 from ..ops.lanes import use_kernel
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
-           "paged_decode", "split_pages"]
+           "paged_decode", "sharded_paged_decode", "split_pages"]
 
 HEAD_DIM = 64
 MAX_GROUP = 8      # csrc/paged_decode.cu instantiates groups 1..8
@@ -146,3 +148,31 @@ def paged_attention_decode(q, k_pages, v_pages, page_indices, lengths,
         return paged_decode(q, k_pages, v_pages, page_indices, lengths)
     return paged_attention_reference(q, k_pages, v_pages, page_indices,
                                      lengths)
+
+
+def sharded_paged_decode(q, k_pages, v_pages, page_indices, lengths,
+                         shards: int):
+    """KV-head-sharded decode over the ``shards`` shards that ``q`` and the
+    pages hold, in shard order (every shard's heads on one card; a
+    process of a sharded engine its own shard's, ``shards`` 1): shard
+    ``i`` holds kv heads ``[i·Hkv/S, (i+1)·Hkv/S)`` and, GQA grouping
+    being contiguous, q heads ``[i·H/S, (i+1)·H/S)``; the page table and
+    lengths are every shard's.  One :func:`paged_attention_decode` a
+    shard on its head slice; returns ``[batch, q_heads, head_dim]``.
+    Each head is computed alone, so the result is the unsharded
+    decode's, bit for bit."""
+    _, h, _, hkv = _check_shapes(q, k_pages, v_pages, page_indices,
+                                 lengths)
+    if hkv % shards:
+        raise ValueError(f"kv_heads {hkv} not divisible by mesh axis "
+                         f"'model' size {shards}")
+    if shards == 1:
+        return paged_attention_decode(q, k_pages, v_pages, page_indices,
+                                      lengths)
+    hq, hk = h // shards, hkv // shards
+    # a head slice of the pages is contiguous; the query's is copied to
+    # the kernel's contiguous layout
+    return torch.cat([paged_attention_decode(
+        q[:, i * hq:(i + 1) * hq].contiguous(),
+        k_pages[i * hk:(i + 1) * hk], v_pages[i * hk:(i + 1) * hk],
+        page_indices, lengths) for i in range(shards)], dim=1)

@@ -208,7 +208,6 @@ class TrainerConfig:
 # config field -> (default, the feature it belongs to): a value away from
 # the default raises, naming the feature
 UNPORTED = {
-    "gossip_comm_dtype": (None, "the deprecated comm dtype alias"),
     "fleet": (False, "fleet supervision"),
     "host_id": (None, "fleet supervision"),
     "scan_steps": (1, "fused multi-step programs (scan_steps > 1)"),
@@ -254,6 +253,25 @@ def refuse_single_process_only(cfg: TrainerConfig) -> None:
                              f"{why}")
 
 
+def wire_dtype(cfg: TrainerConfig) -> str | None:
+    """The wire codec's dtype: ``wire_dtype``, or ``"bf16"`` for the
+    deprecated ``gossip_comm_dtype`` alias (the reference's
+    ``Trainer._wire_codec``, ``train/loop.py:354-373`` there, with its
+    refusals)."""
+    alias = cfg.gossip_comm_dtype
+    if alias is not None and alias != "bf16":
+        raise ValueError(f"unknown gossip_comm_dtype {alias!r}; use 'bf16' "
+                         "(or the wire_dtype knob)")
+    if cfg.wire_dtype is not None:
+        if alias is not None and cfg.wire_dtype != "bf16":
+            raise ValueError(
+                "gossip_comm_dtype is a deprecated alias for "
+                "wire_dtype=bf16 and conflicts with "
+                f"wire_dtype={cfg.wire_dtype!r}")
+        return cfg.wire_dtype
+    return alias
+
+
 class Trainer:
     """Drives training of ``model`` (a meta-device module from
     ``train/step.py::make_model``) over the ranks of ``transport`` on
@@ -263,15 +281,10 @@ class Trainer:
                  cluster_manager: ClusterManager | None = None,
                  device=None, telemetry=None):
         _refuse_unported(config, transport)
+        wire_dtype(config)      # the alias's refusals, before any work
         if config.nprocs_per_node < 1:
             raise ValueError(f"nprocs_per_node must be >= 1, got "
                              f"{config.nprocs_per_node}")
-        if config.metrics_every < 0:
-            raise ValueError("metrics_every must be >= 0")
-        if config.metrics_every and not config.trace_dir \
-                and telemetry is None:
-            raise ValueError("metrics_every needs trace_dir (telemetry "
-                             "events have nowhere to go without it)")
         self.cfg = config
         self.model = model
         self.transport = transport
@@ -348,7 +361,7 @@ class Trainer:
                     registry=registry,
                     interconnect=self._plan_interconnect(),
                     faults=bool(config.inject_faults),
-                    wire=wire_stamp(config.wire_dtype, config.wire_block,
+                    wire=wire_stamp(wire_dtype(config), config.wire_block,
                                     config.error_feedback),
                     synth=(config.plan.get("synth")
                            if config.plan else None))
@@ -424,7 +437,7 @@ class Trainer:
 
     def make_algorithm(self, ppi: int) -> GossipAlgorithm:
         cfg = self.cfg
-        codec = get_codec(cfg.wire_dtype, cfg.wire_block)
+        codec = get_codec(wire_dtype(cfg), cfg.wire_block)
         bilat = cfg.bilat or cfg.bilat_async
         if codec is not None and codec.lossy \
                 and (cfg.all_reduce or bilat or not cfg.push_sum):

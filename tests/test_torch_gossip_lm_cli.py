@@ -141,6 +141,8 @@ def test_reference_flags_parse_with_reference_defaults():
     ("--metrics_every", "-1"),
     ("--moe_experts", "4"), ("--mixing_alpha", "0.5"),
     ("--trace_dir", ""),
+    ("--gossip_comm_dtype", "bf16"), ("--multihost", "True"),
+    ("--process_id", "2"),
 ])
 def test_unported_flags_raise_naming_the_flag(flag, value, small):
     # --tp, --ep, --moe_experts, --pp, --metrics_every and --trace_dir are
@@ -149,7 +151,10 @@ def test_unported_flags_raise_naming_the_flag(flag, value, small):
     # --moe_experts, for --moe_experts the same refusal (a later
     # --moe_experts 0 wins, with --ep 2 under --tp 2), --pp with --tp,
     # --metrics_every -1, and --metrics_every 5 with no (an empty)
-    # --trace_dir
+    # --trace_dir; the deprecated --gossip_comm_dtype beside another
+    # --wire_dtype, and the launches jax.distributed.initialize refuses
+    # (no coordinator and no launcher; a --process_id outside
+    # --num_processes)
     extra = {"--tp": ["--n_heads", "2", "--attn", "ring", "--world_size",
                       "2"],
              "--pp": ["--tp", "2", "--n_heads", "2", "--world_size", "4"],
@@ -157,7 +162,11 @@ def test_unported_flags_raise_naming_the_flag(flag, value, small):
                                "--world_size", "4", "--moe_experts",
                                "0"],
              "--metrics_every": ["--trace_dir", "/tmp/x"],
-             "--trace_dir": ["--metrics_every", "5"]}.get(flag, [])
+             "--trace_dir": ["--metrics_every", "5"],
+             "--gossip_comm_dtype": ["--wire_dtype", "int8"],
+             "--process_id": ["--multihost", "True", "--num_processes", "2",
+                              "--coordinator_address", "127.0.0.1:1"],
+             }.get(flag, [])
     with pytest.raises(SystemExit, match=flag):
         gossip_lm.main(small + [flag, value] + extra)
 

@@ -43,6 +43,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -155,10 +156,7 @@ def test_reference_flags_parse_with_reference_defaults():
 
 # one value per unported flag, each away from its default
 UNPORTED_VALUES = {
-    "--stem_s2d": "True", "--gossip_comm_dtype": "bf16",
-    "--scan_steps": "2", "--multihost": "True",
-    "--coordinator_address": "localhost:1", "--num_processes": "2",
-    "--process_id": "1",
+    "--stem_s2d": "True", "--scan_steps": "2",
     "--fleet": "True", "--host_id": "0",
 }
 
@@ -166,10 +164,25 @@ UNPORTED_VALUES = {
 # flags ported since, each with a value (and the flags beside it) that
 # is still refused naming it, by the reference's refusal:
 # --nprocs_per_node 3 does not divide the world of 4; --metrics_every -1;
-# --metrics_every 5 with no (an empty) --trace_dir
-REFUSED_VALUES = {"--nprocs_per_node": ("3",),
-                  "--metrics_every": ("-1", "--trace_dir", "/nonexistent"),
-                  "--trace_dir": ("", "--metrics_every", "5")}
+# --metrics_every 5 with no (an empty) --trace_dir; the deprecated
+# --gossip_comm_dtype beside another --wire_dtype (resolve_wire_flags's
+# message); and the launches jax.distributed.initialize refuses:
+# --multihost True with no coordinator and no launcher, a coordinator
+# without --num_processes and --process_id, --num_processes 0 and a
+# --process_id outside --num_processes
+REFUSED_VALUES = {
+    "--nprocs_per_node": ("3",),
+    "--metrics_every": ("-1", "--trace_dir", "/nonexistent"),
+    "--trace_dir": ("", "--metrics_every", "5"),
+    "--gossip_comm_dtype": ("bf16", "--wire_dtype", "int8"),
+    "--multihost": ("True",),
+    "--coordinator_address": ("127.0.0.1:1", "--multihost", "True"),
+    "--num_processes": ("0", "--multihost", "True",
+                        "--coordinator_address", "127.0.0.1:1",
+                        "--process_id", "0"),
+    "--process_id": ("2", "--multihost", "True", "--coordinator_address",
+                     "127.0.0.1:1", "--num_processes", "2"),
+}
 
 
 @pytest.mark.parametrize("flag", sorted(gossip_sgd.UNPORTED)
@@ -313,12 +326,8 @@ def test_resilience_trainer_fields_are_threaded(field, value, extra):
 # (value, exception, message[, the fields beside it])
 REFUSED_FIELDS = {"nprocs_per_node": (0, ValueError,
                                       "nprocs_per_node must be >= 1"),
-                  "metrics_every": (-1, ValueError,
-                                    "metrics_every must be >= 0",
-                                    {"trace_dir": "/nonexistent"}),
-                  "trace_dir": ("", ValueError,
-                                "metrics_every needs trace_dir",
-                                {"metrics_every": 5})}
+                  "gossip_comm_dtype": ("f16", ValueError,
+                                        "unknown gossip_comm_dtype 'f16'")}
 
 
 @pytest.mark.parametrize("field", sorted(tloop.UNPORTED)
@@ -343,6 +352,40 @@ def test_unported_trainer_fields_raise_naming_the_feature(field):
     with pytest.raises(exc, match=match):
         tloop.Trainer(cfg, make_model("tiny_cnn"), StackedTransport(2),
                       device="cpu")
+
+
+# TrainerConfig fields the Trainer once refused and the reference's runs
+# with the null telemetry bundle: metrics_every < 0 (clamped) and
+# metrics_every without a trace_dir
+NULL_BUNDLE_FIELDS = {"metrics_every": {"metrics_every": -1},
+                      "trace_dir": {"metrics_every": 5, "trace_dir": ""}}
+
+
+@pytest.mark.parametrize("field", sorted(NULL_BUNDLE_FIELDS))
+def test_trainer_runs_with_the_null_bundle_as_the_reference(field, tmp_path):
+    from stochastic_gradient_push_torch.data.pipeline import (
+        DistributedSampler, ShardedLoader)
+    from stochastic_gradient_push_torch.data.synthetic import (
+        synthetic_classification)
+    from stochastic_gradient_push_torch.parallel.collectives import (
+        StackedTransport)
+    from stochastic_gradient_push_torch.telemetry import NULL_TELEMETRY
+    from stochastic_gradient_push_torch.train.step import make_model
+
+    cfg = tloop.TrainerConfig(**NULL_BUNDLE_FIELDS[field],
+                              checkpoint_dir=str(tmp_path), batch_size=2,
+                              num_epochs=1, num_itr_ignore=0, num_classes=4,
+                              all_reduce=True, verbose=False)
+    trainer = tloop.Trainer(cfg, make_model("tiny_mlp", num_classes=4),
+                            StackedTransport(2), device="cpu")
+    assert trainer.telemetry is NULL_TELEMETRY
+    images, labels = synthetic_classification(8, num_classes=4,
+                                              image_size=8, seed=0)
+    sampler = DistributedSampler(8, 2)
+    loader = ShardedLoader(images, labels, 2, sampler)
+    _, result = trainer.fit(trainer.init_state(), loader, sampler)
+    assert np.isfinite(result["best_prec1"])
+    assert not list(tmp_path.rglob("events*.jsonl"))
 
 
 def test_multi_process_world_is_refused():

@@ -77,6 +77,9 @@ def test_every_module_imports_with_jax_unavailable():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     expected = {"stochastic_gradient_push_torch.serve.engine",
                 "stochastic_gradient_push_torch.serve.cli",
+                "stochastic_gradient_push_torch.serve.bench",
+                "stochastic_gradient_push_torch.serve.paged_attention",
+                "stochastic_gradient_push_torch.parallel.tp",
                 "stochastic_gradient_push_torch.ops._build",
                 "stochastic_gradient_push_torch.ops.gossip_kernel",
                 "stochastic_gradient_push_torch.train.lm",
@@ -219,5 +222,36 @@ def test_telemetry_and_the_wire_selftest_run_with_jax_unavailable(tmp_path):
     assert "wire selftest: OK" in proc.stdout
     assert out["files"] == ["events.jsonl", "trace.json"]
     assert "stochastic_gradient_push_torch.telemetry.comm" in out["loaded"]
+    assert not [m for m in out["loaded"]
+                if m.startswith("stochastic_gradient_push_tpu")]
+
+
+_SERVE_RUN = r"""
+import json, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, sys.argv[1])
+from stochastic_gradient_push_torch.serve import cli
+assert cli.main(["--selftest", "--device", "cpu"]) == 0
+print(json.dumps({"loaded": sorted(
+    m for m in sys.modules if m.startswith("stochastic_gradient_push"))}))
+"""
+
+
+def test_serve_selftest_runs_with_jax_unavailable():
+    """The serve CLI's selftest (training at world 4, the ingest, the
+    2-shard engine and 50 requests; its imports sit inside the function)
+    in an interpreter where ``import jax`` fails."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _SERVE_RUN, str(REPO)],
+                          capture_output=True, text=True, timeout=120,
+                          env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "serve selftest: OK" in proc.stdout
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"stochastic_gradient_push_torch.serve.load",
+            "stochastic_gradient_push_torch.parallel.tp",
+            "stochastic_gradient_push_torch.run.gossip_lm"} <= set(
+                out["loaded"])
     assert not [m for m in out["loaded"]
                 if m.startswith("stochastic_gradient_push_tpu")]

@@ -43,10 +43,10 @@ class Rendezvous:
         self.port = self._store.port
 
     def env(self, rank: int | None = None, world: int | None = None,
-            **extra) -> dict:
+            drop=(), **extra) -> dict:
         """``os.environ`` with one torch thread, the rendezvous and (with
         ``rank`` and ``world``) the torchrun variables of that rank, then
-        ``extra``."""
+        ``extra``, less the variables named in ``drop``."""
         env = dict(os.environ, MASTER_ADDR=HOST, MASTER_PORT=str(self.port),
                    TORCHELASTIC_USE_AGENT_STORE="True",
                    TORCHELASTIC_RESTART_COUNT="0", OMP_NUM_THREADS="1")
@@ -54,14 +54,17 @@ class Rendezvous:
             env.update(RANK=str(rank), WORLD_SIZE=str(world),
                        LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
         env.update(extra)
+        for k in drop:
+            env.pop(k, None)
         return env
 
     def popen(self, argv: list, rank: int | None = None,
               world: int | None = None, env: dict | None = None,
-              **kw) -> subprocess.Popen:
-        """A child on this rendezvous (``env``: more environment),
-        stdout and stderr piped together; it holds the store alive."""
-        proc = subprocess.Popen(argv, env=self.env(rank, world,
+              drop=(), **kw) -> subprocess.Popen:
+        """A child on this rendezvous (``env``: more environment,
+        ``drop``: variables taken out), stdout and stderr piped together;
+        it holds the store alive."""
+        proc = subprocess.Popen(argv, env=self.env(rank, world, drop,
                                                    **(env or {})),
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, **kw)
