@@ -73,6 +73,11 @@
    push-sum weight is exactly 1.0 after each global average (and the
    FIFO drained); median step ms, images/s, peak memory and
    ``replica_spread`` are printed.
+   7c: one bf16 SGP step at world 4 on the kernel lane, from one state,
+   for each BatchNorm of the reference (``norm_variant`` ``bn``,
+   ``bn16``, ``folded``): every loss finite, one K2 and K1 each,
+   ``folded``'s running statistics bit-unchanged (the others' moved),
+   ``bn16``'s losses printed beside ``bn``'s.
 8. The training CLI, ``run/gossip_sgd.py``, at ResNet-50's full width
    (224 px, 1000 classes, fp32, TF32 off), world 4 stacked, 32 images a
    rank, synthetic data (seed 0; each image set drawn once for the
@@ -109,6 +114,16 @@
      gets SIGUSR1 once it is training; it must exit 75 and leave the
      four rank files with a drained (all-zero) FIFO.  It runs beside the
      runs after the SGP and D-PSGD ones (a thread waits on it).
+   - 8d (in a subprocess beside the runs after SGP and D-PSGD, every
+     time taken then marked): the space-to-depth stem on the card
+     equals the 7x7/2 stem on
+     the same weights and images (fp32, each within 1e-5 of the scale
+     from fp64); then SGP on the kernel lane with ``--stem_s2d True
+     --scan_steps 4``, one epoch of 6 steps at batch 16 over the same
+     synthetic set (a warm-up single, a chunk of 4, a cap tail of 1),
+     beside the same command at ``--scan_steps 1``, both under
+     deterministic cuDNN: CSV rows equal outside timing, rank files
+     within 1e-6, K2/K1 launches equal (6 each).
 9. Error feedback, faults, health and recovery at ResNet-50's width
    (224 px, fp32, TF32 off, world 4 stacked, 32 images a rank):
    - 9a: SGP on the int8 wire with error feedback and the fault plan
@@ -344,8 +359,9 @@
      under ``--ckpt_backend orbax`` (in the background), one epoch then
      resumed to two: one shared root, each process's restored rows equal
      to the rows it saved, rank 1's different from rank 0's.
-18. The sequence ring across processes: phase 11's LM (d768, cut to 4
-   layers, dp 2 x sp 4, T4096 in 1024-token shards, B2 a replica, ``ring_flash``,
+18. The sequence ring across processes: phase 11's LM (d768, cut to 2
+   layers, 4 until phase 19e came, dp 2 x sp 4, T4096 in 1024-token
+   shards, B2 a replica, ``ring_flash``,
    remat, SGP on K2/K1, seed 0) through ``run/gossip_lm.py`` on a token
    file, in 8 processes under a torchrun environment sharing the card
    over gloo, process ``p`` holding shard ``p % 4`` of replica ``p //
@@ -389,7 +405,21 @@
      axis's gradient mean runs in another order, phase 18), ps-weight
      exact; the fp32 K3-K5 launches summed over the processes tp times
      the stacked run's (which folds both shards' heads into one launch);
-   - each run's step host ms and the tp sums' count and host ms a step.
+   - 19d: 19a's command at ``--tp 8`` (world 16 stacked, dp 2): the 12
+     heads of 64 over shards of 96 columns, a head straddling two shards
+     (the columns joined into whole heads before the attention): losses
+     and grad norms within 2e-3 relative of 19a's ``--tp 1`` run, 12 bf16
+     K3-K5 launches a step a replica, one K2 and K1 a step;
+   - 19e: dp 1 x tp 8 in 8 processes at L2 and B2, 2 steps, beside the
+     same command stacked: each process holds its 96 columns of q/k/v and
+     rows of o (its parameter bytes predicted from the shapes), gathers
+     the two heads its columns touch, 2 bf16 K3-K5 launches a step;
+     losses and grad norms within 2e-3 relative of the stack (a shared
+     head's gradient folds two processes' partial sums);
+   - each run's step host ms and the tp sums' count and host ms a step;
+     19b's, 19c's and 19e's processes run beside every stacked run of
+     the phase and beside each other, and every time taken beside other
+     work is marked (the card shared).
 20. Switch MoE and expert parallelism: the flagship LM with 8 experts on
    every second block (capacity factor 1.25) through ``run/gossip_lm.py``
    on a token file, ``--moe_experts 8 --ep 2``:
@@ -414,7 +444,9 @@
      gradient of both shards' mean), ps-weight equal, the step-3
      params' distance printed; 4 bf16 K3-K5 launches and
      one cross-process K2 and K1 a step a process; the exchanges' count,
-     bytes and host ms a step.
+     bytes and host ms a step.  20c's processes run beside 20a, 20b and
+     20c's stacked run (20a's layer times taken alone before they start),
+     and every time taken beside them is marked.
 21. MoE under tensor parallelism and the expert meshes across processes
    (``--moe_experts 8 --ep 2 --tp 2``, the experts split on their F dim):
    - 21a: 20a's command at ``--tp 2 --world_size 8`` (dp 2 x ep 2 x tp
@@ -425,13 +457,16 @@
      ms, the peak GB and one MoE FFN's device ms at tp 2 beside 20a's;
    - 21b: dp 1 x ep 2 x sp 2 x tp 2 in 8 processes under a torchrun
      environment (one ``(e, shard, t)`` each), bf16, ``ring_flash``, d768
-     cut to 4 layers (2 MoE blocks), T1024 B8 an ep shard, 2 steps, a
+     cut to 2 layers (1 MoE block; 4 until phase 19e came), T1024 B8 an
+     ep shard, 2 steps, a
      DCP save, then step 3 resumed from it, beside the same command
      stacked here: losses and grad norms within 2e-3 relative,
      ps-weight equal, the step-3 params' distance printed; each
      process's ring ticks (shard ``s`` runs ``s + 1`` a layer), their
      sum ep x tp times the stack's; process 0's ep exchanges, tp sums
-     and ring shifts a step (count, host ms, MB).
+     and ring shifts a step (count, host ms, MB).  21b's processes run
+     beside 21a and 21b's stacked run, and every time taken beside them
+     is marked.
 22. Pipeline parallelism (``--pp 2 --n_micro 4``, GPipe stages):
    - 22a: the flagship LM (d768/L12, bf16, flash, SGP on K2/K1, T1024 B8
      a replica) at ``--pp 2 --world_size 4`` (dp 2 x pp 2) stacked, 3
@@ -442,7 +477,8 @@
      the step ms and the peak GB of both;
    - 22b: the ``(gossip, pipe, ep, seq)`` mesh stacked, ``--pp 2 --ep 2
      --sp 2 --moe_experts 8 --moe_every 1 --attn ring_flash --world_size
-     8`` (dp 1), bf16, d768 cut to 4 layers, 3 steps (phase 23's
+     8`` (dp 1), bf16, d768 cut to 2 layers (a layer a stage; 4 until
+     phase 19e came), 3 steps (phase 23's
      oracle, its DCP save at the end): 3 ring ticks a layer a
      microbatch, ``moe_dropped`` in [0, 1];
    - 22c: dp 2 x pp 2 in 4 processes under a torchrun environment (one
@@ -454,7 +490,8 @@
      K3-K5 launches (a stage's 2 layers x 4 microbatches) and one
      cross-process K2 and K1 a step a process, their sum the stack's;
      process 0's hand-offs and pipe-group sums a step (count, host ms,
-     MB).
+     MB).  22c's processes run beside 22a, 22b and 22c's stacked run,
+     and every time taken beside them is marked.
 23. The pipeline meshes across processes: 22b's command in 8 processes
    under a torchrun environment (gloo, the card shared), one ``(stage,
    ep shard, sequence shard)`` each (dp 1 x pp 2 x ep 2 x sp 2;
@@ -1562,9 +1599,11 @@ def _resnet_setup(cfg: dict, wire, overlap: bool, staleness: int,
                     gossip_buckets=buckets,
                     global_avg_every=cfg["global_avg_every"])
     tx = sgd(momentum=0.9, weight_decay=1e-4, nesterov=True)
+    norm = cfg.get("norm", "bn")
     model = make_model(cfg["model"], num_classes=cfg["num_classes"],
                        dtype={"fp32": torch.float32,
-                              "bf16": torch.bfloat16}[cfg["dtype"]])
+                              "bf16": torch.bfloat16}[cfg["dtype"]],
+                       **({"norm_variant": norm} if norm != "bn" else {}))
     step = build_train_step(
         model, alg, tx, LRSchedule(0.1, cfg["batch"], world, warmup=True),
         itr_per_epoch=1000, num_classes=cfg["num_classes"])
@@ -1703,6 +1742,71 @@ def resnet_train_path(card: str, label: str, wire: str, overlap: bool,
     return launches
 
 
+def resnet_norm_variants(card: str) -> dict:
+    """7c: one bf16 ResNet-50 SGP step at world 4 stacked on the kernel
+    lane for each of the reference's ``ProbeBatchNorm`` variants, from
+    one state: ``folded`` leaves the running statistics bit-unchanged,
+    ``bn16``'s loss is finite and printed beside ``bn``'s.  Returns the
+    variants' launches."""
+    import torch
+
+    from stochastic_gradient_push_torch.data.synthetic import (
+        synthetic_classification)
+    from stochastic_gradient_push_torch.ops.gossip_kernel import KernelLane
+    from stochastic_gradient_push_torch.train.step import init_train_state
+
+    cfg = dict(RESNET, dtype="bf16")
+    world, batch, image = cfg["world"], cfg["batch"], cfg["image"]
+    images, labels = synthetic_classification(
+        world * batch, num_classes=cfg["num_classes"], image_size=image,
+        seed=0)
+    x = torch.from_numpy(images.reshape(world, batch, image, image, 3)
+                         ).cuda()
+    y = torch.from_numpy(labels.reshape(world, batch)).cuda()
+    del images
+    counters = _counters()
+    got, state, launches = {}, None, {n: 0 for n in counters}
+    for norm in ("bn", "bn16", "folded"):
+        model, alg, tx, step = _resnet_setup(
+            dict(cfg, norm=norm), "f32", False, 1, 1, 1,
+            gossip_kernel=KernelLane())
+        if state is None:
+            # the variants share their parameters' and buffers' names
+            state = init_train_state(model, alg, tx, world, seed=0,
+                                     device="cuda")
+        before = {n: t.clone() for n, t in state.batch_stats.items()}
+        for fn in counters.values():
+            fn.launches = 0
+        new, m = step(state, x, y)
+        got[norm] = (m["loss"].float().cpu(), new)
+        ran = {n: fn.launches for n, fn in counters.items()}
+        if ran["gossip_edge_start"] != 1 or ran["gossip_edge_wait"] != 1:
+            raise AssertionError(f"resnet 7c {norm}: launches {ran}")
+        for n, v in ran.items():
+            launches[n] += v
+        if not torch.isfinite(got[norm][0]).all():
+            raise AssertionError(f"resnet 7c {norm}: loss {got[norm][0]}")
+        if norm == "folded" and not all(
+                torch.equal(new.batch_stats[n], t)
+                for n, t in before.items()):
+            raise AssertionError("resnet 7c folded: the running statistics "
+                                 "moved")
+        if norm != "folded" and all(torch.equal(new.batch_stats[n], t)
+                                    for n, t in before.items()):
+            raise AssertionError(f"resnet 7c {norm}: the running statistics "
+                                 f"did not move")
+        del new
+        torch.cuda.empty_cache()
+    bn = got["bn"][0]
+    print(f"resnet 7c: bf16 ResNet-50 SGP at world {world} stacked, one step "
+          f"from one state a norm: losses bn {bn.tolist()}, bn16 "
+          f"{got['bn16'][0].tolist()} (largest |difference| "
+          f"{float((got['bn16'][0] - bn).abs().max()):.3e}), folded "
+          f"{got['folded'][0].tolist()} (running statistics bit-unchanged: "
+          f"True); K2/K1 one each a step [{card}]", flush=True)
+    return launches
+
+
 def _cli_argv(ckpt_dir: str, *extra: str, epochs: int | None = None):
     c = CLI
     return ["--model", c["model"], "--image_size", str(c["image"]),
@@ -1739,9 +1843,10 @@ def _flat(row: dict) -> dict:
 
 
 def _cli_run(label: str, argv, card: str, module=None,
-             world: int | None = None) -> tuple[dict, dict]:
+             world: int | None = None, busy: str = "") -> tuple[dict, dict]:
     """One in-process run of the CLI (at ``world``, default CLI's) with
-    every counter zeroed just before: its launches and its result."""
+    every counter zeroed just before: its launches and its result (its
+    times marked as taken beside ``busy``, other work on the card)."""
     import torch
 
     from stochastic_gradient_push_torch.run import gossip_sgd
@@ -1760,8 +1865,8 @@ def _cli_run(label: str, argv, card: str, module=None,
           f"checkpoints); step "
           f"(BT meter, {bt.count} timed steps) mean {bt.avg * 1e3:.2f} ms, "
           f"std {bt.std * 1e3:.2f} ms, "
-          f"{(world or CLI['world']) * CLI['batch'] / bt.avg:.1f} images/s; "
-          f"peak memory "
+          f"{(world or CLI['world']) * CLI['batch'] / bt.avg:.1f} images/s"
+          f"{_shared(busy)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
           f"{json.dumps(launches)} [{card}]", flush=True)
     if "--trace_dir" in argv:
@@ -1995,6 +2100,155 @@ def _traced(ckpt: str) -> list[str]:
     return ["--trace_dir", os.path.join(ckpt, "telemetry")]
 
 
+def _s2d_stem_check(card: str) -> None:
+    """The space-to-depth stem on the card equals the 7x7/2 stem on the
+    same weights and images, in fp32 (TF32 off): each within 1e-5 of the
+    output's scale from an fp64 run of the 7x7 stem."""
+    import torch
+    import torch.nn.functional as F
+
+    from stochastic_gradient_push_torch.models.resnet import (
+        Conv2d, s2d_stem_kernel, space_to_depth)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(CLI["batch"], 3, CLI["image"], CLI["image"],
+                    device="cuda", generator=g)
+    k7 = torch.randn(64, 3, 7, 7, device="cuda", generator=g) * (
+        2.0 / (64 * 49)) ** 0.5
+    with torch.no_grad():
+        want = F.conv2d(x, k7, stride=2, padding=3)
+        conv = Conv2d(12, 64, 4, 1, padding=(2, 1)).cuda()
+        conv.weight.copy_(s2d_stem_kernel(k7))
+        got = conv(space_to_depth(x))
+        exact = F.conv2d(x.double(), k7.double(), stride=2, padding=3)
+    scale = float(exact.abs().max())
+    errs = [float((t.double() - exact).abs().max()) for t in (got, want)]
+    print(f"cli 8d: the s2d stem (4x4/1 over {tuple(space_to_depth(x).shape)}"
+          f") vs the 7x7/2 stem on the same weights and images, fp32: "
+          f"{tuple(got.shape)}, largest |difference| "
+          f"{float((got - want).abs().max()):.3e}; from fp64 s2d "
+          f"{errs[0]:.3e}, 7x7 {errs[1]:.3e} (bound {1e-5 * scale:.3e}, "
+          f"1e-5 of the scale {scale:.3f}) [{card}]", flush=True)
+    if got.shape != want.shape or max(errs) > 1e-5 * scale:
+        raise AssertionError("cli 8d: the s2d stem is not the 7x7 stem")
+
+
+def scan_cli(card: str, tmp: str, busy: str = "") -> list:
+    """8d: the ResNet-50 CLI at world 4 with the s2d stem and
+    ``--scan_steps 4`` on the kernel lane, one epoch of 6 steps at batch
+    16 over phase 8's synthetic set (a warm-up single, a chunk of 4, a
+    cap tail of 1), beside the same command at ``--scan_steps 1``, both
+    under deterministic cuDNN (set by the caller): the CSV rows equal
+    outside timing, the rank files within ``TOL_STEP_PARAM`` (expected
+    bit-equal: the same kernels on the same inputs), K2/K1 launches
+    equal.  Returns both runs' launches."""
+    import torch
+
+    from stochastic_gradient_push_torch.train import loop
+
+    _s2d_stem_check(card)
+    runs, files, chunks = {}, {}, {}
+    for scan in (4, 1):
+        ckpt = os.path.join(tmp, f"scan{scan}")
+        sizes = []
+        real = loop.Trainer._on_device
+
+        def spy(self, a, sizes=sizes):
+            out = real(self, a)
+            if out.dtype.is_floating_point:
+                sizes.append(out.shape[0] if out.dim() == 6 else 1)
+            return out
+
+        loop.Trainer._on_device = spy
+        try:
+            runs[scan], _ = _cli_run(f"8d scan_steps {scan}", _cli_argv(
+                ckpt, "--gossip_kernel", "pallas", "--stem_s2d", "True",
+                "--scan_steps", str(scan), "--batch_size", "16",
+                "--num_iterations_per_training_epoch", "6", epochs=1), card,
+                busy=busy)
+        finally:
+            loop.Trainer._on_device = real
+        chunks[scan] = sizes
+        files[scan] = ([_flat(r) for r in _rank_files(ckpt)],
+                       _csv_outside_timing(os.path.join(
+                           ckpt, f"out_r0_n{CLI['world']}.csv")))
+        shutil.rmtree(ckpt, ignore_errors=True)
+    (a, rows_a), (b, rows_b) = files[4], files[1]
+    err = max(_max_err(x[n], y[n]) for x, y in zip(a, b) for n in x)
+    exact = all(torch.equal(x[n], y[n]) for x, y in zip(a, b) for n in x)
+    gossip = {s: (r["gossip_edge_start"], r["gossip_edge_wait"])
+              for s, r in runs.items()}
+    print(f"cli 8d: resnet50 with --stem_s2d True, {CLI['world']} ranks "
+          f"stacked, K2/K1, 6 steps: device copies (the chunks, then the "
+          f"validation batch) {chunks[4]} at --scan_steps 4, {chunks[1]} at "
+          f"1; CSV rows equal outside timing: "
+          f"{rows_a == rows_b}; rank files max |diff| {err:.3e}, exactly "
+          f"equal: {exact} (tolerance {TOL_STEP_PARAM}); K2/K1 launches "
+          f"{gossip} [{card}]", flush=True)
+    # the epoch's copies, then the validation batch's
+    if chunks[4] != [1, 4, 1, 1] or chunks[1] != [1] * 7:
+        raise AssertionError(f"cli 8d: chunks {chunks}")
+    if rows_a != rows_b or not err <= TOL_STEP_PARAM:
+        raise AssertionError("cli 8d: --scan_steps 4 differs from 1")
+    if gossip[4] != gossip[1] or gossip[4] != (6, 6):
+        raise AssertionError(f"cli 8d: K2/K1 launches {gossip}")
+    return [runs[4], runs[1]]
+
+
+# 8d's child: the image set drawn in this process, deterministic cuDNN,
+# scan_cli; its launches on the last line (sys.argv: root, tmp, card,
+# the work beside it)
+_P8D_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as c
+c.set_matmul_flags()
+c.install_synthetic_memo()
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+runs = c.scan_cli(sys.argv[3], sys.argv[2], busy=sys.argv[4])
+print("RUN_8d " + json.dumps(runs), flush=True)
+"""
+
+
+class _ScanChild:
+    """8d in a subprocess beside phase 8's runs after its timed SGP and
+    D-PSGD ones: :meth:`join` prints its lines and returns its two runs'
+    launches; :meth:`kill` ends it."""
+
+    def __init__(self, card: str, tmp: str):
+        self.log_path = os.path.join(tmp, "scan_8d.log")
+        os.makedirs(os.path.join(tmp, "scan_8d"), exist_ok=True)
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _P8D_CHILD, ROOT,
+             os.path.join(tmp, "scan_8d"), card,
+             "phase 8's runs and preemption check"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+    def join(self) -> list:
+        try:
+            code = self.proc.wait(timeout=DIST_TIMEOUT_S)
+        finally:
+            self.kill()
+        with open(self.log_path) as f:
+            text = f.read()
+        if code != 0:
+            raise AssertionError(f"cli 8d: the subprocess exited {code}:\n"
+                                 f"{text[-4000:]}")
+        print("".join(x + "\n" for x in text.splitlines()
+                      if x.startswith("cli 8d")), end="", flush=True)
+        return _tagged(text, "RUN_8d")
+
+
 def cli_path(card: str) -> tuple[dict, float]:
     """Phase 8: the training CLI at ResNet-50's width, every in-process
     run traced (``--trace_dir``; its host spans printed).  Returns the
@@ -2007,7 +2261,7 @@ def cli_path(card: str) -> tuple[dict, float]:
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(ROOT, "build"))
-    preempt = None
+    preempt = scan = None
     try:
         print(f"cli: run/gossip_sgd.py, {CLI['model']} {CLI['image']} px, "
               f"{CLI['num_classes']} classes, world {CLI['world']} stacked, "
@@ -2045,6 +2299,9 @@ def cli_path(card: str) -> tuple[dict, float]:
         preempt = threading.Thread(target=preempt_check,
                                    name="preempt_check")
         preempt.start()
+        # 8d's subprocess too
+        scan = _ScanChild(card, tmp)
+        beside = "8d's subprocess and the preemption check"
 
         # D-PSGD: the kernel lane against the plain lane, two steps from
         # one state under deterministic cuDNN
@@ -2056,7 +2313,7 @@ def cli_path(card: str) -> tuple[dict, float]:
                 _cli_run(f"dpsgd {lane} lane", _cli_argv(
                     ckpt, "--push_sum", "False", "--gossip_kernel", lane,
                     "--num_iterations_per_training_epoch", "2",
-                    *_traced(ckpt), epochs=1), card)
+                    *_traced(ckpt), epochs=1), card, busy=beside)
                 lanes[lane] = [_flat(r) for r in _rank_files(ckpt)]
             err = max(_max_err(a[n], b[n]) for a, b in zip(
                 lanes["pallas"], lanes["xla"]) for n in a)
@@ -2074,7 +2331,8 @@ def cli_path(card: str) -> tuple[dict, float]:
             ckpt = os.path.join(tmp, "adpsgd")
             launches, _ = _cli_run("adpsgd", _cli_argv(
                 ckpt, "--graph_type", "1", "--train_fast", "True",
-                *_traced(ckpt), epochs=1), card, module=gossip_sgd_adpsgd)
+                *_traced(ckpt), epochs=1), card, module=gossip_sgd_adpsgd,
+                busy=beside)
             if any(launches.values()):
                 raise AssertionError(f"cli adpsgd: launches {launches}")
             _bilat_round_check(card)
@@ -2091,7 +2349,7 @@ def cli_path(card: str) -> tuple[dict, float]:
                 launches, _ = _cli_run(label, _cli_argv(
                     ckpt, *osgp, "--resume", resume,
                     *_traced(os.path.join(ckpt, f"e{epochs}")),
-                    epochs=epochs), card)
+                    epochs=epochs), card, busy=beside)
                 main_runs.append(launches)
             a = [_flat(r) for r in _rank_files(straight)]
             b = [_flat(r) for r in _rank_files(split)]
@@ -2112,9 +2370,12 @@ def cli_path(card: str) -> tuple[dict, float]:
         preempt.join()
         if failed:
             raise failed[0]
+        main_runs += scan.join()
     finally:
         if preempt is not None:
             preempt.join()
+        if scan is not None:
+            scan.kill()
         shutil.rmtree(tmp, ignore_errors=True)
     return ({n: sum(run[n] for run in main_runs) for n in main_runs[0]},
             flat_bt)
@@ -5931,10 +6192,11 @@ def serve_sharded_path(card: str, tmp: str, tree, procs: list):
 # phase 11's shape (dp 2 x sp 4, T4096, 1024-token shards, B2 a replica)
 # in 8 processes sharing the card over gloo, one sequence shard each:
 # 18a fp32 for 2 steps (3 until phase 20 came), 18b bf16 for 2, each
-# beside the same command stacked in this process, at d768 cut to 4
-# layers (12 until phase 21 came); 18c one ring shift of a [2, 12, 1024,
-# 64] fp32 block a shard, 10 times in every process at once
-SEQ_DIST = dict(steps=2, bf16_steps=2, shifts=10, layers=4)
+# beside the same command stacked in this process, at d768 cut to 2
+# layers (12 until phase 21 came, 4 until phase 19e came); 18c one ring
+# shift of a [2, 12, 1024, 64] fp32 block a shard, 10 times in every
+# process at once
+SEQ_DIST = dict(steps=2, bf16_steps=2, shifts=10, layers=2)
 
 # the child: joins one gloo group on the card, waits for the file
 # sys.argv[6] (the parent's stacked runs are done), runs each argv of
@@ -6262,6 +6524,13 @@ def seq_dist_path(card: str, beside) -> dict:
 # its command stacked at that depth
 TP = dict(tp=2, dp=2, seq_len=1024, batch=8, steps=4, c_seq_len=4096,
           c_batch=2, c_steps=2, vocab=32000, bc_layers=4)
+# 19d/19e: --tp 8 on the 12 heads, a head and a half a shard (each
+# kernel's columns split, as the reference's GSPMD splits them): 19d
+# 19a's command at dp 2 x tp 8 stacked, full depth; 19e dp 1 x tp 8 in 8
+# processes at L2 and B2, 2 steps, beside the same command stacked
+TP8 = dict(tp=8, e_layers=2, e_steps=2, e_batch=2)
+SHARED_19 = "19b's, 19c's and 19e's processes"
+STACKED_19 = "19a-19e stacked"
 
 # the child: joins one gloo group on the card, waits for the file
 # sys.argv[6] (the parent's stacked runs are done), then runs each command
@@ -6422,7 +6691,7 @@ def lm_run(argv) -> dict:
     return got
 
 
-def _tp_predicted(layers: int) -> tuple[int, int]:
+def _tp_predicted(layers: int, tp: int | None = None) -> tuple[int, int]:
     """The parameters a tp shard holds and a replica's, from the shapes:
     ``(split leaves / tp + replicated leaves, all)``."""
     import dataclasses
@@ -6430,10 +6699,11 @@ def _tp_predicted(layers: int) -> tuple[int, int]:
     from stochastic_gradient_push_torch.parallel.tp import split_dim
     from stochastic_gradient_push_torch.train.lm import logical_shapes
 
+    tp = tp or TP["tp"]
     shapes = logical_shapes(dataclasses.replace(_lm_config(),
                                                 n_layers=layers))
     whole = sum(math.prod(s) for s in shapes.values())
-    held = sum(math.prod(s) // (TP["tp"] if split_dim(n) is not None else 1)
+    held = sum(math.prod(s) // (tp if split_dim(n) is not None else 1)
                for n, s in shapes.items())
     return held, whole
 
@@ -6485,9 +6755,10 @@ def _tp_rel(a, b) -> float:
 
 def tp_path(card: str) -> dict:
     """Phase 19: the LM at --tp 2, stacked (19a) and one tp shard a
-    process at a cut depth (19b), and the 3-D mesh in processes (19c),
-    each beside its stacked oracle.  Returns the main path's launches (19a's tp run, the
-    processes' runs)."""
+    process at a cut depth (19b), the 3-D mesh in processes (19c), and
+    --tp 8 on 12 heads stacked (19d) and in 8 processes (19e), each
+    beside its oracle.  Returns the main path's launches (19a's and
+    19d's tp runs, the processes' runs)."""
     import numpy as np
     import torch
 
@@ -6512,12 +6783,23 @@ def tp_path(card: str) -> dict:
                            layers=cut)),
         ("RUN_r", _tp_argv(dist_b, corpus, "--resume", "True", layers=cut)),
         ("RUN_c", _tp3_argv(os.path.join(tmp, "dist_c"), corpus3))]
-    # the processes start (imports, the group) while the stacked runs go,
-    # and wait for the go file before any work on the card
+    # the processes start (imports, the group) and wait for the go file
+    # before any work on the card: 4 for 19b and 19c, 8 for 19e
     go = os.path.join(tmp, "go")
     procs = _ranks(_P19_CHILD, world, [json.dumps(jobs), go],
                    _torchrun_env(world))
+    tp8, e_layers, e_steps = TP8["tp"], TP8["e_layers"], TP8["e_steps"]
+    e_argv = ("--tp", str(tp8), "--num_steps", str(e_steps),
+              "--batch_size", str(TP8["e_batch"]))
+    go_e = os.path.join(tmp, "go_e")
+    procs_e = _ranks(_P19_CHILD, tp8, [json.dumps([("RUN_e", _tp_argv(
+        os.path.join(tmp, "dist_e"), corpus, *e_argv, layers=e_layers))]),
+        go_e], _torchrun_env(tp8))
     try:
+        # 19b's, 19c's and 19e's processes run beside every stacked run
+        for f in (go, go_e):
+            with open(f, "w"):
+                pass
         a = lm_run(_tp_argv(os.path.join(tmp, "stacked_a"), corpus,
                             "--world_size", str(world)))
         shutil.rmtree(os.path.join(tmp, "stacked_a"))
@@ -6536,16 +6818,28 @@ def tp_path(card: str) -> dict:
         c = lm_run(_tp3_argv(os.path.join(tmp, "stacked_c"), corpus3,
                              "--world_size", str(world)))
         torch.cuda.empty_cache()
+        # 19d: 19a's command at --tp 8 (dp 2, world 16 stacked)
+        d = lm_run(_tp_argv(os.path.join(tmp, "stacked_d"), corpus,
+                            "--world_size", str(dp * tp8), "--tp",
+                            str(tp8)))
+        shutil.rmtree(os.path.join(tmp, "stacked_d"))
+        torch.cuda.empty_cache()
+        # 19e's oracle: its command stacked (dp 1 x tp 8, world 8)
+        se = lm_run(_tp_argv(os.path.join(tmp, "stacked_e"), corpus,
+                             *e_argv, "--world_size", str(tp8),
+                             layers=e_layers))
+        torch.cuda.empty_cache()
+        logs = _join("19", procs)
+        logs_e = _join("19e", procs_e)
     except BaseException:
-        for p in procs:
-            p.kill()
-            p.wait()
+        for p in procs + procs_e:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         raise
-    with open(go, "w"):
-        pass
-    logs = _join("19", procs)
     runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
             for lab in "brc"}
+    runs["e"] = [_tagged(log, "RUN_e") for log in logs_e]
 
     # 19a: the stacked run against tp 1, and its launches
     layers = 12
@@ -6557,13 +6851,42 @@ def tp_path(card: str) -> dict:
           f"{[round(x[0], 4) for x in a['loss']]}, largest relative "
           f"difference from --tp 1 {rel:.3e}; step ms (synchronised, median "
           f"of steps 2-{steps}) {np.median(a['step_s'][1:]) * 1e3:.1f}, tp "
-          f"1 {np.median(one['step_s'][1:]) * 1e3:.1f}; tp sums a step "
-          f"{a['sums'][-1]} in {np.median(a['sums_s']) * 1e3:.2f} host ms; "
+          f"1 {np.median(one['step_s'][1:]) * 1e3:.1f}{_shared(SHARED_19)}; "
+          f"tp sums a step "
+          f"{a['sums'][-1]} in {np.median(a['sums_s']) * 1e3:.2f} host ms"
+          f"{_shared(SHARED_19)}; "
           f"bf16 K3/K4/K5 {a['launches']['flash_fwd_bf16']} each [{card}]",
           flush=True)
     if not np.isfinite(a["loss"]).all() or rel > TOL_HARNESS_LOSS_REL:
         raise AssertionError(f"tp 19a: losses {a['loss']} vs tp 1 "
                              f"{one['loss']}: {rel} over "
+                             f"{TOL_HARNESS_LOSS_REL}")
+
+    # 19d: --tp 8 on 12 heads stacked against 19a's tp 1 run; every
+    # replica's heads joined into one bf16 flash call a layer
+    _tp_launch_check("19d", d, flash_a, steps, ipc=False)
+    rel_d = _tp_rel(d["loss"], one["loss"])
+    grad_d = _tp_rel(d["grad_norm"], one["grad_norm"])
+    print(f"tp 19d: world {dp * tp8} = dp {dp} x tp {tp8} stacked (12 heads "
+          f"of 64 over {tp8} shards of {768 // tp8} columns), 19a's command, "
+          f"{steps} steps: losses {[round(x[0], 4) for x in d['loss']]}, "
+          f"largest relative difference from --tp 1 {rel_d:.3e} (losses), "
+          f"{grad_d:.3e} (grad norms); step ms (synchronised, median of "
+          f"steps 2-{steps}) {np.median(d['step_s'][1:]) * 1e3:.1f}"
+          f", tp 2 {np.median(a['step_s'][1:]) * 1e3:.1f}, tp 1 "
+          f"{np.median(one['step_s'][1:]) * 1e3:.1f}{_shared(SHARED_19)}; "
+          f"tp sums a step "
+          f"{d['sums'][-1]} in {np.median(d['sums_s']) * 1e3:.2f} host ms"
+          f"{_shared(SHARED_19)}; "
+          f"bf16 K3/K4/K5 {d['launches']['flash_fwd_bf16']} each "
+          f"({dp * layers} a step); {d['wall_s']:.1f} s in main"
+          f"{_shared(SHARED_19)} [{card}]",
+          flush=True)
+    if not np.isfinite(d["loss"]).all() or max(rel_d, grad_d) > (
+            TOL_HARNESS_LOSS_REL):
+        raise AssertionError(f"tp 19d: losses {d['loss']} / grad norms "
+                             f"{d['grad_norm']} vs tp 1 {one['loss']} / "
+                             f"{one['grad_norm']}: {rel_d}, {grad_d} over "
                              f"{TOL_HARNESS_LOSS_REL}")
 
     # 19b: every process bit-equal to its stacked replica and shard, the
@@ -6613,13 +6936,14 @@ def tp_path(card: str) -> dict:
           f"{bts['params'] / 1e6:.1f} MB, momentum "
           f"{bts['momentum'] / 1e6:.1f} MB, gossip {bts['gossip'] / 1e6:.1f} "
           f"MB a round; step ms {min(step_ms):.1f}-{max(step_ms):.1f} over "
-          f"the processes (stacked {b_ms:.1f}); tp sums a step "
+          f"the processes{_shared(STACKED_19 + ', 19c and 19e')} (stacked "
+          f"{b_ms:.1f}{_shared(SHARED_19)}); tp sums a step "
           f"{runs['b'][0]['sums'][-1]}, host ms a step "
           f"{min(sums_ms):.1f}-{max(sums_ms):.1f}; seconds in main: the run "
           f"{max(r['wall_s'] for r in runs['b']):.1f}, the resume "
           f"{max(r['wall_s'] for r in runs['r']):.1f}, stacked "
           f"{sb['wall_s']:.1f}, 19a {a['wall_s']:.1f}, tp 1 "
-          f"{one['wall_s']:.1f} [{card}]", flush=True)
+          f"{one['wall_s']:.1f}{_shared('each other')} [{card}]", flush=True)
 
     # 19c: the 3-D mesh against its stacked run
     loss_rel = grad_rel = 0.0
@@ -6641,15 +6965,55 @@ def tp_path(card: str) -> dict:
           f"{TP['c_steps']} steps "
           f"beside the same command stacked: {'bit-equal' if bit else 'not bit-equal'}; "
           f"largest relative loss difference {loss_rel:.3e}, grad norm "
-          f"{grad_rel:.3e}; step ms {min(c_ms):.1f}-{max(c_ms):.1f}, stacked "
-          f"{np.median(c['step_s']) * 1e3:.1f}; tp sums a step "
+          f"{grad_rel:.3e}; step ms {min(c_ms):.1f}-{max(c_ms):.1f}"
+          f"{_shared(STACKED_19 + ', 19b and 19e')}, stacked "
+          f"{np.median(c['step_s']) * 1e3:.1f}{_shared(SHARED_19)}; tp sums "
+          f"a step "
           f"{runs['c'][0]['sums'][-1]} (stacked {c['sums'][-1]}) [{card}]",
           flush=True)
     if loss_rel > TOL_STEP_LOSS_REL or grad_rel > TOL_STEP_GNORM_REL:
         raise AssertionError(f"tp 19c: losses {loss_rel} or grad norms "
                              f"{grad_rel} from the stacked run's")
+
+    # 19e: dp 1 x tp 8 in 8 processes, each holding its 96 columns of
+    # q/k/v and its rows of o and gathering the two heads they touch,
+    # beside the same command stacked (a shared head's gradient folds two
+    # processes' partial sums: bf16's tolerance, not bit equality)
+    held8, whole = _tp_predicted(e_layers, tp8)
+    loss_e = grad_e = 0.0
+    for p, run in enumerate(runs["e"]):
+        if run["numel"] != held8 or run["bytes"]["params"] != 4 * held8:
+            raise AssertionError(f"tp 19e process {p}: {run['numel']} "
+                                 f"parameters held, predicted {held8}")
+        _tp_launch_check(f"19e process {p}", run, {
+            f"{n}_bf16": e_layers * e_steps for n in FLASH}, 0, ipc=True)
+        loss_e = max(loss_e, _tp_rel(run["loss"], se["loss"]))
+        grad_e = max(grad_e, _tp_rel(run["grad_norm"], se["grad_norm"]))
+    e_ms = [float(np.median(r["step_s"])) * 1e3 for r in runs["e"]]
+    print(f"tp 19e: {tp8} processes (torchrun environment, gloo, the card "
+          f"shared) = dp 1 x tp {tp8}, 19a's command at L{e_layers}, "
+          f"{e_steps} steps, beside it stacked: largest relative difference "
+          f"{loss_e:.3e} (losses), {grad_e:.3e} (grad norms); held a "
+          f"process: params "
+          f"{[r['bytes']['params'] for r in runs['e']]} B, momentum "
+          f"{[r['bytes']['momentum'] for r in runs['e']]} B "
+          f"({held8 / 1e6:.2f} M of {whole / 1e6:.2f} M parameters); bf16 "
+          f"K3/K4/K5 a process "
+          f"{[[r['launches'][f'{n}_bf16'] for n in FLASH] for r in runs['e']]}"
+          f"; step ms {min(e_ms):.1f}-{max(e_ms):.1f}; tp sums a step "
+          f"{runs['e'][0]['sums'][-1]} in "
+          f"{np.median(runs['e'][0]['sums_s']) * 1e3:.1f} host ms; seconds "
+          f"in main {max(r['wall_s'] for r in runs['e']):.1f}"
+          f"{_shared(STACKED_19 + ', 19b and 19c')}; the oracle's "
+          f"step ms {np.median(se['step_s']) * 1e3:.1f}{_shared(SHARED_19)} "
+          f"[{card}]",
+          flush=True)
+    if max(loss_e, grad_e) > TOL_HARNESS_LOSS_REL:
+        raise AssertionError(f"tp 19e: losses {loss_e} or grad norms "
+                             f"{grad_e} from the stacked run's, over "
+                             f"{TOL_HARNESS_LOSS_REL}")
     launches = {}
-    for run in [a] + runs["b"] + runs["r"] + runs["c"]:
+    for run in [a, d] + runs["b"] + runs["r"] + runs["c"] + runs["e"]:
         for k, v in run["launches"].items():
             launches[k] = launches.get(k, 0) + v
     shutil.rmtree(tmp, ignore_errors=True)
@@ -6668,6 +7032,10 @@ def tp_path(card: str) -> dict:
 # step resumed from it, beside that command stacked
 EP = dict(ep=2, dp=2, experts=8, every=2, seq_len=1024, batch=8, steps=3,
           vocab=32000, a_layers=4, c_layers=4)
+# 20c's (21b's) processes run beside the phase's stacked runs
+SHARED_20 = "20c's processes"
+SHARED_22 = "22c's processes"
+SHARED_21 = "21b's processes"
 # the reference test's tolerance for the oracle
 # (tests/test_expert_parallel_lm.py::test_ep_train_step_matches_full_
 # expert_model)
@@ -6846,6 +7214,9 @@ def ep_path(card: str) -> tuple[dict, dict]:
     procs = _ranks(_P20_CHILD, world, [json.dumps(jobs), go],
                    _torchrun_env(world))
     try:
+        # 20c's processes run beside the stacked runs
+        with open(go, "w"):
+            pass
         torch.cuda.reset_peak_memory_stats()
         a = lm_run(_ep_argv(os.path.join(tmp, "stacked_a"), corpus,
                             "--world_size", str(world),
@@ -6868,8 +7239,6 @@ def ep_path(card: str) -> tuple[dict, dict]:
             p.kill()
             p.wait()
         raise
-    with open(go, "w"):
-        pass
     logs = _join("20", procs)
     runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
             for lab in "cr"}
@@ -6893,7 +7262,8 @@ def ep_path(card: str) -> tuple[dict, dict]:
           f"experts on {moe_blocks} blocks (capacity factor 1.25), {steps} "
           f"steps: losses {[round(x[0], 4) for x in a['loss']]}, "
           f"moe_dropped (CSV) {csv_dropped}; step ms (synchronised, median "
-          f"of steps 2-{steps}) {step_ms:.1f}; peak {peak_gb:.2f} GB; "
+          f"of steps 2-{steps}) {step_ms:.1f}{_shared(SHARED_20)}; peak "
+          f"{peak_gb:.2f} GB; "
           f"{a['numel'] / dp / 1e6:.1f} M parameters a replica; a step's "
           f"device ms alone a replica (CUDA events, forward + backward): "
           f"{moe_blocks} MoE FFNs {moe_blocks * moe_ms:.2f} ({moe_ms:.3f} "
@@ -6915,8 +7285,8 @@ def ep_path(card: str) -> tuple[dict, dict]:
           f"model on both shards' tokens: worst {worst:.3e} of the bound; "
           f"{len(moved)} of {len(leaves)} leaves moved, all "
           f"{len(moe)} MoE leaves among them: "
-          f"{set(moe) <= set(moved)}; dropped {dropped}; {b_s:.1f} s "
-          f"[{card}]", flush=True)
+          f"{set(moe) <= set(moved)}; dropped {dropped}; {b_s:.1f} s"
+          f"{_shared(SHARED_20)} [{card}]", flush=True)
     if worst > 1 or not set(moe) <= set(moved) or dropped != 0:
         raise AssertionError(f"ep 20b: worst {worst} of the bound, MoE "
                              f"leaves unmoved {sorted(set(moe) - set(moved))}"
@@ -6965,11 +7335,14 @@ def ep_path(card: str) -> tuple[dict, dict]:
           f"MB each through the host, {min(ex_ms):.1f}-{max(ex_ms):.1f} host "
           f"ms a step ({min(ex_ms) / c0['ex'][-1]:.1f}-"
           f"{max(ex_ms) / c0['ex'][-1]:.1f} an exchange); step ms "
-          f"{min(c_ms):.1f}-{max(c_ms):.1f} over the processes (stacked "
-          f"{float(np.median(sc['step_s'][1:])) * 1e3:.1f}); seconds in "
-          f"main: the run {max(r['wall_s'] for r in runs['c']):.1f}, the "
-          f"resume {max(r['wall_s'] for r in runs['r']):.1f}, stacked "
-          f"{sc['wall_s']:.1f}, 20a {a['wall_s']:.1f} [{card}]", flush=True)
+          f"{min(c_ms):.1f}-{max(c_ms):.1f} over the processes"
+          f"{_shared('20a-20c stacked')} (stacked "
+          f"{float(np.median(sc['step_s'][1:])) * 1e3:.1f}"
+          f"{_shared(SHARED_20)}); seconds in main: the run "
+          f"{max(r['wall_s'] for r in runs['c']):.1f}, the resume "
+          f"{max(r['wall_s'] for r in runs['r']):.1f}, stacked "
+          f"{sc['wall_s']:.1f}, 20a {a['wall_s']:.1f}{_shared('each other')} "
+          f"[{card}]", flush=True)
     if loss_rel > TOL_HARNESS_LOSS_REL or not np.isfinite(diff):
         raise AssertionError(f"ep 20c: losses {loss_rel} from the stacked "
                              f"run's (over {TOL_HARNESS_LOSS_REL})")
@@ -6989,9 +7362,10 @@ def ep_path(card: str) -> tuple[dict, dict]:
 # reference's test_moe_ep_with_tp_matches_ep_only on the card); 21b: dp 1 x
 # ep 2 x sp 2 x tp 2 in 8 torchrun processes (the reference's
 # test_moe_ep_sp_tp_4d_trains layout), bf16, ring_flash, full width cut to
-# 4 layers (2 MoE blocks), T1024 B8 an ep shard, 2 steps, a DCP save, the
-# third step resumed from it, beside the same command stacked
-EPTP = dict(tp=2, sp=2, b_layers=4, b_steps=3)
+# 2 layers (1 MoE block; 4 until phases 19d and 19e came), T1024 B8
+# an ep shard, 2 steps, a DCP save, the third step resumed from it, beside
+# the same command stacked
+EPTP = dict(tp=2, sp=2, b_layers=2, b_steps=3)
 
 _P21_CHILD = _P19_CHILD.replace("phase 19's", "phase 21's")
 
@@ -7055,6 +7429,9 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
     procs = _ranks(_P21_CHILD, b_world, [json.dumps(jobs), go],
                    _torchrun_env(b_world))
     try:
+        # 21b's processes run beside the stacked runs
+        with open(go, "w"):
+            pass
         torch.cuda.reset_peak_memory_stats()
         a = lm_run(_ep_argv(os.path.join(tmp, "stacked_a"), corpus,
                             "--tp", str(tp), "--world_size", str(world),
@@ -7071,8 +7448,6 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
             p.kill()
             p.wait()
         raise
-    with open(go, "w"):
-        pass
     logs = _join("21", procs)
     runs = {lab: [_tagged(log, f"RUN_{lab}") for log in logs]
             for lab in "br"}
@@ -7101,12 +7476,14 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
           f"largest relative difference from 20a (--tp 1) {rel:.3e}, "
           f"moe_dropped (CSV) {csv_dropped}, largest difference from 20a's "
           f"{drop_diff:.3e}; step ms (synchronised, median of steps "
-          f"2-{steps}) {step_ms:.1f} (20a {step20:.1f}); peak {peak_gb:.2f} "
+          f"2-{steps}) {step_ms:.1f}{_shared(SHARED_21)} (20a {step20:.1f}"
+          f"{_shared(SHARED_20)}); peak {peak_gb:.2f} "
           f"GB (20a {ep20['peak_gb']:.2f}); a MoE FFN alone, forward + "
           f"backward (CUDA events, both ep shards) {moe_ms:.3f} ms at tp "
           f"{tp} (20a {ep20['moe_ms']:.3f}); tp sums a step "
-          f"{a['sums'][-1]} in {np.median(a['sums_s']) * 1e3:.2f} host ms; "
-          f"bf16 K3/K4/K5 {a['launches']['flash_fwd_bf16']} each, K2/K1 "
+          f"{a['sums'][-1]} in {np.median(a['sums_s']) * 1e3:.2f} host ms"
+          f"{_shared(SHARED_21)}; bf16 K3/K4/K5 "
+          f"{a['launches']['flash_fwd_bf16']} each, K2/K1 "
           f"{a['launches']['gossip_edge_start']} [{card}]", flush=True)
     if not np.isfinite(a["loss"]).all() or rel > TOL_HARNESS_LOSS_REL:
         raise AssertionError(f"eptp 21a: losses {a['loss']} vs 20a "
@@ -7163,12 +7540,15 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
           f"shard's mean: bf16 products and fp32 sums in another order); "
           f"held a process {b0['numel'] / 1e6:.1f} M parameters; process 0 "
           f"a step: ep exchanges {_per_step(b0, 'ex')}; tp sums "
-          f"{_per_step(b0, 'sums')}; ring shifts {_per_step(b0, 'sh')}; step "
-          f"ms {min(b_ms):.1f}-{max(b_ms):.1f} over the processes (stacked "
-          f"{np.median(s['step_s']) * 1e3:.1f}); seconds in main: the run "
-          f"{max(r['wall_s'] for r in runs['b']):.1f}, the resume "
-          f"{max(r['wall_s'] for r in runs['r']):.1f}, 21a {a['wall_s']:.1f}, "
-          f"21b stacked {s['wall_s']:.1f} [{card}]", flush=True)
+          f"{_per_step(b0, 'sums')}; ring shifts {_per_step(b0, 'sh')}"
+          f"{_shared('21a and 21b stacked')}; step ms "
+          f"{min(b_ms):.1f}-{max(b_ms):.1f} over the processes"
+          f"{_shared('21a and 21b stacked')} (stacked "
+          f"{np.median(s['step_s']) * 1e3:.1f}{_shared(SHARED_21)}); seconds "
+          f"in main: the run {max(r['wall_s'] for r in runs['b']):.1f}, the "
+          f"resume {max(r['wall_s'] for r in runs['r']):.1f}, 21a "
+          f"{a['wall_s']:.1f}, 21b stacked {s['wall_s']:.1f}"
+          f"{_shared('each other')} [{card}]", flush=True)
     if (loss_rel > TOL_HARNESS_LOSS_REL or grad_rel > TOL_HARNESS_LOSS_REL
             or not np.isfinite(diff)):
         raise AssertionError(f"eptp 21b: losses {loss_rel} or grad norms "
@@ -7189,14 +7569,15 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
 # flash, SGP on K2/K1, T1024 B8 a replica, 3 steps) beside the same command
 # at --pp 1 (world 2) on the same tokens; 22b: the (gossip, pipe, ep, seq)
 # mesh stacked (dp 1 x pp 2 x ep 2 x sp 2, 8 experts on every block, bf16
-# ring_flash), d768 cut to 4 layers, 2 steps; 22c: dp 2 x pp 2 in 4
-# torchrun processes, one stage each, d768 cut to 4 layers, bf16, 2 steps,
-# a DCP save, the third step resumed from it, beside the same command
-# stacked; phase 23: 22b's command in 8 torchrun processes, one (stage, ep
-# shard, sequence shard) each, 2 steps, a DCP save, the third step resumed
-# from it, held against 22b (3 steps, its DCP save at the end)
+# ring_flash), d768 cut to 2 layers (4 until phase 19e came), 2 steps;
+# 22c: dp 2 x pp 2 in 4 torchrun processes, one stage each, d768 cut to 4
+# layers, bf16, 2 steps, a DCP save, the third step resumed from it,
+# beside the same command stacked; phase 23: 22b's command in 8 torchrun
+# processes, one (stage, ep shard, sequence shard) each, 2 steps, a DCP
+# save, the third step resumed from it, held against 22b (3 steps, its DCP
+# save at the end)
 PP = dict(pp=2, dp=2, n_micro=4, seq_len=1024, batch=8, steps=3,
-          vocab=32000, b_layers=4, b_steps=3, c_layers=4, c_steps=3)
+          vocab=32000, b_layers=2, b_steps=3, c_layers=4, c_steps=3)
 
 _P22_CHILD = _P19_CHILD.replace("phase 19's", "phase 22's")
 _P23_CHILD = _P19_CHILD.replace("phase 19's", "phase 23's")
@@ -7276,6 +7657,9 @@ def pp_path(card: str) -> dict:
                    _torchrun_env(world))
     procs_d = []
     try:
+        # 22c's processes run beside the stacked runs
+        with open(go, "w"):
+            pass
         peaks = {}
         runs_a = {}
         for lab, extra in (("pp2", ["--pp", str(pp), "--world_size",
@@ -7298,8 +7682,6 @@ def pp_path(card: str) -> dict:
                              "--ckpt_backend", "orbax", "--num_steps",
                              str(c_steps), layers=c_layers))
         torch.cuda.empty_cache()
-        with open(go, "w"):
-            pass
         logs = _join("22", procs)
     except BaseException:
         for p in procs + procs_d:
@@ -7329,7 +7711,8 @@ def pp_path(card: str) -> dict:
           f"{[round(x[0], 4) for x in a['grad_norm']]} against pp 1's "
           f"{[round(x[0], 4) for x in a1['grad_norm']]}; step ms "
           f"(synchronised, median of steps 2-{steps}) {ms['pp2']:.1f} (pp "
-          f"1 {ms['pp1']:.1f}); peak {peaks['pp2']:.2f} GB (pp 1 "
+          f"1 {ms['pp1']:.1f}){_shared(SHARED_22)}; peak "
+          f"{peaks['pp2']:.2f} GB (pp 1 "
           f"{peaks['pp1']:.2f}); bf16 K3/K4/K5 {a['launches']['flash_fwd_bf16']}"
           f" each (pp 1 {a1['launches']['flash_fwd_bf16']}), K2/K1 "
           f"{a['launches']['gossip_edge_start']} [{card}]", flush=True)
@@ -7352,7 +7735,7 @@ def pp_path(card: str) -> dict:
           f", moe_dropped (CSV) {dropped}; step ms "
           f"{[round(x * 1e3, 1) for x in four['step_s']]}; bf16 K3/K4/K5 "
           f"{four['launches']['flash_fwd_bf16']} each; seconds in main "
-          f"{four['wall_s']:.1f} [{card}]", flush=True)
+          f"{four['wall_s']:.1f}{_shared(SHARED_22)} [{card}]", flush=True)
     if (len(dropped) != b_steps or not all(0 <= x <= 1 for x in dropped)
             or not np.isfinite(four["loss"]).all()):
         raise AssertionError(f"pp 22b: moe_dropped {dropped}, losses "
@@ -7406,12 +7789,14 @@ def pp_path(card: str) -> dict:
           f"{diff:.3e} apart, largest absolute), ps-weight equal; held a "
           f"process {c0['numel'] / 1e6:.1f} M parameters; process 0 a "
           f"step: hand-offs {_per_step(c0, 'ho')}; pipe-group sums "
-          f"{_per_step(c0, 'ps')}; step ms {min(c_ms):.1f}-{max(c_ms):.1f} "
-          f"over the processes (stacked "
-          f"{float(np.median(sc['step_s'][1:])) * 1e3:.1f}); seconds in "
-          f"main: the run {max(r['wall_s'] for r in runs['c']):.1f}, the "
-          f"resume {max(r['wall_s'] for r in runs['r']):.1f}, stacked "
-          f"{sc['wall_s']:.1f} [{card}]", flush=True)
+          f"{_per_step(c0, 'ps')}{_shared('22a-22c stacked')}; step ms "
+          f"{min(c_ms):.1f}-{max(c_ms):.1f} over the processes"
+          f"{_shared('22a-22c stacked')} (stacked "
+          f"{float(np.median(sc['step_s'][1:])) * 1e3:.1f}"
+          f"{_shared(SHARED_22)}); seconds in main: the run "
+          f"{max(r['wall_s'] for r in runs['c']):.1f}, the resume "
+          f"{max(r['wall_s'] for r in runs['r']):.1f}, stacked "
+          f"{sc['wall_s']:.1f}{_shared('each other')} [{card}]", flush=True)
     if (loss_rel > TOL_HARNESS_LOSS_REL or grad_rel > TOL_HARNESS_LOSS_REL
             or not np.isfinite(diff)):
         raise AssertionError(f"pp 22c: losses {loss_rel} or grad norms "
@@ -7612,6 +7997,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         resnet_osgp = resnet_train_path(card, "osgp", "bf16", True, 2, 2,
                                         3, 2)
+        torch.cuda.empty_cache()
+        resnet_norms = resnet_norm_variants(card)
     torch.cuda.empty_cache()
     with _phase_clock("8"):
         cli_launches, flat_bt = cli_path(card)
@@ -7674,7 +8061,8 @@ def main() -> int:
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
-            resnet_sgp, resnet_osgp, cli_launches, resil_launches,
+            resnet_sgp, resnet_osgp, resnet_norms, cli_launches,
+            resil_launches,
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
             ckpt_launches, seq_dist_launches, tp_launches, ep_launches,

@@ -24,7 +24,9 @@ gossip lane, dtype, the cuDNN and matmul TF32 settings, peak memory,
 torch/CUDA versions and the card's name and power limit from
 ``nvidia-smi``.  With ``--device cpu`` (a rehearsal at small sizes) the
 metric is named ``<model>_sgp_images_per_sec_cpu_rehearsal``: a CPU
-time is no device measurement.
+time is no device measurement.  ``BENCH_S2D=1`` and ``BENCH_NORM=bn16``
+or ``folded`` pick the reference bench's stem and norm variants
+(``models/resnet.py``; ``folded`` at lr 0) and stamp them in the line.
 """
 
 from __future__ import annotations
@@ -72,16 +74,25 @@ def run(args) -> dict:
 
     device = resolve_device(args.device)
     world, batch, image = args.world_size, args.batch, args.image
+    # the reference bench's environment switches (bench.py there):
+    # BENCH_S2D=1 the space-to-depth stem, BENCH_NORM bn | bn16 | folded
+    stem_s2d = os.environ.get("BENCH_S2D", "0") == "1"
+    norm = os.environ.get("BENCH_NORM", "bn")
     model = make_model(args.model, num_classes=args.num_classes,
-                       dtype=torch.bfloat16)
+                       dtype=torch.bfloat16,
+                       **({"stem_s2d": True} if stem_s2d else {}),
+                       **({"norm_variant": norm} if norm != "bn" else {}))
     graph_cls = (NPeerDynamicDirectedExponentialGraph if world != 2
                  else RingGraph)
     lane = resolve_gossip_kernel(args.gossip_kernel, device=device)
     alg = sgp(build_schedule(graph_cls(world, peers_per_itr=1)),
               StackedTransport(world), gossip_kernel=lane)
     tx = sgd(momentum=0.9, weight_decay=1e-4, nesterov=True)
+    # "folded" is an attribution probe, not trainable: lr 0, as the
+    # reference's bench runs it (the same work a step)
     step = build_train_step(
-        model, alg, tx, LRSchedule(0.1, batch, world, warmup=True),
+        model, alg, tx, LRSchedule(0.0 if norm == "folded" else 0.1, batch,
+                                   world, warmup=True),
         itr_per_epoch=1000, num_classes=args.num_classes)
     state = init_train_state(model, alg, tx, world, seed=0, device=device)
     images, labels = synthetic_classification(
@@ -122,6 +133,8 @@ def run(args) -> dict:
         "lane": alg.transport_kernel_name,
         "step_ms": step_s * 1e3, "warmup": args.warmup,
         "steps": args.steps, "loss": loss,
+        **({"stem_s2d": True} if stem_s2d else {}),
+        **({"norm": norm} if norm != "bn" else {}),
         "platform": "gpu" if on_card else "cpu",
         "device": (torch.cuda.get_device_name(device) if on_card
                    else "cpu"),

@@ -48,7 +48,10 @@ pair onto the port's parameter and buffer names: the flax auto-names
 (``conv_init``, ``bn_init``, ``Bottleneck_{k}/Conv_{i}``,
 ``.../BatchNorm_{i}``, ``conv_proj``, ``norm_proj``, ``fc``; ``Conv_{i}``,
 ``BatchNorm_{i}``, ``Dense_{i}`` in the small models) become ``conv1``,
-``bn1``, ``layer{s}.{j}.conv{i+1}``, ``.downsample.{0,1}``, ``fc``.  HWIO
+``bn1``, ``layer{s}.{j}.conv{i+1}``, ``.downsample.{0,1}``, ``fc``
+(under ``norm_variant`` ``bn16``/``folded`` a block's ``ProbeBatchNorm_{i}``
+becomes ``bn{i+1}``; the s2d stem's ``[4, 4, 4C, F]`` kernel becomes
+``conv1``'s ``[F, 4C, 4, 4]``).  HWIO
 convolution kernels become OIHW, Dense ``[in, out]`` becomes ``[out,
 in]``, BatchNorm ``scale``/``bias`` its weight/bias and ``batch_stats``
 ``mean``/``var`` its ``running_mean``/``running_var``.  Every flax leaf
@@ -367,6 +370,10 @@ def _module_map(model) -> dict[str, str]:
     if not isinstance(model, ResNet):
         raise TypeError(f"no flax map for {type(model).__name__}")
     out = {"conv1": "conv_init", "bn1": "bn_init", "fc": "fc"}
+    # flax's auto names carry the norm's class: the reference's
+    # ProbeBatchNorm under norm_variant bn16 / folded (the given names,
+    # bn_init and norm_proj, stay)
+    norm = "BatchNorm" if model.norm_variant == "bn" else "ProbeBatchNorm"
     k = 0
     for s in range(model.stages):
         for j, block in enumerate(getattr(model, f"layer{s + 1}")):
@@ -375,7 +382,7 @@ def _module_map(model) -> dict[str, str]:
             n_conv = 3 if hasattr(block, "conv3") else 2
             for i in range(n_conv):
                 out[f"{port}.conv{i + 1}"] = f"{flax}/Conv_{i}"
-                out[f"{port}.bn{i + 1}"] = f"{flax}/BatchNorm_{i}"
+                out[f"{port}.bn{i + 1}"] = f"{flax}/{norm}_{i}"
             if block.downsample is not None:
                 out[f"{port}.downsample.0"] = f"{flax}/conv_proj"
                 out[f"{port}.downsample.1"] = f"{flax}/norm_proj"
@@ -442,7 +449,7 @@ def init_model_params(model, seed: int) -> tuple[dict, dict]:
     ``("normal", std)``; zero biases; BatchNorm scale ``scale_init`` and
     running statistics 0 and 1.  The distributions of the flax
     initializers, not their bits."""
-    from .resnet import BatchNorm, Conv2d, Linear
+    from .resnet import BatchNorm, Conv2d, Linear, s2d_stem_kernel
 
     rng = np.random.default_rng(seed)
     params = {}
@@ -451,7 +458,13 @@ def init_model_params(model, seed: int) -> tuple[dict, dict]:
         if isinstance(mod, Conv2d):
             cout, cin, kh, kw = mod.weight.shape
             shape = (cout, cin, kh, kw)
-            if mod.kernel_init == "fan_out_normal":
+            if mod.kernel_init == "s2d_fan_out_normal":
+                # drawn as the 7x7 stem's kernel, then transformed
+                k7 = rng.standard_normal((cout, cin // 4, 7, 7),
+                                         dtype=np.float32) * np.float32(
+                    np.sqrt(2.0 / (cout * 49)))
+                w = s2d_stem_kernel(torch.from_numpy(k7)).numpy()
+            elif mod.kernel_init == "fan_out_normal":
                 w = rng.standard_normal(shape, dtype=np.float32) * np.float32(
                     np.sqrt(2.0 / (cout * kh * kw)))
             else:

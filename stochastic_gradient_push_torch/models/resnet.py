@@ -29,9 +29,30 @@ Semantics kept from flax, where torch's defaults differ:
   activations in bf16 while parameters and BatchNorm statistics stay
   fp32 (the reference's flagship benchmark setting).
 
-``small_images`` is the CIFAR stem (3x3/1, no max-pool).  The TPU's MFU
-experiments, ``stem_s2d`` and ``norm_variant`` ``"bn16"``/``"folded"``,
-are refused by name.
+``small_images`` is the CIFAR stem (3x3/1, no max-pool).
+
+The reference's two MFU experiments are here too, as model arguments
+(the reference reaches them from its bench only, ``BENCH_S2D`` and
+``BENCH_NORM``; ``--stem_s2d`` is also a flag of its CLI):
+
+* ``stem_s2d`` replaces the 7x7/2 stem by the equivalent 4x4/1
+  convolution over the 2x2 space-to-depth input
+  (:func:`space_to_depth`, :func:`s2d_stem_kernel`, block-space pads
+  ``(2, 1)``).  Its kernel is drawn as the 7x7 one and transformed
+  (``kernel_init="s2d_fan_out_normal"``), so the init distribution is
+  the 7x7 stem's.  Odd image sizes are refused, as the reference refuses
+  them.
+* ``norm_variant`` ``"bn16"`` takes the batch statistics in the compute
+  dtype (the fast variance ``E[x^2] - E[x]^2``, clamped at 0; the
+  running averages stay fp32) and normalises in the compute dtype;
+  ``"folded"`` normalises with the running statistics in training too
+  and leaves them unchanged, with no batch reduction forward or backward
+  (the reference's ``ProbeBatchNorm``: an attribution probe, not a
+  training configuration).
+
+Checkpoints do not carry across either argument (the stem's kernel
+shape; the norms' flax names, ``ProbeBatchNorm_{i}``), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -45,10 +66,43 @@ from torch import nn
 
 __all__ = ["BatchNorm", "Conv2d", "Linear", "BasicBlock", "Bottleneck",
            "ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
-           "resnet152", "RESNETS"]
+           "resnet152", "RESNETS", "NORM_VARIANTS", "space_to_depth",
+           "s2d_stem_kernel"]
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
+NORM_VARIANTS = ("bn", "bn16", "folded")
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NCHW space-to-depth: each ``block x block`` spatial tile packed
+    into channels, ``[N, C, H, W] -> [N, b*b*C, H/b, W/b]``, channel
+    ``(dy*b + dx)*C + c`` (the reference's ``(dy, dx, c)`` packing order,
+    matched by :func:`s2d_stem_kernel`)."""
+    n, c, h, w = x.shape
+    if h % block or w % block:
+        raise ValueError(
+            f"stem_s2d requires spatial dims divisible by {block}, got "
+            f"{h}x{w} — use the standard stem for odd image sizes")
+    x = x.reshape(n, c, h // block, block, w // block, block)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(
+        n, block * block * c, h // block, w // block)
+
+
+def s2d_stem_kernel(k7: torch.Tensor) -> torch.Tensor:
+    """The 7x7 stride-2 stem kernel ``[F, C, 7, 7]`` as the equivalent
+    4x4 stride-1 kernel ``[F, 4C, 4, 4]`` over :func:`space_to_depth`
+    input: zero-padded at the front to 8x8 (``out[i] = Σ_u k8[u]
+    x[2i-4+u]``), then each 2x2 tap block folded into channels in the
+    ``(dy, dx, c)`` order.  The stem convolution then pads ``(2, 1)`` in
+    block space."""
+    f, c, kh, kw = k7.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError("the stem transform is specific to 7x7/2")
+    k8 = F.pad(k7, (1, 0, 1, 0))
+    # [F, C, ky, dy, kx, dx] -> [F, dy, dx, C, ky, kx]
+    k4 = k8.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    return k4.reshape(f, 4 * c, 4, 4)
 
 
 def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -59,20 +113,25 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 class Conv2d(nn.Conv2d):
     """Bias-free convolution with flax's padding: ``padding="same"``
-    (``SAME``, asymmetric where XLA's is) or explicit symmetric pads.
-    ``kernel_init`` is ``"fan_out_normal"`` (the ResNet recipe) or
-    ``"lecun_normal"`` (flax's default)."""
+    (``SAME``, asymmetric where XLA's is), explicit symmetric pads, or
+    ``(low, high)`` pads on both spatial dims.  ``kernel_init`` is
+    ``"fan_out_normal"`` (the ResNet recipe), ``"s2d_fan_out_normal"``
+    (the s2d stem: the 7x7 recipe transformed by
+    :func:`s2d_stem_kernel`) or ``"lecun_normal"`` (flax's default)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding="same", kernel_init: str = "fan_out_normal"):
         super().__init__(cin, cout, k, stride=stride, padding=0, bias=False)
         self.same = padding == "same"
-        self.pad = 0 if self.same else int(padding)
+        self.pad = 0 if self.same else padding if isinstance(
+            padding, tuple) else int(padding)
         self.kernel_init = kernel_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pad = self.pad
-        if self.same:
+        if isinstance(pad, tuple):
+            x, pad = F.pad(x, (*pad, *pad)), 0
+        elif self.same:
             (kh, kw), (sh, sw) = self.kernel_size, self.stride
             ph, pw = (_same_pads(x.shape[2], kh, sh),
                       _same_pads(x.shape[3], kw, sw))
@@ -102,7 +161,9 @@ class BatchNorm(nn.Module):
     under ``{stats_key}.running_mean`` / ``.running_var``; otherwise it
     normalizes with the running statistics.  The output has the input's
     dtype; the arithmetic is the input's dtype promoted to at least fp32
-    (flax's ``_compute_stats`` rule)."""
+    (flax's ``_compute_stats`` rule).  A ``variant`` of ``"bn16"`` or
+    ``"folded"`` (the model's ``norm_variant``) is the reference's
+    ``ProbeBatchNorm`` instead (:meth:`_probe`)."""
 
     def __init__(self, features: int, scale_init: float = 1.0):
         super().__init__()
@@ -111,10 +172,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.scale_init = float(scale_init)
-        self.stats_key = ""   # the state-dict prefix, set by the model
+        # the state-dict prefix and the norm variant, set by the model
+        self.stats_key = ""
+        self.variant = "bn"
 
     def forward(self, x: torch.Tensor, train: bool,
                 stats_out: dict | None = None) -> torch.Tensor:
+        if self.variant != "bn":
+            return self._probe(x, train, stats_out)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             mean = xf.mean((0, 2, 3))
@@ -132,11 +197,43 @@ class BatchNorm(nn.Module):
         y = (xf - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
 
+    def _probe(self, x, train, stats_out):
+        """The reference's ``ProbeBatchNorm`` (``models/resnet.py:64-136``
+        there), in the compute dtype ``x.dtype``.  ``"bn16"`` in training:
+        the batch mean and the fast variance ``E[x^2] - E[x]^2`` (clamped
+        at 0) in the compute dtype, each mean summed in at least fp32 and
+        rounded once (jnp's mean); the running averages advance in fp32.
+        ``"folded"``: the running statistics in training too, written
+        back unchanged.  Both normalize as ``(x - mean) * (rsqrt(var +
+        eps) * scale) + bias``, every operand in the compute dtype."""
+        cdt = x.dtype
+        if train and self.variant == "bn16":
+            acc = torch.promote_types(cdt, torch.float32)
+            mean = x.to(acc).mean((0, 2, 3)).to(cdt)
+            sq = x.square().to(acc).mean((0, 2, 3)).to(cdt)
+            var = torch.clamp(sq - mean.square(), min=0)
+            if stats_out is not None:
+                m = BN_MOMENTUM
+                stats_out[self.stats_key + "running_mean"] = (
+                    m * self.running_mean + (1 - m) * mean.detach().float())
+                stats_out[self.stats_key + "running_var"] = (
+                    m * self.running_var + (1 - m) * var.detach().float())
+        else:
+            mean, var = self.running_mean, self.running_var
+            if train and stats_out is not None:
+                stats_out[self.stats_key + "running_mean"] = mean
+                stats_out[self.stats_key + "running_var"] = var
+        inv = torch.rsqrt(var.to(cdt) + torch.tensor(BN_EPS, dtype=cdt)) \
+            * self.weight.to(cdt)
+        return (x - mean.to(cdt)[:, None, None]) * inv[:, None, None] \
+            + self.bias.to(cdt)[:, None, None]
 
-def _name_norms(model: nn.Module) -> None:
+
+def _name_norms(model: nn.Module, variant: str = "bn") -> None:
     for name, mod in model.named_modules():
         if isinstance(mod, BatchNorm):
             mod.stats_key = f"{name}." if name else ""
+            mod.variant = variant
 
 
 class BasicBlock(nn.Module):
@@ -208,22 +305,18 @@ class ResNet(nn.Module):
                  small_images: bool = False, stem_s2d: bool = False,
                  norm_variant: str = "bn"):
         super().__init__()
-        if stem_s2d:
-            raise NotImplementedError(
-                "stem_s2d (the space-to-depth stem, a TPU MFU experiment) "
-                "is not ported to stochastic_gradient_push_torch "
-                "(ROADMAP.md Queue 1)")
-        if norm_variant in ("bn16", "folded"):
-            raise NotImplementedError(
-                f"norm_variant {norm_variant!r} (a TPU MFU experiment) is "
-                f"not ported to stochastic_gradient_push_torch (ROADMAP.md "
-                f"Queue 1)")
-        if norm_variant != "bn":
+        if norm_variant not in NORM_VARIANTS:
             raise ValueError(f"unknown norm_variant {norm_variant!r}")
         self.dtype = dtype
         self.small_images = bool(small_images)
+        # the CIFAR stem wins over stem_s2d, as in the reference
+        self.stem_s2d = bool(stem_s2d) and not small_images
+        self.norm_variant = norm_variant
         if small_images:
             self.conv1 = Conv2d(3, num_filters, 3)
+        elif self.stem_s2d:
+            self.conv1 = Conv2d(12, num_filters, 4, 1, padding=(2, 1),
+                                kernel_init="s2d_fan_out_normal")
         else:
             self.conv1 = Conv2d(3, num_filters, 7, 2, padding=3)
         self.bn1 = BatchNorm(num_filters)
@@ -237,11 +330,13 @@ class ResNet(nn.Module):
                 cin = num_filters * 2 ** i * block_cls.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.fc = Linear(cin, num_classes)
-        _name_norms(self)
+        _name_norms(self, norm_variant)
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 stats_out: dict | None = None) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.stem_s2d:
+            x = space_to_depth(x, 2)
         x = F.relu(self.bn1(self.conv1(x), train, stats_out))
         if not self.small_images:
             x = F.max_pool2d(x, 3, 2, padding=1)

@@ -64,9 +64,15 @@ shards stacked, or one a process): ``forward(tokens, seq, tp)``.  The
 replicated activation is one tensor, a sharded one a list of the held
 shards'; *f* (``tp.copy``) feeds ``ln1``'s, ``ln2``'s and ``ln_f``'s
 output to the column layers, *g* (``tp.reduce``) sums ``o``'s and
-``down``'s partial products before ``down``'s bias.  Each shard runs
-heads ``[i·H/tp, (i+1)·H/tp)``; the held shards' heads are folded into
-one head dim for the attention (one flash launch for all of them).  The
+``down``'s partial products before ``down``'s bias.  As the
+reference's GSPMD, the split is by columns, not heads: shard ``i``
+holds columns ``[i·d_model/tp, (i+1)·d_model/tp)`` of q, k and v, and a
+head may straddle two shards (``n_heads`` need not divide by tp).  The
+held shards' columns are joined into the whole heads they touch
+(``tp.join_heads``: stacked, every head, one flash launch for all of
+them; one shard a process, its heads, the columns of a shared head
+gathered from the neighbour) and RoPE rotates whole heads; the
+attention output is cut back to the held shards' columns for ``o``.  The
 model returns the held shards' vocabulary slices of the logits, a list
 (``tp.lm_loss`` takes it).
 
@@ -160,7 +166,7 @@ class TransformerConfig:
         if self.tp > 1:
             from ..parallel.tp import check_tp_dims
 
-            check_tp_dims(self.n_heads, self.d_ff, self.vocab_size, self.tp)
+            check_tp_dims(self.d_model, self.d_ff, self.vocab_size, self.tp)
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype {self.dtype} is not one of {DTYPES}")
         if self.attn_impl not in ATTN_IMPLS:
@@ -356,7 +362,7 @@ class Attention(nn.Module):
 
     def split(self, y: torch.Tensor) -> torch.Tensor:
         """[..., T, E] -> [..., H, T, D] (H the heads of ``y``: all of
-        them, or a tp shard's)."""
+        them, or the whole heads a tp shard's columns touch)."""
         return y.reshape(*y.shape[:-1], -1,
                          self.cfg.head_dim).transpose(-2, -3)
 
@@ -390,20 +396,20 @@ class Attention(nn.Module):
         return self.o(out.reshape(*out.shape[:-2], self.cfg.d_model))
 
     def _forward_tp(self, x, positions, seq, tp):
-        """Each held tp shard's ``n_heads / tp`` heads (the column split
-        is contiguous in heads), folded into one head dim for the
-        attention, then ``o``'s row split and its sum over the shards."""
+        """q, k and v of the held tp shards' columns joined into whole
+        heads (a head may straddle two shards: ``tp.join_heads``; all
+        shards held, tp 1's heads), so one attention runs over them, RoPE
+        on whole heads; then the output is cut back to the held shards'
+        ``d_model / tp`` columns for ``o``'s row split and its sum over
+        the shards."""
         xs = tp.copy(x)
-
-        def heads(mod):
-            hs = [self.split(y) for y in mod(xs)]
-            return hs[0] if len(hs) == 1 else torch.cat(hs, dim=-3)
-
-        q = rope(heads(self.q), positions)
-        k = rope(heads(self.k), positions)
-        out = self.attend(q, k, heads(self.v), seq)
-        parts = [o.transpose(-2, -3) for o in out.chunk(len(xs), dim=-3)]
-        return self.o([o.reshape(*o.shape[:-2], -1) for o in parts], tp)
+        hd = self.cfg.head_dim
+        q, k, v = (self.split(y) for y in tp.join_heads(
+            [self.q(xs), self.k(xs), self.v(xs)], hd))
+        out = self.attend(rope(q, positions), rope(k, positions), v,
+                          seq).transpose(-2, -3)
+        out = out.reshape(*out.shape[:-2], -1)
+        return self.o(tp.cut_heads(out, self.cfg.d_model, hd), tp)
 
 
 class MoEFFN(nn.Module):

@@ -24,6 +24,18 @@ held, *shard]``, ``held`` the shards this process holds; a replicated
 one as ``[R, *shape]``, one copy.  :func:`shard_params` and
 :func:`gather_params` move between that and the logical leaves.
 
+**Heads.**  As GSPMD does, the split is by columns, not heads: q, k
+and v keep ``d_model / tp`` columns a shard and ``n_heads`` need not
+divide by ``tp``, so a head may straddle two shards (GPT-2 small's 12
+heads of 64 at tp 8: 96 columns, one and a half heads, a shard).
+:meth:`~_TpAxis.join_heads` joins the held shards' columns into the
+whole heads they touch (stacked, every head) and :meth:`~_TpAxis.
+cut_heads` cuts the attention output back to the held columns for
+``o``'s row split.  One shard a process, the columns of a shared head
+come from the neighbour by an all-gather on the tp group, and its
+gradient is the fold, in shard order, of the partial gradients of the
+processes that hold it (:class:`_HeadGather`).
+
 **The reductions** (Megatron's *f* and *g*): the input of a column
 layer is copied to every shard, and its gradient summed over the shards
 (:meth:`copy`); the partial outputs of a row layer are summed, and the
@@ -138,12 +150,15 @@ def gather_state(state, tp: int):
     return _map_state(state, lambda t: gather_params(t, tp))
 
 
-def check_tp_dims(n_heads: int, d_ff: int, vocab_size: int, tp: int):
-    """``ValueError`` naming the first dimension ``tp`` does not divide
-    (GSPMD would pad it; the port splits evenly or not at all)."""
+def check_tp_dims(d_model: int, d_ff: int, vocab_size: int, tp: int):
+    """``ValueError`` naming the first dimension ``tp`` does not divide.
+    These are the split dims of the kernels: the reference's GSPMD splits
+    each kernel's columns evenly and refuses a dim it cannot
+    (``init_lm_state_tp``).  The head count is free: a head may straddle
+    two shards (``_TpAxis.join_heads``)."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    for dim, n in (("n_heads", n_heads), ("d_ff", d_ff),
+    for dim, n in (("d_model", d_model), ("d_ff", d_ff),
                    ("vocab_size", vocab_size)):
         if n % tp:
             raise ValueError(f"{dim} {n} not divisible by tp {tp}: the "
@@ -254,6 +269,53 @@ class _Reduce(torch.autograd.Function):
         return (None,) + (grad,) * ctx.n
 
 
+class _HeadGather(torch.autograd.Function):
+    """A column split's held columns of q, k and v widened to the whole
+    heads ``[lo, hi)`` they touch, when a head straddles two shards.
+    Forward: an all-gather of every shard's columns on the tp group and
+    a slice.  Backward: the attention's gradients are linear in its
+    output's gradient, and a process's output gradient is its own
+    columns' alone, so each process's gradient of a shared head is a
+    partial sum.  Every shard's gradient of its heads (padded to the
+    widest span) is gathered, and each of this process's columns folds
+    the shards' partials in shard order (a shard whose heads miss the
+    column adds an exact zero, as the fold of zero-filled full-width
+    partials would)."""
+
+    @staticmethod
+    def forward(ctx, axis, head_dim, *xs):
+        c = xs[0].shape[-1]
+        ctx.axis, ctx.c, ctx.head_dim = axis, c, head_dim
+        lo, hi = axis.head_span(c * axis.size, head_dim)
+        full = torch.cat(axis._timed_all([torch.stack(xs)], count=False), -1)
+        return tuple(t.contiguous() for t in full[..., lo:hi].unbind(0))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        axis, c = ctx.axis, ctx.c
+        like = next(g for g in grads if g is not None)
+        g = torch.stack([torch.zeros_like(like) if g is None else g
+                         for g in grads])
+        spans = [_span(s * c, (s + 1) * c, ctx.head_dim)
+                 for s in range(axis.size)]
+        wide = max(b - a for a, b in spans)
+        if g.shape[-1] < wide:
+            g = torch.nn.functional.pad(g, (0, wide - g.shape[-1]))
+        parts = axis._timed_all([g.contiguous()], count=False)
+        own_lo, own_hi = axis.shards[0] * c, (axis.shards[-1] + 1) * c
+        acc = g.new_zeros(*g.shape[:-1], own_hi - own_lo)
+        for (a, b), part in zip(spans, parts):
+            lo, hi = max(a, own_lo), min(b, own_hi)
+            if lo < hi:
+                acc[..., lo - own_lo:hi - own_lo] += part[..., lo - a:hi - a]
+        return (None, None) + tuple(acc.unbind(0))
+
+
+def _span(lo: int, hi: int, head_dim: int) -> tuple[int, int]:
+    """The columns ``[lo, hi)`` rounded out to whole heads."""
+    return lo // head_dim * head_dim, -(-hi // head_dim) * head_dim
+
+
 class _TpAxis:
     """What both lanes share: *f*, *g*, the vocab-parallel loss and the
     shard sums of the grad norm, over ``_all`` (every shard's tensor, in
@@ -280,10 +342,10 @@ class _TpAxis:
             tape.sums.append(out.detach())
         return out
 
-    def _timed_all(self, parts: list) -> list:
+    def _timed_all(self, parts: list, count: bool = True) -> list:
         t0 = time.perf_counter()
         got = self._all([p.detach() for p in parts])
-        self.reductions += 1
+        self.reductions += int(count)
         self.reduce_bytes += sum(p.numel() * p.element_size() for p in parts)
         self.reduce_s += time.perf_counter() - t0
         return got
@@ -310,6 +372,37 @@ class _TpAxis:
         """The fold over the shards of ``x`` ``[held, ...]`` (no
         gradient)."""
         return _fold(self._timed_all(list(x.unbind(0))))
+
+    def head_span(self, width: int, head_dim: int) -> tuple[int, int]:
+        """``[lo, hi)``: the columns of the whole heads that the held
+        shards' columns of a ``width``-wide column split touch."""
+        c = width // self.size
+        return _span(self.shards[0] * c, (self.shards[-1] + 1) * c, head_dim)
+
+    def join_heads(self, groups: list, head_dim: int) -> list:
+        """Each of ``groups`` (a column layer's held shards' outputs
+        ``[..., width / tp]``, a list each) as one tensor of the whole
+        heads its columns touch, ``[..., hi - lo]`` (:meth:`head_span`).
+        The held shards' columns are joined first; where a head straddles
+        a held shard's edge, the missing columns come from the other
+        shards (:class:`_HeadGather`, one all-gather for all groups).
+        With every shard held this is the whole width: tp 1's heads."""
+        joined = [g[0] if len(g) == 1 else torch.cat(g, -1) for g in groups]
+        c = groups[0][0].shape[-1]
+        lo, hi = self.head_span(c * self.size, head_dim)
+        if (lo, hi) == (self.shards[0] * c, (self.shards[-1] + 1) * c):
+            return joined
+        return list(_HeadGather.apply(self, head_dim, *joined))
+
+    def cut_heads(self, out: torch.Tensor, width: int,
+                  head_dim: int) -> list:
+        """An output over :meth:`join_heads`' columns, ``[..., hi - lo]``,
+        cut back to the held shards' ``width / tp`` columns each (a row
+        layer's inputs)."""
+        c = width // self.size
+        lo, _ = self.head_span(width, head_dim)
+        return [out[..., i * c - lo:(i + 1) * c - lo].contiguous()
+                for i in self.shards]
 
     def tape(self) -> _Tape:
         """A record/replay of one rematerialised block's *g* sums."""

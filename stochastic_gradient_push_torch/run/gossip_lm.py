@@ -74,7 +74,9 @@ then runs as a ring: ``--attn ring`` (plain PyTorch, the default under
 ``--tp k`` splits each projection Megatron-style over ``k`` tensor
 shards (``parallel/tp.py``, the reference's ``(gossip, tp)`` and
 ``(gossip, seq, tp)`` meshes): ``--world_size / (--sp · --tp)`` replicas
-gossip; ``n_heads``, ``d_ff`` and ``vocab_size`` must divide by ``k``.
+gossip; ``d_model``, ``d_ff`` and ``vocab_size`` must divide by ``k``
+(each kernel's columns split evenly, as the reference's GSPMD splits
+them; ``n_heads`` is free, a head may straddle two shards).
 Run directly, a replica's shards are held stacked beside it; under
 ``torchrun`` process ``p`` holds tp shard ``p % k`` of sequence shard
 ``(p // k) % sp`` of replica ``p // (sp · k)``: the Megatron sums (after
@@ -448,8 +450,9 @@ def resolve_seq_flags(args, world: int) -> tuple[int, str]:
     (sp · tp · ep · pp)`` replicas gossip, each holding ``pp`` stages of
     ``ep`` expert shards of ``sp`` sequence shards of ``tp`` tensor
     shards; an unset ``--attn`` is ``ring`` under sp > 1, else
-    ``flash``.  ``n_heads``, ``d_ff`` and ``vocab_size`` must divide by
-    ``tp`` (GSPMD would pad them; the port refuses by name)."""
+    ``flash``.  ``d_model``, ``d_ff`` and ``vocab_size`` must divide by
+    ``tp``, as the reference's GSPMD refuses a kernel it cannot split
+    evenly (by name here); ``n_heads`` is free."""
     from ..parallel.mesh import make_dp_sp_layout
     from ..parallel.tp import check_tp_dims
 
@@ -484,7 +487,7 @@ def resolve_seq_flags(args, world: int) -> tuple[int, str]:
             f"moe_experts {args.moe_experts} not divisible by ep {ep}")
     try:
         make_dp_sp_layout(world, sp, tp, ep, pp)
-        check_tp_dims(args.n_heads, args.d_ff, args.vocab_size, tp)
+        check_tp_dims(args.d_model, args.d_ff, args.vocab_size, tp)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if args.seq_len % sp:

@@ -68,8 +68,13 @@ PIL decode threads (``--data_backend auto`` and ``pil`` both mean PIL;
 refused by name), ``--data_output uint8`` ships raw pixels that the step
 normalises on the card, and ``--prefetch True`` uploads the next batch
 from pinned memory on a side stream while the step runs
-(``data/prefetch.py``; one process only: under torchrun it warns and
-goes on without).  ``--dataset synthetic`` draws seeded images.
+(``data/prefetch.py``; one process only: under torchrun, or with
+``--scan_steps`` > 1, it warns and goes on without).  ``--scan_steps K``
+runs the steps in chunks of ``K`` after the warm-up: a chunk's batches
+go to the card in one copy, its steps run back to back and its metrics
+are read once (``train/loop.py``; the CSV rows are those of single
+steps).  ``--stem_s2d True`` gives a ResNet the space-to-depth stem
+(``models/resnet.py``).  ``--dataset synthetic`` draws seeded images.
 ``--heartbeat_timeout`` arms the step watchdog (0: off),
 ``--profile_dir`` (with ``--profile_start_step``/``--profile_steps``)
 writes a ``torch.profiler`` Chrome trace of a window of steps, and
@@ -121,8 +126,6 @@ __all__ = ["build_parser", "parse_config", "build", "main", "UNPORTED"]
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
 UNPORTED = {
-    "--stem_s2d": ("False", str, "the space-to-depth ResNet stem"),
-    "--scan_steps": (1, int, "fused multi-step programs"),
     "--fleet": ("False", str, "fleet supervision"),
     "--host_id": (None, int, "fleet supervision"),
 }
@@ -358,6 +361,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="upload the next batch (pinned memory, a side "
                         "stream) while the step runs (data/prefetch.py; "
                         "one process only)")
+    p.add_argument("--stem_s2d", default="False",
+                   help="the ResNet's space-to-depth stem: the 7x7/2 "
+                        "stem's function as a 4x4/1 convolution over 2x2-"
+                        "packed input (models/resnet.py; even image "
+                        "sizes)")
+    p.add_argument("--scan_steps", default=1, type=int,
+                   help="run this many steps back to back, the batches "
+                        "sent to the card in one copy and the metrics "
+                        "read once (train/loop.py; chunks of this size "
+                        "after the warm-up)")
     p.add_argument("--data_backend", default="auto",
                    choices=["auto", "native", "pil"],
                    help="imagefolder decoding: auto and pil decode with "
@@ -681,6 +694,7 @@ def parse_config(argv=None):
         health_every=args.health_every,
         residual_floor=args.residual_floor,
         prefetch=_str_bool(args.prefetch),
+        scan_steps=args.scan_steps,
         checkpoint_all=_str_bool(args.checkpoint_all),
         heartbeat_timeout=args.heartbeat_timeout,
         profile_dir=args.profile_dir,
@@ -712,7 +726,17 @@ def _make_model(args, num_classes: int):
                              "only")
         return make_model("tiny_mlp", num_classes=num_classes,
                           in_features=3 * args.image_size ** 2)
-    return make_model(args.model, num_classes=num_classes, dtype=dtype)
+    if args.model == "tiny_cnn":
+        return make_model(args.model, num_classes=num_classes, dtype=dtype)
+    stem_s2d = _str_bool(args.stem_s2d)
+    if stem_s2d and args.image_size % 2:
+        # the reference's space_to_depth refuses it at the first forward
+        raise SystemExit(
+            f"--stem_s2d True: stem_s2d requires spatial dims divisible by "
+            f"2, got {args.image_size}x{args.image_size} — use the "
+            f"standard stem for odd image sizes")
+    return make_model(args.model, num_classes=num_classes, dtype=dtype,
+                      stem_s2d=stem_s2d)
 
 
 def _image_folders(args, cfg, world: int, held, log):

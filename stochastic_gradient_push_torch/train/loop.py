@@ -48,9 +48,26 @@ recovery policy fire an exact global average above ``residual_floor``
 (``gossip recovery:`` lines, each with the planner's re-plan
 ``suggestion``); a checkpoint's meta carries the last health payload.
 
+``scan_steps`` K > 1 is the reference's chunked loop
+(``train/loop.py:1021-1160`` there): after the warm-up window
+(``num_itr_ignore``, single steps) the steps run in chunks of K, the
+chunk's batches stacked ``[K, ...]`` on the host and sent to the device
+in one copy, its K steps back to back with no host read between (each
+with its own step counter, LR and gossip phase; an overlap run's
+in-flight shares carry from step to step), and its metrics read once as
+``[world, K]``; then each step's meters, CSV rows (a ``print_freq`` row
+inside a chunk too) and health observations, with a chunk's time over
+K as each step's.  A cap tail shorter than K runs as single steps, and
+so do the extra batches of a loader tail.  The watchdog, the profile
+window, ``bilat_async``'s publish and adoption (at the chunk's last
+step) and the preemption check act on whole chunks.  On the TPU a
+chunk is one compiled program; here it is K eager steps (no CUDA graph
+yet), so the CSV is ``scan_steps`` 1's, bit for bit.
+
 Around the step (``train/loop.py:968-1095`` of the reference):
 ``prefetch`` wraps the loader in ``data/prefetch.py::DevicePrefetcher``
-(one process only; under torchrun a warning, and no prefetch);
+(one process only, and ``scan_steps`` 1; otherwise the reference's
+warning, and no prefetch);
 ``heartbeat_timeout`` arms ``utils/profiling.py::StepWatchdog`` around
 each warm step (the step and its metrics' read; 0 disables it);
 ``profile_dir`` captures the global steps ``[profile_start_step,
@@ -210,7 +227,6 @@ class TrainerConfig:
 UNPORTED = {
     "fleet": (False, "fleet supervision"),
     "host_id": (None, "fleet supervision"),
-    "scan_steps": (1, "fused multi-step programs (scan_steps > 1)"),
 }
 
 
@@ -863,116 +879,174 @@ class Trainer:
         if start_itr:
             loader.fast_forward(start_itr)
         if cfg.prefetch:
-            if not self.spread:
+            if not self.spread and cfg.scan_steps <= 1:
                 from ..data.prefetch import DevicePrefetcher
 
                 loader = DevicePrefetcher(loader, self.device,
                                           depth=cfg.prefetch_depth)
             elif not self._warned_prefetch:
-                self.log.warning("prefetch supports single-process runs "
-                                 "only; continuing without it")
+                # the reference's warning (train/loop.py:975-979 there)
+                self.log.warning("prefetch supports single-process "
+                                 "non-scanned runs only; continuing "
+                                 "without it")
                 self._warned_prefetch = True
         alg, train_fn = self._train_fn(ppi, itr_per_epoch)
+        keys = ("loss", "top1", "top5", "grad_norm")
 
         it = iter(loader)
         i = start_itr - 1
         batch_time = time.time()
-        while cap is None or i + 1 < cap:
-            try:
-                x, y = next(it)
-            except StopIteration:
+        while True:
+            remaining = None if cap is None else cap - (i + 1)
+            if remaining is not None and remaining <= 0:
                 break
-            n = self.world_size * x.shape[1]
-            x, y = self._on_device(x), self._on_device(y)
+            # the reference's chunk sizes: single steps through the
+            # warm-up window and for a cap tail shorter than scan_steps,
+            # else scan_steps
+            target = cfg.scan_steps
+            if num_itr_ignore > 0 or target <= 1 or (
+                    remaining is not None and remaining < target):
+                target = 1
+            pending = []
+            for _ in range(target):
+                try:
+                    pending.append(next(it))
+                except StopIteration:
+                    break
+            if not pending:
+                break
+            if 1 < len(pending) < target:
+                # a loader tail: the extras run as single steps
+                it = iter(pending[1:])
+                pending = pending[:1]
+            chunk = len(pending)
+            if chunk > 1:
+                # a chunk's batches go to the device in one copy
+                stack = (torch.stack if isinstance(pending[0][0],
+                                                   torch.Tensor)
+                         else np.stack)
+                x, y = (self._on_device(stack([b[k] for b in pending]))
+                        for k in (0, 1))
+                n = self.world_size * x.shape[2]
+            else:
+                x, y = pending[0]
+                n = self.world_size * x.shape[1]
+                x, y = self._on_device(x), self._on_device(y)
             elapsed_data = time.time() - batch_time
             nn_time = time.time()
             gstep = epoch * itr_per_epoch + i + 1
-            warm_key = (ppi, itr_per_epoch, tuple(x.shape), x.dtype)
+            last = gstep + chunk - 1
+            warm_key = (ppi, itr_per_epoch, chunk, tuple(x.shape), x.dtype)
             warm = self._warm_counts.get(warm_key, 0) >= 2
             self._warm_counts[warm_key] = self._warm_counts.get(
                 warm_key, 0) + 1
             # the heartbeat is armed on warm steps only: a variant's first
-            # calls build kernels and tune convolutions
+            # calls build kernels and tune convolutions; it wraps a whole
+            # chunk, as the profile window does
             guard = (self.watchdog.step()
                      if self.watchdog is not None and warm
                      else contextlib.nullcontext())
             self.profile.maybe_start(gstep)
             with guard:
-                state, metrics = train_fn(state, x, y)
+                steps = []
+                for j in range(chunk):
+                    # the chunk's steps back to back, no host read between
+                    state, metrics = (train_fn(state, x[j], y[j])
+                                      if chunk > 1 else
+                                      train_fn(state, x, y))
+                    steps.append(metrics)
                 if self._async_bilat is not None:
-                    # wall-clock AD-PSGD: the thread gets this step's
-                    # params (a clone queued after the step) and the step
-                    # takes whatever displacement it has ready
-                    self._async_bilat.publish(gstep, state.params)
-                    self._async_bilat.maybe_adopt(gstep, state.params)
-                # the device-to-host read ends the step's window on
-                # finished work; every rank's row in one read, gathered
+                    # wall-clock AD-PSGD: the thread gets the chunk's
+                    # params (a clone queued after its last step) and the
+                    # chunk takes whatever displacement it has ready
+                    self._async_bilat.publish(last, state.params)
+                    self._async_bilat.maybe_adopt(last, state.params)
+                # the device-to-host read ends the window on finished work:
+                # every rank's row of every step in one read, gathered
                 # across processes, with this process's preemption flag
                 # beside it
-                keys = ("loss", "top1", "top5", "grad_norm")
-                row = [metrics[k] for k in keys]
+                row = [torch.stack([m[k] for m in steps], -1)
+                       for k in keys]
                 if self.spread:
                     row.append(torch.full_like(row[0], float(
                         self.cluster is not None
                         and self.cluster.local_signalled())))
-                rows = to_host(torch.stack(row, -1), self.transport)
-            self.profile.maybe_stop(gstep)
-            host = {k: rows[:, j] for j, k in enumerate(keys)}
-            signalled = self.spread and bool(rows[:, -1].max())
+                rows = torch.stack(row, -1)     # [R, chunk, keys]
+                # a single step reads its [R, keys] rows
+                rows = to_host(rows if chunk > 1 else rows[:, 0],
+                               self.transport).reshape(-1, chunk,
+                                                       rows.shape[-1])
+            self.profile.maybe_stop(last)
+            # [world, chunk] a key
+            host = {k: rows[:, :, j] for j, k in enumerate(keys)}
+            signalled = self.spread and bool(rows[:, :, -1].max())
             # a cross-process gossip wait that gave up raises here
             self.transport.check()
             elapsed_nn = time.time() - nn_time
             elapsed_batch = time.time() - batch_time
-            i += 1
             # gstep is the algorithm's 0-based tick; steps done count 1
-            self._gstep = gstep + 1
+            self._gstep = last + 1
             tel = self.telemetry
             if tel.enabled:
                 # spans from the loop's own clock readings; the comm tally
-                # is integer math at the step's tick
+                # is integer math at each step's tick
                 tel.trace_complete("data_fetch", "data", batch_time,
                                    elapsed_data)
-                span_args = {"steps": 1, "timed": warm}
+                span_args = {"steps": chunk, "timed": warm}
                 if tel.comm is not None:
                     m = tel.comm.model
-                    span_args["gossip"] = int(m.gossip_fires(gstep))
-                    span_args["global_avg"] = int(m.global_avg_fires(gstep))
-                    tel.comm.on_step(gstep)
+                    span_args["gossip"] = sum(int(m.gossip_fires(gstep + j))
+                                              for j in range(chunk))
+                    span_args["global_avg"] = sum(
+                        int(m.global_avg_fires(gstep + j))
+                        for j in range(chunk))
+                    for j in range(chunk):
+                        tel.comm.on_step(gstep + j)
                 tel.trace_complete("train_step", "step", nn_time,
                                    elapsed_nn, span_args)
-                if tel.metrics_every and self._gstep % tel.metrics_every == 0:
+                ke = tel.metrics_every
+                if ke and any((gstep + j + 1) % ke == 0
+                              for j in range(chunk)):
                     tel.registry.emit("step_stats", {
                         "epoch": epoch,
                         "loss": round(float(host["loss"].mean()), 6),
-                        "step_time_s": round(elapsed_batch, 6),
-                        "data_time_s": round(elapsed_data, 6),
-                        "nn_time_s": round(elapsed_nn, 6),
+                        "step_time_s": round(elapsed_batch / chunk, 6),
+                        "data_time_s": round(elapsed_data / chunk, 6),
+                        "nn_time_s": round(elapsed_nn / chunk, 6),
                         "timed": warm}, step=self._gstep)
                     tel.emit_comm(step=self._gstep)
+            # a chunk never straddles the warm-up: all its steps are timed,
+            # or none is; each takes the chunk's time over its size
             timed = num_itr_ignore == 0
-            if timed:
-                nn_meter.update(elapsed_nn)
-                batch_meter.update(elapsed_batch)
-                data_meter.update(elapsed_data)
-            else:
-                num_itr_ignore -= 1
-            if self.monitor is not None:
+            for j in range(chunk):
                 if timed:
-                    # per-step samples feed the p50/p99 straggler view
-                    self.monitor.record_step_time(elapsed_batch)
-                state = self._observe_health(state, alg, metrics,
-                                             epoch * itr_per_epoch + i)
-            for r in self._csv_ranks:
-                pick = ((lambda a: a[r]) if cfg.per_rank_csv
-                        else (lambda a: a.mean()))
-                for meter, k in zip(stat_meters[r], ("loss", "top1",
-                                                     "top5")):
-                    meter.update(float(pick(host[k])), n)
-            if i % cfg.print_freq == 0:
-                self._log_row(epoch, i, meters, stat_meters)
-                if cfg.verbose:
-                    self.log.info(f"epoch {epoch} itr {i}: grad_norm "
-                                  f"{float(host['grad_norm'].mean()):.4f}")
+                    nn_meter.update(elapsed_nn / chunk)
+                    batch_meter.update(elapsed_batch / chunk)
+                    data_meter.update(elapsed_data / chunk)
+                else:
+                    num_itr_ignore -= 1
+                if self.monitor is not None:
+                    if timed:
+                        # per-step samples feed the p50/p99 straggler view
+                        self.monitor.record_step_time(elapsed_batch / chunk)
+                    # each step observed; a recovery acts on the state
+                    # after the chunk
+                    state = self._observe_health(state, alg, steps[j],
+                                                 gstep + j)
+                i += 1
+                for r in self._csv_ranks:
+                    pick = ((lambda a: a[r, j]) if cfg.per_rank_csv
+                            else (lambda a: a[:, j].mean()))
+                    for meter, k in zip(stat_meters[r], ("loss", "top1",
+                                                         "top5")):
+                        meter.update(float(pick(host[k])), n)
+                if i % cfg.print_freq == 0:
+                    self._log_row(epoch, i, meters, stat_meters)
+                    if cfg.verbose:
+                        self.log.info(
+                            f"epoch {epoch} itr {i}: grad_norm "
+                            f"{float(host['grad_norm'][:, j].mean()):.4f}")
+            # a preemption is acted on between chunks
             if self.cluster is not None and (
                     signalled if self.spread
                     else self.cluster.any_rank_signalled()):

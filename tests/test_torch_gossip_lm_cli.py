@@ -177,7 +177,7 @@ def test_unported_flags_raise_naming_the_flag(flag, value, small):
      r"\(not ep/tp/pp\)"),
     (["--n_heads", "2", "--attn", "ring"],
      r"--tp with ring attention requires --sp > 1 \(3-D mesh\)"),
-    ([], "n_heads 1 not divisible by tp 2"),
+    (["--d_model", "31"], "d_model 31 not divisible by tp 2"),
     (["--n_heads", "2", "--d_ff", "63"], "d_ff 63 not divisible by tp 2"),
     (["--n_heads", "2", "--world_size", "6", "--sp", "2"],
      r"world_size 6 not divisible by sp\*tp\*ep\*pp 4"),

@@ -156,13 +156,13 @@ def test_reference_flags_parse_with_reference_defaults():
 
 # one value per unported flag, each away from its default
 UNPORTED_VALUES = {
-    "--stem_s2d": "True", "--scan_steps": "2",
     "--fleet": "True", "--host_id": "0",
 }
 
 
 # flags ported since, each with a value (and the flags beside it) that
-# is still refused naming it, by the reference's refusal:
+# is still refused naming it, by the reference's refusal: --stem_s2d on
+# an odd image size (its space_to_depth's message);
 # --nprocs_per_node 3 does not divide the world of 4; --metrics_every -1;
 # --metrics_every 5 with no (an empty) --trace_dir; the deprecated
 # --gossip_comm_dtype beside another --wire_dtype (resolve_wire_flags's
@@ -171,6 +171,7 @@ UNPORTED_VALUES = {
 # without --num_processes and --process_id, --num_processes 0 and a
 # --process_id outside --num_processes
 REFUSED_VALUES = {
+    "--stem_s2d": ("True", "--model", "resnet18", "--image_size", "33"),
     "--nprocs_per_node": ("3",),
     "--metrics_every": ("-1", "--trace_dir", "/nonexistent"),
     "--trace_dir": ("", "--metrics_every", "5"),

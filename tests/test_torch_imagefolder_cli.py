@@ -272,8 +272,9 @@ def test_imagefolder_under_torchrun_equals_the_stacked_run(tree, tmp_path):
                 p.kill()
                 p.wait()
     assert [p.returncode for p in procs] == [0] * world, "\n".join(logs)
-    assert all("prefetch supports single-process runs only" in log
-               for log in logs)
+    # the reference's warning (train/loop.py:975-979 there)
+    assert all("prefetch supports single-process non-scanned runs only"
+               in log for log in logs)
     # the children's one thread (a CPU convolution's sums follow the
     # thread count, and other test files set their own at import)
     threads = torch.get_num_threads()

@@ -98,6 +98,7 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.data.lm",
                 "stochastic_gradient_push_torch.data.synthetic",
                 "stochastic_gradient_push_torch.models.resnet",
+                "stochastic_gradient_push_torch.models.convert",
                 "stochastic_gradient_push_torch.models.small",
                 "stochastic_gradient_push_torch.train.step",
                 "stochastic_gradient_push_torch.run.dryrun",
@@ -253,5 +254,59 @@ def test_serve_selftest_runs_with_jax_unavailable():
             "stochastic_gradient_push_torch.parallel.tp",
             "stochastic_gradient_push_torch.run.gossip_lm"} <= set(
                 out["loaded"])
+    assert not [m for m in out["loaded"]
+                if m.startswith("stochastic_gradient_push_tpu")]
+
+
+_SLICE_RUN = r"""
+import json, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+from stochastic_gradient_push_torch.run import gossip_lm, gossip_sgd
+d = sys.argv[2]
+# the image CLI's chunked loop and the space-to-depth stem
+gossip_sgd.main(["--device", "cpu", "--dataset", "synthetic", "--model",
+                 "resnet18", "--image_size", "16", "--num_classes", "4",
+                 "--batch_size", "2", "--world_size", "2", "--num_epochs",
+                 "1", "--num_iterations_per_training_epoch", "3",
+                 "--num_itr_ignore", "1", "--scan_steps", "2",
+                 "--stem_s2d", "True", "--checkpoint_dir", d + "/img"])
+# the ProbeBatchNorm variants
+from stochastic_gradient_push_torch.models import resnet
+from stochastic_gradient_push_torch.models.convert import init_model_params
+for variant in ("bn16", "folded"):
+    m = resnet.resnet18(num_classes=4, norm_variant=variant)
+    p, s = init_model_params(m, 0)
+    m.load_state_dict({**p, **s})
+    assert torch.isfinite(m(torch.zeros(2, 3, 16, 16), True, {})).all()
+# --tp on a head count it does not divide
+gossip_lm.main(["--device", "cpu", "--world_size", "4", "--tp", "2",
+                "--n_heads", "3", "--d_model", "24", "--d_ff", "32",
+                "--vocab_size", "64", "--n_layers", "1", "--seq_len", "16",
+                "--batch_size", "2", "--num_steps", "2", "--corpus_tokens",
+                "2000", "--checkpoint_dir", d + "/lm"])
+print(json.dumps({"loaded": sorted(
+    m for m in sys.modules if m.startswith("stochastic_gradient_push"))}))
+"""
+
+
+def test_scan_steps_the_resnet_variants_and_tp_heads_run_with_jax_unavailable(
+        tmp_path):
+    """``--scan_steps`` with ``--stem_s2d`` through the image CLI, the
+    ``bn16`` and ``folded`` norms, and ``--tp 2`` over 3 heads through
+    the LM CLI, in an interpreter where ``import jax`` fails."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SLICE_RUN, str(REPO), str(tmp_path)],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"stochastic_gradient_push_torch.models.resnet",
+            "stochastic_gradient_push_torch.models.convert",
+            "stochastic_gradient_push_torch.parallel.tp",
+            "stochastic_gradient_push_torch.train.loop"} <= set(out["loaded"])
     assert not [m for m in out["loaded"]
                 if m.startswith("stochastic_gradient_push_tpu")]

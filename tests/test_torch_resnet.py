@@ -235,10 +235,10 @@ def test_metrics_match_reference():
         assert [float(a) for a in got] == [float(a) for a in want]
 
 
+# stem_s2d and norm_variant bn16 / folded are ported
+# (tests/test_torch_resnet_variants.py); a norm the reference does not
+# have is refused
 @pytest.mark.parametrize("kwargs,match,exc", [
-    ({"stem_s2d": True}, "stem_s2d", NotImplementedError),
-    ({"norm_variant": "bn16"}, "bn16", NotImplementedError),
-    ({"norm_variant": "folded"}, "folded", NotImplementedError),
     ({"norm_variant": "ln"}, "unknown norm_variant", ValueError),
 ])
 def test_tpu_experiments_are_refused_by_name(kwargs, match, exc):

@@ -164,16 +164,18 @@ def test_shards_round_trip_and_hold_a_tp_th(tp):
 
 
 @pytest.mark.parametrize("dims,match", [
-    ((6, 64, 64), "n_heads 6 not divisible by tp 4"),
-    ((4, 66, 64), "d_ff 66 not divisible by tp 4"),
-    ((4, 64, 62), "vocab_size 62 not divisible by tp 4"),
+    ((30, 64, 64), "d_model 30 not divisible by tp 4"),
+    ((32, 66, 64), "d_ff 66 not divisible by tp 4"),
+    ((32, 64, 62), "vocab_size 62 not divisible by tp 4"),
 ])
 def test_non_dividing_dims_are_refused_by_name(dims, match):
+    """The kernels' split dims, as the reference's GSPMD refuses them;
+    the head count is free (``test_torch_tp_heads.py``)."""
     with pytest.raises(ValueError, match=match):
         check_tp_dims(*dims, 4)
     with pytest.raises(ValueError, match=match):
-        dataclasses.replace(drive.config(1), n_heads=dims[0], d_ff=dims[1],
-                            vocab_size=dims[2], tp=4)
+        dataclasses.replace(drive.config(1), d_model=dims[0], n_heads=2,
+                            d_ff=dims[1], vocab_size=dims[2], tp=4)
 
 
 def test_a_model_and_its_tensor_axis_agree():
