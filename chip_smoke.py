@@ -537,7 +537,25 @@
    launches its processes by the reference's flags (``--multihost True
    --coordinator_address ... --num_processes 2 --process_id i``) instead
    of the torchrun environment.
-26. A JSON line of per-kernel results (the fp32 flash rows also carry
+26. Elastic supervision (``supervise/``):
+   - 26a: the port's ``Supervisor`` over phase 17a's command (ResNet-50,
+     224 px, 32 a rank, 3 steps an epoch, 2 epochs, ``--gossip_kernel
+     pallas``) at ``--world_size 4`` with ``--trace_dir``, each
+     generation a fresh process (a wrapper writing K2/K1's counts after
+     every step: the first generation is SIGKILLed); the kill once the
+     whole first set landed (the child stopped while the files' steps
+     are compared), the reshard 4 -> 2, the replan, the relaunch with
+     ``--resume True``, the run to its end: supervisor exit 0, one
+     ``relaunch`` event, a plan stamped at world 2 (the final set's meta
+     too), the boundary's consensus drift < 1e-5 from the files, one K2
+     and one K1 a step in both generations, finite CSV rows; each
+     generation's seconds, the reshard's seconds and GB, detection to
+     the relaunched child's first step;
+   - 26b: ``scripts/torch_fleet.py --selftest`` in a subprocess (3
+     host-sim hosts x 2 rows, host 2 SIGKILLed whole, one coordinated
+     6 -> 4 cycle; its children use no card) beside 26a (its seconds
+     marked so): exit 0.
+27. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -7907,6 +7925,238 @@ def pp_mesh_path(card: str, tmp: str, procs: list, go: str,
     return runs["d"] + runs["e"]
 
 
+# -- phase 26: elastic supervision ------------------------------------------
+
+# 26a: phase 17a's command (ResNet-50, 224 px, 32 a rank, 3 steps an
+# epoch, 2 epochs, K2/K1) at world 4 under the port's Supervisor: the
+# child SIGKILLed once its first whole set landed, the set resharded
+# 4 -> 2, the run replanned and relaunched, the second generation resumed
+# and run to its end
+SUPERVISED = dict(old=4, new=2)
+TOL_SUPERVISED = 1e-5
+# 26b: scripts/torch_fleet.py --selftest (numpy host-sim children, no card)
+FLEET_TIMEOUT_S = 300
+
+# the supervised child: the CLI in a fresh process, K2/K1's counts
+# written after every step (the step_stats event of --metrics_every 1),
+# since the first generation is SIGKILLed
+_P26_CHILD = r"""
+import json, os, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from stochastic_gradient_push_torch.ops import gossip_kernel as gk
+from stochastic_gradient_push_torch.run import gossip_sgd
+from stochastic_gradient_push_torch.telemetry import registry
+
+for fn in (gk.gossip_edge_start, gk.gossip_edge_wait):
+    fn.launches = 0
+out = open(os.environ["SGP_P26_LAUNCHES"], "a")
+emit = registry.TelemetryRegistry.emit
+
+def spy(self, kind, data, step=None, severity="info"):
+    if kind == "step_stats":
+        out.write(json.dumps({"pid": os.getpid(), "step": step,
+                              "start": gk.gossip_edge_start.launches,
+                              "wait": gk.gossip_edge_wait.launches}) + "\n")
+        out.flush()
+    return emit(self, kind, data, step=step, severity=severity)
+
+registry.TelemetryRegistry.emit = spy
+gossip_sgd.main(sys.argv[1:])
+"""
+
+
+def _jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _csv_finite(path: str, label: str) -> int:
+    """The training rows of a CLI CSV all finite; their count."""
+    rows = [r.split(",") for r in open(path).read().splitlines()]
+    rows = [r for r in rows if len(r) == 18 and r[1].lstrip("-").isdigit()]
+    if not rows or not all(math.isfinite(float(v)) for r in rows
+                           for v in r[2:]):
+        raise AssertionError(f"{label}: {os.path.basename(path)} rows "
+                             f"{rows}")
+    return len(rows)
+
+
+class _FleetSelftest:
+    """26b in a subprocess: the host-sim fleet, its children on the host
+    only, beside 26a (:meth:`join` checks its exit and prints its line
+    and its seconds); :meth:`kill` ends it."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.tmp = tempfile.mkdtemp(prefix="fleet26_",
+                                    dir=os.path.join(ROOT, "build"))
+        self.log = open(os.path.join(self.tmp, "fleet_26b.log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "scripts", "torch_fleet.py"),
+             "--selftest", "--selftest_dir",
+             os.path.join(self.tmp, "fleet")],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT,
+                               OMP_NUM_THREADS="1"),
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def join(self, beside: str) -> None:
+        try:
+            code = self.proc.wait(timeout=FLEET_TIMEOUT_S)
+            self.log.seek(0)
+            text = self.log.read()
+        finally:
+            self.kill()
+        ok = [x for x in text.splitlines()
+              if x.startswith("fleet selftest: OK")]
+        if code != 0 or not ok:
+            raise AssertionError(f"fleet 26b: exited {code}:\n"
+                                 f"{text[-4000:]}")
+        print(f"fleet 26b: {ok[0]}; {time.perf_counter() - self.t0:.1f} s "
+              f"(beside {beside}: the host shared, no card)", flush=True)
+
+
+def supervise_path(card: str) -> dict:
+    """Phase 26: 26a in this process (the Supervisor, its children on the
+    card), 26b beside it.  Returns 26a's children's K2/K1 launches."""
+    import numpy as np
+
+    from stochastic_gradient_push_torch.supervise import (
+        ChildSpec, Supervisor, SupervisorPolicy, consensus_mean,
+        load_world_checkpoint, supervisor)
+    from stochastic_gradient_push_torch.supervise.reshard import _load_file
+    from stochastic_gradient_push_torch.telemetry import (
+        EVENTS_FILE, SUPERVISOR_EVENTS_FILE)
+
+    t0 = time.perf_counter()
+    old, new = SUPERVISED["old"], SUPERVISED["new"]
+    tmp = tempfile.mkdtemp(prefix="sup26_", dir=os.path.join(ROOT, "build"))
+    fleet = _FleetSelftest()
+    try:
+        ckpt, tdir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "trace")
+        counts = os.path.join(tmp, "launches.jsonl")
+        child = [sys.executable, "-c", _P26_CHILD, *_cli_argv(
+            ckpt, "--gossip_kernel", "pallas", "--trace_dir", tdir,
+            "--metrics_every", "1")]
+        env = dict(os.environ, PYTHONPATH=ROOT, SGP_P26_LAUNCHES=counts)
+        boundary = {}
+        real = supervisor.reshard_checkpoints
+
+        def timed_reshard(*a, **k):
+            t = time.perf_counter()
+            report = real(*a, **k)
+            boundary["reshard_s"] = time.perf_counter() - t
+            boundary["reshard_gb"] = sum(
+                os.path.getsize(p) for p in report.files_in
+                + report.files_out) / 1e9
+            return report
+
+        def on_relaunch(report, plan):
+            """The boundary from the files, before the relaunch can
+            write over the new set."""
+            a, _, _ = load_world_checkpoint(ckpt, "", old)
+            b, meta, _ = load_world_checkpoint(ckpt, "", new)
+            m_a, m_b = consensus_mean(a), consensus_mean(b)
+            boundary.update(
+                drift=max(float(np.abs(m_a[k] - m_b[k]).max()) for k in m_a),
+                report=report, plan=plan, old_world=meta.get(
+                    "reshard", {}).get("old_world"))
+
+        supervisor.reshard_checkpoints = timed_reshard
+        try:
+            sup = Supervisor(
+                ChildSpec(child), SupervisorPolicy(
+                    world=old, max_restarts=1, shrink_factor=2,
+                    backoff_base_s=0.0),
+                poll_interval_s=0.05, drain_timeout_s=PREEMPT_TIMEOUT_S,
+                child_env=env, install_signal_handlers=False,
+                chaos_kill_after_checkpoint=True, on_relaunch=on_relaunch)
+            rc = sup.run()
+        finally:
+            supervisor.reshard_checkpoints = real
+        sup_evs = _jsonl(os.path.join(tdir, SUPERVISOR_EVENTS_FILE))
+        relaunches = [e for e in sup_evs if e["kind"] == "relaunch"]
+        if rc != 0 or len(relaunches) != 1 or "drift" not in boundary:
+            raise AssertionError(
+                f"sup 26a: supervisor exited {rc} with {len(relaunches)} "
+                f"relaunch(es), expected 0 and one: "
+                f"{[(e['kind'], e['data']) for e in sup_evs]}")
+        rel = relaunches[0]["data"]
+        plan = boundary["plan"] or {}
+        if (rel["world"], rel["prev_world"]) != (new, old) \
+                or not rel["resharded"] or plan.get("world") != new \
+                or boundary["old_world"] != old \
+                or boundary["drift"] >= TOL_SUPERVISED:
+            raise AssertionError(f"sup 26a: relaunch {rel}, plan {plan}, "
+                                 f"drift {boundary['drift']}")
+        _, final = _load_file(os.path.join(ckpt, f"checkpoint_r0_n{new}.ckpt"))
+        if final.get("epoch") != CLI["epochs"] \
+                or (final.get("plan") or {}).get("world") != new:
+            raise AssertionError(f"sup 26a: the final set's meta {final}")
+        # one K2 and one K1 a step in each generation
+        rows = _jsonl(counts)
+        gens = {}
+        for r in rows:
+            gens.setdefault(r["pid"], []).append(r)
+        steps = CLI["epochs"] * CLI["itrs"]
+        per_gen = [len(g) for g in gens.values()]
+        for g in gens.values():
+            if [(r["start"], r["wait"]) for r in g] != [
+                    (k, k) for k in range(1, len(g) + 1)]:
+                raise AssertionError(f"sup 26a: launches a step {g}")
+        if len(gens) != 2 or sum(per_gen) < steps or per_gen[1] < 1:
+            raise AssertionError(f"sup 26a: steps by generation {per_gen}")
+        csv_rows = [_csv_finite(os.path.join(ckpt, f"out_r0_n{w}.csv"),
+                                "sup 26a") for w in (old, new)]
+        # seconds: each generation from its launch, the detection (the
+        # kill's restart decision) to the relaunched child's first step
+        launch_t = [e["t"] for e in sup_evs if e["kind"] == "supervisor"
+                    and e["data"]["action"] == "launch"]
+        kill_t = next(e["t"] for e in sup_evs if e["kind"] == "supervisor"
+                      and e["data"]["action"] == "chaos-kill")
+        detect_t = next(e["t"] for e in sup_evs if e["kind"] == "supervisor"
+                        and e["data"]["action"] == "restart-decision")
+        end_t = next(e["t"] for e in sup_evs if e["kind"] == "supervisor"
+                     and e["data"]["action"] == "run-complete")
+        first_step = min(e["t"] for e in _jsonl(os.path.join(
+            tdir, EVENTS_FILE)) if e["kind"] == "step_stats"
+            and e["t"] > launch_t[1])
+        gen0 = kill_t - launch_t[0]
+        beside = (" (26b on the host beside)" if fleet.proc.poll() is None
+                  else "")
+        print(f"sup 26a: world {old} -> {new}: generation 0 {gen0:.2f} s "
+              f"to the kill ({per_gen[0]} steps), "
+              f"generation 1 {end_t - launch_t[1]:.2f} s ({per_gen[1]} "
+              f"steps); the reshard {boundary['reshard_s']:.2f} s, "
+              f"{boundary['reshard_gb']:.2f} GB read and written; detection "
+              f"to the relaunched child's first step "
+              f"{first_step - detect_t:.2f} s (its launch "
+              f"{launch_t[1] - detect_t:.2f} s after); boundary drift "
+              f"{boundary['drift']:.3e} from the files; plan "
+              f"{plan.get('topology')!r} at world {new}; one K2 and one K1 "
+              f"a step in both generations; CSV rows {csv_rows} finite"
+              f"{beside} [{card}]", flush=True)
+        fleet.join("26a")
+        print(f"sup: phase 26 in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return {"gossip_edge_start": sum(g[-1]["start"]
+                                         for g in gens.values()),
+                "gossip_edge_wait": sum(g[-1]["wait"]
+                                        for g in gens.values())}
+    finally:
+        fleet.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def install_synthetic_memo() -> None:
     """Draw each synthetic image set once: ``data/synthetic.py``'s
     ``synthetic_classification`` is a pure function of its arguments
@@ -8041,6 +8291,8 @@ def main() -> int:
     tp_ep_launches = tp_ep_path(card, ep20)
     torch.cuda.empty_cache()
     pp_launches = pp_path(card)
+    torch.cuda.empty_cache()
+    sup_launches = supervise_path(card)
     print(f"chip_smoke: every phase in {time.perf_counter() - t0:.1f} s "
           f"from the build on", flush=True)
 
@@ -8057,7 +8309,7 @@ def main() -> int:
     # 21a's stacked ep x tp run and 21b's processes, phase 22a's stacked
     # pp run, 22b's 4-D pipeline run and 22c's processes, phase 23's
     # processes, phase 24's wire selftest, phase 25's stacked serve, 25b's
-    # processes and 25c's selftest) summed
+    # processes and 25c's selftest, phase 26a's supervised children) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
@@ -8066,7 +8318,8 @@ def main() -> int:
             topo_launches, seq_launches, bf16_launches, dist_launches,
             image_launches, harness_launches, hier_launches,
             ckpt_launches, seq_dist_launches, tp_launches, ep_launches,
-            tp_ep_launches, pp_launches, wire_launches, sharded_launches))
+            tp_ep_launches, pp_launches, wire_launches, sharded_launches,
+            sup_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

@@ -226,7 +226,9 @@ def discover(env=None, flags=None) -> ClusterInfo:
                                ("--num_processes", nproc),
                                ("--process_id", pid)) if v is not None]
     if mode == "False" or (mode == "auto" and not multihost_env(env)):
-        if explicit:
+        # "--num_processes 1 [--process_id 0]" says one process too: a
+        # fleet relaunch of a one-process host passes it
+        if explicit and not (coord is None and nproc == 1):
             raise ValueError(
                 f"{explicit[0]} with --multihost {mode}: no launcher "
                 f"started this process (SLURM, OpenMPI, torchrun or "

@@ -174,9 +174,13 @@ optimizer and the gossip round stay fp32.  It combines with every
 It runs on CUDA unless ``--device cpu``; ``--attn`` defaults to
 ``flash`` (the hand-written kernels, forward and backward, on CUDA)
 without ``--sp``.
-Ported flags keep the reference's names and defaults.  Every other flag
-of the reference parses with its default and is refused, by name, when
-given another value: none is silently ignored.
+Ported flags keep the reference's names and defaults.  ``--fleet True``
+(with ``--trace_dir``; ``--host_id`` needs it) marks one host of a
+fleet under ``scripts/torch_fleet.py``: ``run_meta`` carries ``fleet``
+and ``host_id``, and a resume leaves a cross-world reshard to the pod
+coordinator.  The one flag of the reference left, ``--attn_block_k``
+(the TPU's attention block rule), parses with its default and is
+refused, by name, when given another value: none is silently ignored.
 
 The harness (the reference's, ``run/gossip_lm.py:752-1216`` there):
 
@@ -236,8 +240,6 @@ __all__ = ["main", "build_parser", "UNPORTED", "split_corpus"]
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
 UNPORTED = {
-    "--fleet": ("False", str, "fleet supervision"),
-    "--host_id": (None, int, "fleet supervision"),
     "--attn_block_k": (0, int, "the TPU attention block rule"),
 }
 ATTN_CHOICES = (None, "full", "blockwise", "flash", "ring", "ring_flash")
@@ -255,8 +257,8 @@ def build_parser() -> argparse.ArgumentParser:
     from ..ops.gossip_kernel import GOSSIP_KERNELS
     from ..parallel.wire import WIRE_DTYPES
     from ..topology import GRAPH_TOPOLOGIES
-    from .gossip_sgd import (add_multihost_flags, add_planner_flags,
-                             add_profile_flags)
+    from .gossip_sgd import (add_fleet_flags, add_multihost_flags,
+                             add_planner_flags, add_profile_flags)
 
     p = argparse.ArgumentParser(description="Gossip LM on a GPU (PyTorch)")
     p.add_argument("--all_reduce", default="False", type=str)
@@ -409,6 +411,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_batches", default=8, type=int,
                    help="validation batches per evaluation")
     add_profile_flags(p)
+    add_fleet_flags(p)
     p.add_argument("--trace_dir", default=None, type=str,
                    help="run telemetry directory (telemetry/): "
                         "trace.json host spans + events.jsonl typed "
@@ -627,9 +630,11 @@ def main(argv=None) -> dict:
 def _main(argv) -> dict:
     args = build_parser().parse_args(argv)
     refuse_unported(args)
-    from .gossip_sgd import discover_launch, resolve_wire_alias
+    from .gossip_sgd import (discover_launch, resolve_fleet_flags,
+                             resolve_wire_alias)
 
     resolve_wire_alias(args)
+    resolve_fleet_flags(args)
 
     import contextlib
 
@@ -1008,7 +1013,9 @@ def _main(argv) -> dict:
                      f"{args.checkpoint_dir}; every process starts from "
                      "step 0")
             have = every
-        if not have:
+        if not have and not args.fleet:
+            # a fleet host skips this: the pod coordinator resharded
+            # and assigned each host its shard before the relaunch
             have = _reshard_other_world(ckpt, args, world, launched, logger)
         if have:
             if tp is not None and launched == 1:
@@ -1328,6 +1335,10 @@ def _run_meta(rt, args, state, alg, held: int, interconnect, world: int,
         run_meta["profile_window"] = [
             args.profile_start_step,
             args.profile_start_step + args.profile_steps]
+    if args.fleet:
+        run_meta["fleet"] = True
+        run_meta["host_id"] = (args.host_id if args.host_id is not None
+                               else rt.rank)
     rt.registry.emit("run_meta", run_meta)
 
 

@@ -108,9 +108,14 @@ fingerprint ``b7e2ef83…``, and ``--topology auto`` with the same fabric
 plans ``hierarchical``.  The flags
 the reference accepts and ignores (``--master_port``: the launcher's
 ``MASTER_PORT`` rules; ``--network_interface_type``,
-``--no_cuda_streams``) are accepted and ignored here too.  Every other flag whose feature is not ported parses
-with its default and is refused, by name, when given another value
-(:data:`UNPORTED`); none is silently ignored.
+``--no_cuda_streams``) are accepted and ignored here too.  ``--fleet
+True`` (which needs ``--trace_dir``) marks the run as one host of a
+fleet under ``scripts/torch_fleet.py``: the pod coordinator reshards,
+so a resume here does not, and ``run_meta`` carries ``fleet`` and
+``host_id`` (``--host_id``, which needs ``--fleet True``; the process
+index by default).  A flag whose feature is not ported would parse with
+its default and be refused, by name, when given another value
+(:data:`UNPORTED`, empty now); none is silently ignored.
 """
 
 from __future__ import annotations
@@ -125,10 +130,7 @@ __all__ = ["build_parser", "parse_config", "build", "main", "UNPORTED"]
 
 # flag -> (reference default, type, what it belongs to): parsed so a
 # reference command line is accepted, refused when not at its default
-UNPORTED = {
-    "--fleet": ("False", str, "fleet supervision"),
-    "--host_id": (None, int, "fleet supervision"),
-}
+UNPORTED: dict = {}
 MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
           "tiny_cnn", "tiny_mlp")
 
@@ -310,6 +312,42 @@ def _resolve_plan(cfg, args, world: int, log, registry=None) -> None:
         cfg.mixing_class = lambda a=plan.alpha: SelfWeightedMixing(a)
     cfg.global_avg_every = plan.global_avg_every
     cfg.plan = plan.to_dict()
+
+
+def add_fleet_flags(p: argparse.ArgumentParser) -> None:
+    """Fleet-supervision flags, shared by both run CLIs: mark this
+    process as one host of a coordinated pod (``scripts/torch_fleet.py``
+    — a per-host supervisor plus a pod coordinator own the restart
+    boundary)."""
+    p.add_argument("--fleet", default="False", type=str,
+                   help="this run is one host of a coordinated fleet "
+                        "(supervise/coordinator.py): the pod "
+                        "coordinator owns cross-world resharding, so "
+                        "the per-host auto-reshard on resume is "
+                        "disabled (a racing per-host reshard is "
+                        "exactly the relaunch storm fleet supervision "
+                        "exists to prevent); host identity is stamped "
+                        "into run_meta.  Requires --trace_dir (the "
+                        "per-host supervisor acts on the typed event "
+                        "stream)")
+    p.add_argument("--host_id", default=None, type=int,
+                   help="this process's host index within the fleet "
+                        "(default: the process index); only meaningful "
+                        "with --fleet True")
+
+
+def resolve_fleet_flags(args) -> bool:
+    """Normalize the fleet flags in place (shared by both CLIs): coerce
+    --fleet to bool and fail fast on inconsistent combinations."""
+    fleet = _str_bool(args.fleet)
+    if args.host_id is not None and not fleet:
+        raise SystemExit("--host_id identifies this host under fleet "
+                         "supervision; it needs --fleet True")
+    if fleet and not args.trace_dir:
+        raise SystemExit("--fleet True needs --trace_dir (the per-host "
+                         "supervisor tails the typed event stream)")
+    args.fleet = fleet
+    return fleet
 
 
 def add_profile_flags(p: argparse.ArgumentParser) -> None:
@@ -525,6 +563,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "every k steps (0 = only the final comm "
                         "snapshot); requires --trace_dir")
     add_profile_flags(p)
+    add_fleet_flags(p)
     for flag, (default, typ, _) in UNPORTED.items():
         p.add_argument(flag, default=default, type=typ,
                        help=argparse.SUPPRESS)
@@ -590,6 +629,7 @@ def parse_config(argv=None):
     refuse_unported(args)
     resolve_wire_alias(args)
     resolve_profile_flags(args)
+    resolve_fleet_flags(args)
     if args.heartbeat_timeout < 0:
         raise SystemExit("--heartbeat_timeout must be >= 0 (0 disables)")
     lr_schedule = _parse_pair_schedule(args.schedule, float)
@@ -702,6 +742,8 @@ def parse_config(argv=None):
         profile_steps=args.profile_steps,
         trace_dir=args.trace_dir,
         metrics_every=args.metrics_every,
+        fleet=bool(args.fleet),
+        host_id=args.host_id,
     )
     return cfg, args
 

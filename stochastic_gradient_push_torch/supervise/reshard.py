@@ -25,7 +25,9 @@ n{world}.ckpt``, holding ``{"state": row, "meta": <JSON text>}``, where
 msgpack file holds every rank row, a set here is complete only with one
 file for each rank ``0 .. world-1``: a ``--checkpoint_all False`` set
 (rank 0's file alone) cannot give ``Σx/Σw`` and is rejected as torn,
-naming the flag.
+naming the flag.  So is a set whose files disagree on the step: ranks
+save one after another, so a kill mid-save leaves the files of two
+saves side by side, where the reference's one file is old or new whole.
 
 :func:`load_world_checkpoint` stacks a set into numpy arrays with a
 leading rank dim (``step`` and ``phase`` too, one int a row), the
@@ -56,7 +58,7 @@ import torch
 __all__ = ["TornCheckpointError", "CheckpointMetaError", "ReshardReport",
            "load_world_checkpoint", "consensus_mean", "meta_key",
            "reshard_state", "reshard_checkpoints",
-           "maybe_cross_world_reshard", "gc_stale_tmp"]
+           "maybe_cross_world_reshard", "gc_stale_tmp", "read_save_point"]
 
 _CKPT_RE = re.compile(r"^checkpoint_r(\d+)_n(\d+)\.ckpt$")
 # a writer's in-flight atomic-rename staging file; see gc_stale_tmp
@@ -71,7 +73,8 @@ STALE_TMP_AGE_S = 60.0
 class TornCheckpointError(RuntimeError):
     """A checkpoint set that does not assemble to its full world: a rank
     file missing (half the files of a preempted save, or the single file
-    of a ``--checkpoint_all False`` run)."""
+    of a ``--checkpoint_all False`` run), or rank files of different
+    saves (a kill between two ranks' renames leaves the set mixed)."""
 
 
 class CheckpointMetaError(RuntimeError):
@@ -232,15 +235,57 @@ def _stack_rows(rows: list):
     return np.stack(rows)
 
 
+def _save_point(state: dict, meta: dict) -> tuple:
+    """What names a save in one rank file: the state's ``step`` and the
+    meta's ``step``, ``epoch`` and ``itr`` (None where absent)."""
+    step = state.get("step") if isinstance(state, dict) else None
+    return (None if step is None else int(step), meta.get("step"),
+            meta.get("epoch"), meta.get("itr"))
+
+
+def read_save_point(path: str) -> tuple:
+    """One rank file's save point (:func:`_save_point`), its tensors
+    mapped, not read: cheap enough to poll a live run's files with."""
+    raw = torch.load(path, map_location="cpu", weights_only=True,
+                     mmap=True)
+    if not (isinstance(raw, dict) and set(raw) == {"state", "meta"}):
+        raise TornCheckpointError(
+            f"{path}: not an atomic state+meta checkpoint")
+    meta = raw["meta"]
+    meta = json.loads(meta) if isinstance(meta, str) else (meta or {})
+    return _save_point(raw["state"], meta)
+
+
+def _refuse_mixed_saves(world: int, states: list, metas: list) -> None:
+    """:class:`TornCheckpointError` when the rank files of one set come
+    from different saves.  Each rank writes its own file, so a kill
+    between two ranks' renames leaves some files at the new step and the
+    rest at the old one; collapsing such a set would mix two points of
+    the run and stamp the result with row 0's step."""
+    points = [_save_point(s, m) for s, m in zip(states, metas)]
+    if len(set(points)) <= 1:
+        return
+    by_rank = ", ".join(
+        f"r{r} step {p[0] if p[0] is not None else p[1]}"
+        + (f" (epoch {p[2]}, itr {p[3]})" if p[2] is not None
+           or p[3] is not None else "")
+        for r, p in enumerate(points))
+    raise TornCheckpointError(
+        f"torn checkpoint set for world {world}: its rank files come from "
+        f"different saves ({by_rank})")
+
+
 def load_world_checkpoint(directory: str, tag: str, world: int
                           ) -> tuple[dict, dict, list[str]]:
     """Stack one world's set into ``[world, ...]`` numpy arrays.
 
     Reads ``{tag}checkpoint_r{r}_n{world}.ckpt`` for every ``r`` in
-    ``0 .. world-1``; a set missing a rank's file raises
-    :class:`TornCheckpointError` (naming ``--checkpoint_all`` when rank
-    0's file stands alone).  Returns ``(state, meta, paths)``, ``meta``
-    the newest file's."""
+    ``0 .. world-1``; a set missing a rank's file, or whose files
+    disagree on the step (the state's, or the meta's ``step``/``epoch``/
+    ``itr``), raises :class:`TornCheckpointError` (naming
+    ``--checkpoint_all`` when rank 0's file stands alone, and each
+    rank's step when the saves differ).  Returns ``(state, meta,
+    paths)``, ``meta`` the newest file's."""
     gc_stale_tmp(directory, tag)
     files = _rank_files(directory, tag).get(world, [])
     if not files:
@@ -260,6 +305,7 @@ def load_world_checkpoint(directory: str, tag: str, world: int
         state, meta = _load_file(path)
         states.append(state)
         metas.append((os.path.getmtime(path), meta))
+    _refuse_mixed_saves(world, states, [m for _, m in metas])
     state = _stack_rows(states)
     return state, max(metas, key=lambda m: m[0])[1], [p for _, p in files]
 

@@ -65,8 +65,7 @@ __all__ = [
 
 TRACE_FILE = "trace.json"
 EVENTS_FILE = "events.jsonl"
-# the reference's run-supervisor and pod-coordinator streams (not ported:
-# the names are kept so a directory reads the same)
+# the run supervisor's and the pod coordinator's streams (supervise/)
 SUPERVISOR_EVENTS_FILE = "supervisor.jsonl"
 COORDINATOR_EVENTS_FILE = "coordinator.jsonl"
 

@@ -107,9 +107,12 @@ it ran), ``checkpoint_save``, ``validate`` and
 writes its own ``_rN`` files.  Telemetry reads no device value: the
 step's one read stays the metrics' ``to_host``.
 
-Config fields of features not ported yet raise ``NotImplementedError``
-naming the feature when set away from their defaults (:data:`UNPORTED`);
-none is silently ignored.
+``fleet=True`` marks one host of a fleet (``supervise/coordinator.py``):
+``run_meta`` carries ``fleet`` and ``host_id``, and a resume leaves a
+cross-world reshard to the pod coordinator.  Config fields of features
+not ported would raise ``NotImplementedError`` naming the feature when
+set away from their defaults (:data:`UNPORTED`, empty now); none is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -224,10 +227,7 @@ class TrainerConfig:
 
 # config field -> (default, the feature it belongs to): a value away from
 # the default raises, naming the feature
-UNPORTED = {
-    "fleet": (False, "fleet supervision"),
-    "host_id": (None, "fleet supervision"),
-}
+UNPORTED: dict = {}
 
 
 def _refuse_unported(cfg: TrainerConfig, transport) -> None:
@@ -237,6 +237,15 @@ def _refuse_unported(cfg: TrainerConfig, transport) -> None:
             raise NotImplementedError(
                 f"TrainerConfig.{field}={value!r}: {feature} is not ported "
                 f"to stochastic_gradient_push_torch yet (ROADMAP.md Queue 1)")
+    # the CLIs' fleet rule (run/gossip_sgd.py::resolve_fleet_flags)
+    if cfg.host_id is not None and not cfg.fleet:
+        raise ValueError(f"TrainerConfig.host_id={cfg.host_id} identifies "
+                         "this host under fleet supervision; it needs "
+                         "fleet=True")
+    if cfg.fleet and not cfg.trace_dir:
+        raise ValueError("TrainerConfig.fleet=True needs trace_dir (the "
+                         "per-host supervisor tails the typed event "
+                         "stream)")
     if not isinstance(transport, (collectives.StackedTransport,
                                   collectives.DistTransport)):
         raise NotImplementedError(
@@ -586,6 +595,13 @@ class Trainer:
             meta["profile_window"] = [
                 self.profile.start_step,
                 self.profile.start_step + self.profile.num_steps]
+        if cfg.fleet:
+            # fleet supervision: the coordinator's timeline maps event
+            # streams to hosts through this stamp
+            meta["fleet"] = True
+            meta["host_id"] = (cfg.host_id if cfg.host_id is not None
+                               else self.transport.ranks[0]
+                               if self.spread else 0)
         self.telemetry.registry.emit("run_meta", meta)
 
     def _save(self, state, meta, epoch: int | None = None, **kw) -> None:
@@ -803,6 +819,13 @@ class Trainer:
         from ..supervise.reshard import maybe_cross_world_reshard
         from ..utils.checkpoint import CheckpointManager
 
+        if self.cfg.fleet:
+            # the pod coordinator already resharded (and assigned this
+            # host its shard) before relaunching; a per-host reshard
+            # here would race the other survivors' writes
+            self.log.info("fleet mode: cross-world auto-reshard left "
+                          "to the pod coordinator")
+            return False
         ckpt = self.cluster.ckpt
         if not isinstance(ckpt, CheckpointManager):
             ckpt.refuse_other_worlds()

@@ -154,10 +154,9 @@ def test_reference_flags_parse_with_reference_defaults():
     assert set(port) - set(ref) == {"device"}
 
 
-# one value per unported flag, each away from its default
-UNPORTED_VALUES = {
-    "--fleet": "True", "--host_id": "0",
-}
+# one value per unported flag, each away from its default (none left:
+# --fleet and --host_id are ported)
+UNPORTED_VALUES: dict = {}
 
 
 # flags ported since, each with a value (and the flags beside it) that
@@ -169,8 +168,12 @@ UNPORTED_VALUES = {
 # message); and the launches jax.distributed.initialize refuses:
 # --multihost True with no coordinator and no launcher, a coordinator
 # without --num_processes and --process_id, --num_processes 0 and a
-# --process_id outside --num_processes
+# --process_id outside --num_processes; the fleet flags' own rules
+# (resolve_fleet_flags): --fleet True without --trace_dir, --host_id
+# without --fleet True
 REFUSED_VALUES = {
+    "--fleet": ("True",),
+    "--host_id": ("0",),
     "--stem_s2d": ("True", "--model", "resnet18", "--image_size", "33"),
     "--nprocs_per_node": ("3",),
     "--metrics_every": ("-1", "--trace_dir", "/nonexistent"),
@@ -325,7 +328,9 @@ def test_resilience_trainer_fields_are_threaded(field, value, extra):
 
 # TrainerConfig fields ported since, each with a value still refused:
 # (value, exception, message[, the fields beside it])
-REFUSED_FIELDS = {"nprocs_per_node": (0, ValueError,
+REFUSED_FIELDS = {"fleet": (True, ValueError, "fleet=True needs trace_dir"),
+                  "host_id": (7, ValueError, "host_id=7 .* needs fleet"),
+                  "nprocs_per_node": (0, ValueError,
                                       "nprocs_per_node must be >= 1"),
                   "gossip_comm_dtype": ("f16", ValueError,
                                         "unknown gossip_comm_dtype 'f16'")}

@@ -110,6 +110,15 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.utils.dcp_ckpt",
                 "stochastic_gradient_push_torch.supervise",
                 "stochastic_gradient_push_torch.supervise.reshard",
+                "stochastic_gradient_push_torch.supervise.tailer",
+                "stochastic_gradient_push_torch.supervise.policy",
+                "stochastic_gradient_push_torch.supervise.replan",
+                "stochastic_gradient_push_torch.supervise.supervisor",
+                "stochastic_gradient_push_torch.supervise.coordinator",
+                "stochastic_gradient_push_torch.supervise.hostsim",
+                "stochastic_gradient_push_torch.supervise.cli",
+                "stochastic_gradient_push_torch.supervise.fleetcli",
+                "stochastic_gradient_push_torch.serve.child",
                 "stochastic_gradient_push_torch.serve.load",
                 "stochastic_gradient_push_torch.utils.logging",
                 "stochastic_gradient_push_torch.utils.meter",
@@ -308,5 +317,52 @@ def test_scan_steps_the_resnet_variants_and_tp_heads_run_with_jax_unavailable(
             "stochastic_gradient_push_torch.models.convert",
             "stochastic_gradient_push_torch.parallel.tp",
             "stochastic_gradient_push_torch.train.loop"} <= set(out["loaded"])
+    assert not [m for m in out["loaded"]
+                if m.startswith("stochastic_gradient_push_tpu")]
+
+
+_SUPERVISE_RUN = r"""
+import json, os, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, sys.argv[1])
+d = sys.argv[2]
+from stochastic_gradient_push_torch.serve import child
+from stochastic_gradient_push_torch.supervise import (
+    cli, hostsim, replan_for, stamped_plan)
+# a supervised cycle of the image CLI (world 4 -> 2), the host-sim and
+# the decode child, the replan on their stamp
+assert cli.selftest(keep_dir=d + "/sup", device="cpu", world=4, shrunk=2,
+                    num_epochs=8) == 0
+common = ["--world_size", "2", "--num_processes", "1", "--process_id",
+          "0", "--rows", "2", "--steps", "6", "--step_s", "0"]
+assert hostsim.main(["--checkpoint_dir", d + "/f", "--trace_dir",
+                     d + "/f/h0"] + common) == 0
+assert child.main(["--checkpoint_dir", d + "/f", "--trace_dir",
+                   d + "/f/serve", "--world_size", "4", "--num_processes",
+                   "1", "--process_id", "0", "--rows", "4", "--steps",
+                   "6", "--step_s", "0"]) == 0
+assert replan_for(4, stamped_plan(d + "/sup", ""))["world"] == 4
+print(json.dumps({"loaded": sorted(
+    m for m in sys.modules if m.startswith("stochastic_gradient_push"))}))
+"""
+
+
+def test_supervision_runs_with_jax_unavailable(tmp_path):
+    """A supervised cycle of the image CLI at world 4 -> 2 (its
+    children are the port's CLI), the host-sim and the decode-fleet child, and the replan, in an
+    interpreter where ``import jax`` fails."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SUPERVISE_RUN, str(REPO), str(tmp_path)],
+        capture_output=True, text=True, timeout=240, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "supervise selftest: OK" in proc.stdout
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"stochastic_gradient_push_torch.supervise.supervisor",
+            "stochastic_gradient_push_torch.supervise.hostsim",
+            "stochastic_gradient_push_torch.serve.child",
+            "stochastic_gradient_push_torch.planner.policy"} <= set(
+                out["loaded"])
     assert not [m for m in out["loaded"]
                 if m.startswith("stochastic_gradient_push_tpu")]

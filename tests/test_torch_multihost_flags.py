@@ -168,6 +168,20 @@ def test_flag_sets_that_do_not_fit_are_refused(env, flags, match):
         discovery.discover(env, flags)
 
 
+def test_one_process_flags_name_a_single_run():
+    """``--num_processes 1 --process_id 0`` without a launcher is the one
+    process it says (a fleet relaunch of a one-process host passes it);
+    more processes, or a coordinator, still need ``--multihost True``."""
+    for flags in (_flags("auto", None, 1, 0), _flags("auto", None, 1, None),
+                  _flags("False", None, 1, 0)):
+        assert discovery.discover({}, flags).launcher == "single"
+    for flags, match in ((_flags("auto", None, 2, 0), "--num_processes"),
+                         (_flags("auto", "h:1", 1, 0),
+                          "--coordinator_address")):
+        with pytest.raises(ValueError, match=f"{match} with --multihost"):
+            discovery.discover({}, flags)
+
+
 # -- a second group on one held store ----------------------------------------
 
 _REJOIN = r"""

@@ -363,3 +363,84 @@ def test_a_malformed_meta_is_typed(tmp_path):
     torch.save({"state": blob["state"], "meta": json.dumps([1])}, path)
     with pytest.raises(port.CheckpointMetaError, match="mapping"):
         port.load_world_checkpoint(str(tmp_path), "", 2)
+
+
+# -- sets of two saves -----------------------------------------------------------
+
+
+def _save_at(directory, step, epoch, ranks=range(WORLD), itr=0):
+    """The rank files ``ranks`` of a world-4 save at ``step`` (the
+    trainer's layout), seeded by the step."""
+    state = to_port(_ref_state(WORLD, seed=step))
+    state["gossip"]["phase"] = np.zeros(WORLD, np.int64)
+    state["step"] = np.full(WORLD, step, np.int64)
+    ranks = list(ranks)
+    rows = _train_state(state)
+    pick = lambda t: {n: a[ranks] for n, a in t.items()}
+    rows = TrainState(
+        step=step, params=pick(rows.params), opt_state=pick(rows.opt_state),
+        batch_stats=pick(rows.batch_stats),
+        gossip=GossipState(phase=0, ps_weight=rows.gossip.ps_weight[ranks],
+                           in_flight=(), ef_residual=None))
+    CheckpointManager(str(directory), world_size=WORLD, ranks=ranks).save(
+        rows, {"epoch": epoch, "itr": itr})
+
+
+def test_a_set_of_two_saves_is_torn_naming_each_rank_step(tmp_path):
+    """Rank 0's file at step 6 beside ranks 1-3 at step 3 — what a kill
+    between two ranks' renames in ``CheckpointManager.save`` leaves — is
+    torn: the reshard must not collapse it (nor stamp it with step 6)."""
+    _save_at(tmp_path, 3, 1)
+    _save_at(tmp_path, 6, 2, ranks=[0])
+    want = (r"torn checkpoint set for world 4: its rank files come from "
+            r"different saves \(r0 step 6 \(epoch 2, itr 0\), r1 step 3 "
+            r"\(epoch 1, itr 0\), r2 step 3 .*r3 step 3")
+    with pytest.raises(port.TornCheckpointError, match=want):
+        port.load_world_checkpoint(str(tmp_path), "", WORLD)
+    with pytest.raises(port.TornCheckpointError, match=want):
+        port.reshard_checkpoints(str(tmp_path), "", WORLD, 2)
+    with pytest.raises(port.TornCheckpointError,
+                       match=r"cross-world resume: .*world 4: torn .*\(r0 "
+                             r"step 6"):
+        port.maybe_cross_world_reshard(str(tmp_path), "", 2)
+    assert not os.path.exists(tmp_path / "checkpoint_r0_n2.ckpt")
+    # the later save completed: one save again
+    _save_at(tmp_path, 6, 2, ranks=[1, 2, 3])
+    _, meta, _ = port.load_world_checkpoint(str(tmp_path), "", WORLD)
+    assert meta["epoch"] == 2
+
+
+def test_files_agreeing_on_the_step_but_not_the_meta_are_torn(tmp_path):
+    _save_at(tmp_path, 3, 1)
+    _save_at(tmp_path, 3, 1, ranks=[2], itr=5)
+    with pytest.raises(port.TornCheckpointError,
+                       match=r"r1 step 3 \(epoch 1, itr 0\), r2 step 3 "
+                             r"\(epoch 1, itr 5\)"):
+        port.load_world_checkpoint(str(tmp_path), "", WORLD)
+
+
+def test_a_later_save_missing_a_rank_file_is_torn(tmp_path):
+    """A later save wrote ranks 0-2 and rank 3's file is gone: torn by
+    the missing file; with rank 3's earlier file back, torn by the
+    mixed steps."""
+    _save_at(tmp_path, 3, 1)
+    keep = (tmp_path / "checkpoint_r3_n4.ckpt").read_bytes()
+    os.remove(tmp_path / "checkpoint_r3_n4.ckpt")
+    _save_at(tmp_path, 6, 2, ranks=[0, 1, 2])
+    with pytest.raises(port.TornCheckpointError,
+                       match=r"hold ranks \[0, 1, 2\], want 0..3"):
+        port.load_world_checkpoint(str(tmp_path), "", WORLD)
+    (tmp_path / "checkpoint_r3_n4.ckpt").write_bytes(keep)
+    with pytest.raises(port.TornCheckpointError,
+                       match=r"r2 step 6 .*r3 step 3"):
+        port.load_world_checkpoint(str(tmp_path), "", WORLD)
+
+
+def test_read_save_point_reads_a_files_step_and_meta(tmp_path):
+    _save_at(tmp_path, 6, 2, itr=1)
+    for r in range(WORLD):
+        assert port.read_save_point(
+            str(tmp_path / f"checkpoint_r{r}_n4.ckpt")) == (6, None, 2, 1)
+    (tmp_path / "x.ckpt").write_bytes(b"")
+    with pytest.raises(Exception):
+        port.read_save_point(str(tmp_path / "x.ckpt"))
