@@ -107,9 +107,10 @@
      the card equal, bit for bit, to ``(x + x[partner]) * 0.5`` gathered
      to the host.
    - Resume equals continue: OSGP (staleness 2) on the kernel lane for
-     two epochs straight, and for one epoch then ``--resume True`` in a
-     fresh run, under deterministic cuDNN: every rank file's params,
-     momentum, push-sum weight and FIFO exactly equal.
+     two epochs straight, and ``--resume True`` in a fresh run from a
+     copy of the straight run's epoch-0 set (taken as it lands), under
+     deterministic cuDNN: every rank file's params, momentum, push-sum
+     weight and FIFO exactly equal.
    - Preemption: a subprocess run of the CLI (OSGP, ``--overlap True``)
      gets SIGUSR1 once it is training; it must exit 75 and leave the
      four rank files with a drained (all-zero) FIFO.  It runs beside the
@@ -390,16 +391,18 @@
      relative of the same command at ``--tp 1 --world_size 2``; 12 bf16
      K3, K4 and K5 launches a step a replica (one launch a layer for both
      shards' heads) and one K2 and K1 a step;
-   - 19b: the same command cut to 4 layers in 4 processes under a
+   - 19b: the same command cut to 2 layers (4 until PR 29) in 4
+     processes under a
      torchrun environment (one tp shard each, gloo, the card shared;
      checkpoints forced through the DCP backend), 3 steps, then resumed
      from their DCP save to step 4: losses, grad norms, push-sum weight
      and the step-4 checkpoint (params, momentum) bit-equal to that
      command's straight run stacked here; each process's parameter,
-     momentum and gossip bytes (predicted from the shapes), 4 bf16 K3-K5
+     momentum and gossip bytes (predicted from the shapes), 2 bf16 K3-K5
      launches a step and one cross-process K2 and K1 a step;
    - 19c: dp 1 x sp 2 x tp 2 in 4 processes, ``ring_flash``, remat,
-     fp32, d768 cut to 4 layers, T4096 B2, 2 steps, beside the same
+     fp32, d768 cut to 2 layers (4 until PR 29), T4096 B2, 2 steps,
+     beside the same
      command stacked here:
      losses within 1e-5 and grad norms 1e-4 relative (the sequence
      axis's gradient mean runs in another order, phase 18), ps-weight
@@ -435,14 +438,15 @@
      AllReduce step at dp 1 x ep 2, capacity factor 8, no MoE loss,
      within rtol 5e-4 / atol 1e-5 of ``p - lr · grad`` of the ep 1 model
      on both shards' tokens, every MoE leaf moved, nothing dropped;
-   - 20c: 20a's command cut to 4 layers in 4 processes under a torchrun
+   - 20c: 20a's command cut to 2 layers (1 MoE block; 4 until PR 29) in
+     4 processes under a torchrun
      environment (one ep shard each, gloo, the card shared; checkpoints
      forced through the DCP backend), 2 steps, then step 3 resumed from
      their DCP save, beside that command stacked here: losses within
      2e-3 relative of the stacked replicas' (a process sums its
      replicated gradients over the ep group, the stack takes one
      gradient of both shards' mean), ps-weight equal, the step-3
-     params' distance printed; 4 bf16 K3-K5 launches and
+     params' distance printed; 2 bf16 K3-K5 launches and
      one cross-process K2 and K1 a step a process; the exchanges' count,
      bytes and host ms a step.  20c's processes run beside 20a, 20b and
      20c's stacked run (20a's layer times taken alone before they start),
@@ -483,11 +487,12 @@
      microbatch, ``moe_dropped`` in [0, 1];
    - 22c: dp 2 x pp 2 in 4 processes under a torchrun environment (one
      stage each, gloo, the card shared; checkpoints forced through the
-     DCP backend), 22a's command cut to 4 layers, 2 steps, then step 3
+     DCP backend), 22a's command cut to 2 layers (4 until PR 29), 2
+     steps, then step 3
      resumed from their DCP save, beside that command stacked here:
      losses and grad norms within 2e-3 relative of the stacked
-     replicas', ps-weight equal, the step-3 DCP tensors compared; 8 bf16
-     K3-K5 launches (a stage's 2 layers x 4 microbatches) and one
+     replicas', ps-weight equal, the step-3 DCP tensors compared; 4 bf16
+     K3-K5 launches (a stage's layer x 4 microbatches) and one
      cross-process K2 and K1 a step a process, their sum the stack's;
      process 0's hand-offs and pipe-group sums a step (count, host ms,
      MB).  22c's processes run beside 22a, 22b and 22c's stacked run,
@@ -555,7 +560,24 @@
      host-sim hosts x 2 rows, host 2 SIGKILLed whole, one coordinated
      6 -> 4 cycle; its children use no card) beside 26a (its seconds
      marked so): exit 0.
-27. A JSON line of per-kernel results (the fp32 flash rows also carry
+27. The chaos drill and the fleet observability plane:
+   - 27a: ``resilience/chaos.py``'s ``--selftest`` in this process on the
+     card (world 8 stacked, the ring, ``drop:0->1@0:64;seed:7``, 12
+     faulted rounds of ``[8, 128]`` f32, the monitor, recovery's global
+     average and one more round), on the kernel lane and then on the
+     plain lane: both print the OK line, the kernel lane launches 13 K2
+     and 13 K1 (one each a faulted round at the ring's one edge) and the
+     plain lane none, and the two lanes' params and ps-weight are
+     bit-equal after the rounds and after recovery;
+   - 27b (host work): ``scripts/torch_obsreport.py`` over phase 8's
+     traced SGP run (no schema problem, comm bytes equal to its
+     ``CommModel``'s totals, the timed steps of its trace) and over 26a's
+     run (one relaunch, 4 -> 2); ``telemetry/aggregate.py``'s
+     ``FleetAggregator`` and ``telemetry/tracemerge.py`` over 26b's
+     fleet directory: outcome complete, an empty ``validate_merged``,
+     one flow a committed cycle, the summary's ``step_time`` and
+     ``comm`` equal to the report's.
+28. A JSON line of per-kernel results (the fp32 flash rows also carry
    ``bound_fp32_cores_ms``, the CUDA-core bound, the bf16 flash rows
    ``max_ulps`` and ``share_apart``, their ``ms`` from CUDA graphs; the
    paged-decode row ``device_ms`` and ``host_ms``),
@@ -1978,11 +2000,12 @@ def _span_split(spans) -> str:
 
 
 def _check_cli_telemetry(label: str, tdir: str, launches: dict,
-                         card: str) -> None:
+                         card: str) -> dict:
     """8: the traced SGP run's files: plan, run_meta, comm and
     step_stats events; one ``train_step`` span a step; the final comm
     bytes equal to a ``CommModel`` built here from the plan's graph and
-    ResNet-50's parameter count; the kernel lane stamped."""
+    ResNet-50's parameter count; the kernel lane stamped.  Returns the
+    model's ``{"bytes", "steps"}`` (phase 27b reads the run again)."""
     from stochastic_gradient_push_torch.telemetry import CommModel
     from stochastic_gradient_push_torch.topology import (TOPOLOGY_NAMES,
                                                          build_schedule)
@@ -2015,6 +2038,7 @@ def _check_cli_telemetry(label: str, tdir: str, launches: dict,
         raise AssertionError(f"cli {label}: telemetry differs from the "
                              f"run: {meta}, {comm}")
     _assert_gossip_launches(label, launches, 1)
+    return {"bytes": model.totals(steps), "steps": steps}
 
 
 def _bilat_round_check(card: str) -> None:
@@ -2267,10 +2291,12 @@ class _ScanChild:
         return _tagged(text, "RUN_8d")
 
 
-def cli_path(card: str) -> tuple[dict, float]:
+def cli_path(card: str, keep: str | None = None) -> tuple[dict, float]:
     """Phase 8: the training CLI at ResNet-50's width, every in-process
     run traced (``--trace_dir``; its host spans printed).  Returns the
-    main runs' launches and the SGP run's mean ``BT`` (s)."""
+    main runs' launches and the SGP run's mean ``BT`` (s); ``keep``
+    receives the SGP run's telemetry (``p8``) and its ``CommModel``
+    totals (``p8_comm.json``) for phase 27b."""
     import threading
 
     import torch
@@ -2294,8 +2320,12 @@ def cli_path(card: str) -> tuple[dict, float]:
                 card)
             if label == "sgp":
                 flat_bt = result["batch_meter"].avg
-                _check_cli_telemetry(label, os.path.join(ckpt, "telemetry"),
-                                     launches, card)
+                tdir = os.path.join(ckpt, "telemetry")
+                want = _check_cli_telemetry(label, tdir, launches, card)
+                if keep is not None:
+                    shutil.copytree(tdir, os.path.join(keep, "p8"))
+                    with open(os.path.join(keep, "p8_comm.json"), "w") as f:
+                        json.dump(want, f)
             _assert_gossip_launches(label, launches, 1)
             _check_csv(os.path.join(ckpt, f"out_r0_n{CLI['world']}.csv"),
                        label)
@@ -2355,19 +2385,38 @@ def cli_path(card: str) -> tuple[dict, float]:
                 raise AssertionError(f"cli adpsgd: launches {launches}")
             _bilat_round_check(card)
 
-            # resume equals continue: OSGP, staleness 2, kernel lane
+            # resume equals continue: OSGP, staleness 2, kernel lane; the
+            # resumed run starts from a copy of the straight run's first
+            # set, taken as its epoch-0 save lands (a one-epoch run of
+            # its own until PR 29: the same files)
+            from stochastic_gradient_push_torch.utils import checkpoint
+
             osgp = ("--overlap", "True", "--staleness", "2",
                     "--gossip_kernel", "pallas")
             straight = os.path.join(tmp, "straight")
             split = os.path.join(tmp, "split")
-            for label, ckpt, epochs, resume in (
-                    ("osgp straight", straight, 2, "False"),
-                    ("osgp first epoch", split, 1, "False"),
-                    ("osgp resumed", split, 2, "True")):
-                launches, _ = _cli_run(label, _cli_argv(
-                    ckpt, *osgp, "--resume", resume,
-                    *_traced(os.path.join(ckpt, f"e{epochs}")),
-                    epochs=epochs), card, busy=beside)
+            real_save = checkpoint.CheckpointManager.save
+
+            def first_set(self, state, meta, **kw):
+                written = real_save(self, state, meta, **kw)
+                if not os.path.isdir(split):
+                    os.makedirs(split)
+                    for r in self.ranks:
+                        shutil.copyfile(self.path(r), os.path.join(
+                            split, os.path.basename(self.path(r))))
+                return written
+
+            for label, ckpt, resume in (("osgp straight", straight, "False"),
+                                        ("osgp resumed", split, "True")):
+                checkpoint.CheckpointManager.save = (
+                    first_set if resume == "False" else real_save)
+                try:
+                    launches, _ = _cli_run(label, _cli_argv(
+                        ckpt, *osgp, "--resume", resume,
+                        *_traced(os.path.join(ckpt, "e2"))), card,
+                        busy=beside)
+                finally:
+                    checkpoint.CheckpointManager.save = real_save
                 main_runs.append(launches)
             a = [_flat(r) for r in _rank_files(straight)]
             b = [_flat(r) for r in _rank_files(split)]
@@ -6538,10 +6587,10 @@ def seq_dist_path(card: str, beside) -> dict:
 # the flagship LM at --tp 2: 19a/19b dp 2 x tp 2, bf16, flash, SGP on
 # K2/K1, T1024 B8 a replica, 4 steps (19b: 3, saved, then resumed to 4);
 # 19c dp 1 x sp 2 x tp 2, fp32, ring_flash, remat, T4096 B2, 2 steps;
-# 19b and 19c at d768 cut to 4 layers (12 until phase 21 came), 19b beside
-# its command stacked at that depth
+# 19b and 19c at d768 cut to 2 layers (12 until phase 21 came, 4 until PR
+# 29), 19b beside its command stacked at that depth
 TP = dict(tp=2, dp=2, seq_len=1024, batch=8, steps=4, c_seq_len=4096,
-          c_batch=2, c_steps=2, vocab=32000, bc_layers=4)
+          c_batch=2, c_steps=2, vocab=32000, bc_layers=2)
 # 19d/19e: --tp 8 on the 12 heads, a head and a half a shard (each
 # kernel's columns split, as the reference's GSPMD splits them): 19d
 # 19a's command at dp 2 x tp 8 stacked, full depth; 19e dp 1 x tp 8 in 8
@@ -7045,11 +7094,11 @@ def tp_path(card: str) -> dict:
 # examples/bench_lm_tpu.py:202 run: d768 L12 h12 T1024 B8, bf16, flash,
 # capacity factor 1.25) at --ep 2: 20a dp 2 x ep 2 stacked, SGP on K2/K1,
 # cut to 4 layers (12 until phase 23 came), 3 steps; 20b the /n_ep oracle
-# at dp 1 x ep 2, fp32, capacity factor 8; 20c 20a's command at 4 layers
-# (12 until phase 21 came) in 4 processes, 2 steps, a DCP save, the third
-# step resumed from it, beside that command stacked
+# at dp 1 x ep 2, fp32, capacity factor 8; 20c 20a's command at 2 layers
+# (12 until phase 21 came, 4 until PR 29) in 4 processes, 2 steps, a DCP
+# save, the third step resumed from it, beside that command stacked
 EP = dict(ep=2, dp=2, experts=8, every=2, seq_len=1024, batch=8, steps=3,
-          vocab=32000, a_layers=4, c_layers=4)
+          vocab=32000, a_layers=4, c_layers=2)
 # 20c's (21b's) processes run beside the phase's stacked runs
 SHARED_20 = "20c's processes"
 SHARED_22 = "22c's processes"
@@ -7588,14 +7637,15 @@ def tp_ep_path(card: str, ep20: dict) -> dict:
 # at --pp 1 (world 2) on the same tokens; 22b: the (gossip, pipe, ep, seq)
 # mesh stacked (dp 1 x pp 2 x ep 2 x sp 2, 8 experts on every block, bf16
 # ring_flash), d768 cut to 2 layers (4 until phase 19e came), 2 steps;
-# 22c: dp 2 x pp 2 in 4 torchrun processes, one stage each, d768 cut to 4
-# layers, bf16, 2 steps, a DCP save, the third step resumed from it,
+# 22c: dp 2 x pp 2 in 4 torchrun processes, one stage each, d768 cut to 2
+# layers (4 until PR 29), bf16, 2 steps, a DCP save, the third step
+# resumed from it,
 # beside the same command stacked; phase 23: 22b's command in 8 torchrun
 # processes, one (stage, ep shard, sequence shard) each, 2 steps, a DCP
 # save, the third step resumed from it, held against 22b (3 steps, its DCP
 # save at the end)
 PP = dict(pp=2, dp=2, n_micro=4, seq_len=1024, batch=8, steps=3,
-          vocab=32000, b_layers=2, b_steps=3, c_layers=4, c_steps=3)
+          vocab=32000, b_layers=2, b_steps=3, c_layers=2, c_steps=3)
 
 _P22_CHILD = _P19_CHILD.replace("phase 19's", "phase 22's")
 _P23_CHILD = _P19_CHILD.replace("phase 19's", "phase 23's")
@@ -8009,11 +8059,15 @@ class _FleetSelftest:
             self.log.close()
         shutil.rmtree(self.tmp, ignore_errors=True)
 
-    def join(self, beside: str) -> None:
+    def join(self, beside: str, keep: str | None = None) -> None:
+        """``keep`` receives the fleet directory (``p26b``)."""
         try:
             code = self.proc.wait(timeout=FLEET_TIMEOUT_S)
             self.log.seek(0)
             text = self.log.read()
+            if keep is not None and code == 0:
+                shutil.copytree(os.path.join(self.tmp, "fleet"),
+                                os.path.join(keep, "p26b"))
         finally:
             self.kill()
         ok = [x for x in text.splitlines()
@@ -8025,9 +8079,11 @@ class _FleetSelftest:
               f"(beside {beside}: the host shared, no card)", flush=True)
 
 
-def supervise_path(card: str) -> dict:
+def supervise_path(card: str, keep: str | None = None) -> dict:
     """Phase 26: 26a in this process (the Supervisor, its children on the
-    card), 26b beside it.  Returns 26a's children's K2/K1 launches."""
+    card), 26b beside it.  Returns 26a's children's K2/K1 launches;
+    ``keep`` receives 26a's trace directory (``p26a``) and 26b's fleet
+    directory (``p26b``) for phase 27b."""
     import numpy as np
 
     from stochastic_gradient_push_torch.supervise import (
@@ -8145,7 +8201,9 @@ def supervise_path(card: str) -> dict:
               f"{plan.get('topology')!r} at world {new}; one K2 and one K1 "
               f"a step in both generations; CSV rows {csv_rows} finite"
               f"{beside} [{card}]", flush=True)
-        fleet.join("26a")
+        if keep is not None:
+            shutil.copytree(tdir, os.path.join(keep, "p26a"))
+        fleet.join("26a", keep)
         print(f"sup: phase 26 in {time.perf_counter() - t0:.1f} s",
               flush=True)
         return {"gossip_edge_start": sum(g[-1]["start"]
@@ -8155,6 +8213,178 @@ def supervise_path(card: str) -> dict:
     finally:
         fleet.kill()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase 27: the chaos drill on the card, the plane over its files --------
+
+# 27a: resilience/chaos.py's selftest (world 8 stacked on the card, the
+# ring, one dropped edge, 12 faulted rounds, recovery, one more round):
+# one K2 and one K1 a faulted round at the ring's one edge
+CHAOS_LAUNCHES = 13
+
+
+def _script(name: str):
+    """``scripts/{name}.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chaos_path(card: str) -> dict:
+    """27a: ``--selftest`` in this process on the kernel lane (the CUDA
+    K2/K1), then on the plain lane (``--gossip_kernel xla``): both OK,
+    13 K2 and 13 K1 on the kernel lane and none on the plain one, the
+    two lanes' params and ps-weight bit-equal after the faulted rounds
+    and after recovery.  Returns the kernel lane's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from stochastic_gradient_push_torch.resilience import chaos
+
+    counters = _counters()
+    drills, real = [], chaos.run_drill
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        drills.append(out)
+        return out
+
+    runs = {}
+    chaos.run_drill = spy
+    try:
+        for lane, argv in (("kernel", []), ("plain", ["--gossip_kernel",
+                                                       "xla"])):
+            for c in counters.values():
+                c.launches = 0
+            before = len(drills)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(out):
+                code = chaos.main(["--selftest", *argv])
+            runs[lane] = dict(
+                code=code, s=time.perf_counter() - t0, text=out.getvalue(),
+                launches={n: c.launches for n, c in counters.items()},
+                drill=drills[-1] if len(drills) > before else None)
+    finally:
+        chaos.run_drill = real
+    k, p = runs["kernel"], runs["plain"]
+    for lane, run in runs.items():
+        print(f"chaos 27a {lane} lane: exit {run['code']} in "
+              f"{run['s']:.2f} s: {run['text'].strip()} [{card}]",
+              flush=True)
+        if run["code"] != 0 or run["drill"] is None or not any(
+                x.startswith("chaos selftest: OK")
+                for x in run["text"].splitlines()):
+            raise AssertionError(f"chaos 27a {lane} lane failed")
+    want = {n: 0 for n in counters}
+    want["gossip_edge_start"] = want["gossip_edge_wait"] = CHAOS_LAUNCHES
+    if k["launches"] != want or any(p["launches"].values()) \
+            or (k["drill"]["lane"], p["drill"]["lane"]) != ("pallas", "xla"):
+        raise AssertionError(f"chaos 27a: launches {k['launches']} on the "
+                             f"kernel lane (want {want}), {p['launches']} on "
+                             f"the plain lane; lanes {k['drill']['lane']}, "
+                             f"{p['drill']['lane']}")
+    keys = ("round_params", "round_ps_weight", "params", "ps_weight")
+    equal = {key: bool(np.array_equal(k["drill"][key], p["drill"][key]))
+             for key in keys}
+    print(f"chaos 27a: kernel lane vs plain lane bit-equal {equal}; "
+          f"{CHAOS_LAUNCHES} K2 and {CHAOS_LAUNCHES} K1 (one each a faulted "
+          f"round at one edge, 8 x 128 f32); mean drift "
+          f"{k['drill']['drift']:.3e}, post-recovery residual "
+          f"{k['drill']['residual']:.3e} [{card}]", flush=True)
+    if not all(equal.values()):
+        raise AssertionError("chaos 27a: the kernel lane's params or "
+                             "ps-weight differ from the plain lane's")
+    return {n: k["launches"][n] for n in ("gossip_edge_start",
+                                          "gossip_edge_wait")}
+
+
+def plane_path(card: str, keep: str) -> None:
+    """27b (host work only): ``scripts/torch_obsreport.py`` over phase
+    8's traced SGP run (no schema problem, comm bytes equal to its
+    ``CommModel``'s totals, the timed steps its trace logged) and over
+    26a's run (one relaunch, 4 -> 2); ``FleetAggregator`` and
+    ``tracemerge`` over 26b's fleet directory (outcome complete, a valid
+    merged trace, one flow a committed cycle, the summary's step time
+    and comm equal to the report's)."""
+    from stochastic_gradient_push_torch.telemetry import TRACE_FILE
+    from stochastic_gradient_push_torch.telemetry.aggregate import (
+        FleetAggregator)
+    from stochastic_gradient_push_torch.telemetry.metrics import (
+        FLEET_CYCLES_TOTAL)
+    from stochastic_gradient_push_torch.telemetry.tracemerge import (
+        count_flows, merge_run, validate_merged)
+
+    t0 = time.perf_counter()
+    obsreport = _script("torch_obsreport")
+
+    p8 = os.path.join(keep, "p8")
+    report = obsreport.build_report(p8)
+    with open(os.path.join(keep, "p8_comm.json")) as f:
+        want = json.load(f)
+    with open(os.path.join(p8, TRACE_FILE)) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("name") == "train_step"]
+    timed = sum(max(1, int(e["args"].get("steps", 1))) for e in spans
+                if e["args"].get("timed", True))
+    comm = report["comm"] or {}
+    print(f"plane 27b: obsreport over phase 8's SGP run: "
+          f"{len(report['schema_problems'])} schema problem(s), comm "
+          f"{json.dumps(comm.get('bytes'))} after {comm.get('steps')} steps "
+          f"(CommModel {json.dumps(want['bytes'])}), "
+          f"{report['step_time']['timed_steps']} timed steps (the trace "
+          f"{timed}), step p50 {report['step_time']['p50_s'] * 1e3:.1f} ms "
+          f"[{card}]", flush=True)
+    if (report["schema_problems"] or comm.get("bytes") != want["bytes"]
+            or comm.get("steps") != want["steps"]
+            or report["step_time"]["timed_steps"] != timed or timed < 1):
+        raise AssertionError(f"plane 27b: phase 8's report {report}")
+
+    report = obsreport.build_report(os.path.join(keep, "p26a"))
+    restarts = report["restarts"]
+    rows = [(r["prev_world"], r["world"]) for r in restarts["timeline"]]
+    print(f"plane 27b: obsreport over 26a's run: restarts "
+          f"{restarts['generations']} generation(s), timeline {rows}, "
+          f"{len(report['schema_problems'])} schema problem(s)", flush=True)
+    if (report["schema_problems"] or not restarts["supervised"]
+            or rows != [(SUPERVISED["old"], SUPERVISED["new"])]
+            or restarts["generations"] != 2):
+        raise AssertionError(f"plane 27b: 26a's restarts {restarts}")
+
+    p26b = os.path.join(keep, "p26b")
+    agg = FleetAggregator(p26b, write_alerts=False)
+    released = agg.drain()
+    summary = agg.summary()
+    cycles = agg.metrics.counter(FLEET_CYCLES_TOTAL).value
+    agg.close()
+    merged = merge_run(p26b)
+    problems, flows = validate_merged(merged), count_flows(merged)
+    report = obsreport.build_report(p26b)
+    fleet = report["fleet"] or {}
+    print(f"plane 27b: 26b's fleet directory: {len(summary['streams'])} "
+          f"streams, {released} events merged, outcome "
+          f"{summary['fleet_outcome']}, alerts "
+          f"{[a['rule'] for a in summary['alerts']]}; merged trace "
+          f"{len(merged['traceEvents'])} events, {len(problems)} problem(s), "
+          f"{flows} flow(s) for {len(fleet.get('cycles', []))} committed "
+          f"cycle(s); summary step_time and comm equal to obsreport's: "
+          f"{summary['step_time'] == report['step_time']}, "
+          f"{summary['comm'] == report['comm']}; phase 27b in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if (summary["fleet_outcome"] != "complete" or problems
+            or fleet.get("outcome") != "complete"
+            or not flows == cycles == len(fleet.get("cycles", [])) >= 1
+            or summary["step_time"] != report["step_time"]
+            or summary["comm"] != report["comm"]):
+        raise AssertionError(f"plane 27b: 26b's plane {summary}, "
+                             f"{problems[:3]}, {fleet}")
 
 
 def install_synthetic_memo() -> None:
@@ -8250,8 +8480,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         resnet_norms = resnet_norm_variants(card)
     torch.cuda.empty_cache()
+    # phase 8's and 26's run directories, read again by phase 27b
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    keep = tempfile.mkdtemp(prefix="plane27_",
+                            dir=os.path.join(ROOT, "build"))
     with _phase_clock("8"):
-        cli_launches, flat_bt = cli_path(card)
+        cli_launches, flat_bt = cli_path(card, keep)
     torch.cuda.empty_cache()
     resil_launches = resilience_path(card)
     torch.cuda.empty_cache()
@@ -8292,7 +8526,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     pp_launches = pp_path(card)
     torch.cuda.empty_cache()
-    sup_launches = supervise_path(card)
+    sup_launches = supervise_path(card, keep)
+    torch.cuda.empty_cache()
+    with _phase_clock("27"):
+        chaos_launches = chaos_path(card)
+        plane_path(card, keep)
+    shutil.rmtree(keep, ignore_errors=True)
     print(f"chip_smoke: every phase in {time.perf_counter() - t0:.1f} s "
           f"from the build on", flush=True)
 
@@ -8309,7 +8548,8 @@ def main() -> int:
     # 21a's stacked ep x tp run and 21b's processes, phase 22a's stacked
     # pp run, 22b's 4-D pipeline run and 22c's processes, phase 23's
     # processes, phase 24's wire selftest, phase 25's stacked serve, 25b's
-    # processes and 25c's selftest, phase 26a's supervised children) summed
+    # processes and 25c's selftest, phase 26a's supervised children, phase
+    # 27a's chaos drill on the kernel lane) summed
     def total(name):
         return sum(run.get(name, 0) for run in (
             launches, train_launches, sgp_launches, osgp_launches,
@@ -8319,7 +8559,7 @@ def main() -> int:
             image_launches, harness_launches, hier_launches,
             ckpt_launches, seq_dist_launches, tp_launches, ep_launches,
             tp_ep_launches, pp_launches, wire_launches, sharded_launches,
-            sup_launches))
+            sup_launches, chaos_launches))
 
     flash = "stochastic_gradient_push_tpu/ops/flash_attention.py"
     bwd_src = "stochastic_gradient_push_torch/csrc/flash_bwd.cu"

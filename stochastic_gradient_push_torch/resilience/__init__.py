@@ -4,8 +4,8 @@ Port of ``stochastic_gradient_push_tpu/resilience/``: :mod:`.faults`
 injects deterministic, mass-conserving faults at the gossip round;
 :mod:`.monitor` computes in-step health signals and emits ``gossip
 health:`` lines; :mod:`.recovery` fires an exact global average on a
-fixable excursion.  Not ported: the chaos drill
-(``resilience/chaos.py``).
+fixable excursion; :mod:`.chaos` is the drill behind
+``scripts/torch_chaos.py`` (imported on its own, as the reference's).
 """
 
 from .faults import FaultEvent, FaultMasks, FaultPlan, parse_fault_spec

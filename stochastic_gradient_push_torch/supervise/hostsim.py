@@ -41,9 +41,11 @@ at any point leaves the set at one save: all staged files are renamed
 by whoever commits, or none is.  A host waiting on a dead peer waits as a
 process does in a collective with a lost rank, until its supervisor
 drains it.  A host of several does not save on a drain (its peers are
-at other steps, and a save there would mix the set): its restart point
-is the last committed save, and the steps since are recomputed the same
-on resume.  A host alone saves at the drain's step, as the reference's.
+at other steps, and a save there would mix the set), and a drain that
+lands while it stages leaves the save before the step is marked staged:
+its restart point is the last committed save, and the steps since are
+recomputed the same on resume.  A host alone saves at the drain's step,
+as the reference's.
 """
 
 from __future__ import annotations
@@ -100,12 +102,18 @@ class HostFiles:
     """One host's rank files of one world, and the world's save barrier
     (module docstring): ``{tag}hostsim_p{proc}_n{world}.sync`` holds
     ``{"key": generation, "staged": step, "committed": step}`` for each
-    host.  Construct it before this generation writes anything."""
+    host.  Construct it before this generation writes anything.
+    ``fsync=False`` leaves a staged file's durability to the page cache
+    (a host that is a thread, whose kill loses nothing written);
+    ``poll_s`` is how often a waiting host reads its peers' marks."""
 
     def __init__(self, directory: str, tag: str, world: int,
                  num_processes: int, process_id: int, rank_offset: int,
-                 rows: int):
+                 rows: int, fsync: bool = True,
+                 poll_s: float = BARRIER_POLL_S):
         self.directory = directory
+        self.fsync = bool(fsync)
+        self.poll_s = float(poll_s)
         self.tag = tag
         self.world = int(world)
         self.num_processes = int(num_processes)
@@ -151,7 +159,7 @@ class HostFiles:
                 return True
             if stop():
                 return False
-            time.sleep(BARRIER_POLL_S)
+            time.sleep(self.poll_s)
 
     def load(self):
         """``(rows, meta)`` from this host's rank files, ``None`` when it
@@ -183,12 +191,17 @@ class HostFiles:
                                    for raw in raws], np.int32)}}
         return state, metas[0]
 
-    def _stage(self, state: dict, meta: dict) -> None:
+    def _stage(self, state: dict, meta: dict, stop=None) -> bool:
+        """Write this host's staged files; False when a host of several
+        is drained part-way (``stop()``): it then never marks the step
+        staged, so no host commits it."""
         import torch
 
         text = json.dumps(meta)
         g = state["gossip"]
         for j, r in enumerate(self.ranks):
+            if stop is not None and self.num_processes > 1 and stop():
+                return False
             row = {"step": int(meta["step"]),
                    "params": {"w": torch.from_numpy(
                        np.array(state["params"]["w"][j]))},
@@ -199,7 +212,9 @@ class HostFiles:
             with open(tmp, "wb") as f:
                 torch.save({"state": row, "meta": text}, f)
                 f.flush()
-                os.fsync(f.fileno())
+                if self.fsync:
+                    os.fsync(f.fileno())
+        return True
 
     def _rename_all(self) -> None:
         for r in range(self.world):
@@ -211,11 +226,13 @@ class HostFiles:
     def save(self, state: dict, meta: dict, last: int, stop) -> bool:
         """One save of the world at ``meta['step']`` (module docstring);
         ``last`` is the step of this host's last committed save.  False
-        when a drain interrupted it before the commit."""
+        when a drain interrupted it before the commit (a host of several
+        leaves at once, even mid-stage; a host alone completes it)."""
         step = int(meta["step"])
         if not self._wait("committed", last, stop):
             return False
-        self._stage(state, meta)
+        if not self._stage(state, meta, stop):
+            return False
         self.mark(staged=step, committed=last)
         if not self._wait("staged", step, stop):
             return False

@@ -513,6 +513,11 @@ class Supervisor:
         if child.poll() is not None:
             return False
         child.send_signal(signal.SIGSTOP)
+        # the stop lands asynchronously: wait, without reaping, until the
+        # child is stopped (or gone), so no save runs while the files'
+        # save points are read
+        os.waitid(os.P_PID, child.pid,
+                  os.WSTOPPED | os.WEXITED | os.WNOWAIT)
         try:
             points = {read_save_point(p) for p in paths}
         except (OSError, RuntimeError, ValueError, EOFError,

@@ -1,15 +1,18 @@
 """telemetry/ — structured tracing, events and comm accounting of a run.
 
-Port of ``stochastic_gradient_push_tpu/telemetry/`` (its ``__init__``,
-``registry``, ``sink``, ``tracer``, ``metrics`` and ``comm``), with no
-import of jax or of the reference package.  One bundle per run
+Port of ``stochastic_gradient_push_tpu/telemetry/``, with no import of
+jax or of the reference package.  One bundle per run
 (:class:`RunTelemetry`): a host span tracer writing
 ``<trace_dir>/trace.json`` (Chrome-trace/Perfetto), a typed event
 registry writing ``<trace_dir>/events.jsonl`` under one versioned schema
 (the ``gossip plan/health/recovery:`` lines kept as a compatibility
 view), and a comm-volume accountant pricing the active plan in bytes.
-The reference's ``scripts/obsreport.py`` reads the directory (it needs
-jax; ``chip_smoke.py`` checks the files on the card itself).
+``scripts/torch_obsreport.py`` turns such a directory into the run
+report.  The fleet plane sits beside it, as in the reference, in two
+submodules this package does not import: :mod:`.aggregate` (the
+watermark merge of a fleet's streams, its metrics and SLO alerts) and
+:mod:`.tracemerge` (every host's trace and the rendezvous protocol in
+one Perfetto timeline), read by ``scripts/torch_fleetmon.py``.
 
 Disabled (no ``--trace_dir``) the whole subsystem is
 :data:`NULL_TELEMETRY`: a singleton of constant no-ops — no clock read,

@@ -1,7 +1,7 @@
 """The port stands alone: ``stochastic_gradient_push_torch`` (its
-numpy-only ``planner/`` and ``analysis/`` included), ``chip_smoke.py``
-and the port's chip scripts (``scripts/torch_*.py``) import neither jax
-nor the JAX package.
+numpy-only ``planner/``, ``analysis/`` and ``sim/`` included),
+``chip_smoke.py`` and the port's scripts (``scripts/torch_*.py``)
+import neither jax nor the JAX package.
 
 One check runs the imports in a fresh interpreter where ``import jax``
 (and ``orbax``) fails; another reads the sources with ``ast``; a third
@@ -137,6 +137,17 @@ def test_every_module_imports_with_jax_unavailable():
                 "stochastic_gradient_push_torch.telemetry.registry",
                 "stochastic_gradient_push_torch.telemetry.sink",
                 "stochastic_gradient_push_torch.telemetry.tracer",
+                "stochastic_gradient_push_torch.telemetry.aggregate",
+                "stochastic_gradient_push_torch.telemetry.tracemerge",
+                "stochastic_gradient_push_torch.resilience.chaos",
+                "stochastic_gradient_push_torch.sim",
+                "stochastic_gradient_push_torch.sim.engine",
+                "stochastic_gradient_push_torch.sim.campaign",
+                "stochastic_gradient_push_torch.sim.fabric",
+                "stochastic_gradient_push_torch.sim.curves",
+                "stochastic_gradient_push_torch.sim.fleet",
+                "stochastic_gradient_push_torch.sim.replay",
+                "stochastic_gradient_push_torch.sim.cli",
                 "stochastic_gradient_push_torch.parallel.wirecheck",
                 "stochastic_gradient_push_torch.resilience.recovery",
                 "stochastic_gradient_push_torch.topology.hierarchical",
@@ -363,6 +374,66 @@ def test_supervision_runs_with_jax_unavailable(tmp_path):
             "stochastic_gradient_push_torch.supervise.hostsim",
             "stochastic_gradient_push_torch.serve.child",
             "stochastic_gradient_push_torch.planner.policy"} <= set(
+                out["loaded"])
+    assert not [m for m in out["loaded"]
+                if m.startswith("stochastic_gradient_push_tpu")]
+
+
+_PLANE_RUN = r"""
+import importlib.util, json, os, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
+    sys.modules[name] = None          # any import of them now fails
+repo, d = sys.argv[1], sys.argv[2]
+sys.path.insert(0, repo)
+
+def script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(repo, "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+from stochastic_gradient_push_torch.resilience import chaos
+from stochastic_gradient_push_torch.sim import (kill_slice_campaign,
+                                                run_sim_fleet)
+obsreport, fleetmon, sim = (script("torch_obsreport"),
+                            script("torch_fleetmon"), script("torch_sim"))
+assert obsreport.main(["--selftest"]) == 0
+assert chaos.main(["--selftest", "--device", "cpu"]) == 0
+assert sim.main(["--world", "64", "--steps", "20", "--campaign",
+                 "kill-slice", "--slice-size", "16"]) == 0
+rep = run_sim_fleet(d, {0: 2, 1: 2, 2: 2}, steps=20, save_every=5,
+                    step_s=0.05, campaign=kill_slice_campaign(6, 2))
+assert (rep.rc, rep.world, rep.excluded) == (0, 4, [2]), rep
+merged = os.path.join(d, "merged.json")
+rc = fleetmon.main([d, "--json", "--merge-trace", merged])
+assert rc == 1          # the killed host's heartbeat-silence alert
+print(json.dumps({"loaded": sorted(
+    m for m in sys.modules if m.startswith("stochastic_gradient_push"))}))
+"""
+
+
+def test_the_observability_plane_chaos_and_sim_run_with_jax_unavailable(
+        tmp_path):
+    """``scripts/torch_obsreport.py``'s selftest, the chaos drill on the
+    CPU, ``scripts/torch_sim.py``'s curve mode, a simulated fleet's
+    kill-slice cycle and ``scripts/torch_fleetmon.py`` over its directory
+    (the merged trace written), in an interpreter where ``import jax``
+    fails."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _PLANE_RUN, str(REPO), str(tmp_path)],
+        capture_output=True, text=True, timeout=240, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "obsreport selftest: OK" in proc.stdout
+    assert "chaos selftest: OK" in proc.stdout
+    assert "merged trace -> " in proc.stdout and "(1 flow(s))" in proc.stdout
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"stochastic_gradient_push_torch.telemetry.aggregate",
+            "stochastic_gradient_push_torch.telemetry.tracemerge",
+            "stochastic_gradient_push_torch.resilience.chaos",
+            "stochastic_gradient_push_torch.sim.fleet",
+            "stochastic_gradient_push_torch.supervise.coordinator"} <= set(
                 out["loaded"])
     assert not [m for m in out["loaded"]
                 if m.startswith("stochastic_gradient_push_tpu")]
